@@ -1,0 +1,169 @@
+"""Ragged paged attention — the serving decode kernel over a paged KV cache
+(the port of ``paddle_tpu/ops/pallas/paged_attention.py``).
+
+Cache layout, unchanged from the JAX package:
+
+- pools ``k_pages``/``v_pages`` of shape [L, H, P, page_size, D] (one
+  layer is [H, P, page_size, D]);
+- ``page_table[b, i]`` = pool page holding positions
+  ``[i*page_size, (i+1)*page_size)`` of sequence ``b``.  Page 0 is the
+  null/scratch page: never allocated to a sequence, it absorbs the writes
+  of idle batch rows and backs unused table entries;
+- ``seq_lens[b]`` = tokens resident INCLUDING the one being decoded, so
+  the length mask alone is the causal mask.
+
+The writes update the pools IN PLACE (the JAX functions returned new
+arrays; here the engine's pools are mutated and also returned, so call
+sites read the same either way).
+
+:func:`ragged_paged_attention` launches ``csrc/paged_attention.cu`` for
+CUDA tensors and takes :func:`ragged_paged_attention_reference` for CPU
+tensors."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.ops.kernels import NEG_INF
+from paddle_tpu_torch.ops.kernels._build import Kernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL = Kernel("paged_attention", "paged_attention_f32",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _P])
+
+
+# -- cache layout helpers ------------------------------------------------------
+
+
+def init_kv_pages(num_layers: int, num_heads: int, num_pages: int,
+                  page_size: int, head_dim: int, dtype=torch.float32,
+                  device=None):
+    """(k_pages, v_pages) pools of shape [L, H, P, page_size, D], zeroed.
+    Page 0 of every pool is the null page; allocators hand out ids from 1."""
+    shape = (num_layers, num_heads, num_pages, page_size, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def write_decode_kv(k_pages, v_pages, k, v, page_table, positions):
+    """Write one new token's K/V per batch row into one layer's pools, in
+    place.  k/v [B, H, D]; pools [H, P, page_size, D]; page_table
+    [B, max_pages]; positions [B] absolute token index.  Idle rows (all-zero
+    table rows) land in the null page."""
+    ps = k_pages.shape[2]
+    positions = positions.long()
+    pages = torch.gather(page_table.long(), 1,
+                         (positions // ps)[:, None])[:, 0]
+    offs = positions % ps
+    k_pages[:, pages, offs] = k.transpose(0, 1)
+    v_pages[:, pages, offs] = v.transpose(0, 1)
+    return k_pages, v_pages
+
+
+def write_prefill_kv(k_pages, v_pages, ks, vs, page_table, seq_lens):
+    """Scatter a prefilled prompt batch into the stacked pools, in place.
+    ks/vs [L, B, T, H, D] (padded prompts); pools [L, H, P, page_size, D];
+    page_table [B, max_pages]; seq_lens [B].  Positions at or past
+    ``seq_lens`` are redirected to the null page."""
+    _, b, t, _, _ = ks.shape
+    ps = k_pages.shape[3]
+    pos = torch.arange(t, device=ks.device)
+    valid = pos[None, :] < seq_lens.long()[:, None]  # [B, T]
+    page_slot = torch.where(valid, pos[None, :] // ps, 0)
+    pages = torch.where(valid,
+                        torch.gather(page_table.long(), 1, page_slot), 0)
+    offs = (pos % ps)[None, :].expand(b, t)
+    k_pages[:, :, pages, offs] = ks.permute(0, 3, 1, 2, 4)
+    v_pages[:, :, pages, offs] = vs.permute(0, 3, 1, 2, 4)
+    return k_pages, v_pages
+
+
+# -- the plain version ---------------------------------------------------------
+
+
+def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
+                                     seq_lens, scale=None):
+    """Plain PyTorch twin: gather each sequence's pages, mask, softmax.
+    q [B, H, D]; pools [H, P, page_size, D]; returns [B, H, D].  Rows with
+    ``seq_lens == 0`` produce zeros (idle slots), not NaNs."""
+    h, _, ps, d = k_pages.shape
+    b, maxp = page_table.shape
+    scale = scale if scale is not None else d ** -0.5
+    table = page_table.long()
+    # [H, B, maxp, ps, D] -> [B, H, maxp*ps, D]
+    k = k_pages[:, table].transpose(0, 1).reshape(b, h, maxp * ps, d)
+    v = v_pages[:, table].transpose(0, 1).reshape(b, h, maxp * ps, d)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
+    pos = torch.arange(maxp * ps, device=q.device)
+    live = pos[None, None, :] < seq_lens.long()[:, None, None]
+    s = torch.where(live, s, s.new_tensor(NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhk,bhkd->bhd", p / torch.clamp(l, min=1e-30),
+                       v.float())
+    # fully masked rows: NEG_INF is finite, so p == 1 everywhere and the
+    # sum above is a mean of null/stale pages — zero them explicitly
+    out = torch.where(seq_lens[:, None, None] > 0, out, 0.0)
+    return out.to(q.dtype)
+
+
+# -- the kernel ----------------------------------------------------------------
+
+
+def _check(q, k_pages, v_pages, page_table, seq_lens):
+    enforce(q.dim() == 3, f"q must be [B, H, D], got {tuple(q.shape)}")
+    enforce(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
+            f"pools must be one layer's [H, P, page_size, D], got "
+            f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    b, h, d = q.shape
+    enforce(k_pages.shape[0] == h and k_pages.shape[3] == d,
+            f"q {tuple(q.shape)} does not match pools "
+            f"{tuple(k_pages.shape)}")
+    enforce(page_table.dim() == 2 and page_table.shape[0] == b,
+            f"page_table must be [B={b}, max_pages], got "
+            f"{tuple(page_table.shape)}")
+    enforce(tuple(seq_lens.shape) == (b,),
+            f"seq_lens must be [B={b}], got {tuple(seq_lens.shape)}")
+    enforce(page_table.dtype == torch.int32 and seq_lens.dtype == torch.int32,
+            "page_table and seq_lens must be int32")
+    devs = {t.device for t in (q, k_pages, v_pages, page_table, seq_lens)}
+    enforce(len(devs) == 1, f"inputs on several devices: {devs}")
+
+
+def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                           scale=None):
+    """Decode-step attention of q [B, H, D] over one layer's paged KV cache.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (f32, contiguous, head_dim <= 128) or raise."""
+    _check(q, k_pages, v_pages, page_table, seq_lens)
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        return ragged_paged_attention_reference(
+            q, k_pages, v_pages, page_table, seq_lens, scale=scale)
+    enforce(q.device.type == "cuda", f"no kernel for device {q.device}")
+    enforce(all(t.dtype == torch.float32 for t in (q, k_pages, v_pages)),
+            "the paged-attention kernel takes float32 q and pools")
+    enforce(d <= 128, f"head_dim {d} > 128")
+    enforce(all(t.is_contiguous() for t in
+                (q, k_pages, v_pages, page_table, seq_lens)),
+            "the paged-attention kernel needs contiguous inputs")
+    b, h, _ = q.shape
+    hp, p, ps, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      page_table.data_ptr(), seq_lens.data_ptr(),
+                      out.data_ptr(), b, h, p, ps, d, page_table.shape[1],
+                      float(scale), stream)
+    return out

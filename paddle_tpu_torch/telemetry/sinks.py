@@ -1,0 +1,88 @@
+"""Sinks — where emitted metric records go (the port's copy of
+``paddle_tpu/telemetry/sinks.py``):
+
+- :class:`JsonlSink`  — one JSON object per line, to a path or an open
+  file object;
+- :class:`MemorySink` — list of records, for tests and notebooks.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+
+def json_default(o):
+    """Numpy / torch scalars and arrays and other non-JSON leaves ->
+    plain Python."""
+    import numpy as np
+
+    if isinstance(o, (np.integer,)):
+        return int(o)
+    if isinstance(o, (np.floating,)):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if hasattr(o, "item"):
+        try:
+            return o.item()
+        except (TypeError, ValueError, RuntimeError):  # size > 1
+            pass
+    return str(o)
+
+
+class JsonlSink:
+    """One JSON line per record.  ``target`` is a filesystem path (opened
+    lazily, append mode, parent dirs created) or an open file object
+    (not closed by :meth:`close` — the caller owns it, e.g. stdout)."""
+
+    def __init__(self, target):
+        self._lock = threading.Lock()
+        if hasattr(target, "write"):
+            self._fh, self._owns, self.path = target, False, None
+        else:
+            self._fh, self._owns, self.path = None, True, str(target)
+
+    def _handle(self):
+        if self._fh is None:
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self._fh = open(self.path, "a", buffering=1)
+        return self._fh
+
+    def write(self, record: dict) -> None:
+        line = json.dumps(record, default=json_default)
+        with self._lock:
+            self._handle().write(line + "\n")
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh is not None and self._owns:
+                self._fh.close()
+                self._fh = None
+
+
+class MemorySink:
+    """Records accumulate in ``.records`` (the test sink)."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def write(self, record: dict) -> None:
+        self.records.append(record)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def by_kind(self, kind: str) -> list[dict]:
+        return [r for r in self.records if r.get("kind") == kind]
