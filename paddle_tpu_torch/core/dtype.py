@@ -16,10 +16,22 @@ _BY_NAME = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def set_f32_policy() -> None:
-    """Full-precision f32 products on the card: TF32 off in both the
-    cuBLAS and the cuDNN paths (set explicitly, not left to defaults)."""
+    """Full-precision, reproducible f32 on the card: TF32 off in both the
+    cuBLAS and the cuDNN paths, and cuDNN restricted to deterministic
+    algorithms (set explicitly, not left to defaults).  The port's own
+    kernels are deterministic; with cuDNN's conv backward deterministic
+    too, a training run on the card repeats bit for bit, as the JAX
+    package's do."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` upcast to float32, or as it is when it is wider: the f32
+    accumulations of the port never narrow a float64 input, so the same
+    code runs a double-precision witness step on the CPU."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def from_name(name: str) -> torch.dtype:

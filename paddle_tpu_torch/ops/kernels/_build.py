@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for Hopper
 with ``ctypes``.  Nothing here includes PyTorch's headers, so a build
 takes seconds instead of the minutes ``torch.utils.cpp_extension.load``
 needs.  Libraries land in ``build/kernels/`` at the root of the checkout,
-named by a digest of their source and flags, so an edited source builds
-anew and an unchanged one is loaded from disk.
+named by a digest of their source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source builds anew and an unchanged one is
+loaded from disk.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :meth:`Kernel.launch` raises on anything but 0.  A refused launch (too
@@ -50,7 +51,10 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
+    """Built library of ``csrc/<name>.cu``, keyed by the source, every
+    shared header (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,10 +1,28 @@
-"""Plain tensor ops of the transformer block (the port's side of
-``paddle_tpu/ops/nn.py``)."""
+"""NN primitives of the port (the port's side of ``paddle_tpu/ops/nn.py``):
+the transformer block's LN and GELU, and the image path's convolution,
+pooling and batch norm.
+
+Layout as in the JAX package: NHWC activations, HWIO conv weights.
+PyTorch's own conv and pool functions take NCHW, so they run on permuted
+views; a permuted view of a contiguous NHWC tensor is channels_last, and
+results are permuted back to NHWC."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from paddle_tpu_torch.core.dtype import at_least_f32
+
+
+def pair(v):
+    """An int or an (h, w) sequence as an (h, w) tuple."""
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def conv_out(size: int, k: int, s: int, p: int) -> int:
+    """Output extent of a convolution or pooling window along one axis."""
+    return (size + 2 * p - k) // s + 1
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -26,3 +44,117 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation.  PyTorch's
     default (erf) differs by about 1e-3, enough to flip greedy tokens."""
     return F.gelu(x, approximate="tanh")
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def conv2d(x, w, stride=1, padding=0, dilation=1, groups: int = 1):
+    """2-D convolution, x [N, H, W, Cin], w [KH, KW, Cin // groups, Cout].
+
+    CUDA tensors of the direct kernel's shape class (groups=1,
+    dilation=1, numeric padding; the routing rule of the JAX package's
+    ``conv2d``) launch the hand-written kernel through
+    ``ops/kernels/conv.conv2d_direct``; everything else takes the plain
+    :func:`conv2d_xla`."""
+    if (x.device.type == "cuda" and groups == 1
+            and pair(dilation) == (1, 1) and not isinstance(padding, str)
+            and x.dim() == 4):
+        from paddle_tpu_torch.ops.kernels import conv as kconv
+
+        return kconv.conv2d_direct(x, w, stride=stride, padding=padding)
+    return conv2d_xla(x, w, stride=stride, padding=padding,
+                      dilation=dilation, groups=groups)
+
+
+def conv2d_xla(x, w, stride=1, padding=0, dilation=1, groups: int = 1):
+    """The plain convolution (``F.conv2d`` on NCHW views), named after the
+    JAX package's XLA lowering it stands for: the reference numerics the
+    kernel paths are held against."""
+    pad = padding if isinstance(padding, str) else pair(padding)
+    y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), None, pair(stride), pad,
+                 pair(dilation), groups)
+    return _nhwc(y)
+
+
+def max_pool2d(x, ksize, stride=None, padding=0):
+    """Max pooling over NHWC windows; padded cells are -inf."""
+    kh, kw = pair(ksize)
+    sh, sw = pair(stride if stride is not None else ksize)
+    ph, pw = pair(padding)
+    if ph or pw:
+        x = F.pad(x, (0, 0, pw, pw, ph, ph), value=float("-inf"))
+    return _nhwc(F.max_pool2d(_nchw(x), (kh, kw), (sh, sw)))
+
+
+def avg_pool2d(x, ksize, stride=None, padding=0, exclude_pad: bool = True):
+    """Average pooling; ``exclude_pad`` divides border windows by their
+    count of real cells (the reference's CudnnPool EXCLUDE_PADDING)."""
+    kh, kw = pair(ksize)
+    sh, sw = pair(stride if stride is not None else ksize)
+    ph, pw = pair(padding)
+
+    def window_mean(v):  # zero padding counted in the divisor
+        if ph or pw:
+            v = F.pad(v, (0, 0, pw, pw, ph, ph))
+        return _nhwc(F.avg_pool2d(_nchw(v), (kh, kw), (sh, sw)))
+
+    mean = window_mean(x)
+    if exclude_pad and (ph or pw):
+        return mean / window_mean(torch.ones_like(x[..., :1]))
+    return mean
+
+
+def batch_norm(x, scale, bias, running_mean, running_var, is_train: bool,
+               momentum: float = 0.9, eps: float = 1e-5):
+    """Batch normalization over all but the last (channel) axis; returns
+    (y, new_running_mean, new_running_var).
+
+    The JAX package's convention, not ``F.batch_norm``'s: single-pass
+    E[x] and E[x^2] in f32, the variance clamped at 0 and BIASED (divided
+    by the count), and ``new = momentum * running + (1 - momentum) *
+    batch``."""
+    if is_train:
+        mean, var = moments(x)
+        new_mean = momentum * running_mean + (1 - momentum) * mean
+        new_var = momentum * running_var + (1 - momentum) * var
+    else:
+        mean, var = running_mean, running_var
+        new_mean, new_var = running_mean, running_var
+    inv = torch.rsqrt(var + eps) * scale
+    shift = bias - mean * inv
+    return x * inv + shift, new_mean, new_var
+
+
+def moments(x):
+    """(mean, biased variance) over all but the last axis: single-pass,
+    f32, the variance clamped at 0 (E[x^2] - E[x]^2 can round negative)."""
+    dims = tuple(range(x.dim() - 1))
+    xf = at_least_f32(x)
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+def conv2d_bn_relu(x, w, scale, bias, running_mean, running_var,
+                   is_train: bool, momentum: float = 0.9, eps: float = 1e-5,
+                   stride=1, padding=0, act: str = "relu"):
+    """Fused conv + batch-norm + activation (the ResNet block entry point,
+    ``act`` "relu" or "" for linear).  Returns ``(y, new_running_mean,
+    new_running_var)``.
+
+    Lowers to ``ops/kernels/conv.conv2d_bn_act``: training takes the BN
+    statistics from the conv kernel's epilogue, inference folds the whole
+    affine + ReLU into it.  CPU tensors run the kernels' plain twins
+    inside the same autograd functions."""
+    from paddle_tpu_torch.ops.kernels import conv as kconv
+
+    return kconv.conv2d_bn_act(
+        x, w, scale, bias, running_mean, running_var, is_train,
+        momentum=momentum, eps=eps, stride=stride, padding=padding,
+        act=act or None)

@@ -132,3 +132,102 @@ def test_engine_on_card_greedy_equals_full_context_argmax(cuda):
         logits = T.forward(cfg, params, full)
         want = logits[0, len(prompt) - 1:-1].argmax(-1).tolist()
         assert res.tokens == want
+
+
+# -- BRGEMM and direct conv (the ResNet-50 conv path) --------------------------
+
+
+@pytest.mark.parametrize("g,m,k,n", [
+    (1, 300, 64, 256),    # M not a multiple of the 128-row tile
+    (3, 17, 9, 21),       # ragged everything, G > 1
+    (1, 129, 147, 64),    # odd K, N at the 64-column tile
+    (2, 1, 5, 130),       # one row, N past the 128-column tile
+])
+@pytest.mark.parametrize("mode", ["none", "stats", "affine_relu"])
+def test_brgemm_kernel_matches_plain(cuda, g, m, k, n, mode):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+    rng = np.random.default_rng(g * 1000 + m + k + n)
+    a, b = _rand(rng, g, m, k).to(cuda), _rand(rng, g, k, n).to(cuda)
+    kw = {}
+    if mode == "affine_relu":
+        kw = dict(scale=_rand(rng, n).to(cuda), shift=_rand(rng, n).to(cuda),
+                  act="relu")
+    stats = mode == "stats"
+    before = BR.KERNEL.launches
+    got = BR.brgemm(a, b, stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert BR.KERNEL.launches == before + 1
+    want = BR.brgemm_reference(a, b, stats=stats, **kw)
+    got, want = (got, want) if stats else ((got,), (want,))
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        scale = max(1.0, y.abs().max().item())
+        assert (x - y).abs().max().item() <= TOL * scale
+    if stats:   # fixed summation order: a rerun is bit-identical
+        again = BR.brgemm(a, b, stats=True)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+CONV_CFGS = [(3, 1, 1), (3, 2, 1), (1, 1, 0), (1, 2, 0), (7, 2, 3)]
+
+
+@pytest.mark.parametrize("k,s,p", CONV_CFGS)
+@pytest.mark.parametrize("mode", ["none", "stats", "affine_relu"])
+def test_conv_kernels_match_plain_on_odd_shapes(cuda, k, s, p, mode):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(k * 10 + s)
+    x = _rand(rng, 2, 13, 14, 5).to(cuda)
+    w = (_rand(rng, k, k, 5, 9) * 0.3).to(cuda)
+    kw = {}
+    if mode == "affine_relu":
+        kw = dict(scale=_rand(rng, 9).to(cuda), shift=_rand(rng, 9).to(cuda),
+                  act="relu")
+    stats = mode == "stats"
+    kern = BR.KERNEL if k == 1 else CV.KERNEL
+    before = kern.launches
+    got = CV.fwd_raw(x, w, (s, s), (p, p), stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = CV.fwd_raw_reference(x, w, (s, s), (p, p), stats=stats, **kw)
+    got, want = (got, want) if stats else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= TOL * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("is_train", [True, False])
+def test_conv_bn_act_on_card_matches_reference_and_grads(cuda, is_train):
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(5)
+    x = _rand(rng, 2, 13, 14, 4).to(cuda).requires_grad_()
+    w = (_rand(rng, 3, 3, 4, 8) * 0.3).to(cuda).requires_grad_()
+    ga = (_rand(rng, 8) * 0.2 + 1).to(cuda).requires_grad_()
+    be = (_rand(rng, 8) * 0.2).to(cuda).requires_grad_()
+    rm = (_rand(rng, 8) * 0.1).to(cuda)
+    rv = (_rand(rng, 8).abs() + 0.5).to(cuda)
+    r = _rand(rng, 2, 7, 7, 8).to(cuda)   # a random output cotangent
+    outs = []
+    for fn in (CV.conv2d_bn_act, CV.conv2d_bn_act_reference):
+        y, nm, nv = fn(x, w, ga, be, rm, rv, is_train, stride=2, padding=1)
+        grads = torch.autograd.grad((y * r).sum(), (x, w, ga, be))
+        outs.append([y, nm, nv, *grads])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())
+
+
+def test_conv_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    a = torch.zeros(1, 4, 3, dtype=torch.float64, device=cuda)
+    with pytest.raises(EnforceError, match="float32"):
+        BR.brgemm(a, torch.zeros(1, 3, 2, dtype=torch.float64, device=cuda))
+    x = torch.zeros(1, 5, 5, 3, device=cuda).half()
+    with pytest.raises(EnforceError, match="float32"):
+        CV.fwd_raw(x, torch.zeros(3, 3, 3, 4, device=cuda).half(), (1, 1),
+                   (1, 1))

@@ -26,6 +26,29 @@ MODULES = (
     "paddle_tpu_torch.serving.engine",
     "paddle_tpu_torch.serving.export",
     "paddle_tpu_torch.serving.__main__",
+    "paddle_tpu_torch.config.parse_state",
+    "paddle_tpu_torch.config.topology",
+    "paddle_tpu_torch.core.initializer",
+    "paddle_tpu_torch.core.parameters",
+    "paddle_tpu_torch.layers.base",
+    "paddle_tpu_torch.layers.attr",
+    "paddle_tpu_torch.layers.activation",
+    "paddle_tpu_torch.layers.pooling",
+    "paddle_tpu_torch.layers.data_type",
+    "paddle_tpu_torch.layers.api",
+    "paddle_tpu_torch.ops.activations",
+    "paddle_tpu_torch.ops.loss",
+    "paddle_tpu_torch.ops.math",
+    "paddle_tpu_torch.ops.kernels.brgemm",
+    "paddle_tpu_torch.ops.kernels.conv",
+    "paddle_tpu_torch.models.image",
+    "paddle_tpu_torch.optimizer",
+    "paddle_tpu_torch.trainer",
+    "paddle_tpu_torch.trainer.step",
+    "paddle_tpu_torch.trainer.event",
+    "paddle_tpu_torch.reader",
+    "paddle_tpu_torch.reader.decorator",
+    "paddle_tpu_torch.reader.feeder",
 )
 
 
