@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains.
+trains (ResNet-50 and the transformer LM).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -24,10 +24,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    (x [64, 224, 224, 3]) with stats.  Max abs error <= 1e-4 (f32
    round-off of another summation order; TF32 off); the BN statistics
    are compared as the moments they feed (sum / count, sumsq / count).
+   The flash forward and the backward's dQ and dK/dV kernels at the LM
+   training shape [16, 1024, 12, 64] causal (and T=333; the forward gets
+   a row of its own at this shape), each against its plain twin
+   (max abs error <= 1e-4, relative to the largest entry where that is
+   above 1), and the whole backward through the autograd Function against
+   float64 autograd of exact attention on the card (relative norm <=
+   1e-5), with a backward that drops delta = rowsum(dO * O) as a planted
+   fault that must exceed it.
    Times are CUDA-event means over many launches with the 50 MB L2
    flushed before each launch, beside the plain twin, one PyTorch library
-   call used only here as a yardstick (``scaled_dot_product_attention``,
-   ``torch.matmul``, channels_last ``F.conv2d``) and the bound: the larger
+   call used only here as a yardstick (``scaled_dot_product_attention``
+   and its backward, ``torch.matmul``, channels_last ``F.conv2d``) and
+   the bound: the larger
    of bytes moved / 3.35 TB/s and flops / 67 TFLOP/s (H100 SXM f32 FMA,
    the tensor cores would need TF32), counting only the taps of a conv
    that fall inside the image.  cuDNN's conv backward (dx, dw) at res2's
@@ -57,7 +66,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    (device time by kernel class, busy share); then 20 steps with
    deterministic cuDNN on and off in turn (its cost in step time); then
    ``test`` on 2 batches, again exactly 36 and 17 per batch.
-5. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+5. The LM training path, ``transformer.build_train_step``, at the width
+   of phase 3 in f32 (flash attention, no remat), Adam at lr 1e-4 with
+   bf16 moments (as the repo's LM benchmark): one step at batch 2 x 128
+   on the card (kernels) and on the CPU (plain twins), each against the
+   CPU's plain twins in float64 by the loss (relative 1e-5) and every
+   gradient leaf (||g32 - g64|| / ||g64|| <= 1e-4), with TF32 allowed in
+   cuBLAS and the flash backward's delta dropped as planted faults that
+   must exceed it, and the card's step repeated bit for bit.  Then 2
+   warm-up and 10 timed steps at batch 16 x 1024 on one fixed batch
+   (tokens/s, step ms, peak memory, the f32 MFU against 67 TFLOP/s by
+   ``bench.py``'s FLOP count), losses finite and falling, with the launch
+   counts zeroed just before and read just after: exactly 12 flash
+   forward, 12 dQ and 12 dK/dV launches per step; then 3 steps under
+   ``torch.profiler`` (device time by kernel class, the optimizer split
+   out, busy share).
+6. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -76,6 +100,9 @@ STEP_COST_RTOL = 1e-4    # f32 ResNet-50 step vs the f64 witness: cost, and
 STEP_LEAF_LIMIT = 0.1    # per leaf ||x32 - x64|| / ||x64 - x0|| (below)
 STEP_FLOOR = 1e-2        # of the leaf's share of the whole f64 update
 CONV_BWD_RTOL = 5e-5     # cuDNN conv backward at the f32 policy vs f64
+FLASH_BWD_F64_LIMIT = 1e-5  # flash backward kernels vs f64 exact attention
+LM_LOSS_RTOL = 1e-5      # f32 LM step on the card vs the f64 witness: loss,
+LM_GRAD_LIMIT = 1e-4     # per leaf ||g32 - g64|| / ||g64||
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 
@@ -162,6 +189,165 @@ def check_flash(dev, timer) -> dict:
     if not err <= TOL:
         raise AssertionError(f"flash kernel vs plain: max abs err {err}")
     return row
+
+
+def rel_norm(got, want) -> float:
+    """||got - want|| / ||want|| in float64 on the CPU."""
+    want = want.detach().cpu().double()
+    return float(torch.linalg.norm(got.detach().cpu().double() - want)
+                 / torch.linalg.norm(want))
+
+
+def check_flash_backward(dev, timer) -> tuple[list, dict]:
+    """The flash kernels at the LM training shape [16, 1024, 12, 64] causal
+    and at an odd T=333.  The forward, and the dQ and dK/dV kernels, each
+    against its plain twin on the same inputs (max abs error <= TOL,
+    relative to the largest entry where that is above 1), and the whole
+    backward through the autograd Function against float64 autograd of
+    exact attention on the card (relative norm <= FLASH_BWD_F64_LIMIT),
+    with a backward that drops delta as the planted fault that must exceed
+    it.  Times at the training shape: the forward, each backward kernel,
+    the whole backward (delta + both kernels), the plain twins and
+    ``scaled_dot_product_attention`` forward and backward (a yardstick
+    only; the kernels it ran are named, and its math backend, plain f32
+    products with TF32 off, is timed beside it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h, d = 12, 64
+    scale = d ** -0.5
+    summary = {"phase": "flash_backward", "tol": TOL,
+               "f64_limit": FLASH_BWD_F64_LIMIT}
+    # name, kernel, plain twin, products of the function it computes (dQ:
+    # S, dP, dQ; dK/dV: S, dP, dV, dK), outputs of [B, T, H, D]
+    kernels = (("flash_attention_bwd_dq", FA._bwd_dq_kernel,
+                FA._bwd_dq_plain, 3, 1),
+               ("flash_attention_bwd_dkv", FA._bwd_dkv_kernel,
+                FA._bwd_dkv_plain, 4, 2))
+    err = {name: 0.0 for name, *_ in kernels}
+    fwd_err = 0.0
+    rows = []
+    plain_delta = FA._delta
+    for b, t in ((16, 1024), (16, 333)):
+        q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                      for _ in range(4))
+        qp, kp, vp = FA._prep(q, k, v)
+        dop = FA._prep(g, g, g)[0]
+        o, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
+        o_ref, lse_ref = FA._fwd_plain(qp, kp, vp, t, True, scale)
+        fwd_err = max(fwd_err, (o - o_ref)[:, :t].abs().max().item(),
+                      (lse - lse_ref)[:, :t].abs().max().item())
+        del o_ref, lse_ref
+        delta = FA._delta(dop, o).contiguous()
+        args = (qp, kp, vp, lse, dop, delta, t, True, scale)
+        for name, kern, plain, _, _ in kernels:
+            got, want = kern(*args), plain(*args)
+            for x, y in zip(*((r,) if torch.is_tensor(r) else r
+                              for r in (got, want))):
+                e = (x - y).abs().max().item()
+                err[name] = max(err[name], e)
+                if not e <= TOL * max(1.0, y.abs().max().item()):
+                    raise AssertionError(f"flash bwd {name} [{b},{t},{h},"
+                                         f"{d}]: kernel vs plain {e}")
+        # the whole backward, as training reaches it, against float64
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        wide = [x.double().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(FA.flash_attention_reference(
+            *wide, causal=True), wide, g.double())
+        readings = {}
+        for label in ("f32", "delta_dropped_control"):
+            if label == "delta_dropped_control":
+                FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+            try:
+                got = torch.autograd.grad(FA.flash_attention(
+                    *leaves, causal=True), leaves, g)
+            finally:
+                FA._delta = plain_delta
+            readings[label] = max(rel_norm(x, y) for x, y in zip(got, want))
+        summary[f"vs_f64_T{t}"] = readings
+        if not (readings["f32"] <= FLASH_BWD_F64_LIMIT
+                < readings["delta_dropped_control"]):
+            raise AssertionError(f"flash backward vs f64: {summary}")
+        del wide, want, leaves
+        if t != 1024:
+            continue
+        pairs_n = b * h * t * (t + 1) // 2     # causal (query, key) pairs
+        act = 4.0 * b * t * h * d              # one [B, T, H, D] f32 tensor
+        rowvec = 4.0 * b * h * t               # lse or delta
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        # the forward as training runs it: q.k and p.v over the causal
+        # pairs against q, k, v in and o, lse out
+        bound_ms, by = bound(4 * act + rowvec, 4.0 * pairs_n * d)
+        rows.append({
+            "name": "flash_attention_fwd_lm_train", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:307",
+            "shape": [b, t, h, d],
+            "ms": timer(lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale)),
+            "plain_ms": timer(lambda: FA._fwd_plain(qp, kp, vp, t, True,
+                                                    scale)),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))})
+        for name, kern, plain, products, outs in kernels:
+            # reads q, k, v, dO, lse, delta; writes the outputs
+            bound_ms, by = bound(act * (4 + outs) + 2 * rowvec,
+                                 2.0 * products * pairs_n * d)
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/ops/kernels/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": "paddle_tpu/ops/pallas/flash_attention.py:331",
+                "shape": [b, t, h, d],
+                "ms": timer(lambda: kern(*args)),
+                "plain_ms": timer(lambda: plain(*args)),
+                "bound_ms": bound_ms, "bound_by": by,
+                # no PyTorch call computes dQ (or dK, dV) alone
+                "library_ms": None, "max_abs_err": err[name]})
+        # the whole function: five products over the causal pairs against
+        # q, k, v, o, dO in and dq, dk, dv out
+        bound_ms, by = bound(8 * act + rowvec, 10.0 * pairs_n * d)
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        gh = g.transpose(1, 2).contiguous()
+        with sdpa_kernel(SDPBackend.MATH):
+            out_math = F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+
+        def library_step():
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
+
+        # which backend SDPA picks for f32 (its kernels decide whether it
+        # uses the tensor cores, as the flash kernels do not)
+        summary["library_kernels"] = [
+            k["name"] for k in profile_window(library_step, 1).get(
+                "top_kernels", [])]
+        summary["whole_backward"] = {
+            "shape": [b, t, h, d], "gflop": 10.0 * pairs_n * d / 1e9,
+            "gbytes": (8 * act + rowvec) / 1e9,
+            "ms": timer(lambda: FA._bwd_kernel(qp, kp, vp, o, lse, dop, t,
+                                               True, scale)),
+            "plain_ms": timer(lambda: FA._bwd_plain(qp, kp, vp, o, lse, dop,
+                                                    t, True, scale)),
+            "library_ms": timer(lambda: torch.autograd.grad(
+                out, (qh, kh, vh), gh, retain_graph=True)),
+            "library_math_ms": timer(lambda: torch.autograd.grad(
+                out_math, (qh, kh, vh), gh, retain_graph=True)),
+            "bound_ms": bound_ms, "bound_by": by}
+        del qh, kh, vh, out, out_math
+    if not fwd_err <= TOL:
+        raise AssertionError(f"flash forward at the training shapes: kernel "
+                             f"vs plain max abs err {fwd_err}")
+    err["flash_attention_fwd_lm_train"] = fwd_err
+    for row in rows:       # the worst over both shapes
+        row["max_abs_err"] = err[row["name"]]
+    summary["max_abs_err"] = err
+    torch.cuda.synchronize()
+    return rows, summary
 
 
 def check_paged(dev, timer) -> dict:
@@ -392,9 +578,7 @@ def check_conv_backward(dev) -> dict:
                                           (s, s), (p, p))
             finally:
                 set_f32_policy()
-            row[mode] = max(float(torch.linalg.norm(g.cpu().double() - r)
-                                  / torch.linalg.norm(r))
-                            for g, r in zip(got, want))
+            row[mode] = max(rel_norm(g, r) for g, r in zip(got, want))
         out[label] = row
         if not (row["f32"] <= CONV_BWD_RTOL < row["tf32_control"]):
             raise AssertionError(f"conv backward vs f64: {out}")
@@ -496,6 +680,9 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
+    for mine in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged"):
+        if mine in low:
+            return f"{mine} (ours)"
     if "brgemma" in low:
         return "brgemm (ours)"
     if "conva" in low:
@@ -506,17 +693,19 @@ def kernel_class(name: str) -> str:
         return "memcpy/memset"
     if any(k in low for k in ("dgrad", "wgrad", "cudnn", "convolve")):
         return "cudnn conv backward"
-    if "gemm" in low:
+    if "gemm" in low or "splitk" in low:
         return "other gemm (cuBLAS/cuDNN)"
     return "elementwise and reductions"
 
 
-def profile_window(fn, steps: int) -> dict:
+def profile_window(fn, steps: int, split: str | None = None) -> dict:
     """Device time by kernel class over ``fn()`` (``steps`` train steps)
     under ``torch.profiler``; busy = the sum of kernel times (one stream).
-    The profiler's own host cost inflates the traced wall many times over,
-    so the caller sets the idle share against an untraced step.  An empty
-    trace reports "not measured"."""
+    The kernels launched inside the ``record_function`` ranges named
+    ``split`` form a class of their own.  The profiler's own host cost
+    inflates the traced wall many times over, so the caller sets the idle
+    share against an untraced step.  An empty trace reports "not
+    measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -532,12 +721,19 @@ def profile_window(fn, steps: int) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or not e.self_device_time_total:
             continue
+        if e.key.startswith("train_step/"):
+            continue     # a range's device-side span, not a kernel
         ms = e.self_device_time_total / 1e3
         cls = kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + ms / steps
         kernels.append((ms / steps, e.count // steps, e.key[:100], cls))
     if not kernels:
         return {"steps": steps, "device_time": "not measured"}
+    if split:
+        moved = range_device_ms(prof, split, steps)
+        for cls, ms in moved.items():
+            by_class[cls] -= ms
+        by_class[split] = sum(moved.values())
     busy = sum(by_class.values())
     kernels.sort(reverse=True)
     return {"steps": steps, "traced_wall_ms_per_step": wall_ms / steps,
@@ -751,6 +947,188 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
              "setup_s": setup_s, "profile": profile}, br_n, cv_n)
 
 
+def named_leaves(tree_, prefix="") -> dict:
+    """{"blocks/wq": leaf, ...} of a nested params dict."""
+    out = {}
+    for k in sorted(tree_):
+        if isinstance(tree_[k], dict):
+            out.update(named_leaves(tree_[k], f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = tree_[k]
+    return out
+
+
+def range_device_ms(prof, name: str, steps: int) -> dict:
+    """{kernel class: device ms per step} of the kernels launched inside
+    the ``record_function`` ranges called ``name``."""
+    from torch.autograd import DeviceType
+
+    out: dict[str, float] = {}
+
+    def walk(e):
+        for k in e.kernels:
+            cls = kernel_class(k.name)
+            out[cls] = out.get(cls, 0.0) + k.duration / 1e3 / steps
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
+
+
+def train_lm(dev) -> tuple[dict, tuple]:
+    """The GPT-2-small-shape LM through ``transformer.build_train_step``
+    in f32 with Adam: the batch-2 step against a float64 witness, a
+    bit-identical rerun, then 10 timed steps at batch 16 x 1024 with
+    exact launch counts and a 3-step profile."""
+    from paddle_tpu_torch.core import tree
+    from paddle_tpu_torch.core.dtype import set_f32_policy
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = T.TransformerConfig(
+        vocab_size=50257, num_layers=12, num_heads=12, embed_dim=768,
+        mlp_dim=3072, max_seq_len=2048, dtype=torch.float32, remat=False,
+        attn_impl="flash")
+    bs, seqlen, steps = 16, 1024, 10
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    n_params = T.count_params(params)
+    rng = np.random.default_rng(0)
+
+    # (a) one step at batch 2 x 128 from the same weights: the card's
+    # kernels in f32 and the CPU's plain twins in f32, each against the
+    # CPU's plain twins in float64 (the witness), by the loss and every
+    # gradient leaf (Adam's first update is about lr * sign(g), which
+    # round-off can flip, so the gradient is what is compared).  The same
+    # card step with TF32 allowed in cuBLAS, and with the flash backward's
+    # delta dropped, are the planted faults the limit must catch.
+    small = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 129)))
+
+    def cast(dtype, where):
+        return tree.unflatten(params, [p.detach().to(where, dtype)
+                                       for p in tree.leaves(params)])
+
+    loss64, g64 = T.loss_and_grads(cfg, cast(torch.float64, "cpu"), small)
+    g64 = named_leaves(g64)
+    sides = {"cpu": T.loss_and_grads(cfg, cast(torch.float32, "cpu"),
+                                     small)}
+    plain_delta = FA._delta
+
+    def card_step():
+        return T.loss_and_grads(cfg, params, small.to(dev))
+
+    sides["card"] = card_step()
+    rerun = card_step()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sides["card_tf32_control"] = card_step()
+    finally:
+        set_f32_policy()
+    FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+    try:
+        sides["card_delta_dropped_control"] = card_step()
+    finally:
+        FA._delta = plain_delta
+    if not (torch.equal(rerun[0], sides["card"][0]) and all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(rerun[1]),
+                                              tree.leaves(sides["card"][1])))):
+        raise AssertionError("the card's LM step is not bit-identical on a "
+                             "rerun")
+    witness = {"batch": [2, 128], "loss_f64": float(loss64),
+               "loss_rtol": LM_LOSS_RTOL, "grad_limit": LM_GRAD_LIMIT,
+               "card_rerun_bit_identical": True}
+    for label, (loss, grads) in sides.items():
+        ratios = {n: rel_norm(x, g64[n])
+                  for n, x in named_leaves(grads).items()}
+        worst = max(ratios, key=ratios.get)
+        witness[label] = {"loss": float(loss),
+                          "loss_rel_err": abs(float(loss) - float(loss64))
+                          / abs(float(loss64)),
+                          "grad_worst": ratios[worst],
+                          "grad_worst_leaf": worst,
+                          "grad_median": float(np.median(list(
+                              ratios.values())))}
+    del sides, rerun, g64
+    for label in ("cpu", "card"):
+        w = witness[label]
+        if not (w["loss_rel_err"] <= LM_LOSS_RTOL
+                and w["grad_worst"] <= LM_GRAD_LIMIT):
+            raise AssertionError(f"{label} LM step vs the f64 witness: "
+                                 f"{witness}")
+    for label in ("card_tf32_control", "card_delta_dropped_control"):
+        if witness[label]["grad_worst"] <= LM_GRAD_LIMIT:
+            raise AssertionError(f"the LM witness limit does not catch "
+                                 f"{label}: {witness}")
+
+    # (b) the timed run: Adam lr 1e-4 with bf16 moments (as the repo's LM
+    # benchmark), 2 warm-up steps (allocator growth, cuBLAS handles:
+    # set-up), then 10 steps on one fixed batch with the launch counts
+    # zeroed just before and read just after
+    opt = Adam(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+    state = opt.init_tree(params)
+    step = T.build_train_step(cfg, opt)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        size=(bs, seqlen + 1))).to(dev)
+    losses = []
+    for _ in range(2):
+        params, state, loss = step(params, state, ids)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = (FA.KERNEL, FA.KERNEL_BWD_DQ, FA.KERNEL_BWD_DKV)
+    for k in kernels:
+        k.launches = 0
+    step_ms = []
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        a = time.perf_counter()
+        params, state, loss = step(params, state, ids)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - a))
+        losses.append(float(loss))
+    wall = time.perf_counter() - t1
+    launches = tuple(k.launches for k in kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != (cfg.num_layers * steps,) * 3:
+        raise AssertionError(f"LM train launches (fwd, dq, dkv) {launches} "
+                             f"!= {cfg.num_layers} x {steps} each")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"LM losses not finite and falling: {losses}")
+
+    # (c) 3 steps under torch.profiler: device time by kernel class, the
+    # optimizer's kernels (its record_function range) split out; the step
+    # updates params and state in place
+    prof = profile_window(lambda: [step(params, state, ids)
+                                   for _ in range(3)], 3,
+                          split="train_step/optimizer")
+    p50 = float(np.percentile(step_ms, 50))
+    tokens = bs * seqlen
+    flops = (6.0 * n_params * tokens + 12.0 * cfg.num_layers * bs * seqlen
+             * seqlen * cfg.embed_dim / 2)        # bench.py's count
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / p50)
+    out = {"phase": "train_lm", "model": "transformer LM, GPT-2-small shape",
+           "params": n_params, "dtype": "float32", "adam_moments": "bfloat16",
+           "lr": 1e-4, "step_vs_f64_witness": witness,
+           "batch": [bs, seqlen], "steps": steps, "wall_s": wall,
+           "tokens_per_s": tokens * steps / wall, "step_ms_p50": p50,
+           "step_ms": step_ms, "losses": losses,
+           "flop_per_step": flops,
+           "mfu_f32_vs_67tflops": flops / (p50 / 1e3) / F32_FLOPS_PER_S,
+           "max_memory_allocated_bytes": peak,
+           "train_launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv"), launches)),
+           "setup_s": setup_s, "profile": prof}
+    del params, state
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -771,9 +1149,11 @@ def main() -> int:
 
     timer = Timer(dev)
     rows = [check_flash(dev, timer), check_paged(dev, timer)]
+    bwd_rows, bwd_summary = check_flash_backward(dev, timer)
     conv_rows = check_brgemm(dev, timer) + check_conv(dev, timer)
-    for row in rows + conv_rows:
+    for row in rows + bwd_rows + conv_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(bwd_summary), flush=True)
     del timer
     print(json.dumps(check_conv_backward(dev)), flush=True)
 
@@ -781,7 +1161,15 @@ def main() -> int:
     print(json.dumps(serve), flush=True)
     train, br_n, cv_n = train_end_to_end(dev)
     print(json.dumps(train), flush=True)
+    torch.cuda.empty_cache()
+    lm, (fwd_n, dq_n, dkv_n) = train_lm(dev)
+    print(json.dumps(lm), flush=True)
+    # the forward kernel runs on two paths, a row for each: serving's
+    # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
+    for row, launches in zip(bwd_rows, (fwd_n, dq_n, dkv_n)):
+        row["launches"] = launches
+    rows += bwd_rows
     for name, launches in (("brgemm", br_n), ("conv2d_direct", cv_n)):
         mine = [r for r in conv_rows if r["name"] == name]
         rows.append({**mine[0], "launches": launches,

@@ -1,6 +1,7 @@
-"""Transformer LM — the port of ``paddle_tpu/models/transformer.py`` for
-inference: init, full-context ``forward``, and the serving pair
-``forward_prefill`` / ``forward_decode`` over the paged KV cache.
+"""Transformer LM — the port of ``paddle_tpu/models/transformer.py``:
+init, full-context ``forward``, the serving pair ``forward_prefill`` /
+``forward_decode`` over the paged KV cache, and single-device training
+(``forward_with_aux``, ``loss_fn``, ``build_train_step``).
 
 Params are the JAX package's pytree as a dict of tensors, with block
 weights stacked on a leading layer dim ([L, ...]) and the same names as
@@ -10,18 +11,25 @@ flat export names (``"embed"``, ``"blocks/wq"``, ...).  The JAX
 ``x @ embed.T`` and the block projections are plain products that XLA
 did outside any Pallas kernel; here they are ``torch.matmul``.
 
-Attention (``cfg.attn_impl``): "flash" runs the flash kernel
-(``ops/kernels/flash_attention.py``), "exact" the plain masked softmax.
-Training-only strategies (blockwise, ring, ulysses) and MoE FFNs are
-later slices and raise here."""
+Attention (``cfg.attn_impl``): "flash" runs the flash kernels
+(``ops/kernels/flash_attention.py``: the forward, and in training the dQ
+and dK/dV kernels of its autograd backward), "exact" the plain masked
+softmax.  Training-only strategies (blockwise, ring, ulysses), MoE FFNs,
+``remat="dots"``, meshes, ZeRO and bf16 ``compute_dtype`` are later
+slices and raise here."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from paddle_tpu_torch.core import tree
+from paddle_tpu_torch.core.dtype import at_least_f32
+from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
@@ -69,10 +77,12 @@ def _dense_only(cfg: TransformerConfig) -> None:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Stacked-layer params (block weights have leading dim num_layers),
-    the JAX ``init_params`` scales, drawn from ``generator``.  Numbers
+    the JAX ``init_params`` scales, drawn from ``generator``, on
+    ``device`` (``None``: ``cuda:0``, raising without a card).  Numbers
     differ from the JAX package's (threefry vs PyTorch's generator); move
     JAX weights across with :func:`params_from_numpy` instead."""
     _dense_only(cfg)
+    device = resolve_device(device)
     e, h, m, v_sz = (cfg.embed_dim, cfg.num_heads * cfg.head_dim,
                      cfg.mlp_dim, cfg.vocab_size)
     s = cfg.num_layers
@@ -114,8 +124,9 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 def params_from_numpy(flat: dict, device=None, dtype=None) -> dict:
     """The JAX package's flat param names (``"embed"``, ``"blocks/wq"``,
     ... as ``serving/export.py`` writes them) with numpy values -> the
-    port's nested params on ``device``.  Float arrays are cast to
-    ``dtype`` when given."""
+    port's nested params on ``device`` (``None``: ``cuda:0``, raising
+    without a card).  Float arrays are cast to ``dtype`` when given."""
+    device = resolve_device(device)
     out: dict = {}
     for key, value in flat.items():
         t = torch.from_numpy(np.array(value))  # a writable copy
@@ -133,8 +144,13 @@ def count_params(params: dict) -> int:
                for v in params.values())
 
 
-def _layer(params: dict, l: int) -> dict:
-    return {k: params["blocks"][k][l] for k in _BLOCK_KEYS}
+def _layers(params: dict) -> list[dict]:
+    """Per-layer views of the stacked block weights.  ``unbind`` has one
+    backward (a stack) for all layers, where indexing layer by layer would
+    scatter each layer's gradient into its own full-size zero tensor."""
+    per_key = {k: params["blocks"][k].unbind(0) for k in _BLOCK_KEYS}
+    return [{k: per_key[k][l] for k in _BLOCK_KEYS}
+            for l in range(len(per_key["wq"]))]
 
 
 def _attention(cfg: TransformerConfig, q, k, v):
@@ -165,17 +181,117 @@ def _block_kv(cfg: TransformerConfig, x, layer):
     return x + h @ layer["w_out"] + layer["b_out"], (k, v)
 
 
+def _block(cfg: TransformerConfig, x, layer):
+    return _block_kv(cfg, x, layer)[0]
+
+
+def _trunk(cfg: TransformerConfig, params: dict, ids: torch.Tensor,
+           remat: bool) -> torch.Tensor:
+    """ids [B, T] -> logits [B, T, V]; ``remat`` checkpoints each block
+    (the JAX ``jax.checkpoint(block)``).  The token gather is
+    ``F.embedding``, whose backward sums each row's gradients in a fixed
+    order on the CPU and the card; the backward of ``embed[ids]``
+    (``index_put_`` with accumulate) is nondeterministic on the CPU."""
+    t = ids.shape[1]
+    x = (torch.nn.functional.embedding(ids.long(), params["embed"])
+         + params["pos_embed"][:t][None])
+    for layer in _layers(params):
+        block = functools.partial(_block, cfg, layer=layer)
+        x = (checkpoint(block, x, use_reentrant=False) if remat
+             else block(x))
+    x = _ln(x, params["ln_f_g"], params["ln_f_b"])
+    return x @ params["embed"].T
+
+
 @torch.no_grad()
 def forward(cfg: TransformerConfig, params: dict,
             ids: torch.Tensor) -> torch.Tensor:
-    """ids [B, T] -> logits [B, T, V] (full context)."""
+    """ids [B, T] -> logits [B, T, V] (full context), for inference."""
     _dense_only(cfg)
-    t = ids.shape[1]
-    x = params["embed"][ids.long()] + params["pos_embed"][:t][None]
-    for l in range(cfg.num_layers):
-        x, _ = _block_kv(cfg, x, _layer(params, l))
-    x = _ln(x, params["ln_f_g"], params["ln_f_b"])
-    return x @ params["embed"].T
+    return _trunk(cfg, params, ids, remat=False)
+
+
+# -- training --------------------------------------------------------------
+
+
+def _check_train(cfg: TransformerConfig) -> None:
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "the port trains the dense-FFN transformer; MoE FFNs (with "
+            "parallel/moe.py) are a later slice")
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (the dots-saveable policy) is a later slice; "
+            "use remat=True or False")
+    if not isinstance(cfg.remat, bool):
+        raise ValueError(f"remat must be True, False or 'dots', got "
+                         f"{cfg.remat!r}")
+
+
+def forward_with_aux(cfg: TransformerConfig, params: dict,
+                     ids: torch.Tensor, mesh=None):
+    """(logits [B, T, V], aux) with autograd; aux is the mean MoE
+    load-balancing loss, 0 for the dense FFNs the port has."""
+    _check_train(cfg)
+    if mesh is not None:
+        raise NotImplementedError("meshes (data/tensor/sequence parallel) "
+                                  "are a later slice")
+    logits = _trunk(cfg, params, ids, remat=cfg.remat)
+    return logits, logits.new_zeros((), dtype=torch.float32)
+
+
+def loss_fn(cfg: TransformerConfig, params: dict, ids: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """Next-token mean cross-entropy (targets = ids shifted left), as
+    logsumexp(logits) - logits[target] over f32 (or wider) logits, the
+    mean over [B, T].  ``softmax_xent``'s kernel stays off this path, as
+    in the JAX package."""
+    logits, _ = forward_with_aux(cfg, params, ids[:, :-1], mesh=mesh)
+    targets = ids[:, 1:].long()
+    lse = torch.logsumexp(at_least_f32(logits), dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return torch.mean(lse - at_least_f32(tgt))
+
+
+def loss_and_grads(cfg: TransformerConfig, params: dict, ids: torch.Tensor):
+    """(loss, grads): the loss of :func:`loss_fn` (detached) and its
+    gradient in every param leaf, as a tree shaped like ``params``."""
+    live = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    loss = loss_fn(cfg, tree.unflatten(params, live), ids)
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), tree.unflatten(params, grads)
+
+
+def build_train_step(cfg: TransformerConfig, optimizer, mesh=None,
+                     compute_dtype=None, zero1=False, zero=None):
+    """(params, opt_state, ids) -> (params, opt_state, loss), ids [B, T+1].
+
+    The JAX package's no-mesh, ``zero=0`` step: the loss and its gradients
+    (:func:`loss_and_grads`), then ``optimizer.apply_tree``.  The JAX step
+    donates its params and optimizer state (``donate_argnums=(0, 1)``):
+    the buffers passed in are dead after the call.  The port's faithful
+    reading is an update in place: the params passed in are updated and
+    returned, and ``opt_state``'s entries are rebound.  PyTorch runs
+    eagerly, so nothing is traced or compiled.  ``mesh``, ZeRO and a bf16
+    ``compute_dtype`` are later slices and raise."""
+    if mesh is not None or zero1 or zero:
+        raise NotImplementedError(
+            "mesh and ZeRO train steps are a later slice; the port trains "
+            "on one device")
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype}: only float32 is ported yet "
+            "(bf16 compute with f32 master weights is queued)")
+    _check_train(cfg)
+
+    def step(params, opt_state, ids):
+        with torch.profiler.record_function("train_step/forward_backward"):
+            loss, grads = loss_and_grads(cfg, params, ids)
+        with torch.profiler.record_function("train_step/optimizer"):
+            optimizer.apply_tree(grads, params, opt_state)
+        return params, opt_state, loss
+
+    return step
 
 
 # -- incremental inference (the serving path) ---------------------------------
@@ -195,8 +311,8 @@ def forward_prefill(cfg: TransformerConfig, params: dict, ids: torch.Tensor,
     b, t = ids.shape
     x = params["embed"][ids.long()] + params["pos_embed"][:t][None]
     ks, vs = [], []
-    for l in range(cfg.num_layers):
-        x, (k, v) = _block_kv(cfg, x, _layer(params, l))
+    for layer in _layers(params):
+        x, (k, v) = _block_kv(cfg, x, layer)
         ks.append(k)
         vs.append(v)
     x = _ln(x, params["ln_f_g"], params["ln_f_b"])
@@ -222,8 +338,7 @@ def forward_decode(cfg: TransformerConfig, params: dict, ids: torch.Tensor,
     b = ids.shape[0]
     nh, hd = cfg.num_heads, cfg.head_dim
     x = params["embed"][ids.long()] + params["pos_embed"][positions.long()]
-    for l in range(cfg.num_layers):
-        layer = _layer(params, l)
+    for l, layer in enumerate(_layers(params)):
         kc, vc = k_cache[l], v_cache[l]
         h = _ln(x, layer["ln1_g"], layer["ln1_b"])
         q = (h @ layer["wq"]).reshape(b, nh, hd)

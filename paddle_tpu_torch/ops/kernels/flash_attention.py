@@ -1,16 +1,22 @@
-"""Flash attention, forward (the port of
-``paddle_tpu/ops/pallas/flash_attention.py``'s forward).
+"""Flash attention, forward and backward (the port of
+``paddle_tpu/ops/pallas/flash_attention.py``).
 
-Public layout [B, T, H, D], as in the JAX package; the kernel runs on
-[B*H, T, D] with T zero-padded to the kernel's 64-row tiles.  The padding
+Public layout [B, T, H, D], as in the JAX package; the kernels run on
+[B*H, T, D] with T zero-padded to the kernels' 64-row tiles.  The padding
 and the transposes are done here, in Python, so the CPU tests reach
-them: CPU tensors run the same padded problem through the plain version
-(:func:`_fwd_plain`), CUDA tensors launch ``csrc/flash_attention.cu``.
-Padded keys are masked inside both; padded query rows are sliced off.
+them: CPU tensors run the same padded problem through the plain versions
+(:func:`_fwd_plain`, :func:`_bwd_plain`), CUDA tensors launch
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(the dQ and the dK/dV kernels).  Padded keys are masked inside all of
+them; padded query rows are sliced off.
 
-The forward writes ``o`` and ``lse`` (log-sum-exp per query row, the
-residual a backward pass recomputes probabilities from).  The backward
-kernels are a later slice."""
+The forward writes ``o`` and ``lse`` (log-sum-exp per query row).  The
+backward recomputes the probabilities from ``lse``, as the JAX
+package's ``_flash_bwd`` does, with ``delta = rowsum(dO * O)`` computed
+outside the kernels (:func:`_delta`).  :class:`_FlashAttention` is the
+``torch.autograd.Function`` that ties the two (the JAX
+``custom_vjp``); :func:`flash_attention` and :func:`flash_attention_fwd`
+go through it on both devices."""
 
 from __future__ import annotations
 
@@ -18,18 +24,25 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops.kernels import NEG_INF, round_up
 from paddle_tpu_torch.ops.kernels._build import Kernel
 
-BLOCK = 64  # query rows per block and key rows per tile of the kernel
-HEAD_DIMS = (16, 32, 64, 128)  # the head_dim values the kernel is built for
+BLOCK = 64  # query rows per block and key rows per tile of the kernels
+HEAD_DIMS = (16, 32, 64, 128)  # the head_dim values the kernels are built for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 KERNEL = Kernel("flash_attention", "flash_attention_fwd_f32",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 ctypes.c_float, _P])
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+# q, k, v, do, lse, delta, dq | bh, tqp, tkp, t_k, d, causal, scale, stream
+KERNEL_BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_f32",
+                       [_P] * 7 + [_I] * 6 + [_F, _P])
+# q, k, v, do, lse, delta, dk, dv | the same scalars
+KERNEL_BWD_DKV = Kernel("flash_attention_bwd", "flash_attention_bwd_dkv_f32",
+                        [_P] * 8 + [_I] * 6 + [_F, _P])
 
 
 def _prep(q, k, v):
@@ -49,21 +62,75 @@ def _from_bh(x, b, h, t, d):
     return x[:, :t].reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 
-def _fwd_plain(qp, kp, vp, t_k, causal, scale):
-    """Plain twin of the kernel on the padded [BH, Tp, D] problem:
-    (o [BH, Tqp, D], lse [BH, Tqp, 1])."""
-    s = torch.einsum("bqd,bkd->bqk", qp.float(), kp.float()) * scale
-    qi = torch.arange(qp.shape[1], device=qp.device)[:, None]
-    ki = torch.arange(kp.shape[1], device=qp.device)[None, :]
+def _valid(tqp, tkp, t_k, causal, device):
+    """[Tqp, Tkp] bool: key in range and, if causal, key <= query (absolute
+    positions, as the JAX kernels' ``_causal_valid``)."""
+    qi = torch.arange(tqp, device=device)[:, None]
+    ki = torch.arange(tkp, device=device)[None, :]
     valid = ki < t_k
     if causal:
         valid = valid & (qi >= ki)
+    return valid
+
+
+def _fwd_plain(qp, kp, vp, t_k, causal, scale):
+    """Plain twin of the forward kernel on the padded [BH, Tp, D] problem:
+    (o [BH, Tqp, D], lse [BH, Tqp, 1]).  Computes in f32, or in the input
+    dtype where it is wider."""
+    s = torch.einsum("bqd,bkd->bqk", at_least_f32(qp), at_least_f32(kp))
+    s = s * scale
+    valid = _valid(qp.shape[1], kp.shape[1], t_k, causal, qp.device)
     s = torch.where(valid[None], s, s.new_tensor(NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     safe_l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bqk,bkd->bqd", p, vp.float()) / safe_l
+    o = torch.einsum("bqk,bkd->bqd", p, at_least_f32(vp)) / safe_l
     return o.to(qp.dtype), m + torch.log(safe_l)
+
+
+def _delta(do, o):
+    """delta_i = sum_d dO_i * O_i, [BH, Tqp, 1] (padded rows have dO = 0,
+    so delta = 0 there)."""
+    return (at_least_f32(do) * at_least_f32(o)).sum(dim=-1, keepdim=True)
+
+
+def _probs(qp, kp, lse, t_k, causal, scale):
+    """P = exp(S - lse) with the mask, recomputed from the forward's lse."""
+    s = torch.einsum("bqd,bkd->bqk", qp, kp) * scale
+    valid = _valid(qp.shape[1], kp.shape[1], t_k, causal, qp.device)
+    return torch.exp(torch.where(valid[None], s, s.new_tensor(NEG_INF)) - lse)
+
+
+def _ds(qp, kp, vp, lse, do, delta, t_k, causal, scale):
+    """(P, dS = P * (dO V^T - delta) * scale), each [BH, Tqp, Tkp]."""
+    p = _probs(qp, kp, lse, t_k, causal, scale)
+    dp = torch.einsum("bqd,bkd->bqk", do, vp)
+    return p, p * (dp - delta) * scale
+
+
+def _bwd_dq_plain(qp, kp, vp, lse, do, delta, t_k, causal, scale):
+    """Plain twin of the dQ kernel: dQ = dS K."""
+    _, ds = _ds(qp, kp, vp, lse, do, delta, t_k, causal, scale)
+    return torch.einsum("bqk,bkd->bqd", ds, kp)
+
+
+def _bwd_dkv_plain(qp, kp, vp, lse, do, delta, t_k, causal, scale):
+    """Plain twin of the dK/dV kernel: dK = dS^T Q, dV = P^T dO."""
+    p, ds = _ds(qp, kp, vp, lse, do, delta, t_k, causal, scale)
+    return (torch.einsum("bqk,bqd->bkd", ds, qp),
+            torch.einsum("bqk,bqd->bkd", p, do))
+
+
+def _bwd_plain(qp, kp, vp, o, lse, do, t_k, causal, scale):
+    """Plain twin of the backward on the padded problem: (dq, dk, dv) in
+    the inputs' dtype, computed in f32 or the wider input dtype."""
+    dt = qp.dtype
+    q32, k32, v32, do32 = map(at_least_f32, (qp, kp, vp, do))
+    delta = _delta(do, o)
+    args = (lse.to(q32.dtype), do32, delta, t_k, causal, scale)
+    dq = _bwd_dq_plain(q32, k32, v32, *args)
+    dk, dv = _bwd_dkv_plain(q32, k32, v32, *args)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _check(q, k, v):
@@ -78,39 +145,119 @@ def _check(q, k, v):
             f"q/k/v on several devices: {q.device} {k.device} {v.device}")
 
 
-def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
-    """The CUDA kernel on the padded [BH, Tp, D] problem (the same
-    contract as :func:`_fwd_plain`)."""
-    enforce(qp.device.type == "cuda", f"no kernel for device {qp.device}")
-    enforce(qp.dtype == torch.float32,
-            f"the flash kernel takes float32, got {qp.dtype}")
-    bh, tqp, d = qp.shape
+def _check_kernel_args(*xs):
+    """What the CUDA kernels take: f32, head_dim in HEAD_DIMS, contiguous
+    [BH, Tp, D] with Tp a multiple of 64."""
+    enforce(xs[0].device.type == "cuda", f"no kernel for device {xs[0].device}")
+    enforce(all(x.dtype == torch.float32 for x in xs),
+            f"the flash kernels take float32, got {xs[0].dtype}")
+    d = xs[0].shape[-1]
     enforce(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
-    enforce(all(x.is_contiguous() for x in (qp, kp, vp))
-            and tqp % BLOCK == 0 and kp.shape[1] % BLOCK == 0,
-            "the flash kernel needs contiguous, 64-row padded inputs")
+    enforce(all(x.is_contiguous() and x.shape[1] % BLOCK == 0 for x in xs),
+            "the flash kernels need contiguous, 64-row padded inputs")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
+    """The CUDA forward kernel on the padded [BH, Tp, D] problem (the same
+    contract as :func:`_fwd_plain`)."""
+    _check_kernel_args(qp, kp, vp)
+    bh, tqp, d = qp.shape
     o = torch.empty_like(qp)
     lse = torch.empty((bh, tqp, 1), dtype=torch.float32, device=qp.device)
     if bh:
-        stream = torch.cuda.current_stream(qp.device).cuda_stream
         with torch.cuda.device(qp.device):
             KERNEL.launch(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), bh, tqp, kp.shape[1],
-                          t_k, d, int(bool(causal)), float(scale), stream)
+                          t_k, d, int(bool(causal)), float(scale),
+                          _stream(qp))
     return o, lse
 
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None):
-    """(o [B, Tq, H, D], lse [B*H, Tq, 1] f32) of softmax attention.
+def _bwd_launch(kernel, qp, kp, vp, lse, do, delta, outs, t_k, causal,
+                scale):
+    _check_kernel_args(qp, kp, vp, do, *outs)
+    enforce(all(x.dtype == torch.float32 and x.is_contiguous()
+                for x in (lse, delta)),
+            "the flash backward takes the forward's f32 lse and an f32 delta")
+    bh, tqp, d = qp.shape
+    if bh:
+        with torch.cuda.device(qp.device):
+            kernel.launch(*(x.data_ptr() for x in (qp, kp, vp, do, lse,
+                                                   delta, *outs)),
+                          bh, tqp, kp.shape[1], t_k, d, int(bool(causal)),
+                          float(scale), _stream(qp))
+    return outs
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
+
+def _bwd_dq_kernel(qp, kp, vp, lse, do, delta, t_k, causal, scale):
+    """The dQ kernel (the contract of :func:`_bwd_dq_plain`): one block per
+    64-query tile walks the key tiles up to the diagonal."""
+    return _bwd_launch(KERNEL_BWD_DQ, qp, kp, vp, lse, do, delta,
+                       (torch.empty_like(qp),), t_k, causal, scale)[0]
+
+
+def _bwd_dkv_kernel(qp, kp, vp, lse, do, delta, t_k, causal, scale):
+    """The dK/dV kernel (the contract of :func:`_bwd_dkv_plain`): one block
+    per 64-key tile walks the query tiles from the diagonal down."""
+    return _bwd_launch(KERNEL_BWD_DKV, qp, kp, vp, lse, do, delta,
+                       (torch.empty_like(kp), torch.empty_like(vp)), t_k,
+                       causal, scale)
+
+
+def _bwd_kernel(qp, kp, vp, o, lse, do, t_k, causal, scale):
+    """The two CUDA backward kernels on the padded problem (the contract
+    of :func:`_bwd_plain`); each output is written by one block, no
+    atomics."""
+    _check_kernel_args(o)
+    args = (lse, do, _delta(do, o).contiguous(), t_k, causal, scale)
+    return (_bwd_dq_kernel(qp, kp, vp, *args),
+            *_bwd_dkv_kernel(qp, kp, vp, *args))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward (JAX: ``flash_attention``'s
+    ``custom_vjp``).  Saves the residuals ``_flash_fwd`` keeps: the padded
+    q, k, v, the padded o and lse.  CPU tensors take the plain versions,
+    CUDA tensors the kernels (or raise)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        b, t_q, h, d = q.shape
+        qp, kp, vp = _prep(q, k, v)
+        fwd = _fwd_plain if q.device.type == "cpu" else _fwd_kernel
+        o, lse = fwd(qp, kp, vp, k.shape[1], causal, scale)
+        ctx.save_for_backward(qp, kp, vp, o, lse)
+        ctx.meta = (b, t_q, k.shape[1], h, d, causal, scale)
+        lse_out = lse[:, :t_q]
+        ctx.mark_non_differentiable(lse_out)
+        return _from_bh(o, b, h, t_q, d), lse_out
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        qp, kp, vp, o, lse = ctx.saved_tensors
+        b, t_q, t_k, h, d, causal, scale = ctx.meta
+        do = g.permute(0, 2, 1, 3).reshape(b * h, t_q, d)
+        do = torch.nn.functional.pad(
+            do, (0, 0, 0, qp.shape[1] - t_q)).to(qp.dtype).contiguous()
+        bwd = _bwd_plain if qp.device.type == "cpu" else _bwd_kernel
+        dq, dk, dv = bwd(qp, kp, vp, o, lse, do, t_k, causal, scale)
+        return (_from_bh(dq, b, h, t_q, d), _from_bh(dk, b, h, t_k, d),
+                _from_bh(dv, b, h, t_k, d), None, None)
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """(o [B, Tq, H, D], lse [B*H, Tq, 1]) of softmax attention; ``o``
+    carries the gradient of :class:`_FlashAttention`, ``lse`` none.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
     (float32, head_dim in ``HEAD_DIMS``) or raise."""
     _check(q, k, v)
-    b, t_q, h, d = q.shape
-    scale = scale if scale is not None else d ** -0.5
-    fwd = _fwd_plain if q.device.type == "cpu" else _fwd_kernel
-    o, lse = fwd(*_prep(q, k, v), k.shape[1], causal, scale)
-    return _from_bh(o, b, h, t_q, d), lse[:, :t_q]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
@@ -121,14 +268,16 @@ def flash_attention(q, k, v, causal=False, scale=None):
 
 def flash_attention_reference(q, k, v, causal=False, scale=None):
     """Plain twin of :func:`flash_attention`: exact masked softmax
-    attention on [B, T, H, D], f32 accumulation."""
+    attention on [B, T, H, D], f32 accumulation (or the input dtype where
+    it is wider); autograd through it is the backward's witness."""
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", at_least_f32(q), at_least_f32(k))
+    s = s * scale
     if causal:
         t_q, t_k = s.shape[-2], s.shape[-1]
         ok = (torch.arange(t_q, device=q.device)[:, None]
               >= torch.arange(t_k, device=q.device)[None, :])
         s = torch.where(ok[None, None], s, s.new_tensor(NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, at_least_f32(v)).to(q.dtype)

@@ -28,11 +28,11 @@ def conv_out(size: int, k: int, s: int, p: int) -> int:
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """Single-pass LN, the same form as ``paddle_tpu.ops.nn.layer_norm``:
-    one f32 upcast, var = E[x^2] - E[x]^2 clamped at 0 (f32 rounding can
-    leave it slightly negative for a constant row with a large mean).
-    ``F.layer_norm`` computes the variance in two passes and rounds
-    differently, so it is not used."""
-    xf = x.float()
+    one f32 upcast (none for a wider input), var = E[x^2] - E[x]^2 clamped
+    at 0 (f32 rounding can leave it slightly negative for a constant row
+    with a large mean).  ``F.layer_norm`` computes the variance in two
+    passes and rounds differently, so it is not used."""
+    xf = at_least_f32(x)
     mean = xf.mean(dim=-1, keepdim=True)
     msq = (xf * xf).mean(dim=-1, keepdim=True)
     var = torch.clamp(msq - mean * mean, min=0.0)

@@ -10,6 +10,8 @@ the same tests.  Tolerance: 1e-4 absolute, the f32 round-off of a
 different summation order (FMA chains in the kernel vs cuBLAS in the
 twin) at these magnitudes; TF32 is off on both sides."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -231,3 +233,102 @@ def test_conv_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(EnforceError, match="float32"):
         CV.fwd_raw(x, torch.zeros(3, 3, 3, 4, device=cuda).half(), (1, 1),
                    (1, 1))
+
+
+# -- flash backward (the LM training path) ---------------------------------------
+
+
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal", [
+    (2, 64, 64, 2, 64, True),
+    (2, 100, 100, 3, 64, True),
+    (1, 333, 333, 2, 64, False),
+    (2, 130, 130, 2, 16, True),
+    (1, 70, 70, 2, 32, False),
+    (1, 129, 129, 2, 128, True),
+    (1, 40, 90, 2, 64, True),      # t_q < t_k: absolute-position mask
+    (1, 90, 40, 2, 64, True),      # t_q > t_k
+])
+def test_flash_backward_kernels_match_plain(cuda, b, t_q, t_k, h, d, causal):
+    """dq, dk, dv of the Function on the card (the dQ and dK/dV kernels)
+    against the plain backward twin on the same padded problem, and
+    against autograd through exact attention; a rerun is bit-identical
+    (each output is written by one block, no atomics)."""
+    rng = np.random.default_rng(t_q * 7 + t_k + d)
+    q, k, v = (_rand(rng, b, t, h, d).to(cuda).requires_grad_()
+               for t in (t_q, t_k, t_k))
+    g = _rand(rng, b, t_q, h, d).to(cuda)
+    n_dq, n_dkv = FA.KERNEL_BWD_DQ.launches, FA.KERNEL_BWD_DKV.launches
+    o = FA.flash_attention(q, k, v, causal=causal)
+    assert o.grad_fn._forward_cls is FA._FlashAttention
+    got = torch.autograd.grad(o, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert FA.KERNEL_BWD_DQ.launches == n_dq + 1
+    assert FA.KERNEL_BWD_DKV.launches == n_dkv + 1
+    again = torch.autograd.grad(FA.flash_attention(q, k, v, causal=causal),
+                                (q, k, v), g)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    with torch.no_grad():
+        scale = d ** -0.5
+        qp, kp, vp = FA._prep(q, k, v)
+        op, lsep = FA._fwd_plain(qp, kp, vp, t_k, causal, scale)
+        dop = torch.nn.functional.pad(
+            g.permute(0, 2, 1, 3).reshape(b * h, t_q, d),
+            (0, 0, 0, qp.shape[1] - t_q)).contiguous()
+        plain = FA._bwd_plain(qp, kp, vp, op, lsep, dop, t_k, causal, scale)
+    exact = torch.autograd.grad(
+        FA.flash_attention_reference(q, k, v, causal=causal), (q, k, v), g)
+    for x, p, e, t in zip(got, plain, exact, (t_q, t_k, t_k)):
+        p = FA._from_bh(p, b, h, t, d)
+        assert x.shape == e.shape and torch.isfinite(x).all()
+        for want in (p, e):
+            assert ((x - want).abs().max().item()
+                    <= TOL * max(1.0, want.abs().max().item()))
+
+
+def test_lm_train_step_on_card_matches_the_cpu(cuda):
+    """One ``loss_and_grads`` of a small flash LM on the card (kernels)
+    and on the CPU (plain twins), from the same weights and ids: loss and
+    every gradient leaf within 1e-4 of the leaf's scale; exactly one
+    forward, one dQ and one dK/dV launch per layer (two forwards with
+    remat, which re-runs each block); a rerun bit-identical."""
+    from paddle_tpu_torch.core import tree
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(vocab_size=128, num_layers=2, num_heads=2,
+                              embed_dim=128, mlp_dim=256, max_seq_len=128,
+                              attn_impl="flash", remat=False)
+    params = T.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 128, size=(2, 97)))
+    loss_c, grads_c = T.loss_and_grads(cfg, params, ids)
+    on_card = tree.unflatten(params, [p.to(cuda) for p in tree.leaves(params)])
+    counts = (FA.KERNEL.launches, FA.KERNEL_BWD_DQ.launches,
+              FA.KERNEL_BWD_DKV.launches)
+    loss_g, grads_g = T.loss_and_grads(cfg, on_card, ids.to(cuda))
+    torch.cuda.synchronize()
+    assert (FA.KERNEL.launches - counts[0], FA.KERNEL_BWD_DQ.launches
+            - counts[1], FA.KERNEL_BWD_DKV.launches - counts[2]) == (2, 2, 2)
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    for a, b in zip(tree.leaves(grads_g), tree.leaves(grads_c)):
+        scale = max(1e-3, b.abs().max().item())
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
+    again = T.loss_and_grads(cfg, on_card, ids.to(cuda))
+    assert torch.equal(again[0], loss_g)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(again[1]),
+                                                 tree.leaves(grads_g)))
+    before = FA.KERNEL.launches
+    T.loss_and_grads(dataclasses.replace(cfg, remat=True), on_card,
+                     ids.to(cuda))
+    assert FA.KERNEL.launches - before == 4
+
+
+def test_flash_backward_refuses_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    x = torch.zeros(2, 64, 64, dtype=torch.float64, device=cuda)
+    lse = torch.zeros(2, 64, 1, device=cuda)
+    with pytest.raises(EnforceError, match="float32"):
+        FA._bwd_kernel(x, x, x, x, lse, x, 64, True, 0.125)
+    x = torch.zeros(2, 60, 64, device=cuda)
+    with pytest.raises(EnforceError, match="64-row"):
+        FA._bwd_kernel(x, x, x, x, lse, x, 60, True, 0.125)

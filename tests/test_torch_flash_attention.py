@@ -1,4 +1,4 @@
-"""``paddle_tpu_torch.ops.kernels.flash_attention`` (forward) against the
+"""``paddle_tpu_torch.ops.kernels.flash_attention`` against the
 JAX package: the port's plain path (the padded [B*H, Tp, D] problem the
 CUDA kernel solves, with its padding and transposes) vs
 ``flash_attention`` in interpret mode and ``flash_attention_reference``,
@@ -7,6 +7,7 @@ o and lse, causal and not, T a block multiple and not.  Tolerance 2e-5
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,3 +94,86 @@ def test_wrapper_takes_the_plain_path_for_cpu_tensors(rng_np):
     assert FA.KERNEL.launches == before
     with pytest.raises(Exception, match="differ"):
         FA.flash_attention(q, k[..., :1, :], v[..., :1, :])
+
+
+# -- backward -------------------------------------------------------------------
+#
+# The port's gradient (``_FlashAttention``'s backward: on CPU tensors the
+# plain twin ``_bwd_plain`` of the dQ and dK/dV kernels) against the JAX
+# package's ``_flash_bwd`` in interpret mode, on both its branches: the
+# default blocks give the fused single-tile kernel, blocks of 32 the tiled
+# dQ and dK/dV pair.  Tolerance 2e-5 as above: f32 round-off of another
+# summation order, with cotangents and values of order 1.
+
+
+def _grads_port(q, k, v, g, causal):
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = FA.flash_attention(tq, tk, tv, causal)
+    return torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("block", [1024, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t_q,t_k,h,d", SHAPES)
+def test_backward_matches_jax_kernel_interpreted(b, t_q, t_k, h, d, causal,
+                                                 block, rng_np):
+    q, k, v = _qkv(rng_np, b, t_q, t_k, h, d)
+    g = rng_np.normal(size=(b, t_q, h, d)).astype(np.float32)
+    _, res = JFA._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal, None, block, block, True)
+    want = JFA._flash_bwd(causal, None, block, block, True, res,
+                          jnp.asarray(g))
+    for got, w, name in zip(_grads_port(q, k, v, g, causal), want, "qkv"):
+        assert tuple(got.shape) == w.shape, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t_q,t_k,h,d", SHAPES)
+def test_backward_matches_jax_grad_of_the_reference(b, t_q, t_k, h, d,
+                                                    causal, rng_np):
+    q, k, v = _qkv(rng_np, b, t_q, t_k, h, d)
+    g = rng_np.normal(size=(b, t_q, h, d)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda q, k, v: JFA.flash_attention_reference(q, k, v, causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, w, name in zip(_grads_port(q, k, v, g, causal),
+                            vjp(jnp.asarray(g)), "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_gradient_goes_through_the_function(rng_np):
+    """On the CPU the gradient is the Function's: its grad_fn, and grads
+    equal to ``_bwd_plain`` on the padded problem bit for bit (not autograd
+    through the forward's einsums)."""
+    b, t_q, t_k, h, d = 2, 70, 90, 2, 16
+    q, k, v = map(torch.from_numpy, _qkv(rng_np, b, t_q, t_k, h, d))
+    g = torch.from_numpy(rng_np.normal(size=(b, t_q, h, d)).astype(np.float32))
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    o, lse = FA.flash_attention_fwd(tq, tk, tv, causal=True)
+    assert o.grad_fn._forward_cls is FA._FlashAttention
+    assert not lse.requires_grad
+    got = torch.autograd.grad(o, (tq, tk, tv), g)
+    qp, kp, vp = FA._prep(q, k, v)
+    op, lsep = FA._fwd_plain(qp, kp, vp, t_k, True, d ** -0.5)
+    dop = torch.nn.functional.pad(g.permute(0, 2, 1, 3).reshape(b * h, t_q, d),
+                                  (0, 0, 0, qp.shape[1] - t_q))
+    want = FA._bwd_plain(qp, kp, vp, op, lsep, dop, t_k, True, d ** -0.5)
+    for x, y, t in zip(got, want, (t_q, t_k, t_k)):
+        assert torch.equal(x, FA._from_bh(y, b, h, t, d))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t_q,t_k", [(5, 5), (3, 7), (9, 4)])
+def test_gradcheck_in_float64(t_q, t_k, causal):
+    """The plain twins keep float64, so ``torch.autograd.gradcheck``
+    (finite differences against the analytic backward, along random
+    directions: ``fast_mode``) applies."""
+    gen = torch.Generator().manual_seed(t_q + t_k)
+    q, k, v = (torch.randn(1, t, 2, 16, generator=gen, dtype=torch.float64,
+                           requires_grad=True) for t in (t_q, t_k, t_k))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: FA.flash_attention(q, k, v, causal), (q, k, v),
+        fast_mode=True)

@@ -16,6 +16,7 @@ MODULES = (
     "paddle_tpu_torch",
     "paddle_tpu_torch.metrics",
     "paddle_tpu_torch.core",
+    "paddle_tpu_torch.core.tree",
     "paddle_tpu_torch.telemetry",
     "paddle_tpu_torch.ops.attention",
     "paddle_tpu_torch.ops.nn",
@@ -114,3 +115,28 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     with pytest.raises(EnforceError, match="no CUDA card"):
         ServingEngine(cfg, params, scfg)
     ServingEngine(cfg, params, scfg, device="cpu")  # asked for: runs
+
+
+def test_params_and_state_default_to_the_card():
+    """``init_params``, ``params_from_numpy`` and ``opt_state_from_numpy``
+    with no device go to ``cuda:0``: without a card they raise rather than
+    land on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.optimizer import opt_state_from_numpy
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: cuda:0 is the right answer")
+    cfg = T.TransformerConfig(vocab_size=16, num_layers=1, num_heads=2,
+                              embed_dim=16, mlp_dim=32, max_seq_len=32)
+    with pytest.raises(EnforceError, match="no CUDA card"):
+        T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(EnforceError, match="no CUDA card"):
+        T.params_from_numpy({"embed": np.zeros((4, 2), np.float32)})
+    with pytest.raises(EnforceError, match="no CUDA card"):
+        opt_state_from_numpy({"step": np.int32(0), "slots": []})
+    params = T.params_from_numpy({"embed": np.zeros((4, 2), np.float32)},
+                                 "cpu")
+    assert params["embed"].device == torch.device("cpu")

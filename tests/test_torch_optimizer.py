@@ -1,5 +1,6 @@
-"""The port's ``Optimizer.apply`` (SGD, Momentum) against the JAX
-package's on the same parameters, gradients and specs, over three steps:
+"""The port's ``Optimizer.apply`` (SGD, Momentum) and the tree form
+``apply_tree`` (Adam) against the JAX package's on the same parameters,
+gradients and specs, over three steps:
 global L2 and L1 regularization, per-parameter decay_rate, learning-rate
 scale, clipping threshold and ``ParamSpec.momentum``, a static
 parameter, nesterov.
@@ -8,6 +9,7 @@ Tolerance: rtol = 1e-6, atol = 1e-7 — the same elementwise f32 operations
 in the same order on both sides; only fused multiply-adds may round
 differently."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,3 +113,72 @@ def test_options_not_ported_raise():
                              initializer=TI.constant(0.0))
     with pytest.raises(NotImplementedError, match="pruning"):
         TO.SGD(learning_rate=0.1).init({"w": torch.zeros(2)}, {"w": spec})
+
+
+# -- the tree form (init_tree / apply_tree) and Adam ------------------------------
+
+TREE_SHAPES = {"embed": (5, 3), "blocks": {"wq": (2, 3, 4), "b_in": (2, 4)},
+               "ln_f_g": (3,)}
+
+
+@pytest.mark.parametrize("moment_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("reg", sorted(REGS))
+@pytest.mark.parametrize("global_clip", [0.0, 0.5])
+def test_adam_apply_tree_matches_jax_over_three_steps(moment_dtype, reg,
+                                                      global_clip):
+    """Adam over a nested params tree, slots in ``jax.tree.leaves`` order,
+    the JAX state carried across by ``opt_state_from_numpy``.  Params and
+    f32 moments at rtol 1e-6 as above; bf16 moments equal after the
+    round to bf16, save where the f32 values straddle a rounding edge
+    (then one bf16 ulp, rtol 1e-2)."""
+    rng = np.random.default_rng(len(reg) + int(global_clip * 10))
+    kw = dict(learning_rate=1e-2, gradient_clipping_threshold=global_clip)
+    jopt, topt = (
+        mod.Adam(moment_dtype=getattr(dt_mod, moment_dtype)
+                 if moment_dtype else None,
+                 regularization=REGS[reg](mod), **kw)
+        for mod, dt_mod in ((JO, jnp), (TO, torch)))
+
+    def draw(shapes=TREE_SHAPES):
+        return {k: draw(v) if isinstance(v, dict)
+                else rng.normal(size=v).astype(np.float32)
+                for k, v in shapes.items()}
+
+    p0 = draw()
+    jp = jax.tree.map(jnp.asarray, p0)
+    tp = jax.tree.map(lambda a: torch.from_numpy(a.copy()), p0)
+    js = jopt.init_tree(jp)
+    ts = TO.opt_state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
+    assert len(ts["slots"]) == len(jax.tree.leaves(jp)) == 4
+    for _ in range(3):
+        g = draw()
+        jp, js = jopt.apply_tree(jax.tree.map(jnp.asarray, g), jp, js)
+        tp, ts = topt.apply_tree(jax.tree.map(torch.from_numpy, g), tp, ts)
+    assert ts["step"] == int(js["step"]) == 3
+    for a, b in zip(jax.tree.leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
+    for ts_, js_ in zip(ts["slots"], js["slots"]):
+        for k in ("m", "v"):
+            want = np.asarray(js_[k]).astype(np.float32)
+            got = ts_[k].float().numpy()
+            assert str(ts_[k].dtype).endswith(moment_dtype or "float32")
+            if moment_dtype:
+                np.testing.assert_allclose(got, want, rtol=1e-2, atol=0)
+                assert np.mean(got == want) > 0.95
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+
+
+def test_apply_tree_updates_the_tensors_passed_in():
+    """The donated-buffer reading of the JAX step: params updated in
+    place, the state's entries rebound, the same trees returned."""
+    p = {"a": torch.ones(3, 2), "b": {"c": torch.full((4,), 2.0)}}
+    a, state = p["a"], TO.Adam(learning_rate=0.1).init_tree(p)
+    got, got_s = TO.Adam(learning_rate=0.1).apply_tree(
+        jax.tree.map(torch.ones_like, p), p, state)
+    assert got is p and got_s is state and got["a"] is a
+    assert state["step"] == 1
+    # Adam's first step is lr * g / |g| (up to epsilon)
+    np.testing.assert_allclose(a.numpy(), 0.9, rtol=1e-6)
+    np.testing.assert_allclose(p["b"]["c"].numpy(), 1.9, rtol=1e-6)
