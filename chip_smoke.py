@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains (ResNet-50 and the transformer LM).
+trains (ResNet-50, the transformer LM and the LSTM text classifier).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -81,7 +81,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward, 12 dQ and 12 dK/dV launches per step; then 3 steps under
    ``torch.profiler`` (device time by kernel class, the optimizer split
    out, busy share).
-6. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+6. The LSTM text classifier (``bench.py``'s ``_lstm_classify_cost`` and
+   ``bench_lstm``'s batch and optimizer: embedding 128 over a 30,000-id
+   vocabulary, fc to 4 x 1280, ``lstmemory`` with peepholes, ``last_seq``,
+   a 2-way softmax fc, ``classification_cost``; f32, Adam at lr 2e-3 with
+   bf16 moments).  Its kernels against their plain twins at the path's
+   shapes (LSTM forward and backward at B 64, T 128, D 1280, lengths 100;
+   the gather and the table gradient of 8,192 ids into [30000, 128]; max
+   abs error <= 1e-4 x max(1, |ref|)), the backward's remat and
+   stored-gates forms and a rerun equal in bits, each timed beside its
+   twin, its bound and a library call (cuDNN's ``nn.LSTM`` forward and
+   backward, which has no peepholes and includes the input projection:
+   the fc plus the forward kernel is timed beside it; ``F.embedding`` and
+   ``embedding_dense_backward``).  Then a batch-2 step (ragged lengths,
+   T = 16) on the card and on the CPU against a float64 witness by the
+   loss (relative 1e-5) and every gradient leaf (1e-4), with TF32 allowed
+   in cuBLAS on the card and a CPU backward whose dc carry drops its
+   peephole terms as planted faults that must exceed it, and the card's
+   step repeated bit for bit.  Then ``trainer.SGD``: the first step twice
+   from the same parameters (bit for bit), 2 warm-up and 10 timed steps
+   at batch 64 of 100-token sequences (T = 128 after the feeder's
+   bucketing; sequences/s, step ms, peak memory, finite losses, the
+   classification error from the events) with exactly one launch each of
+   the LSTM forward, the LSTM backward, the gather and the scatter-add
+   per step; 3 steps under ``torch.profiler``; ``test`` on 2 batches
+   (one forward and one gather per batch).
+7. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -680,9 +705,16 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
-    for mine in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged"):
+    for mine in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
+                 "lstm_fwd", "lstm_bwd"):
         if mine in low:
             return f"{mine} (ours)"
+    if "::scatter_add_kernel(" in low:    # csrc/embedding.cu
+        return "embedding_scatter_add (ours)"
+    if "::gather_kernel(" in low:
+        return "embedding_gather (ours)"
+    if "radixsort" in low or "sort" in low:
+        return "sort/unique (library)"
     if "brgemma" in low:
         return "brgemm (ours)"
     if "conva" in low:
@@ -1129,6 +1161,384 @@ def train_lm(dev) -> tuple[dict, tuple]:
     return out, launches
 
 
+TEXT_LOSS_RTOL = 1e-5    # f32 text step vs the f64 witness: loss,
+TEXT_GRAD_LIMIT = 1e-4   # per leaf ||g32 - g64|| / ||g64||
+
+
+def text_classifier(hidden: int, vocab: int, embed: int):
+    """``bench.py``'s ``_lstm_classify_cost`` in the port: embedding ->
+    fc(4 * hidden, linear) -> lstmemory -> last_seq -> fc(2, softmax) ->
+    classification_cost."""
+    import paddle_tpu_torch as paddle
+
+    L, A, D = paddle.layer, paddle.activation, paddle.data_type
+    data = L.data(name="data", type=D.integer_value_sequence(vocab))
+    net = L.embedding(input=data, size=embed)
+    net = L.fc(input=net, size=hidden * 4, act=A.LinearActivation())
+    net = L.lstmemory(input=net)
+    net = L.last_seq(input=net)
+    net = L.fc(input=net, size=2, act=A.SoftmaxActivation())
+    label = L.data(name="label", type=D.integer_value(2))
+    return L.classification_cost(input=net, label=label)
+
+
+def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
+                       n_ids=8192, vocab=30000, embed=128) -> tuple:
+    """The text path's kernels at its shapes, each against its plain twin
+    (max abs error <= TOL * max(1, |ref|)): the LSTM forward (no gates
+    slab, as the card's remat path runs it) and backward (remat, and the
+    stored-gates form, which must give the same bits) at B 64, T 128,
+    D 1280 with lengths 100; the gather of 8,192 ids from [30000, 128]
+    and the table gradient (zeros plus the scatter-add of 8,192 rows), a
+    rerun bit-identical.  Library yardsticks: cuDNN's ``nn.LSTM``
+    (no peepholes, input projection included; the fc plus the kernel is
+    timed beside it), ``F.embedding`` and its backward."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lens = torch.full((b,), length, device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
+    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
+    h0 = torch.zeros(b, d, device=dev)
+    c0 = torch.zeros(b, d, device=dev)
+    dhs = torch.randn(b, t, d, generator=gen, device=dev)
+    dh_t, dc_t = torch.zeros(b, d, device=dev), torch.zeros(b, d, device=dev)
+
+    def worst(got, want):
+        e = 0.0
+        for x, y in zip(got, want):
+            err = (x - y).abs().max().item()
+            if not err <= TOL * max(1.0, y.abs().max().item()):
+                raise AssertionError(f"text kernel vs plain: {err}")
+            e = max(e, err)
+        return e
+
+    fwd = lambda: LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, False)
+    fwd_plain = lambda: LK._fwd_plain(xw, mask, w_h, peep, h0, c0, False,
+                                      False)
+    hs, cs, _, _, _ = got = fwd()
+    fwd_err = worst([g for g in got if g is not None],
+                    [w for w in fwd_plain() if w is not None])
+    gates = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, True)[2]
+    args = (mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, False)
+    bwd = lambda: LK._bwd_kernel(xw, None, *args, True)
+    remat = bwd()
+    stored = LK._bwd_kernel(None, gates, *args, False)
+    again = bwd()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) and torch.equal(x, z)
+               for x, y, z in zip(remat, stored, again)):
+        raise AssertionError("lstm backward: remat, stored gates and a rerun "
+                             "differ in bits on the card")
+    bwd_plain = lambda: LK._bwd_plain(xw, None, *args, True)
+    bwd_err = worst(remat, bwd_plain())
+    del gates, stored, again
+
+    # yardsticks: cuDNN's LSTM over the 128-wide embeddings, and the
+    # port's fc (x @ W_x + b) plus the forward kernel over the same input
+    x_emb = torch.randn(b, t, embed, generator=gen, device=dev)
+    w_x = torch.randn(embed, 4 * d, generator=gen, device=dev) / embed ** 0.5
+    bias = torch.zeros(4 * d, device=dev)
+    cudnn = torch.nn.LSTM(embed, d, batch_first=True).to(dev)
+    x_lib = x_emb.clone().requires_grad_()
+    out_lib, _ = cudnn(x_lib)
+    g_lib = torch.randn_like(out_lib)
+    lib_params = (x_lib, *cudnn.parameters())
+    def lib_fwd():
+        with torch.no_grad():
+            return cudnn(x_emb)
+
+    fc_fwd = lambda: LK._fwd_kernel(
+        (x_emb.reshape(-1, embed) @ w_x + bias).reshape(b, t, 4 * d), mask,
+        w_h, peep, h0, c0, False, False)
+    steps = float(lens.sum().item())          # the steps the data needs
+    cell = 25.0 * steps * d                   # gate bundle per unit-step
+    f32 = 4.0
+    rows = [{
+        "name": "lstm_seq_fwd", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:489",
+        "shape": [b, t, d], "max_abs_err": fwd_err,
+        "ms": timer(fwd), "plain_ms": timer(fwd_plain),
+        # xw, W_h, peep, h0, c0, mask in; hs, cs, h_T, c_T out
+        "bytes_flops": (f32 * (b * t * 4 * d + d * 4 * d + 3 * d + 4 * b * d
+                               + b * t + 2 * b * t * d),
+                        2.0 * steps * d * 4 * d + cell),
+        "library_ms": timer(lib_fwd),
+        "fc_plus_kernel_ms": timer(fc_fwd)}, {
+        "name": "lstm_seq_bwd", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:426",
+        "shape": [b, t, d], "max_abs_err": bwd_err,
+        "ms": timer(bwd), "plain_ms": timer(bwd_plain),
+        # xw, mask, W_h, peep, h0, c0, hs, cs, dhs, dh_T, dc_T in; dgates,
+        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T
+        "bytes_flops": (f32 * (2 * b * t * 4 * d + d * 4 * d + 6 * d
+                               + 6 * b * d + b * t + 3 * b * t * d),
+                        4.0 * steps * d * 4 * d + 2 * cell),
+        "library_ms": timer(lambda: torch.autograd.grad(
+            out_lib, lib_params, g_lib, retain_graph=True))}]
+    del xw, dhs, hs, cs, remat, out_lib, g_lib, lib_params, x_lib, cudnn
+
+    ids = torch.randint(0, vocab, (n_ids,), generator=gen, device=dev)
+    table = torch.randn(vocab, embed, generator=gen, device=dev)
+    ct = torch.randn(n_ids, embed, generator=gen, device=dev)
+    uniq = float(torch.unique(ids).numel())
+    got = EK.embedding_gather(table, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got, EK.embedding_gather_reference(table, ids)):
+        raise AssertionError("gather kernel differs from its twin")
+    grad = EK.table_grad(ids, ct, vocab)
+    if not torch.equal(grad, EK.table_grad(ids, ct, vocab)):
+        raise AssertionError("table gradient: a rerun differs in bits")
+    zeros = torch.zeros(vocab, embed, device=dev)
+    scatter_err = worst([grad], [EK.embedding_scatter_add_reference(
+        zeros, ids, ct)])
+    rows += [{
+        "name": "embedding_gather", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+        "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:120",
+        "shape": [n_ids, vocab, embed], "unique_ids": int(uniq),
+        "max_abs_err": 0.0,
+        "ms": timer(lambda: EK.embedding_gather(table, ids)),
+        "plain_ms": timer(lambda: EK.embedding_gather_reference(table, ids)),
+        # the unique rows read once, every output row written, the ids
+        "bytes_flops": (f32 * (uniq + n_ids) * embed + 8.0 * n_ids, 0.0),
+        "library_ms": timer(lambda: F.embedding(ids, table))}, {
+        "name": "embedding_scatter_add", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+        "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:192",
+        "shape": [n_ids, vocab, embed], "unique_ids": int(uniq),
+        "max_abs_err": scatter_err,
+        # as the backward runs it: zeros, the sort by id, the kernel
+        "ms": timer(lambda: EK.table_grad(ids, ct, vocab)),
+        "plain_ms": timer(lambda: EK.embedding_scatter_add_reference(
+            torch.zeros(vocab, embed, device=dev), ids, ct)),
+        # the cotangent rows and ids read, the dense gradient written
+        "bytes_flops": (f32 * (n_ids * embed + vocab * embed) + 8.0 * n_ids,
+                        float(n_ids * embed)),
+        "library_ms": timer(lambda: torch.ops.aten.embedding_dense_backward(
+            ct, ids, vocab, -1, False))}]
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
+    summary = {"phase": "text_kernels", "tol": TOL,
+               "lstm_bwd_remat_stored_rerun_bit_identical": True,
+               "table_grad_rerun_bit_identical": True,
+               "gather_bit_identical_to_twin": True}
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+def text_loss_and_grads(topo, cost_name, params, feed):
+    """(loss, {name: gradient}) of one train-mode forward of ``topo``."""
+    leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+    values, _ = topo.forward(leaves, {}, feed, True)
+    loss = values[cost_name]
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
+               steps=10) -> tuple[dict, tuple]:
+    """The LSTM text classifier through the v2 flow (``bench_lstm``'s
+    configuration): the batch-2 step against a float64 witness, then
+    2 warm-up and ``steps`` timed ``trainer.SGD`` steps at batch 64 with
+    exact launch counts, a bit-identical rerun, a 3-step profile, and
+    ``test`` on 2 batches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.core.dtype import set_f32_policy
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    t0 = time.perf_counter()
+    reset_name_counters()
+    cost = text_classifier(hidden, vocab, embed)
+    topo = Topology(cost)
+    created = paddle.parameters.create(cost)       # generator seeded 0
+    carried = {n: created[n] for n in created.names()}
+    # the LSTM's gate biases and peepholes start at 0; make them nonzero
+    # so the witness sees every term of the cell
+    rng = np.random.default_rng(0)
+    for n in carried:
+        if n.startswith("___lstmemory") and n.endswith(".wbias"):
+            carried[n] = (0.1 * rng.standard_normal(carried[n].shape)
+                          ).astype(np.float32)
+    n_params = int(sum(v.size for v in carried.values()))
+
+    def batches(k, b, lo=seqlen, hi=seqlen):
+        return [[(rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))
+                               ).tolist(), int(rng.integers(0, 2)))
+                 for _ in range(b)] for _ in range(k)]
+
+    # (a) one step at batch 2 with ragged lengths (T = 16 after bucketing)
+    # from the same weights: the card's kernels in f32 and the CPU's plain
+    # twins in f32, each against the CPU's plain twins in float64, by the
+    # loss and every gradient leaf.  TF32 allowed in cuBLAS on the card,
+    # and a CPU backward whose dc carry drops its peephole terms, are the
+    # planted faults the limit must catch.
+    small = batches(1, 2, 7, 12)[0]
+    types = {n: paddle.data_type.InputType(
+        dim=l.attrs["dim"], seq_type=l.attrs["seq_type"],
+        kind=l.attrs["data_type"]) for n, l in topo.data_layers().items()}
+
+    def side(where, dtype=torch.float32):
+        feed = DataFeeder(types, device=where)(small)
+        params = {n: torch.from_numpy(v).to(where, dtype)
+                  for n, v in carried.items()}
+        return text_loss_and_grads(topo, cost.name, params, feed)
+
+    loss64, g64 = side("cpu", torch.float64)
+    sides = {"cpu": side("cpu"), "card": side(dev)}
+    rerun = side(dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sides["card_tf32_control"] = side(dev)
+    finally:
+        set_f32_policy()
+    plain_bwd = LK._bwd_plain
+
+    def dc_peephole_dropped(xw, gates, mask, w_h, peep, *rest):
+        keep_o = torch.tensor([[0.0], [0.0], [1.0]], dtype=peep.dtype)
+        return plain_bwd(xw, gates, mask, w_h, peep * keep_o, *rest)
+
+    LK._bwd_plain = dc_peephole_dropped
+    try:
+        sides["cpu_dc_peephole_dropped_control"] = side("cpu")
+    finally:
+        LK._bwd_plain = plain_bwd
+    if not (torch.equal(rerun[0], sides["card"][0]) and all(
+            torch.equal(rerun[1][n], sides["card"][1][n]) for n in g64)):
+        raise AssertionError("the card's text step is not bit-identical on "
+                             "a rerun")
+    witness = {"batch": 2, "lengths": [len(x) for x, _ in small],
+               "loss_f64": float(loss64), "loss_rtol": TEXT_LOSS_RTOL,
+               "grad_limit": TEXT_GRAD_LIMIT}
+    for label, (loss, grads) in sides.items():
+        ratios = {n: rel_norm(grads[n], g64[n]) for n in g64}
+        worst = max(ratios, key=ratios.get)
+        witness[label] = {"loss": float(loss),
+                          "loss_rel_err": abs(float(loss) - float(loss64))
+                          / abs(float(loss64)),
+                          "grad_worst": ratios[worst],
+                          "grad_worst_leaf": worst}
+    del sides, rerun, g64
+    for label in ("cpu", "card"):
+        w = witness[label]
+        if not (w["loss_rel_err"] <= TEXT_LOSS_RTOL
+                and w["grad_worst"] <= TEXT_GRAD_LIMIT):
+            raise AssertionError(f"{label} text step vs the f64 witness: "
+                                 f"{witness}")
+    for label in ("card_tf32_control", "cpu_dc_peephole_dropped_control"):
+        if witness[label]["grad_worst"] <= TEXT_GRAD_LIMIT:
+            raise AssertionError(f"the text witness limit does not catch "
+                                 f"{label}: {witness}")
+
+    # (b) trainer.SGD at the bench's configuration: Adam 2e-3 with bf16
+    # moments, batch 64 of 100-token sequences (T = 128 after bucketing)
+    def trainer():
+        return paddle.trainer.SGD(
+            cost=cost, parameters=Parameters.from_numpy(carried),
+            update_equation=paddle.optimizer.Adam(
+                learning_rate=2e-3, moment_dtype=torch.bfloat16),
+            device=dev)
+
+    def run(tr, data, handler=None):
+        out = []
+
+        def h(e):
+            if isinstance(e, paddle.event.EndIteration):
+                out.append((e.cost, e.metrics[
+                    "classification_error_evaluator"]))
+            if handler is not None:
+                handler(e)
+
+        tr.train(reader=lambda: iter(data), num_passes=1, event_handler=h)
+        return out
+
+    warm, data, test_data = batches(2, bs), batches(steps, bs), batches(2, bs)
+    one = [data[0]]
+    first = [trainer() for _ in range(2)]
+    reruns = [(run(tr, one), {n: tr.parameters[n] for n in carried})
+              for tr in first]
+    if not (reruns[0][0] == reruns[1][0] and all(
+            np.array_equal(reruns[0][1][n], reruns[1][1][n])
+            for n in carried)):
+        raise AssertionError("trainer.SGD's first text step is not "
+                             "bit-identical on a rerun")
+    del first, reruns
+    tr = trainer()
+    run(tr, warm)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks: dict[int, list] = {}
+
+    def stamp(e):
+        if isinstance(e, (paddle.event.BeginIteration,
+                          paddle.event.EndIteration)):
+            marks.setdefault(e.batch_id, []).append(time.perf_counter())
+
+    kernels = (LK.KERNEL_FWD, LK.KERNEL_BWD, EK.KERNEL_GATHER,
+               EK.KERNEL_SCATTER)
+    for k in kernels:
+        k.launches = 0
+    t1 = time.perf_counter()
+    events = run(tr, data, stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = tuple(k.launches for k in kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != (steps,) * 4:
+        raise AssertionError(f"text train launches (lstm fwd, bwd, gather, "
+                             f"scatter-add) {launches} != {steps} each")
+    losses = [c for c, _ in events]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"text train losses {losses}")
+    step_ms = [1e3 * (b - a) for a, b in marks.values()]
+    traced = batches(3, bs)
+    prof = profile_window(lambda: run(tr, traced), 3)
+    for k in kernels:
+        k.launches = 0
+    result = tr.test(reader=lambda: iter(test_data))
+    test_n = tuple(k.launches for k in kernels)
+    if test_n != (2, 0, 2, 0) or not np.isfinite(result.cost):
+        raise AssertionError(f"text test launches {test_n} != (2, 0, 2, 0) "
+                             f"or cost {result.cost}")
+    p50 = float(np.percentile(step_ms, 50))
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / p50)
+    out = {"phase": "train_text", "model": "LSTM text classifier "
+           "(bench.py _lstm_classify_cost)", "params": n_params,
+           "hidden": hidden, "vocab": vocab, "embed": embed,
+           "dtype": "float32", "adam_moments": "bfloat16", "lr": 2e-3,
+           "step_vs_f64_witness": witness, "rerun_bit_identical": True,
+           "batch": bs, "tokens_per_sequence": seqlen,
+           "bucketed_T": tr._feeder(None)(data[0])["data"].max_len,
+           "steps": steps, "wall_s": wall,
+           "sequences_per_s": bs * steps / wall, "step_ms_p50": p50,
+           "step_ms": step_ms, "losses": losses,
+           "classification_error": [m for _, m in events],
+           "max_memory_allocated_bytes": peak,
+           "train_launches": dict(zip(("lstm_fwd", "lstm_bwd", "gather",
+                                       "scatter_add"), launches)),
+           "test_launches": dict(zip(("lstm_fwd", "lstm_bwd", "gather",
+                                      "scatter_add"), test_n)),
+           "test_batches": 2, "test_cost": result.cost,
+           "test_metrics": result.metrics, "setup_s": setup_s,
+           "profile": prof}
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -1164,6 +1574,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm, (fwd_n, dq_n, dkv_n) = train_lm(dev)
     print(json.dumps(lm), flush=True)
+    torch.cuda.empty_cache()
+    text_rows, text_summary = check_text_kernels(dev, Timer(dev))
+    for row in text_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(text_summary), flush=True)
+    text, text_n = train_text(dev)
+    print(json.dumps(text), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -1174,6 +1591,8 @@ def main() -> int:
         mine = [r for r in conv_rows if r["name"] == name]
         rows.append({**mine[0], "launches": launches,
                      "max_abs_err": max(r["max_abs_err"] for r in mine)})
+    for row, launches in zip(text_rows, text_n):
+        rows.append({**row, "launches": launches})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

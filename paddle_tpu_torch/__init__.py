@@ -8,8 +8,11 @@ Pallas kernel on a ported path has a hand-written CUDA counterpart under
 run on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: online serving of the transformer LM
-(``paddle_tpu_torch.serving``) and v2 training of ResNet through
-``trainer.SGD``::
+(``paddle_tpu_torch.serving``), its training
+(``models.transformer.build_train_step``), and v2 training through
+``trainer.SGD`` of ResNet and of the LSTM text classifier
+(``layer.embedding``, ``layer.lstmemory``, ``layer.last_seq``,
+``layer.classification_cost`` over ``data_type.integer_value_sequence``)::
 
     import paddle_tpu_torch as paddle
     cost, predict, img, label = paddle.models.image.resnet_cost(depth=50)

@@ -4,7 +4,8 @@
 - ``param_specs()`` / ``state_specs()`` — what ``parameters.create`` and
   the trainer materialize;
 - ``forward(...)`` — one evaluation of the whole graph on torch tensors
-  (autograd gives the backward);
+  and sequence batches (autograd gives the backward);
+- ``metrics()`` — the metrics its cost layers attach;
 - ``serialize()`` / ``digest()`` — the stable JSON description, byte-equal
   to the JAX package's for the same graph."""
 
@@ -73,6 +74,18 @@ class Topology:
             enforce(tuple(t.shape) == s.shape,
                     f"state {s.name!r}: shape {tuple(t.shape)} != {s.shape}")
             out[s.name] = t
+        return out
+
+    def metrics(self) -> list[tuple[str, str, str, str]]:
+        """(metric_kind, pred_layer, label_layer, tag) tuples attached by
+        cost layers (``classification_cost``'s classification error).
+        ``metric_runtime`` names where the runtime reads the values (the
+        fused cost's logits companion, argmax-equal to the probs)."""
+        out = []
+        for n in self.nodes:
+            m = n.attrs.get("metric_runtime") or n.attrs.get("metric")
+            if m:
+                out.append((m[0], m[1][0], m[1][1], n.name))
         return out
 
     # -- execution -------------------------------------------------------------

@@ -30,6 +30,7 @@ LinearActivation = _mk("")  # the reference's IdentityActivation proto name
 TanhActivation = _mk("tanh")  # fc's default
 ReluActivation = _mk("relu")
 SoftmaxActivation = _mk("softmax")
+SigmoidActivation = _mk("sigmoid")  # lstmemory's default gate act
 
 
 def get(act):

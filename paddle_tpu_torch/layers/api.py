@@ -1,12 +1,14 @@
 """The ``paddle.layer`` surface of the port — the v2 layer constructors of
-the image path, ported from ``paddle_tpu/layers/api.py`` with the same
-names, ``attrs``, parameter and state names, so a parameter dict moves
-between the packages by name and ``Topology.serialize()`` agrees byte for
-byte.
+the image and text paths, ported from ``paddle_tpu/layers/api.py`` with
+the same names, ``attrs``, parameter and state names, so a parameter dict
+moves between the packages by name and ``Topology.serialize()`` agrees
+byte for byte.
 
 Each constructor returns a :class:`LayerOutput` node whose forward is a
-function of torch tensors.  Images are NHWC inside; v2 data layers feed
-flat CHW rows, which image layers reshape on entry (:func:`_to_nhwc`)."""
+function of torch tensors and :class:`SequenceBatch` values.  Images are
+NHWC inside; v2 data layers feed flat CHW rows, which image layers
+reshape on entry (:func:`_to_nhwc`).  Per-step layers (fc) act on every
+step of a sequence as one [B*T, D] product."""
 
 from __future__ import annotations
 
@@ -19,15 +21,21 @@ import torch.nn.functional as F
 from paddle_tpu_torch.config import parse_state
 from paddle_tpu_torch.core import initializer as I
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.core.parameters import ParamSpec
 from paddle_tpu_torch.layers import activation as act_mod
 from paddle_tpu_torch.layers import pooling as pool_mod
 from paddle_tpu_torch.layers.attr import ExtraAttr, ParamAttr, param_attr_or_default
-from paddle_tpu_torch.layers.base import Context, LayerOutput, StateSpec, gen_name, raw
+from paddle_tpu_torch.layers.base import (Context, LayerOutput, StateSpec,
+                                          gen_name, is_sequence, map_data,
+                                          raw)
 from paddle_tpu_torch.layers.data_type import InputType
 from paddle_tpu_torch.ops import loss as loss_ops
 from paddle_tpu_torch.ops import math as math_ops
 from paddle_tpu_torch.ops import nn as nn_ops
+from paddle_tpu_torch.ops import rnn as rnn_ops
+from paddle_tpu_torch.ops import sequence as seq_ops
+from paddle_tpu_torch.ops.embedding import lookup as emb_lookup
 
 
 def _as_list(x):
@@ -113,7 +121,10 @@ def fc(input, size: int, act=None,
        name: str | None = None) -> LayerOutput:
     """≅ fc_layer: multi-input weighted sum + bias + act.  A 4-D (NHWC)
     input is flattened per example in H, W, C order, as the JAX package
-    does, so carried weights mean the same."""
+    does, so carried weights mean the same; sequence inputs are handled
+    per step (one [B*T, D] product).  A softmax fc exposes its pre-softmax
+    logits (``__fc_logits__``) for ``classification_cost``'s fused
+    cross-entropy."""
     _check_layer_attr(layer_attr)
     inputs = _as_list(input)
     name = name or gen_name("fc_layer")
@@ -129,26 +140,72 @@ def fc(input, size: int, act=None,
     # the reference fc_layer's default act is Tanh
     activation = act_mod.get(act) if act is not None else act_mod.TanhActivation()
 
-    def fwd(ctx: Context, params, states, *parents):
-        y = None
-        for i, p in enumerate(parents):
-            x = raw(p)
-            x2 = x.reshape(x.shape[0], -1) if x.dim() > 2 else x
-            t = math_ops.matmul(x2, params[specs[i].name])
-            y = t if y is None else y + t
-        if use_bias:
-            y = y + params[bspec.name]
-        return activation(y)
+    def apply(params, parents, apply_act):
+        def compute(flats):
+            y = None
+            for i, x in enumerate(flats):
+                x2 = x.reshape(x.shape[0], -1) if x.dim() > 2 else x
+                t = math_ops.matmul(x2, params[specs[i].name])
+                y = t if y is None else y + t
+            if use_bias:
+                y = y + params[bspec.name]
+            return activation(y) if apply_act else y
 
+        if any(is_sequence(p) for p in parents):
+            ref = next(p for p in parents if is_sequence(p))
+            b, t = ref.data.shape[:2]
+            y = compute([raw(p).reshape(b * t, -1) for p in parents])
+            return SequenceBatch(data=y.reshape(b, t, size),
+                                 length=ref.length)
+        return compute([raw(p) for p in parents])
+
+    def fwd(ctx: Context, params, states, *parents):
+        return apply(params, parents, True)
+
+    attrs = {"size": size, "active_type": activation.name,
+             "bias_spec": bspec.name if use_bias else None}
+    if activation.name == "softmax":
+        attrs["__fc_logits__"] = (
+            lambda ctx, params, states, *parents: apply(params, parents,
+                                                        False))
     return LayerOutput(
         name=name, layer_type="fc", size=size, parents=tuple(inputs),
-        param_specs=tuple(specs), fn=fwd,
-        attrs={"size": size, "active_type": activation.name,
-               "bias_spec": bspec.name if use_bias else None},
+        param_specs=tuple(specs), fn=fwd, attrs=attrs,
     )
 
 
 fc_layer = fc
+
+
+def embedding(input: LayerOutput, size: int,
+              param_attr: ParamAttr | None = None, name: str | None = None,
+              padding_idx: int | None = None,
+              pad_rows_to: int | None = None) -> LayerOutput:
+    """≅ embedding_layer (a mixed layer holding one TableProjection, which
+    is its proto shape too): ``ops/embedding.lookup`` of the integer ids,
+    per step of a sequence.  The table is a ``sparse=True`` parameter,
+    as in the JAX package; ``pad_rows_to`` (row-sharding over a mesh) is
+    not ported."""
+    if pad_rows_to:
+        raise NotImplementedError("embedding(pad_rows_to=...) (a row-"
+                                  "sharded table) is not ported yet")
+    name = name or gen_name("embedding")
+    vocab = input.size
+    spec = _wspec(param_attr, name, "w0", (vocab, size),
+                  I.paddle_default(0.0, None), sparse=True)
+
+    def fwd(ctx, params, states, ids):
+        table = params[spec.name]
+        return map_data(lambda d: emb_lookup(table, d, padding_idx), ids)
+
+    return LayerOutput(
+        name=name, layer_type="mixed", size=size, parents=(input,),
+        param_specs=(spec,), fn=fwd,
+        attrs={"size": size, "vocab": vocab, "active_type": ""},
+    )
+
+
+embedding_layer = embedding
 
 
 # ---------------------------------------------------------------------------
@@ -405,3 +462,164 @@ def cross_entropy_cost(input: LayerOutput, label: LayerOutput,
 
 
 cross_entropy = cross_entropy_cost
+
+
+def _mean_ce(probs_value, label_value, ce_fn):
+    """The mean cross-entropy over the instances: the rows of a dense
+    batch, or the valid steps of a sequence batch (padding excluded)."""
+    p, y = raw(probs_value), raw(label_value)
+    ce = ce_fn(p.reshape(-1, p.shape[-1]), y.reshape(-1))
+    seqs = [v for v in (probs_value, label_value) if is_sequence(v)]
+    if not seqs:
+        return torch.mean(ce)
+    m = seqs[0].mask(ce.dtype).reshape(-1)
+    return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1e-9)
+
+
+def classification_cost(input: LayerOutput, label: LayerOutput, weight=None,
+                        name: str | None = None, evaluator=None,
+                        coeff: float = 1.0) -> LayerOutput:
+    """≅ classification_cost: the mean cross-entropy of post-softmax
+    ``input`` against integer labels, with the classification-error
+    metric attached (``attrs["metric"]``).
+
+    When ``input`` is a softmax fc, the cost is computed from its logits
+    (lse(logits) - logits[y]), as the JAX package does: ONE hidden node
+    ``<name>#logits`` computes the logits, the probs node is rewired to
+    softmax(logits), and the runtime metric reads the logits (argmax-equal
+    to the probs) while the serialized metric keeps the reference's
+    probs-layer name.  Instance weights (``weight=``) are not ported."""
+    if weight is not None:
+        raise NotImplementedError("classification_cost(weight=...) is not "
+                                  "ported yet")
+    name = name or gen_name("cost")
+    parents = [input, label]
+    logits_fn = input.attrs.get("__fc_logits__")
+    if logits_fn is not None:
+        logits_node = input.attrs.get("__logits_node__")
+        if logits_node is None:
+            logits_node = LayerOutput(
+                name=name + "#logits", layer_type="fc", size=input.size,
+                parents=input.parents, param_specs=input.param_specs,
+                state_specs=input.state_specs, fn=logits_fn,
+                attrs={"__hidden__": True})
+            softmax_act = act_mod.SoftmaxActivation()
+
+            def probs_fn(ctx, params, states, lg):
+                return map_data(softmax_act, lg)
+
+            input.attrs["__logits_node__"] = logits_node
+            input.parents = (logits_node,)
+            input.state_specs = ()
+            input.fn = probs_fn
+        parents = parents + [logits_node]
+
+        def fwd(ctx, params, states, probs, lbl, logits):
+            return coeff * _mean_ce(logits, lbl,
+                                    loss_ops.cross_entropy_from_logits)
+    else:
+        def fwd(ctx, params, states, probs, lbl):
+            return coeff * _mean_ce(probs, lbl, loss_ops.cross_entropy)
+
+    node = LayerOutput(name=name, layer_type="multi-class-cross-entropy",
+                       size=1, parents=tuple(parents), fn=fwd,
+                       attrs={"coeff": coeff})
+    node.attrs["metric"] = ("classification_error", [input.name, label.name])
+    if logits_fn is not None:
+        node.attrs["__emit_parents__"] = 2   # the config shows input, label
+        node.attrs["metric_runtime"] = (
+            "classification_error", [logits_node.name, label.name])
+    node.attrs["v1_cost"] = True
+    return node
+
+
+# ---------------------------------------------------------------------------
+# sequence layers
+# ---------------------------------------------------------------------------
+
+
+def _check_non_nested(stride: int, what: str) -> None:
+    if stride and stride > 0:
+        raise NotImplementedError(f"{what}(stride={stride}) (windowed "
+                                  "pooling) is not ported yet")
+
+
+def last_seq(input: LayerOutput, name: str | None = None,
+             agg_level: str = "non-seq", stride: int = -1,
+             **kw) -> LayerOutput:
+    """≅ last_seq (SequenceLastInstanceLayer): the last valid step of each
+    sequence."""
+    _check_non_nested(stride, "last_seq")
+    name = name or gen_name("last_seq")
+    return LayerOutput(name=name, layer_type="seqlastins", size=input.size,
+                       parents=(input,),
+                       fn=lambda ctx, params, states, x: seq_ops.seq_last(x),
+                       attrs={"trans_type": agg_level, "stride": stride})
+
+
+def first_seq(input: LayerOutput, name: str | None = None,
+              agg_level: str = "non-seq", stride: int = -1,
+              **kw) -> LayerOutput:
+    """≅ first_seq (proto type 'seqlastins' with select_first)."""
+    _check_non_nested(stride, "first_seq")
+    name = name or gen_name("first_seq")
+    return LayerOutput(name=name, layer_type="seqlastins", size=input.size,
+                       parents=(input,),
+                       fn=lambda ctx, params, states, x: seq_ops.seq_first(x),
+                       attrs={"trans_type": agg_level, "stride": stride,
+                              "select_first": True})
+
+
+def lstmemory(input: LayerOutput, reverse: bool = False, act=None,
+              gate_act=None, state_act=None, bias_attr=None,
+              param_attr: ParamAttr | None = None, name: str | None = None,
+              **kw) -> LayerOutput:
+    """≅ lstmemory (LstmLayer): input of size 4*D already projected (a
+    preceding fc/mixed of size 4*D); output size D.  The bias is ONE [7D]
+    parameter: the first 4D are gate biases added to the input, the last
+    3D the peepholes [W_ci, W_cf, W_co].  Standard activations run the
+    LSTM sequence kernel (``ops/rnn.lstm_fused``), others the plain
+    masked scan."""
+    name = name or gen_name("lstmemory")
+    d = input.size // 4
+    wspec = _wspec(param_attr, name, "w0", (d, 4 * d), I.paddle_default())
+    specs = [wspec]
+    use_bias = bias_attr is not False
+    if use_bias:
+        bspec = _wspec(bias_attr if isinstance(bias_attr, ParamAttr) else None,
+                       name, "wbias", (7 * d,), I.constant(0.0))
+        specs.append(bspec)
+    oa = act_mod.get(act) if act else act_mod.TanhActivation()
+    ga = act_mod.get(gate_act) if gate_act else act_mod.SigmoidActivation()
+    sa = act_mod.get(state_act) if state_act else act_mod.TanhActivation()
+
+    def fwd(ctx, params, states, x):
+        b, t = x.batch_size, x.max_len
+        xw = x.data.reshape(b, t, 4 * d)
+        peep = None
+        if use_bias:
+            full = params[bspec.name]
+            xw = xw + full[:4 * d]
+            peep = full[4 * d:]
+        zeros = torch.zeros(b, d, dtype=xw.dtype, device=xw.device)
+        init = rnn_ops.LSTMState(h=zeros, c=zeros)
+        if (ga.name, sa.name, oa.name) == ("sigmoid", "tanh", "tanh"):
+            out, _ = rnn_ops.lstm_fused(SequenceBatch(xw, x.length),
+                                        params[wspec.name], init,
+                                        peephole=peep, reverse=reverse)
+            return out
+
+        def step(state, xt):
+            return rnn_ops.lstm_cell(xt, state, params[wspec.name], ga, sa,
+                                     out_act=oa, peephole=peep)
+
+        _, ys = rnn_ops._masked_scan(step, SequenceBatch(xw, x.length), init,
+                                     reverse=reverse)
+        return SequenceBatch(data=ys.h, length=x.length)
+
+    return LayerOutput(name=name, layer_type="lstmemory", size=d,
+                       parents=(input,), param_specs=tuple(specs), fn=fwd,
+                       attrs={"reverse": reverse, "reversed_field": True,
+                              "active_type": oa.name,
+                              "active_gate_type": ga.name,
+                              "active_state_type": sa.name})

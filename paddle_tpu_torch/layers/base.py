@@ -3,7 +3,9 @@
 Each layer constructor creates a :class:`LayerOutput` node carrying (a) a
 config record (``attrs``, serialized by ``Topology.serialize`` byte for
 byte as the JAX package does), (b) parameter/state specs and (c) a forward
-function of torch tensors.  Backward is autograd over the forward."""
+function of torch tensors.  Backward is autograd over the forward.
+A layer value is a tensor or a :class:`SequenceBatch` (padded data plus
+lengths)."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from paddle_tpu_torch.config import parse_state
 from paddle_tpu_torch.core.enforce import enforce, error_scope
+from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.core.parameters import ParamSpec
 
 
@@ -145,7 +148,21 @@ def evaluate(nodes: Sequence[LayerOutput], ctx: Context,
     return values, new_states
 
 
+# -- value helpers shared by layer impls -----------------------------------
+
+
+def is_sequence(v) -> bool:
+    return isinstance(v, SequenceBatch)
+
+
 def raw(v):
-    """Underlying dense tensor of a layer value.  Every value on the ported
-    path is already a dense tensor; sequence batches come with their slice."""
-    return v
+    """Underlying dense tensor of a layer value."""
+    return v.data if isinstance(v, SequenceBatch) else v
+
+
+def map_data(fn: Callable, v):
+    """Apply fn to the dense data, keeping the sequence lengths: how
+    per-step layers (fc, activations) act on sequence input."""
+    if isinstance(v, SequenceBatch):
+        return SequenceBatch(data=fn(v.data), length=v.length)
+    return fn(v)

@@ -1,5 +1,5 @@
 """Input type declarations — the port of ``paddle_tpu/layers/data_type.py``
-(the dense and integer, non-sequence types the image path feeds)."""
+(the dense and integer types, plain and as level-1 sequences)."""
 
 from __future__ import annotations
 
@@ -35,3 +35,11 @@ def dense_vector(dim: int, height: int = 0, width: int = 0,
 
 def integer_value(value_range: int) -> InputType:
     return InputType(value_range, SeqType.NO_SEQUENCE, DataKind.INTEGER)
+
+
+def dense_vector_sequence(dim: int) -> InputType:
+    return InputType(dim, SeqType.SEQUENCE, DataKind.DENSE)
+
+
+def integer_value_sequence(value_range: int) -> InputType:
+    return InputType(value_range, SeqType.SEQUENCE, DataKind.INTEGER)

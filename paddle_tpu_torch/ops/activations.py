@@ -1,6 +1,6 @@
 """Activation functions of the port (the subset of
-``paddle_tpu/ops/activations.py`` the v2 image path uses), keyed by the
-reference's activation type strings."""
+``paddle_tpu/ops/activations.py`` the v2 image and text paths use), keyed
+by the reference's activation type strings."""
 
 from __future__ import annotations
 
@@ -9,6 +9,10 @@ import torch
 
 def identity(x):
     return x
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
 
 
 def relu(x):
@@ -26,6 +30,7 @@ def softmax(x, axis: int = -1):
 REGISTRY = {
     "": identity,
     "linear": identity,
+    "sigmoid": sigmoid,
     "relu": relu,
     "tanh": tanh,
     "softmax": softmax,

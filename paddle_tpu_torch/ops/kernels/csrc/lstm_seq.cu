@@ -1,0 +1,609 @@
+// Fused LSTM over a whole sequence: the forward and the backward, each one
+// persistent cooperative launch that walks every time step.
+//
+// Replaces paddle_tpu/ops/pallas/lstm.py::lstm_seq (the Pallas _fwd_kernel,
+// _bwd_kernel and _bwd_remat_kernel: grid (batch blocks, T) run in order on
+// one core, W_h resident in VMEM, the h/c carries in VMEM scratch).
+//
+// Layout (batch-major, as the JAX entry takes it): xw [B, T, 4D] with gate
+// order [i, f, g, o]; mask [B, T] f32 (1 while t < length; rows freeze
+// afterwards); W_h [D, 4D]; peephole [3, D] = [W_ci, W_cf, W_co] (i and f
+// see c_{t-1}, o sees c_t); h0, c0 [B, D]; hs, cs [B, T, D].  ``reverse``
+// runs the same recurrence over indices T-1..0 (no flipped copies).
+// D % 4 == 0 (16-byte copies).
+//
+// What bounds it on an H100: operations, and the step-to-step dependency.
+// Each step is a [B, D] x [D, 4D] product (at B 64, D 1280: 0.84 GFLOP,
+// 107 GFLOP over 128 steps) whose input h_{t-1} exists only once every
+// unit of the previous step is done.  At D 1280, f32 W_h is 26.2 MB: it
+// fits no SM, so the TPU design (W_h whole in VMEM) does not carry over.
+// Instead each of ~128 blocks (one per SM) owns U hidden units and keeps
+// W_h[:, the 4U gate columns of its units] in shared memory for the whole
+// sequence (packed by the wrapper as wpack[block][D][U][4], the four gates
+// of a unit side by side); a grid-wide barrier (cooperative launch) ends
+// each step, because every block needs all of h_{t-1}.  A grid that
+// cannot be co-resident is refused by cudaLaunchCooperativeKernel and the
+// error is returned, never spun on.
+//
+// The product routine (gemm_gates): a block has 32U threads in two
+// halves; thread (half, rg, uu) accumulates batch rows rg + 16 i (i < 4)
+// x the 4 gates of unit uu over its half of each 32-deep chunk of k, the
+// halves' sums are added in a fixed order through shared memory, and the
+// thread finishes rows rg + 16 (2 half + i) (i < 2), so the cell update
+// runs from registers.  h_{t-1} streams through shared memory, three
+// stages of cp.async in flight; the inner loop reads float4s of h rows and
+// of W, 64 FMAs per 8 shared loads.  The two halves give the SM 10 warps
+// at D 1280 (5 left the barriers and the load waits exposed).
+//
+// Backward, reverse time.  (A) per own unit: the gates (recomputed from xw
+// and the shifted h/c stacks with gemm_gates and the forward's cell code
+// when remat is on, so both forms give the same bits; read from the slab
+// when it is off), the gate cotangents from dh = carry + dhs[t] and the dc
+// carry, written to dgates [B, T, 4D]; the peephole sums; the dc carry;
+// and this block's share of dh_{t-1}: P[block][k][b] = sum over its own 4U
+// columns c of dgates[b, c] * W_h[k, c], for every k, from the same W
+// slice, written to a scratch buffer (two, by step parity, so no block
+// overwrites one another block is still reading).  Grid barrier.  (B) for
+// its own units: dh_{t-1} = sum of the partials over blocks, in block
+// order.  No atomics anywhere, so reruns are bit-identical; dpeep of a
+// unit is summed in a fixed order over batch and time.  dW_h is one large
+// product outside, as in the JAX package.
+//
+// Every value written during the launch by another block is read through
+// L2 (__ldcg, cp.async.cg), never from a stale L1 line.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kRows = 64;             // batch rows per chunk
+constexpr int kRG = 16;               // row groups: thread rows rg + 16 i
+constexpr int kRB = kRows / kRG;      // 4 rows a thread
+constexpr int kK = 32;                // depth of one staged chunk of A
+constexpr int kLda = kK + 4;          // its padded row stride (floats)
+constexpr int kStage = kRows * kLda;  // floats a stage
+constexpr int kMaxUnits = 16;         // 32U threads a block, at most 512
+
+// Shared-memory plan (floats), the same formula on host and device.  Once
+// a chunk's product is done the staging area holds the halves' sums
+// [2][kRows][4U + 4] (padded rows: no bank conflicts), then in the
+// backward the dgates tile [kRows][4U + 4] and the peephole partials
+// [3][32][U].
+__host__ __device__ inline int row_stride(int U) { return 4 * U + 4; }
+
+struct Plan {
+  int a, total;
+  __host__ __device__ Plan(int D, int U, int stages) {
+    a = D * 4 * U;
+    int scratch = stages * kStage;
+    const int sums = 2 * kRows * row_stride(U);
+    const int tiles = kRows * row_stride(U) + 3 * 2 * kRG * U;
+    scratch = max(scratch, max(sums, tiles));
+    total = a + scratch;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
+
+struct Gates {
+  float i, f, g, o, c, h;
+};
+
+// The gate bundle of one (row, unit): x* are the xw entries, a* the
+// h_{t-1} @ W_h products, cp = c_{t-1}.  Shared by the forward and the
+// remat backward, so both compute the gates with the same instructions.
+__device__ __forceinline__ Gates cell(float xi, float xf, float xg, float xo,
+                                      float ai, float af, float ag, float ao,
+                                      float cp, float p0, float p1,
+                                      float p2) {
+  Gates r;
+  r.i = sigm((xi + ai) + p0 * cp);
+  r.f = sigm((xf + af) + p1 * cp);
+  r.g = tanhf(xg + ag);
+  r.c = r.f * cp + r.i * r.g;
+  r.o = sigm((xo + ao) + p2 * r.c);
+  r.h = r.o * tanhf(r.c);
+  return r;
+}
+
+// Stage chunk c of A (rows [0, rows) at a + r * lda, columns c*kK ..
+// c*kK + kK - 1, zero past rows and K) into buf [kRows][kLda].
+__device__ __forceinline__ void load_chunk(float* buf, const float* a,
+                                           size_t lda, int rows, int K,
+                                           int c) {
+  for (int p = threadIdx.x; p < kRows * (kK / 4); p += blockDim.x) {
+    const int r = p / (kK / 4), q = p % (kK / 4);
+    const int k = c * kK + 4 * q;
+    const bool ok = r < rows && k < K;
+    cp_async16(buf + r * kLda + 4 * q, ok ? a + r * lda + k : a, ok);
+  }
+}
+
+// fin[i][g] = sum_k A[r_i][k] * W[k][uu][g] for the thread's rows r_i =
+// rg + 16 (2 half + i), i < 2: k ascending within each half of each
+// chunk, one fmaf per term, the half-0 sum plus the half-1 sum; the bits
+// depend on the values only.  A is global (rows [0, rows) at a + r * lda),
+// staged through a_s in S stages; w_s is the block's [K][U][4] slice.
+// Every thread of the block must call it.
+template <int S>
+__device__ __forceinline__ void gemm_gates(const float* a, size_t lda,
+                                           int rows, int K, const float* w_s,
+                                           int U, int uu, int rg, int half,
+                                           float* a_s, float fin[2][4]) {
+  float acc[kRB][4];
+#pragma unroll
+  for (int i = 0; i < kRB; ++i)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+  const int nc = (K + kK - 1) / kK;
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nc) load_chunk(a_s + c * kStage, a, lda, rows, K, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nc; ++c) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    const int cn = c + S - 1;
+    if (cn < nc) load_chunk(a_s + (cn % S) * kStage, a, lda, rows, K, cn);
+    cp_async_commit();
+    const float* buf = a_s + (c % S) * kStage;
+    const int n4 = min(kK, K - c * kK) / 4, mid = (n4 + 1) / 2;
+    for (int q = half ? mid : 0; q < (half ? n4 : mid); ++q) {
+      const int k4 = 4 * q;
+      float4 av[kRB], wv[4];
+#pragma unroll
+      for (int i = 0; i < kRB; ++i)
+        av[i] = *reinterpret_cast<const float4*>(
+            buf + (rg + kRG * i) * kLda + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wv[kk] = *reinterpret_cast<const float4*>(
+            w_s + ((size_t)(c * kK + k4 + kk) * U + uu) * 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < kRB; ++i) {
+          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y
+                        : kk == 2 ? av[i].z : av[i].w;
+          acc[i][0] = fmaf(x, wv[kk].x, acc[i][0]);
+          acc[i][1] = fmaf(x, wv[kk].y, acc[i][1]);
+          acc[i][2] = fmaf(x, wv[kk].z, acc[i][2]);
+          acc[i][3] = fmaf(x, wv[kk].w, acc[i][3]);
+        }
+    }
+  }
+  __syncthreads();       // every chunk read: the staging area is free
+  const int ld = row_stride(U);
+  float* sums = a_s;     // [2][kRows][ld]
+#pragma unroll
+  for (int i = 0; i < kRB; ++i)
+    *reinterpret_cast<float4*>(sums + (half * kRows + rg + kRG * i) * ld
+                               + uu * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rg + kRG * (2 * half + i);
+    const float4 p = *reinterpret_cast<const float4*>(sums + r * ld + uu * 4);
+    const float4 q = *reinterpret_cast<const float4*>(
+        sums + (kRows + r) * ld + uu * 4);
+    fin[i][0] = p.x + q.x;
+    fin[i][1] = p.y + q.y;
+    fin[i][2] = p.z + q.z;
+    fin[i][3] = p.w + q.w;
+  }
+  __syncthreads();       // the caller may reuse the staging area
+}
+
+__device__ __forceinline__ void load_slice(float* w_s, const float* wpack,
+                                           int D, int U) {
+  const float4* src = reinterpret_cast<const float4*>(
+      wpack + (size_t)blockIdx.x * D * 4 * U);
+  float4* dst = reinterpret_cast<float4*>(w_s);
+  for (int e = threadIdx.x; e < D * U; e += blockDim.x) dst[e] = src[e];
+}
+
+template <int S>
+__global__ void __launch_bounds__(2 * kRG * kMaxUnits, 1)
+lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
+                const float* __restrict__ wpack,
+                const float* __restrict__ peep, const float* h0,
+                const float* c0, float* hs, float* cs, float* gates,
+                float* hT, float* cT, int B, int T, int D, int U,
+                int reverse) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Plan plan(D, U, S);
+  float* w_s = smem;
+  float* a_s = smem + plan.a;
+  const int half = threadIdx.x / (kRG * U), l = threadIdx.x % (kRG * U);
+  const int rg = l % kRG, uu = l / kRG;
+  const int u = blockIdx.x * U + uu;
+  const bool live = u < D;
+  load_slice(w_s, wpack, D, U);
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  if (live) {
+    p0 = peep[u];
+    p1 = peep[D + u];
+    p2 = peep[2 * D + u];
+  }
+  cg::grid_group grid = cg::this_grid();
+  const size_t TD = (size_t)T * D, T4D = TD * 4;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      // the cell's other operands, fetched while the product runs
+      float x[2][4], hp[2], cp[2], m[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + kRG * (2 * half + i);
+        if (!live || r >= rows) continue;
+        const int b = b0 + r;
+        const float* xr = xw + b * T4D + (size_t)t * 4 * D;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[i][g] = xr[g * D + u];
+        const size_t bu = (size_t)b * D + u;
+        hp[i] = s == 0 ? __ldcg(h0 + bu)
+                       : __ldcg(hs + b * TD + (size_t)tp * D + u);
+        cp[i] = s == 0 ? __ldcg(c0 + bu)
+                       : __ldcg(cs + b * TD + (size_t)tp * D + u);
+        m[i] = mask[(size_t)b * T + t];
+      }
+      const float* a = s == 0 ? h0 + (size_t)b0 * D
+                              : hs + b0 * TD + (size_t)tp * D;
+      float fin[2][4];
+      gemm_gates<S>(a, s == 0 ? D : TD, rows, D, w_s, U, uu, rg, half, a_s,
+                    fin);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + kRG * (2 * half + i);
+        if (!live || r >= rows) continue;
+        const int b = b0 + r;
+        const Gates q = cell(x[i][0], x[i][1], x[i][2], x[i][3], fin[i][0],
+                             fin[i][1], fin[i][2], fin[i][3], cp[i], p0, p1,
+                             p2);
+        const float hn = m[i] * q.h + (1.f - m[i]) * hp[i];
+        const float cn = m[i] * q.c + (1.f - m[i]) * cp[i];
+        hs[b * TD + (size_t)t * D + u] = hn;
+        cs[b * TD + (size_t)t * D + u] = cn;
+        if (gates != nullptr) {
+          float* g = gates + b * T4D + (size_t)t * 4 * D;
+          g[u] = q.i;
+          g[D + u] = q.f;
+          g[2 * D + u] = q.g;
+          g[3 * D + u] = q.o;
+        }
+        if (s == T - 1) {
+          hT[(size_t)b * D + u] = hn;
+          cT[(size_t)b * D + u] = cn;
+        }
+      }
+    }
+    grid.sync();
+  }
+}
+
+template <bool kRemat, int S>
+__global__ void __launch_bounds__(2 * kRG * kMaxUnits, 1)
+lstm_bwd_kernel(const float* __restrict__ xw,
+                const float* __restrict__ gates_in,
+                const float* __restrict__ mask,
+                const float* __restrict__ wpack,
+                const float* __restrict__ peep, const float* h0,
+                const float* c0, const float* hs, const float* cs,
+                const float* __restrict__ dhs, const float* dhT,
+                const float* dcT, float* dgates, float* dh, float* dc,
+                float* dpeep, float* part, int B, int T, int D, int U,
+                int reverse) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Plan plan(D, U, S);
+  float* w_s = smem;                         // [D][U][4]
+  float* a_s = smem + plan.a;                // staging, then the tiles:
+  const int ldg = row_stride(U);
+  float* dg_s = a_s;                         // [kRows][ldg]
+  float* contrib = a_s + kRows * ldg;        // [3][2 kRG][U]
+  const int half = threadIdx.x / (kRG * U), l = threadIdx.x % (kRG * U);
+  const int rg = l % kRG, uu = l / kRG;
+  const int rs = rg + kRG * half;            // this thread's contrib slot
+  const int u0 = blockIdx.x * U, u = u0 + uu;
+  const int nu = min(U, D - u0);
+  const bool live = uu < nu;
+  const int nblk = gridDim.x;
+  load_slice(w_s, wpack, D, U);
+  for (int e = threadIdx.x; e < B * nu; e += blockDim.x) {
+    const size_t o = (size_t)(e / nu) * D + u0 + e % nu;
+    dh[o] = dhT[o];
+    dc[o] = dcT[o];
+  }
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  if (live) {
+    p0 = peep[u];
+    p1 = peep[D + u];
+    p2 = peep[2 * D + u];
+  }
+  float dp_acc = 0.f;   // thread k * U + q owns dpeep[k][u0 + q]
+  cg::grid_group grid = cg::this_grid();
+  const size_t TD = (size_t)T * D, T4D = TD * 4;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;   // computation order reversed
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool first = reverse ? t == T - 1 : t == 0;
+    float* P = part + (size_t)(s & 1) * nblk * D * B;   // [nblk][D][B]
+    float dp_step = 0.f;
+    __syncthreads();
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      // (A) the operands of rows rg + 16 (2 half + i), unit uu, fetched
+      // while the remat product runs
+      float x[2][4], m[2], dhv[2], dcv[2], cp[2], c[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + kRG * (2 * half + i);
+        if (!live || r >= rows) continue;
+        const int b = b0 + r;
+        const size_t bu = (size_t)b * D + u;
+        const size_t bt = b * TD + (size_t)t * D + u;
+        const float* xr = (kRemat ? xw : gates_in) + b * T4D
+                          + (size_t)t * 4 * D;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[i][g] = xr[g * D + u];
+        m[i] = mask[(size_t)b * T + t];
+        dhv[i] = dh[bu] + dhs[bt];
+        dcv[i] = dc[bu];
+        cp[i] = first ? __ldcg(c0 + bu)
+                      : __ldcg(cs + b * TD + (size_t)tp * D + u);
+        c[i] = __ldcg(cs + bt);
+      }
+      float fin[2][4];
+      if (kRemat) {
+        const float* a = first ? h0 + (size_t)b0 * D
+                               : hs + b0 * TD + (size_t)tp * D;
+        gemm_gates<S>(a, first ? D : TD, rows, D, w_s, U, uu, rg, half, a_s,
+                      fin);
+      }
+      float cpart[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rg + kRG * (2 * half + i);
+        float4 dgv = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live && r < rows) {
+          const int b = b0 + r;
+          const size_t bu = (size_t)b * D + u;
+          float gi = x[i][0], gf = x[i][1], gg = x[i][2], go = x[i][3];
+          if (kRemat) {
+            const Gates q = cell(x[i][0], x[i][1], x[i][2], x[i][3],
+                                 fin[i][0], fin[i][1], fin[i][2], fin[i][3],
+                                 cp[i], p0, p1, p2);
+            gi = q.i;
+            gf = q.f;
+            gg = q.g;
+            go = q.o;
+          }
+          const float tc = tanhf(c[i]);
+          const float d_o = dhv[i] * tc * go * (1.f - go) * m[i];
+          const float dct = (dcv[i] + dhv[i] * go * (1.f - tc * tc)) * m[i]
+                            + d_o * p2;
+          const float d_i = dct * gg * gi * (1.f - gi);
+          const float d_f = dct * cp[i] * gf * (1.f - gf);
+          const float d_g = dct * gi * (1.f - gg * gg);
+          float* dg = dgates + b * T4D + (size_t)t * 4 * D;
+          dg[u] = d_i;
+          dg[D + u] = d_f;
+          dg[2 * D + u] = d_g;
+          dg[3 * D + u] = d_o;
+          cpart[0] += d_i * cp[i];
+          cpart[1] += d_f * cp[i];
+          cpart[2] += d_o * c[i];
+          dh[bu] = (1.f - m[i]) * dhv[i];  // (B) adds the partials' sum
+          dc[bu] = dct * gf + d_i * p0 + d_f * p1 + (1.f - m[i]) * dcv[i];
+          dgv = make_float4(d_i, d_f, d_g, d_o);
+        }
+        *reinterpret_cast<float4*>(dg_s + r * ldg + uu * 4) = dgv;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        contrib[(k * 2 * kRG + rs) * U + uu] = cpart[k];
+      __syncthreads();
+      if (threadIdx.x < 3 * U) {
+        const int k = threadIdx.x / U, q = threadIdx.x % U;
+        float sum = 0.f;
+        for (int g = 0; g < 2 * kRG; ++g)
+          sum += contrib[(k * 2 * kRG + g) * U + q];
+        dp_step += sum;
+      }
+      // this block's share of dh_{t-1}: thread (half, rg, uu) takes rows
+      // rg + 16 (2 half + i) and k = uu + U j, four k at a time
+      float* Pb = P + (size_t)blockIdx.x * D * B + b0;
+      for (int j0 = 0; uu + U * j0 < D; j0 += 4) {
+        int ks[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) ks[n] = min(uu + U * (j0 + n), D - 1);
+        float pacc[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) pacc[i][n] = 0.f;
+        for (int cu = 0; cu < U; ++cu) {
+          float4 dv[2], wv[4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            dv[i] = *reinterpret_cast<const float4*>(
+                dg_s + (rg + kRG * (2 * half + i)) * ldg + cu * 4);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            wv[n] = *reinterpret_cast<const float4*>(
+                w_s + ((size_t)ks[n] * U + cu) * 4);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              pacc[i][n] = fmaf(dv[i].x, wv[n].x, pacc[i][n]);
+              pacc[i][n] = fmaf(dv[i].y, wv[n].y, pacc[i][n]);
+              pacc[i][n] = fmaf(dv[i].z, wv[n].z, pacc[i][n]);
+              pacc[i][n] = fmaf(dv[i].w, wv[n].w, pacc[i][n]);
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int k = uu + U * (j0 + n);
+          if (k >= D) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = rg + kRG * (2 * half + i);
+            if (r < rows) Pb[(size_t)k * B + r] = pacc[i][n];
+          }
+        }
+      }
+      __syncthreads();   // dg_s and contrib are free for the next chunk
+    }
+    dp_acc += dp_step;
+    grid.sync();
+    // (B) dh_{t-1} of the own units: the partials summed in block order,
+    // four outputs a thread interleaved (32 loads in flight)
+    const int n_out = B * nu;
+    for (int e0 = threadIdx.x; e0 < n_out; e0 += 4 * blockDim.x) {
+      const float* src[4];
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int e = min(e0 + v * (int)blockDim.x, n_out - 1);
+        src[v] = P + (size_t)(u0 + e / B) * B + e % B;
+      }
+#pragma unroll 8
+      for (int k = 0; k < nblk; ++k)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          sum[v] += __ldcg(src[v] + (size_t)k * D * B);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int e = e0 + v * (int)blockDim.x;
+        if (e >= n_out) continue;
+        const size_t bu = (size_t)(e % B) * D + u0 + e / B;
+        dh[bu] = sum[v] + dh[bu];
+      }
+    }
+  }
+  if (threadIdx.x < 3 * U) {
+    const int k = threadIdx.x / U, q = threadIdx.x % U;
+    if (q < nu) dpeep[(size_t)k * D + u0 + q] = dp_acc;
+  }
+}
+
+// Stages of the A pipeline: three when they fit beside the W slice, else
+// two; 0 when even two do not fit.
+int stages_for(int D, int U) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  for (int s = 3; s >= 2; --s)
+    if (sizeof(float) * (size_t)Plan(D, U, s).total <= (size_t)optin)
+      return s;
+  return 0;
+}
+
+template <typename Kern>
+int cooperative(Kern kernel, int grid, int threads, size_t smem, void** args,
+                cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)per_sm * sms < grid)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, threads, args,
+                                    smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+bool valid_shape(int B, int T, int D, int U) {
+  return B > 0 && T > 0 && D > 0 && D % 4 == 0 && U > 0 && U <= kMaxUnits;
+}
+
+}  // namespace
+
+// The grid: ceil(D / U) blocks of 32U threads; wpack [blocks][D][U][4].
+extern "C" int lstm_fwd_f32(const float* xw, const float* mask,
+                            const float* wpack, const float* peep,
+                            const float* h0, const float* c0, float* hs,
+                            float* cs, float* gates, float* hT, float* cT,
+                            int B, int T, int D, int U, int reverse,
+                            void* stream) {
+  if (!valid_shape(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const int stages = stages_for(D, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = sizeof(float) * Plan(D, U, stages).total;
+  void* args[] = {&xw, &mask, &wpack, &peep, &h0, &c0, &hs, &cs, &gates,
+                  &hT, &cT, &B, &T, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? cooperative(lstm_fwd_kernel<3>, grid, 2 * kRG * U, smem, args, st)
+      : cooperative(lstm_fwd_kernel<2>, grid, 2 * kRG * U, smem, args, st);
+}
+
+// remat != 0: gates recomputed from xw and the shifted h/c stacks
+// (gates_in unused); remat == 0: gates_in is the forward's slab (xw
+// unused).  part is scratch of 2 * blocks * D * B floats.
+extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
+                            const float* mask, const float* wpack,
+                            const float* peep, const float* h0,
+                            const float* c0, const float* hs, const float* cs,
+                            const float* dhs, const float* dhT,
+                            const float* dcT, float* dgates, float* dh,
+                            float* dc, float* dpeep, float* part, int B,
+                            int T, int D, int U, int reverse, int remat,
+                            void* stream) {
+  if (!valid_shape(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const int stages = stages_for(D, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = sizeof(float) * Plan(D, U, stages).total;
+  void* args[] = {&xw, &gates_in, &mask, &wpack, &peep, &h0, &c0, &hs, &cs,
+                  &dhs, &dhT, &dcT, &dgates, &dh, &dc, &dpeep, &part,
+                  &B, &T, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n = 2 * kRG * U;
+  if (remat)
+    return stages == 3
+        ? cooperative(lstm_bwd_kernel<true, 3>, grid, n, smem, args, st)
+        : cooperative(lstm_bwd_kernel<true, 2>, grid, n, smem, args, st);
+  return stages == 3
+      ? cooperative(lstm_bwd_kernel<false, 3>, grid, n, smem, args, st)
+      : cooperative(lstm_bwd_kernel<false, 2>, grid, n, smem, args, st);
+}
+
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

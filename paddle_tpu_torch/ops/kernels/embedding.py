@@ -1,0 +1,171 @@
+"""Embedding gather / unique-ids dedup / scatter-add and the fused lookup
+(the port of ``paddle_tpu/ops/pallas/tpp/embedding.py``'s
+``embedding_gather``, ``embedding_scatter_add``, ``dedup_ids`` and
+``fused_embedding_lookup``).
+
+- :func:`dedup_ids` — sorted unique ids with the inverse map
+  (``torch.unique``; a sort, as the JAX package's is jnp on both sides);
+- :func:`embedding_gather` — ``csrc/embedding.cu``: ``table[clamp(ids)]``;
+- :func:`embedding_scatter_add` — ``csrc/embedding.cu``: ``table`` plus
+  the rows scattered to their ids, duplicates summed in a fixed order
+  (a stable sort by id, then one warp per run), ids outside ``[0, V)``
+  dropped;
+- :func:`fused_embedding_lookup` — the autograd composition: the forward
+  dedups, gathers each unique row once and re-expands; the backward
+  scatter-adds the cotangents into a zero table (the JAX package's
+  ``segment_sum`` + ``embedding_scatter_add`` in one launch).
+
+CPU tensors take the plain twins; CUDA tensors launch the kernels or
+raise."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.ops.kernels._build import Kernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNEL_GATHER = Kernel("embedding", "embedding_gather_f32",
+                       [_P, _P, _P, _I, _I, _I, _P])
+KERNEL_SCATTER = Kernel("embedding", "embedding_scatter_add_f32",
+                        [_P, _P, _P, _P, _I, _I, _I, _P])
+
+
+def dedup_ids(ids):
+    """(uids, inv): the sorted unique ids of the flat id list and, for
+    each position, the index of its id in ``uids`` (``flat == uids[inv]``).
+    Unlike the JAX package's fixed-capacity form, ``uids`` holds only the
+    ids present (no ``-1`` padding)."""
+    return torch.unique(ids.reshape(-1), sorted=True, return_inverse=True)
+
+
+def _check(table, ids, rows=None):
+    enforce(table.dim() == 2, f"table must be [V, D], got {tuple(table.shape)}")
+    enforce(ids.dim() == 1, f"ids must be flat [N], got {tuple(ids.shape)}")
+    if rows is not None:
+        enforce(tuple(rows.shape) == (ids.shape[0], table.shape[1]),
+                f"rows must be [N, D] = [{ids.shape[0]}, {table.shape[1]}], "
+                f"got {tuple(rows.shape)}")
+    if table.device.type == "cpu":
+        return
+    tensors = [table] + ([rows] if rows is not None else [])
+    enforce(all(t.dtype == torch.float32 for t in tensors),
+            "the embedding kernels take float32 tables and rows")
+    enforce(ids.dtype == torch.int64, "the embedding kernels take int64 ids")
+    enforce(all(t.is_contiguous() for t in tensors + [ids]),
+            "the embedding kernels need contiguous operands")
+    enforce(len({t.device for t in tensors + [ids]}) == 1,
+            "embedding operands on several devices")
+
+
+# -- gather -------------------------------------------------------------------
+
+
+def embedding_gather_reference(table, ids):
+    """Plain twin: ``table[clamp(ids, 0, V - 1)]`` for a flat id list."""
+    return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+
+def embedding_gather(table, ids):
+    """``out[i] = table[clamp(ids[i], 0, V - 1)]`` for a flat id list
+    [N] -> [N, D]; one launch of the gather kernel on the card."""
+    _check(table, ids)
+    if table.device.type == "cpu":
+        return embedding_gather_reference(table, ids)
+    n, (v, d) = ids.shape[0], table.shape
+    out = torch.empty(n, d, dtype=table.dtype, device=table.device)
+    if n:
+        KERNEL_GATHER.launch(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                             n, v, d, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+# -- scatter-add -----------------------------------------------------------------
+
+
+def embedding_scatter_add_reference(table, ids, rows):
+    """Plain twin: ``table`` with each row of ``rows`` added at its id;
+    duplicates sum, ids outside ``[0, V)`` contribute nothing."""
+    ids = ids.long()
+    keep = (ids >= 0) & (ids < table.shape[0])
+    return table.index_add(0, ids[keep], rows[keep].to(table.dtype))
+
+
+def _scatter_add_into(out, ids, rows):
+    """The kernel on ``out`` in place: sort the ids (stable), then one warp
+    per run of equal ids sums its rows in order and adds them once."""
+    n, (v, d) = ids.shape[0], out.shape
+    if n == 0:
+        return out
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    KERNEL_SCATTER.launch(out.data_ptr(), sorted_ids.data_ptr(),
+                          perm.data_ptr(), rows.data_ptr(), n, v, d,
+                          torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def table_grad(ids, rows, num_rows: int):
+    """The table gradient of a lookup: a zero [V, D] table plus each row
+    of ``rows`` at its id (the JAX package's ``segment_sum`` then
+    ``embedding_scatter_add`` into zeros; one scatter-add launch on the
+    card)."""
+    zeros = torch.zeros(num_rows, rows.shape[1], dtype=rows.dtype,
+                        device=rows.device)
+    if rows.device.type == "cpu":
+        return embedding_scatter_add_reference(zeros, ids, rows)
+    _check(zeros, ids, rows)
+    return _scatter_add_into(zeros, ids, rows)
+
+
+def embedding_scatter_add(table, ids, rows):
+    """``table + scatter_add(ids -> rows)``: duplicate ids sum exactly and
+    in a fixed order (reruns are bit-identical), ids outside ``[0, V)``
+    (e.g. the ``-1`` pad convention) contribute nothing."""
+    _check(table, ids, rows)
+    if table.device.type == "cpu":
+        return embedding_scatter_add_reference(table, ids, rows)
+    return _scatter_add_into(table.clone(), ids, rows)
+
+
+# -- the fused lookup --------------------------------------------------------------
+
+
+class _FusedLookup(torch.autograd.Function):
+    """JAX: ``fused_embedding_lookup``'s ``custom_vjp``.  Saves the ids
+    only; the backward builds the table gradient from them."""
+
+    @staticmethod
+    def forward(ctx, table, ids, padding_idx):
+        flat = ids.reshape(-1).long()
+        uids, inv = dedup_ids(flat)
+        out = embedding_gather(table, uids)[inv]
+        if padding_idx is not None:
+            out = torch.where((flat == padding_idx)[:, None],
+                              torch.zeros((), dtype=out.dtype,
+                                          device=out.device), out)
+        ctx.save_for_backward(flat)
+        ctx.cfg = (table.shape[0], table.dtype, padding_idx)
+        return out.reshape(*ids.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, ct):
+        (flat,) = ctx.saved_tensors
+        v, dtype, padding_idx = ctx.cfg
+        ctf = ct.reshape(flat.shape[0], -1).to(dtype).contiguous()
+        if padding_idx is not None:
+            ctf = torch.where((flat == padding_idx)[:, None],
+                              torch.zeros((), dtype=ctf.dtype,
+                                          device=ctf.device), ctf)
+        return table_grad(flat, ctf, v), None, None
+
+
+def fused_embedding_lookup(table, ids, padding_idx=None):
+    """Dedup-once embedding lookup: ``table[clamp(ids)]`` [..., D] with
+    ``padding_idx`` rows zero; the forward gathers each unique row once,
+    the backward scatter-adds each table row once (rows of ids outside
+    ``[0, V)`` and of ``padding_idx`` get no gradient)."""
+    return _FusedLookup.apply(table, ids, padding_idx)

@@ -1,0 +1,80 @@
+"""Recurrent cells and masked scans of the port (``paddle_tpu/ops/rnn.py``:
+the LSTM pieces ``lstmemory`` needs).
+
+The input projection x @ W_x (+ bias) is one large product outside the
+recurrence; only h @ W_h runs inside it.  Ragged batches freeze each
+row's state past its length.  Gates are ordered [input, forget,
+cell (candidate), output]."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from paddle_tpu_torch.core.lod import SequenceBatch
+from paddle_tpu_torch.ops import activations as act
+from paddle_tpu_torch.ops.kernels import lstm as lstm_kernels
+from paddle_tpu_torch.ops.math import matmul
+
+
+class LSTMState(NamedTuple):
+    h: torch.Tensor  # [B, D]
+    c: torch.Tensor  # [B, D]
+
+
+def lstm_cell(xw, state: LSTMState, w_h, gate_act=act.sigmoid,
+              state_act=act.tanh, out_act=None, peephole=None) -> LSTMState:
+    """One step: xw [B, 4D] (x @ W_x + bias), w_h [D, 4D], peephole [3D]
+    flat [W_ci, W_cf, W_co] (i and f see c_{t-1}, o sees c_t);
+    ``out_act`` (default ``state_act``) acts on c before the output gate."""
+    d = state.h.shape[-1]
+    gates = xw + matmul(state.h, w_h)
+    gi, gf, gg, go = (gates[:, k * d:(k + 1) * d] for k in range(4))
+    if peephole is not None:
+        gi = gi + peephole[0 * d:1 * d] * state.c
+        gf = gf + peephole[1 * d:2 * d] * state.c
+    i = gate_act(gi)
+    f = gate_act(gf)
+    g = state_act(gg)
+    c = f * state.c + i * g
+    if peephole is not None:
+        go = go + peephole[2 * d:3 * d] * c
+    o = gate_act(go)
+    h = o * (out_act or state_act)(c)
+    return LSTMState(h=h, c=c)
+
+
+def _masked_scan(step, x: SequenceBatch, init_state: LSTMState,
+                 reverse: bool = False):
+    """Run ``step(state, x_t) -> state`` over time, each row frozen past
+    its length.  Returns (last state, stacked states [B, T, ...])."""
+    mask = x.mask(x.data.dtype)
+    t = x.max_len
+    state, outs = init_state, [None] * t
+    for k in (range(t - 1, -1, -1) if reverse else range(t)):
+        new = step(state, x.data[:, k])
+        m = mask[:, k, None]
+        state = type(state)(*(m * n + (1.0 - m) * o
+                              for n, o in zip(new, state)))
+        outs[k] = state
+    return state, type(state)(*(torch.stack(z, 1) for z in zip(*outs)))
+
+
+def lstm_fused(xw: SequenceBatch, w_h, init: LSTMState, peephole=None,
+               reverse: bool = False, remat: bool | None = None):
+    """Standard-activation LSTM over precomputed gate inputs through the
+    sequence kernel (``kernels/lstm.lstm_seq``): xw a SequenceBatch of
+    [B, T, 4D], peephole optional [3D] flat.  ``remat`` recomputes the
+    gates in the backward instead of keeping the [B, T, 4D] slab; None
+    means on the card only, as the JAX package turns it on on the TPU
+    only.  Returns (SequenceBatch of h, last LSTMState)."""
+    d = w_h.shape[0]
+    if remat is None:
+        remat = xw.data.device.type == "cuda"
+    peep = (torch.zeros(3, d, dtype=w_h.dtype, device=w_h.device)
+            if peephole is None else peephole.reshape(3, d))
+    hs, (h_t, c_t) = lstm_kernels.lstm_seq(
+        xw.data, xw.mask(xw.data.dtype), w_h, peep, init.h, init.c,
+        reverse=reverse, remat=remat)
+    return SequenceBatch(data=hs, length=xw.length), LSTMState(h=h_t, c=c_t)

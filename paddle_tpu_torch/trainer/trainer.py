@@ -3,9 +3,12 @@
 reader -> DataFeeder -> forward/backward -> update -> events).
 
 It runs on ``cuda:0`` unless the caller passes ``device="cpu"``.  The
-options of the JAX trainer that this port does not take yet (mesh, ZeRO,
-checkpoints, elastic, prefetch, evaluators, telemetry) are not accepted:
-passing one raises ``TypeError``."""
+metrics that cost layers attach (``classification_cost``'s
+``classification_error_evaluator``) ride on ``EndIteration`` (the batch's),
+``EndPass`` and ``TestResult`` (the mean over batches).  The options of
+the JAX trainer that this port does not take yet (mesh, ZeRO,
+checkpoints, elastic, prefetch, declared evaluators, telemetry) are not
+accepted: passing one raises ``TypeError``."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from paddle_tpu_torch.config.topology import Topology
 from paddle_tpu_torch.core import logger as log
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.core.parameters import Parameters
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.layers.base import LayerOutput
@@ -84,6 +88,8 @@ class SGD:
         cpu = torch.device("cpu")
 
         def wide(t):
+            if isinstance(t, SequenceBatch):
+                return SequenceBatch(wide(t.data), t.length)
             t = torch.as_tensor(t, device=cpu)
             return t.double() if t.is_floating_point() else t
 
@@ -93,7 +99,7 @@ class SGD:
                 self._feeder(feeding, cpu)(data_batch).items()}
         opt_state = self.optimizer.init(
             {k: params[k] for k in self._trainable}, self._specs)
-        params, _, states, cost = build_train_step(
+        params, _, states, cost, _ = build_train_step(
             self.topology, self.optimizer)(params, opt_state, states, feed)
         return ({n: t.numpy() for n, t in params.items()},
                 {k: v.numpy() for k, v in states.items()}, float(cost))
@@ -103,7 +109,8 @@ class SGD:
         """``reader`` yields BATCHES (lists of sample tuples), the output of
         ``paddle.batch(...)`` as in v2.  Events per pass: BeginPass, then
         per batch BeginIteration and EndIteration (with the batch cost as
-        a float), then EndPass."""
+        a float and the batch's metrics), then EndPass (the metrics'
+        mean over the pass)."""
         handler = event_handler or _default_event_handler
         feeder = self._feeder(feeding)
         params = self._params_dict()
@@ -114,28 +121,41 @@ class SGD:
                 {k: params[k] for k in self._trainable}, self._specs)
         for pass_id in range(num_passes):
             handler(v2_event.BeginPass(pass_id))
+            batch_metrics = []
             for batch_id, data_batch in enumerate(reader()):
                 handler(v2_event.BeginIteration(pass_id, batch_id))
                 feed = feeder(data_batch)
-                params, opt_state, states, cost = self._train_step(
+                params, opt_state, states, cost, metrics = self._train_step(
                     params, opt_state, states, feed)
+                batch_metrics.append(metrics)
                 handler(v2_event.EndIteration(pass_id, batch_id,
-                                              float(cost), {}))
+                                              float(cost), metrics))
             # written back every pass, so a handler or test() sees them
             self.parameters.update_from(params)
             self.states = states
             self._opt_state = opt_state
-            handler(v2_event.EndPass(pass_id, {}))
+            handler(v2_event.EndPass(pass_id, _mean_dicts(batch_metrics)))
 
     def test(self, reader, feeding=None) -> v2_event.TestResult:
-        """Forward-only over a reader of batches; the mean batch cost."""
+        """Forward-only over a reader of batches; the mean batch cost and
+        the mean of each metric."""
         feeder = self._feeder(feeding)
         params = self._params_dict()
-        costs = [float(self._eval_step(params, self.states,
-                                       feeder(batch))[1])
-                 for batch in reader()]
+        costs, metrics = [], []
+        for batch in reader():
+            _, cost, m = self._eval_step(params, self.states, feeder(batch))
+            costs.append(float(cost))
+            metrics.append(m)
         enforce(len(costs) > 0, "test reader yielded no batches")
-        return v2_event.TestResult({}, float(np.mean(costs)))
+        return v2_event.TestResult(_mean_dicts(metrics),
+                                   float(np.mean(costs)))
+
+
+def _mean_dicts(dicts: list[dict]) -> dict:
+    if not dicts:
+        return {}
+    return {k: float(np.mean([d[k] for d in dicts if k in d]))
+            for k in dicts[0]}
 
 
 def _default_event_handler(e) -> None:

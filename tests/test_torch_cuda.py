@@ -332,3 +332,142 @@ def test_flash_backward_refuses_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 60, 64, device=cuda)
     with pytest.raises(EnforceError, match="64-row"):
         FA._bwd_kernel(x, x, x, x, lse, x, 60, True, 0.125)
+
+
+# -- LSTM sequence and embedding gather / scatter-add (the text path) ------------
+
+
+def _lstm_inputs(rng, b, t, d, device):
+    lens = rng.integers(1, t + 1, size=b)
+    lens[0] = t
+    mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+    x = [_rand(rng, b, t, 4 * d), torch.from_numpy(mask),
+         _rand(rng, d, 4 * d) * (1.0 / d ** 0.5), _rand(rng, 3, d) * 0.3,
+         _rand(rng, b, d) * 0.5, _rand(rng, b, d) * 0.5]
+    return [v.to(device) for v in x]
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (3, 7, 8),          # one unit a block
+    (5, 9, 300),        # 3 units a block, the last block short
+    (300, 9, 32),       # five 64-row chunks (past the JAX 256-row block)
+    (64, 16, 1280),     # the text classifier's width: 10 units a block
+])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_kernels_match_plain(cuda, b, t, d, reverse):
+    """The forward kernel and both backward forms against the plain twins
+    on the same CUDA tensors; remat and stored gates give the same bits,
+    and a rerun repeats them (no atomics)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    rng = np.random.default_rng(b * 31 + t + d)
+    xw, mask, w_h, peep, h0, c0 = _lstm_inputs(rng, b, t, d, cuda)
+    n_fwd = LK.KERNEL_FWD.launches
+    got = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, reverse, True)
+    torch.cuda.synchronize()
+    assert LK.KERNEL_FWD.launches == n_fwd + 1
+    want = LK._fwd_plain(xw, mask, w_h, peep, h0, c0, reverse, True)
+    for x, y in zip(got, want):
+        assert ((x - y).abs().max().item()
+                <= TOL * max(1.0, y.abs().max().item()))
+    hs, cs, gates = got[:3]
+    dhs, dh_t, dc_t = (_rand(rng, *s).to(cuda) for s in
+                       ((b, t, d), (b, d), (b, d)))
+    args = (mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, reverse)
+    n_bwd = LK.KERNEL_BWD.launches
+    stored = LK._bwd_kernel(None, gates, *args, False)
+    remat = LK._bwd_kernel(xw, None, *args, True)
+    again = LK._bwd_kernel(xw, None, *args, True)
+    torch.cuda.synchronize()
+    assert LK.KERNEL_BWD.launches == n_bwd + 3
+    assert all(torch.equal(x, y) for x, y in zip(stored, remat))
+    assert all(torch.equal(x, y) for x, y in zip(remat, again))
+    want = LK._bwd_plain(xw, gates, *args, True)
+    for x, y in zip(remat, want):
+        assert ((x - y).abs().max().item()
+                <= TOL * max(1.0, y.abs().max().item()))
+
+
+def test_lstm_function_on_card_matches_the_cpu(cuda):
+    """The autograd Function (kernels) against the CPU's plain twins:
+    hs, h_T, c_T and every input gradient."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    rng = np.random.default_rng(7)
+    cpu = _lstm_inputs(rng, 6, 11, 40, "cpu")
+    r = _rand(rng, 6, 11, 40)
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev).detach().requires_grad_(i != 1)
+                  for i, x in enumerate(cpu)]
+        hs, (h_t, c_t) = LK.lstm_seq(*leaves, reverse=False, remat=True)
+        loss = (hs * r.to(dev)).sum() + h_t.sum() + 0.5 * c_t.sum()
+        grads = torch.autograd.grad(loss, [x for i, x in enumerate(leaves)
+                                           if i != 1])
+        outs.append([hs, h_t, c_t, *grads])
+    for want, got in zip(*outs):
+        assert ((got.cpu() - want).abs().max().item()
+                <= TOL * max(1.0, want.abs().max().item()))
+
+
+def test_lstm_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    x = [v.double() for v in _lstm_inputs(np.random.default_rng(0), 2, 3, 8,
+                                          cuda)]
+    with pytest.raises(EnforceError, match="float32"):
+        LK.lstm_seq(*x)
+    x = _lstm_inputs(np.random.default_rng(0), 2, 3, 4096, cuda)
+    with pytest.raises(EnforceError, match="units a block"):
+        LK.lstm_seq(*x)
+    x = _lstm_inputs(np.random.default_rng(0), 2, 3, 10, cuda)
+    with pytest.raises(EnforceError, match="multiple of 4"):
+        LK.lstm_seq(*x)
+
+
+def _ids(rng, n, v):
+    """Ids with duplicates, out-of-range and negative entries."""
+    ids = rng.integers(0, v, size=n)
+    ids[:4] = [v + 3, -1, -7, v - 1]
+    ids[4:12] = ids[12:20]
+    return torch.from_numpy(ids.astype(np.int64))
+
+
+@pytest.mark.parametrize("n,v,d", [(37, 50, 8), (8192, 30000, 128),
+                                   (300, 97, 33)])
+def test_embedding_kernels_match_plain(cuda, n, v, d):
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    rng = np.random.default_rng(n + v + d)
+    table, rows = _rand(rng, v, d).to(cuda), _rand(rng, n, d).to(cuda)
+    ids = _ids(rng, n, v).to(cuda)
+    counts = EK.KERNEL_GATHER.launches, EK.KERNEL_SCATTER.launches
+    got = EK.embedding_gather(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, EK.embedding_gather_reference(table, ids))
+    summed = EK.embedding_scatter_add(table, ids, rows)
+    again = EK.embedding_scatter_add(table, ids, rows)
+    torch.cuda.synchronize()
+    assert (EK.KERNEL_GATHER.launches - counts[0],
+            EK.KERNEL_SCATTER.launches - counts[1]) == (1, 2)
+    assert torch.equal(summed, again)
+    want = EK.embedding_scatter_add_reference(table, ids, rows)
+    assert (summed - want).abs().max().item() <= 1e-5
+
+
+def test_fused_lookup_on_card_matches_the_cpu(cuda):
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    rng = np.random.default_rng(3)
+    table = _rand(rng, 50, 16)
+    ids = _ids(rng, 48, 50).reshape(6, 8)
+    r = _rand(rng, 6, 8, 16)
+    outs = []
+    for dev in ("cpu", cuda):
+        t = table.to(dev).detach().requires_grad_()
+        out = EK.fused_embedding_lookup(t, ids.to(dev), padding_idx=5)
+        (g,) = torch.autograd.grad((out * r.to(dev)).sum(), (t,))
+        outs.append((out, g))
+    assert torch.equal(outs[1][0].cpu(), outs[0][0])
+    assert (outs[1][1].cpu() - outs[0][1]).abs().max().item() <= 1e-6

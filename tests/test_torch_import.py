@@ -50,6 +50,12 @@ MODULES = (
     "paddle_tpu_torch.reader",
     "paddle_tpu_torch.reader.decorator",
     "paddle_tpu_torch.reader.feeder",
+    "paddle_tpu_torch.core.lod",
+    "paddle_tpu_torch.ops.sequence",
+    "paddle_tpu_torch.ops.embedding",
+    "paddle_tpu_torch.ops.rnn",
+    "paddle_tpu_torch.ops.kernels.lstm",
+    "paddle_tpu_torch.ops.kernels.embedding",
 )
 
 
