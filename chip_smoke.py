@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains (ResNet-50, the transformer LM and the LSTM text classifier).
+trains (ResNet-50, the transformer LM, the LSTM text classifier and the
+OCR CRNN).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -106,7 +107,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    the LSTM forward, the LSTM backward, the gather and the scatter-add
    per step; 3 steps under ``torch.profiler``; ``test`` on 2 batches
    (one forward and one gather per batch).
-7. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+7. The OCR CRNN (``models/ocr_crnn.crnn_ctc_cost`` at ``bench_crnn``'s
+   configuration: 32x96x1 images, two 3x3 ``img_conv_bn`` layers 1->16
+   and 16->32 each with a 2x2 pool, ``layer.bilstm`` of 64, a 27-way
+   softmax fc, ``ctc_layer``; f32, Adam at lr 1e-3 with bf16 moments).
+   Its kernels against their plain twins at the path's shapes: the
+   BiLSTM forward (x [64, 24, 256], D 64, both directions), the LSTM
+   backward kernel in its remat form at the BiLSTM's shapes (xw
+   [64, 24, 256], D 64) in both directions, the CTC
+   forward-backward on log-probs [64, 24, 27] with labels of 5 in a
+   16-slot (S = 33), in both ``normalize`` forms, the greedy decode of the
+   same slab (bit-equal), the direct conv with its BN statistics epilogue
+   at the two 3x3 shapes (Cin = 1 and 16); max abs error <= 1e-4 x
+   max(1, |ref|), reruns equal in bits; each timed beside its twin, its
+   bound and a library call the port never makes (cuDNN's bidirectional
+   ``nn.LSTM``, input projection included and no peepholes, and the
+   backward of its one-direction form; ``F.ctc_loss`` forward and backward by the log-probs; ``torch.argmax``
+   over the slab as the decode's read floor).  Then a batch-2 step on the
+   card and on the CPU against ``SGD.step_f64`` (plain SGD at lr 1, so
+   the update is the gradient): cost within 1e-5 relative, and per
+   parameter and BN statistic the witness ratio within 10x the float64
+   step's own move under a 1e-6 input nudge (at least 1e-4); TF32 on the
+   card and a CPU CTC twin whose beta recursion drops the s-2 skip are
+   planted faults that must exceed it, and the card's step repeats bit
+   for bit.  Then ``trainer.SGD``: 2 warm-up and 10 timed steps at batch
+   64 (samples/s, step ms, peak memory, finite falling costs) with
+   exactly 2 direct-conv, 1 BiLSTM, 2 LSTM-backward and 1 CTC launches
+   per step and no other; 3 steps under ``torch.profiler``;
+   ``paddle.infer`` on 64 samples and ``ocr_crnn.ctc_decode``, exactly 1
+   BiLSTM, 2 conv and 1 decode launch; and the slow JAX test's
+   convergence recipe (8 classes, rnn_size 32, Adam 3e-3, 25 passes of
+   512 samples at batch 32): the last cost under 5% of the first and the
+   greedy decode of 16 fresh samples exact on at least 13.
+8. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -706,7 +739,8 @@ def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
     for mine in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
-                 "lstm_fwd", "lstm_bwd"):
+                 "bilstm_fwd", "lstm_fwd", "lstm_bwd", "ctc_fwd_bwd",
+                 "ctc_decode"):
         if mine in low:
             return f"{mine} (ours)"
     if "::scatter_add_kernel(" in low:    # csrc/embedding.cu
@@ -1539,6 +1573,479 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
     return out, launches
 
 
+CRNN_COST_RTOL = 1e-5    # f32 CRNN step vs the f64 witness: cost, and per
+CRNN_LEAF_FLOOR = 1e-4   # leaf the witness ratio's least limit (see below)
+
+
+def crnn_feed_batches(rng, k, bs, classes):
+    """``bench_crnn``'s synthetic batches: N(0, 1) 32x96 images and labels
+    of 5 ids (the feeder pads the label slot to its bucket, 16)."""
+    return [[(rng.standard_normal(32 * 96, dtype=np.float32),
+              rng.integers(0, classes, size=5).tolist())
+             for _ in range(bs)] for _ in range(k)]
+
+
+def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
+                       label_len=5) -> tuple:
+    """The OCR CRNN's kernels at its shapes, each against its plain twin
+    (max abs error <= TOL * max(1, |ref|); the decode bit for bit), a rerun
+    bit-identical: the BiLSTM forward (x [64, 24, 256], D 64, both
+    directions); the LSTM backward kernel in the remat form the BiLSTM's
+    backward launches, once per direction, over the forward's own hs/cs
+    and the recomputed projection (xw [64, 24, 256]); the CTC
+    forward-backward on log-probs [64, 24, 27] with
+    labels of 5 in a 16-slot (S = 33), in both ``normalize`` forms; the
+    greedy decode of the same slab; and the direct conv with the BN
+    statistics epilogue at the CRNN's two 3x3 convs (conv1's Cin = 1).
+    Library yardsticks: cuDNN's bidirectional ``nn.LSTM`` (input
+    projection included, no peepholes) and the backward of its
+    one-direction form, ``F.ctc_loss`` forward and
+    backward by the log-probs, and ``torch.argmax`` over the slab (the
+    decode's read floor; no single call decodes)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import ctc as ctc_ops
+    from paddle_tpu_torch.ops.kernels import conv as CV
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+
+    def worst(got, want, what):
+        err = 0.0
+        for x, y in zip(got, want):
+            if x is None:
+                continue
+            m = (x - y).abs().max().item()
+            if not m <= TOL * max(1.0, y.abs().max().item()):
+                raise AssertionError(f"{what} kernel vs plain: {m}")
+            err = max(err, m)
+        return err
+
+    # the BiLSTM forward: zero initial states, every row the full T
+    x = rnd(b, t, e)
+    mask = torch.ones(b, t, device=dev)
+    zeros = torch.zeros(b, d, device=dev)
+    fw, bw = ((rnd(e, 4 * d, k=e ** -0.5), rnd(4 * d, k=0.1),
+               rnd(d, 4 * d, k=d ** -0.5), rnd(3, d, k=0.3), zeros, zeros)
+              for _ in range(2))
+    bi = lambda: LK._bi_fwd_kernel(x, mask, fw, bw)  # noqa: E731
+    bi_plain = lambda: LK._bi_fwd_plain(x, mask, fw, bw)  # noqa: E731
+    got, again = bi(), bi()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for g, a in zip(got, again)
+               for p, q in zip(g, a)):
+        raise AssertionError("bilstm kernel: a rerun differs in bits")
+    bi_err = max(worst(g, w, "bilstm") for g, w in zip(got, bi_plain()))
+    cudnn = torch.nn.LSTM(e, d, batch_first=True, bidirectional=True).to(dev)
+
+    def lib_lstm():
+        with torch.no_grad():
+            return cudnn(x)
+
+    # the LSTM backward kernel as the BiLSTM's backward launches it: remat,
+    # over the recomputed projection and the forward kernel's hs/cs, with
+    # a random cotangent on hs and zeros on (h_T, c_T), once per direction
+    bwd_calls, bwd_err = {}, 0.0
+    for (w_x, bias, w_h, peep, h0, c0), (hs, cs, _, _), reverse in (
+            (fw, got[0], False), (bw, got[1], True)):
+        xw = LK._project_xw(x, w_x, bias)
+        args = (mask, w_h, peep, h0, c0, hs, cs, rnd(b, t, d), zeros, zeros,
+                reverse)
+        bwd_calls[reverse] = (
+            lambda xw=xw, args=args: LK._bwd_kernel(xw, None, *args, True),
+            lambda xw=xw, args=args: LK._bwd_plain(xw, None, *args, True))
+        first, rerun = bwd_calls[reverse][0](), bwd_calls[reverse][0]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(first, rerun)):
+            raise AssertionError("lstm backward at the crnn shapes: a rerun "
+                                 "differs in bits")
+        bwd_err = max(bwd_err, worst(first, bwd_calls[reverse][1](),
+                                     "lstm backward (crnn)"))
+    del first, rerun
+    cudnn1 = torch.nn.LSTM(e, d, batch_first=True).to(dev)
+    x_lib = x.clone().requires_grad_()
+    out_lib, _ = cudnn1(x_lib)
+    g_lib = torch.randn_like(out_lib)
+    lib_params = (x_lib, *cudnn1.parameters())
+
+    steps = float(mask.sum().item())          # row-steps of one direction
+    f32 = 4.0
+    cell = 25.0 * steps * d                   # gate bundle per unit-step
+    bwd_ms = {r: timer(calls[0]) for r, calls in bwd_calls.items()}
+    bwd_plain_ms = {r: timer(calls[1]) for r, calls in bwd_calls.items()}
+    rows = [{
+        "name": "bilstm_seq", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/bilstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:934",
+        "shape": [b, t, e, d], "max_abs_err": bi_err,
+        "ms": timer(bi), "plain_ms": timer(bi_plain),
+        # x, mask, both directions' W_x, b, W_h, peep, h0, c0 in; hs, cs,
+        # h_T, c_T of both out.  The products over the valid row-steps of
+        # both directions, and the cell
+        "bytes_flops": (f32 * (b * t * e + b * t + 2 * (e * 4 * d + 4 * d
+                                                        + d * 4 * d + 3 * d
+                                                        + 2 * b * d)
+                               + 2 * (2 * b * t * d + 2 * b * d)),
+                        2 * (2.0 * steps * (e + d) * 4 * d + cell)),
+        "library_ms": timer(lib_lstm)}, {
+        "name": "lstm_seq_bwd_crnn", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:426",
+        "shape": [b, t, d], "max_abs_err": bwd_err,
+        # one launch: the mean of the two directions' times
+        "ms": (bwd_ms[False] + bwd_ms[True]) / 2,
+        "plain_ms": (bwd_plain_ms[False] + bwd_plain_ms[True]) / 2,
+        "ms_by_direction": {"forward": bwd_ms[False],
+                            "reverse": bwd_ms[True]},
+        # xw, mask, W_h, peep, h0, c0, hs, cs, dhs, dh_T, dc_T in; dgates,
+        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T
+        "bytes_flops": (f32 * (2 * b * t * 4 * d + d * 4 * d + 6 * d
+                               + 6 * b * d + b * t + 3 * b * t * d),
+                        4.0 * steps * d * 4 * d + 2 * cell),
+        # cuDNN's one-direction LSTM backward (input and weight gradients)
+        "library_ms": timer(lambda: torch.autograd.grad(
+            out_lib, lib_params, g_lib, retain_graph=True))}]
+    del got, again, cudnn, cudnn1, bwd_calls, out_lib, g_lib, lib_params
+    del x_lib
+
+    # the CTC forward-backward and the decode, on one log-prob slab
+    lp = torch.log_softmax(rnd(b, t, v, k=2.0), -1)
+    labels = torch.zeros(b, l, dtype=torch.int64, device=dev)
+    labels[:, :label_len] = torch.randint(0, v - 1, (b, label_len),
+                                          generator=gen, device=dev)
+    ilen = torch.full((b,), t, dtype=torch.int64, device=dev)
+    llen = torch.full((b,), label_len, dtype=torch.int64, device=dev)
+    ext, valid, skip = ctc_ops.ctc_tables(labels, llen, v - 1)
+    tables = (ext, skip, valid, ilen.to(torch.int32), llen.to(torch.int32))
+    ctc_err = 0.0
+    for normalize, slab in ((False, lp), (True, rnd(b, t, v, k=2.0))):
+        got, again = (KC._fwd_bwd_kernel(slab, *tables, normalize)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError("ctc kernel: a rerun differs in bits")
+        ctc_err = max(ctc_err, worst(got, KC._fwd_bwd_plain(
+            slab, *tables, normalize), "ctc"))
+    lp_lib = lp.detach().transpose(0, 1).contiguous().requires_grad_()
+
+    def lib_ctc():
+        loss = F.ctc_loss(lp_lib, labels, ilen, llen, blank=v - 1,
+                          reduction="sum")
+        return torch.autograd.grad(loss, (lp_lib,))
+
+    best, keep = KC._decode_kernel(lp, ilen, v - 1)
+    want = KC._decode_plain(lp, ilen, v - 1)
+    torch.cuda.synchronize()
+    if not (torch.equal(best, want[0]) and torch.equal(keep, want[1])):
+        raise AssertionError("ctc decode kernel differs from its twin")
+    s = ext.shape[1]
+    rows += [{
+        "name": "ctc_loss_fused", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/ctc.cu",
+        "replaces": "paddle_tpu/ops/pallas/ctc.py:248",
+        "shape": [b, t, v, s], "max_abs_err": ctc_err,
+        "ms": timer(lambda: KC._fwd_bwd_kernel(lp, *tables, False)),
+        "plain_ms": timer(lambda: KC._fwd_bwd_plain(lp, *tables, False)),
+        # the slab in, its gradient out, the tables and lengths, the losses;
+        # the recursions' log-adds are a few flops per (t, s): bytes bound
+        "bytes_flops": (f32 * (2 * b * t * v + 3 * b * s + 3 * b),
+                        2 * 12.0 * b * t * s),
+        "library_ms": timer(lib_ctc)}, {
+        "name": "ctc_greedy_decode_fused", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/ctc.cu",
+        "replaces": "paddle_tpu/ops/pallas/ctc.py:310",
+        "shape": [b, t, v], "max_abs_err": 0.0,
+        "ms": timer(lambda: KC._decode_kernel(lp, ilen, v - 1)),
+        "plain_ms": timer(lambda: KC._decode_plain(lp, ilen, v - 1)),
+        # the slab and the lengths in, the ids and the keep mask out
+        "bytes_flops": (f32 * (b * t * v + b + 2 * b * t), float(b * t * v)),
+        "library_ms": timer(lambda: torch.argmax(lp, dim=2))}]
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
+
+    # the direct conv at the CRNN's two 3x3 s1 p1 shapes, BN stats epilogue
+    conv_err = 0.0
+    for shape, cout in (((b, 32, 96, 1), 16), ((b, 16, 48, 16), 32)):
+        xc = rnd(*shape)
+        wc = rnd(3, 3, shape[-1], cout, k=0.3)
+        got = CV.fwd_raw(xc, wc, (1, 1), (1, 1), stats=True)
+        again = CV.fwd_raw(xc, wc, (1, 1), (1, 1), stats=True)
+        want = CV.fwd_raw_reference(xc, wc, (1, 1), (1, 1), stats=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError("crnn conv: a rerun differs in bits")
+        count = got[0].numel() // cout
+        conv_err = max(conv_err, worst(
+            [got[0], got[1] / count, got[2] / count],
+            [want[0], want[1] / count, want[2] / count], "crnn conv"))
+    summary = {"phase": "crnn_kernels", "tol": TOL,
+               "reruns_bit_identical": True,
+               "decode_bit_identical_to_twin": True,
+               "ctc_normalize_forms": [False, True],
+               "conv2d_direct_crnn_shapes_max_abs_err": conv_err}
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+def train_crnn(dev, bs=64, steps=10) -> tuple[dict, tuple]:
+    """The OCR CRNN through the v2 flow (``bench_crnn``'s configuration):
+    the batch-2 step against a float64 witness, ``trainer.SGD`` at batch
+    64 with exact launch counts and a profile, ``paddle.infer`` and
+    ``ocr_crnn.ctc_decode`` with exact launch counts, then the slow JAX
+    test's convergence recipe."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.dtype import set_f32_policy
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import ocr_crnn
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    classes, rnn = 26, 64
+    t0 = time.perf_counter()
+    reset_name_counters()
+    cost, probs, order = ocr_crnn.crnn_ctc_cost(num_classes=classes,
+                                                rnn_size=rnn)
+    feeding = {n: i for i, n in enumerate(order)}
+    created = paddle.parameters.create(cost)     # generator seeded 0
+    carried = {n: created[n] for n in created.names()}
+    # the BiLSTM's gate biases and peepholes start at 0; make them nonzero
+    # so the witness sees every term of the cell
+    rng = np.random.default_rng(0)
+    for n in carried:
+        if n.startswith("_crnn_bilstm") and n.endswith(".wbias"):
+            carried[n] = (0.1 * rng.standard_normal(carried[n].shape)
+                          ).astype(np.float32)
+    n_params = int(sum(v.size for v in carried.values()))
+
+    def trainer(where, opt=None):
+        return paddle.trainer.SGD(
+            cost=cost, parameters=Parameters.from_numpy(carried),
+            update_equation=opt or paddle.optimizer.Adam(
+                learning_rate=1e-3, moment_dtype=torch.bfloat16),
+            device=where)
+
+    def run(tr, data, handler=None):
+        costs = []
+
+        def h(e):
+            if isinstance(e, paddle.event.EndIteration):
+                costs.append(e.cost)
+            if handler is not None:
+                handler(e)
+
+        tr.train(reader=lambda: iter(data), num_passes=1, event_handler=h,
+                 feeding=feeding)
+        return costs
+
+    # (a) one step at batch 2 from the same parameters: the CPU's plain
+    # twins and the card's kernels, both f32, each held against a float64
+    # step on the CPU (``SGD.step_f64``) by the cost and, per parameter
+    # and BN statistic, ||x32 - x64|| / ||x64 - x0||.  The witness step
+    # takes plain SGD at lr 1, so its update is the gradient itself
+    # (Adam's first update is lr * sign(g), blind to the gradient's
+    # error, and a small lr would drown it in the f32 rounding of the
+    # update).  The float64 step's own move under a 1e-6 relative nudge of
+    # the input sets the limit: 10x that move, at least CRNN_LEAF_FLOOR.
+    # TF32 allowed on the card, and a CPU CTC twin whose beta recursion
+    # drops the s-2 skip, are the planted faults that must exceed it.
+    small = crnn_feed_batches(rng, 1, 2, classes)[0]
+    nudged = [(x * (1 + 1e-6 * rng.standard_normal(x.shape,
+                                                    dtype=np.float32)), y)
+              for x, y in small]
+    sgd = lambda: paddle.optimizer.SGD(learning_rate=1.0)  # noqa: E731
+    witness = trainer("cpu", sgd())
+    p64, s64, c64 = witness.step_f64(small, feeding)
+    start = (carried, {k: v.numpy() for k, v in witness.states.items()})
+    p_n, s_n, c_n = witness.step_f64(nudged, feeding)
+    sides = {"f64_nudged": (c_n, p_n, s_n)}
+    del witness
+    plain_shift = KC._shift_left
+
+    def beta_skip_dropped(a, k, fill):
+        out = plain_shift(a, k, fill)
+        return torch.zeros_like(out) if out.dtype == torch.bool else out
+
+    for label, where in (("cpu", "cpu"), ("card", dev), ("card_rerun", dev),
+                         ("card_tf32_control", dev),
+                         ("cpu_ctc_beta_skip_dropped_control", "cpu")):
+        tr = trainer(where, sgd())
+        if label == "card_tf32_control":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+        if label.startswith("cpu_ctc"):
+            KC._shift_left = beta_skip_dropped
+        try:
+            c = run(tr, [small])[0]
+        finally:
+            set_f32_policy()
+            KC._shift_left = plain_shift
+        sides[label] = (c, {n: tr.parameters[n] for n in carried},
+                        {k: v.cpu().numpy() for k, v in tr.states.items()})
+        del tr
+    (c_a, p_a, s_a), (c_b, p_b, s_b) = sides["card"], sides.pop("card_rerun")
+    if not (c_a == c_b and all(np.array_equal(p_a[n], p_b[n]) for n in p_a)
+            and all(np.array_equal(s_a[k], s_b[k]) for k in s_a)):
+        raise AssertionError("the card's CRNN step is not bit-identical on a "
+                             "rerun")
+    witness_rows = {}
+    for label, (c, p_side, s_side) in sides.items():
+        pr, pn, pg = witness_ratio(start[0], p64, p_side)
+        sr, sn, sg = witness_ratio(start[1], s64, s_side)
+        witness_rows[label] = {
+            "cost": c, "cost_rel_err": abs(c - c64) / abs(c64),
+            "param_worst": pr, "param_worst_leaf": pn, "param_global": pg,
+            "state_worst": sr, "state_worst_leaf": sn, "state_global": sg,
+            "worst": max(pr, sr)}
+    limit = max(CRNN_LEAF_FLOOR, 10 * witness_rows["f64_nudged"]["worst"])
+    for label in ("cpu", "card"):
+        w = witness_rows[label]
+        if not (np.isfinite(w["cost"]) and w["cost_rel_err"] <= CRNN_COST_RTOL
+                and w["worst"] <= limit):
+            raise AssertionError(f"{label} CRNN step vs the f64 witness "
+                                 f"(cost {c64}, limit {limit}): "
+                                 f"{witness_rows}")
+    for label in ("card_tf32_control", "cpu_ctc_beta_skip_dropped_control"):
+        if witness_rows[label]["worst"] <= limit:
+            raise AssertionError(f"the CRNN witness limit {limit} does not "
+                                 f"catch {label}: {witness_rows}")
+
+    # (b) trainer.SGD at bench_crnn's configuration: Adam 1e-3 with bf16
+    # moments, batch 64, 2 warm-up steps (set-up), 10 timed steps with the
+    # launch counts zeroed just before and read just after
+    tr = trainer(dev)
+    warm, data = (crnn_feed_batches(rng, k, bs, classes) for k in (2, steps))
+    run(tr, warm)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks: dict[int, list] = {}
+
+    def stamp(e):
+        if isinstance(e, (paddle.event.BeginIteration,
+                          paddle.event.EndIteration)):
+            marks.setdefault(e.batch_id, []).append(time.perf_counter())
+
+    kernels = {"conv2d_direct": CV.KERNEL, "bilstm_fwd": LK.KERNEL_BI,
+               "lstm_fwd": LK.KERNEL_FWD, "lstm_bwd": LK.KERNEL_BWD,
+               "ctc_fwd_bwd": KC.KERNEL_LOSS, "ctc_decode": KC.KERNEL_DECODE,
+               "brgemm": BR.KERNEL}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    zero()
+    t1 = time.perf_counter()
+    costs = run(tr, data, stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    train_n = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"conv2d_direct": 2, "bilstm_fwd": 1, "lstm_fwd": 0,
+            "lstm_bwd": 2, "ctc_fwd_bwd": 1, "ctc_decode": 0, "brgemm": 0}
+    if train_n != {n: c * steps for n, c in want.items()}:
+        raise AssertionError(f"CRNN train launches {train_n} != {want} "
+                             f"x {steps}")
+    if not (len(costs) == steps and all(np.isfinite(costs))
+            and costs[-1] < costs[0]):
+        raise AssertionError(f"CRNN costs not finite and falling: {costs}")
+    step_ms = [1e3 * (b - a) for a, b in marks.values()]
+    p50 = float(np.percentile(step_ms, 50))
+    traced = crnn_feed_batches(rng, 3, bs, classes)
+    prof = profile_window(lambda: run(tr, traced), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / p50)
+
+    # (c) paddle.infer on 64 samples, then the greedy decode: one BiLSTM
+    # forward, the two convs (eval epilogue) and one decode launch
+    samples = crnn_feed_batches(rng, 1, bs, classes)[0]
+    zero()
+    out = paddle.infer(output_layer=probs, parameters=tr.parameters,
+                       input=samples, feeding=feeding, device=dev)
+    lp = torch.log(torch.from_numpy(np.stack(out)).to(dev) + 1e-9)
+    lens = torch.full((len(out),), lp.shape[1], dtype=torch.int64, device=dev)
+    ids, ids_len = ocr_crnn.ctc_decode(lp, lens, blank=classes)
+    torch.cuda.synchronize()
+    infer_n = counts()
+    want_infer = dict(want, bilstm_fwd=1, lstm_bwd=0, ctc_fwd_bwd=0,
+                      ctc_decode=1)
+    if infer_n != want_infer or ids.shape != (bs, lp.shape[1]):
+        raise AssertionError(f"CRNN infer/decode launches {infer_n} != "
+                             f"{want_infer} or ids {tuple(ids.shape)}")
+    del tr
+
+    # (d) the slow JAX test's convergence recipe (tests/test_ocr_crnn.py):
+    # 8 classes, rnn_size 32, Adam 3e-3, 25 passes of 512 synthetic
+    # samples at batch 32; the last cost under 5% of the first, and the
+    # greedy decode of 16 fresh samples (seed 123) exact on >= 13
+    reset_name_counters()
+    c8, p8, o8 = ocr_crnn.crnn_ctc_cost(num_classes=8, rnn_size=32)
+    feed8 = {n: i for i, n in enumerate(o8)}
+    tr8 = paddle.trainer.SGD(
+        cost=c8, parameters=paddle.parameters.create(c8),
+        update_equation=paddle.optimizer.Adam(learning_rate=3e-3),
+        device=dev)
+    reader = ocr_crnn.synthetic_ocr_reader(n_samples=512, num_classes=8)
+    conv_costs = []
+    t2 = time.perf_counter()
+    tr8.train(reader=paddle.batch(reader, 32), num_passes=25,
+              feeding=feed8,
+              event_handler=lambda e: conv_costs.append(e.cost)
+              if isinstance(e, paddle.event.EndIteration) else None)
+    conv_s = time.perf_counter() - t2
+    fresh = list(ocr_crnn.synthetic_ocr_reader(n_samples=16, num_classes=8,
+                                               seed=123)())
+    out8 = paddle.infer(output_layer=p8, parameters=tr8.parameters,
+                        input=fresh, feeding=feed8, device=dev)
+    lp8 = torch.log(torch.from_numpy(np.stack(out8)).to(dev) + 1e-9)
+    dec, dec_len = ocr_crnn.ctc_decode(
+        lp8, torch.full((16,), lp8.shape[1], dtype=torch.int64, device=dev),
+        blank=8)
+    dec, dec_len = dec.cpu().numpy(), dec_len.cpu().numpy()
+    exact = sum(dec[i, :dec_len[i]].tolist() == labels
+                for i, (_, labels) in enumerate(fresh))
+    if not (conv_costs[-1] < 0.05 * conv_costs[0] and exact >= 13):
+        raise AssertionError(f"CRNN convergence: cost {conv_costs[0]} -> "
+                             f"{conv_costs[-1]}, {exact}/16 decoded exactly")
+    del tr8
+
+    result = {"phase": "train_crnn",
+              "model": "OCR CRNN (models/ocr_crnn.crnn_ctc_cost, bench_crnn)",
+              "params": n_params, "image": [32, 96, 1], "classes": classes,
+              "rnn_size": rnn, "dtype": "float32", "adam_moments": "bfloat16",
+              "lr": 1e-3,
+              "step_vs_f64_witness": {"batch": 2, "cost_f64": c64,
+                                      "optimizer": "SGD lr 1",
+                                      "limit": limit,
+                                      "card_rerun_bit_identical": True,
+                                      **witness_rows},
+              "batch": bs, "steps": steps, "wall_s": wall,
+              "samples_per_s": bs * steps / wall, "step_ms_p50": p50,
+              "step_ms": step_ms, "costs": costs,
+              "max_memory_allocated_bytes": peak,
+              "train_launches": train_n, "infer_launches": infer_n,
+              "infer_samples": bs, "decoded_mean_len":
+                  float(ids_len.float().mean().item()),
+              "convergence": {"classes": 8, "rnn_size": 32, "lr": 3e-3,
+                              "passes": 25, "samples": 512, "batch": 32,
+                              "steps": len(conv_costs), "seconds": conv_s,
+                              "first_cost": conv_costs[0],
+                              "last_cost": conv_costs[-1],
+                              "decoded_exact": f"{exact}/16"},
+              "setup_s": setup_s, "profile": prof}
+    return result, (train_n["bilstm_fwd"], train_n["lstm_bwd"],
+                    train_n["ctc_fwd_bwd"], infer_n["ctc_decode"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -1581,6 +2088,13 @@ def main() -> int:
     print(json.dumps(text_summary), flush=True)
     text, text_n = train_text(dev)
     print(json.dumps(text), flush=True)
+    torch.cuda.empty_cache()
+    crnn_rows, crnn_summary = check_crnn_kernels(dev, Timer(dev))
+    for row in crnn_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(crnn_summary), flush=True)
+    crnn, crnn_n = train_crnn(dev)
+    print(json.dumps(crnn), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -1592,6 +2106,10 @@ def main() -> int:
         rows.append({**mine[0], "launches": launches,
                      "max_abs_err": max(r["max_abs_err"] for r in mine)})
     for row, launches in zip(text_rows, text_n):
+        rows.append({**row, "launches": launches})
+    # the BiLSTM, LSTM-backward and CTC rows count the training run's
+    # launches, the decode row the infer-and-decode run's
+    for row, launches in zip(crnn_rows, crnn_n):
         rows.append({**row, "launches": launches})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -9,10 +9,12 @@ run on the card unless the caller passes ``device="cpu"``.
 
 Ported so far: online serving of the transformer LM
 (``paddle_tpu_torch.serving``), its training
-(``models.transformer.build_train_step``), and v2 training through
-``trainer.SGD`` of ResNet and of the LSTM text classifier
+(``models.transformer.build_train_step``), v2 training through
+``trainer.SGD`` of ResNet, of the LSTM text classifier
 (``layer.embedding``, ``layer.lstmemory``, ``layer.last_seq``,
-``layer.classification_cost`` over ``data_type.integer_value_sequence``)::
+``layer.classification_cost`` over ``data_type.integer_value_sequence``)
+and of the OCR CRNN (``models.ocr_crnn``: ``layer.bilstm``,
+``layers.extras.ctc``), and ``paddle.infer``::
 
     import paddle_tpu_torch as paddle
     cost, predict, img, label = paddle.models.image.resnet_cost(depth=50)
@@ -41,6 +43,7 @@ _API_MAP = {
     "parameters": "paddle_tpu_torch.core.parameters",
     "trainer": "paddle_tpu_torch.trainer",
     "event": "paddle_tpu_torch.trainer.event",
+    "inference": "paddle_tpu_torch.trainer.inference",
     "optimizer": "paddle_tpu_torch.optimizer",
     "reader": "paddle_tpu_torch.reader",
     "models": "paddle_tpu_torch.models",
@@ -52,6 +55,18 @@ def batch(reader, batch_size: int, drop_last: bool = False):
     from paddle_tpu_torch.reader.decorator import batch as _batch
 
     return _batch(reader, batch_size, drop_last)
+
+
+def infer(output_layer, parameters, input, feeding=None, field="value",
+          device=None):
+    """``paddle.infer``: a test-mode forward of ``output_layer`` over the
+    samples of ``input``, on ``cuda:0`` unless ``device`` says otherwise
+    (reference: ``python/paddle/v2/inference.py:10``)."""
+    from paddle_tpu_torch.trainer import inference as _inf
+
+    return _inf.infer(output_layer=output_layer, parameters=parameters,
+                      input=input, feeding=feeding, field=field,
+                      device=device)
 
 
 def __getattr__(name):

@@ -67,9 +67,16 @@ class Parameters:
             return
         self._specs[spec.name] = spec
 
+    def uninitialized_names(self) -> list[str]:
+        """Specs with no value yet: what ``init_missing`` would fill with
+        fresh random weights.  ``Inference(strict=True)`` checks this
+        first, so an incomplete checkpoint raises instead of serving
+        random weights."""
+        return [n for n in self._specs if n not in self._values]
+
     def init_missing(self, generator: torch.Generator | None = None) -> None:
         """Materialize values for every spec without one, in spec order."""
-        missing = [n for n in self._specs if n not in self._values]
+        missing = self.uninitialized_names()
         if not missing:
             return
         generator = generator if generator is not None else default_generator()

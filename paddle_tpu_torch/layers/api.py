@@ -623,3 +623,68 @@ def lstmemory(input: LayerOutput, reverse: bool = False, act=None,
                               "active_type": oa.name,
                               "active_gate_type": ga.name,
                               "active_state_type": sa.name})
+
+
+def bilstm(input: LayerOutput, size: int, name: str | None = None,
+           param_attr: ParamAttr | None = None, bias_attr=None,
+           inner_param_attr: ParamAttr | None = None,
+           inner_bias_attr=None) -> LayerOutput:
+    """Bidirectional LSTM, input projections included, as ONE layer node
+    lowering to ``ops/rnn.bilstm_fused`` (one kernel launch for both
+    directions on the card, the unfused composition on the CPU).
+
+    Parameter names mirror the composed ``networks.bidirectional_lstm``
+    form: ``<name>_fw_transform.w0`` / ``.wbias`` (the 4*size input
+    projection) and ``<name>_fw.w0`` / ``.wbias`` (the recurrent weight and
+    the reference's 7*size gate-bias + peephole bundle), the same for
+    ``_bw``.  The output is the [fw, bw] feature concat (size 2*size)."""
+    name = name or gen_name("bilstm")
+    d = size
+    use_proj_bias = bias_attr is not False
+    use_inner_bias = inner_bias_attr is not False
+
+    def dir_specs(suffix):
+        proj_w = _wspec(param_attr, f"{name}_{suffix}_transform", "w0",
+                        (input.size, 4 * d), I.xavier())
+        specs = [proj_w]
+        proj_b = None
+        if use_proj_bias:
+            proj_b = _wspec(
+                bias_attr if isinstance(bias_attr, ParamAttr) else None,
+                f"{name}_{suffix}_transform", "wbias", (4 * d,),
+                I.constant(0.0))
+            specs.append(proj_b)
+        w = _wspec(inner_param_attr, f"{name}_{suffix}", "w0", (d, 4 * d),
+                   I.paddle_default())
+        specs.append(w)
+        wb = None
+        if use_inner_bias:
+            wb = _wspec(
+                inner_bias_attr if isinstance(inner_bias_attr, ParamAttr)
+                else None,
+                f"{name}_{suffix}", "wbias", (7 * d,), I.constant(0.0))
+            specs.append(wb)
+        return specs, proj_w, proj_b, w, wb
+
+    fw_specs, fw_pw, fw_pb, fw_w, fw_wb = dir_specs("fw")
+    bw_specs, bw_pw, bw_pb, bw_w, bw_wb = dir_specs("bw")
+
+    def fwd(ctx, params, states, x):
+        def bundle(proj_w, proj_b, w, wb):
+            bias = params[proj_b.name] if proj_b is not None else None
+            peep = None
+            if wb is not None:
+                full = params[wb.name]
+                gate_b = full[:4 * d]
+                bias = gate_b if bias is None else bias + gate_b
+                peep = full[4 * d:]
+            return (params[proj_w.name], bias, params[w.name], peep)
+
+        return rnn_ops.bilstm_fused(x, bundle(fw_pw, fw_pb, fw_w, fw_wb),
+                                    bundle(bw_pw, bw_pb, bw_w, bw_wb))
+
+    return LayerOutput(name=name, layer_type="bilstm", size=2 * d,
+                       parents=(input,),
+                       param_specs=tuple(fw_specs + bw_specs), fn=fwd,
+                       attrs={"reversed_field": True})
+

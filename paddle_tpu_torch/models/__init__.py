@@ -1,12 +1,13 @@
-"""Models of the port: the transformer LM (serving) and the ResNet image
-classifier (training).  ``image`` loads on first access, so the serving
-import does not pull in the layer API."""
+"""Models of the port: the transformer LM (serving and training), the
+ResNet image classifier and the OCR CRNN.  ``image`` and ``ocr_crnn``
+load on first access, so the serving import does not pull in the layer
+API."""
 
 import importlib as _importlib
 
 
 def __getattr__(name):
-    if name == "image":
-        return _importlib.import_module("paddle_tpu_torch.models.image")
+    if name in ("image", "ocr_crnn"):
+        return _importlib.import_module(f"paddle_tpu_torch.models.{name}")
     raise AttributeError(f"module 'paddle_tpu_torch.models' has no "
                          f"attribute {name!r}")

@@ -1,5 +1,6 @@
-"""Fused LSTM sequence kernel (the port of ``paddle_tpu/ops/pallas/lstm.py``'s
-``lstm_seq``: forward, stored-gates backward and remat backward).
+"""Fused LSTM sequence kernels (the port of ``paddle_tpu/ops/pallas/lstm.py``'s
+``lstm_seq``: forward, stored-gates backward and remat backward; and
+``bilstm_seq``: both directions of a fused-input BiLSTM in one forward).
 
 :func:`lstm_seq` is a ``torch.autograd.Function``.  On the card its forward
 is one cooperative launch of ``csrc/lstm_seq.cu``'s forward kernel over
@@ -11,8 +12,19 @@ kernel, as the JAX package leaves it to XLA.  CPU tensors take the plain
 twins (:func:`_fwd_plain`, :func:`_bwd_plain`), which compute each step as
 the kernels do, so the two backward forms give the same bits there too.
 
+:func:`bilstm_seq` is a ``torch.autograd.Function`` too.  On the card its
+forward is one launch of ``csrc/bilstm_seq.cu``, which runs both
+directions and computes ``x @ W_x + b`` inside its loop, step by step, so
+the [B, T, 4D] gate-input slab never reaches device memory.  Its backward
+recomputes that slab per direction with one ``torch.matmul`` (the JAX
+package's ``_project_xw``) and launches the backward kernel above with
+remat on, the form the JAX package's TPU branch runs: two launches.
+``dW_x``, ``db``, ``dW_h`` and ``dx`` are products and sums outside, as in
+the JAX backward.
+
 :func:`lstm_seq_reference` is the plain scan (autograd gives its
-backward): the oracle of the whole Function."""
+backward): the oracle of the whole Function; :func:`bilstm_seq_reference`
+composes it per direction over the projected input."""
 
 from __future__ import annotations
 
@@ -28,9 +40,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_FWD = Kernel("lstm_seq", "lstm_fwd_f32", [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD = Kernel("lstm_seq", "lstm_bwd_f32", [_P] * 17 + [_I] * 6 + [_P])
+KERNEL_BI = Kernel("bilstm_seq", "bilstm_fwd_f32", [_P] * 22 + [_I] * 4 + [_P])
 
 #: the kernels' tiling: a block owns U <= 16 hidden units with 32U threads
 _MAX_UNITS = 16
+#: the bilstm kernel's tiling: a block owns one direction and 4 batch rows
+_BI_ROWS = 4
 
 
 # -- the plain twins -----------------------------------------------------------
@@ -257,3 +272,135 @@ def lstm_seq_reference(xw, mask, w_h, peephole, h0, c0, reverse=False):
     hs, _, _, h_t, c_t = _fwd_plain(xw, mask.to(xw.dtype), w_h, peephole, h0,
                                     c0, reverse, False)
     return hs, (h_t, c_t)
+
+
+# -- the fused-input bidirectional entry -------------------------------------
+
+
+def _project_xw(x, w_x, b):
+    """x @ W_x + b over every step, one product: [B, T, E] -> [B, T, 4D]
+    (the JAX package's ``_project_xw`` and unfused projection)."""
+    bsz, t, e = x.shape
+    return (torch.matmul(x.reshape(bsz * t, e), w_x) + b).reshape(bsz, t, -1)
+
+
+def _bi_fwd_plain(x, mask, fw, bw):
+    """Plain twin of the bilstm kernel, the unfused composition: per
+    direction the projection as one product, then the forward twin over it.
+    ``fw``/``bw`` = (w_x, b, w_h, peep, h0, c0); returns ((hs, cs, h_T, c_T)
+    forward, the same reverse)."""
+    outs = []
+    for (w_x, b, w_h, peep, h0, c0), reverse in ((fw, False), (bw, True)):
+        hs, cs, _, h_t, c_t = _fwd_plain(_project_xw(x, w_x, b), mask, w_h,
+                                         peep, h0, c0, reverse, False)
+        outs.append((hs, cs, h_t, c_t))
+    return tuple(outs)
+
+
+def _bi_fwd_kernel(x, mask, fw, bw):
+    """The bilstm kernel (the contract of :func:`_bi_fwd_plain`)."""
+    _check_kernel_args(x, mask, *fw, *bw)
+    b, t, e = x.shape
+    d = fw[2].shape[0]
+    smem = 4 * (4 * d * d + _BI_ROWS * (e + 6 * d))
+    limit = getattr(torch.cuda.get_device_properties(x.device),
+                    "shared_memory_per_block_optin", 232448)
+    enforce(smem <= limit, f"bilstm kernel: D={d}, E={e} needs {smem} bytes "
+            f"of shared memory a block (W_h and a 4-row tile), more than the "
+            f"{limit} the card allows")
+    _units(x.device, d)     # the backward kernel's tiling takes this D too
+    outs, args = [], [x.data_ptr(), mask.data_ptr()]
+    for weights in (fw, bw):
+        hs = torch.empty(b, t, d, device=x.device)
+        out = (hs, torch.empty_like(hs), torch.empty(b, d, device=x.device),
+               torch.empty(b, d, device=x.device))
+        outs.append(out)
+        args += [w.data_ptr() for w in weights]
+        args += [o.data_ptr() for o in out]
+    KERNEL_BI.launch(*args, b, t, e, d,
+                     torch.cuda.current_stream().cuda_stream)
+    return tuple(outs)
+
+
+class _BiLstmSeq(torch.autograd.Function):
+    """JAX: ``bilstm_seq``'s ``custom_vjp`` with remat on.  Residuals: x,
+    mask, both directions' weights and h0/c0, hs and cs; the backward
+    recomputes the gates from them."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b,
+                peep_b, h0f, c0f, h0b, c0b):
+        fw = (w_x_f, b_f, w_h_f, peep_f, h0f, c0f)
+        bw = (w_x_b, b_b, w_h_b, peep_b, h0b, c0b)
+        run = _bi_fwd_plain if x.device.type == "cpu" else _bi_fwd_kernel
+        (hsf, csf, hTf, cTf), (hsb, csb, hTb, cTb) = run(x, mask, fw, bw)
+        ctx.save_for_backward(x, mask, *fw, *bw, hsf, csf, hsb, csb)
+        return hsf, hsb, hTf, cTf, hTb, cTb
+
+    @staticmethod
+    def backward(ctx, dhsf, dhsb, dhTf, dcTf, dhTb, dcTb):
+        saved = ctx.saved_tensors
+        x, mask = saved[:2]
+        fw, bw, states = saved[2:8], saved[8:14], saved[14:]
+        bwd = _bwd_plain if x.device.type == "cpu" else _bwd_kernel
+        bsz, t, e = x.shape
+        x2 = x.reshape(bsz * t, e)
+        dx, grads = 0.0, {}
+        for key, weights, (hs, cs), cts, reverse in (
+                ("f", fw, states[:2], (dhsf, dhTf, dcTf), False),
+                ("b", bw, states[2:], (dhsb, dhTb, dcTb), True)):
+            w_x, bias, w_h, peep, h0, c0 = weights
+            d = w_h.shape[0]
+            dgates, dh0, dc0, dpeep = bwd(
+                _project_xw(x, w_x, bias), None, mask, w_h, peep, h0, c0, hs,
+                cs, *(c.contiguous() for c in cts), reverse, True)
+            dg = dgates.reshape(-1, 4 * d)
+            h_prev = _shift_prev(hs, h0, reverse).reshape(-1, d)
+            dx = dx + torch.matmul(dg, w_x.t())
+            grads[key] = (torch.matmul(x2.t(), dg), dg.sum(0),
+                          torch.matmul(h_prev.t(), dg), dpeep, dh0, dc0)
+        f, b = grads["f"], grads["b"]
+        return dx.reshape(bsz, t, e), None, *f[:4], *b[:4], *f[4:], *b[4:]
+
+
+def bilstm_seq(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b, peep_b,
+               h0f, c0f, h0b, c0b):
+    """Fused bidirectional LSTM over raw inputs: both recurrences, their
+    input projections inside the loop, in one forward; the backward
+    recomputes the gates (no gates slab is kept).
+
+    x [B, T, E]; mask [B, T]; per direction w_x [E, 4D], b [4D], w_h
+    [D, 4D], peep [3, D], h0/c0 [B, D] (the reverse direction iterates
+    T-1..0).  Returns (hs_f, hs_b, (h_T_f, c_T_f), (h_T_b, c_T_b)); the
+    BiLSTM output is hs_f and hs_b concatenated on the feature axis."""
+    d = w_h_f.shape[0]
+    enforce(x.dim() == 3 and x.shape[1] >= 1
+            and all(tuple(w.shape) == (x.shape[2], 4 * d)
+                    for w in (w_x_f, w_x_b))
+            and all(tuple(w.shape) == (d, 4 * d) for w in (w_h_f, w_h_b)),
+            f"bilstm_seq: x must be [B, T>=1, E] with w_x [E, 4D] and w_h "
+            f"[D, 4D], got x {tuple(x.shape)}, w_x {tuple(w_x_f.shape)}, w_h "
+            f"{tuple(w_h_f.shape)}")
+    hsf, hsb, hTf, cTf, hTb, cTb = _BiLstmSeq.apply(
+        x.contiguous(), mask.to(x.dtype).contiguous(),
+        *(w.contiguous() for w in (w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b,
+                                   w_h_b, peep_b, h0f, c0f, h0b, c0b)))
+    return hsf, hsb, (hTf, cTf), (hTb, cTb)
+
+
+def lstm_seq_fi_reference(x, mask, w_x, b, w_h, peephole, h0, c0,
+                          reverse=False):
+    """The projection as one product, then :func:`lstm_seq_reference`."""
+    return lstm_seq_reference(_project_xw(x, w_x, b), mask, w_h, peephole,
+                              h0, c0, reverse)
+
+
+def bilstm_seq_reference(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b,
+                         w_h_b, peep_b, h0f, c0f, h0b, c0b):
+    """Oracle of :func:`bilstm_seq`: the two plain directions composed
+    (autograd gives the backward); the same return contract."""
+    hs_f, last_f = lstm_seq_fi_reference(x, mask, w_x_f, b_f, w_h_f, peep_f,
+                                         h0f, c0f, False)
+    hs_b, last_b = lstm_seq_fi_reference(x, mask, w_x_b, b_b, w_h_b, peep_b,
+                                         h0b, c0b, True)
+    return hs_f, hs_b, last_f, last_b

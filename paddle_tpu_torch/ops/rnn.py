@@ -1,5 +1,5 @@
 """Recurrent cells and masked scans of the port (``paddle_tpu/ops/rnn.py``:
-the LSTM pieces ``lstmemory`` needs).
+the LSTM pieces ``lstmemory`` and ``bilstm`` need).
 
 The input projection x @ W_x (+ bias) is one large product outside the
 recurrence; only h @ W_h runs inside it.  Ragged batches freeze each
@@ -78,3 +78,31 @@ def lstm_fused(xw: SequenceBatch, w_h, init: LSTMState, peephole=None,
         xw.data, xw.mask(xw.data.dtype), w_h, peep, init.h, init.c,
         reverse=reverse, remat=remat)
     return SequenceBatch(data=hs, length=xw.length), LSTMState(h=h_t, c=c_t)
+
+
+def bilstm_fused(x: SequenceBatch, fw: tuple, bw: tuple):
+    """Bidirectional LSTM over raw inputs through ``kernels/lstm.bilstm_seq``:
+    on the card one launch runs both directions with the input projections
+    inside its loop, remat on, as the JAX package's TPU branch runs;
+    CPU tensors take its twin, the unfused composition (one projection
+    product and the plain scan per direction) that the JAX package runs
+    off the TPU.  ``fw``/``bw`` are (w_x [E, 4D], bias [4D] | None,
+    w_h [D, 4D], peephole [3D] | None).  A shape past the kernel's tiling
+    raises on the card.  Returns the concatenated SequenceBatch [B, T, 2D]
+    (forward features first)."""
+    data = x.data
+    d = fw[2].shape[0]
+    zeros = torch.zeros(x.batch_size, d, dtype=data.dtype, device=data.device)
+
+    def prep(w_x, bias, w_h, peephole):
+        bias = (torch.zeros(4 * d, dtype=w_x.dtype, device=w_x.device)
+                if bias is None else bias)
+        peep = (torch.zeros(3, d, dtype=w_h.dtype, device=w_h.device)
+                if peephole is None else peephole.reshape(3, d))
+        return w_x, bias, w_h, peep
+
+    hs_f, hs_b, _, _ = lstm_kernels.bilstm_seq(
+        data, x.mask(data.dtype), *prep(*fw), *prep(*bw), zeros, zeros,
+        zeros, zeros)
+    return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1),
+                         length=x.length)

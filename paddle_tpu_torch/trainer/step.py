@@ -1,6 +1,6 @@
-"""Train and eval steps — the port of ``paddle_tpu/trainer/step.py``'s
-``build_train_step`` (the replicated path: no mesh, no ZeRO) and
-``build_eval_step``.
+"""Train, eval and inference steps — the port of
+``paddle_tpu/trainer/step.py``'s ``build_train_step`` (the replicated
+path: no mesh, no ZeRO), ``build_eval_step`` and ``build_forward``.
 
 One train step: forward over the topology in train mode, backward by
 autograd, the optimizer update, and the metrics its cost layers attach
@@ -107,3 +107,15 @@ def build_eval_step(topology: Topology):
                 _finalize_metrics(_metric_parts(metric_specs, values)))
 
     return step
+
+
+def build_forward(topology: Topology, output_names: list[str]):
+    """Returns fn: (params, states, feed) -> [the values of the named
+    layers], the forward in test mode without autograd."""
+
+    @torch.no_grad()
+    def fwd(params, states, feed):
+        values, _ = topology.forward(params, states, feed, False)
+        return [values[n] for n in output_names]
+
+    return fwd

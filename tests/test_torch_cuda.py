@@ -352,6 +352,7 @@ def _lstm_inputs(rng, b, t, d, device):
     (5, 9, 300),        # 3 units a block, the last block short
     (300, 9, 32),       # five 64-row chunks (past the JAX 256-row block)
     (64, 16, 1280),     # the text classifier's width: 10 units a block
+    (64, 24, 64),       # the OCR CRNN's BiLSTM backward, one per direction
 ])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_kernels_match_plain(cuda, b, t, d, reverse):
@@ -471,3 +472,226 @@ def test_fused_lookup_on_card_matches_the_cpu(cuda):
         outs.append((out, g))
     assert torch.equal(outs[1][0].cpu(), outs[0][0])
     assert (outs[1][1].cpu() - outs[0][1]).abs().max().item() <= 1e-6
+
+
+# -- BiLSTM, CTC forward-backward and decode, the CRNN's convs (OCR path) ------
+
+
+def _bilstm_inputs(rng, b, t, e, d, device):
+    """x, mask (ragged lengths, row 0 full) and both directions' weights."""
+    lens = rng.integers(1, t + 1, size=b)
+    lens[0] = t
+    mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+    per_dir = lambda: [_rand(rng, e, 4 * d) * (1.0 / e ** 0.5),  # noqa: E731
+                       _rand(rng, 4 * d) * 0.1,
+                       _rand(rng, d, 4 * d) * (1.0 / d ** 0.5),
+                       _rand(rng, 3, d) * 0.3]
+    x = ([_rand(rng, b, t, e), torch.from_numpy(mask)] + per_dir()
+         + per_dir() + [_rand(rng, b, d) * 0.5 for _ in range(4)])
+    return [v.to(device) for v in x]
+
+
+def _close(got, want):
+    return ((got - want).abs().max().item()
+            <= TOL * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.parametrize("b,t,e,d", [
+    (64, 24, 256, 64),  # the OCR CRNN at bench width
+    (64, 24, 256, 32),  # rnn_size 32 (the convergence recipe)
+    (3, 7, 16, 8),      # the CPU tests' shapes: B not a multiple of 4
+    (5, 9, 16, 32),
+])
+def test_bilstm_kernel_matches_plain(cuda, b, t, e, d):
+    """The bilstm forward kernel against its plain twin on the same CUDA
+    tensors, ragged lengths; a rerun repeats the bits."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    rng = np.random.default_rng(b + t + e + d)
+    x, mask, *w = _bilstm_inputs(rng, b, t, e, d, cuda)
+    fw, bw = w[0:4] + w[8:10], w[4:8] + w[10:12]
+    n = LK.KERNEL_BI.launches
+    got = LK._bi_fwd_kernel(x, mask, fw, bw)
+    again = LK._bi_fwd_kernel(x, mask, fw, bw)
+    torch.cuda.synchronize()
+    assert LK.KERNEL_BI.launches == n + 2
+    want = LK._bi_fwd_plain(x, mask, fw, bw)
+    for g_dir, a_dir, w_dir in zip(got, again, want):
+        for gv, av, wv in zip(g_dir, a_dir, w_dir):
+            assert _close(gv, wv)
+            assert torch.equal(gv, av)
+
+
+@pytest.mark.parametrize("b,t,e,d", [(64, 24, 256, 64), (64, 24, 256, 32),
+                                     (5, 9, 16, 8), (3, 7, 16, 32)])
+def test_bilstm_function_on_card_matches_the_cpu(cuda, b, t, e, d):
+    """``bilstm_seq`` (the forward kernel, then two LSTM backward launches)
+    against the CPU's plain twins: every output and input gradient; the
+    card's gradients repeat bit for bit."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    rng = np.random.default_rng(11 + d)
+    cpu = _bilstm_inputs(rng, b, t, e, d, "cpu")
+    r = [_rand(rng, b, t, d), _rand(rng, b, t, d)]
+    outs = []
+    for dev in ("cpu", cuda, cuda):
+        leaves = [v.to(dev).detach().requires_grad_(i != 1)
+                  for i, v in enumerate(cpu)]
+        n = LK.KERNEL_BI.launches, LK.KERNEL_BWD.launches
+        hsf, hsb, (htf, ctf), (htb, ctb) = LK.bilstm_seq(*leaves)
+        loss = ((hsf * r[0].to(dev)).sum() + (hsb * r[1].to(dev)).sum()
+                + htf.sum() + 0.5 * ctf.sum() - htb.sum() + 0.25 * ctb.sum())
+        grads = torch.autograd.grad(loss, [v for i, v in enumerate(leaves)
+                                           if i != 1])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (LK.KERNEL_BI.launches - n[0],
+                    LK.KERNEL_BWD.launches - n[1]) == (1, 2)
+        outs.append([hsf, hsb, htf, ctf, htb, ctb, *grads])
+    for want, got, again in zip(*outs):
+        assert _close(got.cpu(), want)
+        assert torch.equal(got, again)
+
+
+def _ctc_inputs(rng, b, t, v, l):
+    """Logits, labels padded to l (blank = v - 1), ragged input lengths and
+    label lengths; with b >= 3, row 1 has a zero-length label and row 2 is
+    infeasible (3 distinct labels in 2 frames)."""
+    logits = _rand(rng, b, t, v)
+    labels = rng.integers(0, v - 1, size=(b, l))
+    llen = rng.integers(1, min(l, 5) + 1, size=b)
+    ilen = rng.integers(max(2 * min(l, 5) + 1, t // 2), t + 1, size=b)
+    ilen[0] = t
+    if b >= 3:
+        llen[1] = 0
+        labels[2, :3] = [0, 1, 2]
+        llen[2], ilen[2] = 3, 2
+    as_t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    return logits, as_t(labels), as_t(ilen), as_t(llen)
+
+
+@pytest.mark.parametrize("b,t,v,l", [
+    (64, 24, 27, 16),   # the CRNN: labels of 5 bucketed to 16, S = 33
+    (1, 24, 27, 16), (3, 12, 7, 4), (6, 30, 11, 8), (16, 24, 27, 16),
+    (4, 200, 30, 40),   # past the shared-memory budget: the scratch path
+    (2, 127, 27, 23),   # a 48,824-byte workspace: just under the budget
+    (2, 181, 27, 16),   # 48,904 bytes: over it, under 48 KB (the scratch)
+])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_ctc_kernel_matches_plain(cuda, b, t, v, l, normalize):
+    """The forward-backward kernel against its plain twin on the same CUDA
+    tensors: the losses (the infeasible row at the sentinel) and the
+    [B, T, V] gradient (exactly zero on the infeasible row and past each
+    row's input length); a rerun repeats the bits."""
+    from paddle_tpu_torch.ops import ctc as ctc_ops
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+
+    rng = np.random.default_rng(b * 7 + t + v + l)
+    logits, labels, ilen, llen = _ctc_inputs(rng, b, t, v, l)
+    x = logits if normalize else torch.log_softmax(logits, -1)
+    x = x.to(cuda)
+    ext, valid, skip = ctc_ops.ctc_tables(labels.to(cuda), llen.to(cuda),
+                                          v - 1)
+    args = (ext, skip, valid, ilen.to(cuda, torch.int32),
+            llen.to(cuda, torch.int32), normalize)
+    n = KC.KERNEL_LOSS.launches
+    loss, grad = KC._fwd_bwd_kernel(x, *args)
+    loss2, grad2 = KC._fwd_bwd_kernel(x, *args)
+    torch.cuda.synchronize()
+    assert KC.KERNEL_LOSS.launches == n + 2
+    assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+    want_loss, want_grad = KC._fwd_bwd_plain(x, *args)
+    finite = want_loss < 1e29
+    assert torch.allclose(loss[finite], want_loss[finite], rtol=1e-5,
+                          atol=0)
+    assert torch.equal(loss[~finite], want_loss[~finite])
+    assert _close(grad, want_grad)
+    frames = torch.arange(t, device=cuda)[None, :] >= ilen.to(cuda)[:, None]
+    assert torch.count_nonzero(grad[frames]) == 0
+    if b >= 3:
+        assert loss[2].item() == np.float32(1e30)
+        assert torch.count_nonzero(grad[2]) == 0
+
+
+def test_ctc_function_on_card_matches_the_cpu(cuda):
+    """``ctc_loss_fused`` through autograd on the card against the CPU
+    twin: the losses and the gradient by the log-probs."""
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+
+    rng = np.random.default_rng(5)
+    logits, labels, ilen, llen = _ctc_inputs(rng, 6, 20, 9, 8)
+    outs = []
+    for dev in ("cpu", cuda):
+        x = torch.log_softmax(logits, -1).to(dev).requires_grad_()
+        loss = KC.ctc_loss_fused(x, ilen, labels, llen, blank=8)
+        (g,) = torch.autograd.grad(loss[loss < 1e29].sum(), (x,))
+        outs.append((loss, g))
+    assert torch.allclose(outs[1][0].cpu(), outs[0][0], rtol=1e-5, atol=0)
+    assert _close(outs[1][1].cpu(), outs[0][1])
+
+
+@pytest.mark.parametrize("b,t,v", [(64, 24, 27), (3, 300, 7), (5, 9, 2)])
+@pytest.mark.parametrize("blank", ["first", "last"])
+def test_ctc_decode_kernel_matches_plain(cuda, b, t, v, blank):
+    """The decode kernel's (argmax, keep) pair and the compacted ids equal
+    the plain twin's in bits, with ties (first index wins), repeats and
+    ragged lengths; T = 300 crosses the kernel's 128-frame chunks."""
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+
+    rng = np.random.default_rng(b + t + v)
+    x = torch.from_numpy(rng.integers(0, 3, size=(b, t, v)).astype(
+        np.float32)).to(cuda)    # small integers: many ties and repeats
+    ilen = torch.from_numpy(rng.integers(0, t + 1, size=b)).to(cuda)
+    blank = 0 if blank == "first" else v - 1
+    n = KC.KERNEL_DECODE.launches
+    best, keep = KC._decode_kernel(x, ilen, blank)
+    ids, lens = KC.ctc_greedy_decode_fused(x, ilen, blank)
+    torch.cuda.synchronize()
+    assert KC.KERNEL_DECODE.launches == n + 2
+    want_best, want_keep = KC._decode_plain(x, ilen, blank)
+    assert torch.equal(best, want_best) and torch.equal(keep, want_keep)
+    want = KC.ctc_greedy_decode_fused_reference(x, ilen, blank)
+    assert torch.equal(ids, want[0]) and torch.equal(lens, want[1])
+
+
+@pytest.mark.parametrize("shape,cout", [((64, 32, 96, 1), 16),
+                                        ((64, 16, 48, 16), 32)])
+def test_conv_kernel_at_the_crnn_shapes(cuda, shape, cout):
+    """The direct conv kernel with the BN statistics epilogue at the CRNN's
+    two 3x3 s1 p1 convs (conv1: Cin = 1) against its plain twin; a rerun
+    repeats the bits."""
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(cout)
+    x = _rand(rng, *shape).to(cuda)
+    w = (_rand(rng, 3, 3, shape[-1], cout) * 0.3).to(cuda)
+    n = CV.KERNEL.launches
+    got = CV.fwd_raw(x, w, (1, 1), (1, 1), stats=True)
+    again = CV.fwd_raw(x, w, (1, 1), (1, 1), stats=True)
+    torch.cuda.synchronize()
+    assert CV.KERNEL.launches == n + 2
+    want = CV.fwd_raw_reference(x, w, (1, 1), (1, 1), stats=True)
+    count = got[0].numel() // cout
+    assert _close(got[0], want[0])
+    for g, wv, a in zip(got[1:], want[1:], again[1:]):
+        assert _close(g / count, wv / count)     # the moments they feed
+        assert torch.equal(g, a)
+    assert torch.equal(got[0], again[0])
+
+
+def test_crnn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    x = _bilstm_inputs(np.random.default_rng(0), 2, 3, 16, 256, cuda)
+    with pytest.raises(EnforceError, match="shared memory"):
+        LK.bilstm_seq(*x)
+    with pytest.raises(EnforceError, match="float32"):
+        LK.bilstm_seq(*(v.double() for v in x))
+    logits, labels, ilen, llen = _ctc_inputs(np.random.default_rng(0), 3, 12,
+                                             5, 4)
+    with pytest.raises(EnforceError, match="float32"):
+        KC.ctc_loss_fused(logits.double().to(cuda), ilen, labels, llen, 4)
+    with pytest.raises(EnforceError, match="float32"):
+        KC.ctc_greedy_decode_fused(logits.double().to(cuda), ilen, 4)

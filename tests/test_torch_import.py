@@ -56,6 +56,11 @@ MODULES = (
     "paddle_tpu_torch.ops.rnn",
     "paddle_tpu_torch.ops.kernels.lstm",
     "paddle_tpu_torch.ops.kernels.embedding",
+    "paddle_tpu_torch.ops.ctc",
+    "paddle_tpu_torch.ops.kernels.ctc",
+    "paddle_tpu_torch.layers.extras",
+    "paddle_tpu_torch.models.ocr_crnn",
+    "paddle_tpu_torch.trainer.inference",
 )
 
 
@@ -146,3 +151,33 @@ def test_params_and_state_default_to_the_card():
     params = T.params_from_numpy({"embed": np.zeros((4, 2), np.float32)},
                                  "cpu")
     assert params["embed"].device == torch.device("cpu")
+
+
+def test_crnn_trainer_and_inference_default_to_the_card():
+    """``trainer.SGD`` over the OCR CRNN, ``Inference`` and ``paddle.infer``
+    with no device go to ``cuda:0``: without a card they raise; asked for
+    the CPU, they run there."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import ocr_crnn
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: cuda:0 is the right answer")
+    reset_name_counters()
+    cost, probs, order = ocr_crnn.crnn_ctc_cost(
+        image_height=8, image_width=16, num_classes=3, rnn_size=4)
+    params = paddle.parameters.create(cost)
+    opt = paddle.optimizer.Adam(learning_rate=1e-3)
+    with pytest.raises(EnforceError, match="no CUDA card"):
+        paddle.trainer.SGD(cost=cost, parameters=params, update_equation=opt)
+    with pytest.raises(EnforceError, match="no CUDA card"):
+        paddle.inference.Inference(probs, params)
+    sample = [(np.zeros(8 * 16, np.float32), [1])]
+    with pytest.raises(EnforceError, match="no CUDA card"):
+        paddle.infer(output_layer=probs, parameters=params, input=sample)
+    out = paddle.infer(output_layer=probs, parameters=params, input=sample,
+                       device="cpu")
+    assert out[0].shape == (4, 4)
