@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains (ResNet-50, the transformer LM, the LSTM text classifier and the
-OCR CRNN).
+trains (ResNet-50, the transformer LM, the LSTM text classifier, the
+OCR CRNN and the attention NMT).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -139,7 +139,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    convergence recipe (8 classes, rnn_size 32, Adam 3e-3, 25 passes of
    512 samples at batch 32): the last cost under 5% of the first and the
    greedy decode of 16 fresh samples exact on at least 13.
-8. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+8. The attention NMT (``models/seqtoseq.seqtoseq_net`` at ``bench_nmt``'s
+   configuration: vocab 30,000 both sides, word, encoder and decoder 512,
+   32-token sequences, batch 64; 53,458,224 parameters; f32, Adam at lr
+   5e-4 with bf16 moments).  Its kernels against their plain twins at the
+   path's shapes (B 64, T 32, E = D = 512, half the rows ragged): the
+   BiGRU forward (both directions), the GRU forward, the GRU backward in
+   its remat form and its stored-gates form (the same bits), the GRU
+   kernels in both directions; max abs error
+   <= 1e-4 x max(1, |ref|), reruns equal in bits; each timed beside its
+   twin, its bound and cuDNN's ``nn.GRU`` (another cell: the reset gate
+   after the product; a yardstick of scale only).  Then a batch-2 step
+   (ragged source and target lengths, T = 16) on the card and on the CPU
+   against the CPU's plain twins in float64: cost within 1e-5 relative,
+   and every gradient leaf (||g32 - g64|| / ||g64||) within 10x the
+   float64 gradient's own move under a 1e-6 nudge of the embedding tables
+   (at least 1e-4); TF32 on the card, a CPU cell with cuDNN's reset
+   convention and an attention that does not mask the source padding are
+   planted faults that must exceed it, and the card's step repeats bit
+   for bit.  Then
+   ``trainer.SGD``: the first step twice (bit for bit), 2 warm-up and 10
+   timed steps (sequences/s, step ms, peak memory) with exactly 1 BiGRU
+   forward, 2 GRU remat backward, 0 GRU forward, 2 gathers and 2
+   scatter-adds per step; 3 steps under ``torch.profiler``; ``test`` on
+   2 batches (1 BiGRU forward and 2 gathers each); and ``layer.bigru``
+   against the composed ``simple_gru2`` pair on the card (forward and
+   every gradient within 1e-4 x max(1, |ref|)), then each ``grumemory``
+   of the pair as ``gru_seq`` on the pair's own inputs with the remat and
+   the stored-gates backward (equal in bits), whose launches count the
+   GRU forward and stored-gates rows.
+9. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -739,8 +768,8 @@ def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
     for mine in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
-                 "bilstm_fwd", "lstm_fwd", "lstm_bwd", "ctc_fwd_bwd",
-                 "ctc_decode"):
+                 "bilstm_fwd", "lstm_fwd", "lstm_bwd", "bigru_fwd",
+                 "gru_fwd", "gru_bwd", "ctc_fwd_bwd", "ctc_decode"):
         if mine in low:
             return f"{mine} (ours)"
     if "::scatter_add_kernel(" in low:    # csrc/embedding.cu
@@ -809,6 +838,33 @@ def profile_window(fn, steps: int, split: str | None = None) -> dict:
             "top_kernels": [{"ms_per_step": k[0], "per_step": k[1],
                              "name": k[2], "class": k[3]}
                             for k in kernels[:12]]}
+
+
+#: the GRU kernels' names in a trace, by the launch ``device_ms`` reads
+GRU_KERNEL_NAMES = {"bi": "bigru_fwd_kernel", "fwd": "::gru_fwd_kernel",
+                    "remat": "gru_bwd_kernel<true",
+                    "stored": "gru_bwd_kernel<false"}
+
+
+def device_ms(fns, key: str, rounds: int = 5):
+    """The device time of one launch of the kernel whose name holds
+    ``key``, averaged over ``rounds`` calls of each of ``fns`` under
+    ``torch.profiler``: the kernel's own time, without the wrapper's
+    weight packing and allocations (and without an L2 flush).  None when
+    the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else None
 
 
 def witness_ratio(start: dict, wide: dict, got: dict) -> tuple:
@@ -2046,6 +2102,561 @@ def train_crnn(dev, bs=64, steps=10) -> tuple[dict, tuple]:
                     train_n["ctc_fwd_bwd"], infer_n["ctc_decode"])
 
 
+NMT_COST_RTOL = 1e-5     # f32 NMT step vs the f64 witness: cost, and per
+NMT_GRAD_FLOOR = 1e-4    # gradient leaf ||g32 - g64|| / ||g64||' least limit
+
+
+def nmt_inputs(dev, gen, b, t, e, d):
+    """x [b, t, e], a mask with half the rows full and half ragged (a
+    length-1 row among them) and both directions' (w_x, b, w_h, w_hc,
+    h0)."""
+    rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lens[: b // 2] = t
+    lens[-1] = 1
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    dirs = [(rnd(e, 3 * d, k=e ** -0.5), rnd(3 * d, k=0.1),
+             rnd(d, 2 * d, k=d ** -0.5), rnd(d, d, k=d ** -0.5),
+             rnd(b, d, k=0.5)) for _ in range(2)]
+    return rnd(b, t, e), mask, dirs[0], dirs[1]
+
+
+def check_nmt_kernels(dev, timer, b=64, t=32, e=512, d=512) -> tuple:
+    """The NMT's kernels at its shapes (B 64, T 32, E = D = 512, half the
+    rows full and half ragged), each against its plain twin (max abs error
+    <= TOL * max(1, |ref|)) with a rerun bit-identical: the BiGRU forward
+    (both directions, x @ W_x + b inside); the GRU forward (no gate slab,
+    as the card runs it), the GRU backward in its remat form (the BiGRU's
+    backward launches it once per direction) and in its stored-gates form
+    (which must give the remat form's bits), each over both directions'
+    inputs (reverse off and on) and timed per launch, with its own device
+    time from a trace beside the wrapper's.  Library yardstick: cuDNN's
+    ``nn.GRU``, which is NOT the same cell (its reset gate acts after the
+    candidate product, r * (h W_hn + b_hn); the gate order is [r, z, n])
+    and includes the input projection: bidirectional for the BiGRU row,
+    one direction forward and backward for the GRU rows."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, mask, fw, bw = nmt_inputs(dev, gen, b, t, e, d)
+
+    def worst(got, want, what):
+        err = 0.0
+        for g, w in zip(got, want):
+            if g is None:
+                continue
+            m = (g - w).abs().max().item()
+            if not m <= TOL * max(1.0, w.abs().max().item()):
+                raise AssertionError(f"{what} kernel vs plain: {m}")
+            err = max(err, m)
+        return err
+
+    def same_bits(a, c, what):
+        if not all(torch.equal(p, q) for p, q in zip(a, c)
+                   if p is not None):
+            raise AssertionError(f"{what}: a rerun differs in bits")
+
+    bi = lambda: GK._bi_fwd_kernel(x, mask, fw, bw)  # noqa: E731
+    bi_plain = lambda: GK._bi_fwd_plain(x, mask, fw, bw)  # noqa: E731
+    got, again = bi(), bi()
+    torch.cuda.synchronize()
+    same_bits([p for g in got for p in g], [p for a in again for p in a],
+              "bigru forward")
+    bi_err = max(worst(g, w, "bigru") for g, w in zip(got, bi_plain()))
+
+    # the GRU kernels over each direction's projected input, as the
+    # BiGRU's backward launches them: fw with reverse off, bw with reverse
+    # on; the backward over the forward kernel's hs, with a random
+    # cotangent on hs and zeros on h_T
+    calls, dh_t = {}, torch.zeros(b, d, device=dev)
+    fwd_err = bwd_err = stored_err = 0.0
+    for (w_x, bias, w_h, w_hc, h0), reverse in ((fw, False), (bw, True)):
+        xw = LK._project_xw(x, w_x, bias)
+        fa = (xw, mask, w_h, w_hc, h0, reverse)
+        got = GK._fwd_kernel(*fa, False)
+        same_bits(got, GK._fwd_kernel(*fa, False), "gru forward")
+        fwd_err = max(fwd_err, worst(got, GK._fwd_plain(*fa, False),
+                                     "gru forward"))
+        hs, urc, _ = GK._fwd_kernel(*fa, True)
+        if not torch.equal(hs, got[0]):
+            raise AssertionError("gru forward: the gate slab changes hs")
+        args = (mask, w_h, w_hc, h0, hs,
+                torch.randn(b, t, d, generator=gen, device=dev), dh_t,
+                reverse)
+        calls[reverse] = {
+            "fwd": (lambda fa=fa: GK._fwd_kernel(*fa, False),
+                    lambda fa=fa: GK._fwd_plain(*fa, False)),
+            "remat": (
+                lambda xw=xw, a=args: GK._bwd_kernel(xw, None, *a, True),
+                lambda xw=xw, a=args: GK._bwd_plain(xw, None, *a, True)),
+            "stored": (
+                lambda u=urc, a=args: GK._bwd_kernel(None, u, *a, False),
+                lambda u=urc, a=args: GK._bwd_plain(None, u, *a, False))}
+        remat, stored = calls[reverse]["remat"], calls[reverse]["stored"]
+        r1, r2, s1, s2 = remat[0](), remat[0](), stored[0](), stored[0]()
+        torch.cuda.synchronize()
+        same_bits(r1, r2, "gru backward (remat)")
+        same_bits(s1, s2, "gru backward (stored)")
+        same_bits(r1, s1, "gru backward: remat vs stored gates")
+        bwd_err = max(bwd_err, worst(r1, remat[1](), "gru backward"))
+        stored_err = max(stored_err, worst(s1, stored[1](),
+                                           "gru backward (stored)"))
+        del r1, r2, s1, s2, got
+    del again
+
+    def per_launch(kind):
+        """(mean ms of a launch over both directions, ms by direction,
+        the twin's mean ms, the kernel's own device ms a launch)."""
+        ms = {r: timer(c[kind][0]) for r, c in calls.items()}
+        plain = [timer(c[kind][1]) for c in calls.values()]
+        own = device_ms([c[kind][0] for c in calls.values()],
+                        GRU_KERNEL_NAMES[kind])
+        return ((ms[False] + ms[True]) / 2,
+                {"forward": ms[False], "reverse": ms[True]},
+                sum(plain) / 2, own)
+
+    # yardsticks: cuDNN's GRU (another cell), bidirectional over x, and one
+    # direction over a D-wide input, forward and backward
+    cudnn_bi = torch.nn.GRU(e, d, batch_first=True, bidirectional=True).to(dev)
+    cudnn1 = torch.nn.GRU(d, d, batch_first=True).to(dev)
+    x1 = torch.randn(b, t, d, generator=gen, device=dev).requires_grad_()
+    out1, _ = cudnn1(x1)
+    g1 = torch.randn_like(out1)
+    lib_params = (x1, *cudnn1.parameters())
+
+    def lib_bi():
+        with torch.no_grad():
+            return cudnn_bi(x)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return cudnn1(x1)
+
+    steps = float(mask.sum().item())          # row-steps of one direction
+    f32 = 4.0
+    cell = 20.0 * steps * d                   # gate bundle per unit-step
+    rec = 2.0 * steps * 3 * d * d             # h W_h and (r h) W_hc
+    io = f32 * (b * t + 2 * d * d + d * d + b * d)   # mask, W_h, W_hc, h0
+    lib_note = "cuDNN nn.GRU: not the same cell"
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        out1, lib_params, g1, retain_graph=True)
+    gru_bwd_bytes = (f32 * (2 * b * t * 3 * d + 3 * b * t * d + 2 * b * d)
+                     + io)
+    rows = [{
+        "name": "bigru_seq_fwd", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/bigru_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/gru.py:663",
+        "shape": [b, t, e, d], "max_abs_err": bi_err,
+        "ms": timer(bi), "plain_ms": timer(bi_plain),
+        "kernel_only_ms": device_ms([bi], GRU_KERNEL_NAMES["bi"]),
+        # x, mask, both directions' W_x, b, W_h, W_hc, h0 in; hs and h_T of
+        # both out.  The three products over the valid row-steps of both
+        # directions, and the cell
+        "bytes_flops": (f32 * (b * t * e + b * t
+                               + 2 * (e * 3 * d + 3 * d + 3 * d * d + b * d)
+                               + 2 * (b * t * d + b * d)),
+                        2 * (2.0 * steps * e * 3 * d + rec + cell)),
+        "library_ms": timer(lib_bi), "library_note": lib_note}]
+    for kind, name, line, lib, bytes_flops in (
+            # xw, mask, W_h, W_hc, h0 in; hs, h_T out
+            ("fwd", "gru_seq_fwd", 311, lib_fwd,
+             (f32 * (b * t * 3 * d + b * t * d + b * d) + io, rec + cell)),
+            # xw, mask, W_h, W_hc, h0, hs, dhs, dh_T in; dxw, dh0, r*h
+            # out; the recomputed products, dc W_hc^T and [du, dr] W_h^T
+            ("remat", "gru_seq_bwd_remat", 279, lib_bwd,
+             (gru_bwd_bytes, 2 * rec + 2 * cell)),
+            # urc instead of xw, the same outputs; only the two transposed
+            # products
+            ("stored", "gru_seq_bwd_stored", 232, lib_bwd,
+             (gru_bwd_bytes, rec + cell))):
+        ms, by_dir, plain_ms, own = per_launch(kind)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/gru_seq.cu",
+            "replaces": f"paddle_tpu/ops/pallas/gru.py:{line}",
+            "shape": [b, t, d], "max_abs_err": {
+                "fwd": fwd_err, "remat": bwd_err, "stored": stored_err}[kind],
+            # one launch: the mean of the two directions' times
+            "ms": ms, "ms_by_direction": by_dir, "plain_ms": plain_ms,
+            "kernel_only_ms": own, "bytes_flops": bytes_flops,
+            "library_ms": timer(lib), "library_note": lib_note})
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
+    summary = {"phase": "nmt_kernels", "tol": TOL,
+               "lengths": "half full (32), half ragged, one of length 1",
+               "gru_directions": "forward (fw weights), reverse (bw weights)",
+               "reruns_bit_identical": True,
+               "gru_bwd_remat_equals_stored_bits": True,
+               "gate_slab_leaves_hs_bits": True}
+    del cudnn_bi, cudnn1, out1, g1, lib_params, x1
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+def nmt_batches(rng, k, bs, vocab, lo=32, hi=32):
+    """``bench_nmt``'s synthetic batches: (source, target, next-target) id
+    lists; lengths in [lo, hi] (the bench's 32), the target pair sharing
+    one."""
+    out = []
+    for _ in range(k):
+        batch = []
+        for _ in range(bs):
+            ls, lt = (int(rng.integers(lo, hi + 1)) for _ in range(2))
+            trg = rng.integers(0, vocab, size=lt + 1)
+            batch.append((rng.integers(0, vocab, size=ls).tolist(),
+                          trg[:-1].tolist(), trg[1:].tolist()))
+        out.append(batch)
+    return out
+
+
+def composed_bigru_check(dev, b=64, t=32, e=512, d=512):
+    """``layer.bigru`` against the composed fw/bw ``networks.simple_gru2``
+    pair (a mixed transform with bias + ``grumemory``) at the NMT's width on
+    the card, on the same parameter values: the forward and every
+    gradient within TOL * max(1, |ref|).  Then each ``grumemory`` of the
+    pair again as its layer calls ``gru_seq``, on the pair's own gate
+    inputs and weights, once with the remat backward the card runs and
+    once with the stored-gates one: the same bits.  Returns (summary,
+    launches by kernel)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.core.lod import SequenceBatch
+    from paddle_tpu_torch.layers import networks
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    L, D = paddle.layer, paddle.data_type
+    reset_name_counters()
+    node = L.bigru(input=L.data(name="x", type=D.dense_vector_sequence(e)),
+                   size=d, name="bi")
+    topo = Topology(node)
+    params = {s.name: 0.05 * torch.randn(*s.shape, generator=gen, device=dev)
+              for s in topo.param_specs()}
+    reset_name_counters()
+    x2 = L.data(name="x", type=D.dense_vector_sequence(e))
+    pair = [networks.simple_gru2(input=x2, size=d, name=f"bi_{k}",
+                                 reverse=k == "bw", mixed_bias_attr=True)
+            for k in ("fw", "bw")]
+    topo2 = Topology(pair)
+    if sorted(s.name for s in topo2.param_specs()) != sorted(params):
+        raise AssertionError("bigru and the simple_gru2 pair name their "
+                             "parameters differently")
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lens[: b // 2] = t
+    feed = {"x": SequenceBatch(torch.randn(b, t, e, generator=gen,
+                                           device=dev), lens)}
+    ct = torch.randn(b, t, 2 * d, generator=gen, device=dev)
+
+    def run(topology, outs):
+        leaves = {n: v.clone().requires_grad_() for n, v in params.items()}
+        vals, _ = topology.forward(leaves, {}, feed, True)
+        out = torch.cat([vals[o].data for o in outs], dim=-1)
+        grads = torch.autograd.grad((out * ct).sum(), list(leaves.values()))
+        return [out.detach(), *grads], vals
+
+    mask = feed["x"].mask(torch.float32)
+    h0 = torch.zeros(b, d, device=dev)
+
+    def grumemory_pair(vals, remat):
+        """hs and the gradients of (xw, W_h, W_hc) of each direction."""
+        out = []
+        for k, reverse in (("fw", False), ("bw", True)):
+            w = params[f"_bi_{k}.w0"]
+            xw = (vals[f"bi_{k}_transform"].data.detach()
+                  + params[f"_bi_{k}.wbias"])
+            leaves = [xw, w[:, :2 * d].clone(), w[:, 2 * d:].clone()]
+            leaves = [v.requires_grad_() for v in leaves]
+            hs, _ = GK.gru_seq(leaves[0], mask, leaves[1], leaves[2], h0,
+                               reverse=reverse, remat=remat)
+            cot = ct[..., :d] if k == "fw" else ct[..., d:]
+            out += [hs.detach(),
+                    *torch.autograd.grad((hs * cot).sum(), leaves)]
+        return out
+
+    kernels = {"bigru_fwd": GK.KERNEL_BI, "gru_fwd": GK.KERNEL_FWD,
+               "gru_bwd_remat": GK.KERNEL_BWD,
+               "gru_bwd_stored": GK.KERNEL_BWD_STORED}
+    for k in kernels.values():
+        k.launches = 0
+    got, _ = run(topo, ["bi"])
+    want, vals = run(topo2, ["bi_fw", "bi_bw"])
+    remat = grumemory_pair(vals, True)
+    stored = grumemory_pair(vals, False)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    if launches != {"bigru_fwd": 1, "gru_fwd": 6, "gru_bwd_remat": 6,
+                    "gru_bwd_stored": 2}:
+        raise AssertionError(f"composed check launches {launches}")
+    if not all(torch.equal(p, q) for p, q in zip(remat, stored)):
+        raise AssertionError("the grumemory pair: remat and stored-gates "
+                             "backward differ in bits")
+    if not torch.equal(torch.cat([remat[0], remat[4]], dim=-1), want[0]):
+        raise AssertionError("gru_seq on the pair's inputs differs from "
+                             "the pair's output")
+    errs = {}
+    for name, g, w in zip(["out"] + list(params), got, want):
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        errs[name] = err / scale
+        if not err <= TOL * scale:
+            raise AssertionError(f"bigru vs the simple_gru2 pair: {name} "
+                                 f"{err} (scale {scale})")
+    return ({"phase": "nmt_composed_bigru_check", "batch": b, "T": t, "E": e,
+             "D": d, "tol": TOL, "max_rel_err": max(errs.values()),
+             "worst": max(errs, key=errs.get),
+             "remat_equals_stored_bits": True,
+             "gru_seq_on_the_pair_inputs_equals_the_pair_bits": True,
+             "launches": launches},
+            launches)
+
+
+def train_nmt(dev, vocab=30000, width=512, bs=64, steps=10) -> tuple:
+    """The attention NMT through the v2 flow (``bench_nmt``'s
+    configuration, f32): the batch-2 step against a float64 witness, the
+    first ``trainer.SGD`` step twice (bit for bit), 2 warm-up and
+    ``steps`` timed steps at batch 64 with exact launch counts, a 3-step
+    profile, ``test`` on 2 batches, and the composed BiGRU check."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.core.dtype import set_f32_policy
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers import networks
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import seqtoseq
+    from paddle_tpu_torch.ops import rnn as rnn_ops
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    t0 = time.perf_counter()
+    reset_name_counters()
+    cost = seqtoseq.seqtoseq_net(vocab, vocab, word_vector_dim=width,
+                                 encoder_size=width, decoder_size=width)
+    order = ("source_language_word", "target_language_word",
+             "target_language_next_word")
+    feeding = {n: i for i, n in enumerate(order)}
+    created = paddle.parameters.create(cost)     # generator seeded 0
+    carried = {n: created[n] for n in created.names()}
+    # the biases start at 0; make them nonzero so the witness sees every
+    # term of the cells and the softmax
+    rng = np.random.default_rng(0)
+    for n in carried:
+        if n.endswith("bias"):
+            carried[n] = (0.1 * rng.standard_normal(carried[n].shape)
+                          ).astype(np.float32)
+    n_params = int(sum(v.size for v in carried.values()))
+
+    def trainer(where):
+        return paddle.trainer.SGD(
+            cost=cost, parameters=Parameters.from_numpy(carried),
+            update_equation=paddle.optimizer.Adam(
+                learning_rate=5e-4, moment_dtype=torch.bfloat16),
+            device=where)
+
+    def run(tr, data, handler=None):
+        out = []
+
+        def h(e):
+            if isinstance(e, paddle.event.EndIteration):
+                out.append((e.cost, e.metrics[
+                    "classification_error_evaluator"]))
+            if handler is not None:
+                handler(e)
+
+        tr.train(reader=lambda: iter(data), num_passes=1, event_handler=h,
+                 feeding=feeding)
+        return out
+
+    # (a) one step at batch 2, ragged source and target lengths (T = 16
+    # after bucketing), from the same parameters: the card's kernels in
+    # f32 and the CPU's plain twins in f32, each against the CPU's plain
+    # twins in float64, by the cost and every gradient leaf
+    # (||g32 - g64|| / ||g64||).  The limit is 10x the float64 gradient's
+    # own move when both embedding tables are nudged by 1e-6 relative (at
+    # least NMT_GRAD_FLOOR).  TF32 allowed on the card, a CPU cell that
+    # applies the reset gate after the candidate product (cuDNN's
+    # convention) and an attention that does not mask the source padding
+    # are planted faults that must exceed it; the card's step repeats bit
+    # for bit.
+    small = nmt_batches(rng, 1, 2, vocab, lo=5, hi=14)[0]
+    topo = Topology(cost)
+    types = {n: paddle.data_type.InputType(
+        dim=l.attrs["dim"], seq_type=l.attrs["seq_type"],
+        kind=l.attrs["data_type"]) for n, l in topo.data_layers().items()}
+    nudged = dict(carried)
+    for n in ("_source_language_embedding", "_target_language_embedding"):
+        nudged[n] = carried[n] * (1 + 1e-6 * rng.standard_normal(
+            carried[n].shape)).astype(np.float32)
+
+    def side(where, dtype=torch.float32, start=carried):
+        feed = DataFeeder(types, feeding, device=where)(small)
+        params = {n: torch.from_numpy(v).to(where, dtype)
+                  for n, v in start.items()}
+        return text_loss_and_grads(topo, cost.name, params, feed)
+
+    loss64, g64 = side("cpu", torch.float64)
+    sides = {"f64_nudged": side("cpu", torch.float64, nudged),
+             "cpu": side("cpu"), "card": side(dev)}
+    rerun = side(dev)
+    plain_gates, plain_cell = GK._gates, rnn_ops.gru_cell
+    plain_weights = networks._attention_weights
+
+    def cudnn_gates(x_t, h, w_h, w_hc):
+        d = h.shape[-1]
+        ur = x_t[:, :2 * d] + torch.matmul(h, w_h)
+        u, r = torch.sigmoid(ur[:, :d]), torch.sigmoid(ur[:, d:])
+        c = torch.tanh(x_t[:, 2 * d:] + r * torch.matmul(h, w_hc))
+        return u, r, c, r * h
+
+    def cudnn_cell(xw, h, w_h, w_hc, gate_act=None, state_act=None):
+        u, _, c, _ = cudnn_gates(xw, h, w_h, w_hc)
+        return u * h + (1.0 - u) * c
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sides["card_tf32_control"] = side(dev)
+    finally:
+        set_f32_policy()
+    GK._gates, rnn_ops.gru_cell = cudnn_gates, cudnn_cell
+    try:
+        sides["cpu_cudnn_cell_control"] = side("cpu")
+    finally:
+        GK._gates, rnn_ops.gru_cell = plain_gates, plain_cell
+    networks._attention_weights = (
+        lambda scores, mask: plain_weights(scores, torch.ones_like(mask)))
+    try:
+        sides["card_unmasked_attention_control"] = side(dev)
+    finally:
+        networks._attention_weights = plain_weights
+    if not (torch.equal(rerun[0], sides["card"][0]) and all(
+            torch.equal(rerun[1][n], sides["card"][1][n]) for n in g64)):
+        raise AssertionError("the card's NMT step is not bit-identical on a "
+                             "rerun")
+    witness = {"batch": 2, "lengths": [[len(s) for s in x[:2]]
+                                       for x in small],
+               "cost_f64": float(loss64), "cost_rtol": NMT_COST_RTOL}
+    for label, (loss, grads) in sides.items():
+        ratios = {n: rel_norm(grads[n], g64[n]) for n in g64}
+        worst = max(ratios, key=ratios.get)
+        witness[label] = {"cost": float(loss),
+                          "cost_rel_err": abs(float(loss) - float(loss64))
+                          / abs(float(loss64)),
+                          "grad_worst": ratios[worst],
+                          "grad_worst_leaf": worst}
+    del sides, rerun, g64
+    limit = max(NMT_GRAD_FLOOR, 10 * witness["f64_nudged"]["grad_worst"])
+    witness["grad_limit"] = limit
+    for label in ("cpu", "card"):
+        w = witness[label]
+        if not (w["cost_rel_err"] <= NMT_COST_RTOL
+                and w["grad_worst"] <= limit):
+            raise AssertionError(f"{label} NMT step vs the f64 witness: "
+                                 f"{witness}")
+    for label in ("card_tf32_control", "cpu_cudnn_cell_control",
+                  "card_unmasked_attention_control"):
+        if witness[label]["grad_worst"] <= limit:
+            raise AssertionError(f"the NMT witness limit does not catch "
+                                 f"{label}: {witness}")
+
+    # (b) trainer.SGD at bench_nmt's configuration: Adam 5e-4 with bf16
+    # moments, batch 64 of 32-token sequences; the first step twice from
+    # the same parameters (bit for bit), then 2 warm-up steps (set-up) and
+    # the timed steps with the launch counts zeroed just before and read
+    # just after
+    warm, data, test_data = (nmt_batches(rng, k, bs, vocab)
+                             for k in (2, steps, 2))
+    firsts = []
+    for _ in range(2):
+        tr = trainer(dev)
+        firsts.append((run(tr, data[:1]),
+                       {n: tr.parameters[n] for n in carried}))
+        del tr
+    if not (firsts[0][0] == firsts[1][0] and all(
+            np.array_equal(firsts[0][1][n], firsts[1][1][n])
+            for n in carried)):
+        raise AssertionError("trainer.SGD's first NMT step is not "
+                             "bit-identical on a rerun")
+    del firsts
+    tr = trainer(dev)
+    run(tr, warm)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks: dict[int, list] = {}
+
+    def stamp(e):
+        if isinstance(e, (paddle.event.BeginIteration,
+                          paddle.event.EndIteration)):
+            marks.setdefault(e.batch_id, []).append(time.perf_counter())
+
+    kernels = {"bigru_fwd": GK.KERNEL_BI, "gru_fwd": GK.KERNEL_FWD,
+               "gru_bwd_remat": GK.KERNEL_BWD,
+               "gru_bwd_stored": GK.KERNEL_BWD_STORED,
+               "gather": EK.KERNEL_GATHER, "scatter_add": EK.KERNEL_SCATTER}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    zero()
+    t1 = time.perf_counter()
+    events = run(tr, data, stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    train_n = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"bigru_fwd": 1, "gru_fwd": 0, "gru_bwd_remat": 2,
+            "gru_bwd_stored": 0, "gather": 2, "scatter_add": 2}
+    if train_n != {n: c * steps for n, c in want.items()}:
+        raise AssertionError(f"NMT train launches {train_n} != {want} x "
+                             f"{steps}")
+    costs = [c for c, _ in events]
+    if not (len(costs) == steps and all(np.isfinite(costs))):
+        raise AssertionError(f"NMT costs not finite: {costs}")
+    step_ms = [1e3 * (b - a) for a, b in marks.values()]
+    p50 = float(np.percentile(step_ms, 50))
+    traced = nmt_batches(rng, 3, bs, vocab)
+    prof = profile_window(lambda: run(tr, traced), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / p50)
+    zero()
+    result = tr.test(reader=lambda: iter(test_data), feeding=feeding)
+    test_n = counts()
+    want_test = dict(bigru_fwd=2, gru_fwd=0, gru_bwd_remat=0,
+                     gru_bwd_stored=0, gather=4, scatter_add=0)
+    if test_n != want_test or not np.isfinite(result.cost):
+        raise AssertionError(f"NMT test launches {test_n} != {want_test} or "
+                             f"cost {result.cost}")
+    del tr
+    torch.cuda.empty_cache()
+    composed, composed_n = composed_bigru_check(dev, e=width, d=width)
+    out = {"phase": "train_nmt",
+           "model": "attention NMT (models/seqtoseq.seqtoseq_net, bench_nmt)",
+           "params": n_params, "tensors": len(carried), "vocab": vocab,
+           "width": width, "dtype": "float32", "adam_moments": "bfloat16",
+           "lr": 5e-4,
+           "step_vs_f64_witness": witness,
+           "card_step_rerun_bit_identical": True,
+           "first_step_rerun_bit_identical": True,
+           "batch": bs, "tokens_per_sequence": 32, "steps": steps,
+           "wall_s": wall, "sequences_per_s": bs * steps / wall,
+           "step_ms_p50": p50, "step_ms": step_ms, "costs": costs,
+           "classification_error": [m for _, m in events],
+           "max_memory_allocated_bytes": peak, "train_launches": train_n,
+           "test_launches": test_n, "test_batches": 2,
+           "test_cost": result.cost, "test_metrics": result.metrics,
+           "setup_s": setup_s, "profile": prof, "composed": composed}
+    return out, (train_n["bigru_fwd"], composed_n["gru_fwd"],
+                 train_n["gru_bwd_remat"], composed_n["gru_bwd_stored"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -2095,6 +2706,13 @@ def main() -> int:
     print(json.dumps(crnn_summary), flush=True)
     crnn, crnn_n = train_crnn(dev)
     print(json.dumps(crnn), flush=True)
+    torch.cuda.empty_cache()
+    nmt_rows, nmt_summary = check_nmt_kernels(dev, Timer(dev))
+    for row in nmt_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(nmt_summary), flush=True)
+    nmt, nmt_n = train_nmt(dev)
+    print(json.dumps(nmt), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -2110,6 +2728,10 @@ def main() -> int:
     # the BiLSTM, LSTM-backward and CTC rows count the training run's
     # launches, the decode row the infer-and-decode run's
     for row, launches in zip(crnn_rows, crnn_n):
+        rows.append({**row, "launches": launches})
+    # the BiGRU and remat-backward rows count the training run's launches,
+    # the GRU forward and stored-gates rows the composed BiGRU check's
+    for row, launches in zip(nmt_rows, nmt_n):
         rows.append({**row, "launches": launches})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

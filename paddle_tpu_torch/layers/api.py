@@ -625,6 +625,33 @@ def lstmemory(input: LayerOutput, reverse: bool = False, act=None,
                               "active_state_type": sa.name})
 
 
+def _bidir_specs(input, name, suffix, d, gates, inner_bias, param_attr,
+                 bias_attr, inner_param_attr, inner_bias_attr):
+    """One direction's parameters of ``bilstm`` / ``bigru``: the input
+    projection ``_<name>_<suffix>_transform.w0`` [E, gates*D] and its
+    ``.wbias``, the recurrent weight ``_<name>_<suffix>.w0`` [D, gates*D]
+    and its ``.wbias`` of ``inner_bias`` entries (a bias is left out when
+    its attr is False).  Returns (specs, proj_w, proj_b, w, wb)."""
+    proj_w = _wspec(param_attr, f"{name}_{suffix}_transform", "w0",
+                    (input.size, gates * d), I.xavier())
+    specs = [proj_w]
+    proj_b = wb = None
+    if bias_attr is not False:
+        proj_b = _wspec(bias_attr if isinstance(bias_attr, ParamAttr)
+                        else None, f"{name}_{suffix}_transform", "wbias",
+                        (gates * d,), I.constant(0.0))
+        specs.append(proj_b)
+    w = _wspec(inner_param_attr, f"{name}_{suffix}", "w0", (d, gates * d),
+               I.paddle_default())
+    specs.append(w)
+    if inner_bias_attr is not False:
+        wb = _wspec(inner_bias_attr if isinstance(inner_bias_attr, ParamAttr)
+                    else None, f"{name}_{suffix}", "wbias", (inner_bias,),
+                    I.constant(0.0))
+        specs.append(wb)
+    return specs, proj_w, proj_b, w, wb
+
+
 def bilstm(input: LayerOutput, size: int, name: str | None = None,
            param_attr: ParamAttr | None = None, bias_attr=None,
            inner_param_attr: ParamAttr | None = None,
@@ -640,34 +667,12 @@ def bilstm(input: LayerOutput, size: int, name: str | None = None,
     ``_bw``.  The output is the [fw, bw] feature concat (size 2*size)."""
     name = name or gen_name("bilstm")
     d = size
-    use_proj_bias = bias_attr is not False
-    use_inner_bias = inner_bias_attr is not False
-
-    def dir_specs(suffix):
-        proj_w = _wspec(param_attr, f"{name}_{suffix}_transform", "w0",
-                        (input.size, 4 * d), I.xavier())
-        specs = [proj_w]
-        proj_b = None
-        if use_proj_bias:
-            proj_b = _wspec(
-                bias_attr if isinstance(bias_attr, ParamAttr) else None,
-                f"{name}_{suffix}_transform", "wbias", (4 * d,),
-                I.constant(0.0))
-            specs.append(proj_b)
-        w = _wspec(inner_param_attr, f"{name}_{suffix}", "w0", (d, 4 * d),
-                   I.paddle_default())
-        specs.append(w)
-        wb = None
-        if use_inner_bias:
-            wb = _wspec(
-                inner_bias_attr if isinstance(inner_bias_attr, ParamAttr)
-                else None,
-                f"{name}_{suffix}", "wbias", (7 * d,), I.constant(0.0))
-            specs.append(wb)
-        return specs, proj_w, proj_b, w, wb
-
-    fw_specs, fw_pw, fw_pb, fw_w, fw_wb = dir_specs("fw")
-    bw_specs, bw_pw, bw_pb, bw_w, bw_wb = dir_specs("bw")
+    fw_specs, fw_pw, fw_pb, fw_w, fw_wb = _bidir_specs(
+        input, name, "fw", d, 4, 7 * d, param_attr, bias_attr,
+        inner_param_attr, inner_bias_attr)
+    bw_specs, bw_pw, bw_pb, bw_w, bw_wb = _bidir_specs(
+        input, name, "bw", d, 4, 7 * d, param_attr, bias_attr,
+        inner_param_attr, inner_bias_attr)
 
     def fwd(ctx, params, states, x):
         def bundle(proj_w, proj_b, w, wb):
@@ -688,3 +693,106 @@ def bilstm(input: LayerOutput, size: int, name: str | None = None,
                        param_specs=tuple(fw_specs + bw_specs), fn=fwd,
                        attrs={"reversed_field": True})
 
+
+def slice(input: LayerOutput, start: int, end: int,
+          name: str | None = None) -> LayerOutput:
+    """≅ slice: feature columns [start, end) of every step."""
+    name = name or gen_name("slice")
+
+    def fwd(ctx, params, states, x):
+        return map_data(lambda d: d[..., start:end], x)
+
+    return LayerOutput(name=name, layer_type="slice", size=end - start,
+                       parents=(input,), fn=fwd,
+                       attrs={"start": start, "end": end})
+
+
+def grumemory(input: LayerOutput, reverse: bool = False, act=None,
+              gate_act=None, bias_attr=None,
+              param_attr: ParamAttr | None = None, name: str | None = None,
+              **kw) -> LayerOutput:
+    """≅ grumemory (GruLayer): input of size 3*D already projected (a
+    preceding fc/mixed of size 3*D); output size D.  One recurrent weight
+    [D, 3D] as the reference's GruLayer parameter: [:, :2D] the update and
+    reset gates, [:, 2D:] the candidate; the [3D] bias is added to the
+    input.  Standard activations run the GRU sequence kernel
+    (``ops/rnn.gru_fused``), others the plain masked scan."""
+    name = name or gen_name("gru")
+    d = input.size // 3
+    wspec = _wspec(param_attr, name, "w0", (d, 3 * d), I.paddle_default())
+    specs = [wspec]
+    use_bias = bias_attr is not False
+    if use_bias:
+        bspec = _wspec(bias_attr if isinstance(bias_attr, ParamAttr) else None,
+                       name, "wbias", (3 * d,), I.constant(0.0))
+        specs.append(bspec)
+    ga = act_mod.get(gate_act) if gate_act else act_mod.SigmoidActivation()
+    sa = act_mod.get(act) if act else act_mod.TanhActivation()
+
+    def fwd(ctx, params, states, x):
+        b, t = x.batch_size, x.max_len
+        xw = x.data.reshape(b, t, 3 * d)
+        if use_bias:
+            xw = xw + params[bspec.name]
+        init = torch.zeros(b, d, dtype=xw.dtype, device=xw.device)
+        w = params[wspec.name]
+        if (ga.name, sa.name) == ("sigmoid", "tanh"):
+            out, _ = rnn_ops.gru_fused(SequenceBatch(xw, x.length),
+                                       w[:, :2 * d], w[:, 2 * d:], init,
+                                       reverse=reverse)
+            return out
+
+        def step(h, xt):
+            return rnn_ops.gru_cell(xt, h, w[:, :2 * d], w[:, 2 * d:], ga, sa)
+
+        _, ys = rnn_ops._masked_scan(step, SequenceBatch(xw, x.length), init,
+                                     reverse=reverse)
+        return SequenceBatch(data=ys, length=x.length)
+
+    return LayerOutput(name=name, layer_type="gated_recurrent", size=d,
+                       parents=(input,), param_specs=tuple(specs), fn=fwd,
+                       attrs={"reverse": reverse, "reversed_field": True,
+                              "active_type": sa.name,
+                              "active_gate_type": ga.name})
+
+
+def bigru(input: LayerOutput, size: int, name: str | None = None,
+          param_attr: ParamAttr | None = None, bias_attr=None,
+          inner_param_attr: ParamAttr | None = None,
+          inner_bias_attr=None) -> LayerOutput:
+    """Bidirectional GRU, input projections included, as ONE layer node
+    lowering to ``ops/rnn.bigru_fused`` (one kernel launch for both
+    directions on the card, the unfused composition on the CPU).
+
+    Parameter names mirror the composed ``networks.simple_gru2`` form:
+    ``<name>_fw_transform.w0`` / ``.wbias`` (the 3*size input projection)
+    and ``<name>_fw.w0`` / ``.wbias`` (the grumemory-convention [D, 3D]
+    recurrent weight, [:, :2D] gates and [:, 2D:] candidate, and the
+    3*size gate bias), the same for ``_bw``.  The output is the [fw, bw]
+    feature concat (size 2*size)."""
+    name = name or gen_name("bigru")
+    d = size
+    fw_specs, fw_pw, fw_pb, fw_w, fw_wb = _bidir_specs(
+        input, name, "fw", d, 3, 3 * d, param_attr, bias_attr,
+        inner_param_attr, inner_bias_attr)
+    bw_specs, bw_pw, bw_pb, bw_w, bw_wb = _bidir_specs(
+        input, name, "bw", d, 3, 3 * d, param_attr, bias_attr,
+        inner_param_attr, inner_bias_attr)
+
+    def fwd(ctx, params, states, x):
+        def bundle(proj_w, proj_b, w, wb):
+            bias = params[proj_b.name] if proj_b is not None else None
+            if wb is not None:
+                gate_b = params[wb.name]
+                bias = gate_b if bias is None else bias + gate_b
+            full = params[w.name]
+            return (params[proj_w.name], bias, full[:, :2 * d],
+                    full[:, 2 * d:])
+
+        return rnn_ops.bigru_fused(x, bundle(fw_pw, fw_pb, fw_w, fw_wb),
+                                   bundle(bw_pw, bw_pb, bw_w, bw_wb))
+
+    return LayerOutput(name=name, layer_type="bigru", size=2 * d,
+                       parents=(input,),
+                       param_specs=tuple(fw_specs + bw_specs), fn=fwd,
+                       attrs={"reversed_field": True})

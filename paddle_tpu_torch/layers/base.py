@@ -43,6 +43,16 @@ class Context:
 
 _name_counters: dict[str, itertools.count] = {}
 
+# every LayerOutput registers here at construction, in creation order (the
+# JAX package's registry): ``recurrent_group`` finds the layers its step
+# function built, including those reachable only through a memory link.
+# The registry grows until ``reset_name_counters()``.
+_layer_registry: list["LayerOutput"] = []
+
+
+def layer_registry() -> list["LayerOutput"]:
+    return list(_layer_registry)
+
 
 def gen_name(layer_type: str) -> str:
     c = _name_counters.setdefault(layer_type, itertools.count())
@@ -53,6 +63,7 @@ def reset_name_counters() -> None:
     """Restart auto layer names and drop config-level defaults, as every
     model build starts (≅ ``init_config_environment``)."""
     _name_counters.clear()
+    _layer_registry.clear()
     parse_state.reset_defaults()
 
 
@@ -71,6 +82,9 @@ class LayerOutput:
     height: int = 0
     width: int = 0
     depth: int = 1  # channels for image layers
+
+    def __post_init__(self):
+        _layer_registry.append(self)
 
     def config_record(self) -> dict:
         """Serializable config (the ModelConfig-protostr analog)."""
@@ -128,6 +142,12 @@ def evaluate(nodes: Sequence[LayerOutput], ctx: Context,
     values: dict[str, Any] = {}
     new_states = dict(states)
     for node in topo_sort(nodes):
+        if node.fn is None and node.name in feed:
+            # leaves only: data layers and the placeholders and memories a
+            # recurrent_group feeds its step graph; a computed layer is
+            # never shadowed by a feed key of the same name
+            values[node.name] = feed[node.name]
+            continue
         if node.layer_type == "data":
             enforce(node.name in feed,
                     f"missing feed for data layer {node.name!r}")

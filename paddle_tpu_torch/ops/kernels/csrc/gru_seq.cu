@@ -1,0 +1,314 @@
+// Fused GRU over a whole sequence: the forward and the backward (stored
+// gates or remat, one template flag), each one persistent cooperative
+// launch that walks every time step.
+//
+// Replaces paddle_tpu/ops/pallas/gru.py::gru_seq (the Pallas _fwd_kernel,
+// _bwd_kernel and _bwd_remat_kernel: grid (batch blocks, T) run in order
+// on one core, W_h and W_hc resident in VMEM, the h carry in VMEM
+// scratch).
+//
+// Layout (batch-major, as the JAX entry takes it): xw [B, T, 3D] with
+// gate order [u, r, c]; mask [B, T] f32 (1 while t < length; rows freeze
+// afterwards); W_h [D, 2D] ([u, r] columns); W_hc [D, D]; h0 [B, D]; hs
+// [B, T, D].  ``reverse`` runs the same recurrence over indices T-1..0
+// (no flipped copies).  D % 4 == 0 (16-byte copies).  The cell is
+// Paddle's: u, r = sigmoid(xw[:2D] + h W_h), c = tanh(xw[2D:] + (r h)
+// W_hc), h' = u h + (1 - u) c — the reset gate acts before the product,
+// unlike cuDNN's GRU.
+//
+// What bounds it on an H100: operations, and the step-to-step
+// dependency.  Each step is [B, D] x [D, 2D] then [B, D] x [D, D] (at B
+// 64, D 512: 101 MFLOP, 3.2 GFLOP over 32 steps), and the candidate
+// product needs the whole r * h_{t-1}, which exists only once every unit
+// has its reset gate.  At D 512, f32 W_h and W_hc are 3 MB: they fit no
+// SM, so the TPU design (the weights whole in VMEM) does not carry over.
+// Instead each of ~128 blocks (one per SM) owns U hidden units and keeps
+// the 3U weight columns of its units in shared memory for the whole
+// sequence (packed by the wrapper, gru_common.cuh's tiling).  A step of
+// the forward has two grid-wide barriers: after the update/reset gates
+// (each block has written its units' r * h_{t-1}), and after the new h.
+//
+// Backward, reverse time, from row slices of the weights: block j keeps
+// W_h[own k, :] and W_hc[own k, :] (the wrapper packs W_h^T and W_hc^T
+// as columns).  Per step: (a) per own unit the gate cotangents du and
+// dc (pre-activation) from dh = carry + dhs[t], written to dxw and to an
+// exchange buffer; barrier; (b) drh = dc @ W_hc^T for the own units (a
+// product over all units' dc), then dr; barrier; (c) dh_{t-1} = dh u m +
+// drh r + [du, dr] @ W_h^T for the own units, plus the frozen rows'
+// pass-through.  The exchange buffers alternate by step parity, so (a) of
+// the next step needs no barrier.  No atomics and no partial sums across
+// blocks: every value is summed in one fixed order by one thread, so
+// reruns are bit-identical.  Remat recomputes the u/r/c slab in two
+// passes over all steps before the loop (they do not depend on the
+// backward recurrence): u, r and r * h_{t-1} from the shifted h stack,
+// barrier, then c — with the forward's gemm and gate code, so the
+// recomputed gates equal the forward's in bits and remat on and off give
+// the same result.  Both forms write r * h_{t-1} [B, T, D]; dW_h and dW_hc
+// are large products outside, as in the JAX package.
+
+#include "gru_common.cuh"
+
+namespace {
+
+using namespace gru;
+
+template <int S>
+__global__ void __launch_bounds__(kRows * kMaxUnits, 1)
+gru_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
+               const float* __restrict__ whp, const float* __restrict__ whcp,
+               const float* h0, float* hs, float* urc, float* hT,
+               float* rh_buf, float* u_buf, int B, int T, int D, int U,
+               int reverse) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* wh_s = smem;                            // [D][U][2]
+  float* whc_s = smem + (size_t)D * U * 2;       // [D][U]
+  float* a_s = smem + (size_t)D * U * 3;
+  const Lane ln(U);
+  const int u = blockIdx.x * U + ln.uu;
+  const bool live = u < D;
+  load_slice(wh_s, whp, (size_t)D * U * 2, blockIdx.x);
+  load_slice(whc_s, whcp, (size_t)D * U, blockIdx.x);
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+  const size_t TD = (size_t)T * D;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    // (A) u, r and r * h_{t-1} of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      const float* a = s == 0 ? h0 + (size_t)b0 * D
+                              : hs + b0 * TD + (size_t)tp * D;
+      float ur[2];
+      gemm<2, S>(a, s == 0 ? D : TD, rows, D, wh_s, U, ln, a_s, ur);
+      if (!live || ln.row >= rows) continue;
+      const int b = b0 + ln.row;
+      const float* xr = xw + (b * TD + (size_t)t * D) * 3;
+      const float hp = s == 0 ? __ldcg(h0 + (size_t)b * D + u)
+                              : __ldcg(hs + b * TD + (size_t)tp * D + u);
+      float ug, rg;
+      update_reset(xr[u], xr[D + u], ur[0], ur[1], ug, rg);
+      rh_buf[(size_t)b * D + u] = rg * hp;
+      u_buf[(size_t)b * D + u] = ug;
+      if (urc != nullptr) {
+        float* g = urc + (b * TD + (size_t)t * D) * 3;
+        g[u] = ug;
+        g[D + u] = rg;
+      }
+    }
+    grid.sync();
+    // (B) the candidate and the new h of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      float ac[1];
+      gemm<1, S>(rh_buf + (size_t)b0 * D, D, rows, D, whc_s, U, ln, a_s, ac);
+      if (!live || ln.row >= rows) continue;
+      const int b = b0 + ln.row;
+      const float* xr = xw + (b * TD + (size_t)t * D) * 3;
+      const float hp = s == 0 ? __ldcg(h0 + (size_t)b * D + u)
+                              : __ldcg(hs + b * TD + (size_t)tp * D + u);
+      const float c = candidate(xr[2 * D + u], ac[0]);
+      const float ug = u_buf[(size_t)b * D + u];
+      const float m = mask[(size_t)b * T + t];
+      const float hn = m * (ug * hp + (1.f - ug) * c) + (1.f - m) * hp;
+      hs[b * TD + (size_t)t * D + u] = hn;
+      if (urc != nullptr) urc[(b * TD + (size_t)t * D) * 3 + 2 * D + u] = c;
+      if (s == T - 1) hT[(size_t)b * D + u] = hn;
+    }
+    grid.sync();
+  }
+}
+
+template <bool kRemat, int S>
+__global__ void __launch_bounds__(kRows * kMaxUnits, 1)
+gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ urc_in,
+               const float* __restrict__ mask,
+               const float* __restrict__ whp, const float* __restrict__ whcp,
+               const float* __restrict__ whtp,
+               const float* __restrict__ whctp, const float* h0,
+               const float* hs, const float* __restrict__ dhs,
+               const float* __restrict__ dhT, float* dxw, float* dh,
+               float* rh, float* gates, float* dpc_buf, float* dur_buf,
+               float* drh_buf, int B, int T, int D, int U, int reverse) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* a_s = smem + (size_t)D * U * 3;
+  const Lane ln(U);
+  const int u = blockIdx.x * U + ln.uu;
+  const bool live = u < D;
+  cg::grid_group grid = cg::this_grid();
+  const size_t TD = (size_t)T * D;
+  const float* g_in = kRemat ? gates : urc_in;
+
+  if (kRemat) {
+    // the u/r/c slab, recomputed as the forward computed it
+    float* wh_s = smem;                          // [D][U][2]
+    float* whc_s = smem + (size_t)D * U * 2;     // [D][U]
+    load_slice(wh_s, whp, (size_t)D * U * 2, blockIdx.x);
+    load_slice(whc_s, whcp, (size_t)D * U, blockIdx.x);
+    __syncthreads();
+    for (int t = 0; t < T; ++t) {
+      const bool first = reverse ? t == T - 1 : t == 0;
+      const int tp = reverse ? t + 1 : t - 1;
+      for (int b0 = 0; b0 < B; b0 += kRows) {
+        const int rows = min(kRows, B - b0);
+        const float* a = first ? h0 + (size_t)b0 * D
+                               : hs + b0 * TD + (size_t)tp * D;
+        float ur[2];
+        gemm<2, S>(a, first ? D : TD, rows, D, wh_s, U, ln, a_s, ur);
+        if (!live || ln.row >= rows) continue;
+        const int b = b0 + ln.row;
+        const size_t bt = b * TD + (size_t)t * D;
+        const float hp = first ? h0[(size_t)b * D + u]
+                               : hs[b * TD + (size_t)tp * D + u];
+        float ug, rg;
+        update_reset(xw[bt * 3 + u], xw[bt * 3 + D + u], ur[0], ur[1], ug,
+                     rg);
+        gates[bt * 3 + u] = ug;
+        gates[bt * 3 + D + u] = rg;
+        rh[bt + u] = rg * hp;
+      }
+    }
+    grid.sync();
+    for (int t = 0; t < T; ++t) {
+      for (int b0 = 0; b0 < B; b0 += kRows) {
+        const int rows = min(kRows, B - b0);
+        float ac[1];
+        gemm<1, S>(rh + b0 * TD + (size_t)t * D, TD, rows, D, whc_s, U, ln,
+                   a_s, ac);
+        if (!live || ln.row >= rows) continue;
+        const size_t bt = (b0 + ln.row) * TD + (size_t)t * D;
+        gates[bt * 3 + 2 * D + u] = candidate(xw[bt * 3 + 2 * D + u], ac[0]);
+      }
+    }
+    __syncthreads();     // the column slices give way to the row slices
+  }
+  float* wht_s = smem;                           // [2D][U]: W_h[k, :]
+  float* whct_s = smem + (size_t)D * U * 2;      // [D][U]: W_hc[k, :]
+  load_slice(wht_s, whtp, (size_t)D * U * 2, blockIdx.x);
+  load_slice(whct_s, whctp, (size_t)D * U, blockIdx.x);
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;   // computation order reversed
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool first = reverse ? t == T - 1 : t == 0;
+    float* dpc = dpc_buf + (size_t)(s & 1) * B * D;        // [B][D]
+    float* dur = dur_buf + (size_t)(s & 1) * B * 2 * D;    // [B][2D]
+    // (a) du and dc of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      if (!live || ln.row >= rows) continue;
+      const int b = b0 + ln.row;
+      const size_t bu = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+      const float dhv = (s == 0 ? dhT[bu] : dh[bu]) + dhs[bt + u];
+      const float m = mask[(size_t)b * T + t];
+      const float ug = g_in[bt * 3 + u], c = g_in[bt * 3 + 2 * D + u];
+      const float hp = first ? h0[bu] : hs[b * TD + (size_t)tp * D + u];
+      const float du = dhv * (hp - c) * ug * (1.f - ug) * m;
+      const float dc = dhv * (1.f - ug) * m * (1.f - c * c);
+      dxw[bt * 3 + u] = du;
+      dxw[bt * 3 + 2 * D + u] = dc;
+      dpc[bu] = dc;
+      dur[(size_t)b * 2 * D + u] = du;
+      if (!kRemat) rh[bt + u] = g_in[bt * 3 + D + u] * hp;
+    }
+    grid.sync();
+    // (b) drh = dc @ W_hc^T and dr of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      float drh[1];
+      gemm<1, S>(dpc + (size_t)b0 * D, D, rows, D, whct_s, U, ln, a_s, drh);
+      if (!live || ln.row >= rows) continue;
+      const int b = b0 + ln.row;
+      const size_t bu = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+      const float rg = g_in[bt * 3 + D + u];
+      const float hp = first ? h0[bu] : hs[b * TD + (size_t)tp * D + u];
+      const float dr = drh[0] * hp * rg * (1.f - rg);
+      dxw[bt * 3 + D + u] = dr;
+      dur[(size_t)b * 2 * D + D + u] = dr;
+      drh_buf[bu] = drh[0];
+    }
+    grid.sync();
+    // (c) dh_{t-1} of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      float acc[1];
+      gemm<1, S>(dur + (size_t)b0 * 2 * D, 2 * D, rows, 2 * D, wht_s, U, ln,
+                 a_s, acc);
+      if (!live || ln.row >= rows) continue;
+      const int b = b0 + ln.row;
+      const size_t bu = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+      const float dhv = (s == 0 ? dhT[bu] : dh[bu]) + dhs[bt + u];
+      const float m = mask[(size_t)b * T + t];
+      const float ug = g_in[bt * 3 + u], rg = g_in[bt * 3 + D + u];
+      const float prev = dhv * ug * m + drh_buf[bu] * rg + acc[0];
+      dh[bu] = prev + (1.f - m) * dhv;
+    }
+  }
+}
+
+}  // namespace
+
+// The grid: ceil(D / U) blocks of 64U threads; whp [blocks][D][U][2] and
+// whcp [blocks][D][U] the column slices of W_h and W_hc.  rh_buf, u_buf:
+// [B, D] scratch.  urc (may be null): the [B, T, 3D] gate slab.
+extern "C" int gru_fwd_f32(const float* xw, const float* mask,
+                           const float* whp, const float* whcp,
+                           const float* h0, float* hs, float* urc, float* hT,
+                           float* rh_buf, float* u_buf, int B, int T, int D,
+                           int U, int reverse, void* stream) {
+  if (!valid_shape(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const size_t w = (size_t)D * U * 3;
+  const int stages = stages_for(w, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = sizeof(float) * (w + scratch_floats(U, stages));
+  void* args[] = {&xw, &mask, &whp, &whcp, &h0, &hs, &urc, &hT, &rh_buf,
+                  &u_buf, &B, &T, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? cooperative(gru_fwd_kernel<3>, grid, kRows * U, smem, args, st)
+      : cooperative(gru_fwd_kernel<2>, grid, kRows * U, smem, args, st);
+}
+
+// remat != 0: the gates recomputed from xw and the shifted h stack into
+// `gates` ([B, T, 3D] scratch; urc_in unused); remat == 0: urc_in is the
+// forward's slab (xw and gates unused).  whtp [blocks][2D][U] and whctp
+// [blocks][D][U] pack W_h^T and W_hc^T as columns (the row slices).
+// Outputs dxw [B, T, 3D], dh [B, D] (dh0), rh [B, T, D] = r * h_{t-1};
+// scratch dpc_buf [2][B][D], dur_buf [2][B][2D], drh_buf [B][D].
+extern "C" int gru_bwd_f32(const float* xw, const float* urc_in,
+                           const float* mask, const float* whp,
+                           const float* whcp, const float* whtp,
+                           const float* whctp, const float* h0,
+                           const float* hs, const float* dhs,
+                           const float* dhT, float* dxw, float* dh, float* rh,
+                           float* gates, float* dpc_buf, float* dur_buf,
+                           float* drh_buf, int B, int T, int D, int U,
+                           int reverse, int remat, void* stream) {
+  if (!valid_shape(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const size_t w = (size_t)D * U * 3;
+  const int stages = stages_for(w, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = sizeof(float) * (w + scratch_floats(U, stages));
+  void* args[] = {&xw, &urc_in, &mask, &whp, &whcp, &whtp, &whctp, &h0,
+                  &hs, &dhs, &dhT, &dxw, &dh, &rh, &gates, &dpc_buf,
+                  &dur_buf, &drh_buf, &B, &T, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n = kRows * U;
+  if (remat)
+    return stages == 3
+        ? cooperative(gru_bwd_kernel<true, 3>, grid, n, smem, args, st)
+        : cooperative(gru_bwd_kernel<true, 2>, grid, n, smem, args, st);
+  return stages == 3
+      ? cooperative(gru_bwd_kernel<false, 3>, grid, n, smem, args, st)
+      : cooperative(gru_bwd_kernel<false, 2>, grid, n, smem, args, st);
+}
+
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

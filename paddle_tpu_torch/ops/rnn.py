@@ -1,10 +1,12 @@
 """Recurrent cells and masked scans of the port (``paddle_tpu/ops/rnn.py``:
-the LSTM pieces ``lstmemory`` and ``bilstm`` need).
+the LSTM pieces ``lstmemory`` and ``bilstm`` need, and the GRU pieces of
+``grumemory``, ``bigru`` and ``gru_step_layer``).
 
 The input projection x @ W_x (+ bias) is one large product outside the
 recurrence; only h @ W_h runs inside it.  Ragged batches freeze each
-row's state past its length.  Gates are ordered [input, forget,
-cell (candidate), output]."""
+row's state past its length.  LSTM gates are ordered [input, forget,
+cell (candidate), output]; GRU gates [update, reset, candidate], with
+Paddle's reset-before-product cell (:func:`gru_cell`)."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.ops import activations as act
+from paddle_tpu_torch.ops.kernels import gru as gru_kernels
 from paddle_tpu_torch.ops.kernels import lstm as lstm_kernels
 from paddle_tpu_torch.ops.math import matmul
 
@@ -45,19 +48,38 @@ def lstm_cell(xw, state: LSTMState, w_h, gate_act=act.sigmoid,
     return LSTMState(h=h, c=c)
 
 
-def _masked_scan(step, x: SequenceBatch, init_state: LSTMState,
-                 reverse: bool = False):
+def gru_cell(xw, h, w_h, w_hc, gate_act=act.sigmoid, state_act=act.tanh):
+    """One step: xw [B, 3D] (x @ W_x + bias, [u, r, c]), h [B, D], w_h
+    [D, 2D] (update and reset), w_hc [D, D] (candidate):
+    u, r = gate_act(xw[:, :2D] + h W_h); c = state_act(xw[:, 2D:] +
+    (r h) W_hc); h' = u h + (1 - u) c (``hl_gpu_gru.cuh`` frameOutput)."""
+    d = h.shape[-1]
+    ur = xw[:, :2 * d] + matmul(h, w_h)
+    u = gate_act(ur[:, :d])
+    r = gate_act(ur[:, d:2 * d])
+    c = state_act(xw[:, 2 * d:] + matmul(r * h, w_hc))
+    return u * h + (1.0 - u) * c
+
+
+def _masked_scan(step, x: SequenceBatch, init_state, reverse: bool = False):
     """Run ``step(state, x_t) -> state`` over time, each row frozen past
-    its length.  Returns (last state, stacked states [B, T, ...])."""
+    its length; the state is a tensor (the GRU's h) or a tuple of them
+    (``LSTMState``).  Returns (last state, stacked states [B, T, ...])."""
     mask = x.mask(x.data.dtype)
     t = x.max_len
+    bare = isinstance(init_state, torch.Tensor)
     state, outs = init_state, [None] * t
     for k in (range(t - 1, -1, -1) if reverse else range(t)):
         new = step(state, x.data[:, k])
         m = mask[:, k, None]
-        state = type(state)(*(m * n + (1.0 - m) * o
-                              for n, o in zip(new, state)))
+        if bare:
+            state = m * new + (1.0 - m) * state
+        else:
+            state = type(state)(*(m * n + (1.0 - m) * o
+                                  for n, o in zip(new, state)))
         outs[k] = state
+    if bare:
+        return state, torch.stack(outs, 1)
     return state, type(state)(*(torch.stack(z, 1) for z in zip(*outs)))
 
 
@@ -104,5 +126,46 @@ def bilstm_fused(x: SequenceBatch, fw: tuple, bw: tuple):
     hs_f, hs_b, _, _ = lstm_kernels.bilstm_seq(
         data, x.mask(data.dtype), *prep(*fw), *prep(*bw), zeros, zeros,
         zeros, zeros)
+    return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1),
+                         length=x.length)
+
+
+def gru_fused(xw: SequenceBatch, w_h, w_hc, init, reverse: bool = False,
+              remat: bool | None = None):
+    """Standard-activation GRU over precomputed gate inputs through the
+    sequence kernel (``kernels/gru.gru_seq``): xw a SequenceBatch of
+    [B, T, 3D], w_h [D, 2D], w_hc [D, D], init [B, D].  ``remat``
+    recomputes the gates in the backward instead of keeping the
+    [B, T, 3D] slab; None means on the card only, as the JAX package
+    turns it on on the TPU only.  A D past the kernel's tiling raises on
+    the card.  Returns (SequenceBatch of h, last h)."""
+    if remat is None:
+        remat = xw.data.device.type == "cuda"
+    hs, h_t = gru_kernels.gru_seq(xw.data, xw.mask(xw.data.dtype), w_h, w_hc,
+                                  init, reverse=reverse, remat=remat)
+    return SequenceBatch(data=hs, length=xw.length), h_t
+
+
+def bigru_fused(x: SequenceBatch, fw: tuple, bw: tuple):
+    """Bidirectional GRU over raw inputs through ``kernels/gru.bigru_seq``:
+    on the card one launch runs both directions with the input projections
+    inside its loop, remat on, as the JAX package's TPU branch runs; CPU
+    tensors take its twin, the unfused composition (one projection product
+    and the plain scan per direction) that the JAX package runs off the
+    TPU.  ``fw``/``bw`` are (w_x [E, 3D], bias [3D] | None, w_h [D, 2D],
+    w_hc [D, D]).  A shape past the kernel's tiling raises on the card.
+    Returns the concatenated SequenceBatch [B, T, 2D] (forward features
+    first)."""
+    data = x.data
+    d = fw[3].shape[0]
+    zeros = torch.zeros(x.batch_size, d, dtype=data.dtype, device=data.device)
+
+    def prep(w_x, bias, w_h, w_hc):
+        bias = (torch.zeros(3 * d, dtype=w_x.dtype, device=w_x.device)
+                if bias is None else bias)
+        return w_x, bias, w_h, w_hc
+
+    hs_f, hs_b, _, _ = gru_kernels.bigru_seq(
+        data, x.mask(data.dtype), *prep(*fw), *prep(*bw), zeros, zeros)
     return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1),
                          length=x.length)

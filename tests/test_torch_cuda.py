@@ -695,3 +695,200 @@ def test_crnn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         KC.ctc_loss_fused(logits.double().to(cuda), ilen, labels, llen, 4)
     with pytest.raises(EnforceError, match="float32"):
         KC.ctc_greedy_decode_fused(logits.double().to(cuda), ilen, 4)
+
+
+# -- GRU sequence and bidirectional GRU (the NMT path) ------------------------
+
+
+def _gru_inputs(rng, b, t, d, device):
+    """xw, mask (ragged lengths: row 0 full, the last row of length 1),
+    w_h, w_hc, h0."""
+    lens = rng.integers(1, t + 1, size=b)
+    lens[0], lens[-1] = t, 1
+    mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+    x = [_rand(rng, b, t, 3 * d), torch.from_numpy(mask),
+         _rand(rng, d, 2 * d) * (1.0 / d ** 0.5),
+         _rand(rng, d, d) * (1.0 / d ** 0.5), _rand(rng, b, d) * 0.5]
+    return [v.to(device) for v in x]
+
+
+def _gru_kernels_vs_plain(cuda, b, t, d, reverse):
+    """The forward kernel (with and without the gate slab) and both
+    backward forms against the plain twins on the same CUDA tensors;
+    remat and stored gates give the same bits, and a rerun repeats them."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    rng = np.random.default_rng(b * 31 + t + d)
+    xw, mask, w_h, w_hc, h0 = _gru_inputs(rng, b, t, d, cuda)
+    n_fwd = GK.KERNEL_FWD.launches
+    got = GK._fwd_kernel(xw, mask, w_h, w_hc, h0, reverse, True)
+    bare = GK._fwd_kernel(xw, mask, w_h, w_hc, h0, reverse, False)
+    torch.cuda.synchronize()
+    assert GK.KERNEL_FWD.launches == n_fwd + 2
+    assert bare[1] is None
+    assert torch.equal(got[0], bare[0]) and torch.equal(got[2], bare[2])
+    want = GK._fwd_plain(xw, mask, w_h, w_hc, h0, reverse, True)
+    for x, y in zip(got, want):
+        assert _close(x, y)
+    hs, urc = got[:2]
+    dhs, dh_t = (_rand(rng, *s).to(cuda) for s in ((b, t, d), (b, d)))
+    args = (mask, w_h, w_hc, h0, hs, dhs, dh_t, reverse)
+    n_bwd = GK.KERNEL_BWD.launches, GK.KERNEL_BWD_STORED.launches
+    stored = GK._bwd_kernel(None, urc, *args, False)
+    remat = GK._bwd_kernel(xw, None, *args, True)
+    again = GK._bwd_kernel(xw, None, *args, True)
+    torch.cuda.synchronize()
+    assert (GK.KERNEL_BWD.launches - n_bwd[0],
+            GK.KERNEL_BWD_STORED.launches - n_bwd[1]) == (2, 1)
+    assert all(torch.equal(x, y) for x, y in zip(stored, remat))
+    assert all(torch.equal(x, y) for x, y in zip(remat, again))
+    for x, y in zip(remat, GK._bwd_plain(xw, urc, *args, True)):
+        assert _close(x, y)
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (3, 7, 8),          # one unit a block
+    (5, 9, 300),        # 3 units a block, the last block short
+    (130, 9, 32),       # three 64-row chunks
+    (64, 32, 512),      # the NMT's width: 4 units a block
+    (2, 1, 16),         # one step
+])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_kernels_match_plain(cuda, b, t, d, reverse):
+    _gru_kernels_vs_plain(cuda, b, t, d, reverse)
+
+
+def _bigru_inputs(rng, b, t, e, d, device):
+    """x, mask (ragged: row 0 full, the last row of length 1) and both
+    directions' (w_x, b, w_h, w_hc, h0)."""
+    lens = rng.integers(1, t + 1, size=b)
+    lens[0], lens[-1] = t, 1
+    mask = torch.from_numpy(
+        (np.arange(t)[None, :] < lens[:, None]).astype(np.float32))
+    per_dir = lambda: [_rand(rng, e, 3 * d) * (1.0 / e ** 0.5),  # noqa: E731
+                       _rand(rng, 3 * d) * 0.1,
+                       _rand(rng, d, 2 * d) * (1.0 / d ** 0.5),
+                       _rand(rng, d, d) * (1.0 / d ** 0.5),
+                       _rand(rng, b, d) * 0.5]
+    fw, bw = per_dir(), per_dir()
+    return (_rand(rng, b, t, e).to(device), mask.to(device),
+            [v.to(device) for v in fw], [v.to(device) for v in bw])
+
+
+def _bigru_kernel_vs_plain(cuda, b, t, e, d):
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    rng = np.random.default_rng(b + t + e + d)
+    x, mask, fw, bw = _bigru_inputs(rng, b, t, e, d, cuda)
+    n = GK.KERNEL_BI.launches
+    got = GK._bi_fwd_kernel(x, mask, fw, bw)
+    again = GK._bi_fwd_kernel(x, mask, fw, bw)
+    torch.cuda.synchronize()
+    assert GK.KERNEL_BI.launches == n + 2
+    want = GK._bi_fwd_plain(x, mask, fw, bw)
+    for g_dir, a_dir, w_dir in zip(got, again, want):
+        for gv, av, wv in zip(g_dir, a_dir, w_dir):
+            assert _close(gv, wv)
+            assert torch.equal(gv, av)
+
+
+@pytest.mark.parametrize("b,t,e,d", [
+    (64, 32, 512, 512),  # the NMT encoder at bench width: 8 units a block
+    (3, 7, 12, 8),       # the CPU tests' shapes
+    (5, 9, 16, 32),
+    (130, 5, 8, 40),     # three 64-row chunks
+])
+def test_bigru_kernel_matches_plain(cuda, b, t, e, d):
+    _bigru_kernel_vs_plain(cuda, b, t, e, d)
+
+
+def test_gru_kernels_at_the_tiling_limit(cuda):
+    """D at the largest width the tiling takes on this card (8 units a
+    block on every SM for gru_seq, on half of them for bigru_seq), and
+    the refusal 4 past it."""
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _gru_kernels_vs_plain(cuda, 4, 3, 8 * sms, True)
+    _bigru_kernel_vs_plain(cuda, 4, 3, 16, 8 * (sms // 2))
+    rng = np.random.default_rng(0)
+    xw, mask, w_h, w_hc, h0 = _gru_inputs(rng, 2, 3, 8 * sms + 4, cuda)
+    with pytest.raises(EnforceError, match="units a block"):
+        GK.gru_seq(xw, mask, w_h, w_hc, h0)
+    x, mask, fw, bw = _bigru_inputs(rng, 2, 3, 16, 8 * (sms // 2) + 4, cuda)
+    with pytest.raises(EnforceError, match="units a block"):
+        GK.bigru_seq(x, mask, *fw[:4], *bw[:4], fw[4], bw[4])
+
+
+def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    rng = np.random.default_rng(1)
+    x = [v.double() for v in _gru_inputs(rng, 2, 3, 8, cuda)]
+    with pytest.raises(EnforceError, match="float32"):
+        GK.gru_seq(*x)
+    with pytest.raises(EnforceError, match="multiple of 4"):
+        GK.gru_seq(*_gru_inputs(rng, 2, 3, 10, cuda))
+    x, mask, fw, bw = _bigru_inputs(rng, 2, 3, 10, 8, cuda)
+    with pytest.raises(EnforceError, match="E=10 must be a multiple of 4"):
+        GK.bigru_seq(x, mask, *fw[:4], *bw[:4], fw[4], bw[4])
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_gru_function_on_card_matches_the_cpu(cuda, remat):
+    """``gru_seq`` (forward and backward kernels) against the CPU's plain
+    twins: hs, h_T and every input gradient, both directions; the card's
+    gradients repeat bit for bit."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    rng = np.random.default_rng(7)
+    cpu = _gru_inputs(rng, 6, 11, 40, "cpu")
+    r = _rand(rng, 6, 11, 40)
+    for reverse in (False, True):
+        outs = []
+        for dev in ("cpu", cuda, cuda):
+            leaves = [x.to(dev).detach().requires_grad_(i != 1)
+                      for i, x in enumerate(cpu)]
+            hs, h_t = GK.gru_seq(*leaves, reverse=reverse, remat=remat)
+            loss = (hs * r.to(dev)).sum() + 0.5 * h_t.sum()
+            grads = torch.autograd.grad(loss, [x for i, x in
+                                               enumerate(leaves) if i != 1])
+            outs.append([hs, h_t, *grads])
+        for want, got, again in zip(*outs):
+            assert _close(got.cpu(), want)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,t,e,d", [(64, 32, 512, 512), (5, 9, 16, 8)])
+def test_bigru_function_on_card_matches_the_cpu(cuda, b, t, e, d):
+    """``bigru_seq`` (the forward kernel, then two GRU backward launches)
+    against the CPU's plain twins: every output and input gradient; the
+    card's gradients repeat bit for bit."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    rng = np.random.default_rng(11 + d)
+    x, mask, fw, bw = _bigru_inputs(rng, b, t, e, d, "cpu")
+    cpu = [x, mask, *fw[:4], *bw[:4], fw[4], bw[4]]
+    r = [_rand(rng, b, t, d), _rand(rng, b, t, d)]
+    outs = []
+    for dev in ("cpu", cuda, cuda):
+        leaves = [v.to(dev).detach().requires_grad_(i != 1)
+                  for i, v in enumerate(cpu)]
+        n = GK.KERNEL_BI.launches, GK.KERNEL_BWD.launches, \
+            GK.KERNEL_FWD.launches
+        hsf, hsb, htf, htb = GK.bigru_seq(*leaves)
+        loss = ((hsf * r[0].to(dev)).sum() + (hsb * r[1].to(dev)).sum()
+                + htf.sum() - 0.5 * htb.sum())
+        grads = torch.autograd.grad(loss, [v for i, v in enumerate(leaves)
+                                           if i != 1])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (GK.KERNEL_BI.launches - n[0],
+                    GK.KERNEL_BWD.launches - n[1],
+                    GK.KERNEL_FWD.launches - n[2]) == (1, 2, 0)
+        outs.append([hsf, hsb, htf, htb, *grads])
+    for want, got, again in zip(*outs):
+        assert _close(got.cpu(), want)
+        assert torch.equal(got, again)

@@ -53,6 +53,11 @@ MODULES = (
     "paddle_tpu_torch.core.lod",
     "paddle_tpu_torch.ops.sequence",
     "paddle_tpu_torch.ops.embedding",
+    "paddle_tpu_torch.ops.kernels.gru",
+    "paddle_tpu_torch.layers.mixed",
+    "paddle_tpu_torch.layers.recurrent_group",
+    "paddle_tpu_torch.layers.networks",
+    "paddle_tpu_torch.models.seqtoseq",
     "paddle_tpu_torch.ops.rnn",
     "paddle_tpu_torch.ops.kernels.lstm",
     "paddle_tpu_torch.ops.kernels.embedding",
