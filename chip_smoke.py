@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
 trains (ResNet-50, the transformer LM, the LSTM text classifier, the
-OCR CRNN and the attention NMT).
+OCR CRNN, the attention NMT, the CIFAR-10 VGG and the benchmark image
+nets).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -168,7 +169,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    of the pair as ``gru_seq`` on the pair's own inputs with the remat and
    the stored-gates backward (equal in bits), whose launches count the
    GRU forward and stored-gates rows.
-9. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+9. The CIFAR-10 VGG with batch norm and dropout (``layers/networks.
+   small_vgg``, the book's ``vgg_bn_drop``: 46 tensors, 7,909,450
+   parameters, 11 batch norms; batch 128 of the port's seeded CIFAR-10;
+   Momentum 0.9 at lr 0.1 / 128 with L2 0.0002 x 128; f32).
+   ``channel_stats`` against its twin at small_vgg's five [R, C] views
+   ([131072, 64] to [128, 512]; max abs error <= 1e-4 x max(1, |ref|), a
+   rerun in the same bits), each timed beside its twin, its bound and
+   ``torch.var_mean``, and its two passes' own device time from a trace;
+   the direct conv kernel against its twin at AlexNet's conv1 (11x11
+   stride 4, Cin 3, 227x227) and conv2 (5x5) at batch 64.  Then a
+   batch-4 train-mode step with dropout on, on the card and on the CPU,
+   each against the float64 run on the same device (the same masks):
+   cost within 1e-5 relative, every gradient leaf within 10x the float64
+   gradient's own move under a 1e-6 image nudge (at least 1e-4), every
+   BN moving statistic within 1e-5; TF32 on the card, dropout without
+   its 1 / keep scaling and ``F.batch_norm``'s unbiased running variance
+   are planted faults that must exceed them, and the card's step repeats
+   bit for bit.  Then ``trainer.SGD``: the first step twice (bit for
+   bit), 2 warm-up and 10 timed steps (images/s, step ms, peak memory)
+   with exactly 11 ``channel_stats`` and 10 direct-conv launches a step,
+   finite falling costs, a 3-step profile, and ``test`` on 2 batches (no
+   ``channel_stats``).  Last, ``bench.py``'s image nets under its
+   ``_image_step`` configuration at batch 64 (Momentum 0.9 at lr 0.01 /
+   64): smallnet, AlexNet and GoogLeNet 2 warm-up and 5 timed steps each
+   (ms a batch), VGG-19 one step, each with its exact direct-conv and
+   BRGEMM launches a step.
+10. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -782,6 +809,8 @@ def kernel_class(name: str) -> str:
         return "brgemm (ours)"
     if "conva" in low:
         return "conv2d_direct (ours)"
+    if "::partial_kernel(" in low or "::finish_kernel(" in low:
+        return "channel_stats (ours)"     # csrc/channel_stats.cu
     if "stats_reduce" in low:
         return "stats_reduce (ours)"
     if "memcpy" in low or "memset" in low:
@@ -2657,6 +2686,480 @@ def train_nmt(dev, vocab=30000, width=512, bs=64, steps=10) -> tuple:
                  train_n["gru_bwd_remat"], composed_n["gru_bwd_stored"])
 
 
+VGG_COST_RTOL = 1e-5     # f32 small_vgg step vs the f64 witness: cost,
+VGG_GRAD_FLOOR = 1e-4    # the gradient leaves' least limit, and
+VGG_STATE_LIMIT = 1e-5   # the BN moving statistics (relative norm)
+#: small_vgg's channel_stats views [R, C] at batch 128 of 32x32 images
+VGG_STATS_SHAPES = ((131072, 64), (32768, 128), (8192, 256), (2048, 512),
+                    (128, 512))
+
+
+def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES, conv_batch=64):
+    """``channel_stats`` against its twin at small_vgg's five [R, C] views
+    (max abs error <= 1e-4 x max(1, |ref|) for both sums, a rerun in the
+    same bits), each timed beside its twin, ``torch.var_mean`` and its
+    bound; then the direct conv kernel against its twin at AlexNet's conv1
+    (11x11 stride 4, Cin 3, 227x227) and conv2 (5x5) at batch 64.
+    Returns (the kernel row at the largest view, the phase's summary)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import nn as nn_ops
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    per_shape = []
+    for r, c in shapes:
+        x = torch.randn(r, c, generator=gen, device=dev) * 2 + 0.5
+        got, again = CS.channel_stats(x), CS.channel_stats(x)
+        want = CS.channel_stats_reference(x)
+        err = 0.0
+        for a, b, a2 in zip(got, want, again):
+            rel = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            err = max(err, rel)
+            if not torch.equal(a, a2):
+                raise AssertionError(f"channel_stats [{r}, {c}] is not "
+                                     "bit-identical on a rerun")
+        if not err <= TOL:
+            raise AssertionError(f"channel_stats [{r}, {c}]: kernel vs plain "
+                                 f"err {err} x max(1, |ref|)")
+        bound_ms, by = bound(4.0 * (r * c + 2 * c), 3.0 * r * c)
+        launch = [lambda: CS.channel_stats(x)]
+        per_shape.append({
+            "shape": [r, c], "max_abs_err": err,
+            "ms": timer(lambda: CS.channel_stats(x)),
+            # the two passes' own device time from a trace (no L2 flush)
+            "kernel_only_ms": (device_ms(launch, "::partial_kernel(")
+                               + device_ms(launch, "::finish_kernel(")),
+            "plain_ms": timer(lambda: CS.channel_stats_reference(x)),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": timer(lambda: torch.var_mean(x, dim=0,
+                                                       correction=0))})
+        del x
+    big = per_shape[0]
+    row = {"name": "channel_stats", "route": "cuda",
+           "source": "paddle_tpu_torch/ops/kernels/csrc/channel_stats.cu",
+           "replaces": "paddle_tpu/ops/pallas/tpp/conv.py:87",
+           "shape": big["shape"],
+           "max_abs_err": max(s["max_abs_err"] for s in per_shape),
+           **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}
+    convs = []
+    for label, (n, h, w, cin), (k, cout, s, p) in (
+            ("alexnet_conv1", (conv_batch, 227, 227, 3), (11, 96, 4, 1)),
+            ("alexnet_conv2", (conv_batch, 27, 27, 96), (5, 256, 1, 2))):
+        x = torch.randn(n, h, w, cin, generator=gen, device=dev)
+        wt = torch.randn(k, k, cin, cout, generator=gen, device=dev) * (
+            2.0 / (k * k * cin)) ** 0.5
+        got = CV.fwd_raw(x, wt, (s, s), (p, p))
+        want = CV.fwd_raw_reference(x, wt, (s, s), (p, p))
+        err = (got - want).abs().max().item() / max(
+            1.0, want.abs().max().item())
+        if not (err <= TOL and torch.equal(got, CV.fwd_raw(x, wt, (s, s),
+                                                           (p, p)))):
+            raise AssertionError(f"direct conv at {label}: err {err} x "
+                                 "max(1, |ref|) or not bit-identical on a "
+                                 "rerun")
+        oh = nn_ops.conv_out(h, k, s, p)
+        macs = (n * in_range_taps(h, k, s, p) * in_range_taps(w, k, s, p)
+                * cin * cout)
+        xl = x.permute(0, 3, 1, 2)
+        wl = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bound_ms, by = bound(4.0 * (x.numel() + wt.numel()
+                                    + n * oh * oh * cout), 2.0 * macs)
+        convs.append({"conv": label, "shape": [n, h, w, cin, k, cout, s, p],
+                      "max_abs_err": err,
+                      "ms": timer(lambda: CV.fwd_raw(x, wt, (s, s), (p, p))),
+                      "plain_ms": timer(lambda: CV.fwd_raw_reference(
+                          x, wt, (s, s), (p, p))),
+                      "library_ms": timer(lambda: F.conv2d(xl, wl, None, s,
+                                                           p)),
+                      "bound_ms": bound_ms, "bound_by": by})
+        del x, xl
+    torch.cuda.synchronize()
+    return row, {"phase": "vgg_kernels", "channel_stats": per_shape,
+                 "direct_conv_new_shapes": convs,
+                 "channel_stats_rerun_bit_identical": True}
+
+
+def vgg_cost(paddle):
+    """small_vgg over CIFAR-10 (32x32x3, 10 classes) with
+    ``classification_cost``, as the book's ``train.py`` builds it."""
+    from paddle_tpu_torch.layers import networks
+
+    img = paddle.layer.data(name="image",
+                            type=paddle.data_type.dense_vector(3072))
+    label = paddle.layer.data(name="label",
+                              type=paddle.data_type.integer_value(10))
+    return paddle.layer.classification_cost(
+        input=networks.small_vgg(img, 3, 10), label=label)
+
+
+def vgg_witness(dev, cost, carried, small, seed=5):
+    """A batch-4 small_vgg train-mode forward and backward (dropout on,
+    seed ``seed``) on the card and on the CPU, each against the float64
+    run on the same device (the masks are drawn in f32 from the same
+    per-layer generators, so the witness drops what the step drops): the
+    cost within VGG_COST_RTOL, every gradient leaf (||g32 - g64|| /
+    ||g64||) within 10x the float64 gradient's own move under a 1e-6
+    relative nudge of the images (at least VGG_GRAD_FLOOR), every BN
+    moving statistic within VGG_STATE_LIMIT.  Batch 4, not 2: the head's
+    batch norm normalizes over the rows, and two rows normalize to
+    +-gamma whatever their values, with the single-pass f32 variance
+    (E[x^2] - E[x]^2, the JAX package's convention) cancelling wherever
+    the two are close (its output 3.5e-2 and the cost 4.9e-4 from the
+    float64 run at batch 2, 2e-5 and 3e-7 at batch 4, on the CPU).  The
+    conv biases that feed a batch norm (exact gradient zero) are left out
+    of the gradient comparison.  TF32 on the card, dropout
+    without its 1 / keep scaling and ``F.batch_norm``'s unbiased running
+    variance are planted faults that must exceed those limits; the
+    card's run repeats bit for bit."""
+    import torch.nn.functional as F
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.core.dtype import set_f32_policy
+    from paddle_tpu_torch.ops import nn as nn_ops
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    topo = Topology(cost)
+    types = {n: paddle.data_type.InputType(
+        dim=l.attrs["dim"], seq_type=l.attrs["seq_type"],
+        kind=l.attrs["data_type"]) for n, l in topo.data_layers().items()}
+    rng = np.random.default_rng(1)
+    nudged = [(x * (1 + 1e-6 * rng.standard_normal(x.shape)).astype(
+        np.float32), y) for x, y in small]
+
+    def side(where, dtype=torch.float32, data=small):
+        feed = DataFeeder(types, None, device=where)(data)
+        feed = {k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in feed.items()}
+        leaves = {n: torch.from_numpy(v).to(where, dtype).requires_grad_()
+                  for n, v in carried.items()}
+        states = {k: v.to(where, dtype) for k, v in
+                  topo.init_states(where).items()}
+        values, new_states = topo.forward(leaves, states, feed, True, seed)
+        loss = values[cost.name]
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (float(loss.detach()), dict(zip(leaves, grads)),
+                {k: v.detach() for k, v in new_states.items()})
+
+    plain_dropout, plain_bn = nn_ops.dropout, nn_ops.batch_norm
+
+    def unscaled_dropout(x, rate, generator, is_train):
+        kept = plain_dropout(x, rate, generator, is_train)
+        return kept * (1.0 - rate) if is_train and rate > 0 else kept
+
+    def unbiased_running_var(x, scale, bias, rm, rv, is_train, momentum=0.9,
+                             eps=1e-5, use_fused_stats=None):
+        y, nm, nv = plain_bn(x, scale, bias, rm, rv, is_train, momentum, eps,
+                             use_fused_stats)
+        if is_train:
+            nm, nv = rm.clone(), rv.clone()
+            F.batch_norm(x.detach().reshape(-1, x.shape[-1]), nm, nv,
+                         training=True, momentum=1 - momentum, eps=eps)
+        return y, nm, nv
+
+    wit = {"cpu": side("cpu", torch.float64), "card": side(dev,
+                                                           torch.float64)}
+    nudge = {"cpu": side("cpu", torch.float64, nudged),
+             "card": side(dev, torch.float64, nudged)}
+    sides = {"cpu": ("cpu", side("cpu")), "card": ("card", side(dev))}
+    rerun = side(dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sides["card_tf32_control"] = ("card", side(dev))
+    finally:
+        set_f32_policy()
+    nn_ops.dropout = unscaled_dropout
+    try:
+        sides["cpu_unscaled_dropout_control"] = ("cpu", side("cpu"))
+    finally:
+        nn_ops.dropout = plain_dropout
+    nn_ops.batch_norm = unbiased_running_var
+    try:
+        sides["card_unbiased_running_var_control"] = ("card", side(dev))
+    finally:
+        nn_ops.batch_norm = plain_bn
+    c_a, g_a, s_a = sides["card"][1]
+    if not (rerun[0] == c_a and all(torch.equal(rerun[1][n], g_a[n])
+                                    for n in g_a)
+            and all(torch.equal(rerun[2][k], s_a[k]) for k in s_a)):
+        raise AssertionError("the card's small_vgg step is not "
+                             "bit-identical on a rerun")
+
+    # a conv bias that feeds a batch norm directly has an exact gradient
+    # of zero (the norm removes a per-channel constant): its f32 and f64
+    # values are round-off alone, so it is left out of the comparison
+    zero_grad = {s.name for n in topo.nodes if n.layer_type == "batch_norm"
+                 for p in n.parents if p.layer_type == "exconv"
+                 and not p.attrs.get("drop_rate")
+                 for s in p.param_specs if s.name.endswith(".wbias")}
+
+    def worst(got, want):
+        """The worst ||got - want|| / ||want|| over the leaves, ||want||
+        floored at STEP_FLOOR of the leaf's share of the whole."""
+        want = {n: v.detach().cpu().double() for n, v in want.items()
+                if n not in zero_grad}
+        u = (sum(float(torch.sum(v * v)) for v in want.values())
+             / sum(v.numel() for v in want.values())) ** 0.5
+        ratios = {n: float(torch.linalg.norm(got[n].detach().cpu().double()
+                                             - v))
+                  / max(float(torch.linalg.norm(v)),
+                        STEP_FLOOR * u * v.numel() ** 0.5)
+                  for n, v in want.items()}
+        n = max(ratios, key=ratios.get)
+        return ratios[n], n
+
+    out = {"batch": len(small), "seed": seed, "cost_rtol": VGG_COST_RTOL,
+           "state_limit": VGG_STATE_LIMIT}
+    limits = {}
+    for where in ("cpu", "card"):
+        c64, g64, s64 = wit[where]
+        moved, leaf = worst(nudge[where][1], g64)
+        limits[where] = max(VGG_GRAD_FLOOR, 10 * moved)
+        out[f"f64_{where}"] = {"cost": c64, "nudge_grad_worst": moved,
+                               "nudge_grad_worst_leaf": leaf,
+                               "grad_limit": limits[where]}
+    for label, (where, (c, g, s)) in sides.items():
+        c64, g64, s64 = wit[where]
+        gw, gn = worst(g, g64)
+        sw, sn = worst(s, s64)
+        out[label] = {"cost": c, "cost_rel_err": abs(c - c64) / abs(c64),
+                      "grad_worst": gw, "grad_worst_leaf": gn,
+                      "state_worst": sw, "state_worst_leaf": sn}
+    for label in ("cpu", "card"):
+        w = out[label]
+        if not (w["cost_rel_err"] <= VGG_COST_RTOL
+                and w["grad_worst"] <= limits[label]
+                and w["state_worst"] <= VGG_STATE_LIMIT):
+            raise AssertionError(f"{label} small_vgg step vs the f64 "
+                                 f"witness: {out}")
+    for label in ("card_tf32_control", "cpu_unscaled_dropout_control",
+                  "card_unbiased_running_var_control"):
+        w, where = out[label], sides[label][0]
+        if (w["cost_rel_err"] <= VGG_COST_RTOL
+                and w["grad_worst"] <= limits[where]
+                and w["state_worst"] <= VGG_STATE_LIMIT):
+            raise AssertionError(f"the small_vgg witness limits do not "
+                                 f"catch {label}: {out}")
+    out["card_rerun_bit_identical"] = True
+    return out
+
+
+def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
+    """small_vgg through the v2 flow at the book's configuration (batch
+    128 of CIFAR-10 from the port's seeded reader; Momentum 0.9 at lr
+    0.1 / 128, L2 0.0002 x 128; f32): the batch-2 witness, the first
+    ``trainer.SGD`` step twice (bit for bit), 2 warm-up and ``steps`` timed
+    steps with exactly 11 channel_stats and 10 direct-conv launches a
+    step, a 3-step profile, and ``test`` on 2 batches (no channel_stats:
+    the running statistics)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import rng as prng
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.dataset import cifar
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    t0 = time.perf_counter()
+    reset_name_counters()
+    cost = vgg_cost(paddle)
+    created = paddle.parameters.create(cost)     # generator seeded 0
+    carried = {n: created[n] for n in created.names()}
+    n_params = int(sum(v.size for v in carried.values()))
+    samples = list(cifar.train10()())
+    witness = vgg_witness(dev, cost, carried, samples[:4])
+
+    def trainer():
+        return paddle.trainer.SGD(
+            cost=cost, parameters=Parameters.from_numpy(carried),
+            update_equation=paddle.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.1 / 128,
+                regularization=paddle.optimizer.L2Regularization(
+                    rate=0.0002 * 128)), device=dev)
+
+    def run(tr, data, handler=None):
+        costs = []
+
+        def h(e):
+            if isinstance(e, paddle.event.EndIteration):
+                costs.append(e.cost)
+            if handler is not None:
+                handler(e)
+
+        tr.train(reader=lambda: iter(data), num_passes=1, event_handler=h)
+        return costs
+
+    batches = [samples[i:i + bs] for i in range(0, len(samples) - bs + 1,
+                                                bs)]
+    warm, data, traced = batches[:2], batches[2:2 + steps], \
+        batches[2 + steps:5 + steps]
+    firsts = []
+    for _ in range(2):
+        prng.seed(11)
+        tr = trainer()
+        firsts.append((run(tr, data[:1]),
+                       {n: tr.parameters[n] for n in carried},
+                       {k: v.cpu().numpy() for k, v in tr.states.items()}))
+        del tr
+    (c1, p1, s1), (c2, p2, s2) = firsts
+    if not (c1 == c2 and all(np.array_equal(p1[n], p2[n]) for n in p1)
+            and all(np.array_equal(s1[k], s2[k]) for k in s1)):
+        raise AssertionError("trainer.SGD's first small_vgg step is not "
+                             "bit-identical on a rerun")
+    del firsts
+    prng.seed(12)
+    tr = trainer()
+    run(tr, warm)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks: dict[int, list] = {}
+
+    def stamp(e):
+        if isinstance(e, (paddle.event.BeginIteration,
+                          paddle.event.EndIteration)):
+            marks.setdefault(e.batch_id, []).append(time.perf_counter())
+
+    kernels = {"channel_stats": CS.KERNEL, "conv2d_direct": CV.KERNEL,
+               "brgemm": BR.KERNEL}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    zero()
+    t1 = time.perf_counter()
+    costs = run(tr, data, stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    train_n = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"channel_stats": 11, "conv2d_direct": 10, "brgemm": 0}
+    if train_n != {n: c * steps for n, c in want.items()}:
+        raise AssertionError(f"small_vgg train launches {train_n} != {want} "
+                             f"x {steps}")
+    if not (len(costs) == steps and all(np.isfinite(costs))
+            and np.mean(costs[-3:]) < np.mean(costs[:3])):
+        raise AssertionError(f"small_vgg costs not finite and falling: "
+                             f"{costs}")
+    step_ms = [1e3 * (b - a) for a, b in marks.values()]
+    p50 = float(np.percentile(step_ms, 50))
+    prof = profile_window(lambda: run(tr, traced), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / p50)
+    test_data = list(cifar.test10()())[:2 * bs]
+    zero()
+    result = tr.test(reader=lambda: iter([test_data[:bs], test_data[bs:]]))
+    torch.cuda.synchronize()
+    test_n = counts()
+    want_test = {"channel_stats": 0, "conv2d_direct": 20, "brgemm": 0}
+    if test_n != want_test or not np.isfinite(result.cost):
+        raise AssertionError(f"small_vgg test launches {test_n} != "
+                             f"{want_test} or cost {result.cost}")
+    del tr
+    out = {"phase": "train_vgg",
+           "model": "small_vgg (layers/networks.small_vgg, the book's "
+                    "vgg_bn_drop on CIFAR-10)",
+           "params": n_params, "tensors": len(carried), "image": [32, 32, 3],
+           "classes": 10, "dtype": "float32",
+           "optimizer": "Momentum 0.9, lr 0.1/128, L2 0.0002*128",
+           "step_vs_f64_witness": witness,
+           "first_step_rerun_bit_identical": True,
+           "batch": bs, "steps": steps, "wall_s": wall,
+           "images_per_s": bs * steps / wall, "step_ms_p50": p50,
+           "step_ms": step_ms, "costs": costs,
+           "max_memory_allocated_bytes": peak, "train_launches": train_n,
+           "test_launches": test_n, "test_batches": 2,
+           "test_cost": result.cost, "test_metrics": result.metrics,
+           "setup_s": setup_s, "profile": prof}
+    return out, train_n["channel_stats"]
+
+
+#: (builder, image side, classes, direct-conv and BRGEMM launches a step)
+BENCH_NETS = {"smallnet": ("smallnet_cost", 32, 10, 3, 0),
+              "alexnet": ("alexnet_cost", 227, 1000, 5, 0),
+              "googlenet": ("googlenet_cost", 224, 1000, 20, 37),
+              "vgg19": ("vgg_cost", 224, 1000, 16, 0)}
+
+
+def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
+    """``bench.py``'s image nets under its ``_image_step`` configuration
+    (one fixed batch of N(0, 1) images, Momentum 0.9 at lr 0.01 / batch),
+    through ``trainer.SGD``: smallnet, AlexNet and GoogLeNet 2 warm-up and
+    5 timed steps each (ms a batch), VGG-19 one step; each with its exact
+    conv launches a step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    out = {"phase": "bench_nets", "batch": bs}
+    for name, (builder, side, classes, n_direct, n_brgemm) in \
+            BENCH_NETS.items():
+        reset_name_counters()
+        cost = getattr(paddle.models.image, builder)(
+            class_num=classes, height=side, width=side)[0]
+        r = np.random.default_rng(0)
+        batch = [(x, int(y)) for x, y in zip(
+            r.normal(size=(bs, 3 * side * side)).astype(np.float32),
+            r.integers(0, classes, size=bs))]
+        tr = paddle.trainer.SGD(
+            cost=cost, parameters=paddle.parameters.create(cost),
+            update_equation=paddle.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.01 / bs), device=dev)
+        n_warm, n_timed = (warm, steps) if name != "vgg19" else (0, 1)
+        costs = []
+
+        def run(k, handler=None):
+            tr.train(reader=lambda: iter([batch] * k), num_passes=1,
+                     event_handler=handler)
+
+        run(n_warm)
+        torch.cuda.synchronize()
+        for k in (CS.KERNEL, CV.KERNEL, BR.KERNEL):
+            k.launches = 0
+        marks: dict[int, list] = {}
+
+        def stamp(e):
+            if isinstance(e, (paddle.event.BeginIteration,
+                              paddle.event.EndIteration)):
+                marks.setdefault(e.batch_id, []).append(time.perf_counter())
+            if isinstance(e, paddle.event.EndIteration):
+                costs.append(e.cost)
+
+        run(n_timed, stamp)
+        torch.cuda.synchronize()
+        got = {"conv2d_direct": CV.KERNEL.launches,
+               "brgemm": BR.KERNEL.launches,
+               "channel_stats": CS.KERNEL.launches}
+        want = {"conv2d_direct": n_direct * n_timed,
+                "brgemm": n_brgemm * n_timed, "channel_stats": 0}
+        if got != want or not all(np.isfinite(costs)):
+            raise AssertionError(f"{name}: launches {got} != {want} or "
+                                 f"costs {costs}")
+        step_ms = [1e3 * (b - a) for a, b in marks.values()]
+        out[name] = {"image": [side, side, 3], "classes": classes,
+                     "steps": n_timed, "ms_per_batch_p50":
+                         float(np.percentile(step_ms, 50)),
+                     "step_ms": step_ms, "costs": costs,
+                     "launches_per_step": {k: v // n_timed
+                                           for k, v in got.items()}}
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -2713,6 +3216,14 @@ def main() -> int:
     print(json.dumps(nmt_summary), flush=True)
     nmt, nmt_n = train_nmt(dev)
     print(json.dumps(nmt), flush=True)
+    torch.cuda.empty_cache()
+    vgg_row, vgg_summary = check_vgg_kernels(dev, Timer(dev))
+    print(json.dumps({"phase": "kernel", **vgg_row}), flush=True)
+    print(json.dumps(vgg_summary), flush=True)
+    vgg, stats_n = train_vgg(dev)
+    print(json.dumps(vgg), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps(bench_nets(dev)), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -2733,6 +3244,7 @@ def main() -> int:
     # the GRU forward and stored-gates rows the composed BiGRU check's
     for row, launches in zip(nmt_rows, nmt_n):
         rows.append({**row, "launches": launches})
+    rows.append({**vgg_row, "launches": stats_n})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

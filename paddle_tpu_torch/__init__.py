@@ -12,9 +12,11 @@ Ported so far: online serving of the transformer LM
 (``models.transformer.build_train_step``), v2 training through
 ``trainer.SGD`` of ResNet, of the LSTM text classifier
 (``layer.embedding``, ``layer.lstmemory``, ``layer.last_seq``,
-``layer.classification_cost`` over ``data_type.integer_value_sequence``)
-and of the OCR CRNN (``models.ocr_crnn``: ``layer.bilstm``,
-``layers.extras.ctc``), and ``paddle.infer``::
+``layer.classification_cost`` over ``data_type.integer_value_sequence``),
+of the OCR CRNN (``models.ocr_crnn``: ``layer.bilstm``,
+``layers.extras.ctc``), of the attention NMT (``models.seqtoseq``) and
+of the CIFAR-10 VGG and the image zoo (``layers.networks.small_vgg``,
+``models.image``: ``layer.batch_norm``, dropout), and ``paddle.infer``::
 
     import paddle_tpu_torch as paddle
     cost, predict, img, label = paddle.models.image.resnet_cost(depth=50)
@@ -47,6 +49,7 @@ _API_MAP = {
     "optimizer": "paddle_tpu_torch.optimizer",
     "reader": "paddle_tpu_torch.reader",
     "models": "paddle_tpu_torch.models",
+    "dataset": "paddle_tpu_torch.dataset",
 }
 
 

@@ -91,9 +91,11 @@ class Topology:
     # -- execution -------------------------------------------------------------
     def forward(self, params: dict[str, torch.Tensor],
                 states: dict[str, torch.Tensor], feed: dict, is_train: bool,
-                generator: torch.Generator | None = None):
-        """Evaluate every node; returns ({layer_name: value}, new_states)."""
-        return evaluate(self.nodes, Context(is_train, generator), params,
+                seed: int | None = None):
+        """Evaluate every node; returns ({layer_name: value}, new_states).
+        ``seed`` is the step's seed, from which layers that draw (dropout)
+        make their generators."""
+        return evaluate(self.nodes, Context(is_train, seed), params,
                         states, feed)
 
     # -- serialization --------------------------------------------------------

@@ -73,14 +73,41 @@ def _wspec(attr, layer_name, suffix, shape, default_init, **kw) -> ParamSpec:
 def _check_layer_attr(layer_attr: ExtraAttr | None) -> None:
     """Layer-level knobs the port does not run yet raise, never pass
     silently."""
-    if layer_attr is None:
-        return
-    if layer_attr.drop_rate:
-        raise NotImplementedError("ExtraAttr(drop_rate=...) (dropout) is "
-                                  "not ported yet")
-    if layer_attr.error_clipping_threshold:
+    if layer_attr is not None and layer_attr.error_clipping_threshold:
         raise NotImplementedError("ExtraAttr(error_clipping_threshold=...) "
                                   "is not ported yet")
+
+
+def _maybe_dropout(node: LayerOutput,
+                   layer_attr: ExtraAttr | None) -> LayerOutput:
+    """Fold ``ExtraAttr(drop_rate=)`` into the node itself, as the
+    reference stores it (``LayerConfig.drop_rate`` on the same layer, no
+    extra layer): in training the node's output goes through
+    ``ops/nn.dropout`` with the generator of the node's name, and
+    ``attrs["drop_rate"]`` records the rate."""
+    _check_layer_attr(layer_attr)
+    if layer_attr is None or not layer_attr.drop_rate:
+        return node
+    rate = layer_attr.drop_rate
+    inner = node.fn
+
+    def fwd(ctx, params, states, *xs):
+        result = inner(ctx, params, states, *xs)
+        if not ctx.is_train:
+            return result
+
+        def drop(v):
+            gen = ctx.generator_for(node.name, raw(v).device)
+            return map_data(lambda d: nn_ops.dropout(d, rate, gen, True), v)
+
+        if (isinstance(result, tuple) and len(result) == 2
+                and isinstance(result[1], dict)):
+            return drop(result[0]), result[1]
+        return drop(result)
+
+    node.fn = fwd
+    node.attrs["drop_rate"] = rate
+    return node
 
 
 # ---------------------------------------------------------------------------
@@ -124,8 +151,7 @@ def fc(input, size: int, act=None,
     does, so carried weights mean the same; sequence inputs are handled
     per step (one [B*T, D] product).  A softmax fc exposes its pre-softmax
     logits (``__fc_logits__``) for ``classification_cost``'s fused
-    cross-entropy."""
-    _check_layer_attr(layer_attr)
+    cross-entropy, unless it drops out (``ExtraAttr(drop_rate=)``)."""
     inputs = _as_list(input)
     name = name or gen_name("fc_layer")
     pattrs = (param_attr if isinstance(param_attr, (list, tuple))
@@ -162,16 +188,17 @@ def fc(input, size: int, act=None,
     def fwd(ctx: Context, params, states, *parents):
         return apply(params, parents, True)
 
-    attrs = {"size": size, "active_type": activation.name,
-             "bias_spec": bspec.name if use_bias else None}
-    if activation.name == "softmax":
-        attrs["__fc_logits__"] = (
+    node = _maybe_dropout(LayerOutput(
+        name=name, layer_type="fc", size=size, parents=tuple(inputs),
+        param_specs=tuple(specs), fn=fwd,
+        attrs={"size": size, "active_type": activation.name,
+               "bias_spec": bspec.name if use_bias else None},
+    ), layer_attr)
+    if activation.name == "softmax" and not node.attrs.get("drop_rate"):
+        node.attrs["__fc_logits__"] = (
             lambda ctx, params, states, *parents: apply(params, parents,
                                                         False))
-    return LayerOutput(
-        name=name, layer_type="fc", size=size, parents=tuple(inputs),
-        param_specs=tuple(specs), fn=fwd, attrs=attrs,
-    )
+    return node
 
 
 fc_layer = fc
@@ -239,7 +266,6 @@ def img_conv(input: LayerOutput, filter_size, num_filters: int,
     """≅ img_conv_layer over ExpandConvLayer: ``ops/nn.conv2d`` on NHWC
     (the direct-conv kernel on the card for its shape class).  ``*_y``
     kwargs follow the reference: None means "same as x"."""
-    _check_layer_attr(layer_attr)
     if trans:
         raise NotImplementedError("img_conv(trans=True) (transposed conv) "
                                   "is not ported yet")
@@ -276,7 +302,7 @@ def img_conv(input: LayerOutput, filter_size, num_filters: int,
             y = y + params[bspec.name]
         return activation(y)
 
-    return LayerOutput(
+    return _maybe_dropout(LayerOutput(
         name=name, layer_type="exconv", size=num_filters * h_out * w_out,
         parents=(input,), param_specs=tuple(specs), fn=fwd, height=h_out,
         width=w_out, depth=num_filters,
@@ -284,7 +310,7 @@ def img_conv(input: LayerOutput, filter_size, num_filters: int,
                "padding": [ph, pw], "num_filters": num_filters,
                "groups": groups, "trans": trans, "channels": c_in,
                "active_type": activation.name},
-    )
+    ), layer_attr)
 
 
 img_conv_layer = img_conv
@@ -298,7 +324,6 @@ def img_pool(input: LayerOutput, pool_size, num_channels: int | None = None,
     an explicit extra right/bottom pad (-inf for max, zeros for average),
     and average pooling divides by the count of real cells in each window
     — not ``F.max_pool2d(ceil_mode=True)``, whose edge windows differ."""
-    _check_layer_attr(layer_attr)
     name = name or gen_name("pool")
     kh, kw = nn_ops.pair(pool_size)
     sh, sw = nn_ops.pair(stride)
@@ -332,16 +357,78 @@ def img_pool(input: LayerOutput, pool_size, num_channels: int | None = None,
                                    0) * (kh * kw)
         return summed / torch.clamp(counts, min=1.0)
 
-    return LayerOutput(
+    return _maybe_dropout(LayerOutput(
         name=name, layer_type="pool", size=c * h_out * w_out,
         parents=(input,), fn=fwd, height=h_out, width=w_out, depth=c,
         attrs={"pool_type": ptype, "pool_size": [kh, kw],
                "stride": [sh, sw], "padding": [ph, pw], "channels": c,
                "ceil_mode": ceil_mode},
-    )
+    ), layer_attr)
 
 
 img_pool_layer = img_pool
+
+
+def batch_norm(input: LayerOutput, act=None, num_channels: int | None = None,
+               bias_attr=None, param_attr: ParamAttr | None = None,
+               use_global_stats: bool | None = None,
+               moving_average_fraction: float = 0.9, epsilon: float = 1e-5,
+               layer_attr: ExtraAttr | None = None, img3D: bool = False,
+               mean_var_names=None, batch_norm_type: str | None = None,
+               name: str | None = None) -> LayerOutput:
+    """≅ batch_norm_layer over BatchNormalizationLayer: ``ops/nn.batch_norm``
+    (the train-mode moments from the ``channel_stats`` kernel on the
+    card).  An image input is normalized over N, H and W per channel; a
+    flat [B, C] input (or a sequence's steps) over its rows.  The moving
+    statistics are states named ``_<name>.w1`` / ``.w2`` (or
+    ``mean_var_names``); ``use_global_stats`` forces them (True) or the
+    batch's (False) whatever the mode.  The default act is ReLU, as the
+    reference's.  ``batch_norm_type`` (the reference's choice of backend)
+    changes nothing."""
+    if img3D:
+        raise NotImplementedError("batch_norm(img3D=True) is not ported yet")
+    name = name or gen_name("batch_norm")
+    c = num_channels or (input.depth if input.depth > 1 else input.size)
+    is_image = bool(input.height and input.width)
+    gamma = _wspec(param_attr, name, "w0", (c,), I.constant(1.0))
+    beta = _wspec(bias_attr if isinstance(bias_attr, ParamAttr) else None,
+                  name, "wbias", (c,), I.constant(0.0))
+    stat_names = (tuple(mean_var_names) if mean_var_names
+                  else (f"_{name}.w1", f"_{name}.w2"))
+    mean_s = StateSpec(stat_names[0], (c,), 0.0)
+    var_s = StateSpec(stat_names[1], (c,), 1.0)
+    activation = act_mod.get(act) if act is not None else act_mod.ReluActivation()
+
+    def fwd(ctx, params, states, x):
+        xr = raw(x)
+        if is_image:
+            xr = _to_nhwc(xr, c, input.height, input.width)
+        training = (ctx.is_train if use_global_stats is None
+                    else (not use_global_stats))
+        y, nm, nv = nn_ops.batch_norm(
+            xr, params[gamma.name], params[beta.name], states[mean_s.name],
+            states[var_s.name], is_train=training,
+            momentum=moving_average_fraction, eps=epsilon)
+        y = activation(y)
+        if is_sequence(x) and not is_image:
+            y = SequenceBatch(data=y, length=x.length)
+        return y, {mean_s.name: nm, var_s.name: nv}
+
+    return _maybe_dropout(LayerOutput(
+        name=name, layer_type="batch_norm", size=input.size,
+        parents=(input,), param_specs=(gamma, beta),
+        state_specs=(mean_s, var_s), fn=fwd, height=input.height,
+        width=input.width, depth=input.depth,
+        attrs={"channels": c, "epsilon": epsilon,
+               "active_type": activation.name,
+               "use_global_stats": use_global_stats,
+               "moving_average_fraction": moving_average_fraction,
+               "img3D": img3D,
+               "stat_param_names": (mean_s.name, var_s.name)},
+    ), layer_attr)
+
+
+batch_norm_layer = batch_norm
 
 
 def img_conv_bn(input: LayerOutput, filter_size, num_filters: int,
@@ -356,7 +443,6 @@ def img_conv_bn(input: LayerOutput, filter_size, num_filters: int,
     lowering to ``ops/nn.conv2d_bn_relu`` (the conv kernels with the BN
     epilogue).  Parameters live under ``<name>_conv`` and ``<name>_bn``,
     the moving statistics under ``_<name>_bn.w1`` / ``.w2``."""
-    _check_layer_attr(layer_attr)
     name = name or gen_name("conv_bn")
     kh, kw = nn_ops.pair(filter_size)
     sh, sw = nn_ops.pair(stride)
@@ -389,7 +475,7 @@ def img_conv_bn(input: LayerOutput, filter_size, num_filters: int,
             y = activation(y)
         return y, {mean_s.name: nm, var_s.name: nv}
 
-    return LayerOutput(
+    return _maybe_dropout(LayerOutput(
         name=name, layer_type="conv_bn", size=num_filters * h_out * w_out,
         parents=(input,), param_specs=(wspec, gamma, beta),
         state_specs=(mean_s, var_s), fn=fwd, height=h_out, width=w_out,
@@ -400,7 +486,32 @@ def img_conv_bn(input: LayerOutput, filter_size, num_filters: int,
                "moving_average_fraction": moving_average_fraction,
                "active_type": activation.name,
                "stat_param_names": (mean_s.name, var_s.name)},
+    ), layer_attr)
+
+
+def img_cmrnorm(input: LayerOutput, size: int = 5, scale: float = 0.0128,
+                power: float = 0.75, num_channels: int | None = None,
+                name: str | None = None) -> LayerOutput:
+    """≅ img_cmrnorm_layer (CMRProjectionNormLayer): local response
+    normalization across channels, ``ops/nn.cross_map_normal`` with the
+    reference's ``scale / size`` (config_parser divides alpha by the
+    window)."""
+    name = name or gen_name("crmnorm")
+    c = num_channels or input.depth
+    eff_scale = scale / size
+
+    def fwd(ctx, params, states, x):
+        xr = _to_nhwc(raw(x), c, input.height, input.width)
+        return nn_ops.cross_map_normal(xr, size, eff_scale, power)
+
+    return LayerOutput(
+        name=name, layer_type="norm", size=input.size, parents=(input,),
+        fn=fwd, height=input.height, width=input.width, depth=input.depth,
+        attrs={"size": size, "scale": scale, "power": power},
     )
+
+
+img_cmrnorm_layer = img_cmrnorm
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +522,6 @@ def img_conv_bn(input: LayerOutput, filter_size, num_filters: int,
 def addto(input, act=None, bias_attr=None, name: str | None = None,
           layer_attr: ExtraAttr | None = None) -> LayerOutput:
     """≅ addto_layer (AddtoLayer): elementwise sum of equal-shaped inputs."""
-    _check_layer_attr(layer_attr)
     inputs = _as_list(input)
     name = name or gen_name("addto")
     activation = act_mod.get(act)
@@ -430,15 +540,86 @@ def addto(input, act=None, bias_attr=None, name: str | None = None,
             y = y + params[bspec.name]
         return activation(y)
 
-    return LayerOutput(
+    return _maybe_dropout(LayerOutput(
         name=name, layer_type="addto", size=inputs[0].size,
         parents=tuple(inputs), param_specs=specs, fn=fwd,
         height=inputs[0].height, width=inputs[0].width, depth=inputs[0].depth,
         attrs={"active_type": activation.name},
-    )
+    ), layer_attr)
 
 
 addto_layer = addto
+
+
+def concat(input, act=None, name: str | None = None,
+           layer_attr: ExtraAttr | None = None,
+           bias_attr=None) -> LayerOutput:
+    """≅ concat_layer (ConcatenateLayer): the inputs side by side along
+    the feature axis.  Images of one height and width concatenate their
+    channels (NHWC); sequences their step features; anything else its
+    flattened rows.  The projection form (the reference's
+    ConcatenateLayer2, 'concat2') is not ported yet."""
+    from paddle_tpu_torch.layers import mixed as mixed_mod
+
+    inputs = _as_list(input)
+    if inputs and isinstance(inputs[0], mixed_mod.Projection):
+        raise NotImplementedError("concat of projections ('concat2') is not "
+                                  "ported yet")
+    if bias_attr not in (None, False):
+        raise NotImplementedError("concat(bias_attr=...) belongs to the "
+                                  "projection form ('concat2'), not ported "
+                                  "yet")
+    name = name or gen_name("concat")
+    activation = act_mod.get(act)
+    total = sum(i.size for i in inputs)
+    same_image = all(i.height == inputs[0].height
+                     and i.width == inputs[0].width and i.height
+                     for i in inputs)
+
+    def fwd(ctx, params, states, *parents):
+        vals = [raw(p) for p in parents]
+        if same_image and all(v.dim() == 4 for v in vals):
+            return activation(torch.cat(vals, dim=-1))
+        if is_sequence(parents[0]):
+            return SequenceBatch(data=activation(torch.cat(vals, dim=-1)),
+                                 length=parents[0].length)
+        return activation(torch.cat([v.reshape(v.shape[0], -1)
+                                     for v in vals], dim=-1))
+
+    return _maybe_dropout(LayerOutput(
+        name=name, layer_type="concat", size=total, parents=tuple(inputs),
+        fn=fwd, height=inputs[0].height if same_image else 0,
+        width=inputs[0].width if same_image else 0,
+        depth=sum(i.depth for i in inputs) if same_image else 1,
+        attrs={"active_type": activation.name},
+    ), layer_attr)
+
+
+concat_layer = concat
+
+
+def dropout(input: LayerOutput, dropout_rate: float,
+            name: str | None = None) -> LayerOutput:
+    """≅ dropout_layer: ``ops/nn.dropout`` in training, with the generator
+    of this layer's name (``Context.generator_for``); the identity in
+    test mode and at rate 0."""
+    name = name or gen_name("dropout")
+
+    def fwd(ctx, params, states, x):
+        if not ctx.is_train or dropout_rate <= 0:
+            return x
+        gen = ctx.generator_for(name, raw(x).device)
+        return map_data(lambda d: nn_ops.dropout(d, dropout_rate, gen, True),
+                        x)
+
+    return LayerOutput(
+        name=name, layer_type="dropout", size=input.size, parents=(input,),
+        fn=fwd, height=input.height, width=input.width, depth=input.depth,
+        attrs={"dropout_rate": dropout_rate},
+    )
+
+
+dropout_layer = dropout
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,9 @@ Param = ParamAttr
 
 @dataclasses.dataclass
 class ExtraAttr:
-    """≅ ExtraLayerAttribute: layer-level knobs.  Dropout is not ported:
-    a layer given ``drop_rate > 0`` raises."""
+    """≅ ExtraLayerAttribute: layer-level knobs.  ``drop_rate`` folds
+    dropout into the layer (``layers/api._maybe_dropout``); a layer given
+    ``error_clipping_threshold`` raises (not ported yet)."""
 
     drop_rate: float = 0.0
     error_clipping_threshold: float | None = None

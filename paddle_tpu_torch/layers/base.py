@@ -11,11 +11,13 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import zlib
 from typing import Any, Callable, Sequence
 
 import torch
 
 from paddle_tpu_torch.config import parse_state
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.enforce import enforce, error_scope
 from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.core.parameters import ParamSpec
@@ -32,13 +34,24 @@ class StateSpec:
 
 
 class Context:
-    """Per-step evaluation context: train/test mode and the step's random
-    generator (no layer on the ported path draws from it yet)."""
+    """Per-step evaluation context: train/test mode and the step's seed
+    (``core/rng.next_seed()`` in a train step; None where nothing may
+    draw, as in ``test`` and ``infer``)."""
 
-    def __init__(self, is_train: bool,
-                 generator: torch.Generator | None = None):
+    def __init__(self, is_train: bool, seed: int | None = None):
         self.is_train = is_train
-        self.generator = generator
+        self.seed = seed
+
+    def generator_for(self, name: str, device) -> torch.Generator:
+        """A fresh generator on ``device`` for layer ``name``, seeded from
+        the step's seed and ``crc32(name)`` (not ``hash()``, which is
+        salted per process), so a rerun of the step draws the same bits
+        and two layers draw different ones (``key_for`` in the JAX
+        package)."""
+        enforce(self.seed is not None, f"layer {name!r} needs a step seed")
+        gen = torch.Generator(device=device)
+        return gen.manual_seed(rng.fold_in(self.seed,
+                                           zlib.crc32(name.encode())))
 
 
 _name_counters: dict[str, itertools.count] = {}

@@ -145,6 +145,7 @@ def mixed(size: int | None = None, input=None, name: str | None = None,
     node._finalized = False
     node._act = act_mod.get(act) if act else act_mod.LinearActivation()
     node._bias_attr = bias_attr
+    node._layer_attr = layer_attr
     if input is not None:
         for p in (input if isinstance(input, (list, tuple)) else [input]):
             enforce(isinstance(p, Projection),
@@ -207,3 +208,6 @@ def _finalize_mixed(node: MixedLayerOutput) -> None:
     node.fn = fwd
     node.attrs = {"active_type": act.name}
     node._finalized = True
+    from paddle_tpu_torch.layers.api import _maybe_dropout
+
+    _maybe_dropout(node, node._layer_attr)

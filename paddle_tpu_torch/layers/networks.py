@@ -1,6 +1,8 @@
 """Composite network helpers — the port of ``paddle_tpu/layers/networks.py``
-(≅ ``trainer_config_helpers/networks.py``): ``simple_gru2`` and
-``simple_attention``, the pieces of the attention NMT."""
+(≅ ``trainer_config_helpers/networks.py``): ``img_conv_group`` and
+``small_vgg`` (the CIFAR-10 VGG with batch norm and dropout), and
+``simple_gru2`` and ``simple_attention``, the pieces of the attention
+NMT."""
 
 from __future__ import annotations
 
@@ -9,8 +11,69 @@ import torch
 from paddle_tpu_torch.core import initializer as I
 from paddle_tpu_torch.layers import activation as act_mod
 from paddle_tpu_torch.layers import api as layer
+from paddle_tpu_torch.layers import pooling as pool_mod
+from paddle_tpu_torch.layers.attr import ExtraAttr
 from paddle_tpu_torch.layers.base import LayerOutput, gen_name
 from paddle_tpu_torch.ops.math import matmul
+
+
+def img_conv_group(input, conv_num_filter, pool_size, num_channels=None,
+                   conv_padding=1, conv_filter_size=3, conv_act=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0,
+                   pool_stride=1, pool_type=None, **kw):
+    """≅ networks.img_conv_group (the VGG building block): a conv per
+    entry of ``conv_num_filter``, each followed, with
+    ``conv_with_batchnorm``, by a batch norm carrying ``conv_act`` (the
+    conv itself then linear) and a dropout where its rate is nonzero;
+    then one pool (max by default)."""
+    tmp = input
+    n = len(conv_num_filter)
+    if not isinstance(conv_padding, list):
+        conv_padding = [conv_padding] * n
+    if not isinstance(conv_batchnorm_drop_rate, list):
+        conv_batchnorm_drop_rate = [conv_batchnorm_drop_rate] * n
+    for i, nf in enumerate(conv_num_filter):
+        tmp = layer.img_conv(
+            input=tmp, filter_size=conv_filter_size, num_filters=nf,
+            num_channels=num_channels if i == 0 else None,
+            padding=conv_padding[i],
+            act=act_mod.LinearActivation() if conv_with_batchnorm
+            else conv_act)
+        if conv_with_batchnorm:
+            tmp = layer.batch_norm(input=tmp, act=conv_act)
+            if conv_batchnorm_drop_rate[i]:
+                tmp = layer.dropout(input=tmp,
+                                    dropout_rate=conv_batchnorm_drop_rate[i])
+    return layer.img_pool(input=tmp, pool_size=pool_size, stride=pool_stride,
+                          pool_type=pool_type or pool_mod.MaxPooling())
+
+
+def small_vgg(input_image, num_channels, num_classes):
+    """≅ networks.small_vgg (the PaddlePaddle book's ``vgg_bn_drop`` for
+    CIFAR-10): four conv groups with batch norm (64x2, 128x2, 256x3,
+    512x3; dropout 0.3 or 0.4 after every conv but a group's last), a
+    max pool, dropout 0.5, fc 512 with ``drop_rate`` 0.5, a batch norm
+    and the softmax fc."""
+    def group(ipt, num_filter, times, dropouts, channels=None):
+        return img_conv_group(
+            input=ipt, num_channels=channels, pool_size=2, pool_stride=2,
+            conv_num_filter=[num_filter] * times, conv_filter_size=3,
+            conv_act=act_mod.ReluActivation(), conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=dropouts,
+            pool_type=pool_mod.MaxPooling())
+
+    tmp = group(input_image, 64, 2, [0.3, 0], num_channels)
+    tmp = group(tmp, 128, 2, [0.4, 0])
+    tmp = group(tmp, 256, 3, [0.4, 0.4, 0])
+    tmp = group(tmp, 512, 3, [0.4, 0.4, 0])
+    tmp = layer.img_pool(input=tmp, stride=2, pool_size=2,
+                         pool_type=pool_mod.MaxPooling())
+    tmp = layer.dropout(input=tmp, dropout_rate=0.5)
+    tmp = layer.fc(input=tmp, size=512, act=act_mod.LinearActivation(),
+                   layer_attr=ExtraAttr(drop_rate=0.5))
+    tmp = layer.batch_norm(input=tmp, act=act_mod.ReluActivation())
+    return layer.fc(input=tmp, size=num_classes,
+                    act=act_mod.SoftmaxActivation())
 
 
 def simple_gru2(input, size, name=None, reverse=False, mixed_param_attr=None,

@@ -325,7 +325,7 @@ def recurrent_group(step: Callable, input, reverse: bool = False,
                          for ph, v in zip(seq_phs, seq_vals)})
             feed.update(carry)
             vals, states_c = evaluate(loop_roots,
-                                      Context(ctx.is_train, ctx.generator),
+                                      Context(ctx.is_train, ctx.seed),
                                       params, states_c, feed)
             mcol = mask[:, k, None]
             carry = {m.name: (mcol * _raw_boot(vals[tgt.name])

@@ -1,5 +1,6 @@
 """Models of the port: the transformer LM (serving and training), the
-ResNet image classifier, the OCR CRNN and the attention NMT.  ``image``,
+image zoo (smallnet, AlexNet, VGG, ResNet, GoogLeNet), the OCR CRNN and
+the attention NMT.  ``image``,
 ``ocr_crnn`` and ``seqtoseq`` load on first access, so the serving import does not pull in the layer
 API."""
 

@@ -215,7 +215,8 @@ def conv2d_bn_act_reference(x, w, scale, bias, running_mean, running_var,
     new_running_mean, new_running_var)."""
     y = nn_ops.conv2d_xla(x, w, nn_ops.pair(stride), nn_ops.pair(padding))
     y, nm, nv = nn_ops.batch_norm(y, scale, bias, running_mean, running_var,
-                                  is_train, momentum=momentum, eps=eps)
+                                  is_train, momentum=momentum, eps=eps,
+                                  use_fused_stats=False)
     return (torch.relu(y) if act == "relu" else y), nm, nv
 
 

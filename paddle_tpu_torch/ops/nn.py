@@ -1,6 +1,6 @@
 """NN primitives of the port (the port's side of ``paddle_tpu/ops/nn.py``):
 the transformer block's LN and GELU, and the image path's convolution,
-pooling and batch norm.
+pooling, batch norm, local response normalization and dropout.
 
 Layout as in the JAX package: NHWC activations, HWIO conv weights.
 PyTorch's own conv and pool functions take NCHW, so they run on permuted
@@ -54,15 +54,23 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _takes_kernel(x) -> bool:
+    """Whether a router sends ``x`` to a kernel: a tensor on the card,
+    unless it is float64 (the double-precision witness step, which runs
+    the plain twins on any device; the kernels take float32 and refuse
+    the rest)."""
+    return x.device.type == "cuda" and x.dtype != torch.float64
+
+
 def conv2d(x, w, stride=1, padding=0, dilation=1, groups: int = 1):
     """2-D convolution, x [N, H, W, Cin], w [KH, KW, Cin // groups, Cout].
 
     CUDA tensors of the direct kernel's shape class (groups=1,
     dilation=1, numeric padding; the routing rule of the JAX package's
     ``conv2d``) launch the hand-written kernel through
-    ``ops/kernels/conv.conv2d_direct``; everything else takes the plain
-    :func:`conv2d_xla`."""
-    if (x.device.type == "cuda" and groups == 1
+    ``ops/kernels/conv.conv2d_direct``; everything else (and a float64
+    witness) takes the plain :func:`conv2d_xla`."""
+    if (_takes_kernel(x) and groups == 1
             and pair(dilation) == (1, 1) and not isinstance(padding, str)
             and x.dim() == 4):
         from paddle_tpu_torch.ops.kernels import conv as kconv
@@ -111,16 +119,34 @@ def avg_pool2d(x, ksize, stride=None, padding=0, exclude_pad: bool = True):
 
 
 def batch_norm(x, scale, bias, running_mean, running_var, is_train: bool,
-               momentum: float = 0.9, eps: float = 1e-5):
+               momentum: float = 0.9, eps: float = 1e-5,
+               use_fused_stats: bool | None = None):
     """Batch normalization over all but the last (channel) axis; returns
     (y, new_running_mean, new_running_var).
 
     The JAX package's convention, not ``F.batch_norm``'s: single-pass
     E[x] and E[x^2] in f32, the variance clamped at 0 and BIASED (divided
     by the count), and ``new = momentum * running + (1 - momentum) *
-    batch``."""
+    batch``.
+
+    ``use_fused_stats`` picks how the train-mode moments are taken: True
+    through ``ops/kernels/channel_stats`` (one read for both sums; the
+    kernel on the card, its twin on the CPU), False through
+    :func:`moments`, and None (the default) through the kernel exactly
+    when ``x`` lies on the card in float32 (a float64 witness takes
+    :func:`moments` there too)."""
     if is_train:
-        mean, var = moments(x)
+        if use_fused_stats is None:
+            use_fused_stats = _takes_kernel(x)
+        if use_fused_stats:
+            from paddle_tpu_torch.ops.kernels import channel_stats as kcs
+
+            s, ss = kcs.channel_stats(x)
+            count = x.numel() // x.shape[-1]
+            mean = s / count
+            var = torch.clamp(ss / count - mean * mean, min=0.0)
+        else:
+            mean, var = moments(x)
         new_mean = momentum * running_mean + (1 - momentum) * mean
         new_var = momentum * running_var + (1 - momentum) * var
     else:
@@ -139,6 +165,36 @@ def moments(x):
     mean = xf.mean(dim=dims)
     var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
     return mean, var
+
+
+def cross_map_normal(x, size: int = 5, scale: float = 1e-4,
+                     pow_: float = 0.75):
+    """Local response normalization across channels, NHWC (the JAX
+    package's ``cross_map_normal``, ≅ CMRProjectionNormLayer):
+    ``x / (1 + scale * sum of x^2 over a window of size channels)^pow``,
+    the window from c - size // 2 to c + (size - 1 - size // 2)."""
+    half = size // 2
+    padded = F.pad(x * x, (half, size - 1 - half))
+    c = x.shape[-1]
+    window = sum(padded[..., i:i + c] for i in range(size))
+    return x / torch.pow(1.0 + scale * window, pow_)
+
+
+def dropout(x, rate: float, generator: torch.Generator | None,
+            is_train: bool):
+    """Inverted dropout (≅ dropout_layer): in training each entry is kept
+    with probability ``keep = 1 - rate`` and scaled by ``1 / keep``.  The
+    keep mask is ``torch.rand(shape) < keep`` drawn in float32 from
+    ``generator`` on ``x``'s device whatever ``x``'s dtype, so a float64
+    witness of a step sees the masks the f32 step drew.  Identity in test
+    mode and at rate 0."""
+    if not is_train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def conv2d_bn_relu(x, w, scale, bias, running_mean, running_var,

@@ -12,15 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(x: int) -> int:
-    """splitmix64's finaliser: a bijective 64-bit scramble."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+from paddle_tpu_torch.core.rng import mix as _mix
 
 
 def request_seed(seed: int, request_id: int, token_index: int) -> int:

@@ -62,21 +62,22 @@ def _total_cost(values, out_names):
 
 
 def build_train_step(topology: Topology, optimizer, compute_dtype=None):
-    """Returns fn: (params, opt_state, states, feed)
+    """Returns fn: (params, opt_state, states, feed, seed)
     -> (params, opt_state, states, cost, metrics), every tensor detached,
-    the metrics {name: float} from the same forward."""
+    the metrics {name: float} from the same forward.  ``seed`` is the
+    step's seed (``core/rng.next_seed()``), from which dropout draws."""
     _check_compute_dtype(compute_dtype)
     specs = {s.name: s for s in topology.param_specs()}
     trainable = {n for n, s in specs.items() if not s.is_static}
     out_names = [o.name for o in topology.outputs]
     metric_specs = topology.metrics()
 
-    def step(params, opt_state, states, feed):
+    def step(params, opt_state, states, feed, seed):
         train_p = {k: v.detach().requires_grad_()
                    for k, v in params.items() if k in trainable}
         static_p = {k: v for k, v in params.items() if k not in trainable}
         values, new_states = topology.forward({**static_p, **train_p},
-                                              states, feed, True)
+                                              states, feed, True, seed)
         cost = _total_cost(values, out_names)
         with torch.no_grad():
             parts = _metric_parts(metric_specs, values)

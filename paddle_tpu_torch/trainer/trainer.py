@@ -19,6 +19,7 @@ import torch
 
 from paddle_tpu_torch.config.topology import Topology
 from paddle_tpu_torch.core import logger as log
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.core.parameters import Parameters
@@ -83,8 +84,11 @@ class SGD:
         """One first train step (fresh optimizer state) in float64 on the
         CPU from the current parameters and states, which stay as they
         are: the double-precision witness an f32 step, on the CPU's plain
-        twins or the card's kernels, is held against.  Returns (params,
-        states, cost): float64 numpy arrays by name and a float."""
+        twins or the card's kernels, is held against.  It takes the seed
+        the next train step will take (``core/rng.peek_seed()``) without
+        consuming it, so dropout draws the masks a CPU step draws (masks
+        are drawn in f32 whatever the dtype).  Returns (params, states,
+        cost): float64 numpy arrays by name and a float."""
         cpu = torch.device("cpu")
 
         def wide(t):
@@ -100,7 +104,8 @@ class SGD:
         opt_state = self.optimizer.init(
             {k: params[k] for k in self._trainable}, self._specs)
         params, _, states, cost, _ = build_train_step(
-            self.topology, self.optimizer)(params, opt_state, states, feed)
+            self.topology, self.optimizer)(params, opt_state, states, feed,
+                                           rng.peek_seed())
         return ({n: t.numpy() for n, t in params.items()},
                 {k: v.numpy() for k, v in states.items()}, float(cost))
 
@@ -126,7 +131,7 @@ class SGD:
                 handler(v2_event.BeginIteration(pass_id, batch_id))
                 feed = feeder(data_batch)
                 params, opt_state, states, cost, metrics = self._train_step(
-                    params, opt_state, states, feed)
+                    params, opt_state, states, feed, rng.next_seed())
                 batch_metrics.append(metrics)
                 handler(v2_event.EndIteration(pass_id, batch_id,
                                               float(cost), metrics))
@@ -137,8 +142,8 @@ class SGD:
             handler(v2_event.EndPass(pass_id, _mean_dicts(batch_metrics)))
 
     def test(self, reader, feeding=None) -> v2_event.TestResult:
-        """Forward-only over a reader of batches; the mean batch cost and
-        the mean of each metric."""
+        """Forward-only over a reader of batches (test mode: nothing is
+        drawn); the mean batch cost and the mean of each metric."""
         feeder = self._feeder(feeding)
         params = self._params_dict()
         costs, metrics = [], []

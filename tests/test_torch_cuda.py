@@ -892,3 +892,142 @@ def test_bigru_function_on_card_matches_the_cpu(cuda, b, t, e, d):
     for want, got, again in zip(*outs):
         assert _close(got.cpu(), want)
         assert torch.equal(got, again)
+
+
+# -- channel_stats (the batch-norm moments of the small_vgg path) ------------------
+
+# small_vgg's five [R, C] views at batch 128 of 32x32, a ragged R, a C that
+# is not a multiple of 32 and a single row
+STATS_SHAPES = [(131072, 64), (32768, 128), (8192, 256), (2048, 512),
+                (128, 512), (1000003 // 7, 48), (777, 45), (1, 96)]
+
+
+@pytest.mark.parametrize("r,c", STATS_SHAPES)
+def test_channel_stats_kernel_matches_plain(cuda, r, c):
+    """Sum and sum of squares against the twin within 1e-4 x max(1, |ref|)
+    (f32 sums in another order); a rerun gives the same bits."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(r + c)
+    x = (_rand(rng, r, c) * 2 + 0.5).to(cuda)
+    before = CS.KERNEL.launches
+    got = CS.channel_stats(x)
+    again = CS.channel_stats(x)
+    torch.cuda.synchronize()
+    assert CS.KERNEL.launches == before + 2
+    want = CS.channel_stats_reference(x)
+    for a, b, c_ in zip(got, want, again):
+        assert a.shape == (c,)
+        assert (a - b).abs().max().item() <= TOL * max(1.0, b.abs().max().item())
+        assert torch.equal(a, c_)
+
+
+def test_channel_stats_function_on_card_matches_the_cpu(cuda):
+    """The autograd Function on a 4-D NHWC input: sums and ``dx = g_s +
+    2 x g_ss`` against the CPU twin."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(3)
+    x = _rand(rng, 4, 9, 7, 40)
+    gs, gss = _rand(rng, 40), _rand(rng, 40)
+    outs = []
+    for dev in ("cpu", cuda):
+        leaf = x.to(dev).requires_grad_()
+        s, ss = CS.channel_stats(leaf)
+        (dx,) = torch.autograd.grad((s * gs.to(dev)).sum()
+                                    + (ss * gss.to(dev)).sum(), [leaf])
+        outs.append([s, ss, dx])
+    for want, got in zip(*outs):
+        assert (got.cpu() - want).abs().max().item() <= TOL * max(
+            1.0, want.abs().max().item())
+
+
+def test_channel_stats_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    with pytest.raises(EnforceError, match="float32"):
+        CS.channel_stats(torch.zeros(8, 4, dtype=torch.float64, device=cuda))
+    with pytest.raises(EnforceError, match="float32"):
+        CS.channel_stats(torch.zeros(8, 4, device=cuda).half())
+    with pytest.raises(EnforceError, match="contiguous"):
+        CS.channel_stats(torch.zeros(4, 8, device=cuda).t())
+    with pytest.raises(EnforceError, match="several devices"):
+        CS.channel_stats_grad(torch.zeros(8, 4, device=cuda),
+                              torch.zeros(4), torch.zeros(4, device=cuda))
+
+
+def test_batch_norm_on_card_takes_the_kernel_and_matches_the_cpu(cuda):
+    """``ops/nn.batch_norm`` in training: one ``channel_stats`` launch on
+    the card (``use_fused_stats=None``), none in test mode or for a
+    float64 input; outputs, new statistics and gradients against the
+    CPU."""
+    from paddle_tpu_torch.ops import nn as nn_ops
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(4)
+    x, r = _rand(rng, 4, 8, 8, 16), _rand(rng, 4, 8, 8, 16)
+    ga, be = _rand(rng, 16) * 0.2 + 1, _rand(rng, 16) * 0.2
+    rm, rv = _rand(rng, 16) * 0.1, _rand(rng, 16).abs() + 0.5
+    outs = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in (x, ga, be)]
+        before = CS.KERNEL.launches
+        y, nm, nv = nn_ops.batch_norm(*leaves, rm.to(dev), rv.to(dev), True)
+        grads = torch.autograd.grad((y * r.to(dev)).sum(), leaves)
+        launched = CS.KERNEL.launches - before
+        assert launched == (1 if dev != "cpu" else 0)
+        outs.append([y, nm, nv, *grads])
+    for want, got in zip(*outs):
+        assert (got.cpu() - want).abs().max().item() <= TOL * max(
+            1.0, want.abs().max().item())
+    before = CS.KERNEL.launches
+    nn_ops.batch_norm(x.to(cuda), ga.to(cuda), be.to(cuda), rm.to(cuda),
+                      rv.to(cuda), False)
+    nn_ops.batch_norm(*(t.to(cuda).double() for t in (x, ga, be, rm, rv)),
+                      True)
+    torch.cuda.synchronize()
+    assert CS.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("shape,w_shape,s,p", [
+    ((64, 227, 227, 3), (11, 11, 3, 96), 4, 1),    # AlexNet conv1
+    ((64, 27, 27, 96), (5, 5, 96, 256), 1, 2),     # AlexNet conv2
+    ((64, 32, 32, 3), (5, 5, 3, 32), 1, 2),        # smallnet conv1
+])
+def test_direct_conv_at_the_image_zoo_shapes(cuda, shape, w_shape, s, p):
+    """The direct conv kernel at the new filter sizes of the bench nets
+    (11x11 stride 4 with Cin 3, 5x5) against the plain convolution."""
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(w_shape[0])
+    x = _rand(rng, *shape).to(cuda)
+    w = (_rand(rng, *w_shape) * (2.0 / np.prod(w_shape[:3])) ** 0.5).to(cuda)
+    before = CV.KERNEL.launches
+    got = CV.fwd_raw(x, w, (s, s), (p, p))
+    again = CV.fwd_raw(x, w, (s, s), (p, p))
+    torch.cuda.synchronize()
+    assert CV.KERNEL.launches == before + 2
+    want = CV.fwd_raw_reference(x, w, (s, s), (p, p))
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= TOL * max(
+        1.0, want.abs().max().item())
+    assert torch.equal(got, again)
+
+
+def test_dropout_on_card_repeats_and_keeps_its_rate(cuda):
+    """A dropout mask on the card depends only on (step seed, layer
+    name): the same twice, another for another name; the kept share
+    within 4 sigma of 1 - rate over 10^6 draws, kept values x / keep."""
+    from paddle_tpu_torch.layers.base import Context
+    from paddle_tpu_torch.ops import nn as nn_ops
+
+    ctx = Context(True, seed=1234)
+    x = torch.ones(1000, 1000, device=cuda)
+    a = nn_ops.dropout(x, 0.3, ctx.generator_for("d", cuda), True)
+    b = nn_ops.dropout(x, 0.3, ctx.generator_for("d", cuda), True)
+    c = nn_ops.dropout(x, 0.3, ctx.generator_for("e", cuda), True)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = (a != 0).float().mean().item()
+    assert abs(kept - 0.7) <= 4 * (0.7 * 0.3 / x.numel()) ** 0.5
+    assert torch.equal(a[a != 0], (x / 0.7)[a != 0])

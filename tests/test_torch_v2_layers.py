@@ -236,8 +236,9 @@ def test_options_not_ported_raise():
     from paddle_tpu_torch.layers.attr import ExtraAttr
 
     x = TL.data(name="x", type=TD.dense_vector(4))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TL.fc(input=x, size=3, layer_attr=ExtraAttr(drop_rate=0.5))
+    with pytest.raises(NotImplementedError, match="error_clipping"):
+        TL.fc(input=x, size=3,
+              layer_attr=ExtraAttr(error_clipping_threshold=1.0))
     img = TL.data(name="image", type=TD.dense_vector(12, channels=3),
                   height=2, width=2)
     with pytest.raises(NotImplementedError, match="transposed"):
