@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
 trains (ResNet-50, the transformer LM, the LSTM text classifier, the
-OCR CRNN, the attention NMT, the CIFAR-10 VGG and the benchmark image
-nets).
+OCR CRNN, the attention NMT, the CIFAR-10 VGG, the benchmark image nets
+and the Wide & Deep CTR).
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -43,7 +43,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the tensor cores would need TF32), counting only the taps of a conv
    that fall inside the image.  cuDNN's conv backward (dx, dw) at res2's
    3x3 and the stem against float64 on the CPU: relative error <= 5e-5,
-   and the same call with TF32 allowed (a planted fault) above it.
+   and the same call with TF32 allowed (a planted fault) above it.  The
+   fused SGD / Momentum update on ResNet-50's 161 tensors (Momentum 0.9)
+   and small_vgg's 46 (with L2 decay), one launch each, and the row-lazy
+   update on the CTR's 8 [1000, 64] tables with the rows a batch of
+   1,024 ids touches: equal to their plain twins bit for bit and on a
+   rerun, untouched rows copied through; each timed beside the
+   per-tensor twin loop, the bound (20 bytes an element) and, for the
+   fused update, ``torch.optim.SGD(momentum=0.9, fused=True)`` and
+   ``foreach=True``.
 3. The serving engine end to end at the GPT-2-small width of the repo's
    LM config (vocab 50257, 12 layers, 12 heads, 768 wide, MLP 3072, f32,
    random weights from a seeded generator): 64 greedy requests with
@@ -61,13 +69,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    (see ``witness_ratio``; the float64 step's own move under a 1e-6 input
    nudge is reported beside it).  A card step whose BN backward drops the
    batch mean's term is a planted fault that must exceed that limit, and
-   the card's step must repeat bit for bit.  Then 10 steps at batch 64
+   the card's step must repeat bit for bit, and equal bit for bit the
+   same step with its update through the optimizer's per-tensor loop
+   instead of the one fused-update launch.  Then 10 steps at batch 64
    after 2 warm-up steps (img/s, step ms, peak memory), with the launch
-   counts zeroed just before and read just after: exactly 36 BRGEMM and
-   17 direct-conv launches per step; then 3 steps under ``torch.profiler``
-   (device time by kernel class, busy share); then 20 steps with
-   deterministic cuDNN on and off in turn (its cost in step time); then
-   ``test`` on 2 batches, again exactly 36 and 17 per batch.
+   counts zeroed just before and read just after: exactly 36 BRGEMM, 17
+   direct-conv and 1 fused-update launches per step, no per-tensor loop;
+   then 3 steps under ``torch.profiler`` (device time by kernel class,
+   busy share); then 20 steps with deterministic cuDNN on and off in turn
+   (its cost in step time); then 20 steps with the update through the
+   kernels and through the per-tensor loop in turn (blocks of 5: kernels,
+   loop, loop, kernels; ``update_route_ab``); then ``test`` on 2 batches,
+   again exactly 36 and 17 per batch and no update.
 5. The LM training path, ``transformer.build_train_step``, at the width
    of phase 3 in f32 (flash attention, no remat), Adam at lr 1e-4 with
    bf16 moments (as the repo's LM benchmark): one step at batch 2 x 128
@@ -186,16 +199,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    BN moving statistic within 1e-5; TF32 on the card, dropout without
    its 1 / keep scaling and ``F.batch_norm``'s unbiased running variance
    are planted faults that must exceed them, and the card's step repeats
-   bit for bit.  Then ``trainer.SGD``: the first step twice (bit for
-   bit), 2 warm-up and 10 timed steps (images/s, step ms, peak memory)
-   with exactly 11 ``channel_stats`` and 10 direct-conv launches a step,
-   finite falling costs, a 3-step profile, and ``test`` on 2 batches (no
+   bit for bit.  Then ``trainer.SGD``: the first step twice and once
+   through the per-tensor loop (all three bit for bit), 2 warm-up and 10
+   timed steps (images/s, step ms, peak memory) with exactly 11
+   ``channel_stats``, 10 direct-conv and 1 fused-update launches a step,
+   finite falling costs, a 3-step profile, the update's kernels-vs-loop
+   blocks as in phase 4, and ``test`` on 2 batches (no
    ``channel_stats``).  Last, ``bench.py``'s image nets under its
    ``_image_step`` configuration at batch 64 (Momentum 0.9 at lr 0.01 /
    64): smallnet, AlexNet and GoogLeNet 2 warm-up and 5 timed steps each
-   (ms a batch), VGG-19 one step, each with its exact direct-conv and
-   BRGEMM launches a step.
-10. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+   (ms a batch), VGG-19 one step, each with its exact direct-conv,
+   BRGEMM and fused-update launches a step.
+10. The Wide & Deep CTR (``models/ctr.wide_and_deep_ctr`` at
+   ``bench_ctr``'s shapes: wide 10,000, 8 fields of vocab 1,000,
+   embedding 64, hidden (256, 128); 756,506 parameters; batch 1,024 of
+   uniform synthetic ids; f32, Momentum 0.9 at lr 0.05, the repo's CTR
+   test optimizer, in place of ``bench_ctr``'s AdaGrad, which has no
+   row-lazy rule; the tables row-lazy).  A batch-2 step on the card and
+   on the CPU against a float64 witness (loss relative 1e-5, every
+   gradient leaf 1e-4; TF32 on the card a planted fault that must exceed
+   it), the card's step repeated bit for bit.  Then ``trainer.SGD``: the
+   first step twice and once through the per-tensor loop (bit for bit),
+   2 warm-up and 10 timed steps (examples/s, step ms, peak memory) with
+   exactly 1 fused-update, 1 row-lazy, 8 gather and 8 scatter-add
+   launches a step; a 3-step profile; the update's kernels-vs-loop
+   blocks as in phase 4; ``paddle.infer`` on the predict
+   layer for one batch equal to the eval step's probabilities; the
+   row-lazy check: 3 steps (L2 1e-3) whose field-0 ids stay below 900,
+   after which every row of that table no batch hit keeps its start's
+   bits and a zero velocity, and the same run with the dense rule on the
+   table, a planted fault, must fail it.
+11. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -811,6 +845,10 @@ def kernel_class(name: str) -> str:
         return "conv2d_direct (ours)"
     if "::partial_kernel(" in low or "::finish_kernel(" in low:
         return "channel_stats (ours)"     # csrc/channel_stats.cu
+    if "fused_update_kernel" in low:
+        return "fused_update (ours)"      # csrc/update.cu
+    if "sparse_row_update_kernel" in low:
+        return "sparse_row_update (ours)"
     if "stats_reduce" in low:
         return "stats_reduce (ours)"
     if "memcpy" in low or "memset" in low:
@@ -916,7 +954,26 @@ def witness_ratio(start: dict, wide: dict, got: dict) -> tuple:
     return worst + ((err_sq / sq) ** 0.5,)
 
 
-def train_end_to_end(dev) -> tuple[dict, int, int]:
+def update_route_ab(tr, run, data, stamp, marks) -> dict:
+    """Step ms with the optimizer update through the kernels (``apply``)
+    and through the per-tensor loop (``_apply_each``) on one trainer, in
+    blocks of ``len(data)`` steps: kernels, loop, loop, kernels, so a
+    drift of the machine falls on both sides."""
+    ms: dict[str, list] = {"kernels": [], "loop": []}
+    for route in ("kernels", "loop", "loop", "kernels"):
+        if route == "loop":
+            tr.optimizer.apply = tr.optimizer._apply_each
+        else:
+            tr.optimizer.__dict__.pop("apply", None)
+        marks.clear()
+        run(tr, data, stamp)
+        ms[route] += [1e3 * (b - a) for a, b in marks.values()]
+    tr.optimizer.__dict__.pop("apply", None)
+    return {"kernels_p50": float(np.percentile(ms["kernels"], 50)),
+            "loop_p50": float(np.percentile(ms["loop"], 50)), **ms}
+
+
+def train_end_to_end(dev) -> tuple[dict, int, int, int]:
     """ResNet-50 through the v2 flow: the CPU-vs-card step, then the
     batch-64 run and ``test``, with exact launch counts."""
     import paddle_tpu_torch as paddle
@@ -926,6 +983,7 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
     from paddle_tpu_torch.ops import nn as nn_ops
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
+    from paddle_tpu_torch.ops.kernels import update as UP
 
     bs, steps, side, classes = 64, 10, 224, 1000
     t0 = time.perf_counter()
@@ -966,7 +1024,9 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
     # the step is that sensitive (pool1's max routing, amplified through
     # 16 BN blocks), so f32 round-off alone moves it by a few percent.  A
     # card step whose BN backward drops the batch mean's term is the
-    # planted fault the limit must catch.
+    # planted fault the limit must catch.  The card's step updates through
+    # one launch of the fused update kernel; the same step through the
+    # per-tensor loop (``_apply_each``) must give the same bits.
     small = batches(1, 2)
     nudged = [(x * (1 + 1e-6 * rng.standard_normal(x.shape,
                                                     dtype=np.float32)), y)
@@ -983,26 +1043,37 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
         mean, var = nn_ops.moments(y_conv)
         return CV.bn_apply(y_conv, mean.detach(), var, gamma, beta, eps, act)
 
+    update_n = {}
     for label, where in (("cpu", "cpu"), ("card", dev), ("card_rerun", dev),
+                         ("card_generic_loop", dev),
                          ("card_bn_vjp_control", dev)):
         tr = trainer(where)
         if label == "card_bn_vjp_control":
             CV.bn_act_train = bn_mean_term_dropped
+        if label == "card_generic_loop":
+            tr.optimizer.apply = tr.optimizer._apply_each
+        n0 = UP.KERNEL.launches
         try:
             c = run(tr, small)[0]
         finally:
             CV.bn_act_train = plain_bn
+        torch.cuda.synchronize()
+        update_n[label] = UP.KERNEL.launches - n0
         sides[label] = (c, {n: tr.parameters[n] for n in carried},
                         {k: v.cpu().numpy() for k, v in tr.states.items()})
         del tr
     # the card's step repeats bit for bit: the kernels' stats use no
-    # atomics and cuDNN is held to deterministic algorithms
-    (c_a, p_a, s_a), (c_b, p_b, s_b) = sides["card"], sides["card_rerun"]
-    if not (c_a == c_b and all(np.array_equal(p_a[n], p_b[n]) for n in p_a)
-            and all(np.array_equal(s_a[k], s_b[k]) for k in s_a)):
-        raise AssertionError("the card's train step is not bit-identical "
-                             "on a rerun")
-    del sides["card_rerun"]
+    # atomics and cuDNN is held to deterministic algorithms; and the
+    # update kernel gives the per-tensor loop's bits
+    for other in ("card_rerun", "card_generic_loop"):
+        (c_a, p_a, s_a), (c_b, p_b, s_b) = sides["card"], sides.pop(other)
+        if not (c_a == c_b
+                and all(np.array_equal(p_a[n], p_b[n]) for n in p_a)
+                and all(np.array_equal(s_a[k], s_b[k]) for k in s_a)):
+            raise AssertionError(f"the card's train step and {other} are "
+                                 "not bit-identical")
+    if (update_n["card"], update_n["card_generic_loop"]) != (1, 0):
+        raise AssertionError(f"fused update launches a step {update_n}")
     witness_rows = {}
     for label, (c, p_side, s_side) in sides.items():
         pr, pn, pg = witness_ratio(start[0], p64, p_side)
@@ -1039,17 +1110,24 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
                           paddle.event.EndIteration)):
             marks.setdefault(e.batch_id, []).append(time.perf_counter())
 
+    each = []
+    loop = tr.optimizer._apply_each
+    tr.optimizer._apply_each = lambda *a: each.append(1) or loop(*a)
     BR.KERNEL.launches = 0
     CV.KERNEL.launches = 0
+    UP.KERNEL.launches = 0
     t1 = time.perf_counter()
     costs = run(tr, data, stamp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    br_n, cv_n = BR.KERNEL.launches, CV.KERNEL.launches
+    br_n, cv_n, up_n = (BR.KERNEL.launches, CV.KERNEL.launches,
+                        UP.KERNEL.launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    if (br_n, cv_n) != (36 * steps, 17 * steps):
-        raise AssertionError(f"train launches brgemm {br_n}, conv {cv_n} != "
-                             f"36 x {steps}, 17 x {steps}")
+    if (br_n, cv_n, up_n, len(each)) != (36 * steps, 17 * steps, steps, 0):
+        raise AssertionError(f"train launches brgemm {br_n}, conv {cv_n}, "
+                             f"fused update {up_n}, per-tensor loops "
+                             f"{len(each)} != 36 x {steps}, 17 x {steps}, "
+                             f"{steps}, 0")
     if len(costs) != steps or not all(np.isfinite(costs)):
         raise AssertionError(f"train costs {costs}")
     step_ms = [1e3 * (b - a) for a, b in marks.values()]
@@ -1064,14 +1142,16 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
         run(tr, data[:5], stamp)
         det_ms[det] += [1e3 * (b - a) for a, b in marks.values()]
     set_f32_policy()
+    route_ms = update_route_ab(tr, run, data[:5], stamp, marks)
 
     # (d) test on 2 batches: the eval epilogue (affine + ReLU)
     BR.KERNEL.launches = 0
     CV.KERNEL.launches = 0
+    UP.KERNEL.launches = 0
     result = tr.test(reader=lambda: iter(test_data))
-    test_n = (BR.KERNEL.launches, CV.KERNEL.launches)
-    if test_n != (36 * 2, 17 * 2) or not np.isfinite(result.cost):
-        raise AssertionError(f"test launches {test_n} != 72, 34 or cost "
+    test_n = (BR.KERNEL.launches, CV.KERNEL.launches, UP.KERNEL.launches)
+    if test_n != (36 * 2, 17 * 2, 0) or not np.isfinite(result.cost):
+        raise AssertionError(f"test launches {test_n} != 72, 34, 0 or cost "
                              f"{result.cost}")
     if "device_busy_ms_per_step" in profile:
         profile["idle_share_vs_step_p50"] = (
@@ -1081,21 +1161,27 @@ def train_end_to_end(dev) -> tuple[dict, int, int]:
              "step_vs_f64_witness": {"batch": 2, "cost_f64": c64,
                                      "limit": STEP_LEAF_LIMIT,
                                      **witness_rows,
-                                     "card_rerun_bit_identical": True},
+                                     "card_rerun_bit_identical": True,
+                                     "card_generic_loop_bit_identical":
+                                         True,
+                                     "fused_update_launches": update_n},
              "batch": bs, "steps": steps, "wall_s": wall,
              "img_per_s": bs * steps / wall,
              "step_ms_p50": float(np.percentile(step_ms, 50)),
              "step_ms": step_ms, "costs": costs,
              "max_memory_allocated_bytes": peak,
-             "train_launches": {"brgemm": br_n, "conv2d_direct": cv_n},
+             "train_launches": {"brgemm": br_n, "conv2d_direct": cv_n,
+                                "fused_update": up_n},
+             "train_per_tensor_loops": len(each),
              "test_launches": {"brgemm": test_n[0],
                                "conv2d_direct": test_n[1]},
              "test_batches": 2, "test_cost": result.cost,
+             "update_route_step_ms": route_ms,
              "cudnn_deterministic_step_ms": {
                  "on_p50": float(np.percentile(det_ms[True], 50)),
                  "off_p50": float(np.percentile(det_ms[False], 50)),
                  "on": det_ms[True], "off": det_ms[False]},
-             "setup_s": setup_s, "profile": profile}, br_n, cv_n)
+             "setup_s": setup_s, "profile": profile}, br_n, cv_n, up_n)
 
 
 def named_leaves(tree_, prefix="") -> dict:
@@ -2949,7 +3035,7 @@ def vgg_witness(dev, cost, carried, small, seed=5):
     return out
 
 
-def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
+def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int, int]:
     """small_vgg through the v2 flow at the book's configuration (batch
     128 of CIFAR-10 from the port's seeded reader; Momentum 0.9 at lr
     0.1 / 128, L2 0.0002 x 128; f32): the batch-2 witness, the first
@@ -2965,6 +3051,7 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import channel_stats as CS
     from paddle_tpu_torch.ops.kernels import conv as CV
+    from paddle_tpu_torch.ops.kernels import update as UP
 
     t0 = time.perf_counter()
     reset_name_counters()
@@ -2999,19 +3086,29 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
                                                 bs)]
     warm, data, traced = batches[:2], batches[2:2 + steps], \
         batches[2 + steps:5 + steps]
-    firsts = []
-    for _ in range(2):
+    # the first step twice, then through the per-tensor loop: the same bits
+    firsts, first_update_n = [], []
+    for generic in (False, False, True):
         prng.seed(11)
         tr = trainer()
+        if generic:
+            tr.optimizer.apply = tr.optimizer._apply_each
+        n0 = UP.KERNEL.launches
         firsts.append((run(tr, data[:1]),
                        {n: tr.parameters[n] for n in carried},
                        {k: v.cpu().numpy() for k, v in tr.states.items()}))
+        first_update_n.append(UP.KERNEL.launches - n0)
         del tr
-    (c1, p1, s1), (c2, p2, s2) = firsts
-    if not (c1 == c2 and all(np.array_equal(p1[n], p2[n]) for n in p1)
-            and all(np.array_equal(s1[k], s2[k]) for k in s1)):
-        raise AssertionError("trainer.SGD's first small_vgg step is not "
-                             "bit-identical on a rerun")
+    (c1, p1, s1) = firsts[0]
+    for c2, p2, s2 in firsts[1:]:
+        if not (c1 == c2 and all(np.array_equal(p1[n], p2[n]) for n in p1)
+                and all(np.array_equal(s1[k], s2[k]) for k in s1)):
+            raise AssertionError("trainer.SGD's first small_vgg step is not "
+                                 "bit-identical on a rerun or through the "
+                                 "per-tensor loop")
+    if first_update_n != [1, 1, 0]:
+        raise AssertionError(f"small_vgg first steps' fused update launches "
+                             f"{first_update_n} != [1, 1, 0]")
     del firsts
     prng.seed(12)
     tr = trainer()
@@ -3027,7 +3124,7 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
             marks.setdefault(e.batch_id, []).append(time.perf_counter())
 
     kernels = {"channel_stats": CS.KERNEL, "conv2d_direct": CV.KERNEL,
-               "brgemm": BR.KERNEL}
+               "brgemm": BR.KERNEL, "fused_update": UP.KERNEL}
 
     def zero():
         for k in kernels.values():
@@ -3036,6 +3133,9 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
     def counts():
         return {n: k.launches for n, k in kernels.items()}
 
+    each = []
+    loop = tr.optimizer._apply_each
+    tr.optimizer._apply_each = lambda *a: each.append(1) or loop(*a)
     zero()
     t1 = time.perf_counter()
     costs = run(tr, data, stamp)
@@ -3043,10 +3143,11 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
     wall = time.perf_counter() - t1
     train_n = counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"channel_stats": 11, "conv2d_direct": 10, "brgemm": 0}
-    if train_n != {n: c * steps for n, c in want.items()}:
+    want = {"channel_stats": 11, "conv2d_direct": 10, "brgemm": 0,
+            "fused_update": 1}
+    if train_n != {n: c * steps for n, c in want.items()} or each:
         raise AssertionError(f"small_vgg train launches {train_n} != {want} "
-                             f"x {steps}")
+                             f"x {steps}, or {len(each)} per-tensor loops")
     if not (len(costs) == steps and all(np.isfinite(costs))
             and np.mean(costs[-3:]) < np.mean(costs[:3])):
         raise AssertionError(f"small_vgg costs not finite and falling: "
@@ -3057,12 +3158,14 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
     if "device_busy_ms_per_step" in prof:
         prof["idle_share_vs_step_p50"] = (
             1 - prof["device_busy_ms_per_step"] / p50)
+    route_ms = update_route_ab(tr, run, data[:5], stamp, marks)
     test_data = list(cifar.test10()())[:2 * bs]
     zero()
     result = tr.test(reader=lambda: iter([test_data[:bs], test_data[bs:]]))
     torch.cuda.synchronize()
     test_n = counts()
-    want_test = {"channel_stats": 0, "conv2d_direct": 20, "brgemm": 0}
+    want_test = {"channel_stats": 0, "conv2d_direct": 20, "brgemm": 0,
+                 "fused_update": 0}
     if test_n != want_test or not np.isfinite(result.cost):
         raise AssertionError(f"small_vgg test launches {test_n} != "
                              f"{want_test} or cost {result.cost}")
@@ -3074,15 +3177,17 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int]:
            "classes": 10, "dtype": "float32",
            "optimizer": "Momentum 0.9, lr 0.1/128, L2 0.0002*128",
            "step_vs_f64_witness": witness,
-           "first_step_rerun_bit_identical": True,
+           "first_step_rerun_and_loop_bit_identical": True,
+           "first_steps_fused_update_launches": first_update_n,
            "batch": bs, "steps": steps, "wall_s": wall,
            "images_per_s": bs * steps / wall, "step_ms_p50": p50,
            "step_ms": step_ms, "costs": costs,
            "max_memory_allocated_bytes": peak, "train_launches": train_n,
            "test_launches": test_n, "test_batches": 2,
            "test_cost": result.cost, "test_metrics": result.metrics,
+           "update_route_step_ms": route_ms,
            "setup_s": setup_s, "profile": prof}
-    return out, train_n["channel_stats"]
+    return out, train_n["channel_stats"], train_n["fused_update"]
 
 
 #: (builder, image side, classes, direct-conv and BRGEMM launches a step)
@@ -3103,6 +3208,7 @@ def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import channel_stats as CS
     from paddle_tpu_torch.ops.kernels import conv as CV
+    from paddle_tpu_torch.ops.kernels import update as UP
 
     out = {"phase": "bench_nets", "batch": bs}
     for name, (builder, side, classes, n_direct, n_brgemm) in \
@@ -3127,7 +3233,7 @@ def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
 
         run(n_warm)
         torch.cuda.synchronize()
-        for k in (CS.KERNEL, CV.KERNEL, BR.KERNEL):
+        for k in (CS.KERNEL, CV.KERNEL, BR.KERNEL, UP.KERNEL):
             k.launches = 0
         marks: dict[int, list] = {}
 
@@ -3142,9 +3248,11 @@ def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
         torch.cuda.synchronize()
         got = {"conv2d_direct": CV.KERNEL.launches,
                "brgemm": BR.KERNEL.launches,
-               "channel_stats": CS.KERNEL.launches}
+               "channel_stats": CS.KERNEL.launches,
+               "fused_update": UP.KERNEL.launches}
         want = {"conv2d_direct": n_direct * n_timed,
-                "brgemm": n_brgemm * n_timed, "channel_stats": 0}
+                "brgemm": n_brgemm * n_timed, "channel_stats": 0,
+                "fused_update": n_timed}
         if got != want or not all(np.isfinite(costs)):
             raise AssertionError(f"{name}: launches {got} != {want} or "
                                  f"costs {costs}")
@@ -3158,6 +3266,433 @@ def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
         del tr
         torch.cuda.empty_cache()
     return out
+
+
+# -- the optimizer update (rows 16 and 19) and the Wide & Deep CTR ------------
+
+#: bench.py's bench_ctr: wide 10,000, 8 fields of vocab 1,000, embedding
+#: 64, hidden (256, 128), batch 1,024
+CTR_WIDE, CTR_FIELDS, CTR_VOCAB, CTR_EMBED, CTR_HIDDEN = (10_000, 8, 1000,
+                                                          64, (256, 128))
+
+
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_update_kernels(dev, timer) -> tuple[list, dict]:
+    """The fused update (row 16) against its twin on ResNet-50's 161
+    tensors (Momentum 0.9 at lr 0.1 / 64, phase 4's) and small_vgg's 46
+    (Momentum 0.9 at lr 0.1 / 128, L2 0.0002 x 128, phase 9's), and the
+    row-lazy update (row 19) on the CTR's 8 [1000, 64] tables with the
+    rows one batch of 1,024 uniform ids touches (Momentum 0.9 at lr
+    0.05): bit for bit, a rerun in the same bits.  Each timed beside the
+    per-tensor twin loop and its bound (20 bytes an element); row 16 also
+    beside ``torch.optim.SGD(momentum=0.9, fused=True)`` and
+    ``foreach=True`` on the same list (the same rule, not the same
+    bits)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import update as UP
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def shapes_of(cost):
+        return [s.shape for s in Topology(cost).param_specs()]
+
+    reset_name_counters()
+    resnet = shapes_of(paddle.models.image.resnet_cost(
+        depth=50, class_num=1000, height=224, width=224)[0])
+    reset_name_counters()
+    vgg = shapes_of(vgg_cost(paddle))
+    dense = {}
+    for label, shapes, lr, wd in (("resnet50", resnet, 0.1 / 64, 0.0),
+                                  ("small_vgg", vgg, 0.1 / 128,
+                                   0.0002 * 128)):
+        ups = [UP.TensorUpdate(rand(s), rand(s, 1e-2), rand(s, 1e-2), lr,
+                               0.9, False, wd) for s in shapes]
+        got, again = UP.fused_update(ups), UP.fused_update(ups)
+        err = 0.0
+        for u, (p2, v2), (p3, v3) in zip(ups, got, again):
+            want_p, want_v = UP.reference_update(u)
+            err = max(err, (p2 - want_p).abs().max().item(),
+                      (v2 - want_v).abs().max().item())
+            if not (bits_equal(p2, want_p) and bits_equal(v2, want_v)
+                    and bits_equal(p2, p3) and bits_equal(v2, v3)):
+                raise AssertionError(f"fused update on {label}: not the "
+                                     "twin's bits, or not on a rerun")
+        del got, again
+        n = sum(u.p.numel() for u in ups)
+        bound_ms, by = bound(20.0 * n, (6.0 if wd else 4.0) * n)
+        libs = {}
+        for kind in ("fused", "foreach"):
+            ps = [torch.nn.Parameter(u.p.clone()) for u in ups]
+            for p, u in zip(ps, ups):
+                p.grad = u.g
+            opt = torch.optim.SGD(ps, lr=lr, momentum=0.9, weight_decay=wd,
+                                  **{kind: True})
+            libs[kind] = timer(opt.step)
+            del ps, opt
+        launch = [lambda: UP.fused_update(ups)]
+        dense[label] = {
+            "tensors": len(ups), "params": n, "lr": lr, "mu": 0.9, "wd": wd,
+            "max_abs_err": err, "ms": timer(lambda: UP.fused_update(ups)),
+            "kernel_only_ms": device_ms(launch, "fused_update_kernel"),
+            "plain_ms": timer(lambda: [UP.reference_update(u)
+                                       for u in ups]),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": libs["fused"], "library_foreach_ms": libs["foreach"]}
+        del ups
+        torch.cuda.empty_cache()
+
+    # row 19: the rows a batch of 1,024 uniform ids touches in each table
+    ups, touched = [], 0
+    for _ in range(CTR_FIELDS):
+        ids = torch.randint(0, CTR_VOCAB, (1024,), generator=gen, device=dev)
+        hit = torch.zeros(CTR_VOCAB, dtype=torch.bool, device=dev)
+        hit[ids] = True
+        touched += int(hit.sum())
+        g = rand((CTR_VOCAB, CTR_EMBED)) * hit[:, None]
+        ups.append(UP.TensorUpdate(rand((CTR_VOCAB, CTR_EMBED)), g,
+                                   rand((CTR_VOCAB, CTR_EMBED), 1e-2), 0.05,
+                                   0.9, False, 0.0))
+    got, again = EK.sparse_row_update(ups), EK.sparse_row_update(ups)
+    err = 0.0
+    for u, (p2, v2), (p3, v3) in zip(ups, got, again):
+        want_p, want_v = EK.reference_row_update(u)
+        err = max(err, (p2 - want_p).abs().max().item(),
+                  (v2 - want_v).abs().max().item())
+        still = ~(u.g != 0).any(dim=1)
+        if not (bits_equal(p2, want_p) and bits_equal(v2, want_v)
+                and bits_equal(p2, p3) and bits_equal(v2, v3)
+                and bits_equal(p2[still], u.p[still])
+                and bits_equal(v2[still], u.v[still])):
+            raise AssertionError("row-lazy update: not the twin's bits, not "
+                                 "on a rerun, or an untouched row moved")
+    n = CTR_FIELDS * CTR_VOCAB * CTR_EMBED
+    bound_ms, by = bound(20.0 * n, 4.0 * touched * CTR_EMBED)
+    launch = [lambda: EK.sparse_row_update(ups)]
+    lazy = {"tables": CTR_FIELDS, "shape": [CTR_VOCAB, CTR_EMBED],
+            "touched_rows": touched,
+            "touched_share": touched / (CTR_FIELDS * CTR_VOCAB),
+            "max_abs_err": err,
+            "ms": timer(lambda: EK.sparse_row_update(ups)),
+            "kernel_only_ms": device_ms(launch, "sparse_row_update_kernel"),
+            "plain_ms": timer(lambda: [EK.reference_row_update(u)
+                                       for u in ups]),
+            "bound_ms": bound_ms, "bound_by": by,
+            # in place, an untouched row would be read (g) and left alone
+            "bound_in_place_ms": (4.0 * n + 16.0 * touched * CTR_EMBED)
+            / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None}
+    del ups, got, again
+    torch.cuda.synchronize()
+    src = "paddle_tpu_torch/ops/kernels/csrc/update.cu"
+    big = dense["resnet50"]
+    rows = [{"name": "fused_update", "route": "cuda", "source": src,
+             "replaces": "paddle_tpu/ops/pallas/tpp/update.py:112",
+             "shape": f"resnet50: {big['tensors']} tensors, "
+                      f"{big['params']} params",
+             "max_abs_err": max(d["max_abs_err"] for d in dense.values()),
+             **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}},
+            {"name": "sparse_row_update", "route": "cuda", "source": src,
+             "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:291",
+             "shape": f"{CTR_FIELDS} x [{CTR_VOCAB}, {CTR_EMBED}]",
+             **{k: lazy[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}]
+    return rows, {"phase": "update_kernels", "fused_update": dense,
+                  "sparse_row_update": lazy, "bit_identical": True}
+
+
+def ctr_batches(rng, k, bs, below=None):
+    """``bench_ctr``'s synthetic samples: 3 uniform wide ids, one uniform id
+    a field, a uniform label; ``below`` bounds field 0's ids."""
+    out = []
+    for _ in range(k):
+        wide = rng.integers(0, CTR_WIDE, size=(bs, 3))
+        cats = rng.integers(0, CTR_VOCAB, size=(bs, CTR_FIELDS))
+        if below is not None:
+            cats[:, 0] = rng.integers(0, below, size=bs)
+        labels = rng.integers(0, 2, size=bs)
+        out.append([(w.tolist(), *(int(c) for c in cs), int(y))
+                    for w, cs, y in zip(wide, cats, labels)])
+    return out
+
+
+def train_ctr(dev, bs=1024, steps=10, lazy_below=900) -> tuple[dict, tuple]:
+    """The Wide & Deep CTR (``models/ctr.wide_and_deep_ctr`` at
+    ``bench_ctr``'s shapes) through the v2 flow with the repo's CTR test
+    optimizer, ``Momentum(momentum=0.9, learning_rate=0.05)``; the tables
+    are row-lazy.  A batch-2 step against a float64 witness; the first
+    ``trainer.SGD`` step twice and through the per-tensor loop (the same
+    bits); 2 warm-up and ``steps`` timed steps with exactly 1 fused-update,
+    1 row-lazy, 8 gather and 8 scatter-add launches a step; a 3-step
+    profile; the row-lazy check (a run whose field-0 ids stay below
+    ``lazy_below``: those rows keep parameter and velocity, and the dense
+    rule on the table, a planted fault, moves them); ``paddle.infer``
+    against the eval step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as OPT
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.core.dtype import set_f32_policy
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import update as UP
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+    from paddle_tpu_torch.trainer.step import build_eval_step
+
+    t0 = time.perf_counter()
+    reset_name_counters()
+    cost, predict, input_names = paddle.models.ctr.wide_and_deep_ctr(
+        wide_dim=CTR_WIDE, categorical_vocab_sizes=[CTR_VOCAB] * CTR_FIELDS,
+        embedding_size=CTR_EMBED, hidden_sizes=CTR_HIDDEN)
+    topo = Topology(cost)
+    created = paddle.parameters.create(cost)       # generator seeded 0
+    carried = {n: created[n] for n in created.names()}
+    n_params = int(sum(v.size for v in carried.values()))
+    tables = [n for n in carried if n.startswith("emb_")]
+    feeding = {n: i for i, n in enumerate(input_names)}
+    rng = np.random.default_rng(0)
+    types = {n: paddle.data_type.InputType(
+        dim=l.attrs["dim"], seq_type=l.attrs["seq_type"],
+        kind=l.attrs["data_type"]) for n, l in topo.data_layers().items()}
+
+    # (a) one step at batch 2 from the same weights: the card's kernels and
+    # the CPU's plain twins in f32 against the CPU in float64, by the loss
+    # and every gradient leaf; TF32 allowed on the card is the planted
+    # fault the limit must catch
+    small = ctr_batches(rng, 1, 2)[0]
+
+    def side(where, dtype=torch.float32):
+        feed = {k: v.to(dtype) if v.is_floating_point() else v for k, v in
+                DataFeeder(types, feeding, device=where)(small).items()}
+        params = {n: torch.from_numpy(v).to(where, dtype)
+                  for n, v in carried.items()}
+        return text_loss_and_grads(topo, cost.name, params, feed)
+
+    loss64, g64 = side("cpu", torch.float64)
+    sides = {"cpu": side("cpu"), "card": side(dev)}
+    rerun = side(dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sides["card_tf32_control"] = side(dev)
+    finally:
+        set_f32_policy()
+    if not (torch.equal(rerun[0], sides["card"][0]) and all(
+            torch.equal(rerun[1][n], sides["card"][1][n]) for n in g64)):
+        raise AssertionError("the card's CTR step is not bit-identical on a "
+                             "rerun")
+    witness = {"batch": 2, "loss_f64": float(loss64),
+               "loss_rtol": TEXT_LOSS_RTOL, "grad_limit": TEXT_GRAD_LIMIT}
+    for label, (loss, grads) in sides.items():
+        ratios = {n: rel_norm(grads[n], g64[n]) for n in g64}
+        worst = max(ratios, key=ratios.get)
+        witness[label] = {"loss": float(loss),
+                          "loss_rel_err": abs(float(loss) - float(loss64))
+                          / abs(float(loss64)),
+                          "grad_worst": ratios[worst],
+                          "grad_worst_leaf": worst}
+    del sides, rerun, g64
+    for label in ("cpu", "card"):
+        w = witness[label]
+        if not (w["loss_rel_err"] <= TEXT_LOSS_RTOL
+                and w["grad_worst"] <= TEXT_GRAD_LIMIT):
+            raise AssertionError(f"{label} CTR step vs the f64 witness: "
+                                 f"{witness}")
+    if witness["card_tf32_control"]["grad_worst"] <= TEXT_GRAD_LIMIT:
+        raise AssertionError(f"the CTR witness limit does not catch TF32: "
+                             f"{witness}")
+
+    # (b) trainer.SGD at batch 1,024
+    def trainer(regularization=None):
+        return paddle.trainer.SGD(
+            cost=cost, parameters=Parameters.from_numpy(carried),
+            update_equation=paddle.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.05,
+                regularization=regularization), device=dev)
+
+    def run(tr, data, handler=None):
+        costs = []
+
+        def h(e):
+            if isinstance(e, paddle.event.EndIteration):
+                costs.append(e.cost)
+            if handler is not None:
+                handler(e)
+
+        tr.train(reader=lambda: iter(data), num_passes=1, event_handler=h,
+                 feeding=feeding)
+        return costs
+
+    kernels = {"fused_update": UP.KERNEL, "sparse_row_update": EK.KERNEL_ROWS,
+               "gather": EK.KERNEL_GATHER, "scatter_add": EK.KERNEL_SCATTER}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    one = ctr_batches(rng, 1, bs)
+    firsts = {}
+    for label in ("routed", "routed_rerun", "generic_loop"):
+        tr = trainer()
+        if label == "generic_loop":
+            tr.optimizer.apply = tr.optimizer._apply_each
+        zero()
+        c = run(tr, one)
+        torch.cuda.synchronize()
+        firsts[label] = (c, {n: tr.parameters[n] for n in carried},
+                         counts())
+        del tr
+    per_step = {"fused_update": 1, "sparse_row_update": 1,
+                "gather": CTR_FIELDS, "scatter_add": CTR_FIELDS}
+    for label, (c, p, n) in firsts.items():
+        want = (per_step if label != "generic_loop" else
+                dict(per_step, fused_update=0, sparse_row_update=0))
+        if n != want:
+            raise AssertionError(f"CTR first step ({label}) launches {n} != "
+                                 f"{want}")
+        if not (c == firsts["routed"][0] and all(
+                np.array_equal(p[k], firsts["routed"][1][k])
+                for k in carried)):
+            raise AssertionError(f"CTR first step: {label} is not "
+                                 "bit-identical to the routed step")
+    del firsts
+    tr = trainer()
+    each = []
+    loop = tr.optimizer._apply_each
+    tr.optimizer._apply_each = lambda *a: each.append(1) or loop(*a)
+    warm, data, traced = (ctr_batches(rng, 2, bs), ctr_batches(rng, steps, bs),
+                          ctr_batches(rng, 3, bs))
+    run(tr, warm)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks: dict[int, list] = {}
+
+    def stamp(e):
+        if isinstance(e, (paddle.event.BeginIteration,
+                          paddle.event.EndIteration)):
+            marks.setdefault(e.batch_id, []).append(time.perf_counter())
+
+    each.clear()
+    zero()
+    t1 = time.perf_counter()
+    costs = run(tr, data, stamp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    train_n = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if train_n != {n: c * steps for n, c in per_step.items()} or each:
+        raise AssertionError(f"CTR train launches {train_n} != {per_step} x "
+                             f"{steps}, or {len(each)} per-tensor loops")
+    if len(costs) != steps or not all(np.isfinite(costs)):
+        raise AssertionError(f"CTR costs {costs}")
+    step_ms = [1e3 * (b - a) for a, b in marks.values()]
+    p50 = float(np.percentile(step_ms, 50))
+    prof = profile_window(lambda: run(tr, traced), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / p50)
+    touched = [len({s[1 + i] for s in data[0]}) / CTR_VOCAB
+               for i in range(CTR_FIELDS)]
+    route_ms = update_route_ab(tr, run, data[:5], stamp, marks)
+
+    # (c) paddle.infer on the predict layer: the eval step's probabilities
+    batch = traced[0]
+    zero()
+    probs = paddle.infer(output_layer=predict, parameters=tr.parameters,
+                         input=batch, feeding=feeding, device=dev)
+    torch.cuda.synchronize()
+    infer_n = counts()
+    values, _, _ = build_eval_step(tr.topology)(
+        {n: torch.as_tensor(v, device=dev)
+         for n, v in tr.parameters.as_dict().items()}, tr.states,
+        tr._feeder(feeding)(batch))
+    want_probs = values[predict.name].cpu().numpy()
+    if not (probs.shape == (bs, 2) and np.array_equal(probs, want_probs)
+            and infer_n == dict(per_step, fused_update=0, sparse_row_update=0,
+                                scatter_add=0)):
+        raise AssertionError(f"paddle.infer vs the eval step: launches "
+                             f"{infer_n}, equal "
+                             f"{np.array_equal(probs, want_probs)}")
+    del tr
+
+    # (d) the row-lazy check: field 0's ids below ``lazy_below`` for 3
+    # steps, L2 1e-3 on (so the dense rule would move an untouched row):
+    # the rows of emb_0 no batch hit (rows lazy_below.. among them) keep
+    # the start's bits and a zero velocity, the rows hit move; the same
+    # run with the dense rule on the table (the planted fault) must fail
+    lazy_data = ctr_batches(rng, 3, bs, below=lazy_below)
+    start = carried["emb_0"]
+    hit = np.zeros(CTR_VOCAB, bool)
+    hit[[s[1] for b in lazy_data for s in b]] = True
+
+    def lazy_run():
+        tr = trainer(paddle.optimizer.L2Regularization(rate=1e-3))
+        zero()
+        run(tr, lazy_data)
+        p = tr.parameters["emb_0"]
+        v = tr._opt_state["slots"]["emb_0"]["velocity"].cpu().numpy()
+        return {"untouched_kept": bool(
+                    np.array_equal(p[~hit], start[~hit])
+                    and not v[~hit].any()),
+                "touched_moved": bool(np.all(np.any(
+                    p[hit] != start[hit], axis=1))),
+                "launches": counts()}
+
+    lazy = lazy_run()
+    real = OPT.lazy_sparse_rows
+    OPT.lazy_sparse_rows = lambda spec, p=None: False
+    try:
+        fault = lazy_run()
+    finally:
+        OPT.lazy_sparse_rows = real
+    if not (lazy["untouched_kept"] and lazy["touched_moved"]
+            and not hit[lazy_below:].any()
+            and lazy["launches"]["sparse_row_update"] == 3):
+        raise AssertionError(f"CTR row-lazy check: {lazy}")
+    if fault["untouched_kept"] or fault["launches"]["sparse_row_update"]:
+        raise AssertionError(f"the row-lazy check does not catch the dense "
+                             f"rule on the table: {fault}")
+    out = {"phase": "train_ctr",
+           "model": "Wide & Deep CTR (models/ctr.wide_and_deep_ctr at "
+                    "bench.py bench_ctr's shapes)",
+           "params": n_params, "tensors": len(carried),
+           "tables": {n: list(carried[n].shape) for n in tables},
+           "wide": CTR_WIDE, "embedding": CTR_EMBED,
+           "hidden": list(CTR_HIDDEN), "dtype": "float32",
+           "optimizer": "Momentum 0.9, lr 0.05 (row-lazy tables)",
+           "cuts": ["optimizer: bench_ctr trains with AdaGrad, which has "
+                    "no row-lazy rule (AdaGrad is queued, A3); Momentum "
+                    "0.9 at lr 0.05 is the repo's CTR test optimizer",
+                    "dtype: bench_ctr trains in bf16; the port in f32 "
+                    "(A17)"],
+           "step_vs_f64_witness": witness,
+           "first_step_rerun_and_loop_bit_identical": True,
+           "batch": bs, "steps": steps, "wall_s": wall,
+           "examples_per_s": bs * steps / wall, "step_ms_p50": p50,
+           "step_ms": step_ms, "costs": costs,
+           "touched_row_share_by_field": touched,
+           "update_route_step_ms": route_ms,
+           "max_memory_allocated_bytes": peak, "train_launches": train_n,
+           "infer_launches": infer_n, "infer_equals_eval_step": True,
+           "row_lazy_check": {"below": lazy_below, "steps": 3,
+                              "l2": 1e-3, "rows_hit": int(hit.sum()),
+                              "lazy": lazy,
+                              "dense_rule_control": fault},
+           "setup_s": setup_s, "profile": prof}
+    return out, (train_n["fused_update"], train_n["sparse_row_update"])
 
 
 def main() -> int:
@@ -3190,7 +3725,12 @@ def main() -> int:
 
     serve, flash_n, paged_n = serve_end_to_end(dev)
     print(json.dumps(serve), flush=True)
-    train, br_n, cv_n = train_end_to_end(dev)
+    update_rows, update_summary = check_update_kernels(dev, Timer(dev))
+    for row in update_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(update_summary), flush=True)
+    torch.cuda.empty_cache()
+    train, br_n, cv_n, up_resnet_n = train_end_to_end(dev)
     print(json.dumps(train), flush=True)
     torch.cuda.empty_cache()
     lm, (fwd_n, dq_n, dkv_n) = train_lm(dev)
@@ -3220,10 +3760,13 @@ def main() -> int:
     vgg_row, vgg_summary = check_vgg_kernels(dev, Timer(dev))
     print(json.dumps({"phase": "kernel", **vgg_row}), flush=True)
     print(json.dumps(vgg_summary), flush=True)
-    vgg, stats_n = train_vgg(dev)
+    vgg, stats_n, up_vgg_n = train_vgg(dev)
     print(json.dumps(vgg), flush=True)
     torch.cuda.empty_cache()
     print(json.dumps(bench_nets(dev)), flush=True)
+    torch.cuda.empty_cache()
+    ctr, (up_ctr_n, rows_n) = train_ctr(dev)
+    print(json.dumps(ctr), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -3245,6 +3788,11 @@ def main() -> int:
     for row, launches in zip(nmt_rows, nmt_n):
         rows.append({**row, "launches": launches})
     rows.append({**vgg_row, "launches": stats_n})
+    # the fused update's launches are those of the three timed runs that
+    # update through it (ResNet-50, small_vgg, the CTR's dense tensors)
+    rows.append({**update_rows[0],
+                 "launches": up_resnet_n + up_vgg_n + up_ctr_n})
+    rows.append({**update_rows[1], "launches": rows_n})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

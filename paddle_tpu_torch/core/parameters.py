@@ -37,6 +37,9 @@ class ParamSpec:
     momentum: float | None = None
     gradient_clipping_threshold: float | None = None
     sparse: bool = False
+    # mesh axes per dim, as ParamAttr(sharding=...) gave them; one card has
+    # no mesh, so nothing reads it
+    sharding: tuple[str | None, ...] | None = None
     sparsity_ratio: float | None = None
     attr: Any = None  # the originating ParamAttr
 

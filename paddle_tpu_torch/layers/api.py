@@ -64,6 +64,7 @@ def _wspec(attr, layer_name, suffix, shape, default_init, **kw) -> ParamSpec:
         attr=a,
         gradient_clipping_threshold=a.gradient_clipping_threshold,
         sparse=a.sparse_update,
+        sharding=a.sharding,
         sparsity_ratio=a.sparsity_ratio,
     )
     fields.update(kw)

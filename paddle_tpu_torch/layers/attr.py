@@ -1,8 +1,9 @@
 """Attribute objects — the port of ``paddle_tpu/layers/attr.py``
 (ParameterAttribute / ExtraLayerAttribute): per-parameter init, LR scale,
-decay and momentum, and per-layer knobs.  Fields the JAX package keeps
-only for its proto output or its mesh (``l1_rate``, ``sharding``,
-``device``) are not accepted."""
+decay and momentum, and per-layer knobs.  ``sharding`` (mesh axes per
+weight dimension) is carried to the parameter's spec and not used: one
+card has no mesh.  Fields the JAX package keeps only for its proto output
+or its device hints (``l1_rate``, ``device``) are not accepted."""
 
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ class ParamAttr:
     sparsity_ratio: float | None = None
     gradient_clipping_threshold: float | None = None
     initializer: Callable | None = None  # direct override
+    # mesh axis name (or None) per weight dim; kept on the spec, unused
+    sharding: tuple | None = None
 
     def make_initializer(self, default: Callable) -> Callable:
         if self.initializer is not None:

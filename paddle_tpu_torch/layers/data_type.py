@@ -1,5 +1,6 @@
 """Input type declarations — the port of ``paddle_tpu/layers/data_type.py``
-(the dense and integer types, plain and as level-1 sequences)."""
+(the dense and integer types, plain and as level-1 sequences, and the
+plain sparse-binary and sparse-float vectors, which the feeder densifies)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ class SeqType:
 class DataKind:
     DENSE = "dense"
     INTEGER = "integer"
+    SPARSE_BINARY = "sparse_binary"
+    SPARSE_FLOAT = "sparse_float"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +38,14 @@ def dense_vector(dim: int, height: int = 0, width: int = 0,
 
 def integer_value(value_range: int) -> InputType:
     return InputType(value_range, SeqType.NO_SEQUENCE, DataKind.INTEGER)
+
+
+def sparse_binary_vector(dim: int) -> InputType:
+    return InputType(dim, SeqType.NO_SEQUENCE, DataKind.SPARSE_BINARY)
+
+
+def sparse_float_vector(dim: int) -> InputType:
+    return InputType(dim, SeqType.NO_SEQUENCE, DataKind.SPARSE_FLOAT)
 
 
 def dense_vector_sequence(dim: int) -> InputType:

@@ -13,7 +13,10 @@
 - :func:`fused_embedding_lookup` — the autograd composition: the forward
   dedups, gathers each unique row once and re-expands; the backward
   scatter-adds the cotangents into a zero table (the JAX package's
-  ``segment_sum`` + ``embedding_scatter_add`` in one launch).
+  ``segment_sum`` + ``embedding_scatter_add`` in one launch);
+- :func:`sparse_row_update` — ``csrc/update.cu``: the row-lazy SGD /
+  Momentum step of a list of ``[V, D]`` tables in one launch (rows whose
+  gradient is all zero keep parameter and slot bit for bit).
 
 CPU tensors take the plain twins; CUDA tensors launch the kernels or
 raise."""
@@ -24,8 +27,10 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops.kernels._build import Kernel
+from paddle_tpu_torch.ops.kernels.update import TensorUpdate, launch_table
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +38,8 @@ KERNEL_GATHER = Kernel("embedding", "embedding_gather_f32",
                        [_P, _P, _P, _I, _I, _I, _P])
 KERNEL_SCATTER = Kernel("embedding", "embedding_scatter_add_f32",
                         [_P, _P, _P, _P, _I, _I, _I, _P])
+KERNEL_ROWS = Kernel("update", "sparse_row_update_f32",
+                     [_P, _I, ctypes.c_longlong, _P])
 
 
 def dedup_ids(ids):
@@ -169,3 +176,45 @@ def fused_embedding_lookup(table, ids, padding_idx=None):
     the backward scatter-adds each table row once (rows of ids outside
     ``[0, V)`` and of ``padding_idx`` get no gradient)."""
     return _FusedLookup.apply(table, ids, padding_idx)
+
+
+# -- the row-lazy optimizer update --------------------------------------------
+
+
+def sparse_row_update_reference(p, g, v=None, *, lr=0.01, mu=0.0,
+                                nesterov=False, weight_decay=0.0):
+    """Plain twin of the row-lazy SGD / Momentum rule (the reference's
+    ``SparseRowMatrix`` update): a row whose gradient is all zero keeps its
+    parameter and slot bit for bit, no decay and no momentum advance; a
+    touched row follows ``update.fused_momentum_update_reference`` (decay
+    folded on touch).  Returns (p', v'), v' None for plain SGD."""
+    p32, g32 = at_least_f32(p), at_least_f32(g)
+    touched = torch.any(g32 != 0.0, dim=1, keepdim=True)
+    if weight_decay:
+        g32 = torch.where(touched, g32 + weight_decay * p32, g32)
+    if v is None:
+        return torch.where(touched, (p32 - lr * g32).to(p.dtype), p), None
+    v32 = at_least_f32(v)
+    vn = mu * v32 + g32
+    delta = lr * (g32 + mu * vn) if nesterov else lr * vn
+    pn = torch.where(touched, (p32 - delta).to(p.dtype), p)
+    return pn, torch.where(touched, vn, v32).to(v.dtype)
+
+
+def reference_row_update(u: TensorUpdate):
+    """(p', v' or None) of one row-lazy update by the plain twin."""
+    return sparse_row_update_reference(u.p, u.g, u.v, lr=u.lr, mu=u.mu,
+                                       nesterov=u.nesterov,
+                                       weight_decay=u.weight_decay)
+
+
+def sparse_row_update(updates: list[TensorUpdate]) -> list[tuple]:
+    """The row-lazy step of every ``[V, D]`` table of ``updates``: [(p',
+    v' or None)], fresh tensors.  CPU tensors take the plain twin; CUDA
+    tensors (float32) take one launch of the kernel for the whole list
+    (one warp a row; untouched rows copied through), or raise."""
+    if not updates:
+        return []
+    if updates[0].p.device.type == "cpu":
+        return [reference_row_update(u) for u in updates]
+    return launch_table(KERNEL_ROWS, updates, rows=True)

@@ -8,13 +8,18 @@ dict, run under ``torch.no_grad`` after the backward pass.  Per-parameter
 attributes come from the ``ParamSpec``s, in the reference's order: decay
 (L2, L1) folded into the gradient, then clipping, then the method, with
 the parameter's learning-rate scale and ``ParamSpec.momentum`` overriding
-the optimizer's coefficient.  The tree form takes any nested params (the
-transformer's) with global decay and clipping only, its slots a list in
-``jax.tree.leaves`` order (:mod:`paddle_tpu_torch.core.tree`).
+the optimizer's coefficient.  A table marked
+``ParamAttr(sparse_update=True)`` takes SGD's and Momentum's row-lazy
+rule (:func:`lazy_sparse_rows`).  ``apply`` of a plain SGD or Momentum
+without L1 or clipping runs through the fused update kernels
+(``ops/kernels/update.fused_apply``: one launch for the dense tensors,
+one for the row-lazy tables), with the bits of the per-tensor loop.  The
+tree form takes any nested params (the transformer's) with global decay
+and clipping only, its slots a list in ``jax.tree.leaves`` order
+(:mod:`paddle_tpu_torch.core.tree`).
 
 Not ported yet, and refused rather than ignored: learning-rate schedules
-other than constant, model averaging, row-lazy sparse updates and
-sparsity pruning."""
+other than constant, model averaging and sparsity pruning."""
 
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 from paddle_tpu_torch.core import tree
 from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.parameters import ParamSpec
+from paddle_tpu_torch.ops.kernels import update as fused
 
 
 @dataclasses.dataclass
@@ -47,8 +53,33 @@ class L2Regularization:
         return self.rate
 
 
+def lazy_sparse_rows(spec, p=None) -> bool:
+    """True when the parameter opted into the reference's
+    ``SparseRowMatrix`` row-lazy contract: ``ParamAttr(sparse_update=True)``
+    on a 2-D [rows, D] table.  Rows whose gradient is all zero this step
+    keep parameter and optimizer slot bit for bit: no decay fold, no
+    momentum advance.  Optimizers that implement the contract set
+    ``lazy_sparse = True`` (SGD, Momentum); the others keep the dense
+    rule, so decay is never silently dropped."""
+    if spec is None or not getattr(spec, "sparse", False):
+        return False
+    if not getattr(getattr(spec, "attr", None), "sparse_update", False):
+        return False
+    return p is None or p.dim() == 2
+
+
+def _row_mask(g):
+    """[rows, 1] bool: the rows this batch touched (a nonzero gradient)."""
+    return torch.any(g != 0.0, dim=1, keepdim=True)
+
+
 class Optimizer:
     """Base: subclasses define slot init and the per-tensor update rule."""
+
+    #: subclasses whose ``tensor_update`` implements the row-lazy contract
+    #: of :func:`lazy_sparse_rows` (decay folded on touched rows inside the
+    #: rule); ``apply`` then skips its dense decay fold for those tables
+    lazy_sparse = False
 
     def __init__(self, learning_rate: float = 0.01, regularization=None,
                  gradient_clipping_threshold: float = 0.0,
@@ -77,6 +108,15 @@ class Optimizer:
         """Return (delta, new_slots) with delta to be SUBTRACTED from p."""
         raise NotImplementedError
 
+    def _lazy_fold(self, g, p, spec):
+        """The row-lazy decay fold: touched rows get g + l2 p, untouched
+        rows keep their exactly-zero gradient.  Returns (g, touched)."""
+        touched = _row_mask(g)
+        l2 = spec.decay_rate if spec.decay_rate is not None else self.l2_rate
+        if l2:
+            g = torch.where(touched, g + l2 * p, g)
+        return g, touched
+
     # -- dict-level API ---------------------------------------------------------
     def init(self, params: dict[str, torch.Tensor],
              specs: dict[str, ParamSpec] | None = None) -> dict:
@@ -85,9 +125,6 @@ class Optimizer:
             if spec.sparsity_ratio:
                 raise NotImplementedError(
                     f"{name}: sparsity pruning is not ported yet")
-            if spec.sparse and getattr(spec.attr, "sparse_update", False):
-                raise NotImplementedError(
-                    f"{name}: row-lazy sparse updates are not ported yet")
         slots = {k: self.slot_init(v, specs.get(k)) for k, v in params.items()}
         return {"step": 0, "slots": slots}
 
@@ -96,8 +133,19 @@ class Optimizer:
               params: dict[str, torch.Tensor], state: dict,
               specs: dict[str, ParamSpec] | None = None):
         """One optimizer step; returns (new_params, new_state).  Order as
-        in the reference: decay/regularize -> clip -> method."""
+        in the reference: decay/regularize -> clip -> method.  The
+        configurations ``fused_apply_eligible`` accepts run through the
+        update kernels, the others through the per-tensor loop
+        (:meth:`_apply_each`); both give the same bits."""
         specs = specs or {}
+        if fused.fused_apply_eligible(self, state, specs, list(params)):
+            return fused.fused_apply(self, grads, params, state, specs)
+        return self._apply_each(grads, params, state, specs)
+
+    @torch.no_grad()
+    def _apply_each(self, grads, params, state, specs):
+        """``apply`` as a loop over the tensors, each through
+        ``tensor_update``."""
         step = state["step"]
         lr = self.learning_rate
         new_params, new_slots = {}, {}
@@ -108,11 +156,14 @@ class Optimizer:
                 new_slots[name] = state["slots"][name]
                 continue
             g = at_least_f32(grads[name])
+            # a row-lazy table folds its decay on touched rows only, in
+            # tensor_update
+            lazy = self.lazy_sparse and lazy_sparse_rows(spec, p)
             l2 = (spec.decay_rate if spec is not None
                   and spec.decay_rate is not None else self.l2_rate)
-            if l2:
+            if l2 and not lazy:
                 g = g + l2 * p
-            if self.l1_rate:
+            if self.l1_rate and not lazy:
                 g = g + self.l1_rate * torch.sign(p)
             th = None
             if spec is not None and spec.gradient_clipping_threshold:
@@ -191,21 +242,36 @@ class SGD(Optimizer):
     ``default_momentum()``) gets a velocity slot; the others stay
     slot-free."""
 
+    lazy_sparse = True
+
     def slot_init(self, p, spec=None):
         if spec is not None and spec.momentum:
             return {"velocity": torch.zeros_like(p), "mu": float(spec.momentum)}
         return ()
 
     def tensor_update(self, g, p, slots, lr, step, spec=None):
+        lazy = lazy_sparse_rows(spec, p)
+        if lazy:
+            g, touched = self._lazy_fold(g, p, spec)
         if isinstance(slots, dict) and "velocity" in slots:
-            v = slots["mu"] * slots["velocity"] + g
-            return lr * v, {"velocity": v, "mu": slots["mu"]}
-        return lr * g, slots
+            m = slots["mu"]
+            v = m * slots["velocity"] + g
+            delta = lr * v
+            if lazy:
+                v = torch.where(touched, v, slots["velocity"])
+                delta = torch.where(touched, delta, 0.0)
+            return delta, {"velocity": v, "mu": m}
+        delta = lr * g
+        if lazy:
+            delta = torch.where(touched, delta, 0.0)
+        return delta, slots
 
 
 class Momentum(Optimizer):
     """Heavy-ball momentum: v' = m*v + g; p -= lr * v (nesterov:
     p -= lr * (g + m*v')).  ``ParamSpec.momentum`` overrides ``m``."""
+
+    lazy_sparse = True
 
     def __init__(self, momentum: float = 0.9, use_nesterov: bool = False, **kw):
         super().__init__(**kw)
@@ -222,6 +288,15 @@ class Momentum(Optimizer):
 
     def tensor_update(self, g, p, slots, lr, step, spec=None):
         m = self._coeff(spec)
+        if lazy_sparse_rows(spec, p):
+            # the SparseRowMatrix rule: decay and the momentum advance on
+            # the rows this batch touched only; the rest bit-identical
+            g, touched = self._lazy_fold(g, p, spec)
+            v = m * slots["velocity"] + g
+            delta = lr * (g + m * v) if self.use_nesterov else lr * v
+            return (torch.where(touched, delta, 0.0),
+                    {"velocity": torch.where(touched, v,
+                                             slots["velocity"])})
         v = m * slots["velocity"] + g
         delta = lr * (g + m * v) if self.use_nesterov else lr * v
         return delta, {"velocity": v}

@@ -1,9 +1,11 @@
 """DataFeeder — the port of ``paddle_tpu/reader/feeder.py`` for dense and
-integer slots, plain and as level-1 sequences: a Python batch (list of
-sample tuples) becomes the feed dict on the trainer's device.  Dense rows
-are float32 [B, dim]; integer values are int64 [B] (PyTorch's index
-type); a sequence slot is a :class:`SequenceBatch` padded to its length
-bucket, as in the JAX package."""
+integer slots, plain and as level-1 sequences, and plain sparse slots: a
+Python batch (list of sample tuples) becomes the feed dict on the
+trainer's device.  Dense rows are float32 [B, dim]; integer values are
+int64 [B] (PyTorch's index type); a sparse-binary sample (a list of ids)
+or sparse-float sample (a list of (index, value) pairs) is densified on
+the host to a float32 [B, dim] row, as in the JAX package; a sequence
+slot is a :class:`SequenceBatch` padded to its length bucket."""
 
 from __future__ import annotations
 
@@ -15,6 +17,42 @@ import torch
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.lod import SequenceBatch, bucket_length, from_ragged
 from paddle_tpu_torch.layers.data_type import DataKind, SeqType
+
+
+def _densify_ids(rows, dim: int) -> np.ndarray:
+    """Id lists (one a row) -> a dense 0/1 [len(rows), dim] in one flat
+    scatter; an id repeated within a row is 1."""
+    rows = [r if hasattr(r, "__len__") else list(r) for r in rows]
+    n = len(rows)
+    dense = np.zeros((n, dim), np.float32)
+    counts = np.fromiter((len(r) for r in rows), np.int64, count=n)
+    total = int(counts.sum())
+    if total:
+        cols = np.fromiter((int(j) for r in rows for j in r), np.int64,
+                           count=total)
+        dense[np.repeat(np.arange(n), counts), cols] = 1.0
+    return dense
+
+
+def _densify_pairs(rows, dim: int) -> np.ndarray:
+    """(index, value) pair lists -> a dense [len(rows), dim] in one flat
+    assignment; a repeated index within a row keeps its last value.  A
+    pair of another arity or a fractional index raises."""
+    rows = [r if hasattr(r, "__len__") else list(r) for r in rows]
+    n = len(rows)
+    dense = np.zeros((n, dim), np.float32)
+    counts = np.fromiter((len(r) for r in rows), np.int64, count=n)
+    if int(counts.sum()):
+        flat = np.concatenate(
+            [np.asarray(r, dtype=np.float64).reshape(len(r), 2)
+             for r in rows if len(r)], axis=0)
+        cols = flat[:, 0].astype(np.int64)
+        if not np.array_equal(cols, flat[:, 0]):
+            raise IndexError("sparse_float pair indices must be integers; "
+                             "got a fractional index")
+        dense[np.repeat(np.arange(n), counts),
+              cols] = flat[:, 1].astype(np.float32)
+    return dense
 
 
 def _stack_uniform(col, dtype) -> np.ndarray | None:
@@ -41,6 +79,10 @@ def padding_stats(feed: Mapping) -> tuple[int, int]:
     return padded, total
 
 
+_SPARSE = {DataKind.SPARSE_BINARY: _densify_ids,
+           DataKind.SPARSE_FLOAT: _densify_pairs}
+
+
 class DataFeeder:
     def __init__(self, data_types: Mapping[str, object] | Sequence[tuple],
                  feeding: Mapping[str, int] | Sequence[str] | None = None,
@@ -50,11 +92,15 @@ class DataFeeder:
         seq_buckets: the length-quantization table of sequence slots
         (default ``bucket_length``'s)."""
         self.types = dict(data_types)
+        dense_kinds = (DataKind.DENSE, DataKind.INTEGER)
         for name, itype in self.types.items():
-            enforce(itype.seq_type in (SeqType.NO_SEQUENCE, SeqType.SEQUENCE)
-                    and itype.kind in (DataKind.DENSE, DataKind.INTEGER),
+            enforce((itype.seq_type == SeqType.SEQUENCE
+                     and itype.kind in dense_kinds)
+                    or (itype.seq_type == SeqType.NO_SEQUENCE
+                        and itype.kind in dense_kinds + tuple(_SPARSE)),
                     f"data layer {name!r}: only dense and integer slots, "
-                    f"plain or as sequences, are ported yet, got {itype}")
+                    "plain or as sequences, and plain sparse slots are "
+                    f"ported yet, got {itype}")
         if feeding is None:
             self.feeding = {n: i for i, n in enumerate(self.types)}
         elif isinstance(feeding, Mapping):
@@ -84,7 +130,9 @@ class DataFeeder:
         dt = np.int64 if itype.kind == DataKind.INTEGER else np.float32
         if itype.seq_type == SeqType.SEQUENCE:
             return self._sequence(col, dt)
-        if itype.kind == DataKind.DENSE:
+        if itype.kind in _SPARSE:
+            arr = _SPARSE[itype.kind](col, itype.dim)
+        elif itype.kind == DataKind.DENSE:
             arr = np.asarray(col, dtype=np.float32).reshape(len(col), -1)
             enforce(arr.shape[1] == itype.dim,
                     f"data layer {name!r} expects dim {itype.dim}, got "

@@ -1031,3 +1031,177 @@ def test_dropout_on_card_repeats_and_keeps_its_rate(cuda):
     kept = (a != 0).float().mean().item()
     assert abs(kept - 0.7) <= 4 * (0.7 * 0.3 / x.numel()) ** 0.5
     assert torch.equal(a[a != 0], (x / 0.7)[a != 0])
+
+
+# -- the fused SGD / Momentum update and the row-lazy table update -------------
+
+# mixed sizes: 1 and 10 (small_vgg's last bias), a block's 2048 and one
+# past it, a conv weight, and a view with an offset
+UPDATE_SHAPES = [(1,), (10,), (2048,), (2049,), (3, 3, 64, 64), (513, 7)]
+
+
+def _bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _updates(rng, dev, kind, wd, shapes=UPDATE_SHAPES):
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    out = []
+    for i, s in enumerate(shapes):
+        p, g, v = (_rand(rng, *s).to(dev) for _ in range(3))
+        if i == len(shapes) - 1:       # a view at an offset into a buffer
+            p = torch.cat([_rand(rng, 5).to(dev), p.reshape(-1)])[5:].view(s)
+        k = kind if kind != "mixed" else ("sgd", "momentum", "nesterov")[i % 3]
+        out.append(U.TensorUpdate(p, g, None if k == "sgd" else v,
+                                  lr=0.1 / (i + 1), mu=0.9 - 0.1 * i,
+                                  nesterov=k == "nesterov",
+                                  weight_decay=wd))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["sgd", "momentum", "nesterov", "mixed"])
+@pytest.mark.parametrize("wd", [0.0, 0.02])
+def test_fused_update_kernel_is_bit_equal_to_the_twin(cuda, kind, wd):
+    """One launch for the whole list; p' and v' equal the eager twin bit
+    for bit (the kernel rounds each product and sum on its own); a rerun
+    gives the same bits."""
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    ups = _updates(np.random.default_rng(len(kind) + int(wd * 100)), cuda,
+                   kind, wd)
+    before = U.KERNEL.launches
+    got = U.fused_update(ups)
+    again = U.fused_update(ups)
+    torch.cuda.synchronize()
+    assert U.KERNEL.launches == before + 2
+    for u, (p2, v2), (p3, v3) in zip(ups, got, again):
+        want_p, want_v = U.reference_update(u)
+        assert p2.shape == u.p.shape and _bits(p2, want_p) and _bits(p2, p3)
+        assert (v2 is None) == (u.v is None)
+        if v2 is not None:
+            assert _bits(v2, want_v) and _bits(v2, v3)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "momentum", "nesterov"])
+@pytest.mark.parametrize("wd", [0.0, 0.02])
+def test_sparse_row_kernel_is_bit_equal_to_the_twin(cuda, kind, wd):
+    """Tables of width 64 (the CTR's), 5 and 100 (a lane tail) in one
+    launch; all-zero rows, a -0.0 row and a row with one nonzero; the
+    untouched rows copied through bit for bit."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    rng = np.random.default_rng(len(kind) * 3 + int(wd * 100))
+    ups = []
+    for rows, d in ((1000, 64), (37, 5), (9, 100)):
+        g = _rand(rng, rows, d)
+        g[rng.random(rows) < 0.4] = 0.0
+        g[1] = -0.0
+        g[2] = 0.0
+        g[2, d - 1] = 0.5
+        ups.append(U.TensorUpdate(
+            _rand(rng, rows, d).to(cuda), g.to(cuda),
+            None if kind == "sgd" else _rand(rng, rows, d).to(cuda), lr=0.05,
+            mu=0.9, nesterov=kind == "nesterov", weight_decay=wd))
+    before = EK.KERNEL_ROWS.launches
+    got = EK.sparse_row_update(ups)
+    again = EK.sparse_row_update(ups)
+    torch.cuda.synchronize()
+    assert EK.KERNEL_ROWS.launches == before + 2
+    for u, (p2, v2), (p3, v3) in zip(ups, got, again):
+        want_p, want_v = EK.reference_row_update(u)
+        assert _bits(p2, want_p) and _bits(p2, p3)
+        untouched = ~(u.g != 0).any(dim=1)
+        assert untouched[1] and not untouched[2]
+        assert _bits(p2[untouched], u.p[untouched])
+        if v2 is not None:
+            assert _bits(v2, want_v) and _bits(v2, v3)
+            assert _bits(v2[untouched], u.v[untouched])
+
+
+def test_fused_update_takes_resnet50s_161_tensors_in_one_launch(cuda):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    cost = paddle.models.image.resnet_cost(depth=50, class_num=1000,
+                                           height=224, width=224)[0]
+    shapes = [s.shape for s in Topology(cost).param_specs()]
+    assert len(shapes) == 161
+    ups = _updates(np.random.default_rng(50), cuda, "momentum", 0.0, shapes)
+    before = U.KERNEL.launches
+    got = U.fused_update(ups)
+    torch.cuda.synchronize()
+    assert U.KERNEL.launches == before + 1
+    for u, (p2, v2) in zip(ups, got):
+        want_p, want_v = U.reference_update(u)
+        assert _bits(p2, want_p) and _bits(v2, want_v)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "momentum", "nesterov"])
+def test_routed_apply_on_card_is_bit_identical_to_the_loop(cuda, kind):
+    """``Optimizer.apply`` on the card (a global L2, a spec decay rate, a
+    spec learning rate and momentum, a static parameter, a lazy table):
+    one dense and one row-lazy launch a step, the loop's bits."""
+    import paddle_tpu_torch.optimizer as TO
+    from paddle_tpu_torch.core import initializer as TI
+    from paddle_tpu_torch.core.parameters import ParamSpec
+    from paddle_tpu_torch.layers.attr import ParamAttr
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    fields = {"w": {}, "b": {"decay_rate": 5e-3},
+              "s": {"learning_rate": 0.25, "momentum": 0.5},
+              "frozen": {"is_static": True},
+              "emb": {"sparse": True, "decay_rate": 0.25,
+                      "attr": ParamAttr(name="emb", sparse_update=True)}}
+    shapes = {"w": (64, 32), "b": (10,), "s": (3, 3, 4, 8), "frozen": (5,),
+              "emb": (100, 64)}
+    specs = {n: ParamSpec(name=n, shape=shapes[n],
+                          initializer=TI.constant(0.0), **f)
+             for n, f in fields.items()}
+    make = {"sgd": lambda **kw: TO.SGD(**kw),
+            "momentum": lambda **kw: TO.Momentum(momentum=0.9, **kw),
+            "nesterov": lambda **kw: TO.Momentum(momentum=0.9,
+                                                 use_nesterov=True, **kw)}
+    opt = make[kind](learning_rate=0.1,
+                     regularization=TO.L2Regularization(rate=1e-3))
+    rng = np.random.default_rng(len(kind))
+    p0 = {n: _rand(rng, *s).to(cuda) for n, s in shapes.items()}
+    pa, sa = p0, opt.init(p0, specs)
+    pb, sb = p0, opt.init(p0, specs)
+    before = (U.KERNEL.launches, EK.KERNEL_ROWS.launches)
+    for _ in range(3):
+        g = {n: _rand(rng, *s).to(cuda) for n, s in shapes.items()}
+        g["emb"][torch.from_numpy(rng.random(100) < 0.5).to(cuda)] = 0.0
+        pa, sa = opt.apply(g, pa, sa, specs)
+        pb, sb = opt._apply_each(g, pb, sb, specs)
+    torch.cuda.synchronize()
+    assert (U.KERNEL.launches - before[0],
+            EK.KERNEL_ROWS.launches - before[1]) == (3, 3)
+    for n in shapes:
+        assert _bits(pa[n], pb[n]), n
+        if isinstance(sb["slots"][n], dict):
+            assert _bits(sa["slots"][n]["velocity"],
+                         sb["slots"][n]["velocity"]), n
+    assert pa["frozen"] is p0["frozen"]
+
+
+def test_update_routes_float64_to_the_twins_and_refuses_half(cuda):
+    """A float64 step on the card (the witness) takes the twins, no
+    launch; a float16 parameter on the card raises."""
+    import paddle_tpu_torch.optimizer as TO
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    opt = TO.Momentum(momentum=0.9, learning_rate=0.1)
+    p = {"w": torch.ones(7, device=cuda, dtype=torch.float64)}
+    before = U.KERNEL.launches
+    got, _ = opt.apply({"w": torch.ones_like(p["w"])}, p, opt.init(p))
+    assert U.KERNEL.launches == before
+    assert got["w"].dtype == torch.float64
+    with pytest.raises(EnforceError, match="float32"):
+        U.fused_update([U.TensorUpdate(
+            torch.ones(7, device=cuda).half(),
+            torch.ones(7, device=cuda).half())])
