@@ -3,7 +3,8 @@
 card — the quickest proof that the port builds, is right, serves and
 trains (ResNet-50, the transformer LM, the LSTM text classifier, the
 OCR CRNN, the attention NMT, the CIFAR-10 VGG, the benchmark image nets
-and the Wide & Deep CTR).
+and the Wide & Deep CTR), and runs the raw-input recurrences and the
+large-vocabulary cross-entropy.
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -229,7 +230,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    after which every row of that table no batch hit keeps its start's
    bits and a zero velocity, and the same run with the dense rule on the
    table, a planted fault, must fail it.
-11. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+11. ``softmax_xent`` (row 4) at the LM's logits, [16 x 1023, 50257] f32
+   (3.29 GB, seeded): the forward kernel (lse, NLL) and the backward
+   kernel under g = 1 against their twins (1e-4 x max(1, |ref|)), reruns
+   in the same bits, each timed beside its twin, its own device time, its
+   bound (one read; one read and one write) and ``F.cross_entropy(
+   reduction="none")``'s forward / backward.  Then the mean NLL and its
+   gradient 10 times through the Function (launch counts zeroed just
+   before, read just after: exactly 10 of each kernel) against the port's
+   eager LM loss chain (``torch.logsumexp`` - gather, the mean, its
+   backward) on the same logits: loss and gradient within 1e-4, step ms
+   of each in blocks of 10 (kernel, eager, eager, kernel) and each one's
+   peak memory.  A measurement only: the LM loss is not routed.
+12. The raw-input recurrences ``ops.rnn.lstm`` (B 64, T 100, E 128, D
+   512, reverse off and on) and ``ops.rnn.gru`` (B 64, T 32, E = D =
+   512), the widths ``tools/bench_mem.py`` sizes their fused-input kernels
+   at; seeded weights, half the rows shorter than T (one of length 1).
+   Rows 6 and 9 (the fused-input forward kernels) against their twins in
+   both directions (max abs error <= 1e-4 x max(1, |ref|), with and
+   without the gate slab, reruns in the same bits), each timed beside its
+   twin, its own device time, its bound (the valid row-steps' products),
+   the port's unfused route (the ``torch.matmul`` projection and the row
+   5 / row 8 forward kernel) and cuDNN's ``nn.LSTM`` / ``nn.GRU`` forward
+   (input projection included; not the same cell).  Then each entry
+   forward and backward 10 times against a fixed cotangent with the
+   launch counts zeroed just before and read just after: exactly 10
+   fused-input forward and 10 remat backward launches and no sequence
+   forward; outputs and every input gradient (x, W_x, b, W_h, [W_hc], h0,
+   [c0]) against a float64 witness of the plain composition on the card,
+   per leaf within 1e-4 x max(1, max |ref|), with TF32 in cuBLAS and the
+   ragged mask ignored as planted faults that must exceed it; a rerun in
+   the same bits; step ms of the fused route against the unfused one in
+   blocks of 10 (fused, unfused, unfused, fused).
+13. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -253,6 +286,8 @@ LM_LOSS_RTOL = 1e-5      # f32 LM step on the card vs the f64 witness: loss,
 LM_GRAD_LIMIT = 1e-4     # per leaf ||g32 - g64|| / ||g64||
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+XENT_GRAD_RTOL = 1e-5     # softmax_xent's gradient, entry by entry: rtol of
+XENT_GRAD_ATOL = 1e-12    # the entry, plus atol x the largest entry
 
 
 def log(msg: str) -> None:
@@ -833,6 +868,8 @@ def kernel_class(name: str) -> str:
                  "gru_fwd", "gru_bwd", "ctc_fwd_bwd", "ctc_decode"):
         if mine in low:
             return f"{mine} (ours)"
+    if "::lse_kernel(" in low or "::dlogits_kernel(" in low:
+        return "softmax_xent (ours)"      # csrc/softmax_xent.cu
     if "::scatter_add_kernel(" in low:    # csrc/embedding.cu
         return "embedding_scatter_add (ours)"
     if "::gather_kernel(" in low:
@@ -908,30 +945,38 @@ def profile_window(fn, steps: int, split: str | None = None) -> dict:
 
 
 #: the GRU kernels' names in a trace, by the launch ``device_ms`` reads
-GRU_KERNEL_NAMES = {"bi": "bigru_fwd_kernel", "fwd": "::gru_fwd_kernel",
+GRU_KERNEL_NAMES = {"bi": "bigru_fwd_kernel",
+                    "fwd": "::gru_fwd_kernel<false",
                     "remat": "gru_bwd_kernel<true",
                     "stored": "gru_bwd_kernel<false"}
 
 
-def device_ms(fns, key: str, rounds: int = 5):
+def device_ms(fns, key: str, rounds: int = 20, tries: int = 3) -> float:
     """The device time of one launch of the kernel whose name holds
-    ``key``, averaged over ``rounds`` calls of each of ``fns`` under
-    ``torch.profiler``: the kernel's own time, without the wrapper's
-    weight packing and allocations (and without an L2 flush).  None when
-    the trace holds no such kernel."""
+    ``key``, averaged over the launches a ``torch.profiler`` trace of
+    ``rounds`` calls of each of ``fns`` records: the kernel's own time,
+    without the wrapper's weight packing and allocations (and without an
+    L2 flush).  On the H100 host every other trace drops its first ~7
+    kernel records (13 of 20 launches recorded, then 20 of 20, in turn),
+    so a trace of 5 launches could hold none: 20 launches leave at least
+    13.  Raises when ``tries`` traces in a row hold no such kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            for fn in fns:
-                fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and key in e.key]
-    n = sum(e.count for e in hits)
-    return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / n
+    raise AssertionError(f"device_ms: {tries} traces held no kernel named "
+                         f"like {key!r}")
 
 
 def witness_ratio(start: dict, wide: dict, got: dict) -> tuple:
@@ -3695,6 +3740,494 @@ def train_ctr(dev, bs=1024, steps=10, lazy_below=900) -> tuple[dict, tuple]:
     return out, (train_n["fused_update"], train_n["sparse_row_update"])
 
 
+# -- phases 11 and 12: softmax_xent and the raw-input recurrences ------------
+
+#: ops.rnn.lstm / ops.rnn.gru at the widths the JAX package sizes their
+#: fused-input kernels at (tools/bench_mem.py:143-165): (kind, B, T, E, D)
+RAW_RNN = (("lstm", 64, 100, 128, 512), ("gru", 64, 32, 512, 512))
+RAW_RNN_STEPS = 10
+#: the LM's logits: [16 x 1023, vocab 50257] f32 (phase 5's batch)
+XENT_SHAPE = (16 * 1023, 50257)
+FI_KERNEL_NAMES = {"lstm": "lstm_fwd_kernel<true", "gru": "gru_fwd_kernel<true"}
+
+
+def raw_rnn_inputs(dev, kind, b, t, e, d, seed=11):
+    """Seeded f32 inputs of ``ops.rnn.lstm`` / ``gru``: x [b, t, e], lengths
+    (half the rows full, half shorter than t, one of length 1), the
+    weights {w_x, w_h, [w_hc], b}, the initial state [h0, (c0)] and a fixed
+    cotangent of each output (hs, h_T, [c_T])."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    lens = torch.randint(1, t, (b,), generator=gen, device=dev)
+    lens[: b // 2] = t
+    lens[-1] = 1
+    n = 4 if kind == "lstm" else 3
+    w = {"w_x": rnd(e, n * d, k=e ** -0.5), "b": rnd(n * d, k=0.1)}
+    if kind == "lstm":
+        w["w_h"] = rnd(d, 4 * d, k=d ** -0.5)
+        init = [rnd(b, d, k=0.5), rnd(b, d, k=0.5)]
+        cts = [rnd(b, t, d), rnd(b, d), rnd(b, d)]
+    else:
+        w["w_h"] = rnd(d, 2 * d, k=d ** -0.5)
+        w["w_hc"] = rnd(d, d, k=d ** -0.5)
+        init = [rnd(b, d, k=0.5)]
+        cts = [rnd(b, t, d), rnd(b, d)]
+    return rnd(b, t, e), lens, w, init, cts
+
+
+def raw_rnn_call(kind, x, lens, w, init, reverse):
+    """One call of the entry a user makes: ``ops.rnn.lstm`` / ``gru`` over
+    SequenceBatch(x, lens); returns the outputs (hs, h_T, [c_T])."""
+    from paddle_tpu_torch.core.lod import SequenceBatch
+    from paddle_tpu_torch.ops import rnn as R
+
+    seq = SequenceBatch(x, lens)
+    if kind == "lstm":
+        out, last = R.lstm(seq, w["w_x"], w["w_h"], w["b"], reverse=reverse,
+                           init=R.LSTMState(*init))
+        return out.data, last.h, last.c
+    out, last = R.gru(seq, w["w_x"], w["w_h"], w["w_hc"], w["b"],
+                      reverse=reverse, init=init[0])
+    return out.data, last
+
+
+def raw_rnn_reference(kind, x, lens, w, init, reverse):
+    """The plain composition (the projection as one product, then the
+    plain scan; autograd for the backward) on the same leaves: the
+    float64 witness's function."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    t = x.shape[1]
+    mask = (torch.arange(t, device=x.device)[None, :]
+            < lens[:, None]).to(x.dtype)
+    if kind == "lstm":
+        peep = torch.zeros(3, w["w_h"].shape[0], dtype=x.dtype,
+                           device=x.device)
+        hs, (h_t, c_t) = LK.lstm_seq_fi_reference(
+            x, mask, w["w_x"], w["b"], w["w_h"], peep, *init, reverse)
+        return hs, h_t, c_t
+    return GK.gru_seq_fi_reference(x, mask, w["w_x"], w["b"], w["w_h"],
+                                   w["w_hc"], init[0], reverse)
+
+
+def raw_rnn_grads(fn, kind, x, lens, w, init, cts, reverse):
+    """(outputs, gradients) of ``fn`` (raw_rnn_call or raw_rnn_reference)
+    for the fixed cotangents, by leaf name."""
+    leaves = {"x": x, **w, **{f"init{i}": v for i, v in enumerate(init)}}
+    leaves = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+    ws = {k: leaves[k] for k in w}
+    st = [leaves[f"init{i}"] for i in range(len(init))]
+    outs = fn(kind, leaves["x"], lens, ws, st, reverse)
+    grads = torch.autograd.grad(outs, list(leaves.values()), cts)
+    named = {f"out{i}": o.detach() for i, o in enumerate(outs)}
+    named.update({"d" + k: g for k, g in zip(leaves, grads)})
+    return named
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Per leaf max |got - want| / max(1, max |want|), in float64."""
+    return {k: ((got[k].double() - want[k]).abs().max()
+                / max(1.0, want[k].abs().max().item())).item()
+            for k in want}
+
+
+def check_raw_rnn_kernels(dev, timer) -> tuple[list, dict]:
+    """Rows 6 and 9 at the path's shapes (``RAW_RNN``; both directions),
+    each fused-input forward kernel against its twin (max abs error <= TOL
+    x max(1, |ref|)), with and without its gate slab, a rerun in the same
+    bits.  Timed per launch (the mean of the two directions) beside its
+    twin, its own device time from a trace, the bound (the valid
+    row-steps' products), the port's unfused route (``torch.matmul``
+    projection + the row 5 / row 8 forward kernel, the A/B of the fusion)
+    and cuDNN's ``nn.LSTM`` / ``nn.GRU`` forward with the input projection,
+    which is not the same cell (no peepholes; the GRU's reset gate after
+    the product), a yardstick of scale only."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    t0 = time.perf_counter()
+    rows, summary = [], {"phase": "raw_rnn_kernels", "tol": TOL}
+    f32 = 4.0
+    for kind, b, t, e, d in RAW_RNN:
+        mod = LK if kind == "lstm" else GK
+        x, lens, w, init, _ = raw_rnn_inputs(dev, kind, b, t, e, d)
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+        if kind == "lstm":
+            rec = (w["w_h"], torch.zeros(3, d, device=dev))
+        else:
+            rec = (w["w_h"], w["w_hc"])
+        args = (x, mask, w["w_x"], w["b"], *rec, *init)
+        err, calls = 0.0, {}
+        gate = 2 if kind == "lstm" else 1
+        for reverse in (False, True):
+            slab = mod._fi_fwd_kernel(*args, reverse, True)
+            got = mod._fi_fwd_kernel(*args, reverse, False)
+            again = mod._fi_fwd_kernel(*args, reverse, False)
+            torch.cuda.synchronize()
+            for i, (p, q, s) in enumerate(zip(got, again, slab)):
+                if i == gate:
+                    continue
+                if not (torch.equal(p, q) and torch.equal(p, s)):
+                    raise AssertionError(f"{kind}_seq_fi forward: a rerun "
+                                         "or the gate slab changes the bits")
+            want = mod._fi_fwd_plain(*args, reverse, True)
+            for g, v in zip(slab, want):
+                m = (g - v).abs().max().item()
+                if not m <= TOL * max(1.0, v.abs().max().item()):
+                    raise AssertionError(f"{kind}_seq_fi forward kernel vs "
+                                         f"plain: {m}")
+                err = max(err, m)
+            del slab, got, again, want
+            calls[reverse] = (
+                lambda r=reverse: mod._fi_fwd_kernel(*args, r, False),
+                lambda r=reverse: mod._fi_fwd_plain(*args, r, False),
+                lambda r=reverse: mod._fwd_kernel(
+                    LK._project_xw(x, w["w_x"], w["b"]), mask, *rec, *init,
+                    r, False))
+        ms = {r: timer(c[0]) for r, c in calls.items()}
+        unfused = {r: timer(c[2]) for r, c in calls.items()}
+        plain = [timer(c[1], iters=3) for c in calls.values()]
+        own = device_ms([c[0] for c in calls.values()],
+                        FI_KERNEL_NAMES[kind])
+        unfused_own = device_ms([c[2] for c in calls.values()],
+                                f"{kind}_fwd_kernel<false")
+        cudnn = (torch.nn.LSTM if kind == "lstm" else torch.nn.GRU)(
+            e, d, batch_first=True).to(dev)
+
+        def lib(cudnn=cudnn, x=x):
+            with torch.no_grad():
+                return cudnn(x)
+
+        steps = float(mask.sum().item())       # valid row-steps
+        n = 4 if kind == "lstm" else 3
+        flops = steps * (2.0 * e * n * d + 2.0 * d * n * d)
+        # x, mask, W_x, b, the recurrent weights and the state in; hs (and
+        # cs) and the last state out
+        nbytes = f32 * (b * t * e + b * t + e * n * d + n * d
+                        + sum(v.numel() for v in rec) + len(init) * b * d
+                        + len(init) * (b * t * d + b * d))
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows.append({
+            "name": f"{kind}_seq_fi_fwd", "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{kind}_seq.cu",
+            "replaces": ("paddle_tpu/ops/pallas/lstm.py:686" if kind == "lstm"
+                         else "paddle_tpu/ops/pallas/gru.py:452"),
+            "shape": [b, t, e, d], "max_abs_err": err,
+            "ms": (ms[False] + ms[True]) / 2,
+            "ms_by_direction": {"forward": ms[False], "reverse": ms[True]},
+            "plain_ms": sum(plain) / 2, "kernel_only_ms": own,
+            "unfused_ms": (unfused[False] + unfused[True]) / 2,
+            "unfused_kernel_only_ms": unfused_own,
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "library_ms": timer(lib),
+            "library_note": (f"cuDNN nn.{'LSTM' if kind == 'lstm' else 'GRU'}"
+                             " forward, input projection included: not the "
+                             "same cell")})
+        summary[kind] = {"reruns_bit_identical": True,
+                         "gate_slab_leaves_outputs_bits": True,
+                         "valid_row_steps": steps}
+        del cudnn, calls
+        torch.cuda.synchronize()
+    summary["seconds"] = time.perf_counter() - t0
+    return rows, summary
+
+
+def raw_rnn_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
+    """The raw-input recurrences through the entries a user calls,
+    ``ops.rnn.lstm`` (reverse off and on) and ``ops.rnn.gru``, at
+    ``RAW_RNN``'s widths: a forward and backward against a fixed
+    cotangent ``steps`` times with the launch counts zeroed just before
+    and read just after (exactly ``steps`` fused-input forward and
+    ``steps`` remat backward launches, no launch of the sequence forward);
+    the outputs and every input gradient against a float64 witness of the
+    plain composition on the card (per leaf max |x32 - x64| <= TOL x
+    max(1, max |x64|)), with TF32 allowed in cuBLAS and the ragged mask
+    ignored as planted faults that must exceed it; the step ms of the
+    fused route against the unfused one (the projection product and the
+    sequence kernel), in blocks of ``steps``: fused, unfused, unfused,
+    fused.  Returns (the phase's result, {kind: fused-input launches})."""
+    from paddle_tpu_torch.ops import rnn as R
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    t0 = time.perf_counter()
+    out = {"phase": "raw_rnn_path", "steps": steps, "tol": TOL, "cases": {}}
+    launches = {"lstm": 0, "gru": 0}
+    for kind, b, t, e, d in RAW_RNN:
+        mod = LK if kind == "lstm" else GK
+        for reverse in ((False, True) if kind == "lstm" else (False,)):
+            x, lens, w, init, cts = raw_rnn_inputs(dev, kind, b, t, e, d)
+            label = f"{kind}{'_reverse' if reverse else ''}"
+            if not R.fused_input_fits(x, mod, w["w_x"],
+                                      *(v for k, v in w.items()
+                                        if k.startswith("w_h"))):
+                raise AssertionError(f"{label}: the predicate refuses the "
+                                     "path's shape")
+            wide = raw_rnn_grads(
+                raw_rnn_reference, kind, x.double(), lens,
+                {k: v.double() for k, v in w.items()},
+                [v.double() for v in init], [c.double() for c in cts],
+                reverse)
+            kernels = (mod.KERNEL_FI, mod.KERNEL_BWD, mod.KERNEL_FWD)
+
+            def run(n, kernels=kernels, kind=kind, x=x, lens=lens, w=w,
+                    init=init, cts=cts, reverse=reverse):
+                ms = []
+                for k in kernels:
+                    k.launches = 0
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    got = raw_rnn_grads(raw_rnn_call, kind, x, lens, w, init,
+                                        cts, reverse)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                return got, ms, tuple(k.launches for k in kernels)
+
+            got, fused_ms, n_fused = run(steps)
+            if n_fused != (steps, steps, 0):
+                raise AssertionError(f"{label}: launches (fused-input, "
+                                     f"remat backward, sequence forward) = "
+                                     f"{n_fused}, want ({steps}, {steps}, 0)")
+            launches[kind] += n_fused[0]
+            errs = leaf_errors(got, wide)
+            if not max(errs.values()) <= TOL:
+                raise AssertionError(f"{label} vs the float64 witness: "
+                                     f"{errs}")
+            again = raw_rnn_grads(raw_rnn_call, kind, x, lens, w, init, cts,
+                                  reverse)
+            if not all(torch.equal(got[k], again[k]) for k in got):
+                raise AssertionError(f"{label}: a rerun differs in bits")
+            # the unfused route: the projection product and the sequence
+            # kernels (the JAX package's route with its fused flag off)
+            on = R.fused_input_on
+            R.fused_input_on = lambda device: False
+            try:
+                unfused, unfused_ms, n_unfused = run(steps)
+                unfused_ms += run(steps)[1]
+            finally:
+                R.fused_input_on = on
+            if n_unfused != (0, steps, steps):
+                raise AssertionError(f"{label}: unfused launches {n_unfused}")
+            unfused_err = max(leaf_errors(unfused, wide).values())
+            fused_ms += run(steps)[1]
+            # the controls: each must exceed the witness's limit
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = max(leaf_errors(raw_rnn_grads(
+                    raw_rnn_call, kind, x, lens, w, init, cts, reverse),
+                    wide).values())
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            full = torch.full_like(lens, t)
+            unmasked = max(leaf_errors(raw_rnn_grads(
+                raw_rnn_call, kind, x, full, w, init, cts, reverse),
+                wide).values())
+            for name, v in (("tf32", tf32), ("mask_ignored", unmasked)):
+                if not v > TOL:
+                    raise AssertionError(f"{label}: the {name} control "
+                                         f"passed the witness ({v})")
+            out["cases"][label] = {
+                "shape": [b, t, e, d], "reverse": reverse,
+                "lengths": "half full, half shorter, one of length 1",
+                "launches_fused": n_fused, "launches_unfused": n_unfused,
+                "witness_err": max(errs.values()),
+                "witness_err_by_leaf": errs,
+                "unfused_witness_err": unfused_err,
+                "control_tf32": tf32, "control_mask_ignored": unmasked,
+                "fused_step_ms_p50": float(np.percentile(fused_ms, 50)),
+                "unfused_step_ms_p50": float(np.percentile(unfused_ms, 50)),
+                "fused_ms": fused_ms, "unfused_ms": unfused_ms}
+            del got, again, unfused, wide
+            torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def xent_inputs(dev, seed=13):
+    """Seeded logits [16368, 50257] (N(0, 2^2)) and targets of the LM's
+    loss shape."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, v = XENT_SHAPE
+    logits = 2.0 * torch.randn(n, v, generator=gen, device=dev)
+    return logits, torch.randint(0, v, (n,), generator=gen, device=dev)
+
+
+def entry_ratio(got, want) -> float:
+    """The largest |got - want| / (XENT_GRAD_RTOL |want| + XENT_GRAD_ATOL
+    max |want|) over the entries: at most 1 holds every entry of a softmax
+    gradient to its own size, the smallest ones included (a typical entry
+    is ~1e-5 of the largest at V 50257)."""
+    floor = XENT_GRAD_ATOL * want.abs().max().item()
+    lim = want.abs().mul_(XENT_GRAD_RTOL).add_(floor)
+    return (got - want).abs_().div_(lim).max().item()
+
+
+def check_xent_kernels(dev, timer) -> tuple[list, dict]:
+    """Row 4 at the LM's logits (``XENT_SHAPE``): the forward kernel (lse
+    and NLL) and the backward kernel under g = 1 (entries up to 1) against
+    their twins (the forward's max abs error <= TOL x max(1, |ref|), the
+    backward entry by entry, ``entry_ratio`` <= 1, with two planted faults
+    it must catch), reruns in the same bits; each timed beside its twin,
+    its own device time (``device_ms``), its bound (one read; one read and
+    one write) and ``F.cross_entropy(reduction="none")``'s forward /
+    backward."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    t0 = time.perf_counter()
+    logits, targets = xent_inputs(dev)
+    n, v = logits.shape
+    g = torch.ones(n, device=dev)
+    nll, lse = SX._fwd_kernel(logits, targets)
+    again = SX._fwd_kernel(logits, targets)
+    d1 = SX._bwd_kernel(logits, targets, lse, g)
+    d2 = SX._bwd_kernel(logits, targets, lse, g)
+    torch.cuda.synchronize()
+    if not (torch.equal(nll, again[0]) and torch.equal(lse, again[1])
+            and torch.equal(d1, d2)):
+        raise AssertionError("softmax_xent: a rerun differs in bits")
+    del again, d2
+    errs = {}
+    for name, got, want in zip(("nll", "lse"), (nll, lse),
+                               SX._fwd_plain(logits, targets)):
+        errs[name] = (got - want).abs().max().item()
+        if not errs[name] <= TOL * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"softmax_xent forward vs plain: {errs}")
+    want = SX._bwd_plain(logits, targets, lse, g)
+    errs["dlogits"] = (d1 - want).abs().max().item()
+    errs["dlogits_ratio"] = entry_ratio(d1, want)
+    if not errs["dlogits_ratio"] <= 1.0:
+        raise AssertionError(f"softmax_xent backward vs plain: {errs}")
+    # planted faults the limit must catch: the entries under 1e-4 (most
+    # of a row) zeroed, and every entry 1e-4 too large
+    controls = {
+        "small_entries_zeroed": entry_ratio(
+            d1.masked_fill(d1.abs() < 1e-4, 0.0), want),
+        "scaled_1e-4": entry_ratio(d1 * (1.0 + 1e-4), want)}
+    errs["controls"] = controls
+    if not all(r > 1.0 for r in controls.values()):
+        raise AssertionError(f"softmax_xent backward: a planted fault "
+                             f"passed the limit: {controls}")
+    del want, d1
+    torch.cuda.empty_cache()
+    leaf = logits.clone().requires_grad_()
+    ce = F.cross_entropy(leaf, targets, reduction="none")
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.cross_entropy(logits, targets, reduction="none")
+
+    def lib_bwd():
+        return torch.autograd.grad(ce, leaf, g, retain_graph=True)
+
+    f32, elems = 4.0, float(n) * v
+    fwd = lambda: SX._fwd_kernel(logits, targets)  # noqa: E731
+    bwd = lambda: SX._bwd_kernel(logits, targets, lse, g)  # noqa: E731
+    rows = []
+    for name, fn, plain, lib, key, nbytes, ops in (
+            # logits and targets in, lse and nll out; max, compare, exp,
+            # add an element
+            ("softmax_xent_fwd", fwd,
+             lambda: SX._fwd_plain(logits, targets), lib_fwd, "lse_kernel",
+             f32 * elems + 8 * n + 2 * f32 * n, 4 * elems),
+            # logits, targets, lse, g in, dlogits out; sub, exp, sub, mul
+            ("softmax_xent_bwd", bwd,
+             lambda: SX._bwd_plain(logits, targets, lse, g), lib_bwd,
+             "dlogits_kernel", 2 * f32 * elems + 8 * n + 2 * f32 * n,
+             4 * elems)):
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
+            "replaces": ("paddle_tpu/ops/pallas/softmax_xent.py:73"
+                         if name.endswith("fwd")
+                         else "paddle_tpu/ops/pallas/softmax_xent.py:120"),
+            "shape": [n, v],
+            "max_abs_err": (max(errs["nll"], errs["lse"])
+                            if name.endswith("fwd") else errs["dlogits"]),
+            "ms": timer(fn), "plain_ms": timer(plain, iters=5),
+            "kernel_only_ms": device_ms([fn], key),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timer(lib, iters=10),
+            "library_note": "F.cross_entropy(reduction='none')"
+                            + (" backward" if name.endswith("bwd") else "")})
+    del ce, leaf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows, {"phase": "xent_kernels", "tol": TOL, "errors": errs,
+                  "reruns_bit_identical": True,
+                  "seconds": time.perf_counter() - t0}
+
+
+def xent_path(dev, steps=10) -> tuple[dict, tuple]:
+    """``softmax_xent`` at the LM's logits (``XENT_SHAPE``): the mean NLL
+    and its gradient ``steps`` times through the Function (its launches
+    zeroed just before and read just after: exactly ``steps`` of each
+    kernel), against the port's eager LM loss chain on the same logits
+    (``transformer.loss_fn``'s ``torch.logsumexp`` - gather, the mean,
+    its backward): the loss within TOL x max(1, |ref|), the gradient entry
+    by entry (``entry_ratio`` <= 1), step ms of each in blocks of
+    ``steps`` (kernel, eager, eager, kernel) and the peak memory of each.  A measurement: nothing routes the LM loss
+    through the kernels.  Returns (the phase's result, (forward, backward)
+    launches)."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    t0 = time.perf_counter()
+    logits, targets = xent_inputs(dev)
+    leaf = logits.requires_grad_()
+
+    def kernel():
+        loss = SX.softmax_xent(leaf, targets).mean()
+        return loss, torch.autograd.grad(loss, leaf)[0]
+
+    def eager():
+        lse = torch.logsumexp(leaf, dim=-1)
+        tgt = torch.gather(leaf, -1, targets[:, None])[:, 0]
+        loss = torch.mean(lse - tgt)
+        return loss, torch.autograd.grad(loss, leaf)[0]
+
+    ms = {"kernel": [], "eager": []}
+    peak = {}
+    counted = None
+    for route in ("kernel", "eager", "eager", "kernel"):
+        fn = kernel if route == "kernel" else eager
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if counted is None:
+            SX.KERNEL_FWD.launches = SX.KERNEL_BWD.launches = 0
+        for _ in range(steps):
+            start = time.perf_counter()
+            loss, grad = fn()
+            torch.cuda.synchronize()
+            ms[route].append(1e3 * (time.perf_counter() - start))
+            del loss, grad
+        if counted is None:
+            counted = (SX.KERNEL_FWD.launches, SX.KERNEL_BWD.launches)
+        peak[route] = max(peak.get(route, 0.0),
+                          torch.cuda.max_memory_allocated() / 1e9)
+    if counted != (steps, steps):
+        raise AssertionError(f"softmax_xent launches {counted}, want "
+                             f"({steps}, {steps})")
+    got, want = kernel(), eager()
+    err = {"loss": abs(got[0].item() - want[0].item()),
+           "grad_ratio": entry_ratio(got[1], want[1])}
+    if not (err["loss"] <= TOL * max(1.0, abs(want[0].item()))
+            and err["grad_ratio"] <= 1.0):
+        raise AssertionError(f"softmax_xent vs the eager loss chain: {err}")
+    del got, want, leaf, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ({"phase": "xent_path", "shape": list(XENT_SHAPE), "steps": steps,
+             "launches": counted, "vs_eager": err,
+             "kernel_step_ms_p50": float(np.percentile(ms["kernel"], 50)),
+             "eager_step_ms_p50": float(np.percentile(ms["eager"], 50)),
+             "peak_gb": peak, "seconds": time.perf_counter() - t0,
+             **{f"{k}_ms": v for k, v in ms.items()}},
+            counted)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -3767,6 +4300,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     ctr, (up_ctr_n, rows_n) = train_ctr(dev)
     print(json.dumps(ctr), flush=True)
+    torch.cuda.empty_cache()
+    xent_rows, xent_summary = check_xent_kernels(dev, Timer(dev))
+    for row in xent_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(xent_summary), flush=True)
+    xent, xent_n = xent_path(dev)
+    print(json.dumps(xent), flush=True)
+    torch.cuda.empty_cache()
+    raw_rows, raw_summary = check_raw_rnn_kernels(dev, Timer(dev))
+    for row in raw_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(raw_summary), flush=True)
+    raw, raw_n = raw_rnn_path(dev)
+    print(json.dumps(raw), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -3793,6 +4340,12 @@ def main() -> int:
     rows.append({**update_rows[0],
                  "launches": up_resnet_n + up_vgg_n + up_ctr_n})
     rows.append({**update_rows[1], "launches": rows_n})
+    # row 4 counts the LM-logits run's launches, rows 6 and 9 the
+    # raw-input path's fused-input launches (the LSTM's both directions)
+    for row, launches in zip(xent_rows, xent_n):
+        rows.append({**row, "launches": launches})
+    for row in raw_rows:
+        rows.append({**row, "launches": raw_n[row["name"].split("_")[0]]})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,11 +1,13 @@
-// Fused GRU over a whole sequence: the forward and the backward (stored
-// gates or remat, one template flag), each one persistent cooperative
-// launch that walks every time step.
+// Fused GRU over a whole sequence: the forward (over xw, or over raw x
+// with the input projection inside the loop, one template flag) and the
+// backward (stored gates or remat, one template flag), each one
+// persistent cooperative launch that walks every time step.
 //
 // Replaces paddle_tpu/ops/pallas/gru.py::gru_seq (the Pallas _fwd_kernel,
 // _bwd_kernel and _bwd_remat_kernel: grid (batch blocks, T) run in order
 // on one core, W_h and W_hc resident in VMEM, the h carry in VMEM
-// scratch).
+// scratch) and gru.py::gru_seq_fi (_fwd_fi_kernel: the same grid with
+// W_x resident too, so the [T, B, 3D] gate-input slab never reaches HBM).
 //
 // Layout (batch-major, as the JAX entry takes it): xw [B, T, 3D] with
 // gate order [u, r, c]; mask [B, T] f32 (1 while t < length; rows freeze
@@ -52,46 +54,72 @@ namespace {
 
 using namespace gru;
 
-template <int S>
+// kFi: `in` is raw x [B, T, E] and the block keeps its [E][U][3] column
+// slice of W_x (wxp) beside W_h's and W_hc's; xc_buf carries the
+// candidate's input x_t W_x[:, 2D:] + b from (A) to (B).  Otherwise `in`
+// is xw [B, T, 3D] (E, wxp, bias and xc_buf unused).
+template <bool kFi, int S>
 __global__ void __launch_bounds__(kRows * kMaxUnits, 1)
-gru_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
+gru_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
+               const float* __restrict__ wxp, const float* __restrict__ bias,
                const float* __restrict__ whp, const float* __restrict__ whcp,
                const float* h0, float* hs, float* urc, float* hT,
-               float* rh_buf, float* u_buf, int B, int T, int D, int U,
-               int reverse) {
+               float* rh_buf, float* u_buf, float* xc_buf, int B, int T,
+               int E, int D, int U, int reverse) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* wh_s = smem;                            // [D][U][2]
-  float* whc_s = smem + (size_t)D * U * 2;       // [D][U]
-  float* a_s = smem + (size_t)D * U * 3;
+  const size_t wx = kFi ? (size_t)E * U * 3 : 0;
+  float* wx_s = smem;                            // [E][U][3] (kFi)
+  float* wh_s = smem + wx;                       // [D][U][2]
+  float* whc_s = wh_s + (size_t)D * U * 2;       // [D][U]
+  float* a_s = whc_s + (size_t)D * U;
   const Lane ln(U);
   const int u = blockIdx.x * U + ln.uu;
   const bool live = u < D;
+  if (kFi) load_slice(wx_s, wxp, wx, blockIdx.x);
   load_slice(wh_s, whp, (size_t)D * U * 2, blockIdx.x);
   load_slice(whc_s, whcp, (size_t)D * U, blockIdx.x);
   __syncthreads();
+  float b_u = 0.f, b_r = 0.f, b_c = 0.f;
+  if (kFi && live) {
+    b_u = bias[u];
+    b_r = bias[D + u];
+    b_c = bias[2 * D + u];
+  }
   cg::grid_group grid = cg::this_grid();
-  const size_t TD = (size_t)T * D;
+  const size_t TD = (size_t)T * D, TE = (size_t)T * E;
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;
-    // (A) u, r and r * h_{t-1} of the own units
+    // (A) (the projection,) u, r and r * h_{t-1} of the own units
     for (int b0 = 0; b0 < B; b0 += kRows) {
       const int rows = min(kRows, B - b0);
+      float xv[3], ur[2];
+      if (kFi)
+        gemm<3, S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, U, ln,
+                   a_s, xv);
       const float* a = s == 0 ? h0 + (size_t)b0 * D
                               : hs + b0 * TD + (size_t)tp * D;
-      float ur[2];
       gemm<2, S>(a, s == 0 ? D : TD, rows, D, wh_s, U, ln, a_s, ur);
       if (!live || ln.row >= rows) continue;
       const int b = b0 + ln.row;
-      const float* xr = xw + (b * TD + (size_t)t * D) * 3;
-      const float hp = s == 0 ? __ldcg(h0 + (size_t)b * D + u)
+      const size_t bo = (size_t)b * D + u;
+      if (kFi) {
+        xv[0] += b_u;
+        xv[1] += b_r;
+        xc_buf[bo] = xv[2] + b_c;
+      } else {
+        const float* xr = in + (b * TD + (size_t)t * D) * 3;
+        xv[0] = xr[u];
+        xv[1] = xr[D + u];
+      }
+      const float hp = s == 0 ? __ldcg(h0 + bo)
                               : __ldcg(hs + b * TD + (size_t)tp * D + u);
       float ug, rg;
-      update_reset(xr[u], xr[D + u], ur[0], ur[1], ug, rg);
-      rh_buf[(size_t)b * D + u] = rg * hp;
-      u_buf[(size_t)b * D + u] = ug;
+      update_reset(xv[0], xv[1], ur[0], ur[1], ug, rg);
+      rh_buf[bo] = rg * hp;
+      u_buf[bo] = ug;
       if (urc != nullptr) {
         float* g = urc + (b * TD + (size_t)t * D) * 3;
         g[u] = ug;
@@ -106,16 +134,18 @@ gru_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
       gemm<1, S>(rh_buf + (size_t)b0 * D, D, rows, D, whc_s, U, ln, a_s, ac);
       if (!live || ln.row >= rows) continue;
       const int b = b0 + ln.row;
-      const float* xr = xw + (b * TD + (size_t)t * D) * 3;
-      const float hp = s == 0 ? __ldcg(h0 + (size_t)b * D + u)
+      const size_t bo = (size_t)b * D + u;
+      const float xc = kFi ? xc_buf[bo]
+                           : in[(b * TD + (size_t)t * D) * 3 + 2 * D + u];
+      const float hp = s == 0 ? __ldcg(h0 + bo)
                               : __ldcg(hs + b * TD + (size_t)tp * D + u);
-      const float c = candidate(xr[2 * D + u], ac[0]);
-      const float ug = u_buf[(size_t)b * D + u];
+      const float c = candidate(xc, ac[0]);
+      const float ug = u_buf[bo];
       const float m = mask[(size_t)b * T + t];
       const float hn = m * (ug * hp + (1.f - ug) * c) + (1.f - m) * hp;
       hs[b * TD + (size_t)t * D + u] = hn;
       if (urc != nullptr) urc[(b * TD + (size_t)t * D) * 3 + 2 * D + u] = c;
-      if (s == T - 1) hT[(size_t)b * D + u] = hn;
+      if (s == T - 1) hT[bo] = hn;
     }
     grid.sync();
   }
@@ -250,6 +280,26 @@ gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ urc_in,
   }
 }
 
+template <bool kFi>
+int launch_fwd(const float* in, const float* mask, const float* wxp,
+               const float* bias, const float* whp, const float* whcp,
+               const float* h0, float* hs, float* urc, float* hT,
+               float* rh_buf, float* u_buf, float* xc_buf, int B, int T,
+               int E, int D, int U, int reverse, void* stream) {
+  const size_t w = (size_t)(3 * E + 3 * D) * U;
+  const int stages = stages_for(w, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = sizeof(float) * (w + scratch_floats(U, stages));
+  void* args[] = {&in, &mask, &wxp, &bias, &whp, &whcp, &h0, &hs, &urc,
+                  &hT, &rh_buf, &u_buf, &xc_buf, &B, &T, &E, &D, &U,
+                  &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? cooperative(gru_fwd_kernel<kFi, 3>, grid, kRows * U, smem, args, st)
+      : cooperative(gru_fwd_kernel<kFi, 2>, grid, kRows * U, smem, args, st);
+}
+
 }  // namespace
 
 // The grid: ceil(D / U) blocks of 64U threads; whp [blocks][D][U][2] and
@@ -261,17 +311,26 @@ extern "C" int gru_fwd_f32(const float* xw, const float* mask,
                            float* rh_buf, float* u_buf, int B, int T, int D,
                            int U, int reverse, void* stream) {
   if (!valid_shape(B, T, D, U)) return (int)cudaErrorInvalidValue;
-  const size_t w = (size_t)D * U * 3;
-  const int stages = stages_for(w, U);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  const int grid = (D + U - 1) / U;
-  const size_t smem = sizeof(float) * (w + scratch_floats(U, stages));
-  void* args[] = {&xw, &mask, &whp, &whcp, &h0, &hs, &urc, &hT, &rh_buf,
-                  &u_buf, &B, &T, &D, &U, &reverse};
-  cudaStream_t st = (cudaStream_t)stream;
-  return stages == 3
-      ? cooperative(gru_fwd_kernel<3>, grid, kRows * U, smem, args, st)
-      : cooperative(gru_fwd_kernel<2>, grid, kRows * U, smem, args, st);
+  return launch_fwd<false>(xw, mask, nullptr, nullptr, whp, whcp, h0, hs,
+                           urc, hT, rh_buf, u_buf, nullptr, B, T, 0, D, U,
+                           reverse, stream);
+}
+
+// The fused-input forward: x [B, T, E] (E % 4 == 0), wxp [blocks][E][U][3]
+// the column slices of W_x, bias [3D]; the rest as gru_fwd_f32.  scratch:
+// [3][B][D] (r * h_{t-1}, u, the candidate's input).
+extern "C" int gru_fi_fwd_f32(const float* x, const float* mask,
+                              const float* wxp, const float* bias,
+                              const float* whp, const float* whcp,
+                              const float* h0, float* hs, float* urc,
+                              float* hT, float* scratch, int B, int T, int E,
+                              int D, int U, int reverse, void* stream) {
+  if (!valid_shape(B, T, D, U) || E <= 0 || E % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t bd = (size_t)B * D;
+  return launch_fwd<true>(x, mask, wxp, bias, whp, whcp, h0, hs, urc, hT,
+                          scratch, scratch + bd, scratch + 2 * bd, B, T, E,
+                          D, U, reverse, stream);
 }
 
 // remat != 0: the gates recomputed from xw and the shifted h stack into

@@ -1,9 +1,13 @@
-// Fused LSTM over a whole sequence: the forward and the backward, each one
-// persistent cooperative launch that walks every time step.
+// Fused LSTM over a whole sequence: the forward (over xw, or over raw x
+// with the input projection inside the loop, one template flag) and the
+// backward, each one persistent cooperative launch that walks every time
+// step.
 //
 // Replaces paddle_tpu/ops/pallas/lstm.py::lstm_seq (the Pallas _fwd_kernel,
 // _bwd_kernel and _bwd_remat_kernel: grid (batch blocks, T) run in order on
-// one core, W_h resident in VMEM, the h/c carries in VMEM scratch).
+// one core, W_h resident in VMEM, the h/c carries in VMEM scratch) and
+// lstm.py::lstm_seq_fi (_fwd_fi_kernel: the same grid with W_x resident
+// too, so the [T, B, 4D] gate-input slab never reaches HBM).
 //
 // Layout (batch-major, as the JAX entry takes it): xw [B, T, 4D] with gate
 // order [i, f, g, o]; mask [B, T] f32 (1 while t < length; rows freeze
@@ -34,6 +38,18 @@
 // stages of cp.async in flight; the inner loop reads float4s of h rows and
 // of W, 64 FMAs per 8 shared loads.  The two halves give the SM 10 warps
 // at D 1280 (5 left the barriers and the load waits exposed).
+//
+// The fused-input forward (lstm_fi_fwd_f32) takes raw x [B, T, E], W_x
+// [E, 4D] and b [4D]: each block keeps the [E][U][4] column slice of W_x
+// of its units beside its W_h slice ((E + D) 4U floats: 40 KB at E 128,
+// D 512, U 4), and each step computes b + x_t W_x for its columns with
+// gemm_gates over x rows read through L2, then adds h_{t-1} W_h as the
+// forward over xw does.  At B 64, E 128, D 512 a step is 168 MFLOP, a
+// quarter of it the projection; the [B, T, 4D] xw slab (at T 100, 52 MB)
+// is neither written nor read.  The outputs and the gates slab (remat
+// off) are the forward's, in the layout the backward reads.  csrc/
+// bilstm_seq.cu is no start for it: a block there holds all of W_h,
+// which caps D near 116.
 //
 // Backward, reverse time.  (A) per own unit: the gates (recomputed from xw
 // and the shifted h/c stacks with gemm_gates and the forward's cell code
@@ -67,8 +83,10 @@ constexpr int kLda = kK + 4;          // its padded row stride (floats)
 constexpr int kStage = kRows * kLda;  // floats a stage
 constexpr int kMaxUnits = 16;         // 32U threads a block, at most 512
 
-// Shared-memory plan (floats), the same formula on host and device.  Once
-// a chunk's product is done the staging area holds the halves' sums
+// Shared-memory plan (floats), the same formula on host and device (and in
+// ops/kernels/lstm.py's _smem_floats): K rows of [U][4] weights (D, or
+// E + D for the fused-input forward), then the staging area.  Once a
+// chunk's product is done the staging area holds the halves' sums
 // [2][kRows][4U + 4] (padded rows: no bank conflicts), then in the
 // backward the dgates tile [kRows][4U + 4] and the peephole partials
 // [3][32][U].
@@ -76,8 +94,8 @@ __host__ __device__ inline int row_stride(int U) { return 4 * U + 4; }
 
 struct Plan {
   int a, total;
-  __host__ __device__ Plan(int D, int U, int stages) {
-    a = D * 4 * U;
+  __host__ __device__ Plan(int K, int U, int stages) {
+    a = K * 4 * U;
     int scratch = stages * kStage;
     const int sums = 2 * kRows * row_stride(U);
     const int tiles = kRows * row_stride(U) + 3 * 2 * kRG * U;
@@ -223,32 +241,43 @@ __device__ __forceinline__ void load_slice(float* w_s, const float* wpack,
   for (int e = threadIdx.x; e < D * U; e += blockDim.x) dst[e] = src[e];
 }
 
-template <int S>
+// kFi: `in` is raw x [B, T, E] and the block keeps the [E][U][4] slice
+// of W_x (wxpack) before its W_h slice; otherwise `in` is xw [B, T, 4D]
+// (E, wxpack and bias unused).
+template <bool kFi, int S>
 __global__ void __launch_bounds__(2 * kRG * kMaxUnits, 1)
-lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
+lstm_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
+                const float* __restrict__ wxpack,
+                const float* __restrict__ bias,
                 const float* __restrict__ wpack,
                 const float* __restrict__ peep, const float* h0,
                 const float* c0, float* hs, float* cs, float* gates,
-                float* hT, float* cT, int B, int T, int D, int U,
+                float* hT, float* cT, int B, int T, int E, int D, int U,
                 int reverse) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Plan plan(D, U, S);
-  float* w_s = smem;
+  const Plan plan(kFi ? E + D : D, U, S);
+  float* wx_s = smem;                            // [E][U][4] (kFi)
+  float* w_s = smem + (kFi ? (size_t)E * 4 * U : 0);
   float* a_s = smem + plan.a;
   const int half = threadIdx.x / (kRG * U), l = threadIdx.x % (kRG * U);
   const int rg = l % kRG, uu = l / kRG;
   const int u = blockIdx.x * U + uu;
   const bool live = u < D;
+  if (kFi) load_slice(wx_s, wxpack, E, U);
   load_slice(w_s, wpack, D, U);
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f, bv[4] = {0.f, 0.f, 0.f, 0.f};
   if (live) {
     p0 = peep[u];
     p1 = peep[D + u];
     p2 = peep[2 * D + u];
+    if (kFi) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) bv[g] = bias[g * D + u];
+    }
   }
   cg::grid_group grid = cg::this_grid();
-  const size_t TD = (size_t)T * D, T4D = TD * 4;
+  const size_t TD = (size_t)T * D, T4D = TD * 4, TE = (size_t)T * E;
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
@@ -262,15 +291,27 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
         const int r = rg + kRG * (2 * half + i);
         if (!live || r >= rows) continue;
         const int b = b0 + r;
-        const float* xr = xw + b * T4D + (size_t)t * 4 * D;
+        if (!kFi) {
+          const float* xr = in + b * T4D + (size_t)t * 4 * D;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x[i][g] = xr[g * D + u];
+          for (int g = 0; g < 4; ++g) x[i][g] = xr[g * D + u];
+        }
         const size_t bu = (size_t)b * D + u;
         hp[i] = s == 0 ? __ldcg(h0 + bu)
                        : __ldcg(hs + b * TD + (size_t)tp * D + u);
         cp[i] = s == 0 ? __ldcg(c0 + bu)
                        : __ldcg(cs + b * TD + (size_t)tp * D + u);
         m[i] = mask[(size_t)b * T + t];
+      }
+      if (kFi) {
+        // b + x_t W_x for the own columns, as the twin's xw entries
+        float px[2][4];
+        gemm_gates<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, U,
+                      uu, rg, half, a_s, px);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) x[i][g] = bv[g] + px[i][g];
       }
       const float* a = s == 0 ? h0 + (size_t)b0 * D
                               : hs + b0 * TD + (size_t)tp * D;
@@ -514,15 +555,15 @@ lstm_bwd_kernel(const float* __restrict__ xw,
   }
 }
 
-// Stages of the A pipeline: three when they fit beside the W slice, else
-// two; 0 when even two do not fit.
-int stages_for(int D, int U) {
+// Stages of the A pipeline: three when they fit beside K rows of weight
+// slices, else two; 0 when even two do not fit.
+int stages_for(int K, int U) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   for (int s = 3; s >= 2; --s)
-    if (sizeof(float) * (size_t)Plan(D, U, s).total <= (size_t)optin)
+    if (sizeof(float) * (size_t)Plan(K, U, s).total <= (size_t)optin)
       return s;
   return 0;
 }
@@ -551,6 +592,26 @@ bool valid_shape(int B, int T, int D, int U) {
   return B > 0 && T > 0 && D > 0 && D % 4 == 0 && U > 0 && U <= kMaxUnits;
 }
 
+template <bool kFi>
+int launch_fwd(const float* in, const float* mask, const float* wxpack,
+               const float* bias, const float* wpack, const float* peep,
+               const float* h0, const float* c0, float* hs, float* cs,
+               float* gates, float* hT, float* cT, int B, int T, int E,
+               int D, int U, int reverse, void* stream) {
+  const int K = kFi ? E + D : D;
+  const int stages = stages_for(K, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = sizeof(float) * Plan(K, U, stages).total;
+  void* args[] = {&in, &mask, &wxpack, &bias, &wpack, &peep, &h0, &c0, &hs,
+                  &cs, &gates, &hT, &cT, &B, &T, &E, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n = 2 * kRG * U;
+  return stages == 3
+      ? cooperative(lstm_fwd_kernel<kFi, 3>, grid, n, smem, args, st)
+      : cooperative(lstm_fwd_kernel<kFi, 2>, grid, n, smem, args, st);
+}
+
 }  // namespace
 
 // The grid: ceil(D / U) blocks of 32U threads; wpack [blocks][D][U][4].
@@ -561,16 +622,25 @@ extern "C" int lstm_fwd_f32(const float* xw, const float* mask,
                             int B, int T, int D, int U, int reverse,
                             void* stream) {
   if (!valid_shape(B, T, D, U)) return (int)cudaErrorInvalidValue;
-  const int stages = stages_for(D, U);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  const int grid = (D + U - 1) / U;
-  const size_t smem = sizeof(float) * Plan(D, U, stages).total;
-  void* args[] = {&xw, &mask, &wpack, &peep, &h0, &c0, &hs, &cs, &gates,
-                  &hT, &cT, &B, &T, &D, &U, &reverse};
-  cudaStream_t st = (cudaStream_t)stream;
-  return stages == 3
-      ? cooperative(lstm_fwd_kernel<3>, grid, 2 * kRG * U, smem, args, st)
-      : cooperative(lstm_fwd_kernel<2>, grid, 2 * kRG * U, smem, args, st);
+  return launch_fwd<false>(xw, mask, nullptr, nullptr, wpack, peep, h0, c0,
+                           hs, cs, gates, hT, cT, B, T, 0, D, U, reverse,
+                           stream);
+}
+
+// The fused-input forward: x [B, T, E] (E % 4 == 0), wxpack
+// [blocks][E][U][4] the column slices of W_x, bias [4D]; the rest as
+// lstm_fwd_f32.
+extern "C" int lstm_fi_fwd_f32(const float* x, const float* mask,
+                               const float* wxpack, const float* bias,
+                               const float* wpack, const float* peep,
+                               const float* h0, const float* c0, float* hs,
+                               float* cs, float* gates, float* hT, float* cT,
+                               int B, int T, int E, int D, int U,
+                               int reverse, void* stream) {
+  if (!valid_shape(B, T, D, U) || E <= 0 || E % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd<true>(x, mask, wxpack, bias, wpack, peep, h0, c0, hs,
+                          cs, gates, hT, cT, B, T, E, D, U, reverse, stream);
 }
 
 // remat != 0: gates recomputed from xw and the shifted h/c stacks

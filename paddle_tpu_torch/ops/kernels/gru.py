@@ -1,6 +1,7 @@
 """Fused GRU sequence kernels (the port of ``paddle_tpu/ops/pallas/gru.py``'s
-``gru_seq``: forward, stored-gates backward and remat backward; and
-``bigru_seq``: both directions of a fused-input BiGRU in one forward).
+``gru_seq``: forward, stored-gates backward and remat backward;
+``gru_seq_fi``: the forward with the input projection inside the loop;
+and ``bigru_seq``: both directions of a fused-input BiGRU in one forward).
 
 The cell is Paddle's (``ops/rnn.gru_cell``), not cuDNN's: the reset gate
 acts on h *before* the candidate product, and the gates are ordered
@@ -22,6 +23,16 @@ to XLA).  CPU tensors take the plain twins (:func:`_fwd_plain`,
 :func:`_bwd_plain`), which compute each step as the kernels do, so the
 two backward forms give the same bits there too.
 
+:func:`gru_seq_fi` is a ``torch.autograd.Function`` over raw inputs.  On
+the card its forward is one launch of the forward kernel in its
+fused-input form (``x @ W_x + b`` inside the loop, the [B, T, 3D]
+gate-input slab never in device memory; the u/r/c slab written when remat
+is off), and its backward recomputes xw with one ``torch.matmul``
+(remat on) and launches the backward kernel above; ``dW_x``, ``db`` and
+``dx`` are products outside.  Its CPU twin (:func:`_fi_fwd_plain`)
+projects step by step, as the kernel does.  :func:`fi_fits` says, from
+the device and the shapes alone, whether the kernels take a shape.
+
 :func:`bigru_seq` is a ``torch.autograd.Function`` too.  On the card its
 forward is one launch of ``csrc/bigru_seq.cu``, which runs both
 directions and computes ``x @ W_x + b`` inside its loop, so the [B, T, 3D]
@@ -38,13 +49,15 @@ composes it per direction over the projected input."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops.kernels._build import Kernel
-from paddle_tpu_torch.ops.kernels.lstm import _project_xw, _shift_prev
+from paddle_tpu_torch.ops.kernels.lstm import (_card, _project_xw,
+                                               _shift_prev, tiling_refusal)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +67,7 @@ KERNEL_BWD = Kernel("gru_seq", "gru_bwd_f32", [_P] * 18 + [_I] * 6 + [_P])
 KERNEL_BWD_STORED = Kernel("gru_seq", "gru_bwd_f32",
                            [_P] * 18 + [_I] * 6 + [_P])
 KERNEL_BI = Kernel("bigru_seq", "bigru_fwd_f32", [_P] * 17 + [_I] * 5 + [_P])
+KERNEL_FI = Kernel("gru_seq", "gru_fi_fwd_f32", [_P] * 11 + [_I] * 6 + [_P])
 
 #: the kernels' tiling: a block owns U <= 8 hidden units with 64U threads
 _MAX_UNITS = 8
@@ -85,11 +99,25 @@ def _steps(t: int, reverse: bool):
 def _fwd_plain(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
     """Plain twin of the forward kernel: (hs [B, T, D], urc [B, T, 3D] or
     None, h_T [B, D])."""
-    t = xw.shape[1]
+    return _run(lambda k: xw[:, k], xw.shape[1], mask, w_h, w_hc, h0,
+                reverse, emit_gates)
+
+
+def _fi_fwd_plain(x, mask, w_x, b, w_h, w_hc, h0, reverse, emit_gates):
+    """Plain twin of the fused-input forward kernel: each step's gate input
+    x_t @ W_x + b inside the loop, as the kernel computes it; the contract
+    of :func:`_fwd_plain`."""
+    return _run(lambda k: torch.matmul(x[:, k], w_x) + b, x.shape[1], mask,
+                w_h, w_hc, h0, reverse, emit_gates)
+
+
+def _run(step_input, t, mask, w_h, w_hc, h0, reverse, emit_gates):
+    """The forward recurrence over the gate inputs ``step_input(k)``
+    [B, 3D]."""
     h = h0
     hs, urc = [None] * t, [None] * t
     for k in _steps(t, reverse):
-        u, r, c, _ = _gates(xw[:, k], h, w_h, w_hc)
+        u, r, c, _ = _gates(step_input(k), h, w_h, w_hc)
         m = mask[:, k, None]
         h = m * (u * h + (1.0 - u) * c) + (1.0 - m) * h
         hs[k] = h
@@ -152,10 +180,27 @@ def _units(device, d: int, share: int = 1) -> int:
 
 def _check_smem(device, floats: int, what: str) -> None:
     """Refuse a tiling whose shared memory exceeds the card's opt-in."""
-    limit = getattr(torch.cuda.get_device_properties(device),
-                    "shared_memory_per_block_optin", 232448)
+    limit = _card(device)[1]
     enforce(4 * floats <= limit, f"{what} needs {4 * floats} bytes of "
             f"shared memory a block, more than the {limit} the card allows")
+
+
+def _fi_smem_floats(e: int, d: int, u: int) -> int:
+    """The fused-input forward's block: 3 (E + D) U weight floats and the
+    staging area."""
+    return 3 * (e + d) * u + _STAGE
+
+
+#: (E, D, SMs, opt-in bytes) -> why :func:`gru_seq_fi` refuses, or None
+_fi_refusal = functools.partial(tiling_refusal, "gru_seq_fi", _MAX_UNITS,
+                                _fi_smem_floats)
+
+
+def fi_fits(device, e: int, d: int) -> bool:
+    """Whether :func:`gru_seq_fi`'s kernels take input width E and hidden
+    width D on the card ``device``: decided from the card's SM count and
+    shared-memory opt-in before any launch."""
+    return _fi_refusal(e, d, *_card(device)) is None
 
 
 def _pack_columns(w, d: int, u: int, n: int):
@@ -204,6 +249,30 @@ def _fwd_kernel(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
                       hs.data_ptr(), _ptr(urc), h_t.data_ptr(),
                       scratch[0].data_ptr(), scratch[1].data_ptr(), b, t, d,
                       u, int(reverse), _stream())
+    return hs, urc, h_t
+
+
+def _fi_fwd_kernel(x, mask, w_x, b, w_h, w_hc, h0, reverse, emit_gates):
+    """The fused-input forward kernel (the contract of
+    :func:`_fi_fwd_plain`)."""
+    _check_kernel_args(x, mask, w_x, b, w_h, w_hc, h0)
+    bsz, t, e = x.shape
+    d = w_hc.shape[0]
+    sms, optin = _card(x.device)
+    refusal = _fi_refusal(e, d, sms, optin)
+    enforce(refusal is None, refusal or "")
+    u = -(-d // sms)
+    hs = torch.empty(bsz, t, d, device=x.device)
+    urc = torch.empty(bsz, t, 3 * d, device=x.device) if emit_gates else None
+    h_t = torch.empty_like(h0)
+    scratch = torch.empty(3, bsz, d, device=x.device)   # r*h, u, xw_c
+    packs = (_pack_columns(w_x, d, u, 3), _pack_columns(w_h, d, u, 2),
+             _pack_columns(w_hc, d, u, 1))     # referenced until queued
+    KERNEL_FI.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+                     b.data_ptr(), packs[1].data_ptr(), packs[2].data_ptr(),
+                     h0.data_ptr(), hs.data_ptr(), _ptr(urc),
+                     h_t.data_ptr(), scratch.data_ptr(), bsz, t, e, d, u,
+                     int(reverse), _stream())
     return hs, urc, h_t
 
 
@@ -407,6 +476,60 @@ def bigru_seq(x, mask, w_x_f, b_f, w_h_f, w_hc_f, w_x_b, b_b, w_h_b, w_hc_b,
         x.contiguous(), mask.to(x.dtype).contiguous(),
         *(w.contiguous() for w in (w_x_f, b_f, w_h_f, w_hc_f, w_x_b, b_b,
                                    w_h_b, w_hc_b, h0f, h0b)))
+
+
+class _GruSeqFi(torch.autograd.Function):
+    """JAX: ``gru_seq_fi``'s ``custom_vjp``.  Residuals: x, mask, the
+    weights, h0, hs and the u/r/c slab (remat off); with remat on the
+    backward recomputes xw with one product (JAX's ``_project_xw``) and
+    the gates from it."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w_x, b, w_h, w_hc, h0, reverse, remat):
+        fwd = _fi_fwd_plain if x.device.type == "cpu" else _fi_fwd_kernel
+        hs, urc, h_t = fwd(x, mask, w_x, b, w_h, w_hc, h0, reverse,
+                           not remat)
+        ctx.save_for_backward(x, urc, mask, w_x, b, w_h, w_hc, h0, hs)
+        ctx.cfg = (reverse, remat)
+        return hs, h_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_t):
+        x, urc, mask, w_x, b, w_h, w_hc, h0, hs = ctx.saved_tensors
+        reverse, remat = ctx.cfg
+        bwd = _bwd_plain if x.device.type == "cpu" else _bwd_kernel
+        xw = _project_xw(x, w_x, b) if remat else None
+        dxw, dh0, rh = bwd(xw, urc, mask, w_h, w_hc, h0, hs,
+                           dhs.contiguous(), dh_t.contiguous(), reverse,
+                           remat)
+        dw_h, dw_hc = _recurrent_grads(dxw, hs, h0, rh, reverse)
+        bsz, t, e = x.shape
+        dg = dxw.reshape(-1, 3 * w_hc.shape[0])
+        return (torch.matmul(dg, w_x.t()).reshape(bsz, t, e), None,
+                torch.matmul(x.reshape(bsz * t, e).t(), dg), dg.sum(0), dw_h,
+                dw_hc, dh0, None, None)
+
+
+def gru_seq_fi(x, mask, w_x, b, w_h, w_hc, h0, reverse=False, remat=False):
+    """Fused-input GRU over a whole sequence: ``x @ W_x + b`` runs inside
+    the recurrence (the cell and mask as :func:`gru_seq`).
+
+    x [B, T, E]; w_x [E, 3D]; b [3D] (zeros for no bias); w_h [D, 2D];
+    w_hc [D, D]; h0 [B, D]; remat: keep no u/r/c slab, recompute xw and
+    the gates in the backward.  Returns (hs [B, T, D], h_T)."""
+    d = w_hc.shape[0]
+    enforce(x.dim() == 3 and x.shape[1] >= 1
+            and tuple(w_x.shape) == (x.shape[2], 3 * d)
+            and tuple(b.shape) == (3 * d,)
+            and tuple(w_h.shape) == (d, 2 * d),
+            f"gru_seq_fi: x must be [B, T>=1, E] with w_x [E, 3D], b [3D], "
+            f"w_h [D, 2D] and w_hc [D, D], got x {tuple(x.shape)}, w_x "
+            f"{tuple(w_x.shape)}, b {tuple(b.shape)}, w_h {tuple(w_h.shape)}"
+            f", w_hc {tuple(w_hc.shape)}")
+    return _GruSeqFi.apply(
+        x.contiguous(), mask.to(x.dtype).contiguous(),
+        *(w.contiguous() for w in (w_x, b, w_h, w_hc, h0)), bool(reverse),
+        bool(remat))
 
 
 def gru_seq_fi_reference(x, mask, w_x, b, w_h, w_hc, h0, reverse=False):

@@ -1,6 +1,7 @@
 """Fused LSTM sequence kernels (the port of ``paddle_tpu/ops/pallas/lstm.py``'s
-``lstm_seq``: forward, stored-gates backward and remat backward; and
-``bilstm_seq``: both directions of a fused-input BiLSTM in one forward).
+``lstm_seq``: forward, stored-gates backward and remat backward;
+``lstm_seq_fi``: the forward with the input projection inside the loop;
+and ``bilstm_seq``: both directions of a fused-input BiLSTM in one forward).
 
 :func:`lstm_seq` is a ``torch.autograd.Function``.  On the card its forward
 is one cooperative launch of ``csrc/lstm_seq.cu``'s forward kernel over
@@ -11,6 +12,17 @@ off: read from the slab the forward stored; the two give the same bits).
 kernel, as the JAX package leaves it to XLA.  CPU tensors take the plain
 twins (:func:`_fwd_plain`, :func:`_bwd_plain`), which compute each step as
 the kernels do, so the two backward forms give the same bits there too.
+
+:func:`lstm_seq_fi` is a ``torch.autograd.Function`` over raw inputs.  On
+the card its forward is one launch of the forward kernel in its
+fused-input form: each block keeps its W_x columns beside its W_h slice
+and computes ``b + x_t @ W_x`` inside the loop, so the [B, T, 4D]
+gate-input slab never reaches device memory (the gates slab is written
+when remat is off).  Its backward recomputes xw with one ``torch.matmul``
+(remat on) and launches the backward kernel above; ``dW_x``, ``db`` and
+``dx`` are products outside.  Its CPU twin (:func:`_fi_fwd_plain`)
+projects step by step, as the kernel does.  :func:`fi_fits` says, from
+the device and the shapes alone, whether the kernels take a shape.
 
 :func:`bilstm_seq` is a ``torch.autograd.Function`` too.  On the card its
 forward is one launch of ``csrc/bilstm_seq.cu``, which runs both
@@ -29,6 +41,7 @@ composes it per direction over the projected input."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -41,11 +54,15 @@ _I = ctypes.c_int
 KERNEL_FWD = Kernel("lstm_seq", "lstm_fwd_f32", [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD = Kernel("lstm_seq", "lstm_bwd_f32", [_P] * 17 + [_I] * 6 + [_P])
 KERNEL_BI = Kernel("bilstm_seq", "bilstm_fwd_f32", [_P] * 22 + [_I] * 4 + [_P])
+KERNEL_FI = Kernel("lstm_seq", "lstm_fi_fwd_f32", [_P] * 13 + [_I] * 6 + [_P])
 
 #: the kernels' tiling: a block owns U <= 16 hidden units with 32U threads
 _MAX_UNITS = 16
 #: the bilstm kernel's tiling: a block owns one direction and 4 batch rows
 _BI_ROWS = 4
+#: csrc/lstm_seq.cu's staging: 64-row chunks of 32-deep stages (rows
+#: padded to 36 floats), 16 row groups a half-block
+_ROWS, _RG, _STAGE = 64, 16, 64 * 36
 
 
 # -- the plain twins -----------------------------------------------------------
@@ -72,11 +89,25 @@ def _steps(t: int, reverse: bool):
 def _fwd_plain(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
     """Plain twin of the forward kernel: (hs, cs, gates or None, h_T, c_T),
     hs/cs [B, T, D], gates [B, T, 4D]."""
-    t = xw.shape[1]
+    return _run(lambda k: xw[:, k], xw.shape[1], mask, w_h, peep, h0, c0,
+                reverse, emit_gates)
+
+
+def _fi_fwd_plain(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
+    """Plain twin of the fused-input forward kernel: each step's gate input
+    b + x_t @ W_x inside the loop, as the kernel computes it; the contract
+    of :func:`_fwd_plain`."""
+    return _run(lambda k: b + torch.matmul(x[:, k], w_x), x.shape[1], mask,
+                w_h, peep, h0, c0, reverse, emit_gates)
+
+
+def _run(step_input, t, mask, w_h, peep, h0, c0, reverse, emit_gates):
+    """The forward recurrence over the gate inputs ``step_input(k)``
+    [B, 4D]."""
     h, c = h0, c0
     hs, cs, gates = [None] * t, [None] * t, [None] * t
     for k in _steps(t, reverse):
-        i, f, g, o, c_new, h_new = _cell(xw[:, k], h, c, w_h, peep)
+        i, f, g, o, c_new, h_new = _cell(step_input(k), h, c, w_h, peep)
         m = mask[:, k, None]
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
@@ -140,14 +171,70 @@ def _units(device, d: int) -> int:
     return u
 
 
-def _pack_columns(w_h, u: int):
-    """[D, 4D] -> [blocks, D, U, 4]: block j's entry [k, uu, g] is
-    W_h[k, g*D + j*U + uu] (zero past D), the slice it keeps in shared
-    memory, the four gates of a unit side by side."""
-    d = w_h.shape[0]
+def _card(device) -> tuple[int, int]:
+    """(SMs, shared-memory bytes a block may opt in to) of the card."""
+    props = torch.cuda.get_device_properties(device)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", 232448))
+
+
+def _smem_floats(k: int, u: int, stages: int) -> int:
+    """Shared memory of a block in floats, ``Plan`` of csrc/lstm_seq.cu:
+    k rows of [U][4] weight slices, then the staging area (``stages``
+    chunks of A, or the halves' sums, or the backward's tiles)."""
+    ld = 4 * u + 4
+    return k * 4 * u + max(stages * _STAGE, 2 * _ROWS * ld,
+                           _ROWS * ld + 6 * _RG * u)
+
+
+def tiling_refusal(name: str, max_units: int, smem_floats, e: int, d: int,
+                   sms: int, optin: int) -> str | None:
+    """Why the fused-input forward ``name``, or the backward it is paired
+    with, cannot take E, D on a card of ``sms`` SMs and ``optin`` bytes of
+    shared memory a block; None when both can.  A block owns U =
+    ceil(D / SMs) <= ``max_units`` units and keeps ``smem_floats(E, D, U)``
+    floats (the backward: fewer)."""
+    if d % 4 or e % 4:
+        return (f"{name}: E={e} and D={d} must each be a multiple of 4 "
+                "(16-byte copies)")
+    u = -(-d // sms)
+    if u > max_units:
+        return (f"{name}: D={d} needs {u} units a block on {sms} SMs, "
+                f"more than the {max_units} the tiling covers")
+    need = 4 * smem_floats(e, d, u)
+    if need > optin:
+        return (f"{name}: E={e}, D={d} needs {need} bytes of shared "
+                f"memory a block, more than the {optin} the card allows")
+    return None
+
+
+def _fi_smem_floats(e: int, d: int, u: int) -> int:
+    """The fused-input forward's block: (E + D) 4U weight floats and at
+    least two staging chunks."""
+    return _smem_floats(e + d, u, 2)
+
+
+#: (E, D, SMs, opt-in bytes) -> why :func:`lstm_seq_fi` refuses, or None
+_fi_refusal = functools.partial(tiling_refusal, "lstm_seq_fi", _MAX_UNITS,
+                                _fi_smem_floats)
+
+
+def fi_fits(device, e: int, d: int) -> bool:
+    """Whether :func:`lstm_seq_fi`'s kernels take input width E and hidden
+    width D on the card ``device``: decided from the card's SM count and
+    shared-memory opt-in before any launch."""
+    return _fi_refusal(e, d, *_card(device)) is None
+
+
+def _pack_columns(w, u: int):
+    """[K, 4D] -> [blocks, K, U, 4]: block j's entry [k, uu, g] is
+    w[k, g*D + j*U + uu] (zero past D), the slice it keeps in shared
+    memory, the four gates of a unit side by side (W_h: K = D; W_x:
+    K = E)."""
+    k, d = w.shape[0], w.shape[1] // 4
     nb = -(-d // u)
-    w = F.pad(w_h.reshape(d, 4, d), (0, nb * u - d))
-    return w.reshape(d, 4, nb, u).permute(2, 0, 3, 1).contiguous()
+    w = F.pad(w.reshape(k, 4, d), (0, nb * u - d))
+    return w.reshape(k, 4, nb, u).permute(2, 0, 3, 1).contiguous()
 
 
 def _check_kernel_args(*tensors):
@@ -179,6 +266,31 @@ def _fwd_kernel(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
                       hs.data_ptr(), cs.data_ptr(), _ptr(gates),
                       h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
                       int(reverse), torch.cuda.current_stream().cuda_stream)
+    return hs, cs, gates, h_t, c_t
+
+
+def _fi_fwd_kernel(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
+    """The fused-input forward kernel (the contract of
+    :func:`_fi_fwd_plain`)."""
+    _check_kernel_args(x, mask, w_x, b, w_h, peep, h0, c0)
+    bsz, t, e = x.shape
+    d = w_h.shape[0]
+    sms, optin = _card(x.device)
+    refusal = _fi_refusal(e, d, sms, optin)
+    enforce(refusal is None, refusal or "")
+    u = -(-d // sms)
+    packs = (_pack_columns(w_x, u), _pack_columns(w_h, u))  # kept to launch
+    hs = torch.empty(bsz, t, d, device=x.device)
+    cs = torch.empty_like(hs)
+    gates = (torch.empty(bsz, t, 4 * d, device=x.device) if emit_gates
+             else None)
+    h_t, c_t = torch.empty_like(h0), torch.empty_like(c0)
+    KERNEL_FI.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+                     b.data_ptr(), packs[1].data_ptr(), peep.data_ptr(),
+                     h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+                     cs.data_ptr(), _ptr(gates), h_t.data_ptr(),
+                     c_t.data_ptr(), bsz, t, e, d, u, int(reverse),
+                     torch.cuda.current_stream().cuda_stream)
     return hs, cs, gates, h_t, c_t
 
 
@@ -386,6 +498,64 @@ def bilstm_seq(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b, peep_b,
         *(w.contiguous() for w in (w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b,
                                    w_h_b, peep_b, h0f, c0f, h0b, c0b)))
     return hsf, hsb, (hTf, cTf), (hTb, cTb)
+
+
+class _LstmSeqFi(torch.autograd.Function):
+    """JAX: ``lstm_seq_fi``'s ``custom_vjp``.  Residuals: x, mask, the
+    weights, h0, c0, hs, cs and the gates slab (remat off); with remat on
+    the backward recomputes xw with one product (JAX's ``_project_xw``)
+    and the gates from it."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w_x, b, w_h, peep, h0, c0, reverse, remat):
+        fwd = _fi_fwd_plain if x.device.type == "cpu" else _fi_fwd_kernel
+        hs, cs, gates, h_t, c_t = fwd(x, mask, w_x, b, w_h, peep, h0, c0,
+                                      reverse, not remat)
+        ctx.save_for_backward(x, gates, mask, w_x, b, w_h, peep, h0, c0, hs,
+                              cs)
+        ctx.cfg = (reverse, remat)
+        return hs, h_t, c_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_t, dc_t):
+        x, gates, mask, w_x, b, w_h, peep, h0, c0, hs, cs = ctx.saved_tensors
+        reverse, remat = ctx.cfg
+        bwd = _bwd_plain if x.device.type == "cpu" else _bwd_kernel
+        xw = _project_xw(x, w_x, b) if remat else None
+        dgates, dh0, dc0, dpeep = bwd(
+            xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs.contiguous(),
+            dh_t.contiguous(), dc_t.contiguous(), reverse, remat)
+        bsz, t, e = x.shape
+        d = w_h.shape[0]
+        dg = dgates.reshape(-1, 4 * d)
+        h_prev = _shift_prev(hs, h0, reverse).reshape(-1, d)
+        return (torch.matmul(dg, w_x.t()).reshape(bsz, t, e), None,
+                torch.matmul(x.reshape(bsz * t, e).t(), dg), dg.sum(0),
+                torch.matmul(h_prev.t(), dg), dpeep, dh0, dc0, None, None)
+
+
+def lstm_seq_fi(x, mask, w_x, b, w_h, peephole, h0, c0, reverse=False,
+                remat=False):
+    """Fused-input LSTM over a whole sequence: ``x @ W_x + b`` runs inside
+    the recurrence (the cell, peepholes and mask as :func:`lstm_seq`).
+
+    x [B, T, E]; w_x [E, 4D]; b [4D] (zeros for no bias); w_h [D, 4D];
+    peephole [3, D]; h0, c0 [B, D]; remat: keep no gates slab, recompute
+    xw and the gates in the backward.  Returns (hs [B, T, D], (h_T,
+    c_T))."""
+    d = w_h.shape[0]
+    enforce(x.dim() == 3 and x.shape[1] >= 1
+            and tuple(w_x.shape) == (x.shape[2], 4 * d)
+            and tuple(b.shape) == (4 * d,)
+            and tuple(w_h.shape) == (d, 4 * d),
+            f"lstm_seq_fi: x must be [B, T>=1, E] with w_x [E, 4D], b [4D] "
+            f"and w_h [D, 4D], got x {tuple(x.shape)}, w_x "
+            f"{tuple(w_x.shape)}, b {tuple(b.shape)}, w_h {tuple(w_h.shape)}")
+    hs, h_t, c_t = _LstmSeqFi.apply(
+        x.contiguous(), mask.to(x.dtype).contiguous(),
+        *(w.contiguous() for w in (w_x, b, w_h, peephole, h0, c0)),
+        bool(reverse), bool(remat))
+    return hs, (h_t, c_t)
 
 
 def lstm_seq_fi_reference(x, mask, w_x, b, w_h, peephole, h0, c0,

@@ -1,12 +1,17 @@
 """Recurrent cells and masked scans of the port (``paddle_tpu/ops/rnn.py``:
-the LSTM pieces ``lstmemory`` and ``bilstm`` need, and the GRU pieces of
-``grumemory``, ``bigru`` and ``gru_step_layer``).
+the LSTM pieces ``lstmemory`` and ``bilstm`` need, the GRU pieces of
+``grumemory``, ``bigru`` and ``gru_step_layer``, and the raw-input
+recurrences :func:`lstm` and :func:`gru` with their fused-input routes).
 
 The input projection x @ W_x (+ bias) is one large product outside the
-recurrence; only h @ W_h runs inside it.  Ragged batches freeze each
-row's state past its length.  LSTM gates are ordered [input, forget,
-cell (candidate), output]; GRU gates [update, reset, candidate], with
-Paddle's reset-before-product cell (:func:`gru_cell`)."""
+recurrence, and only h @ W_h runs inside it, except on the fused-input
+route: on the card, with the standard activations and a shape the
+kernels take (:func:`fused_input_fits`), :func:`lstm` and :func:`gru` run
+the projection inside the recurrence kernel (:func:`lstm_fi`,
+:func:`gru_fi`), as the JAX package does on the TPU.  Ragged batches
+freeze each row's state past its length.  LSTM gates are ordered [input,
+forget, cell (candidate), output]; GRU gates [update, reset, candidate],
+with Paddle's reset-before-product cell (:func:`gru_cell`)."""
 
 from __future__ import annotations
 
@@ -83,6 +88,80 @@ def _masked_scan(step, x: SequenceBatch, init_state, reverse: bool = False):
     return state, type(state)(*(torch.stack(z, 1) for z in zip(*outs)))
 
 
+def lstm(x: SequenceBatch, w_x, w_h, b, reverse: bool = False,
+         gate_act=act.sigmoid, state_act=act.tanh, init: LSTMState | None = None):
+    """Full LSTM over a ragged batch of raw inputs: x [B, T, E], w_x
+    [E, 4D], w_h [D, 4D], b [4D] or None, init zeros when None.  Routes:
+    the fused-input kernel (:func:`lstm_fi`) when :func:`fused_input_on`
+    and :func:`fused_input_fits` say so and the activations are the
+    standard ones; else one projection product, then the sequence kernel
+    (:func:`lstm_fused`) for the standard activations or the plain masked
+    scan.  Returns (SequenceBatch of h, last LSTMState)."""
+    b_, t = x.batch_size, x.max_len
+    d = w_h.shape[0]
+    data = x.data
+    if init is None:
+        zeros = torch.zeros(b_, d, dtype=data.dtype, device=data.device)
+        init = LSTMState(h=zeros, c=zeros)
+    standard = gate_act is act.sigmoid and state_act is act.tanh
+    if (standard and fused_input_on(data.device)
+            and fused_input_fits(data, lstm_kernels, w_x, w_h)):
+        return lstm_fi(x, w_x, b, w_h, init, reverse=reverse)
+    xw = matmul(data.reshape(b_ * t, -1), w_x)
+    if b is not None:
+        xw = xw + b
+    xw = SequenceBatch(xw.reshape(b_, t, 4 * d), x.length)
+    if standard:
+        return lstm_fused(xw, w_h, init, reverse=reverse)
+
+    def step(state, xt):
+        return lstm_cell(xt, state, w_h, gate_act, state_act)
+
+    last, ys = _masked_scan(step, xw, init, reverse=reverse)
+    return SequenceBatch(data=ys.h, length=x.length), last
+
+
+def fused_input_on(device) -> bool:
+    """True where the fused-input recurrence kernels may engage: on the
+    card.  CPU tensors keep the unfused composition (one projection
+    product, then the sequence Function over it), the JAX package's route
+    off the TPU."""
+    return torch.device(device).type == "cuda"
+
+
+def fused_input_fits(x, kernels, w_x, *weights) -> bool:
+    """Whether the fused-input kernels of ``kernels`` (the module
+    ``kernels/lstm`` or ``kernels/gru``) take these operands (the port's
+    stand-in for the JAX package's VMEM budget ``_fused_fits``): f32
+    everywhere, and the tiling of the fused-input forward and of the
+    backward it is paired with on the card of ``x`` (the module's
+    ``fi_fits``: D and E multiples of 4, the units a block on the SMs,
+    shared memory within the opt-in).  A pure function of the device and
+    the shapes; ``weights`` are the recurrent ones."""
+    return (all(w.dtype == torch.float32 for w in (x, w_x, *weights))
+            and kernels.fi_fits(x.device, w_x.shape[0], weights[-1].shape[0]))
+
+
+def lstm_fi(x: SequenceBatch, w_x, b, w_h, init: LSTMState, peephole=None,
+            reverse: bool = False):
+    """Fused-input LSTM: raw x [B, T, E] through ``kernels/lstm.lstm_seq_fi``
+    with remat on, as the JAX package runs it (on the card one launch
+    with x @ W_x inside the loop; the CPU twin projects step by step).
+    b [4D] or None, peephole [3D] flat or None.  A shape the kernels do
+    not take raises on the card (callers check :func:`fused_input_fits`).
+    Returns (SequenceBatch of h, last LSTMState)."""
+    d = w_h.shape[0]
+    data = x.data
+    bias = (torch.zeros(4 * d, dtype=w_x.dtype, device=w_x.device)
+            if b is None else b)
+    peep = (torch.zeros(3, d, dtype=w_h.dtype, device=w_h.device)
+            if peephole is None else peephole.reshape(3, d))
+    hs, (h_t, c_t) = lstm_kernels.lstm_seq_fi(
+        data, x.mask(data.dtype), w_x, bias, w_h, peep, init.h, init.c,
+        reverse=reverse, remat=True)
+    return SequenceBatch(data=hs, length=x.length), LSTMState(h=h_t, c=c_t)
+
+
 def lstm_fused(xw: SequenceBatch, w_h, init: LSTMState, peephole=None,
                reverse: bool = False, remat: bool | None = None):
     """Standard-activation LSTM over precomputed gate inputs through the
@@ -144,6 +223,53 @@ def gru_fused(xw: SequenceBatch, w_h, w_hc, init, reverse: bool = False,
     hs, h_t = gru_kernels.gru_seq(xw.data, xw.mask(xw.data.dtype), w_h, w_hc,
                                   init, reverse=reverse, remat=remat)
     return SequenceBatch(data=hs, length=xw.length), h_t
+
+
+def gru(x: SequenceBatch, w_x, w_h, w_hc, b, reverse: bool = False,
+        gate_act=act.sigmoid, state_act=act.tanh, init=None):
+    """Full GRU over a ragged batch of raw inputs: x [B, T, E], w_x
+    [E, 3D], w_h [D, 2D], w_hc [D, D], b [3D] or None, init [B, D] zeros
+    when None.  Routes as :func:`lstm`: :func:`gru_fi`, else one
+    projection product and :func:`gru_fused` or the plain masked scan.
+    Returns (SequenceBatch of h, last h)."""
+    b_, t = x.batch_size, x.max_len
+    d = w_h.shape[0]
+    data = x.data
+    if init is None:
+        init = torch.zeros(b_, d, dtype=data.dtype, device=data.device)
+    standard = gate_act is act.sigmoid and state_act is act.tanh
+    if (standard and fused_input_on(data.device)
+            and fused_input_fits(data, gru_kernels, w_x, w_h, w_hc)):
+        return gru_fi(x, w_x, b, w_h, w_hc, init, reverse=reverse)
+    xw = matmul(data.reshape(b_ * t, -1), w_x)
+    if b is not None:
+        xw = xw + b
+    xw = SequenceBatch(xw.reshape(b_, t, 3 * d), x.length)
+    if standard:
+        return gru_fused(xw, w_h, w_hc, init, reverse=reverse)
+
+    def step(h, xt):
+        return gru_cell(xt, h, w_h, w_hc, gate_act, state_act)
+
+    last, ys = _masked_scan(step, xw, init, reverse=reverse)
+    return SequenceBatch(data=ys, length=x.length), last
+
+
+def gru_fi(x: SequenceBatch, w_x, b, w_h, w_hc, init, reverse: bool = False):
+    """Fused-input GRU: raw x [B, T, E] through ``kernels/gru.gru_seq_fi``
+    with remat on, as the JAX package runs it (on the card one launch
+    with x @ W_x + b inside the loop; the CPU twin projects step by
+    step).  b [3D] or None.  A shape the kernels do not take raises on
+    the card (callers check :func:`fused_input_fits`).  Returns
+    (SequenceBatch of h, last h)."""
+    d = w_hc.shape[0]
+    data = x.data
+    bias = (torch.zeros(3 * d, dtype=w_x.dtype, device=w_x.device)
+            if b is None else b)
+    hs, h_t = gru_kernels.gru_seq_fi(data, x.mask(data.dtype), w_x, bias,
+                                     w_h, w_hc, init, reverse=reverse,
+                                     remat=True)
+    return SequenceBatch(data=hs, length=x.length), h_t
 
 
 def bigru_fused(x: SequenceBatch, fw: tuple, bw: tuple):

@@ -496,6 +496,14 @@ def _close(got, want):
             <= TOL * max(1.0, want.abs().max().item()))
 
 
+def _close_each(got, want, rtol=1e-5, atol=1e-12):
+    """Entry by entry: |got - want| <= rtol |want| + atol max |want|.  A
+    softmax gradient's typical entry is far below its largest, so a limit
+    on the largest alone would pass a wrong row."""
+    lim = rtol * want.abs() + atol * want.abs().max()
+    return bool(((got - want).abs() <= lim).all())
+
+
 @pytest.mark.parametrize("b,t,e,d", [
     (64, 24, 256, 64),  # the OCR CRNN at bench width
     (64, 24, 256, 32),  # rnn_size 32 (the convergence recipe)
@@ -1205,3 +1213,225 @@ def test_update_routes_float64_to_the_twins_and_refuses_half(cuda):
         U.fused_update([U.TensorUpdate(
             torch.ones(7, device=cuda).half(),
             torch.ones(7, device=cuda).half())])
+
+
+# -- the raw-input recurrences (rows 6 and 9) and softmax_xent (row 4) -------------
+
+
+def _fi_inputs(kind, rng, b, t, e, d, device):
+    """x, mask (ragged: row 0 full, the last row of length 1) and the
+    weights of ``lstm_seq_fi`` (w_x, b, w_h, peep, h0, c0) or
+    ``gru_seq_fi`` (w_x, b, w_h, w_hc, h0)."""
+    lens = rng.integers(1, t + 1, size=b)
+    lens[0], lens[-1] = t, 1
+    mask = torch.from_numpy(
+        (np.arange(t)[None, :] < lens[:, None]).astype(np.float32))
+    n = 4 if kind == "lstm" else 3
+    w = [_rand(rng, e, n * d) * (1.0 / e ** 0.5), _rand(rng, n * d) * 0.1]
+    if kind == "lstm":
+        w += [_rand(rng, d, 4 * d) * (1.0 / d ** 0.5),
+              _rand(rng, 3, d) * 0.3, _rand(rng, b, d) * 0.5,
+              _rand(rng, b, d) * 0.5]
+    else:
+        w += [_rand(rng, d, 2 * d) * (1.0 / d ** 0.5),
+              _rand(rng, d, d) * (1.0 / d ** 0.5), _rand(rng, b, d) * 0.5]
+    return (_rand(rng, b, t, e).to(device), mask.to(device),
+            [v.to(device) for v in w])
+
+
+def _fi_module(kind):
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    return LK if kind == "lstm" else GK
+
+
+def _fi_kernel_vs_plain(cuda, kind, b, t, e, d, reverse):
+    """The fused-input forward kernel, with and without its gate slab,
+    against the plain twin on the same CUDA tensors; the slab leaves the
+    other outputs' bits alone, and a rerun repeats them."""
+    mod = _fi_module(kind)
+    rng = np.random.default_rng(b * 7 + t + e + d)
+    x, mask, w = _fi_inputs(kind, rng, b, t, e, d, cuda)
+    n = mod.KERNEL_FI.launches
+    got = mod._fi_fwd_kernel(x, mask, *w, reverse, True)
+    bare = mod._fi_fwd_kernel(x, mask, *w, reverse, False)
+    again = mod._fi_fwd_kernel(x, mask, *w, reverse, False)
+    torch.cuda.synchronize()
+    assert mod.KERNEL_FI.launches == n + 3
+    gate = 2 if kind == "lstm" else 1       # the slab's place in the tuple
+    assert bare[gate] is None
+    for i, (g, a, c) in enumerate(zip(got, bare, again)):
+        if i != gate:
+            assert torch.equal(g, a) and torch.equal(a, c)
+    for g, v in zip(got, mod._fi_fwd_plain(x, mask, *w, reverse, True)):
+        assert _close(g, v)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+@pytest.mark.parametrize("b,t,e,d", [
+    (3, 7, 12, 8),       # the CPU tests' shapes
+    (5, 9, 16, 300),     # 3 units a block, the last block short
+    (130, 5, 8, 40),     # three 64-row chunks
+    (2, 1, 4, 16),       # one step
+])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fi_kernel_matches_plain(cuda, kind, b, t, e, d, reverse):
+    _fi_kernel_vs_plain(cuda, kind, b, t, e, d, reverse)
+
+
+@pytest.mark.parametrize("kind,b,t,e,d", [
+    ("lstm", 64, 100, 128, 512),   # ops.rnn.lstm at the path's width
+    ("gru", 64, 32, 512, 512),     # ops.rnn.gru at the path's width
+])
+def test_fi_kernel_matches_plain_at_the_path_width(cuda, kind, b, t, e, d):
+    for reverse in (False, True):
+        _fi_kernel_vs_plain(cuda, kind, b, t, e, d, reverse)
+
+
+def _widest_e(mod, d, card):
+    """The largest E (a multiple of 4) the fit predicate takes at D."""
+    e = 4
+    while mod._fi_refusal(e + 4, d, *card) is None:
+        e += 4
+    return e
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_fi_kernel_at_the_shared_memory_edge(cuda, kind):
+    """At D 512 the widest E the predicate takes runs and matches its
+    twin; 4 more is refused by the wrapper before any launch."""
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    mod = _fi_module(kind)
+    card = mod._card(cuda)
+    e = _widest_e(mod, 512, card)
+    assert mod.fi_fits(cuda, e, 512) and not mod.fi_fits(cuda, e + 4, 512)
+    _fi_kernel_vs_plain(cuda, kind, 3, 2, e, 512, False)
+    rng = np.random.default_rng(0)
+    x, mask, w = _fi_inputs(kind, rng, 2, 2, e + 4, 512, cuda)
+    n = mod.KERNEL_FI.launches
+    fn = mod.lstm_seq_fi if kind == "lstm" else mod.gru_seq_fi
+    with pytest.raises(EnforceError, match="shared memory"):
+        fn(x, mask, *w)
+    assert mod.KERNEL_FI.launches == n
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_fi_function_on_card_matches_the_cpu(cuda, kind, remat):
+    """``lstm_seq_fi`` / ``gru_seq_fi`` (the forward kernel, then the row 5
+    / row 8 backward kernel) against the CPU's plain twins: every output
+    and input gradient, both directions; the card repeats its bits."""
+    mod = _fi_module(kind)
+    fn = mod.lstm_seq_fi if kind == "lstm" else mod.gru_seq_fi
+    rng = np.random.default_rng(5)
+    x, mask, w = _fi_inputs(kind, rng, 6, 11, 12, 40, "cpu")
+    r = _rand(rng, 6, 11, 40)
+    for reverse in (False, True):
+        outs = []
+        for dev in ("cpu", cuda, cuda):
+            leaves = [v.to(dev).detach().requires_grad_() for v in [x, *w]]
+            out = fn(leaves[0], mask.to(dev), *leaves[1:], reverse=reverse,
+                     remat=remat)
+            hs, last = out[0], out[1]
+            last = last if kind == "lstm" else (last,)
+            loss = (hs * r.to(dev)).sum() + sum(
+                (0.5 + i) * s.sum() for i, s in enumerate(last))
+            outs.append([hs, *last, *torch.autograd.grad(loss, leaves)])
+        for want, got, again in zip(*outs):
+            assert _close(got.cpu(), want)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_raw_rnn_route_is_the_predicted_one(cuda, kind):
+    """``ops/rnn.lstm`` / ``gru`` on the card: where the predicate takes
+    the shape, one fused-input forward and one remat backward launch and
+    no launch of the sequence forward; one E past the shared-memory edge,
+    the projection and the sequence kernels (forward and remat backward)
+    instead; the two routes agree."""
+    from paddle_tpu_torch.core.lod import SequenceBatch
+    from paddle_tpu_torch.ops import rnn as R
+
+    mod = _fi_module(kind)
+    e_edge = _widest_e(mod, 64, mod._card(cuda))
+    for e, fused in ((e_edge, True), (e_edge + 4, False)):
+        rng = np.random.default_rng(e)
+        x, mask, w = _fi_inputs(kind, rng, 4, 5, e, 64, cuda)
+        recurrent = (w[2],) if kind == "lstm" else (w[2], w[3])
+        assert R.fused_input_fits(x, mod, w[0], *recurrent) == fused
+        seq = SequenceBatch(x.requires_grad_(),
+                            mask.sum(1).long())
+        n = (mod.KERNEL_FI.launches, mod.KERNEL_FWD.launches,
+             mod.KERNEL_BWD.launches)
+        if kind == "lstm":
+            out, _ = R.lstm(seq, w[0], w[2], w[1])
+        else:
+            out, _ = R.gru(seq, w[0], w[2], w[3], w[1])
+        (dx,) = torch.autograd.grad(out.data.sum(), x)
+        torch.cuda.synchronize()
+        got = (mod.KERNEL_FI.launches - n[0], mod.KERNEL_FWD.launches - n[1],
+               mod.KERNEL_BWD.launches - n[2])
+        assert got == ((1, 0, 1) if fused else (0, 1, 1))
+        assert torch.isfinite(out.data).all() and torch.isfinite(dx).all()
+
+
+@pytest.mark.parametrize("n,v", [(1, 3), (37, 1003), (5, 50257),
+                                 (300, 4099)])
+def test_softmax_xent_kernels_match_plain(cuda, n, v):
+    """Both kernels against their twins on the same CUDA tensors (the
+    gradient under g = 1 and under a random g, entry by entry), a rerun in
+    the same bits, and the Function's launches."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    rng = np.random.default_rng(n + v)
+    logits = (_rand(rng, n, v) * 3.0).to(cuda)
+    targets = torch.from_numpy(rng.integers(0, v, size=n)).to(cuda)
+    targets[0] = v - 1
+    nll, lse = SX._fwd_kernel(logits, targets)
+    again = SX._fwd_kernel(logits, targets)
+    want_nll, want_lse = SX._fwd_plain(logits, targets)
+    assert _close(nll, want_nll) and _close(lse, want_lse)
+    assert torch.equal(nll, again[0]) and torch.equal(lse, again[1])
+    for g in (torch.ones(n, device=cuda), _rand(rng, n).to(cuda)):
+        d = SX._bwd_kernel(logits, targets, lse, g)
+        assert _close_each(d, SX._bwd_plain(logits, targets, lse, g))
+        assert torch.equal(d, SX._bwd_kernel(logits, targets, lse, g))
+    before = SX.KERNEL_FWD.launches, SX.KERNEL_BWD.launches
+    x = logits.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(SX.softmax_xent(x, targets).mean(), x)
+    torch.cuda.synchronize()
+    assert (SX.KERNEL_FWD.launches - before[0],
+            SX.KERNEL_BWD.launches - before[1]) == (1, 1)
+    y = logits.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        SX.softmax_xent_reference(y, targets).mean(), y)
+    assert _close_each(dx, want)
+
+
+def test_softmax_xent_out_of_range_targets_on_the_card(cuda):
+    """Targets past either end of the vocabulary are read nowhere: NaN NLL
+    and no onehot term, as the twins give."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    rng = np.random.default_rng(2)
+    logits = _rand(rng, 4, 1003).to(cuda)
+    targets = torch.tensor([3, 1003, -1, 1002], device=cuda)
+    g = _rand(rng, 4).to(cuda)
+    nll, lse = SX._fwd_kernel(logits, targets)
+    want_nll, want_lse = SX._fwd_plain(logits, targets)
+    torch.cuda.synchronize()
+    assert torch.isnan(nll[1:3]).all() and torch.isfinite(nll[[0, 3]]).all()
+    assert _close(nll[[0, 3]], want_nll[[0, 3]]) and _close(lse, want_lse)
+    assert _close_each(SX._bwd_kernel(logits, targets, lse, g),
+                       SX._bwd_plain(logits, targets, lse, g))
+
+
+def test_softmax_xent_refuses_float64_on_the_card(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    with pytest.raises(EnforceError, match="float32"):
+        SX.softmax_xent(torch.zeros(2, 5, dtype=torch.float64, device=cuda),
+                        torch.zeros(2, dtype=torch.long, device=cuda))

@@ -66,6 +66,7 @@ MODULES = (
     "paddle_tpu_torch.layers.extras",
     "paddle_tpu_torch.models.ocr_crnn",
     "paddle_tpu_torch.trainer.inference",
+    "paddle_tpu_torch.ops.kernels.softmax_xent",
 )
 
 
