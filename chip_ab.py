@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
+of the shared GEMM tile's plan.
+
+The A/B runs each tree's own ``chip_smoke.train_end_to_end`` (ResNet-50
+through ``trainer.SGD`` at batch 64) and ``bench_nets`` (the image nets'
+ms a batch), each tree in a process of its own that builds that tree's
+kernels, in the order given.  Host-bound phases vary up to 2x between
+machines, so two versions are compared only within one run of this
+script, in turns:
+
+    python3 chip_ab.py [--out DIR] build/parent . . build/parent
+
+(``build/parent`` holding ``git archive`` of the parent commit).  Prints
+one JSON line a run (the tree, img/s, step p50, the device ms a step by
+kernel class from the phase's 3-step profile, the image nets' ms a batch)
+and writes each run's whole output to ``DIR/ab_<i>.json`` (default
+``build/ab``).
+
+    python3 chip_ab.py --sweep
+
+times, at the ``SWEEP`` shapes of ``chip_smoke``'s row 14 and 15 cases
+(stats epilogue), every tile of ``brgemm.TILES`` whole and the smallest
+split in 2 and 4, each checked against the twin first, beside the tile
+the plan picks: one JSON line, {shape: {"<block_m>x<block_n>/<splits>":
+ms}, "planned": ...}."""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import subprocess
+import sys
+import time
+
+RUN = r"""
+import json, os, sys
+tree = os.path.abspath(sys.argv[1])
+os.chdir(tree)
+sys.path.insert(0, tree)
+import torch
+import chip_smoke as C
+from paddle_tpu_torch.core.place import resolve_device
+from paddle_tpu_torch.ops.kernels import _build
+dev = resolve_device(None)
+_build.build()
+train = C.train_end_to_end(dev)[0]
+torch.cuda.empty_cache()
+nets = C.bench_nets(dev)
+print(json.dumps({"train": train, "bench_nets": nets}))
+"""
+
+
+def summary(tree: str, out: dict, seconds: float) -> dict:
+    train, nets = out["train"], out["bench_nets"]
+    prof = train.get("profile", {})
+    return {"tree": tree, "seconds": seconds,
+            "img_per_s": train["img_per_s"],
+            "step_ms_p50": train["step_ms_p50"],
+            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
+            "idle_share_vs_step_p50": prof.get("idle_share_vs_step_p50"),
+            "by_class_ms_per_step": prof.get("by_class_ms_per_step"),
+            "bench_nets_ms_per_batch_p50": {
+                k: v["ms_per_batch_p50"] for k, v in nets.items()
+                if isinstance(v, dict)}}
+
+
+#: the shapes :func:`sweep` times every tile at
+SWEEP = ("res2_3x3", "res3_3x3", "res4_3x3", "res5_3x3",
+         "small_vgg_narrowest", "res2_2c", "res5_2a")
+
+
+class forced_tile:
+    """Within the block, every launch of the shared tile takes ``tile``
+    (block_m, block_n) and ``splits`` in the copy form the plan would
+    pick."""
+
+    def __init__(self, tile, splits=1):
+        self.tile, self.splits = tile, splits
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+        self.real = real = BR.plan
+        BR.plan = lambda *a: BR.Plan(*self.tile, real(*a).vec, self.splits)
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+        BR.plan = self.real
+
+
+def sweep() -> int:
+    """Every tile whole and the smallest split in 2 and 4 at the SWEEP
+    shapes, in this tree: checked against the twin, then timed (CUDA-event
+    means, L2 flushed)."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+    dev = resolve_device(None)
+    _build.build()
+    timer = C.Timer(dev)
+    out = {}
+    for case in itertools.chain(C.brgemm_cases(dev), C.conv_cases(dev)):
+        if case["label"] not in SWEEP or case["mode"] != "stats":
+            continue
+        fn, want = case["fn"], case["plain_fn"]()
+        p = case["plan"]
+        row = {"planned": f"{p.block_m}x{p.block_n}/{p.splits}"}
+        cases = [(t, 1) for t in BR.TILES]
+        cases += [(BR.TILES[-1], k) for k in (2, 4)
+                  if k <= -(-case["kred"] // BR.BLOCK_K)]
+        for tile, splits in cases:
+            with forced_tile(tile, splits):
+                err = C.moments_err(fn(), want, case["count"])
+                if not err <= C.TOL:
+                    raise AssertionError(f"{case['label']} tile {tile} / "
+                                         f"{splits}: err {err}")
+                row[f"{tile[0]}x{tile[1]}/{splits}"] = timer(fn)
+        out[case["label"]] = row
+        del fn, want, case
+        torch.cuda.synchronize()
+    print(C.nvidia_smi())
+    print(json.dumps({"tile_sweep_ms": out}), flush=True)
+    return 0
+
+
+def main(trees: list[str], out_dir: str) -> int:
+    os.makedirs(out_dir, exist_ok=True)
+    rc = 0
+    for i, tree in enumerate(trees):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", RUN, tree],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"ab_{i}.json"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+        if proc.returncode != 0:
+            print(json.dumps({"tree": tree, "rc": proc.returncode,
+                              "stderr": proc.stderr[-2000:]}), flush=True)
+            rc = 1
+            continue
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(summary(tree, out, seconds)), flush=True)
+    return rc
+
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    if args == ["--sweep"]:
+        sys.exit(sweep())
+    out = "build/ab"
+    if args[:1] == ["--out"] and len(args) > 1:
+        out, args = args[1], args[2:]
+    if not args:
+        sys.exit(__doc__)
+    sys.exit(main(args, out))

@@ -18,15 +18,24 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. Each kernel against its plain PyTorch twin on the card, at the shapes
    its path gives it: flash prefill [8, 512, 12, 64] causal (and an odd
    T=333), paged decode B=32, H=12, D=64, page_size=16, 36 pages per row,
-   ragged lengths including 0, 1, 16, 17 and 576; the BRGEMM kernel on
-   ResNet-50's res2 branch2c 1x1 conv at batch 64 (M=200,704, K=64,
-   N=256) with the stats epilogue and with affine+ReLU, and on res3_1's
-   stride-2 1x1 projection (x [64, 56, 56, 256] -> 512, strided row map)
-   with stats; the direct conv kernel on res2's 3x3 (x [64, 56, 56, 64],
-   s1 p1) with stats and with affine+ReLU, and on the 7x7 s2 p3 stem
-   (x [64, 224, 224, 3]) with stats.  Max abs error <= 1e-4 (f32
-   round-off of another summation order; TF32 off); the BN statistics
-   are compared as the moments they feed (sum / count, sumsq / count).
+   ragged lengths including 0, 1, 16, 17 and 576; the shared f32 GEMM
+   tile (``csrc/gemm_f32.cuh``) as the BRGEMM kernel at every distinct
+   1x1 conv of ResNet-50 at batch 64 (``RESNET_1X1``: each stage's
+   branch2a and branch2c, the stride-2 branch2a and branch1 projections
+   by a strided row map) with the stats epilogue, res2_2c also with
+   affine+ReLU, and as the direct conv kernel at every direct conv of
+   ResNet-50 (the 7x7 stem, the four stages' 3x3s; stats, res2 also
+   affine+ReLU), AlexNet's conv1 and conv2 and small_vgg's widest and
+   narrowest 3x3 (``DIRECT_SHAPES``).  Each shape prints the plan it
+   took (tile, 16- or 4-byte copies, split), its error against the twin
+   (max abs error <= 1e-4: f32 round-off of another summation order,
+   TF32 off; the BN statistics as the moments they feed, sum / count
+   and sumsq / count), a rerun in the same bits, and
+   its times (below) with the device time of each of its kernels from a
+   trace (the tile, the split's second pass, the stats reduction); the
+   kernels cuDNN launches for ``F.conv2d`` at AlexNet's conv2 and res2's
+   and res3's 3x3; and the blocks an SM holds of every instantiation of
+   the tile, from the CUDA runtime, against the tile plan's table.
    The flash forward and the backward's dQ and dK/dV kernels at the LM
    training shape [16, 1024, 12, 64] causal (and T=333; the forward gets
    a row of its own at this shape), each against its plain twin
@@ -190,9 +199,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``channel_stats`` against its twin at small_vgg's five [R, C] views
    ([131072, 64] to [128, 512]; max abs error <= 1e-4 x max(1, |ref|), a
    rerun in the same bits), each timed beside its twin, its bound and
-   ``torch.var_mean``, and its two passes' own device time from a trace;
-   the direct conv kernel against its twin at AlexNet's conv1 (11x11
-   stride 4, Cin 3, 227x227) and conv2 (5x5) at batch 64.  Then a
+   ``torch.var_mean``, and its two passes' own device time from a trace.
+   Then a
    batch-4 train-mode step with dropout on, on the card and on the CPU,
    each against the float64 run on the same device (the same masks):
    cost within 1e-5 relative, every gradient leaf within 10x the float64
@@ -586,88 +594,173 @@ def check_paged(dev, timer) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
 
 
-def gemm_row(name, source, replaces, shape, got, want, count, kernel_fn,
-             plain_fn, library_fn, nbytes, flops, timer) -> dict:
-    """One kernel-vs-plain row of the conv path.  ``got``/``want`` are y or
-    (y, sum, sumsq); the sums are compared as the BN moments they feed
+TILE_KERNELS = {
+    "brgemm": ("paddle_tpu_torch/ops/kernels/csrc/brgemm.cu",
+               "paddle_tpu/ops/pallas/tpp/brgemm.py:155", "BrgemmA>"),
+    "conv2d_direct": ("paddle_tpu_torch/ops/kernels/csrc/conv2d_direct.cu",
+                      "paddle_tpu/ops/pallas/tpp/conv.py:240", "ConvA>"),
+}
+
+#: ResNet-50's distinct 1x1 convs at batch 64 (``models/image.py``
+#: ``_mid_projection`` and ``_bottleneck``): (label, x [N, H, W, Cin],
+#: Cout, stride).  From res3 on, the first block's branch2a and branch1
+#: take stride 2; res2_1's branch1 (64 -> 256) is res2_2c's shape.
+RESNET_1X1 = (
+    ("res2_1_branch2a", (64, 56, 56, 64), 64, 1),
+    ("res2_2a", (64, 56, 56, 256), 64, 1),
+    ("res2_2c", (64, 56, 56, 64), 256, 1),
+    ("res3_1_branch2a_s2", (64, 56, 56, 256), 128, 2),
+    ("res3_1_branch1_s2", (64, 56, 56, 256), 512, 2),
+    ("res3_2a", (64, 28, 28, 512), 128, 1),
+    ("res3_2c", (64, 28, 28, 128), 512, 1),
+    ("res4_1_branch2a_s2", (64, 28, 28, 512), 256, 2),
+    ("res4_1_branch1_s2", (64, 28, 28, 512), 1024, 2),
+    ("res4_2a", (64, 14, 14, 1024), 256, 1),
+    ("res4_2c", (64, 14, 14, 256), 1024, 1),
+    ("res5_1_branch2a_s2", (64, 14, 14, 1024), 512, 2),
+    ("res5_1_branch1_s2", (64, 14, 14, 1024), 2048, 2),
+    ("res5_2a", (64, 7, 7, 2048), 512, 1),
+    ("res5_2c", (64, 7, 7, 512), 2048, 1),
+)
+
+#: every distinct direct conv of the ResNet-50 path at batch 64 (the
+#: stem and the four stages' 3x3s), AlexNet's conv1 and conv2 at batch 64
+#: and small_vgg's 3x3 at its widest and narrowest spatial size at its
+#: batch of 128: (label, x [N, H, W, Cin], (k, Cout, s, p), epilogue)
+DIRECT_SHAPES = (
+    ("stem_7x7", (64, 224, 224, 3), (7, 64, 2, 3), "stats"),
+    ("res2_3x3", (64, 56, 56, 64), (3, 64, 1, 1), "stats"),
+    ("res2_3x3", (64, 56, 56, 64), (3, 64, 1, 1), "affine_relu"),
+    ("res3_3x3", (64, 28, 28, 128), (3, 128, 1, 1), "stats"),
+    ("res4_3x3", (64, 14, 14, 256), (3, 256, 1, 1), "stats"),
+    ("res5_3x3", (64, 7, 7, 512), (3, 512, 1, 1), "stats"),
+    ("alexnet_conv1", (64, 227, 227, 3), (11, 96, 4, 1), "none"),
+    ("alexnet_conv2", (64, 27, 27, 96), (5, 256, 1, 2), "none"),
+    ("small_vgg_widest", (128, 32, 32, 64), (3, 64, 1, 1), "stats"),
+    ("small_vgg_narrowest", (128, 4, 4, 512), (3, 512, 1, 1), "stats"),
+)
+
+def plan_dict(p) -> dict:
+    return {"block_m": p.block_m, "block_n": p.block_n,
+            "form": "16-byte" if p.vec else "4-byte", "splits": p.splits}
+
+
+def moments_err(got, want, count) -> float:
+    """Max abs error of y, then of (sum, sumsq) as the moments they feed
     (divided by the ``count`` of rows)."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = (got[0] - want[0]).abs().max().item()
-    for a, b in zip(got[1:], want[1:]):
-        err = max(err, ((a - b).abs().max() / count).item())
-    if not err <= TOL:
-        raise AssertionError(f"{name} {shape}: kernel vs plain max abs "
-                             f"err {err}")
-    bound_ms, by = bound(nbytes, flops)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "shape": shape, "max_abs_err": err,
-            "ms": timer(kernel_fn), "plain_ms": timer(plain_fn),
-            "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": timer(library_fn)}
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = (a / count, b / count) if i else (a, b.reshape(a.shape))
+        err = max(err, (a - b).abs().max().item())
+    return err
 
 
-def check_brgemm(dev, timer) -> list[dict]:
-    """res2 branch2c: 1x1 conv 64 -> 256 on [64, 56, 56, 64], with the
-    stats and with the affine + ReLU epilogue; res3_1 branch1: the stride-2
-    1x1 projection 256 -> 512 on [64, 56, 56, 256] (strided row map)."""
+def tile_row(name, case, timer) -> dict:
+    """One shape of the shared GEMM tile (rows 14 and 15), a case of
+    :func:`brgemm_cases` or :func:`conv_cases`: the kernel against its
+    twin, max abs error <= TOL, a rerun in the same bits, and its times:
+    CUDA-event means with the L2 flushed (kernel, twin, library call),
+    the bound, and from a trace the device time of each kernel the call
+    launches: the tile, the split's second pass (``split_reduce``) and the
+    stats reduction (``stats_reduce``); ``alone_ms`` is their sum."""
+    source, replaces, key = TILE_KERNELS[name]
+    fn, plain_fn, plan = case["fn"], case["plain_fn"], case["plan"]
+    got, again = fn(), fn()
+    err = moments_err(got, plain_fn(), case["count"])
+    pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+    if not (err <= TOL and all(torch.equal(a, b) for a, b in pairs)):
+        raise AssertionError(f"{name} {case['label']} {case['mode']}: kernel "
+                             f"vs plain max abs err {err}, or a rerun differs")
+    del got, again
+    bound_ms, by = bound(case["nbytes"], case["flops"])
+    ms = timer(fn)
+    parts = {"tile_alone_ms": device_ms([fn], key)}
+    if plan.splits > 1:
+        parts["split_reduce_alone_ms"] = device_ms([fn], "split_reduce")
+    if case["mode"] == "stats":
+        parts["stats_reduce_alone_ms"] = device_ms([fn], "stats_reduce")
+    alone = sum(parts.values())
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "shape": {case["label"]: case["shape"], "epilogue": case["mode"]},
+           "plan": plan_dict(plan), "max_abs_err": err, "ms": ms,
+           "alone_ms": alone, **parts, "plain_ms": timer(plain_fn),
+           "bound_ms": bound_ms, "bound_by": by,
+           "library_ms": timer(case["library_fn"]),
+           "bound_share": bound_ms / ms, "bound_share_alone": bound_ms / alone}
+    row["vs_library"] = ms / row["library_ms"]
+    return row
+
+
+def brgemm_cases(dev):
+    """Row 15's shapes, one at a time: every distinct 1x1 conv of
+    ResNet-50 at batch 64 with the stats epilogue of training (and res2_2c
+    also with the affine + ReLU epilogue of ``test``), the stride-1 convs
+    beside ``torch.matmul`` on the pixel rows, the stride-2 projections (a
+    strided row map) beside channels_last ``F.conv2d``.  Each case holds
+    the kernel's call ``fn``, its twin ``plain_fn``, the library call,
+    the rows ``count``, the bytes and flops of the bound, the plan and the
+    reduction's length ``kred``."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import brgemm as BR
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    n, h, w, cin, cout = 64, 56, 56, 64, 256
-    m = n * h * w
-    x = torch.randn(n, h, w, cin, generator=gen, device=dev)
-    wt = torch.randn(1, 1, cin, cout, generator=gen, device=dev) * (
-        2.0 / cin) ** 0.5                     # msra scale, as initialized
-    scale = 1 + 0.1 * torch.randn(cout, generator=gen, device=dev)
-    shift = 0.1 * torch.randn(cout, generator=gen, device=dev)
-    a, b = x.reshape(1, m, cin), wt.reshape(1, cin, cout)
-    rows = []
-    for mode, kw in (("stats", dict(stats=True)),
-                     ("affine_relu", dict(scale=scale, shift=shift,
-                                          act="relu"))):
-        got = BR.conv1x1(x, wt, (1, 1), **kw)
-        if isinstance(got, tuple):
-            got = (got[0].reshape(m, cout), *got[1:])
+    sms = BR.sm_count(dev)
+    cases = []
+    for label, x, cout, s in RESNET_1X1:
+        cases.append((label, x, cout, s, "stats"))
+        if label == "res2_2c":       # and the eval epilogue of ``test``
+            cases.append((label, x, cout, s, "affine_relu"))
+    for label, (n, h, w, cin), cout, s, mode in cases:
+        x = torch.randn(n, h, w, cin, generator=gen, device=dev)
+        wt = torch.randn(1, 1, cin, cout, generator=gen, device=dev) * (
+            2.0 / cin) ** 0.5                 # msra scale, as initialized
+        if mode == "stats":
+            kw = dict(stats=True)
         else:
-            got = got.reshape(m, cout)
-        rows.append(gemm_row(
-            "brgemm", "paddle_tpu_torch/ops/kernels/csrc/brgemm.cu",
-            "paddle_tpu/ops/pallas/tpp/brgemm.py:155",
-            {"res2_2c": [m, cin, cout], "epilogue": mode}, got,
-            BR.brgemm_reference(a, b, **kw), m,
-            lambda: BR.conv1x1(x, wt, (1, 1), **kw),
-            lambda: BR.brgemm_reference(a, b, **kw),
-            lambda: torch.matmul(a[0], b[0]),
-            4.0 * (m * cin + cin * cout + m * cout + 2 * cout),
-            2.0 * m * cin * cout, timer))
-    del x, a
-    # the stride-2 projection reads every other pixel row of x by index;
-    # the rows it reads are the bytes it must move
-    n, h, w, cin, cout = 64, 56, 56, 256, 512
-    x = torch.randn(n, h, w, cin, generator=gen, device=dev)
-    wt = torch.randn(1, 1, cin, cout, generator=gen, device=dev) * (
-        2.0 / cin) ** 0.5
-    xs = x[:, ::2, ::2]
-    m = n * (h // 2) * (w // 2)
-    got = BR.conv1x1(x, wt, (2, 2), stats=True)
-    xl, wl = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    rows.append(gemm_row(
-        "brgemm", "paddle_tpu_torch/ops/kernels/csrc/brgemm.cu",
-        "paddle_tpu/ops/pallas/tpp/brgemm.py:155",
-        {"res3_1_branch1_s2": [m, cin, cout], "epilogue": "stats"},
-        (got[0].reshape(m, cout), *got[1:]),
-        BR.brgemm_reference(xs.reshape(1, m, cin), wt.reshape(1, cin, cout),
-                            stats=True), m,
-        lambda: BR.conv1x1(x, wt, (2, 2), stats=True),
-        lambda: BR.brgemm_reference(xs.reshape(1, m, cin),
-                                    wt.reshape(1, cin, cout), stats=True),
-        lambda: F.conv2d(xl, wl, None, 2, 0),
-        4.0 * (m * cin + cin * cout + m * cout + 2 * cout),
-        2.0 * m * cin * cout, timer))
+            kw = dict(scale=1 + 0.1 * torch.randn(cout, generator=gen,
+                                                  device=dev),
+                      shift=0.1 * torch.randn(cout, generator=gen,
+                                              device=dev), act="relu")
+        oh, ow = (h - 1) // s + 1, (w - 1) // s + 1
+        m = n * oh * ow
+        a = x[:, ::s, ::s].reshape(1, m, cin)     # a copy when s = 2
+        b = wt.reshape(1, cin, cout)
+        if s == 1:
+            library = lambda: torch.matmul(a[0], b[0])  # noqa: E731
+        else:
+            xl = x.permute(0, 3, 1, 2)
+            wl = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            library = lambda: F.conv2d(xl, wl, None, s, 0)  # noqa: E731
+
+        def fn():
+            out = BR.conv1x1(x, wt, (s, s), **kw)
+            if isinstance(out, tuple):
+                return (out[0].reshape(m, cout), *out[1:])
+            return out.reshape(m, cout)
+
+        def plain():
+            return BR.brgemm_reference(a, b, **kw)
+
+        # the strided projection reads every s-th pixel row by index; the
+        # rows it reads are the bytes it must move
+        yield {"label": label, "shape": [n, h, w, cin, 1, cout, s, 0],
+               "mode": mode, "fn": fn, "plain_fn": plain,
+               "library_fn": library, "count": m,
+               "nbytes": 4.0 * (m * cin + cin * cout + m * cout + 2 * cout),
+               "flops": 2.0 * m * cin * cout, "kred": cin,
+               "plan": BR.plan(m, cout, cin, cin,
+                               (x.data_ptr(), wt.data_ptr()), sms)}
+        del x, a, library, fn, plain
+
+
+def check_brgemm(dev, timer) -> list:
+    """Row 15 at every case of :func:`brgemm_cases` (:func:`tile_row`)."""
+    rows = [tile_row("brgemm", case, timer) for case in brgemm_cases(dev)]
     torch.cuda.synchronize()
     return rows
 
@@ -682,26 +775,48 @@ def in_range_taps(size: int, k: int, s: int, p: int) -> int:
                for o in range(out))
 
 
-def check_conv(dev, timer) -> list[dict]:
-    """The direct kernel on res2's 3x3 (the stats epilogue of training and
-    the affine + ReLU epilogue of ``test``) and on the stem (stats)."""
+def library_kernels(fn, rounds: int = 20) -> list:
+    """The device kernels one call of ``fn`` launches, by name, with each
+    one's device time a call, from a ``torch.profiler`` trace of
+    ``rounds`` calls (the first few records of a trace may be lost)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(({"name": e.key[:160], "launches": e.count,
+                    "ms_per_call": e.self_device_time_total / 1e3 / rounds}
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total),
+                  key=lambda r: -r["ms_per_call"])
+
+
+def conv_cases(dev):
+    """Row 14's shapes, one at a time: every shape of ``DIRECT_SHAPES``
+    beside channels_last ``F.conv2d`` (TF32 off); the bound counts only
+    the taps inside the image.  Each case as in :func:`brgemm_cases`."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import nn as nn_ops
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
 
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    if any(tf32):
+        raise AssertionError(f"TF32 is on (cuDNN, cuBLAS): {tf32}")
     gen = torch.Generator(device=dev).manual_seed(4)
-    rows = []
-    for label, (n, h, w, cin), (k, cout, s, p), mode in (
-            ("res2_3x3", (64, 56, 56, 64), (3, 64, 1, 1), "stats"),
-            ("res2_3x3", (64, 56, 56, 64), (3, 64, 1, 1), "affine_relu"),
-            ("stem_7x7", (64, 224, 224, 3), (7, 64, 2, 3), "stats")):
+    sms = BR.sm_count(dev)
+    for label, (n, h, w, cin), (k, cout, s, p), mode in DIRECT_SHAPES:
         x = torch.randn(n, h, w, cin, generator=gen, device=dev)
         wt = torch.randn(k, k, cin, cout, generator=gen, device=dev) * (
             2.0 / (k * k * cin)) ** 0.5
-        if mode == "stats":
-            kw = dict(stats=True)
-        else:
+        kw = {"stats": dict(stats=True), "none": {}}.get(mode)
+        if kw is None:
             kw = dict(scale=1 + 0.1 * torch.randn(cout, generator=gen,
                                                   device=dev),
                       shift=0.1 * torch.randn(cout, generator=gen,
@@ -712,22 +827,61 @@ def check_conv(dev, timer) -> list[dict]:
             memory_format=torch.channels_last)
         macs = (n * in_range_taps(h, k, s, p) * in_range_taps(w, k, s, p)
                 * cin * cout)
-        rows.append(gemm_row(
-            "conv2d_direct",
-            "paddle_tpu_torch/ops/kernels/csrc/conv2d_direct.cu",
-            "paddle_tpu/ops/pallas/tpp/conv.py:240",
-            {label: [n, h, w, cin, k, cout, s, p], "epilogue": mode},
-            CV.fwd_raw(x, wt, (s, s), (p, p), **kw),
-            CV.fwd_raw_reference(x, wt, (s, s), (p, p), **kw), m,
-            lambda: CV.fwd_raw(x, wt, (s, s), (p, p), **kw),
-            lambda: CV.fwd_raw_reference(x, wt, (s, s), (p, p), **kw),
-            lambda: F.conv2d(xl, wl, None, s, p),
-            # x, w, y, and (sum, sumsq) out or (scale, shift) in
-            4.0 * (x.numel() + wt.numel() + m * cout + 2 * cout),
-            2.0 * macs, timer))
-        del x, xl
+
+        def fn():
+            return CV.fwd_raw(x, wt, (s, s), (p, p), **kw)
+
+        def plain():
+            return CV.fwd_raw_reference(x, wt, (s, s), (p, p), **kw)
+
+        def library():
+            return F.conv2d(xl, wl, None, s, p)
+
+        yield {"label": label, "shape": [n, h, w, cin, k, cout, s, p],
+               "mode": mode, "fn": fn, "plain_fn": plain,
+               "library_fn": library, "count": m,
+               # x, w, y, and (sum, sumsq) out or (scale, shift) in
+               "nbytes": 4.0 * (x.numel() + wt.numel() + m * cout
+                                + (0 if mode == "none" else 2 * cout)),
+               "flops": 2.0 * macs, "kred": k * k * cin,
+               "plan": CV.direct_plan(x, wt, m, sms)}
+        del x, xl, fn, plain, library
+
+
+def check_conv(dev, timer) -> tuple[list, dict]:
+    """Row 14 at every case of :func:`conv_cases` (:func:`tile_row`), and
+    the kernels cuDNN launches for ``F.conv2d`` at AlexNet's conv2 and
+    res2's and res3's 3x3."""
+    rows, cudnn = [], {}
+    for case in conv_cases(dev):
+        rows.append(tile_row("conv2d_direct", case, timer))
+        label = case["label"]
+        if label in ("alexnet_conv2", "res2_3x3", "res3_3x3") and \
+                label not in cudnn:
+            cudnn[label] = library_kernels(case["library_fn"])
     torch.cuda.synchronize()
-    return rows
+    return rows, cudnn
+
+
+def check_resident() -> dict:
+    """``brgemm.RESIDENT``, the blocks an SM holds that the tile plan
+    reads, against the CUDA runtime's occupancy of every instantiation of
+    the tile in both kernels."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    got = {}
+    for kernel in (BR.KERNEL, CV.KERNEL):
+        for tile in BR.TILES:
+            for vec in (True, False):
+                n = BR.resident(kernel, *tile, vec)
+                got[f"{kernel.source} {tile[0]}x{tile[1]} "
+                    f"{'16' if vec else '4'}-byte"] = n
+                if n != BR.RESIDENT[tile]:
+                    raise AssertionError(f"{kernel.source} {tile} vec={vec}:"
+                                         f" {n} blocks an SM, the plan's "
+                                         f"RESIDENT says {BR.RESIDENT[tile]}")
+    return got
 
 
 def check_conv_backward(dev) -> dict:
@@ -887,7 +1041,9 @@ def kernel_class(name: str) -> str:
     if "sparse_row_update_kernel" in low:
         return "sparse_row_update (ours)"
     if "stats_reduce" in low:
-        return "stats_reduce (ours)"
+        return "stats_reduce (ours)"      # csrc/gemm_f32.cuh
+    if "split_reduce" in low:
+        return "split_reduce (ours)"      # csrc/gemm_f32.cuh
     if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
     if any(k in low for k in ("dgrad", "wgrad", "cudnn", "convolve")):
@@ -2825,18 +2981,13 @@ VGG_STATS_SHAPES = ((131072, 64), (32768, 128), (8192, 256), (2048, 512),
                     (128, 512))
 
 
-def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES, conv_batch=64):
+def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES):
     """``channel_stats`` against its twin at small_vgg's five [R, C] views
     (max abs error <= 1e-4 x max(1, |ref|) for both sums, a rerun in the
     same bits), each timed beside its twin, ``torch.var_mean`` and its
-    bound; then the direct conv kernel against its twin at AlexNet's conv1
-    (11x11 stride 4, Cin 3, 227x227) and conv2 (5x5) at batch 64.
-    Returns (the kernel row at the largest view, the phase's summary)."""
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops import nn as nn_ops
+    bound.  Returns (the kernel row at the largest view, the phase's
+    summary)."""
     from paddle_tpu_torch.ops.kernels import channel_stats as CS
-    from paddle_tpu_torch.ops.kernels import conv as CV
 
     gen = torch.Generator(device=dev).manual_seed(9)
     per_shape = []
@@ -2875,42 +3026,8 @@ def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES, conv_batch=64):
            "max_abs_err": max(s["max_abs_err"] for s in per_shape),
            **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")}}
-    convs = []
-    for label, (n, h, w, cin), (k, cout, s, p) in (
-            ("alexnet_conv1", (conv_batch, 227, 227, 3), (11, 96, 4, 1)),
-            ("alexnet_conv2", (conv_batch, 27, 27, 96), (5, 256, 1, 2))):
-        x = torch.randn(n, h, w, cin, generator=gen, device=dev)
-        wt = torch.randn(k, k, cin, cout, generator=gen, device=dev) * (
-            2.0 / (k * k * cin)) ** 0.5
-        got = CV.fwd_raw(x, wt, (s, s), (p, p))
-        want = CV.fwd_raw_reference(x, wt, (s, s), (p, p))
-        err = (got - want).abs().max().item() / max(
-            1.0, want.abs().max().item())
-        if not (err <= TOL and torch.equal(got, CV.fwd_raw(x, wt, (s, s),
-                                                           (p, p)))):
-            raise AssertionError(f"direct conv at {label}: err {err} x "
-                                 "max(1, |ref|) or not bit-identical on a "
-                                 "rerun")
-        oh = nn_ops.conv_out(h, k, s, p)
-        macs = (n * in_range_taps(h, k, s, p) * in_range_taps(w, k, s, p)
-                * cin * cout)
-        xl = x.permute(0, 3, 1, 2)
-        wl = wt.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        bound_ms, by = bound(4.0 * (x.numel() + wt.numel()
-                                    + n * oh * oh * cout), 2.0 * macs)
-        convs.append({"conv": label, "shape": [n, h, w, cin, k, cout, s, p],
-                      "max_abs_err": err,
-                      "ms": timer(lambda: CV.fwd_raw(x, wt, (s, s), (p, p))),
-                      "plain_ms": timer(lambda: CV.fwd_raw_reference(
-                          x, wt, (s, s), (p, p))),
-                      "library_ms": timer(lambda: F.conv2d(xl, wl, None, s,
-                                                           p)),
-                      "bound_ms": bound_ms, "bound_by": by})
-        del x, xl
     torch.cuda.synchronize()
     return row, {"phase": "vgg_kernels", "channel_stats": per_shape,
-                 "direct_conv_new_shapes": convs,
                  "channel_stats_rerun_bit_identical": True}
 
 
@@ -4249,9 +4366,14 @@ def main() -> int:
     timer = Timer(dev)
     rows = [check_flash(dev, timer), check_paged(dev, timer)]
     bwd_rows, bwd_summary = check_flash_backward(dev, timer)
-    conv_rows = check_brgemm(dev, timer) + check_conv(dev, timer)
+    resident = check_resident()
+    conv_rows = check_brgemm(dev, timer)
+    cv_rows, cudnn = check_conv(dev, timer)
+    conv_rows += cv_rows
     for row in rows + bwd_rows + conv_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps({"phase": "gemm_tile", "resident_blocks": resident,
+                      "cudnn_kernels": cudnn}), flush=True)
     print(json.dumps(bwd_summary), flush=True)
     del timer
     print(json.dumps(check_conv_backward(dev)), flush=True)
@@ -4296,7 +4418,8 @@ def main() -> int:
     vgg, stats_n, up_vgg_n = train_vgg(dev)
     print(json.dumps(vgg), flush=True)
     torch.cuda.empty_cache()
-    print(json.dumps(bench_nets(dev)), flush=True)
+    nets = bench_nets(dev)
+    print(json.dumps(nets), flush=True)
     torch.cuda.empty_cache()
     ctr, (up_ctr_n, rows_n) = train_ctr(dev)
     print(json.dumps(ctr), flush=True)
@@ -4320,10 +4443,20 @@ def main() -> int:
     for row, launches in zip(bwd_rows, (fwd_n, dq_n, dkv_n)):
         row["launches"] = launches
     rows += bwd_rows
-    for name, launches in (("brgemm", br_n), ("conv2d_direct", cv_n)):
-        mine = [r for r in conv_rows if r["name"] == name]
-        rows.append({**mine[0], "launches": launches,
-                     "max_abs_err": max(r["max_abs_err"] for r in mine)})
+    # rows 14 and 15: a line for each shape, each with its kernel's
+    # launches on the run of the model the shape is from: ResNet-50's
+    # training, AlexNet's image-zoo steps, small_vgg's training
+    resnet = ("resnet50 train", {"brgemm": br_n, "conv2d_direct": cv_n})
+    alexnet = ("alexnet image-zoo steps", {
+        k: v * nets["alexnet"]["steps"]
+        for k, v in nets["alexnet"]["launches_per_step"].items()})
+    small_vgg = ("small_vgg train", vgg["train_launches"])
+    for row in conv_rows:
+        label = next(iter(row["shape"]))
+        on, counts = (alexnet if label.startswith("alexnet") else
+                      small_vgg if label.startswith("small_vgg") else resnet)
+        rows.append({**row, "launches": counts[row["name"]],
+                     "launches_on": on})
     for row, launches in zip(text_rows, text_n):
         rows.append({**row, "launches": launches})
     # the BiLSTM, LSTM-backward and CTC rows count the training run's
@@ -4350,8 +4483,9 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
-          flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("shape",
+                                                            "launches_on")
+                                   if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -90,6 +90,29 @@ def build(names=None) -> dict[str, Path]:
     return out
 
 
+def ptxas_report(names=None) -> str:
+    """Compile the named sources (default: all) once more with ``-Xptxas
+    -v`` into a scratch directory and return what ptxas says of each
+    kernel: registers, spill stores and loads, shared memory.  The
+    libraries in ``BUILD_DIR`` are neither read nor written."""
+    import tempfile
+
+    names = sources() if names is None else list(names)
+    nvcc = nvcc_path()
+    out = []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = [(n, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(Path(tmp) / f"{n}.so"), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for n in names]
+        for n, proc in procs:
+            log, _ = proc.communicate()
+            out.append(f"== {n}.cu (exit {proc.returncode})\n{log}")
+    return "\n".join(out)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
@@ -126,3 +149,11 @@ class Kernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "
                                f"({self._err(code).decode()})")
         self.launches += 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    # python -m paddle_tpu_torch.ops.kernels._build [source ...]: the
+    # registers, spills and shared memory of every kernel of the sources
+    print(ptxas_report(sys.argv[1:] or None))

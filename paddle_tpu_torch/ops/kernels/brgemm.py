@@ -18,24 +18,116 @@ pass.
 
 CPU tensors take :func:`brgemm_reference`; CUDA tensors launch
 ``csrc/brgemm.cu`` (f32, contiguous) or raise.  Every launch adds one to
-``KERNEL.launches``."""
+``KERNEL.launches``.
+
+:func:`plan` picks the tile and the copy form of every launch of the
+shared GEMM tile (``csrc/gemm_f32.cuh``), here and for the direct conv;
+the launch hands the plan to the kernel and sizes the stats partials by
+it, so tile geometry has one source."""
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
-from paddle_tpu_torch.ops.kernels._build import Kernel
+from paddle_tpu_torch.ops.kernels._build import Kernel, load
 
-BLOCK_M = 128  # output rows per block: the stats have one partial per tile
+#: the tiles ``csrc/gemm_f32.cuh`` instantiates, (block_m, block_n),
+#: largest first, each with the blocks an H100 SM holds at once: 8 x 8
+#: outputs a thread at 167-168 registers (ptxas, no spills), so the 128 x
+#: 64 tile's 128 threads fit three times and the 64 x 64 tile's 64 six
+#: times (its 32 KB ring six times too).  :func:`resident` asks the CUDA
+#: runtime for the same count of every instantiation, and the card's tests
+#: and ``chip_smoke.py`` hold the table to it.
+TILES = ((128, 64), (64, 64))
+RESIDENT = {(128, 64): 3, (64, 64): 6}
+BLOCK_K = 16         # the reduction slice of one ring stage
+MIN_WAVES = 8        # a tile larger than the smallest fills the card so often
+MIN_SPLIT_SLICES = 16   # a split of the reduction keeps at least this many
+MAX_SPLITS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("brgemm", "brgemm_f32",
-                [_P, _P, _P] + [_I] * 10 + [_P, _P, _I, _P, _P, _P, _P])
+                [_P, _P, _P] + [_I] * 14 + [_P] * 3 + [_I] + [_P] * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of the shared tile: ``block_m`` x ``block_n`` outputs a
+    block of block_m * block_n / 64 threads; the copy form, ``vec``: 4
+    consecutive reduction elements (or 4 columns of B) a 16-byte copy,
+    else a 4-byte copy each; and ``splits`` of the reduction, summed in
+    order by a second pass."""
+    block_m: int
+    block_n: int
+    vec: bool
+    splits: int = 1
+
+    def row_tiles(self, m: int) -> int:
+        """Row tiles of an M-row output: the stats partials' count."""
+        return -(-m // self.block_m)
+
+    def blocks(self, m: int, n: int) -> int:
+        return self.row_tiles(m) * -(-n // self.block_n) * self.splits
+
+
+@functools.lru_cache(maxsize=4096)
+def _tile(m: int, n: int, kred: int, sms: int) -> tuple:
+    for t in TILES[:-1]:
+        if Plan(*t, True).blocks(m, n) >= MIN_WAVES * sms * RESIDENT[t]:
+            return t + (1,)
+    t = TILES[-1]
+    wave = sms * RESIDENT[t]
+    splits = min(wave // Plan(*t, True).blocks(m, n), MAX_SPLITS,
+                 -(-kred // BLOCK_K) // MIN_SPLIT_SLICES)
+    return t + (max(1, splits),)
+
+
+def plan(m: int, n: int, kred: int, run: int, ptrs, sms: int) -> Plan:
+    """The tile, copy form and split of one GEMM launch with M rows, N
+    columns and a reduction of ``kred`` elements whose contiguous run in
+    A is ``run`` (a conv's Cin, the BRGEMM's K), on a card of ``sms``
+    SMs.
+
+    - The 16-byte form needs ``run`` and N to be multiples of 4 and every
+      operand pointer in ``ptrs`` 16-byte aligned; else the 4-byte form.
+    - The tile: the largest of :data:`TILES` whose grid fills the card's
+      resident blocks at least :data:`MIN_WAVES` times, else the
+      smallest: a few waves of a large tile leave SMs idle in the last
+      one.
+    - The split: where the smallest tile's grid holds fewer blocks than
+      the card, the reduction is cut into as many whole multiples as fit
+      (at most :data:`MAX_SPLITS`, each at least
+      :data:`MIN_SPLIT_SLICES` slices): res5's 3x3 at batch 64 (392
+      blocks for 792) takes 2, small_vgg's last group (256) 3."""
+    vec = (run % 4 == 0 and n % 4 == 0
+           and all(p % 16 == 0 for p in ptrs))
+    bm, bn, splits = _tile(m, n, kred, sms)
+    return Plan(bm, bn, vec, splits)
+
+
+def resident(kernel: Kernel, block_m: int, block_n: int, vec: bool) -> int:
+    """Blocks of ``kernel``'s (the BRGEMM's or the direct conv's)
+    block_m x block_n tile in the copy form ``vec`` that one SM of the
+    current card holds at once, from the CUDA runtime's occupancy of that
+    instantiation (the C entry ``<symbol>_resident``)."""
+    fn = getattr(load(kernel.source), kernel.symbol + "_resident")
+    fn.argtypes, fn.restype = [_I] * 3, _I
+    n = fn(block_m, block_n, int(vec))
+    enforce(n > 0, "%s_resident(%d, %d, %d): CUDA error %d", kernel.symbol,
+            block_m, block_n, int(vec), -n)
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def epilogue(acc, scale=None, shift=None, act=None):
@@ -69,39 +161,52 @@ def brgemm_reference(a, b, scale=None, shift=None, act=None, stats=False):
 def _launch(a, b, g, m, k, n, rows, scale, shift, act, stats):
     """One kernel call; ``rows`` = (img_h, img_w, out_h, out_w, sh, sw) is
     the row map of A (see ``csrc/brgemm.cu``)."""
-    enforce(a.device.type == "cuda", f"no kernel for device {a.device}")
     tensors = [a, b] + ([scale, shift] if scale is not None else [])
-    enforce(all(t.dtype == torch.float32 for t in tensors),
-            "the brgemm kernel takes float32 operands")
-    enforce(all(t.is_contiguous() for t in tensors),
-            "the brgemm kernel needs contiguous operands")
-    enforce(len({t.device for t in tensors}) == 1,
-            f"operands on several devices: {[t.device for t in tensors]}")
+    check_operands("brgemm", tensors)
     enforce(min(g, m, k, n) > 0, "the brgemm kernel takes non-empty "
-            f"operands, got G={g} M={m} K={k} N={n}")
-    return launch_gemm(KERNEL, a.device, m, n, stats, scale, shift, act,
+            "operands, got G=%d M=%d K=%d N=%d", g, m, k, n)
+    p = plan(m, n, g * k, k, (a.data_ptr(), b.data_ptr()),
+             sm_count(a.device))
+    return launch_gemm(KERNEL, a.device, m, n, p, stats, scale, shift, act,
                        a.data_ptr(), b.data_ptr(), g, m, k, n, *rows)
 
 
-def launch_gemm(kernel, device, m, n, stats, scale, shift, act, *args):
-    """Allocate y [M, N] (and the stats partials and outputs), launch
-    ``kernel(*args, y, ..., epilogue pointers, stream)`` and return y or
-    (y, sum, sumsq).  The C entry points of ``brgemm.cu`` and
-    ``conv2d_direct.cu`` share this tail of arguments."""
+def check_operands(name, tensors):
+    """The kernels take f32 contiguous operands on one CUDA device."""
+    dev = tensors[0].device
+    enforce(dev.type == "cuda", "no kernel for device %s", dev)
+    enforce(all(t.dtype == torch.float32 for t in tensors),
+            f"the {name} kernel takes float32 operands")
+    enforce(all(t.is_contiguous() for t in tensors),
+            f"the {name} kernel needs contiguous operands")
+    enforce(all(t.device == dev for t in tensors),
+            "operands on several devices: %s", [t.device for t in tensors])
+
+
+def launch_gemm(kernel, device, m, n, p, stats, scale, shift, act, *args):
+    """Allocate y [M, N] (and the split's scratch, the stats partials and
+    outputs), launch ``kernel(*args, y, ..., the plan p, epilogue
+    pointers, stream)`` and return y or (y, sum, sumsq).  The C entry
+    points of ``brgemm.cu`` and ``conv2d_direct.cu`` share this tail of
+    arguments."""
     y = torch.empty((m, n), dtype=torch.float32, device=device)
-    s = ss = partial = None
-    if stats:
-        partial = torch.empty((2, -(-m // BLOCK_M), n), dtype=torch.float32,
-                              device=device)
-        s = torch.empty(n, dtype=torch.float32, device=device)
-        ss = torch.empty(n, dtype=torch.float32, device=device)
+    ws = s = ss = partial = None
+    if p.splits > 1:
+        ws = torch.empty((p.splits, m, n), dtype=torch.float32,
+                         device=device)
+    if stats:   # one allocation: partials [2, tiles, N], then sum, sumsq
+        tiles = p.row_tiles(m)
+        buf = torch.empty(2 * (tiles + 1) * n, dtype=torch.float32,
+                          device=device)
+        partial, s, ss = buf.split([2 * tiles * n, n, n])
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        kernel.launch(args[0], args[1], y.data_ptr(), *args[2:], ptr(scale),
+        kernel.launch(args[0], args[1], y.data_ptr(), *args[2:], p.block_m,
+                      p.block_n, int(p.vec), p.splits, ptr(ws), ptr(scale),
                       ptr(shift), int(act == "relu"), ptr(partial), ptr(s),
                       ptr(ss), stream)
     return (y, s, ss) if stats else y
@@ -116,8 +221,8 @@ def brgemm(a, b, scale=None, shift=None, act=None, stats=False):
     check_epilogue(scale, shift, act)
     enforce(a.dim() == 3 and b.dim() == 3 and a.shape[0] == b.shape[0]
             and a.shape[2] == b.shape[1],
-            f"brgemm needs a [G, M, K] and b [G, K, N], got "
-            f"{tuple(a.shape)} and {tuple(b.shape)}")
+            "brgemm needs a [G, M, K] and b [G, K, N], got %s and %s",
+            tuple(a.shape), tuple(b.shape))
     if a.device.type == "cpu":
         return brgemm_reference(a, b, scale, shift, act, stats)
     g, m, k = a.shape
@@ -132,8 +237,8 @@ def conv1x1(x, w, stride=(1, 1), scale=None, shift=None, act=None,
     (and the per-channel (sum, sumsq) when ``stats``)."""
     check_epilogue(scale, shift, act)
     enforce(x.dim() == 4 and tuple(w.shape[:3]) == (1, 1, x.shape[3]),
-            f"conv1x1 needs x [N, H, W, Cin] and w [1, 1, Cin, Cout], got "
-            f"{tuple(x.shape)} and {tuple(w.shape)}")
+            "conv1x1 needs x [N, H, W, Cin] and w [1, 1, Cin, Cout], got "
+            "%s and %s", tuple(x.shape), tuple(w.shape))
     n, h, wd, cin = x.shape
     cout = w.shape[3]
     sh, sw = stride

@@ -41,7 +41,7 @@ from paddle_tpu_torch.ops.kernels._build import Kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = Kernel("conv2d_direct", "conv2d_direct_f32",
-                [_P, _P, _P] + [_I] * 13 + [_P, _P, _I, _P, _P, _P, _P])
+                [_P, _P, _P] + [_I] * 17 + [_P] * 3 + [_I] + [_P] * 4)
 
 
 # -- forward: one launch with a fused epilogue ---------------------------------
@@ -59,24 +59,29 @@ def fwd_raw_reference(x, w, strides, pads, scale=None, shift=None, act=None,
     return y, acc.sum(dim=dims), (acc * acc).sum(dim=dims)
 
 
+def direct_plan(x, w, m, sms):
+    """The shared tile's plan for the direct conv of x [N, H, W, Cin] by w
+    [KH, KW, Cin, Cout] with M output pixels on a card of ``sms`` SMs: the
+    reduction is KH * KW * Cin long and its contiguous run Cin (one tap's
+    channels)."""
+    kh, kw, cin, cout = w.shape
+    return kbr.plan(m, cout, kh * kw * cin, cin,
+                    (x.data_ptr(), w.data_ptr()), sms)
+
+
 def _direct_kernel(x, w, strides, pads, scale, shift, act, stats):
-    enforce(x.device.type == "cuda", f"no kernel for device {x.device}")
-    tensors = [x, w] + ([scale, shift] if scale is not None else [])
-    enforce(all(t.dtype == torch.float32 for t in tensors),
-            "the direct conv kernel takes float32 operands")
-    enforce(all(t.is_contiguous() for t in tensors),
-            "the direct conv kernel needs contiguous operands")
-    enforce(len({t.device for t in tensors}) == 1,
-            f"operands on several devices: {[t.device for t in tensors]}")
+    kbr.check_operands("direct conv",
+                       [x, w] + ([scale, shift] if scale is not None else []))
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     (sh, sw), (ph, pw) = strides, pads
     oh, ow = nn_ops.conv_out(h, kh, sh, ph), nn_ops.conv_out(wd, kw, sw, pw)
     enforce(min(n, oh, ow, cin, cout) > 0, "the direct conv kernel takes "
-            f"non-empty shapes, got x {tuple(x.shape)} w {tuple(w.shape)}")
-    out = kbr.launch_gemm(KERNEL, x.device, n * oh * ow, cout, stats, scale,
-                          shift, act, x.data_ptr(), w.data_ptr(), n, h, wd,
-                          cin, kh, kw, cout, oh, ow, sh, sw, ph, pw)
+            "non-empty shapes, got x %s w %s", tuple(x.shape), tuple(w.shape))
+    p = direct_plan(x, w, n * oh * ow, kbr.sm_count(x.device))
+    out = kbr.launch_gemm(KERNEL, x.device, n * oh * ow, cout, p, stats,
+                          scale, shift, act, x.data_ptr(), w.data_ptr(), n,
+                          h, wd, cin, kh, kw, cout, oh, ow, sh, sw, ph, pw)
     if stats:
         return out[0].reshape(n, oh, ow, cout), out[1], out[2]
     return out.reshape(n, oh, ow, cout)
@@ -90,8 +95,8 @@ def fwd_raw(x, w, strides, pads, scale=None, shift=None, act=None,
     CPU tensors take the plain twins."""
     kbr.check_epilogue(scale, shift, act)
     enforce(x.dim() == 4 and w.dim() == 4 and w.shape[2] == x.shape[3],
-            f"conv needs x [N, H, W, Cin] and w [KH, KW, Cin, Cout], got "
-            f"{tuple(x.shape)} and {tuple(w.shape)}")
+            "conv needs x [N, H, W, Cin] and w [KH, KW, Cin, Cout], got "
+            "%s and %s", tuple(x.shape), tuple(w.shape))
     if tuple(w.shape[:2]) == (1, 1) and tuple(pads) == (0, 0):
         return kbr.conv1x1(x.contiguous(), w.contiguous(), strides, scale,
                            shift, act, stats)

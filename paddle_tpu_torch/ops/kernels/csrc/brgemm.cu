@@ -16,13 +16,15 @@
 // copying x[:, ::s, ::s] first (tpp/conv.py:209).  A plain [G, M, K] stack
 // is the same mapping with one "image" of 1 x M pixels at stride 1.
 //
-// What bounds it on an H100: operations.  The batch-64 ResNet-50 1x1
-// convs have K, N >= 64 and M >= 12,544: e.g. res2 branch2c (M = 200,704,
-// K = 64, N = 256) is 6.6 GFLOP against 257 MB of A and y, ~26 flop/byte,
-// above the ~20 flop/byte balance point of f32 FMA (67 TFLOP/s) over HBM
-// (3.35 TB/s).  f32 at full precision rules out the tensor cores, so the
-// tile keeps every operand in shared memory or registers and does 64
-// FMAs per thread for each 16 shared-memory reads.
+// What bounds it on an H100: operations, narrowly.  The batch-64
+// ResNet-50 1x1 convs have K, N >= 64 and M >= 12,544: e.g. res2 branch2c
+// (M = 200,704, K = 64, N = 256) is 6.6 GFLOP against 257 MB of A and y,
+// ~26 flop/byte, just above the ~20 flop/byte balance point of f32 FMA
+// (67 TFLOP/s) over HBM (3.35 TB/s).  f32 at full precision rules out the
+// tensor cores, so the shared tile (gemm_f32.cuh) streams A and B through
+// a cp.async ring, 16-byte copies when K and N are multiples of 4, and
+// stores y as float4 rows: a short reduction leaves little time to hide
+// the copies behind, so they are few and wide.
 
 #include "gemm_f32.cuh"
 
@@ -38,9 +40,8 @@ struct BrgemmA {
     long long off;
     bool ok;
   };
-  struct Col {
-    long long off;
-    bool ok;
+  struct Cursor {
+    int k, g, kk;  // reduction index k = g * K + kk
   };
 
   __device__ Row row(int m) const {
@@ -53,16 +54,21 @@ struct BrgemmA {
     }
     return r;
   }
-  __device__ Col col(int k) const {
-    Col c{0, k < Kred};
-    if (c.ok) {
-      const int g = k / K;
-      c.off = g * gstride + (k - g * K);
-    }
-    return c;
+  __device__ Cursor cursor(int k) const {
+    const int g = k / K;
+    return Cursor{k, g, k - g * K};
   }
-  __device__ float load(const Row& r, const Col& c) const {
-    return (r.ok && c.ok) ? a[r.off + c.off] : 0.f;
+  __device__ void advance(Cursor& u, int step) const {
+    u.k += step;
+    u.kk += step;
+    while (u.kk >= K) {
+      u.kk -= K;
+      ++u.g;
+    }
+  }
+  __device__ const float* src(const Row& r, const Cursor& u, bool& ok) const {
+    ok = r.ok && u.k < Kred;
+    return ok ? a + r.off + u.g * gstride + u.kk : a;
   }
 };
 
@@ -70,22 +76,36 @@ struct BrgemmA {
 
 // a [G, M, K] (or, with G = 1, an NHWC image [n, img_h, img_w, K] read at
 // rows (oh*sh, ow*sw), M = n * out_h * out_w); b [G, K, N]; y [M, N].
-// scale/shift [N] or null; partial [2, ceil(M / 128), N] scratch and
-// sum/sumsq [N] outputs, or all three null.
+// block_m x block_n is the tile, vec the copy form (16-byte copies:
+// K % 4 == 0, N % 4 == 0 and a, b, y 16-byte aligned) and splits the
+// split of the reduction (ws [splits, M, N] scratch when > 1), as
+// ops/kernels/brgemm.py's plan picks them.  scale/shift [N] or null;
+// partial [2, ceil(M / block_m), N] scratch and sum/sumsq [N] outputs, or
+// all three null.
 extern "C" int brgemm_f32(const float* a, const float* b, float* y, int G,
                           int M, int K, int N, int img_h, int img_w,
-                          int out_h, int out_w, int sh, int sw,
-                          const float* scale, const float* shift, int relu,
-                          float* partial, float* sum, float* sumsq,
-                          void* stream) {
+                          int out_h, int out_w, int sh, int sw, int block_m,
+                          int block_n, int vec, int splits, float* ws,
+                          const float* scale,
+                          const float* shift, int relu, float* partial,
+                          float* sum, float* sumsq, void* stream) {
   if (G <= 0 || M <= 0 || K <= 0 || N <= 0 || out_h <= 0 || out_w <= 0 ||
       M % (out_h * out_w) != 0 || (G > 1 && (img_h != 1 || out_h != 1)) ||
-      (long long)G * K > 0x7fffffff)
+      (long long)G * K > 0x7fffffff ||
+      (vec && (K % 4 != 0 || !gemm::aligned16(a))))
     return (int)cudaErrorInvalidValue;
   const BrgemmA A{a, (long long)M * K, M, K, G * K,
                   img_h, img_w, out_h, out_w, sh, sw};
-  return gemm::launch(A, b, M, N, G * K, y, scale, shift, relu, partial, sum,
-                      sumsq, (cudaStream_t)stream);
+  return gemm::launch(A, b, M, N, G * K, y, block_m, block_n, vec, splits,
+                      ws, scale, shift, relu, partial, sum, sumsq,
+                      (cudaStream_t)stream);
+}
+
+// Blocks of brgemm_f32's block_m x block_n tile in the copy form vec that
+// one SM holds at once, or -(CUDA error): ops/kernels/brgemm.py's
+// RESIDENT, which the tile plan reads, is checked against it.
+extern "C" int brgemm_f32_resident(int block_m, int block_n, int vec) {
+  return gemm::resident<BrgemmA>(block_m, block_n, vec);
 }
 
 extern "C" const char* kernel_error_string(int code) {

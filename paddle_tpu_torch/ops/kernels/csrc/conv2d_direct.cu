@@ -18,11 +18,17 @@
 // What bounds it on an H100: operations.  The batch-64 ResNet-50 3x3
 // convs (e.g. res2: x [64, 56, 56, 64], 64 filters) are 14.8 GFLOP
 // against ~103 MB of x and y, ~140 flop/byte; the 7x7 stem is 15.1 GFLOP
-// against ~244 MB, ~62 flop/byte.  f32 at full precision rules out the tensor cores, so
-// the shared tile streams 8-deep reduction slices of A and B through
-// shared memory and does 64 FMAs per thread per 16 shared reads.  The
-// stem's Cin = 3 (reduction 147) and the odd output sizes are masked in
-// the loads, not padded.
+// against ~244 MB, ~62 flop/byte.  f32 at full precision rules out the
+// tensor cores, so the shared tile (gemm_f32.cuh) streams 16-deep
+// reduction slices through a cp.async ring and runs an 8 x 8 FMA tile a
+// thread.  The reduction runs (kh, kw) outer and channels inner, so with
+// Cin % 4 == 0 one 16-byte copy reads 4 channels of one tap (NHWC keeps a
+// tap's channels contiguous) and a row's window test is per tap, not per
+// element; the Cin 1 and 3 convs (the ResNet stem, AlexNet conv1, the
+// CRNN's first conv) take the tile's 4-byte form.  A thread's cursor into
+// the reduction advances by a slice with adds and compares; the divisions
+// happen once, when a block starts.  Padding taps and rows past M are
+// zero-filled by the copies.
 
 #include "gemm_f32.cuh"
 
@@ -33,68 +39,81 @@ struct ConvA {
   int M, H, W, C, OH, OW, KW, sh, sw, ph, pw, Kred;
 
   struct Row {
-    long long base;  // offset of image n
-    int ih0, iw0;    // top-left input pixel of the window (may be < 0)
-    bool ok;
+    int pix;       // pixel index of the window's top-left tap (n, ih0, iw0)
+    int ih0, iw0;  // that tap's input row and column (may be < 0)
   };
-  struct Col {
-    int kh, kw, c;
-    bool ok;
+  struct Cursor {
+    int k, kh, kw, c;  // reduction index k = (kh * KW + kw) * C + c
   };
 
   __device__ Row row(int m) const {
-    Row r{0, 0, 0, m < M};
-    if (r.ok) {
-      const int per_img = OH * OW;
-      const int n = m / per_img, rem = m - n * per_img;
-      const int oh = rem / OW, ow = rem - oh * OW;
-      r.base = (long long)n * H * W * C;
-      r.ih0 = oh * sh - ph;
-      r.iw0 = ow * sw - pw;
-    }
-    return r;
+    if (m >= M) return Row{0, -(1 << 30), 0};  // no tap is inside the image
+    const int per_img = OH * OW;
+    const int n = m / per_img, rem = m - n * per_img;
+    const int oh = rem / OW, ow = rem - oh * OW;
+    const int ih0 = oh * sh - ph, iw0 = ow * sw - pw;
+    return Row{(n * H + ih0) * W + iw0, ih0, iw0};
   }
-  __device__ Col col(int k) const {
-    Col c{0, 0, 0, k < Kred};
-    if (c.ok) {
-      const int kwc = KW * C;
-      c.kh = k / kwc;
-      const int rem = k - c.kh * kwc;
-      c.kw = rem / C;
-      c.c = rem - c.kw * C;
-    }
-    return c;
+  __device__ Cursor cursor(int k) const {
+    const int tap = k / C;
+    return Cursor{k, tap / KW, tap - tap / KW * KW, k - tap * C};
   }
-  __device__ float load(const Row& r, const Col& c) const {
-    const int ih = r.ih0 + c.kh, iw = r.iw0 + c.kw;
-    const bool ok = r.ok && c.ok && (unsigned)ih < (unsigned)H &&
-                    (unsigned)iw < (unsigned)W;
-    return ok ? x[r.base + ((long long)ih * W + iw) * C + c.c] : 0.f;
+  __device__ void advance(Cursor& u, int step) const {
+    u.k += step;
+    u.c += step;
+    while (u.c >= C) {
+      u.c -= C;
+      if (++u.kw == KW) {
+        u.kw = 0;
+        ++u.kh;
+      }
+    }
+  }
+  __device__ const float* src(const Row& r, const Cursor& u, bool& ok) const {
+    const int ih = r.ih0 + u.kh, iw = r.iw0 + u.kw;
+    ok = u.k < Kred && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+    return ok ? x + ((long long)(r.pix + u.kh * W + u.kw) * C + u.c) : x;
   }
 };
 
 }  // namespace
 
 // x [n, h, w, cin], wt [kh, kw, cin, cout], y [n, oh, ow, cout] (all
-// contiguous f32).  scale/shift [cout] or null; partial
-// [2, ceil(n*oh*ow / 128), cout] scratch and sum/sumsq [cout] outputs, or
-// all three null.
+// contiguous f32).  block_m x block_n is the tile, vec the copy form
+// (16-byte copies: cin % 4 == 0, cout % 4 == 0 and x, wt, y 16-byte
+// aligned) and splits the split of the reduction (ws [splits, n*oh*ow,
+// cout] scratch when > 1), as ops/kernels/brgemm.py's plan picks them.
+// scale/shift
+// [cout] or null; partial [2, ceil(n*oh*ow / block_m), cout] scratch and
+// sum/sumsq [cout] outputs, or all three null.
 extern "C" int conv2d_direct_f32(const float* x, const float* wt, float* y,
                                  int n, int h, int w, int cin, int kh, int kw,
                                  int cout, int oh, int ow, int sh, int sw,
-                                 int ph, int pw, const float* scale,
+                                 int ph, int pw, int block_m, int block_n,
+                                 int vec, int splits, float* ws,
+                                 const float* scale,
                                  const float* shift, int relu, float* partial,
                                  float* sum, float* sumsq, void* stream) {
   const long long m = (long long)n * oh * ow;
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || kh <= 0 || kw <= 0 ||
       cout <= 0 || oh <= 0 || ow <= 0 || sh <= 0 || sw <= 0 || ph < 0 ||
       pw < 0 || m > 0x7fffffff || (long long)kh * kw * cin > 0x7fffffff ||
-      (oh - 1) * sh + kh > h + 2 * ph || (ow - 1) * sw + kw > w + 2 * pw)
+      (long long)n * h * w > 0x7fffffff ||
+      (oh - 1) * sh + kh > h + 2 * ph || (ow - 1) * sw + kw > w + 2 * pw ||
+      (vec && (cin % 4 != 0 || !gemm::aligned16(x))))
     return (int)cudaErrorInvalidValue;
   const ConvA A{x, (int)m, h, w, cin, oh, ow, kw, sh, sw, ph, pw,
                 kh * kw * cin};
-  return gemm::launch(A, wt, (int)m, cout, kh * kw * cin, y, scale, shift,
-                      relu, partial, sum, sumsq, (cudaStream_t)stream);
+  return gemm::launch(A, wt, (int)m, cout, kh * kw * cin, y, block_m,
+                      block_n, vec, splits, ws, scale, shift, relu, partial,
+                      sum, sumsq, (cudaStream_t)stream);
+}
+
+// Blocks of conv2d_direct_f32's block_m x block_n tile in the copy form vec that
+// one SM holds at once, or -(CUDA error): ops/kernels/brgemm.py's
+// RESIDENT, which the tile plan reads, is checked against it.
+extern "C" int conv2d_direct_f32_resident(int block_m, int block_n, int vec) {
+  return gemm::resident<ConvA>(block_m, block_n, vec);
 }
 
 extern "C" const char* kernel_error_string(int code) {

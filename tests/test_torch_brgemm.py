@@ -108,3 +108,96 @@ def test_an_edited_shared_header_rebuilds_the_libraries(tmp_path, monkeypatch):
     (tmp_path / "g.cuh").write_text("// v2\n")
     assert _build.library_path("k") != before
     assert _build.library_path("k") == _build.library_path("k")
+
+
+# -- the shared tile's plan (csrc/gemm_f32.cuh's tile and copy form) ----------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("run,n,ptrs,vec", [
+    (64, 256, (0, 256), True),      # ResNet's 1x1 and 3x3 convs
+    (96, 256, (16, 4096), True),    # AlexNet conv2: Cin 96
+    (8, 12, (0, 0), True),          # Cin 8: slices straddle the taps
+    (3, 64, (0, 0), False),         # the stem, AlexNet conv1: Cin 3
+    (1, 16, (0, 0), False),         # the CRNN's first conv: Cin 1
+    (147, 64, (0, 0), False),       # an odd K
+    (64, 9, (0, 0), False),         # N not a multiple of 4
+    (64, 64, (4, 0), False),        # A at a storage offset of one float
+    (64, 64, (0, 8), False),        # B 8 bytes past a 16-byte boundary
+])
+def test_plan_picks_the_copy_form_by_shape_and_alignment(run, n, ptrs, vec):
+    assert BR.plan(4096, n, 9 * run, run, ptrs, H100_SMS).vec is vec
+
+
+@pytest.mark.parametrize("m,n,kred,plan", [
+    (64 * 56 * 56, 64, 576, (64, 64, 1)),       # res2 3x3: 3.96 waves
+    (64 * 56 * 56, 256, 64, (128, 64, 1)),      # res2 branch2c: 15.8
+    (64 * 112 * 112, 64, 147, (128, 64, 1)),    # the stem: 15.8
+    (64 * 28 * 28, 128, 1152, (64, 64, 1)),     # res3 3x3
+    (64 * 14 * 14, 256, 2304, (64, 64, 1)),     # res4 3x3: 784 blocks
+    (64 * 7 * 7, 512, 4608, (64, 64, 2)),       # res5 3x3: 392 for 792
+    (64 * 7 * 7, 512, 2048, (64, 64, 2)),       # res5 branch2a
+    (64 * 7 * 7, 2048, 512, (64, 64, 1)),       # res5 branch2c: 1,568
+    (128 * 4 * 4, 512, 4608, (64, 64, 3)),      # small_vgg's last group
+    (128 * 32 * 32, 64, 576, (64, 64, 1)),      # small_vgg's widest
+    (64 * 27 * 27, 256, 2400, (64, 64, 1)),     # AlexNet conv2
+    (5, 9, 576, (64, 64, 2)),                   # 36 slices: 2 splits of 18
+    (300, 130, 64, (64, 64, 1)),                # 4 slices: no split
+    (98, 512, 4608, (64, 64, 8)),               # res5 3x3 at batch 2
+])
+def test_plan_picks_the_tile_and_split_for_the_card(m, n, kred, plan):
+    p = BR.plan(m, n, kred, 64, (0, 0), H100_SMS)
+    assert (p.block_m, p.block_n, p.splits) == plan
+    slices = -(-kred // BR.BLOCK_K)
+    assert 1 <= p.splits <= max(1, min(BR.MAX_SPLITS,
+                                       slices // BR.MIN_SPLIT_SLICES))
+    if p.splits > 1:    # a split only where the grid holds fewer blocks
+        assert BR.Plan(p.block_m, p.block_n, True).blocks(m, n) \
+            < H100_SMS * BR.RESIDENT[(p.block_m, p.block_n)]
+    if (p.block_m, p.block_n) != BR.TILES[-1]:
+        assert p.blocks(m, n) >= BR.MIN_WAVES * H100_SMS * BR.RESIDENT[
+            (p.block_m, p.block_n)]
+
+
+@pytest.mark.parametrize("block_m,m,tiles", [
+    (128, 64 * 56 * 56, 1568), (128, 129, 2), (128, 1, 1),
+    (64, 128 * 4 * 4, 32), (64, 129, 3), (64, 64, 1),
+])
+def test_stats_partials_are_sized_by_the_plans_row_tiles(block_m, m, tiles):
+    assert BR.Plan(block_m, 64, True).row_tiles(m) == tiles
+
+
+def test_plan_tiles_are_the_ones_the_cuda_tile_instantiates():
+    """``TILES`` and ``csrc/gemm_f32.cuh``'s dispatch (``launch_form``)
+    name the same (block_m, block_n) pairs, so the plan never asks for a
+    tile the library does not have."""
+    import re
+    from pathlib import Path
+
+    src = (Path(BR.__file__).parent / "csrc" / "gemm_f32.cuh").read_text()
+    body = src[src.index("cudaError_t launch_form"):]
+    body = body[:body.index("return cudaErrorInvalidValue")]
+    found = re.findall(r"block_m == (\d+) && block_n == (\d+)", body)
+    assert tuple((int(a), int(b)) for a, b in found) == BR.TILES
+
+
+def test_direct_plan_reads_cin_and_the_operands_alignment():
+    """The direct conv's plan: Cin is the reduction's contiguous run, and a
+    contiguous view at a storage offset of one float takes the 4-byte
+    form."""
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    w = torch.zeros(3, 3, 64, 64)
+    x = torch.zeros(2, 8, 8, 64)
+    buf = torch.zeros(x.numel() + 1)
+    shifted = buf[1:].view(2, 8, 8, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert CV.direct_plan(x, w, 128, H100_SMS).vec
+    assert not CV.direct_plan(shifted, w, 128, H100_SMS).vec
+    stem = CV.direct_plan(torch.zeros(2, 8, 8, 3), torch.zeros(7, 7, 3, 64),
+                          64 * 112 * 112, H100_SMS)
+    assert stem == BR.Plan(128, 64, False, 1)
+    res5 = CV.direct_plan(torch.zeros(2, 7, 7, 512),
+                          torch.zeros(3, 3, 512, 512), 64 * 7 * 7, H100_SMS)
+    assert res5 == BR.Plan(64, 64, True, 2)     # Kred 4608 reaches the plan

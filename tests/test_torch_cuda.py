@@ -235,6 +235,183 @@ def test_conv_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                    (1, 1))
 
 
+# -- the shared f32 GEMM tile (csrc/gemm_f32.cuh): forms, tiles, tails ---------
+
+
+def _tile_case(cuda, fn, kern, args, want_fn, stats):
+    """One launch through ``fn`` against the twin: one launch counted,
+    within TOL x max(1, |ref|) (the sums as the moments they feed), and,
+    with stats, a rerun in the same bits."""
+    before = kern.launches
+    got = fn(*args, stats=stats)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = want_fn(*args, stats=stats)
+    got, want = (got, want) if stats else ((got,), (want,))
+    count = got[0].numel() // got[0].shape[-1]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape
+        if i:
+            a, b = a / count, b / count
+        assert (a - b).abs().max().item() <= TOL * max(
+            1.0, b.abs().max().item())
+    if stats:
+        again = fn(*args, stats=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got[0]
+
+
+@pytest.mark.parametrize("shape,k,cout,s,p,vec", [
+    ((2, 9, 11, 8), 3, 12, 1, 1, True),     # Cin 8: slices straddle taps
+    ((2, 9, 11, 4), 3, 132, 2, 1, True),    # Kred 36; N past 128, % 4 == 0
+    ((2, 6, 7, 12), 1, 20, 1, 1, True),     # Kred 12: below one slice
+    ((3, 17, 19, 3), 7, 64, 2, 3, False),   # the stem's Cin 3, Kred 147
+    ((2, 13, 14, 1), 3, 16, 1, 1, False),   # Cin 1, Kred 9
+    ((2, 13, 14, 16), 3, 9, 1, 1, False),   # N = 9: the 4-byte form
+    ((64, 7, 7, 512), 3, 512, 1, 1, True),  # res5 3x3: 2 splits
+    ((128, 4, 4, 512), 3, 512, 1, 1, True),  # small_vgg's last group: 3
+])
+@pytest.mark.parametrize("stats", [False, True])
+def test_gemm_tile_direct_conv_forms_and_tails(cuda, shape, k, cout, s, p,
+                                               vec, stats):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(shape[-1] * 100 + cout)
+    x = _rand(rng, *shape).to(cuda)
+    w = (_rand(rng, k, k, shape[-1], cout)
+         * (2.0 / (k * k * shape[-1])) ** 0.5).to(cuda)
+    m = shape[0] * ((shape[1] + 2 * p - k) // s + 1) * (
+        (shape[2] + 2 * p - k) // s + 1)
+    plan = CV.direct_plan(x, w, m, BR.sm_count(x.device))
+    assert plan.vec is vec
+    if BR.sm_count(x.device) == 132:    # an H100 SXM
+        if shape == (64, 7, 7, 512):
+            assert plan == BR.Plan(64, 64, True, 2)
+        if shape == (128, 4, 4, 512):
+            assert plan == BR.Plan(64, 64, True, 3)
+    _tile_case(cuda, CV.fwd_raw, CV.KERNEL, (x, w, (s, s), (p, p)),
+               CV.fwd_raw_reference, stats)
+
+
+@pytest.mark.parametrize("g,m,k,n,vec,splits", [
+    (3, 300, 64, 128, True, 1),     # G > 1, K % 16 == 0
+    (4, 77, 36, 200, True, 1),      # G > 1, K % 16 != 0: slices straddle g
+    (2, 50, 7, 64, False, 1),       # odd K: the 4-byte form
+    (5, 33, 12, 44, True, 1),       # G K = 60: the tail of the last slice
+    (1, 129, 4, 8, True, 1),        # Kred below one slice
+    (2, 40, 512, 64, True, 4),      # a split: 4 x 16 slices across g
+    (3, 21, 333, 30, False, 3),     # a ragged split in the 4-byte form
+])
+@pytest.mark.parametrize("stats", [False, True])
+def test_gemm_tile_brgemm_stacks_forms_and_tails(cuda, g, m, k, n, vec,
+                                                 splits, stats):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+    rng = np.random.default_rng(g * 1000 + m + k + n)
+    a, b = _rand(rng, g, m, k).to(cuda), _rand(rng, g, k, n).to(cuda)
+    plan = BR.plan(m, n, g * k, k, (a.data_ptr(), b.data_ptr()),
+                   BR.sm_count(a.device))
+    assert plan.vec is vec
+    if BR.sm_count(a.device) == 132:    # an H100 SXM
+        assert plan.splits == splits
+    _tile_case(cuda, BR.brgemm, BR.KERNEL, (a, b), BR.brgemm_reference,
+               stats)
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_gemm_tile_every_instantiation(cuda, monkeypatch, tile, vec, splits):
+    """Each tile in each copy form, whole and split in 3, forced through
+    the plan, on a conv and a strided 1x1 conv with ragged M and N past
+    one column tile: against the twin, stats rerun in the same bits."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    monkeypatch.setattr(BR, "plan", lambda *a: BR.Plan(*tile, vec, splits))
+    rng = np.random.default_rng(tile[0] + tile[1] + vec)
+    x = _rand(rng, 3, 15, 13, 48).to(cuda)     # the 1x1's K: 3 slices
+    w3 = (_rand(rng, 3, 3, 48, 136) * 0.1).to(cuda)
+    w1 = (_rand(rng, 1, 1, 48, 136) * 0.2).to(cuda)
+    _tile_case(cuda, CV.fwd_raw, CV.KERNEL, (x, w3, (1, 1), (1, 1)),
+               CV.fwd_raw_reference, True)
+    _tile_case(cuda, CV.fwd_raw, BR.KERNEL, (x, w1, (2, 2), (0, 0)),
+               CV.fwd_raw_reference, True)
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
+@pytest.mark.parametrize("vec", [True, False])
+def test_gemm_tile_resident_blocks_match_the_plan(cuda, tile, vec):
+    """The plan's ``RESIDENT`` (blocks an SM holds, which sets its waves and
+    splits) is what the CUDA runtime computes for every instantiation of
+    the tile, in both kernels: a change of registers or shared memory that
+    moves it fails here, not silently in the plan."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    assert tile in BR.TILES
+    for kernel in (BR.KERNEL, CV.KERNEL):
+        assert BR.resident(kernel, *tile, vec) == BR.RESIDENT[tile]
+
+
+def test_gemm_tile_copy_forms_give_the_same_bits(cuda):
+    """An input at a storage offset of one float is not 16-byte aligned and
+    takes the 4-byte form; both forms sum in the same order, so the
+    outputs and the stats are equal bit for bit to the aligned input's."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(7)
+    x = _rand(rng, 4, 14, 14, 64).to(cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    sms = BR.sm_count(x.device)
+    for k, p, kern in ((3, 1, CV.KERNEL), (1, 0, BR.KERNEL)):
+        w = (_rand(rng, k, k, 64, 96) * 0.1).to(cuda)
+        m = 4 * 14 * 14
+        if k == 3:
+            assert CV.direct_plan(x, w, m, sms).vec
+            assert not CV.direct_plan(shifted, w, m, sms).vec
+        n = kern.launches
+        aligned = CV.fwd_raw(x, w, (1, 1), (p, p), stats=True)
+        offset = CV.fwd_raw(shifted, w, (1, 1), (p, p), stats=True)
+        torch.cuda.synchronize()
+        assert kern.launches == n + 2
+        assert all(torch.equal(a, b) for a, b in zip(aligned, offset))
+        want = CV.fwd_raw_reference(x, w, (1, 1), (p, p))
+        assert (aligned[0] - want).abs().max().item() <= TOL * max(
+            1.0, want.abs().max().item())
+
+
+def test_gemm_tile_refuses_a_form_the_operands_do_not_allow(cuda):
+    """The C entry checks the plan it is handed: the 16-byte form on a
+    Cin-3 conv or a misaligned BRGEMM operand is refused, not run."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    x = torch.zeros(1, 8, 8, 3, device=cuda)
+    w = torch.zeros(3, 3, 3, 8, device=cuda)
+    p = BR.Plan(128, 64, True)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.launch_gemm(CV.KERNEL, cuda, 64, 8, p, False, None, None, None,
+                       x.data_ptr(), w.data_ptr(), 1, 8, 8, 3, 3, 3, 8, 8,
+                       8, 1, 1, 1, 1)
+    # more splits than the reduction (27) has slices (2)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.launch_gemm(CV.KERNEL, cuda, 64, 8, BR.Plan(64, 64, False, 3),
+                       False, None, None, None, x.data_ptr(), w.data_ptr(),
+                       1, 8, 8, 3, 3, 3, 8, 8, 8, 1, 1, 1, 1)
+    a = torch.zeros(65, device=cuda)[1:].view(1, 8, 8)
+    b = torch.zeros(1, 8, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        BR.launch_gemm(BR.KERNEL, cuda, 8, 8, p, False, None, None, None,
+                       a.data_ptr(), b.data_ptr(), 1, 8, 8, 8, 1, 8, 1, 8,
+                       1, 1)
+
+
 # -- flash backward (the LM training path) ---------------------------------------
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: ``paddle_tpu_torch`` imports with JAX unavailable,
-no module of it (nor ``chip_smoke.py``) imports ``jax`` or ``paddle_tpu``,
-and its entry points refuse to run on the CPU unless asked to."""
+no module of it (nor ``chip_smoke.py`` or ``chip_ab.py``) imports ``jax``
+or ``paddle_tpu``, and its entry points refuse to run on the CPU unless
+asked to."""
 
 import ast
 import os
@@ -85,7 +86,7 @@ def test_imports_with_jax_unavailable():
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
