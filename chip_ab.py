@@ -20,7 +20,7 @@ and writes each run's whole output to ``DIR/ab_<i>.json`` (default
     python3 chip_ab.py --sweep
 
 times, at the ``SWEEP`` shapes of ``chip_smoke``'s row 14 and 15 cases
-(stats epilogue), every tile of ``brgemm.TILES`` whole and the smallest
+(stats epilogue), every tile of ``brgemm.F32.tiles`` whole and the smallest
 split in 2 and 4, each checked against the twin first, beside the tile
 the plan picks: one JSON line, {shape: {"<block_m>x<block_n>/<splits>":
 ms}, "planned": ...}."""
@@ -112,9 +112,9 @@ def sweep() -> int:
         fn, want = case["fn"], case["plain_fn"]()
         p = case["plan"]
         row = {"planned": f"{p.block_m}x{p.block_n}/{p.splits}"}
-        cases = [(t, 1) for t in BR.TILES]
-        cases += [(BR.TILES[-1], k) for k in (2, 4)
-                  if k <= -(-case["kred"] // BR.BLOCK_K)]
+        cases = [(t, 1) for t in BR.F32.tiles]
+        cases += [(BR.F32.tiles[-1], k) for k in (2, 4)
+                  if k <= -(-case["kred"] // BR.F32.block_k)]
         for tile, splits in cases:
             with forced_tile(tile, splits):
                 err = C.moments_err(fn(), want, case["count"])

@@ -18,6 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.dtype import ensure_policy_for
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.parameters import ParamSpec
 from paddle_tpu_torch.layers.base import (Context, LayerOutput, StateSpec,
@@ -94,7 +95,9 @@ class Topology:
                 seed: int | None = None):
         """Evaluate every node; returns ({layer_name: value}, new_states).
         ``seed`` is the step's seed, from which layers that draw (dropout)
-        make their generators."""
+        make their generators.  Parameters on the card put the port's
+        numerics policy in force first (``core/dtype.ensure_policy_for``)."""
+        ensure_policy_for(params.values())
         return evaluate(self.nodes, Context(is_train, seed), params,
                         states, feed)
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.core.dtype import set_f32_policy
+from paddle_tpu_torch.core.dtype import set_policy
 from paddle_tpu_torch.core.enforce import EnforceError
 
 
@@ -24,7 +24,7 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run on the CPU explicitly")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        set_f32_policy()
+        set_policy()
     elif dev.type != "cpu":
         raise EnforceError(f"unsupported device {dev}: the port runs on "
                            "'cuda' (default) or 'cpu'")

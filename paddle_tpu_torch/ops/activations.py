@@ -24,7 +24,14 @@ def tanh(x):
 
 
 def softmax(x, axis: int = -1):
-    return torch.softmax(x, dim=axis)
+    """``jax.nn.softmax``.  A bf16 (or f16) input runs its op sequence in
+    the input's dtype, rounding where the JAX package rounds: exp of the
+    shifted input, the sum (accumulated in f32), the division;
+    ``torch.softmax`` would compute in f32 and round once."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return torch.softmax(x, dim=axis)
+    e = torch.exp(x - x.amax(dim=axis, keepdim=True))
+    return e / e.sum(dim=axis, keepdim=True)
 
 
 REGISTRY = {

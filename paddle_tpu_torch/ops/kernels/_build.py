@@ -10,7 +10,10 @@ the flags, so an edited source builds anew and an unchanged one is
 loaded from disk.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:meth:`Kernel.launch` raises on anything but 0.  A refused launch (too
+:meth:`Kernel.launch` raises on anything but 0.  A launch also applies
+the port's numerics policy (``core/dtype.ensure_policy``), so the library
+calls around the kernels (cuDNN's conv backward, cuBLAS) run under it
+whatever the entry point.  A refused launch (too
 many threads, too much shared memory) never runs and a later
 ``torch.cuda.synchronize()`` would not report it."""
 
@@ -22,6 +25,8 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+
+from paddle_tpu_torch.core.dtype import ensure_policy
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -144,6 +149,7 @@ class Kernel:
         return fn
 
     def launch(self, *args) -> None:
+        ensure_policy()
         code = (self._fn or self._resolve())(*args)
         if code != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "

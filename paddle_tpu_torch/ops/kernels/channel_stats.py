@@ -5,9 +5,11 @@ moments from one read (the port of ``paddle_tpu/ops/pallas/tpp/conv.py``'s
 :func:`channel_stats` sums over every axis but the last, in f32: one
 launch of ``csrc/channel_stats.cu`` (two passes over fixed row blocks, no
 atomics, the same bits on a rerun) for a CUDA tensor, the plain twin
-:func:`channel_stats_reference` for a CPU one.  Its gradient is
-:func:`channel_stats_grad`, ``dx = g_s + 2 x g_ss`` in plain torch, as the
-JAX package's vjp is jnp and not Pallas."""
+:func:`channel_stats_reference` for a CPU one.  A float32 input launches
+the f32 form (``KERNEL``), a bfloat16 one the bf16 form (``KERNEL_BF16``:
+8 channels a 16-byte read, f32 sums).  Its gradient is
+:func:`channel_stats_grad`, ``dx = g_s + 2 x g_ss`` in plain torch and in
+x's dtype, as the JAX package's vjp is jnp and not Pallas."""
 
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 KERNEL = Kernel("channel_stats", "channel_stats_f32",
                 [_P, _L, _I, _L, _I, _P, _P, _P, _P])
+KERNEL_BF16 = Kernel("channel_stats", "channel_stats_bf16",
+                     [_P, _L, _I, _L, _I, _I, _P, _P, _P, _P])
 
 ROWS_PER_BLOCK = 256   # the least rows a block of pass 1 takes
 MAX_BLOCKS = 512       # the most row blocks (pass 2 sums at most this many)
@@ -63,8 +67,9 @@ def channel_stats_grad(x, g_s, g_ss):
 
 def _launch(x):
     enforce(x.device.type == "cuda", f"no kernel for device {x.device}")
-    enforce(x.dtype == torch.float32,
-            f"the channel_stats kernel takes float32, got {x.dtype}")
+    enforce(x.dtype in (torch.float32, torch.bfloat16),
+            f"the channel_stats kernel takes float32 or bfloat16, got "
+            f"{x.dtype}")
     enforce(x.is_contiguous(), "the channel_stats kernel needs a "
             "contiguous (channels-last) input")
     enforce(x.dim() >= 1 and x.numel() > 0,
@@ -75,8 +80,15 @@ def _launch(x):
     part = torch.empty(2, p, c, dtype=torch.float32, device=x.device)
     s = torch.empty(c, dtype=torch.float32, device=x.device)
     ss = torch.empty(c, dtype=torch.float32, device=x.device)
-    KERNEL.launch(x.data_ptr(), r, c, per, p, part.data_ptr(), s.data_ptr(),
-                  ss.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if x.dtype == torch.float32:
+        KERNEL.launch(x.data_ptr(), r, c, per, p, part.data_ptr(),
+                      s.data_ptr(), ss.data_ptr(), stream)
+    else:
+        vec = c % 8 == 0 and x.data_ptr() % 16 == 0
+        KERNEL_BF16.launch(x.data_ptr(), r, c, per, p, int(vec),
+                           part.data_ptr(), s.data_ptr(), ss.data_ptr(),
+                           stream)
     return s, ss
 
 
@@ -95,8 +107,8 @@ class _ChannelStats(torch.autograd.Function):
 def channel_stats(x):
     """(sum [C], sum of squares [C]) of ``x`` over every axis but the last,
     accumulated in f32; differentiable.  A CPU tensor takes the plain
-    twin; a CUDA tensor launches the kernel (float32, contiguous) or
-    raises."""
+    twin; a CUDA tensor launches the kernel (float32 or bfloat16,
+    contiguous) or raises."""
     if x.device.type == "cpu":
         return channel_stats_reference(x)
     return _ChannelStats.apply(x)

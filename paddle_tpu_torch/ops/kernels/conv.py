@@ -9,7 +9,11 @@ direct kernel ``csrc/conv2d_direct.cu``.  The epilogue is none, the
 per-channel sum/sum-of-squares of the raw conv output (training-mode BN
 statistics from the same pass), or affine + ReLU (inference-mode BN folded
 into the store).  CPU tensors take the plain twins (:func:`fwd_raw_reference`,
-``brgemm.brgemm_reference``); CUDA tensors launch the kernels or raise.
+``brgemm.brgemm_reference``); CUDA tensors launch the kernels or raise: the
+f32 forms on f32 operands, the bf16 forms (``KERNEL_BF16``,
+``brgemm.KERNEL_BF16``: f32 accumulators, stats and epilogue, y in bf16)
+on bf16 ones.  Mixed operands resolve by ``core/dtype.cast_for_matmul``
+and y takes x's dtype, as in the JAX package.
 
 Backward never re-derives conv math in a kernel: ``torch.autograd.Function``
 wrappers take the exact adjoints of the reference composition, as the
@@ -24,7 +28,7 @@ JAX package's ``custom_vjp`` entries do.
   (the trainer never differentiates inference) recomputes the raw conv.
 
 The conv grads are ``aten.convolution_backward`` (cuDNN on the card, with
-TF32 off by ``core/dtype.set_f32_policy``) on NCHW views of the NHWC
+TF32 off by ``core/dtype.set_policy``) on NCHW views of the NHWC
 tensors: the JAX package leaves exactly this transpose to XLA."""
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.core.dtype import at_least_f32, cast_for_matmul
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops import nn as nn_ops
 from paddle_tpu_torch.ops.kernels import brgemm as kbr
@@ -40,8 +45,9 @@ from paddle_tpu_torch.ops.kernels._build import Kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = Kernel("conv2d_direct", "conv2d_direct_f32",
-                [_P, _P, _P] + [_I] * 17 + [_P] * 3 + [_I] + [_P] * 4)
+_ARGS = [_P, _P, _P] + [_I] * 17 + [_P] * 3 + [_I] + [_P] * 4
+KERNEL = Kernel("conv2d_direct", "conv2d_direct_f32", _ARGS)
+KERNEL_BF16 = Kernel("conv2d_direct", "conv2d_direct_bf16", _ARGS)
 
 
 # -- forward: one launch with a fused epilogue ---------------------------------
@@ -49,10 +55,12 @@ KERNEL = Kernel("conv2d_direct", "conv2d_direct_f32",
 
 def fwd_raw_reference(x, w, strides, pads, scale=None, shift=None, act=None,
                       stats=False):
-    """Plain twin of the fused forward: the plain conv, then the epilogue
-    (and the per-channel sum/sumsq of the raw conv output)."""
-    acc = nn_ops.conv2d_xla(x, w, strides, pads)
-    y = kbr.epilogue(acc, scale, shift, act)
+    """Plain twin of the fused forward: the plain conv accumulated in f32
+    (bf16 operands upcast: their products are exact there), then the
+    epilogue, y rounded once to x's dtype (and the per-channel sum/sumsq
+    of the raw f32 conv output)."""
+    acc = nn_ops.conv2d_xla(at_least_f32(x), at_least_f32(w), strides, pads)
+    y = kbr.epilogue(acc, scale, shift, act).to(x.dtype)
     if not stats:
         return y
     dims = (0, 1, 2)
@@ -63,15 +71,15 @@ def direct_plan(x, w, m, sms):
     """The shared tile's plan for the direct conv of x [N, H, W, Cin] by w
     [KH, KW, Cin, Cout] with M output pixels on a card of ``sms`` SMs: the
     reduction is KH * KW * Cin long and its contiguous run Cin (one tap's
-    channels)."""
+    channels); the form is x's dtype's."""
     kh, kw, cin, cout = w.shape
     return kbr.plan(m, cout, kh * kw * cin, cin,
-                    (x.data_ptr(), w.data_ptr()), sms)
+                    (x.data_ptr(), w.data_ptr()), sms, kbr.FORMS[x.dtype])
 
 
 def _direct_kernel(x, w, strides, pads, scale, shift, act, stats):
-    kbr.check_operands("direct conv",
-                       [x, w] + ([scale, shift] if scale is not None else []))
+    form = kbr.check_operands("direct conv", [x, w],
+                              [] if scale is None else [scale, shift])
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     (sh, sw), (ph, pw) = strides, pads
@@ -79,9 +87,11 @@ def _direct_kernel(x, w, strides, pads, scale, shift, act, stats):
     enforce(min(n, oh, ow, cin, cout) > 0, "the direct conv kernel takes "
             "non-empty shapes, got x %s w %s", tuple(x.shape), tuple(w.shape))
     p = direct_plan(x, w, n * oh * ow, kbr.sm_count(x.device))
-    out = kbr.launch_gemm(KERNEL, x.device, n * oh * ow, cout, p, stats,
-                          scale, shift, act, x.data_ptr(), w.data_ptr(), n,
-                          h, wd, cin, kh, kw, cout, oh, ow, sh, sw, ph, pw)
+    out = kbr.launch_gemm(KERNEL_BF16 if form is kbr.BF16 else KERNEL,
+                          x.device, n * oh * ow, cout, p, stats, scale,
+                          shift, act, x.data_ptr(), w.data_ptr(), n, h, wd,
+                          cin, kh, kw, cout, oh, ow, sh, sw, ph, pw,
+                          dtype=x.dtype)
     if stats:
         return out[0].reshape(n, oh, ow, cout), out[1], out[2]
     return out.reshape(n, oh, ow, cout)
@@ -89,22 +99,28 @@ def _direct_kernel(x, w, strides, pads, scale, shift, act, stats):
 
 def fwd_raw(x, w, strides, pads, scale=None, shift=None, act=None,
             stats=False):
-    """The fused conv forward, no autograd: y [N, OH, OW, Cout] (and
-    (sum, sumsq) of the raw conv output when ``stats``).  1x1 convs
-    without padding take the BRGEMM kernel, the rest the direct kernel;
-    CPU tensors take the plain twins."""
+    """The fused conv forward, no autograd: y [N, OH, OW, Cout] in x's
+    dtype (and (sum, sumsq) of the raw f32 conv output when ``stats``).
+    1x1 convs without padding take the BRGEMM kernel, the rest the direct
+    kernel; CPU tensors take the plain twins."""
     kbr.check_epilogue(scale, shift, act)
     enforce(x.dim() == 4 and w.dim() == 4 and w.shape[2] == x.shape[3],
             "conv needs x [N, H, W, Cin] and w [KH, KW, Cin, Cout], got "
             "%s and %s", tuple(x.shape), tuple(w.shape))
+    out_dtype = x.dtype
+    x, w = cast_for_matmul(x, w)
     if tuple(w.shape[:2]) == (1, 1) and tuple(pads) == (0, 0):
-        return kbr.conv1x1(x.contiguous(), w.contiguous(), strides, scale,
-                           shift, act, stats)
-    if x.device.type == "cpu":
-        return fwd_raw_reference(x, w, strides, pads, scale, shift, act,
-                                 stats)
-    return _direct_kernel(x.contiguous(), w.contiguous(), strides, pads,
-                          scale, shift, act, stats)
+        out = kbr.conv1x1(x.contiguous(), w.contiguous(), strides, scale,
+                          shift, act, stats)
+    elif x.device.type == "cpu":
+        out = fwd_raw_reference(x, w, strides, pads, scale, shift, act,
+                                stats)
+    else:
+        out = _direct_kernel(x.contiguous(), w.contiguous(), strides, pads,
+                             scale, shift, act, stats)
+    if stats:
+        return (out[0].to(out_dtype), *out[1:])
+    return out.to(out_dtype)
 
 
 # -- backward helpers ------------------------------------------------------------
@@ -113,20 +129,27 @@ def fwd_raw(x, w, strides, pads, scale=None, shift=None, act=None,
 def conv_input_grads(x, w, dy, strides, pads, needed=(True, True)):
     """(dx [N, H, W, Cin], dw [KH, KW, Cin, Cout]) of the convolution at
     (x, w) for the output cotangent dy: the exact adjoint, no forward
-    recompute.  A grad not ``needed`` (e.g. dx of the data input) is None
-    and not computed."""
+    recompute, in the operands' common dtype (``cast_for_matmul``; dy cast
+    to it), dx in x's dtype and dw in w's, as the JAX package's
+    ``_conv_input_grads``.  A grad not ``needed`` (e.g. dx of the data
+    input) is None and not computed."""
+    xc, wc = cast_for_matmul(x, w)
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-        None, list(strides), list(pads), [1, 1], False, [0, 0], 1,
-        [bool(needed[0]), bool(needed[1]), False])
-    return (dx.permute(0, 2, 3, 1).contiguous() if needed[0] else None,
-            dw.permute(2, 3, 1, 0).contiguous() if needed[1] else None)
+        dy.to(xc.dtype).permute(0, 3, 1, 2), xc.permute(0, 3, 1, 2),
+        wc.permute(3, 2, 0, 1), None, list(strides), list(pads), [1, 1],
+        False, [0, 0], 1, [bool(needed[0]), bool(needed[1]), False])
+    return (dx.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+            if needed[0] else None,
+            dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
+            if needed[1] else None)
 
 
 def bn_apply(y_conv, mean, var, gamma, beta, eps, act):
+    """The normalize in the activation's dtype: inv and shift from the f32
+    moments, cast to y_conv's dtype (``tpp/conv.py`` ``_bn_apply``)."""
     inv = torch.rsqrt(var + eps) * gamma
     shift = beta - mean * inv
-    y = y_conv * inv + shift
+    y = y_conv * inv.to(y_conv.dtype) + shift.to(y_conv.dtype)
     return torch.relu(y) if act == "relu" else y
 
 

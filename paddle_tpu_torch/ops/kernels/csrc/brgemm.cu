@@ -25,13 +25,20 @@
 // a cp.async ring, 16-byte copies when K and N are multiples of 4, and
 // stores y as float4 rows: a short reduction leaves little time to hide
 // the copies behind, so they are few and wide.
+//
+// brgemm_bf16 is the bf16 form (the TPU kernel's bf16 operands with an
+// f32 accumulator, written in bf16) on the tensor-core tile of
+// gemm_bf16.cuh, with the same row map and epilogues.  The bound at bf16
+// is bytes: res2 branch2c moves 129 MB at 3.35 TB/s (0.038 ms) and its
+// 6.6 GFLOP take 0.0067 ms at 989 TFLOP/s.
 
-#include "gemm_f32.cuh"
+#include "gemm_bf16.cuh"
 
 namespace {
 
+template <class T>
 struct BrgemmA {
-  const float* a;
+  const T* a;
   long long gstride;  // elements between a[g] and a[g + 1] (M * K)
   int M, K, Kred;
   int img_h, img_w, out_h, out_w, sh, sw;  // row m -> pixel (n, oh*sh, ow*sw)
@@ -66,11 +73,18 @@ struct BrgemmA {
       ++u.g;
     }
   }
-  __device__ const float* src(const Row& r, const Cursor& u, bool& ok) const {
+  __device__ const T* src(const Row& r, const Cursor& u, bool& ok) const {
     ok = r.ok && u.k < Kred;
     return ok ? a + r.off + u.g * gstride + u.kk : a;
   }
 };
+
+// the arguments both forms check
+bool bad_args(int G, int M, int K, int N, int img_h, int out_h, int out_w) {
+  return G <= 0 || M <= 0 || K <= 0 || N <= 0 || out_h <= 0 || out_w <= 0 ||
+         M % (out_h * out_w) != 0 || (G > 1 && (img_h != 1 || out_h != 1)) ||
+         (long long)G * K > 0x7fffffff;
+}
 
 }  // namespace
 
@@ -89,23 +103,49 @@ extern "C" int brgemm_f32(const float* a, const float* b, float* y, int G,
                           const float* scale,
                           const float* shift, int relu, float* partial,
                           float* sum, float* sumsq, void* stream) {
-  if (G <= 0 || M <= 0 || K <= 0 || N <= 0 || out_h <= 0 || out_w <= 0 ||
-      M % (out_h * out_w) != 0 || (G > 1 && (img_h != 1 || out_h != 1)) ||
-      (long long)G * K > 0x7fffffff ||
+  if (bad_args(G, M, K, N, img_h, out_h, out_w) ||
       (vec && (K % 4 != 0 || !gemm::aligned16(a))))
     return (int)cudaErrorInvalidValue;
-  const BrgemmA A{a, (long long)M * K, M, K, G * K,
-                  img_h, img_w, out_h, out_w, sh, sw};
-  return gemm::launch(A, b, M, N, G * K, y, block_m, block_n, vec, splits,
-                      ws, scale, shift, relu, partial, sum, sumsq,
-                      (cudaStream_t)stream);
+  const BrgemmA<float> A{a, (long long)M * K, M, K, G * K,
+                         img_h, img_w, out_h, out_w, sh, sw};
+  return gemm::launch<gemm::F32Form>(A, b, M, N, G * K, y, block_m, block_n,
+                                     vec, splits, ws, scale, shift, relu,
+                                     partial, sum, sumsq,
+                                     (cudaStream_t)stream);
 }
 
 // Blocks of brgemm_f32's block_m x block_n tile in the copy form vec that
 // one SM holds at once, or -(CUDA error): ops/kernels/brgemm.py's
-// RESIDENT, which the tile plan reads, is checked against it.
+// F32.resident, which the tile plan reads, is checked against it.
 extern "C" int brgemm_f32_resident(int block_m, int block_n, int vec) {
-  return gemm::resident<BrgemmA>(block_m, block_n, vec);
+  return gemm::resident<gemm::F32Form, BrgemmA<float>>(block_m, block_n,
+                                                       vec);
+}
+
+// brgemm_f32's contract with bf16 a, b and y (scale, shift, ws and the
+// stats f32); the 16-byte form needs K % 8 == 0, N % 8 == 0 and a, b, y
+// 16-byte aligned.
+extern "C" int brgemm_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                           __nv_bfloat16* y, int G, int M, int K, int N,
+                           int img_h, int img_w, int out_h, int out_w,
+                           int sh, int sw, int block_m, int block_n, int vec,
+                           int splits, float* ws, const float* scale,
+                           const float* shift, int relu, float* partial,
+                           float* sum, float* sumsq, void* stream) {
+  if (bad_args(G, M, K, N, img_h, out_h, out_w) ||
+      (vec && (K % 8 != 0 || !gemm::aligned16(a))))
+    return (int)cudaErrorInvalidValue;
+  const BrgemmA<__nv_bfloat16> A{a, (long long)M * K, M, K, G * K,
+                                 img_h, img_w, out_h, out_w, sh, sw};
+  return gemm::launch<gemm::mma::Form>(A, b, M, N, G * K, y, block_m,
+                                       block_n, vec, splits, ws, scale,
+                                       shift, relu, partial, sum, sumsq,
+                                       (cudaStream_t)stream);
+}
+
+extern "C" int brgemm_bf16_resident(int block_m, int block_n, int vec) {
+  return gemm::resident<gemm::mma::Form, BrgemmA<__nv_bfloat16>>(
+      block_m, block_n, vec);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -29,13 +29,20 @@
 // the reduction advances by a slice with adds and compares; the divisions
 // happen once, when a block starts.  Padding taps and rows past M are
 // zero-filled by the copies.
+//
+// conv2d_direct_bf16 is the bf16 form (bf16 x and w, f32 accumulation,
+// y in bf16) on the tensor-core tile of gemm_bf16.cuh; Cin % 8 == 0 takes
+// its 16-byte copies, the stem's Cin 3 its register-staged form.  At bf16
+// the 3x3s sit near the card's balance of ~295 flop a byte (res2: 14.8
+// GFLOP, 52 MB: 0.015 ms of tensor-core time, 0.015 of bytes).
 
-#include "gemm_f32.cuh"
+#include "gemm_bf16.cuh"
 
 namespace {
 
+template <class T>
 struct ConvA {
-  const float* x;
+  const T* x;
   int M, H, W, C, OH, OW, KW, sh, sw, ph, pw, Kred;
 
   struct Row {
@@ -69,12 +76,23 @@ struct ConvA {
       }
     }
   }
-  __device__ const float* src(const Row& r, const Cursor& u, bool& ok) const {
+  __device__ const T* src(const Row& r, const Cursor& u, bool& ok) const {
     const int ih = r.ih0 + u.kh, iw = r.iw0 + u.kw;
     ok = u.k < Kred && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
     return ok ? x + ((long long)(r.pix + u.kh * W + u.kw) * C + u.c) : x;
   }
 };
+
+// the arguments both forms check
+bool bad_args(int n, int h, int w, int cin, int kh, int kw, int cout, int oh,
+              int ow, int sh, int sw, int ph, int pw) {
+  const long long m = (long long)n * oh * ow;
+  return n <= 0 || h <= 0 || w <= 0 || cin <= 0 || kh <= 0 || kw <= 0 ||
+         cout <= 0 || oh <= 0 || ow <= 0 || sh <= 0 || sw <= 0 || ph < 0 ||
+         pw < 0 || m > 0x7fffffff || (long long)kh * kw * cin > 0x7fffffff ||
+         (long long)n * h * w > 0x7fffffff ||
+         (oh - 1) * sh + kh > h + 2 * ph || (ow - 1) * sw + kw > w + 2 * pw;
+}
 
 }  // namespace
 
@@ -95,25 +113,53 @@ extern "C" int conv2d_direct_f32(const float* x, const float* wt, float* y,
                                  const float* shift, int relu, float* partial,
                                  float* sum, float* sumsq, void* stream) {
   const long long m = (long long)n * oh * ow;
-  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || kh <= 0 || kw <= 0 ||
-      cout <= 0 || oh <= 0 || ow <= 0 || sh <= 0 || sw <= 0 || ph < 0 ||
-      pw < 0 || m > 0x7fffffff || (long long)kh * kw * cin > 0x7fffffff ||
-      (long long)n * h * w > 0x7fffffff ||
-      (oh - 1) * sh + kh > h + 2 * ph || (ow - 1) * sw + kw > w + 2 * pw ||
+  if (bad_args(n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, ph, pw) ||
       (vec && (cin % 4 != 0 || !gemm::aligned16(x))))
     return (int)cudaErrorInvalidValue;
-  const ConvA A{x, (int)m, h, w, cin, oh, ow, kw, sh, sw, ph, pw,
-                kh * kw * cin};
-  return gemm::launch(A, wt, (int)m, cout, kh * kw * cin, y, block_m,
-                      block_n, vec, splits, ws, scale, shift, relu, partial,
-                      sum, sumsq, (cudaStream_t)stream);
+  const ConvA<float> A{x, (int)m, h, w, cin, oh, ow, kw, sh, sw, ph, pw,
+                       kh * kw * cin};
+  return gemm::launch<gemm::F32Form>(A, wt, (int)m, cout, kh * kw * cin, y,
+                                     block_m, block_n, vec, splits, ws,
+                                     scale, shift, relu, partial, sum, sumsq,
+                                     (cudaStream_t)stream);
 }
 
 // Blocks of conv2d_direct_f32's block_m x block_n tile in the copy form vec that
 // one SM holds at once, or -(CUDA error): ops/kernels/brgemm.py's
-// RESIDENT, which the tile plan reads, is checked against it.
+// F32.resident, which the tile plan reads, is checked against it.
 extern "C" int conv2d_direct_f32_resident(int block_m, int block_n, int vec) {
-  return gemm::resident<ConvA>(block_m, block_n, vec);
+  return gemm::resident<gemm::F32Form, ConvA<float>>(block_m, block_n, vec);
+}
+
+// conv2d_direct_f32's contract with bf16 x, wt and y (scale, shift, ws
+// and the stats f32); the 16-byte form needs cin % 8 == 0, cout % 8 == 0
+// and x, wt, y 16-byte aligned.
+extern "C" int conv2d_direct_bf16(const __nv_bfloat16* x,
+                                  const __nv_bfloat16* wt, __nv_bfloat16* y,
+                                  int n, int h, int w, int cin, int kh,
+                                  int kw, int cout, int oh, int ow, int sh,
+                                  int sw, int ph, int pw, int block_m,
+                                  int block_n, int vec, int splits,
+                                  float* ws, const float* scale,
+                                  const float* shift, int relu,
+                                  float* partial, float* sum, float* sumsq,
+                                  void* stream) {
+  const long long m = (long long)n * oh * ow;
+  if (bad_args(n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, ph, pw) ||
+      (vec && (cin % 8 != 0 || !gemm::aligned16(x))))
+    return (int)cudaErrorInvalidValue;
+  const ConvA<__nv_bfloat16> A{x, (int)m, h, w, cin, oh, ow, kw, sh, sw,
+                               ph, pw, kh * kw * cin};
+  return gemm::launch<gemm::mma::Form>(A, wt, (int)m, cout, kh * kw * cin,
+                                       y, block_m, block_n, vec, splits, ws,
+                                       scale, shift, relu, partial, sum,
+                                       sumsq, (cudaStream_t)stream);
+}
+
+extern "C" int conv2d_direct_bf16_resident(int block_m, int block_n,
+                                           int vec) {
+  return gemm::resident<gemm::mma::Form, ConvA<__nv_bfloat16>>(
+      block_m, block_n, vec);
 }
 
 extern "C" const char* kernel_error_string(int code) {

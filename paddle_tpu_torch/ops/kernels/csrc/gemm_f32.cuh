@@ -78,6 +78,8 @@
 #pragma once
 
 #include <climits>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gemm {
@@ -328,13 +330,20 @@ gemm_kernel(Loader A, const float* __restrict__ b, int M, int N, int Kred,
   }
 }
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // A split reduction's second pass: y[m, n] = epilogue(sum over the
 // splits of ws[split, m, n], in split order), a thread a column and a
 // block a tile of `rows` rows; with stats, the column's sum and sumsq
-// over the tile's rows, in row order, as its per-row-tile partial.
+// over the tile's rows, in row order, as its per-row-tile partial.  y is
+// f32, or bf16 (gemm_bf16.cuh: one rounding of the f32 result).
+template <class OutT>
 __global__ void __launch_bounds__(128)
 split_reduce(const float* __restrict__ ws, int splits, int M, int N,
-             int rows, float* __restrict__ y, Epilogue ep) {
+             int rows, OutT* __restrict__ y, Epilogue ep) {
   const int n = blockIdx.x * 128 + threadIdx.x;
   if (n >= N) return;
   const int m0 = blockIdx.y * rows, m1 = min(M, m0 + rows);
@@ -351,7 +360,7 @@ split_reduce(const float* __restrict__ ws, int splits, int M, int N,
     float v = acc;
     if (ep.scale != nullptr) v = fmaf(v, sc, sh);
     if (ep.relu) v = fmaxf(v, 0.f);
-    y[o] = v;
+    store(y + o, v);
   }
   if (ep.partial != nullptr) {
     ep.partial[(long long)blockIdx.y * N + n] = s;
@@ -387,81 +396,90 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
-template <int BM, int BN, bool kVec, class Loader>
-cudaError_t launch_tile(const Loader& A, const float* b, int M, int N,
-                        int Kred, int splits, float* y, float* ws,
-                        const Epilogue& ep, cudaStream_t stream) {
-  using T = Tile<BM, BN>;
-  const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + BM - 1) / BM;
-  const int slices = (Kred + kBK - 1) / kBK;
-  const int split_slices = (slices + splits - 1) / splits;
-  const long long blocks = (long long)m_tiles * n_tiles * splits;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  gemm_kernel<BM, BN, kVec, Loader><<<(unsigned)blocks, T::kThreads,
-                                      T::kSmemBytes, stream>>>(
-      A, b, M, N, Kred, n_tiles, m_tiles, split_slices, y,
-      splits > 1 ? ws : nullptr, ep);
-  return cudaGetLastError();
-}
-
-template <bool kVec, class Loader>
-cudaError_t launch_form(const Loader& A, const float* b, int M, int N,
-                        int Kred, float* y, int block_m, int block_n,
-                        int splits, float* ws, const Epilogue& ep,
-                        cudaStream_t stream) {
+// The tiles the plan may name (ops/kernels/brgemm.py, Form.tiles), for
+// every form: f(BM, BN, kVec), as integral constants, at the
+// instantiation that (block_m, block_n, vec) names; or
+// cudaErrorInvalidValue.
+template <class F>
+cudaError_t dispatch(int block_m, int block_n, int vec, F&& f) {
+  auto form = [&](auto bm, auto bn) {
+    return vec ? f(bm, bn, std::true_type{}) : f(bm, bn, std::false_type{});
+  };
   if (block_m == 128 && block_n == 64)
-    return launch_tile<128, 64, kVec>(A, b, M, N, Kred, splits, y, ws, ep,
-                                      stream);
+    return form(std::integral_constant<int, 128>{},
+                std::integral_constant<int, 64>{});
   if (block_m == 64 && block_n == 64)
-    return launch_tile<64, 64, kVec>(A, b, M, N, Kred, splits, y, ws, ep,
-                                     stream);
+    return form(std::integral_constant<int, 64>{},
+                std::integral_constant<int, 64>{});
   return cudaErrorInvalidValue;
 }
 
-template <int BM, int BN, bool kVec, class Loader>
-cudaError_t occupancy(int* blocks) {
-  using T = Tile<BM, BN>;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, gemm_kernel<BM, BN, kVec, Loader>, T::kThreads, T::kSmemBytes);
-}
+// A form of the shared tile, as launch and resident take it: the element
+// type of b and y, the depth of a ring slice, the elements of one 16-byte
+// copy, the tile's geometry (Tile<BM, BN>::kThreads, ::kSmemBytes) and
+// its kernel.  This is the f32 SIMT tile; gemm_bf16.cuh's mma::Form the
+// bf16 tensor-core one.
+struct F32Form {
+  using Elem = float;
+  static constexpr int kBK = gemm::kBK, kVecElems = 4;
+  template <int BM, int BN>
+  using Tile = gemm::Tile<BM, BN>;
+  template <int BM, int BN, bool kVec, class Loader>
+  static auto kernel() { return &gemm_kernel<BM, BN, kVec, Loader>; }
+};
 
-// Blocks of the block_m x block_n tile in the copy form vec that one SM of
-// the current card holds at once (its registers, shared memory and
+// Blocks of Form's block_m x block_n tile in the copy form vec that one SM
+// of the current card holds at once (its registers, shared memory and
 // threads allow), as the CUDA runtime computes it; or -(CUDA error).
-template <class Loader>
+template <class Form, class Loader>
 int resident(int block_m, int block_n, int vec) {
   int n = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (block_m == 128 && block_n == 64)
-    err = vec ? occupancy<128, 64, true, Loader>(&n)
-              : occupancy<128, 64, false, Loader>(&n);
-  else if (block_m == 64 && block_n == 64)
-    err = vec ? occupancy<64, 64, true, Loader>(&n)
-              : occupancy<64, 64, false, Loader>(&n);
+  const cudaError_t err =
+      dispatch(block_m, block_n, vec, [&](auto bm, auto bn, auto v) {
+        constexpr int BM = decltype(bm)::value, BN = decltype(bn)::value;
+        using T = typename Form::template Tile<BM, BN>;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, Form::template kernel<BM, BN, decltype(v)::value, Loader>(),
+            T::kThreads, T::kSmemBytes);
+      });
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// One GEMM at the planned tile (block_m x block_n), copy form (vec) and
-// split of the reduction (splits; ws [splits, M, N] scratch when > 1),
-// then the split's second pass, then, when partial is set, the stats
-// reduction over the ceil(M / block_m) row tiles; returns the first CUDA
-// error, or 0.  The 16-byte form needs N % 4 == 0 and b, y (and ws)
-// 16-byte aligned; the Loader's own conditions are its caller's to check.
-template <class Loader>
-int launch(const Loader& A, const float* b, int M, int N, int Kred, float* y,
-           int block_m, int block_n, int vec, int splits, float* ws,
-           const float* scale, const float* shift, int relu, float* partial,
-           float* sum, float* sumsq, cudaStream_t stream) {
+// One GEMM in Form at the planned tile (block_m x block_n), copy form (vec)
+// and split of the reduction (splits; ws [splits, M, N] f32 scratch when
+// > 1), then the split's second pass, then, when partial is set, the
+// stats reduction over the ceil(M / block_m) row tiles; returns the first
+// CUDA error, or 0.  b and y are Form::Elem; scale, shift, ws, partial,
+// sum and sumsq f32.  The 16-byte form needs N % Form::kVecElems == 0 and
+// b, y (and ws) 16-byte aligned; the Loader's own conditions are its
+// caller's to check.
+template <class Form, class Loader>
+int launch(const Loader& A, const typename Form::Elem* b, int M, int N,
+           int Kred, typename Form::Elem* y, int block_m, int block_n,
+           int vec, int splits, float* ws, const float* scale,
+           const float* shift, int relu, float* partial, float* sum,
+           float* sumsq, cudaStream_t stream) {
   const Epilogue ep{scale, shift, relu, partial};
-  if (splits < 1 || splits > (Kred + kBK - 1) / kBK ||
+  const int slices = (Kred + Form::kBK - 1) / Form::kBK;
+  if (splits < 1 || splits > slices ||
       (splits > 1 && (ws == nullptr || !aligned16(ws))) ||
-      (vec && (N % 4 != 0 || !aligned16(b) || !aligned16(y))))
+      (vec && (N % Form::kVecElems != 0 || !aligned16(b) || !aligned16(y))))
     return (int)cudaErrorInvalidValue;
+  const int split_slices = (slices + splits - 1) / splits;
   cudaError_t err =
-      vec ? launch_form<true>(A, b, M, N, Kred, y, block_m, block_n, splits,
-                              ws, ep, stream)
-          : launch_form<false>(A, b, M, N, Kred, y, block_m, block_n,
-                               splits, ws, ep, stream);
+      dispatch(block_m, block_n, vec, [&](auto bm, auto bn, auto v) {
+        constexpr int BM = decltype(bm)::value, BN = decltype(bn)::value;
+        using T = typename Form::template Tile<BM, BN>;
+        const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + BM - 1) / BM;
+        const long long blocks = (long long)m_tiles * n_tiles * splits;
+        if (blocks > INT_MAX) return cudaErrorInvalidValue;
+        const auto kernel =
+            Form::template kernel<BM, BN, decltype(v)::value, Loader>();
+        kernel<<<(unsigned)blocks, T::kThreads, T::kSmemBytes, stream>>>(
+            A, b, M, N, Kred, n_tiles, m_tiles, split_slices, y,
+            splits > 1 ? ws : nullptr, ep);
+        return cudaGetLastError();
+      });
   if (err != cudaSuccess) return (int)err;
   const int tiles = (M + block_m - 1) / block_m;
   if (splits > 1) {

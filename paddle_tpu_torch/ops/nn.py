@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from paddle_tpu_torch.core.dtype import at_least_f32
+from paddle_tpu_torch.core.dtype import at_least_f32, cast_for_matmul
 
 
 def pair(v):
@@ -57,8 +57,8 @@ def _nhwc(x):
 def _takes_kernel(x) -> bool:
     """Whether a router sends ``x`` to a kernel: a tensor on the card,
     unless it is float64 (the double-precision witness step, which runs
-    the plain twins on any device; the kernels take float32 and refuse
-    the rest)."""
+    the plain twins on any device; the kernels take float32 or bfloat16
+    and refuse the rest)."""
     return x.device.type == "cuda" and x.dtype != torch.float64
 
 
@@ -83,11 +83,14 @@ def conv2d(x, w, stride=1, padding=0, dilation=1, groups: int = 1):
 def conv2d_xla(x, w, stride=1, padding=0, dilation=1, groups: int = 1):
     """The plain convolution (``F.conv2d`` on NCHW views), named after the
     JAX package's XLA lowering it stands for: the reference numerics the
-    kernel paths are held against."""
+    kernel paths are held against.  Mixed operands resolve by
+    ``cast_for_matmul`` and y takes x's dtype, as the JAX package's."""
+    out_dtype = x.dtype
+    x, w = cast_for_matmul(x, w)
     pad = padding if isinstance(padding, str) else pair(padding)
     y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), None, pair(stride), pad,
                  pair(dilation), groups)
-    return _nhwc(y)
+    return _nhwc(y).to(out_dtype)
 
 
 def max_pool2d(x, ksize, stride=None, padding=0):
@@ -127,14 +130,15 @@ def batch_norm(x, scale, bias, running_mean, running_var, is_train: bool,
     The JAX package's convention, not ``F.batch_norm``'s: single-pass
     E[x] and E[x^2] in f32, the variance clamped at 0 and BIASED (divided
     by the count), and ``new = momentum * running + (1 - momentum) *
-    batch``.
+    batch``; the normalize runs in x's dtype (inv and shift cast to it),
+    so a bf16 activation stays bf16 and the statistics f32.
 
     ``use_fused_stats`` picks how the train-mode moments are taken: True
     through ``ops/kernels/channel_stats`` (one read for both sums; the
     kernel on the card, its twin on the CPU), False through
     :func:`moments`, and None (the default) through the kernel exactly
-    when ``x`` lies on the card in float32 (a float64 witness takes
-    :func:`moments` there too)."""
+    when ``x`` lies on the card in float32 or bfloat16 (a float64 witness
+    takes :func:`moments` there too)."""
     if is_train:
         if use_fused_stats is None:
             use_fused_stats = _takes_kernel(x)
@@ -154,7 +158,7 @@ def batch_norm(x, scale, bias, running_mean, running_var, is_train: bool,
         new_mean, new_var = running_mean, running_var
     inv = torch.rsqrt(var + eps) * scale
     shift = bias - mean * inv
-    return x * inv + shift, new_mean, new_var
+    return x * inv.to(x.dtype) + shift.to(x.dtype), new_mean, new_var
 
 
 def moments(x):

@@ -6,7 +6,15 @@ One train step: forward over the topology in train mode, backward by
 autograd, the optimizer update, and the metrics its cost layers attach
 (``_metric_parts``).  PyTorch runs eagerly, so a step is a plain
 function; nothing is traced or compiled.  Persistent states (the BN
-running statistics) stay f32."""
+running statistics) stay f32.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's mixed precision
+(``paddle_tpu/trainer/step.py:93-100``): forward and backward run in
+bf16 while master parameters, optimizer state and persistent states stay
+f32.  The trainable parameters are cast inside the autograd graph, so
+their gradients reach the update in f32 (the cast's backward upcasts);
+float feed slots and static parameters are cast too, label ids are not,
+and the new states are cast back to the old ones' dtype."""
 
 from __future__ import annotations
 
@@ -15,15 +23,20 @@ import functools
 import torch
 
 from paddle_tpu_torch.config.topology import Topology
-from paddle_tpu_torch.core.dtype import at_least_f32
+from paddle_tpu_torch.core.dtype import at_least_f32, cast_floats, cast_like
 from paddle_tpu_torch.layers.base import is_sequence, raw
 
 
-def _check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: only float32 is ported yet "
-            "(bf16 compute with f32 master weights is queued)")
+def _cast_dtype(compute_dtype):
+    """The dtype a step casts to: None for f32 (nothing to cast), bf16;
+    any other raises."""
+    if compute_dtype in (None, torch.float32):
+        return None
+    if compute_dtype == torch.bfloat16:
+        return compute_dtype
+    raise NotImplementedError(
+        f"compute_dtype={compute_dtype}: the port computes in float32 or "
+        "bfloat16")
 
 
 def _metric_parts(metric_specs, values) -> dict[str, tuple]:
@@ -65,8 +78,10 @@ def build_train_step(topology: Topology, optimizer, compute_dtype=None):
     """Returns fn: (params, opt_state, states, feed, seed)
     -> (params, opt_state, states, cost, metrics), every tensor detached,
     the metrics {name: float} from the same forward.  ``seed`` is the
-    step's seed (``core/rng.next_seed()``), from which dropout draws."""
-    _check_compute_dtype(compute_dtype)
+    step's seed (``core/rng.next_seed()``), from which dropout draws.
+    ``compute_dtype``: None or torch.float32, or torch.bfloat16 (mixed
+    precision, above)."""
+    cast = _cast_dtype(compute_dtype)
     specs = {s.name: s for s in topology.param_specs()}
     trainable = {n for n, s in specs.items() if not s.is_static}
     out_names = [o.name for o in topology.outputs]
@@ -76,8 +91,11 @@ def build_train_step(topology: Topology, optimizer, compute_dtype=None):
         train_p = {k: v.detach().requires_grad_()
                    for k, v in params.items() if k in trainable}
         static_p = {k: v for k, v in params.items() if k not in trainable}
-        values, new_states = topology.forward({**static_p, **train_p},
-                                              states, feed, True, seed)
+        run_p = {**static_p, **train_p}
+        if cast is not None:
+            run_p = cast_floats(run_p, cast)
+            feed = cast_floats(feed, cast)
+        values, new_states = topology.forward(run_p, states, feed, True, seed)
         cost = _total_cost(values, out_names)
         with torch.no_grad():
             parts = _metric_parts(metric_specs, values)
@@ -89,6 +107,8 @@ def build_train_step(topology: Topology, optimizer, compute_dtype=None):
             grads, {k: v.detach() for k, v in train_p.items()}, opt_state,
             specs)
         new_states = {k: v.detach() for k, v in new_states.items()}
+        if cast is not None:
+            new_states = cast_like(new_states, states)
         return ({**static_p, **new_train}, new_opt, new_states,
                 cost.detach(), _finalize_metrics(parts))
 

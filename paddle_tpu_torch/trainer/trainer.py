@@ -40,7 +40,11 @@ class SGD:
         by name are loaded as the initial states.
     :param update_equation: an optimizer of ``paddle_tpu_torch.optimizer``.
     :param extra_layers: additional layers to keep in the topology.
-    :param compute_dtype: None or torch.float32 (bf16 is queued).
+    :param compute_dtype: None or torch.float32, or torch.bfloat16:
+        forward and backward in bf16 on f32 master parameters, optimizer
+        state and BN statistics (``trainer/step.py``); ``test`` and
+        ``step_f64`` stay in their own dtypes, as the JAX trainer's eval
+        step does.
     :param device: where to train; default ``cuda:0`` (raises without a
         card), ``"cpu"`` only when asked for.
     """

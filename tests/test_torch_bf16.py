@@ -1,0 +1,707 @@
+"""bf16 ``compute_dtype`` in the port against the JAX package, on the CPU.
+
+Every input is drawn from a seed with numpy and goes through both
+packages; parameters move by name.
+
+- The bf16 twins of the shared GEMM tile (``brgemm_reference``,
+  ``fwd_raw_reference``) and of ``channel_stats`` against the JAX
+  kernels in interpret mode with bf16 operands, as ``tests/test_tpp.py``
+  runs them: the bf16 outputs equal, the f32 sums within rtol 1e-5.
+- The autograd Functions in bf16 (``conv2d_direct``, ``conv2d_bn_act``
+  in train and eval, ``channel_stats``) against the JAX ``custom_vjp``:
+  dx and dw in bf16, dgamma and dbeta.
+- ``core/dtype.cast_for_matmul`` against the JAX rule, and the casts of
+  the step.
+- The mini-ResNet of ``tests/test_torch_trainer.py`` and a narrow
+  small_vgg-shaped net (``img_conv_group`` with batch norm, dropout 0,
+  the flat ``batch_norm``) trained through ``trainer.SGD(compute_dtype=
+  torch.bfloat16)`` against the JAX package's bf16 ``build_train_step``:
+  the first step's cost, parameters and BN statistics, then 5 Momentum
+  steps; masters and states stay f32, the convs run in bf16; the port's
+  f32 step lies farther from the JAX bf16 step than its bf16 step does.
+- The float64 witness: each package's bf16 step against the float64
+  step, per leaf, the port's within 2x the JAX package's own error plus
+  a floor; and the constants ``chip_smoke.py`` holds the card's bf16
+  ResNet-50 witness step to, recomputed.
+
+Tolerances and why are in each test's docstring; the measured values
+are in brackets there and in ``PERF.md`` §6."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jpaddle
+import paddle_tpu_torch as tpaddle
+from paddle_tpu.config.topology import Topology as JTopology
+from paddle_tpu.core import dtype as jdt
+from paddle_tpu.models import image as JM
+from paddle_tpu.ops.pallas import tpp
+from paddle_tpu.trainer.step import build_train_step as j_train_step
+from paddle_tpu_torch.config.topology import Topology as TTopology
+from paddle_tpu_torch.core import dtype as tdt
+from paddle_tpu_torch.models import image as TM
+from paddle_tpu_torch.ops.kernels import brgemm as BR
+from paddle_tpu_torch.ops.kernels import channel_stats as CS
+from paddle_tpu_torch.ops.kernels import conv as CV
+
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(autouse=True)
+def _fresh_names():
+    from paddle_tpu.layers.base import reset_name_counters as jreset
+    from paddle_tpu_torch.layers.base import reset_name_counters as treset
+
+    jreset()
+    treset()
+    yield
+
+
+def bf16_pair(rng, *shape, scale=1.0):
+    """The same bf16 values in both packages: (jax array, torch tensor)."""
+    x = jnp.asarray(rng.normal(size=shape).astype(np.float32) * scale,
+                    jnp.bfloat16)
+    return x, torch.from_numpy(np.array(x.astype(jnp.float32))).to(BF16)
+
+
+def f32(x):
+    """A tensor or array of either package as float64 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().double().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32), np.float64)
+
+
+def bf16_equal(got, want):
+    """The two packages' bf16 outputs hold the same values."""
+    assert got.dtype == BF16, got.dtype
+    np.testing.assert_array_equal(f32(got), f32(want))
+
+
+def close(got, want, rtol, atol=0.0):
+    np.testing.assert_allclose(f32(got), f32(want), rtol=rtol, atol=atol)
+
+
+def rel_err(got, want):
+    """||got - want|| / ||want||, in float64."""
+    g, w = f32(got), f32(want)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
+# -- the twins against the JAX kernels (interpret mode) ----------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 16, 8), (3, 17, 9, 21),
+                                   (2, 30, 40, 7)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("mode", ["none", "stats", "affine_relu"])
+def test_brgemm_bf16_twin_matches_jax_kernel(shape, mode):
+    """``brgemm_reference`` on bf16 operands (f32 sums, one rounding)
+    against ``tpp.brgemm`` (Pallas, interpret) and ``brgemm_reference``:
+    y equal in bf16 [measured: equal], the column sums within 1e-5 of
+    their largest [measured <= 2.2e-7: f32 summation order]."""
+    g, m, k, n = shape
+    rng = np.random.default_rng(sum(shape))
+    ja, ta = bf16_pair(rng, g, m, k)
+    jb, tb = bf16_pair(rng, g, k, n)
+    kw, jkw = {}, {}
+    if mode == "affine_relu":
+        sc = rng.normal(size=n).astype(np.float32)
+        sh = rng.normal(size=n).astype(np.float32)
+        kw = dict(scale=torch.from_numpy(sc), shift=torch.from_numpy(sh),
+                  act="relu")
+        jkw = dict(scale=jnp.asarray(sc), shift=jnp.asarray(sh), act="relu")
+    stats = mode == "stats"
+    got = BR.brgemm(ta, tb, stats=stats, **kw)
+    for want in (tpp.brgemm(ja, jb, stats=stats, impl="kernel",
+                            interpret=True, **jkw),
+                 tpp.brgemm_reference(ja, jb, stats=stats, **jkw)):
+        if not stats:
+            bf16_equal(got, want)
+            continue
+        bf16_equal(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):
+            assert a.dtype == torch.float32
+            close(a, b, rtol=1e-5, atol=1e-5 * np.abs(f32(b)).max())
+
+
+CONV_CFGS = [((2, 13, 14, 5), 3, 8, 1, 1), ((2, 13, 14, 5), 3, 8, 2, 1),
+             ((2, 13, 14, 3), 7, 8, 2, 3), ((2, 9, 10, 16), 1, 8, 2, 0)]
+CONV_IDS = ["3x3s1p1", "3x3s2", "7x7s2p3_cin3", "1x1s2"]
+
+
+@pytest.mark.parametrize("cfg", CONV_CFGS, ids=CONV_IDS)
+def test_conv2d_direct_bf16_twin_and_grads_match_jax(cfg):
+    """``conv2d_direct`` in bf16 against ``tpp.conv2d_direct`` (the Pallas
+    kernel in interpret mode, its ``custom_vjp`` backward): y equal in
+    bf16 [measured: equal]; dx and dw (bf16: the transposed convolution
+    on bf16 operands, XLA's and PyTorch's, each summing in f32 in its own
+    order and rounding once) within 1e-2 relative norm [measured: equal
+    at all four configs]."""
+    shape, k, cout, s, p = cfg
+    rng = np.random.default_rng(k * 10 + s)
+    jx, tx = bf16_pair(rng, *shape)
+    jw, tw = bf16_pair(rng, k, k, shape[-1], cout, scale=0.3)
+    jr, tr = bf16_pair(rng, *CV.fwd_raw_reference(tx, tw, (s, s),
+                                                  (p, p)).shape)
+    jy, vjp = jax.vjp(lambda x, w: tpp.conv2d_direct(
+        x, w, stride=s, padding=p, impl="kernel", interpret=True), jx, jw)
+    jdx, jdw = vjp(jr)
+    x, w = tx.requires_grad_(), tw.requires_grad_()
+    y = CV.conv2d_direct(x, w, stride=s, padding=p)
+    dx, dw = torch.autograd.grad(y, (x, w), tr)
+    bf16_equal(y, jy)
+    assert dx.dtype == dw.dtype == BF16
+    assert rel_err(dx, jdx) <= 1e-2 and rel_err(dw, jdw) <= 1e-2
+
+
+@pytest.mark.parametrize("is_train", [True, False], ids=["train", "eval"])
+def test_conv2d_bn_act_bf16_and_grads_match_jax(is_train):
+    """``conv2d_bn_act`` in bf16 against ``tpp.conv2d_bn_act`` with
+    ``impl="kernel", interpret=True`` (the moments from the kernel's f32
+    accumulator on both sides): y within one bf16 ulp of the largest
+    entry [measured: equal in both modes], the new moving statistics
+    (f32) within 1e-5 [6.0e-8], the gradients of a random cotangent (dx,
+    dw, dgamma, dbeta) within 2e-2 relative norm [measured: 2.9e-3 to
+    8.4e-3: the BN backward's elementwise chain runs in bf16, and XLA
+    fuses it (keeping f32 between some ops) where PyTorch rounds after
+    each]."""
+    rng = np.random.default_rng(5)
+    jx, tx = bf16_pair(rng, 2, 13, 14, 4)
+    jw, tw = bf16_pair(rng, 3, 3, 4, 8, scale=0.3)
+    jg, tg = bf16_pair(rng, 8, scale=0.2)
+    jg, tg = jg + 1, tg + 1
+    jb, tb = bf16_pair(rng, 8, scale=0.2)
+    rm = (rng.normal(size=8) * 0.1).astype(np.float32)
+    rv = (np.abs(rng.normal(size=8)) + 0.5).astype(np.float32)
+    jr, tr = bf16_pair(rng, 2, 7, 7, 8)
+
+    def jfn(x, w, ga, be):
+        return tpp.conv2d_bn_act(x, w, ga, be, jnp.asarray(rm),
+                                 jnp.asarray(rv), is_train, stride=2,
+                                 padding=1, impl="kernel", interpret=True)
+
+    (jy, jm, jv), vjp = jax.vjp(jfn, jx, jw, jg, jb)
+    jgrads = vjp((jr, jnp.zeros_like(jm), jnp.zeros_like(jv)))
+    leaves = [t.requires_grad_() for t in (tx, tw, tg, tb)]
+    y, m, v = CV.conv2d_bn_act(*leaves, torch.from_numpy(rm),
+                               torch.from_numpy(rv), is_train, stride=2,
+                               padding=1)
+    grads = torch.autograd.grad(y, leaves, tr)
+    assert y.dtype == BF16 and m.dtype == v.dtype == torch.float32
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(f32(jy)).max())) - 7)
+    assert np.abs(f32(y) - f32(jy)).max() <= ulp
+    close(m, jm, rtol=1e-5, atol=1e-6)
+    close(v, jv, rtol=1e-5, atol=1e-6)
+    for a, b in zip(grads, jgrads):
+        assert a.dtype == BF16
+        assert rel_err(a, b) <= 2e-2, rel_err(a, b)
+
+
+@pytest.mark.parametrize("shape", [(37, 24), (3, 19, 11, 8), (1029, 5)])
+def test_channel_stats_bf16_twin_and_grad_match_jax(shape):
+    """``channel_stats`` of a bf16 input (f32 sums) against JAX's kernel
+    in interpret mode and its reference at ragged row counts: rtol 1e-5
+    [f32 summation order]; the gradient ``g_s + 2 x g_ss`` in bf16, equal
+    [measured: equal: one f32 expression rounded once on both sides]."""
+    rng = np.random.default_rng(sum(shape))
+    jx, tx = bf16_pair(rng, *shape)
+    gs, gss = (rng.normal(size=shape[-1]).astype(np.float32)
+               for _ in range(2))
+    got = CS.channel_stats(tx)
+    for want in (tpp.channel_stats(jx, impl="kernel", interpret=True),
+                 tpp.channel_stats(jx, impl="reference")):
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            close(a, b, rtol=1e-5, atol=1e-5 * np.abs(f32(b)).max())
+    _, vjp = jax.vjp(lambda x: tpp.channel_stats(x, impl="reference"), jx)
+    (jdx,) = vjp((jnp.asarray(gs), jnp.asarray(gss)))
+    dx = CS.channel_stats_grad(tx, torch.from_numpy(gs),
+                               torch.from_numpy(gss))
+    bf16_equal(dx, jdx)
+
+
+@pytest.mark.parametrize("k", [147, 576, 4608])
+def test_bf16_criterion_takes_f32_sums_and_refuses_planted_faults(k):
+    """``chip_smoke.bf16_agrees``, the criterion of the card's bf16 forms,
+    on the CPU twin (an f32 sum in another order than the f64 one, then
+    one rounding) at the stem's, res2 3x3's and res5 3x3's reduction
+    length: the twin passes it [measured: unequal on 0.006-0.022% of the
+    elements, up to 12,944 of an element's own ulps near zero, within
+    0.999 of the bound: one ulp apart at the larger magnitude]; a bf16
+    accumulator (rounded after every 16-deep slice) fails
+    it, and so does a tail of 32 rows (0.4% of the elements) that misses
+    the reduction's last 16-deep slice: unequal on fewer than 1% of the
+    elements, but far past their bound."""
+    from chip_smoke import bf16_agreement, bf16_agrees, slice_rounded_product
+
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((1, 8192, k),
+                                             np.float32)).to(BF16)
+    b = torch.from_numpy(rng.standard_normal((1, k, 64), np.float32)
+                         * np.float32((2 / k) ** 0.5)).to(BF16)
+    want = BR.brgemm_reference(a.double(), b.double()).to(BF16)
+    mag = BR.brgemm_reference(a.double().abs(), b.double().abs())
+    twin = BR.brgemm_reference(a, b)
+    assert bf16_agrees(twin, want, mag, k), bf16_agreement(twin, want, mag, k)
+    assert not bf16_agrees(slice_rounded_product(a[0], b[0]), want, mag, k)
+    tail = twin.clone()
+    tail[-32:] = BR.brgemm_reference(a[:, -32:, :k - 16], b[:, :k - 16])
+    agreement = bf16_agreement(tail, want, mag, k)
+    assert agreement["share_off"] < 0.01 and not bf16_agrees(tail, want,
+                                                              mag, k)
+
+
+# -- the casts ------------------------------------------------------------------
+
+
+def test_cast_for_matmul_and_the_step_casts_follow_jax():
+    """``core/dtype.cast_for_matmul`` resolves every pair of f32, bf16,
+    f16 and f64 operands to the dtype the JAX rule picks (flag off: a
+    mix holding one narrow float takes it); ``cast_floats`` leaves
+    integer tensors and a sequence's lengths alone; ``ops.math.matmul``
+    returns the promoted dtype from a bf16 product."""
+    from paddle_tpu_torch.core.lod import SequenceBatch
+    from paddle_tpu_torch.ops import math as tmath
+
+    pairs = [("float32", "bfloat16"), ("bfloat16", "float32"),
+             ("bfloat16", "bfloat16"), ("float16", "bfloat16"),
+             ("float32", "float32"), ("float16", "float32")]
+    for a, b in pairs:
+        jt = jdt.cast_for_matmul(jnp.zeros(2, a), jnp.zeros(2, b))
+        tt = tdt.cast_for_matmul(torch.zeros(2, dtype=getattr(torch, a)),
+                                 torch.zeros(2, dtype=getattr(torch, b)))
+        assert [str(t.dtype) for t in tt] == [
+            "torch." + str(t.dtype) for t in jt], (a, b)
+    tree = {"x": torch.ones(2), "ids": torch.ones(2, dtype=torch.int64),
+            "s": SequenceBatch(torch.ones(2, 3), torch.tensor([3, 1]))}
+    out = tdt.cast_floats(tree, BF16)
+    assert out["x"].dtype == BF16 and out["ids"].dtype == torch.int64
+    assert out["s"].data.dtype == BF16 and out["s"].length.dtype == torch.int64
+    y = tmath.matmul(torch.ones(2, 3), torch.ones(3, 4, dtype=BF16))
+    assert y.dtype == torch.float32
+    assert tmath.matmul(torch.ones(2, 3, dtype=BF16),
+                        torch.ones(3, 4, dtype=BF16)).dtype == BF16
+
+
+@pytest.mark.parametrize("da,db", [("bfloat16", "float32"),
+                                   ("float32", "bfloat16"),
+                                   ("bfloat16", "bfloat16")])
+def test_matmul_keeps_the_f32_accumulator_as_jax_does(da, db):
+    """``ops.math.matmul`` against the JAX package's ``ops.math.matmul``:
+    a bf16 x f32 pair resolves to bf16 operands, and the f32 accumulator
+    reaches the f32 result without a bf16 rounding (the results within
+    1e-6 of the largest entry [f32 sums in another order]; the
+    accumulator rounded to bf16 on the way, the control, lies above
+    that); a bf16 pair gives bf16, equal or one bf16 ulp apart."""
+    from chip_smoke import bf16_ulps
+    from paddle_tpu.ops import math as jmath
+    from paddle_tpu_torch.ops import math as tmath
+
+    rng = np.random.default_rng(7)
+    a = rng.standard_normal((33, 200)).astype(np.float32)
+    b = rng.standard_normal((200, 17)).astype(np.float32)
+    j = jmath.matmul(jnp.asarray(a, da), jnp.asarray(b, db))
+    ta = torch.from_numpy(a).to(getattr(torch, da))
+    tb = torch.from_numpy(b).to(getattr(torch, db))
+    t = tmath.matmul(ta, tb)
+    assert str(t.dtype) == "torch." + str(j.dtype)
+    want = torch.from_numpy(np.array(j.astype(jnp.float32)))
+    if t.dtype == BF16:
+        assert bf16_ulps(t, want.to(BF16)).max() <= 1
+        return
+    scale = float(want.abs().max())
+    assert (t - want).abs().max() <= 1e-6 * scale
+    rounded = tmath.matmul(ta.to(BF16), tb.to(BF16)).float()
+    assert (rounded - want).abs().max() > 1e-6 * scale
+
+
+# -- the step, in both packages ---------------------------------------------------
+
+STEPS = 5
+
+
+def narrow_vgg(paddle):
+    """small_vgg's shape at an eighth of its width on 16x16 images: three
+    ``img_conv_group``s of 3x3 convs with batch norm (drop rate 0) and a
+    2x2 max pool, the linear fc, the flat ``batch_norm``, the softmax fc
+    and ``classification_cost``."""
+    pkg = paddle.__name__
+    L = importlib.import_module(pkg + ".layers.api")
+    A = importlib.import_module(pkg + ".layers.activation")
+    D = importlib.import_module(pkg + ".layers.data_type")
+    P = importlib.import_module(pkg + ".layers.pooling")
+    N = importlib.import_module(pkg + ".layers.networks")
+    img = L.data(name="image", type=D.dense_vector(3 * 16 * 16),
+                 height=16, width=16)
+    label = L.data(name="label", type=D.integer_value(10))
+    t = img
+    for i, (nf, times) in enumerate(((8, 2), (16, 2), (32, 3))):
+        t = N.img_conv_group(
+            input=t, num_channels=3 if i == 0 else None, pool_size=2,
+            pool_stride=2, conv_num_filter=[nf] * times, conv_filter_size=3,
+            conv_act=A.ReluActivation(), conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=0, pool_type=P.MaxPooling())
+    t = L.fc(input=t, size=32, act=A.LinearActivation())
+    t = L.batch_norm(input=t, act=A.ReluActivation())
+    predict = L.fc(input=t, size=10, act=A.SoftmaxActivation())
+    return L.classification_cost(input=predict, label=label)
+
+
+def mini_resnet(paddle):
+    from test_torch_trainer import mini_resnet as build
+
+    return build(paddle, JM if paddle is jpaddle else TM)
+
+
+def witness_ratios(start, wide, got):
+    """Per leaf ||got - wide|| / ||wide - start||, the denominator floored
+    at 1% of the leaf's share of the whole update (``chip_smoke.
+    leaf_ratios``), and which leaves move: an exact update above that
+    floor (a conv bias before a batch norm, conv1's BN shift in the
+    ResNet have none)."""
+    from chip_smoke import STEP_FLOOR, leaf_ratios
+
+    sq = sum(np.sum((wide[n] - start[n]) ** 2) for n in wide)
+    u = np.sqrt(sq / sum(wide[n].size for n in wide))
+    return leaf_ratios(start, wide, got), {
+        n for n in wide if np.linalg.norm(wide[n] - start[n])
+        > STEP_FLOOR * u * np.sqrt(wide[n].size)}
+
+
+class Run:
+    """One net trained STEPS Momentum steps from the same parameters on
+    the same batches: the JAX package's bf16 ``build_train_step``, the
+    port's ``trainer.SGD`` in bf16 and f32, and the float64 trajectory of
+    the port's plain path.  Snapshots (cost, params, states) after each
+    step."""
+
+    def __init__(self, build, bs=8, side=16, classes=10, seed=0):
+        jcost, tcost = build(jpaddle), build(tpaddle)
+        self.jt, self.tt = JTopology(jcost), TTopology(tcost)
+        assert self.tt.serialize() == self.jt.serialize()
+        self.cost = tcost
+        created = tpaddle.parameters.create(tcost)
+        self.p0 = {n: created[n].copy() for n in created.names()}
+        self.s0 = {k: v.numpy() for k, v in self.tt.init_states().items()}
+        rng = np.random.default_rng(seed)
+        self.batches = [[(rng.normal(size=3 * side * side).astype(np.float32),
+                          int(rng.integers(0, classes))) for _ in range(bs)]
+                        for _ in range(STEPS)]
+        self.lr = 0.1 / bs
+        self.jax = self._jax()
+        self.bf16 = self._port(BF16)
+        self.f32 = self._port(None, steps=1)
+        self.f64 = self._wide()
+
+    def opt(self, pkg):
+        return pkg.optimizer.Momentum(momentum=0.9, learning_rate=self.lr)
+
+    def _jax(self):
+        opt = self.opt(jpaddle)
+        step = j_train_step(self.jt, opt, compute_dtype=jnp.bfloat16)
+        specs = {s.name: s for s in self.jt.param_specs()}
+        p = {n: jnp.asarray(v) for n, v in self.p0.items()}
+        o, s = opt.init(p, specs), self.jt.init_states()
+        out = []
+        for batch in self.batches:
+            feed = {"image": np.stack([x for x, _ in batch]),
+                    "label": np.array([y for _, y in batch], np.int32)}
+            p, o, s, c, _ = step(p, o, s, feed, jax.random.key(0))
+            out.append((float(c), {n: np.asarray(v) for n, v in p.items()},
+                        {k: np.asarray(v) for k, v in s.items()}))
+        return out
+
+    def _port(self, dtype, steps=STEPS):
+        tr = tpaddle.trainer.SGD(
+            cost=self.cost, update_equation=self.opt(tpaddle), device="cpu",
+            parameters=tpaddle.parameters.Parameters.from_numpy(self.p0),
+            compute_dtype=dtype)
+        out = []
+        for batch in self.batches[:steps]:
+            costs = []
+            tr.train(reader=lambda: iter([batch]), num_passes=1,
+                     event_handler=lambda e: costs.append(e.cost)
+                     if isinstance(e, tpaddle.event.EndIteration) else None)
+            out.append((costs[0], {n: tr.parameters[n] for n in self.p0},
+                        {k: v.numpy() for k, v in tr.states.items()}))
+        if dtype is not None:
+            self.trainer = tr     # the bf16 one, for its dtypes
+        return out
+
+    def _wide(self):
+        from paddle_tpu_torch.trainer.step import build_train_step
+
+        opt = self.opt(tpaddle)
+        step = build_train_step(self.tt, opt)
+        specs = {s.name: s for s in self.tt.param_specs()}
+        p = {n: torch.from_numpy(v).double() for n, v in self.p0.items()}
+        o = opt.init(p, specs)
+        s = {k: torch.from_numpy(v).double() for k, v in self.s0.items()}
+        out = []
+        for batch in self.batches:
+            feed = {"image": torch.from_numpy(
+                np.stack([x for x, _ in batch])).double(),
+                    "label": torch.tensor([y for _, y in batch])}
+            p, o, s, c, _ = step(p, o, s, feed, 0)
+            out.append((float(c), {n: v.numpy() for n, v in p.items()},
+                        {k: v.numpy() for k, v in s.items()}))
+        return out
+
+
+@pytest.fixture(scope="module", params=["mini_resnet", "narrow_vgg"])
+def run(request):
+    from paddle_tpu.layers.base import reset_name_counters as jreset
+    from paddle_tpu_torch.layers.base import reset_name_counters as treset
+
+    jreset()
+    treset()
+    return Run({"mini_resnet": mini_resnet, "narrow_vgg": narrow_vgg}[
+        request.param])
+
+
+def test_bf16_first_step_matches_the_jax_step(run, monkeypatch):
+    """The first bf16 step: the cost within one bf16 ulp of JAX's
+    [measured: equal]; on every leaf that moves in exact arithmetic, the
+    port's step within 0.1 of the JAX step's update (``witness_ratios``)
+    [measured <= 0.049: the port takes a conv's BN moments from the f32
+    accumulator, the JAX package's CPU composition from the bf16-rounded
+    conv output (PERF.md §6), and PyTorch rounds its bf16 elementwise
+    chains after each op where XLA's fusions keep f32]; the BN moving
+    statistics within 1e-5 [1.4e-6].  Masters, optimizer state and BN
+    statistics stay f32, the gradients reach the update in f32; the
+    convolutions inside the step run in bf16."""
+    jc, jp, js = run.jax[0]
+    tc, tp, ts = run.bf16[0]
+    assert abs(tc - jc) <= 2.0 ** -8 * abs(jc), (tc, jc)
+    _, moves = witness_ratios(run.p0, run.f64[0][1], jp)
+    r, _ = witness_ratios(run.p0, jp, tp)
+    worst = max(moves, key=r.get)
+    assert r[worst] <= 0.1, (worst, r[worst])
+    rs, _ = witness_ratios(run.s0, js, ts)
+    assert max(rs.values()) <= 1e-5, max(rs.items(), key=lambda kv: kv[1])
+
+    tr = run.trainer
+    assert all(tr.parameters[n].dtype == np.float32 for n in run.p0)
+    assert all(v.dtype == torch.float32 for v in tr.states.values())
+    slots = [t for t in torch.utils._pytree.tree_leaves(tr._opt_state)
+             if isinstance(t, torch.Tensor)]
+    assert slots and all(t.dtype == torch.float32 for t in slots)
+    from paddle_tpu_torch.ops import nn as nn_ops
+
+    seen = []
+    for mod, name in ((CV, "fwd_raw"), (nn_ops, "conv2d")):
+        inner = getattr(mod, name)
+
+        def record(*a, _inner=inner, **kw):
+            out = _inner(*a, **kw)
+            seen.append((out[0] if isinstance(out, tuple) else out).dtype)
+            return out
+
+        monkeypatch.setattr(mod, name, record)
+    update = tr.optimizer.apply
+    reached = []
+
+    def apply(grads, params, *a):
+        reached.append({t.dtype for t in [*grads.values(), *params.values()]})
+        return update(grads, params, *a)
+
+    monkeypatch.setattr(tr.optimizer, "apply", apply)
+    tr.train(reader=lambda: iter(run.batches[:1]), num_passes=1,
+             event_handler=lambda e: None)
+    assert seen and set(seen) == {BF16}, seen
+    assert reached == [{torch.float32}], reached   # f32 grads, f32 masters
+
+
+def test_bf16_five_steps_against_the_float64_trajectory(run):
+    """5 Momentum steps: the bf16 trajectories of both packages drift from
+    the float64 one (batch norm over 8 rows, ReLU and max-pool routing
+    amplify round-off), so each is held against it.  The port's cost at
+    every step within 3x the largest distance of JAX's cost from the
+    float64 one over the run [measured: a third of it or less]; after
+    step 5, per leaf, the port's ``witness_ratios`` against the float64
+    parameters within 2x JAX's plus 0.1 [worst: 0.342 against JAX's
+    0.155, the mini-ResNet's res2_1 branch2a BN shift], the BN statistics
+    within 2x plus 0.01 [below 2x]."""
+    jdev = max(abs(run.jax[k][0] - run.f64[k][0]) for k in range(STEPS))
+    for k in range(STEPS):
+        assert abs(run.bf16[k][0] - run.f64[k][0]) <= 3 * jdev, k
+    for i, start, floor in ((1, run.p0, 0.1), (2, run.s0, 0.01)):
+        rp, _ = witness_ratios(start, run.f64[-1][i], run.bf16[-1][i])
+        rj, _ = witness_ratios(start, run.f64[-1][i], run.jax[-1][i])
+        worst = max(rp, key=lambda n: rp[n] - 2 * rj[n])
+        assert rp[worst] <= 2 * rj[worst] + floor, (worst, rp[worst],
+                                                   rj[worst])
+
+
+def test_bf16_rounds_where_jax_rounds_and_holds_the_witness(run):
+    """The first step, against the float64 step.
+
+    - Control: on every leaf that moves in exact arithmetic and that the
+      JAX package's bf16 rounding moves visibly (its bf16 step at least
+      1% of the update away from the float64 step: 23 of the mini-ResNet's
+      26 leaves, 25 of the narrow VGG's 34), the port's f32 step lies
+      farther from JAX's bf16 step than the port's bf16 step does
+      [measured: by 1.12x at the closest, the mini-ResNet's fc bias].
+    - Witness: per leaf, the port's bf16 step within 2x the JAX package's
+      own distance from the float64 step plus 0.01, parameters and BN
+      statistics [measured: under 2x on every leaf; the largest, 0.458
+      (mini-ResNet) and 2.31 (narrow VGG) against JAX's 1.98 and 64.1,
+      on leaves whose exact update is zero: conv biases before a batch
+      norm]."""
+    jp, tp, fp, wp = (run.jax[0][1], run.bf16[0][1], run.f32[0][1],
+                      run.f64[0][1])
+    rjw, moves = witness_ratios(run.p0, wp, jp)
+    rtw, _ = witness_ratios(run.p0, wp, tp)
+    rb, _ = witness_ratios(run.p0, jp, tp)
+    rf, _ = witness_ratios(run.p0, jp, fp)
+    visible = {n for n in moves if rjw[n] > 1e-2}
+    assert len(visible) >= 0.6 * len(wp)
+    assert all(rf[n] > rb[n] for n in visible), [
+        (n, rb[n], rf[n]) for n in visible if rf[n] <= rb[n]]
+    for got, ref, start in ((tp, jp, run.p0),
+                            (run.bf16[0][2], run.jax[0][2], run.s0)):
+        wide = wp if got is tp else run.f64[0][2]
+        rt, _ = witness_ratios(start, wide, got)
+        rj, _ = witness_ratios(start, wide, ref)
+        worst = max(rt, key=lambda n: rt[n] - 2 * rj[n])
+        assert rt[worst] <= 2 * rj[worst] + 0.01, (worst, rt[worst],
+                                                   rj[worst])
+
+
+# -- the card's bf16 witness limits (chip_smoke.py) -------------------------------
+
+
+def witness_step_ratios():
+    """At ``chip_smoke.py``'s bf16 witness step (``BF16_WITNESS_NET``:
+    ResNet-50's blocks at an eighth of the width, 64x64 images, batch 8,
+    ``seeded_params``, ``witness_batch``): per leaf, parameters and BN
+    statistics, the floored ratio ||x - x64|| / ||x64 - x0|| of the JAX
+    package's bf16 ``build_train_step``, of the port's bf16 step on the
+    CPU and of the port's bf16 step with its BN backward's mean term
+    dropped, against the port's float64 step."""
+    import chip_smoke as S
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.ops import nn as nn_ops
+
+    cfg = S.BF16_WITNESS_NET
+    args = (cfg["side"], cfg["div"], cfg["classes"])
+    jt = JTopology(S.resnet50_cut(jpaddle, JM, *args))
+    tcost = S.resnet50_cut(tpaddle, TM, *args)
+    carried = S.seeded_params([(s.name, s.shape)
+                               for s in TTopology(tcost).param_specs()])
+    batch = S.witness_batch(cfg["side"], cfg["classes"], cfg["batch"])
+
+    def trainer(dtype=None):
+        return tpaddle.trainer.SGD(
+            cost=tcost, parameters=Parameters.from_numpy(carried),
+            update_equation=tpaddle.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.1 / 64), device="cpu",
+            compute_dtype=dtype)
+
+    tr = trainer()
+    s0 = {k: v.numpy() for k, v in tr.states.items()}
+    p64, s64, _ = tr.step_f64(batch)
+    opt = jpaddle.optimizer.Momentum(momentum=0.9, learning_rate=0.1 / 64)
+    step = j_train_step(jt, opt, compute_dtype=jnp.bfloat16)
+    p = {n: jnp.asarray(v) for n, v in carried.items()}
+    feed = {"image": np.stack([x for x, _ in batch]),
+            "label": np.array([y for _, y in batch], np.int32)}
+    p, _, s, _, _ = step(p, opt.init(p, {x.name: x for x in
+                                         jt.param_specs()}),
+                         jt.init_states(), feed, jax.random.key(0))
+    out = {"jax": {**S.leaf_ratios(carried, p64, {n: np.asarray(v) for n, v
+                                                  in p.items()}),
+                   **S.leaf_ratios(s0, s64, {k: np.asarray(v)
+                                             for k, v in s.items()})}}
+    plain_bn = CV.bn_act_train
+
+    def bn_mean_term_dropped(y_conv, gamma, beta, eps, act):
+        mean, var = nn_ops.moments(y_conv)
+        return CV.bn_apply(y_conv, mean.detach(), var, gamma, beta, eps, act)
+
+    for label in ("port", "bn_vjp_control"):
+        tr = trainer(BF16)
+        if label == "bn_vjp_control":
+            CV.bn_act_train = bn_mean_term_dropped
+        try:
+            tr.train(reader=lambda: iter([batch]), num_passes=1,
+                     event_handler=lambda e: None)
+        finally:
+            CV.bn_act_train = plain_bn
+        out[label] = {**S.leaf_ratios(carried, p64, {n: tr.parameters[n]
+                                                     for n in carried}),
+                      **S.leaf_ratios(s0, s64, {k: v.numpy() for k, v
+                                                in tr.states.items()})}
+    return out
+
+
+def test_chip_smoke_bf16_witness_limits_are_jaxs_own_error():
+    """``chip_smoke.BF16_WITNESS_JAX`` holds, for every one of the witness
+    step's 161 parameter and 106 BN statistic leaves, the JAX package's
+    own bf16 error at that step: recomputed, each within 25% [equal
+    where measured; the margin is for another CPU's f32 rounding, which
+    bf16 amplifies].  The port's own bf16 step on the CPU lies within the
+    card's limit, 2x that error plus ``BF16_WITNESS_FLOOR``, on every
+    leaf; the BN backward without its mean term exceeds it."""
+    import chip_smoke as S
+
+    got = witness_step_ratios()
+    assert sorted(got["jax"]) == sorted(S.BF16_WITNESS_JAX)
+    assert len(S.BF16_WITNESS_JAX) == 161 + 106
+    for n, r in got["jax"].items():
+        assert r == pytest.approx(S.BF16_WITNESS_JAX[n], rel=0.25), n
+
+    def over(ratios):
+        return [n for n, r in ratios.items()
+                if r > 2 * S.BF16_WITNESS_JAX[n] + S.BF16_WITNESS_FLOOR]
+
+    assert not over(got["port"]), over(got["port"])
+    assert over(got["bn_vjp_control"])
+
+
+def test_chip_smoke_bf16_witnesses_with_the_cpu_in_the_cards_place(
+        monkeypatch):
+    """``chip_smoke.bf16_witness`` and ``bf16_layer_witness`` run here with
+    the CPU in the card's place (its "card" steps then take the plain
+    twins too), the layer witness at a quarter of ResNet-50's width on
+    64x64 images.  The whole-step witness: the "card" step equals the
+    CPU's and passes the JAX-anchored limit, the BN fault exceeds it, and
+    one bf16 ulp on 0.01% of the input pixels moves the step by more than
+    half its length [0.904 over all leaves]: at this step round-off is
+    most of the update, which is why the layer witness exists.  The layer
+    witness: 53 conv + BN backward passes, each equal to its CPU
+    recomputation, and each planted fault past ``BF16_LAYER_LIMIT`` at
+    every layer it is held at: the conv's dw dropped reads 1 exactly, the
+    BN backward without its mean term [0.73-1.34]."""
+    import chip_smoke as S
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cpu = torch.device("cpu")
+    out = S.bf16_witness(cpu)
+    assert out["card"]["leaves_over_limit"] == []
+    assert out["card_bn_vjp_control"]["leaves_over_limit"] > 0
+    assert out["card_vs_cpu"]["global"] == 0.0
+    assert out["cpu_nudged_vs_cpu"]["global"] > 0.5
+    layers = S.bf16_layer_witness(cpu, {"side": 64, "div": 4,
+                                        "classes": 1000, "batch": 8})
+    assert layers["layers"] == 53
+    assert max(layers["worst"].values()) == 0.0
+    assert layers["conv_dw_dropped_control"] == [1.0] * 3
+    assert min(layers["bn_vjp_control"]) > S.BF16_LAYER_LIMIT
+
+
+if __name__ == "__main__":
+    # chip_smoke.py's BF16_WITNESS_JAX, from the root of a checkout:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_bf16.py
+    ratios = witness_step_ratios()
+    print("BF16_WITNESS_JAX = {")
+    for n, r in sorted(ratios["jax"].items()):
+        print(f"    {n!r}: {r:.4g},")
+    print("}")
+    print("# the port's bf16 step on the CPU, worst (ratio, 2 x JAX's):",
+          max((r, 2 * ratios["jax"][n]) for n, r in ratios["port"].items()))

@@ -149,15 +149,15 @@ def test_plan_picks_the_copy_form_by_shape_and_alignment(run, n, ptrs, vec):
 def test_plan_picks_the_tile_and_split_for_the_card(m, n, kred, plan):
     p = BR.plan(m, n, kred, 64, (0, 0), H100_SMS)
     assert (p.block_m, p.block_n, p.splits) == plan
-    slices = -(-kred // BR.BLOCK_K)
+    slices = -(-kred // BR.F32.block_k)
     assert 1 <= p.splits <= max(1, min(BR.MAX_SPLITS,
                                        slices // BR.MIN_SPLIT_SLICES))
     if p.splits > 1:    # a split only where the grid holds fewer blocks
         assert BR.Plan(p.block_m, p.block_n, True).blocks(m, n) \
-            < H100_SMS * BR.RESIDENT[(p.block_m, p.block_n)]
-    if (p.block_m, p.block_n) != BR.TILES[-1]:
-        assert p.blocks(m, n) >= BR.MIN_WAVES * H100_SMS * BR.RESIDENT[
-            (p.block_m, p.block_n)]
+            < H100_SMS * BR.F32.resident[(p.block_m, p.block_n, True)]
+    if (p.block_m, p.block_n) != BR.F32.tiles[-1]:
+        assert p.blocks(m, n) >= BR.MIN_WAVES * H100_SMS * BR.F32.resident[
+            (p.block_m, p.block_n, True)]
 
 
 @pytest.mark.parametrize("block_m,m,tiles", [
@@ -169,17 +169,25 @@ def test_stats_partials_are_sized_by_the_plans_row_tiles(block_m, m, tiles):
 
 
 def test_plan_tiles_are_the_ones_the_cuda_tile_instantiates():
-    """``TILES`` and ``csrc/gemm_f32.cuh``'s dispatch (``launch_form``)
-    name the same (block_m, block_n) pairs, so the plan never asks for a
-    tile the library does not have."""
+    """Every form's ``tiles`` (``F32``, ``BF16``) and the one tile
+    dispatch of ``csrc/gemm_f32.cuh`` (``gemm::dispatch``, which both
+    headers' launches and occupancy queries go through) name the same
+    (block_m, block_n) pairs, so the plan never asks for a tile the
+    library does not have."""
     import re
     from pathlib import Path
 
-    src = (Path(BR.__file__).parent / "csrc" / "gemm_f32.cuh").read_text()
-    body = src[src.index("cudaError_t launch_form"):]
+    csrc = Path(BR.__file__).parent / "csrc"
+    src = (csrc / "gemm_f32.cuh").read_text()
+    body = src[src.index("cudaError_t dispatch("):]
     body = body[:body.index("return cudaErrorInvalidValue")]
     found = re.findall(r"block_m == (\d+) && block_n == (\d+)", body)
-    assert tuple((int(a), int(b)) for a, b in found) == BR.TILES
+    for form in BR.FORMS.values():
+        assert tuple((int(a), int(b)) for a, b in found) == form.tiles
+    for name in ("gemm_f32.cuh", "gemm_bf16.cuh", "brgemm.cu",
+                 "conv2d_direct.cu"):
+        text = (csrc / name).read_text()
+        assert name == "gemm_f32.cuh" or "block_m == " not in text, name
 
 
 def test_direct_plan_reads_cin_and_the_operands_alignment():

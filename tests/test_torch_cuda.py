@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.core.dtype import set_f32_policy
+from paddle_tpu_torch.core.dtype import set_policy
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
@@ -29,7 +29,7 @@ TOL = 1e-4
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run with -m cuda on the GPU host)")
-    set_f32_policy()
+    set_policy()
     return torch.device("cuda", 0)
 
 
@@ -343,16 +343,17 @@ def test_gemm_tile_every_instantiation(cuda, monkeypatch, tile, vec, splits):
 @pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
 @pytest.mark.parametrize("vec", [True, False])
 def test_gemm_tile_resident_blocks_match_the_plan(cuda, tile, vec):
-    """The plan's ``RESIDENT`` (blocks an SM holds, which sets its waves and
+    """The plan's ``F32.resident`` (blocks an SM holds, which sets its waves and
     splits) is what the CUDA runtime computes for every instantiation of
     the tile, in both kernels: a change of registers or shared memory that
     moves it fails here, not silently in the plan."""
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
 
-    assert tile in BR.TILES
+    assert tile in BR.F32.tiles
     for kernel in (BR.KERNEL, CV.KERNEL):
-        assert BR.resident(kernel, *tile, vec) == BR.RESIDENT[tile]
+        assert BR.resident(kernel, *tile, vec) == BR.F32.resident[
+            tile + (vec,)]
 
 
 def test_gemm_tile_copy_forms_give_the_same_bits(cuda):
@@ -410,6 +411,302 @@ def test_gemm_tile_refuses_a_form_the_operands_do_not_allow(cuda):
         BR.launch_gemm(BR.KERNEL, cuda, 8, 8, p, False, None, None, None,
                        a.data_ptr(), b.data_ptr(), 1, 8, 8, 8, 1, 8, 1, 8,
                        1, 1)
+
+
+# -- the bf16 forms (csrc/gemm_bf16.cuh, channel_stats_bf16) ----------------------
+
+
+def _bf16_case(cuda, fn, kern, args, twin, stats, mag, kred):
+    """One launch of a bf16 form through ``fn`` against ``twin`` on the
+    f64 operands, rounded once to bf16: one launch counted, equal on all
+    but 1% of the elements and each within one bf16 ulp of its own
+    magnitude plus an f32 sum's error (sqrt(``kred``) 2^-24 ``mag``, the
+    element's sum of |products|: ``chip_smoke.bf16_agrees``), the stats
+    (f32) within 1e-4 as the moments they feed, a rerun in the same
+    bits."""
+    from chip_smoke import bf16_agreement, bf16_agrees
+
+    before = kern.launches
+    got = fn(*args, stats=stats)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    wide = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+            and a.dtype == torch.bfloat16 else a for a in args]
+    want = twin(*wide, stats=stats)
+    got, want = (got, want) if stats else ((got,), (want,))
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == want[0].shape
+    assert bf16_agrees(got[0], want[0].to(torch.bfloat16), mag, kred), \
+        bf16_agreement(got[0], want[0].to(torch.bfloat16), mag, kred)
+    count = got[0].numel() // got[0].shape[-1]
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        assert (a.double() / count - b / count).abs().max().item() <= TOL * \
+            max(1.0, (b / count).abs().max().item())
+    again = fn(*args, stats=stats)
+    again = again if stats else (again,)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got[0]
+
+
+def _conv_mag(x, w, s, p):
+    """Each output's sum of |products| of a conv (the f32 sum's scale)."""
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    return CV.fwd_raw_reference(x.double().abs(), w.double().abs(), s, p)
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return (_rand(rng, *shape) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,k,cout,s,p,vec", [
+    ((2, 9, 11, 8), 3, 16, 1, 1, True),     # Cin 8: slices straddle taps
+    ((2, 9, 11, 16), 3, 136, 2, 1, True),   # N past 128, % 8 == 0
+    ((2, 6, 7, 24), 1, 24, 1, 1, True),     # Kred 24: below one slice
+    ((3, 17, 19, 3), 7, 64, 2, 3, False),   # the stem's Cin 3, Kred 147
+    ((2, 13, 14, 1), 3, 16, 1, 1, False),   # Cin 1, Kred 9
+    ((2, 13, 14, 16), 3, 12, 1, 1, False),  # N = 12: register-staged
+    ((2, 13, 14, 12), 3, 16, 1, 1, False),  # Cin 12: register-staged
+    ((64, 7, 7, 512), 3, 512, 1, 1, True),  # res5 3x3 at batch 64
+    ((128, 4, 4, 512), 3, 512, 1, 1, True),  # small_vgg's last group
+])
+@pytest.mark.parametrize("stats", [False, True])
+def test_bf16_direct_conv_forms_and_tails(cuda, shape, k, cout, s, p, vec,
+                                          stats):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(shape[-1] * 100 + cout)
+    x = _bf16(rng, *shape).to(cuda)
+    w = _bf16(rng, k, k, shape[-1], cout,
+              scale=(2.0 / (k * k * shape[-1])) ** 0.5).to(cuda)
+    m = shape[0] * ((shape[1] + 2 * p - k) // s + 1) * (
+        (shape[2] + 2 * p - k) // s + 1)
+    assert CV.direct_plan(x, w, m, BR.sm_count(x.device)).vec is vec
+    kern = BR.KERNEL_BF16 if (k, p) == (1, 0) else CV.KERNEL_BF16
+    _bf16_case(cuda, CV.fwd_raw, kern, (x, w, (s, s), (p, p)),
+               CV.fwd_raw_reference, stats,
+               _conv_mag(x, w, (s, s), (p, p)), k * k * shape[-1])
+
+
+@pytest.mark.parametrize("g,m,k,n,vec", [
+    (3, 300, 64, 128, True),     # G > 1
+    (4, 77, 40, 200, True),      # G > 1, K % 32 != 0: slices straddle g
+    (2, 50, 7, 64, False),       # odd K: register-staged
+    (5, 33, 16, 44, False),      # N % 8 != 0: register-staged
+    (1, 129, 8, 8, True),        # Kred below one slice
+    (2, 40, 512, 64, True),      # a long reduction across g
+])
+@pytest.mark.parametrize("mode", ["none", "stats", "affine_relu"])
+def test_bf16_brgemm_stacks_forms_and_epilogues(cuda, g, m, k, n, vec,
+                                                mode):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+    rng = np.random.default_rng(g * 1000 + m + k + n)
+    a, b = _bf16(rng, g, m, k).to(cuda), _bf16(rng, g, k, n).to(cuda)
+    assert BR.plan(m, n, g * k, k, (a.data_ptr(), b.data_ptr()),
+                   BR.sm_count(a.device), BR.BF16).vec is vec
+    kw = {}
+    if mode == "affine_relu":
+        kw = dict(scale=_rand(rng, n).to(cuda), shift=_rand(rng, n).to(cuda),
+                  act="relu")
+
+    def fn(a, b, stats):
+        return BR.brgemm(a, b, stats=stats, **kw)
+
+    def twin(a, b, stats):
+        return BR.brgemm_reference(a, b, stats=stats, **kw)
+
+    mag = BR.brgemm_reference(a.double().abs(), b.double().abs())
+    if mode == "affine_relu":
+        mag = mag * kw["scale"].double().abs()
+    _bf16_case(cuda, fn, BR.KERNEL_BF16, (a, b), twin, mode == "stats",
+               mag, g * k)
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_bf16_tile_every_instantiation(cuda, monkeypatch, tile, vec, splits):
+    """Each bf16 tile in each copy form, whole and split in 3, forced
+    through the plan, on a conv and a strided 1x1 conv with ragged M and
+    N past one column tile."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    monkeypatch.setattr(BR, "plan", lambda *a: BR.Plan(*tile, vec, splits))
+    rng = np.random.default_rng(tile[0] + tile[1] + vec)
+    x = _bf16(rng, 3, 15, 13, 96).to(cuda)     # the 1x1's K: 3 slices
+    w3 = _bf16(rng, 3, 3, 96, 136, scale=0.1).to(cuda)
+    w1 = _bf16(rng, 1, 1, 96, 136, scale=0.2).to(cuda)
+    _bf16_case(cuda, CV.fwd_raw, CV.KERNEL_BF16, (x, w3, (1, 1), (1, 1)),
+               CV.fwd_raw_reference, True,
+               _conv_mag(x, w3, (1, 1), (1, 1)), 9 * 96)
+    _bf16_case(cuda, CV.fwd_raw, BR.KERNEL_BF16, (x, w1, (2, 2), (0, 0)),
+               CV.fwd_raw_reference, True,
+               _conv_mag(x, w1, (2, 2), (0, 0)), 96)
+
+
+@pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
+@pytest.mark.parametrize("vec", [True, False])
+def test_bf16_tile_resident_blocks_match_the_plan(cuda, tile, vec):
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    for kernel in (BR.KERNEL_BF16, CV.KERNEL_BF16):
+        assert BR.resident(kernel, *tile, vec) == BR.BF16.resident[
+            tile + (vec,)]
+
+
+def test_bf16_tile_planted_fault_fails_the_criterion(cuda):
+    """A product whose accumulator is rounded to bf16 after every 16-deep
+    slice (a bf16 accumulator) differs from the f64 twin's one rounding
+    on more than 1% of the elements; the kernel does not."""
+    from chip_smoke import bf16_agrees, slice_rounded_product
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+    rng = np.random.default_rng(3)
+    a, b = _bf16(rng, 1, 4096, 256).to(cuda), _bf16(rng, 1, 256, 128).to(cuda)
+    want = BR.brgemm_reference(a.double(), b.double()).to(torch.bfloat16)
+    mag = BR.brgemm_reference(a.double().abs(), b.double().abs())
+    assert bf16_agrees(BR.brgemm(a, b), want, mag, 256)
+    assert not bf16_agrees(slice_rounded_product(a[0], b[0]), want, mag, 256)
+
+
+def test_bf16_forms_refuse_mixed_operands_and_f32_epilogues(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+
+    a = torch.zeros(1, 4, 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(EnforceError, match="one dtype"):
+        BR._launch(a, torch.zeros(1, 8, 8, device=cuda), 1, 4, 8, 8,
+                   (1, 4, 1, 4, 1, 1), None, None, None, False)
+    half = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(EnforceError, match="float32 scale"):
+        BR.brgemm(a, torch.zeros(1, 8, 8, dtype=torch.bfloat16, device=cuda),
+                  scale=half, shift=half)
+
+
+@pytest.mark.parametrize("r,c", [(131072, 64), (1000, 128), (77, 512),
+                                 (300, 3), (5, 24)])
+def test_channel_stats_bf16_matches_the_f64_twin(cuda, r, c):
+    """The bf16 form (16-byte reads where C % 8 == 0) against the sums of
+    the same bf16 values in float64: within 1e-4 x max(1, |ref|) as the
+    moments, f32 out, a rerun in the same bits; one launch each."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(r + c)
+    x = (_rand(rng, r, c) * 2 + 0.5).to(torch.bfloat16).to(cuda)
+    before = CS.KERNEL_BF16.launches, CS.KERNEL.launches
+    got, again = CS.channel_stats(x), CS.channel_stats(x)
+    torch.cuda.synchronize()
+    assert (CS.KERNEL_BF16.launches - before[0],
+            CS.KERNEL.launches - before[1]) == (2, 0)
+    want = CS.channel_stats_reference(x.double())
+    for a, b, a2 in zip(got, want, again):
+        assert a.dtype == torch.float32 and torch.equal(a, a2)
+        assert (a.double() / r - b / r).abs().max().item() <= TOL * max(
+            1.0, (b / r).abs().max().item())
+
+
+def test_channel_stats_bf16_at_an_unaligned_view(cuda):
+    """A view two bytes past a 16-byte boundary takes the one-channel
+    form (another grouping of the rows): the same moments within 1e-4."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(4)
+    x = _bf16(rng, 1000, 64).to(cuda)
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 2
+    for a, b in zip(CS.channel_stats(x), CS.channel_stats(shifted)):
+        assert ((a - b) / 1000).abs().max().item() <= TOL
+
+
+def test_bf16_conv_bn_act_grads_on_card_match_the_cpu(cuda):
+    """``conv2d_bn_act`` in bf16, train mode: the card's kernels against
+    the CPU's twins, output and every gradient (dx, dw in bf16; dgamma,
+    dbeta), within a few bf16 ulps of the largest entry (another
+    accumulation order, then bf16 rounding)."""
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    rng = np.random.default_rng(5)
+    args = [_bf16(rng, 4, 13, 14, 16), _bf16(rng, 3, 3, 16, 24, scale=0.2),
+            _bf16(rng, 24, scale=0.1) + 1, _bf16(rng, 24, scale=0.1)]
+    rm, rv = torch.zeros(24), torch.ones(24)
+    r = _bf16(rng, 4, 7, 7, 24)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in args]
+        before = CV.KERNEL_BF16.launches
+        y, nm, nv = CV.conv2d_bn_act(*leaves, rm.to(dev), rv.to(dev), True,
+                                     stride=2, padding=1)
+        grads = torch.autograd.grad((y.float() * r.to(dev).float()).sum(),
+                                    leaves)
+        assert CV.KERNEL_BF16.launches == before + (dev.type == "cuda")
+        assert y.dtype == torch.bfloat16 and nm.dtype == torch.float32
+        assert [g.dtype for g in grads] == [torch.bfloat16] * 4
+        outs.append([t.float().cpu() for t in (y, nm, nv, *grads)])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 3e-2 * max(1.0, b.abs().max())
+
+
+_C1_SCRIPT = """
+import json, sys
+import torch
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.core import dtype
+from paddle_tpu_torch.trainer.step import build_train_step
+if sys.argv[1] == "control":      # the policy counted as set: never applied
+    dtype._applied = True
+L, D = paddle.layer, paddle.data_type
+img = L.data(name="image", type=D.dense_vector(3 * 8 * 8, channels=3),
+             height=8, width=8)
+t = L.img_conv_bn(input=img, filter_size=3, num_filters=8, padding=1,
+                  name="c")
+p = L.fc(input=t, size=4, act=paddle.activation.SoftmaxActivation())
+lab = L.data(name="label", type=D.integer_value(4))
+cost = L.cross_entropy_cost(input=p, label=lab)
+topo = paddle.topology.Topology(cost)
+params = paddle.parameters.create(cost)
+dev = torch.device("cuda", 0)
+ps = {n: torch.as_tensor(params[n]).to(dev) for n in params.names()}
+opt = paddle.optimizer.Momentum(momentum=0.9, learning_rate=0.1)
+specs = {s.name: s for s in topo.param_specs()}
+step = build_train_step(topo, opt, compute_dtype=torch.bfloat16)
+states = topo.init_states(dev)
+feed = {"image": torch.randn(4, 192, device=dev),
+        "label": torch.tensor([0, 1, 2, 3], device=dev)}
+opt_state = opt.init({n: v for n, v in ps.items() if not specs[n].is_static},
+                     specs)
+step(ps, opt_state, states, feed, 0)
+torch.cuda.synchronize()
+print(json.dumps({
+    "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+    "bf16_reduced": torch.backends.cuda.matmul
+        .allow_bf16_reduced_precision_reduction}))
+"""
+
+
+@pytest.mark.parametrize("mode", ["fix", "control"])
+def test_policy_holds_on_a_step_built_by_hand(cuda, mode):
+    """C1: in a fresh process, a bf16 conv step through
+    ``build_train_step`` on tensors moved to the card by hand (no
+    ``resolve_device``) runs under the port's policy: cuDNN TF32 off and
+    bf16 GEMMs reduced in f32.  The control marks the policy applied
+    without applying it (the tree before the repair): its flags keep
+    PyTorch's defaults, so the same assertion would fail."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", _C1_SCRIPT, mode],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    flags = json.loads(out.stdout.strip().splitlines()[-1])
+    fixed = flags == {"cudnn_tf32": False, "bf16_reduced": False}
+    assert fixed is (mode == "fix"), flags
 
 
 # -- flash backward (the LM training path) ---------------------------------------
