@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains (ResNet-50, the transformer LM, the LSTM text classifier, the
-OCR CRNN, the attention NMT, the CIFAR-10 VGG, the benchmark image nets
-and the Wide & Deep CTR), and runs the raw-input recurrences and the
-large-vocabulary cross-entropy.
+trains (ResNet-50, the transformer LM in f32 and bf16, the LSTM text
+classifier, the OCR CRNN, the attention NMT, the CIFAR-10 VGG, the
+benchmark image nets and the Wide & Deep CTR), and runs the raw-input
+recurrences and the large-vocabulary cross-entropy.
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -305,7 +305,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    (36 + 17 f32 launches a batch, no bf16).  Then small_vgg at phase 9's
    configuration the same way: exactly 11 ``channel_stats_bf16`` and 10
    direct-conv bf16 launches a bf16 step, costs finite and falling.
-14. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+14. The LM in bf16 (rows 2 and 3's bf16 forms: ``csrc/flash_attention.cu``
+   and ``flash_attention_bwd.cu``'s tensor-core kernels, ``mma.sync``
+   m16n8k16 with f32 sums).  At the LM training shape [16, 1024, 12, 64]
+   causal and at T = 333, bf16 operands: the forward, dQ and dK/dV kernels
+   each against their twins on the same inputs (``bf16_agrees`` with
+   ``FLASH_BF16_FLIP``: unequal on at most 1% of the elements, each
+   within one bf16 ulp plus 2^-7 of its sum of |terms|, a rounded P or dS
+   flipped; lse within 1e-4), a rerun in the same bits, and three planted
+   faults that must fail (an accumulator kept in bf16, delta dropped, the
+   diagonal tile's mask off); each timed as in phase 2 and alone (a
+   trace) beside its twin, its bound (2 B an element, 989 TFLOP/s) and
+   bf16 ``scaled_dot_product_attention`` with the flash backend (forward,
+   and the whole backward).  Then ``transformer.build_train_step(cfg,
+   Adam(1e-4, moment_dtype=torch.bfloat16), compute_dtype=torch.bfloat16)``
+   at phase 5's width: the witness (``lm_bf16_witness``: the bf16 step of
+   a 2-layer cut at batch 2 x 128 on the card and on the CPU, per gradient
+   leaf and the loss within 2x the JAX package's own bf16 error against
+   float64 plus 2^-8, the delta-dropped control over it, bit for bit on a
+   rerun); then a bf16 and an f32 step from the same weights, 2 warm-up
+   and 10 timed steps each in blocks of 5 (bf16, f32, f32, bf16) on one
+   batch of 16 x 1024, with exactly 12 launches of each bf16 form a bf16
+   step and no f32 flash launch (and the reverse), tokens/s, step ms,
+   peak memory, the bf16 MFU against 989 TFLOP/s; a 3-step profile.
+15. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -334,6 +357,9 @@ XENT_GRAD_ATOL = 1e-12    # the entry, plus atol x the largest entry
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
 BF16_ULP_SHARE = 0.01     # a bf16 form vs one rounding of its f64-summed
                           # twin: unequal on at most 1% of the elements
+#: the LM at GPT-2-small's width (``bench.py:900-907``): phases 3, 5, 14
+LM_FULL = {"vocab_size": 50257, "num_layers": 12, "num_heads": 12,
+           "embed_dim": 768, "mlp_dim": 3072, "max_seq_len": 2048}
 
 
 def log(msg: str) -> None:
@@ -388,23 +414,27 @@ def bf16_ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
-def bf16_agreement(got, want, mag, kred: int) -> dict:
+def bf16_agreement(got, want, mag, kred: int = 1,
+                   coef: float | None = None) -> dict:
     """How a bf16 output lies against ``want``, the one rounding of its
     f64-summed twin, element by element.  Each may lie one bf16 ulp (at
     the larger of the two magnitudes: two roundings, each within half of
     one) plus the error of an f32 sum of ``kred`` terms from ``want``:
     sqrt(kred) 2^-24 ``mag``, ``mag`` the element's sum of |products|
     (Higham and Mary's probabilistic bound; an element that cancels to
-    near zero carries that error in many of its own tiny ulps).  Returns
-    the share of elements not equal, the share more than one of their own
-    ulps apart, the most ulps apart, the largest absolute gap, and the
-    largest share of its bound an element's gap takes."""
+    near zero carries that error in many of its own tiny ulps).  ``coef``
+    replaces sqrt(kred) 2^-24 where an operand of the sum is itself
+    rounded to bf16 (``FLASH_BF16_FLIP``).  Returns the share of elements
+    not equal, the share more than one of their own ulps apart, the most
+    ulps apart, the largest absolute gap, and the largest share of its
+    bound an element's gap takes."""
     d = bf16_ulps(got, want)
     g, w = got.double(), want.double()
     gap = (g - w).abs()
     top = torch.maximum(g.abs(), w.abs())
     ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
-    limit = ulp + kred ** 0.5 * 2.0 ** -24 * mag.double().reshape(gap.shape)
+    coef = kred ** 0.5 * 2.0 ** -24 if coef is None else coef
+    limit = ulp + coef * mag.double().reshape(gap.shape)
     return {"share_off": float((d > 0).float().mean()),
             "share_over_1ulp": float((d > 1).float().mean()),
             "max_ulps": int(d.max()),
@@ -412,23 +442,24 @@ def bf16_agreement(got, want, mag, kred: int) -> dict:
             "max_share_of_bound": float((gap / limit).max())}
 
 
-def bf16_agrees(got, want, mag, kred: int) -> bool:
+def bf16_agrees(got, want, mag, kred: int = 1,
+                coef: float | None = None) -> bool:
     """``got`` equals the twin's one rounding on all but BF16_ULP_SHARE of
     the elements, and every element lies within its bound
     (:func:`bf16_agreement`) of it."""
-    a = bf16_agreement(got, want, mag, kred)
+    a = bf16_agreement(got, want, mag, kred, coef)
     return (a["share_off"] <= BF16_ULP_SHARE
             and a["max_share_of_bound"] <= 1.0)
 
 
 def slice_rounded_product(a2, b2, k: int = 16):
-    """The planted fault of the bf16 forms: a [M, K] @ b [K, N] whose f32
-    accumulator is rounded to bf16 after every k-deep slice of the
-    reduction (an accumulator kept in bf16), returned in bf16."""
-    acc = torch.zeros(a2.shape[0], b2.shape[1], device=a2.device)
-    for k0 in range(0, a2.shape[1], k):
-        acc = (acc + a2[:, k0:k0 + k].float() @ b2[k0:k0 + k].float()
-               ).to(torch.bfloat16).float()
+    """The planted fault of the bf16 forms: a [..., M, K] @ b [..., K, N]
+    whose f32 accumulator is rounded to bf16 after every k-deep slice of
+    the reduction (an accumulator kept in bf16), returned in bf16."""
+    acc = torch.zeros(*a2.shape[:-1], b2.shape[-1], device=a2.device)
+    for k0 in range(0, a2.shape[-1], k):
+        acc = (acc + a2[..., k0:k0 + k].float()
+               @ b2[..., k0:k0 + k, :].float()).to(torch.bfloat16).float()
     return acc.to(torch.bfloat16)
 
 
@@ -1104,10 +1135,8 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
     from paddle_tpu_torch.telemetry import MetricsRegistry
 
-    cfg = T.TransformerConfig(
-        vocab_size=50257, num_layers=12, num_heads=12, embed_dim=768,
-        mlp_dim=3072, max_seq_len=2048, dtype=torch.float32, remat=False,
-        attn_impl="flash")
+    cfg = T.TransformerConfig(**LM_FULL, dtype=torch.float32, remat=False,
+                              attn_impl="flash")
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
     n_params = T.count_params(params)
@@ -1186,7 +1215,8 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
-    for mine in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
+    for mine in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
+                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
                  "bilstm_fwd", "lstm_fwd", "lstm_bwd", "bigru_fwd",
                  "gru_fwd", "gru_bwd", "ctc_fwd_bwd", "ctc_decode"):
         if mine in low:
@@ -1222,8 +1252,8 @@ def kernel_class(name: str) -> str:
         return "memcpy/memset"
     if any(k in low for k in ("dgrad", "wgrad", "cudnn", "convolve")):
         return "cudnn conv backward"
-    if "gemm" in low or "splitk" in low:
-        return "other gemm (cuBLAS/cuDNN)"
+    if "gemm" in low or "splitk" in low or "nvjet" in low:
+        return "other gemm (cuBLAS/cuDNN)"    # nvjet: cuBLAS's Hopper GEMMs
     return "elementwise and reductions"
 
 
@@ -1607,10 +1637,8 @@ def train_lm(dev) -> tuple[dict, tuple]:
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.optimizer import Adam
 
-    cfg = T.TransformerConfig(
-        vocab_size=50257, num_layers=12, num_heads=12, embed_dim=768,
-        mlp_dim=3072, max_seq_len=2048, dtype=torch.float32, remat=False,
-        attn_impl="flash")
+    cfg = T.TransformerConfig(**LM_FULL, dtype=torch.float32, remat=False,
+                              attn_impl="flash")
     bs, seqlen, steps = 16, 1024, 10
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
@@ -5214,6 +5242,490 @@ def xent_path(dev, steps=10) -> tuple[dict, tuple]:
             counted)
 
 
+# -- phase 14: the LM in bf16, the bf16 forms of rows 2 and 3 ----------------
+
+#: a bf16 operand of a flash product (P, dS) that rounds the other way moves
+#: the product by one of its ulps, at most 2^-7 of its size
+FLASH_BF16_FLIP = 2.0 ** -7
+#: (B, T) of the bf16 flash checks at the LM's 12 heads of 64, causal
+FLASH_BF16_SHAPES = ((16, 1024), (16, 333))
+FLASH_BF16_NAMES = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+                    "flash_attention_bwd_dkv_bf16")
+#: each planted fault of the bf16 forms and the outputs it must move
+FLASH_BF16_FAULTS = {"bf16_accumulator": ("o", "dq", "dk", "dv"),
+                     "delta_dropped": ("dq", "dk"),
+                     "diagonal_mask_off": ("o", "dq", "dk", "dv")}
+
+#: the LM's bf16 witness step: GPT-2-small's vocabulary and heads of 64 at
+#: 2 layers of 4 heads (256 wide), batch 2 x 128, weights from
+#: ``init_params`` with a seeded generator; the CPU here computes the JAX
+#: package's own bf16 error at this very step, per gradient leaf and for
+#: the loss (``LM_BF16_WITNESS_JAX``, relative to the float64 step;
+#: recomputed by ``tests/test_torch_lm_train.py``: ``PYTHONPATH=.:tests
+#: python tests/test_torch_lm_train.py`` prints it).  The card's and the
+#: CPU's bf16 steps are held within 2x that plus LM_BF16_FLOOR (one bf16
+#: unit, 2^-8).
+LM_BF16_NET = {"vocab_size": 50257, "num_layers": 2, "num_heads": 4,
+               "embed_dim": 256, "mlp_dim": 1024, "max_seq_len": 128}
+LM_BF16_BATCH = (2, 128)
+LM_BF16_FLOOR = 2.0 ** -8
+LM_BF16_WITNESS_JAX = {
+    'blocks/b_in': 0.01177, 'blocks/b_out': 0.009841,
+    'blocks/ln1_b': 0.01036, 'blocks/ln1_g': 0.01454,
+    'blocks/ln2_b': 0.01195, 'blocks/ln2_g': 0.01494,
+    'blocks/w_in': 0.01128, 'blocks/w_out': 0.009372,
+    'blocks/wk': 0.01374, 'blocks/wo': 0.01013, 'blocks/wq': 0.01383,
+    'blocks/wv': 0.01018, 'embed': 0.01142, 'ln_f_b': 0.009119,
+    'ln_f_g': 0.009358, 'loss': 2.281e-05, 'pos_embed': 0.01258}
+
+
+def flash_bf16_mags(qp, kp, vp, o, lse, dop, t_k, causal, scale):
+    """Per element of o, dq, dk, dv on the padded [BH, Tp, D] problem, in
+    float64, the sum over its reduction of |rounded operand| x |other
+    operand|: P |V| (P normalised by ``lse``), (P (|dP| + sum |dO| |O|)
+    scale) |K| and the same transposed against |Q|, P^T |dO|.  A bf16 P
+    or dS that rounds the other way moves its term by at most
+    FLASH_BF16_FLIP of it.  dS = P (dP - delta) scale is sized by the sums
+    its difference subtracts, which also covers the f32 residue of a dS
+    that cancels to near zero and, against float64, the rounding of the
+    bf16 ``o`` that delta = rowsum(dO O) is taken from."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    q, k, v, do = (x.double() for x in (qp, kp, vp, dop))
+    p = FA._probs(q, k, lse.double(), t_k, causal, scale)
+    m_ds = torch.einsum("bqd,bkd->bqk", do, v).abs_()
+    m_delta = (do.abs() * o.double().abs()).sum(dim=-1, keepdim=True)
+    m_ds = m_ds.add_(m_delta).mul_(p).mul_(scale)
+    return (torch.einsum("bqk,bkd->bqd", p, v.abs()),
+            torch.einsum("bqk,bkd->bqd", m_ds, k.abs()),
+            torch.einsum("bqk,bqd->bkd", m_ds, q.abs()),
+            torch.einsum("bqk,bqd->bkd", p, do.abs()))
+
+
+def diagonal_mask_off(tqp, tkp, t_k, causal, device):
+    """A planted fault of the flash mask (``_valid``'s contract): inside a
+    64 x 64 tile on the diagonal, keys after the query count too."""
+    qi = torch.arange(tqp, device=device)[:, None]
+    ki = torch.arange(tkp, device=device)[None, :]
+    valid = ki < t_k
+    if causal:
+        valid = valid & ((qi >= ki) | (qi // 64 == ki // 64))
+    return valid
+
+
+def flash_bf16_faults(qp, kp, vp, lse, dop, delta, t_k, causal, scale):
+    """The planted faults of the bf16 forms on the padded problem,
+    {fault: {output: tensor}}, each the plain twins' arithmetic with one
+    thing wrong: every product's accumulator rounded to bf16 after each
+    16-deep slice ("bf16_accumulator"; o from P against the row's final
+    max); dS = P dP scale ("delta_dropped", the backward's); keys after
+    the query counted inside the diagonal tile ("diagonal_mask_off", for
+    a causal problem)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    bf = torch.bfloat16
+    args = (lse, dop, delta, t_k, causal, scale)
+    q, k, v, do = (x.float() for x in (qp, kp, vp, dop))
+    p, ds = FA._ds(q, k, v, lse, do, delta, t_k, causal, scale)
+    pb, dsb = p.to(bf), ds.to(bf)
+    del p, ds
+    out = {"bf16_accumulator": {
+        "o": slice_rounded_product(pb, vp),
+        "dq": slice_rounded_product(dsb, kp),
+        "dk": slice_rounded_product(dsb.transpose(1, 2), qp),
+        "dv": slice_rounded_product(pb.transpose(1, 2), dop)}}
+    del pb, dsb
+    no_delta = torch.zeros_like(delta)
+    out["delta_dropped"] = {
+        "dq": FA._bwd_dq_plain(qp, kp, vp, lse, dop, no_delta, *args[3:]),
+        "dk": FA._bwd_dkv_plain(qp, kp, vp, lse, dop, no_delta,
+                                *args[3:])[0]}
+    if not causal:
+        return out
+    plain_valid = FA._valid
+    FA._valid = diagonal_mask_off
+    try:
+        o = FA._fwd_plain(qp, kp, vp, t_k, causal, scale)[0]
+        dk, dv = FA._bwd_dkv_plain(qp, kp, vp, *args)
+        out["diagonal_mask_off"] = {
+            "o": o, "dq": FA._bwd_dq_plain(qp, kp, vp, *args), "dk": dk,
+            "dv": dv}
+    finally:
+        FA._valid = plain_valid
+    return out
+
+
+def flash_bf16_case(qp, kp, vp, dop, t_q, t_k, causal, scale) -> dict:
+    """The three bf16 forms on one padded problem against their twins:
+    {"got", "want", "mags", "faults", "rerun_bit_identical", "lse_err",
+    "args"}, outputs keyed o, dq, dk, dv and cut to the valid rows."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    def run():
+        o, lse = FA._fwd_kernel(qp, kp, vp, t_k, causal, scale)
+        delta = FA._delta(dop, o).contiguous()
+        args = (qp, kp, vp, lse, dop, delta, t_k, causal, scale)
+        return (o, lse, delta, args, FA._bwd_dq_kernel(*args),
+                *FA._bwd_dkv_kernel(*args))
+
+    o, lse, delta, args, dq, dk, dv = run()
+    again = run()
+    rerun = all(torch.equal(x, y) for x, y in zip((o, lse, dq, dk, dv),
+                                                 again[:2] + again[4:]))
+    del again
+    o_ref, lse_ref = FA._fwd_plain(qp, kp, vp, t_k, causal, scale)
+    want = {"o": o_ref, "dq": FA._bwd_dq_plain(*args)}
+    want["dk"], want["dv"] = FA._bwd_dkv_plain(*args)
+    got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    mags = dict(zip(("o", "dq", "dk", "dv"), flash_bf16_mags(
+        qp, kp, vp, o, lse, dop, t_k, causal, scale)))
+    faults = flash_bf16_faults(*args)
+    lse_err = float(((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1))
+                    [:, :t_q].max())
+
+    def cut(d):
+        return {n: x[:, :t_q if n in ("o", "dq") else t_k]
+                for n, x in d.items()}
+
+    return {"got": cut(got), "want": cut(want), "mags": cut(mags),
+            "faults": {f: cut(d) for f, d in faults.items()},
+            "rerun_bit_identical": rerun, "lse_err": lse_err,
+            "args": args}
+
+
+def check_flash_bf16(dev, timer) -> tuple[list, dict]:
+    """The bf16 forms of rows 2 and 3 at the LM training shape [16, 1024,
+    12, 64] causal and at T = 333: each output (o, dq, dk, dv) against its
+    twin on the same inputs by ``bf16_agrees`` with FLASH_BF16_FLIP (equal
+    on all but 1% of the elements, each within one ulp at the larger
+    magnitude plus 2^-7 of its ``flash_bf16_mags``), lse within 1e-4 x
+    max(1, |lse|), a rerun in the same bits; each planted fault of
+    FLASH_BF16_FAULTS must fail it on every output it moves.  Times at
+    T = 1024 (bf16, 2 B an element, 989 TFLOP/s): each kernel with the
+    L2 flushed, alone (a trace), its twin, its bound; the forward and the
+    whole backward beside bf16 ``scaled_dot_product_attention`` with the
+    flash backend (a yardstick only)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h, d = 12, 64
+    scale = d ** -0.5
+    summary = {"phase": "flash_bf16", "flip": FLASH_BF16_FLIP,
+               "share": BF16_ULP_SHARE}
+    rows, worst = [], {}
+    for b, t in FLASH_BF16_SHAPES:
+        q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(4))
+        qp, kp, vp = FA._prep(q, k, v)
+        dop = FA._prep(g, g, g)[0]
+        case = flash_bf16_case(qp, kp, vp, dop, t, t, True, scale)
+        per = {"lse_err": case["lse_err"],
+               "rerun_bit_identical": case["rerun_bit_identical"]}
+        ok = case["rerun_bit_identical"] and case["lse_err"] <= TOL
+        for n, got in case["got"].items():
+            a = bf16_agreement(got, case["want"][n], case["mags"][n],
+                               coef=FLASH_BF16_FLIP)
+            per[n] = a
+            worst[n] = max(worst.get(n, 0.0), a["max_abs_err"])
+            ok = ok and bf16_agrees(got, case["want"][n], case["mags"][n],
+                                    coef=FLASH_BF16_FLIP)
+        for fault in case["faults"]:
+            per[fault] = {}
+            for n in FLASH_BF16_FAULTS[fault]:
+                bad = case["faults"][fault][n]
+                per[fault][n] = bf16_agreement(
+                    bad, case["want"][n], case["mags"][n],
+                    coef=FLASH_BF16_FLIP)["share_off"]
+                ok = ok and not bf16_agrees(bad, case["want"][n],
+                                            case["mags"][n],
+                                            coef=FLASH_BF16_FLIP)
+        summary[f"T{t}"] = per
+        if not ok:
+            raise AssertionError(f"bf16 flash forms at [{b}, {t}, {h}, {d}]:"
+                                 f" {per}")
+        args = case.pop("args")
+        del case
+        if t != 1024:
+            continue
+        o, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
+        pairs_n = b * h * t * (t + 1) // 2
+        act = 2.0 * b * t * h * d              # one [B, T, H, D] bf16 tensor
+        rowvec = 4.0 * b * h * t               # lse or delta, f32
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        gh = g.transpose(1, 2).contiguous()
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+            library_fwd = timer(sdpa)
+            out = sdpa()
+        library_bwd = timer(lambda: torch.autograd.grad(
+            out, (qh, kh, vh), gh, retain_graph=True))
+        fwd = lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale)  # noqa: E731
+        dq = lambda: FA._bwd_dq_kernel(*args)                     # noqa: E731
+        dkv = lambda: FA._bwd_dkv_kernel(*args)                   # noqa: E731
+        # name, call, kernel name in a trace, plain twin, bytes, flops,
+        # library call
+        forms = (
+            (FLASH_BF16_NAMES[0], fwd, "flash_fwd_bf16_kernel",
+             lambda: FA._fwd_plain(qp, kp, vp, t, True, scale),
+             4 * act + rowvec, 4.0 * pairs_n * d, library_fwd, ":277"),
+            (FLASH_BF16_NAMES[1], dq, "flash_bwd_dq_bf16_kernel",
+             lambda: FA._bwd_dq_plain(*args), 5 * act + 2 * rowvec,
+             6.0 * pairs_n * d, None, ":378"),
+            (FLASH_BF16_NAMES[2], dkv, "flash_bwd_dkv_bf16_kernel",
+             lambda: FA._bwd_dkv_plain(*args), 6 * act + 2 * rowvec,
+             8.0 * pairs_n * d, None, ":401"))
+        for name, fn, key, plain, nbytes, flops, library, line in forms:
+            bound_ms, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/ops/kernels/csrc/" + (
+                    "flash_attention.cu" if "fwd" in name
+                    else "flash_attention_bwd.cu"),
+                "replaces": "paddle_tpu/ops/pallas/flash_attention.py" + line,
+                "shape": [b, t, h, d], "dtype": "bfloat16",
+                "ms": timer(fn), "alone_ms": device_ms([fn], key),
+                "plain_ms": timer(plain), "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": library})
+        bound_ms, by = bound(8 * act + rowvec, 10.0 * pairs_n * d,
+                             BF16_FLOPS_PER_S)
+        summary["whole_backward"] = {
+            "shape": [b, t, h, d], "gflop": 10.0 * pairs_n * d / 1e9,
+            "gbytes": (8 * act + rowvec) / 1e9,
+            "ms": timer(lambda: FA._bwd_kernel(qp, kp, vp, o, lse, dop, t,
+                                               True, scale)),
+            "plain_ms": timer(lambda: FA._bwd_plain(qp, kp, vp, o, lse, dop,
+                                                    t, True, scale)),
+            "library_ms": library_bwd, "library": "SDPA flash backend",
+            "bound_ms": bound_ms, "bound_by": by}
+        del qh, kh, vh, out, args
+    for row in rows:
+        outs = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}[
+            row["name"].split("_")[-2]]
+        row["max_abs_err"] = max(worst[n] for n in outs)
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+def flash_counters() -> dict:
+    """{name: Kernel} of the flash forms, f32 and bf16."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    return {"fwd": FA.KERNEL, "dq": FA.KERNEL_BWD_DQ,
+            "dkv": FA.KERNEL_BWD_DKV, "fwd_bf16": FA.KERNEL_BF16,
+            "dq_bf16": FA.KERNEL_BWD_DQ_BF16,
+            "dkv_bf16": FA.KERNEL_BWD_DKV_BF16}
+
+
+def lm_bf16_setup():
+    """(config, f32 params on the CPU, ids [2, 129]) of the LM's bf16
+    witness step (``LM_BF16_NET``)."""
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(**LM_BF16_NET, attn_impl="flash", remat=False)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, t = LM_BF16_BATCH
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(b, t + 1)))
+    return cfg, params, ids
+
+
+def lm_bf16_errors(loss, grads, loss64, g64) -> dict:
+    """Per gradient leaf ||g - g64|| / ||g64||, and the loss's relative
+    error under "loss"."""
+    out = {n: rel_norm(x, g64[n]) for n, x in named_leaves(grads).items()}
+    out["loss"] = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    return out
+
+
+def lm_bf16_witness(dev) -> dict:
+    """The LM's bf16 witness step at ``LM_BF16_NET``: ``loss_and_grads(...,
+    compute_dtype=torch.bfloat16)`` on the card (the bf16 kernels: 2 of
+    each form, no f32 flash launch) and on the CPU (the twins), each
+    against the float64 step on the CPU, per gradient leaf and the loss,
+    within 2x the JAX package's own bf16 error (``LM_BF16_WITNESS_JAX``)
+    plus LM_BF16_FLOOR; the card's step repeats bit for bit, and the card
+    step with the backward's delta dropped must exceed the limit."""
+    from paddle_tpu_torch.core import tree
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    cfg, params, ids = lm_bf16_setup()
+    bf = torch.bfloat16
+    loss64, g64 = T.loss_and_grads(cfg, tree.unflatten(params, [
+        p.double() for p in tree.leaves(params)]), ids)
+    g64 = named_leaves(g64)
+    on_card = tree.unflatten(params, [p.to(dev) for p in tree.leaves(params)])
+    counters = flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    sides = {"card": T.loss_and_grads(cfg, on_card, ids.to(dev), bf)}
+    launches = {n: c.launches for n, c in counters.items()}
+    rerun = T.loss_and_grads(cfg, on_card, ids.to(dev), bf)
+    sides["cpu"] = T.loss_and_grads(cfg, params, ids, bf)
+    plain_delta = FA._delta
+    FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+    try:
+        sides["card_delta_dropped_control"] = T.loss_and_grads(
+            cfg, on_card, ids.to(dev), bf)
+    finally:
+        FA._delta = plain_delta
+    layers = cfg.num_layers
+    if launches != {"fwd": 0, "dq": 0, "dkv": 0, "fwd_bf16": layers,
+                    "dq_bf16": layers, "dkv_bf16": layers}:
+        raise AssertionError(f"the bf16 witness step's flash launches "
+                             f"{launches}")
+    if not (torch.equal(rerun[0], sides["card"][0]) and all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(rerun[1]),
+                                              tree.leaves(sides["card"][1])))):
+        raise AssertionError("the card's bf16 LM step is not bit-identical "
+                             "on a rerun")
+    out = {"net": LM_BF16_NET, "batch": list(LM_BF16_BATCH),
+           "loss_f64": float(loss64), "launches": launches,
+           "limit": f"2 x JAX's own + {LM_BF16_FLOOR}",
+           "card_rerun_bit_identical": True}
+    for label, (loss, grads) in sides.items():
+        errs = lm_bf16_errors(loss, grads, loss64, g64)
+        share = {n: e / (2 * LM_BF16_WITNESS_JAX[n] + LM_BF16_FLOOR)
+                 for n, e in errs.items()}
+        n_worst = max(share, key=share.get)
+        out[label] = {"loss": float(loss), "worst": n_worst,
+                      "err": errs[n_worst], "jax": LM_BF16_WITNESS_JAX[n_worst],
+                      "share_of_limit": share[n_worst],
+                      "median_err": float(np.median(list(errs.values()))),
+                      "over_limit": [n for n, x in share.items() if x > 1]}
+    for label in ("card", "cpu"):
+        if out[label]["over_limit"]:
+            raise AssertionError(f"bf16 LM {label} step vs the f64 witness: "
+                                 f"{out}")
+    if not out["card_delta_dropped_control"]["over_limit"]:
+        raise AssertionError(f"the bf16 LM witness limit does not catch a "
+                             f"backward without delta: {out}")
+    return out
+
+
+def train_lm_bf16(dev, bs=16, seqlen=1024, steps=10,
+                  net=LM_FULL) -> tuple[dict, dict]:
+    """The GPT-2-small-shape LM through ``transformer.build_train_step(cfg,
+    Adam(1e-4, moment_dtype=torch.bfloat16), compute_dtype=torch.bfloat16)``
+    (the repo's LM benchmark: ``bench.py:891-937``) beside the same step in
+    f32 from the same parameters: the witness (:func:`lm_bf16_witness`),
+    then 2 warm-up steps each and ``steps`` timed steps each in blocks of
+    ``steps // 2`` (bf16, f32, f32, bf16) on one fixed batch of 16 x 1024,
+    the launch counts zeroed just before each block and read just after:
+    exactly 12 of each bf16 form a bf16 step and no f32 flash launch (and
+    the reverse in f32); tokens/s, step ms p50, peak memory, the bf16 MFU
+    against 989 TFLOP/s by ``bench.py:928-929``'s FLOP count, bf16 losses
+    finite and falling; 3 bf16 steps under ``torch.profiler``.  Returns
+    (the phase's result, the bf16 forms' launches over the timed run)."""
+    from paddle_tpu_torch.core import tree
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.optimizer import Adam
+
+    t0 = time.perf_counter()
+    witness = lm_bf16_witness(dev)
+    cfg = T.TransformerConfig(**net, dtype=torch.float32, remat=False,
+                              attn_impl="flash")
+    master = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    n_params = T.count_params(master)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(bs, seqlen + 1))).to(dev)
+    runs = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        params = tree.unflatten(master, [p.clone()
+                                         for p in tree.leaves(master)])
+        opt = Adam(learning_rate=1e-4, moment_dtype=torch.bfloat16)
+        runs[name] = {"params": params, "state": opt.init_tree(params),
+                      "step": T.build_train_step(cfg, opt,
+                                                 compute_dtype=dtype),
+                      "losses": [], "step_ms": [], "walls": [], "peak": 0}
+    del master
+
+    def one(run):
+        run["params"], run["state"], loss = run["step"](
+            run["params"], run["state"], ids)
+        return loss
+
+    for run in runs.values():
+        for _ in range(2):
+            run["losses"].append(float(one(run)))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    layers, per_block = cfg.num_layers, steps // 2
+    want = {"bf16": {"fwd_bf16": layers, "dq_bf16": layers,
+                     "dkv_bf16": layers},
+            "f32": {"fwd": layers, "dq": layers, "dkv": layers}}
+    counters = flash_counters()
+    launched = {n: 0 for n in counters}
+    for name in ("bf16", "f32", "f32", "bf16"):
+        run = runs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        t1 = time.perf_counter()
+        for _ in range(per_block):
+            a = time.perf_counter()
+            loss = one(run)
+            torch.cuda.synchronize()
+            run["step_ms"].append(1e3 * (time.perf_counter() - a))
+            run["losses"].append(float(loss))
+        run["walls"].append(time.perf_counter() - t1)
+        got = {n: c.launches for n, c in counters.items()}
+        expect = {n: want[name].get(n, 0) * per_block for n in counters}
+        if got != expect:
+            raise AssertionError(f"LM {name} block launches {got} != "
+                                 f"{expect}")
+        launched = {n: launched[n] + got[n] for n in counters}
+        run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated(dev))
+    tokens = bs * seqlen
+    flops = (6.0 * n_params * tokens + 12.0 * cfg.num_layers * bs * seqlen
+             * seqlen * cfg.embed_dim / 2)        # bench.py's count
+    out = {"phase": "train_lm_bf16",
+           "model": "transformer LM, GPT-2-small shape", "params": n_params,
+           "compute_dtype": "bfloat16", "masters": "float32",
+           "adam_moments": "bfloat16", "lr": 1e-4, "batch": [bs, seqlen],
+           "steps_per_dtype": steps, "step_vs_f64_witness": witness,
+           "flop_per_step": flops, "setup_s": setup_s}
+    for name, run in runs.items():
+        p50 = float(np.percentile(run["step_ms"], 50))
+        out[name] = {"tokens_per_s": tokens * len(run["step_ms"])
+                     / sum(run["walls"]), "step_ms_p50": p50,
+                     "step_ms": run["step_ms"], "losses": run["losses"],
+                     "max_memory_allocated_bytes": run["peak"]}
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"LM {name} losses {run['losses']}")
+    if not out["bf16"]["losses"][-1] < out["bf16"]["losses"][0]:
+        raise AssertionError(f"bf16 LM losses not falling: "
+                             f"{out['bf16']['losses']}")
+    for name in runs:
+        if not all(p.dtype == torch.float32
+                   for p in tree.leaves(runs[name]["params"])):
+            raise AssertionError("the LM's masters are not f32")
+    out["mfu_bf16_vs_989tflops"] = (flops / (out["bf16"]["step_ms_p50"] / 1e3)
+                                    / BF16_FLOPS_PER_S)
+    out["mfu_f32_vs_67tflops"] = (flops / (out["f32"]["step_ms_p50"] / 1e3)
+                                  / F32_FLOPS_PER_S)
+    out["bf16_vs_f32_tokens_per_s"] = (out["bf16"]["tokens_per_s"]
+                                       / out["f32"]["tokens_per_s"])
+    bf16 = runs["bf16"]
+    prof = profile_window(lambda: [one(bf16) for _ in range(3)], 3,
+                          split="train_step/optimizer")
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / out["bf16"]["step_ms_p50"])
+    out["profile"] = prof
+    out["train_launches"] = launched
+    del runs, bf16
+    return out, {n: launched[k] for n, k in zip(
+        FLASH_BF16_NAMES, ("fwd_bf16", "dq_bf16", "dkv_bf16"))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -5325,6 +5837,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     vgg_bf16, vgg_bf16_n = train_vgg_bf16(dev)
     print(json.dumps(vgg_bf16), flush=True)
+    torch.cuda.empty_cache()
+    flash_bf16_rows, flash_bf16_summary = check_flash_bf16(dev, Timer(dev))
+    for row in flash_bf16_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(flash_bf16_summary), flush=True)
+    torch.cuda.empty_cache()
+    lm_bf16, lm_bf16_n = train_lm_bf16(dev)
+    print(json.dumps(lm_bf16), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -5383,13 +5903,17 @@ def main() -> int:
     rows.append({**stats_bf16_row,
                  "launches": vgg_bf16_n["channel_stats_bf16"],
                  "launches_on": "small_vgg bf16 train"})
+    # rows 2 and 3 in bf16: the bf16 LM training run's launches
+    for row in flash_bf16_rows:
+        rows.append({**row, "launches": lm_bf16_n[row["name"]],
+                     "launches_on": "LM bf16 train"})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("shape",
-                                                            "launches_on")
-                                   if k in r} for r in rows]}), flush=True)
+    extra = ("shape", "dtype", "alone_ms", "launches_on")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
+                                  for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

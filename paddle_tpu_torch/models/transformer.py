@@ -14,9 +14,11 @@ did outside any Pallas kernel; here they are ``torch.matmul``.
 Attention (``cfg.attn_impl``): "flash" runs the flash kernels
 (``ops/kernels/flash_attention.py``: the forward, and in training the dQ
 and dK/dV kernels of its autograd backward), "exact" the plain masked
-softmax.  Training-only strategies (blockwise, ring, ulysses), MoE FFNs,
-``remat="dots"``, meshes, ZeRO and bf16 ``compute_dtype`` are later
-slices and raise here."""
+softmax.  ``build_train_step(..., compute_dtype=torch.bfloat16)`` trains
+in bf16 on f32 master weights, as the JAX step does; the flash kernels
+then run their bf16 forms.  Training-only strategies (blockwise, ring,
+ulysses), MoE FFNs, ``remat="dots"``, meshes, ZeRO and a float16
+``compute_dtype`` are later slices and raise here."""
 
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch.core import tree
-from paddle_tpu_torch.core.dtype import at_least_f32
+from paddle_tpu_torch.core.dtype import at_least_f32, cast_floats
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -253,11 +255,29 @@ def loss_fn(cfg: TransformerConfig, params: dict, ids: torch.Tensor,
     return torch.mean(lse - at_least_f32(tgt))
 
 
-def loss_and_grads(cfg: TransformerConfig, params: dict, ids: torch.Tensor):
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype}: the port trains in float32 or "
+            "bfloat16 (f32 master weights)")
+
+
+def loss_and_grads(cfg: TransformerConfig, params: dict, ids: torch.Tensor,
+                   compute_dtype=None):
     """(loss, grads): the loss of :func:`loss_fn` (detached) and its
-    gradient in every param leaf, as a tree shaped like ``params``."""
+    gradient in every param leaf, as a tree shaped like ``params``.
+
+    With ``compute_dtype`` the forward and backward run on a cast of the
+    params taken inside autograd (``core/dtype.cast_floats``, the JAX
+    step's ``_cast_floats`` inside its loss function), so each gradient
+    reaches its leaf in the leaf's own dtype: f32 masters get f32
+    gradients."""
+    _check_compute_dtype(compute_dtype)
     live = [p.detach().requires_grad_() for p in tree.leaves(params)]
-    loss = loss_fn(cfg, tree.unflatten(params, live), ids)
+    p = tree.unflatten(params, live)
+    if compute_dtype is not None:
+        p = cast_floats(p, compute_dtype)
+    loss = loss_fn(cfg, p, ids)
     grads = torch.autograd.grad(loss, live)
     return loss.detach(), tree.unflatten(params, grads)
 
@@ -272,21 +292,24 @@ def build_train_step(cfg: TransformerConfig, optimizer, mesh=None,
     the buffers passed in are dead after the call.  The port's faithful
     reading is an update in place: the params passed in are updated and
     returned, and ``opt_state``'s entries are rebound.  PyTorch runs
-    eagerly, so nothing is traced or compiled.  ``mesh``, ZeRO and a bf16
-    ``compute_dtype`` are later slices and raise."""
+    eagerly, so nothing is traced or compiled.
+
+    ``compute_dtype=torch.bfloat16`` is the JAX step's mixed precision:
+    the params (and the optimizer state) stay as they are, the forward
+    and backward run on a bf16 cast of them (:func:`loss_and_grads`), and
+    the update applies the gradients the cast hands back in the params'
+    dtype.  ``mesh``, ZeRO and any other ``compute_dtype`` are later
+    slices and raise."""
     if mesh is not None or zero1 or zero:
         raise NotImplementedError(
             "mesh and ZeRO train steps are a later slice; the port trains "
             "on one device")
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: only float32 is ported yet "
-            "(bf16 compute with f32 master weights is queued)")
+    _check_compute_dtype(compute_dtype)
     _check_train(cfg)
 
     def step(params, opt_state, ids):
         with torch.profiler.record_function("train_step/forward_backward"):
-            loss, grads = loss_and_grads(cfg, params, ids)
+            loss, grads = loss_and_grads(cfg, params, ids, compute_dtype)
         with torch.profiler.record_function("train_step/optimizer"):
             optimizer.apply_tree(grads, params, opt_state)
         return params, opt_state, loss

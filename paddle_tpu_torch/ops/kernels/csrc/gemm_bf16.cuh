@@ -20,7 +20,8 @@
 // 14.8 GFLOP against ~52 MB, ~285 flop/byte, at the line; the 1x1s with
 // K = 64 ~26).  This first design is simple and right, not fast:
 //
-// - Products: mma.sync.m16n8k16 (bf16 x bf16 + f32), 4 warps a block in a
+// - Products: mma.sync.m16n8k16 (bf16 x bf16 + f32; the copies, loads and
+//   product of mma_bf16.cuh), 4 warps a block in a
 //   2 x 2 grid, each warp a (BM / 2) x (BN / 2) tile of m16n8 fragments.
 //   A's fragments come from shared memory [m][k] by ldmatrix.x4, B's from
 //   [k][n] (the HWIO / [K, N] weight as it lies in memory) by
@@ -53,6 +54,7 @@
 #include <cuda_bf16.h>
 
 #include "gemm_f32.cuh"
+#include "mma_bf16.cuh"
 
 namespace gemm {
 namespace mma {
@@ -86,39 +88,10 @@ struct Tile {
   static_assert(kSmemBytes <= 48 * 1024, "the ring fits without opt-in");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// d += a . b: one m16n8k16 product, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-               "{%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                 "r"(b1));
-}
+using bf16_tc::cp_async16;
+using bf16_tc::ldmatrix_x4;
+using bf16_tc::ldmatrix_x4_trans;
+using bf16_tc::mma_bf16;
 
 // the bits of *p, or 0 (a bf16 zero) when the element is masked
 __device__ __forceinline__ uint32_t bits(const bf16* p, bool ok) {

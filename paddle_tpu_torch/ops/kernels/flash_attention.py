@@ -10,6 +10,18 @@ them: CPU tensors run the same padded problem through the plain versions
 (the dQ and the dK/dV kernels).  Padded keys are masked inside all of
 them; padded query rows are sliced off.
 
+Two dtypes, each with its own kernel form and launch count: float32
+(``KERNEL``, ``KERNEL_BWD_DQ``, ``KERNEL_BWD_DKV``; full-precision FMA)
+and bfloat16 (``KERNEL_BF16``, ``KERNEL_BWD_DQ_BF16``,
+``KERNEL_BWD_DKV_BF16``; tensor-core products with f32 sums).  The bf16
+forms round where the JAX kernels round with bf16 operands: P before
+P.V and P^T dO, dS before dS K and dS^T Q, the outputs once; lse and
+delta stay f32.  Their plain twins round at the same points
+(:func:`_fwd_plain_tiled` runs the kernel's online softmax over 64-key
+tiles, so P is rounded against the running max, as JAX's tiled
+``_fwd_kernel`` does).  A bf16 CUDA tensor launches the bf16 kernels or
+raises; nothing casts it to f32.
+
 The forward writes ``o`` and ``lse`` (log-sum-exp per query row).  The
 backward recomputes the probabilities from ``lse``, as the JAX
 package's ``_flash_bwd`` does, with ``delta = rowsum(dO * O)`` computed
@@ -35,14 +47,27 @@ HEAD_DIMS = (16, 32, 64, 128)  # the head_dim values the kernels are built for
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-KERNEL = Kernel("flash_attention", "flash_attention_fwd_f32",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-# q, k, v, do, lse, delta, dq | bh, tqp, tkp, t_k, d, causal, scale, stream
-KERNEL_BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_f32",
-                       [_P] * 7 + [_I] * 6 + [_F, _P])
+# q, k, v, o, lse | bh, tqp, tkp, t_k, d, causal, scale, stream
+_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _P]
+# q, k, v, do, lse, delta, dq | the same scalars
+_DQ_ARGS = [_P] * 7 + [_I] * 6 + [_F, _P]
 # q, k, v, do, lse, delta, dk, dv | the same scalars
+_DKV_ARGS = [_P] * 8 + [_I] * 6 + [_F, _P]
+KERNEL = Kernel("flash_attention", "flash_attention_fwd_f32", _FWD_ARGS)
+KERNEL_BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_f32",
+                       _DQ_ARGS)
 KERNEL_BWD_DKV = Kernel("flash_attention_bwd", "flash_attention_bwd_dkv_f32",
-                        [_P] * 8 + [_I] * 6 + [_F, _P])
+                        _DKV_ARGS)
+KERNEL_BF16 = Kernel("flash_attention", "flash_attention_fwd_bf16",
+                     _FWD_ARGS)
+KERNEL_BWD_DQ_BF16 = Kernel("flash_attention_bwd",
+                            "flash_attention_bwd_dq_bf16", _DQ_ARGS)
+KERNEL_BWD_DKV_BF16 = Kernel("flash_attention_bwd",
+                             "flash_attention_bwd_dkv_bf16", _DKV_ARGS)
+#: {dtype: (forward, dQ, dK/dV)} kernel forms
+FORMS = {torch.float32: (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV),
+         torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_DQ_BF16,
+                          KERNEL_BWD_DKV_BF16)}
 
 
 def _prep(q, k, v):
@@ -76,7 +101,10 @@ def _valid(tqp, tkp, t_k, causal, device):
 def _fwd_plain(qp, kp, vp, t_k, causal, scale):
     """Plain twin of the forward kernel on the padded [BH, Tp, D] problem:
     (o [BH, Tqp, D], lse [BH, Tqp, 1]).  Computes in f32, or in the input
-    dtype where it is wider."""
+    dtype where it is wider; bf16 inputs take :func:`_fwd_plain_tiled`,
+    the bf16 kernel's own rounding."""
+    if qp.dtype == torch.bfloat16:
+        return _fwd_plain_tiled(qp, kp, vp, t_k, causal, scale)
     s = torch.einsum("bqd,bkd->bqk", at_least_f32(qp), at_least_f32(kp))
     s = s * scale
     valid = _valid(qp.shape[1], kp.shape[1], t_k, causal, qp.device)
@@ -86,6 +114,36 @@ def _fwd_plain(qp, kp, vp, t_k, causal, scale):
     safe_l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     o = torch.einsum("bqk,bkd->bqd", p, at_least_f32(vp)) / safe_l
     return o.to(qp.dtype), m + torch.log(safe_l)
+
+
+def _fwd_plain_tiled(qp, kp, vp, t_k, causal, scale):
+    """Plain twin of the bf16 forward kernel: the online softmax over
+    64-key tiles in f32, as JAX's tiled ``_fwd_kernel`` runs it
+    (``flash_attention.py:66-80``), with P = exp(S - m_running) rounded to
+    the operands' dtype before P.V and o rounded once at the end; lse in
+    f32.  Causal tiles above the diagonal are skipped per 64-row query
+    block, as the kernel never loads them."""
+    bh, tqp, d = qp.shape
+    q, k, v = qp.float(), kp.float(), vp.float()
+    valid = _valid(tqp, kp.shape[1], t_k, causal, qp.device)
+    m = q.new_full((bh, tqp, 1), NEG_INF)
+    l = q.new_zeros((bh, tqp, 1))
+    acc = q.new_zeros((bh, tqp, d))
+    for j in range(kp.shape[1] // BLOCK):
+        rows = slice(j * BLOCK if causal else 0, None)  # blocks at or below
+        keys = slice(j * BLOCK, (j + 1) * BLOCK)
+        s = torch.einsum("bqd,bkd->bqk", q[:, rows], k[:, keys]) * scale
+        s = torch.where(valid[None, rows, keys], s, s.new_tensor(NEG_INF))
+        m_prev = m[:, rows]
+        m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m_prev - m_new)
+        l[:, rows] = l[:, rows] * corr + p.sum(dim=-1, keepdim=True)
+        acc[:, rows] = acc[:, rows] * corr + torch.einsum(
+            "bqk,bkd->bqd", p.to(qp.dtype).float(), v[:, keys])
+        m[:, rows] = m_new
+    safe_l = torch.clamp(l, min=1e-30)
+    return (acc / safe_l).to(qp.dtype), m + torch.log(safe_l)
 
 
 def _delta(do, o):
@@ -108,29 +166,40 @@ def _ds(qp, kp, vp, lse, do, delta, t_k, causal, scale):
     return p, p * (dp - delta) * scale
 
 
+def _rounded(x, dtype):
+    """``x`` rounded to ``dtype`` where that is bf16 (the operand of a
+    bf16 product), kept in ``x``'s dtype; else ``x`` as it is."""
+    return x.to(dtype).to(x.dtype) if dtype == torch.bfloat16 else x
+
+
 def _bwd_dq_plain(qp, kp, vp, lse, do, delta, t_k, causal, scale):
-    """Plain twin of the dQ kernel: dQ = dS K."""
-    _, ds = _ds(qp, kp, vp, lse, do, delta, t_k, causal, scale)
-    return torch.einsum("bqk,bkd->bqd", ds, kp)
+    """Plain twin of the dQ kernel: dQ = dS K in the operands' dtype, with
+    products of bf16 operands in f32 and dS rounded to bf16 before dS K
+    (JAX ``_dq_kernel`` :116)."""
+    dt = qp.dtype
+    q, k, v, do = map(at_least_f32, (qp, kp, vp, do))
+    _, ds = _ds(q, k, v, lse, do, delta, t_k, causal, scale)
+    return torch.einsum("bqk,bkd->bqd", _rounded(ds, dt), k).to(dt)
 
 
 def _bwd_dkv_plain(qp, kp, vp, lse, do, delta, t_k, causal, scale):
-    """Plain twin of the dK/dV kernel: dK = dS^T Q, dV = P^T dO."""
-    p, ds = _ds(qp, kp, vp, lse, do, delta, t_k, causal, scale)
-    return (torch.einsum("bqk,bqd->bkd", ds, qp),
-            torch.einsum("bqk,bqd->bkd", p, do))
+    """Plain twin of the dK/dV kernel: dK = dS^T Q, dV = P^T dO in the
+    operands' dtype, P and dS rounded to bf16 for bf16 operands (JAX
+    ``_dkv_kernel`` :152, :156)."""
+    dt = qp.dtype
+    q, k, v, do = map(at_least_f32, (qp, kp, vp, do))
+    p, ds = _ds(q, k, v, lse, do, delta, t_k, causal, scale)
+    return (torch.einsum("bqk,bqd->bkd", _rounded(ds, dt), q).to(dt),
+            torch.einsum("bqk,bqd->bkd", _rounded(p, dt), do).to(dt))
 
 
 def _bwd_plain(qp, kp, vp, o, lse, do, t_k, causal, scale):
     """Plain twin of the backward on the padded problem: (dq, dk, dv) in
     the inputs' dtype, computed in f32 or the wider input dtype."""
-    dt = qp.dtype
-    q32, k32, v32, do32 = map(at_least_f32, (qp, kp, vp, do))
-    delta = _delta(do, o)
-    args = (lse.to(q32.dtype), do32, delta, t_k, causal, scale)
-    dq = _bwd_dq_plain(q32, k32, v32, *args)
-    dk, dv = _bwd_dkv_plain(q32, k32, v32, *args)
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    args = (lse.to(at_least_f32(qp).dtype), do, _delta(do, o), t_k, causal,
+            scale)
+    return (_bwd_dq_plain(qp, kp, vp, *args),
+            *_bwd_dkv_plain(qp, kp, vp, *args))
 
 
 def _check(q, k, v):
@@ -146,15 +215,22 @@ def _check(q, k, v):
 
 
 def _check_kernel_args(*xs):
-    """What the CUDA kernels take: f32, head_dim in HEAD_DIMS, contiguous
-    [BH, Tp, D] with Tp a multiple of 64."""
+    """What the CUDA kernels take: float32 or bfloat16, all of one dtype,
+    head_dim in HEAD_DIMS, contiguous [BH, Tp, D] with Tp a multiple of 64
+    (bf16: 16-byte aligned, for the 16-byte copies).  Returns the kernel
+    forms of that dtype (``FORMS``)."""
     enforce(xs[0].device.type == "cuda", f"no kernel for device {xs[0].device}")
-    enforce(all(x.dtype == torch.float32 for x in xs),
-            f"the flash kernels take float32, got {xs[0].dtype}")
+    dt = xs[0].dtype
+    enforce(dt in FORMS and all(x.dtype == dt for x in xs),
+            f"the flash kernels take float32 or bfloat16 (one dtype), got "
+            f"{[str(x.dtype) for x in xs]}")
     d = xs[0].shape[-1]
     enforce(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     enforce(all(x.is_contiguous() and x.shape[1] % BLOCK == 0 for x in xs),
             "the flash kernels need contiguous, 64-row padded inputs")
+    enforce(dt == torch.float32 or all(x.data_ptr() % 16 == 0 for x in xs),
+            "the bf16 flash kernels need 16-byte aligned inputs")
+    return FORMS[dt]
 
 
 def _stream(x):
@@ -162,24 +238,26 @@ def _stream(x):
 
 
 def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
-    """The CUDA forward kernel on the padded [BH, Tp, D] problem (the same
-    contract as :func:`_fwd_plain`)."""
-    _check_kernel_args(qp, kp, vp)
+    """The CUDA forward kernel of the inputs' dtype on the padded
+    [BH, Tp, D] problem (the same contract as :func:`_fwd_plain`)."""
+    kernel = _check_kernel_args(qp, kp, vp)[0]
     bh, tqp, d = qp.shape
     o = torch.empty_like(qp)
     lse = torch.empty((bh, tqp, 1), dtype=torch.float32, device=qp.device)
     if bh:
         with torch.cuda.device(qp.device):
-            KERNEL.launch(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            kernel.launch(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), bh, tqp, kp.shape[1],
                           t_k, d, int(bool(causal)), float(scale),
                           _stream(qp))
     return o, lse
 
 
-def _bwd_launch(kernel, qp, kp, vp, lse, do, delta, outs, t_k, causal,
+def _bwd_launch(which, qp, kp, vp, lse, do, delta, outs, t_k, causal,
                 scale):
-    _check_kernel_args(qp, kp, vp, do, *outs)
+    """Launch the backward kernel ``which`` (1: dQ, 2: dK/dV) of the
+    operands' dtype."""
+    kernel = _check_kernel_args(qp, kp, vp, do, *outs)[which]
     enforce(all(x.dtype == torch.float32 and x.is_contiguous()
                 for x in (lse, delta)),
             "the flash backward takes the forward's f32 lse and an f32 delta")
@@ -196,14 +274,14 @@ def _bwd_launch(kernel, qp, kp, vp, lse, do, delta, outs, t_k, causal,
 def _bwd_dq_kernel(qp, kp, vp, lse, do, delta, t_k, causal, scale):
     """The dQ kernel (the contract of :func:`_bwd_dq_plain`): one block per
     64-query tile walks the key tiles up to the diagonal."""
-    return _bwd_launch(KERNEL_BWD_DQ, qp, kp, vp, lse, do, delta,
+    return _bwd_launch(1, qp, kp, vp, lse, do, delta,
                        (torch.empty_like(qp),), t_k, causal, scale)[0]
 
 
 def _bwd_dkv_kernel(qp, kp, vp, lse, do, delta, t_k, causal, scale):
     """The dK/dV kernel (the contract of :func:`_bwd_dkv_plain`): one block
     per 64-key tile walks the query tiles from the diagonal down."""
-    return _bwd_launch(KERNEL_BWD_DKV, qp, kp, vp, lse, do, delta,
+    return _bwd_launch(2, qp, kp, vp, lse, do, delta,
                        (torch.empty_like(kp), torch.empty_like(vp)), t_k,
                        causal, scale)
 
@@ -254,7 +332,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     carries the gradient of :class:`_FlashAttention`, ``lse`` none.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (float32, head_dim in ``HEAD_DIMS``) or raise."""
+    of their dtype (float32 or bfloat16, head_dim in ``HEAD_DIMS``) or
+    raise."""
     _check(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, bool(causal), float(scale))

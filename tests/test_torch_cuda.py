@@ -99,9 +99,10 @@ def test_paged_kernel_matches_plain(cuda, d, ps):
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from paddle_tpu_torch.core.enforce import EnforceError
 
-    q = torch.zeros(1, 64, 2, 64, dtype=torch.float64, device=cuda)
-    with pytest.raises(EnforceError, match="float32"):
-        FA.flash_attention_fwd(q, q, q, causal=True)
+    for dtype in (torch.float64, torch.float16):
+        q = torch.zeros(1, 64, 2, 64, dtype=dtype, device=cuda)
+        with pytest.raises(EnforceError, match="float32"):
+            FA.flash_attention_fwd(q, q, q, causal=True)
     q = torch.zeros(1, 64, 2, 48, device=cuda)
     with pytest.raises(EnforceError, match="head_dim"):
         FA.flash_attention_fwd(q, q, q, causal=True)
@@ -799,13 +800,162 @@ def test_lm_train_step_on_card_matches_the_cpu(cuda):
 def test_flash_backward_refuses_what_the_kernels_do_not_take(cuda):
     from paddle_tpu_torch.core.enforce import EnforceError
 
-    x = torch.zeros(2, 64, 64, dtype=torch.float64, device=cuda)
     lse = torch.zeros(2, 64, 1, device=cuda)
-    with pytest.raises(EnforceError, match="float32"):
-        FA._bwd_kernel(x, x, x, x, lse, x, 64, True, 0.125)
+    for dtype in (torch.float64, torch.float16):
+        x = torch.zeros(2, 64, 64, dtype=dtype, device=cuda)
+        with pytest.raises(EnforceError, match="float32"):
+            FA._bwd_kernel(x, x, x, x, lse, x, 64, True, 0.125)
     x = torch.zeros(2, 60, 64, device=cuda)
     with pytest.raises(EnforceError, match="64-row"):
         FA._bwd_kernel(x, x, x, x, lse, x, 60, True, 0.125)
+
+
+# -- flash attention in bf16 (rows 2 and 3's bf16 forms) -------------------------
+#
+# Each bf16 form against its plain twin on the same inputs
+# (``chip_smoke.flash_bf16_case``): o, dq, dk, dv by ``bf16_agrees`` with
+# ``FLASH_BF16_FLIP`` -- equal on all but 1% of the elements, each within
+# one bf16 ulp at the larger magnitude plus 2^-7 of its sum of |terms|:
+# the kernel sums S in another f32 order than the twin, so a P or dS may
+# round to the neighbouring bf16 value, which moves its term by at most
+# 2^-7 of it.  lse within 1e-4 x max(1, |lse|).  The planted faults (an
+# accumulator kept in bf16, delta dropped, the diagonal tile's mask off)
+# must fail the same criterion on every output they move.
+
+
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal", [
+    (16, 1024, 1024, 12, 64, True),   # the LM training shape
+    (2, 100, 100, 3, 64, True),
+    (1, 333, 333, 2, 64, False),
+    (2, 130, 130, 2, 128, True),
+    (1, 129, 129, 2, 128, False),
+    (2, 64, 64, 2, 16, True),
+    (1, 70, 70, 2, 32, False),
+    (1, 40, 90, 2, 64, True),         # t_q < t_k: absolute-position mask
+    (1, 90, 40, 2, 128, True),        # t_q > t_k
+])
+def test_flash_bf16_forms_match_their_twins(cuda, b, t_q, t_k, h, d,
+                                            causal):
+    """The bf16 forward, dQ and dK/dV kernels against their twins, each
+    launched exactly once a run and no f32 form; a rerun bit-identical;
+    every planted fault past the criterion."""
+    import chip_smoke as S
+
+    rng = np.random.default_rng(t_q * 3 + t_k + d)
+    q, k, v, g = (_bf16(rng, b, t, h, d).to(cuda)
+                  for t in (t_q, t_k, t_k, t_q))
+    qp, kp, vp = FA._prep(q, k, v)
+    dop = FA._prep(g, g, g)[0]
+    counts = S.flash_counters()
+    before = {n: c.launches for n, c in counts.items()}
+    case = S.flash_bf16_case(qp, kp, vp, dop, t_q, t_k, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert {n: c.launches - before[n] for n, c in counts.items()} == {
+        "fwd": 0, "dq": 0, "dkv": 0, "fwd_bf16": 2, "dq_bf16": 2,
+        "dkv_bf16": 2}                  # the run and its rerun
+    assert case["rerun_bit_identical"]
+    assert case["lse_err"] <= TOL
+    for n, got in case["got"].items():
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        assert S.bf16_agrees(got, case["want"][n], case["mags"][n],
+                             coef=S.FLASH_BF16_FLIP), (n, S.bf16_agreement(
+                                 got, case["want"][n], case["mags"][n],
+                                 coef=S.FLASH_BF16_FLIP))
+    assert sorted(case["faults"]) == sorted(
+        f for f in S.FLASH_BF16_FAULTS
+        if causal or f != "diagonal_mask_off")
+    for fault, outs in case["faults"].items():
+        for n, bad in outs.items():
+            assert not S.bf16_agrees(bad, case["want"][n], case["mags"][n],
+                                     coef=S.FLASH_BF16_FLIP), (fault, n)
+
+
+def test_flash_bf16_function_on_card_matches_the_cpu(cuda):
+    """``flash_attention`` on bf16 CUDA tensors (the Function: the bf16
+    forward, dQ and dK/dV kernels) against the same Function on the CPU
+    (the twins) by the same criterion, and both within 2^-8 relative norm
+    of float64 exact attention."""
+    import chip_smoke as S
+
+    rng = np.random.default_rng(12)
+    b, t, h, d = 2, 200, 3, 64
+    q, k, v, g = (_bf16(rng, b, t, h, d) for _ in range(4))
+
+    def grads(device):
+        leaves = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        o = FA.flash_attention(*leaves, causal=True)
+        return [x.cpu() for x in (o.detach(), *torch.autograd.grad(
+            o, leaves, g.to(device)))]
+
+    got, want = grads(cuda), grads("cpu")
+    qp, kp, vp = FA._prep(q, k, v)
+    dop = FA._prep(g, g, g)[0]
+    o, lse = FA._fwd_plain(qp, kp, vp, t, True, d ** -0.5)
+    mags = [FA._from_bh(m, b, h, t, d) for m in S.flash_bf16_mags(
+        qp, kp, vp, o, lse, dop, t, True, d ** -0.5)]
+    wide = [x.double().requires_grad_() for x in (q, k, v)]
+    o64 = FA.flash_attention_reference(*wide, causal=True)
+    exact = (o64.detach(), *torch.autograd.grad(o64, wide, g.double()))
+    for x, w, m, e in zip(got, want, mags, exact):
+        assert S.bf16_agrees(x, w, m, coef=S.FLASH_BF16_FLIP)
+        assert torch.linalg.norm(x.double() - e) <= 2.0 ** -8 * \
+            torch.linalg.norm(e)
+
+
+def test_flash_bf16_refuses_mixed_and_unaligned_inputs(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    x = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(EnforceError, match="one dtype"):
+        FA._fwd_kernel(x, x.float(), x, 64, True, 0.125)
+    lse = torch.zeros(2, 64, 1, device=cuda)
+    with pytest.raises(EnforceError, match="one dtype"):
+        FA._bwd_dq_kernel(x, x, x, lse, x.float(), lse, 64, True, 0.125)
+    odd = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(2, 64, 64)
+    with pytest.raises(EnforceError, match="16-byte"):
+        FA._fwd_kernel(odd, x, x, 64, True, 0.125)
+    with pytest.raises(EnforceError, match="head_dim"):
+        FA._fwd_kernel(*(torch.zeros(2, 64, 48, dtype=torch.bfloat16,
+                                     device=cuda),) * 3, 64, True, 0.125)
+
+
+def test_lm_bf16_step_on_card_matches_the_cpu(cuda):
+    """One bf16 ``loss_and_grads`` of a small flash LM (2 layers of 2 heads
+    of 64) on the card and on the CPU from the same f32 weights: exactly
+    one launch of each bf16 flash form a layer and no f32 one; f32
+    gradients; each leaf's distance to the float64 gradient within 2x the
+    CPU's plus 2^-8; a rerun bit-identical."""
+    from chip_smoke import named_leaves, rel_norm
+    from paddle_tpu_torch.core import tree
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(vocab_size=128, num_layers=2, num_heads=2,
+                              embed_dim=128, mlp_dim=256, max_seq_len=128,
+                              attn_impl="flash", remat=False)
+    params = T.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 128, size=(2, 129)))
+    bf = torch.bfloat16
+    _, g64 = T.loss_and_grads(cfg, tree.unflatten(params, [
+        p.double() for p in tree.leaves(params)]), ids)
+    _, g_cpu = T.loss_and_grads(cfg, params, ids, bf)
+    on_card = tree.unflatten(params, [p.to(cuda) for p in tree.leaves(params)])
+    forms = [k for form in FA.FORMS.values() for k in form]
+    before = [k.launches for k in forms]
+    loss, g_card = T.loss_and_grads(cfg, on_card, ids.to(cuda), bf)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(forms, before)] == [0, 0, 0,
+                                                                 2, 2, 2]
+    assert all(g.dtype == torch.float32 for g in tree.leaves(g_card))
+    g64, g_cpu, g_card = map(named_leaves, (g64, g_cpu, g_card))
+    for n in g64:
+        assert rel_norm(g_card[n], g64[n]) <= 2 * rel_norm(
+            g_cpu[n], g64[n]) + 2.0 ** -8, n
+    again = T.loss_and_grads(cfg, on_card, ids.to(cuda), bf)
+    assert torch.equal(again[0], loss)
+    assert all(torch.equal(a, g_card[n].to(cuda))
+               for n, a in named_leaves(again[1]).items())
 
 
 # -- LSTM sequence and embedding gather / scatter-add (the text path) ------------
