@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains (ResNet-50, the transformer LM in f32 and bf16, the LSTM text
-classifier, the OCR CRNN, the attention NMT, the CIFAR-10 VGG, the
+trains (ResNet-50, the transformer LM, the LSTM text classifier and the
+OCR CRNN in f32 and bf16, the attention NMT, the CIFAR-10 VGG, the
 benchmark image nets and the Wide & Deep CTR), and runs the raw-input
 recurrences and the large-vocabulary cross-entropy.
 
@@ -328,7 +328,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    batch of 16 x 1024, with exactly 12 launches of each bf16 form a bf16
    step and no f32 flash launch (and the reverse), tokens/s, step ms,
    peak memory, the bf16 MFU against 989 TFLOP/s; a 3-step profile.
-15. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+15. The LSTM text classifier and the OCR CRNN in bf16 (rows 5, 7 and
+   17's bf16 forms: ``csrc/lstm_seq.cu``'s ``lstm_fwd_bf16`` and
+   ``lstm_bwd_bf16``, ``csrc/bilstm_seq.cu``'s ``bilstm_fwd_bf16``,
+   ``csrc/embedding.cu``'s ``embedding_gather_bf16``).  Each form at its
+   path's shape (the text LSTM at B 64, T 128, lengths 100, D 1280; the
+   backward over the BiLSTM's f32 projection and the BiLSTM forward at x
+   [64, 24, 256], D 64, both directions; 8,192 ids from [30000, 128])
+   against its forced float64 steps (every step recomputed from the
+   form's own carries: hs within one bf16 ulp plus its f32 sum term on
+   all but 1% of the elements, dgates per step 1e-3, dh0 and dpeep 1e-5;
+   end to end within 2x the twin's distance from float64), reruns and
+   the two backward forms in the same bits, the gather bit for bit, and
+   planted faults that must fail (the gate halves swapped, dgates
+   unrounded in dh_{t-1}, the BiLSTM's projection rounded); each timed
+   with the L2 flushed and alone (a trace) beside its twin, its bound (2
+   B an element, 989 TFLOP/s) and bf16 cuDNN ``nn.LSTM`` or
+   ``F.embedding``.  The bf16 witness steps of the two nets at a cut
+   width (``rnn_bf16_witness``: every gradient leaf and the loss on the
+   card and the CPU within 2x the JAX package's own bf16 error plus 2^-8;
+   dW_h over unshifted stacks must exceed it; a rerun in the same bits).
+   Then each at its bench configuration through ``trainer.SGD(...,
+   compute_dtype=torch.bfloat16)`` (Adam with bf16 moments) beside f32,
+   2 warm-up and 10 timed steps each in blocks (bf16, f32, f32, bf16):
+   exactly 1 ``lstm_fwd_bf16``, 1 ``lstm_bwd_bf16``, 1 bf16 gather and 1
+   (f32) scatter-add a text step, 1 ``bilstm_fwd_bf16``, 2
+   ``lstm_bwd_bf16``, 2 bf16 direct convs and 1 CTC a CRNN step, and no
+   other form's; sequences/s and samples/s, step ms, peak memory, a
+   3-step profile.
+16. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -1217,6 +1245,7 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     for mine in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
                  "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
+                 "bilstm_fwd_bf16", "lstm_fwd_bf16", "lstm_bwd_bf16",
                  "bilstm_fwd", "lstm_fwd", "lstm_bwd", "bigru_fwd",
                  "gru_fwd", "gru_bwd", "ctc_fwd_bwd", "ctc_decode"):
         if mine in low:
@@ -1227,6 +1256,8 @@ def kernel_class(name: str) -> str:
         return "embedding_scatter_add (ours)"
     if "::gather_kernel(" in low:
         return "embedding_gather (ours)"
+    if "::gather_bf16_kernel(" in low:
+        return "embedding_gather_bf16 (ours)"
     if "radixsort" in low or "sort" in low:
         return "sort/unique (library)"
     if "mma_kernel<" in low:              # csrc/gemm_bf16.cuh
@@ -4042,15 +4073,18 @@ def per_step(per_step_counts: dict, steps: int) -> dict:
     return {n: per_step_counts.get(n, 0) * steps for n in tile_counters()}
 
 
-def dtype_blocks(trainers: dict, data: list, want: dict, stamp_of) -> dict:
+def dtype_blocks(trainers: dict, data: list, want: dict, stamp_of,
+                 counters=None, feeding=None) -> dict:
     """Timed steps in blocks of ``len(data)``: bf16, f32, f32, bf16, so a
     drift of the machine falls on both sides.  ``trainers`` and ``want``
-    ({counter: launches a step}) by dtype name; each block's launches
-    are zeroed just before it and read just after, and must equal
-    ``want``.  Returns per dtype the step ms, img/s of each block's wall,
-    the peak memory and the costs."""
+    ({counter: launches a step}) by dtype name; each block's launches of
+    ``counters`` ({name: Kernel}, default :func:`tile_counters`) are
+    zeroed just before it and read just after, and must equal ``want``.
+    Returns per dtype the step ms, img/s of each block's wall, the peak
+    memory and the costs."""
     import paddle_tpu_torch as paddle
 
+    counters = counters or tile_counters()
     out = {d: {"step_ms": [], "walls": [], "costs": [], "peak": 0,
                "launches": []} for d in trainers}
     for d in ("bf16", "f32", "f32", "bf16"):
@@ -4064,14 +4098,15 @@ def dtype_blocks(trainers: dict, data: list, want: dict, stamp_of) -> dict:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
+        for k in counters.values():
+            k.launches = 0
         t0 = time.perf_counter()
         trainers[d].train(reader=lambda: iter(data), num_passes=1,
-                          event_handler=handler)
+                          event_handler=handler, feeding=feeding)
         torch.cuda.synchronize()
         out[d]["walls"].append(time.perf_counter() - t0)
-        got = read_counts()
-        if got != per_step(want[d], len(data)):
+        got = {n: k.launches for n, k in counters.items()}
+        if got != {n: want[d].get(n, 0) * len(data) for n in counters}:
             raise AssertionError(f"{d} block launches {got} != "
                                  f"{want[d]} x {len(data)}")
         out[d]["launches"].append(got)
@@ -5726,6 +5761,934 @@ def train_lm_bf16(dev, bs=16, seqlen=1024, steps=10,
         FLASH_BF16_NAMES, ("fwd_bf16", "dq_bf16", "dkv_bf16"))}
 
 
+# -- phase 15: the LSTM text classifier and the OCR CRNN in bf16 -------------
+
+#: The bf16 recurrences are held step by step: every step of a bf16 form's
+#: output is recomputed in float64 from the output's own carries (the
+#: step's h_{t-1}, c_{t-1}; in the backward, the dh carry from the form's
+#: own dgates of the step before, rounded to bf16).  A recurrence feeds
+#: each one-ulp flip of its bf16 h carry into every later step, so a whole
+#: sequence lies a drift from its twin's, not a rounding; one step from its
+#: own carries lies one rounding from the float64 step.  Forward: hs
+#: unequal to the float64 step rounded once on at most BF16_ULP_SHARE of
+#: the elements, each within one ulp plus sqrt(K) 2^-24 of its sum of
+#: |terms| (K: the product's depth; the cell's sensitivity folded into the
+#: sum, ``lstm_bf16_forced_fwd``); cs per element within F32_CELL_REL of
+#: |c| + 1 plus the same sum term.  Backward: each computed step's dgates
+#: within LSTM_BF16_STEP_RTOL of the float64 step (relative norm; the
+#: gates a remat recomputes may round the other way at a rare element),
+#: dc0 the same; dh0 on the rows the boot step updates and dpeep within
+#: LSTM_BF16_SUM_RTOL of the float64 product and sums of the form's own
+#: dgates (an f32 sum's error; an unrounded dgates moves dh0 by ~2^-9).
+#: End to end, the form's relative distance from the float64 run within
+#: LSTM_BF16_E2E times the twin's plus LSTM_BF16_E2E_FLOOR.
+LSTM_BF16_STEP_RTOL = 1e-3
+LSTM_BF16_SUM_RTOL = 1e-5
+F32_CELL_REL = 2.0 ** -20
+LSTM_BF16_E2E = 2.0
+LSTM_BF16_E2E_FLOOR = 2.0 ** -8
+#: the bf16 witness steps of phase 15: the text classifier and the CRNN
+#: at a cut width (their gradient leaves and the loss of one bf16 step,
+#: against the float64 step on the CPU, within 2x the JAX package's own
+#: bf16 error at the very same step plus RNN_BF16_FLOOR); the JAX errors
+#: are recomputed by ``tests/test_torch_text_crnn_bf16.py``
+#: (``PYTHONPATH=.:tests python tests/test_torch_text_crnn_bf16.py``
+#: prints them)
+TEXT_BF16_NET = {"hidden": 64, "vocab": 1000, "embed": 32}
+TEXT_BF16_BATCH = (8, 3, 16)          # rows, shortest and longest length
+CRNN_BF16_NET = {"image_height": 16, "image_width": 48, "num_classes": 6,
+                 "rnn_size": 8}
+CRNN_BF16_BATCH = 8
+RNN_BF16_FLOOR = 2.0 ** -8
+TEXT_BF16_WITNESS_JAX = {
+    '___embedding_0__.w0': 0.004208, '___fc_layer_0__.w0': 0.005431,
+    '___fc_layer_0__.wbias': 0.0144, '___fc_layer_1__.w0': 0.007259,
+    '___fc_layer_1__.wbias': 0.004127, '___lstmemory_0__.w0': 0.01067,
+    '___lstmemory_0__.wbias': 0.01539, 'loss': 6.343e-06}
+CRNN_BF16_WITNESS_JAX = {
+    '___fc_layer_0__.w0': 0.003214, '___fc_layer_0__.wbias': 0.003404,
+    '_crnn_bilstm_bw.w0': 0.01187, '_crnn_bilstm_bw.wbias': 0.006873,
+    '_crnn_bilstm_bw_transform.w0': 0.01177,
+    '_crnn_bilstm_bw_transform.wbias': 0.007896,
+    '_crnn_bilstm_fw.w0': 0.008783, '_crnn_bilstm_fw.wbias': 0.007001,
+    '_crnn_bilstm_fw_transform.w0': 0.007248,
+    '_crnn_bilstm_fw_transform.wbias': 0.007313,
+    '_crnn_conv1_bn.w0': 0.1179, '_crnn_conv1_bn.wbias': 0.1465,
+    '_crnn_conv1_conv.w0': 0.09505, '_crnn_conv2_bn.w0': 0.04097,
+    '_crnn_conv2_bn.wbias': 0.03528, '_crnn_conv2_conv.w0': 0.07721,
+    'loss': 4.852e-05}
+
+
+def lstm_bf16_forced_fwd(xw, mask, w_h, peep, h0, c0, reverse, hs, cs,
+                         proj_mag=None) -> dict:
+    """Every step of a bf16 LSTM forward recomputed in float64 from the
+    output's own carries: h_{t-1}, c_{t-1} the outputs shifted by one step
+    (h0, c0 at the boot index), pre = xw + h_{t-1} W_h, the cell, the
+    freeze.  Returns {"h", "c", "gates" [.., 4D], "mag" (per element of h
+    and c: the sum over the unit's four gates of |terms| of pre, times
+    1 + |c_{t-1}|, which bounds the cell's sensitivity), "mag_g" (per gate
+    column)}; ``proj_mag`` adds the |terms| of an in-loop projection."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    d = w_h.shape[0]
+    hp = LK._shift_prev(hs, h0, reverse).double()
+    cp = LK._shift_prev(cs, c0.float(), reverse).double()
+    w = w_h.double()
+    pre = xw.double() + torch.matmul(hp, w)
+    mag_g = torch.matmul(hp.abs(), w.abs())
+    if proj_mag is not None:
+        mag_g = mag_g + proj_mag
+    pe = peep.double()
+    i = torch.sigmoid(pre[..., :d] + pe[0] * cp)
+    f = torch.sigmoid(pre[..., d:2 * d] + pe[1] * cp)
+    g = torch.tanh(pre[..., 2 * d:3 * d])
+    c = f * cp + i * g
+    o = torch.sigmoid(pre[..., 3 * d:] + pe[2] * c)
+    m = mask.double()[..., None]
+    h = m * o * torch.tanh(c) + (1 - m) * hp
+    c = m * c + (1 - m) * cp
+    mag = mag_g.reshape(*mag_g.shape[:-1], 4, d).sum(-2) * (1 + cp.abs())
+    return {"h": h, "c": c, "gates": torch.cat([i, f, g, o], -1),
+            "mag": mag, "mag_g": mag_g}
+
+
+def lstm_bf16_fwd_agreement(hs, cs, forced, kred: int, gates=None) -> dict:
+    """A bf16 forward's outputs against :func:`lstm_bf16_forced_fwd` of
+    the same outputs (the module's criterion above); "ok" says whether
+    they agree."""
+    a = bf16_agreement(hs, forced["h"].to(torch.bfloat16), forced["mag"],
+                       kred)
+    sum_term = kred ** 0.5 * 2.0 ** -24 * forced["mag"]
+    gap = (cs.double() - forced["c"]).abs()
+    a["c_max_share_of_bound"] = float((gap / (
+        F32_CELL_REL * (forced["c"].abs() + 1) + sum_term)).max())
+    ok = (a["share_off"] <= BF16_ULP_SHARE and a["max_share_of_bound"] <= 1
+          and a["c_max_share_of_bound"] <= 1)
+    if gates is not None:
+        g = bf16_agreement(gates, forced["gates"].to(torch.bfloat16),
+                           forced["mag_g"] + forced["mag"].repeat(
+                               *([1] * (hs.dim() - 1)), 4), kred)
+        a["gates"] = g
+        ok = (ok and g["share_off"] <= BF16_ULP_SHARE
+              and g["max_share_of_bound"] <= 1)
+    a["ok"] = bool(ok)
+    return a
+
+
+def lstm_bf16_forced_bwd(gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT,
+                         dcT, reverse, dgates) -> dict:
+    """The backward of a bf16 LSTM recomputed in float64 over ``gates``
+    (bf16 [B, T, 4D]), step by step in the backward's order, with each
+    step's dh carry rebuilt from the form's own ``dgates`` of the step
+    before, rounded to bf16, times W_h^T; the dc carry by the twin's
+    recursion.  Returns {"dgates", "dh0", "dc0"} and "dpeep", the sums of
+    the form's own dgates against c_{t-1} (i, f) and c_t (o)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    t, d = hs.shape[1], w_h.shape[0]
+    w = w_h.double()
+    carry = torch.matmul(dgates.to(torch.bfloat16).double(), w.t())
+    pe = peep.double()
+    cp_all = LK._shift_prev(cs, c0.float(), reverse).double()
+    dh, dc = dhT.double(), dcT.double()
+    out = torch.empty(dgates.shape, dtype=torch.float64,
+                      device=dgates.device)
+    for k in LK._steps(t, not reverse):
+        m = mask[:, k, None].double()
+        dh = dh + dhs[:, k].double()
+        cp, c = cp_all[:, k], cs[:, k].double()
+        i, f, g, o = gates[:, k].double().split(d, dim=-1)
+        tc = torch.tanh(c)
+        do = dh * tc * o * (1 - o) * m
+        dct = (dc + dh * o * (1 - tc * tc)) * m + do * pe[2]
+        di = dct * g * i * (1 - i)
+        df = dct * cp * f * (1 - f)
+        out[:, k] = torch.cat([di, df, dct * i * (1 - g * g), do], -1)
+        dh = carry[:, k] + (1 - m) * dh
+        dc = dct * f + di * pe[0] + df * pe[1] + (1 - m) * dc
+    dg = dgates.double()
+    dpeep = torch.stack([(dg[..., :d] * cp_all).sum((0, 1)),
+                         (dg[..., d:2 * d] * cp_all).sum((0, 1)),
+                         (dg[..., 3 * d:] * cs.double()).sum((0, 1))])
+    return {"dgates": out, "dh0": dh, "dc0": dc, "dpeep": dpeep}
+
+
+def lstm_bf16_bwd_agreement(got, forced, mask, reverse) -> dict:
+    """A bf16 backward's (dgates, dh0, dc0, dpeep) against
+    :func:`lstm_bf16_forced_bwd` of its own dgates (the module's
+    criterion above); "ok" says whether they agree."""
+    dgates, dh0, dc0, dpeep = got
+    boot = mask.shape[1] - 1 if reverse else 0
+    rows = mask[:, boot] > 0
+    steps = [rel_norm(dgates[:, k], forced["dgates"][:, k])
+             for k in range(dgates.shape[1])
+             if forced["dgates"][:, k].abs().max() > 0]
+    a = {"dgates_step_worst": max(steps),
+         "dc0": rel_norm(dc0, forced["dc0"]),
+         "dh0_boot_rows": rel_norm(dh0[rows], forced["dh0"][rows]),
+         "dpeep": rel_norm(dpeep, forced["dpeep"]),
+         "max_abs_err": float((dgates.double() - forced["dgates"])
+                              .abs().max())}
+    a["ok"] = bool(a["dgates_step_worst"] <= LSTM_BF16_STEP_RTOL
+                   and a["dc0"] <= LSTM_BF16_STEP_RTOL
+                   and a["dh0_boot_rows"] <= LSTM_BF16_SUM_RTOL
+                   and a["dpeep"] <= LSTM_BF16_SUM_RTOL)
+    return a
+
+
+def halves_swapped(run):
+    """``run()`` with the twin's cell taking the (g, o) pre-activations
+    for (i, f) and the reverse: the planted fault of the bf16 forms'
+    gate gather (the accumulator halves of a unit's two lanes swapped)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    plain = LK._cell
+
+    def swapped(x_t, h, c, w_a, peep):
+        d = h.shape[-1]
+        pre = x_t.to(w_a.dtype) + torch.matmul(h.to(w_a.dtype), w_a)
+        pre = torch.cat([pre[:, 2 * d:], pre[:, :2 * d]], -1)
+        return plain(pre, torch.zeros_like(h), c, torch.zeros_like(w_a),
+                     peep)
+
+    LK._cell = swapped
+    try:
+        return run()
+    finally:
+        LK._cell = plain
+
+
+def dgates_unrounded(run):
+    """``run()`` with the twin's dh_{t-1} taking dgates unrounded (the
+    planted fault: JAX rounds them to bf16 first, ``lstm.py:196``)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    plain = LK._rounded
+    LK._rounded = lambda x, dtype: x
+    try:
+        return run()
+    finally:
+        LK._rounded = plain
+
+
+def projection_rounded(run):
+    """``run()`` with the BiLSTM twin's projection rounded to bf16 (the
+    planted fault: JAX keeps it f32, ``lstm.py:833-835``)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    plain = LK._project_xw
+    LK._project_xw = lambda *a: plain(*a).to(torch.bfloat16).float()
+    try:
+        return run()
+    finally:
+        LK._project_xw = plain
+
+
+def rnn_bf16_counters() -> dict:
+    """{name: Kernel} of every form the text and CRNN steps may launch."""
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import conv as CV
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    return {"lstm_fwd": LK.KERNEL_FWD, "lstm_bwd": LK.KERNEL_BWD,
+            "lstm_fwd_bf16": LK.KERNEL_FWD_BF16,
+            "lstm_bwd_bf16": LK.KERNEL_BWD_BF16, "bilstm": LK.KERNEL_BI,
+            "bilstm_bf16": LK.KERNEL_BI_BF16, "gather": EK.KERNEL_GATHER,
+            "gather_bf16": EK.KERNEL_GATHER_BF16,
+            "scatter_add": EK.KERNEL_SCATTER, "ctc": KC.KERNEL_LOSS,
+            "conv2d_direct": CV.KERNEL, "conv2d_direct_bf16": CV.KERNEL_BF16,
+            "brgemm": BR.KERNEL, "brgemm_bf16": BR.KERNEL_BF16,
+            "channel_stats": CS.KERNEL, "channel_stats_bf16": CS.KERNEL_BF16}
+
+
+def bf16_lstm_inputs(dev, gen, b, t, d, lengths):
+    """bf16 xw, W_h, peepholes, h0 and dhs, f32 c0, mask and final
+    cotangents of an LSTM at [B, T, D] with the given lengths."""
+    bf = torch.bfloat16
+    mask = (torch.arange(t, device=dev)[None, :]
+            < lengths.to(dev)[:, None]).float()
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+
+    return dict(xw=rnd(b, t, 4 * d, scale=0.5), mask=mask,
+                w_h=rnd(d, 4 * d, scale=d ** -0.5), peep=rnd(3, d, scale=0.1),
+                h0=rnd(b, d, scale=0.5),
+                c0=0.5 * torch.randn(b, d, generator=gen, device=dev),
+                dhs=rnd(b, t, d),
+                dhT=torch.randn(b, d, generator=gen, device=dev),
+                dcT=torch.randn(b, d, generator=gen, device=dev))
+
+
+def lstm_bf16_case(x, reverse, xw=None) -> dict:
+    """The bf16 forward and backward forms on one problem against their
+    forced float64 steps, with their planted faults and reruns: {"fwd",
+    "bwd" (agreements), "faults" (the same of each fault's twin outputs),
+    "bits" (the rerun, stored vs remat, the gates form's hs), "args"}.
+    ``xw`` (f32) replaces x["xw"] in the backward's remat (the BiLSTM's
+    projection); the forward then is not the path's and is not run."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    m, w, p, h0, c0 = x["mask"], x["w_h"], x["peep"], x["h0"], x["c0"]
+    d = w.shape[0]
+    out = {"bits": {}, "faults": {}}
+    if xw is None:
+        xw = x["xw"]
+        hs, cs, _, h_t, c_t = LK._fwd_kernel(xw, m, w, p, h0, c0, reverse,
+                                             False)
+        again = LK._fwd_kernel(xw, m, w, p, h0, c0, reverse, False)
+        hs_g, cs_g, gates, _, _ = LK._fwd_kernel(xw, m, w, p, h0, c0,
+                                                 reverse, True)
+        out["bits"]["fwd_rerun"] = all(torch.equal(a, b) for a, b in zip(
+            (hs, cs, h_t, c_t), (again[0], again[1], again[3], again[4])))
+        out["bits"]["fwd_gates_form"] = (torch.equal(hs, hs_g)
+                                         and torch.equal(cs, cs_g))
+        forced = lstm_bf16_forced_fwd(xw, m, w, p, h0, c0, reverse, hs, cs)
+        a = lstm_bf16_fwd_agreement(hs, cs, forced, d, gates)
+        last = 0 if reverse else xw.shape[1] - 1
+        a["h_T"] = rel_norm(h_t, forced["h"][:, last])
+        a["c_T"] = rel_norm(c_t, forced["c"][:, last])
+        a["ok"] = a["ok"] and max(a["h_T"], a["c_T"]) <= LSTM_BF16_SUM_RTOL
+        out["fwd"] = a
+        del forced, again
+        bad = halves_swapped(lambda: LK._fwd_plain(xw, m, w, p, h0, c0,
+                                                   reverse, False))
+        out["faults"]["halves_swapped"] = lstm_bf16_fwd_agreement(
+            bad[0], bad[1], lstm_bf16_forced_fwd(
+                xw, m, w, p, h0, c0, reverse, bad[0], bad[1]), d)
+        del bad
+    else:
+        hs, cs = x["hs"], x["cs"]
+        forced = lstm_bf16_forced_fwd(xw, m, w, p, h0, c0, reverse, hs, cs)
+        gates = forced["gates"].to(torch.bfloat16)
+        del forced
+    args = (m, w, p, h0, c0, hs, cs, x["dhs"], x["dhT"], x["dcT"], reverse)
+    remat = LK._bwd_kernel(xw, None, *args, True)
+    again = LK._bwd_kernel(xw, None, *args, True)
+    out["bits"]["bwd_rerun"] = all(torch.equal(a, b)
+                                   for a, b in zip(remat, again))
+    if xw.dtype == torch.bfloat16:
+        stored = LK._bwd_kernel(None, gates, *args, False)
+        out["bits"]["bwd_remat_vs_stored"] = all(
+            torch.equal(a, b) for a, b in zip(remat, stored))
+        del stored
+    out["bwd"] = lstm_bf16_bwd_agreement(
+        remat, lstm_bf16_forced_bwd(gates, *args[:-1], reverse, remat[0]),
+        m, reverse)
+    bad = dgates_unrounded(lambda: LK._bwd_plain(None, gates, *args, False))
+    out["faults"]["dgates_unrounded"] = lstm_bf16_bwd_agreement(
+        bad, lstm_bf16_forced_bwd(gates, *args[:-1], reverse, bad[0]), m,
+        reverse)
+    out["args"] = (xw, gates) + args
+    out["hs"], out["remat"] = hs, remat
+    return out
+
+
+def lstm_bf16_e2e(x, reverse, hs, dgates) -> dict:
+    """End to end: the form's hs and dgates, and the bf16 twin's, each
+    against the float64 run of the same inputs (relative norm); the
+    form's within LSTM_BF16_E2E x the twin's plus LSTM_BF16_E2E_FLOOR."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    keys = ("xw", "mask", "w_h", "peep", "h0", "c0")
+    ins = [x[k] for k in keys]
+    wide = [v.double() for v in ins]
+    twin = LK._fwd_plain(*ins, reverse, False)
+    ref = LK._fwd_plain(*wide, reverse, False)
+    cts = (x["dhs"], x["dhT"], x["dcT"])
+    tb = LK._bwd_plain(ins[0], None, *ins[1:], twin[0], twin[1], *cts,
+                       reverse, True)[0]
+    rb = LK._bwd_plain(wide[0], None, *wide[1:], ref[0], ref[1],
+                       *(c.double() for c in cts), reverse, True)[0]
+    out = {"hs": rel_norm(hs, ref[0]), "hs_twin": rel_norm(twin[0], ref[0]),
+           "dgates": rel_norm(dgates, rb), "dgates_twin": rel_norm(tb, rb)}
+    out["ok"] = bool(all(out[k] <= LSTM_BF16_E2E * out[k + "_twin"]
+                         + LSTM_BF16_E2E_FLOOR for k in ("hs", "dgates")))
+    return out
+
+
+def bilstm_bf16_case(xs, mask, fw, bw, gen) -> dict:
+    """The bf16 BiLSTM forward on one problem and, per direction, the LSTM
+    backward form over its f32 projection, as the BiLSTM's backward runs
+    it: each against its forced float64 steps (the projection's |terms|
+    in the sum, K = E + D), reruns in the same bits, and the planted
+    faults (the projection rounded, the gate halves swapped; dgates
+    unrounded in dh_{t-1}).  {"bilstm", "bwd" (by direction),
+    "bilstm_faults", "bwd_faults", "bits", "ok", "crnn_args" (the forward
+    direction's backward arguments)}."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    bf = torch.bfloat16
+    b, t, e = xs.shape
+    d = fw[2].shape[0]
+    outs = LK._bi_fwd_kernel(xs, mask, fw, bw)
+    again = LK._bi_fwd_kernel(xs, mask, fw, bw)
+    out = {"bilstm": {}, "bwd": {}, "bilstm_faults": {}, "bwd_faults": {},
+           "bits": {"bilstm_rerun": all(
+               torch.equal(u, v) for o1, o2 in zip(outs, again)
+               for u, v in zip(o1, o2))}}
+    del again
+    for key, weights, (hs, cs, h_t, c_t), reverse in (
+            ("forward", fw, outs[0], False), ("reverse", bw, outs[1], True)):
+        w_x, bias, w_h, peep, h0, c0 = weights
+        proj = torch.matmul(xs.double().abs(), w_x.double().abs())
+        xw64 = torch.matmul(xs.double(), w_x.double()) + bias.double()
+        forced = lstm_bf16_forced_fwd(xw64, mask, w_h, peep, h0, c0, reverse,
+                                      hs, cs, proj)
+        a = lstm_bf16_fwd_agreement(hs, cs, forced, e + d)
+        last = 0 if reverse else t - 1
+        a["h_T"] = rel_norm(h_t, forced["h"][:, last])
+        a["c_T"] = rel_norm(c_t, forced["c"][:, last])
+        a["ok"] = a["ok"] and max(a["h_T"], a["c_T"]) <= LSTM_BF16_SUM_RTOL
+        out["bilstm"][key] = a
+        del forced
+        for fault, wrap in (("projection_rounded", projection_rounded),
+                            ("halves_swapped", halves_swapped)):
+            bad = wrap(lambda: LK._bi_fwd_plain(xs, mask, fw, bw))[
+                1 if reverse else 0]
+            out["bilstm_faults"][f"{key}_{fault}"] = lstm_bf16_fwd_agreement(
+                bad[0], bad[1], lstm_bf16_forced_fwd(
+                    xw64, mask, w_h, peep, h0, c0, reverse, bad[0], bad[1],
+                    proj), e + d)
+        cx = {"mask": mask, "w_h": w_h, "peep": peep, "h0": h0, "c0": c0,
+              "hs": hs, "cs": cs,
+              "dhs": torch.randn(b, t, d, generator=gen,
+                                 device=xs.device).to(bf),
+              "dhT": torch.zeros(b, d, device=xs.device),
+              "dcT": torch.zeros(b, d, device=xs.device)}
+        case = lstm_bf16_case(cx, reverse, LK._project_xw(xs, w_x, bias))
+        out["bits"][f"bwd_{key}_rerun"] = case["bits"]["bwd_rerun"]
+        out["bwd"][key] = case["bwd"]
+        out["bwd_faults"][key] = case["faults"]["dgates_unrounded"]
+        if key == "forward":
+            out["crnn_args"] = case["args"]
+        del case, xw64, proj
+    out["ok"] = bool(all(a["ok"] for a in out["bilstm"].values())
+                     and all(a["ok"] for a in out["bwd"].values()))
+    return out
+
+
+def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
+                           crnn=(64, 24, 256, 64),
+                           ids=(8192, 30000)) -> tuple[list, dict]:
+    """The bf16 forms of rows 5, 7 and 17 at their paths' shapes: the LSTM
+    forward and backward at the text classifier's B 64, T 128 (lengths
+    100), D 1280; the backward with the BiLSTM's f32 projection at the
+    CRNN's [64, 24, 256], D 64, both directions; the BiLSTM forward there;
+    the gather of 8,192 ids from [30000, 128].  Each against its forced
+    float64 steps (the criterion above; the gather bit for bit against
+    its twin), reruns in the same bits, the backward's remat and stored
+    forms in the same bits, and each planted fault must fail: the gate
+    halves swapped, dgates unrounded in dh_{t-1}, the BiLSTM's projection
+    rounded.  Times (bf16, 2 B an element, 989 TFLOP/s): each form with
+    the L2 flushed, alone (a trace), its bf16 twin, its bound, and bf16
+    cuDNN ``nn.LSTM`` (no peepholes, the input projection included: not
+    the same cell) or bf16 ``F.embedding``."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(15)
+    summary = {"phase": "rnn_bf16_kernels",
+               "criterion": "forced float64 steps (chip_smoke.py)",
+               "step_rtol": LSTM_BF16_STEP_RTOL,
+               "sum_rtol": LSTM_BF16_SUM_RTOL}
+    rows = []
+
+    def must(ok, what, detail):
+        if not ok:
+            raise AssertionError(f"bf16 rnn forms, {what}: {detail}")
+
+    # (a) the text path: lstmemory at B 64, T 128, lengths 100, D 1280
+    b, t, d, length, embed = text
+    x = bf16_lstm_inputs(dev, gen, b, t, d, torch.full((b,), length))
+    x["h0"] = torch.zeros_like(x["h0"])
+    x["c0"] = torch.zeros_like(x["c0"])
+    case = lstm_bf16_case(x, False)
+    must(all(case["bits"].values()), "text bits", case["bits"])
+    must(case["fwd"]["ok"] and case["bwd"]["ok"], "text vs forced steps",
+         {k: case[k] for k in ("fwd", "bwd")})
+    must(not any(f["ok"] for f in case["faults"].values()),
+         "a text fault passed", case["faults"])
+    e2e = lstm_bf16_e2e(x, False, case["hs"], case["remat"][0])
+    must(e2e["ok"], "text end to end", e2e)
+    summary["text"] = {k: case[k] for k in ("fwd", "bwd", "faults", "bits")}
+    summary["text"]["end_to_end"] = e2e
+    xw, gates, *args = case["args"]
+    del case, gates
+    m, w, p, h0, c0, hs, cs = args[:7]
+    fwd_args = (xw, m, w, p, h0, c0, False, False)
+    fwd = lambda: LK._fwd_kernel(*fwd_args)                  # noqa: E731
+    bwd = lambda: LK._bwd_kernel(xw, None, *args, True)      # noqa: E731
+    fwd_plain = lambda: LK._fwd_plain(*fwd_args)             # noqa: E731
+    bwd_plain = lambda: LK._bwd_plain(xw, None, *args, True)  # noqa: E731
+    x_emb = torch.randn(b, t, embed, generator=gen, device=dev).to(bf)
+    cudnn = torch.nn.LSTM(embed, d, batch_first=True).to(dev, bf)
+    cudnn.flatten_parameters()    # one weight buffer, as cuDNN wants it
+    x_lib = x_emb.clone().requires_grad_()
+    out_lib, _ = cudnn(x_lib)
+    g_lib = torch.randn_like(out_lib)
+    lib_params = (x_lib, *cudnn.parameters())
+
+    def lib_fwd():
+        with torch.no_grad():
+            return cudnn(x_emb)
+
+    steps = float(m.sum().item())
+    cell = 25.0 * steps * d
+    rows += [{
+        "name": "lstm_seq_fwd_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:252",
+        "shape": [b, t, d], "dtype": "bfloat16",
+        "max_abs_err": summary["text"]["fwd"]["max_abs_err"],
+        "ms": timer(fwd), "alone_ms": device_ms([fwd], "lstm_fwd_bf16"),
+        "plain_ms": timer(fwd_plain),
+        # xw, W_h, peep, h0 bf16 and c0, mask f32 in; hs bf16, cs, h_T,
+        # c_T f32 out
+        "bytes_flops": (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d)
+                        + 4 * (b * d + b * t) + 2 * b * t * d
+                        + 4 * (b * t * d + 2 * b * d),
+                        2.0 * steps * d * 4 * d + cell),
+        "library_ms": timer(lib_fwd)}, {
+        "name": "lstm_seq_bwd_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:445",
+        "shape": [b, t, d], "dtype": "bfloat16",
+        "max_abs_err": summary["text"]["bwd"]["max_abs_err"],
+        "ms": timer(bwd), "alone_ms": device_ms([bwd], "lstm_bwd_bf16"),
+        "plain_ms": timer(bwd_plain),
+        # xw, W_h, peep, h0, hs, dhs bf16 and mask, c0, cs, dh_T, dc_T f32
+        # in; dgates, dh0, dc0, dpeep f32 out; the remat product and
+        # dgates W_h^T
+        "bytes_flops": (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d
+                             + 2 * b * t * d)
+                        + 4 * (b * t + b * t * d + 3 * b * d)
+                        + 4 * (b * t * 4 * d + 2 * b * d + 3 * d),
+                        4.0 * steps * d * 4 * d + 2 * cell),
+        "library_ms": timer(lambda: torch.autograd.grad(
+            out_lib, lib_params, g_lib, retain_graph=True))}]
+    del x, xw, args, fwd_args, hs, cs, out_lib, g_lib, lib_params, x_lib
+    del cudnn, x_emb, m, w, p, h0, c0
+
+    # (b) the CRNN: the BiLSTM forward at x [64, 24, 256], D 64, and the
+    # LSTM backward over its f32 projection, both directions
+    b, t, e, d = crnn
+    xs = torch.randn(b, t, e, generator=gen, device=dev).to(bf)
+    mask = torch.ones(b, t, device=dev)
+
+    def direction():
+        return (
+            (torch.randn(e, 4 * d, generator=gen, device=dev) / e ** 0.5
+             ).to(bf),
+            0.1 * torch.randn(4 * d, generator=gen, device=dev),
+            (torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+             ).to(bf),
+            (0.1 * torch.randn(3, d, generator=gen, device=dev)).to(bf),
+            torch.zeros(b, d, device=dev, dtype=bf),
+            torch.zeros(b, d, device=dev))
+
+    fw, bw = direction(), direction()
+    bi = lambda: LK._bi_fwd_kernel(xs, mask, fw, bw)    # noqa: E731
+    case = bilstm_bf16_case(xs, mask, fw, bw, gen)
+    must(all(case["bits"].values()), "CRNN reruns", case["bits"])
+    must(case["ok"], "CRNN vs forced", case)
+    must(not any(f["ok"] for f in case["bilstm_faults"].values())
+         and not any(f["ok"] for f in case["bwd_faults"].values()),
+         "a CRNN fault passed", case)
+    crnn_args = case.pop("crnn_args")
+    summary["crnn"] = case
+    bi_agree, bwd_agree = case["bilstm"], case["bwd"]
+    xw_c, _, *cargs = crnn_args
+    cbwd = lambda: LK._bwd_kernel(xw_c, None, *cargs, True)       # noqa: E731
+    cbwd_plain = lambda: LK._bwd_plain(xw_c, None, *cargs, True)  # noqa: E731
+    lib1 = torch.nn.LSTM(e, d, batch_first=True).to(dev, bf)
+    lib2 = torch.nn.LSTM(e, d, batch_first=True,
+                         bidirectional=True).to(dev, bf)
+    lib1.flatten_parameters()
+    lib2.flatten_parameters()
+    x_lib = xs.clone().requires_grad_()
+    out_lib, _ = lib1(x_lib)
+    g_lib = torch.randn_like(out_lib)
+    lib_params = (x_lib, *lib1.parameters())
+
+    def lib_bi():
+        with torch.no_grad():
+            return lib2(xs)
+
+    steps = float(mask.sum().item())
+    cell = 25.0 * steps * d
+    rows += [{
+        "name": "lstm_seq_bwd_bf16_crnn", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:445",
+        "shape": [b, t, 4 * d, d], "dtype": "bfloat16 (xw f32)",
+        "max_abs_err": max(a["max_abs_err"] for a in bwd_agree.values()),
+        "ms": timer(cbwd), "alone_ms": device_ms([cbwd], "lstm_bwd_bf16"),
+        "plain_ms": timer(cbwd_plain),
+        # xw, dgates f32; the rest as the text row's
+        "bytes_flops": (4 * b * t * 4 * d + 2 * (d * 4 * d + 3 * d + b * d
+                                                 + 2 * b * t * d)
+                        + 4 * (b * t + b * t * d + 3 * b * d)
+                        + 4 * (b * t * 4 * d + 2 * b * d + 3 * d),
+                        4.0 * steps * d * 4 * d + 2 * cell),
+        "library_ms": timer(lambda: torch.autograd.grad(
+            out_lib, lib_params, g_lib, retain_graph=True))}, {
+        "name": "bilstm_seq_fwd_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/bilstm_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:891",
+        "shape": [b, t, e, d], "dtype": "bfloat16",
+        "max_abs_err": max(a["max_abs_err"] for a in bi_agree.values()),
+        "ms": timer(bi), "alone_ms": device_ms([bi], "bilstm_fwd_bf16"),
+        "plain_ms": timer(lambda: LK._bi_fwd_plain(xs, mask, fw, bw)),
+        # x, both directions' W_x, W_h, peep, h0 bf16 and b, c0, mask f32
+        # in; hs bf16, cs, h_T, c_T f32 out
+        "bytes_flops": (2 * (b * t * e + 2 * (e * 4 * d + d * 4 * d + 3 * d
+                                              + b * d))
+                        + 4 * (b * t + 2 * (4 * d + b * d))
+                        + 2 * (2 * b * t * d + 4 * (b * t * d + 2 * b * d)),
+                        2 * (2.0 * steps * (e + d) * 4 * d + cell)),
+        "library_ms": timer(lib_bi)}]
+    del crnn_args, cargs, xw_c, out_lib, g_lib, lib_params, x_lib, lib1, lib2
+
+    # (c) the gather: 8,192 ids (the bench's batch) from [30000, 128]
+    n_ids, vocab = ids
+    ids = torch.randint(0, vocab, (n_ids,), generator=gen, device=dev)
+    table = torch.randn(vocab, embed, generator=gen, device=dev).to(bf)
+    got = EK.embedding_gather(table, ids)
+    torch.cuda.synchronize()
+    must(torch.equal(got, EK.embedding_gather_reference(table, ids))
+         and torch.equal(got, EK.embedding_gather(table, ids)),
+         "gather", "differs from its twin or its rerun")
+    uniq = float(torch.unique(ids).numel())
+    gather = lambda: EK.embedding_gather(table, ids)   # noqa: E731
+    rows.append({
+        "name": "embedding_gather_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+        "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:146",
+        "shape": [n_ids, vocab, embed], "dtype": "bfloat16",
+        "unique_ids": int(uniq), "max_abs_err": 0.0,
+        "ms": timer(gather), "alone_ms": device_ms([gather], "gather_bf16"),
+        "plain_ms": timer(lambda: EK.embedding_gather_reference(table, ids)),
+        "bytes_flops": (2.0 * (uniq + n_ids) * embed + 8.0 * n_ids, 0.0),
+        "library_ms": timer(lambda: F.embedding(ids, table))})
+    summary["gather_bit_identical_to_twin"] = True
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"),
+                                                 BF16_FLOPS_PER_S)
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+def text_bf16_setup():
+    """The text classifier's bf16 witness step (``TEXT_BF16_NET``): (topology,
+    cost name, f32 parameters as numpy, the input types, one seeded batch
+    of ``TEXT_BF16_BATCH`` ragged sequences).  Parameters from
+    ``parameters.create`` (seeded), the LSTM's biases and peepholes made
+    nonzero so every term of the cell counts."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.layers.base import reset_name_counters
+
+    reset_name_counters()
+    cost = text_classifier(**TEXT_BF16_NET)
+    topo = Topology(cost)
+    created = paddle.parameters.create(cost)
+    rng = np.random.default_rng(0)
+    params = {n: np.array(created[n]) for n in created.names()}
+    for n in params:
+        if n.endswith(".wbias"):
+            params[n] = (0.1 * rng.standard_normal(params[n].shape)
+                         ).astype(np.float32)
+    rows, lo, hi = TEXT_BF16_BATCH
+    batch = [(rng.integers(0, TEXT_BF16_NET["vocab"],
+                           size=int(rng.integers(lo, hi + 1))).tolist(),
+              int(rng.integers(0, 2))) for _ in range(rows)]
+    return topo, cost.name, params, data_types(paddle, topo), batch
+
+
+def crnn_bf16_setup():
+    """The CRNN's bf16 witness step (``CRNN_BF16_NET``, a batch of
+    ``CRNN_BF16_BATCH`` synthetic samples): the contract of
+    :func:`text_bf16_setup`, the BiLSTM's biases made nonzero."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import ocr_crnn
+
+    reset_name_counters()
+    cost, _, _ = ocr_crnn.crnn_ctc_cost(**CRNN_BF16_NET)
+    topo = Topology(cost)
+    created = paddle.parameters.create(cost)
+    rng = np.random.default_rng(0)
+    params = {n: np.array(created[n]) for n in created.names()}
+    for n in params:
+        if n.endswith(".wbias"):
+            params[n] = (0.1 * rng.standard_normal(params[n].shape)
+                         ).astype(np.float32)
+    batch = list(ocr_crnn.synthetic_ocr_reader(
+        n_samples=CRNN_BF16_BATCH, image_height=CRNN_BF16_NET["image_height"],
+        image_width=CRNN_BF16_NET["image_width"],
+        num_classes=CRNN_BF16_NET["num_classes"], max_label_len=3,
+        seed=5)())
+    return topo, cost.name, params, data_types(paddle, topo), batch
+
+
+def data_types(paddle, topo) -> dict:
+    return {n: paddle.data_type.InputType(
+        dim=l.attrs["dim"], seq_type=l.attrs["seq_type"],
+        kind=l.attrs["data_type"]) for n, l in topo.data_layers().items()}
+
+
+def topology_grads(topo, cost_name, params, feed, dtype=None):
+    """(loss, {name: gradient}) of one train-mode step's forward and
+    backward as the v2 step runs it: with ``dtype`` bf16 the parameters
+    and float feeds cast inside the graph (f32 masters get f32
+    gradients); a float64 run takes float64 parameters and feeds.  The
+    states are the topology's initial ones in the parameters' dtype."""
+    from paddle_tpu_torch.core.dtype import at_least_f32, cast_floats
+
+    dev = next(iter(params.values())).device
+    leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+    run = cast_floats(leaves, dtype) if dtype is not None else leaves
+    wide = next(iter(params.values())).dtype
+    states = {k: v.to(wide) for k, v in topo.init_states(dev).items()}
+    if dtype is not None:
+        feed = cast_floats(feed, dtype)
+    elif wide == torch.float64:
+        feed = cast_floats(feed, torch.float64)
+    values, _ = topo.forward(run, states, feed, True, 0)
+    loss = at_least_f32(values[cost_name]).sum()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def rnn_bf16_errors(loss, grads, loss64, g64) -> dict:
+    """Per gradient leaf ||g - g64|| / ||g64||, and the loss's relative
+    error under "loss"."""
+    out = {n: rel_norm(grads[n], g64[n]) for n in g64}
+    out["loss"] = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    return out
+
+
+def rnn_bf16_witness(dev) -> dict:
+    """The bf16 witness steps of the text classifier and the CRNN at their
+    cut widths (:func:`text_bf16_setup`, :func:`crnn_bf16_setup`): the
+    bf16 step's loss and gradient leaves on the card (the bf16 forms) and
+    on the CPU (the twins), each against the float64 step on the CPU,
+    within 2x the JAX package's own bf16 error at the same step
+    (``TEXT_BF16_WITNESS_JAX``, ``CRNN_BF16_WITNESS_JAX``) plus
+    RNN_BF16_FLOOR; the card's step repeats bit for bit; a card step whose
+    dW_h takes h_t for h_{t-1} (the stacks unshifted) must exceed it."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    bf = torch.bfloat16
+    out = {"limit": f"2 x JAX's own + {RNN_BF16_FLOOR}"}
+    for name, setup, jax_errs in (
+            ("text", text_bf16_setup, TEXT_BF16_WITNESS_JAX),
+            ("crnn", crnn_bf16_setup, CRNN_BF16_WITNESS_JAX)):
+        topo, cost_name, params, types, batch = setup()
+
+        def side(where, dtype=bf, wide=torch.float32):
+            feed = DataFeeder(types, device=where)(batch)
+            p = {n: torch.from_numpy(v).to(where, wide)
+                 for n, v in params.items()}
+            return topology_grads(topo, cost_name, p, feed, dtype)
+
+        loss64, g64 = side("cpu", None, torch.float64)
+        counters = rnn_bf16_counters()
+        for k in counters.values():
+            k.launches = 0
+        sides = {"card": side(dev)}
+        launches = {n: k.launches for n, k in counters.items() if k.launches}
+        rerun = side(dev)
+        sides["cpu"] = side("cpu")
+        plain_shift = LK._shift_prev
+        LK._shift_prev = lambda stack, boot, reverse: stack
+        try:
+            sides["card_dwh_unshifted_control"] = side(dev)
+        finally:
+            LK._shift_prev = plain_shift
+        if not (torch.equal(rerun[0], sides["card"][0]) and all(
+                torch.equal(rerun[1][n], sides["card"][1][n]) for n in g64)):
+            raise AssertionError(f"the card's bf16 {name} step is not "
+                                 "bit-identical on a rerun")
+        row = {"loss_f64": float(loss64), "launches": launches,
+               "card_rerun_bit_identical": True}
+        for label, (loss, grads) in sides.items():
+            errs = rnn_bf16_errors(loss, grads, loss64, g64)
+            share = {n: e / (2 * jax_errs[n] + RNN_BF16_FLOOR)
+                     for n, e in errs.items()}
+            worst = max(share, key=share.get)
+            row[label] = {"loss": float(loss), "worst": worst,
+                          "err": errs[worst], "jax": jax_errs[worst],
+                          "share_of_limit": share[worst],
+                          "over_limit": [n for n, x in share.items() if x > 1]}
+        for label in ("card", "cpu"):
+            if row[label]["over_limit"]:
+                raise AssertionError(f"bf16 {name} {label} step vs the f64 "
+                                     f"witness: {row}")
+        if not row["card_dwh_unshifted_control"]["over_limit"]:
+            raise AssertionError(f"the bf16 {name} witness does not catch a "
+                                 f"dW_h over unshifted stacks: {row}")
+        out[name] = row
+    return out
+
+
+def rnn_rates(blocks: dict, bs: int, unit: str) -> dict:
+    out = rates(blocks, bs)
+    for d in out:
+        out[d][unit] = out[d].pop("images_per_s")
+    return out
+
+
+def train_text_bf16(dev, hidden=1280, vocab=30000, embed=128, bs=64,
+                    seqlen=100, steps=10) -> tuple[dict, dict]:
+    """The LSTM text classifier at ``bench_lstm``'s configuration through
+    ``trainer.SGD(compute_dtype=torch.bfloat16)`` (Adam 2e-3, bf16
+    moments) beside f32 from the same parameters: 2 warm-up steps each,
+    ``steps`` timed steps each in blocks of ``steps // 2`` (bf16, f32, f32,
+    bf16) with exactly one ``lstm_fwd_bf16``, ``lstm_bwd_bf16``,
+    ``embedding_gather_bf16`` and (the lookup's backward in f32)
+    ``embedding_scatter_add`` launch a bf16 step and no other form's;
+    sequences/s, step ms, peak memory, the bf16 costs finite, the masters
+    f32; a 3-step bf16 profile.  Returns (the phase's result, the bf16
+    forms' launches over the timed bf16 steps)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers.base import reset_name_counters
+
+    reset_name_counters()
+    cost = text_classifier(hidden, vocab, embed)
+    created = paddle.parameters.create(cost)
+    carried = {n: created[n] for n in created.names()}
+    rng = np.random.default_rng(0)
+    for n in carried:
+        if n.startswith("___lstmemory") and n.endswith(".wbias"):
+            carried[n] = (0.1 * rng.standard_normal(carried[n].shape)
+                          ).astype(np.float32)
+
+    def batches(k):
+        return [[(rng.integers(0, vocab, size=seqlen).tolist(),
+                  int(rng.integers(0, 2))) for _ in range(bs)]
+                for _ in range(k)]
+
+    trainers = {d: paddle.trainer.SGD(
+        cost=cost, parameters=Parameters.from_numpy(carried),
+        update_equation=paddle.optimizer.Adam(
+            learning_rate=2e-3, moment_dtype=torch.bfloat16),
+        device=dev, compute_dtype=dt)
+        for d, dt in (("bf16", torch.bfloat16), ("f32", None))}
+    warm = batches(2)
+    for tr in trainers.values():
+        tr.train(reader=lambda: iter(warm), num_passes=1,
+                 event_handler=lambda e: None)
+    want = {"bf16": {"lstm_fwd_bf16": 1, "lstm_bwd_bf16": 1,
+                     "gather_bf16": 1, "scatter_add": 1},
+            "f32": {"lstm_fwd": 1, "lstm_bwd": 1, "gather": 1,
+                    "scatter_add": 1}}
+    blocks = dtype_blocks(trainers, batches(steps // 2), want,
+                          stamp_factory, rnn_bf16_counters())
+    out = rnn_rates(blocks, bs, "sequences_per_s")
+    if not all(np.isfinite(out[d]["costs"]).all() for d in out):
+        raise AssertionError(f"text costs not finite: {out}")
+    if not all(v.dtype == np.float32 for v in
+               (trainers["bf16"].parameters[n] for n in carried)):
+        raise AssertionError("the bf16 text trainer's masters are not f32")
+    traced = batches(3)
+    prof = profile_window(lambda: trainers["bf16"].train(
+        reader=lambda: iter(traced), num_passes=1,
+        event_handler=lambda e: None), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / out["bf16"]["step_ms_p50"])
+    launched = {k: sum(b[k] for b in blocks["bf16"]["launches"])
+                for k in want["bf16"]}
+    del trainers
+    return ({"phase": "train_text_bf16", "model": "LSTM text classifier "
+             "(bench.py _lstm_classify_cost)", "hidden": hidden,
+             "vocab": vocab, "embed": embed, "batch": bs,
+             "tokens_per_sequence": seqlen, "compute_dtype": "bfloat16",
+             "masters": "float32", "adam_moments": "bfloat16", "lr": 2e-3,
+             "steps_per_dtype": steps, **out,
+             "bf16_vs_f32_sequences_per_s":
+                 out["bf16"]["sequences_per_s"] / out["f32"][
+                     "sequences_per_s"],
+             "profile_bf16": prof, "bf16_launches": launched}, launched)
+
+
+def train_crnn_bf16(dev, bs=64, steps=10) -> tuple[dict, dict]:
+    """The OCR CRNN at ``bench_crnn``'s configuration through
+    ``trainer.SGD(compute_dtype=torch.bfloat16)`` (Adam 1e-3, bf16
+    moments) beside f32 from the same parameters, as
+    :func:`train_text_bf16`: exactly one ``bilstm_fwd_bf16``, two
+    ``lstm_bwd_bf16`` (the BiLSTM's backward over its f32 projection),
+    two ``conv2d_direct_bf16`` and one CTC (f32) launch a bf16 step and
+    no other form's; samples/s, step ms, peak memory, finite bf16 costs,
+    f32 masters and BN states; a 3-step bf16 profile."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import ocr_crnn
+
+    classes = 26
+    reset_name_counters()
+    cost, _, order = ocr_crnn.crnn_ctc_cost(num_classes=classes, rnn_size=64)
+    feeding = {n: i for i, n in enumerate(order)}
+    created = paddle.parameters.create(cost)
+    carried = {n: created[n] for n in created.names()}
+    rng = np.random.default_rng(0)
+    trainers = {d: paddle.trainer.SGD(
+        cost=cost, parameters=Parameters.from_numpy(carried),
+        update_equation=paddle.optimizer.Adam(
+            learning_rate=1e-3, moment_dtype=torch.bfloat16),
+        device=dev, compute_dtype=dt)
+        for d, dt in (("bf16", torch.bfloat16), ("f32", None))}
+    warm = crnn_feed_batches(rng, 2, bs, classes)
+    for tr in trainers.values():
+        tr.train(reader=lambda: iter(warm), num_passes=1,
+                 event_handler=lambda e: None, feeding=feeding)
+    want = {"bf16": {"bilstm_bf16": 1, "lstm_bwd_bf16": 2,
+                     "conv2d_direct_bf16": 2, "ctc": 1},
+            "f32": {"bilstm": 1, "lstm_bwd": 2, "conv2d_direct": 2,
+                    "ctc": 1}}
+    blocks = dtype_blocks(trainers, crnn_feed_batches(rng, steps // 2, bs,
+                                                      classes), want,
+                          stamp_factory, rnn_bf16_counters(), feeding)
+    out = rnn_rates(blocks, bs, "samples_per_s")
+    if not all(np.isfinite(out[d]["costs"]).all() for d in out):
+        raise AssertionError(f"CRNN costs not finite: {out}")
+    tr = trainers["bf16"]
+    if not (all(tr.parameters[n].dtype == np.float32 for n in carried)
+            and all(v.dtype == torch.float32 for v in tr.states.values())):
+        raise AssertionError("the bf16 CRNN's masters or BN states are not "
+                             "f32")
+    traced = crnn_feed_batches(rng, 3, bs, classes)
+    prof = profile_window(lambda: tr.train(
+        reader=lambda: iter(traced), num_passes=1,
+        event_handler=lambda e: None, feeding=feeding), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / out["bf16"]["step_ms_p50"])
+    launched = {k: sum(b[k] for b in blocks["bf16"]["launches"])
+                for k in want["bf16"]}
+    del trainers, tr
+    return ({"phase": "train_crnn_bf16", "model": "OCR CRNN "
+             "(models/ocr_crnn.crnn_ctc_cost, bench_crnn)", "batch": bs,
+             "classes": classes, "compute_dtype": "bfloat16",
+             "masters": "float32", "adam_moments": "bfloat16", "lr": 1e-3,
+             "steps_per_dtype": steps, **out,
+             "bf16_vs_f32_samples_per_s":
+                 out["bf16"]["samples_per_s"] / out["f32"]["samples_per_s"],
+             "profile_bf16": prof, "bf16_launches": launched}, launched)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -5845,6 +6808,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_bf16, lm_bf16_n = train_lm_bf16(dev)
     print(json.dumps(lm_bf16), flush=True)
+    torch.cuda.empty_cache()
+    rnn_bf16_rows, rnn_bf16_summary = check_rnn_bf16_kernels(dev, Timer(dev))
+    for row in rnn_bf16_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(rnn_bf16_summary), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "rnn_bf16_witness",
+                      **rnn_bf16_witness(dev)}), flush=True)
+    text_bf16, text_bf16_n = train_text_bf16(dev)
+    print(json.dumps(text_bf16), flush=True)
+    torch.cuda.empty_cache()
+    crnn_bf16, crnn_bf16_n = train_crnn_bf16(dev)
+    print(json.dumps(crnn_bf16), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -5907,6 +6883,19 @@ def main() -> int:
     for row in flash_bf16_rows:
         rows.append({**row, "launches": lm_bf16_n[row["name"]],
                      "launches_on": "LM bf16 train"})
+    # rows 5, 7 and 17 in bf16: the bf16 text and CRNN training runs'
+    # launches (the CRNN's backward row counts both directions)
+    on_path = {"lstm_seq_fwd_bf16": (text_bf16_n["lstm_fwd_bf16"], "text"),
+               "lstm_seq_bwd_bf16": (text_bf16_n["lstm_bwd_bf16"], "text"),
+               "lstm_seq_bwd_bf16_crnn": (crnn_bf16_n["lstm_bwd_bf16"],
+                                          "OCR CRNN"),
+               "bilstm_seq_fwd_bf16": (crnn_bf16_n["bilstm_bf16"],
+                                       "OCR CRNN"),
+               "embedding_gather_bf16": (text_bf16_n["gather_bf16"], "text")}
+    for row in rnn_bf16_rows:
+        launches, model = on_path[row["name"]]
+        rows.append({**row, "launches": launches,
+                     "launches_on": f"{model} bf16 train"})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.config import parse_state
 from paddle_tpu_torch.core import initializer as I
+from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.core.parameters import ParamSpec
@@ -784,12 +785,15 @@ def lstmemory(input: LayerOutput, reverse: bool = False, act=None,
             xw = xw + full[:4 * d]
             peep = full[4 * d:]
         zeros = torch.zeros(b, d, dtype=xw.dtype, device=xw.device)
-        init = rnn_ops.LSTMState(h=zeros, c=zeros)
         if (ga.name, sa.name, oa.name) == ("sigmoid", "tanh", "tanh"):
-            out, _ = rnn_ops.lstm_fused(SequenceBatch(xw, x.length),
-                                        params[wspec.name], init,
-                                        peephole=peep, reverse=reverse)
+            # c0 in f32, as the JAX package boots it (the kernels keep c
+            # in f32)
+            out, _ = rnn_ops.lstm_fused(
+                SequenceBatch(xw, x.length), params[wspec.name],
+                rnn_ops.LSTMState(h=zeros, c=at_least_f32(zeros)),
+                peephole=peep, reverse=reverse)
             return out
+        init = rnn_ops.LSTMState(h=zeros, c=zeros)
 
         def step(state, xt):
             return rnn_ops.lstm_cell(xt, state, params[wspec.name], ga, sa,

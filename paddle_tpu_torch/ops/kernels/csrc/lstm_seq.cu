@@ -69,7 +69,10 @@
 // L2 (__ldcg, cp.async.cg), never from a stale L1 line.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -672,6 +675,625 @@ extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
   return stages == 3
       ? cooperative(lstm_bwd_kernel<false, 3>, grid, n, smem, args, st)
       : cooperative(lstm_bwd_kernel<false, 2>, grid, n, smem, args, st);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forms: lstm_fwd_bf16 and lstm_bwd_bf16 (remat or stored gates,
+// one template flag as in f32; xw in bf16 or f32, a template on its
+// element type).  The same cooperative, persistent design as above, with
+// the recurrent products on the tensor cores (mma.sync.m16n8k16 of
+// mma_bf16.cuh, f32 accumulators) and the rounding points of the JAX
+// kernels with bf16 operands (lstm.py:94-132, _fwd_call :212, _bwd_kernel
+// :147, _bwd_remat_kernel :355): the cell in f32 from registers, the h
+// carry rounded to bf16 (hs is the carry the next step reads, so the
+// freeze keeps the rounded value), cs, h_T and c_T in f32 (h_T unrounded),
+// the gates slab in bf16; backward: the dh and dc carries in f32, the
+// remat gates rounded through bf16, dh_{t-1} from dgates rounded to bf16,
+// dgates, dpeep, dh0 and dc0 out in f32.
+//
+// Plan (PlanBf16; ops/kernels/lstm.py's _bf16_smem_bytes mirrors it).  A
+// block owns an even number U of units (ceil(D / SMs) rounded up: D 1280
+// on 132 SMs gives U 10, 128 blocks; D 64 gives U 2, 32 blocks), so its 4U
+// gate columns, packed [U][4] (a unit's four gates side by side), are
+// U / 2 whole n8 tiles of two units each.  It keeps W_h's slice
+// transposed, [KP][LDK] bf16: row 4 uu + g, the reduction (D) contiguous;
+// rows past 4U are zero up to KP = 16 ceil(4U / 16) (the depth of the
+// backward's product: 40 columns pad to 48), columns past D zero up to a
+// multiple of 16 plus 8 (an odd count of 16-byte groups: the 8 rows an
+// ldmatrix phase reads fall in distinct banks).  At D 1280, U 10: 123,648
+// bytes, against 102,400 unpadded.  The h rows stream through a ring of
+// 64 x 64 slices (cp.async.cg, L2).  Eight warps: warp w takes row tile
+// w % 4 (16 of a 64-row chunk) and every other 16-deep step of the
+// reduction (w / 4); the second half's sums go through shared memory and
+// the first half adds them, in that order, so a rerun gives the same bits.
+//
+// The cell from the accumulators.  In an m16n8 accumulator the lane with
+// lane % 4 = q holds columns 2q, 2q + 1 of rows g and g + 8 (g = lane / 4):
+// lanes q = 0, 1 hold unit 2j's (i, f) and (g, o), lanes 2, 3 unit 2j + 1's.
+// One __shfl_xor_sync(..., 1) swaps halves: the even lane keeps row g and
+// takes its partner's (g, o) of that row, the odd lane keeps row g + 8 and
+// takes its partner's (i, f).  Each lane then runs the cell of one (row,
+// unit) a tile, in f32, from registers.
+//
+// Backward, reverse time, per step: (A) the gates (recomputed by the
+// forward's product and cell, rounded through bf16, or read from the
+// slab), the cotangents in f32 from dh = carry + dhs[t] and the dc carry,
+// dgates written in f32 and, rounded to bf16, into a [64][KP + 8] tile
+// (dead cells and the pad columns zero); this block's share of dh_{t-1},
+// P[block][k][b] = sum over its 4U columns c of dgates[b, c] W_h[k, c], is
+// one product of that tile (K = KP, zero-padded) by the W slice read
+// transposed (ldmatrix.trans), written in f32 for every k.  Grid barrier.
+// (B) dh_{t-1} of the own units: the f32 partials summed in block order.
+// No atomics, so reruns are bit-identical.
+//
+// What bounds them on an H100: the step-to-step chain.  At B 64, D 1280 a
+// step's product is 0.84 GFLOP (0.85 us at 989 TFLOP/s) but every block
+// reads all of h_{t-1} (160 KB) through L2 each step, and the backward
+// writes and reads its f32 partials (42 MB a step at 128 blocks) before
+// the next step can start.
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace tc = bf16_tc;
+
+constexpr int kWarpsB = 8;                // 4 row tiles x 2 halves of K
+constexpr int kThreadsB = 32 * kWarpsB;
+constexpr int kKC = 64;                   // depth of a staged slice of h
+constexpr int kALd = kKC + 8;             // its padded row (bf16)
+constexpr int kStageB = kRows * kALd;     // bf16 elements a stage
+constexpr int kMaxNT = kMaxUnits / 2;     // n8 tiles of a block's columns
+
+__host__ __device__ inline int ld_k(int D) { return 16 * ((D + 15) / 16) + 8; }
+__host__ __device__ inline int rows_kp(int U) {
+  return 16 * ((4 * U + 15) / 16);
+}
+
+// bytes: the W slice; the ring of h slices or the halves' f32 sums; the
+// backward's rounded dgates tile [kRows][KP + 8] and dpeep terms
+// [3][kRows][U]
+struct PlanBf16 {
+  size_t w, region, total;
+  __host__ __device__ PlanBf16(int D, int U, int stages) {
+    w = (size_t)rows_kp(U) * ld_k(D) * 2;
+    const size_t ring = (size_t)stages * kStageB * 2;
+    const size_t sums = (size_t)kRows * 4 * U * 4;
+    region = ring > sums ? ring : sums;
+    total = w + region + (size_t)kRows * (rows_kp(U) + 8) * 2 +
+            (size_t)3 * kRows * U * 4;
+  }
+};
+
+__device__ __forceinline__ float b2f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float rnd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// a bf16 another block wrote in this launch, read through L2
+__device__ __forceinline__ float ldcg_bf(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+__device__ __forceinline__ void load_slice_bf16(bf16* w_s, const bf16* wpack,
+                                                size_t elems) {
+  const uint4* src = reinterpret_cast<const uint4*>(
+      wpack + (size_t)blockIdx.x * elems);
+  uint4* dst = reinterpret_cast<uint4*>(w_s);
+  for (size_t e = threadIdx.x; e < elems / 8; e += blockDim.x) dst[e] = src[e];
+}
+
+// Stage slice c of A (rows [0, rows) at a + r * lda, columns c kKC ..
+// c kKC + kKC - 1, zero past rows and K) into buf [kRows][kALd].
+__device__ __forceinline__ void load_slice_a(bf16* buf, const bf16* a,
+                                             size_t lda, int rows, int K,
+                                             int c) {
+  for (int p = threadIdx.x; p < kRows * (kKC / 8); p += kThreadsB) {
+    const int r = p / (kKC / 8), q = p % (kKC / 8);
+    const int k = c * kKC + 8 * q;
+    const bool ok = r < rows && k < K;
+    tc::cp_async16(buf + r * kALd + 8 * q, ok ? a + r * lda + k : a, ok);
+  }
+}
+
+// acc[j] = the m16n8 tile (row tile warp % 4, columns 8j..8j+7 of the
+// block's 4U) of A [rows x K] . W, over this warp's half of the 16-deep
+// steps (warp / 4: every other step).  Every thread of the block calls it.
+template <int S>
+__device__ __forceinline__ void product_bf16(const bf16* a, size_t lda,
+                                             int rows, int K, const bf16* w_s,
+                                             int LDK, int NT, bf16* a_s,
+                                             float (&acc)[kMaxNT][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mi = warp & 3, kh = warp >> 2;
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int nc = (K + kKC - 1) / kKC;
+#pragma unroll
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nc) load_slice_a(a_s + c * kStageB, a, lda, rows, K, c);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < nc; ++c) {
+    tc::cp_async_wait<S - 2>();
+    __syncthreads();
+    const int cn = c + S - 1;
+    if (cn < nc) load_slice_a(a_s + (cn % S) * kStageB, a, lda, rows, K, cn);
+    tc::cp_async_commit();
+    const bf16* buf = a_s + (c % S) * kStageB;
+    const int nks = (min(kKC, K - c * kKC) + 15) / 16;
+    for (int ks = kh; ks < nks; ks += 2) {
+      uint32_t af[4];
+      tc::ldmatrix_x4(af, buf + (16 * mi + (lane & 15)) * kALd + 16 * ks +
+                              8 * (lane >> 4));
+      const int k0 = c * kKC + 16 * ks;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        if (j >= NT) break;
+        uint32_t b[2];
+        tc::ldmatrix_x2(b, w_s + (size_t)(8 * j + (lane & 7)) * LDK + k0 +
+                               8 * ((lane >> 3) & 1));
+        tc::mma_bf16(acc[j], af, b[0], b[1]);
+      }
+    }
+  }
+  __syncthreads();       // every slice read: the ring is free
+}
+
+// The halves' sums added (first half + second), then each lane of a
+// first-half warp gets, in place of its accumulators of tile j, the four
+// gate products of its cell there: row 16 (warp % 4) + lane / 4 + 8 (lane
+// % 2), unit 2j + (lane / 2) % 2.
+__device__ __forceinline__ void gather_gates(float* sums, int NT,
+                                             float (&acc)[kMaxNT][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mi = warp & 3, kh = warp >> 2;
+  if (kh == 1) {
+#pragma unroll
+    for (int j = 0; j < kMaxNT; ++j) {
+      if (j >= NT) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sums[((mi * NT + j) * 4 + e) * 32 + lane] = acc[j][e];
+    }
+  }
+  __syncthreads();
+  if (kh == 1) return;
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j) {
+    if (j >= NT) break;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = acc[j][e] + sums[((mi * NT + j) * 4 + e) * 32 + lane];
+    // the even lane sends its row g + 8's (i, f), the odd one its row g's
+    // (g, o)
+    const float s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+    const float s1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+    acc[j][0] = odd ? s0 : v[0];
+    acc[j][1] = odd ? s1 : v[1];
+    acc[j][2] = odd ? v[2] : s0;
+    acc[j][3] = odd ? v[3] : s1;
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreadsB, 1)
+lstm_fwd_bf16_kernel(const bf16* __restrict__ xw,
+                     const float* __restrict__ mask,
+                     const bf16* __restrict__ wpack,
+                     const bf16* __restrict__ peep, const bf16* h0,
+                     const float* c0, bf16* hs, float* cs, bf16* gates,
+                     float* hT, float* cT, int B, int T, int D, int U,
+                     int reverse) {
+  extern __shared__ float4 smem4[];
+  const PlanBf16 plan(D, U, S);
+  char* base = reinterpret_cast<char*>(smem4);
+  bf16* w_s = reinterpret_cast<bf16*>(base);
+  bf16* a_s = reinterpret_cast<bf16*>(base + plan.w);
+  float* sums = reinterpret_cast<float*>(base + plan.w);
+  const int LDK = ld_k(D), NT = U / 2;
+  const int lane = threadIdx.x & 31;
+  const bool first_half = (threadIdx.x >> 5) < 4;
+  const int rl = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (lane & 1);
+  const int u0 = blockIdx.x * U + ((lane >> 1) & 1);  // + 2j in tile j
+  load_slice_bf16(w_s, wpack, (size_t)rows_kp(U) * LDK);
+  float pp[kMaxNT][3];
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j) {
+    const int u = u0 + 2 * j;
+    const bool live = j < NT && u < D;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pp[j][k] = live ? b2f(peep[k * D + u]) : 0.f;
+  }
+  cg::grid_group grid = cg::this_grid();
+  const size_t TD = (size_t)T * D, T4D = TD * 4;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      const int b = b0 + rl;
+      const bool rok = first_half && rl < rows;
+      // the cell's other operands, fetched while the product runs
+      float x[kMaxNT][4], hp[kMaxNT], cp[kMaxNT];
+      const float m = rok ? mask[(size_t)b * T + t] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        const int u = u0 + 2 * j;
+        if (!rok || j >= NT || u >= D) continue;
+        const bf16* xr = xw + b * T4D + (size_t)t * 4 * D;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[j][g] = b2f(xr[g * D + u]);
+        const size_t bu = (size_t)b * D + u;
+        hp[j] = s == 0 ? ldcg_bf(h0 + bu)
+                       : ldcg_bf(hs + b * TD + (size_t)tp * D + u);
+        cp[j] = s == 0 ? __ldcg(c0 + bu)
+                       : __ldcg(cs + b * TD + (size_t)tp * D + u);
+      }
+      float pre[kMaxNT][4];
+      const bf16* a = s == 0 ? h0 + (size_t)b0 * D
+                             : hs + b0 * TD + (size_t)tp * D;
+      product_bf16<S>(a, s == 0 ? D : TD, rows, D, w_s, LDK, NT, a_s, pre);
+      gather_gates(sums, NT, pre);
+      if (first_half) {
+#pragma unroll
+        for (int j = 0; j < kMaxNT; ++j) {
+          const int u = u0 + 2 * j;
+          if (!rok || j >= NT || u >= D) continue;
+          const Gates q = cell(x[j][0], x[j][1], x[j][2], x[j][3], pre[j][0],
+                               pre[j][1], pre[j][2], pre[j][3], cp[j],
+                               pp[j][0], pp[j][1], pp[j][2]);
+          const float hn = m * q.h + (1.f - m) * hp[j];
+          const float cn = m * q.c + (1.f - m) * cp[j];
+          const size_t o = b * TD + (size_t)t * D + u;
+          hs[o] = __float2bfloat16_rn(hn);
+          cs[o] = cn;
+          if (gates != nullptr) {
+            bf16* gr = gates + b * T4D + (size_t)t * 4 * D;
+            gr[u] = __float2bfloat16_rn(q.i);
+            gr[D + u] = __float2bfloat16_rn(q.f);
+            gr[2 * D + u] = __float2bfloat16_rn(q.g);
+            gr[3 * D + u] = __float2bfloat16_rn(q.o);
+          }
+          if (s == T - 1) {
+            hT[(size_t)b * D + u] = hn;
+            cT[(size_t)b * D + u] = cn;
+          }
+        }
+      }
+      __syncthreads();   // the sums and the ring are free for the next chunk
+    }
+    grid.sync();
+  }
+}
+
+// Pb[k][r] (rows r < rows; Pb is this block's [D][B] share at column b0)
+// = sum over the tile's KP columns c of dg_s[r][c] W_h[k][c] for every k
+// < D: the rounded dgates tile as A, the W slice [c][k] as B through
+// ldmatrix.trans; warp w takes the n8 tiles of k w, w + 8, ...
+__device__ __forceinline__ void partial_product(const bf16* dg_s, int LDG,
+                                                int KS, const bf16* w_s,
+                                                int LDK, int D, float* Pb,
+                                                int B, int rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  uint32_t af[4][4][4];   // [row tile][16-deep step][register]
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < KS)
+        tc::ldmatrix_x4(af[mt][ks], dg_s + (16 * mt + (lane & 15)) * LDG +
+                                        16 * ks + 8 * (lane >> 4));
+  for (int nt = warp; nt < D / 8; nt += kWarpsB) {
+    uint32_t bfr[4][2];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < KS)
+        tc::ldmatrix_x2_trans(bfr[ks], w_s + (size_t)(16 * ks + (lane & 15)) *
+                                                 LDK + 8 * nt);
+    const int k = 8 * nt + 2 * q;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      if (16 * mt >= rows) break;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        if (ks < KS) tc::mma_bf16(acc, af[mt][ks], bfr[ks][0], bfr[ks][1]);
+      const int r = 16 * mt + g;
+      if (r < rows) {
+        Pb[(size_t)k * B + r] = acc[0];
+        Pb[(size_t)(k + 1) * B + r] = acc[1];
+      }
+      if (r + 8 < rows) {
+        Pb[(size_t)k * B + r + 8] = acc[2];
+        Pb[(size_t)(k + 1) * B + r + 8] = acc[3];
+      }
+    }
+  }
+}
+
+template <bool kRemat, typename XT, int S>
+__global__ void __launch_bounds__(kThreadsB, 1)
+lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
+                     const bf16* __restrict__ gates_in,
+                     const float* __restrict__ mask,
+                     const bf16* __restrict__ wpack,
+                     const bf16* __restrict__ peep, const bf16* h0,
+                     const float* c0, const bf16* hs, const float* cs,
+                     const bf16* __restrict__ dhs, const float* dhT,
+                     const float* dcT, float* dgates, float* dh, float* dc,
+                     float* dpeep, float* part, int B, int T, int D, int U,
+                     int reverse) {
+  extern __shared__ float4 smem4[];
+  const PlanBf16 plan(D, U, S);
+  const int LDK = ld_k(D), KP = rows_kp(U), LDG = KP + 8, NT = U / 2;
+  char* base = reinterpret_cast<char*>(smem4);
+  bf16* w_s = reinterpret_cast<bf16*>(base);
+  bf16* a_s = reinterpret_cast<bf16*>(base + plan.w);
+  float* sums = reinterpret_cast<float*>(base + plan.w);
+  bf16* dg_s = reinterpret_cast<bf16*>(base + plan.w + plan.region);
+  float* contrib = reinterpret_cast<float*>(dg_s + kRows * LDG);  // [3][kRows][U]
+  const int lane = threadIdx.x & 31;
+  const bool first_half = (threadIdx.x >> 5) < 4;
+  const int rl = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (lane & 1);
+  const int uin = (lane >> 1) & 1;             // unit 2j + uin of tile j
+  const int u0 = blockIdx.x * U;
+  const int nu = min(U, D - u0);
+  const int nblk = gridDim.x;
+  load_slice_bf16(w_s, wpack, (size_t)KP * LDK);
+  // the tile's columns past 4U stay zero: the product's depth is KP
+  for (int e = threadIdx.x; e < kRows * (LDG - 4 * U); e += kThreadsB)
+    dg_s[(e / (LDG - 4 * U)) * LDG + 4 * U + e % (LDG - 4 * U)] =
+        __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x; e < B * nu; e += kThreadsB) {
+    const size_t o = (size_t)(e / nu) * D + u0 + e % nu;
+    dh[o] = dhT[o];
+    dc[o] = dcT[o];
+  }
+  float pp[kMaxNT][3];
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j) {
+    const int u = u0 + 2 * j + uin;
+    const bool live = j < NT && u < D;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pp[j][k] = live ? b2f(peep[k * D + u]) : 0.f;
+  }
+  float dp_acc = 0.f;   // thread k U + q owns dpeep[k][u0 + q]
+  cg::grid_group grid = cg::this_grid();
+  const size_t TD = (size_t)T * D, T4D = TD * 4;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;   // computation order reversed
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool first = reverse ? t == T - 1 : t == 0;
+    float* P = part + (size_t)(s & 1) * nblk * D * B;   // [nblk][D][B]
+    float dp_step = 0.f;
+    __syncthreads();
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      const int b = b0 + rl;
+      const bool rok = first_half && rl < rows;
+      // (A) the operands of this lane's cells, fetched while the remat
+      // product runs
+      float x[kMaxNT][4], dhv[kMaxNT], dcv[kMaxNT], cp[kMaxNT], c[kMaxNT];
+      const float m = rok ? mask[(size_t)b * T + t] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        const int u = u0 + 2 * j + uin;
+        if (!rok || j >= NT || u >= D) continue;
+        const size_t bu = (size_t)b * D + u;
+        const size_t bt = b * TD + (size_t)t * D + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          x[j][g] = kRemat ? to_f(xw[b * T4D + (size_t)t * 4 * D + g * D + u])
+                           : b2f(gates_in[b * T4D + (size_t)t * 4 * D +
+                                          g * D + u]);
+        dhv[j] = dh[bu] + b2f(dhs[bt]);
+        dcv[j] = dc[bu];
+        cp[j] = first ? __ldcg(c0 + bu)
+                      : __ldcg(cs + b * TD + (size_t)tp * D + u);
+        c[j] = __ldcg(cs + bt);
+      }
+      float pre[kMaxNT][4];
+      if (kRemat) {
+        const bf16* a = first ? h0 + (size_t)b0 * D
+                              : hs + b0 * TD + (size_t)tp * D;
+        product_bf16<S>(a, first ? D : TD, rows, D, w_s, LDK, NT, a_s, pre);
+        gather_gates(sums, NT, pre);
+      }
+      if (first_half) {
+#pragma unroll
+        for (int j = 0; j < kMaxNT; ++j) {
+          if (j >= NT) break;
+          const int uu = 2 * j + uin, u = u0 + uu;
+          float d_i = 0.f, d_f = 0.f, d_g = 0.f, d_o = 0.f;
+          float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+          if (rok && u < D) {
+            float gi = x[j][0], gf = x[j][1], gg = x[j][2], go = x[j][3];
+            if (kRemat) {
+              const Gates q = cell(x[j][0], x[j][1], x[j][2], x[j][3],
+                                   pre[j][0], pre[j][1], pre[j][2],
+                                   pre[j][3], cp[j], pp[j][0], pp[j][1],
+                                   pp[j][2]);
+              gi = rnd(q.i);
+              gf = rnd(q.f);
+              gg = rnd(q.g);
+              go = rnd(q.o);
+            }
+            const float tcv = tanhf(c[j]);
+            d_o = dhv[j] * tcv * go * (1.f - go) * m;
+            const float dct = (dcv[j] + dhv[j] * go * (1.f - tcv * tcv)) * m
+                              + d_o * pp[j][2];
+            d_i = dct * gg * gi * (1.f - gi);
+            d_f = dct * cp[j] * gf * (1.f - gf);
+            d_g = dct * gi * (1.f - gg * gg);
+            float* dgr = dgates + b * T4D + (size_t)t * 4 * D;
+            dgr[u] = d_i;
+            dgr[D + u] = d_f;
+            dgr[2 * D + u] = d_g;
+            dgr[3 * D + u] = d_o;
+            t0 = d_i * cp[j];
+            t1 = d_f * cp[j];
+            t2 = d_o * c[j];
+            const size_t bu = (size_t)b * D + u;
+            dh[bu] = (1.f - m) * dhv[j];  // (B) adds the partials' sum
+            dc[bu] = dct * gf + d_i * pp[j][0] + d_f * pp[j][1] +
+                     (1.f - m) * dcv[j];
+          }
+          // the rounded dgates of the cell (zero where it is dead)
+          const uint2 pk = make_uint2(tc::pack_bf16x2(d_i, d_f),
+                                      tc::pack_bf16x2(d_g, d_o));
+          *reinterpret_cast<uint2*>(dg_s + rl * LDG + 4 * uu) = pk;
+          contrib[(0 * kRows + rl) * U + uu] = t0;
+          contrib[(1 * kRows + rl) * U + uu] = t1;
+          contrib[(2 * kRows + rl) * U + uu] = t2;
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < 3 * U) {
+        const int k = threadIdx.x / U, q = threadIdx.x % U;
+        float sum = 0.f;
+        for (int r = 0; r < kRows; ++r) sum += contrib[(k * kRows + r) * U + q];
+        dp_step += sum;
+      }
+      partial_product(dg_s, LDG, KP / 16, w_s, LDK, D,
+                      P + (size_t)blockIdx.x * D * B + b0, B, rows);
+      __syncthreads();   // the tile, the terms and the sums are free
+    }
+    dp_acc += dp_step;
+    grid.sync();
+    // (B) dh_{t-1} of the own units: the partials summed in block order,
+    // four outputs a thread interleaved
+    const int n_out = B * nu;
+    for (int e0 = threadIdx.x; e0 < n_out; e0 += 4 * kThreadsB) {
+      const float* src[4];
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int e = min(e0 + v * kThreadsB, n_out - 1);
+        src[v] = P + (size_t)(u0 + e / B) * B + e % B;
+      }
+#pragma unroll 8
+      for (int k = 0; k < nblk; ++k)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          sum[v] += __ldcg(src[v] + (size_t)k * D * B);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int e = e0 + v * kThreadsB;
+        if (e >= n_out) continue;
+        const size_t bu = (size_t)(e % B) * D + u0 + e / B;
+        dh[bu] = sum[v] + dh[bu];
+      }
+    }
+  }
+  if (threadIdx.x < 3 * U) {
+    const int k = threadIdx.x / U, q = threadIdx.x % U;
+    if (q < nu) dpeep[(size_t)k * D + u0 + q] = dp_acc;
+  }
+}
+
+int stages_bf16(int D, int U) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  for (int s = 3; s >= 2; --s)
+    if (PlanBf16(D, U, s).total <= (size_t)optin) return s;
+  return 0;
+}
+
+bool valid_bf16(int B, int T, int D, int U) {
+  return B > 0 && T > 0 && D > 0 && D % 8 == 0 && U > 0 && U % 2 == 0 &&
+         U <= kMaxUnits;
+}
+
+template <bool kRemat, typename XT>
+int launch_bwd_bf16(int stages, int grid, size_t smem, void** args,
+                    cudaStream_t st) {
+  return stages == 3
+      ? cooperative(lstm_bwd_bf16_kernel<kRemat, XT, 3>, grid, kThreadsB,
+                    smem, args, st)
+      : cooperative(lstm_bwd_bf16_kernel<kRemat, XT, 2>, grid, kThreadsB,
+                    smem, args, st);
+}
+
+}  // namespace
+
+// The bf16 forward: xw [B, T, 4D], W_h's pack [blocks][KP][LDK], the
+// peepholes [3, D] and h0 [B, D] in bf16; mask [B, T] and c0 in f32; hs and
+// the gates slab (nullptr: none) bf16, cs, hT, cT f32.  D % 8 == 0; U even.
+extern "C" int lstm_fwd_bf16(const void* xw, const float* mask,
+                             const void* wpack, const void* peep,
+                             const void* h0, const float* c0, void* hs,
+                             float* cs, void* gates, float* hT, float* cT,
+                             int B, int T, int D, int U, int reverse,
+                             void* stream) {
+  if (!valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const int stages = stages_bf16(D, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = PlanBf16(D, U, stages).total;
+  const bf16* x = static_cast<const bf16*>(xw);
+  const bf16* w = static_cast<const bf16*>(wpack);
+  const bf16* p = static_cast<const bf16*>(peep);
+  const bf16* h = static_cast<const bf16*>(h0);
+  bf16* o = static_cast<bf16*>(hs);
+  bf16* g = static_cast<bf16*>(gates);
+  void* args[] = {&x, &mask, &w, &p, &h, &c0, &o, &cs, &g, &hT, &cT,
+                  &B, &T, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? cooperative(lstm_fwd_bf16_kernel<3>, grid, kThreadsB, smem, args, st)
+      : cooperative(lstm_fwd_bf16_kernel<2>, grid, kThreadsB, smem, args, st);
+}
+
+// The bf16 backward: remat != 0 recomputes the gates from xw (bf16, or
+// f32 when xw_f32 != 0) and the shifted h/c stacks, remat == 0 reads the
+// forward's bf16 slab gates_in; hs, dhs, the pack, peep and h0 bf16; mask,
+// c0, cs, dhT, dcT f32; dgates, dh, dc, dpeep f32.  part is f32 scratch of
+// 2 * blocks * D * B.
+extern "C" int lstm_bwd_bf16(const void* xw, const void* gates_in,
+                             const float* mask, const void* wpack,
+                             const void* peep, const void* h0,
+                             const float* c0, const void* hs, const float* cs,
+                             const void* dhs, const float* dhT,
+                             const float* dcT, float* dgates, float* dh,
+                             float* dc, float* dpeep, float* part, int B,
+                             int T, int D, int U, int reverse, int remat,
+                             int xw_f32, void* stream) {
+  if (!valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const int stages = stages_bf16(D, U);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = PlanBf16(D, U, stages).total;
+  const bf16* g = static_cast<const bf16*>(gates_in);
+  const bf16* w = static_cast<const bf16*>(wpack);
+  const bf16* p = static_cast<const bf16*>(peep);
+  const bf16* h = static_cast<const bf16*>(h0);
+  const bf16* y = static_cast<const bf16*>(hs);
+  const bf16* dy = static_cast<const bf16*>(dhs);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (remat && xw_f32) {
+    const float* x = static_cast<const float*>(xw);
+    void* args[] = {&x, &g, &mask, &w, &p, &h, &c0, &y, &cs, &dy, &dhT,
+                    &dcT, &dgates, &dh, &dc, &dpeep, &part, &B, &T, &D, &U,
+                    &reverse};
+    return launch_bwd_bf16<true, float>(stages, grid, smem, args, st);
+  }
+  const bf16* x = static_cast<const bf16*>(xw);
+  void* args[] = {&x, &g, &mask, &w, &p, &h, &c0, &y, &cs, &dy, &dhT, &dcT,
+                  &dgates, &dh, &dc, &dpeep, &part, &B, &T, &D, &U,
+                  &reverse};
+  return remat ? launch_bwd_bf16<true, bf16>(stages, grid, smem, args, st)
+               : launch_bwd_bf16<false, bf16>(stages, grid, smem, args, st);
 }
 
 extern "C" const char* kernel_error_string(int code) {

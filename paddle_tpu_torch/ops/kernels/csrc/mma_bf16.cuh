@@ -1,7 +1,8 @@
 // The bf16 tensor-core building blocks shared by the port's bf16 kernels
-// (gemm_bf16.cuh's conv tile, the bf16 flash attention forms): 16-byte
-// cp.async copies, ldmatrix loads of m8n8 bf16 matrices from shared
-// memory, and the mma.sync.m16n8k16 product with f32 accumulators.
+// (gemm_bf16.cuh's conv tile, the bf16 flash attention forms, the bf16
+// LSTM and BiLSTM forms): 16-byte cp.async copies, ldmatrix loads of
+// m8n8 bf16 matrices from shared memory, and the mma.sync.m16n8k16
+// product with f32 accumulators.
 //
 // Fragment layouts of mma.sync.m16n8k16 (bf16 operands, f32 sums), with
 // g = lane / 4 and t = lane % 4:
@@ -57,6 +58,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
                "{%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// two m8n8 matrices: the addresses of lanes 0-15 are read (one B fragment
+// of an n8 tile, b0 and b1)
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 "
+               "{%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
 }
 
 // d += a . b: one m16n8k16 product, bf16 operands, f32 accumulators

@@ -5,15 +5,17 @@
 
 - :func:`dedup_ids` — sorted unique ids with the inverse map
   (``torch.unique``; a sort, as the JAX package's is jnp on both sides);
-- :func:`embedding_gather` — ``csrc/embedding.cu``: ``table[clamp(ids)]``;
+- :func:`embedding_gather` — ``csrc/embedding.cu``: ``table[clamp(ids)]``
+  in the table's dtype (an f32 and a bf16 form, counted apart);
 - :func:`embedding_scatter_add` — ``csrc/embedding.cu``: ``table`` plus
   the rows scattered to their ids, duplicates summed in a fixed order
   (a stable sort by id, then one warp per run), ids outside ``[0, V)``
   dropped;
 - :func:`fused_embedding_lookup` — the autograd composition: the forward
   dedups, gathers each unique row once and re-expands; the backward
-  scatter-adds the cotangents into a zero table (the JAX package's
-  ``segment_sum`` + ``embedding_scatter_add`` in one launch);
+  scatter-adds the cotangents, upcast to f32, into a zero f32 table (the
+  JAX package's ``segment_sum`` + ``embedding_scatter_add`` in one
+  launch) and casts it to the table's dtype once;
 - :func:`sparse_row_update` — ``csrc/update.cu``: the row-lazy SGD /
   Momentum step of a list of ``[V, D]`` tables in one launch (rows whose
   gradient is all zero keep parameter and slot bit for bit).
@@ -36,6 +38,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_GATHER = Kernel("embedding", "embedding_gather_f32",
                        [_P, _P, _P, _I, _I, _I, _P])
+KERNEL_GATHER_BF16 = Kernel("embedding", "embedding_gather_bf16",
+                            [_P, _P, _P, _I, _I, _I, _P])
+#: {table dtype: the gather kernel's form}
+GATHER_FORMS = {torch.float32: KERNEL_GATHER,
+                torch.bfloat16: KERNEL_GATHER_BF16}
 KERNEL_SCATTER = Kernel("embedding", "embedding_scatter_add_f32",
                         [_P, _P, _P, _P, _I, _I, _I, _P])
 KERNEL_ROWS = Kernel("update", "sparse_row_update_f32",
@@ -51,6 +58,9 @@ def dedup_ids(ids):
 
 
 def _check(table, ids, rows=None):
+    """What the kernels take: a [V, D] table and flat int64 ids; the
+    gather (no ``rows``) an f32 or a bf16 table (bf16: D % 8 == 0 and
+    16-byte aligned, for its 16-byte copies), the scatter-add f32 only."""
     enforce(table.dim() == 2, f"table must be [V, D], got {tuple(table.shape)}")
     enforce(ids.dim() == 1, f"ids must be flat [N], got {tuple(ids.shape)}")
     if rows is not None:
@@ -60,8 +70,14 @@ def _check(table, ids, rows=None):
     if table.device.type == "cpu":
         return
     tensors = [table] + ([rows] if rows is not None else [])
-    enforce(all(t.dtype == torch.float32 for t in tensors),
-            "the embedding kernels take float32 tables and rows")
+    if rows is None and table.dtype == torch.bfloat16:
+        enforce(table.shape[1] % 8 == 0 and table.data_ptr() % 16 == 0,
+                "the bf16 gather copies 16 bytes at a time: D must be a "
+                "multiple of 8 and the table 16-byte aligned")
+    else:
+        enforce(all(t.dtype == torch.float32 for t in tensors),
+                "the embedding kernels take float32 tables and rows (the "
+                "gather also bfloat16)")
     enforce(ids.dtype == torch.int64, "the embedding kernels take int64 ids")
     enforce(all(t.is_contiguous() for t in tensors + [ids]),
             "the embedding kernels need contiguous operands")
@@ -79,15 +95,17 @@ def embedding_gather_reference(table, ids):
 
 def embedding_gather(table, ids):
     """``out[i] = table[clamp(ids[i], 0, V - 1)]`` for a flat id list
-    [N] -> [N, D]; one launch of the gather kernel on the card."""
+    [N] -> [N, D] in the table's dtype; one launch of the gather kernel of
+    that dtype (f32 or bf16) on the card."""
     _check(table, ids)
     if table.device.type == "cpu":
         return embedding_gather_reference(table, ids)
     n, (v, d) = ids.shape[0], table.shape
     out = torch.empty(n, d, dtype=table.dtype, device=table.device)
     if n:
-        KERNEL_GATHER.launch(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                             n, v, d, torch.cuda.current_stream().cuda_stream)
+        GATHER_FORMS[table.dtype].launch(
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, v, d,
+            torch.cuda.current_stream().cuda_stream)
     return out
 
 
@@ -160,14 +178,17 @@ class _FusedLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
+        # JAX ``tpp/embedding.py:380-394``: the cotangent upcast to f32 (a
+        # bf16 table's too), summed per row in f32, the [V, D] result cast
+        # to the table's dtype once; on the card the f32 scatter-add kernel
         (flat,) = ctx.saved_tensors
         v, dtype, padding_idx = ctx.cfg
-        ctf = ct.reshape(flat.shape[0], -1).to(dtype).contiguous()
+        ctf = at_least_f32(ct.reshape(flat.shape[0], -1)).contiguous()
         if padding_idx is not None:
             ctf = torch.where((flat == padding_idx)[:, None],
                               torch.zeros((), dtype=ctf.dtype,
                                           device=ctf.device), ctf)
-        return table_grad(flat, ctf, v), None, None
+        return table_grad(flat, ctf, v).to(dtype), None, None
 
 
 def fused_embedding_lookup(table, ids, padding_idx=None):

@@ -55,6 +55,12 @@ KERNEL_FWD = Kernel("lstm_seq", "lstm_fwd_f32", [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD = Kernel("lstm_seq", "lstm_bwd_f32", [_P] * 17 + [_I] * 6 + [_P])
 KERNEL_BI = Kernel("bilstm_seq", "bilstm_fwd_f32", [_P] * 22 + [_I] * 4 + [_P])
 KERNEL_FI = Kernel("lstm_seq", "lstm_fi_fwd_f32", [_P] * 13 + [_I] * 6 + [_P])
+KERNEL_FWD_BF16 = Kernel("lstm_seq", "lstm_fwd_bf16",
+                         [_P] * 11 + [_I] * 5 + [_P])
+KERNEL_BWD_BF16 = Kernel("lstm_seq", "lstm_bwd_bf16",
+                         [_P] * 17 + [_I] * 7 + [_P])
+KERNEL_BI_BF16 = Kernel("bilstm_seq", "bilstm_fwd_bf16",
+                        [_P] * 22 + [_I] * 4 + [_P])
 
 #: the kernels' tiling: a block owns U <= 16 hidden units with 32U threads
 _MAX_UNITS = 16
@@ -63,16 +69,37 @@ _BI_ROWS = 4
 #: csrc/lstm_seq.cu's staging: 64-row chunks of 32-deep stages (rows
 #: padded to 36 floats), 16 row groups a half-block
 _ROWS, _RG, _STAGE = 64, 16, 64 * 36
+#: the bf16 forms' tiling (``PlanBf16`` of csrc/lstm_seq.cu): 64-row
+#: chunks of h staged 64 deep (rows padded to 72 bf16), at least two
+#: stages; bilstm_seq.cu's bf16 form: a block owns one direction and 16
+#: batch rows, 8 warps of at most 4 n8 tiles (D <= 64)
+_BF_STAGE_BYTES = 64 * 72 * 2
+_BI_BF_ROWS, _BI_BF_MAX_D = 16, 64
 
 
 # -- the plain twins -----------------------------------------------------------
 
 
-def _cell(x_t, h, c, w_h, peep):
-    """One step's gate bundle: pre = x_t + h @ w_h, gate order [i, f, g, o],
-    peepholes i/f on c_{t-1}, o on c_t.  Returns (i, f, g, o, c, h)."""
+def _acc(dtype) -> torch.dtype:
+    """The dtype the cell computes in: float32 for bf16 or f32 operands
+    (the JAX kernels' f32 gate math), float64 for a float64 witness."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _rounded(x, dtype):
+    """``x`` rounded to ``dtype`` and back where the two differ (the bf16
+    operand of a product), else ``x`` itself."""
+    return x.to(dtype).to(x.dtype) if dtype != x.dtype else x
+
+
+def _cell(x_t, h, c, w_a, peep):
+    """One step's gate bundle: pre = x_t + h @ w_h in the cell's dtype (bf16
+    operands give exact products summed in f32), gate order [i, f, g, o],
+    peepholes i/f on c_{t-1}, o on c_t.  ``w_a`` and ``peep`` are already in
+    the cell's dtype; ``h`` is the carry in W_h's dtype.  Returns (i, f, g,
+    o, c, h)."""
     d = h.shape[-1]
-    pre = x_t + torch.matmul(h, w_h)
+    pre = x_t.to(w_a.dtype) + torch.matmul(h.to(w_a.dtype), w_a)
     i = torch.sigmoid(pre[:, :d] + peep[0] * c)
     f = torch.sigmoid(pre[:, d:2 * d] + peep[1] * c)
     g = torch.tanh(pre[:, 2 * d:3 * d])
@@ -89,55 +116,76 @@ def _steps(t: int, reverse: bool):
 def _fwd_plain(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
     """Plain twin of the forward kernel: (hs, cs, gates or None, h_T, c_T),
     hs/cs [B, T, D], gates [B, T, 4D]."""
-    return _run(lambda k: xw[:, k], xw.shape[1], mask, w_h, peep, h0, c0,
-                reverse, emit_gates)
+    return _run(lambda k: xw[:, k], xw.shape[1], xw.dtype, mask, w_h, peep,
+                h0, c0, reverse, emit_gates)
 
 
 def _fi_fwd_plain(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
     """Plain twin of the fused-input forward kernel: each step's gate input
     b + x_t @ W_x inside the loop, as the kernel computes it; the contract
     of :func:`_fwd_plain`."""
-    return _run(lambda k: b + torch.matmul(x[:, k], w_x), x.shape[1], mask,
-                w_h, peep, h0, c0, reverse, emit_gates)
+    return _run(lambda k: b + torch.matmul(x[:, k], w_x), x.shape[1],
+                x.dtype, mask, w_h, peep, h0, c0, reverse, emit_gates)
 
 
-def _run(step_input, t, mask, w_h, peep, h0, c0, reverse, emit_gates):
+def _run(step_input, t, io, mask, w_h, peep, h0, c0, reverse, emit_gates):
     """The forward recurrence over the gate inputs ``step_input(k)``
-    [B, 4D]."""
-    h, c = h0, c0
+    [B, 4D], rounding where the JAX kernels round (``lstm.py:94-132``,
+    ``_fwd_call`` :212): the cell in f32 (the input dtype where wider),
+    the h carry in W_h's dtype (rounded every step, and the freeze keeps
+    the rounded carry), hs and the gates in ``io``, cs and the final
+    (h_T, c_T) in the cell's dtype, h_T unrounded."""
+    acc = _acc(w_h.dtype)
+    w_a, peep = w_h.to(acc), peep.to(acc)
+    h, c = h0.to(w_h.dtype), c0.to(acc)
     hs, cs, gates = [None] * t, [None] * t, [None] * t
     for k in _steps(t, reverse):
-        i, f, g, o, c_new, h_new = _cell(step_input(k), h, c, w_h, peep)
+        i, f, g, o, c_new, h_new = _cell(step_input(k), h, c, w_a, peep)
         m = mask[:, k, None]
-        h = m * h_new + (1.0 - m) * h
+        h_new = m * h_new + (1.0 - m) * h.to(acc)
         c = m * c_new + (1.0 - m) * c
-        hs[k], cs[k] = h, c
+        h = h_new.to(w_h.dtype)
+        hs[k], cs[k] = h_new.to(io), c
         if emit_gates:
-            gates[k] = torch.cat([i, f, g, o], dim=-1)
+            gates[k] = torch.cat([i, f, g, o], dim=-1).to(io)
     return (torch.stack(hs, 1), torch.stack(cs, 1),
-            torch.stack(gates, 1) if emit_gates else None, h, c)
+            torch.stack(gates, 1) if emit_gates else None, h_new, c)
 
 
 def _bwd_plain(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
                reverse, remat):
     """Plain twin of the backward kernel: (dgates [B, T, 4D], dh0, dc0,
-    dpeep [3, D]).  Remat recomputes each step's gates with the forward's
-    own per-step product, so both forms give the same bits."""
+    dpeep [3, D]), all in the cell's dtype (f32 for bf16 operands).  Remat
+    recomputes each step's gates with the forward's own per-step product
+    and rounds them through hs's dtype (JAX ``lstm.py:392``), so both
+    forms give the same bits; dh_{t-1} takes dgates rounded to W_h's
+    dtype (``:196``, ``:410``).  xw may be f32 under bf16 weights (the
+    BiLSTM's projection)."""
     t, d = hs.shape[1], w_h.shape[0]
-    dh, dc = dhT, dcT
+    acc = _acc(w_h.dtype)
+    w_a, peep = w_h.to(acc), peep.to(acc)
+    narrow = hs.dtype != acc
+    dh, dc = dhT.to(acc), dcT.to(acc)
     dpeep = torch.zeros_like(peep)
     dgates = [None] * t
     boot = t - 1 if reverse else 0      # the first index a run computes
     for k in _steps(t, not reverse):
         kp = k + 1 if reverse else k - 1
         m = mask[:, k, None]
-        dh = dh + dhs[:, k]
+        dh = dh + dhs[:, k].to(acc)
         # contiguous, as the forward's carries were: the same layouts take
         # the same vectorized loops, so the recomputed gates match bits
-        c_prev = c0 if k == boot else cs[:, kp].contiguous()
+        c_prev = c0.to(acc) if k == boot else cs[:, kp].contiguous()
         if remat:
-            h_prev = h0 if k == boot else hs[:, kp].contiguous()
-            i, f, g, o = _cell(xw[:, k], h_prev, c_prev, w_h, peep)[:4]
+            h_prev = h0.to(hs.dtype) if k == boot else hs[:, kp].contiguous()
+            i, f, g, o = _cell(xw[:, k], h_prev.to(w_h.dtype), c_prev, w_a,
+                               peep)[:4]
+            if narrow:
+                i, f, g, o = (z.contiguous() for z in torch.cat(
+                    [i, f, g, o], dim=-1).to(hs.dtype).to(acc).split(d, -1))
+        elif narrow:
+            i, f, g, o = (z.to(acc).contiguous()
+                          for z in gates[:, k].split(d, dim=-1))
         else:
             i, f, g, o = gates[:, k].split(d, dim=-1)
         c = cs[:, k]
@@ -151,7 +199,8 @@ def _bwd_plain(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
         dpeep = dpeep + torch.stack([(di * c_prev).sum(0),
                                      (df * c_prev).sum(0),
                                      (do * c).sum(0)])
-        dh = torch.matmul(dgates[k], w_h.t()) + (1.0 - m) * dh
+        dh = (torch.matmul(_rounded(dgates[k], w_h.dtype), w_a.t())
+              + (1.0 - m) * dh)
         dc = dc_t * f + di * peep[0] + df * peep[1] + (1.0 - m) * dc
     return torch.stack(dgates, 1), dh, dc, dpeep
 
@@ -237,6 +286,68 @@ def _pack_columns(w, u: int):
     return w.reshape(k, 4, nb, u).permute(2, 0, 3, 1).contiguous()
 
 
+# The bf16 forms' plan (``PlanBf16`` of csrc/lstm_seq.cu): a block owns an
+# even number U of units, so its 4U gate columns are whole n8 tiles of
+# the tensor-core product (2 units a tile), and keeps W_h's slice as
+# [KP][LDK] bf16: row 4 uu + g (gate g of unit uu; rows past 4U zero up to
+# KP, a multiple of 16, the depth of the backward's product), D columns
+# (zero past D up to a multiple of 16, then 8 more: an odd count of 16-byte
+# groups, so the 8 rows an ldmatrix phase reads fall in distinct banks).
+
+
+def _bf16_units(d: int, sms: int) -> int:
+    """Units a block owns in the bf16 forms: ceil(D / SMs) made even."""
+    u = -(-d // sms)
+    return u + u % 2
+
+
+def _bf16_ldk(d: int) -> int:
+    return 16 * -(-d // 16) + 8
+
+
+def _bf16_kp(u: int) -> int:
+    return 16 * -(-4 * u // 16)
+
+
+def _bf16_smem_bytes(d: int, u: int, stages: int) -> int:
+    """Bytes of shared memory a block of the bf16 forms takes: the W_h
+    slice, then the ring of h slices or the halves' f32 sums, then the
+    backward's rounded dgates tile [64][KP + 8] and dpeep terms [3][64][U]."""
+    kp = _bf16_kp(u)
+    return (kp * _bf16_ldk(d) * 2
+            + max(stages * _BF_STAGE_BYTES, _ROWS * 4 * u * 4)
+            + _ROWS * (kp + 8) * 2 + 3 * _ROWS * u * 4)
+
+
+def bf16_refusal(d: int, sms: int, optin: int) -> str | None:
+    """Why the bf16 forms of the LSTM forward and backward cannot take
+    hidden width D on a card of ``sms`` SMs and ``optin`` bytes of shared
+    memory a block (two stages at least); None when they can."""
+    if d % 8:
+        return (f"lstm bf16 kernels: D={d} must be a multiple of 8 "
+                "(16-byte copies of bf16)")
+    u = _bf16_units(d, sms)
+    if u > _MAX_UNITS:
+        return (f"lstm bf16 kernels: D={d} needs {u} units a block on "
+                f"{sms} SMs, more than the {_MAX_UNITS} the tiling covers")
+    need = _bf16_smem_bytes(d, u, 2)
+    if need > optin:
+        return (f"lstm bf16 kernels: D={d} needs {need} bytes of shared "
+                f"memory a block, more than the {optin} the card allows")
+    return None
+
+
+def _pack_rows_bf16(w, u: int):
+    """W_h [D, 4D] -> [blocks, KP, LDK]: block j's row 4 uu + g holds
+    w[:, g*D + j*U + uu] (zero past D, past 4U and past D's columns)."""
+    d = w.shape[0]
+    nb = -(-d // u)
+    w = F.pad(w.reshape(d, 4, d), (0, nb * u - d))
+    w = w.reshape(d, 4, nb, u).permute(2, 3, 1, 0).reshape(nb, 4 * u, d)
+    return F.pad(w, (0, _bf16_ldk(d) - d, 0, _bf16_kp(u) - 4 * u)
+                 ).contiguous()
+
+
 def _check_kernel_args(*tensors):
     enforce(all(x.dtype == torch.float32 for x in tensors),
             "the lstm kernels take float32 operands")
@@ -246,12 +357,39 @@ def _check_kernel_args(*tensors):
             f"operands on several devices: {[x.device for x in tensors]}")
 
 
+def _check_typed(name: str, **operands):
+    """Each operand (tensor, dtype or tuple of dtypes) contiguous, on one
+    device and of the dtype the bf16 kernel ``name`` reads it as."""
+    for arg, (x, want) in operands.items():
+        want = want if isinstance(want, tuple) else (want,)
+        enforce(x.dtype in want, f"{name}: {arg} must be "
+                f"{' or '.join(map(str, want))}, got {x.dtype}")
+    tensors = [x for x, _ in operands.values()]
+    enforce(all(x.is_contiguous() for x in tensors),
+            f"{name} needs contiguous operands")
+    enforce(len({x.device for x in tensors}) == 1,
+            f"operands on several devices: {[x.device for x in tensors]}")
+
+
 def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
+def _bf16_plan(device, d: int) -> int:
+    """U of the bf16 forms on the card ``device``, or raise why not."""
+    sms, optin = _card(device)
+    refusal = bf16_refusal(d, sms, optin)
+    enforce(refusal is None, refusal or "")
+    return _bf16_units(d, sms)
+
+
 def _fwd_kernel(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
-    """The forward kernel (the contract of :func:`_fwd_plain`)."""
+    """The forward kernel of W_h's dtype (the contract of
+    :func:`_fwd_plain`): f32, or bf16 (hs and the gates slab in bf16, cs,
+    h_T and c_T in f32, as the JAX kernel writes them)."""
+    if w_h.dtype == torch.bfloat16:
+        return _fwd_kernel_bf16(xw, mask, w_h, peep, h0, c0, reverse,
+                                emit_gates)
     _check_kernel_args(xw, mask, w_h, peep, h0, c0)
     b, t, _ = xw.shape
     d = w_h.shape[0]
@@ -266,6 +404,31 @@ def _fwd_kernel(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
                       hs.data_ptr(), cs.data_ptr(), _ptr(gates),
                       h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
                       int(reverse), torch.cuda.current_stream().cuda_stream)
+    return hs, cs, gates, h_t, c_t
+
+
+def _fwd_kernel_bf16(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
+    """``lstm_fwd_bf16``: xw, W_h, the peepholes and h0 in bf16 (h0 is
+    the carry, in W_h's dtype), the mask and c0 in f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h0, c0 = h0.to(bf).contiguous(), c0.to(f32).contiguous()
+    _check_typed("lstm_fwd_bf16", xw=(xw, bf), mask=(mask, f32),
+                 w_h=(w_h, bf), peep=(peep, bf), h0=(h0, bf), c0=(c0, f32))
+    b, t, _ = xw.shape
+    d = w_h.shape[0]
+    u = _bf16_plan(xw.device, d)
+    wpack = _pack_rows_bf16(w_h, u)
+    hs = torch.empty(b, t, d, dtype=bf, device=xw.device)
+    cs = torch.empty(b, t, d, dtype=f32, device=xw.device)
+    gates = torch.empty_like(xw) if emit_gates else None
+    h_t = torch.empty(b, d, dtype=f32, device=xw.device)
+    c_t = torch.empty_like(h_t)
+    KERNEL_FWD_BF16.launch(xw.data_ptr(), mask.data_ptr(), wpack.data_ptr(),
+                           peep.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                           hs.data_ptr(), cs.data_ptr(), _ptr(gates),
+                           h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
+                           int(reverse),
+                           torch.cuda.current_stream().cuda_stream)
     return hs, cs, gates, h_t, c_t
 
 
@@ -296,7 +459,11 @@ def _fi_fwd_kernel(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
 
 def _bwd_kernel(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
                 reverse, remat):
-    """The backward kernel (the contract of :func:`_bwd_plain`)."""
+    """The backward kernel of W_h's dtype (the contract of
+    :func:`_bwd_plain`)."""
+    if w_h.dtype == torch.bfloat16:
+        return _bwd_kernel_bf16(xw, gates, mask, w_h, peep, h0, c0, hs, cs,
+                                dhs, dhT, dcT, reverse, remat)
     _check_kernel_args(mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
                        xw if remat else gates)
     b, t, _ = hs.shape
@@ -320,6 +487,42 @@ def _bwd_kernel(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
     return dgates, dh, dc, dpeep
 
 
+def _bwd_kernel_bf16(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT,
+                     dcT, reverse, remat):
+    """``lstm_bwd_bf16``: W_h, the peepholes, h0, hs, dhs and the gates
+    slab (remat off) in bf16; xw (remat on) in bf16 (``lstmemory``) or f32
+    (the BiLSTM's projection), read as it is; the mask, c0, cs and the
+    final cotangents in f32.  dgates, dh0, dc0 and dpeep come out f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h0, c0 = h0.to(bf).contiguous(), c0.to(f32).contiguous()
+    dhs, dhT, dcT = (dhs.to(bf).contiguous(), dhT.to(f32).contiguous(),
+                     dcT.to(f32).contiguous())
+    slab = {"xw": (xw, (bf, f32))} if remat else {"gates": (gates, bf)}
+    _check_typed("lstm_bwd_bf16", mask=(mask, f32), w_h=(w_h, bf),
+                 peep=(peep, bf), h0=(h0, bf), c0=(c0, f32), hs=(hs, bf),
+                 cs=(cs, f32), dhs=(dhs, bf), dhT=(dhT, f32),
+                 dcT=(dcT, f32), **slab)
+    b, t, _ = hs.shape
+    d = w_h.shape[0]
+    u = _bf16_plan(hs.device, d)
+    wpack = _pack_rows_bf16(w_h, u)
+    dgates = torch.empty(b, t, 4 * d, dtype=f32, device=hs.device)
+    dh, dc = torch.empty_like(dhT), torch.empty_like(dcT)
+    dpeep = torch.empty(3, d, dtype=f32, device=hs.device)
+    # each block's f32 share of dh_{t-1}, two buffers by step parity
+    part = torch.empty(2 * wpack.shape[0] * d * b, dtype=f32,
+                       device=hs.device)
+    KERNEL_BWD_BF16.launch(
+        _ptr(xw if remat else None), _ptr(None if remat else gates),
+        mask.data_ptr(), wpack.data_ptr(), peep.data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+        dhT.data_ptr(), dcT.data_ptr(), dgates.data_ptr(), dh.data_ptr(),
+        dc.data_ptr(), dpeep.data_ptr(), part.data_ptr(), b, t, d, u,
+        int(reverse), int(remat), int(remat and xw.dtype == f32),
+        torch.cuda.current_stream().cuda_stream)
+    return dgates, dh, dc, dpeep
+
+
 def _shift_prev(stack, boot, reverse):
     """[B, T, D] -> the state each index's step started from: ``boot`` at
     the first index a run computes (0 forward, T-1 reverse), the stack
@@ -332,7 +535,10 @@ def _shift_prev(stack, boot, reverse):
 
 class _LstmSeq(torch.autograd.Function):
     """JAX: ``lstm_seq``'s ``custom_vjp``.  Residuals: mask, w_h, peep, h0,
-    c0, hs, cs and either the gates slab (remat off) or xw (remat on)."""
+    c0, hs, cs and either the gates slab (remat off) or xw (remat on).
+    The gradients come back in their inputs' dtypes: dxw from the f32
+    dgates, dW_h one product of hs_prev and dgates rounded to W_h's dtype
+    with f32 sums (JAX ``lstm.py:553-569``)."""
 
     @staticmethod
     def forward(ctx, xw, mask, w_h, peep, h0, c0, reverse, remat):
@@ -341,22 +547,23 @@ class _LstmSeq(torch.autograd.Function):
                                       not remat)
         ctx.save_for_backward(xw if remat else None, gates, mask, w_h, peep,
                               h0, c0, hs, cs)
-        ctx.cfg = (reverse, remat)
+        ctx.cfg = (reverse, remat, xw.dtype)
         return hs, h_t, c_t
 
     @staticmethod
     def backward(ctx, dhs, dh_t, dc_t):
         xw, gates, mask, w_h, peep, h0, c0, hs, cs = ctx.saved_tensors
-        reverse, remat = ctx.cfg
+        reverse, remat, xw_dtype = ctx.cfg
         bwd = _bwd_plain if hs.device.type == "cpu" else _bwd_kernel
         dgates, dh0, dc0, dpeep = bwd(
             xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs.contiguous(),
             dh_t.contiguous(), dc_t.contiguous(), reverse, remat)
         d = w_h.shape[0]
-        h_prev = _shift_prev(hs, h0, reverse)
+        h_prev = _shift_prev(hs, h0, reverse).to(w_h.dtype)
         dw_h = torch.matmul(h_prev.reshape(-1, d).t(),
-                            dgates.reshape(-1, 4 * d))
-        return dgates, None, dw_h, dpeep, dh0, dc0, None, None
+                            dgates.to(w_h.dtype).reshape(-1, 4 * d))
+        return (dgates.to(xw_dtype), None, dw_h, dpeep.to(peep.dtype),
+                dh0.to(h0.dtype), dc0.to(c0.dtype), None, None)
 
 
 def lstm_seq(xw, mask, w_h, peephole, h0, c0, reverse=False, remat=False):
@@ -366,23 +573,25 @@ def lstm_seq(xw, mask, w_h, peephole, h0, c0, reverse=False, remat=False):
     (1.0 while t < length, rows freeze afterwards); w_h [D, 4D]; peephole
     [3, D] ([W_ci, W_cf, W_co]; zeros for a plain LSTM); h0, c0 [B, D];
     reverse: iterate T-1..0; remat: keep no gates slab for the backward,
-    recompute the gates there.  Returns (hs [B, T, D], (h_T, c_T))."""
+    recompute the gates there.  Returns (hs [B, T, D], (h_T, c_T)): hs in
+    xw's dtype; with bf16 operands the cell runs in f32 and h_T, c_T are
+    f32 (h_T unrounded), as the JAX kernel gives them."""
     enforce(xw.dim() == 3 and xw.shape[1] >= 1
             and xw.shape[2] == 4 * w_h.shape[0],
             f"lstm_seq: xw must be [B, T>=1, 4D] for w_h {tuple(w_h.shape)},"
             f" got {tuple(xw.shape)}")
     hs, h_t, c_t = _LstmSeq.apply(
-        xw.contiguous(), mask.to(xw.dtype).contiguous(), w_h.contiguous(),
-        peephole.contiguous(), h0.contiguous(), c0.contiguous(),
-        bool(reverse), bool(remat))
+        xw.contiguous(), mask.to(_acc(w_h.dtype)).contiguous(),
+        w_h.contiguous(), peephole.contiguous(), h0.contiguous(),
+        c0.contiguous(), bool(reverse), bool(remat))
     return hs, (h_t, c_t)
 
 
 def lstm_seq_reference(xw, mask, w_h, peephole, h0, c0, reverse=False):
     """Plain scan of the same cell, peepholes and freeze mask (autograd
     gives its backward).  Returns (hs [B, T, D], (h_T, c_T))."""
-    hs, _, _, h_t, c_t = _fwd_plain(xw, mask.to(xw.dtype), w_h, peephole, h0,
-                                    c0, reverse, False)
+    hs, _, _, h_t, c_t = _fwd_plain(xw, mask.to(_acc(w_h.dtype)), w_h,
+                                    peephole, h0, c0, reverse, False)
     return hs, (h_t, c_t)
 
 
@@ -391,26 +600,35 @@ def lstm_seq_reference(xw, mask, w_h, peephole, h0, c0, reverse=False):
 
 def _project_xw(x, w_x, b):
     """x @ W_x + b over every step, one product: [B, T, E] -> [B, T, 4D]
-    (the JAX package's ``_project_xw`` and unfused projection)."""
+    (the JAX package's ``_project_xw`` and unfused projection): in the
+    cell's dtype, never rounded, so bf16 operands give an f32 slab."""
     bsz, t, e = x.shape
-    return (torch.matmul(x.reshape(bsz * t, e), w_x) + b).reshape(bsz, t, -1)
+    acc = _acc(w_x.dtype)
+    return (torch.matmul(x.reshape(bsz * t, e).to(acc), w_x.to(acc))
+            + b.to(acc)).reshape(bsz, t, -1)
 
 
 def _bi_fwd_plain(x, mask, fw, bw):
     """Plain twin of the bilstm kernel, the unfused composition: per
-    direction the projection as one product, then the forward twin over it.
-    ``fw``/``bw`` = (w_x, b, w_h, peep, h0, c0); returns ((hs, cs, h_T, c_T)
-    forward, the same reverse)."""
+    direction the projection as one product (f32, unrounded, for bf16
+    operands: the kernel's in-loop projection, JAX ``lstm.py:833-835``),
+    then the forward recurrence over it with hs in x's dtype.
+    ``fw``/``bw`` = (w_x, b, w_h, peep, h0, c0); returns ((hs, cs, h_T,
+    c_T) forward, the same reverse)."""
     outs = []
     for (w_x, b, w_h, peep, h0, c0), reverse in ((fw, False), (bw, True)):
-        hs, cs, _, h_t, c_t = _fwd_plain(_project_xw(x, w_x, b), mask, w_h,
-                                         peep, h0, c0, reverse, False)
+        xw = _project_xw(x, w_x, b)
+        hs, cs, _, h_t, c_t = _run(lambda k: xw[:, k], x.shape[1], x.dtype,
+                                   mask, w_h, peep, h0, c0, reverse, False)
         outs.append((hs, cs, h_t, c_t))
     return tuple(outs)
 
 
 def _bi_fwd_kernel(x, mask, fw, bw):
-    """The bilstm kernel (the contract of :func:`_bi_fwd_plain`)."""
+    """The bilstm kernel of W_h's dtype (the contract of
+    :func:`_bi_fwd_plain`)."""
+    if fw[2].dtype == torch.bfloat16:
+        return _bi_fwd_kernel_bf16(x, mask, fw, bw)
     _check_kernel_args(x, mask, *fw, *bw)
     b, t, e = x.shape
     d = fw[2].shape[0]
@@ -434,10 +652,79 @@ def _bi_fwd_kernel(x, mask, fw, bw):
     return tuple(outs)
 
 
+def _bi_ld(k: int) -> int:
+    """bilstm_seq.cu's bf16 row stride of a [4D][K] weight slice: K padded
+    to a multiple of 16, then 8 more (an odd count of 16-byte groups)."""
+    return 16 * -(-k // 16) + 8
+
+
+def bi_bf16_smem_bytes(e: int, d: int) -> int:
+    """Shared memory of a block of ``bilstm_fwd_bf16``: W_x^T and W_h^T of
+    its direction [4D][E or D, padded] and the x (two stages) and h tiles
+    of its 16 rows, bf16."""
+    return 2 * (4 * d * (_bi_ld(e) + _bi_ld(d))
+                + _BI_BF_ROWS * (2 * _bi_ld(e) + _bi_ld(d)))
+
+
+def bi_bf16_refusal(e: int, d: int, sms: int, optin: int) -> str | None:
+    """Why ``bilstm_fwd_bf16`` (or the bf16 backward it is paired with)
+    cannot take input width E and hidden width D; None when both can."""
+    if d % 8 or e % 8 or d > _BI_BF_MAX_D:
+        return (f"bilstm bf16 kernel: E={e} and D={d} must be multiples of "
+                f"8 (16-byte copies), D at most {_BI_BF_MAX_D} (8 warps of "
+                "4 n8 tiles)")
+    need = bi_bf16_smem_bytes(e, d)
+    if need > optin:
+        return (f"bilstm bf16 kernel: E={e}, D={d} needs {need} bytes of "
+                f"shared memory a block, more than the {optin} the card "
+                "allows")
+    return bf16_refusal(d, sms, optin)
+
+
+def _pack_t_bf16(w, ld: int):
+    """[K, 4D] -> [4D, ld]: row 4 u + g holds w[:, g*D + u], zero past K."""
+    k, d = w.shape[0], w.shape[1] // 4
+    w = w.reshape(k, 4, d).permute(2, 1, 0).reshape(4 * d, k)
+    return F.pad(w, (0, ld - k)).contiguous()
+
+
+def _bi_fwd_kernel_bf16(x, mask, fw, bw):
+    """``bilstm_fwd_bf16``: x, W_x, W_h, the peepholes and h0 in bf16, the
+    biases, the mask and c0 in f32; hs in bf16, cs, h_T and c_T in f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    b, t, e = x.shape
+    d = fw[2].shape[0]
+    refusal = bi_bf16_refusal(e, d, *_card(x.device))
+    enforce(refusal is None, refusal or "")
+    args, outs, keep = [x.data_ptr(), mask.data_ptr()], [], []
+    for w_x, bias, w_h, peep, h0, c0 in (fw, bw):
+        h0, c0 = h0.to(bf).contiguous(), c0.to(f32).contiguous()
+        _check_typed("bilstm_fwd_bf16", x=(x, bf), mask=(mask, f32),
+                     w_x=(w_x, bf), b=(bias, f32), w_h=(w_h, bf),
+                     peep=(peep, bf), h0=(h0, bf), c0=(c0, f32))
+        # packed temporaries stay referenced until the launch is queued
+        packed = (_pack_t_bf16(w_x, _bi_ld(e)),
+                  bias.reshape(4, d).t().contiguous(),
+                  _pack_t_bf16(w_h, _bi_ld(d)), peep, h0, c0)
+        keep.append(packed)
+        out = (torch.empty(b, t, d, dtype=bf, device=x.device),
+               torch.empty(b, t, d, dtype=f32, device=x.device),
+               torch.empty(b, d, dtype=f32, device=x.device),
+               torch.empty(b, d, dtype=f32, device=x.device))
+        outs.append(out)
+        args += [w.data_ptr() for w in packed] + [o.data_ptr() for o in out]
+    KERNEL_BI_BF16.launch(*args, b, t, e, d,
+                          torch.cuda.current_stream().cuda_stream)
+    return tuple(outs)
+
+
 class _BiLstmSeq(torch.autograd.Function):
     """JAX: ``bilstm_seq``'s ``custom_vjp`` with remat on.  Residuals: x,
     mask, both directions' weights and h0/c0, hs and cs; the backward
-    recomputes the gates from them."""
+    recomputes the gates from them over the projection, unrounded (JAX's
+    ``_project_xw``: f32 for bf16 operands).  dW_x and dW_h are products
+    of bf16 operands with f32 sums, dx the two directions' f32 products
+    summed, then rounded once (``lstm.py:984-1004``)."""
 
     @staticmethod
     def forward(ctx, x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b,
@@ -467,12 +754,16 @@ class _BiLstmSeq(torch.autograd.Function):
                 _project_xw(x, w_x, bias), None, mask, w_h, peep, h0, c0, hs,
                 cs, *(c.contiguous() for c in cts), reverse, True)
             dg = dgates.reshape(-1, 4 * d)
+            dg_w = dg.to(w_x.dtype)
             h_prev = _shift_prev(hs, h0, reverse).reshape(-1, d)
-            dx = dx + torch.matmul(dg, w_x.t())
-            grads[key] = (torch.matmul(x2.t(), dg), dg.sum(0),
-                          torch.matmul(h_prev.t(), dg), dpeep, dh0, dc0)
+            dx = dx + torch.matmul(dg_w.to(dg.dtype), w_x.to(dg.dtype).t())
+            grads[key] = (torch.matmul(x2.t(), dg_w), dg.sum(0).to(bias.dtype),
+                          torch.matmul(h_prev.to(w_h.dtype).t(), dg_w),
+                          dpeep.to(peep.dtype), dh0.to(h0.dtype),
+                          dc0.to(c0.dtype))
         f, b = grads["f"], grads["b"]
-        return dx.reshape(bsz, t, e), None, *f[:4], *b[:4], *f[4:], *b[4:]
+        return (dx.reshape(bsz, t, e).to(x.dtype), None, *f[:4], *b[:4],
+                *f[4:], *b[4:])
 
 
 def bilstm_seq(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b, peep_b,
@@ -483,8 +774,11 @@ def bilstm_seq(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b, peep_b,
 
     x [B, T, E]; mask [B, T]; per direction w_x [E, 4D], b [4D], w_h
     [D, 4D], peep [3, D], h0/c0 [B, D] (the reverse direction iterates
-    T-1..0).  Returns (hs_f, hs_b, (h_T_f, c_T_f), (h_T_b, c_T_b)); the
-    BiLSTM output is hs_f and hs_b concatenated on the feature axis."""
+    T-1..0).  With bf16 operands the projection stays f32 (pass b in
+    f32, as the JAX entry does), the cell runs in f32, hs is bf16 and the
+    final states f32.  Returns (hs_f, hs_b, (h_T_f, c_T_f), (h_T_b,
+    c_T_b)); the BiLSTM output is hs_f and hs_b concatenated on the
+    feature axis."""
     d = w_h_f.shape[0]
     enforce(x.dim() == 3 and x.shape[1] >= 1
             and all(tuple(w.shape) == (x.shape[2], 4 * d)
@@ -494,7 +788,7 @@ def bilstm_seq(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b, peep_b,
             f"[D, 4D], got x {tuple(x.shape)}, w_x {tuple(w_x_f.shape)}, w_h "
             f"{tuple(w_h_f.shape)}")
     hsf, hsb, hTf, cTf, hTb, cTb = _BiLstmSeq.apply(
-        x.contiguous(), mask.to(x.dtype).contiguous(),
+        x.contiguous(), mask.to(_acc(w_h_f.dtype)).contiguous(),
         *(w.contiguous() for w in (w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b,
                                    w_h_b, peep_b, h0f, c0f, h0b, c0b)))
     return hsf, hsb, (hTf, cTf), (hTb, cTb)

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from paddle_tpu_torch.core.dtype import cast_for_matmul
 from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.ops import activations as act
 from paddle_tpu_torch.ops.kernels import gru as gru_kernels
@@ -173,39 +174,53 @@ def lstm_fused(xw: SequenceBatch, w_h, init: LSTMState, peephole=None,
     d = w_h.shape[0]
     if remat is None:
         remat = xw.data.device.type == "cuda"
-    peep = (torch.zeros(3, d, dtype=w_h.dtype, device=w_h.device)
-            if peephole is None else peephole.reshape(3, d))
+    # the product's operands in one dtype by the JAX package's rule
+    # (``ops/rnn.py:197``): a bf16 weight or xw makes both bf16; the h
+    # carry in that dtype, c0 as given (the kernels keep c in f32)
+    data, w_h_c = cast_for_matmul(xw.data, w_h)
+    peep = (torch.zeros(3, d, dtype=w_h_c.dtype, device=w_h.device)
+            if peephole is None else peephole.reshape(3, d).to(w_h_c.dtype))
     hs, (h_t, c_t) = lstm_kernels.lstm_seq(
-        xw.data, xw.mask(xw.data.dtype), w_h, peep, init.h, init.c,
+        data, xw.mask(), w_h_c, peep, init.h.to(w_h_c.dtype), init.c,
         reverse=reverse, remat=remat)
-    return SequenceBatch(data=hs, length=xw.length), LSTMState(h=h_t, c=c_t)
+    # the outputs keep the caller's dtype, as a product's does
+    out = xw.data.dtype
+    return (SequenceBatch(data=hs.to(out), length=xw.length),
+            LSTMState(h=h_t.to(out), c=c_t.to(out)))
 
 
 def bilstm_fused(x: SequenceBatch, fw: tuple, bw: tuple):
     """Bidirectional LSTM over raw inputs through ``kernels/lstm.bilstm_seq``:
     on the card one launch runs both directions with the input projections
-    inside its loop, remat on, as the JAX package's TPU branch runs;
-    CPU tensors take its twin, the unfused composition (one projection
-    product and the plain scan per direction) that the JAX package runs
-    off the TPU.  ``fw``/``bw`` are (w_x [E, 4D], bias [4D] | None,
+    inside its loop, remat on, as the JAX package's TPU branch runs; CPU
+    tensors take its twin, the unfused composition (one projection product
+    and the plain scan per direction: in f32 the route the JAX package runs
+    off the TPU; with bf16 operands the projection stays f32, unrounded, as
+    in the kernel).  ``fw``/``bw`` are (w_x [E, 4D], bias [4D] | None,
     w_h [D, 4D], peephole [3D] | None).  A shape past the kernel's tiling
     raises on the card.  Returns the concatenated SequenceBatch [B, T, 2D]
     (forward features first)."""
-    data = x.data
     d = fw[2].shape[0]
-    zeros = torch.zeros(x.batch_size, d, dtype=data.dtype, device=data.device)
+    # JAX ``ops/rnn.py:285``: x and the four weights in one dtype; the
+    # biases in f32 (the in-loop projection is never rounded), the
+    # peepholes and the h carry in the weights' dtype, c in f32
+    data, w_x_f, w_h_f, w_x_b, w_h_b = cast_for_matmul(
+        x.data, fw[0], fw[2], bw[0], bw[2])
+    acc = torch.promote_types(w_h_f.dtype, torch.float32)
+    h0 = torch.zeros(x.batch_size, d, dtype=w_h_f.dtype, device=data.device)
+    c0 = torch.zeros(x.batch_size, d, dtype=acc, device=data.device)
 
     def prep(w_x, bias, w_h, peephole):
-        bias = (torch.zeros(4 * d, dtype=w_x.dtype, device=w_x.device)
-                if bias is None else bias)
+        bias = (torch.zeros(4 * d, dtype=acc, device=w_x.device)
+                if bias is None else bias.to(acc))
         peep = (torch.zeros(3, d, dtype=w_h.dtype, device=w_h.device)
-                if peephole is None else peephole.reshape(3, d))
+                if peephole is None else peephole.reshape(3, d).to(w_h.dtype))
         return w_x, bias, w_h, peep
 
     hs_f, hs_b, _, _ = lstm_kernels.bilstm_seq(
-        data, x.mask(data.dtype), *prep(*fw), *prep(*bw), zeros, zeros,
-        zeros, zeros)
-    return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1),
+        data, x.mask(), *prep(w_x_f, fw[1], w_h_f, fw[3]),
+        *prep(w_x_b, bw[1], w_h_b, bw[3]), h0, c0, h0, c0)
+    return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1).to(x.data.dtype),
                          length=x.length)
 
 

@@ -2059,3 +2059,209 @@ def test_softmax_xent_refuses_float64_on_the_card(cuda):
     with pytest.raises(EnforceError, match="float32"):
         SX.softmax_xent(torch.zeros(2, 5, dtype=torch.float64, device=cuda),
                         torch.zeros(2, dtype=torch.long, device=cuda))
+
+
+# -- the bf16 forms of the LSTM, the BiLSTM and the gather (rows 5, 7, 17) --
+
+
+def _bf16_counts():
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    return {k: v.launches for k, v in (
+        ("fwd", LK.KERNEL_FWD), ("bwd", LK.KERNEL_BWD),
+        ("fwd_bf16", LK.KERNEL_FWD_BF16), ("bwd_bf16", LK.KERNEL_BWD_BF16),
+        ("bi", LK.KERNEL_BI), ("bi_bf16", LK.KERNEL_BI_BF16))}
+
+
+@pytest.mark.parametrize("b,t,d,reverse", [
+    (3, 7, 8, False), (70, 5, 40, True), (5, 33, 64, False),
+    (2, 1, 136, True), (64, 16, 1280, False), (64, 128, 1280, True)])
+def test_lstm_bf16_forms_against_their_forced_steps(cuda, b, t, d, reverse):
+    """``lstm_fwd_bf16`` (with and without the gates slab) and
+    ``lstm_bwd_bf16`` (remat and stored gates) on ragged bf16 inputs, a
+    length-1 row among them, past one 64-row chunk and at the text
+    classifier's D 1280: each step against the float64 step from the
+    form's own carries (``chip_smoke.lstm_bf16_case``: hs one bf16 ulp plus
+    the sum term, unequal on at most 1%; dgates per step 1e-3, dh0 and
+    dpeep 1e-5 relative), reruns and the two backward forms in the same
+    bits, and the planted faults (gate halves swapped, dgates unrounded in
+    dh_{t-1}) outside the criterion."""
+    import chip_smoke as S
+
+    gen = torch.Generator(device=cuda).manual_seed(b * 131 + t)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+    lens[0] = t
+    lens[-1] = 1
+    x = S.bf16_lstm_inputs(cuda, gen, b, t, d, lens)
+    before = _bf16_counts()
+    case = S.lstm_bf16_case(x, reverse)
+    after = _bf16_counts()
+    assert all(case["bits"].values()), case["bits"]
+    assert case["fwd"]["ok"], case["fwd"]
+    assert case["bwd"]["ok"], case["bwd"]
+    assert not any(f["ok"] for f in case["faults"].values()), case["faults"]
+    assert {k: after[k] - before[k] for k in after} == {
+        "fwd": 0, "bwd": 0, "fwd_bf16": 3, "bwd_bf16": 3, "bi": 0,
+        "bi_bf16": 0}
+
+
+@pytest.mark.parametrize("b,t,e,d", [(3, 5, 16, 8), (17, 9, 40, 24),
+                                     (64, 24, 256, 64)])
+def test_bilstm_bf16_and_the_backward_over_its_projection(cuda, b, t, e, d):
+    """``bilstm_fwd_bf16`` (both directions, ragged rows, past one 16-row
+    tile) and ``lstm_bwd_bf16`` with remat over the f32 projection, as the
+    BiLSTM's backward runs it (``chip_smoke.bilstm_bf16_case``), at odd
+    shapes and the CRNN's: each direction against its forced float64
+    steps, reruns in the same bits, the planted faults (the projection
+    rounded to bf16, the gate halves swapped, dgates unrounded) outside."""
+    import chip_smoke as S
+
+    gen = torch.Generator(device=cuda).manual_seed(e + d)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+    lens[0], lens[-1] = t, 1
+    mask = (torch.arange(t, device=cuda)[None, :] < lens[:, None]).float()
+    bf = torch.bfloat16
+
+    def direction():
+        return ((torch.randn(e, 4 * d, generator=gen, device=cuda)
+                 / e ** 0.5).to(bf),
+                0.1 * torch.randn(4 * d, generator=gen, device=cuda),
+                (torch.randn(d, 4 * d, generator=gen, device=cuda)
+                 / d ** 0.5).to(bf),
+                (0.1 * torch.randn(3, d, generator=gen, device=cuda)).to(bf),
+                (0.5 * torch.randn(b, d, generator=gen, device=cuda)).to(bf),
+                0.5 * torch.randn(b, d, generator=gen, device=cuda))
+
+    xs = torch.randn(b, t, e, generator=gen, device=cuda).to(bf)
+    before = _bf16_counts()
+    case = S.bilstm_bf16_case(xs, mask, direction(), direction(), gen)
+    after = _bf16_counts()
+    assert all(case["bits"].values()), case["bits"]
+    assert case["ok"], {k: case[k] for k in ("bilstm", "bwd")}
+    assert not any(f["ok"] for f in case["bilstm_faults"].values())
+    assert not any(f["ok"] for f in case["bwd_faults"].values())
+    assert {k: after[k] - before[k] for k in after} == {
+        "fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 4, "bi": 0,
+        "bi_bf16": 2}
+
+
+def test_lstm_bf16_functions_on_card_match_the_cpu(cuda):
+    """``lstm_seq`` through its autograd Function on bf16 operands, on the
+    card (the bf16 forms only) and on the CPU (the twins): outputs and
+    every input gradient in the JAX dtypes, each
+    within 2x the CPU's relative distance from the float64 run plus 2^-8
+    (a recurrence drifts by its bf16 rounding: the card's and the CPU's
+    runs lie about as far from float64)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    rng = np.random.default_rng(3)
+    b, t, e, d = 6, 11, 32, 40
+    bf = torch.bfloat16
+    lens = torch.tensor([11, 1, 7, 11, 4, 9])
+    mask = (torch.arange(t)[None, :] < lens[:, None]).float()
+
+    def leaves(dev, wide):
+        """The same draws each call: xw, W_h, peep, h0 rounded to bf16, c0
+        f32; in float64 for the witness run."""
+        state = rng.bit_generator.state
+        vals = [rng.normal(size=s) * k for s, k in (
+            ((b, t, 4 * d), 0.5), ((d, 4 * d), d ** -0.5), ((3, d), 0.3),
+            ((b, d), 0.5), ((b, d), 0.5))]
+        rng.bit_generator.state = state
+        vals = [torch.from_numpy(v.astype(np.float32)) for v in vals]
+        vals = [v.to(bf) for v in vals[:4]] + vals[4:]
+        if wide:
+            vals = [v.double() for v in vals]
+        return [v.to(dev).requires_grad_() for v in vals]
+
+    def run(dev, wide=False):
+        xs = leaves(dev, wide)
+        hs, (h_t, c_t) = LK.lstm_seq(xs[0], mask.to(dev), *xs[1:],
+                                     remat=True)
+        loss = hs.double().sum() + h_t.double().sum() + c_t.double().sum()
+        return [hs, h_t, c_t, *torch.autograd.grad(loss, xs)]
+
+    base = run("cpu", wide=True)
+    cpu = run("cpu")
+    before = _bf16_counts()
+    card = run(cuda)
+    assert _bf16_counts()["fwd_bf16"] - before["fwd_bf16"] == 1
+    assert _bf16_counts()["bwd_bf16"] - before["bwd_bf16"] == 1
+    for a, c, w in zip(card, cpu, base):
+        assert a.dtype == c.dtype
+        ref = w.detach().double()
+        dist = float((c.detach().double() - ref).norm() / ref.norm())
+        got = float((a.detach().cpu().double() - ref).norm() / ref.norm())
+        assert got <= 2 * dist + 2.0 ** -8, (got, dist)
+
+
+def test_lstm_bf16_wrappers_refuse_what_the_forms_do_not_take(cuda):
+    """A bf16 D not a multiple of 8, a mixed f32 xw in the forward, a
+    bf16 BiLSTM past D 64, and a bf16 GRU (no bf16 form) raise on the
+    card; nothing falls back to f32."""
+    import chip_smoke as S
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = S.bf16_lstm_inputs(cuda, gen, 2, 3, 12, torch.tensor([3, 2]))
+    with pytest.raises(EnforceError, match="multiple of 8"):
+        LK.lstm_seq(x["xw"], x["mask"], x["w_h"], x["peep"], x["h0"],
+                    x["c0"])
+    x = S.bf16_lstm_inputs(cuda, gen, 2, 3, 16, torch.tensor([3, 2]))
+    with pytest.raises(EnforceError, match="xw must be"):
+        LK._fwd_kernel(x["xw"].float(), x["mask"], x["w_h"], x["peep"],
+                       x["h0"], x["c0"], False, False)
+    bf = torch.bfloat16
+    d = 72
+    w = [torch.zeros(16, 4 * d, device=cuda, dtype=bf),
+         torch.zeros(4 * d, device=cuda),
+         torch.zeros(d, 4 * d, device=cuda, dtype=bf),
+         torch.zeros(3, d, device=cuda, dtype=bf),
+         torch.zeros(2, d, device=cuda, dtype=bf),
+         torch.zeros(2, d, device=cuda)]
+    with pytest.raises(EnforceError, match="D at most"):
+        LK.bilstm_seq(torch.zeros(2, 3, 16, device=cuda, dtype=bf),
+                      torch.ones(2, 3, device=cuda), *w[:4], *w[:4],
+                      *w[4:], *w[4:])
+    with pytest.raises(EnforceError):
+        GK.gru_seq(torch.zeros(2, 3, 48, device=cuda, dtype=bf),
+                   torch.ones(2, 3, device=cuda),
+                   torch.zeros(16, 32, device=cuda, dtype=bf),
+                   torch.zeros(16, 16, device=cuda, dtype=bf),
+                   torch.zeros(2, 16, device=cuda, dtype=bf))
+
+
+@pytest.mark.parametrize("n,v,d", [(1, 3, 8), (8192, 30000, 128),
+                                   (1000, 64, 40)])
+def test_embedding_gather_bf16_matches_its_twin(cuda, n, v, d):
+    """``embedding_gather_bf16``: rows copied in bf16, bit for bit the
+    twin's (ids clamped), one launch of the bf16 form and none of f32's;
+    the fused lookup's table gradient of a bf16 table through the f32
+    scatter-add, equal to its CPU twin's sum in f32 cast once."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    ids = torch.randint(-2, v + 2, (n,), generator=gen, device=cuda)
+    table = torch.randn(v, d, generator=gen, device=cuda).to(torch.bfloat16)
+    before = (EK.KERNEL_GATHER_BF16.launches, EK.KERNEL_GATHER.launches)
+    got = EK.embedding_gather(table, ids)
+    assert (EK.KERNEL_GATHER_BF16.launches - before[0],
+            EK.KERNEL_GATHER.launches - before[1]) == (1, 0)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, EK.embedding_gather_reference(table, ids))
+    ok = ids.clamp(0, v - 1)
+    leaf = table.clone().requires_grad_()
+    out = EK.fused_embedding_lookup(leaf, ok)
+    ct = torch.randn(out.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    before = EK.KERNEL_SCATTER.launches
+    (g,) = torch.autograd.grad(out, leaf, ct)
+    assert EK.KERNEL_SCATTER.launches - before == 1
+    cpu_leaf = table.cpu().requires_grad_()
+    (want,) = torch.autograd.grad(EK.fused_embedding_lookup(
+        cpu_leaf, ok.cpu()), cpu_leaf, ct.cpu())
+    assert g.dtype == want.dtype == torch.bfloat16
+    # f32 sums of a run in another order: at most one bf16 ulp apart
+    import chip_smoke as S
+    assert int(S.bf16_ulps(g.cpu(), want).max()) <= 1
