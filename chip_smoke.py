@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``paddle_tpu_torch``) on one NVIDIA
 card — the quickest proof that the port builds, is right, serves and
-trains (ResNet-50, the transformer LM, the LSTM text classifier and the
-OCR CRNN in f32 and bf16, the attention NMT, the CIFAR-10 VGG, the
+trains (ResNet-50, the transformer LM, the LSTM text classifier, the
+OCR CRNN and the attention NMT in f32 and bf16, the CIFAR-10 VGG, the
 benchmark image nets and the Wide & Deep CTR), and runs the raw-input
 recurrences and the large-vocabulary cross-entropy.
 
@@ -356,7 +356,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``lstm_bwd_bf16``, 2 bf16 direct convs and 1 CTC a CRNN step, and no
    other form's; sequences/s and samples/s, step ms, peak memory, a
    3-step profile.
-16. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+16. The attention NMT in bf16 (rows 8 and 10's bf16 forms:
+   ``csrc/gru_seq.cu``'s ``gru_fwd_bf16`` and ``gru_bwd_bf16``,
+   ``csrc/bigru_seq.cu``'s ``bigru_fwd_bf16``).  Each form at the NMT's
+   shape (B 64, T 32, E = D = 512; half the rows ragged, one of length 1):
+   the GRU forward and backward (remat and stored, xw bf16) in both
+   directions, the BiGRU forward and the backward over its f32
+   projection, each against its forced float64 steps (every step
+   recomputed from the form's own carries, r h rounded to bf16 there too:
+   hs and the u/r/c slab within one bf16 ulp plus the f32 sum term on all
+   but 1% of the elements, h_T 1e-4; dxw per step 1e-3, dh0 1e-5, rh
+   equal on all but 1%, within two ulps), reruns and the two backward
+   forms in the same bits, and planted faults that must fail (r h
+   unrounded, the u/r halves swapped, the BiGRU's projection rounded, the
+   backward's products unrounded, dW_hc from the unrounded r); each timed
+   with the L2 flushed and alone (a trace) beside its twin, its bound (2 B
+   an element, 989 TFLOP/s) and bf16 cuDNN ``nn.GRU`` (not the same
+   cell).
+   The NMT's bf16 witness step at a cut width (``nmt_bf16_witness``: every
+   gradient leaf and the loss on the card and the CPU within 2x the JAX
+   package's own bf16 error plus 2^-8; the GRUs' dW_h over unshifted
+   stacks must exceed it; a rerun in the same bits).  The composed BiGRU
+   check in bf16 (``layer.bigru`` against the ``simple_gru2`` pair, each
+   against float64; the pair's ``grumemory`` through ``gru_fwd_bf16`` and
+   both backward forms, remat and stored in the same bits).  Then
+   ``bench_nmt``'s configuration through ``trainer.SGD(...,
+   compute_dtype=torch.bfloat16)`` (Adam 5e-4, bf16 moments) beside f32,
+   2 warm-up and 10 timed steps each in blocks (bf16, f32, f32, bf16):
+   exactly 1 ``bigru_fwd_bf16``, 2 ``gru_bwd_bf16``, 2 bf16 gathers and 2
+   (f32) scatter-adds a bf16 step and no other form's; sequences/s, step
+   ms, peak memory, a 3-step profile.
+17. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -2865,22 +2895,29 @@ def nmt_batches(rng, k, bs, vocab, lo=32, hi=32):
     return out
 
 
-def composed_bigru_check(dev, b=64, t=32, e=512, d=512):
+def composed_bigru_check(dev, b=64, t=32, e=512, d=512,
+                         dtype=torch.float32):
     """``layer.bigru`` against the composed fw/bw ``networks.simple_gru2``
     pair (a mixed transform with bias + ``grumemory``) at the NMT's width on
-    the card, on the same parameter values: the forward and every
-    gradient within TOL * max(1, |ref|).  Then each ``grumemory`` of the
-    pair again as its layer calls ``gru_seq``, on the pair's own gate
-    inputs and weights, once with the remat backward the card runs and
-    once with the stored-gates one: the same bits.  Returns (summary,
-    launches by kernel)."""
+    the card, on the same parameter values: in f32 the forward and every
+    gradient within TOL * max(1, |ref|); in bf16 (the parameters and x cast
+    inside the graph, as the v2 step casts them) each, per tensor, within
+    2x the pair's relative distance from the float64 run of ``layer.bigru``
+    on the CPU plus 2^-8 (the pair rounds its projection to bf16, the
+    BiGRU keeps it f32).  Then each ``grumemory`` of the pair again as its
+    layer calls ``gru_seq``, on the pair's own gate inputs and weights,
+    once with the remat backward the card runs and once with the
+    stored-gates one: the same bits, and the pair's output.  Returns
+    (summary, launches by kernel, the bf16 forms' for bf16)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.core.dtype import cast_floats
     from paddle_tpu_torch.core.lod import SequenceBatch
     from paddle_tpu_torch.layers import networks
     from paddle_tpu_torch.layers.base import reset_name_counters
     from paddle_tpu_torch.ops.kernels import gru as GK
 
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(3)
     L, D = paddle.layer, paddle.data_type
     reset_name_counters()
@@ -2904,46 +2941,59 @@ def composed_bigru_check(dev, b=64, t=32, e=512, d=512):
                                            device=dev), lens)}
     ct = torch.randn(b, t, 2 * d, generator=gen, device=dev)
 
-    def run(topology, outs):
-        leaves = {n: v.clone().requires_grad_() for n, v in params.items()}
-        vals, _ = topology.forward(leaves, {}, feed, True)
+    def run(topology, outs, where=dev, cast=dtype):
+        leaves = {n: v.to(where, torch.float32 if cast != torch.float64
+                          else cast).clone().requires_grad_()
+                  for n, v in params.items()}
+        fd = cast_floats({k: SequenceBatch(v.data.to(where),
+                                           v.length.to(where))
+                          for k, v in feed.items()}, cast)
+        vals, _ = topology.forward(cast_floats(leaves, cast), {}, fd, True)
         out = torch.cat([vals[o].data for o in outs], dim=-1)
-        grads = torch.autograd.grad((out * ct).sum(), list(leaves.values()))
+        grads = torch.autograd.grad((out.double() * ct.to(where).double()
+                                     ).sum(), list(leaves.values()))
         return [out.detach(), *grads], vals
 
     mask = feed["x"].mask(torch.float32)
-    h0 = torch.zeros(b, d, device=dev)
+    h0 = torch.zeros(b, d, device=dev, dtype=dtype)
 
     def grumemory_pair(vals, remat):
-        """hs and the gradients of (xw, W_h, W_hc) of each direction."""
+        """hs and the gradients of (xw, W_h, W_hc) of each direction, the
+        operands in the run's dtype, as ``grumemory`` hands them over."""
         out = []
         for k, reverse in (("fw", False), ("bw", True)):
-            w = params[f"_bi_{k}.w0"]
+            w = params[f"_bi_{k}.w0"].to(dtype)
             xw = (vals[f"bi_{k}_transform"].data.detach()
-                  + params[f"_bi_{k}.wbias"])
+                  + params[f"_bi_{k}.wbias"].to(dtype))
             leaves = [xw, w[:, :2 * d].clone(), w[:, 2 * d:].clone()]
             leaves = [v.requires_grad_() for v in leaves]
             hs, _ = GK.gru_seq(leaves[0], mask, leaves[1], leaves[2], h0,
                                reverse=reverse, remat=remat)
-            cot = ct[..., :d] if k == "fw" else ct[..., d:]
+            cot = (ct[..., :d] if k == "fw" else ct[..., d:]).to(dtype)
             out += [hs.detach(),
                     *torch.autograd.grad((hs * cot).sum(), leaves)]
         return out
 
-    kernels = {"bigru_fwd": GK.KERNEL_BI, "gru_fwd": GK.KERNEL_FWD,
-               "gru_bwd_remat": GK.KERNEL_BWD,
-               "gru_bwd_stored": GK.KERNEL_BWD_STORED}
-    for k in kernels.values():
+    counters = gru_bf16_counters()
+    names = {"bigru_fwd": "bigru_fwd", "gru_fwd": "gru_fwd",
+             "gru_bwd_remat": "gru_bwd_remat",
+             "gru_bwd_stored": "gru_bwd_stored"}
+    if bf16:
+        names = {k: v + "_bf16" for k, v in names.items()}
+    for k in counters.values():
         k.launches = 0
     got, _ = run(topo, ["bi"])
     want, vals = run(topo2, ["bi_fw", "bi_bw"])
     remat = grumemory_pair(vals, True)
     stored = grumemory_pair(vals, False)
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = {n: counters[c].launches for n, c in names.items()}
+    others = {n: k.launches for n, k in counters.items()
+              if k.launches and n not in names.values()}
     if launches != {"bigru_fwd": 1, "gru_fwd": 6, "gru_bwd_remat": 6,
-                    "gru_bwd_stored": 2}:
-        raise AssertionError(f"composed check launches {launches}")
+                    "gru_bwd_stored": 2} or others:
+        raise AssertionError(f"composed check launches {launches}, "
+                             f"{others}")
     if not all(torch.equal(p, q) for p, q in zip(remat, stored)):
         raise AssertionError("the grumemory pair: remat and stored-gates "
                              "backward differ in bits")
@@ -2951,17 +3001,30 @@ def composed_bigru_check(dev, b=64, t=32, e=512, d=512):
         raise AssertionError("gru_seq on the pair's inputs differs from "
                              "the pair's output")
     errs = {}
-    for name, g, w in zip(["out"] + list(params), got, want):
-        err = (g - w).abs().max().item()
-        scale = max(1.0, w.abs().max().item())
-        errs[name] = err / scale
-        if not err <= TOL * scale:
-            raise AssertionError(f"bigru vs the simple_gru2 pair: {name} "
-                                 f"{err} (scale {scale})")
-    return ({"phase": "nmt_composed_bigru_check", "batch": b, "T": t, "E": e,
-             "D": d, "tol": TOL, "max_rel_err": max(errs.values()),
-             "worst": max(errs, key=errs.get),
-             "remat_equals_stored_bits": True,
+    if bf16:
+        wide, _ = run(topo, ["bi"], "cpu", torch.float64)
+        for name, g, w, r in zip(["out"] + list(params), got, want, wide):
+            errs[name] = (rel_norm(g, r), rel_norm(w, r))
+            if not errs[name][0] <= 2 * errs[name][1] + 2.0 ** -8:
+                raise AssertionError(f"bf16 bigru vs the simple_gru2 pair, "
+                                     f"against float64: {name} {errs[name]}")
+        worst = max(errs, key=lambda n: errs[n][0] / (2 * errs[n][1]
+                                                      + 2.0 ** -8))
+        limit = f"2 x the pair's distance from float64 + {2.0 ** -8}"
+    else:
+        for name, g, w in zip(["out"] + list(params), got, want):
+            err = (g - w).abs().max().item()
+            scale = max(1.0, w.abs().max().item())
+            errs[name] = err / scale
+            if not err <= TOL * scale:
+                raise AssertionError(f"bigru vs the simple_gru2 pair: "
+                                     f"{name} {err} (scale {scale})")
+        worst = max(errs, key=errs.get)
+        limit = TOL
+    return ({"phase": "nmt_composed_bigru_check", "dtype": str(dtype),
+             "batch": b, "T": t, "E": e, "D": d, "limit": limit,
+             "errors": errs if bf16 else {"max_rel_err": errs[worst]},
+             "worst": worst, "remat_equals_stored_bits": True,
              "gru_seq_on_the_pair_inputs_equals_the_pair_bits": True,
              "launches": launches},
             launches)
@@ -6689,6 +6752,736 @@ def train_crnn_bf16(dev, bs=64, steps=10) -> tuple[dict, dict]:
              "profile_bf16": prof, "bf16_launches": launched}, launched)
 
 
+# -- phase 16: the attention NMT in bf16 --------------------------------------
+
+#: The bf16 GRU forms are held step by step, as the LSTM forms are (phase
+#: 15): each step of a form's output recomputed in float64 from the
+#: output's own carries.  Forward (``gru_bf16_forced_fwd``): h_{t-1} the
+#: form's hs shifted by one step, r h_{t-1} rounded to bf16 in the float64
+#: step too (a product the f32 step rounds the other way moves an h by
+#: less than its ulp); hs and, with the slab, u, r, c unequal to the
+#: float64 step rounded once on at most BF16_ULP_SHARE of the elements,
+#: each within one ulp plus sqrt(K) 2^-24 of its sum of |terms| (for h:
+#: u's sum times |h_{t-1} - c|, plus c's, plus |h_{t-1}| + |c|); h_T
+#: within GRU_BF16_STATE_RTOL of the float64 h (relative norm: an r h
+#: rounded the other way at the last step moves its row by ~3e-5).
+#: Backward (``gru_bf16_forced_bwd``): each computed step's dxw within
+#: LSTM_BF16_STEP_RTOL of the float64 step (du and dc from the float64 dh
+#: carry, dr from the form's own dc rounded; the carry rebuilt from the
+#: form's own dxw rounded to bf16, as the kernel rounds it), dh0 within
+#: LSTM_BF16_SUM_RTOL; rh, dW_hc's operand, equal to bf16(bf16(r)
+#: h_{t-1}) on all but BF16_ULP_SHARE of the elements, each within two
+#: ulps (the product of two bf16 is exact in f32: over the form's own slab
+#: it is equal in bits; a recomputed r may round to its neighbour, up to
+#: 2^-7 of it, which moves the product by up to two of its ulps).
+GRU_BF16_STATE_RTOL = 1e-4
+#: the NMT's bf16 witness step at a cut width (vocab 20 / 17, width 16,
+#: batch 8; ``nmt_bf16_setup``): its gradient leaves and loss against the
+#: float64 step on the CPU, within 2x the JAX package's own bf16 error at
+#: the very same step plus RNN_BF16_FLOOR; the JAX errors are recomputed
+#: by ``tests/test_torch_nmt_bf16.py`` (``PYTHONPATH=.:tests python
+#: tests/test_torch_nmt_bf16.py`` prints them)
+NMT_BF16_NET = {"source_dict_dim": 20, "target_dict_dim": 17,
+                "word_vector_dim": 16, "encoder_size": 16,
+                "decoder_size": 16}
+NMT_BF16_BATCH = (8, 1, 12)       # rows, shortest and longest length
+NMT_BF16_WITNESS_JAX = {
+    '_attention_softmax.w': 0.01243, '_attention_transform.w': 0.1108,
+    '_decoder_boot.w': 0.005622, '_decoder_inputs_ctx.w': 0.004889,
+    '_decoder_inputs_word.w': 0.00584, '_decoder_prob.bias': 0.00201,
+    '_decoder_prob.w': 0.004097, '_encoded_proj.w': 0.0118,
+    '_gru_decoder.bias': 0.004642, '_gru_decoder.w': 0.005228,
+    '_source_language_embedding': 0.006097, '_src_gru_bw.w0': 0.006235,
+    '_src_gru_bw.wbias': 0.005749, '_src_gru_bw_transform.w0': 0.006571,
+    '_src_gru_bw_transform.wbias': 0.005749, '_src_gru_fw.w0': 0.006938,
+    '_src_gru_fw.wbias': 0.005795, '_src_gru_fw_transform.w0': 0.006317,
+    '_src_gru_fw_transform.wbias': 0.005795,
+    '_target_language_embedding': 0.004773, 'loss': 7.562e-05}
+
+
+def gru_bf16_forced_fwd(xw, mask, w_h, w_hc, h0, reverse, hs, kred: int,
+                        proj_mag=None) -> dict:
+    """Every step of a bf16 GRU forward recomputed in float64 from the
+    output's own carries: h_{t-1} the output shifted by one step (h0 at the
+    boot index), u, r from xw + h_{t-1} W_h, r h_{t-1} rounded to bf16, c
+    from xw + (r h) W_hc, the blend, the freeze.  Returns {"h", "gates"
+    ([.., 3D]: u, r, c), "mag" (per element of h), "mag_g" (per gate
+    column: the sums of |terms| of its pre-activation)}; ``proj_mag``
+    ([.., 3D]) adds the |terms| of an in-loop projection.  A product r
+    h_{t-1} that lies nearer a bf16 rounding midpoint than the f32 r's
+    error (the sum term of a ``kred``-deep f32 sum, through the sigmoid,
+    and 16 f32 ulps of it) may round the other way in the form: the one
+    ulp it may move adds |W_hc| times that ulp to c's bound (as a sum of
+    |terms| scaled by the criterion's sqrt(kred) 2^-24)."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    d = w_hc.shape[0]
+    coef = kred ** 0.5 * 2.0 ** -24
+    hp = GK._shift_prev(hs, h0, reverse).double()
+    wh, whc, x = w_h.double(), w_hc.double(), xw.double()
+    ur = x[..., :2 * d] + torch.matmul(hp, wh)
+    u, r = torch.sigmoid(ur[..., :d]), torch.sigmoid(ur[..., d:])
+    mag_ur = x[..., :2 * d].abs() + torch.matmul(hp.abs(), wh.abs())
+    if proj_mag is not None:
+        mag_ur = mag_ur + proj_mag[..., :2 * d]
+    p = r * hp
+    rh = p.to(torch.bfloat16).double()
+    ulp = torch.ldexp(torch.ones_like(p), torch.frexp(p)[1] - 8)
+    near = (ulp / 2 - (p - rh).abs()).abs() <= 4 * hp.abs() * (
+        0.25 * coef * mag_ur[..., d:] + 2.0 ** -20 * r)
+    flip = torch.matmul(near * ulp, whc.abs())
+    c = torch.tanh(x[..., 2 * d:] + torch.matmul(rh, whc))
+    m = mask.double()[..., None]
+    h = m * (u * hp + (1 - u) * c) + (1 - m) * hp
+    mag_c = (x[..., 2 * d:].abs() + torch.matmul(rh.abs(), whc.abs())
+             + flip / coef)
+    if proj_mag is not None:
+        mag_c = mag_c + proj_mag[..., 2 * d:]
+    mag_g = torch.cat([mag_ur, mag_c], -1)
+    mag = mag_ur[..., :d] * (hp - c).abs() + mag_c + hp.abs() + c.abs()
+    return {"h": h, "gates": torch.cat([u, r, c], -1), "mag": mag,
+            "mag_g": mag_g}
+
+
+def gru_bf16_fwd_agreement(hs, forced, kred: int, urc=None) -> dict:
+    """A bf16 GRU forward's hs (and u/r/c slab) against
+    :func:`gru_bf16_forced_fwd` of the same hs (the criterion above);
+    "ok" says whether they agree."""
+    a = bf16_agreement(hs, forced["h"].to(torch.bfloat16), forced["mag"],
+                       kred)
+    ok = a["share_off"] <= BF16_ULP_SHARE and a["max_share_of_bound"] <= 1
+    if urc is not None:
+        g = bf16_agreement(urc, forced["gates"].to(torch.bfloat16),
+                           forced["mag_g"], kred)
+        a["gates"] = g
+        ok = (ok and g["share_off"] <= BF16_ULP_SHARE
+              and g["max_share_of_bound"] <= 1)
+    a["ok"] = bool(ok)
+    return a
+
+
+def gru_bf16_forced_bwd(urc, mask, w_h, w_hc, h0, hs, dhs, dhT, reverse,
+                        dxw) -> dict:
+    """The backward of a bf16 GRU recomputed in float64 over ``urc`` (bf16
+    [B, T, 3D]: u, r, c), step by step in the backward's order: du and dc
+    from the float64 dh carry, dr from the form's own dc (rounded to bf16)
+    times W_hc^T, the carry dh u m + drh r + [du, dr] W_h^T from the form's
+    own ``dxw`` rounded to bf16.  Returns {"dxw", "dh0", "rh" (bf16(r
+    h_{t-1}), r the slab's)}."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    t, d = hs.shape[1], w_hc.shape[0]
+    hp_all = GK._shift_prev(hs, h0, reverse).double()
+    dg = dxw.to(torch.bfloat16).double()
+    drh_all = torch.matmul(dg[..., 2 * d:], w_hc.double().t())
+    carry_all = torch.matmul(dg[..., :2 * d], w_h.double().t())
+    del dg
+    g = urc.double()
+    dh = dhT.double()
+    out = torch.empty(dxw.shape, dtype=torch.float64, device=dxw.device)
+    for k in GK._steps(t, not reverse):
+        m = mask[:, k, None].double()
+        dh = dh + dhs[:, k].double()
+        u, r, c = g[:, k].split(d, dim=-1)
+        hp = hp_all[:, k]
+        du = dh * (hp - c) * u * (1 - u) * m
+        dc = dh * (1 - u) * m * (1 - c * c)
+        dr = drh_all[:, k] * hp * r * (1 - r)
+        out[:, k] = torch.cat([du, dr, dc], -1)
+        dh = dh * u * m + drh_all[:, k] * r + carry_all[:, k] + (1 - m) * dh
+    rh = (g[..., d:2 * d] * hp_all).to(torch.bfloat16)
+    return {"dxw": out, "dh0": dh, "rh": rh}
+
+
+def gru_bf16_bwd_agreement(got, forced) -> dict:
+    """A bf16 GRU backward's (dxw, dh0, rh) against
+    :func:`gru_bf16_forced_bwd` of its own dxw (the criterion above); "ok"
+    says whether they agree."""
+    dxw, dh0, rh = got
+    steps = [rel_norm(dxw[:, k], forced["dxw"][:, k])
+             for k in range(dxw.shape[1])
+             if forced["dxw"][:, k].abs().max() > 0]
+    ulps = bf16_ulps(rh, forced["rh"])
+    a = {"dxw_step_worst": max(steps), "dh0": rel_norm(dh0, forced["dh0"]),
+         "rh_share_off": float((ulps > 0).float().mean()),
+         "rh_max_ulps": int(ulps.max()),
+         "max_abs_err": float((dxw.double() - forced["dxw"]).abs().max())}
+    a["ok"] = bool(a["dxw_step_worst"] <= LSTM_BF16_STEP_RTOL
+                   and a["dh0"] <= LSTM_BF16_SUM_RTOL
+                   and a["rh_share_off"] <= BF16_ULP_SHARE
+                   and a["rh_max_ulps"] <= 2)
+    return a
+
+
+def gru_halves_swapped(run):
+    """``run()`` with the twin's update and reset pre-activations swapped:
+    the planted fault of the bf16 forms' pairs slice (a unit's two gate
+    columns read the wrong way round)."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    plain = GK._gates
+
+    def swapped(x_t, h, w_h, w_hc):
+        d = h.shape[-1]
+        x_t = torch.cat([x_t[:, d:2 * d], x_t[:, :d], x_t[:, 2 * d:]], -1)
+        return plain(x_t, h, torch.cat([w_h[:, d:], w_h[:, :d]], -1), w_hc)
+
+    GK._gates = swapped
+    try:
+        return run()
+    finally:
+        GK._gates = plain
+
+
+def gru_unrounded(run):
+    """``run()`` with the GRU twins' bf16 roundings of a product's operand
+    off: in the forward r h_{t-1} before W_hc (JAX ``gru.py:41`` rounds it),
+    in the backward dc and [du, dr] before W_hc^T and W_h^T (``:86``,
+    ``:93``) — the planted faults "rh unrounded" and "products
+    unrounded"."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    plain = GK._rounded
+    GK._rounded = lambda x, dtype: x
+    try:
+        return run()
+    finally:
+        GK._rounded = plain
+
+
+def gru_projection_rounded(run):
+    """``run()`` with the BiGRU twin's projection rounded to bf16 (the
+    planted fault: JAX keeps it f32, ``gru.py:578-580``)."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    plain = GK._project_xw
+    GK._project_xw = lambda *a: plain(*a).to(torch.bfloat16).float()
+    try:
+        return run()
+    finally:
+        GK._project_xw = plain
+
+
+def gru_dwh_unshifted(run):
+    """``run()`` with the GRUs' dW_h taking h_t for h_{t-1} (the stacks
+    unshifted): the planted fault the NMT's bf16 witness must catch."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    plain = GK._shift_prev
+    GK._shift_prev = lambda stack, boot, reverse: stack
+    try:
+        return run()
+    finally:
+        GK._shift_prev = plain
+
+
+def gru_bf16_counters() -> dict:
+    """{name: Kernel} of every form the NMT's steps may launch."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    return {"bigru_fwd": GK.KERNEL_BI, "gru_fwd": GK.KERNEL_FWD,
+            "gru_bwd_remat": GK.KERNEL_BWD,
+            "gru_bwd_stored": GK.KERNEL_BWD_STORED,
+            "bigru_fwd_bf16": GK.KERNEL_BI_BF16,
+            "gru_fwd_bf16": GK.KERNEL_FWD_BF16,
+            "gru_bwd_remat_bf16": GK.KERNEL_BWD_BF16,
+            "gru_bwd_stored_bf16": GK.KERNEL_BWD_STORED_BF16,
+            "gather": EK.KERNEL_GATHER, "gather_bf16": EK.KERNEL_GATHER_BF16,
+            "scatter_add": EK.KERNEL_SCATTER}
+
+
+def bf16_gru_inputs(dev, gen, b, t, d, lengths) -> dict:
+    """bf16 xw, W_h, W_hc, h0 and dhs, an f32 mask and dh_T of a GRU at
+    [B, T, D] with the given lengths."""
+    bf = torch.bfloat16
+    mask = (torch.arange(t, device=dev)[None, :]
+            < lengths.to(dev)[:, None]).float()
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(bf)
+
+    return dict(xw=rnd(b, t, 3 * d, scale=0.5), mask=mask,
+                w_h=rnd(d, 2 * d, scale=d ** -0.5),
+                w_hc=rnd(d, d, scale=d ** -0.5), h0=rnd(b, d, scale=0.5),
+                dhs=rnd(b, t, d),
+                dhT=torch.randn(b, d, generator=gen, device=dev))
+
+
+def gru_bf16_case(x, reverse, xw=None) -> dict:
+    """The bf16 GRU forward and backward forms on one problem against their
+    forced float64 steps, with their planted faults and reruns: {"fwd",
+    "bwd" (agreements), "faults" (each fault's twin outputs against the
+    same criterion), "bits" (the rerun, stored vs remat, the slab form's
+    hs), "args"}.  ``xw`` (f32) replaces x["xw"] in the backward's remat
+    (the BiGRU's projection); the forward then is not the path's and is
+    not run, and x["hs"] is the BiGRU's."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    m, w_h, w_hc, h0 = x["mask"], x["w_h"], x["w_hc"], x["h0"]
+    d = w_hc.shape[0]
+    out = {"bits": {}, "faults": {}}
+    if xw is None:
+        xw = x["xw"]
+        hs, _, h_t = GK._fwd_kernel(xw, m, w_h, w_hc, h0, reverse, False)
+        again = GK._fwd_kernel(xw, m, w_h, w_hc, h0, reverse, False)
+        hs_g, urc, h_t_g = GK._fwd_kernel(xw, m, w_h, w_hc, h0, reverse, True)
+        out["bits"]["fwd_rerun"] = (torch.equal(hs, again[0])
+                                    and torch.equal(h_t, again[2]))
+        out["bits"]["fwd_gates_form"] = (torch.equal(hs, hs_g)
+                                         and torch.equal(h_t, h_t_g))
+        forced = gru_bf16_forced_fwd(xw, m, w_h, w_hc, h0, reverse, hs, d)
+        a = gru_bf16_fwd_agreement(hs, forced, d, urc)
+        last = 0 if reverse else xw.shape[1] - 1
+        a["h_T"] = rel_norm(h_t, forced["h"][:, last])
+        a["ok"] = a["ok"] and a["h_T"] <= GRU_BF16_STATE_RTOL
+        out["fwd"] = a
+        del again, hs_g, h_t_g
+        for name, wrap in (("rh_unrounded", gru_unrounded),
+                           ("halves_swapped", gru_halves_swapped)):
+            bad = wrap(lambda: GK._fwd_plain(xw, m, w_h, w_hc, h0, reverse,
+                                             True))
+            out["faults"][name] = gru_bf16_fwd_agreement(
+                bad[0], gru_bf16_forced_fwd(xw, m, w_h, w_hc, h0, reverse,
+                                            bad[0], d), d, bad[1])
+            del bad
+    else:
+        hs = x["hs"]
+        forced = gru_bf16_forced_fwd(xw, m, w_h, w_hc, h0, reverse, hs, d)
+        urc = forced["gates"].to(torch.bfloat16)
+    r64 = forced["gates"][..., d:2 * d]
+    del forced
+    args = (m, w_h, w_hc, h0, hs, x["dhs"], x["dhT"], reverse)
+    remat = GK._bwd_kernel(xw, None, *args, True)
+    again = GK._bwd_kernel(xw, None, *args, True)
+    out["bits"]["bwd_rerun"] = all(torch.equal(a, b)
+                                   for a, b in zip(remat, again))
+    del again
+    if xw.dtype == torch.bfloat16:
+        stored = GK._bwd_kernel(None, urc, *args, False)
+        out["bits"]["bwd_remat_vs_stored"] = all(
+            torch.equal(a, b) for a, b in zip(remat, stored))
+        del stored
+    out["bwd"] = gru_bf16_bwd_agreement(
+        remat, gru_bf16_forced_bwd(urc, *args[:-1], reverse, remat[0]))
+    bad = gru_unrounded(lambda: GK._bwd_plain(None, urc, *args, False))
+    out["faults"]["products_unrounded"] = gru_bf16_bwd_agreement(
+        bad, gru_bf16_forced_bwd(urc, *args[:-1], reverse, bad[0]))
+    # dW_hc's operand from the forward's unrounded r, bf16(r h_{t-1})
+    rh_bad = (r64 * GK._shift_prev(hs, h0, reverse).double()).to(
+        torch.bfloat16)
+    out["faults"]["rh_from_unrounded_r"] = gru_bf16_bwd_agreement(
+        (remat[0], remat[1], rh_bad),
+        gru_bf16_forced_bwd(urc, *args[:-1], reverse, remat[0]))
+    del bad, rh_bad, r64
+    out["args"] = (xw, urc) + args
+    out["hs"], out["remat"] = hs, remat
+    return out
+
+
+def bigru_bf16_case(xs, mask, fw, bw, gen) -> dict:
+    """The bf16 BiGRU forward on one problem and, per direction, the GRU
+    backward form over its f32 projection, as the BiGRU's backward runs
+    it: each against its forced float64 steps (the projection's |terms|
+    in the sum, K = E + D), reruns in the same bits, and the planted
+    faults (the projection rounded, the gate halves swapped, r h
+    unrounded; the backward's products unrounded, dW_hc's r unrounded).
+    {"bigru", "bwd" (by direction), "bigru_faults", "bwd_faults", "bits",
+    "ok", "bwd_args" (the forward direction's backward arguments)}."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    bf = torch.bfloat16
+    b, t, e = xs.shape
+    d = fw[3].shape[0]
+    outs = GK._bi_fwd_kernel(xs, mask, fw, bw)
+    again = GK._bi_fwd_kernel(xs, mask, fw, bw)
+    out = {"bigru": {}, "bwd": {}, "bigru_faults": {}, "bwd_faults": {},
+           "bits": {"bigru_rerun": all(
+               torch.equal(u, v) for o1, o2 in zip(outs, again)
+               for u, v in zip(o1, o2))}}
+    del again
+    for key, weights, (hs, h_t), reverse in (
+            ("forward", fw, outs[0], False), ("reverse", bw, outs[1], True)):
+        w_x, bias, w_h, w_hc, h0 = weights
+        proj = torch.matmul(xs.double().abs(), w_x.double().abs())
+        xw64 = torch.matmul(xs.double(), w_x.double()) + bias.double()
+        forced = gru_bf16_forced_fwd(xw64, mask, w_h, w_hc, h0, reverse, hs,
+                                     e + d, proj)
+        a = gru_bf16_fwd_agreement(hs, forced, e + d)
+        a["h_T"] = rel_norm(h_t, forced["h"][:, 0 if reverse else t - 1])
+        a["ok"] = a["ok"] and a["h_T"] <= GRU_BF16_STATE_RTOL
+        out["bigru"][key] = a
+        del forced
+        for fault, wrap in (("projection_rounded", gru_projection_rounded),
+                            ("halves_swapped", gru_halves_swapped),
+                            ("rh_unrounded", gru_unrounded)):
+            bad = wrap(lambda: GK._bi_fwd_plain(xs, mask, fw, bw))[
+                1 if reverse else 0][0]
+            out["bigru_faults"][f"{key}_{fault}"] = gru_bf16_fwd_agreement(
+                bad, gru_bf16_forced_fwd(xw64, mask, w_h, w_hc, h0, reverse,
+                                         bad, e + d, proj), e + d)
+        cx = {"mask": mask, "w_h": w_h, "w_hc": w_hc, "h0": h0, "hs": hs,
+              "dhs": torch.randn(b, t, d, generator=gen,
+                                 device=xs.device).to(bf),
+              "dhT": torch.zeros(b, d, device=xs.device)}
+        case = gru_bf16_case(cx, reverse, GK._project_xw(xs, w_x, bias))
+        out["bits"][f"bwd_{key}_rerun"] = case["bits"]["bwd_rerun"]
+        out["bwd"][key] = case["bwd"]
+        out["bwd_faults"].update({f"{key}_{k}": v
+                                  for k, v in case["faults"].items()})
+        if key == "forward":
+            out["bwd_args"] = case["args"]
+        del case, xw64, proj
+    out["ok"] = bool(all(a["ok"] for a in out["bigru"].values())
+                     and all(a["ok"] for a in out["bwd"].values()))
+    return out
+
+
+NMT_ORDER = ("source_language_word", "target_language_word",
+             "target_language_next_word")
+
+
+def nmt_bf16_setup():
+    """The NMT's bf16 witness step (``NMT_BF16_NET``): (topology, cost
+    name, f32 parameters as numpy, the input types, one seeded batch of
+    ``NMT_BF16_BATCH`` ragged (source, target, next-target) rows, the
+    feeding).  Parameters from ``parameters.create`` (seeded), the biases
+    made nonzero so every term of the cells and the softmax counts."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import seqtoseq
+
+    reset_name_counters()
+    net = NMT_BF16_NET
+    cost = seqtoseq.seqtoseq_net(net["source_dict_dim"],
+                                 net["target_dict_dim"],
+                                 word_vector_dim=net["word_vector_dim"],
+                                 encoder_size=net["encoder_size"],
+                                 decoder_size=net["decoder_size"])
+    topo = Topology(cost)
+    created = paddle.parameters.create(cost)
+    rng = np.random.default_rng(0)
+    params = {n: np.array(created[n]) for n in created.names()}
+    for n in params:
+        if n.endswith("bias"):
+            params[n] = (0.1 * rng.standard_normal(params[n].shape)
+                         ).astype(np.float32)
+    rows, lo, hi = NMT_BF16_BATCH
+    batch = []
+    for _ in range(rows):
+        ls, lt = (int(rng.integers(lo, hi + 1)) for _ in range(2))
+        trg = rng.integers(0, net["target_dict_dim"], size=lt + 1)
+        batch.append((rng.integers(0, net["source_dict_dim"],
+                                   size=ls).tolist(),
+                      trg[:-1].tolist(), trg[1:].tolist()))
+    feeding = {n: i for i, n in enumerate(NMT_ORDER)}
+    return (topo, cost.name, params, data_types(paddle, topo), batch,
+            feeding)
+
+
+def check_gru_bf16_kernels(dev, timer, b=64, t=32, e=512,
+                           d=512) -> tuple[list, dict]:
+    """The bf16 forms of rows 8 and 10 at the NMT's shapes (B 64, T 32,
+    E = D = 512; half the rows full, half ragged, one of length 1): the
+    GRU forward and backward (remat and stored gates, xw bf16, as the
+    composed ``simple_gru2`` pair runs them) over both directions; the
+    BiGRU forward and, per direction, the backward over its f32
+    projection, as the NMT's encoder runs them.  Each against its forced
+    float64 steps (the criterion above), reruns in the same bits, the
+    backward's remat and stored forms in the same bits, and each planted
+    fault must fail: r h unrounded, the u/r halves swapped, the BiGRU's
+    projection rounded, the backward's products unrounded, dW_hc from the
+    unrounded r.  Times (bf16, 2 B an element, 989 TFLOP/s): each form
+    with the L2 flushed, alone (a trace), its bf16 twin, its bound, and
+    bf16 cuDNN ``nn.GRU`` (not the same cell: its reset gate acts after
+    the candidate product, and it includes the input projection)."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+    summary = {"phase": "gru_bf16_kernels",
+               "criterion": "forced float64 steps (chip_smoke.py)",
+               "step_rtol": LSTM_BF16_STEP_RTOL,
+               "sum_rtol": LSTM_BF16_SUM_RTOL,
+               "state_rtol": GRU_BF16_STATE_RTOL,
+               "lengths": "half full (32), half ragged, one of length 1"}
+
+    def must(ok, what, detail):
+        if not ok:
+            raise AssertionError(f"bf16 gru forms, {what}: {detail}")
+
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lens[: b // 2] = t
+    lens[-1] = 1
+    # (a) the GRU forms over xw bf16, both directions
+    summary["gru"], calls = {}, {}
+    for key, reverse in (("forward", False), ("reverse", True)):
+        x = bf16_gru_inputs(dev, gen, b, t, d, lens)
+        x["h0"] = torch.zeros_like(x["h0"])
+        case = gru_bf16_case(x, reverse)
+        must(all(case["bits"].values()), f"gru {key} bits", case["bits"])
+        must(case["fwd"]["ok"] and case["bwd"]["ok"],
+             f"gru {key} vs forced steps",
+             {k: case[k] for k in ("fwd", "bwd")})
+        must(not any(f["ok"] for f in case["faults"].values()),
+             f"a gru {key} fault passed", case["faults"])
+        summary["gru"][key] = {k: case[k] for k in ("fwd", "bwd", "faults",
+                                                    "bits")}
+        calls[key] = case["args"]
+        del case
+    xw, urc, *args = calls["forward"]
+    m, w_h, w_hc, h0 = args[:4]
+    fwd_args = (xw, m, w_h, w_hc, h0, False, False)
+    fwd = lambda: GK._fwd_kernel(*fwd_args)                       # noqa: E731
+    stored = lambda: GK._bwd_kernel(None, urc, *args, False)      # noqa: E731
+
+    # (b) the BiGRU forward and the backward over its f32 projection
+    xs = torch.randn(b, t, e, generator=gen, device=dev).to(bf)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+
+    def direction():
+        return ((torch.randn(e, 3 * d, generator=gen, device=dev)
+                 / e ** 0.5).to(bf),
+                0.1 * torch.randn(3 * d, generator=gen, device=dev),
+                (torch.randn(d, 2 * d, generator=gen, device=dev)
+                 / d ** 0.5).to(bf),
+                (torch.randn(d, d, generator=gen, device=dev)
+                 / d ** 0.5).to(bf),
+                torch.zeros(b, d, device=dev, dtype=bf))
+
+    fw, bw = direction(), direction()
+    case = bigru_bf16_case(xs, mask, fw, bw, gen)
+    must(all(case["bits"].values()), "bigru reruns", case["bits"])
+    must(case["ok"], "bigru vs forced", {k: case[k] for k in ("bigru",
+                                                               "bwd")})
+    must(not any(f["ok"] for f in case["bigru_faults"].values())
+         and not any(f["ok"] for f in case["bwd_faults"].values()),
+         "a bigru fault passed", case)
+    xw_p, _, *pargs = case.pop("bwd_args")
+    summary["bigru"] = case
+    remat = lambda: GK._bwd_kernel(xw_p, None, *pargs, True)      # noqa: E731
+    bi = lambda: GK._bi_fwd_kernel(xs, mask, fw, bw)              # noqa: E731
+
+    # yardsticks: bf16 cuDNN GRU (another cell), one direction over a
+    # D-wide input forward and backward, and bidirectional over x
+    cudnn1 = torch.nn.GRU(d, d, batch_first=True).to(dev, bf)
+    cudnn_bi = torch.nn.GRU(e, d, batch_first=True,
+                            bidirectional=True).to(dev, bf)
+    cudnn1.flatten_parameters()
+    cudnn_bi.flatten_parameters()
+    x1 = torch.randn(b, t, d, generator=gen, device=dev).to(bf)
+    x1_lib = x1.clone().requires_grad_()
+    out1, _ = cudnn1(x1_lib)
+    g1 = torch.randn_like(out1)
+    lib_params = (x1_lib, *cudnn1.parameters())
+
+    def lib_fwd():
+        with torch.no_grad():
+            return cudnn1(x1)
+
+    def lib_bi():
+        with torch.no_grad():
+            return cudnn_bi(xs)
+
+    lib_bwd = lambda: torch.autograd.grad(                        # noqa: E731
+        out1, lib_params, g1, retain_graph=True)
+    lib_note = "bf16 cuDNN nn.GRU: not the same cell"
+    steps = float(mask.sum().item())        # row-steps of one direction
+    cell = 20.0 * steps * d
+    rec = 2.0 * steps * 3 * d * d           # h W_h and (r h) W_hc
+    io = 2 * (3 * d * d + b * d) + 4 * b * t   # W_h, W_hc, h0 bf16; mask
+    # hs, dhs bf16 and dh_T in; dxw f32, dh0 f32 and rh bf16 out
+    bwd_io = (io + 2 * 2 * b * t * d + 4 * b * d
+              + 4 * (b * t * 3 * d + b * d) + 2 * b * t * d)
+    src = "paddle_tpu_torch/ops/kernels/csrc/gru_seq.cu"
+    gru = summary["gru"]["forward"]
+    rows = [{
+        "name": "gru_seq_fwd_bf16", "route": "cuda", "source": src,
+        "replaces": "paddle_tpu/ops/pallas/gru.py:188",
+        "shape": [b, t, d], "dtype": "bfloat16",
+        "max_abs_err": gru["fwd"]["max_abs_err"],
+        "ms": timer(fwd), "alone_ms": device_ms([fwd], "gru_fwd_bf16_kernel"),
+        "plain_ms": timer(lambda: GK._fwd_plain(*fwd_args)),
+        # xw bf16 in, hs bf16 and h_T f32 out
+        "bytes_flops": (2 * b * t * 3 * d + io + 2 * b * t * d + 4 * b * d,
+                        rec + cell),
+        "library_ms": timer(lib_fwd), "library_note": lib_note}, {
+        "name": "gru_seq_bwd_remat_bf16", "route": "cuda", "source": src,
+        "replaces": "paddle_tpu/ops/pallas/gru.py:279",
+        "shape": [b, t, d], "dtype": "bfloat16 (xw f32, the BiGRU's)",
+        "max_abs_err": case["bwd"]["forward"]["max_abs_err"],
+        "ms": timer(remat),
+        "alone_ms": device_ms([remat], "gru_bwd_bf16_kernel<true"),
+        "plain_ms": timer(lambda: GK._bwd_plain(xw_p, None, *pargs, True)),
+        # xw f32 in; the recomputed products, dc W_hc^T and [du, dr] W_h^T
+        "bytes_flops": (4 * b * t * 3 * d + bwd_io, 2 * rec + 2 * cell),
+        "library_ms": timer(lib_bwd), "library_note": lib_note}, {
+        "name": "gru_seq_bwd_stored_bf16", "route": "cuda", "source": src,
+        "replaces": "paddle_tpu/ops/pallas/gru.py:232",
+        "shape": [b, t, d], "dtype": "bfloat16",
+        "max_abs_err": gru["bwd"]["max_abs_err"],
+        "ms": timer(stored),
+        "alone_ms": device_ms([stored], "gru_bwd_bf16_kernel<false"),
+        "plain_ms": timer(lambda: GK._bwd_plain(None, urc, *args, False)),
+        # the u/r/c slab bf16 in; the two transposed products
+        "bytes_flops": (2 * b * t * 3 * d + bwd_io, rec + cell),
+        "library_ms": timer(lib_bwd), "library_note": lib_note}, {
+        "name": "bigru_seq_fwd_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/bigru_seq.cu",
+        "replaces": "paddle_tpu/ops/pallas/gru.py:625",
+        "shape": [b, t, e, d], "dtype": "bfloat16",
+        "max_abs_err": max(a["max_abs_err"]
+                           for a in case["bigru"].values()),
+        "ms": timer(bi), "alone_ms": device_ms([bi], "bigru_fwd_bf16_kernel"),
+        "plain_ms": timer(lambda: GK._bi_fwd_plain(xs, mask, fw, bw)),
+        # x, both directions' W_x, W_h, W_hc, h0 bf16 and b, mask f32 in;
+        # hs bf16 and h_T f32 of both out
+        "bytes_flops": (2 * b * t * e + 4 * b * t
+                        + 2 * (2 * (e * 3 * d + 3 * d * d + b * d)
+                               + 4 * 3 * d)
+                        + 2 * (2 * b * t * d + 4 * b * d),
+                        2 * (2.0 * steps * e * 3 * d + rec + cell)),
+        "library_ms": timer(lib_bi), "library_note": lib_note}]
+    for row in rows:
+        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"),
+                                                 BF16_FLOPS_PER_S)
+    del calls, cudnn1, cudnn_bi, out1, g1, lib_params, x1_lib
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+def nmt_bf16_witness(dev) -> dict:
+    """The NMT's bf16 witness step at the cut width (:func:`nmt_bf16_setup`):
+    the loss and every gradient leaf of the bf16 step on the card (the
+    bf16 forms) and on the CPU (the twins), each against the float64 step
+    on the CPU, within 2x the JAX package's own bf16 error at the same
+    step (``NMT_BF16_WITNESS_JAX``) plus RNN_BF16_FLOOR; the card's step
+    repeats bit for bit; a card step whose GRU dW_h takes h_t for h_{t-1}
+    (the stacks unshifted) must exceed it."""
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    topo, cost_name, params, types, batch, feeding = nmt_bf16_setup()
+    jax_errs = NMT_BF16_WITNESS_JAX
+
+    def side(where, dtype=torch.bfloat16, wide=torch.float32):
+        feed = DataFeeder(types, feeding, device=where)(batch)
+        p = {n: torch.from_numpy(v).to(where, wide) for n, v in params.items()}
+        return topology_grads(topo, cost_name, p, feed, dtype)
+
+    loss64, g64 = side("cpu", None, torch.float64)
+    counters = gru_bf16_counters()
+    for k in counters.values():
+        k.launches = 0
+    sides = {"card": side(dev)}
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    if launches != {"bigru_fwd_bf16": 1, "gru_bwd_remat_bf16": 2,
+                    "gather_bf16": 2, "scatter_add": 2}:
+        raise AssertionError(f"the NMT bf16 witness step's launches "
+                             f"{launches}")
+    rerun = side(dev)
+    sides["cpu"] = side("cpu")
+    sides["card_dwh_unshifted_control"] = gru_dwh_unshifted(
+        lambda: side(dev))
+    if not (torch.equal(rerun[0], sides["card"][0]) and all(
+            torch.equal(rerun[1][n], sides["card"][1][n]) for n in g64)):
+        raise AssertionError("the card's bf16 NMT step is not bit-identical "
+                             "on a rerun")
+    out = {"limit": f"2 x JAX's own + {RNN_BF16_FLOOR}",
+           "net": NMT_BF16_NET, "loss_f64": float(loss64),
+           "launches": launches, "card_rerun_bit_identical": True}
+    for label, (loss, grads) in sides.items():
+        errs = rnn_bf16_errors(loss, grads, loss64, g64)
+        share = {n: e / (2 * jax_errs[n] + RNN_BF16_FLOOR)
+                 for n, e in errs.items()}
+        worst = max(share, key=share.get)
+        out[label] = {"loss": float(loss), "worst": worst,
+                      "err": errs[worst], "jax": jax_errs[worst],
+                      "share_of_limit": share[worst],
+                      "over_limit": [n for n, x in share.items() if x > 1]}
+    for label in ("card", "cpu"):
+        if out[label]["over_limit"]:
+            raise AssertionError(f"bf16 NMT {label} step vs the f64 "
+                                 f"witness: {out}")
+    if not out["card_dwh_unshifted_control"]["over_limit"]:
+        raise AssertionError(f"the bf16 NMT witness does not catch a GRU "
+                             f"dW_h over unshifted stacks: {out}")
+    return out
+
+
+def train_nmt_bf16(dev, vocab=30000, width=512, bs=64,
+                   steps=10) -> tuple[dict, dict]:
+    """The attention NMT at ``bench_nmt``'s configuration through
+    ``trainer.SGD(compute_dtype=torch.bfloat16)`` (Adam 5e-4, bf16
+    moments) beside f32 from the same parameters: 2 warm-up steps each,
+    ``steps`` timed steps each in blocks of ``steps // 2`` (bf16, f32,
+    f32, bf16) with exactly one ``bigru_fwd_bf16``, two
+    ``gru_bwd_bf16`` (remat, over the BiGRU's f32 projection), two bf16
+    gathers and two (the lookups' backward in f32) scatter-adds a bf16
+    step and no other form's (no f32 GRU launch); sequences/s, step ms,
+    peak memory, finite bf16 costs, f32 masters; a 3-step bf16 profile.
+    Returns (the phase's result, the bf16 forms' launches over the timed
+    bf16 steps)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.models import seqtoseq
+
+    reset_name_counters()
+    cost = seqtoseq.seqtoseq_net(vocab, vocab, word_vector_dim=width,
+                                 encoder_size=width, decoder_size=width)
+    created = paddle.parameters.create(cost)
+    carried = {n: created[n] for n in created.names()}
+    rng = np.random.default_rng(0)
+    for n in carried:
+        if n.endswith("bias"):
+            carried[n] = (0.1 * rng.standard_normal(carried[n].shape)
+                          ).astype(np.float32)
+    feeding = {n: i for i, n in enumerate(NMT_ORDER)}
+    trainers = {k: paddle.trainer.SGD(
+        cost=cost, parameters=Parameters.from_numpy(carried),
+        update_equation=paddle.optimizer.Adam(
+            learning_rate=5e-4, moment_dtype=torch.bfloat16),
+        device=dev, compute_dtype=dt)
+        for k, dt in (("bf16", torch.bfloat16), ("f32", None))}
+    warm = nmt_batches(rng, 2, bs, vocab)
+    for tr in trainers.values():
+        tr.train(reader=lambda: iter(warm), num_passes=1,
+                 event_handler=lambda e: None, feeding=feeding)
+    want = {"bf16": {"bigru_fwd_bf16": 1, "gru_bwd_remat_bf16": 2,
+                     "gather_bf16": 2, "scatter_add": 2},
+            "f32": {"bigru_fwd": 1, "gru_bwd_remat": 2, "gather": 2,
+                    "scatter_add": 2}}
+    blocks = dtype_blocks(trainers, nmt_batches(rng, steps // 2, bs, vocab),
+                          want, stamp_factory, gru_bf16_counters(), feeding)
+    out = rnn_rates(blocks, bs, "sequences_per_s")
+    if not all(np.isfinite(out[k]["costs"]).all() for k in out):
+        raise AssertionError(f"NMT costs not finite: {out}")
+    if not all(trainers["bf16"].parameters[n].dtype == np.float32
+               for n in carried):
+        raise AssertionError("the bf16 NMT trainer's masters are not f32")
+    traced = nmt_batches(rng, 3, bs, vocab)
+    prof = profile_window(lambda: trainers["bf16"].train(
+        reader=lambda: iter(traced), num_passes=1,
+        event_handler=lambda e: None, feeding=feeding), 3)
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share_vs_step_p50"] = (
+            1 - prof["device_busy_ms_per_step"] / out["bf16"]["step_ms_p50"])
+    launched = {k: sum(b[k] for b in blocks["bf16"]["launches"])
+                for k in want["bf16"]}
+    del trainers
+    return ({"phase": "train_nmt_bf16", "model": "attention NMT "
+             "(models/seqtoseq.seqtoseq_net, bench_nmt)", "vocab": vocab,
+             "width": width, "batch": bs, "tokens_per_sequence": 32,
+             "compute_dtype": "bfloat16", "masters": "float32",
+             "adam_moments": "bfloat16", "lr": 5e-4,
+             "steps_per_dtype": steps, **out,
+             "bf16_vs_f32_sequences_per_s":
+                 out["bf16"]["sequences_per_s"] / out["f32"][
+                     "sequences_per_s"],
+             "profile_bf16": prof, "bf16_launches": launched}, launched)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -6821,6 +7614,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     crnn_bf16, crnn_bf16_n = train_crnn_bf16(dev)
     print(json.dumps(crnn_bf16), flush=True)
+    torch.cuda.empty_cache()
+    gru_bf16_rows, gru_bf16_summary = check_gru_bf16_kernels(dev, Timer(dev))
+    for row in gru_bf16_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(gru_bf16_summary), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "nmt_bf16_witness",
+                      **nmt_bf16_witness(dev)}), flush=True)
+    composed_bf16, composed_bf16_n = composed_bigru_check(
+        dev, dtype=torch.bfloat16)
+    print(json.dumps(composed_bf16), flush=True)
+    torch.cuda.empty_cache()
+    nmt_bf16, nmt_bf16_n = train_nmt_bf16(dev)
+    print(json.dumps(nmt_bf16), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -6896,6 +7703,20 @@ def main() -> int:
         launches, model = on_path[row["name"]]
         rows.append({**row, "launches": launches,
                      "launches_on": f"{model} bf16 train"})
+    # rows 8 and 10 in bf16: the BiGRU and the remat backward count the
+    # bf16 NMT training run's launches, the GRU forward and the
+    # stored-gates backward the bf16 composed BiGRU check's
+    on_path = {"bigru_seq_fwd_bf16": (nmt_bf16_n["bigru_fwd_bf16"],
+                                      "NMT bf16 train"),
+               "gru_seq_bwd_remat_bf16": (nmt_bf16_n["gru_bwd_remat_bf16"],
+                                          "NMT bf16 train"),
+               "gru_seq_fwd_bf16": (composed_bf16_n["gru_fwd"],
+                                    "composed BiGRU bf16 check"),
+               "gru_seq_bwd_stored_bf16": (composed_bf16_n["gru_bwd_stored"],
+                                           "composed BiGRU bf16 check")}
+    for row in gru_bf16_rows:
+        launches, where = on_path[row["name"]]
+        rows.append({**row, "launches": launches, "launches_on": where})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

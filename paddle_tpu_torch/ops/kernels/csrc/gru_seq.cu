@@ -48,6 +48,7 @@
 // the same result.  Both forms write r * h_{t-1} [B, T, D]; dW_h and dW_hc
 // are large products outside, as in the JAX package.
 
+#include "gru_bf16.cuh"
 #include "gru_common.cuh"
 
 namespace {
@@ -366,6 +367,440 @@ extern "C" int gru_bwd_f32(const float* xw, const float* urc_in,
   return stages == 3
       ? cooperative(gru_bwd_kernel<false, 3>, grid, n, smem, args, st)
       : cooperative(gru_bwd_kernel<false, 2>, grid, n, smem, args, st);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forms: gru_fwd_bf16 and gru_bwd_bf16 (remat or stored gates, one
+// template flag as in f32; xw in bf16 or f32, a template on its element
+// type), with the rounding points of the JAX kernels on bf16 operands
+// (gru.py:31-76, _fwd_call :165; _durc_bwd :79, _bwd_kernel :99,
+// _bwd_remat_kernel :128, _gru_dxw_bwd :349).  Forward: u, r from xw +
+// h_{t-1} W_h in f32, r h_{t-1} rounded to bf16 before the candidate
+// product (it is also the exchanged operand: half the f32 exchange), the
+// cell in f32, the h carry rounded to bf16 (hs is the carry the next step
+// reads, so the freeze keeps the rounded value), hs and the u/r/c slab in
+// bf16, h_T in f32 (unrounded).  Backward: the dh carry in f32; u, r, c
+// from the bf16 slab, or recomputed by the forward's products and cell
+// and rounded through bf16 (so remat on and off give the same bits); dc
+// and [du, dr] rounded to bf16 for the W_hc^T and W_h^T products; dxw and
+// dh0 out in f32; rh = bf16(bf16(r) h_{t-1}), dW_hc's operand.
+//
+// The same cooperative, persistent design as the f32 kernels, with the
+// recurrent products on the tensor cores (gru_bf16.cuh).  Forward, a
+// step: (A) u, r of the own units from the pairs slice of W_h, r h_{t-1}
+// written; grid barrier; (B) c from the units slice of W_hc over every
+// unit's r h_{t-1}, the new h; grid barrier.  At D 512 on 132 SMs, U 4:
+// 128 blocks, W_h's 8 pair columns one n8 tile, W_hc's 4 half of one
+// (zero-padded).  Backward, a step, from the row slices W_h[own, :] and
+// W_hc[own, :]: (a) du, dc of the own units; barrier; (b) drh = dc W_hc^T,
+// dr; barrier; (c) dh_{t-1} = dh u m + drh r + [du, dr] W_h^T.  The
+// exchange buffers (dc, [du, dr], bf16) alternate by step parity.  Remat
+// recomputes the slab in two passes before the loop (u, r and the
+// forward's r h_{t-1}; barrier; c).  No atomics: every value is summed in
+// one fixed order, so reruns give the same bits.
+//
+// What bounds them on an H100: the step-to-step chain.  A step's products
+// at B 64, D 512 are 101 MFLOP (0.1 us at 989 TFLOP/s), but each block
+// stages all of h_{t-1} (64 KB) through L2 in each phase and the grid
+// meets at two barriers a step (three in the backward).
+
+namespace gru_bf16 {
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_bf16_kernel(const bf16* __restrict__ xw,
+                    const float* __restrict__ mask,
+                    const bf16* __restrict__ whp,
+                    const bf16* __restrict__ whcp, const bf16* h0, bf16* hs,
+                    bf16* urc, float* hT, bf16* rh_buf, float* u_buf, int B,
+                    int T, int D, int U, int reverse) {
+  extern __shared__ float4 smem4[];
+  const int LDK = ld_k(D), NTA = tiles(2 * U), NTB = tiles(U);
+  const size_t na = slice_elems(2 * U, D), nb = slice_elems(U, D);
+  bf16* wh_s = reinterpret_cast<bf16*>(smem4);
+  bf16* whc_s = wh_s + na;
+  bf16* a_s = whc_s + nb;
+  float* sums = reinterpret_cast<float*>(a_s);
+  load_slice(wh_s, whp, na, blockIdx.x);
+  load_slice(whc_s, whcp, nb, blockIdx.x);
+  __syncthreads();
+  const Lane ln;
+  const int ub = blockIdx.x * U;
+  gru::cg::grid_group grid = gru::cg::this_grid();
+  const size_t TD = (size_t)T * D;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    // (A) u, r and r h_{t-1} of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      const bf16* a = s == 0 ? h0 + (size_t)b0 * D
+                             : hs + b0 * TD + (size_t)tp * D;
+      float acc[kMaxNT][4];
+      product<S>(a, s == 0 ? D : TD, rows, D, wh_s, LDK, NTA, a_s, sums, acc);
+      if (!ln.first) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        const int uu = ln.pair_unit(j), u = ub + uu;
+        if (j >= NTA || uu >= U || u >= D) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = ln.r0 + 8 * h;
+          if (r >= rows) continue;
+          const int b = b0 + r;
+          const size_t bo = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+          const float hp = s == 0 ? ldcg_bf(h0 + bo)
+                                  : ldcg_bf(hs + b * TD + (size_t)tp * D + u);
+          float ug, rg;
+          gru::update_reset(b2f(xw[bt * 3 + u]), b2f(xw[bt * 3 + D + u]),
+                            acc[j][2 * h], acc[j][2 * h + 1], ug, rg);
+          rh_buf[bo] = f2b(rg * hp);
+          u_buf[bo] = ug;
+          if (urc != nullptr) {
+            urc[bt * 3 + u] = f2b(ug);
+            urc[bt * 3 + D + u] = f2b(rg);
+          }
+        }
+      }
+    }
+    grid.sync();
+    // (B) the candidate and the new h of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      float acc[kMaxNT][4];
+      product<S>(rh_buf + (size_t)b0 * D, D, rows, D, whc_s, LDK, NTB, a_s,
+                 sums, acc);
+      if (!ln.first) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        if (j >= NTB) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int uu = ln.unit(j, e), u = ub + uu, r = ln.row(e);
+          if (uu >= U || u >= D || r >= rows) continue;
+          const int b = b0 + r;
+          const size_t bo = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+          const float hp = s == 0 ? ldcg_bf(h0 + bo)
+                                  : ldcg_bf(hs + b * TD + (size_t)tp * D + u);
+          const float c = gru::candidate(b2f(xw[bt * 3 + 2 * D + u]),
+                                         acc[j][e]);
+          const float ug = __ldcg(u_buf + bo);
+          const float m = mask[(size_t)b * T + t];
+          const float hn = m * (ug * hp + (1.f - ug) * c) + (1.f - m) * hp;
+          hs[bt + u] = f2b(hn);
+          if (urc != nullptr) urc[bt * 3 + 2 * D + u] = f2b(c);
+          if (s == T - 1) hT[bo] = hn;
+        }
+      }
+    }
+    grid.sync();
+  }
+}
+
+template <bool kRemat, typename XT, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_bf16_kernel(const XT* __restrict__ xw,
+                    const bf16* __restrict__ urc_in,
+                    const float* __restrict__ mask,
+                    const bf16* __restrict__ whp,
+                    const bf16* __restrict__ whcp,
+                    const bf16* __restrict__ whrp,
+                    const bf16* __restrict__ whcrp, const bf16* h0,
+                    const bf16* hs, const bf16* __restrict__ dhs,
+                    const float* __restrict__ dhT, float* dxw, float* dh,
+                    bf16* rh, bf16* gates, bf16* rh_f, bf16* dpc_buf,
+                    bf16* dur_buf, float* drh_buf, int B, int T, int D,
+                    int U, int reverse) {
+  extern __shared__ float4 smem4[];
+  const int LDK = ld_k(D), LDK2 = ld_k(2 * D);
+  const int NTA = tiles(2 * U), NTB = tiles(U);
+  const size_t na = slice_elems(2 * U, D), nb = slice_elems(U, D);
+  const size_t nr = slice_elems(U, 2 * D);
+  const size_t cols = kRemat ? na + nb : 0, rows_w = nr + nb;
+  bf16* w_s = reinterpret_cast<bf16*>(smem4);
+  bf16* a_s = w_s + (cols > rows_w ? cols : rows_w);
+  float* sums = reinterpret_cast<float*>(a_s);
+  const Lane ln;
+  const int ub = blockIdx.x * U;
+  gru::cg::grid_group grid = gru::cg::this_grid();
+  const size_t TD = (size_t)T * D;
+  const bf16* g_in = kRemat ? gates : urc_in;
+
+  if (kRemat) {
+    // the u/r/c slab, recomputed as the forward computed it: (1) u, r and
+    // the forward's r h_{t-1} of every step; barrier; (2) c
+    bf16* wh_s = w_s;                     // pairs slice of W_h
+    bf16* whc_s = w_s + na;               // units slice of W_hc
+    load_slice(wh_s, whp, na, blockIdx.x);
+    load_slice(whc_s, whcp, nb, blockIdx.x);
+    __syncthreads();
+    for (int t = 0; t < T; ++t) {
+      const bool first = reverse ? t == T - 1 : t == 0;
+      const int tp = reverse ? t + 1 : t - 1;
+      for (int b0 = 0; b0 < B; b0 += kRows) {
+        const int rows = min(kRows, B - b0);
+        const bf16* a = first ? h0 + (size_t)b0 * D
+                              : hs + b0 * TD + (size_t)tp * D;
+        float acc[kMaxNT][4];
+        product<S>(a, first ? D : TD, rows, D, wh_s, LDK, NTA, a_s, sums,
+                   acc);
+        if (!ln.first) continue;
+#pragma unroll
+        for (int j = 0; j < kMaxNT; ++j) {
+          const int uu = ln.pair_unit(j), u = ub + uu;
+          if (j >= NTA || uu >= U || u >= D) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = ln.r0 + 8 * h;
+            if (r >= rows) continue;
+            const int b = b0 + r;
+            const size_t bt = b * TD + (size_t)t * D;
+            const float hp = first ? b2f(h0[(size_t)b * D + u])
+                                   : b2f(hs[b * TD + (size_t)tp * D + u]);
+            float ug, rg;
+            gru::update_reset(to_f(xw[bt * 3 + u]), to_f(xw[bt * 3 + D + u]),
+                              acc[j][2 * h], acc[j][2 * h + 1], ug, rg);
+            gates[bt * 3 + u] = f2b(ug);
+            gates[bt * 3 + D + u] = f2b(rg);
+            rh_f[bt + u] = f2b(rg * hp);
+          }
+        }
+      }
+    }
+    grid.sync();
+    for (int t = 0; t < T; ++t) {
+      for (int b0 = 0; b0 < B; b0 += kRows) {
+        const int rows = min(kRows, B - b0);
+        float acc[kMaxNT][4];
+        product<S>(rh_f + b0 * TD + (size_t)t * D, TD, rows, D, whc_s, LDK,
+                   NTB, a_s, sums, acc);
+        if (!ln.first) continue;
+#pragma unroll
+        for (int j = 0; j < kMaxNT; ++j) {
+          if (j >= NTB) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int uu = ln.unit(j, e), u = ub + uu, r = ln.row(e);
+            if (uu >= U || u >= D || r >= rows) continue;
+            const size_t bt = (b0 + r) * TD + (size_t)t * D;
+            gates[bt * 3 + 2 * D + u] = f2b(
+                gru::candidate(to_f(xw[bt * 3 + 2 * D + u]), acc[j][e]));
+          }
+        }
+      }
+    }
+    __syncthreads();     // the column slices give way to the row slices
+  }
+  bf16* whr_s = w_s;                      // W_h[own, :]  [8 NTB][LDK2]
+  bf16* whcr_s = w_s + nr;                // W_hc[own, :] [8 NTB][LDK]
+  load_slice(whr_s, whrp, nr, blockIdx.x);
+  load_slice(whcr_s, whcrp, nb, blockIdx.x);
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;   // computation order reversed
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool first = reverse ? t == T - 1 : t == 0;
+    bf16* dpc = dpc_buf + (size_t)(s & 1) * B * D;          // [B][D]
+    bf16* dur = dur_buf + (size_t)(s & 1) * B * 2 * D;      // [B][2D]
+    // (a) du and dc of the own units (the cells of a units slice)
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      if (!ln.first) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        if (j >= NTB) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int uu = ln.unit(j, e), u = ub + uu, r = ln.row(e);
+          if (uu >= U || u >= D || r >= rows) continue;
+          const int b = b0 + r;
+          const size_t bu = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+          const float dhv = (s == 0 ? dhT[bu] : dh[bu]) + b2f(dhs[bt + u]);
+          const float m = mask[(size_t)b * T + t];
+          const float ug = b2f(g_in[bt * 3 + u]);
+          const float rg = b2f(g_in[bt * 3 + D + u]);
+          const float c = b2f(g_in[bt * 3 + 2 * D + u]);
+          const float hp = first ? b2f(h0[bu])
+                                 : b2f(hs[b * TD + (size_t)tp * D + u]);
+          const float du = dhv * (hp - c) * ug * (1.f - ug) * m;
+          const float dc = dhv * (1.f - ug) * m * (1.f - c * c);
+          dxw[bt * 3 + u] = du;
+          dxw[bt * 3 + 2 * D + u] = dc;
+          dpc[bu] = f2b(dc);
+          dur[(size_t)b * 2 * D + u] = f2b(du);
+          rh[bt + u] = f2b(rg * hp);
+        }
+      }
+    }
+    grid.sync();
+    // (b) drh = dc W_hc^T and dr of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      float acc[kMaxNT][4];
+      product<S>(dpc + (size_t)b0 * D, D, rows, D, whcr_s, LDK, NTB, a_s,
+                 sums, acc);
+      if (!ln.first) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        if (j >= NTB) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int uu = ln.unit(j, e), u = ub + uu, r = ln.row(e);
+          if (uu >= U || u >= D || r >= rows) continue;
+          const int b = b0 + r;
+          const size_t bu = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+          const float rg = b2f(g_in[bt * 3 + D + u]);
+          const float hp = first ? b2f(h0[bu])
+                                 : b2f(hs[b * TD + (size_t)tp * D + u]);
+          const float dr = acc[j][e] * hp * rg * (1.f - rg);
+          dxw[bt * 3 + D + u] = dr;
+          dur[(size_t)b * 2 * D + D + u] = f2b(dr);
+          drh_buf[bu] = acc[j][e];
+        }
+      }
+    }
+    grid.sync();
+    // (c) dh_{t-1} of the own units
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      float acc[kMaxNT][4];
+      product<S>(dur + (size_t)b0 * 2 * D, 2 * D, rows, 2 * D, whr_s, LDK2,
+                 NTB, a_s, sums, acc);
+      if (!ln.first) continue;
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        if (j >= NTB) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int uu = ln.unit(j, e), u = ub + uu, r = ln.row(e);
+          if (uu >= U || u >= D || r >= rows) continue;
+          const int b = b0 + r;
+          const size_t bu = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
+          const float dhv = (s == 0 ? dhT[bu] : dh[bu]) + b2f(dhs[bt + u]);
+          const float m = mask[(size_t)b * T + t];
+          const float ug = b2f(g_in[bt * 3 + u]);
+          const float rg = b2f(g_in[bt * 3 + D + u]);
+          const float prev = dhv * ug * m + drh_buf[bu] * rg + acc[j][e];
+          dh[bu] = prev + (1.f - m) * dhv;
+        }
+      }
+    }
+  }
+}
+
+// bytes of shared memory of the forward and of the backward
+inline size_t fwd_weights(int D, int U) {
+  return 2 * (size_t)(slice_elems(2 * U, D) + slice_elems(U, D));
+}
+inline size_t bwd_weights(int D, int U, bool remat) {
+  const size_t cols = remat ? fwd_weights(D, U) : 0;
+  const size_t rows = 2 * (size_t)(slice_elems(U, 2 * D) + slice_elems(U, D));
+  return cols > rows ? cols : rows;
+}
+
+template <bool kRemat, typename XT>
+int launch_bwd(int stages, int grid, size_t smem, void** args,
+               cudaStream_t st) {
+  return stages == 3
+      ? gru::cooperative(gru_bwd_bf16_kernel<kRemat, XT, 3>, grid, kThreads,
+                         smem, args, st)
+      : gru::cooperative(gru_bwd_bf16_kernel<kRemat, XT, 2>, grid, kThreads,
+                         smem, args, st);
+}
+
+}  // namespace gru_bf16
+
+// The bf16 forward: xw [B, T, 3D], h0 [B, D] bf16; whp [blocks][8
+// ceil(2U / 8)][ld(D)] and whcp [blocks][8 ceil(U / 8)][ld(D)] the pairs
+// slices of W_h and the units slices of W_hc (gru_bf16.cuh), bf16; mask
+// [B, T] f32.  Outputs hs bf16, urc (nullptr: none) bf16 [B, T, 3D], hT
+// f32.  rh_buf [B, D] bf16 and u_buf [B, D] f32: scratch.  D % 8 == 0.
+extern "C" int gru_fwd_bf16(const void* xw, const float* mask,
+                            const void* whp, const void* whcp, const void* h0,
+                            void* hs, void* urc, float* hT, void* rh_buf,
+                            float* u_buf, int B, int T, int D, int U,
+                            int reverse, void* stream) {
+  namespace gb = gru_bf16;
+  using gb::bf16;
+  if (!gb::valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const size_t w = gb::fwd_weights(D, U);
+  const int stages = gb::stages_for(w, gb::tiles(2 * U));
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = w + gb::region_bytes(stages, gb::tiles(2 * U));
+  const bf16* x = static_cast<const bf16*>(xw);
+  const bf16* wh = static_cast<const bf16*>(whp);
+  const bf16* whc = static_cast<const bf16*>(whcp);
+  const bf16* h = static_cast<const bf16*>(h0);
+  bf16* o = static_cast<bf16*>(hs);
+  bf16* g = static_cast<bf16*>(urc);
+  bf16* rb = static_cast<bf16*>(rh_buf);
+  void* args[] = {&x, &mask, &wh, &whc, &h, &o, &g, &hT, &rb, &u_buf,
+                  &B, &T, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? gru::cooperative(gb::gru_fwd_bf16_kernel<3>, grid, gb::kThreads, smem,
+                         args, st)
+      : gru::cooperative(gb::gru_fwd_bf16_kernel<2>, grid, gb::kThreads, smem,
+                         args, st);
+}
+
+// The bf16 backward: remat != 0 recomputes the gates from xw (bf16, or
+// f32 when xw_f32 != 0) and the shifted h stack into `gates` [B, T, 3D]
+// and `rh_f` [B, T, D] (bf16 scratch; whp, whcp the forward's slices);
+// remat == 0 reads the forward's bf16 slab urc_in (xw, gates, rh_f, whp
+// and whcp unused).  whrp [blocks][8 ceil(U / 8)][ld(2D)] and whcrp
+// [blocks][8 ceil(U / 8)][ld(D)] the units slices of W_h^T and W_hc^T (the
+// rows the block's units own).  h0, hs, dhs bf16; mask, dhT f32.  Outputs
+// dxw [B, T, 3D] f32, dh [B, D] f32 (dh0), rh [B, T, D] bf16; scratch
+// dpc_buf [2][B][D] and dur_buf [2][B][2D] bf16, drh_buf [B][D] f32.
+extern "C" int gru_bwd_bf16(const void* xw, const void* urc_in,
+                            const float* mask, const void* whp,
+                            const void* whcp, const void* whrp,
+                            const void* whcrp, const void* h0, const void* hs,
+                            const void* dhs, const float* dhT, float* dxw,
+                            float* dh, void* rh, void* gates, void* rh_f,
+                            void* dpc_buf, void* dur_buf, float* drh_buf,
+                            int B, int T, int D, int U, int reverse,
+                            int remat, int xw_f32, void* stream) {
+  namespace gb = gru_bf16;
+  using gb::bf16;
+  if (!gb::valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
+  const int nt = remat ? gb::tiles(2 * U) : gb::tiles(U);
+  const size_t w = gb::bwd_weights(D, U, remat != 0);
+  const int stages = gb::stages_for(w, nt);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = w + gb::region_bytes(stages, nt);
+  const bf16* u_in = static_cast<const bf16*>(urc_in);
+  const bf16* wh = static_cast<const bf16*>(whp);
+  const bf16* whc = static_cast<const bf16*>(whcp);
+  const bf16* whr = static_cast<const bf16*>(whrp);
+  const bf16* whcr = static_cast<const bf16*>(whcrp);
+  const bf16* h = static_cast<const bf16*>(h0);
+  const bf16* y = static_cast<const bf16*>(hs);
+  const bf16* dy = static_cast<const bf16*>(dhs);
+  bf16* rho = static_cast<bf16*>(rh);
+  bf16* g = static_cast<bf16*>(gates);
+  bf16* rf = static_cast<bf16*>(rh_f);
+  bf16* dp = static_cast<bf16*>(dpc_buf);
+  bf16* du = static_cast<bf16*>(dur_buf);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (remat && xw_f32) {
+    const float* x = static_cast<const float*>(xw);
+    void* args[] = {&x, &u_in, &mask, &wh, &whc, &whr, &whcr, &h, &y, &dy,
+                    &dhT, &dxw, &dh, &rho, &g, &rf, &dp, &du, &drh_buf,
+                    &B, &T, &D, &U, &reverse};
+    return gb::launch_bwd<true, float>(stages, grid, smem, args, st);
+  }
+  const bf16* x = static_cast<const bf16*>(xw);
+  void* args[] = {&x, &u_in, &mask, &wh, &whc, &whr, &whcr, &h, &y, &dy,
+                  &dhT, &dxw, &dh, &rho, &g, &rf, &dp, &du, &drh_buf,
+                  &B, &T, &D, &U, &reverse};
+  return remat ? gb::launch_bwd<true, bf16>(stages, grid, smem, args, st)
+               : gb::launch_bwd<false, bf16>(stages, grid, smem, args, st);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -231,13 +231,19 @@ def gru_fused(xw: SequenceBatch, w_h, w_hc, init, reverse: bool = False,
     [B, T, 3D], w_h [D, 2D], w_hc [D, D], init [B, D].  ``remat``
     recomputes the gates in the backward instead of keeping the
     [B, T, 3D] slab; None means on the card only, as the JAX package
-    turns it on on the TPU only.  A D past the kernel's tiling raises on
-    the card.  Returns (SequenceBatch of h, last h)."""
+    turns it on on the TPU only.  The operands cast as JAX's ``gru_fused``
+    casts them (``ops/rnn.py:309-338``): xw and both weights to one dtype,
+    the carry to W_h's; hs and the last h come back in xw's dtype.  A D
+    past the kernel's tiling raises on the card.  Returns (SequenceBatch
+    of h, last h)."""
     if remat is None:
         remat = xw.data.device.type == "cuda"
-    hs, h_t = gru_kernels.gru_seq(xw.data, xw.mask(xw.data.dtype), w_h, w_hc,
-                                  init, reverse=reverse, remat=remat)
-    return SequenceBatch(data=hs, length=xw.length), h_t
+    data, w_h_c, w_hc_c = cast_for_matmul(xw.data, w_h, w_hc)
+    hs, h_t = gru_kernels.gru_seq(data, xw.mask(), w_h_c, w_hc_c,
+                                  init.to(w_h_c.dtype), reverse=reverse,
+                                  remat=remat)
+    return (SequenceBatch(data=hs.to(xw.data.dtype), length=xw.length),
+            h_t.to(xw.data.dtype))
 
 
 def gru(x: SequenceBatch, w_x, w_h, w_hc, b, reverse: bool = False,
@@ -292,21 +298,25 @@ def bigru_fused(x: SequenceBatch, fw: tuple, bw: tuple):
     on the card one launch runs both directions with the input projections
     inside its loop, remat on, as the JAX package's TPU branch runs; CPU
     tensors take its twin, the unfused composition (one projection product
-    and the plain scan per direction) that the JAX package runs off the
-    TPU.  ``fw``/``bw`` are (w_x [E, 3D], bias [3D] | None, w_h [D, 2D],
-    w_hc [D, D]).  A shape past the kernel's tiling raises on the card.
-    Returns the concatenated SequenceBatch [B, T, 2D] (forward features
-    first)."""
-    data = x.data
+    and the plain scan per direction).  ``fw``/``bw`` are (w_x [E, 3D],
+    bias [3D] | None, w_h [D, 2D], w_hc [D, D]).  The operands cast as
+    JAX's ``bigru_fused`` casts them (``ops/rnn.py:407-418``): x and the
+    six weights to one dtype, the biases to f32 (the in-loop projection is
+    never rounded), the zero carry in W_h's dtype.  A shape past the
+    kernel's tiling raises on the card.  Returns the concatenated
+    SequenceBatch [B, T, 2D] (forward features first)."""
     d = fw[3].shape[0]
-    zeros = torch.zeros(x.batch_size, d, dtype=data.dtype, device=data.device)
+    data, wxf, whf, whcf, wxb, whb, whcb = cast_for_matmul(
+        x.data, fw[0], fw[2], fw[3], bw[0], bw[2], bw[3])
+    acc = torch.promote_types(whf.dtype, torch.float32)
+    zeros = torch.zeros(x.batch_size, d, dtype=whf.dtype, device=data.device)
 
-    def prep(w_x, bias, w_h, w_hc):
-        bias = (torch.zeros(3 * d, dtype=w_x.dtype, device=w_x.device)
-                if bias is None else bias)
-        return w_x, bias, w_h, w_hc
+    def bias(b):
+        return (torch.zeros(3 * d, dtype=acc, device=data.device) if b is None
+                else b.to(acc))
 
     hs_f, hs_b, _, _ = gru_kernels.bigru_seq(
-        data, x.mask(data.dtype), *prep(*fw), *prep(*bw), zeros, zeros)
-    return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1),
+        data, x.mask(), wxf, bias(fw[1]), whf, whcf, wxb, bias(bw[1]), whb,
+        whcb, zeros, zeros)
+    return SequenceBatch(data=torch.cat([hs_f, hs_b], dim=-1).to(x.data.dtype),
                          length=x.length)

@@ -2197,8 +2197,8 @@ def test_lstm_bf16_functions_on_card_match_the_cpu(cuda):
 
 def test_lstm_bf16_wrappers_refuse_what_the_forms_do_not_take(cuda):
     """A bf16 D not a multiple of 8, a mixed f32 xw in the forward, a
-    bf16 BiLSTM past D 64, and a bf16 GRU (no bf16 form) raise on the
-    card; nothing falls back to f32."""
+    bf16 BiLSTM past D 64, and a bf16 GRU whose D is not a multiple of 8
+    raise on the card; nothing falls back to f32."""
     import chip_smoke as S
     from paddle_tpu_torch.core.enforce import EnforceError
     from paddle_tpu_torch.ops.kernels import gru as GK
@@ -2225,12 +2225,12 @@ def test_lstm_bf16_wrappers_refuse_what_the_forms_do_not_take(cuda):
         LK.bilstm_seq(torch.zeros(2, 3, 16, device=cuda, dtype=bf),
                       torch.ones(2, 3, device=cuda), *w[:4], *w[:4],
                       *w[4:], *w[4:])
-    with pytest.raises(EnforceError):
-        GK.gru_seq(torch.zeros(2, 3, 48, device=cuda, dtype=bf),
+    with pytest.raises(EnforceError, match="multiple of 8"):
+        GK.gru_seq(torch.zeros(2, 3, 36, device=cuda, dtype=bf),
                    torch.ones(2, 3, device=cuda),
-                   torch.zeros(16, 32, device=cuda, dtype=bf),
-                   torch.zeros(16, 16, device=cuda, dtype=bf),
-                   torch.zeros(2, 16, device=cuda, dtype=bf))
+                   torch.zeros(12, 24, device=cuda, dtype=bf),
+                   torch.zeros(12, 12, device=cuda, dtype=bf),
+                   torch.zeros(2, 12, device=cuda, dtype=bf))
 
 
 @pytest.mark.parametrize("n,v,d", [(1, 3, 8), (8192, 30000, 128),
@@ -2265,3 +2265,196 @@ def test_embedding_gather_bf16_matches_its_twin(cuda, n, v, d):
     # f32 sums of a run in another order: at most one bf16 ulp apart
     import chip_smoke as S
     assert int(S.bf16_ulps(g.cpu(), want).max()) <= 1
+
+
+# -- the bf16 forms of the GRU and the BiGRU (rows 8 and 10) -----------------
+
+
+def _gru_bf16_counts():
+    import chip_smoke as S
+
+    return {k: v.launches for k, v in S.gru_bf16_counters().items()
+            if k.startswith(("gru", "bigru"))}
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("b,t,d,reverse", [
+    (3, 7, 8, False), (70, 5, 40, True), (5, 33, 64, False),
+    (2, 1, 136, True), (9, 6, 1064, False), (64, 32, 512, False),
+    (64, 32, 512, True)])
+def test_gru_bf16_forms_against_their_forced_steps(cuda, b, t, d, reverse):
+    """``gru_fwd_bf16`` (with and without the u/r/c slab) and
+    ``gru_bwd_bf16`` (remat and stored gates, xw bf16) on ragged bf16
+    inputs, a length-1 row among them, past one 64-row chunk, at U 1, 2, 4
+    and 9 (D 1064: three n8 tiles of pairs, two of units) and at the NMT's
+    [64, 32], D 512: each step against the float64 step from the form's
+    own carries (``chip_smoke.gru_bf16_case``: hs and the slab one bf16 ulp
+    plus the sum term, unequal on at most 1%; dxw per step 1e-3, dh0 1e-5;
+    rh unequal on at most 1%, two ulps), reruns and the two backward forms
+    in the same bits, and the planted faults (r h unrounded, the gate
+    halves swapped, the backward's products unrounded, dW_hc's r
+    unrounded) outside the criterion."""
+    import chip_smoke as S
+
+    gen = torch.Generator(device=cuda).manual_seed(b * 131 + t)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+    lens[0] = t
+    lens[-1] = 1
+    x = S.bf16_gru_inputs(cuda, gen, b, t, d, lens)
+    before = _gru_bf16_counts()
+    case = S.gru_bf16_case(x, reverse)
+    assert _delta(before, _gru_bf16_counts()) == {
+        "gru_fwd_bf16": 3, "gru_bwd_remat_bf16": 2, "gru_bwd_stored_bf16": 1}
+    assert all(case["bits"].values()), case["bits"]
+    assert case["fwd"]["ok"], case["fwd"]
+    assert case["bwd"]["ok"], case["bwd"]
+    assert not any(f["ok"] for f in case["faults"].values()), case["faults"]
+
+
+@pytest.mark.parametrize("b,t,e,d", [(3, 5, 16, 8), (17, 9, 40, 24),
+                                     (64, 32, 512, 512)])
+def test_bigru_bf16_and_the_backward_over_its_projection(cuda, b, t, e, d):
+    """``bigru_fwd_bf16`` (both directions, ragged rows) and
+    ``gru_bwd_bf16`` with remat over the f32 projection, as the BiGRU's
+    backward runs it (``chip_smoke.bigru_bf16_case``), at odd shapes and
+    the NMT encoder's x [64, 32, 512], D 512: each direction against its
+    forced float64 steps, reruns in the same bits, the planted faults (the
+    projection rounded to bf16, the gate halves swapped, r h unrounded;
+    the backward's products unrounded, dW_hc's r unrounded) outside."""
+    import chip_smoke as S
+
+    gen = torch.Generator(device=cuda).manual_seed(e + d)
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+    lens[0], lens[-1] = t, 1
+    mask = (torch.arange(t, device=cuda)[None, :] < lens[:, None]).float()
+    bf = torch.bfloat16
+
+    def direction():
+        return ((torch.randn(e, 3 * d, generator=gen, device=cuda)
+                 / e ** 0.5).to(bf),
+                0.1 * torch.randn(3 * d, generator=gen, device=cuda),
+                (torch.randn(d, 2 * d, generator=gen, device=cuda)
+                 / d ** 0.5).to(bf),
+                (torch.randn(d, d, generator=gen, device=cuda)
+                 / d ** 0.5).to(bf),
+                (0.5 * torch.randn(b, d, generator=gen, device=cuda)).to(bf))
+
+    xs = torch.randn(b, t, e, generator=gen, device=cuda).to(bf)
+    before = _gru_bf16_counts()
+    case = S.bigru_bf16_case(xs, mask, direction(), direction(), gen)
+    assert _delta(before, _gru_bf16_counts()) == {
+        "bigru_fwd_bf16": 2, "gru_bwd_remat_bf16": 4}
+    assert all(case["bits"].values()), case["bits"]
+    assert case["ok"], {k: case[k] for k in ("bigru", "bwd")}
+    assert not any(f["ok"] for f in case["bigru_faults"].values())
+    assert not any(f["ok"] for f in case["bwd_faults"].values())
+
+
+def test_gru_bf16_functions_on_card_match_the_cpu(cuda):
+    """``gru_seq`` (remat on and off, both directions) and ``bigru_seq``
+    through their autograd Functions on bf16 operands, on the card (the
+    bf16 forms only) and on the CPU (the twins): outputs and every input
+    gradient in the JAX dtypes, each within 2x the CPU's relative distance
+    from the float64 run plus 2^-8 (a recurrence drifts by its bf16
+    rounding: the card's and the CPU's runs lie about as far from
+    float64)."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    rng = np.random.default_rng(4)
+    b, t, e, d = 6, 11, 32, 40
+    bf = torch.bfloat16
+    lens = torch.tensor([11, 1, 7, 11, 4, 9])
+    mask = (torch.arange(t)[None, :] < lens[:, None]).float()
+    shapes = {"gru": [((b, t, 3 * d), 0.5), ((d, 2 * d), d ** -0.5),
+                      ((d, d), d ** -0.5), ((b, d), 0.5)],
+              "bigru": [((b, t, e), 1.0)] + 2 * [
+                  ((e, 3 * d), e ** -0.5), ((3 * d,), 0.1),
+                  ((d, 2 * d), d ** -0.5), ((d, d), d ** -0.5)]
+              + 2 * [((b, d), 0.5)]}
+    f32_at = {"gru": (), "bigru": (2, 6)}   # the biases stay f32
+
+    def leaves(kind, dev, wide):
+        """The same draws each call, rounded to bf16 (the biases f32); in
+        float64 for the witness run."""
+        state = rng.bit_generator.state
+        vals = [torch.from_numpy((rng.normal(size=s) * k).astype(np.float32))
+                for s, k in shapes[kind]]
+        rng.bit_generator.state = state
+        vals = [v if i in f32_at[kind] else v.to(bf)
+                for i, v in enumerate(vals)]
+        if wide:
+            vals = [v.double() for v in vals]
+        return [v.to(dev).requires_grad_() for v in vals]
+
+    def run(kind, dev, wide=False, reverse=False, remat=True):
+        xs = leaves(kind, dev, wide)
+        if kind == "gru":
+            outs = GK.gru_seq(xs[0], mask.to(dev), *xs[1:], reverse=reverse,
+                              remat=remat)
+        else:
+            outs = GK.bigru_seq(xs[0], mask.to(dev), *xs[1:])
+        loss = sum(o.double().sum() for o in outs)
+        return [*outs, *torch.autograd.grad(loss, xs)]
+
+    cases = [("gru", rev, remat) for rev in (False, True)
+             for remat in (False, True)] + [("bigru", False, True)]
+    for kind, reverse, remat in cases:
+        base = run(kind, "cpu", True, reverse, remat)
+        cpu = run(kind, "cpu", False, reverse, remat)
+        before = _gru_bf16_counts()
+        card = run(kind, cuda, False, reverse, remat)
+        want = ({"bigru_fwd_bf16": 1, "gru_bwd_remat_bf16": 2}
+                if kind == "bigru" else
+                {"gru_fwd_bf16": 1,
+                 "gru_bwd_remat_bf16" if remat else "gru_bwd_stored_bf16": 1})
+        assert _delta(before, _gru_bf16_counts()) == want
+        for a, c, w in zip(card, cpu, base):
+            assert a.dtype == c.dtype
+            ref = w.detach().double()
+            dist = float((c.detach().double() - ref).norm() / ref.norm())
+            got = float((a.detach().cpu().double() - ref).norm() / ref.norm())
+            assert got <= 2 * dist + 2.0 ** -8, (kind, got, dist)
+
+
+def test_gru_bf16_wrappers_refuse_what_the_forms_do_not_take(cuda):
+    """On the card a bf16 GRU takes its bf16 form or raises: a mixed f32 xw
+    in the forward, an f32 slab in the stored backward, a BiGRU with E not
+    a multiple of 8 or a bf16 bias, and a D past the tiling all raise;
+    nothing falls back to f32 or to the twin."""
+    import chip_smoke as S
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import gru as GK
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = S.bf16_gru_inputs(cuda, gen, 2, 3, 16, torch.tensor([3, 2]))
+    args = (x["mask"], x["w_h"], x["w_hc"], x["h0"])
+    before = _gru_bf16_counts()
+    with pytest.raises(EnforceError, match="xw must be"):
+        GK._fwd_kernel(x["xw"].float(), *args, False, False)
+    hs = torch.zeros(2, 3, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(EnforceError, match="urc must be"):
+        GK._bwd_kernel(None, x["xw"].float(), *args, hs, x["dhs"], x["dhT"],
+                       False, False)
+    bf = torch.bfloat16
+
+    def bigru(e, d, bias_dtype=torch.float32):
+        w = [torch.zeros(e, 3 * d, device=cuda, dtype=bf),
+             torch.zeros(3 * d, device=cuda, dtype=bias_dtype),
+             torch.zeros(d, 2 * d, device=cuda, dtype=bf),
+             torch.zeros(d, d, device=cuda, dtype=bf)]
+        h0 = torch.zeros(2, d, device=cuda, dtype=bf)
+        return GK.bigru_seq(torch.zeros(2, 3, e, device=cuda, dtype=bf),
+                            torch.ones(2, 3, device=cuda), *w, *w, h0, h0)
+
+    with pytest.raises(EnforceError, match="multiples of 8"):
+        bigru(12, 16)
+    with pytest.raises(EnforceError, match="b must be"):
+        bigru(16, 16, bf)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    with pytest.raises(EnforceError, match="units"):
+        bigru(16, 16 * (sms // 2) + 8)
+    assert _gru_bf16_counts() == before
+
