@@ -3,8 +3,9 @@
 card — the quickest proof that the port builds, is right, serves and
 trains (ResNet-50, the transformer LM, the LSTM text classifier, the
 OCR CRNN and the attention NMT in f32 and bf16, the CIFAR-10 VGG, the
-benchmark image nets and the Wide & Deep CTR), and runs the raw-input
-recurrences and the large-vocabulary cross-entropy.
+benchmark image nets and the Wide & Deep CTR), serves the LM in f32 and
+bf16, and runs the raw-input recurrences and the large-vocabulary
+cross-entropy.
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -386,7 +387,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    exactly 1 ``bigru_fwd_bf16``, 2 ``gru_bwd_bf16``, 2 bf16 gathers and 2
    (f32) scatter-adds a bf16 step and no other form's; sequences/s, step
    ms, peak memory, a 3-step profile.
-17. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+17. Serving in bf16 (row 1's bf16 form: ``csrc/paged_attention.cu``'s
+   ``paged_bf16_kernel``, the Pallas kernel's page loop with p rounded to
+   bf16 against the running max of whole pages; and row 2's bf16 forward
+   at serving's prefill shape).  The bf16 kernel at phase 2's paged
+   problem in bf16 (B 32, H 12, D 64, page 16, 36 pages, the same ragged
+   lengths) against its twin (``bf16_agrees`` with FLASH_BF16_FLIP:
+   unequal on at most 1% of the elements, each within one bf16 ulp plus
+   2^-7 of sum_j p_j |v_j| / l), a rerun in the same bits, idle rows
+   exactly 0; the bf16 flash forward at [8, 512, 12, 64] causal the same
+   way; each timed with the L2 flushed and alone (a trace) beside its
+   twin, its bound (2 B an element) and bf16 SDPA.  Then phase 3's
+   configuration and requests on an f32 and a bf16 engine (``LM_FULL``
+   with ``dtype=torch.bfloat16``, the f32 weights rounded once), one
+   fresh engine a block in blocks (bf16, f32, f32, bf16) with the launch
+   counts zeroed just before and read just after: a bf16 block launches
+   the bf16 flash forward exactly 12 times a prefill pass and the bf16
+   paged kernel 12 times a decode step and no f32 form (an f32 block the
+   reverse); tokens/s, TTFT p50/p99, decode step and prefill p50, peak
+   memory and the KV pool's bytes of each; a profile of 3 decode steps
+   with all 32 slots live (device time by class, idle share) of each.
+   Correctness: the first 4 greedy bf16 requests' logits recomputed in
+   float64 from the same bf16 weights (``served_margin_check``): where
+   the float64 top-2 margin exceeds 2x the bf16 logits' largest error on
+   the prompt positions, the served token is the float64 argmax;
+   elsewhere its float64 logit lies within that 2x of the max.  The
+   share of bf16 greedy tokens equal to f32's is reported, not gated.
+   Two planted faults, copies of the source under ``build/faults/``
+   built beside it: the scores left unscaled and the rescale skipped
+   (``PAGED_BF16_FAULTS``) must each fail the kernel check, and the
+   first, served again, the margin check.
+18. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -723,12 +754,11 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
     return rows, summary
 
 
-def check_paged(dev, timer) -> dict:
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops.kernels import paged_attention as PA
-
-    b, h, d, ps, maxp = 32, 12, 64, 16, 36
+def paged_inputs(dev, b=32, h=12, d=64, ps=16, maxp=36):
+    """The decode attention problem at serving's shape, f32 and seeded: q
+    [B, H, D], pools [H, 1 + B * maxp, ps, D] with scattered page ids, the
+    table and the ragged lengths (0, 1, 16, 17, the full 576 and random
+    ones).  Returns (q, k_pages, v_pages, page_table, seq_lens, lens)."""
     rng = np.random.default_rng(2)
     lens = np.concatenate([[0, 1, 16, 17, maxp * ps],
                            rng.integers(1, maxp * ps + 1, size=b - 5)])
@@ -744,8 +774,16 @@ def check_paged(dev, timer) -> dict:
     kp, vp = (torch.randn(h, num_pages, ps, d, generator=gen, device=dev)
               for _ in range(2))
     q = torch.randn(b, h, d, generator=gen, device=dev)
-    pt = torch.from_numpy(table).to(dev)
-    sl = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev), lens)
+
+
+def check_paged(dev, timer) -> dict:
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    q, kp, vp, pt, sl, lens = paged_inputs(dev)
+    b, h, d = q.shape
+    ps, maxp = kp.shape[2], pt.shape[1]
     out = PA.ragged_paged_attention(q, kp, vp, pt, sl)
     ref = PA.ragged_paged_attention_reference(q, kp, vp, pt, sl)
     torch.cuda.synchronize()
@@ -755,25 +793,47 @@ def check_paged(dev, timer) -> dict:
     idle = sl == 0
     if not torch.equal(out[idle], torch.zeros_like(out[idle])):
         raise AssertionError("paged kernel: idle rows are not exactly 0")
-    ms = timer(lambda: PA.ragged_paged_attention(q, kp, vp, pt, sl))
-    plain_ms = timer(
-        lambda: PA.ragged_paged_attention_reference(q, kp, vp, pt, sl))
-    # the library yardstick: SDPA over the gathered dense K/V
-    kd = kp[:, pt.long()].transpose(0, 1).reshape(b, h, maxp * ps, d)
-    vd = vp[:, pt.long()].transpose(0, 1).reshape(b, h, maxp * ps, d)
-    mask = (torch.arange(maxp * ps, device=dev)[None, :]
-            < sl[:, None])[:, None, None, :]
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask))
-    resident = float(lens.sum())
-    nbytes = 4.0 * (2 * resident * h * d + 2 * b * h * d + b * maxp + b)
-    bound_ms, by = bound(nbytes, 4.0 * resident * h * d)
     return {"name": "ragged_paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:274",
-            "shape": [b, h, d, ps, maxp], "resident_tokens": int(resident),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+            "shape": [b, h, d, ps, maxp], "max_abs_err": err,
+            **paged_times(q, kp, vp, pt, sl, lens, timer,
+                          "paged_decode_kernel")}
+
+
+def paged_times(q, kp, vp, pt, sl, lens, timer, alone_key=None) -> dict:
+    """The paged wrapper's times on these inputs: with the L2 flushed,
+    alone (a trace; where ``alone_key`` names the kernel), its twin's,
+    ``scaled_dot_product_attention`` over the gathered dense K/V in the
+    same dtype (the library yardstick), and the bound: each resident K/V
+    element, q, out, the table and the lengths moved once at the dtype's
+    size, and 4 flops per resident element at the dtype's rate."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    b, h, d = q.shape
+    ps, maxp = kp.shape[2], pt.shape[1]
+    fn = lambda: PA.ragged_paged_attention(q, kp, vp, pt, sl)  # noqa: E731
+    kd = kp[:, pt.long()].transpose(0, 1).reshape(b, h, maxp * ps, d)
+    vd = vp[:, pt.long()].transpose(0, 1).reshape(b, h, maxp * ps, d)
+    mask = (torch.arange(maxp * ps, device=q.device)[None, :]
+            < sl[:, None])[:, None, None, :]
+    resident = float(lens.sum())
+    size = q.element_size()
+    nbytes = size * (2 * resident * h * d + 2 * b * h * d) + 4.0 * (
+        b * maxp + b)
+    bound_ms, by = bound(nbytes, 4.0 * resident * h * d,
+                         F32_FLOPS_PER_S if size == 4 else BF16_FLOPS_PER_S)
+    out = {"resident_tokens": int(resident), "ms": timer(fn),
+           "plain_ms": timer(lambda: PA.ragged_paged_attention_reference(
+               q, kp, vp, pt, sl)),
+           "bound_ms": bound_ms, "bound_by": by,
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               q[:, :, None, :], kd, vd, attn_mask=mask))}
+    if alone_key:
+        out["alone_ms"] = device_ms([fn], alone_key)
+    return out
 
 
 #: (source, the TPU kernel it replaces, the name of the tile's kernel in a
@@ -1186,11 +1246,75 @@ def fine_buckets() -> tuple:
     return tuple(0.01 * 1.01 ** i for i in range(1620))
 
 
+def serve_workload(cfg):
+    """Phase 3's serving configuration and requests: 32 slots, page 16,
+    prompts of 16-512 tokens (seeded), 64 new tokens each, 64 greedy
+    requests and 8 at temperature 0.8.  Returns (scfg, prompts, temps)."""
+    from paddle_tpu_torch.serving import ServingConfig
+
+    scfg = ServingConfig(max_slots=32, page_size=16, max_prompt_len=512,
+                         max_new_tokens=64, prefill_batch=8,
+                         num_pages=32 * 36 + 1, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n))
+               for n in rng.integers(16, 513, size=72)]
+    return scfg, prompts, [0.0] * 64 + [0.8] * 8
+
+
+def serve_block(cfg, params, scfg, prompts, temps, dev, counters) -> dict:
+    """Every request through a fresh engine, ``run_until_idle``, with the
+    launch counts of ``counters`` ({name: Kernel}) zeroed just before and
+    read just after and the peak memory reset; checks that every request
+    got its tokens.  Returns the run's numbers, its results by id and the
+    ids in submission order."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.telemetry import MetricsRegistry
+
+    reg = MetricsRegistry("chip_smoke")
+    for name in ("serve_prefill_ms", "serve_decode_step_ms"):
+        reg.histogram(name, buckets=fine_buckets())
+    eng = ServingEngine(cfg, params, scfg, registry=reg, device=dev)
+    kv_bytes = eng.cache.k.nbytes + eng.cache.v.nbytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kernel in counters.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, temperature=tt) for p, tt in zip(prompts, temps)]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kernel.launches for n, kernel in counters.items()}
+    got = {r.id: r for r in eng.results()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    del eng
+    if sorted(got) != sorted(ids):
+        raise AssertionError(f"served {len(got)} of {len(ids)} requests")
+    for r in got.values():
+        if len(r.tokens) != scfg.max_new_tokens or r.finish_reason != "length":
+            raise AssertionError(f"request {r.id}: {len(r.tokens)} tokens, "
+                                 f"{r.finish_reason}")
+    ttft = np.array([got[i].metrics["ttft_ms"] for i in ids])
+    new_tokens = sum(len(r.tokens) for r in got.values())
+    return {"run": {
+        "requests": len(ids), "new_tokens": new_tokens,
+        "prompt_tokens": sum(len(p) for p in prompts),
+        "wall_s": wall, "tokens_per_s": new_tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "decode_step_ms_p50": reg.get("serve_decode_step_ms").percentile(50),
+        "prefill_ms_p50": reg.get("serve_prefill_ms").percentile(50),
+        "prefill_passes": reg.get("serve_prefill_ms").summary()["count"],
+        "decode_steps": reg.get("serve_decode_step_ms").summary()["count"],
+        "launches": launches, "max_memory_allocated_bytes": peak,
+        "kv_pool_bytes": kv_bytes}, "results": got, "ids": ids}
+
+
 def serve_end_to_end(dev) -> tuple[dict, int, int]:
     from paddle_tpu_torch.models import transformer as T
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
-    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.telemetry import MetricsRegistry
 
     cfg = T.TransformerConfig(**LM_FULL, dtype=torch.float32, remat=False,
@@ -1198,13 +1322,7 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
     n_params = T.count_params(params)
-    scfg = ServingConfig(max_slots=32, page_size=16, max_prompt_len=512,
-                         max_new_tokens=64, prefill_batch=8,
-                         num_pages=32 * 36 + 1, seed=0)
-    rng = np.random.default_rng(0)
-    prompts = [list(rng.integers(0, cfg.vocab_size, size=n))
-               for n in rng.integers(16, 513, size=72)]
-    temps = [0.0] * 64 + [0.8] * 8
+    scfg, prompts, temps = serve_workload(cfg)
 
     # warm-up on its own engine: cuBLAS handles, allocator, the kernels'
     # first loads — set-up cost, kept out of the measured run
@@ -1212,30 +1330,11 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
                   device=dev).generate(prompts[:2], max_new_tokens=2)
     setup_s = time.perf_counter() - t0
 
-    reg = MetricsRegistry("chip_smoke")
-    for name in ("serve_prefill_ms", "serve_decode_step_ms"):
-        reg.histogram(name, buckets=fine_buckets())
-    eng = ServingEngine(cfg, params, scfg, registry=reg, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    FA.KERNEL.launches = 0
-    PA.KERNEL.launches = 0
-    t0 = time.perf_counter()
-    ids = [eng.submit(p, temperature=tt) for p, tt in zip(prompts, temps)]
-    eng.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    flash_n, paged_n = FA.KERNEL.launches, PA.KERNEL.launches
-    got = {r.id: r for r in eng.results()}
-
-    if sorted(got) != sorted(ids):
-        raise AssertionError(f"served {len(got)} of {len(ids)} requests")
-    for r in got.values():
-        if len(r.tokens) != scfg.max_new_tokens or r.finish_reason != "length":
-            raise AssertionError(f"request {r.id}: {len(r.tokens)} tokens, "
-                                 f"{r.finish_reason}")
-    prefills = reg.get("serve_prefill_ms").summary()["count"]
-    steps = reg.get("serve_decode_step_ms").summary()["count"]
+    block = serve_block(cfg, params, scfg, prompts, temps, dev,
+                        {"flash": FA.KERNEL, "paged": PA.KERNEL})
+    run, got, ids = block["run"], block["results"], block["ids"]
+    flash_n, paged_n = run["launches"]["flash"], run["launches"]["paged"]
+    prefills, steps = run["prefill_passes"], run["decode_steps"]
     if flash_n != cfg.num_layers * prefills or flash_n == 0:
         raise AssertionError(f"flash launches {flash_n} != "
                              f"{cfg.num_layers} x {prefills} prefill passes")
@@ -1252,21 +1351,9 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
         if r.tokens != want:
             raise AssertionError(f"request {rid}: engine tokens differ from "
                                  "the full-context argmax")
-    ttft = np.array([got[i].metrics["ttft_ms"] for i in ids])
-    new_tokens = sum(len(r.tokens) for r in got.values())
-    return ({"phase": "serve", "params": n_params, "requests": len(ids),
-             "new_tokens": new_tokens,
-             "prompt_tokens": sum(len(p) for p in prompts),
-             "wall_s": wall, "tokens_per_s": new_tokens / wall,
-             "ttft_ms_p50": float(np.percentile(ttft, 50)),
-             "ttft_ms_p99": float(np.percentile(ttft, 99)),
-             "decode_step_ms_p50":
-                 reg.get("serve_decode_step_ms").percentile(50),
-             "prefill_ms_p50": reg.get("serve_prefill_ms").percentile(50),
-             "prefill_passes": prefills, "decode_steps": steps,
+    run.pop("launches")
+    return ({"phase": "serve", "params": n_params, **run,
              "flash_launches": flash_n, "paged_launches": paged_n,
-             "max_memory_allocated_bytes":
-                 torch.cuda.max_memory_allocated(dev),
              "setup_s": setup_s}, flash_n, paged_n)
 
 
@@ -1274,7 +1361,8 @@ def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
     for mine in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
-                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged",
+                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_bf16",
+                 "paged",
                  "bilstm_fwd_bf16", "lstm_fwd_bf16", "lstm_bwd_bf16",
                  "bilstm_fwd", "lstm_fwd", "lstm_bwd", "bigru_fwd",
                  "gru_fwd", "gru_bwd", "ctc_fwd_bwd", "ctc_decode"):
@@ -7482,6 +7570,442 @@ def train_nmt_bf16(dev, vocab=30000, width=512, bs=64,
              "profile_bf16": prof, "bf16_launches": launched}, launched)
 
 
+# -- phase 17: serving in bf16, the bf16 form of row 1 -----------------------
+
+#: the greedy requests of the bf16 serving run held to the float64 witness
+SERVE_BF16_WITNESS = 4
+#: planted faults of the bf16 paged kernel, each a copy of its source under
+#: build/faults/ with one line changed: the scores left unscaled, and the
+#: online softmax without the accumulator's rescale.  Both must fail the
+#: kernel check; the served tokens' margin check must catch "no_scale".
+#: At random weights attention is a near-uniform average of random V rows,
+#: so a fault that keeps it an average ("no_rescale") hardly moves the
+#: served tokens: the margin check is run on it and reported only.
+PAGED_BF16_FAULTS = {"no_scale": ("? dot * scale :", "? dot :"),
+                     "no_rescale": ("acc[e] *= corr;", "acc[e] *= 1.f;")}
+
+
+def paged_bf16_agreement(q, kp, vp, pt, sl) -> dict:
+    """The bf16 kernel against its twin on the same bf16 inputs
+    (``bf16_agreement`` with FLASH_BF16_FLIP: one ulp at the larger
+    magnitude plus 2^-7 of sum_j p_j |v_j| / l, the twin in f32 on |V|,
+    since a bf16 p that rounds the other way moves its term by at most
+    2^-7 of it), whether it agrees (unequal on at most BF16_ULP_SHARE), a
+    rerun in the same bits and idle rows exactly 0."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    out = PA.ragged_paged_attention(q, kp, vp, pt, sl)
+    again = PA.ragged_paged_attention(q, kp, vp, pt, sl)
+    want = PA.ragged_paged_attention_reference(q, kp, vp, pt, sl)
+    mag = PA.ragged_paged_attention_reference(
+        q.float(), kp.float(), vp.float().abs(), pt, sl)
+    torch.cuda.synchronize()
+    idle = sl == 0
+    a = bf16_agreement(out, want, mag, coef=FLASH_BF16_FLIP)
+    a["rerun_bit_identical"] = torch.equal(out.view(torch.int16),
+                                           again.view(torch.int16))
+    a["idle_rows_zero"] = not out[idle].float().any().item()
+    a["agrees"] = (bf16_agrees(out, want, mag, coef=FLASH_BF16_FLIP)
+                   and a["rerun_bit_identical"] and a["idle_rows_zero"])
+    return a
+
+
+def check_paged_bf16(dev, timer) -> dict:
+    """Row 1's bf16 form at ``check_paged``'s problem in bf16 (B 32, H 12,
+    D 64, page 16, 36 pages, the same ragged lengths): against its twin
+    (``paged_bf16_agreement``), then timed as ``paged_times`` (2 B an
+    element, bf16 SDPA as the yardstick)."""
+    q, kp, vp, pt, sl, lens = paged_inputs(dev)
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    a = paged_bf16_agreement(q, kp, vp, pt, sl)
+    if not a["agrees"]:
+        raise AssertionError(f"bf16 paged kernel vs its twin: {a}")
+    b, h, d = q.shape
+    return {"name": "ragged_paged_attention_bf16", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:261",
+            "shape": [b, h, d, kp.shape[2], pt.shape[1]], "dtype": "bfloat16",
+            "agreement": a, "max_abs_err": a["max_abs_err"],
+            **paged_times(q, kp, vp, pt, sl, lens, timer, "paged_bf16_kernel")}
+
+
+def check_flash_bf16_prefill(dev, timer) -> dict:
+    """Row 2's bf16 forward at serving's prefill shape [8, 512, 12, 64]
+    causal: against its twin (``bf16_agrees`` with FLASH_BF16_FLIP), then
+    timed with the L2 flushed, alone, its twin, bf16 SDPA (flash backend)
+    and the bound at 2 B an element."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    b, t, h, d = 8, 512, 12, 64
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qp, kp, vp = FA._prep(q, k, v)
+    fwd = lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale)  # noqa: E731
+    o, lse = fwd()
+    want = FA._fwd_plain(qp, kp, vp, t, True, scale)[0]
+    p = FA._probs(qp.double(), kp.double(), lse.double(), t, True, scale)
+    mag = torch.einsum("bqk,bkd->bqd", p, vp.double().abs())
+    del p
+    a = bf16_agreement(o, want, mag, coef=FLASH_BF16_FLIP)
+    if not bf16_agrees(o, want, mag, coef=FLASH_BF16_FLIP):
+        raise AssertionError(f"bf16 flash forward at the prefill shape: {a}")
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True))
+    pairs = b * h * t * (t + 1) // 2
+    bound_ms, by = bound(2.0 * 4 * b * t * h * d + 4.0 * b * h * t,
+                         4.0 * pairs * d, BF16_FLOPS_PER_S)
+    return {"name": "flash_attention_fwd_bf16_prefill", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:277",
+            "shape": [b, t, h, d], "dtype": "bfloat16", "agreement": a,
+            "max_abs_err": a["max_abs_err"], "ms": timer(fwd),
+            "alone_ms": device_ms([fwd], "flash_fwd_bf16_kernel"),
+            "plain_ms": timer(lambda: FA._fwd_plain(qp, kp, vp, t, True,
+                                                    scale)),
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+
+
+def served_margin_check(cfg, params, results) -> dict:
+    """Greedy tokens served in bf16 against a float64 witness: the served
+    sequences' logits recomputed in float64 (exact attention) from the
+    same bf16 weights, upcast.  ``err`` is the bf16 full-context logits'
+    largest distance from the witness on a request's prompt positions.
+    Where the witness's top-2 margin exceeds 2 err, the served token must
+    be its argmax; elsewhere its witness logit must lie within 2 err of
+    the witness's max (a bf16 logit may lie err from its witness, so two
+    candidates within 2 err may swap).  Returns the counts, the worst
+    share of that bound a served token's gap took, and ``ok``."""
+    import dataclasses
+
+    from paddle_tpu_torch.core.dtype import cast_floats
+    from paddle_tpu_torch.models import transformer as T
+
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64, attn_impl="exact")
+    params64 = cast_floats(params, torch.float64)
+    out = {"requests": len(results), "tokens": 0, "clear": 0,
+           "clear_equal": 0, "near_ties": 0, "worst_gap_share": 0.0,
+           "err": []}
+    dev = params["embed"].device
+    for r in results:
+        seq = torch.tensor([r.prompt + r.tokens], device=dev)
+        n = len(r.prompt)
+        l64 = T.forward(cfg64, params64, seq)[0]
+        lbf = T.forward(cfg, params, seq)[0]
+        err = float((lbf[:n - 1].double() - l64[:n - 1]).abs().max())
+        del lbf
+        gen = l64[n - 1:n - 1 + len(r.tokens)]
+        top2 = gen.topk(2, dim=-1).values
+        served = gen.gather(1, torch.tensor(r.tokens, device=dev)[:, None])
+        gap = top2[:, 0] - served[:, 0]
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+        out["err"].append(err)
+        out["tokens"] += len(r.tokens)
+        out["clear"] += int(clear.sum())
+        out["clear_equal"] += int((clear & (gap == 0)).sum())
+        out["near_ties"] += int((~clear).sum())
+        out["worst_gap_share"] = max(out["worst_gap_share"],
+                                     float(gap.max()) / max(2 * err, 1e-30))
+    out["ok"] = (out["clear_equal"] == out["clear"]
+                 and out["worst_gap_share"] <= 1.0)
+    return out
+
+
+def paged_bf16_fault_builds() -> dict:
+    """Start one ``nvcc`` per planted fault of PAGED_BF16_FAULTS, each on a
+    copy of ``csrc/paged_attention.cu`` under ``build/faults/`` with its
+    line changed; returns {fault: (the process, the library's path)}."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    out = _build.BUILD_DIR.parent / "faults"
+    out.mkdir(parents=True, exist_ok=True)
+    builds = {}
+    for name, (line, planted) in PAGED_BF16_FAULTS.items():
+        if src.count(line) != 1:
+            raise AssertionError(f"fault {name}: {line!r} is not in the "
+                                 "paged kernel's source once")
+        cu, lib = out / f"paged_attention_{name}.cu", out / f"paged_{name}.so"
+        cu.write_text(src.replace(line, planted))
+        builds[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), lib)
+    return builds
+
+
+def planted_paged_bf16(proc, lib):
+    """The C entry of a planted fault's library (waits for its build), to
+    stand in for ``paged_attention.KERNEL_BF16``'s."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    log_, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc of a planted fault failed:\n{log_}")
+    fn = getattr(ctypes.CDLL(str(lib)), PA.KERNEL_BF16.symbol)
+    fn.argtypes, fn.restype = PA.KERNEL_BF16.argtypes, ctypes.c_int
+    return fn
+
+
+def decode_profile(cfg, params, scfg, prompts, dev) -> dict:
+    """Device time by class over 3 decode steps with every slot live:
+    32 greedy requests admitted and prefilled first, then 3 traced
+    ``step()`` calls (each ends on the host, with its tokens) and 3
+    untraced ones for the idle share."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.telemetry import MetricsRegistry
+
+    eng = ServingEngine(cfg, params, scfg, registry=MetricsRegistry("p"),
+                        device=dev)
+    for p in prompts[:scfg.max_slots]:
+        eng.submit(p)
+    eng.step()
+    while eng.scheduler.queue:
+        eng.step()
+    prof = profile_window(lambda: [eng.step() for _ in range(3)], 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.step()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    prof["untraced_step_ms"] = step_ms
+    if "device_busy_ms_per_step" in prof:
+        prof["idle_share"] = 1.0 - prof["device_busy_ms_per_step"] / step_ms
+    return prof
+
+
+def write_servable(path: str, cfg, params) -> None:
+    """A servable in the layout the JAX package's ``export_servable``
+    writes (``params.npz`` of the flat param names, ``servable.json`` with
+    the config, the payload's sha256 and its inventory): ``params`` as f32
+    under ``cfg``, whose dtype names what it serves in, as
+    ``checkpoint_to_servable`` writes a bf16-trained model."""
+    import dataclasses
+    import os
+
+    from paddle_tpu_torch.serving.export import MANIFEST, _sha256
+
+    flat: dict = {}
+
+    def walk(node, prefix=""):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = v.float().cpu().numpy()
+
+    walk(params)
+    os.makedirs(path, exist_ok=True)
+    npz = os.path.join(path, "params.npz")
+    np.savez(npz, **flat)
+    config = dataclasses.asdict(cfg)
+    config["dtype"] = str(cfg.dtype).removeprefix("torch.")
+    with open(os.path.join(path, MANIFEST), "w") as f:
+        json.dump({"schema": "paddle_tpu.servable/1", "config": config,
+                   "files": {"params.npz": _sha256(npz)},
+                   "params": {k: str(v.dtype) for k, v in flat.items()},
+                   "meta": {}}, f)
+
+
+def serve_bf16_cli(dev, cfg32) -> dict:
+    """``python -m paddle_tpu_torch.serving --servable DIR`` on the card,
+    DIR a servable of seeded f32 weights (``LM_FULL`` at 2 layers) under a
+    bfloat16 config: its printed tokens for three prompt lines must equal
+    an in-process engine's on ``load_servable(DIR)`` (bf16 params, the
+    CLI's defaults, the lines served one at a time as the CLI serves
+    them), which launches the bf16 flash and paged forms and no f32 one."""
+    import dataclasses
+    import os
+
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.serving import (ServingConfig, ServingEngine,
+                                          load_servable)
+    from paddle_tpu_torch.telemetry import MetricsRegistry
+
+    cfg = dataclasses.replace(cfg32, num_layers=2)
+    path = str(_build.BUILD_DIR.parent / "servable_bf16")
+    write_servable(path, dataclasses.replace(cfg, dtype=torch.bfloat16),
+                   T.init_params(cfg, torch.Generator().manual_seed(3), dev))
+    prompts = [[5, 17, 3], [9, 9, 9, 9], list(range(1000, 1030))]
+    t0 = time.perf_counter()
+    ran = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.serving", "--servable",
+         path, "--max_new_tokens", "8"],
+        input="".join(" ".join(map(str, p)) + "\n" for p in prompts),
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    if ran.returncode != 0:
+        raise AssertionError(f"the serving CLI failed:\n{ran.stderr[-2000:]}")
+    printed = [line for line in ran.stdout.splitlines() if line.strip()]
+    cfg16, params16 = load_servable(path, device=dev)
+    if cfg16.dtype != torch.bfloat16 or params16["embed"].dtype != cfg16.dtype:
+        raise AssertionError(f"servable loaded as {cfg16.dtype}")
+    eng = ServingEngine(cfg16, params16, ServingConfig(
+        max_slots=4, page_size=16, num_pages=64, max_prompt_len=32,
+        max_new_tokens=8, seed=0), registry=MetricsRegistry("cli"),
+        device=dev)
+    kernels = (FA.KERNEL, PA.KERNEL, FA.KERNEL_BF16, PA.KERNEL_BF16)
+    before = [k.launches for k in kernels]
+    want = []
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8)
+        eng.run_until_idle()
+        want += [f"{r.id}: {' '.join(map(str, r.tokens))}"
+                 for r in eng.results()]
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    if printed != want or moved[:2] != [0, 0] or 0 in moved[2:]:
+        raise AssertionError(f"the CLI printed {printed}, the engine "
+                             f"{want}; launches f32 and bf16 {moved}")
+    return {"printed": printed, "cli_seconds": cli_s,
+            "in_process_launches": dict(zip(
+                ("flash_f32", "paged_f32", "flash_bf16", "paged_bf16"),
+                moved))}
+
+
+def serve_bf16(dev) -> tuple[list, dict, dict]:
+    """Phase 17: row 1's bf16 form and row 2's bf16 forward at serving's
+    shapes, then the LM served in bf16 beside f32 from the same seeded
+    weights (the bf16 engine's are the f32 ones rounded once), phase 3's
+    requests in blocks (bf16, f32, f32, bf16), each block a fresh engine
+    with the launch counts zeroed just before and read just after: a bf16
+    block launches the bf16 flash forward 12 times a prefill pass and the
+    bf16 paged kernel 12 times a decode step and no f32 form, an f32 block
+    the reverse.  Then a 3-decode-step profile of each dtype, the float64
+    margin check of the first bf16 block's first SERVE_BF16_WITNESS greedy
+    requests (``served_margin_check``), the share of bf16 greedy tokens
+    equal to f32's, and the planted faults of PAGED_BF16_FAULTS: each must
+    fail the kernel check, and "no_scale" served again the margin check.
+    Last, the serving CLI on a bf16-config servable (``serve_bf16_cli``).
+    Returns (kernel rows, the phase's summary, the bf16 launches by
+    kernel row)."""
+    import dataclasses
+
+    from paddle_tpu_torch.core.dtype import cast_floats
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.telemetry import MetricsRegistry
+
+    fault_builds = paged_bf16_fault_builds()
+    timer = Timer(dev)
+    rows = [check_paged_bf16(dev, timer), check_flash_bf16_prefill(dev, timer)]
+    del timer
+    cfg32 = T.TransformerConfig(**LM_FULL, dtype=torch.float32, remat=False,
+                                attn_impl="flash")
+    cfgs = {"f32": cfg32,
+            "bf16": dataclasses.replace(cfg32, dtype=torch.bfloat16)}
+    params32 = T.init_params(cfg32, torch.Generator().manual_seed(0), dev)
+    params = {"f32": params32,
+              "bf16": cast_floats(params32, torch.bfloat16)}
+    scfg, prompts, temps = serve_workload(cfg32)
+    forms = {"f32": {"flash": FA.KERNEL, "paged": PA.KERNEL},
+             "bf16": {"flash": FA.KERNEL_BF16, "paged": PA.KERNEL_BF16}}
+    counters = {f"{k}_{dt}": kernel for dt, ks in forms.items()
+                for k, kernel in ks.items()}
+    for dt in ("bf16", "f32"):
+        ServingEngine(cfgs[dt], params[dt], scfg,
+                      registry=MetricsRegistry("warmup"),
+                      device=dev).generate(prompts[:2], max_new_tokens=2)
+    blocks: dict = {"bf16": [], "f32": []}
+    tokens: dict = {}
+    for dt in ("bf16", "f32", "f32", "bf16"):
+        block = serve_block(cfgs[dt], params[dt], scfg, prompts, temps, dev,
+                            counters)
+        run = block["run"]
+        n = run["launches"]
+        other = "f32" if dt == "bf16" else "bf16"
+        want = {f"flash_{dt}": cfg32.num_layers * run["prefill_passes"],
+                f"paged_{dt}": cfg32.num_layers * run["decode_steps"],
+                f"flash_{other}": 0, f"paged_{other}": 0}
+        if n != want or not run["decode_steps"]:
+            raise AssertionError(f"serve {dt}: launches {n} != {want}")
+        if dt not in tokens:
+            tokens[dt] = [block["results"][i] for i in block["ids"]]
+        blocks[dt].append(run)
+        torch.cuda.empty_cache()
+    greedy = [i for i, tt in enumerate(temps) if tt == 0.0]
+    margin = served_margin_check(
+        cfgs["bf16"], params["bf16"],
+        [tokens["bf16"][i] for i in greedy[:SERVE_BF16_WITNESS]])
+    if not margin["ok"]:
+        raise AssertionError(f"bf16 served tokens vs the float64 witness: "
+                             f"{margin}")
+    pairs = [(tokens["bf16"][i].tokens, tokens["f32"][i].tokens)
+             for i in greedy]
+    equal = {"tokens": float(np.mean([a == b for x, y in pairs
+                                      for a, b in zip(x, y)])),
+             "requests": float(np.mean([x == y for x, y in pairs]))}
+    profiles = {dt: decode_profile(cfgs[dt], params[dt], scfg, prompts, dev)
+                for dt in ("bf16", "f32")}
+
+    faults = {}
+    problem = [x.to(torch.bfloat16) if x.is_floating_point() else x
+               for x in paged_inputs(dev)[:5]]
+    witness_prompts = [prompts[i] for i in greedy[:SERVE_BF16_WITNESS]]
+    kernel_fn = PA.KERNEL_BF16._fn or PA.KERNEL_BF16._resolve()
+    for name, build in fault_builds.items():
+        PA.KERNEL_BF16._fn = planted_paged_bf16(*build)
+        try:
+            kernel = paged_bf16_agreement(*problem)
+            served = ServingEngine(
+                cfgs["bf16"], params["bf16"], scfg,
+                registry=MetricsRegistry("fault"), device=dev).generate(
+                    witness_prompts)
+        finally:
+            PA.KERNEL_BF16._fn = kernel_fn
+        faults[name] = {"kernel_check": kernel, "margin_check":
+                        served_margin_check(cfgs["bf16"], params["bf16"],
+                                            served)}
+        if kernel["agrees"]:
+            raise AssertionError(f"planted fault {name} passed the kernel "
+                                 f"check: {kernel}")
+    if faults["no_scale"]["margin_check"]["ok"]:
+        raise AssertionError(f"planted fault no_scale passed the margin "
+                             f"check: {faults['no_scale']['margin_check']}")
+    cli = serve_bf16_cli(dev, cfg32)
+
+    def mean(dt, key):
+        return float(np.mean([r[key] for r in blocks[dt]]))
+
+    per_dtype = {dt: {k: mean(dt, k) for k in (
+        "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99", "decode_step_ms_p50",
+        "prefill_ms_p50", "max_memory_allocated_bytes", "kv_pool_bytes")}
+        for dt in blocks}
+    summary = {"phase": "serve_bf16", "params": T.count_params(params32),
+               "per_dtype_mean": per_dtype,
+               "bf16_over_f32_tokens_per_s":
+                   per_dtype["bf16"]["tokens_per_s"]
+                   / per_dtype["f32"]["tokens_per_s"],
+               "blocks": blocks, "decode_profile": profiles,
+               "margin_check": margin, "planted_faults": faults,
+               "greedy_equal_to_f32": equal, "cli": cli,
+               "bf16_launches_per_step": {
+                   "paged_bf16_a_decode_step":
+                       sum(r["launches"]["paged_bf16"] for r in blocks["bf16"])
+                       / sum(r["decode_steps"] for r in blocks["bf16"]),
+                   "flash_bf16_a_prefill_pass":
+                       sum(r["launches"]["flash_bf16"] for r in blocks["bf16"])
+                       / sum(r["prefill_passes"] for r in blocks["bf16"])}}
+    launches = {rows[0]["name"]: sum(r["launches"]["paged_bf16"]
+                                     for r in blocks["bf16"]),
+                rows[1]["name"]: sum(r["launches"]["flash_bf16"]
+                                     for r in blocks["bf16"])}
+    return rows, summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA card; nothing to run")
@@ -7628,6 +8152,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     nmt_bf16, nmt_bf16_n = train_nmt_bf16(dev)
     print(json.dumps(nmt_bf16), flush=True)
+    torch.cuda.empty_cache()
+    serve_bf16_rows, serve_bf16_summary, serve_bf16_n = serve_bf16(dev)
+    for row in serve_bf16_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(serve_bf16_summary), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -7717,6 +8246,11 @@ def main() -> int:
     for row in gru_bf16_rows:
         launches, where = on_path[row["name"]]
         rows.append({**row, "launches": launches, "launches_on": where})
+    # rows 1 and 2 in bf16 at serving's shapes: the bf16 serving blocks'
+    # launches
+    for row in serve_bf16_rows:
+        rows.append({**row, "launches": serve_bf16_n[row["name"]],
+                     "launches_on": "serving bf16"})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

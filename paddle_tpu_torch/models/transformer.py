@@ -123,15 +123,28 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     }
 
 
+def _from_numpy(value) -> torch.Tensor:
+    """A writable tensor copy of a numpy array.  JAX's bfloat16 arrays
+    reach numpy as ``ml_dtypes.bfloat16`` (dtype name ``"bfloat16"``),
+    which ``torch.from_numpy`` refuses: their bits are carried as int16
+    and viewed as ``torch.bfloat16``, bit for bit."""
+    a = np.asarray(value)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.int16))).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def params_from_numpy(flat: dict, device=None, dtype=None) -> dict:
     """The JAX package's flat param names (``"embed"``, ``"blocks/wq"``,
-    ... as ``serving/export.py`` writes them) with numpy values -> the
-    port's nested params on ``device`` (``None``: ``cuda:0``, raising
-    without a card).  Float arrays are cast to ``dtype`` when given."""
+    ... as ``serving/export.py`` writes them) with numpy values (float32,
+    or JAX's bfloat16 bit for bit) -> the port's nested params on
+    ``device`` (``None``: ``cuda:0``, raising without a card).  Float
+    arrays are cast to ``dtype`` when given."""
     device = resolve_device(device)
     out: dict = {}
     for key, value in flat.items():
-        t = torch.from_numpy(np.array(value))  # a writable copy
+        t = _from_numpy(value)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         node, parts = out, key.split("/")

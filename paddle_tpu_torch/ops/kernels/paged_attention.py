@@ -18,7 +18,13 @@ sites read the same either way).
 
 :func:`ragged_paged_attention` launches ``csrc/paged_attention.cu`` for
 CUDA tensors and takes :func:`ragged_paged_attention_reference` for CPU
-tensors."""
+tensors.  Two dtypes, each with its own kernel form and launch count:
+float32 (``KERNEL``) and bfloat16 (``KERNEL_BF16``: bf16 q and pools, f32
+scores and sums, p rounded to bf16 before p.V, a bf16 output).  A bf16
+CUDA tensor launches the bf16 kernel or raises; nothing casts it to f32.
+The twin runs the Pallas kernel's page loop (an online softmax page by
+page, p rounded to the pools' dtype against the running max), so the
+card and the twin round at the same points."""
 
 from __future__ import annotations
 
@@ -26,15 +32,22 @@ import ctypes
 
 import torch
 
+from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops.kernels import NEG_INF
 from paddle_tpu_torch.ops.kernels._build import Kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL = Kernel("paged_attention", "paged_attention_f32",
-                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 ctypes.c_float, _P])
+# q, k_pages, v_pages, page_table, seq_lens, out | B, H, P, page_size, D,
+# max_pages, scale, stream
+_ARGS = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+KERNEL = Kernel("paged_attention", "paged_attention_f32", _ARGS)
+KERNEL_BF16 = Kernel("paged_attention", "paged_attention_bf16", _ARGS)
+#: {dtype: kernel form}
+FORMS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
+#: the bf16 kernel keeps a page's scores and probabilities in shared memory
+MAX_PAGE_SIZE_BF16 = 4096
 
 
 # -- cache layout helpers ------------------------------------------------------
@@ -88,29 +101,45 @@ def write_prefill_kv(k_pages, v_pages, ks, vs, page_table, seq_lens):
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, page_table,
                                      seq_lens, scale=None):
-    """Plain PyTorch twin: gather each sequence's pages, mask, softmax.
-    q [B, H, D]; pools [H, P, page_size, D]; returns [B, H, D].  Rows with
-    ``seq_lens == 0`` produce zeros (idle slots), not NaNs."""
+    """Plain PyTorch twin of the kernel: the Pallas ``_decode_kernel``'s
+    page loop.  q [B, H, D]; pools [H, P, page_size, D]; returns [B, H, D]
+    in q's dtype.
+
+    Page by page, skipping pages at or past ``seq_lens``: s = (q.k) scale
+    in f32 (or the inputs' dtype where it is wider), masked past the
+    length; m' = max(m, max s), p = exp(s - m'), l = l exp(m - m') + sum p
+    with p unrounded, acc = acc exp(m - m') + p.v with p rounded to the
+    pools' dtype (a no-op for f32); out = acc / max(l, 1e-30).  Rows with
+    ``seq_lens == 0`` never accumulate and produce exact zeros."""
     h, _, ps, d = k_pages.shape
     b, maxp = page_table.shape
     scale = scale if scale is not None else d ** -0.5
+    wide = at_least_f32(q).dtype
     table = page_table.long()
-    # [H, B, maxp, ps, D] -> [B, H, maxp*ps, D]
-    k = k_pages[:, table].transpose(0, 1).reshape(b, h, maxp * ps, d)
-    v = v_pages[:, table].transpose(0, 1).reshape(b, h, maxp * ps, d)
-    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
-    pos = torch.arange(maxp * ps, device=q.device)
-    live = pos[None, None, :] < seq_lens.long()[:, None, None]
-    s = torch.where(live, s, s.new_tensor(NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhk,bhkd->bhd", p / torch.clamp(l, min=1e-30),
-                       v.float())
-    # fully masked rows: NEG_INF is finite, so p == 1 everywhere and the
-    # sum above is a mean of null/stale pages — zero them explicitly
-    out = torch.where(seq_lens[:, None, None] > 0, out, 0.0)
-    return out.to(q.dtype)
+    lens = seq_lens.long()
+    qf = q.to(wide)
+    m = qf.new_full((b, h, 1), NEG_INF)
+    l = qf.new_zeros((b, h, 1))
+    acc = qf.new_zeros((b, h, d))
+    pages = min(maxp, -(-int(lens.max()) // ps)) if b else 0
+    for i in range(pages):
+        live = (i * ps < lens)[:, None, None]
+        # [H, B, ps, D] -> [B, H, ps, D]
+        k = k_pages[:, table[:, i]].transpose(0, 1).to(wide)
+        v = v_pages[:, table[:, i]].transpose(0, 1)
+        s = torch.einsum("bhd,bhkd->bhk", qf, k) * scale
+        pos = i * ps + torch.arange(ps, device=q.device)
+        s = torch.where(pos[None, None, :] < lens[:, None, None], s,
+                        s.new_tensor(NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = torch.where(live, l * corr + p.sum(dim=-1, keepdim=True), l)
+        pv = torch.einsum("bhk,bhkd->bhd", p.to(v.dtype).to(wide),
+                          v.to(wide))
+        acc = torch.where(live, acc * corr + pv, acc)
+        m = torch.where(live, m_new, m)
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
 # -- the kernel ----------------------------------------------------------------
@@ -136,12 +165,39 @@ def _check(q, k_pages, v_pages, page_table, seq_lens):
     enforce(len(devs) == 1, f"inputs on several devices: {devs}")
 
 
+def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens):
+    """What the CUDA kernels take: q and the pools float32 or bfloat16, all
+    of one dtype, head_dim <= 128, contiguous inputs; bf16 also head_dim a
+    multiple of 8, q and the pools 16-byte aligned (16-byte loads of 8
+    bf16) and page_size <= ``MAX_PAGE_SIZE_BF16``.  Returns the kernel
+    form of that dtype (``FORMS``)."""
+    dt = q.dtype
+    enforce(dt in FORMS and k_pages.dtype == dt and v_pages.dtype == dt,
+            f"the paged-attention kernels take float32 or bfloat16 q and "
+            f"pools of one dtype, got {q.dtype} / {k_pages.dtype} / "
+            f"{v_pages.dtype}")
+    d, ps = q.shape[-1], k_pages.shape[2]
+    enforce(d <= 128, f"head_dim {d} > 128")
+    enforce(all(t.is_contiguous() for t in
+                (q, k_pages, v_pages, page_table, seq_lens)),
+            "the paged-attention kernel needs contiguous inputs")
+    if dt == torch.bfloat16:
+        enforce(d % 8 == 0, f"the bf16 paged-attention kernel needs "
+                f"head_dim a multiple of 8, got {d}")
+        enforce(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+                "the bf16 paged-attention kernel needs 16-byte aligned q "
+                "and pools")
+        enforce(ps <= MAX_PAGE_SIZE_BF16, f"page_size {ps} > "
+                f"{MAX_PAGE_SIZE_BF16} for the bf16 paged-attention kernel")
+    return FORMS[dt]
+
+
 def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                            scale=None):
     """Decode-step attention of q [B, H, D] over one layer's paged KV cache.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (f32, contiguous, head_dim <= 128) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    their dtype (``_check_kernel_args``) or raise."""
     _check(q, k_pages, v_pages, page_table, seq_lens)
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
@@ -149,12 +205,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
         return ragged_paged_attention_reference(
             q, k_pages, v_pages, page_table, seq_lens, scale=scale)
     enforce(q.device.type == "cuda", f"no kernel for device {q.device}")
-    enforce(all(t.dtype == torch.float32 for t in (q, k_pages, v_pages)),
-            "the paged-attention kernel takes float32 q and pools")
-    enforce(d <= 128, f"head_dim {d} > 128")
-    enforce(all(t.is_contiguous() for t in
-                (q, k_pages, v_pages, page_table, seq_lens)),
-            "the paged-attention kernel needs contiguous inputs")
+    kernel = _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens)
     b, h, _ = q.shape
     hp, p, ps, _ = k_pages.shape
     out = torch.empty_like(q)
@@ -162,7 +213,7 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       page_table.data_ptr(), seq_lens.data_ptr(),
                       out.data_ptr(), b, h, p, ps, d, page_table.shape[1],
                       float(scale), stream)

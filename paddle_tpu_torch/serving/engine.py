@@ -19,6 +19,9 @@ without one), ``"cpu"`` runs the kernels' plain twins.  Prefill attention
 follows ``cfg.attn_impl``: a "flash" config runs the flash kernel on the
 card, with no quiet downgrade; the mesh strategies ("ring", "ulysses",
 "blockwise") are exact attention at serving shapes and run as "exact".
+The KV pools take ``cfg.dtype``: a bf16 config with bf16 params serves
+in bf16 (the flash and paged kernels' bf16 forms; greedy rows take the
+argmax of the bf16 logits, sampled rows upcast them first).
 
 Telemetry rides the shared :class:`MetricsRegistry` under the JAX
 engine's names: histograms ``serve_queue_wait_ms`` / ``serve_prefill_ms``

@@ -6,6 +6,11 @@ refused at load, never served; an untouched one serves on the card as
 exported::
 
     cfg, params = load_servable(dir)            # engine input
+
+Float params come back in the config's dtype: a servable with float32
+params under a ``bfloat16`` config (what ``checkpoint_to_servable``
+writes for a model trained in bf16) serves in bf16.  A servable whose
+payload holds bfloat16 arrays is refused (see :func:`load_servable`).
 """
 
 from __future__ import annotations
@@ -60,6 +65,18 @@ def load_servable(path: str, device=None):
     cfg = _cfg_from_json(manifest["config"])
     with np.load(os.path.join(path, "params.npz")) as z:
         flat = {k: z[k] for k in z.files}
+    # the JAX package's export of bfloat16 params (np.savez of
+    # ml_dtypes.bfloat16) stores raw 2-byte voids, which its own
+    # load_servable refuses too; a bf16 servable is f32 params under a
+    # bfloat16 config
+    void = sorted(k for k, v in flat.items() if v.dtype.kind == "V")
+    enforce(not void,
+            f"servable {path}: params {void[:4]} are raw voids (|V2), as "
+            "the JAX package's export_servable writes bfloat16 params "
+            "(np.savez of ml_dtypes.bfloat16); its own load_servable "
+            "cannot read them either. Export float32 params under a "
+            "bfloat16 config (checkpoint_to_servable's output) to serve "
+            "in bfloat16")
     # payload-vs-manifest inventory (manifests that predate the "params"
     # field skip it): a missing or extra param, or a dtype drift, means
     # the artifact is not what was exported

@@ -96,6 +96,83 @@ def test_paged_kernel_matches_plain(cuda, d, ps):
     assert torch.isfinite(out).all()
 
 
+# The bf16 paged kernel against its twin (``chip_smoke.paged_bf16_agreement``:
+# equal on all but 1% of the elements, each within one bf16 ulp plus 2^-7
+# of sum_j p_j |v_j| / l, a rounded p flipped; a rerun in the same bits;
+# idle rows exactly 0).
+@pytest.mark.parametrize("d,ps", [(32, 8), (32, 16), (64, 8), (64, 16),
+                                  (128, 8), (128, 16)])
+def test_paged_bf16_kernel_matches_its_twin(cuda, d, ps):
+    import chip_smoke as S
+
+    rng = np.random.default_rng(d * ps)
+    lens = [0, 1, 16, 17, 5, 0, 33, 200]
+    maxp = -(-200 // ps)
+    q, kp, vp, table, seq = _paged(rng, lens, 3, d, ps, maxp, cuda)
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    before = PA.KERNEL.launches, PA.KERNEL_BF16.launches
+    a = S.paged_bf16_agreement(q, kp, vp, table, seq)
+    assert a["agrees"], a
+    assert a["idle_rows_zero"] and a["rerun_bit_identical"]
+    assert (PA.KERNEL.launches, PA.KERNEL_BF16.launches) == (
+        before[0], before[1] + 2)
+
+
+def test_paged_bf16_refuses_what_it_does_not_take(cuda):
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    bf = torch.bfloat16
+    table = torch.ones(3, 2, dtype=torch.int32, device=cuda)
+    lens = torch.full((3,), 5, dtype=torch.int32, device=cuda)
+
+    def call(d=64, q_dtype=bf, pool_dtype=bf, offset=0):
+        flat = torch.zeros(3 * 2 * d + offset, dtype=q_dtype, device=cuda)
+        q = flat[offset:].view(3, 2, d)
+        pool = torch.zeros(2, 4, 8, d, dtype=pool_dtype, device=cuda)
+        return PA.ragged_paged_attention(q, pool, pool, table, lens)
+
+    with pytest.raises(EnforceError, match="one dtype"):
+        call(pool_dtype=torch.float32)
+    with pytest.raises(EnforceError, match="one dtype"):
+        call(q_dtype=torch.float32)
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        call(offset=1)
+    with pytest.raises(EnforceError, match="head_dim 136 > 128"):
+        call(d=136)
+    with pytest.raises(EnforceError, match="multiple of 8"):
+        call(d=20)
+    assert call().dtype == bf   # the same call, well formed, runs
+
+
+def test_engine_on_card_serves_bf16_through_both_bf16_kernels(cuda):
+    import chip_smoke as S
+    from paddle_tpu_torch.core.dtype import cast_floats
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = T.TransformerConfig(vocab_size=512, num_layers=2, num_heads=2,
+                              embed_dim=64, mlp_dim=128, max_seq_len=256,
+                              attn_impl="flash")
+    params = cast_floats(
+        T.init_params(cfg, torch.Generator().manual_seed(1), cuda),
+        torch.bfloat16)
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    rng = np.random.default_rng(3)
+    prompts = [list(rng.integers(1, 512, size=n)) for n in (3, 40, 130, 9)]
+    eng = ServingEngine(cfg, params, ServingConfig(
+        max_slots=2, page_size=16, num_pages=40, max_prompt_len=160,
+        max_new_tokens=16, prefill_batch=2, seed=0), device=cuda)
+    assert eng.cache.k.dtype == torch.bfloat16
+    kernels = (FA.KERNEL, PA.KERNEL, FA.KERNEL_BF16, PA.KERNEL_BF16)
+    before = [k.launches for k in kernels]
+    results = eng.generate(prompts, max_new_tokens=12)
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    assert moved[:2] == [0, 0] and moved[2] > 0 and moved[3] > 0, moved
+    assert moved[2] % 2 == 0 and moved[3] % 2 == 0   # one a layer
+    margin = S.served_margin_check(cfg, params, results)
+    assert margin["ok"], margin
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from paddle_tpu_torch.core.enforce import EnforceError
 
