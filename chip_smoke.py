@@ -4,8 +4,8 @@ card — the quickest proof that the port builds, is right, serves and
 trains (ResNet-50, the transformer LM, the LSTM text classifier, the
 OCR CRNN and the attention NMT in f32 and bf16, the CIFAR-10 VGG, the
 benchmark image nets and the Wide & Deep CTR), serves the LM in f32 and
-bf16, and runs the raw-input recurrences and the large-vocabulary
-cross-entropy.
+bf16, and runs the raw-input recurrences, the large-vocabulary
+cross-entropy and the embedding scatter-add in f32 and bf16.
 
 Run from the root of a checkout, on a machine with one card and nvcc:
 
@@ -417,7 +417,39 @@ Phases, in order; any failure exits non-zero and prints no result:
    built beside it: the scores left unscaled and the rescale skipped
    (``PAGED_BF16_FAULTS``) must each fail the kernel check, and the
    first, served again, the margin check.
-18. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
+18. The last bf16 forms (rows 4, 6, 9 and 18: ``csrc/lstm_seq.cu``'s
+   ``lstm_fi_fwd_bf16``, ``csrc/gru_seq.cu``'s ``gru_fi_fwd_bf16``,
+   ``csrc/softmax_xent.cu``'s ``softmax_xent_fwd_bf16`` /
+   ``_bwd_bf16``, ``csrc/embedding.cu``'s ``embedding_scatter_add_bf16``;
+   ``bf16_last_forms``).  The fused-input forwards at ``RAW_RNN``'s
+   shapes in both directions, with the bf16 remat backward over their
+   f32 projection, against their forced float64 steps (the in-loop
+   projection's |terms| in the sum term, K = E + D; h_T, c_T 1e-5, the
+   GRU's h_T 1e-4), reruns and the slab form in the same bits, the twins'
+   planted faults outside (the projection rounded, the gate halves
+   swapped, r h unrounded); softmax_xent at the LM's logits in bf16 (lse
+   and the NLL within 1e-5 x max(1, |ref|), dlogits unequal on at most 1%
+   and within one ulp, reruns); the scatter-add of 8,192 ids into a bf16
+   [30000, 128] with f32 and with bf16 rows (unequal on at most 1%,
+   within one ulp, reruns).  Each timed with the L2 flushed and alone
+   beside its twin, its bound (2 B an element, 989 TFLOP/s) and the bf16
+   library call (cuDNN ``nn.LSTM`` / ``nn.GRU``, not the same cell;
+   ``F.cross_entropy``; ``index_add``).  The path legs, the launch counts
+   zeroed just before and read just after: ``ops.rnn.lstm`` (both
+   directions) and ``gru`` on bf16 operands, forward and backward 10
+   times (exactly 10 bf16 fused-input forwards and 10 bf16 remat
+   backwards, no f32 fused-input or sequence forward), every leaf within
+   2x the bf16 twins' distance from a float64 witness plus 2^-8 (the
+   ragged mask ignored must fail), fused against the unfused bf16 route
+   in blocks (fused, unfused, unfused, fused); ``softmax_xent``'s mean
+   NLL and gradient on the bf16 logits 10 times against the eager LM
+   loss chain on them (step ms, peak memory); the scatter-add 10 times
+   with each rows' dtype.  Four planted faults, copies of the sources
+   under ``build/faults/`` built beside it (``BF16_LAST_FAULTS``: the
+   projection rounded to bf16 in each fused-input form, dlogits rounded
+   twice, the rows rounded to the table's dtype), must each fail their
+   form's check.
+19. ``{"kernels": [...]}`` and then, as the last line, ``{"ok": true,
    "device": {...}}``.
 """
 
@@ -1368,9 +1400,10 @@ def kernel_class(name: str) -> str:
                  "gru_fwd", "gru_bwd", "ctc_fwd_bwd", "ctc_decode"):
         if mine in low:
             return f"{mine} (ours)"
-    if "::lse_kernel(" in low or "::dlogits_kernel(" in low:
+    if ("lse_kernel<" in low or "::dlogits_kernel(" in low
+            or "dlogits_bf16_kernel" in low):
         return "softmax_xent (ours)"      # csrc/softmax_xent.cu
-    if "::scatter_add_kernel(" in low:    # csrc/embedding.cu
+    if "scatter_add_kernel<" in low:      # csrc/embedding.cu
         return "embedding_scatter_add (ours)"
     if "::gather_kernel(" in low:
         return "embedding_gather (ours)"
@@ -1460,7 +1493,7 @@ GRU_KERNEL_NAMES = {"bi": "bigru_fwd_kernel",
                     "stored": "gru_bwd_kernel<false"}
 
 
-def device_ms(fns, key: str, rounds: int = 20, tries: int = 3) -> float:
+def device_ms(fns, key: str, rounds: int = 20, tries: int = 5) -> float:
     """The device time of one launch of the kernel whose name holds
     ``key``, averaged over the launches a ``torch.profiler`` trace of
     ``rounds`` calls of each of ``fns`` records: the kernel's own time,
@@ -1468,14 +1501,17 @@ def device_ms(fns, key: str, rounds: int = 20, tries: int = 3) -> float:
     L2 flush).  On the H100 host every other trace drops its first ~7
     kernel records (13 of 20 launches recorded, then 20 of 20, in turn),
     so a trace of 5 launches could hold none: 20 launches leave at least
-    13.  Raises when ``tries`` traces in a row hold no such kernel."""
+    13.  Three traces in a row of a microsecond kernel have held none,
+    so each further trace takes twice the rounds.
+    Raises when ``tries`` traces in a row hold no such kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        rounds_now = rounds << attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(rounds):
+            for _ in range(rounds_now):
                 for fn in fns:
                     fn()
             torch.cuda.synchronize()
@@ -5361,21 +5397,27 @@ def check_xent_kernels(dev, timer) -> tuple[list, dict]:
                   "seconds": time.perf_counter() - t0}
 
 
-def xent_path(dev, steps=10) -> tuple[dict, tuple]:
-    """``softmax_xent`` at the LM's logits (``XENT_SHAPE``): the mean NLL
-    and its gradient ``steps`` times through the Function (its launches
-    zeroed just before and read just after: exactly ``steps`` of each
-    kernel), against the port's eager LM loss chain on the same logits
-    (``transformer.loss_fn``'s ``torch.logsumexp`` - gather, the mean,
-    its backward): the loss within TOL x max(1, |ref|), the gradient entry
-    by entry (``entry_ratio`` <= 1), step ms of each in blocks of
-    ``steps`` (kernel, eager, eager, kernel) and the peak memory of each.  A measurement: nothing routes the LM loss
-    through the kernels.  Returns (the phase's result, (forward, backward)
-    launches)."""
+def xent_path(dev, steps=10, dtype=torch.float32) -> tuple[dict, tuple]:
+    """``softmax_xent`` at the LM's logits (``XENT_SHAPE``) in ``dtype``
+    (f32, or rounded to bf16): the mean NLL and its gradient ``steps``
+    times through the Function (its launches zeroed just before and read
+    just after: exactly ``steps`` of each form of ``dtype``, none of the
+    other dtype's), against the port's eager LM loss chain on the same
+    logits (``transformer.loss_fn``'s f32 ``torch.logsumexp`` - gather,
+    the mean, its backward): the loss within TOL x max(1, |ref|); the
+    gradient in f32 entry by entry (``entry_ratio`` <= 1), in bf16 by
+    ``bf16_exact_agreement`` (the chain's gradient reaches the bf16 logits
+    rounded once); step ms of each in blocks of ``steps`` (kernel, eager,
+    eager, kernel) and the peak memory of each.  A measurement: nothing
+    routes the LM loss through the kernels.  Returns (the phase's result,
+    (forward, backward) launches of ``dtype``'s forms)."""
     from paddle_tpu_torch.ops.kernels import softmax_xent as SX
 
     t0 = time.perf_counter()
     logits, targets = xent_inputs(dev)
+    if dtype != torch.float32:
+        logits = logits.to(dtype)
+        torch.cuda.empty_cache()
     leaf = logits.requires_grad_()
 
     def kernel():
@@ -5383,11 +5425,13 @@ def xent_path(dev, steps=10) -> tuple[dict, tuple]:
         return loss, torch.autograd.grad(loss, leaf)[0]
 
     def eager():
-        lse = torch.logsumexp(leaf, dim=-1)
-        tgt = torch.gather(leaf, -1, targets[:, None])[:, 0]
+        lse = torch.logsumexp(leaf.float(), dim=-1)
+        tgt = torch.gather(leaf, -1, targets[:, None])[:, 0].float()
         loss = torch.mean(lse - tgt)
         return loss, torch.autograd.grad(loss, leaf)[0]
 
+    forms = SX.FORMS[dtype] + tuple(k for dt, ks in SX.FORMS.items()
+                                    if dt != dtype for k in ks)
     ms = {"kernel": [], "eager": []}
     peak = {}
     counted = None
@@ -5396,7 +5440,8 @@ def xent_path(dev, steps=10) -> tuple[dict, tuple]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if counted is None:
-            SX.KERNEL_FWD.launches = SX.KERNEL_BWD.launches = 0
+            for k in forms:
+                k.launches = 0
         for _ in range(steps):
             start = time.perf_counter()
             loss, grad = fn()
@@ -5404,28 +5449,35 @@ def xent_path(dev, steps=10) -> tuple[dict, tuple]:
             ms[route].append(1e3 * (time.perf_counter() - start))
             del loss, grad
         if counted is None:
-            counted = (SX.KERNEL_FWD.launches, SX.KERNEL_BWD.launches)
+            counted = tuple(k.launches for k in forms)
         peak[route] = max(peak.get(route, 0.0),
                           torch.cuda.max_memory_allocated() / 1e9)
-    if counted != (steps, steps):
-        raise AssertionError(f"softmax_xent launches {counted}, want "
-                             f"({steps}, {steps})")
+    if counted != (steps, steps, 0, 0):
+        raise AssertionError(f"softmax_xent {dtype} launches {counted}, "
+                             f"want ({steps}, {steps}, 0, 0)")
     got, want = kernel(), eager()
-    err = {"loss": abs(got[0].item() - want[0].item()),
-           "grad_ratio": entry_ratio(got[1], want[1])}
-    if not (err["loss"] <= TOL * max(1.0, abs(want[0].item()))
-            and err["grad_ratio"] <= 1.0):
-        raise AssertionError(f"softmax_xent vs the eager loss chain: {err}")
+    err = {"loss": abs(got[0].item() - want[0].item())}
+    if dtype == torch.float32:
+        err["grad_ratio"] = entry_ratio(got[1], want[1])
+        grad_ok = err["grad_ratio"] <= 1.0
+    else:
+        err["grad"] = bf16_exact_agreement(got[1], want[1])
+        grad_ok = err["grad"]["ok"]
+    if not (err["loss"] <= TOL * max(1.0, abs(want[0].item())) and grad_ok):
+        raise AssertionError(f"softmax_xent {dtype} vs the eager loss "
+                             f"chain: {err}")
     del got, want, leaf, logits
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return ({"phase": "xent_path", "shape": list(XENT_SHAPE), "steps": steps,
-             "launches": counted, "vs_eager": err,
+    return ({"phase": ("xent_path" if dtype == torch.float32
+                       else "xent_bf16_path"),
+             "shape": list(XENT_SHAPE), "dtype": str(dtype), "steps": steps,
+             "launches": counted[:2], "vs_eager": err,
              "kernel_step_ms_p50": float(np.percentile(ms["kernel"], 50)),
              "eager_step_ms_p50": float(np.percentile(ms["eager"], 50)),
              "peak_gb": peak, "seconds": time.perf_counter() - t0,
              **{f"{k}_ms": v for k, v in ms.items()}},
-            counted)
+            counted[:2])
 
 
 # -- phase 14: the LM in bf16, the bf16 forms of rows 2 and 3 ----------------
@@ -7717,41 +7769,40 @@ def served_margin_check(cfg, params, results) -> dict:
     return out
 
 
-def paged_bf16_fault_builds() -> dict:
-    """Start one ``nvcc`` per planted fault of PAGED_BF16_FAULTS, each on a
-    copy of ``csrc/paged_attention.cu`` under ``build/faults/`` with its
-    line changed; returns {fault: (the process, the library's path)}."""
+def source_fault_builds(source: str, faults: dict) -> dict:
+    """Start one ``nvcc`` per planted fault of ``faults`` ({fault: (line,
+    planted line)}), each on a copy of ``csrc/<source>.cu`` under
+    ``build/faults/`` with its line changed (the shared headers found in
+    ``csrc/``); returns {fault: (the process, the library's path)}."""
     from paddle_tpu_torch.ops.kernels import _build
 
-    src = (_build.CSRC / "paged_attention.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     out = _build.BUILD_DIR.parent / "faults"
     out.mkdir(parents=True, exist_ok=True)
     builds = {}
-    for name, (line, planted) in PAGED_BF16_FAULTS.items():
+    for name, (line, planted) in faults.items():
         if src.count(line) != 1:
-            raise AssertionError(f"fault {name}: {line!r} is not in the "
-                                 "paged kernel's source once")
-        cu, lib = out / f"paged_attention_{name}.cu", out / f"paged_{name}.so"
+            raise AssertionError(f"fault {name}: {line!r} is not in "
+                                 f"{source}.cu once")
+        cu, lib = out / f"{source}_{name}.cu", out / f"{source}_{name}.so"
         cu.write_text(src.replace(line, planted))
         builds[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), lib)
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
     return builds
 
 
-def planted_paged_bf16(proc, lib):
+def planted(proc, lib, kernel):
     """The C entry of a planted fault's library (waits for its build), to
-    stand in for ``paged_attention.KERNEL_BF16``'s."""
+    stand in for the ``Kernel`` ``kernel``'s."""
     import ctypes
-
-    from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
     log_, _ = proc.communicate()
     if proc.returncode != 0:
         raise AssertionError(f"nvcc of a planted fault failed:\n{log_}")
-    fn = getattr(ctypes.CDLL(str(lib)), PA.KERNEL_BF16.symbol)
-    fn.argtypes, fn.restype = PA.KERNEL_BF16.argtypes, ctypes.c_int
+    fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
+    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
     return fn
 
 
@@ -7899,7 +7950,8 @@ def serve_bf16(dev) -> tuple[list, dict, dict]:
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.telemetry import MetricsRegistry
 
-    fault_builds = paged_bf16_fault_builds()
+    fault_builds = source_fault_builds("paged_attention",
+                                       PAGED_BF16_FAULTS)
     timer = Timer(dev)
     rows = [check_paged_bf16(dev, timer), check_flash_bf16_prefill(dev, timer)]
     del timer
@@ -7957,7 +8009,7 @@ def serve_bf16(dev) -> tuple[list, dict, dict]:
     witness_prompts = [prompts[i] for i in greedy[:SERVE_BF16_WITNESS]]
     kernel_fn = PA.KERNEL_BF16._fn or PA.KERNEL_BF16._resolve()
     for name, build in fault_builds.items():
-        PA.KERNEL_BF16._fn = planted_paged_bf16(*build)
+        PA.KERNEL_BF16._fn = planted(*build, PA.KERNEL_BF16)
         try:
             kernel = paged_bf16_agreement(*problem)
             served = ServingEngine(
@@ -8003,6 +8055,716 @@ def serve_bf16(dev) -> tuple[list, dict, dict]:
                                      for r in blocks["bf16"]),
                 rows[1]["name"]: sum(r["launches"]["flash_bf16"]
                                      for r in blocks["bf16"])}
+    return rows, summary, launches
+
+
+# -- phase 18: the last bf16 forms (rows 4, 6, 9 and 18) ---------------------
+
+#: NLL and lse of the bf16 softmax_xent form against its twin: rtol of
+#: max(1, |ref|) (f32 log-sum-exp in another summation order)
+XENT_BF16_NLL_RTOL = 1e-5
+#: the planted faults of the four forms, each a line of a copy of its
+#: source under build/faults/: {fault: (source, Kernel attribute of the
+#: module, line, planted line)}
+BF16_LAST_FAULTS = {
+    "lstm_fi_projection_rounded": (
+        "lstm_seq", "KERNEL_FI_BF16",
+        "x[j][g] += __ldg(bias + g * D + u);",
+        "x[j][g] = rnd(x[j][g] + __ldg(bias + g * D + u));"),
+    "gru_fi_projection_rounded": (
+        "gru_seq", "KERNEL_FI_BF16",
+        "kFi ? ax[j][e] + b_c[j][e & 1]",
+        "kFi ? b2f(f2b(ax[j][e] + b_c[j][e & 1]))"),
+    "dlogits_rounded_twice": (
+        "softmax_xent", "KERNEL_BWD_BF16",
+        "(expf(f[k] - l) - (j0 + k == tgt ? 1.f : 0.f)) * gr);",
+        "(to_f(__float2bfloat16_rn(expf(f[k] - l)))"
+        " - (j0 + k == tgt ? 1.f : 0.f)) * gr);"),
+    "rows_rounded": (
+        "embedding", "KERNEL_SCATTER_BF16",
+        "if (d < D) acc[q] += to_f(src[lane + 32 * q]);",
+        "if (d < D) acc[q] += to_f(__float2bfloat16_rn("
+        "to_f(src[lane + 32 * q])));")}
+#: the text classifier's table gradient: (ids, vocab, embed), the ids of
+#: a [64, 128] batch with the 28 padded steps of each row id 0
+SCATTER_BF16_SHAPE = (8192, 30000, 128)
+
+
+def bf16_exact_agreement(got, want, chunk: int = 1024) -> dict:
+    """:func:`bf16_agreement` with no sum term (each element within one
+    bf16 ulp at the larger magnitude: two roundings of one f32 value
+    computed in another order), over chunks of ``chunk`` rows so the
+    float64 temporaries stay small; "ok" says whether the two agree
+    (unequal on at most BF16_ULP_SHARE of the elements)."""
+    parts = [(g.numel(), bf16_agreement(g, w, torch.zeros(
+        g.shape, device=g.device))) for g, w in zip(got.split(chunk),
+                                                    want.split(chunk))]
+    total = sum(n for n, _ in parts)
+    a = {k: sum(n * p[k] for n, p in parts) / total
+         for k in ("share_off", "share_over_1ulp")}
+    a.update({k: max(p[k] for _, p in parts)
+              for k in ("max_ulps", "max_abs_err", "max_share_of_bound")})
+    a["ok"] = bool(a["share_off"] <= BF16_ULP_SHARE
+                   and a["max_share_of_bound"] <= 1.0)
+    return a
+
+
+def fi_bf16_inputs(dev, kind, b, t, e, d, seed=17) -> dict:
+    """bf16 x, W_x, W_h (W_hc), peepholes and h0 (the carry), f32 bias and
+    c0 of ``lstm_seq_fi`` / ``gru_seq_fi`` at [B, T, E], D, half the rows
+    full, half shorter, one of length 1; a bf16 cotangent of hs and f32
+    ones of the final states."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, k=1.0):
+        return k * torch.randn(*shape, generator=gen, device=dev)
+
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lens[: b // 2] = t
+    lens[-1] = 1
+    n = 4 if kind == "lstm" else 3
+    x = {"x": rnd(b, t, e).to(bf), "lens": lens,
+         "mask": (torch.arange(t, device=dev)[None, :]
+                  < lens[:, None]).float(),
+         "w_x": rnd(e, n * d, k=e ** -0.5).to(bf), "b": rnd(n * d, k=0.1)}
+    if kind == "lstm":
+        x.update(w_h=rnd(d, 4 * d, k=d ** -0.5).to(bf),
+                 peep=rnd(3, d, k=0.1).to(bf), h0=rnd(b, d, k=0.5).to(bf),
+                 c0=rnd(b, d, k=0.5), dhs=rnd(b, t, d).to(bf),
+                 dhT=rnd(b, d), dcT=rnd(b, d))
+    else:
+        x.update(w_h=rnd(d, 2 * d, k=d ** -0.5).to(bf),
+                 w_hc=rnd(d, d, k=d ** -0.5).to(bf),
+                 h0=rnd(b, d, k=0.5).to(bf), dhs=rnd(b, t, d).to(bf),
+                 dhT=rnd(b, d))
+    return x
+
+
+def fi_args(kind, x) -> tuple:
+    """The fused-input forward's operands in order, without the flags."""
+    keys = (("x", "mask", "w_x", "b", "w_h", "peep", "h0", "c0")
+            if kind == "lstm" else ("x", "mask", "w_x", "b", "w_h", "w_hc",
+                                    "h0"))
+    return tuple(x[k] for k in keys)
+
+
+def fi_projection(x) -> tuple:
+    """(x W_x + b in float64, |x| |W_x|): the in-loop projection exactly
+    and its sum of |terms|, per [B, T, nD] entry."""
+    xs, w_x = x["x"].double(), x["w_x"].double()
+    return (torch.matmul(xs, w_x) + x["b"].double(),
+            torch.matmul(xs.abs(), w_x.abs()))
+
+
+def fi_bf16_fwd_check(kind, x, reverse, out, xw64=None, proj=None) -> dict:
+    """A fused-input forward's outputs ``out`` (hs, cs, gates, h_T, c_T /
+    hs, urc, h_T) against the forced float64 steps from their own carries
+    over the exact projection (its |terms| in the sum term, K = E + D):
+    the LSTM's ``lstm_bf16_fwd_agreement`` with h_T, c_T within
+    LSTM_BF16_SUM_RTOL, the GRU's ``gru_bf16_fwd_agreement`` with h_T
+    within GRU_BF16_STATE_RTOL; the gate slab where ``out`` has one."""
+    if xw64 is None:
+        xw64, proj = fi_projection(x)
+    e, t = x["x"].shape[2], x["x"].shape[1]
+    d = x["w_h"].shape[0]
+    last = 0 if reverse else t - 1
+    if kind == "lstm":
+        hs, cs, gates, h_t, c_t = out
+        forced = lstm_bf16_forced_fwd(xw64, x["mask"], x["w_h"], x["peep"],
+                                      x["h0"], x["c0"], reverse, hs, cs, proj)
+        a = lstm_bf16_fwd_agreement(hs, cs, forced, e + d, gates)
+        a["h_T"] = rel_norm(h_t, forced["h"][:, last])
+        a["c_T"] = rel_norm(c_t, forced["c"][:, last])
+        a["ok"] = a["ok"] and max(a["h_T"], a["c_T"]) <= LSTM_BF16_SUM_RTOL
+        return a
+    hs, urc, h_t = out
+    forced = gru_bf16_forced_fwd(xw64, x["mask"], x["w_h"], x["w_hc"],
+                                 x["h0"], reverse, hs, e + d, proj)
+    a = gru_bf16_fwd_agreement(hs, forced, e + d, urc)
+    a["h_T"] = rel_norm(h_t, forced["h"][:, last])
+    a["ok"] = a["ok"] and a["h_T"] <= GRU_BF16_STATE_RTOL
+    return a
+
+
+def fi_bf16_case(kind, x, reverse) -> dict:
+    """The bf16 fused-input forward (``lstm_fi_fwd_bf16`` /
+    ``gru_fi_fwd_bf16``) on one problem, with and without its gate slab,
+    against its forced float64 steps (``fi_bf16_fwd_check``), a rerun and
+    the slab form in the same bits, the twin's planted faults (the
+    projection rounded to bf16, the gate halves swapped; the GRU's r h
+    unrounded) outside the criterion; then the backward the path pairs
+    with it, the bf16 remat backward over the f32 projection
+    (``lstm_bf16_case`` / ``gru_bf16_case`` with xw), against its forced
+    steps.  {"fwd", "bwd", "faults", "bits", "ok", "args"}."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    mod = LK if kind == "lstm" else GK
+    args = fi_args(kind, x) + (reverse,)
+    got = mod._fi_fwd_kernel(*args, False)
+    again = mod._fi_fwd_kernel(*args, False)
+    slab = mod._fi_fwd_kernel(*args, True)
+    gate = 2 if kind == "lstm" else 1
+    out = {"bits": {
+        "fwd_rerun": all(torch.equal(a, b) for i, (a, b) in
+                         enumerate(zip(got, again)) if i != gate),
+        "fwd_gates_form": all(torch.equal(a, b) for i, (a, b) in
+                              enumerate(zip(got, slab)) if i != gate)},
+        "faults": {}}
+    del again
+    xw64, proj = fi_projection(x)
+    out["fwd"] = fi_bf16_fwd_check(kind, x, reverse, slab, xw64, proj)
+    del slab
+    wraps = ((("projection_rounded", projection_rounded),
+              ("halves_swapped", halves_swapped)) if kind == "lstm" else
+             (("projection_rounded", gru_projection_rounded),
+              ("halves_swapped", gru_halves_swapped),
+              ("rh_unrounded", gru_unrounded)))
+    for name, wrap in wraps:
+        bad = list(wrap(lambda: mod._fi_fwd_plain(*args, False)))
+        out["faults"][name] = fi_bf16_fwd_check(kind, x, reverse, bad, xw64,
+                                                proj)
+    del xw64, proj
+    xw = mod._project_xw(x["x"], x["w_x"], x["b"])
+    if kind == "lstm":
+        cx = {k: x[k] for k in ("mask", "w_h", "peep", "h0", "c0", "dhs",
+                                "dhT", "dcT")}
+        cx["hs"], cx["cs"] = got[0], got[1]
+        case = lstm_bf16_case(cx, reverse, xw)
+    else:
+        cx = {k: x[k] for k in ("mask", "w_h", "w_hc", "h0", "dhs", "dhT")}
+        cx["hs"] = got[0]
+        case = gru_bf16_case(cx, reverse, xw)
+    out["bits"]["bwd_rerun"] = case["bits"]["bwd_rerun"]
+    out["bwd"] = case["bwd"]
+    out["faults"].update({f"bwd_{k}": v for k, v in case["faults"].items()})
+    out["ok"] = bool(out["fwd"]["ok"] and out["bwd"]["ok"])
+    out["args"] = args
+    return out
+
+
+def check_fi_bf16_kernels(dev, timer) -> tuple[list, dict]:
+    """Rows 6 and 9 in bf16 at the path's shapes (``RAW_RNN``, both
+    directions): ``fi_bf16_case`` must hold (the forms and their paired
+    backward against their forced steps, reruns and the slab form in the
+    same bits, every twin fault outside).  Timed (2 B an element, 989
+    TFLOP/s): the form with the L2 flushed (the mean of the directions)
+    and alone (a trace), its bf16 twin, its bound, the unfused bf16 route's
+    forward (the f32 projection rounded to bf16, then the bf16 sequence
+    forward: ``unfused_ms``, and that kernel alone) and bf16 cuDNN
+    ``nn.LSTM`` / ``nn.GRU`` with the input projection (not the same cell:
+    a yardstick of scale)."""
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    bf = torch.bfloat16
+    rows, summary = [], {"phase": "fi_bf16_kernels",
+                         "criterion": "forced float64 steps (chip_smoke.py)"}
+    for kind, b, t, e, d in RAW_RNN:
+        mod = LK if kind == "lstm" else GK
+        x = fi_bf16_inputs(dev, kind, b, t, e, d)
+        summary[kind] = {}
+        calls = []
+        for key, reverse in (("forward", False), ("reverse", True)):
+            case = fi_bf16_case(kind, x, reverse)
+            if not (all(case["bits"].values()) and case["ok"]
+                    and not any(f["ok"] for f in case["faults"].values())):
+                raise AssertionError(f"bf16 {kind}_seq_fi {key}: " + str(
+                    {k: case[k] for k in ("bits", "fwd", "bwd", "faults")}))
+            summary[kind][key] = {k: case[k] for k in ("fwd", "bwd", "faults",
+                                                       "bits")}
+            args = case["args"]
+            xw = mod._project_xw(x["x"], x["w_x"], x["b"]).to(bf)
+            rec = ((x["w_h"], x["peep"], x["h0"], x["c0"]) if kind == "lstm"
+                   else (x["w_h"], x["w_hc"], x["h0"]))
+            calls.append((
+                lambda a=args: mod._fi_fwd_kernel(*a, False),
+                lambda a=args: mod._fi_fwd_plain(*a, False),
+                lambda r=reverse, xw=xw, rec=rec: mod._fwd_kernel(
+                    xw, x["mask"], *rec, r, False)))
+            del case
+        cudnn = (torch.nn.LSTM if kind == "lstm" else torch.nn.GRU)(
+            e, d, batch_first=True).to(dev, bf)
+        cudnn.flatten_parameters()
+
+        def lib(cudnn=cudnn, xs=x["x"]):
+            with torch.no_grad():
+                return cudnn(xs)
+
+        steps = float(x["mask"].sum().item())
+        n = 4 if kind == "lstm" else 3
+        cell = (25.0 if kind == "lstm" else 20.0) * steps * d
+        # x, W_x, W_h (W_hc), peep, h0 bf16 and b, mask, c0 f32 in; hs
+        # bf16, cs, h_T (c_T) f32 out
+        rec_w = 4 * d * d + 3 * d if kind == "lstm" else 3 * d * d
+        states = 2 if kind == "lstm" else 1
+        nbytes = (2 * (b * t * e + e * n * d + rec_w + b * d)
+                  + 4 * (n * d + b * t + (states - 1) * b * d)
+                  + 2 * b * t * d + 4 * ((states - 1) * b * t * d
+                                         + states * b * d))
+        flops = steps * (2.0 * e * n * d + 2.0 * d * n * d) + cell
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        ms = [timer(c[0]) for c in calls]
+        unfused = [timer(c[2]) for c in calls]
+        rows.append({
+            "name": f"{kind}_seq_fi_fwd_bf16", "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{kind}_seq.cu",
+            "replaces": ("paddle_tpu/ops/pallas/lstm.py:686" if kind == "lstm"
+                         else "paddle_tpu/ops/pallas/gru.py:452"),
+            "shape": [b, t, e, d], "dtype": "bfloat16",
+            "max_abs_err": max(summary[kind][k]["fwd"]["max_abs_err"]
+                               for k in ("forward", "reverse")),
+            "ms": sum(ms) / 2,
+            "ms_by_direction": {"forward": ms[0], "reverse": ms[1]},
+            "alone_ms": device_ms([c[0] for c in calls],
+                                  f"{kind}_fwd_bf16_kernel<true"),
+            "plain_ms": sum(timer(c[1], iters=2) for c in calls) / 2,
+            "unfused_ms": sum(unfused) / 2,
+            "unfused_alone_ms": device_ms([c[2] for c in calls],
+                                          f"{kind}_fwd_bf16_kernel<false"),
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "library_ms": timer(lib),
+            "library_note": (f"bf16 cuDNN nn.{'LSTM' if kind == 'lstm' else 'GRU'}"
+                             " forward, input projection included: not the "
+                             "same cell")})
+        del cudnn, calls, x
+        torch.cuda.synchronize()
+    return rows, summary
+
+
+def xent_bf16_agreement(logits, targets, g) -> dict:
+    """The bf16 softmax_xent forms against their twins on the same bf16
+    logits: lse and the NLL (f32) within XENT_BF16_NLL_RTOL x max(1,
+    |ref|); dlogits (bf16, the backward twin over the kernel's own lse)
+    unequal on at most BF16_ULP_SHARE of the entries, each within one bf16
+    ulp; reruns in the same bits.  "ok" says whether they agree."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    nll, lse = SX._fwd_kernel(logits, targets)
+    again = SX._fwd_kernel(logits, targets)
+    d1 = SX._bwd_kernel(logits, targets, lse, g)
+    d2 = SX._bwd_kernel(logits, targets, lse, g)
+    torch.cuda.synchronize()
+    a = {"reruns_bit_identical": bool(
+        torch.equal(nll, again[0]) and torch.equal(lse, again[1])
+        and torch.equal(d1, d2))}
+    del again, d2
+    plain = SX._fwd_plain(logits, targets)
+    for name, got, want in zip(("nll", "lse"), (nll, lse), plain):
+        a[name] = float(((got - want).abs()
+                         / want.abs().clamp(min=1.0)).max())
+    a["nll_max_abs_err"] = float((nll - plain[0]).abs().max())
+    del plain
+    a["dlogits"] = bf16_exact_agreement(
+        d1, SX._bwd_plain(logits, targets, lse, g))
+    a["ok"] = bool(a["reruns_bit_identical"]
+                   and max(a["nll"], a["lse"]) <= XENT_BF16_NLL_RTOL
+                   and a["dlogits"]["ok"])
+    return a
+
+
+def xent_bf16_inputs(dev, seed=13):
+    """The LM's logits (``xent_inputs``) rounded to bf16, their targets and
+    a seeded per-row cotangent (not a power of two, so a rounding of the
+    gradient before the product shows)."""
+    logits, targets = xent_inputs(dev, seed)
+    logits = logits.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return logits, targets, torch.randn(logits.shape[0], generator=gen,
+                                        device=dev)
+
+
+def check_xent_bf16_kernels(dev, timer) -> tuple[list, dict]:
+    """Row 4's bf16 forms at the LM's logits in bf16 (``XENT_SHAPE``, rows
+    2-byte aligned: V is odd): ``xent_bf16_agreement`` must hold; each
+    timed with the L2 flushed and alone (a trace) beside its twin, its
+    bound (one bf16 read; one read and one write) and
+    ``F.cross_entropy(reduction="none")`` on the bf16 logits (forward;
+    backward)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    logits, targets, g = xent_bf16_inputs(dev)
+    n, v = logits.shape
+    a = xent_bf16_agreement(logits, targets, g)
+    if not a["ok"]:
+        raise AssertionError(f"bf16 softmax_xent vs its twins: {a}")
+    torch.cuda.empty_cache()
+    _, lse = SX._fwd_kernel(logits, targets)
+    leaf = logits.clone().requires_grad_()
+    ce = F.cross_entropy(leaf, targets, reduction="none")
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.cross_entropy(logits, targets, reduction="none")
+
+    def lib_bwd():
+        return torch.autograd.grad(ce, leaf, g.to(ce.dtype),
+                                   retain_graph=True)
+
+    elems = float(n) * v
+    fwd = lambda: SX._fwd_kernel(logits, targets)  # noqa: E731
+    bwd = lambda: SX._bwd_kernel(logits, targets, lse, g)  # noqa: E731
+    rows = []
+    for name, fn, plain, lib, key, nbytes in (
+            # bf16 logits and targets in, lse and nll f32 out
+            ("softmax_xent_fwd_bf16", fwd,
+             lambda: SX._fwd_plain(logits, targets), lib_fwd,
+             "lse_kernel<__nv_bfloat16", 2 * elems + 8 * n + 2 * 4 * n),
+            # logits bf16, targets, lse, g in, dlogits bf16 out
+            ("softmax_xent_bwd_bf16", bwd,
+             lambda: SX._bwd_plain(logits, targets, lse, g), lib_bwd,
+             "dlogits_bf16_kernel", 2 * 2 * elems + 8 * n + 2 * 4 * n)):
+        bound_ms, bound_by = bound(nbytes, 4 * elems, BF16_FLOPS_PER_S)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
+            "replaces": ("paddle_tpu/ops/pallas/softmax_xent.py:73"
+                         if name.endswith("fwd_bf16")
+                         else "paddle_tpu/ops/pallas/softmax_xent.py:120"),
+            "shape": [n, v], "dtype": "bfloat16",
+            "max_abs_err": (a["nll_max_abs_err"] if name.endswith("fwd_bf16")
+                            else a["dlogits"]["max_abs_err"]),
+            "ms": timer(fn), "alone_ms": device_ms([fn], key),
+            "plain_ms": timer(plain, iters=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timer(lib, iters=10),
+            "library_note": "F.cross_entropy(reduction='none') on bf16 logits"
+                            + (" backward" if name.endswith("bwd_bf16")
+                               else "")})
+    del ce, leaf, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows, {"phase": "xent_bf16_kernels", "agreement": a,
+                  "nll_rtol": XENT_BF16_NLL_RTOL}
+
+
+def scatter_bf16_inputs(dev, seed=18):
+    """A bf16 table [30000, 128], the ids of a [64, 128] batch whose rows
+    end in 28 padded steps of id 0 (``SCATTER_BF16_SHAPE``) and rows in
+    f32 and rounded to bf16."""
+    n, vocab, embed = SCATTER_BF16_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn(vocab, embed, generator=gen, device=dev).to(
+        torch.bfloat16)
+    ids = torch.randint(0, vocab, (64, n // 64), generator=gen, device=dev)
+    ids[:, 100:] = 0
+    rows = torch.randn(n, embed, generator=gen, device=dev)
+    return table, ids.reshape(-1), rows, rows.to(torch.bfloat16)
+
+
+def scatter_bf16_agreement(table, ids, rows) -> dict:
+    """``embedding_scatter_add`` of a bf16 table against its twin on the
+    same operands: unequal on at most BF16_ULP_SHARE of the entries, each
+    within one bf16 ulp (the run sums are f32 in another order, then
+    rounded once), and a rerun in the same bits."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    got = EK.embedding_scatter_add(table, ids, rows)
+    again = EK.embedding_scatter_add(table, ids, rows)
+    a = bf16_exact_agreement(
+        got, EK.embedding_scatter_add_reference(table, ids, rows))
+    a["rerun_bit_identical"] = bool(torch.equal(got, again))
+    a["ok"] = a["ok"] and a["rerun_bit_identical"]
+    return a
+
+
+def check_scatter_bf16_kernels(dev, timer) -> tuple[list, dict]:
+    """Row 18's bf16 form at the text row's table gradient (8,192 ids into
+    [30000, 128], 1,792 of them padding id 0), with f32 and with bf16
+    rows: ``scatter_bf16_agreement`` must hold; timed with the L2 flushed
+    and alone (a trace; the kernel without the wrapper's clone and sort)
+    beside its twin, its bound (the table read and written, the rows and
+    ids read: the function's bytes) and ``index_add`` on the bf16 table
+    with bf16 rows."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    table, ids, rows32, rows16 = scatter_bf16_inputs(dev)
+    n, (vocab, embed) = ids.shape[0], table.shape
+    rows, summary = [], {"phase": "scatter_bf16_kernels",
+                         "unique_ids": int(torch.unique(ids).numel())}
+    for label, r in (("f32", rows32), ("bf16", rows16)):
+        a = scatter_bf16_agreement(table, ids, r)
+        if not a["ok"]:
+            raise AssertionError(f"bf16 scatter-add ({label} rows) vs its "
+                                 f"twin: {a}")
+        summary[f"{label}_rows"] = a
+        fn = lambda r=r: EK.embedding_scatter_add(table, ids, r)  # noqa: E731
+        nbytes = (2 * 2 * vocab * embed + r.element_size() * n * embed
+                  + 8 * n)
+        bound_ms, bound_by = bound(nbytes, float(n) * embed,
+                                   BF16_FLOPS_PER_S)
+        rows.append({
+            "name": ("embedding_scatter_add_bf16" if label == "f32"
+                     else "embedding_scatter_add_bf16_rows_bf16"),
+            "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+            "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:217",
+            "shape": [n, vocab, embed],
+            "dtype": f"bfloat16 table, {label} rows",
+            "max_abs_err": a["max_abs_err"], "ms": timer(fn),
+            "alone_ms": device_ms([fn], "scatter_add_kernel<__nv_bfloat16"),
+            "plain_ms": timer(lambda r=r: EK.embedding_scatter_add_reference(
+                table, ids, r)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timer(lambda: table.index_add(0, ids, rows16)),
+            "library_note": "index_add on the bf16 table, bf16 rows"})
+    torch.cuda.synchronize()
+    return rows, summary
+
+
+class twins_on_card:
+    """Within the block, the fused-input Functions of ``mods`` take their
+    plain twins on CUDA tensors too (the forward and the backward), so a
+    run through the same entries gives the twin's result on the card."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+
+    def __enter__(self):
+        self.saved = [(m, m._fi_fwd_kernel, m._bwd_kernel) for m in self.mods]
+        for m in self.mods:
+            m._fi_fwd_kernel, m._bwd_kernel = m._fi_fwd_plain, m._bwd_plain
+
+    def __exit__(self, *exc):
+        for m, fwd, bwd in self.saved:
+            m._fi_fwd_kernel, m._bwd_kernel = fwd, bwd
+
+
+def raw_rnn_bf16_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
+    """The raw-input recurrences in bf16 through the entries a user calls,
+    ``ops.rnn.lstm`` (reverse off and on) and ``ops.rnn.gru``, on bf16 x,
+    weights, bias and initial state at ``RAW_RNN``'s widths: a forward and
+    backward against a fixed bf16 cotangent ``steps`` times with the
+    launch counts zeroed just before and read just after (exactly
+    ``steps`` bf16 fused-input forwards and ``steps`` bf16 remat backwards,
+    no f32 fused-input, no sequence-forward launch); every output and
+    gradient leaf against a float64 witness of the plain composition on
+    the card: its relative distance at most 2x the bf16 twins' (the same
+    entries with the twins on the card) plus 2^-8, with the ragged mask
+    ignored as a planted fault that must exceed it; the fused route
+    against the unfused bf16 one (the bf16 projection and the sequence
+    forms) in blocks of ``steps``: fused, unfused, unfused, fused.
+    Returns (the phase's result, {kind: bf16 fused-input launches})."""
+    from paddle_tpu_torch.ops import rnn as R
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    out = {"phase": "raw_rnn_bf16_path", "steps": steps,
+           "criterion": "per leaf ||x - x64|| / ||x64|| <= 2 x the twins' "
+                        "+ 2^-8", "cases": {}}
+    launches = {"lstm": 0, "gru": 0}
+    for kind, b, t, e, d in RAW_RNN:
+        mod = LK if kind == "lstm" else GK
+        for reverse in ((False, True) if kind == "lstm" else (False,)):
+            x, lens, w, init, cts = raw_rnn_inputs(dev, kind, b, t, e, d)
+            x, w = x.to(bf), {k: v.to(bf) for k, v in w.items()}
+            init, cts = [v.to(bf) for v in init], [c.to(bf) for c in cts]
+            label = f"{kind}{'_reverse' if reverse else ''}"
+            if not R.fused_input_fits(x, mod, w["w_x"],
+                                      *(v for k, v in w.items()
+                                        if k.startswith("w_h"))):
+                raise AssertionError(f"{label} bf16: the predicate refuses "
+                                     "the path's shape")
+            wide = raw_rnn_grads(
+                raw_rnn_reference, kind, x.double(), lens,
+                {k: v.double() for k, v in w.items()},
+                [v.double() for v in init], [c.double() for c in cts],
+                reverse)
+            with twins_on_card(mod):
+                twin = raw_rnn_grads(raw_rnn_call, kind, x, lens, w, init,
+                                     cts, reverse)
+            kernels = (mod.KERNEL_FI_BF16, mod.KERNEL_BWD_BF16, mod.KERNEL_FI,
+                       mod.KERNEL_FWD_BF16, mod.KERNEL_FWD)
+
+            def run(n, kernels=kernels, kind=kind, x=x, lens=lens, w=w,
+                    init=init, cts=cts, reverse=reverse):
+                ms = []
+                for k in kernels:
+                    k.launches = 0
+                for _ in range(n):
+                    start = time.perf_counter()
+                    got = raw_rnn_grads(raw_rnn_call, kind, x, lens, w, init,
+                                        cts, reverse)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - start))
+                return got, ms, tuple(k.launches for k in kernels)
+
+            def errors(got, wide=wide, twin=twin):
+                return {k: {"got": rel_norm(got[k], wide[k]),
+                            "twin": rel_norm(twin[k], wide[k])}
+                        for k in wide}
+
+            def holds(errs):
+                return all(v["got"] <= 2 * v["twin"] + 2.0 ** -8
+                           for v in errs.values())
+
+            got, fused_ms, n_fused = run(steps)
+            if n_fused != (steps, steps, 0, 0, 0):
+                raise AssertionError(
+                    f"{label} bf16: launches (bf16 fused-input, bf16 "
+                    f"backward, f32 fused-input, bf16 and f32 sequence "
+                    f"forward) = {n_fused}, want ({steps}, {steps}, 0, 0, 0)")
+            launches[kind] += n_fused[0]
+            errs = errors(got)
+            if not holds(errs):
+                raise AssertionError(f"{label} bf16 vs the float64 witness: "
+                                     f"{errs}")
+            again = raw_rnn_grads(raw_rnn_call, kind, x, lens, w, init, cts,
+                                  reverse)
+            if not all(torch.equal(got[k], again[k]) for k in got):
+                raise AssertionError(f"{label} bf16: a rerun differs in bits")
+            on = R.fused_input_on
+            R.fused_input_on = lambda device: False
+            try:
+                unfused, unfused_ms, n_unfused = run(steps)
+                unfused_ms += run(steps)[1]
+            finally:
+                R.fused_input_on = on
+            if n_unfused != (0, steps, 0, steps, 0):
+                raise AssertionError(f"{label} bf16: unfused launches "
+                                     f"{n_unfused}")
+            unfused_errs = errors(unfused)
+            fused_ms += run(steps)[1]
+            full = torch.full_like(lens, t)
+            unmasked = errors(raw_rnn_grads(raw_rnn_call, kind, x, full, w,
+                                            init, cts, reverse))
+            if holds(unmasked):
+                raise AssertionError(f"{label} bf16: the mask_ignored "
+                                     f"control passed the witness")
+            out["cases"][label] = {
+                "shape": [b, t, e, d], "reverse": reverse,
+                "lengths": "half full, half shorter, one of length 1",
+                "launches_fused": n_fused, "launches_unfused": n_unfused,
+                "witness_by_leaf": errs,
+                "unfused_holds": holds(unfused_errs),
+                "unfused_witness_by_leaf": unfused_errs,
+                "control_mask_ignored_worst": max(
+                    v["got"] for v in unmasked.values()),
+                "fused_step_ms_p50": float(np.percentile(fused_ms, 50)),
+                "unfused_step_ms_p50": float(np.percentile(unfused_ms, 50)),
+                "fused_ms": fused_ms, "unfused_ms": unfused_ms}
+            del got, again, unfused, wide, twin
+            torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+def scatter_bf16_path(dev, steps=10) -> tuple[dict, dict]:
+    """``embedding_scatter_add`` on the bf16 table of
+    ``scatter_bf16_inputs``, ``steps`` calls with f32 rows and ``steps``
+    with bf16 rows, the launches zeroed just before and read just after
+    each (exactly ``steps`` of the bf16 form, none of the f32 one); the
+    last result of each against its twin (``scatter_bf16_agreement``'s
+    criterion).  Returns (the phase's result, {rows' dtype: launches})."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    table, ids, rows32, rows16 = scatter_bf16_inputs(dev)
+    out, launches = {"phase": "scatter_bf16_path", "steps": steps}, {}
+    for label, r in (("f32", rows32), ("bf16", rows16)):
+        EK.KERNEL_SCATTER_BF16.launches = EK.KERNEL_SCATTER.launches = 0
+        ms = []
+        for _ in range(steps):
+            start = time.perf_counter()
+            got = EK.embedding_scatter_add(table, ids, r)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - start))
+        n = (EK.KERNEL_SCATTER_BF16.launches, EK.KERNEL_SCATTER.launches)
+        if n != (steps, 0):
+            raise AssertionError(f"bf16 scatter-add ({label} rows) launches "
+                                 f"{n}, want ({steps}, 0)")
+        a = bf16_exact_agreement(got, EK.embedding_scatter_add_reference(
+            table, ids, r))
+        if not a["ok"]:
+            raise AssertionError(f"bf16 scatter-add path ({label} rows): {a}")
+        launches[label] = n[0]
+        out[f"{label}_rows"] = {"launches": n, "agreement": a,
+                                "call_ms_p50": float(np.percentile(ms, 50)),
+                                "call_ms": ms}
+    return out, launches
+
+
+def bf16_last_faults(dev, builds) -> dict:
+    """Each planted fault of BF16_LAST_FAULTS, its library in place of its
+    form's C entry, must fail its form's check: the fused-input forwards'
+    ``fi_bf16_fwd_check`` (forward direction), ``xent_bf16_agreement``,
+    ``scatter_bf16_agreement`` with f32 rows."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    mods = {"lstm_seq": LK, "gru_seq": GK, "softmax_xent": SX,
+            "embedding": EK}
+    out = {}
+    for name, (source, attr, _, _) in BF16_LAST_FAULTS.items():
+        mod = mods[source]
+        kernel = getattr(mod, attr)
+        fn = kernel._fn or kernel._resolve()
+        kernel._fn = planted(*builds[name], kernel)
+        try:
+            if source in ("lstm_seq", "gru_seq"):
+                kind = source.split("_")[0]
+                _, b, t, e, d = next(r for r in RAW_RNN if r[0] == kind)
+                x = fi_bf16_inputs(dev, kind, b, t, e, d)
+                a = fi_bf16_fwd_check(kind, x, False, list(
+                    mod._fi_fwd_kernel(*fi_args(kind, x), False, True)))
+            elif source == "softmax_xent":
+                a = xent_bf16_agreement(*xent_bf16_inputs(dev))
+            else:
+                table, ids, rows32, _ = scatter_bf16_inputs(dev)
+                a = scatter_bf16_agreement(table, ids, rows32)
+        finally:
+            kernel._fn = fn
+        torch.cuda.empty_cache()
+        out[name] = a
+        if a["ok"]:
+            raise AssertionError(f"planted fault {name} passed its form's "
+                                 f"check: {a}")
+    return out
+
+
+def bf16_last_forms(dev) -> tuple[list, dict, dict]:
+    """Phase 18: rows 4, 6, 9 and 18 in bf16.  The planted faults' builds
+    start first; then each form against its twin at its path's shape
+    (``check_fi_bf16_kernels``, ``check_xent_bf16_kernels``,
+    ``check_scatter_bf16_kernels``), the three bf16 path legs
+    (``raw_rnn_bf16_path``, ``xent_path`` in bf16, ``scatter_bf16_path``),
+    and last the planted faults (``bf16_last_faults``).  Returns (kernel
+    rows, the phase's summary, {row name: launches on its path leg})."""
+    builds = {}
+    for name, (source, _, line, plant) in BF16_LAST_FAULTS.items():
+        builds.update(source_fault_builds(source, {name: (line, plant)}))
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    rows, fi_summary = check_fi_bf16_kernels(dev, timer)
+    xent_rows, xent_summary = check_xent_bf16_kernels(dev, timer)
+    scatter_rows, scatter_summary = check_scatter_bf16_kernels(dev, timer)
+    del timer
+    rows += xent_rows + scatter_rows
+    torch.cuda.empty_cache()
+    rnn, rnn_n = raw_rnn_bf16_path(dev)
+    torch.cuda.empty_cache()
+    xent, xent_n = xent_path(dev, dtype=torch.bfloat16)
+    scatter, scatter_n = scatter_bf16_path(dev)
+    torch.cuda.empty_cache()
+    faults = bf16_last_faults(dev, builds)
+    summary = {"phase": "bf16_last_forms", "fi": fi_summary,
+               "xent": xent_summary, "scatter": scatter_summary,
+               "paths": {"raw_rnn": rnn, "xent": xent, "scatter": scatter},
+               "planted_faults": faults,
+               "seconds": time.perf_counter() - t0}
+    launches = {"lstm_seq_fi_fwd_bf16": rnn_n["lstm"],
+                "gru_seq_fi_fwd_bf16": rnn_n["gru"],
+                "softmax_xent_fwd_bf16": xent_n[0],
+                "softmax_xent_bwd_bf16": xent_n[1],
+                "embedding_scatter_add_bf16": scatter_n["f32"],
+                "embedding_scatter_add_bf16_rows_bf16": scatter_n["bf16"]}
     return rows, summary, launches
 
 
@@ -8157,6 +8919,11 @@ def main() -> int:
     for row in serve_bf16_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
     print(json.dumps(serve_bf16_summary), flush=True)
+    torch.cuda.empty_cache()
+    last_rows, last_summary, last_n = bf16_last_forms(dev)
+    for row in last_rows:
+        print(json.dumps({"phase": "kernel", **row}), flush=True)
+    print(json.dumps(last_summary), flush=True)
     # the forward kernel runs on two paths, a row for each: serving's
     # prefill and LM training, each timed at its own shape
     rows[0]["launches"], rows[1]["launches"] = flash_n, paged_n
@@ -8251,6 +9018,10 @@ def main() -> int:
     for row in serve_bf16_rows:
         rows.append({**row, "launches": serve_bf16_n[row["name"]],
                      "launches_on": "serving bf16"})
+    # rows 4, 6, 9 and 18 in bf16: the bf16 path legs' launches
+    for row in last_rows:
+        rows.append({**row, "launches": last_n[row["name"]],
+                     "launches_on": "bf16 path legs (phase 18)"})
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -67,16 +67,21 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float64 else x.float()
 
 
+def matmul_dtype(*dtypes) -> torch.dtype:
+    """The dtype :func:`cast_for_matmul` resolves operands of these dtypes
+    to, without casting anything."""
+    narrow = {d for d in (torch.float16, torch.bfloat16) if d in dtypes}
+    return (narrow.pop() if len(narrow) == 1
+            else functools.reduce(torch.promote_types, dtypes))
+
+
 def cast_for_matmul(*tensors):
     """The operands of a product in one dtype, by the JAX package's rule
     (``paddle_tpu/core/dtype.py`` ``cast_for_matmul``, flag off): a mix
     that holds one narrow float (bf16 or f16) resolves to it, so f32 BN
     statistics meeting bf16 weights do not demote the product to f32;
     otherwise (no narrow float, or both) plain promotion."""
-    dtypes = [t.dtype for t in tensors]
-    narrow = {d for d in (torch.float16, torch.bfloat16) if d in dtypes}
-    common = (narrow.pop() if len(narrow) == 1
-              else functools.reduce(torch.promote_types, dtypes))
+    common = matmul_dtype(*(t.dtype for t in tensors))
     out = tuple(t if t.dtype == common else t.to(common) for t in tensors)
     return out if len(out) > 1 else out[0]
 

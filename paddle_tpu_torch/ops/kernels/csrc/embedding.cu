@@ -27,13 +27,30 @@
 // every 8th entry, each in order, with the row indices fetched a warp
 // load at a time and broadcast by shuffles (8 row loads in flight a lane),
 // and the warps' sums are added in warp order.  Reruns are bit-identical.
+// Two forms, one template on the table's and the rows' types: f32
+// (embedding_scatter_add_f32) and a bf16 table with f32 or bf16 rows
+// (embedding_scatter_add_bf16), as the JAX kernel takes them
+// (tpp/embedding.py:176-189): the rows are read as f32 and summed in f32,
+// the table row is read as f32 and added, and the result is rounded to
+// bf16 once.  At the text classifier's 8,192 ids into [30000, 128] a bf16
+// table row is 256 bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const float* __restrict__ table,
@@ -67,11 +84,14 @@ gather_bf16_kernel(const uint4* __restrict__ table,
 constexpr int kRunWarps = 8;
 constexpr int kCols = 128;            // columns a pass: 4 a lane
 
+// out: the table (O), rows (R); the run's f32 sum is added to the table
+// row read as f32 and stored in O once
+template <typename O, typename R>
 __global__ void __launch_bounds__(kRunWarps * 32)
-scatter_add_kernel(float* __restrict__ out,
+scatter_add_kernel(O* __restrict__ out,
                    const long long* __restrict__ sorted,
                    const long long* __restrict__ perm,
-                   const float* __restrict__ rows, int N, int V, int D) {
+                   const R* __restrict__ rows, int N, int V, int D) {
   const int i = blockIdx.x;
   const long long id = sorted[i];
   if (id < 0 || id >= V || (i > 0 && sorted[i - 1] == id)) return;
@@ -90,7 +110,7 @@ scatter_add_kernel(float* __restrict__ out,
   __syncthreads();
   const int end = end_s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* dst = out + id * D;
+  O* dst = out + id * D;
   for (int d0 = 0; d0 < D; d0 += kCols) {
     float acc[kCols / 32] = {0.f, 0.f, 0.f, 0.f};
     // entries i + warp + 8 n, n ascending, 32 row indices a warp load
@@ -100,11 +120,11 @@ scatter_add_kernel(float* __restrict__ out,
       const int n = min(32, (end - j0 + kRunWarps - 1) / kRunWarps);
 #pragma unroll 8
       for (int e = 0; e < n; ++e) {
-        const float* src = rows + __shfl_sync(0xffffffffu, p, e) * D + d0;
+        const R* src = rows + __shfl_sync(0xffffffffu, p, e) * D + d0;
 #pragma unroll
         for (int q = 0; q < kCols / 32; ++q) {
           const int d = d0 + lane + 32 * q;
-          if (d < D) acc[q] += src[lane + 32 * q];
+          if (d < D) acc[q] += to_f(src[lane + 32 * q]);
         }
       }
     }
@@ -115,7 +135,7 @@ scatter_add_kernel(float* __restrict__ out,
       float sum = 0.f;
 #pragma unroll
       for (int w = 0; w < kRunWarps; ++w) sum += part[w][threadIdx.x];
-      dst[d0 + threadIdx.x] += sum;
+      store(dst + d0 + threadIdx.x, to_f(dst[d0 + threadIdx.x]) + sum);
     }
     __syncthreads();
   }
@@ -150,8 +170,27 @@ extern "C" int embedding_scatter_add_f32(float* out, const long long* sorted,
                                          const float* rows, int N, int V,
                                          int D, void* stream) {
   if (N <= 0 || V <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  scatter_add_kernel<<<N, kRunWarps * 32, 0, (cudaStream_t)stream>>>(
-      out, sorted, perm, rows, N, V, D);
+  scatter_add_kernel<float, float>
+      <<<N, kRunWarps * 32, 0, (cudaStream_t)stream>>>(out, sorted, perm,
+                                                       rows, N, V, D);
+  return (int)cudaGetLastError();
+}
+
+// out: the bf16 table [V, D], in place; rows [N, D] bf16 (rows_bf16 != 0)
+// or f32
+extern "C" int embedding_scatter_add_bf16(void* out, const long long* sorted,
+                                          const long long* perm,
+                                          const void* rows, int rows_bf16,
+                                          int N, int V, int D, void* stream) {
+  if (N <= 0 || V <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rows_bf16)
+    scatter_add_kernel<bf16, bf16><<<N, kRunWarps * 32, 0, st>>>(
+        o, sorted, perm, static_cast<const bf16*>(rows), N, V, D);
+  else
+    scatter_add_kernel<bf16, float><<<N, kRunWarps * 32, 0, st>>>(
+        o, sorted, perm, static_cast<const float*>(rows), N, V, D);
   return (int)cudaGetLastError();
 }
 

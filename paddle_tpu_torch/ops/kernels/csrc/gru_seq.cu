@@ -7,7 +7,8 @@
 // _bwd_kernel and _bwd_remat_kernel: grid (batch blocks, T) run in order
 // on one core, W_h and W_hc resident in VMEM, the h carry in VMEM
 // scratch) and gru.py::gru_seq_fi (_fwd_fi_kernel: the same grid with
-// W_x resident too, so the [T, B, 3D] gate-input slab never reaches HBM).
+// W_x resident too, so the [T, B, 3D] gate-input slab never reaches HBM);
+// f32 and bf16 forms of each.
 //
 // Layout (batch-major, as the JAX entry takes it): xw [B, T, 3D] with
 // gate order [u, r, c]; mask [B, T] f32 (1 while t < length; rows freeze
@@ -403,31 +404,76 @@ extern "C" int gru_bwd_f32(const float* xw, const float* urc_in,
 // at B 64, D 512 are 101 MFLOP (0.1 us at 989 TFLOP/s), but each block
 // stages all of h_{t-1} (64 KB) through L2 in each phase and the grid
 // meets at two barriers a step (three in the backward).
+//
+// The fused-input form, gru_fi_fwd_bf16 (gru.py::gru_seq_fi's
+// _fwd_fi_kernel with bf16 operands): the forward above, one template
+// flag, and the one-direction form of bigru_fwd_bf16's block: W_x's pairs
+// and units slices in shared memory beside W_h's and W_hc's (at E = D =
+// 512, U 4: 33,280 bytes), x_t staged through the ring in each phase, x_t
+// W_x + b kept in f32 and never rounded (gru.py:418-420), added to h W_h
+// in (A) and to (r h) W_hc in (B).  The backward is gru_bwd_bf16 with
+// remat over the f32 projection of one torch.matmul, as the BiGRU's.  At
+// B 64, T 32, E = D = 512 a step's products are 201 MFLOP.
 
 namespace gru_bf16 {
 
-template <int S>
+// kFi (gru_fi_fwd_bf16): `in` is raw x [B, T, E] and the block keeps the
+// pairs and units slices of W_x (wxp, wxcp; K = E) before W_h's and
+// W_hc's, as bigru_fwd_bf16's block of one direction does (bigru_seq.cu):
+// each phase takes its columns of x_t W_x with f32 sums plus the f32 bias,
+// kept in f32 and never rounded (gru.py:418-420), then adds h_{t-1} W_h
+// or (r h) W_hc.  Otherwise `in` is xw [B, T, 3D] bf16 (E, wxp, wxcp and
+// bias unused).
+template <bool kFi, int S>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_fwd_bf16_kernel(const bf16* __restrict__ xw,
+gru_fwd_bf16_kernel(const bf16* __restrict__ in,
                     const float* __restrict__ mask,
+                    const bf16* __restrict__ wxp,
+                    const bf16* __restrict__ wxcp,
+                    const float* __restrict__ bias,
                     const bf16* __restrict__ whp,
                     const bf16* __restrict__ whcp, const bf16* h0, bf16* hs,
                     bf16* urc, float* hT, bf16* rh_buf, float* u_buf, int B,
-                    int T, int D, int U, int reverse) {
+                    int T, int E, int D, int U, int reverse) {
   extern __shared__ float4 smem4[];
-  const int LDK = ld_k(D), NTA = tiles(2 * U), NTB = tiles(U);
+  const int LDK = ld_k(D), LDE = kFi ? ld_k(E) : 0;
+  const int NTA = tiles(2 * U), NTB = tiles(U);
+  const size_t nxa = kFi ? slice_elems(2 * U, E) : 0;
+  const size_t nxb = kFi ? slice_elems(U, E) : 0;
   const size_t na = slice_elems(2 * U, D), nb = slice_elems(U, D);
-  bf16* wh_s = reinterpret_cast<bf16*>(smem4);
+  bf16* wx_s = reinterpret_cast<bf16*>(smem4);            // kFi
+  bf16* wxc_s = wx_s + nxa;
+  bf16* wh_s = wxc_s + nxb;
   bf16* whc_s = wh_s + na;
   bf16* a_s = whc_s + nb;
   float* sums = reinterpret_cast<float*>(a_s);
+  if (kFi) {
+    load_slice(wx_s, wxp, nxa, blockIdx.x);
+    load_slice(wxc_s, wxcp, nxb, blockIdx.x);
+  }
   load_slice(wh_s, whp, na, blockIdx.x);
   load_slice(whc_s, whcp, nb, blockIdx.x);
   __syncthreads();
   const Lane ln;
   const int ub = blockIdx.x * U;
+  // kFi: this lane's biases, the update and reset ones of its pair units,
+  // the candidate's of its units
+  float b_ur[kMaxNT][2], b_c[kMaxNT][2];
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j) {
+    const int up = ub + ln.pair_unit(j);
+    const bool pa = kFi && j < NTA && ln.pair_unit(j) < U && up < D;
+    b_ur[j][0] = pa ? bias[up] : 0.f;
+    b_ur[j][1] = pa ? bias[D + up] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int uc = ub + ln.unit(j, e);
+      b_c[j][e] = kFi && j < NTB && ln.unit(j, e) < U && uc < D
+                      ? bias[2 * D + uc] : 0.f;
+    }
+  }
   gru::cg::grid_group grid = gru::cg::this_grid();
-  const size_t TD = (size_t)T * D;
+  const size_t TD = (size_t)T * D, TE = (size_t)T * E;
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
@@ -435,6 +481,10 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ xw,
     // (A) u, r and r h_{t-1} of the own units
     for (int b0 = 0; b0 < B; b0 += kRows) {
       const int rows = min(kRows, B - b0);
+      float ax[kMaxNT][4];
+      if (kFi)
+        product<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, LDE,
+                   NTA, a_s, sums, ax);
       const bf16* a = s == 0 ? h0 + (size_t)b0 * D
                              : hs + b0 * TD + (size_t)tp * D;
       float acc[kMaxNT][4];
@@ -453,8 +503,13 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ xw,
           const float hp = s == 0 ? ldcg_bf(h0 + bo)
                                   : ldcg_bf(hs + b * TD + (size_t)tp * D + u);
           float ug, rg;
-          gru::update_reset(b2f(xw[bt * 3 + u]), b2f(xw[bt * 3 + D + u]),
-                            acc[j][2 * h], acc[j][2 * h + 1], ug, rg);
+          if (kFi)
+            gru::update_reset(ax[j][2 * h] + b_ur[j][0],
+                              ax[j][2 * h + 1] + b_ur[j][1], acc[j][2 * h],
+                              acc[j][2 * h + 1], ug, rg);
+          else
+            gru::update_reset(b2f(in[bt * 3 + u]), b2f(in[bt * 3 + D + u]),
+                              acc[j][2 * h], acc[j][2 * h + 1], ug, rg);
           rh_buf[bo] = f2b(rg * hp);
           u_buf[bo] = ug;
           if (urc != nullptr) {
@@ -468,6 +523,10 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ xw,
     // (B) the candidate and the new h of the own units
     for (int b0 = 0; b0 < B; b0 += kRows) {
       const int rows = min(kRows, B - b0);
+      float ax[kMaxNT][4];
+      if (kFi)
+        product<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wxc_s, LDE,
+                   NTB, a_s, sums, ax);
       float acc[kMaxNT][4];
       product<S>(rh_buf + (size_t)b0 * D, D, rows, D, whc_s, LDK, NTB, a_s,
                  sums, acc);
@@ -483,8 +542,9 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ xw,
           const size_t bo = (size_t)b * D + u, bt = b * TD + (size_t)t * D;
           const float hp = s == 0 ? ldcg_bf(h0 + bo)
                                   : ldcg_bf(hs + b * TD + (size_t)tp * D + u);
-          const float c = gru::candidate(b2f(xw[bt * 3 + 2 * D + u]),
-                                         acc[j][e]);
+          const float c = gru::candidate(
+              kFi ? ax[j][e] + b_c[j][e & 1] : b2f(in[bt * 3 + 2 * D + u]),
+              acc[j][e]);
           const float ug = __ldcg(u_buf + bo);
           const float m = mask[(size_t)b * T + t];
           const float hn = m * (ug * hp + (1.f - ug) * c) + (1.f - m) * hp;
@@ -690,9 +750,41 @@ gru_bwd_bf16_kernel(const XT* __restrict__ xw,
   }
 }
 
-// bytes of shared memory of the forward and of the backward
-inline size_t fwd_weights(int D, int U) {
-  return 2 * (size_t)(slice_elems(2 * U, D) + slice_elems(U, D));
+// bytes of shared memory of the forward (the fused-input form: W_x's
+// slices too) and of the backward
+inline size_t fwd_weights(int D, int U, int E = 0) {
+  const size_t wx = E > 0 ? slice_elems(2 * U, E) + slice_elems(U, E) : 0;
+  return 2 * (wx + slice_elems(2 * U, D) + slice_elems(U, D));
+}
+
+template <bool kFi>
+int launch_fwd_bf16(const void* in, const float* mask, const void* wxp,
+               const void* wxcp, const float* bias, const void* whp,
+               const void* whcp, const void* h0, void* hs, void* urc,
+               float* hT, void* rh_buf, float* u_buf, int B, int T, int E,
+               int D, int U, int reverse, void* stream) {
+  const size_t w = fwd_weights(D, U, kFi ? E : 0);
+  const int stages = stages_for(w, tiles(2 * U));
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = w + region_bytes(stages, tiles(2 * U));
+  const bf16* x = static_cast<const bf16*>(in);
+  const bf16* wx = static_cast<const bf16*>(wxp);
+  const bf16* wxc = static_cast<const bf16*>(wxcp);
+  const bf16* wh = static_cast<const bf16*>(whp);
+  const bf16* whc = static_cast<const bf16*>(whcp);
+  const bf16* h = static_cast<const bf16*>(h0);
+  bf16* o = static_cast<bf16*>(hs);
+  bf16* g = static_cast<bf16*>(urc);
+  bf16* rb = static_cast<bf16*>(rh_buf);
+  void* args[] = {&x, &mask, &wx, &wxc, &bias, &wh, &whc, &h, &o, &g, &hT,
+                  &rb, &u_buf, &B, &T, &E, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? gru::cooperative(gru_fwd_bf16_kernel<kFi, 3>, grid, kThreads, smem,
+                         args, st)
+      : gru::cooperative(gru_fwd_bf16_kernel<kFi, 2>, grid, kThreads, smem,
+                         args, st);
 }
 inline size_t bwd_weights(int D, int U, bool remat) {
   const size_t cols = remat ? fwd_weights(D, U) : 0;
@@ -723,28 +815,30 @@ extern "C" int gru_fwd_bf16(const void* xw, const float* mask,
                             float* u_buf, int B, int T, int D, int U,
                             int reverse, void* stream) {
   namespace gb = gru_bf16;
-  using gb::bf16;
   if (!gb::valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
-  const size_t w = gb::fwd_weights(D, U);
-  const int stages = gb::stages_for(w, gb::tiles(2 * U));
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  const int grid = (D + U - 1) / U;
-  const size_t smem = w + gb::region_bytes(stages, gb::tiles(2 * U));
-  const bf16* x = static_cast<const bf16*>(xw);
-  const bf16* wh = static_cast<const bf16*>(whp);
-  const bf16* whc = static_cast<const bf16*>(whcp);
-  const bf16* h = static_cast<const bf16*>(h0);
-  bf16* o = static_cast<bf16*>(hs);
-  bf16* g = static_cast<bf16*>(urc);
-  bf16* rb = static_cast<bf16*>(rh_buf);
-  void* args[] = {&x, &mask, &wh, &whc, &h, &o, &g, &hT, &rb, &u_buf,
-                  &B, &T, &D, &U, &reverse};
-  cudaStream_t st = (cudaStream_t)stream;
-  return stages == 3
-      ? gru::cooperative(gb::gru_fwd_bf16_kernel<3>, grid, gb::kThreads, smem,
-                         args, st)
-      : gru::cooperative(gb::gru_fwd_bf16_kernel<2>, grid, gb::kThreads, smem,
-                         args, st);
+  return gb::launch_fwd_bf16<false>(xw, mask, nullptr, nullptr, nullptr, whp,
+                                    whcp, h0, hs, urc, hT, rh_buf, u_buf, B,
+                                    T, 0, D, U, reverse, stream);
+}
+
+// The bf16 fused-input forward: x [B, T, E] bf16 (E % 8 == 0, 16-byte
+// aligned); wxp [blocks][8 ceil(2U / 8)][ld(E)] and wxcp [blocks][8 ceil(U
+// / 8)][ld(E)] the pairs slices of W_x's update and reset columns and the
+// units slices of its candidate column, bf16; bias [3D] f32; the rest as
+// gru_fwd_bf16.
+extern "C" int gru_fi_fwd_bf16(const void* x, const float* mask,
+                               const void* wxp, const void* wxcp,
+                               const float* bias, const void* whp,
+                               const void* whcp, const void* h0, void* hs,
+                               void* urc, float* hT, void* rh_buf,
+                               float* u_buf, int B, int T, int E, int D,
+                               int U, int reverse, void* stream) {
+  namespace gb = gru_bf16;
+  if (!gb::valid_bf16(B, T, D, U) || E <= 0 || E % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  return gb::launch_fwd_bf16<true>(x, mask, wxp, wxcp, bias, whp, whcp, h0,
+                                   hs, urc, hT, rh_buf, u_buf, B, T, E, D, U,
+                                   reverse, stream);
 }
 
 // The bf16 backward: remat != 0 recomputes the gates from xw (bf16, or

@@ -7,7 +7,8 @@
 // _bwd_kernel and _bwd_remat_kernel: grid (batch blocks, T) run in order on
 // one core, W_h resident in VMEM, the h/c carries in VMEM scratch) and
 // lstm.py::lstm_seq_fi (_fwd_fi_kernel: the same grid with W_x resident
-// too, so the [T, B, 4D] gate-input slab never reaches HBM).
+// too, so the [T, B, 4D] gate-input slab never reaches HBM); f32 and bf16
+// forms of each.
 //
 // Layout (batch-major, as the JAX entry takes it): xw [B, T, 4D] with gate
 // order [i, f, g, o]; mask [B, T] f32 (1 while t < length; rows freeze
@@ -731,6 +732,20 @@ extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
 // reads all of h_{t-1} (160 KB) through L2 each step, and the backward
 // writes and reads its f32 partials (42 MB a step at 128 blocks) before
 // the next step can start.
+//
+// The fused-input form, lstm_fi_fwd_bf16 (lstm.py::lstm_seq_fi's
+// _fwd_fi_kernel with bf16 operands): the forward above, one template
+// flag, with the block's slice of W_x packed as W_h's ([KP][LDK(E)], at
+// E 128, U 4: 4,352 bytes) in shared memory before W_h's.  Each step first
+// stages the x_t rows of the chunk through the same ring and takes x_t W_x
+// with the same product and gate gather, adds the f32 bias and keeps the
+// sum in f32, never rounded (lstm.py:633-635); then h_{t-1} W_h is added
+// as the forward over xw adds it: two f32 sums, (x_t W_x + b) + h W_h, in
+// the JAX kernel's order.  The backward is lstm_bwd_bf16 with remat over
+// the f32 projection xw = x W_x + b of one torch.matmul (the wrapper's
+// autograd Function), as the JAX package's backward runs it.  At B 64, T
+// 100, E 128, D 512 a step's products are 168 MFLOP, the [B, T, 4D] xw
+// slab (26 MB in f32) is neither written nor read by the forward.
 
 namespace {
 
@@ -749,13 +764,14 @@ __host__ __device__ inline int rows_kp(int U) {
   return 16 * ((4 * U + 15) / 16);
 }
 
-// bytes: the W slice; the ring of h slices or the halves' f32 sums; the
-// backward's rounded dgates tile [kRows][KP + 8] and dpeep terms
-// [3][kRows][U]
+// bytes: the W slice (the fused-input forward: W_x's [KP][LDK(E)], then
+// W_h's); the ring of A slices or the halves' f32 sums; the backward's
+// rounded dgates tile [kRows][KP + 8] and dpeep terms [3][kRows][U]
 struct PlanBf16 {
-  size_t w, region, total;
-  __host__ __device__ PlanBf16(int D, int U, int stages) {
-    w = (size_t)rows_kp(U) * ld_k(D) * 2;
+  size_t wx, w, region, total;
+  __host__ __device__ PlanBf16(int D, int U, int stages, int E = 0) {
+    wx = E > 0 ? (size_t)rows_kp(U) * ld_k(E) * 2 : 0;
+    w = wx + (size_t)rows_kp(U) * ld_k(D) * 2;
     const size_t ring = (size_t)stages * kStageB * 2;
     const size_t sums = (size_t)kRows * 4 * U * 4;
     region = ring > sums ? ring : sums;
@@ -881,26 +897,36 @@ __device__ __forceinline__ void gather_gates(float* sums, int NT,
   }
 }
 
-template <int S>
+// kFi: `in` is raw x [B, T, E] bf16 and the block keeps W_x's slice
+// (wxpack, [KP][LDK(E)], packed as W_h's) before W_h's; each step's gate
+// input is x_t W_x with f32 sums plus the f32 bias, kept in f32 and never
+// rounded (lstm.py:633-635), and then h_{t-1} W_h is added as the forward
+// over xw adds it.  Otherwise `in` is xw [B, T, 4D] bf16 (E, wxpack and
+// bias unused).
+template <bool kFi, int S>
 __global__ void __launch_bounds__(kThreadsB, 1)
-lstm_fwd_bf16_kernel(const bf16* __restrict__ xw,
+lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
                      const float* __restrict__ mask,
+                     const bf16* __restrict__ wxpack,
+                     const float* __restrict__ bias,
                      const bf16* __restrict__ wpack,
                      const bf16* __restrict__ peep, const bf16* h0,
                      const float* c0, bf16* hs, float* cs, bf16* gates,
-                     float* hT, float* cT, int B, int T, int D, int U,
+                     float* hT, float* cT, int B, int T, int E, int D, int U,
                      int reverse) {
   extern __shared__ float4 smem4[];
-  const PlanBf16 plan(D, U, S);
+  const PlanBf16 plan(D, U, S, kFi ? E : 0);
   char* base = reinterpret_cast<char*>(smem4);
-  bf16* w_s = reinterpret_cast<bf16*>(base);
+  bf16* wx_s = reinterpret_cast<bf16*>(base);             // kFi
+  bf16* w_s = reinterpret_cast<bf16*>(base + plan.wx);
   bf16* a_s = reinterpret_cast<bf16*>(base + plan.w);
   float* sums = reinterpret_cast<float*>(base + plan.w);
-  const int LDK = ld_k(D), NT = U / 2;
+  const int LDK = ld_k(D), LDE = kFi ? ld_k(E) : 0, NT = U / 2;
   const int lane = threadIdx.x & 31;
   const bool first_half = (threadIdx.x >> 5) < 4;
   const int rl = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (lane & 1);
   const int u0 = blockIdx.x * U + ((lane >> 1) & 1);  // + 2j in tile j
+  if (kFi) load_slice_bf16(wx_s, wxpack, (size_t)rows_kp(U) * LDE);
   load_slice_bf16(w_s, wpack, (size_t)rows_kp(U) * LDK);
   float pp[kMaxNT][3];
 #pragma unroll
@@ -911,7 +937,7 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ xw,
     for (int k = 0; k < 3; ++k) pp[j][k] = live ? b2f(peep[k * D + u]) : 0.f;
   }
   cg::grid_group grid = cg::this_grid();
-  const size_t TD = (size_t)T * D, T4D = TD * 4;
+  const size_t TD = (size_t)T * D, T4D = TD * 4, TE = (size_t)T * E;
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
@@ -923,13 +949,25 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ xw,
       // the cell's other operands, fetched while the product runs
       float x[kMaxNT][4], hp[kMaxNT], cp[kMaxNT];
       const float m = rok ? mask[(size_t)b * T + t] : 0.f;
+      if (kFi) {
+        // x_t W_x over the own columns, then + b: the f32 gate input
+        product_bf16<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, LDE,
+                        NT, a_s, x);
+        gather_gates(sums, NT, x);
+        __syncthreads();   // the sums are read: the ring may be refilled
+      }
 #pragma unroll
       for (int j = 0; j < kMaxNT; ++j) {
         const int u = u0 + 2 * j;
         if (!rok || j >= NT || u >= D) continue;
-        const bf16* xr = xw + b * T4D + (size_t)t * 4 * D;
+        if (kFi) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x[j][g] = b2f(xr[g * D + u]);
+          for (int g = 0; g < 4; ++g) x[j][g] += __ldg(bias + g * D + u);
+        } else {
+          const bf16* xr = in + b * T4D + (size_t)t * 4 * D;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) x[j][g] = b2f(xr[g * D + u]);
+        }
         const size_t bu = (size_t)b * D + u;
         hp[j] = s == 0 ? ldcg_bf(h0 + bu)
                        : ldcg_bf(hs + b * TD + (size_t)tp * D + u);
@@ -1200,14 +1238,41 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
   }
 }
 
-int stages_bf16(int D, int U) {
+int stages_bf16(int D, int U, int E = 0) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   for (int s = 3; s >= 2; --s)
-    if (PlanBf16(D, U, s).total <= (size_t)optin) return s;
+    if (PlanBf16(D, U, s, E).total <= (size_t)optin) return s;
   return 0;
+}
+
+template <bool kFi>
+int launch_fwd_bf16(const void* in, const float* mask, const void* wxpack,
+                    const float* bias, const void* wpack, const void* peep,
+                    const void* h0, const float* c0, void* hs, float* cs,
+                    void* gates, float* hT, float* cT, int B, int T, int E,
+                    int D, int U, int reverse, void* stream) {
+  const int stages = stages_bf16(D, U, kFi ? E : 0);
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const int grid = (D + U - 1) / U;
+  const size_t smem = PlanBf16(D, U, stages, kFi ? E : 0).total;
+  const bf16* x = static_cast<const bf16*>(in);
+  const bf16* wx = static_cast<const bf16*>(wxpack);
+  const bf16* w = static_cast<const bf16*>(wpack);
+  const bf16* p = static_cast<const bf16*>(peep);
+  const bf16* h = static_cast<const bf16*>(h0);
+  bf16* o = static_cast<bf16*>(hs);
+  bf16* g = static_cast<bf16*>(gates);
+  void* args[] = {&x, &mask, &wx, &bias, &w, &p, &h, &c0, &o, &cs, &g, &hT,
+                  &cT, &B, &T, &E, &D, &U, &reverse};
+  cudaStream_t st = (cudaStream_t)stream;
+  return stages == 3
+      ? cooperative(lstm_fwd_bf16_kernel<kFi, 3>, grid, kThreadsB, smem, args,
+                    st)
+      : cooperative(lstm_fwd_bf16_kernel<kFi, 2>, grid, kThreadsB, smem, args,
+                    st);
 }
 
 bool valid_bf16(int B, int T, int D, int U) {
@@ -1237,22 +1302,26 @@ extern "C" int lstm_fwd_bf16(const void* xw, const float* mask,
                              int B, int T, int D, int U, int reverse,
                              void* stream) {
   if (!valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
-  const int stages = stages_bf16(D, U);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  const int grid = (D + U - 1) / U;
-  const size_t smem = PlanBf16(D, U, stages).total;
-  const bf16* x = static_cast<const bf16*>(xw);
-  const bf16* w = static_cast<const bf16*>(wpack);
-  const bf16* p = static_cast<const bf16*>(peep);
-  const bf16* h = static_cast<const bf16*>(h0);
-  bf16* o = static_cast<bf16*>(hs);
-  bf16* g = static_cast<bf16*>(gates);
-  void* args[] = {&x, &mask, &w, &p, &h, &c0, &o, &cs, &g, &hT, &cT,
-                  &B, &T, &D, &U, &reverse};
-  cudaStream_t st = (cudaStream_t)stream;
-  return stages == 3
-      ? cooperative(lstm_fwd_bf16_kernel<3>, grid, kThreadsB, smem, args, st)
-      : cooperative(lstm_fwd_bf16_kernel<2>, grid, kThreadsB, smem, args, st);
+  return launch_fwd_bf16<false>(xw, mask, nullptr, nullptr, wpack, peep, h0,
+                                c0, hs, cs, gates, hT, cT, B, T, 0, D, U,
+                                reverse, stream);
+}
+
+// The bf16 fused-input forward: x [B, T, E] bf16 (E % 8 == 0, 16-byte
+// aligned), wxpack [blocks][KP][LDK(E)] W_x's slices packed as W_h's,
+// bias [4D] f32; the rest as lstm_fwd_bf16.
+extern "C" int lstm_fi_fwd_bf16(const void* x, const float* mask,
+                                const void* wxpack, const float* bias,
+                                const void* wpack, const void* peep,
+                                const void* h0, const float* c0, void* hs,
+                                float* cs, void* gates, float* hT, float* cT,
+                                int B, int T, int E, int D, int U,
+                                int reverse, void* stream) {
+  if (!valid_bf16(B, T, D, U) || E <= 0 || E % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_bf16<true>(x, mask, wxpack, bias, wpack, peep, h0, c0,
+                               hs, cs, gates, hT, cT, B, T, E, D, U, reverse,
+                               stream);
 }
 
 // The bf16 backward: remat != 0 recomputes the gates from xw (bf16, or

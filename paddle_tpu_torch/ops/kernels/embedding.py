@@ -10,7 +10,9 @@
 - :func:`embedding_scatter_add` — ``csrc/embedding.cu``: ``table`` plus
   the rows scattered to their ids, duplicates summed in a fixed order
   (a stable sort by id, then one warp per run), ids outside ``[0, V)``
-  dropped;
+  dropped; the sum in f32 from the table read as f32, rounded to the
+  table's dtype once (an f32 and a bf16 form, counted apart; the bf16
+  one takes f32 or bf16 rows);
 - :func:`fused_embedding_lookup` — the autograd composition: the forward
   dedups, gathers each unique row once and re-expands; the backward
   scatter-adds the cotangents, upcast to f32, into a zero f32 table (the
@@ -45,6 +47,8 @@ GATHER_FORMS = {torch.float32: KERNEL_GATHER,
                 torch.bfloat16: KERNEL_GATHER_BF16}
 KERNEL_SCATTER = Kernel("embedding", "embedding_scatter_add_f32",
                         [_P, _P, _P, _P, _I, _I, _I, _P])
+KERNEL_SCATTER_BF16 = Kernel("embedding", "embedding_scatter_add_bf16",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _P])
 KERNEL_ROWS = Kernel("update", "sparse_row_update_f32",
                      [_P, _I, ctypes.c_longlong, _P])
 
@@ -60,7 +64,8 @@ def dedup_ids(ids):
 def _check(table, ids, rows=None):
     """What the kernels take: a [V, D] table and flat int64 ids; the
     gather (no ``rows``) an f32 or a bf16 table (bf16: D % 8 == 0 and
-    16-byte aligned, for its 16-byte copies), the scatter-add f32 only."""
+    16-byte aligned, for its 16-byte copies); the scatter-add an f32
+    table with f32 rows, or a bf16 table with f32 or bf16 rows."""
     enforce(table.dim() == 2, f"table must be [V, D], got {tuple(table.shape)}")
     enforce(ids.dim() == 1, f"ids must be flat [N], got {tuple(ids.shape)}")
     if rows is not None:
@@ -74,10 +79,15 @@ def _check(table, ids, rows=None):
         enforce(table.shape[1] % 8 == 0 and table.data_ptr() % 16 == 0,
                 "the bf16 gather copies 16 bytes at a time: D must be a "
                 "multiple of 8 and the table 16-byte aligned")
+    elif rows is not None and table.dtype == torch.bfloat16:
+        enforce(rows.dtype in (torch.float32, torch.bfloat16),
+                f"the bf16 scatter-add takes float32 or bfloat16 rows, got "
+                f"{rows.dtype}")
     else:
         enforce(all(t.dtype == torch.float32 for t in tensors),
                 "the embedding kernels take float32 tables and rows (the "
-                "gather also bfloat16)")
+                "gather a bfloat16 table too, the scatter-add a bfloat16 "
+                "table with float32 or bfloat16 rows)")
     enforce(ids.dtype == torch.int64, "the embedding kernels take int64 ids")
     enforce(all(t.is_contiguous() for t in tensors + [ids]),
             "the embedding kernels need contiguous operands")
@@ -114,10 +124,15 @@ def embedding_gather(table, ids):
 
 def embedding_scatter_add_reference(table, ids, rows):
     """Plain twin: ``table`` with each row of ``rows`` added at its id;
-    duplicates sum, ids outside ``[0, V)`` contribute nothing."""
+    duplicates sum, ids outside ``[0, V)`` contribute nothing.  As the JAX
+    kernel (``tpp/embedding.py:176-189``): an f32 accumulator (float64
+    stays) started from the table, the rows added in f32, the result
+    rounded to the table's dtype once."""
     ids = ids.long()
     keep = (ids >= 0) & (ids < table.shape[0])
-    return table.index_add(0, ids[keep], rows[keep].to(table.dtype))
+    acc = at_least_f32(table)
+    return acc.index_add(0, ids[keep], rows[keep].to(acc.dtype)).to(
+        table.dtype)
 
 
 def _scatter_add_into(out, ids, rows):
@@ -127,9 +142,16 @@ def _scatter_add_into(out, ids, rows):
     if n == 0:
         return out
     sorted_ids, perm = torch.sort(ids, stable=True)
-    KERNEL_SCATTER.launch(out.data_ptr(), sorted_ids.data_ptr(),
-                          perm.data_ptr(), rows.data_ptr(), n, v, d,
-                          torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if out.dtype == torch.bfloat16:
+        KERNEL_SCATTER_BF16.launch(out.data_ptr(), sorted_ids.data_ptr(),
+                                   perm.data_ptr(), rows.data_ptr(),
+                                   int(rows.dtype == torch.bfloat16), n, v,
+                                   d, stream)
+    else:
+        KERNEL_SCATTER.launch(out.data_ptr(), sorted_ids.data_ptr(),
+                              perm.data_ptr(), rows.data_ptr(), n, v, d,
+                              stream)
     return out
 
 
@@ -149,7 +171,10 @@ def table_grad(ids, rows, num_rows: int):
 def embedding_scatter_add(table, ids, rows):
     """``table + scatter_add(ids -> rows)``: duplicate ids sum exactly and
     in a fixed order (reruns are bit-identical), ids outside ``[0, V)``
-    (e.g. the ``-1`` pad convention) contribute nothing."""
+    (e.g. the ``-1`` pad convention) contribute nothing.  The sum is f32
+    (the table read as f32, the rows added as f32) rounded to the table's
+    dtype once; on the card an f32 table with f32 rows takes the f32
+    form, a bf16 table with f32 or bf16 rows the bf16 form."""
     _check(table, ids, rows)
     if table.device.type == "cpu":
         return embedding_scatter_add_reference(table, ids, rows)

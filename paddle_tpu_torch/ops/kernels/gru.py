@@ -30,8 +30,10 @@ gate-input slab never in device memory; the u/r/c slab written when remat
 is off), and its backward recomputes xw with one ``torch.matmul``
 (remat on) and launches the backward kernel above; ``dW_x``, ``db`` and
 ``dx`` are products outside.  Its CPU twin (:func:`_fi_fwd_plain`)
-projects step by step, as the kernel does.  :func:`fi_fits` says, from
-the device and the shapes alone, whether the kernels take a shape.
+projects step by step, as the kernel does, in the cell's dtype: with
+bf16 operands an f32 product plus an f32 bias, never rounded (JAX
+``gru.py:418-420``).  :func:`fi_fits` says, from the device, the dtype
+and the shapes alone, whether the kernels take a shape.
 
 :func:`bigru_seq` is a ``torch.autograd.Function`` too.  On the card its
 forward is one launch of ``csrc/bigru_seq.cu``, which runs both
@@ -43,13 +45,13 @@ branch runs: two launches.  ``dW_x``, ``db``, ``dW_h``, ``dW_hc`` and
 ``dx`` are products and sums outside, as in the JAX backward.
 
 bf16 weights take the bf16 forms (``gru_fwd_bf16``, ``gru_bwd_bf16``
-with remat or stored gates and xw in bf16 or f32, ``bigru_fwd_bf16``:
+with remat or stored gates and xw in bf16 or f32, ``gru_fi_fwd_bf16``:
+the forward with W_x's slices beside W_h's and W_hc's, ``bigru_fwd_bf16``:
 tensor-core products from each block's bf16 weight slices, the cell in
 f32), counted apart from the f32 forms; the twins round where the JAX
 kernels round with bf16 operands (r h before the candidate product, the
 h carry every step, dc and [du, dr] before their transposed products),
 so a bf16 CUDA tensor launches a bf16 form or raises, never an f32 one.
-The fused-input forward has no bf16 form (ROADMAP B.1 item 9).
 
 :func:`gru_seq_reference` is the plain scan (autograd gives its
 backward): the oracle of the whole Function; :func:`bigru_seq_reference`
@@ -85,6 +87,8 @@ KERNEL_BWD_STORED_BF16 = Kernel("gru_seq", "gru_bwd_bf16",
                                 [_P] * 19 + [_I] * 7 + [_P])
 KERNEL_BI_BF16 = Kernel("bigru_seq", "bigru_fwd_bf16",
                         [_P] * 20 + [_I] * 5 + [_P])
+KERNEL_FI_BF16 = Kernel("gru_seq", "gru_fi_fwd_bf16",
+                        [_P] * 13 + [_I] * 6 + [_P])
 
 #: the kernels' tiling: a block owns U <= 8 hidden units with 64U threads
 _MAX_UNITS = 8
@@ -133,10 +137,13 @@ def _fwd_plain(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
 
 def _fi_fwd_plain(x, mask, w_x, b, w_h, w_hc, h0, reverse, emit_gates):
     """Plain twin of the fused-input forward kernel: each step's gate input
-    x_t @ W_x + b inside the loop, as the kernel computes it; the contract
-    of :func:`_fwd_plain`."""
-    return _run(lambda k: torch.matmul(x[:, k], w_x) + b, x.shape[1],
-                x.dtype, mask, w_h, w_hc, h0, reverse, emit_gates)
+    x_t @ W_x + b inside the loop, as the kernel computes it, with
+    :func:`_project_xw`'s numerics (in the cell's dtype and never rounded:
+    f32 for bf16 operands, JAX ``gru.py:418-420``); the contract of
+    :func:`_fwd_plain`."""
+    return _run(lambda k: _project_xw(x[:, k, None], w_x, b)[:, 0],
+                x.shape[1], x.dtype, mask, w_h, w_hc, h0, reverse,
+                emit_gates)
 
 
 def _run(step_input, t, io, mask, w_h, w_hc, h0, reverse, emit_gates):
@@ -244,11 +251,14 @@ _fi_refusal = functools.partial(tiling_refusal, "gru_seq_fi", _MAX_UNITS,
                                 _fi_smem_floats)
 
 
-def fi_fits(device, e: int, d: int) -> bool:
-    """Whether :func:`gru_seq_fi`'s kernels take input width E and hidden
-    width D on the card ``device``: decided from the card's SM count and
-    shared-memory opt-in before any launch."""
-    return _fi_refusal(e, d, *_card(device)) is None
+def fi_fits(device, e: int, d: int, dtype=torch.float32) -> bool:
+    """Whether :func:`gru_seq_fi`'s kernels of ``dtype`` (f32 or bf16)
+    take input width E and hidden width D on the card ``device``: decided
+    from the card's SM count and shared-memory opt-in before any
+    launch."""
+    refusal = {torch.float32: _fi_refusal,
+               torch.bfloat16: fi_bf16_refusal}.get(dtype)
+    return refusal is not None and refusal(e, d, *_card(device)) is None
 
 
 def _pack_columns(w, d: int, u: int, n: int):
@@ -358,6 +368,26 @@ def bi_bf16_refusal(e: int, d: int, sms: int, optin: int) -> str | None:
     return bf16_refusal(d, sms, optin)
 
 
+def fi_bf16_refusal(e: int, d: int, sms: int, optin: int) -> str | None:
+    """Why ``gru_fi_fwd_bf16`` (a block a U = ceil(D / SMs) units, W_x's
+    slices beside W_h's and W_hc's: the BiGRU's block on every SM), or the
+    bf16 backward it is paired with, cannot take input width E and hidden
+    width D; None when both can."""
+    if e % 8 or d % 8:
+        return (f"gru_seq_fi bf16: E={e} and D={d} must be multiples of 8 "
+                "(16-byte copies of bf16)")
+    u = _bf16_units(d, sms)
+    if u > _BF_MAX_UNITS:
+        return (f"gru_seq_fi bf16: D={d} needs {u} units a block on {sms} "
+                f"SMs, more than the {_BF_MAX_UNITS} the tiling covers")
+    need = bi_bf16_smem_bytes(e, d, u, 2)
+    if need > optin:
+        return (f"gru_seq_fi bf16: E={e}, D={d} needs {need} bytes of "
+                f"shared memory a block, more than the {optin} the card "
+                "allows")
+    return bf16_refusal(d, sms, optin)
+
+
 def _pack_bf16(w, d: int, u: int, n: int):
     """[K, n*D] -> [blocks, 8 ceil(nU / 8), LDK] bf16: block j's row n uu + g
     holds w[:, g*D + j*U + uu] (zero past D, past nU and past K).  Two
@@ -452,8 +482,11 @@ def _fwd_kernel_bf16(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
 
 
 def _fi_fwd_kernel(x, mask, w_x, b, w_h, w_hc, h0, reverse, emit_gates):
-    """The fused-input forward kernel (the contract of
+    """The fused-input forward kernel of W_h's dtype (the contract of
     :func:`_fi_fwd_plain`)."""
+    if w_h.dtype == torch.bfloat16:
+        return _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, w_hc, h0, reverse,
+                                   emit_gates)
     _check_kernel_args(x, mask, w_x, b, w_h, w_hc, h0)
     bsz, t, e = x.shape
     d = w_hc.shape[0]
@@ -472,6 +505,44 @@ def _fi_fwd_kernel(x, mask, w_x, b, w_h, w_hc, h0, reverse, emit_gates):
                      h0.data_ptr(), hs.data_ptr(), _ptr(urc),
                      h_t.data_ptr(), scratch.data_ptr(), bsz, t, e, d, u,
                      int(reverse), _stream())
+    return hs, urc, h_t
+
+
+def _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, w_hc, h0, reverse,
+                        emit_gates):
+    """``gru_fi_fwd_bf16``: x, W_x, W_h, W_hc and h0 (the carry) bf16, the
+    bias and the mask f32 (a bf16 bias is read as f32, as JAX's kernel
+    reads it); hs and the u/r/c slab bf16, h_T f32, as the JAX kernel
+    writes them."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h0, b = h0.to(bf).contiguous(), b.to(f32).contiguous()
+    _check_typed("gru_fi_fwd_bf16", x=(x, bf), mask=(mask, f32),
+                 w_x=(w_x, bf), b=(b, f32), w_h=(w_h, bf), w_hc=(w_hc, bf),
+                 h0=(h0, bf))
+    _check_aligned("gru_fi_fwd_bf16", x=x, h0=h0)
+    bsz, t, e = x.shape
+    d = w_hc.shape[0]
+    sms, optin = _card(x.device)
+    refusal = fi_bf16_refusal(e, d, sms, optin)
+    enforce(refusal is None, refusal or "")
+    u = _bf16_units(d, sms)
+    dev = x.device
+    hs = torch.empty(bsz, t, d, dtype=bf, device=dev)
+    urc = (torch.empty(bsz, t, 3 * d, dtype=bf, device=dev) if emit_gates
+           else None)
+    h_t = torch.empty(bsz, d, dtype=f32, device=dev)
+    rh = torch.empty(bsz, d, dtype=bf, device=dev)     # r * h_{t-1}
+    ug = torch.empty(bsz, d, dtype=f32, device=dev)    # u, from (A) to (B)
+    # packed temporaries stay referenced until the launch is queued
+    packs = (_pack_bf16(w_x[:, :2 * d], d, u, 2),
+             _pack_bf16(w_x[:, 2 * d:], d, u, 1), _pack_bf16(w_h, d, u, 2),
+             _pack_bf16(w_hc, d, u, 1))
+    KERNEL_FI_BF16.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+                          packs[1].data_ptr(), b.data_ptr(),
+                          packs[2].data_ptr(), packs[3].data_ptr(),
+                          h0.data_ptr(), hs.data_ptr(), _ptr(urc),
+                          h_t.data_ptr(), rh.data_ptr(), ug.data_ptr(), bsz,
+                          t, e, d, u, int(reverse), _stream())
     return hs, urc, h_t
 
 
@@ -781,8 +852,11 @@ def bigru_seq(x, mask, w_x_f, b_f, w_h_f, w_hc_f, w_x_b, b_b, w_h_b, w_hc_b,
 class _GruSeqFi(torch.autograd.Function):
     """JAX: ``gru_seq_fi``'s ``custom_vjp``.  Residuals: x, mask, the
     weights, h0, hs and the u/r/c slab (remat off); with remat on the
-    backward recomputes xw with one product (JAX's ``_project_xw``) and
-    the gates from it."""
+    backward recomputes xw with one product (JAX's ``_project_xw``: f32
+    for bf16 operands) and the gates from it.  The gradients come back in
+    their inputs' dtypes (JAX ``gru.py:525-539``): dW_x a product of bf16
+    operands with f32 sums, db the f32 sum of dxw, dx the f32 product of
+    dxw rounded to W_x's dtype, rounded once."""
 
     @staticmethod
     def forward(ctx, x, mask, w_x, b, w_h, w_hc, h0, reverse, remat):
@@ -806,9 +880,12 @@ class _GruSeqFi(torch.autograd.Function):
                                        w_h.dtype)
         bsz, t, e = x.shape
         dg = dxw.reshape(-1, 3 * w_hc.shape[0])
-        return (torch.matmul(dg, w_x.t()).reshape(bsz, t, e), None,
-                torch.matmul(x.reshape(bsz * t, e).t(), dg), dg.sum(0), dw_h,
-                dw_hc, dh0, None, None)
+        dg_w = dg.to(w_x.dtype)
+        dx = torch.matmul(dg_w.to(dg.dtype), w_x.to(dg.dtype).t())
+        return (dx.reshape(bsz, t, e).to(x.dtype), None,
+                torch.matmul(x.reshape(bsz * t, e).to(w_x.dtype).t(), dg_w),
+                dg.sum(0).to(b.dtype), dw_h, dw_hc, dh0.to(h0.dtype), None,
+                None)
 
 
 def gru_seq_fi(x, mask, w_x, b, w_h, w_hc, h0, reverse=False, remat=False):
@@ -817,7 +894,10 @@ def gru_seq_fi(x, mask, w_x, b, w_h, w_hc, h0, reverse=False, remat=False):
 
     x [B, T, E]; w_x [E, 3D]; b [3D] (zeros for no bias); w_h [D, 2D];
     w_hc [D, D]; h0 [B, D]; remat: keep no u/r/c slab, recompute xw and
-    the gates in the backward.  Returns (hs [B, T, D], h_T)."""
+    the gates in the backward.  Returns (hs [B, T, D], h_T): hs in x's
+    dtype; with bf16 operands the projection stays f32 (the bias read as
+    f32), the cell runs in f32 and h_T is f32, as the JAX kernel gives
+    it."""
     d = w_hc.shape[0]
     enforce(x.dim() == 3 and x.shape[1] >= 1
             and tuple(w_x.shape) == (x.shape[2], 3 * d)
@@ -828,7 +908,7 @@ def gru_seq_fi(x, mask, w_x, b, w_h, w_hc, h0, reverse=False, remat=False):
             f"{tuple(w_x.shape)}, b {tuple(b.shape)}, w_h {tuple(w_h.shape)}"
             f", w_hc {tuple(w_hc.shape)}")
     return _GruSeqFi.apply(
-        x.contiguous(), mask.to(x.dtype).contiguous(),
+        x.contiguous(), mask.to(_acc(w_h.dtype)).contiguous(),
         *(w.contiguous() for w in (w_x, b, w_h, w_hc, h0)), bool(reverse),
         bool(remat))
 

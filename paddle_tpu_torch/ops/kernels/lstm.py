@@ -21,8 +21,14 @@ gate-input slab never reaches device memory (the gates slab is written
 when remat is off).  Its backward recomputes xw with one ``torch.matmul``
 (remat on) and launches the backward kernel above; ``dW_x``, ``db`` and
 ``dx`` are products outside.  Its CPU twin (:func:`_fi_fwd_plain`)
-projects step by step, as the kernel does.  :func:`fi_fits` says, from
-the device and the shapes alone, whether the kernels take a shape.
+projects step by step, as the kernel does, in the cell's dtype: with
+bf16 operands the projection ``b + x_t @ W_x`` is an f32 product plus
+an f32 bias, never rounded (JAX ``lstm.py:633-635``).  bf16 operands take
+the bf16 form ``lstm_fi_fwd_bf16`` (W_x's and W_h's slices in bf16, the
+tensor-core products of the bf16 forward) and the bf16 remat backward
+over the f32 projection, counted apart from the f32 forms.
+:func:`fi_fits` says, from the device, the dtype and the shapes alone,
+whether the kernels take a shape.
 
 :func:`bilstm_seq` is a ``torch.autograd.Function`` too.  On the card its
 forward is one launch of ``csrc/bilstm_seq.cu``, which runs both
@@ -61,6 +67,8 @@ KERNEL_BWD_BF16 = Kernel("lstm_seq", "lstm_bwd_bf16",
                          [_P] * 17 + [_I] * 7 + [_P])
 KERNEL_BI_BF16 = Kernel("bilstm_seq", "bilstm_fwd_bf16",
                         [_P] * 22 + [_I] * 4 + [_P])
+KERNEL_FI_BF16 = Kernel("lstm_seq", "lstm_fi_fwd_bf16",
+                        [_P] * 13 + [_I] * 6 + [_P])
 
 #: the kernels' tiling: a block owns U <= 16 hidden units with 32U threads
 _MAX_UNITS = 16
@@ -122,10 +130,13 @@ def _fwd_plain(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
 
 def _fi_fwd_plain(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
     """Plain twin of the fused-input forward kernel: each step's gate input
-    b + x_t @ W_x inside the loop, as the kernel computes it; the contract
-    of :func:`_fwd_plain`."""
-    return _run(lambda k: b + torch.matmul(x[:, k], w_x), x.shape[1],
-                x.dtype, mask, w_h, peep, h0, c0, reverse, emit_gates)
+    x_t @ W_x + b inside the loop, as the kernel computes it, with
+    :func:`_project_xw`'s numerics (in the cell's dtype and never rounded:
+    f32 for bf16 operands, JAX ``lstm.py:633-635``); the contract of
+    :func:`_fwd_plain`."""
+    return _run(lambda k: _project_xw(x[:, k, None], w_x, b)[:, 0],
+                x.shape[1], x.dtype, mask, w_h, peep, h0, c0, reverse,
+                emit_gates)
 
 
 def _run(step_input, t, io, mask, w_h, peep, h0, c0, reverse, emit_gates):
@@ -268,11 +279,14 @@ _fi_refusal = functools.partial(tiling_refusal, "lstm_seq_fi", _MAX_UNITS,
                                 _fi_smem_floats)
 
 
-def fi_fits(device, e: int, d: int) -> bool:
-    """Whether :func:`lstm_seq_fi`'s kernels take input width E and hidden
-    width D on the card ``device``: decided from the card's SM count and
-    shared-memory opt-in before any launch."""
-    return _fi_refusal(e, d, *_card(device)) is None
+def fi_fits(device, e: int, d: int, dtype=torch.float32) -> bool:
+    """Whether :func:`lstm_seq_fi`'s kernels of ``dtype`` (f32 or bf16)
+    take input width E and hidden width D on the card ``device``: decided
+    from the card's SM count and shared-memory opt-in before any
+    launch."""
+    refusal = {torch.float32: _fi_refusal,
+               torch.bfloat16: fi_bf16_refusal}.get(dtype)
+    return refusal is not None and refusal(e, d, *_card(device)) is None
 
 
 def _pack_columns(w, u: int):
@@ -338,14 +352,41 @@ def bf16_refusal(d: int, sms: int, optin: int) -> str | None:
 
 
 def _pack_rows_bf16(w, u: int):
-    """W_h [D, 4D] -> [blocks, KP, LDK]: block j's row 4 uu + g holds
-    w[:, g*D + j*U + uu] (zero past D, past 4U and past D's columns)."""
-    d = w.shape[0]
+    """W [K, 4D] (W_h: K = D; W_x: K = E) -> [blocks, KP, LDK(K)]: block
+    j's row 4 uu + g holds w[:, g*D + j*U + uu] (zero past D, past 4U and
+    past K's columns)."""
+    k, d = w.shape[0], w.shape[1] // 4
     nb = -(-d // u)
-    w = F.pad(w.reshape(d, 4, d), (0, nb * u - d))
-    w = w.reshape(d, 4, nb, u).permute(2, 3, 1, 0).reshape(nb, 4 * u, d)
-    return F.pad(w, (0, _bf16_ldk(d) - d, 0, _bf16_kp(u) - 4 * u)
+    w = F.pad(w.reshape(k, 4, d), (0, nb * u - d))
+    w = w.reshape(k, 4, nb, u).permute(2, 3, 1, 0).reshape(nb, 4 * u, k)
+    return F.pad(w, (0, _bf16_ldk(k) - k, 0, _bf16_kp(u) - 4 * u)
                  ).contiguous()
+
+
+def fi_bf16_smem_bytes(e: int, d: int, u: int) -> int:
+    """Shared memory of a block of ``lstm_fi_fwd_bf16`` (``PlanBf16`` with
+    E): W_x's slice [KP][LDK(E)] before W_h's, then the bf16 forms' plan
+    at two stages."""
+    return _bf16_kp(u) * _bf16_ldk(e) * 2 + _bf16_smem_bytes(d, u, 2)
+
+
+def fi_bf16_refusal(e: int, d: int, sms: int, optin: int) -> str | None:
+    """Why ``lstm_fi_fwd_bf16``, or the bf16 backward it is paired with,
+    cannot take input width E and hidden width D on a card of ``sms`` SMs
+    and ``optin`` bytes of shared memory a block; None when both can."""
+    if e % 8 or d % 8:
+        return (f"lstm_seq_fi bf16: E={e} and D={d} must each be a multiple "
+                "of 8 (16-byte copies of bf16)")
+    u = _bf16_units(d, sms)
+    if u > _MAX_UNITS:
+        return (f"lstm_seq_fi bf16: D={d} needs {u} units a block on {sms} "
+                f"SMs, more than the {_MAX_UNITS} the tiling covers")
+    need = fi_bf16_smem_bytes(e, d, u)
+    if need > optin:
+        return (f"lstm_seq_fi bf16: E={e}, D={d} needs {need} bytes of "
+                f"shared memory a block, more than the {optin} the card "
+                "allows")
+    return bf16_refusal(d, sms, optin)
 
 
 def _check_kernel_args(*tensors):
@@ -433,8 +474,11 @@ def _fwd_kernel_bf16(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
 
 
 def _fi_fwd_kernel(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
-    """The fused-input forward kernel (the contract of
+    """The fused-input forward kernel of W_h's dtype (the contract of
     :func:`_fi_fwd_plain`)."""
+    if w_h.dtype == torch.bfloat16:
+        return _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, peep, h0, c0,
+                                   reverse, emit_gates)
     _check_kernel_args(x, mask, w_x, b, w_h, peep, h0, c0)
     bsz, t, e = x.shape
     d = w_h.shape[0]
@@ -454,6 +498,44 @@ def _fi_fwd_kernel(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
                      cs.data_ptr(), _ptr(gates), h_t.data_ptr(),
                      c_t.data_ptr(), bsz, t, e, d, u, int(reverse),
                      torch.cuda.current_stream().cuda_stream)
+    return hs, cs, gates, h_t, c_t
+
+
+def _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, peep, h0, c0, reverse,
+                        emit_gates):
+    """``lstm_fi_fwd_bf16``: x, W_x, W_h, the peepholes and h0 (the carry)
+    in bf16, the bias, the mask and c0 in f32 (a bf16 bias is read as
+    f32, as JAX's kernel reads it); hs and the gates slab bf16, cs, h_T
+    and c_T f32, as the JAX kernel writes them (``_fwd_fi_call``
+    :659-715)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    h0, c0 = h0.to(bf).contiguous(), c0.to(f32).contiguous()
+    b = b.to(f32).contiguous()
+    _check_typed("lstm_fi_fwd_bf16", x=(x, bf), mask=(mask, f32),
+                 w_x=(w_x, bf), b=(b, f32), w_h=(w_h, bf), peep=(peep, bf),
+                 h0=(h0, bf), c0=(c0, f32))
+    enforce(x.data_ptr() % 16 == 0,
+            "lstm_fi_fwd_bf16: x must start on 16 bytes (16-byte copies)")
+    bsz, t, e = x.shape
+    d = w_h.shape[0]
+    sms, optin = _card(x.device)
+    refusal = fi_bf16_refusal(e, d, sms, optin)
+    enforce(refusal is None, refusal or "")
+    u = _bf16_units(d, sms)
+    packs = (_pack_rows_bf16(w_x, u), _pack_rows_bf16(w_h, u))  # kept
+    dev = x.device
+    hs = torch.empty(bsz, t, d, dtype=bf, device=dev)
+    cs = torch.empty(bsz, t, d, dtype=f32, device=dev)
+    gates = (torch.empty(bsz, t, 4 * d, dtype=bf, device=dev) if emit_gates
+             else None)
+    h_t = torch.empty(bsz, d, dtype=f32, device=dev)
+    c_t = torch.empty_like(h_t)
+    KERNEL_FI_BF16.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+                          b.data_ptr(), packs[1].data_ptr(), peep.data_ptr(),
+                          h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+                          cs.data_ptr(), _ptr(gates), h_t.data_ptr(),
+                          c_t.data_ptr(), bsz, t, e, d, u, int(reverse),
+                          torch.cuda.current_stream().cuda_stream)
     return hs, cs, gates, h_t, c_t
 
 
@@ -797,8 +879,11 @@ def bilstm_seq(x, mask, w_x_f, b_f, w_h_f, peep_f, w_x_b, b_b, w_h_b, peep_b,
 class _LstmSeqFi(torch.autograd.Function):
     """JAX: ``lstm_seq_fi``'s ``custom_vjp``.  Residuals: x, mask, the
     weights, h0, c0, hs, cs and the gates slab (remat off); with remat on
-    the backward recomputes xw with one product (JAX's ``_project_xw``)
-    and the gates from it."""
+    the backward recomputes xw with one product (JAX's ``_project_xw``:
+    f32 for bf16 operands) and the gates from it.  The gradients come
+    back in their inputs' dtypes (JAX ``lstm.py:767-780``): dW_x and dW_h
+    products of bf16 operands with f32 sums, db the f32 sum of dgates,
+    dx the f32 product of dgates rounded to W_x's dtype, rounded once."""
 
     @staticmethod
     def forward(ctx, x, mask, w_x, b, w_h, peep, h0, c0, reverse, remat):
@@ -822,10 +907,15 @@ class _LstmSeqFi(torch.autograd.Function):
         bsz, t, e = x.shape
         d = w_h.shape[0]
         dg = dgates.reshape(-1, 4 * d)
+        dg_w = dg.to(w_x.dtype)
         h_prev = _shift_prev(hs, h0, reverse).reshape(-1, d)
-        return (torch.matmul(dg, w_x.t()).reshape(bsz, t, e), None,
-                torch.matmul(x.reshape(bsz * t, e).t(), dg), dg.sum(0),
-                torch.matmul(h_prev.t(), dg), dpeep, dh0, dc0, None, None)
+        dx = torch.matmul(dg_w.to(dg.dtype), w_x.to(dg.dtype).t())
+        return (dx.reshape(bsz, t, e).to(x.dtype), None,
+                torch.matmul(x.reshape(bsz * t, e).to(w_x.dtype).t(), dg_w),
+                dg.sum(0).to(b.dtype),
+                torch.matmul(h_prev.to(w_h.dtype).t(), dg.to(w_h.dtype)),
+                dpeep.to(peep.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype),
+                None, None)
 
 
 def lstm_seq_fi(x, mask, w_x, b, w_h, peephole, h0, c0, reverse=False,
@@ -836,7 +926,9 @@ def lstm_seq_fi(x, mask, w_x, b, w_h, peephole, h0, c0, reverse=False,
     x [B, T, E]; w_x [E, 4D]; b [4D] (zeros for no bias); w_h [D, 4D];
     peephole [3, D]; h0, c0 [B, D]; remat: keep no gates slab, recompute
     xw and the gates in the backward.  Returns (hs [B, T, D], (h_T,
-    c_T))."""
+    c_T)): hs in x's dtype; with bf16 operands the projection stays f32
+    (the bias read as f32), the cell runs in f32 and h_T, c_T are f32, as
+    the JAX kernel gives them."""
     d = w_h.shape[0]
     enforce(x.dim() == 3 and x.shape[1] >= 1
             and tuple(w_x.shape) == (x.shape[2], 4 * d)
@@ -846,7 +938,7 @@ def lstm_seq_fi(x, mask, w_x, b, w_h, peephole, h0, c0, reverse=False,
             f"and w_h [D, 4D], got x {tuple(x.shape)}, w_x "
             f"{tuple(w_x.shape)}, b {tuple(b.shape)}, w_h {tuple(w_h.shape)}")
     hs, h_t, c_t = _LstmSeqFi.apply(
-        x.contiguous(), mask.to(x.dtype).contiguous(),
+        x.contiguous(), mask.to(_acc(w_h.dtype)).contiguous(),
         *(w.contiguous() for w in (w_x, b, w_h, peephole, h0, c0)),
         bool(reverse), bool(remat))
     return hs, (h_t, c_t)

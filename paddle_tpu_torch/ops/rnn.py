@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from paddle_tpu_torch.core.dtype import cast_for_matmul
+from paddle_tpu_torch.core.dtype import cast_for_matmul, matmul_dtype
 from paddle_tpu_torch.core.lod import SequenceBatch
 from paddle_tpu_torch.ops import activations as act
 from paddle_tpu_torch.ops.kernels import gru as gru_kernels
@@ -133,14 +133,16 @@ def fused_input_on(device) -> bool:
 def fused_input_fits(x, kernels, w_x, *weights) -> bool:
     """Whether the fused-input kernels of ``kernels`` (the module
     ``kernels/lstm`` or ``kernels/gru``) take these operands (the port's
-    stand-in for the JAX package's VMEM budget ``_fused_fits``): f32
-    everywhere, and the tiling of the fused-input forward and of the
-    backward it is paired with on the card of ``x`` (the module's
-    ``fi_fits``: D and E multiples of 4, the units a block on the SMs,
-    shared memory within the opt-in).  A pure function of the device and
-    the shapes; ``weights`` are the recurrent ones."""
-    return (all(w.dtype == torch.float32 for w in (x, w_x, *weights))
-            and kernels.fi_fits(x.device, w_x.shape[0], weights[-1].shape[0]))
+    stand-in for the JAX package's VMEM budget ``_fused_fits``): the
+    dtype the operands cast to (``cast_for_matmul``, as :func:`lstm_fi` /
+    :func:`gru_fi` cast them) has a form, f32 or bf16, and the tiling of
+    that form of the fused-input forward and of the backward it is paired
+    with takes the shapes on the card of ``x`` (the module's ``fi_fits``:
+    the refusal of that dtype is None).  A pure function of the device,
+    the dtypes and the shapes; ``weights`` are the recurrent ones."""
+    dtype = matmul_dtype(x.dtype, w_x.dtype, *(w.dtype for w in weights))
+    return kernels.fi_fits(x.device, w_x.shape[0], weights[-1].shape[0],
+                           dtype)
 
 
 def lstm_fi(x: SequenceBatch, w_x, b, w_h, init: LSTMState, peephole=None,
@@ -148,19 +150,27 @@ def lstm_fi(x: SequenceBatch, w_x, b, w_h, init: LSTMState, peephole=None,
     """Fused-input LSTM: raw x [B, T, E] through ``kernels/lstm.lstm_seq_fi``
     with remat on, as the JAX package runs it (on the card one launch
     with x @ W_x inside the loop; the CPU twin projects step by step).
-    b [4D] or None, peephole [3D] flat or None.  A shape the kernels do
-    not take raises on the card (callers check :func:`fused_input_fits`).
-    Returns (SequenceBatch of h, last LSTMState)."""
+    b [4D] or None, peephole [3D] flat or None.  The operands cast as
+    JAX's ``lstm_fi`` casts them (``ops/rnn.py:233-245``): x and both
+    weights to one dtype (``cast_for_matmul``), the bias to f32 (the
+    in-loop projection is never rounded), the peepholes and the h carry
+    in the weights' dtype, c as given; the outputs come back in x's
+    dtype.  A shape the kernels do not take raises on the card (callers
+    check :func:`fused_input_fits`).  Returns (SequenceBatch of h, last
+    LSTMState)."""
     d = w_h.shape[0]
-    data = x.data
-    bias = (torch.zeros(4 * d, dtype=w_x.dtype, device=w_x.device)
-            if b is None else b)
-    peep = (torch.zeros(3, d, dtype=w_h.dtype, device=w_h.device)
-            if peephole is None else peephole.reshape(3, d))
+    data, w_x_c, w_h_c = cast_for_matmul(x.data, w_x, w_h)
+    acc = torch.promote_types(w_h_c.dtype, torch.float32)
+    bias = (torch.zeros(4 * d, dtype=acc, device=w_x.device)
+            if b is None else b.to(acc))
+    peep = (torch.zeros(3, d, dtype=w_h_c.dtype, device=w_h.device)
+            if peephole is None else peephole.reshape(3, d).to(w_h_c.dtype))
     hs, (h_t, c_t) = lstm_kernels.lstm_seq_fi(
-        data, x.mask(data.dtype), w_x, bias, w_h, peep, init.h, init.c,
-        reverse=reverse, remat=True)
-    return SequenceBatch(data=hs, length=x.length), LSTMState(h=h_t, c=c_t)
+        data, x.mask(), w_x_c, bias, w_h_c, peep, init.h.to(w_h_c.dtype),
+        init.c, reverse=reverse, remat=True)
+    out = x.data.dtype
+    return (SequenceBatch(data=hs.to(out), length=x.length),
+            LSTMState(h=h_t.to(out), c=c_t.to(out)))
 
 
 def lstm_fused(xw: SequenceBatch, w_h, init: LSTMState, peephole=None,
@@ -280,17 +290,22 @@ def gru_fi(x: SequenceBatch, w_x, b, w_h, w_hc, init, reverse: bool = False):
     """Fused-input GRU: raw x [B, T, E] through ``kernels/gru.gru_seq_fi``
     with remat on, as the JAX package runs it (on the card one launch
     with x @ W_x + b inside the loop; the CPU twin projects step by
-    step).  b [3D] or None.  A shape the kernels do not take raises on
-    the card (callers check :func:`fused_input_fits`).  Returns
+    step).  b [3D] or None.  The operands cast as JAX's ``gru_fi`` casts
+    them (``ops/rnn.py:354-362``): x and the three weights to one dtype,
+    the bias to f32, the carry in W_h's dtype; hs and the last h come
+    back in x's dtype.  A shape the kernels do not take raises on the
+    card (callers check :func:`fused_input_fits`).  Returns
     (SequenceBatch of h, last h)."""
     d = w_hc.shape[0]
-    data = x.data
-    bias = (torch.zeros(3 * d, dtype=w_x.dtype, device=w_x.device)
-            if b is None else b)
-    hs, h_t = gru_kernels.gru_seq_fi(data, x.mask(data.dtype), w_x, bias,
-                                     w_h, w_hc, init, reverse=reverse,
-                                     remat=True)
-    return SequenceBatch(data=hs, length=x.length), h_t
+    data, w_x_c, w_h_c, w_hc_c = cast_for_matmul(x.data, w_x, w_h, w_hc)
+    acc = torch.promote_types(w_h_c.dtype, torch.float32)
+    bias = (torch.zeros(3 * d, dtype=acc, device=w_x.device)
+            if b is None else b.to(acc))
+    hs, h_t = gru_kernels.gru_seq_fi(data, x.mask(), w_x_c, bias, w_h_c,
+                                     w_hc_c, init.to(w_h_c.dtype),
+                                     reverse=reverse, remat=True)
+    out = x.data.dtype
+    return SequenceBatch(data=hs.to(out), length=x.length), h_t.to(out)
 
 
 def bigru_fused(x: SequenceBatch, fw: tuple, bw: tuple):

@@ -2535,3 +2535,223 @@ def test_gru_bf16_wrappers_refuse_what_the_forms_do_not_take(cuda):
         bigru(16, 16 * (sms // 2) + 8)
     assert _gru_bf16_counts() == before
 
+
+
+# -- the last bf16 forms: the fused-input forwards (rows 6 and 9), softmax_xent
+# (row 4) and the scatter-add (row 18) --------------------------------------
+
+
+def _last_bf16_counts():
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    return {k: v.launches for k, v in (
+        ("lstm_fi", LK.KERNEL_FI), ("lstm_fi_bf16", LK.KERNEL_FI_BF16),
+        ("lstm_fwd_bf16", LK.KERNEL_FWD_BF16),
+        ("lstm_bwd_bf16", LK.KERNEL_BWD_BF16),
+        ("gru_fi", GK.KERNEL_FI), ("gru_fi_bf16", GK.KERNEL_FI_BF16),
+        ("gru_fwd_bf16", GK.KERNEL_FWD_BF16),
+        ("gru_bwd_bf16", GK.KERNEL_BWD_BF16),
+        ("xent_fwd", SX.KERNEL_FWD), ("xent_bwd", SX.KERNEL_BWD),
+        ("xent_fwd_bf16", SX.KERNEL_FWD_BF16),
+        ("xent_bwd_bf16", SX.KERNEL_BWD_BF16),
+        ("scatter", EK.KERNEL_SCATTER),
+        ("scatter_bf16", EK.KERNEL_SCATTER_BF16))}
+
+
+def _moved(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+@pytest.mark.parametrize("b,t,e,d,reverse", [
+    (3, 7, 8, 8, False),         # the CPU tests' shapes
+    (5, 9, 24, 40, True),        # E, D past one 16-deep step, ragged
+    (70, 5, 16, 32, False),      # two 64-row chunks
+    (2, 1, 16, 136, True),       # one step, D past one unit a block
+    (64, 100, 128, 512, False),  # ops.rnn.lstm's width (RAW_RNN)
+    (64, 32, 512, 512, True),    # ops.rnn.gru's width (RAW_RNN)
+])
+def test_fi_bf16_forms_against_their_forced_steps(cuda, kind, b, t, e, d,
+                                                   reverse):
+    """``lstm_fi_fwd_bf16`` / ``gru_fi_fwd_bf16`` (with and without the gate
+    slab) on ragged bf16 inputs, a length-1 row among them, and the bf16
+    remat backward over their f32 projection, as the path pairs them
+    (``chip_smoke.fi_bf16_case``): each step against the float64 step from
+    the form's own carries (hs one bf16 ulp plus the f32 sum term of E + D
+    products, unequal on at most 1%), reruns and the slab form in the same
+    bits, and the twin's planted faults (the projection rounded to bf16,
+    the gate halves swapped, the GRU's r h unrounded; the backward's)
+    outside the criterion.  The launches: three of the bf16 fused-input
+    form, two of the bf16 backward, none of the f32 ones."""
+    import chip_smoke as S
+
+    x = S.fi_bf16_inputs(cuda, kind, b, t, e, d, seed=b + t + e + d)
+    before = _last_bf16_counts()
+    case = S.fi_bf16_case(kind, x, reverse)
+    moved = _moved(before, _last_bf16_counts())
+    assert all(case["bits"].values()), case["bits"]
+    assert case["ok"], {k: case[k] for k in ("fwd", "bwd")}
+    assert not any(f["ok"] for f in case["faults"].values()), case["faults"]
+    assert moved == {f"{kind}_fi_bf16": 3, f"{kind}_bwd_bf16": 2}, moved
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_fi_bf16_functions_on_card_match_the_cpu(cuda, kind):
+    """``lstm_seq_fi`` / ``gru_seq_fi`` through the autograd Function on
+    bf16 operands, remat on, on the card (one bf16 fused-input forward and
+    one bf16 backward) and on the CPU (the twins): every output and input
+    gradient in the CPU's dtype, each within 2x the CPU's relative
+    distance from the float64 run plus 2^-8."""
+    import chip_smoke as S
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    mod = LK if kind == "lstm" else GK
+    x = S.fi_bf16_inputs(torch.device("cpu"), kind, 6, 11, 32, 40, seed=3)
+    keys = S.fi_args(kind, x)
+
+    def run(dev, wide=False):
+        leaves = [v.to(dev).requires_grad_() for v in keys]
+        if wide:
+            leaves = [v.detach().double().requires_grad_() for v in leaves]
+        mask = leaves.pop(1).detach()
+        fn = mod.lstm_seq_fi if kind == "lstm" else mod.gru_seq_fi
+        out = fn(leaves[0], mask, *leaves[1:], remat=True)
+        outs = (out[0], *out[1]) if kind == "lstm" else out
+        loss = sum(o.double().sum() for o in outs)
+        return [*outs, *torch.autograd.grad(loss, leaves)]
+
+    base = run("cpu", wide=True)
+    cpu = run("cpu")
+    before = _last_bf16_counts()
+    card = run(cuda)
+    assert _moved(before, _last_bf16_counts()) == {
+        f"{kind}_fi_bf16": 1, f"{kind}_bwd_bf16": 1}
+    for a, c, w in zip(card, cpu, base):
+        assert a.dtype == c.dtype
+        ref = w.detach().double()
+        dist = float((c.detach().double() - ref).norm() / ref.norm())
+        got = float((a.detach().cpu().double() - ref).norm() / ref.norm())
+        assert got <= 2 * dist + 2.0 ** -8, (got, dist)
+
+
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_raw_rnn_bf16_entries_take_the_bf16_fi_forms(cuda, kind):
+    """``ops.rnn.lstm`` / ``gru`` on bf16 x and weights on the card take the
+    bf16 fused-input forward and the bf16 remat backward, once each, and
+    no f32 fused-input or sequence forward; with the routing off, the
+    unfused bf16 route (the bf16 sequence forward, then the same
+    backward)."""
+    import chip_smoke as S
+    from paddle_tpu_torch.ops import rnn as R
+
+    bf = torch.bfloat16
+    x, lens, w, init, cts = S.raw_rnn_inputs(cuda, kind, 5, 9, 24, 40)
+    x, w = x.to(bf), {k: v.to(bf) for k, v in w.items()}
+    init, cts = [v.to(bf) for v in init], [c.to(bf) for c in cts]
+    before = _last_bf16_counts()
+    S.raw_rnn_grads(S.raw_rnn_call, kind, x, lens, w, init, cts, False)
+    assert _moved(before, _last_bf16_counts()) == {
+        f"{kind}_fi_bf16": 1, f"{kind}_bwd_bf16": 1}
+    on = R.fused_input_on
+    R.fused_input_on = lambda device: False
+    try:
+        before = _last_bf16_counts()
+        S.raw_rnn_grads(S.raw_rnn_call, kind, x, lens, w, init, cts, False)
+    finally:
+        R.fused_input_on = on
+    assert _moved(before, _last_bf16_counts()) == {
+        f"{kind}_fwd_bf16": 1, f"{kind}_bwd_bf16": 1}
+
+
+@pytest.mark.parametrize("n,v,offset", [
+    (1, 3, 0), (37, 1003, 0), (37, 1003, 1),   # an odd V, rows 2-byte
+    (64, 50257, 0), (64, 50257, 3)])           # the LM's vocabulary
+def test_softmax_xent_bf16_matches_its_twin(cuda, n, v, offset):
+    """The bf16 forms of row 4 (``chip_smoke.xent_bf16_agreement``): lse
+    and the NLL f32 within 1e-5 x max(1, |ref|), dlogits bf16 unequal on
+    at most 1% of the entries and within one ulp, reruns in the same
+    bits; at odd V (rows start 2-byte aligned: a scalar head, 16-byte
+    groups, a scalar tail) and with the logits offset from 16 bytes (the
+    gradient then stored element by element).  A gradient rounded twice
+    (softmax rounded to bf16 before the product) is outside the
+    criterion."""
+    import chip_smoke as S
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    gen = torch.Generator(device=cuda).manual_seed(n + v)
+    flat = torch.empty(n * v + offset, device=cuda, dtype=torch.bfloat16)
+    logits = flat[offset:].view(n, v)
+    logits.copy_(2.0 * torch.randn(n, v, generator=gen, device=cuda))
+    targets = torch.randint(0, v, (n,), generator=gen, device=cuda)
+    targets[0] = v - 1
+    g = torch.randn(n, generator=gen, device=cuda)
+    before = _last_bf16_counts()
+    a = S.xent_bf16_agreement(logits, targets, g)
+    assert _moved(before, _last_bf16_counts()) == {"xent_fwd_bf16": 2,
+                                                   "xent_bwd_bf16": 2}
+    assert a["ok"], a
+    if n * v >= 1000:
+        _, lse = SX._fwd_kernel(logits, targets)
+        got = SX._bwd_kernel(logits, targets, lse, g)
+        p = torch.exp(logits.float() - lse[:, None])
+        onehot = torch.zeros_like(p).scatter_(1, targets[:, None], 1.0)
+        twice = ((p.to(torch.bfloat16).float() - onehot) * g[:, None]).to(
+            torch.bfloat16)
+        assert not S.bf16_exact_agreement(twice, got)["ok"]
+
+
+def test_softmax_xent_bf16_through_the_function(cuda):
+    """``softmax_xent`` on bf16 logits through the autograd Function: an f32
+    NLL, a bf16 gradient, one launch of each bf16 form and none of the f32
+    ones; a float16 logit refused."""
+    from paddle_tpu_torch.core.enforce import EnforceError
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(9, 501, generator=gen, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    targets = torch.randint(0, 501, (9,), generator=gen, device=cuda)
+    before = _last_bf16_counts()
+    nll = SX.softmax_xent(x, targets)
+    (dx,) = torch.autograd.grad(nll.mean(), x)
+    assert (nll.dtype, dx.dtype) == (torch.float32, torch.bfloat16)
+    assert _moved(before, _last_bf16_counts()) == {"xent_fwd_bf16": 1,
+                                                   "xent_bwd_bf16": 1}
+    with pytest.raises(EnforceError, match="float32 or bfloat16"):
+        SX.softmax_xent(x.detach().half(), targets)
+
+
+@pytest.mark.parametrize("n,v,d", [(1, 3, 8), (1000, 64, 40),
+                                   (8192, 30000, 128)])
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_bf16_matches_its_twin(cuda, n, v, d, rows_dtype):
+    """The bf16 scatter-add (``chip_smoke.scatter_bf16_agreement``) on a
+    bf16 table with f32 or bf16 rows, duplicate ids and ids outside [0,
+    V) (dropped): unequal to the twin on at most 1% of the entries, each
+    within one ulp, a rerun in the same bits, two launches of the bf16
+    form and none of the f32 one.  With f32 rows, rows rounded to the
+    table's dtype before the sum are outside the criterion."""
+    import chip_smoke as S
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    gen = torch.Generator(device=cuda).manual_seed(n + v + d)
+    table = torch.randn(v, d, generator=gen, device=cuda).to(torch.bfloat16)
+    ids = torch.randint(-2, v + 2, (n,), generator=gen, device=cuda)
+    rows = torch.randn(n, d, generator=gen, device=cuda).to(rows_dtype)
+    before = _last_bf16_counts()
+    a = S.scatter_bf16_agreement(table, ids, rows)
+    assert _moved(before, _last_bf16_counts()) == {"scatter_bf16": 2}
+    assert a["ok"], a
+    if rows_dtype == torch.float32 and n > 1:
+        got = EK.embedding_scatter_add(table, ids, rows)
+        bad = EK.embedding_scatter_add_reference(table, ids,
+                                                 rows.to(torch.bfloat16))
+        assert not S.bf16_exact_agreement(bad, got)["ok"]
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    with pytest.raises(EnforceError, match="float32 or bfloat16 rows"):
+        EK.embedding_scatter_add(table, ids, rows.half())
