@@ -12,8 +12,10 @@ script, in turns:
     python3 chip_ab.py [--out DIR] build/parent . . build/parent
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
-one JSON line a run (the tree, img/s, step p50, the device ms a step by
-kernel class from the phase's 3-step profile, the image nets' ms a batch)
+one JSON line a run (the tree, the ms and host ms of a call of the
+update and scatter-add wrappers at ``chip_smoke``'s shapes, img/s, step
+p50, the device ms a step by kernel class from the phase's 3-step
+profile, the image nets' ms a batch)
 and writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).
 
@@ -35,27 +37,84 @@ import sys
 import time
 
 RUN = r"""
-import json, os, sys
+import json, os, sys, time
 tree = os.path.abspath(sys.argv[1])
 os.chdir(tree)
 sys.path.insert(0, tree)
+import numpy as np
 import torch
 import chip_smoke as C
 from paddle_tpu_torch.core.place import resolve_device
 from paddle_tpu_torch.ops.kernels import _build
 dev = resolve_device(None)
 _build.build()
+calls = CALLS(dev, C)
+torch.cuda.empty_cache()
 train = C.train_end_to_end(dev)[0]
 torch.cuda.empty_cache()
 nets = C.bench_nets(dev)
-print(json.dumps({"train": train, "bench_nets": nets}))
+print(json.dumps({"calls": calls, "train": train, "bench_nets": nets}))
+"""
+
+#: the calls of the update and scatter-add wrappers at chip_smoke's
+#: shapes, timed the same way in either tree (each tree's own wrappers):
+#: the CUDA-event ms with the L2 flushed and the host's median ms a call
+#: without a sync
+CALLS = r"""
+def CALLS(dev, C):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.config.topology import Topology
+    from paddle_tpu_torch.layers.base import reset_name_counters
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import update as UP
+
+    timer = C.Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def host(fn, iters=50):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return float(np.median(times)) * 1e3
+
+    def both(fn):
+        return {"ms": timer(fn), "host_ms": host(fn)}
+
+    out = {}
+    reset_name_counters()
+    shapes = [s.shape for s in Topology(paddle.models.image.resnet_cost(
+        depth=50, class_num=1000, height=224, width=224)[0]).param_specs()]
+    ups = [UP.TensorUpdate(*(torch.randn(s, generator=gen, device=dev)
+                             * k for k in (1.0, 1e-2, 1e-2)), 0.1 / 64, 0.9)
+           for s in shapes]
+    out["fused_update_resnet50"] = both(lambda: UP.fused_update(ups))
+    del ups
+    v, e, n = C.SCATTER_BF16_SHAPE[1], C.SCATTER_BF16_SHAPE[2], 8192
+    ids = torch.randint(0, v, (64, 128), generator=gen, device=dev)
+    ids[:, 100:] = 0
+    ids = ids.reshape(-1)
+    rows = torch.randn(n, e, generator=gen, device=dev)
+    table = torch.randn(v, e, generator=gen, device=dev).to(torch.bfloat16)
+    out["table_grad_f32_text"] = both(lambda: EK.table_grad(ids, rows, v))
+    out["scatter_add_bf16_f32_rows"] = both(
+        lambda: EK.embedding_scatter_add(table, ids, rows))
+    rows16 = rows.to(torch.bfloat16)
+    out["scatter_add_bf16_bf16_rows"] = both(
+        lambda: EK.embedding_scatter_add(table, ids, rows16))
+    out["index_add_bf16"] = both(lambda: table.index_add(0, ids, rows16))
+    return out
 """
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
     train, nets = out["train"], out["bench_nets"]
     prof = train.get("profile", {})
-    return {"tree": tree, "seconds": seconds,
+    return {"tree": tree, "seconds": seconds, "calls": out["calls"],
             "img_per_s": train["img_per_s"],
             "step_ms_p50": train["step_ms_p50"],
             "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
@@ -135,7 +194,7 @@ def main(trees: list[str], out_dir: str) -> int:
     rc = 0
     for i, tree in enumerate(trees):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", RUN, tree],
+        proc = subprocess.run([sys.executable, "-c", CALLS + RUN, tree],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"ab_{i}.json"), "w") as f:

@@ -1403,7 +1403,9 @@ def kernel_class(name: str) -> str:
     if ("lse_kernel<" in low or "::dlogits_kernel(" in low
             or "dlogits_bf16_kernel" in low):
         return "softmax_xent (ours)"      # csrc/softmax_xent.cu
-    if "scatter_add_kernel<" in low:      # csrc/embedding.cu
+    if any(k in low for k in ("place_copy_kernel<", "sum_runs_kernel<",
+                              "group_sort_kernel")):
+        # csrc/embedding.cu
         return "embedding_scatter_add (ours)"
     if "::gather_kernel(" in low:
         return "embedding_gather (ours)"
@@ -1504,6 +1506,15 @@ def device_ms(fns, key: str, rounds: int = 20, tries: int = 5) -> float:
     13.  Three traces in a row of a microsecond kernel have held none,
     so each further trace takes twice the rounds.
     Raises when ``tries`` traces in a row hold no such kernel."""
+    return device_passes_ms(fns, (key,), rounds, tries)[key]
+
+
+def device_passes_ms(fns, keys, rounds: int = 20, tries: int = 5) -> dict:
+    """{key: device ms of one launch} of each kernel (or memset) whose
+    name holds a key of ``keys``, from one ``torch.profiler`` trace of
+    ``rounds`` calls of each of ``fns`` (as :func:`device_ms`), and
+    ``total``, their sum: the device time of one call that runs each once.
+    Raises when ``tries`` traces in a row miss a key."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1515,13 +1526,26 @@ def device_ms(fns, key: str, rounds: int = 20, tries: int = 5) -> float:
                 for fn in fns:
                     fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and key in e.key]
-        n = sum(e.count for e in hits)
-        if n:
-            return sum(e.self_device_time_total for e in hits) / 1e3 / n
-    raise AssertionError(f"device_ms: {tries} traces held no kernel named "
-                         f"like {key!r}")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        out = {}
+        for key in keys:
+            hits = [e for e in events if key in e.key]
+            n = sum(e.count for e in hits)
+            if not n:
+                break
+            out[key] = sum(e.self_device_time_total for e in hits) / 1e3 / n
+        else:
+            out["total"] = sum(out.values())
+            return out
+    raise AssertionError(f"device_passes_ms: {tries} traces missed one of "
+                         f"{keys}")
+
+
+#: the scatter-add's device passes by name (csrc/embedding.cu; the memset
+#: of its counters is the "Memset" record; the placement pass and the copy
+#: of the untouched rows share a launch), the run sums by form
+SCATTER_PASSES = ("Memset", "group_sort_kernel", "place_copy_kernel")
 
 
 def witness_ratio(start: dict, wide: dict, got: dict) -> tuple:
@@ -1712,18 +1736,23 @@ def train_end_to_end(dev) -> tuple[dict, int, int, int]:
     BR.KERNEL.launches = 0
     CV.KERNEL.launches = 0
     UP.KERNEL.launches = 0
+    builds0 = UP.KERNEL.table_builds
     t1 = time.perf_counter()
     costs = run(tr, data, stamp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     br_n, cv_n, up_n = (BR.KERNEL.launches, CV.KERNEL.launches,
                         UP.KERNEL.launches)
+    table_builds = UP.KERNEL.table_builds - builds0
     peak = torch.cuda.max_memory_allocated(dev)
     if (br_n, cv_n, up_n, len(each)) != (36 * steps, 17 * steps, steps, 0):
         raise AssertionError(f"train launches brgemm {br_n}, conv {cv_n}, "
                              f"fused update {up_n}, per-tensor loops "
                              f"{len(each)} != 36 x {steps}, 17 x {steps}, "
                              f"{steps}, 0")
+    if table_builds != 1:
+        raise AssertionError(f"the fused update built {table_builds} "
+                             f"tables over {steps} steps, not 1")
     if len(costs) != steps or not all(np.isfinite(costs)):
         raise AssertionError(f"train costs {costs}")
     step_ms = [1e3 * (b - a) for a, b in marks.values()]
@@ -1768,6 +1797,7 @@ def train_end_to_end(dev) -> tuple[dict, int, int, int]:
              "max_memory_allocated_bytes": peak,
              "train_launches": {"brgemm": br_n, "conv2d_direct": cv_n,
                                 "fused_update": up_n},
+             "fused_update_table_builds": table_builds,
              "train_per_tensor_loops": len(each),
              "test_launches": {"brgemm": test_n[0],
                                "conv2d_direct": test_n[1]},
@@ -1981,6 +2011,14 @@ def text_classifier(hidden: int, vocab: int, embed: int):
     return L.classification_cost(input=net, label=label)
 
 
+#: planted fault of the scatter-add's grouping (csrc/embedding.cu): each
+#: run's positions placed in reverse, an unstable grouping
+GROUP_FAULTS = {"runs_reversed": (
+    "  order[offsets[id] + prior[head] + (t - head)] = (int)(unsigned)key;",
+    "  order[offsets[id + 1] - 1 - prior[head] - (t - head)] ="
+    " (int)(unsigned)key;")}
+
+
 def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
                        n_ids=8192, vocab=30000, embed=128) -> tuple:
     """The text path's kernels at its shapes, each against its plain twin
@@ -1989,7 +2027,9 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
     stored-gates form, which must give the same bits) at B 64, T 128,
     D 1280 with lengths 100; the gather of 8,192 ids from [30000, 128]
     and the table gradient (zeros plus the scatter-add of 8,192 rows), a
-    rerun bit-identical.  Library yardsticks: cuDNN's ``nn.LSTM``
+    rerun bit-identical, and its grouping passes alone, equal to their
+    twin in integers (a planted grouping that reverses each run must
+    not be).  Library yardsticks: cuDNN's ``nn.LSTM``
     (no peepholes, input projection included; the fc plus the kernel is
     timed beside it), ``F.embedding`` and its backward."""
     import torch.nn.functional as F
@@ -1997,6 +2037,7 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
     from paddle_tpu_torch.ops.kernels import embedding as EK
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
+    fault_builds = source_fault_builds("embedding", GROUP_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(7)
     lens = torch.full((b,), length, device=dev)
     mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
@@ -2098,6 +2139,27 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
     zeros = torch.zeros(vocab, embed, device=dev)
     scatter_err = worst([grad], [EK.embedding_scatter_add_reference(
         zeros, ids, ct)])
+    want_groups = EK.group_ids_reference(ids.cpu(), vocab)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(
+            EK.group_ids(ids, vocab), want_groups)):
+        raise AssertionError("the grouping passes differ from their twin")
+    # the planted fault: each run placed in reverse (an unstable grouping)
+    fn = EK.KERNEL_GROUP._fn or EK.KERNEL_GROUP._resolve()
+    EK.KERNEL_GROUP._fn = planted(*fault_builds["runs_reversed"],
+                                  EK.KERNEL_GROUP)
+    try:
+        bad = EK.group_ids(ids, vocab)
+    finally:
+        EK.KERNEL_GROUP._fn = fn
+    group_fault = {"counts_equal": torch.equal(bad[0].cpu(), want_groups[0]),
+                   "order_equal": torch.equal(bad[2].cpu(), want_groups[2])}
+    if group_fault["order_equal"]:
+        raise AssertionError("a grouping that reverses each run passed the "
+                             f"twin's order: {group_fault}")
+    passes = device_passes_ms([lambda: EK.table_grad(ids, ct, vocab)],
+                              SCATTER_PASSES + ("sum_runs_kernel<float",))
+    group_alone = device_passes_ms([lambda: EK.group_ids(ids, vocab)],
+                                   SCATTER_PASSES)
     rows += [{
         "name": "embedding_gather", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
@@ -2114,21 +2176,40 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:192",
         "shape": [n_ids, vocab, embed], "unique_ids": int(uniq),
         "max_abs_err": scatter_err,
-        # as the backward runs it: zeros, the sort by id, the kernel
+        # as the backward runs it: one call, the grouping passes and the
+        # output pass (zeros where no id lands)
         "ms": timer(lambda: EK.table_grad(ids, ct, vocab)),
+        "host_ms": host_ms(lambda: EK.table_grad(ids, ct, vocab)),
+        "alone_ms": passes["total"], "passes_ms": passes,
         "plain_ms": timer(lambda: EK.embedding_scatter_add_reference(
             torch.zeros(vocab, embed, device=dev), ids, ct)),
         # the cotangent rows and ids read, the dense gradient written
         "bytes_flops": (f32 * (n_ids * embed + vocab * embed) + 8.0 * n_ids,
                         float(n_ids * embed)),
         "library_ms": timer(lambda: torch.ops.aten.embedding_dense_backward(
-            ct, ids, vocab, -1, False))}]
+            ct, ids, vocab, -1, False))}, {
+        "name": "embedding_group_ids", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/embedding.cu",
+        "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:192 (the "
+                    "scatter-add's grouping of ids; no kernel of its own "
+                    "there: the one-hot contraction needs none)",
+        "shape": [n_ids, vocab], "max_abs_err": 0.0,
+        "ms": timer(lambda: EK.group_ids(ids, vocab)),
+        "alone_ms": group_alone["total"], "passes_ms": group_alone,
+        "plain_ms": timer(lambda: EK.group_ids_reference(ids, vocab)),
+        # the ids read; counts, offsets and order written; integer adds
+        "bytes_flops": (8.0 * n_ids + 4.0 * (2 * vocab + 1 + n_ids),
+                        float(n_ids + vocab)),
+        "library_ms": timer(lambda: torch.sort(ids, stable=True)),
+        "library_note": "torch.sort(ids, stable=True): the order alone"}]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
     summary = {"phase": "text_kernels", "tol": TOL,
                "lstm_bwd_remat_stored_rerun_bit_identical": True,
                "table_grad_rerun_bit_identical": True,
-               "gather_bit_identical_to_twin": True}
+               "gather_bit_identical_to_twin": True,
+               "group_ids_equal_to_twin": True,
+               "planted_faults": {"runs_reversed": group_fault}}
     torch.cuda.synchronize()
     return rows, summary
 
@@ -2287,7 +2368,7 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
             marks.setdefault(e.batch_id, []).append(time.perf_counter())
 
     kernels = (LK.KERNEL_FWD, LK.KERNEL_BWD, EK.KERNEL_GATHER,
-               EK.KERNEL_SCATTER)
+               EK.KERNEL_SCATTER, EK.KERNEL_GROUP)
     for k in kernels:
         k.launches = 0
     t1 = time.perf_counter()
@@ -2296,9 +2377,10 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
     wall = time.perf_counter() - t1
     launches = tuple(k.launches for k in kernels)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches != (steps,) * 4:
+    if launches != (steps,) * 5:
         raise AssertionError(f"text train launches (lstm fwd, bwd, gather, "
-                             f"scatter-add) {launches} != {steps} each")
+                             f"scatter-add, its grouping) {launches} != "
+                             f"{steps} each")
     losses = [c for c, _ in events]
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"text train losses {losses}")
@@ -2309,9 +2391,9 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
         k.launches = 0
     result = tr.test(reader=lambda: iter(test_data))
     test_n = tuple(k.launches for k in kernels)
-    if test_n != (2, 0, 2, 0) or not np.isfinite(result.cost):
-        raise AssertionError(f"text test launches {test_n} != (2, 0, 2, 0) "
-                             f"or cost {result.cost}")
+    if test_n != (2, 0, 2, 0, 0) or not np.isfinite(result.cost):
+        raise AssertionError(f"text test launches {test_n} != (2, 0, 2, 0, "
+                             f"0) or cost {result.cost}")
     p50 = float(np.percentile(step_ms, 50))
     if "device_busy_ms_per_step" in prof:
         prof["idle_share_vs_step_p50"] = (
@@ -2329,9 +2411,10 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
            "classification_error": [m for _, m in events],
            "max_memory_allocated_bytes": peak,
            "train_launches": dict(zip(("lstm_fwd", "lstm_bwd", "gather",
-                                       "scatter_add"), launches)),
+                                       "scatter_add", "group_ids"),
+                                      launches)),
            "test_launches": dict(zip(("lstm_fwd", "lstm_bwd", "gather",
-                                      "scatter_add"), test_n)),
+                                      "scatter_add", "group_ids"), test_n)),
            "test_batches": 2, "test_cost": result.cost,
            "test_metrics": result.metrics, "setup_s": setup_s,
            "profile": prof}
@@ -3718,16 +3801,21 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int, int]:
     loop = tr.optimizer._apply_each
     tr.optimizer._apply_each = lambda *a: each.append(1) or loop(*a)
     zero_counts()
+    builds0 = UP.KERNEL.table_builds
     t1 = time.perf_counter()
     costs = run(tr, data, stamp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     train_n = read_counts()
+    table_builds = UP.KERNEL.table_builds - builds0
     peak = torch.cuda.max_memory_allocated(dev)
     want = {"channel_stats": 11, "conv2d_direct": 10, "fused_update": 1}
     if train_n != per_step(want, steps) or each:
         raise AssertionError(f"small_vgg train launches {train_n} != {want} "
                              f"x {steps}, or {len(each)} per-tensor loops")
+    if table_builds != 1:
+        raise AssertionError(f"small_vgg: the fused update built "
+                             f"{table_builds} tables over {steps} steps")
     if not (len(costs) == steps and all(np.isfinite(costs))
             and np.mean(costs[-3:]) < np.mean(costs[:3])):
         raise AssertionError(f"small_vgg costs not finite and falling: "
@@ -3762,6 +3850,7 @@ def train_vgg(dev, bs=128, steps=10) -> tuple[dict, int, int]:
            "images_per_s": bs * steps / wall, "step_ms_p50": p50,
            "step_ms": step_ms, "costs": costs,
            "max_memory_allocated_bytes": peak, "train_launches": train_n,
+           "fused_update_table_builds": table_builds,
            "test_launches": test_n, "test_batches": 2,
            "test_cost": result.cost, "test_metrics": result.metrics,
            "update_route_step_ms": route_ms,
@@ -4562,23 +4651,122 @@ def bits_equal(a, b) -> bool:
                                               b.view(torch.int32))
 
 
+def fresh_updates(ups) -> list:
+    """Copies of the updates' p and v, the gradients shared: an in-place
+    run of its own, the originals left for the twins."""
+    import dataclasses
+
+    return [dataclasses.replace(u, p=u.p.clone(),
+                                v=None if u.v is None else u.v.clone())
+            for u in ups]
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Median wall ms the host spends in one call of ``fn``, without a
+    sync: what issuing it costs a host-led step."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+#: planted faults of the update kernels (csrc/update.cu): the row-lazy
+#: kernel lets an untouched row take the rule (its momentum advances, its
+#: decay applies)
+UPDATE_FAULTS = {"untouched_rows_move": (
+    "  if (!__any_sync(0xffffffffu, mine)) return;  // untouched: left as "
+    "it is",
+    "  (void)__any_sync(0xffffffffu, mine);  // planted: untouched rows "
+    "move")}
+
+
+def update_agrees(run, twin, ups, lazy=False) -> tuple[bool, float]:
+    """``run`` on two sets of copies of ``ups`` against ``twin`` on the
+    originals: (the twin's bits, in place on both sets, a rerun equal,
+    untouched rows kept when ``lazy``; the largest gap)."""
+    want = [twin(u) for u in ups]
+    first, second = fresh_updates(ups), fresh_updates(ups)
+    got, again = run(first), run(second)
+    torch.cuda.synchronize()
+    ok, err = True, 0.0
+    for u, f, (want_p, want_v), (p2, v2), (p3, v3) in zip(ups, first, want,
+                                                          got, again):
+        ok &= p2 is f.p and v2 is f.v
+        err = max(err, (p2 - want_p).abs().max().item())
+        ok &= bits_equal(p2, want_p) and bits_equal(p2, p3)
+        if v2 is not None:
+            err = max(err, (v2 - want_v).abs().max().item())
+            ok &= bits_equal(v2, want_v) and bits_equal(v2, v3)
+        if lazy:
+            still = ~(u.g != 0).any(dim=1)
+            ok &= bits_equal(p2[still], u.p[still])
+            ok &= v2 is None or bits_equal(v2[still], u.v[still])
+    return bool(ok), err
+
+
+def stale_table_caught(dev) -> dict:
+    """The planted fault of the kept table: a key without the p and v
+    pointers (``table_key``), so a table is not rebuilt after a parameter
+    tensor is replaced; the replaced tensor then misses its step and the
+    twin check must fail.  The same replacement with the real key
+    passes."""
+    from paddle_tpu_torch.ops.kernels import update as UP
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ups = [UP.TensorUpdate(*(torch.randn(s, generator=gen, device=dev)
+                             for _ in range(3)), 0.1, 0.9)
+           for s in ((64, 3, 3, 3), (1000,), (37, 5))]
+    real = UP.table_key
+    out = {}
+    for label, key in (("stale", lambda ps, vs, sc: (
+            sc, tuple(t.shape for t in ps))), ("real", real)):
+        UP.table_key = key
+        try:
+            UP.fused_update(ups)
+            old = ups[1].p      # kept alive: a stale table writes it
+            ups[1].p = old.clone()
+            want = UP.reference_update(ups[1])
+            UP.fused_update(ups)
+            torch.cuda.synchronize()
+            out[label] = bits_equal(ups[1].p, want[0])
+            del old
+        finally:
+            UP.table_key = real
+            UP.KERNEL.tables.clear()
+    if out["stale"] or not out["real"]:
+        raise AssertionError(f"the kept table's planted fault: {out} (the "
+                             "stale key must miss the replaced tensor)")
+    return {"stale_key_twin_bits": out["stale"],
+            "real_key_twin_bits": out["real"]}
+
+
 def check_update_kernels(dev, timer) -> tuple[list, dict]:
     """The fused update (row 16) against its twin on ResNet-50's 161
     tensors (Momentum 0.9 at lr 0.1 / 64, phase 4's) and small_vgg's 46
     (Momentum 0.9 at lr 0.1 / 128, L2 0.0002 x 128, phase 9's), and the
     row-lazy update (row 19) on the CTR's 8 [1000, 64] tables with the
     rows one batch of 1,024 uniform ids touches (Momentum 0.9 at lr
-    0.05): bit for bit, a rerun in the same bits.  Each timed beside the
-    per-tensor twin loop and its bound (20 bytes an element); row 16 also
-    beside ``torch.optim.SGD(momentum=0.9, fused=True)`` and
-    ``foreach=True`` on the same list (the same rule, not the same
-    bits)."""
+    0.05): in place on copies, bit for bit, a rerun in the same bits.
+    Each timed in place on a kept table (built by the first call; the
+    timed calls must build none) beside the per-tensor twin loop and its
+    bound (20 bytes an element), with the host's ms a call (no sync); row
+    16 also beside ``torch.optim.SGD(momentum=0.9, fused=True)`` and
+    ``foreach=True`` on the same list (the same rule, not the same bits).
+    Planted faults that must fail: a stale kept table
+    (``stale_table_caught``) and a row-lazy kernel that moves untouched
+    rows (``UPDATE_FAULTS``)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.config.topology import Topology
     from paddle_tpu_torch.layers.base import reset_name_counters
     from paddle_tpu_torch.ops.kernels import embedding as EK
     from paddle_tpu_torch.ops.kernels import update as UP
 
+    builds = source_fault_builds("update", UPDATE_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(16)
 
     def rand(shape, scale=1.0):
@@ -4586,6 +4774,17 @@ def check_update_kernels(dev, timer) -> tuple[list, dict]:
 
     def shapes_of(cost):
         return [s.shape for s in Topology(cost).param_specs()]
+
+    def kept_timing(kernel, fn, key):
+        """ms, host ms and kernel-only ms of ``fn`` on a kept table."""
+        fn()
+        n0 = kernel.table_builds
+        out = {"ms": timer(fn), "host_ms": host_ms(fn),
+               "kernel_only_ms": device_ms([fn], key)}
+        if kernel.table_builds != n0:
+            raise AssertionError(f"{key}: the timed calls built "
+                                 f"{kernel.table_builds - n0} tables")
+        return out
 
     reset_name_counters()
     resnet = shapes_of(paddle.models.image.resnet_cost(
@@ -4598,17 +4797,11 @@ def check_update_kernels(dev, timer) -> tuple[list, dict]:
                                    0.0002 * 128)):
         ups = [UP.TensorUpdate(rand(s), rand(s, 1e-2), rand(s, 1e-2), lr,
                                0.9, False, wd) for s in shapes]
-        got, again = UP.fused_update(ups), UP.fused_update(ups)
-        err = 0.0
-        for u, (p2, v2), (p3, v3) in zip(ups, got, again):
-            want_p, want_v = UP.reference_update(u)
-            err = max(err, (p2 - want_p).abs().max().item(),
-                      (v2 - want_v).abs().max().item())
-            if not (bits_equal(p2, want_p) and bits_equal(v2, want_v)
-                    and bits_equal(p2, p3) and bits_equal(v2, v3)):
-                raise AssertionError(f"fused update on {label}: not the "
-                                     "twin's bits, or not on a rerun")
-        del got, again
+        ok, err = update_agrees(UP.fused_update, UP.reference_update, ups)
+        if not ok:
+            raise AssertionError(f"fused update on {label}: not the "
+                                 "twin's bits, not in place, or not on a "
+                                 "rerun")
         n = sum(u.p.numel() for u in ups)
         bound_ms, by = bound(20.0 * n, (6.0 if wd else 4.0) * n)
         libs = {}
@@ -4619,16 +4812,19 @@ def check_update_kernels(dev, timer) -> tuple[list, dict]:
             opt = torch.optim.SGD(ps, lr=lr, momentum=0.9, weight_decay=wd,
                                   **{kind: True})
             libs[kind] = timer(opt.step)
+            libs[f"{kind}_host"] = host_ms(opt.step)
             del ps, opt
-        launch = [lambda: UP.fused_update(ups)]
         dense[label] = {
             "tensors": len(ups), "params": n, "lr": lr, "mu": 0.9, "wd": wd,
-            "max_abs_err": err, "ms": timer(lambda: UP.fused_update(ups)),
-            "kernel_only_ms": device_ms(launch, "fused_update_kernel"),
+            "max_abs_err": err,
+            **kept_timing(UP.KERNEL, lambda: UP.fused_update(ups),
+                          "fused_update_kernel"),
             "plain_ms": timer(lambda: [UP.reference_update(u)
                                        for u in ups]),
             "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": libs["fused"], "library_foreach_ms": libs["foreach"]}
+            "library_ms": libs["fused"], "library_host_ms": libs["fused_host"],
+            "library_foreach_ms": libs["foreach"],
+            "library_foreach_host_ms": libs["foreach_host"]}
         del ups
         torch.cuda.empty_cache()
 
@@ -4643,36 +4839,43 @@ def check_update_kernels(dev, timer) -> tuple[list, dict]:
         ups.append(UP.TensorUpdate(rand((CTR_VOCAB, CTR_EMBED)), g,
                                    rand((CTR_VOCAB, CTR_EMBED), 1e-2), 0.05,
                                    0.9, False, 0.0))
-    got, again = EK.sparse_row_update(ups), EK.sparse_row_update(ups)
-    err = 0.0
-    for u, (p2, v2), (p3, v3) in zip(ups, got, again):
-        want_p, want_v = EK.reference_row_update(u)
-        err = max(err, (p2 - want_p).abs().max().item(),
-                  (v2 - want_v).abs().max().item())
-        still = ~(u.g != 0).any(dim=1)
-        if not (bits_equal(p2, want_p) and bits_equal(v2, want_v)
-                and bits_equal(p2, p3) and bits_equal(v2, v3)
-                and bits_equal(p2[still], u.p[still])
-                and bits_equal(v2[still], u.v[still])):
-            raise AssertionError("row-lazy update: not the twin's bits, not "
-                                 "on a rerun, or an untouched row moved")
+    ok, err = update_agrees(EK.sparse_row_update, EK.reference_row_update,
+                            ups, lazy=True)
+    if not ok:
+        raise AssertionError("row-lazy update: not the twin's bits, not in "
+                             "place, not on a rerun, or an untouched row "
+                             "moved")
     n = CTR_FIELDS * CTR_VOCAB * CTR_EMBED
-    bound_ms, by = bound(20.0 * n, 4.0 * touched * CTR_EMBED)
-    launch = [lambda: EK.sparse_row_update(ups)]
+    # in place: every gradient read (4 bytes an element), the touched
+    # rows' p and v read and written
+    bound_ms, by = bound(4.0 * n + 16.0 * touched * CTR_EMBED,
+                         4.0 * touched * CTR_EMBED)
     lazy = {"tables": CTR_FIELDS, "shape": [CTR_VOCAB, CTR_EMBED],
             "touched_rows": touched,
             "touched_share": touched / (CTR_FIELDS * CTR_VOCAB),
             "max_abs_err": err,
-            "ms": timer(lambda: EK.sparse_row_update(ups)),
-            "kernel_only_ms": device_ms(launch, "sparse_row_update_kernel"),
+            **kept_timing(EK.KERNEL_ROWS, lambda: EK.sparse_row_update(ups),
+                          "sparse_row_update_kernel"),
             "plain_ms": timer(lambda: [EK.reference_row_update(u)
                                        for u in ups]),
-            "bound_ms": bound_ms, "bound_by": by,
-            # in place, an untouched row would be read (g) and left alone
-            "bound_in_place_ms": (4.0 * n + 16.0 * touched * CTR_EMBED)
-            / HBM_BYTES_PER_S * 1e3,
-            "library_ms": None}
-    del ups, got, again
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+    # the planted faults: a stale kept table; untouched rows that move
+    faults = {"stale_table": stale_table_caught(dev)}
+    kernel = EK.KERNEL_ROWS
+    fn = kernel._fn or kernel._resolve()
+    kernel._fn = planted(*builds["untouched_rows_move"], kernel)
+    try:
+        moved, _ = update_agrees(EK.sparse_row_update,
+                                 EK.reference_row_update, ups, lazy=True)
+    finally:
+        kernel._fn = fn
+        kernel.tables.clear()
+    if moved:
+        raise AssertionError("the row-lazy kernel that moves untouched rows "
+                             "passed the twin check")
+    faults["untouched_rows_move"] = {"twin_check_passed": moved}
+    del ups
     torch.cuda.synchronize()
     src = "paddle_tpu_torch/ops/kernels/csrc/update.cu"
     big = dense["resnet50"]
@@ -4681,15 +4884,19 @@ def check_update_kernels(dev, timer) -> tuple[list, dict]:
              "shape": f"resnet50: {big['tensors']} tensors, "
                       f"{big['params']} params",
              "max_abs_err": max(d["max_abs_err"] for d in dense.values()),
-             **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}},
+             "alone_ms": big["kernel_only_ms"],
+             **{k: big[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}},
             {"name": "sparse_row_update", "route": "cuda", "source": src,
              "replaces": "paddle_tpu/ops/pallas/tpp/embedding.py:291",
              "shape": f"{CTR_FIELDS} x [{CTR_VOCAB}, {CTR_EMBED}]",
-             **{k: lazy[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}}]
+             "alone_ms": lazy["kernel_only_ms"],
+             **{k: lazy[k] for k in ("max_abs_err", "ms", "host_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}]
     return rows, {"phase": "update_kernels", "fused_update": dense,
-                  "sparse_row_update": lazy, "bit_identical": True}
+                  "sparse_row_update": lazy, "bit_identical": True,
+                  "in_place": True, "planted_faults": faults}
 
 
 def ctr_batches(rng, k, bs, below=None):
@@ -4868,15 +5075,22 @@ def train_ctr(dev, bs=1024, steps=10, lazy_below=900) -> tuple[dict, tuple]:
 
     each.clear()
     zero()
+    builds0 = (UP.KERNEL.table_builds, EK.KERNEL_ROWS.table_builds)
     t1 = time.perf_counter()
     costs = run(tr, data, stamp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     train_n = counts()
+    table_builds = {"fused_update": UP.KERNEL.table_builds - builds0[0],
+                    "sparse_row_update":
+                        EK.KERNEL_ROWS.table_builds - builds0[1]}
     peak = torch.cuda.max_memory_allocated(dev)
     if train_n != {n: c * steps for n, c in per_step.items()} or each:
         raise AssertionError(f"CTR train launches {train_n} != {per_step} x "
                              f"{steps}, or {len(each)} per-tensor loops")
+    if table_builds != {"fused_update": 1, "sparse_row_update": 1}:
+        raise AssertionError(f"CTR: update tables built over {steps} steps: "
+                             f"{table_builds}, not one each")
     if len(costs) != steps or not all(np.isfinite(costs)):
         raise AssertionError(f"CTR costs {costs}")
     step_ms = [1e3 * (b - a) for a, b in marks.values()]
@@ -4967,6 +5181,7 @@ def train_ctr(dev, bs=1024, steps=10, lazy_below=900) -> tuple[dict, tuple]:
            "touched_row_share_by_field": touched,
            "update_route_step_ms": route_ms,
            "max_memory_allocated_bytes": peak, "train_launches": train_n,
+           "update_table_builds": table_builds,
            "infer_launches": infer_n, "infer_equals_eval_step": True,
            "row_lazy_check": {"below": lazy_below, "steps": 3,
                               "l2": 1e-3, "rows_hit": int(hit.sum()),
@@ -8082,9 +8297,10 @@ BF16_LAST_FAULTS = {
         " - (j0 + k == tgt ? 1.f : 0.f)) * gr);"),
     "rows_rounded": (
         "embedding", "KERNEL_SCATTER_BF16",
-        "if (d < D) acc[q] += to_f(src[lane + 32 * q]);",
-        "if (d < D) acc[q] += to_f(__float2bfloat16_rn("
-        "to_f(src[lane + 32 * q])));")}
+        "load4(rows + p * D, d, D, vec_rows, x[e]);",
+        "load4(rows + p * D, d, D, vec_rows, x[e]);"
+        " for (int q = 0; q < 4; ++q)"
+        " x[e][q] = to_f(__float2bfloat16_rn(x[e][q]));")}
 #: the text classifier's table gradient: (ids, vocab, embed), the ids of
 #: a [64, 128] batch with the 28 padded steps of each row id 0
 SCATTER_BF16_SHAPE = (8192, 30000, 128)
@@ -8476,10 +8692,10 @@ def check_scatter_bf16_kernels(dev, timer) -> tuple[list, dict]:
     """Row 18's bf16 form at the text row's table gradient (8,192 ids into
     [30000, 128], 1,792 of them padding id 0), with f32 and with bf16
     rows: ``scatter_bf16_agreement`` must hold; timed with the L2 flushed
-    and alone (a trace; the kernel without the wrapper's clone and sort)
-    beside its twin, its bound (the table read and written, the rows and
-    ids read: the function's bytes) and ``index_add`` on the bf16 table
-    with bf16 rows."""
+    and alone (a trace: the memset and the three passes, each's device
+    time and their sum) beside its twin, its bound (the table read and
+    written, the rows and ids read: the function's bytes) and
+    ``index_add`` on the bf16 table with bf16 rows."""
     from paddle_tpu_torch.ops.kernels import embedding as EK
 
     table, ids, rows32, rows16 = scatter_bf16_inputs(dev)
@@ -8497,6 +8713,8 @@ def check_scatter_bf16_kernels(dev, timer) -> tuple[list, dict]:
                   + 8 * n)
         bound_ms, bound_by = bound(nbytes, float(n) * embed,
                                    BF16_FLOPS_PER_S)
+        passes = device_passes_ms(
+            [fn], SCATTER_PASSES + ("sum_runs_kernel<__nv_bfloat16",))
         rows.append({
             "name": ("embedding_scatter_add_bf16" if label == "f32"
                      else "embedding_scatter_add_bf16_rows_bf16"),
@@ -8506,7 +8724,8 @@ def check_scatter_bf16_kernels(dev, timer) -> tuple[list, dict]:
             "shape": [n, vocab, embed],
             "dtype": f"bfloat16 table, {label} rows",
             "max_abs_err": a["max_abs_err"], "ms": timer(fn),
-            "alone_ms": device_ms([fn], "scatter_add_kernel<__nv_bfloat16"),
+            "host_ms": host_ms(fn),
+            "alone_ms": passes["total"], "passes_ms": passes,
             "plain_ms": timer(lambda r=r: EK.embedding_scatter_add_reference(
                 table, ids, r)),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -9026,7 +9245,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi, flush=True)
-    extra = ("shape", "dtype", "alone_ms", "launches_on")
+    extra = ("shape", "dtype", "alone_ms", "host_ms", "launches_on")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,19 +7,23 @@
   (``torch.unique``; a sort, as the JAX package's is jnp on both sides);
 - :func:`embedding_gather` — ``csrc/embedding.cu``: ``table[clamp(ids)]``
   in the table's dtype (an f32 and a bf16 form, counted apart);
-- :func:`embedding_scatter_add` — ``csrc/embedding.cu``: ``table`` plus
-  the rows scattered to their ids, duplicates summed in a fixed order
-  (a stable sort by id, then one warp per run), ids outside ``[0, V)``
-  dropped; the sum in f32 from the table read as f32, rounded to the
-  table's dtype once (an f32 and a bf16 form, counted apart; the bf16
-  one takes f32 or bf16 rows);
+- :func:`embedding_scatter_add` — ``csrc/embedding.cu``: a fresh table,
+  ``table`` plus the rows scattered to their ids, duplicates summed in a
+  fixed order, ids outside ``[0, V)`` dropped; the sum in f32 from the
+  table read as f32, rounded to the table's dtype once (an f32 and a bf16
+  form, counted apart; the bf16 one takes f32 or bf16 rows).  One C call
+  runs the passes: the ids grouped by a stable counting sort of their
+  positions (:func:`group_ids`, twin :func:`group_ids_reference`), then
+  each output row written once, an untouched one copied, a touched one
+  its table row plus its run's rows summed in position order;
 - :func:`fused_embedding_lookup` — the autograd composition: the forward
   dedups, gathers each unique row once and re-expands; the backward
   scatter-adds the cotangents, upcast to f32, into a zero f32 table (the
   JAX package's ``segment_sum`` + ``embedding_scatter_add`` in one
   launch) and casts it to the table's dtype once;
 - :func:`sparse_row_update` — ``csrc/update.cu``: the row-lazy SGD /
-  Momentum step of a list of ``[V, D]`` tables in one launch (rows whose
+  Momentum step of a list of ``[V, D]`` tables in one launch, in place
+  from a table kept on the card (``update.TableKernel``; rows whose
   gradient is all zero keep parameter and slot bit for bit).
 
 CPU tensors take the plain twins; CUDA tensors launch the kernels or
@@ -28,13 +32,15 @@ raise."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops.kernels._build import Kernel
-from paddle_tpu_torch.ops.kernels.update import TensorUpdate, launch_table
+from paddle_tpu_torch.ops.kernels.update import (
+    TableKernel, TensorUpdate, launch_table, twin_in_place)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,12 +51,15 @@ KERNEL_GATHER_BF16 = Kernel("embedding", "embedding_gather_bf16",
 #: {table dtype: the gather kernel's form}
 GATHER_FORMS = {torch.float32: KERNEL_GATHER,
                 torch.bfloat16: KERNEL_GATHER_BF16}
+_L = ctypes.c_longlong
 KERNEL_SCATTER = Kernel("embedding", "embedding_scatter_add_f32",
-                        [_P, _P, _P, _P, _I, _I, _I, _P])
+                        [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P])
 KERNEL_SCATTER_BF16 = Kernel("embedding", "embedding_scatter_add_bf16",
-                             [_P, _P, _P, _P, _I, _I, _I, _I, _P])
-KERNEL_ROWS = Kernel("update", "sparse_row_update_f32",
-                     [_P, _I, ctypes.c_longlong, _P])
+                             [_P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _P])
+#: the grouping passes; a scatter-add call runs them too, and counts them
+KERNEL_GROUP = Kernel("embedding", "embedding_group_ids",
+                      [_P, _P, _L, _I, _I, _P])
+KERNEL_ROWS = TableKernel("update", "sparse_row_update_f32")
 
 
 def dedup_ids(ids):
@@ -61,38 +70,51 @@ def dedup_ids(ids):
     return torch.unique(ids.reshape(-1), sorted=True, return_inverse=True)
 
 
-def _check(table, ids, rows=None):
+def _refuse(msg: str) -> None:
+    enforce(False, msg)
+
+
+def _check(table, ids, rows=None, num_rows=None):
     """What the kernels take: a [V, D] table and flat int64 ids; the
     gather (no ``rows``) an f32 or a bf16 table (bf16: D % 8 == 0 and
     16-byte aligned, for its 16-byte copies); the scatter-add an f32
-    table with f32 rows, or a bf16 table with f32 or bf16 rows."""
-    enforce(table.dim() == 2, f"table must be [V, D], got {tuple(table.shape)}")
-    enforce(ids.dim() == 1, f"ids must be flat [N], got {tuple(ids.shape)}")
-    if rows is not None:
-        enforce(tuple(rows.shape) == (ids.shape[0], table.shape[1]),
-                f"rows must be [N, D] = [{ids.shape[0]}, {table.shape[1]}], "
-                f"got {tuple(rows.shape)}")
-    if table.device.type == "cpu":
-        return
-    tensors = [table] + ([rows] if rows is not None else [])
-    if rows is None and table.dtype == torch.bfloat16:
-        enforce(table.shape[1] % 8 == 0 and table.data_ptr() % 16 == 0,
-                "the bf16 gather copies 16 bytes at a time: D must be a "
-                "multiple of 8 and the table 16-byte aligned")
-    elif rows is not None and table.dtype == torch.bfloat16:
-        enforce(rows.dtype in (torch.float32, torch.bfloat16),
-                f"the bf16 scatter-add takes float32 or bfloat16 rows, got "
-                f"{rows.dtype}")
+    table with f32 rows, or a bf16 table with f32 or bf16 rows.
+    ``table`` None is a table gradient of ``num_rows`` rows in the rows'
+    dtype.  Messages are formatted only on a refusal: the checks run on
+    every call."""
+    if table is None:
+        shape, dtype, device = ((num_rows, rows.shape[1]), rows.dtype,
+                                rows.device)
     else:
-        enforce(all(t.dtype == torch.float32 for t in tensors),
-                "the embedding kernels take float32 tables and rows (the "
+        shape, dtype, device = tuple(table.shape), table.dtype, table.device
+    if len(shape) != 2:
+        _refuse(f"table must be [V, D], got {shape}")
+    if ids.dim() != 1:
+        _refuse(f"ids must be flat [N], got {tuple(ids.shape)}")
+    if rows is not None and tuple(rows.shape) != (ids.shape[0], shape[1]):
+        _refuse(f"rows must be [N, D] = [{ids.shape[0]}, {shape[1]}], got "
+                f"{tuple(rows.shape)}")
+    if device.type == "cpu":
+        return
+    tensors = [t for t in (table, rows) if t is not None]
+    if rows is None and dtype == torch.bfloat16:
+        if shape[1] % 8 or table.data_ptr() % 16:
+            _refuse("the bf16 gather copies 16 bytes at a time: D must be a "
+                    "multiple of 8 and the table 16-byte aligned")
+    elif rows is not None and dtype == torch.bfloat16:
+        if rows.dtype not in (torch.float32, torch.bfloat16):
+            _refuse(f"the bf16 scatter-add takes float32 or bfloat16 rows, "
+                    f"got {rows.dtype}")
+    elif any(t.dtype != torch.float32 for t in tensors):
+        _refuse("the embedding kernels take float32 tables and rows (the "
                 "gather a bfloat16 table too, the scatter-add a bfloat16 "
                 "table with float32 or bfloat16 rows)")
-    enforce(ids.dtype == torch.int64, "the embedding kernels take int64 ids")
-    enforce(all(t.is_contiguous() for t in tensors + [ids]),
-            "the embedding kernels need contiguous operands")
-    enforce(len({t.device for t in tensors + [ids]}) == 1,
-            "embedding operands on several devices")
+    if ids.dtype != torch.int64:
+        _refuse("the embedding kernels take int64 ids")
+    if not all(t.is_contiguous() for t in tensors + [ids]):
+        _refuse("the embedding kernels need contiguous operands")
+    if any(t.device != device for t in tensors + [ids]):
+        _refuse("embedding operands on several devices")
 
 
 # -- gather -------------------------------------------------------------------
@@ -135,50 +157,146 @@ def embedding_scatter_add_reference(table, ids, rows):
         table.dtype)
 
 
-def _scatter_add_into(out, ids, rows):
-    """The kernel on ``out`` in place: sort the ids (stable), then one warp
-    per run of equal ids sums its rows in order and adds them once."""
-    n, (v, d) = ids.shape[0], out.shape
-    if n == 0:
-        return out
-    sorted_ids, perm = torch.sort(ids, stable=True)
+#: positions a grouping block sorts, entries of ``order`` a segment warp
+#: sums (``kChunk``, ``kSeg`` in csrc/embedding.cu)
+GROUP_CHUNK, SEGMENT = 1024, 16
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_layout(n: int, v: int, d: int) -> dict:
+    """The scratch block of the scatter-add's passes (``struct Layout`` in
+    csrc/embedding.cu): {section: (byte offset, elements)} and ``total``
+    bytes.  The counters (counts, done, arrive) come first, so one memset
+    clears them; ``d`` 0 is the grouping alone."""
+    def up16(b):
+        return -(-b // 16) * 16
+
+    chunks = -(-n // GROUP_CHUNK) if n > 0 else 1
+    segs = -(-n // SEGMENT)
+    out, off = {}, 0
+    for name, size, count in (("counts", 4, v), ("done", 4, 1),
+                              ("arrive", 4, segs), ("offsets", 4, v + 1),
+                              ("order", 4, n),
+                              ("keys", 8, chunks * GROUP_CHUNK),
+                              ("partial", 4, segs * 2 * d)):
+        out[name] = (off, count)
+        off += up16(size * count)
+    out["total"] = off
+    return out
+
+
+def group_ids_reference(ids, num_rows: int):
+    """Plain twin of the grouping passes: (counts [V], offsets [V + 1],
+    order [offsets[V]]), int32: each id's count among the ids in ``[0,
+    V)``, their exclusive sum, and the positions of those ids sorted by id,
+    equal ids in increasing position (a stable argsort)."""
+    ids = ids.reshape(-1).long()
+    keep = (ids >= 0) & (ids < num_rows)
+    counts = torch.bincount(ids[keep], minlength=num_rows)
+    offsets = torch.zeros(num_rows + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(counts, 0)
+    pos = torch.nonzero(keep).reshape(-1)
+    order = pos[torch.argsort(ids[keep], stable=True)]
+    return (counts.to(torch.int32), offsets.to(torch.int32),
+            order.to(torch.int32))
+
+
+def scatter_add_by_groups(table, ids, rows, num_rows: int | None = None):
+    """The scatter-add composed as the kernel computes it, on any device:
+    :func:`group_ids_reference`, then each run's rows summed in f32 in
+    position order, added to its table row (zeros without a table) read as
+    f32, rounded once to the table's (or the rows') dtype.  The plain
+    statement of the kernels' order of sums, for the tests."""
+    v = table.shape[0] if table is not None else num_rows
+    counts, offsets, order = group_ids_reference(ids.cpu(), v)
+    dtype = table.dtype if table is not None else rows.dtype
+    out = (torch.zeros(v, rows.shape[1], dtype=torch.float32)
+           if table is None else at_least_f32(table.cpu()).clone())
+    r32 = at_least_f32(rows.cpu())
+    for row in torch.nonzero(counts).reshape(-1).tolist():
+        run = order[int(offsets[row]):int(offsets[row + 1])].long()
+        acc = r32[run[0]].clone()
+        for j in run[1:]:
+            acc += r32[j]
+        out[row] += acc
+    return out.to(dtype).to(rows.device)
+
+
+def group_ids(ids, num_rows: int):
+    """The grouping passes of the scatter-add on their own (the card's
+    ``embedding_group_ids``; the twin on the CPU): (counts, offsets,
+    order) as :func:`group_ids_reference` gives them."""
+    enforce(ids.dim() == 1, f"ids must be flat [N], got {tuple(ids.shape)}")
+    if ids.device.type == "cpu":
+        return group_ids_reference(ids, num_rows)
+    enforce(ids.dtype == torch.int64 and ids.is_contiguous(),
+            "the grouping takes contiguous int64 ids")
+    n, v = ids.shape[0], num_rows
+    lay = scratch_layout(n, v, 0)
+    scratch = torch.empty(lay["total"], dtype=torch.uint8, device=ids.device)
+    KERNEL_GROUP.launch(ids.data_ptr(), scratch.data_ptr(), lay["total"], n,
+                        v, torch.cuda.current_stream().cuda_stream)
+
+    def section(name, count):
+        off = lay[name][0]
+        return scratch[off:off + 4 * count].view(torch.int32)
+
+    offsets = section("offsets", v + 1)
+    return (section("counts", v), offsets,
+            section("order", n)[:int(offsets[v])])
+
+
+def _scatter_add(table, ids, rows, num_rows: int):
+    """The scatter-add kernel of the output's dtype: a fresh [V, D] table,
+    every row written once (``table`` None: a zero table), in one C call
+    (the grouping passes, then the output pass).  Returns the output."""
+    n, d, v = ids.shape[0], rows.shape[1], num_rows
+    dtype = rows.dtype if table is None else table.dtype
+    out = torch.empty(v, d, dtype=dtype, device=rows.device)
+    lay = scratch_layout(n, v, d)
+    scratch = torch.empty(lay["total"], dtype=torch.uint8, device=rows.device)
     stream = torch.cuda.current_stream().cuda_stream
-    if out.dtype == torch.bfloat16:
-        KERNEL_SCATTER_BF16.launch(out.data_ptr(), sorted_ids.data_ptr(),
-                                   perm.data_ptr(), rows.data_ptr(),
-                                   int(rows.dtype == torch.bfloat16), n, v,
-                                   d, stream)
+    tab = 0 if table is None else table.data_ptr()
+    if dtype == torch.bfloat16:
+        KERNEL_SCATTER_BF16.launch(out.data_ptr(), tab, ids.data_ptr(),
+                                   rows.data_ptr(),
+                                   int(rows.dtype == torch.bfloat16),
+                                   scratch.data_ptr(), lay["total"], n, v, d,
+                                   stream)
     else:
-        KERNEL_SCATTER.launch(out.data_ptr(), sorted_ids.data_ptr(),
-                              perm.data_ptr(), rows.data_ptr(), n, v, d,
-                              stream)
+        KERNEL_SCATTER.launch(out.data_ptr(), tab, ids.data_ptr(),
+                              rows.data_ptr(), scratch.data_ptr(),
+                              lay["total"], n, v, d, stream)
+    # every scatter-add call runs the grouping passes once
+    KERNEL_GROUP.launches += 1
     return out
 
 
 def table_grad(ids, rows, num_rows: int):
     """The table gradient of a lookup: a zero [V, D] table plus each row
     of ``rows`` at its id (the JAX package's ``segment_sum`` then
-    ``embedding_scatter_add`` into zeros; one scatter-add launch on the
-    card)."""
-    zeros = torch.zeros(num_rows, rows.shape[1], dtype=rows.dtype,
-                        device=rows.device)
+    ``embedding_scatter_add`` into zeros), in the rows' dtype; on the card
+    one scatter-add call with no table (zeros are written where no id
+    lands)."""
     if rows.device.type == "cpu":
+        zeros = torch.zeros(num_rows, rows.shape[1], dtype=rows.dtype)
         return embedding_scatter_add_reference(zeros, ids, rows)
-    _check(zeros, ids, rows)
-    return _scatter_add_into(zeros, ids, rows)
+    _check(None, ids, rows, num_rows)
+    return _scatter_add(None, ids, rows, num_rows)
 
 
 def embedding_scatter_add(table, ids, rows):
-    """``table + scatter_add(ids -> rows)``: duplicate ids sum exactly and
-    in a fixed order (reruns are bit-identical), ids outside ``[0, V)``
-    (e.g. the ``-1`` pad convention) contribute nothing.  The sum is f32
-    (the table read as f32, the rows added as f32) rounded to the table's
-    dtype once; on the card an f32 table with f32 rows takes the f32
-    form, a bf16 table with f32 or bf16 rows the bf16 form."""
+    """``table + scatter_add(ids -> rows)``, a fresh table: duplicate ids
+    sum exactly and in a fixed order (reruns are bit-identical), ids
+    outside ``[0, V)`` (e.g. the ``-1`` pad convention) contribute
+    nothing.  The sum is f32 (the table read as f32, the rows added as f32)
+    rounded to the table's dtype once; on the card an f32 table with f32
+    rows takes the f32 form, a bf16 table with f32 or bf16 rows the bf16
+    form."""
     _check(table, ids, rows)
     if table.device.type == "cpu":
         return embedding_scatter_add_reference(table, ids, rows)
-    return _scatter_add_into(table.clone(), ids, rows)
+    return _scatter_add(table, ids, rows, table.shape[0])
 
 
 # -- the fused lookup --------------------------------------------------------------
@@ -255,12 +373,13 @@ def reference_row_update(u: TensorUpdate):
 
 
 def sparse_row_update(updates: list[TensorUpdate]) -> list[tuple]:
-    """The row-lazy step of every ``[V, D]`` table of ``updates``: [(p',
-    v' or None)], fresh tensors.  CPU tensors take the plain twin; CUDA
-    tensors (float32) take one launch of the kernel for the whole list
-    (one warp a row; untouched rows copied through), or raise."""
+    """The row-lazy step of every ``[V, D]`` table of ``updates``, in
+    place: [(p, v or None)], the tensors given.  CPU tensors take the
+    plain twin (its results copied in); CUDA tensors (float32, p and v
+    contiguous) take one launch of the kernel for the whole list (one warp
+    a row; an untouched row is neither read nor written), or raise."""
     if not updates:
         return []
     if updates[0].p.device.type == "cpu":
-        return [reference_row_update(u) for u in updates]
+        return [twin_in_place(reference_row_update, u) for u in updates]
     return launch_table(KERNEL_ROWS, updates, rows=True)

@@ -73,8 +73,11 @@ class SGD:
                                             compute_dtype)
         self._eval_step = build_eval_step(self.topology)
 
-    def _params_dict(self) -> dict[str, torch.Tensor]:
-        return {n: t.to(self.device)
+    def _params_dict(self, copy: bool = False) -> dict[str, torch.Tensor]:
+        """The parameters on the trainer's device; ``copy``: always fresh
+        tensors, which a train step may update in place (it donates its
+        inputs, as the JAX package's does)."""
+        return {n: t.to(self.device, copy=copy)
                 for n, t in self.parameters.as_dict().items()}
 
     def _feeder(self, feeding, device=None) -> DataFeeder:
@@ -99,7 +102,8 @@ class SGD:
             if isinstance(t, SequenceBatch):
                 return SequenceBatch(wide(t.data), t.length)
             t = torch.as_tensor(t, device=cpu)
-            return t.double() if t.is_floating_point() else t
+            return (t.to(torch.float64, copy=True) if t.is_floating_point()
+                    else t)
 
         params = {n: wide(t) for n, t in self.parameters.as_dict().items()}
         states = {k: wide(v) for k, v in self.states.items()}
@@ -122,7 +126,8 @@ class SGD:
         mean over the pass)."""
         handler = event_handler or _default_event_handler
         feeder = self._feeder(feeding)
-        params = self._params_dict()
+        # the step updates these in place: the Parameters keep their own
+        params = self._params_dict(copy=True)
         states = self.states
         opt_state = self._opt_state
         if opt_state is None:
@@ -139,8 +144,10 @@ class SGD:
                 batch_metrics.append(metrics)
                 handler(v2_event.EndIteration(pass_id, batch_id,
                                               float(cost), metrics))
-            # written back every pass, so a handler or test() sees them
-            self.parameters.update_from(params)
+            # written back every pass, so a handler or test() sees them;
+            # copies, which the next pass's steps leave as they are
+            self.parameters.update_from(
+                {n: t.clone() for n, t in params.items()})
             self.states = states
             self._opt_state = opt_state
             handler(v2_event.EndPass(pass_id, _mean_dicts(batch_metrics)))

@@ -448,7 +448,8 @@ class Run:
                 np.stack([x for x, _ in batch])).double(),
                     "label": torch.tensor([y for _, y in batch])}
             p, o, s, c, _ = step(p, o, s, feed, 0)
-            out.append((float(c), {n: v.numpy() for n, v in p.items()},
+            # copies: the next step updates p in place
+            out.append((float(c), {n: v.numpy().copy() for n, v in p.items()},
                         {k: v.numpy() for k, v in s.items()}))
         return out
 

@@ -1753,6 +1753,20 @@ def _bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def _fresh(ups):
+    """Copies of the updates' p and v (a view at an offset stays one), the
+    gradients shared: each in-place run takes its own."""
+    def copy(t):
+        if t is None:
+            return None
+        if not t.storage_offset():
+            return t.clone()
+        buf = torch.empty(t.numel() + 5, device=t.device)
+        return buf[5:].view(t.shape).copy_(t)
+
+    return [dataclasses.replace(u, p=copy(u.p), v=copy(u.v)) for u in ups]
+
+
 def _updates(rng, dev, kind, wd, shapes=UPDATE_SHAPES):
     from paddle_tpu_torch.ops.kernels import update as U
 
@@ -1779,15 +1793,20 @@ def test_fused_update_kernel_is_bit_equal_to_the_twin(cuda, kind, wd):
 
     ups = _updates(np.random.default_rng(len(kind) + int(wd * 100)), cuda,
                    kind, wd)
+    want = [U.reference_update(u) for u in ups]
+    # in place: each run takes its own copies of p and v
+    first, second = _fresh(ups), _fresh(ups)
     before = U.KERNEL.launches
-    got = U.fused_update(ups)
-    again = U.fused_update(ups)
+    got = U.fused_update(first)
+    again = U.fused_update(second)
     torch.cuda.synchronize()
     assert U.KERNEL.launches == before + 2
-    for u, (p2, v2), (p3, v3) in zip(ups, got, again):
-        want_p, want_v = U.reference_update(u)
-        assert p2.shape == u.p.shape and _bits(p2, want_p) and _bits(p2, p3)
-        assert (v2 is None) == (u.v is None)
+    for u, (want_p, want_v), (p2, v2), (p3, v3) in zip(first, want, got,
+                                                        again):
+        assert p2 is u.p and v2 is u.v
+        assert p2.shape == want_p.shape and _bits(p2, want_p)
+        assert _bits(p2, p3)
+        assert (v2 is None) == (want_v is None)
         if v2 is not None:
             assert _bits(v2, want_v) and _bits(v2, v3)
 
@@ -1813,13 +1832,15 @@ def test_sparse_row_kernel_is_bit_equal_to_the_twin(cuda, kind, wd):
             _rand(rng, rows, d).to(cuda), g.to(cuda),
             None if kind == "sgd" else _rand(rng, rows, d).to(cuda), lr=0.05,
             mu=0.9, nesterov=kind == "nesterov", weight_decay=wd))
+    want = [EK.reference_row_update(u) for u in ups]
+    first, second = _fresh(ups), _fresh(ups)
     before = EK.KERNEL_ROWS.launches
-    got = EK.sparse_row_update(ups)
-    again = EK.sparse_row_update(ups)
+    got = EK.sparse_row_update(first)
+    again = EK.sparse_row_update(second)
     torch.cuda.synchronize()
     assert EK.KERNEL_ROWS.launches == before + 2
-    for u, (p2, v2), (p3, v3) in zip(ups, got, again):
-        want_p, want_v = EK.reference_row_update(u)
+    for u, (want_p, want_v), (p2, v2), (p3, v3) in zip(ups, want, got,
+                                                        again):
         assert _bits(p2, want_p) and _bits(p2, p3)
         untouched = ~(u.g != 0).any(dim=1)
         assert untouched[1] and not untouched[2]
@@ -1839,12 +1860,12 @@ def test_fused_update_takes_resnet50s_161_tensors_in_one_launch(cuda):
     shapes = [s.shape for s in Topology(cost).param_specs()]
     assert len(shapes) == 161
     ups = _updates(np.random.default_rng(50), cuda, "momentum", 0.0, shapes)
+    want = [U.reference_update(u) for u in ups]
     before = U.KERNEL.launches
     got = U.fused_update(ups)
     torch.cuda.synchronize()
     assert U.KERNEL.launches == before + 1
-    for u, (p2, v2) in zip(ups, got):
-        want_p, want_v = U.reference_update(u)
+    for (want_p, want_v), (p2, v2) in zip(want, got):
         assert _bits(p2, want_p) and _bits(v2, want_v)
 
 
@@ -1878,23 +1899,30 @@ def test_routed_apply_on_card_is_bit_identical_to_the_loop(cuda, kind):
                      regularization=TO.L2Regularization(rate=1e-3))
     rng = np.random.default_rng(len(kind))
     p0 = {n: _rand(rng, *s).to(cuda) for n, s in shapes.items()}
-    pa, sa = p0, opt.init(p0, specs)
+    # the routed apply updates in place: it gets its own copies
+    given = {n: t.clone() for n, t in p0.items()}
+    pa, sa = given, opt.init(given, specs)
     pb, sb = p0, opt.init(p0, specs)
     before = (U.KERNEL.launches, EK.KERNEL_ROWS.launches)
-    for _ in range(3):
+    builds = (U.KERNEL.table_builds, EK.KERNEL_ROWS.table_builds)
+    for _ in range(10):
         g = {n: _rand(rng, *s).to(cuda) for n, s in shapes.items()}
         g["emb"][torch.from_numpy(rng.random(100) < 0.5).to(cuda)] = 0.0
         pa, sa = opt.apply(g, pa, sa, specs)
         pb, sb = opt._apply_each(g, pb, sb, specs)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        for n in shapes:
+            assert _bits(pa[n], pb[n]), n
     assert (U.KERNEL.launches - before[0],
-            EK.KERNEL_ROWS.launches - before[1]) == (3, 3)
+            EK.KERNEL_ROWS.launches - before[1]) == (10, 10)
+    # the tables were built at the first step and kept
+    assert (U.KERNEL.table_builds - builds[0],
+            EK.KERNEL_ROWS.table_builds - builds[1]) == (1, 1)
     for n in shapes:
-        assert _bits(pa[n], pb[n]), n
+        assert pa[n] is given[n]
         if isinstance(sb["slots"][n], dict):
             assert _bits(sa["slots"][n]["velocity"],
                          sb["slots"][n]["velocity"]), n
-    assert pa["frozen"] is p0["frozen"]
 
 
 def test_update_routes_float64_to_the_twins_and_refuses_half(cuda):
@@ -1914,6 +1942,198 @@ def test_update_routes_float64_to_the_twins_and_refuses_half(cuda):
         U.fused_update([U.TensorUpdate(
             torch.ones(7, device=cuda).half(),
             torch.ones(7, device=cuda).half())])
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_kept_table_gives_the_twins_bits_over_ten_steps_and_a_miss(cuda,
+                                                                   rows):
+    """In place across 10 steps, new gradients each step: the dense or
+    row-lazy kernel against the twins applied step by step, in bits; one
+    table built for the 10 steps, one more after a parameter tensor is
+    replaced (a miss), the twins' bits still."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    rng = np.random.default_rng(17 + rows)
+    kernel, run, twin = ((EK.KERNEL_ROWS, EK.sparse_row_update,
+                          EK.reference_row_update) if rows else
+                         (U.KERNEL, U.fused_update, U.reference_update))
+    shapes = ([(1000, 64), (37, 5), (9, 100)] if rows
+              else [(64, 3, 3, 3), (2049,), (10,), (300, 7)])
+    ups = _updates(rng, cuda, "mixed" if not rows else "momentum", 0.01,
+                   shapes)
+    if rows:
+        ups = [dataclasses.replace(u, p=u.p.clone()) for u in ups]
+    ref = _fresh(ups)
+
+    def step():
+        for u, r in zip(ups, ref):
+            g = _rand(rng, *u.p.shape).to(cuda)
+            if rows:
+                g[torch.from_numpy(rng.random(u.p.shape[0]) < 0.4)] = 0.0
+            u.g = r.g = g
+            r.p, r.v = twin(r)
+        run(ups)
+        torch.cuda.synchronize()
+        for u, r in zip(ups, ref):
+            assert _bits(u.p, r.p) and (u.v is None or _bits(u.v, r.v))
+
+    builds = kernel.table_builds
+    for _ in range(10):
+        step()
+    assert kernel.table_builds == builds + 1
+    ups[1] = dataclasses.replace(ups[1], p=ups[1].p.clone())
+    step()
+    step()
+    assert kernel.table_builds == builds + 2
+
+
+def test_kept_table_call_builds_pins_and_allocates_nothing(cuda,
+                                                           monkeypatch):
+    """A ``fused_update`` call on a kept table builds no numpy table,
+    pins no host block and allocates no output; each written tensor's
+    version counter moves."""
+    from paddle_tpu_torch.ops.kernels import update as U
+
+    ups = _updates(np.random.default_rng(4), cuda, "momentum", 0.0)
+    U.fused_update(ups)
+
+    def refuse(*a, **kw):
+        raise AssertionError("called on a kept table")
+
+    monkeypatch.setattr(U, "build_table", refuse)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", refuse)
+    monkeypatch.setattr(torch, "empty_like", refuse)
+    versions = [(u.p._version, u.v._version) for u in ups]
+    U.fused_update(ups)
+    torch.cuda.synchronize()
+    for u, (pv, vv) in zip(ups, versions):
+        assert u.p._version > pv and u.v._version > vv
+
+
+@pytest.mark.parametrize("n", [0, 1, 8192, 70000])
+@pytest.mark.parametrize("v", [1, 37, 30000, 50257, 10 ** 6])
+def test_group_ids_kernel_equals_the_twin(cuda, v, n):
+    """The grouping passes' counts, offsets and order against
+    ``group_ids_reference``, in integers: ids in [-2, V + 2) (those
+    outside [0, V) dropped)."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    gen = torch.Generator().manual_seed(v + n)
+    ids = torch.randint(-2, v + 2, (n,), generator=gen)
+    before = EK.KERNEL_GROUP.launches
+    got = EK.group_ids(ids.to(cuda), v)
+    torch.cuda.synchronize()
+    assert EK.KERNEL_GROUP.launches == before + 1
+    for g, w in zip(got, EK.group_ids_reference(ids, v)):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("v", [30000, 50257])
+def test_group_ids_kernel_keeps_a_long_run_in_order(cuda, v):
+    """8,192 equal ids (one run across 8 grouping chunks), and the text
+    row's batch (ids of 64 rows of 128, the last 28 steps padding id 0)."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    gen = torch.Generator().manual_seed(v)
+    batch = torch.randint(0, v, (64, 128), generator=gen)
+    batch[:, 100:] = 0
+    for ids in (torch.full((8192,), 7), batch.reshape(-1)):
+        got = EK.group_ids(ids.to(cuda), v)
+        for g, w in zip(got, EK.group_ids_reference(ids, v)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("table_dtype,rows_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,v,d", [(0, 5, 8), (1, 3, 8), (8192, 30000, 128),
+                                   (5000, 37, 40), (2000, 1, 130)])
+def test_scatter_forms_match_their_twins_and_rerun_in_bits(
+        cuda, table_dtype, rows_dtype, n, v, d):
+    """Each form of the scatter-add and of the table gradient (no table)
+    against the plain composition of its order of sums
+    (``scatter_add_by_groups``) and the twin: f32 within 1e-5, or on a row
+    with a long run (up to 2,048 rows) within the two orders' f32 error
+    bound, k 2^-23 (|table| + sum |rows|) for a run of k; bf16 within
+    one ulp on at most 1% of the entries; reruns in the same bits; one C
+    call a call, the grouping counted."""
+    import chip_smoke as S
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    gen = torch.Generator(device=cuda).manual_seed(n + v + d)
+    table = torch.randn(v, d, generator=gen, device=cuda).to(table_dtype)
+    ids = torch.randint(-2, v + 2, (n,), generator=gen, device=cuda)
+    if n >= 8192:
+        ids[: n // 4] = 0               # a long run, as padding gives
+    rows = torch.randn(n, d, generator=gen, device=cuda).to(rows_dtype)
+    form = (EK.KERNEL_SCATTER if table_dtype == torch.float32
+            else EK.KERNEL_SCATTER_BF16)
+    for tab, out_dtype in ((table, table_dtype), (None, rows_dtype)):
+        if tab is None and rows_dtype != table_dtype:
+            continue
+        before = (form.launches, EK.KERNEL_GROUP.launches)
+        if tab is None:
+            got, again = (EK.table_grad(ids, rows, v) for _ in range(2))
+            base = torch.zeros(v, d, dtype=rows_dtype, device=cuda)
+        else:
+            got, again = (EK.embedding_scatter_add(tab, ids, rows)
+                          for _ in range(2))
+            base = tab
+        torch.cuda.synchronize()
+        assert (form.launches - before[0],
+                EK.KERNEL_GROUP.launches - before[1]) == (2, 2)
+        assert got.dtype == out_dtype and torch.equal(got, again)
+        twin = EK.embedding_scatter_add_reference(base, ids, rows)
+        plain = EK.scatter_add_by_groups(tab, ids, rows, num_rows=v)
+        if out_dtype == torch.float32:
+            bound = _sum_bound(base, ids, rows)
+            assert bool(((got - plain).abs() <= bound).all())
+            assert bool(((got - twin).abs() <= bound).all())
+        else:
+            assert S.bf16_exact_agreement(got, twin)["ok"]
+            assert S.bf16_exact_agreement(got, plain)["ok"]
+
+
+def _sum_bound(base, ids, rows):
+    """Per entry, 1e-5 or the f32 error bound of two summation orders of
+    a row's run of k: k 2^-23 (|table| + sum |rows|)."""
+    v = base.shape[0]
+    keep = (ids >= 0) & (ids < v)
+    mag = base.double().abs().index_add(0, ids[keep],
+                                        rows[keep].double().abs())
+    k = torch.bincount(ids[keep], minlength=v).double()[:, None]
+    return torch.clamp(k * 2.0 ** -23 * mag, min=1e-5)
+
+
+def test_scatter_add_path_sorts_clones_and_zeros_nothing(cuda, monkeypatch):
+    """The scatter-add and the table gradient on the card: no
+    ``torch.sort``, no clone, no ``torch.zeros``; one ctypes call a
+    call."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    table = torch.randn(300, 16, device=cuda)
+    ids = torch.randint(-1, 301, (1000,), device=cuda)
+    rows = torch.randn(1000, 16, device=cuda)
+    want = EK.embedding_scatter_add(table, ids, rows)
+    grad = EK.table_grad(ids, rows, 300)
+
+    def refuse(*a, **kw):
+        raise AssertionError("not on the scatter-add's path")
+
+    calls = []
+    real = EK.KERNEL_SCATTER.launch
+    monkeypatch.setattr(EK.KERNEL_SCATTER, "launch",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(EK.KERNEL_GROUP, "launch", refuse)
+    for name in ("sort", "zeros", "zeros_like"):
+        monkeypatch.setattr(torch, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "clone", refuse)
+    got = EK.embedding_scatter_add(table, ids, rows)
+    got_grad = EK.table_grad(ids, rows, 300)
+    monkeypatch.undo()
+    assert len(calls) == 2
+    assert torch.equal(got, want) and torch.equal(got_grad, grad)
 
 
 # -- the raw-input recurrences (rows 6 and 9) and softmax_xent (row 4) -------------

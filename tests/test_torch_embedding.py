@@ -112,3 +112,98 @@ def test_fused_lookup_float64_gradcheck():
     assert torch.autograd.gradcheck(
         lambda tb: EK.fused_embedding_lookup(tb, ids, 2), (table,),
         fast_mode=True)
+
+
+# -- the scatter-add's grouping passes (their twin) and its order of sums --------
+
+
+def _stable_groups(ids, v):
+    """counts, offsets and order by their definition: a stable sort of the
+    in-range positions by id (numpy's mergesort)."""
+    ids = np.asarray(ids, np.int64)
+    pos = np.nonzero((ids >= 0) & (ids < v))[0]
+    order = pos[np.argsort(ids[pos], kind="stable")]
+    counts = np.bincount(ids[pos], minlength=v)
+    return counts, np.concatenate([[0], np.cumsum(counts)]), order
+
+
+GROUP_CASES = {
+    "empty": (np.zeros(0, np.int64), 7),
+    "all_equal": (np.full(300, 4, np.int64), 9),
+    "out_of_range": (np.array([-1, 5, 3, 12, 5, -7, 3, 11, 5, 0]), 12),
+    "v_one": (np.array([0, 0, -1, 1, 0, 2, 0]), 1),
+    "mixed": (np.random.default_rng(3).integers(-2, 40, size=2500), 37),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_group_ids_twin_is_the_stable_sort(case):
+    """``group_ids_reference`` (and ``group_ids`` on CPU ids) against the
+    stable sort's construction, in integers: no ids, one id 300 times, -1
+    and >= V ids, V = 1."""
+    ids, v = GROUP_CASES[case]
+    want = _stable_groups(ids, v)
+    for fn in (EK.group_ids_reference, EK.group_ids):
+        got = fn(torch.from_numpy(ids), v)
+        assert [t.dtype for t in got] == [torch.int32] * 3
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), w), (fn.__name__, case)
+    counts, offsets, order = (t.numpy() for t in got)
+    assert offsets[-1] == order.size == counts.sum()
+    # each run is one id, its positions increasing
+    for r in range(v):
+        run = order[offsets[r]:offsets[r + 1]]
+        assert np.all(ids[run] == r) and np.all(np.diff(run) > 0)
+
+
+def test_scratch_layout_holds_each_section_apart():
+    """The scatter-add's scratch block (mirrored in csrc/embedding.cu):
+    16-byte aligned sections in order, the counters first, none
+    overlapping, the keys 8-byte entries for at least one chunk."""
+    for n, v, d in ((0, 1, 0), (1, 37, 5), (8192, 30000, 128),
+                    (70000, 10 ** 6, 0)):
+        lay = EK.scratch_layout(n, v, d)
+        sizes = {"counts": 4, "done": 4, "arrive": 4, "offsets": 4,
+                 "order": 4, "keys": 8, "partial": 4}
+        names = list(sizes)
+        assert [lay[k][0] for k in names] == sorted(lay[k][0] for k in names)
+        for a, b in zip(names, names[1:] + ["total"]):
+            off, count = lay[a]
+            end = lay[b] if b == "total" else lay[b][0]
+            assert off % 16 == 0 and off + sizes[a] * count <= end, (a, n)
+        assert lay["keys"][1] >= EK.GROUP_CHUNK
+        assert lay["arrive"][1] == -(-n // EK.SEGMENT)
+        assert lay["partial"][1] == 2 * d * (-(-n // EK.SEGMENT))
+
+
+@pytest.mark.parametrize("n,v,d", [(37, 50, 8), (64, 20, 33), (300, 7, 5)])
+def test_scatter_by_groups_matches_the_twin_and_jax(n, v, d):
+    """The kernels' order of sums (``scatter_add_by_groups``: each run
+    summed in position order through the grouping twin, then added to its
+    table row once) against ``embedding_scatter_add_reference`` and JAX's
+    kernel in interpret mode, and a table gradient (no table) against the
+    twin on zeros: within 1e-6, or where a row takes a long run (300 ids
+    into 7 rows: ~43 a row) within the two orders' f32 error bound,
+    k 2^-23 (|table| + sum |rows|) for a run of k."""
+    rng = np.random.default_rng(n + 3 * v)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    rows = rng.normal(size=(n, d)).astype(np.float32)
+    ids = ids_of(rng, n, v)
+    t, i, r = (torch.from_numpy(table), torch.from_numpy(ids).long(),
+               torch.from_numpy(rows))
+
+    def near(got, want, base):
+        keep = (ids >= 0) & (ids < v)
+        k = np.bincount(ids[keep], minlength=v)[:, None]
+        mag = np.abs(base).astype(np.float64)
+        np.add.at(mag, ids[keep], np.abs(rows[keep]))
+        tol = np.maximum(SUM_TOL, k * 2.0 ** -23 * mag)
+        assert np.all(np.abs(got - np.asarray(want)) <= tol)
+
+    got = EK.scatter_add_by_groups(t, i, r).numpy()
+    near(got, EK.embedding_scatter_add_reference(t, i, r).numpy(), table)
+    near(got, JE.embedding_scatter_add(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(rows),
+        impl="kernel", interpret=True), table)
+    grad = EK.scatter_add_by_groups(None, i, r, num_rows=v)
+    near(grad.numpy(), EK.table_grad(i, r, v).numpy(), np.zeros_like(table))

@@ -210,7 +210,9 @@ def test_small_vgg_without_dropout_matches_the_jax_step():
 
     def port(dtype, n_steps, nudge=0.0):
         tstep = t_train_step(tt, opt(tpaddle))
-        tp = {n: torch.from_numpy(v).to(dtype) for n, v in carried.items()}
+        # copies: the step updates its parameters in place
+        tp = {n: torch.from_numpy(v).to(dtype, copy=True)
+              for n, v in carried.items()}
         to = opt(tpaddle).init(tp, {x.name: x for x in tt.param_specs()})
         ts = {k: v.to(dtype) for k, v in tt.init_states().items()}
         costs = []

@@ -11,6 +11,8 @@ to 2e-7 x max(1, |x|) (measured: one ulp); the routed
 (``Optimizer._apply_each``); the table of the card's launch is checked by
 walking it as the kernel does."""
 
+import ctypes
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ import paddle_tpu_torch.core.parameters as TParams
 import paddle_tpu_torch.optimizer as TO
 from paddle_tpu.layers.attr import ParamAttr as JAttr
 from paddle_tpu.ops.pallas import tpp
+from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.layers.attr import ParamAttr as TAttr
 from paddle_tpu_torch.ops.kernels import embedding as EK
 from paddle_tpu_torch.ops.kernels import update as U
@@ -199,14 +202,19 @@ def test_table_covers_every_unit_once(rows):
         updates.append(U.TensorUpdate(p, torch.ones_like(p), v,
                                       lr=0.1 * (i + 1), mu=0.9,
                                       nesterov=i == 3, weight_decay=i * 1e-3))
-    table, blocks, out, inputs = U.build_table(updates, rows)
+    built = U.build_table(*U.columns(updates), rows)
+    table, blocks = built.entries, int(built.first[-1])
     nonempty = [u for u in updates if u.p.numel()]
-    assert len(table) == len(nonempty) == len(shapes) - 1
-    assert table.dtype.itemsize == 80
+    assert len(table) == built.count == len(nonempty) == len(shapes) - 1
+    assert table.dtype.itemsize == 56
+    assert built.index == [i for i, u in enumerate(updates) if u.p.numel()]
+    assert list(built.first[:-1]) == list(table["first"])
     for cover in _walk(table, blocks, rows):
         assert np.all(cover == 1)
     for e, u in zip(table, nonempty):
-        assert e["p"] == u.p.data_ptr() and e["g"] == u.g.data_ptr()
+        # in place: the table holds p and v only, the gradients come with
+        # each launch
+        assert e["p"] == u.p.data_ptr()
         assert e["n"] == (u.p.shape[0] if rows else u.p.numel())
         assert e["width"] == (u.p.shape[1] if rows else 0)
         assert e["lr"] == np.float32(u.lr) and e["wd"] == np.float32(
@@ -215,19 +223,27 @@ def test_table_covers_every_unit_once(rows):
         assert e["flags"] == (has_v * U.HAS_V
                               + (has_v and u.nesterov) * U.NESTEROV
                               + bool(u.weight_decay) * U.HAS_WD)
-        assert (e["v"] != 0) == has_v and (e["v_out"] != 0) == has_v
-    assert [tuple(po.shape) for po, _ in out] == [tuple(s) for s in shapes]
-    assert len(inputs) == 3 * len(shapes)
+        assert (e["v"] != 0) == has_v
+        assert not has_v or e["v"] == u.v.data_ptr()
 
 
 def test_table_refuses_what_the_kernels_do_not_take():
     f32 = torch.zeros(4, 3)
+
+    def build(*ups, rows=False):
+        return U.build_table(*U.columns(list(ups)), rows)
+
     with pytest.raises(Exception, match="float32"):
-        U.build_table([U.TensorUpdate(f32.double(), f32.double())], False)
+        build(U.TensorUpdate(f32.double(), f32.double()))
     with pytest.raises(Exception, match="one shape"):
-        U.build_table([U.TensorUpdate(f32, torch.zeros(3, 4))], False)
+        build(U.TensorUpdate(f32, torch.zeros(3, 4)))
     with pytest.raises(Exception, match=r"\[V, D\]"):
-        U.build_table([U.TensorUpdate(torch.zeros(4), torch.zeros(4))], True)
+        build(U.TensorUpdate(torch.zeros(4), torch.zeros(4)), rows=True)
+    # written in place: p and v must be contiguous
+    with pytest.raises(Exception, match="contiguous"):
+        build(U.TensorUpdate(torch.zeros(3, 4).t(), torch.zeros(4, 3)))
+    with pytest.raises(Exception, match="contiguous"):
+        build(U.TensorUpdate(f32, f32, torch.zeros(3, 4).t()))
 
 
 # -- Optimizer.apply routed through the kernels vs the per-tensor loop ---------
@@ -292,7 +308,9 @@ def test_routed_apply_is_bit_identical_to_the_loop(kind, l2, monkeypatch):
     real = U.fused_apply
     monkeypatch.setattr(U, "fused_apply",
                         lambda *a: routed.append(1) or real(*a))
-    pa, sa = p0, opt.init(p0, specs)
+    # the routed apply updates its parameters in place: it gets copies
+    given = {n: t.clone() for n, t in p0.items()}
+    pa, sa = given, opt.init(given, specs)
     pb, sb = p0, opt.init(p0, specs)
     for _ in range(3):
         g = {n: torch.from_numpy(v) for n, v in _grads(rng).items()}
@@ -307,7 +325,7 @@ def test_routed_apply_is_bit_identical_to_the_loop(kind, l2, monkeypatch):
                   sb["slots"][n]["velocity"].numpy(), n)
         else:
             assert sa["slots"][n] == sb["slots"][n] == ()
-    assert pa["frozen"] is p0["frozen"]
+    assert all(pa[n] is given[n] for n in P_SHAPES)
     assert not torch.equal(pa["table"], p0["table"])
     # row 0 of each table is never touched: parameter and slot stay
     for n in ("table", "table_plain"):
@@ -396,3 +414,229 @@ def test_ineligible_apply_takes_the_loop(monkeypatch):
     assert state["step"] == 1
     np.testing.assert_allclose(got["w"].numpy(), 1 - 0.1 * (1 + 1e-3),
                                rtol=1e-6)
+
+
+# -- in place, and the table kept on the card ------------------------------------
+
+
+@pytest.mark.parametrize("kind", sorted(OPTIMIZERS))
+def test_routed_apply_is_in_place_with_the_loops_bits_over_ten_steps(kind):
+    """The twins' route (CPU): ``apply`` returns the parameters and slots
+    it was given, updated, and they equal the per-tensor loop's in bits
+    after each of 10 steps."""
+    rng = np.random.default_rng(40 + len(kind))
+    opt = OPTIMIZERS[kind](TO, learning_rate=0.1,
+                           regularization=TO.L2Regularization(rate=1e-3))
+    specs = _specs(TParams, TI, TAttr)
+    p0 = {n: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+          for n, s in P_SHAPES.items()}
+    given = {n: t.clone() for n, t in p0.items()}
+    sa = opt.init(given, specs)
+    vel = {n: s["velocity"] for n, s in sa["slots"].items()
+           if isinstance(s, dict)}
+    pa, pb, sb = given, p0, opt.init(p0, specs)
+    for _ in range(10):
+        g = {n: torch.from_numpy(v) for n, v in _grads(rng).items()}
+        pa, sa = opt.apply(g, pa, sa, specs)
+        pb, sb = opt._apply_each(g, pb, sb, specs)
+        assert all(pa[n] is given[n] for n in P_SHAPES)
+        for n in P_SHAPES:
+            _same(pa[n].numpy(), pb[n].numpy(), n)
+        for n, v in vel.items():
+            assert sa["slots"][n]["velocity"] is v
+            _same(v.numpy(), sb["slots"][n]["velocity"].numpy(), n)
+    assert sa["step"] == 10
+
+
+def test_wrappers_write_their_twins_results_in_place():
+    """``fused_update`` and ``sparse_row_update`` on CPU tensors: the
+    tensors given come back, holding the pure twins' results, their
+    version counters moved."""
+    rng = np.random.default_rng(8)
+    p, g, v = (torch.from_numpy(a) for a in _draw(rng, (6, 5), 3))
+    g[1] = 0.0
+    for run, twin in ((U.fused_update, U.reference_update),
+                      (EK.sparse_row_update, EK.reference_row_update)):
+        u = U.TensorUpdate(p.clone(), g, v.clone(), 0.1, 0.9, True, 1e-2)
+        want = twin(u)
+        versions = (u.p._version, u.v._version)
+        (p2, v2), = run([u])
+        assert p2 is u.p and v2 is u.v
+        assert p2._version > versions[0] and v2._version > versions[1]
+        _same(p2.numpy(), want[0].numpy())
+        _same(v2.numpy(), want[1].numpy())
+
+
+class _Card:
+    """The card's two update kernels emulated on the CPU from what the
+    wrappers hand them: the kept table (read back from its copy "on the
+    card") and the launch's gradient pointers, each pointer resolved to
+    a tensor the test registered, the rule applied by the twins with the
+    table's f32 scalars.  So the host side of the route (keys, kept
+    tables, gradient checks, the pointers by value) runs as it does on
+    the card."""
+
+    def __init__(self, monkeypatch):
+        import functools
+
+        from paddle_tpu_torch.ops import nn as nn_ops
+
+        self.tensors = {}
+        monkeypatch.setattr(U, "_stream", lambda device: 0)
+        monkeypatch.setattr(nn_ops, "_takes_kernel",
+                            lambda x: x.dtype != torch.float64)
+        for kernel, rows in ((U.KERNEL, False), (EK.KERNEL_ROWS, True)):
+            monkeypatch.setattr(kernel, "tables", [])
+            monkeypatch.setattr(kernel, "table_builds", 0)
+            monkeypatch.setattr(kernel, "launch",
+                                functools.partial(self.launch, kernel, rows))
+
+    def know(self, *trees):
+        for t in trees:
+            for x in (t.values() if isinstance(t, dict) else t):
+                if isinstance(x, dict):
+                    self.know(x)
+                elif isinstance(x, torch.Tensor):
+                    self.tensors[x.data_ptr()] = x
+
+    def launch(self, kernel, rows, table_ptr, count, first_ptr, grads_ptr,
+               stream):
+        table = kernel.tables[0]
+        assert (table_ptr, first_ptr) == (table.on_card.data_ptr(),
+                                          table.first.ctypes.data)
+        entries = np.frombuffer(table.on_card.numpy().tobytes(), U.ENTRY)
+        assert count == len(entries) == table.count
+        grads = np.ctypeslib.as_array(
+            (ctypes.c_uint64 * count).from_address(grads_ptr))
+        for e, gp in zip(entries, grads):
+            p, g = self.tensors[int(e["p"])], self.tensors[int(gp)]
+            v = self.tensors[int(e["v"])] if e["flags"] & U.HAS_V else None
+            assert e["n"] == (p.shape[0] if rows else p.numel())
+            u = U.TensorUpdate(
+                p, g, v, float(e["lr"]), float(e["mu"]),
+                bool(e["flags"] & U.NESTEROV),
+                float(e["wd"]) if e["flags"] & U.HAS_WD else 0.0)
+            U.twin_in_place(EK.reference_row_update if rows
+                            else U.reference_update, u)
+        kernel.launches += 1
+
+
+def _card_step(card, opt, g, params, state, specs):
+    card.know(g)
+    return opt.apply(g, params, state, specs)
+
+
+@pytest.mark.parametrize("kind", sorted(OPTIMIZERS))
+def test_kept_table_hits_and_is_rebuilt_when_its_key_changes(kind,
+                                                             monkeypatch):
+    """Through the card's route (emulated): 10 steps build each kernel's
+    table once and give the loop's bits; a replaced parameter tensor and a
+    new learning rate each build it once more, and the loop's bits
+    hold."""
+    card = _Card(monkeypatch)
+    rng = np.random.default_rng(60 + len(kind))
+    opt = OPTIMIZERS[kind](TO, learning_rate=0.1,
+                           regularization=TO.L2Regularization(rate=1e-3))
+    loop = OPTIMIZERS[kind](TO, learning_rate=0.1,
+                            regularization=TO.L2Regularization(rate=1e-3))
+    specs = _specs(TParams, TI, TAttr)
+    p0 = {n: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+          for n, s in P_SHAPES.items()}
+    pa = {n: t.clone() for n, t in p0.items()}
+    sa = opt.init(pa, specs)
+    card.know(pa, sa["slots"])
+    pb, sb = p0, loop.init(p0, specs)
+    launches = (U.KERNEL.launches, EK.KERNEL_ROWS.launches)
+
+    def step():
+        nonlocal pa, sa, pb, sb
+        g = {n: torch.from_numpy(v) for n, v in _grads(rng).items()}
+        pa, sa = _card_step(card, opt, g, pa, sa, specs)
+        pb, sb = loop._apply_each(g, pb, sb, specs)
+        for n in P_SHAPES:
+            _same(pa[n].numpy(), pb[n].numpy(), n)
+
+    for _ in range(10):
+        step()
+    assert (U.KERNEL.launches - launches[0],
+            EK.KERNEL_ROWS.launches - launches[1]) == (10, 10)
+    assert (U.KERNEL.table_builds, EK.KERNEL_ROWS.table_builds) == (1, 1)
+    # a replaced parameter tensor: its table is built anew, the other kept
+    pa = dict(pa, plain=pa["plain"].clone())
+    card.know(pa)
+    step()
+    assert (U.KERNEL.table_builds, EK.KERNEL_ROWS.table_builds) == (2, 1)
+    step()
+    assert U.KERNEL.table_builds == 2
+    # a new learning rate: both built anew
+    opt.learning_rate = loop.learning_rate = 0.05
+    step()
+    step()
+    assert (U.KERNEL.table_builds, EK.KERNEL_ROWS.table_builds) == (3, 2)
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "device"])
+def test_kept_table_still_checks_every_gradient(fault, monkeypatch):
+    """A gradient of the wrong shape, dtype or device raises on a kept
+    table as on a new one, before any launch."""
+    card = _Card(monkeypatch)
+    rng = np.random.default_rng(5)
+    ups = [U.TensorUpdate(*(torch.from_numpy(a) for a in _draw(rng, s, 3)),
+                          lr=0.1, mu=0.9) for s in ((4, 3), (7,))]
+    card.know([t for u in ups for t in (u.p, u.g, u.v)])
+    U.launch_table(U.KERNEL, ups, rows=False)
+    U.launch_table(U.KERNEL, ups, rows=False)
+    assert U.KERNEL.table_builds == 1
+    before = U.KERNEL.launches
+    bad = {"shape": torch.zeros(3, 4), "dtype": torch.zeros(4, 3).double(),
+           "device": torch.zeros(4, 3, device="meta")}[fault]
+    ups[0] = dataclasses.replace(ups[0], g=bad)
+    with pytest.raises(EnforceError, match="float32 parameters, gradients"):
+        U.launch_table(U.KERNEL, ups, rows=False)
+    assert U.KERNEL.launches == before and U.KERNEL.table_builds == 1
+
+
+def test_launch_bumps_the_version_of_every_tensor_written(monkeypatch):
+    """A graph that saved a parameter raises after the step instead of
+    reading its new bits."""
+    card = _Card(monkeypatch)
+    w = torch.ones(5, requires_grad=True)
+    p = w.detach()
+    u = U.TensorUpdate(p, torch.ones(5), torch.zeros(5), 0.1, 0.9)
+    card.know([p, u.g, u.v])
+    y = (w * w).sum()              # saves w for its backward
+    versions = (p._version, u.v._version)
+    U.launch_table(U.KERNEL, [u], rows=False)
+    assert p._version > versions[0] and u.v._version > versions[1]
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        y.backward()
+
+
+def test_plan_is_kept_until_the_optimizer_names_or_specs_change():
+    """``fused_apply``'s plan: the same object while the optimizer's
+    configuration, the names and the specs hold; a new one after each
+    change, with the new scalars."""
+    opt = TO.Momentum(momentum=0.9, learning_rate=0.1)
+    specs = _specs(TParams, TI, TAttr)
+    params = {n: torch.zeros(P_SHAPES[n]) for n in P_SHAPES}
+    state = opt.init(params, specs)
+    first = U.plan(opt, params, state, specs)
+    assert U.plan(opt, dict(params), state, dict(specs)) is first
+    dense = dict(zip(*[g[1:4:2] for g in first.groups if not g[0]][0]))
+    assert dense["lr_scale"] == (0.1 * 0.25, 0.9, False, 0.0)
+    assert dense["own_momentum"][1] == 0.5 and "frozen" not in dense
+    lazy = [g for g in first.groups if g[0]][0]
+    assert lazy[1] == ("table", "table_plain")
+    opt.learning_rate = 0.2
+    second = U.plan(opt, params, state, specs)
+    assert second is not first
+    dense = dict(zip(*[g[1:4:2] for g in second.groups if not g[0]][0]))
+    assert dense["plain"][0] == 0.2
+    assert U.plan(opt, params, state, specs) is second
+    fewer = {n: t for n, t in params.items() if n != "decay"}
+    assert U.plan(opt, fewer, state, specs) is not second
+    specs2 = dict(specs, plain=dataclasses.replace(specs["plain"],
+                                                   decay_rate=0.5))
+    third = U.plan(opt, params, state, specs2)
+    dense = dict(zip(*[g[1:4:2] for g in third.groups if not g[0]][0]))
+    assert dense["plain"][3] == 0.5

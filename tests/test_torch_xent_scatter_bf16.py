@@ -179,3 +179,21 @@ def test_bf16_scatter_add_sums_in_f32():
                                    _torch(rows))
     assert got.dtype == torch.bfloat16
     assert unequal(got, jax_scatter(table, ids, rows)) == (0.0, 0.0)
+
+
+@pytest.mark.parametrize("rows_dtype", [jnp.float32, BF],
+                         ids=["f32_rows", "bf16_rows"])
+@pytest.mark.parametrize("v,d,n", [(37, 16, 400), (300, 40, 96)])
+def test_bf16_scatter_by_groups_matches_jax_kernel(rows_dtype, v, d, n):
+    """The kernels' order of sums through the grouping twin
+    (``scatter_add_by_groups``) on a bf16 table with f32 or bf16 rows,
+    against JAX's kernel in interpret mode and the twin: within one bf16
+    ulp, on at most 1% of the elements."""
+    table, ids, rows = scatter_inputs(v, d, n, 2 * v + d, rows_dtype)
+    got = EK.scatter_add_by_groups(_torch(table), torch.from_numpy(ids),
+                                   _torch(rows))
+    assert_bf16_matches(got, jax_scatter(table, ids, rows), "table")
+    twin = EK.embedding_scatter_add_reference(
+        _torch(table), torch.from_numpy(ids), _torch(rows))
+    share, ulps = unequal(got, twin)
+    assert share <= ULP_SHARE and ulps <= 1, (share, ulps)
