@@ -3,19 +3,21 @@
 of the shared GEMM tile's plan.
 
 The A/B runs each tree's own ``chip_smoke.train_end_to_end`` (ResNet-50
-through ``trainer.SGD`` at batch 64) and ``bench_nets`` (the image nets'
-ms a batch), each tree in a process of its own that builds that tree's
-kernels, in the order given.  Host-bound phases vary up to 2x between
-machines, so two versions are compared only within one run of this
-script, in turns:
+through ``trainer.SGD`` at batch 64), ``train_resnet_bf16`` (its bf16 and
+f32 steps in blocks, the witness steps left out) and ``bench_nets`` (the
+image nets' ms a batch), each tree in a process of its own that builds
+that tree's kernels, in the order given.  Host-bound phases vary up to
+2x between machines, so two versions are compared only within one run
+of this script, in turns:
 
     python3 chip_ab.py [--out DIR] build/parent . . build/parent
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
-one JSON line a run (the tree, the ms and host ms of a call of the
-update and scatter-add wrappers at ``chip_smoke``'s shapes, img/s, step
-p50, the device ms a step by kernel class from the phase's 3-step
-profile, the image nets' ms a batch)
+one JSON line a run (the tree, the ms and host ms of a call of the conv
+wrappers (rows 14 and 15, f32 and bf16), the update and the scatter-add
+at ``chip_smoke``'s shapes, img/s, step p50, the device ms a step by
+kernel class from the phases' 3-step profiles, for the f32 phase and
+the bf16 phase's bf16 and f32 blocks, the image nets' ms a batch)
 and writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).
 
@@ -25,7 +27,13 @@ times, at the ``SWEEP`` shapes of ``chip_smoke``'s row 14 and 15 cases
 (stats epilogue), every tile of ``brgemm.F32.tiles`` whole and the smallest
 split in 2 and 4, each checked against the twin first, beside the tile
 the plan picks: one JSON line, {shape: {"<block_m>x<block_n>/<splits>":
-ms}, "planned": ...}."""
+ms}, "planned": ...}; then the same shapes in bf16 on the Hopper tile
+(``brgemm.WGMMA``): every width in 1, 2 and 4 splits, and the planned
+plan on copies of ``csrc/gemm_wgmma.cuh`` with other ring depths
+(``STAGES``) and the other ``VARIANTS``, each checked by ``bf16_agrees``
+first and timed alone (the device time of its kernels in a trace, no
+flush): {"wgmma_sweep_ms": {shape: {"128x<block_n>/<splits>": ms,
+"<variant>": ms}}}."""
 
 from __future__ import annotations
 
@@ -52,14 +60,18 @@ calls = CALLS(dev, C)
 torch.cuda.empty_cache()
 train = C.train_end_to_end(dev)[0]
 torch.cuda.empty_cache()
+C.bf16_witness = C.bf16_layer_witness = lambda *a, **k: {}
+bf16 = C.train_resnet_bf16(dev)[0]
+torch.cuda.empty_cache()
 nets = C.bench_nets(dev)
-print(json.dumps({"calls": calls, "train": train, "bench_nets": nets}))
+print(json.dumps({"calls": calls, "train": train, "train_bf16": bf16,
+                  "bench_nets": nets}))
 """
 
-#: the calls of the update and scatter-add wrappers at chip_smoke's
-#: shapes, timed the same way in either tree (each tree's own wrappers):
-#: the CUDA-event ms with the L2 flushed and the host's median ms a call
-#: without a sync
+#: the calls of the conv (rows 14 and 15, f32 and bf16), update and
+#: scatter-add wrappers at chip_smoke's shapes, timed the same way in
+#: either tree (each tree's own wrappers): the CUDA-event ms with the L2
+#: flushed and the host's median ms a call without a sync
 CALLS = r"""
 def CALLS(dev, C):
     import paddle_tpu_torch as paddle
@@ -86,6 +98,21 @@ def CALLS(dev, C):
         return {"ms": timer(fn), "host_ms": host(fn)}
 
     out = {}
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x3 = torch.randn(64, 28, 28, 128, generator=gen, device=dev).to(dtype)
+        w3 = (torch.randn(3, 3, 128, 128, generator=gen, device=dev)
+              * 0.04).to(dtype)
+        out[f"conv_res3_3x3_stats_{tag}"] = both(
+            lambda: CV.fwd_raw(x3, w3, (1, 1), (1, 1), stats=True))
+        x1 = torch.randn(64, 56, 56, 64, generator=gen, device=dev).to(dtype)
+        w1 = (torch.randn(1, 1, 64, 256, generator=gen, device=dev)
+              * 0.18).to(dtype)
+        out[f"conv1x1_res2_2c_stats_{tag}"] = both(
+            lambda: BR.conv1x1(x1, w1, (1, 1), stats=True))
+        del x3, w3, x1, w1
     reset_name_counters()
     shapes = [s.shape for s in Topology(paddle.models.image.resnet_cost(
         depth=50, class_num=1000, height=224, width=224)[0]).param_specs()]
@@ -112,17 +139,30 @@ def CALLS(dev, C):
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
-    train, nets = out["train"], out["bench_nets"]
+    train, bf16, nets = out["train"], out["train_bf16"], out["bench_nets"]
     prof = train.get("profile", {})
+    prof16 = bf16.get("profile", {})
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
             "img_per_s": train["img_per_s"],
             "step_ms_p50": train["step_ms_p50"],
             "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
             "idle_share_vs_step_p50": prof.get("idle_share_vs_step_p50"),
             "by_class_ms_per_step": prof.get("by_class_ms_per_step"),
+            "resnet50_bf16_phase": {
+                d: {"img_per_s": bf16[d]["images_per_s"],
+                    "step_ms_p50": bf16[d]["step_ms_p50"]}
+                for d in ("bf16", "f32")},
+            "bf16_device_busy_ms_per_step":
+                prof16.get("device_busy_ms_per_step"),
+            "bf16_idle_share_vs_step_p50":
+                prof16.get("idle_share_vs_step_p50"),
+            "bf16_by_class_ms_per_step": prof16.get("by_class_ms_per_step"),
             "bench_nets_ms_per_batch_p50": {
                 k: v["ms_per_batch_p50"] for k, v in nets.items()
-                if isinstance(v, dict)}}
+                if isinstance(v, dict)},
+            "bench_nets_bf16_ms_per_batch_p50": {
+                k: v["bf16"]["ms_per_batch_p50"] for k, v in nets.items()
+                if isinstance(v, dict) and "bf16" in v}}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -130,19 +170,33 @@ SWEEP = ("res2_3x3", "res3_3x3", "res4_3x3", "res5_3x3",
          "small_vgg_narrowest", "res2_2c", "res5_2a")
 
 
+#: ring depths the bf16 sweep times beside the header's (4 stages at BN
+#: 256, 6 at 64 and 128): {variant: the line of kStages it builds}
+STAGES = {"3/4": "  static constexpr int kStages = BN == 256 ? 3 : 4;",
+          "4/5": "  static constexpr int kStages = BN == 256 ? 4 : 5;",
+          "3/8": "  static constexpr int kStages = BN == 256 ? 3 : BN == 128 "
+                 "? 6 : 8;"}
+#: other builds of the header the bf16 sweep times at the planned plan:
+#: {variant: (its line, what it becomes)}; "no proxy fence": the
+#: consumers read a stage cp.async filled without fence.proxy.async
+VARIANTS = {"no proxy fence": ("        fence_proxy_async();", "")}
+STAGES_LINE = "  static constexpr int kStages = BN == 256 ? 4 : 6;"
+
+
 class forced_tile:
     """Within the block, every launch of the shared tile takes ``tile``
     (block_m, block_n) and ``splits`` in the copy form the plan would
-    pick."""
+    pick (and the Hopper tile where ``wgmma``)."""
 
-    def __init__(self, tile, splits=1):
-        self.tile, self.splits = tile, splits
+    def __init__(self, tile, splits=1, wgmma=False):
+        self.tile, self.splits, self.wgmma = tile, splits, wgmma
 
     def __enter__(self):
         from paddle_tpu_torch.ops.kernels import brgemm as BR
 
         self.real = real = BR.plan
-        BR.plan = lambda *a: BR.Plan(*self.tile, real(*a).vec, self.splits)
+        BR.plan = lambda *a: BR.Plan(*self.tile, real(*a).vec, self.splits,
+                                     self.wgmma)
 
     def __exit__(self, *exc):
         from paddle_tpu_torch.ops.kernels import brgemm as BR
@@ -186,7 +240,81 @@ def sweep() -> int:
         torch.cuda.synchronize()
     print(C.nvidia_smi())
     print(json.dumps({"tile_sweep_ms": out}), flush=True)
+    print(json.dumps({"wgmma_sweep_ms": sweep_wgmma(dev)}), flush=True)
     return 0
+
+
+def sweep_wgmma(dev) -> dict:
+    """The SWEEP shapes in bf16 on the Hopper tile: every width whole and
+    split in 2 and 4 (where the reduction has the stages), then the
+    planned plan on each STAGES and VARIANTS build (in place of the
+    source's entry); each checked by ``bf16_agrees``, then timed alone:
+    the device ms of the tile, ``split_reduce`` and ``stats_reduce`` in
+    one call (``chip_smoke.device_passes_ms``)."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    edits = {f"stages {name}": (STAGES_LINE, line)
+             for name, line in STAGES.items()}
+    edits.update(VARIANTS)
+    builds = {}
+    for source in ("brgemm", "conv2d_direct"):
+        for name, edit in edits.items():
+            tag = name.replace("/", "_").replace(" ", "_")
+            builds[(source, name)] = C.source_fault_builds(
+                source, {tag: edit})[tag]
+    libs = C.built(builds)
+    out = {}
+    cases = itertools.chain(C.brgemm_cases(dev, torch.bfloat16),
+                            C.conv_cases(dev, torch.bfloat16))
+    for case in cases:
+        if case["label"] not in SWEEP or case["mode"] != "stats":
+            continue
+        fn, p = case["fn"], case["plan"]
+        want = case["wide_fn"]()[0]
+        mag, kred = case["mag_fn"](), case["kred"]
+
+        def checked(label, splits):
+            y = fn()[0]
+            y = y.reshape(-1, y.shape[-1])
+            w = want.reshape(y.shape).to(torch.bfloat16)
+            m = mag.reshape(y.shape)
+            if not C.bf16_agrees(y, w, m, kred):
+                raise AssertionError(f"{case['label']} {label}: "
+                                     f"{C.bf16_agreement(y, w, m, kred)}")
+            keys = ("wgmma_kernel<", "stats_reduce") + (
+                ("split_reduce",) if splits > 1 else ())
+            return C.device_passes_ms([fn], keys)["total"]
+
+        row = {"planned": f"{p.block_m}x{p.block_n}/{p.splits}"}
+        slices = -(-kred // BR.WGMMA.block_k)
+        for tile in BR.WGMMA.tiles:
+            for splits in (1, 2, 4):
+                if splits <= slices:
+                    with forced_tile(tile, splits, True):
+                        row[f"{tile[0]}x{tile[1]}/{splits}"] = checked(
+                            (tile, splits), splits)
+        mod = BR if case["label"] in [r[0] for r in C.RESNET_1X1] else CV
+        kernel = mod.KERNEL_WGMMA
+        real = kernel._fn or kernel._resolve()
+        for name in edits:
+            fn_v = getattr(ctypes.CDLL(str(libs[(kernel.source, name)])),
+                           kernel.symbol)
+            fn_v.argtypes, fn_v.restype = kernel.argtypes, ctypes.c_int
+            kernel._fn = fn_v
+            try:
+                row[name] = checked(name, p.splits)
+            finally:
+                kernel._fn = real
+        out[case["label"]] = row
+        del fn, want, mag, case
+        torch.cuda.synchronize()
+    return out
 
 
 def main(trees: list[str], out_dir: str) -> int:

@@ -274,8 +274,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ragged mask ignored as planted faults that must exceed it; a rerun in
    the same bits; step ms of the fused route against the unfused one in
    blocks of 10 (fused, unfused, unfused, fused).
-13. bf16 ``compute_dtype`` (rows 13–15's bf16 forms, ``csrc/
-   gemm_bf16.cuh``'s tensor-core tile and ``channel_stats_bf16``).  Every
+13. bf16 ``compute_dtype`` (rows 13–15's bf16 forms: ``csrc/
+   gemm_wgmma.cuh``'s Hopper tile where the copies can be 16 bytes wide,
+   ``csrc/gemm_bf16.cuh``'s mma.sync tile elsewhere (the stem, AlexNet's
+   conv1), and ``channel_stats_bf16``).  Every
    shape of ``RESNET_1X1`` and ``DIRECT_SHAPES`` and small_vgg's five
    ``channel_stats`` views in bf16, each against its twin on float64
    operands rounded once to bf16 (``bf16_agrees``: unequal on at most 1%
@@ -286,7 +288,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    every 16-deep slice, at res2_2c and the stem) that must fail it; each
    timed as in phase 2 beside its twin, bound (bytes at 2 B an element;
    flops at 989 TFLOP/s) and a library call (bf16 ``torch.matmul``,
-   channels_last bf16 ``F.conv2d``, ``torch.var_mean``).  Then ResNet-50
+   channels_last bf16 ``F.conv2d``, ``torch.var_mean``), with its host
+   ms a call.  The Hopper tile's planted faults (``WGMMA_FAULTS``: A's
+   shared-memory writes one chunk off the swizzle; a stage's empty
+   barrier released before its wgmma group retired), built at the start
+   from copies of ``csrc/gemm_wgmma.cuh`` into both sources, must fail
+   ``bf16_agrees`` at res4's 3x3 and 1x1.  Then ResNet-50
    through ``trainer.SGD(compute_dtype=torch.bfloat16)``: the witness
    step at ResNet-50's blocks at an eighth of the width (64x64, batch 8;
    ``bf16_witness``: card and CPU per leaf within 2x the JAX package's
@@ -301,11 +308,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16 conv backward deterministic at every shape), a bf16 and an f32
    trainer, 2 warm-up and 10 timed steps
    each in blocks (bf16, f32, f32, bf16) with exactly 36 + 17 bf16 tile
-   launches and 1 update a bf16 step and no f32 tile launch (img/s, step
+   launches (36 + 16 on the Hopper tile, the stem's 1 on the mma.sync
+   tile) and 1 update a bf16 step and no f32 tile launch (img/s, step
    ms, peak memory), a 3-step profile, and ``test`` on 2 batches in f32
    (36 + 17 f32 launches a batch, no bf16).  Then small_vgg at phase 9's
    configuration the same way: exactly 11 ``channel_stats_bf16`` and 10
-   direct-conv bf16 launches a bf16 step, costs finite and falling.
+   direct-conv bf16 launches a bf16 step (9 on the Hopper tile, the
+   first conv's on the mma.sync tile), costs finite and falling.
 14. The LM in bf16 (rows 2 and 3's bf16 forms: ``csrc/flash_attention.cu``
    and ``flash_attention_bwd.cu``'s tensor-core kernels, ``mma.sync``
    m16n8k16 with f32 sums).  At the LM training shape [16, 1024, 12, 64]
@@ -878,11 +887,27 @@ TILE_KERNELS = {
                       "gemm_kernel<"),
     "brgemm_bf16": ("paddle_tpu_torch/ops/kernels/csrc/brgemm.cu",
                     "paddle_tpu/ops/pallas/tpp/brgemm.py:155",
-                    "mma_kernel<"),
+                    "::mma_kernel<"),
     "conv2d_direct_bf16": (
         "paddle_tpu_torch/ops/kernels/csrc/conv2d_direct.cu",
-        "paddle_tpu/ops/pallas/tpp/conv.py:240", "mma_kernel<"),
+        "paddle_tpu/ops/pallas/tpp/conv.py:240", "::mma_kernel<"),
+    # the Hopper tile (csrc/gemm_wgmma.cuh): every bf16 shape whose
+    # copies can be 16 bytes wide
+    "brgemm_wgmma": ("paddle_tpu_torch/ops/kernels/csrc/brgemm.cu",
+                     "paddle_tpu/ops/pallas/tpp/brgemm.py:155",
+                     "wgmma_kernel<"),
+    "conv2d_direct_wgmma": (
+        "paddle_tpu_torch/ops/kernels/csrc/conv2d_direct.cu",
+        "paddle_tpu/ops/pallas/tpp/conv.py:240", "wgmma_kernel<"),
 }
+
+
+def tile_name(entry: str, plan, dtype) -> str:
+    """The kernel a plan launches: ``entry`` (``brgemm``,
+    ``conv2d_direct``) in f32, or its bf16 form by tile."""
+    if dtype == torch.float32:
+        return entry
+    return entry + ("_wgmma" if plan.wgmma else "_bf16")
 
 #: ResNet-50's distinct 1x1 convs at batch 64 (``models/image.py``
 #: ``_mid_projection`` and ``_bottleneck``): (label, x [N, H, W, Cin],
@@ -925,7 +950,9 @@ DIRECT_SHAPES = (
 
 def plan_dict(p, dtype=torch.float32) -> dict:
     staged = "4-byte" if dtype == torch.float32 else "register-staged"
-    return {"block_m": p.block_m, "block_n": p.block_n,
+    tile = ("f32 SIMT" if dtype == torch.float32 else
+            "wgmma" if p.wgmma else "mma.sync")
+    return {"tile": tile, "block_m": p.block_m, "block_n": p.block_n,
             "form": "16-byte" if p.vec else staged, "splits": p.splits}
 
 
@@ -948,12 +975,13 @@ def tile_row(name, case, timer) -> dict:
     means with the L2 flushed (kernel, twin, library call), the bound,
     and from a trace the device time of each kernel the call launches: the
     tile, the split's second pass (``split_reduce``) and the stats
-    reduction (``stats_reduce``); ``alone_ms`` is their sum.  f32: max
-    abs error <= TOL against the twin.  bf16: y against the twin's one
-    rounding of an f64 sum (``bf16_agrees``), the stats within TOL as the
-    moments they feed, and the planted fault where the case has one: a
-    product whose accumulator is rounded to bf16 after every 16-deep
-    slice must fail ``bf16_agrees``."""
+    reduction (``stats_reduce``); ``alone_ms`` is their sum; ``host_ms``
+    the host's median wall ms of a call without a sync (the wrapper's
+    host path).  f32: max abs error <= TOL against the twin.  bf16: y
+    against the twin's one rounding of an f64 sum (``bf16_agrees``), the
+    stats within TOL as the moments they feed, and the planted fault
+    where the case has one: a product whose accumulator is rounded to
+    bf16 after every 16-deep slice must fail ``bf16_agrees``."""
     source, replaces, key = TILE_KERNELS[name]
     fn, plain_fn, plan = case["fn"], case["plain_fn"], case["plan"]
     got, again = fn(), fn()
@@ -990,6 +1018,7 @@ def tile_row(name, case, timer) -> dict:
     bound_ms, by = bound(case["nbytes"], case["flops"],
                          BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
     ms = timer(fn)
+    host = host_ms(fn)
     parts = {"tile_alone_ms": device_ms([fn], key)}
     if plan.splits > 1:
         parts["split_reduce_alone_ms"] = device_ms([fn], "split_reduce")
@@ -1000,7 +1029,7 @@ def tile_row(name, case, timer) -> dict:
            "replaces": replaces,
            "shape": {case["label"]: case["shape"], "epilogue": case["mode"]},
            "plan": plan_dict(plan, case["dtype"]), **extra,
-           "max_abs_err": err, "ms": ms,
+           "max_abs_err": err, "ms": ms, "host_ms": host,
            "alone_ms": alone, **parts, "plain_ms": timer(plain_fn),
            "bound_ms": bound_ms, "bound_by": by,
            "library_ms": timer(case["library_fn"]),
@@ -1092,8 +1121,8 @@ def brgemm_cases(dev, dtype=torch.float32):
 def check_brgemm(dev, timer, dtype=torch.float32) -> list:
     """Row 15 in ``dtype`` at every case of :func:`brgemm_cases`
     (:func:`tile_row`)."""
-    name = "brgemm" if dtype == torch.float32 else "brgemm_bf16"
-    rows = [tile_row(name, case, timer) for case in brgemm_cases(dev, dtype)]
+    rows = [tile_row(tile_name("brgemm", case["plan"], dtype), case, timer)
+            for case in brgemm_cases(dev, dtype)]
     torch.cuda.synchronize()
     return rows
 
@@ -1199,16 +1228,108 @@ def check_conv(dev, timer, dtype=torch.float32) -> tuple[list, dict]:
     """Row 14 in ``dtype`` at every case of :func:`conv_cases`
     (:func:`tile_row`), and the kernels cuDNN launches for ``F.conv2d``
     at AlexNet's conv2 and res2's and res3's 3x3."""
-    name = "conv2d_direct" if dtype == torch.float32 else "conv2d_direct_bf16"
     rows, cudnn = [], {}
     for case in conv_cases(dev, dtype):
-        rows.append(tile_row(name, case, timer))
+        rows.append(tile_row(tile_name("conv2d_direct", case["plan"], dtype),
+                             case, timer))
         label = case["label"]
         if label in ("alexnet_conv2", "res2_3x3", "res3_3x3") and \
                 label not in cudnn:
             cudnn[label] = library_kernels(case["library_fn"])
     torch.cuda.synchronize()
     return rows, cudnn
+
+
+#: the Hopper tile's planted faults: {fault: (a line of
+#: csrc/gemm_wgmma.cuh, what it becomes), or a list of such pairs}, each
+#: built into both kernels' sources (:func:`wgmma_fault_builds`); each
+#: must fail ``bf16_agrees`` (:func:`wgmma_faults`)
+WGMMA_FAULTS = {
+    # A's shared-memory writes one chunk off the 128-byte swizzle
+    "a_swizzle_off_by_one": (
+        "    const uint32_t a_off = r0 * 128 + ((c ^ (r0 & 7)) << 4);",
+        "    const uint32_t a_off = r0 * 128 + ((c ^ ((r0 + 1) & 7)) << 4);"),
+    # a stage's empty barrier released as soon as it is full, before the
+    # wgmma group that reads it is even issued (once a use and never
+    # after, so the phases hold and nothing hangs)
+    "empty_before_retire": [
+        ("        fence_proxy_async();",
+         "        fence_proxy_async();\n"
+         "        if (leader) mbar_arrive(empty + 8 * stage);"),
+        ("        last = stage;", "        last = -1;")],
+}
+
+
+def wgmma_fault_builds() -> dict:
+    """Start the builds of every planted fault of WGMMA_FAULTS in both
+    sources: {(source, fault): (the process, the library's path)}."""
+    return {(source, name): build
+            for source in ("brgemm", "conv2d_direct")
+            for name, build in source_fault_builds(source,
+                                                   WGMMA_FAULTS).items()}
+
+
+def built(builds: dict) -> dict:
+    """{key: the library's path} of ``builds`` ({key: (process, path)}),
+    once every process has ended; raises with the log of a failed one."""
+    out = {}
+    for key, (proc, lib) in builds.items():
+        log_, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc of planted fault {key} failed:\n"
+                                 f"{log_}")
+        out[key] = lib
+    return out
+
+
+def wgmma_faults(dev, libs) -> dict:
+    """Each planted fault's library (``libs``, from :func:`built`) in
+    place of its source's Hopper-tile entry, at res4's 3x3
+    (conv2d_direct) and branch2a 1x1 (brgemm) at batch 64 with stats:
+    the 128 x 256 tile over 36 and 16 stages.  Each must fail
+    ``bf16_agrees`` against the f64 twin rounded once, where the real
+    entry passes (phase 13's rows)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import brgemm as BR
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cases = {}
+    for source, mod, (cin, k, p) in (("conv2d_direct", CV, (256, 3, 1)),
+                                     ("brgemm", BR, (1024, 1, 0))):
+        x = torch.randn(64, 14, 14, cin, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn(k, k, cin, 256, generator=gen, device=dev)
+             * (2.0 / (k * k * cin)) ** 0.5).to(torch.bfloat16)
+        want = CV.fwd_raw_reference(x.double(), w.double(), (1, 1), (p, p))
+        mag = CV.fwd_raw_reference(x.double().abs(), w.double().abs(),
+                                   (1, 1), (p, p))
+        plan = BR.plan(64 * 14 * 14, 256, k * k * cin, cin,
+                       (x.data_ptr(), w.data_ptr()), BR.sm_count(dev),
+                       BR.BF16)
+        cases[source] = (mod, x, w, p, want.to(torch.bfloat16), mag,
+                         k * k * cin, plan_dict(plan, torch.bfloat16))
+    out = {}
+    for (source, name), lib in libs.items():
+        mod, x, w, p, want, mag, kred, plan = cases[source]
+        kernel = mod.KERNEL_WGMMA
+        real = kernel._fn or kernel._resolve()
+        fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        kernel._fn = fn
+        try:
+            got = CV.fwd_raw(x, w, (1, 1), (p, p), stats=True)[0]
+            torch.cuda.synchronize()
+        finally:
+            kernel._fn = real
+        a = bf16_agreement(got, want, mag, kred)
+        out[f"{source} {name}"] = {"plan": plan, **a}
+        if bf16_agrees(got, want, mag, kred):
+            raise AssertionError(f"planted fault {name} in {source} passed "
+                                 f"bf16_agrees: {a}")
+    del cases
+    return out
 
 
 def check_resident() -> dict:
@@ -1221,7 +1342,8 @@ def check_resident() -> dict:
 
     got = {}
     for form, kernels in ((BR.F32, (BR.KERNEL, CV.KERNEL)),
-                          (BR.BF16, (BR.KERNEL_BF16, CV.KERNEL_BF16))):
+                          (BR.BF16, (BR.KERNEL_BF16, CV.KERNEL_BF16)),
+                          (BR.WGMMA, (BR.KERNEL_WGMMA, CV.KERNEL_WGMMA))):
         for kernel in kernels:
             for key, want in form.resident.items():
                 n = BR.resident(kernel, *key)
@@ -1413,6 +1535,9 @@ def kernel_class(name: str) -> str:
         return "embedding_gather_bf16 (ours)"
     if "radixsort" in low or "sort" in low:
         return "sort/unique (library)"
+    if "wgmma_kernel<" in low:            # csrc/gemm_wgmma.cuh
+        return ("brgemm wgmma (ours)" if "brgemma" in low
+                else "conv2d_direct wgmma (ours)")
     if "mma_kernel<" in low:              # csrc/gemm_bf16.cuh
         return ("brgemm bf16 (ours)" if "brgemma" in low
                 else "conv2d_direct bf16 (ours)")
@@ -4330,6 +4455,8 @@ def tile_counters():
     return {"brgemm": BR.KERNEL, "conv2d_direct": CV.KERNEL,
             "brgemm_bf16": BR.KERNEL_BF16,
             "conv2d_direct_bf16": CV.KERNEL_BF16,
+            "brgemm_wgmma": BR.KERNEL_WGMMA,
+            "conv2d_direct_wgmma": CV.KERNEL_WGMMA,
             "channel_stats": CS.KERNEL, "channel_stats_bf16": CS.KERNEL_BF16,
             "fused_update": UP.KERNEL}
 
@@ -4418,9 +4545,10 @@ def train_resnet_bf16(dev, bs=64, steps=10, side=224, classes=1000) -> tuple:
     first bf16 step twice, in the same bits; then a bf16 and an f32
     trainer from the same parameters, 2 warm-up steps
     each, and ``steps`` timed steps each in blocks (bf16, f32, f32, bf16)
-    with exactly 36 ``brgemm_bf16``, 17 ``conv2d_direct_bf16`` and 1
-    fused-update launches a bf16 step and no f32 tile launch (and the f32
-    forms' 36 and 17 in an f32 step); 3 bf16 steps under
+    with exactly 36 ``brgemm_wgmma``, 16 ``conv2d_direct_wgmma``, 1
+    ``conv2d_direct_bf16`` (the stem: Cin 3 takes the mma.sync tile) and
+    1 fused-update launches a bf16 step and no f32 tile launch (and the
+    f32 forms' 36 and 17 in an f32 step); 3 bf16 steps under
     ``torch.profiler``; ``test`` on 2 batches through the bf16 trainer:
     exactly 36 and 17 f32 launches a batch and no bf16 one."""
     import paddle_tpu_torch as paddle
@@ -4468,8 +4596,8 @@ def train_resnet_bf16(dev, bs=64, steps=10, side=224, classes=1000) -> tuple:
                  event_handler=lambda e: None)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    want = {"bf16": {"brgemm_bf16": 36, "conv2d_direct_bf16": 17,
-                     "fused_update": 1},
+    want = {"bf16": {"brgemm_wgmma": 36, "conv2d_direct_wgmma": 16,
+                     "conv2d_direct_bf16": 1, "fused_update": 1},
             "f32": {"brgemm": 36, "conv2d_direct": 17, "fused_update": 1}}
     blocks = dtype_blocks(trainers, batches(steps // 2), want, stamp_factory)
     out = rates(blocks, bs)
@@ -4504,16 +4632,18 @@ def train_resnet_bf16(dev, bs=64, steps=10, side=224, classes=1000) -> tuple:
              "test_launches": test_n, "test_cost": result.cost,
              "setup_s": setup_s, "profile": prof},
             {k: sum(b[k] for b in blocks["bf16"]["launches"])
-             for k in ("brgemm_bf16", "conv2d_direct_bf16")})
+             for k in ("brgemm_bf16", "conv2d_direct_bf16", "brgemm_wgmma",
+                       "conv2d_direct_wgmma")})
 
 
 def train_vgg_bf16(dev, bs=128, steps=10) -> tuple:
     """small_vgg at phase 9's configuration through ``trainer.SGD(
     compute_dtype=torch.bfloat16)`` beside f32 from the same parameters:
     2 warm-up steps each, ``steps`` timed steps each in blocks (bf16, f32,
-    f32, bf16) with exactly 11 ``channel_stats_bf16``, 10
-    ``conv2d_direct_bf16`` and 1 fused-update launches a bf16 step and
-    no f32 form's; the bf16 costs finite and falling."""
+    f32, bf16) with exactly 11 ``channel_stats_bf16``, 9
+    ``conv2d_direct_wgmma``, 1 ``conv2d_direct_bf16`` (the first conv's
+    Cin 3) and 1 fused-update launches a bf16 step and no f32 form's;
+    the bf16 costs finite and falling."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.core import rng as prng
     from paddle_tpu_torch.core.parameters import Parameters
@@ -4538,8 +4668,8 @@ def train_vgg_bf16(dev, bs=128, steps=10) -> tuple:
     for tr in trainers.values():
         tr.train(reader=lambda: iter(batches[:2]), num_passes=1,
                  event_handler=lambda e: None)
-    want = {"bf16": {"channel_stats_bf16": 11, "conv2d_direct_bf16": 10,
-                     "fused_update": 1},
+    want = {"bf16": {"channel_stats_bf16": 11, "conv2d_direct_wgmma": 9,
+                     "conv2d_direct_bf16": 1, "fused_update": 1},
             "f32": {"channel_stats": 11, "conv2d_direct": 10,
                     "fused_update": 1}}
     blocks = dtype_blocks(trainers, batches[2:2 + steps // 2], want,
@@ -4555,7 +4685,8 @@ def train_vgg_bf16(dev, bs=128, steps=10) -> tuple:
              "bf16_vs_f32_images_per_s":
                  out["bf16"]["images_per_s"] / out["f32"]["images_per_s"]},
             {k: sum(b[k] for b in blocks["bf16"]["launches"])
-             for k in ("channel_stats_bf16", "conv2d_direct_bf16")})
+             for k in ("channel_stats_bf16", "conv2d_direct_bf16",
+                       "conv2d_direct_wgmma")})
 
 
 #: (builder, image side, classes, direct-conv and BRGEMM launches a step)
@@ -4572,7 +4703,9 @@ def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
     parameters, in bf16 (``compute_dtype``, as ``bench.py:113-114``
     trains them): smallnet, AlexNet and GoogLeNet 2 warm-up and 5 timed
     steps each (ms a batch), VGG-19 one step; each with its exact conv
-    launches a step in the dtype's forms and none in the other's."""
+    launches a step in the dtype's forms and none in the other's (in
+    bf16 every net's first conv, Cin 3, on the mma.sync tile, the rest on
+    the Hopper tile)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.layers.base import reset_name_counters
 
@@ -4616,9 +4749,12 @@ def bench_nets(dev, bs=64, warm=2, steps=5) -> dict:
             run(n_timed, stamp)
             torch.cuda.synchronize()
             got = read_counts()
-            want = per_step({"conv2d_direct" + suffix: n_direct,
-                             "brgemm" + suffix: n_brgemm,
-                             "fused_update": 1}, n_timed)
+            forms = ({"conv2d_direct": n_direct, "brgemm": n_brgemm}
+                     if dtype is None else
+                     {"conv2d_direct_bf16": 1,
+                      "conv2d_direct_wgmma": n_direct - 1,
+                      "brgemm_wgmma": n_brgemm})
+            want = per_step({**forms, "fused_update": 1}, n_timed)
             if got != want or not all(np.isfinite(costs)):
                 raise AssertionError(f"{name} {dname}: launches {got} != "
                                      f"{want} or costs {costs}")
@@ -6418,7 +6554,9 @@ def rnn_bf16_counters() -> dict:
             "gather_bf16": EK.KERNEL_GATHER_BF16,
             "scatter_add": EK.KERNEL_SCATTER, "ctc": KC.KERNEL_LOSS,
             "conv2d_direct": CV.KERNEL, "conv2d_direct_bf16": CV.KERNEL_BF16,
+            "conv2d_direct_wgmma": CV.KERNEL_WGMMA,
             "brgemm": BR.KERNEL, "brgemm_bf16": BR.KERNEL_BF16,
+            "brgemm_wgmma": BR.KERNEL_WGMMA,
             "channel_stats": CS.KERNEL, "channel_stats_bf16": CS.KERNEL_BF16}
 
 
@@ -7047,9 +7185,10 @@ def train_crnn_bf16(dev, bs=64, steps=10) -> tuple[dict, dict]:
     moments) beside f32 from the same parameters, as
     :func:`train_text_bf16`: exactly one ``bilstm_fwd_bf16``, two
     ``lstm_bwd_bf16`` (the BiLSTM's backward over its f32 projection),
-    two ``conv2d_direct_bf16`` and one CTC (f32) launch a bf16 step and
-    no other form's; samples/s, step ms, peak memory, finite bf16 costs,
-    f32 masters and BN states; a 3-step bf16 profile."""
+    one ``conv2d_direct_bf16`` (conv1, Cin 1), one ``conv2d_direct_wgmma``
+    (conv2) and one CTC (f32) launch a bf16 step and no other form's;
+    samples/s, step ms, peak memory, finite bf16 costs, f32 masters and
+    BN states; a 3-step bf16 profile."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.core.parameters import Parameters
     from paddle_tpu_torch.layers.base import reset_name_counters
@@ -7073,7 +7212,8 @@ def train_crnn_bf16(dev, bs=64, steps=10) -> tuple[dict, dict]:
         tr.train(reader=lambda: iter(warm), num_passes=1,
                  event_handler=lambda e: None, feeding=feeding)
     want = {"bf16": {"bilstm_bf16": 1, "lstm_bwd_bf16": 2,
-                     "conv2d_direct_bf16": 2, "ctc": 1},
+                     "conv2d_direct_bf16": 1, "conv2d_direct_wgmma": 1,
+                     "ctc": 1},
             "f32": {"bilstm": 1, "lstm_bwd": 2, "conv2d_direct": 2,
                     "ctc": 1}}
     blocks = dtype_blocks(trainers, crnn_feed_batches(rng, steps // 2, bs,
@@ -7986,25 +8126,38 @@ def served_margin_check(cfg, params, results) -> dict:
 
 def source_fault_builds(source: str, faults: dict) -> dict:
     """Start one ``nvcc`` per planted fault of ``faults`` ({fault: (line,
-    planted line)}), each on a copy of ``csrc/<source>.cu`` under
-    ``build/faults/`` with its line changed (the shared headers found in
-    ``csrc/``); returns {fault: (the process, the library's path)}."""
+    planted line)}, or a list of such pairs), each on a copy of
+    ``csrc/<source>.cu`` in a directory of its own under
+    ``build/faults/``, with its lines changed there or, where a line is in
+    a shared header (``csrc/*.cuh``), in a copy of that header beside the
+    copy of the source (which its quoted include finds first; the other
+    headers from ``csrc/``); returns {fault: (the process, the library's
+    path)}."""
     from paddle_tpu_torch.ops.kernels import _build
 
-    src = (_build.CSRC / f"{source}.cu").read_text()
+    paths = [_build.CSRC / f"{source}.cu", *sorted(_build.CSRC.glob("*.cuh"))]
+    files = {p.name: p.read_text() for p in paths}
     out = _build.BUILD_DIR.parent / "faults"
-    out.mkdir(parents=True, exist_ok=True)
     builds = {}
-    for name, (line, planted) in faults.items():
-        if src.count(line) != 1:
-            raise AssertionError(f"fault {name}: {line!r} is not in "
-                                 f"{source}.cu once")
-        cu, lib = out / f"{source}_{name}.cu", out / f"{source}_{name}.so"
-        cu.write_text(src.replace(line, planted))
+    for name, edits in faults.items():
+        changed = {f"{source}.cu": files[f"{source}.cu"]}
+        for line, planted in edits if isinstance(edits, list) else [edits]:
+            where = [f for f, text in files.items() if line in text]
+            if len(where) != 1 or files[where[0]].count(line) != 1:
+                raise AssertionError(f"fault {name}: {line!r} is not once "
+                                     f"in one of {source}.cu and the "
+                                     f"headers")
+            text = changed.get(where[0], files[where[0]])
+            changed[where[0]] = text.replace(line, planted)
+        d = out / f"{source}_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in changed.items():
+            (d / f).write_text(text)
+        lib = out / f"{source}_{name}.so"
         builds[name] = (subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib)
+             "-o", str(lib), str(d / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     return builds
 
 
@@ -9001,8 +9154,13 @@ def main() -> int:
     print(f"card: {smi} | torch: {kind} x{count} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    built = _build.build()
-    print(json.dumps({"phase": "build", "sources": sorted(built),
+    # the Hopper tile's planted faults (phase 13) build beside the kernels
+    # and are done before anything is timed
+    faults = wgmma_fault_builds()
+    sources = _build.build()
+    wgmma_libs = built(faults)
+    print(json.dumps({"phase": "build", "sources": sorted(sources),
+                      "wgmma_faults": len(wgmma_libs),
                       "seconds": time.perf_counter() - t0}), flush=True)
 
     timer = Timer(dev)
@@ -9090,7 +9248,9 @@ def main() -> int:
     for row in bf16_rows + [stats_bf16_row]:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
     print(json.dumps({"phase": "gemm_tile_bf16",
-                      "cudnn_kernels": cudnn_bf16}), flush=True)
+                      "cudnn_kernels": cudnn_bf16,
+                      "wgmma_planted_faults": wgmma_faults(dev, wgmma_libs)}),
+          flush=True)
     print(json.dumps(stats_bf16_summary), flush=True)
     torch.cuda.empty_cache()
     resnet_bf16, resnet_bf16_n = train_resnet_bf16(dev)

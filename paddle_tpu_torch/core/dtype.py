@@ -81,6 +81,9 @@ def cast_for_matmul(*tensors):
     that holds one narrow float (bf16 or f16) resolves to it, so f32 BN
     statistics meeting bf16 weights do not demote the product to f32;
     otherwise (no narrow float, or both) plain promotion."""
+    first = tensors[0].dtype
+    if all(t.dtype == first for t in tensors):   # the common case, cheaply
+        return tensors if len(tensors) > 1 else tensors[0]
     common = matmul_dtype(*(t.dtype for t in tensors))
     out = tuple(t if t.dtype == common else t.to(common) for t in tensors)
     return out if len(out) > 1 else out[0]

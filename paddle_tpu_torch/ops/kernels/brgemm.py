@@ -18,27 +18,34 @@ pass.
 
 CPU tensors take :func:`brgemm_reference`; CUDA tensors launch
 ``csrc/brgemm.cu`` or raise: its f32 form on f32 operands, counted by
-``KERNEL.launches``, and its bf16 form (the tensor-core tile of
-``csrc/gemm_bf16.cuh``: bf16 operands, f32 accumulators and epilogue, y
-in bf16) on bf16 operands, counted by ``KERNEL_BF16.launches``.  The
-epilogue's scale and shift are f32 in both forms, as are the stats.
+``KERNEL.launches``; on bf16 operands (f32 accumulators and epilogue, y
+in bf16) the Hopper tile of ``csrc/gemm_wgmma.cuh`` (wgmma, TMA, a
+warp-specialised mbarrier ring, persistent) where its copies can be 16
+bytes wide, counted by ``KERNEL_WGMMA.launches``, else the mma.sync tile
+of ``csrc/gemm_bf16.cuh``, counted by ``KERNEL_BF16.launches``.  The
+epilogue's scale and shift are f32 in every form, as are the stats.
 
-:func:`plan` picks the tile and the copy form of every launch of the
-shared GEMM tiles (``csrc/gemm_f32.cuh``, ``csrc/gemm_bf16.cuh``), here
-and for the direct conv, from the form's table (:data:`F32`,
-:data:`BF16`); the launch hands the plan to the kernel and sizes the
-stats partials by it, so tile geometry has one source."""
+:func:`plan` picks the tile, the copy form and the split of every launch
+of the shared GEMM tiles (``csrc/gemm_f32.cuh``, ``csrc/gemm_bf16.cuh``,
+``csrc/gemm_wgmma.cuh``), here and for the direct conv, from the form's
+table (:data:`F32`, :data:`BF16`, :data:`WGMMA`); the launch hands the
+plan to the kernel and sizes the stats partials by it, so tile geometry
+has one source.  :func:`launch_gemm` is the host path every call of
+rows 14 and 15 takes: a parameter block prepared once per shape, dtype
+and plan (:class:`Prepared`) with only its pointers rewritten, y and one
+f32 scratch allocation, the stream, one ctypes call."""
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
 from paddle_tpu_torch.core.dtype import at_least_f32
-from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.enforce import EnforceError, enforce
 from paddle_tpu_torch.ops.kernels._build import Kernel, load
 
 MIN_WAVES = 8        # a tile larger than the smallest fills the card so often
@@ -68,33 +75,78 @@ class Form:
 F32 = Form(((128, 64), (64, 64)),
            {(128, 64, True): 3, (128, 64, False): 3,
             (64, 64, True): 6, (64, 64, False): 6}, 16, 4)
-#: the bf16 tensor-core tile (``csrc/gemm_bf16.cuh``): 4 warps of
-#: mma.sync m16n8k16, a 3-slice ring of 32-deep slices.  128 x 64 at 110
-#: registers (16-byte copies) fits 4 blocks an SM, at 178 (the
-#: register-staged form's staging and cursors) 2; 64 x 64 at 80 fits 6,
-#: at 126 4 (ptxas, no spills; the runtime's occupancy, held to it).
-BF16 = Form(F32.tiles, {(128, 64, True): 4, (128, 64, False): 2,
-                        (64, 64, True): 6, (64, 64, False): 4}, 32, 8)
+#: the bf16 mma.sync tile (``csrc/gemm_bf16.cuh``): 4 warps of
+#: mma.sync m16n8k16, a 3-slice ring of 32-deep slices staged through
+#: registers, for the bf16 shapes 16-byte copies cannot read (the WGMMA
+#: tile takes the rest).  128 x 64 at 178 registers fits 2 blocks an SM,
+#: 64 x 64 at 126 4 (ptxas, no spills; the runtime's occupancy, held to
+#: it).
+BF16 = Form(F32.tiles, {(128, 64, False): 2, (64, 64, False): 4}, 32, 8)
+#: the Hopper bf16 tile (``csrc/gemm_wgmma.cuh``, ``wgmma::dispatch``):
+#: 128 x BN, two consumer warpgroups and a producer (384 threads), a ring
+#: of 64-deep stages (6 at BN 64 and 128, 4 at 256: 165-225 KB of shared
+#: memory with the stats and output staging), so one block an SM; the
+#: 16-byte form only.
+WGMMA = Form(((128, 256), (128, 128), (128, 64)),
+             {(128, 256, True): 1, (128, 128, True): 1, (128, 64, True): 1},
+             64, 8)
 FORMS = {torch.float32: F32, torch.bfloat16: BF16}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P] + [_I] * 14 + [_P] * 3 + [_I] + [_P] * 4
-KERNEL = Kernel("brgemm", "brgemm_f32", _ARGS)
-KERNEL_BF16 = Kernel("brgemm", "brgemm_bf16", _ARGS)
+
+
+class BrgemmParams(ctypes.Structure):
+    """The launch's parameter block: ``struct BrgemmParams`` of
+    ``csrc/brgemm.cu``, field for field."""
+    _fields_ = ([(f, _P) for f in ("a", "b", "y", "ws", "scale", "shift",
+                                   "partial", "sum", "sumsq")]
+                + [(f, _I) for f in ("G", "M", "K", "N", "img_h", "img_w",
+                                     "out_h", "out_w", "sh", "sw",
+                                     "block_m", "block_n", "vec", "splits",
+                                     "relu")])
+
+
+#: every C entry of the shared tiles: the parameter block's address, the
+#: stream
+ENTRY_ARGS = [_P, _P]
+KERNEL = Kernel("brgemm", "brgemm_f32", ENTRY_ARGS)
+KERNEL_BF16 = Kernel("brgemm", "brgemm_bf16", ENTRY_ARGS)
+KERNEL_WGMMA = Kernel("brgemm", "brgemm_wgmma", ENTRY_ARGS)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Entries:
+    """One source's C entries by tile (``brgemm.cu``'s, or
+    ``conv2d_direct.cu``'s) and their parameter block, whose first two
+    fields are the operands."""
+    f32: Kernel
+    bf16: Kernel
+    wgmma: Kernel
+    params: type
+
+    def kernel(self, p: "Plan", dtype) -> Kernel:
+        if dtype == torch.float32:
+            return self.f32
+        return self.wgmma if p.wgmma else self.bf16
+
+
+BRGEMM = Entries(KERNEL, KERNEL_BF16, KERNEL_WGMMA, BrgemmParams)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch of the shared tile: ``block_m`` x ``block_n`` outputs a
-    block of block_m * block_n / 64 threads; the copy form, ``vec``: 4
-    consecutive reduction elements (or 4 columns of B) a 16-byte copy,
-    else a 4-byte copy each; and ``splits`` of the reduction, summed in
-    order by a second pass."""
+    """One launch of a shared tile: ``block_m`` x ``block_n`` outputs a
+    block; the copy form, ``vec``: a 16-byte copy of consecutive
+    reduction elements (or columns of B), else a 4-byte copy each (f32)
+    or register staging (bf16); ``splits`` of the reduction, summed in
+    order by a second pass; ``wgmma``: the Hopper tile (bf16, 16-byte
+    form, persistent), else the form's own."""
     block_m: int
     block_n: int
     vec: bool
     splits: int = 1
+    wgmma: bool = False
 
     def row_tiles(self, m: int) -> int:
         """Row tiles of an M-row output: the stats partials' count."""
@@ -104,7 +156,6 @@ class Plan:
         return self.row_tiles(m) * -(-n // self.block_n) * self.splits
 
 
-@functools.lru_cache(maxsize=4096)
 def _tile(m: int, n: int, kred: int, sms: int, form: Form,
           vec: bool) -> tuple:
     for t in form.tiles[:-1]:
@@ -116,6 +167,48 @@ def _tile(m: int, n: int, kred: int, sms: int, form: Form,
     splits = min(wave // Plan(*t, True).blocks(m, n), MAX_SPLITS,
                  -(-kred // form.block_k) // MIN_SPLIT_SLICES)
     return t + (max(1, splits),)
+
+
+#: the Hopper tile's cost model (:func:`_wgmma_tile`), fitted to the
+#: alone times of ``chip_ab.py --sweep`` on an H100 (every width and split
+#: at seven ResNet-50 and small_vgg shapes): a 64-deep stage of a 128 x BN
+#: tile takes WGMMA_STAGE_US + WGMMA_STAGE_US_PER_COL x BN (its copies
+#: and hand-off through the ring, then its products), a tile's epilogue
+#: WGMMA_EPI_US + WGMMA_EPI_US_PER_COL x its columns inside N; a split's
+#: second pass moves (4 splits + 2) bytes an output at
+#: WGMMA_REDUCE_BYTES_PER_US (its f32 partials written and read back, y
+#: written)
+WGMMA_STAGE_US, WGMMA_STAGE_US_PER_COL = 0.57, 0.0019
+WGMMA_EPI_US, WGMMA_EPI_US_PER_COL = 0.9, 0.02
+WGMMA_REDUCE_BYTES_PER_US = 0.33e6
+
+
+@functools.lru_cache(maxsize=4096)
+def _wgmma_tile(m: int, n: int, kred: int, sms: int) -> tuple:
+    """(block_n, splits) of the Hopper tile: of every width in
+    ``WGMMA.tiles`` and split of the reduction (up to :data:`MAX_SPLITS`,
+    each at least :data:`MIN_SPLIT_SLICES` stages unless whole), the one
+    the cost model finishes first on the persistent grid (``sms`` x
+    ``WGMMA.resident`` blocks, each walking ceil(work / grid) tiles);
+    ties go to the wider tile and the fewer splits."""
+    slices = -(-kred // WGMMA.block_k)
+    best = None
+    for bm, bn in WGMMA.tiles:
+        grid = sms * WGMMA.resident[(bm, bn, True)]
+        tiles = -(-m // bm) * -(-n // bn)
+        epilogue = WGMMA_EPI_US + WGMMA_EPI_US_PER_COL * min(bn, n)
+        for splits in range(1, MAX_SPLITS + 1):
+            if splits > 1 and slices // splits < MIN_SPLIT_SLICES:
+                break
+            stages = -(-slices // splits)
+            us = -(-tiles * splits // grid) * (
+                stages * (WGMMA_STAGE_US + WGMMA_STAGE_US_PER_COL * bn)
+                + epilogue)
+            if splits > 1:
+                us += (4 * splits + 2) * m * n / WGMMA_REDUCE_BYTES_PER_US
+            if best is None or us < best[0]:
+                best = (us, bn, splits)
+    return best[1:]
 
 
 def plan(m: int, n: int, kred: int, run: int, ptrs, sms: int,
@@ -137,18 +230,30 @@ def plan(m: int, n: int, kred: int, run: int, ptrs, sms: int,
       the card, the reduction is cut into as many whole multiples as fit
       (at most :data:`MAX_SPLITS`, each at least
       :data:`MIN_SPLIT_SLICES` slices): res5's 3x3 at batch 64 (392
-      blocks for 792) takes 2, small_vgg's last group (256) 3 (f32)."""
+      blocks for 792) takes 2, small_vgg's last group (256) 3 (f32).
+    - bf16 in the 16-byte form takes the Hopper tile (:data:`WGMMA`),
+      its width and split from :func:`_wgmma_tile`'s cost model on the
+      persistent grid; every other bf16 shape the mma.sync tile."""
+    return _plan(m, n, kred, run, not any(p & 15 for p in ptrs), sms, form)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m: int, n: int, kred: int, run: int, aligned: bool, sms: int,
+          form: Form) -> Plan:
     e = form.vec_elems
-    vec = run % e == 0 and n % e == 0 and all(p % 16 == 0 for p in ptrs)
+    vec = aligned and run % e == 0 and n % e == 0
+    if form is BF16 and vec:
+        bn, splits = _wgmma_tile(m, n, kred, sms)
+        return Plan(WGMMA.tiles[0][0], bn, True, splits, True)
     bm, bn, splits = _tile(m, n, kred, sms, form, vec)
     return Plan(bm, bn, vec, splits)
 
 
 def resident(kernel: Kernel, block_m: int, block_n: int, vec: bool) -> int:
-    """Blocks of ``kernel``'s (the BRGEMM's or the direct conv's)
-    block_m x block_n tile in the copy form ``vec`` that one SM of the
-    current card holds at once, from the CUDA runtime's occupancy of that
-    instantiation (the C entry ``<symbol>_resident``)."""
+    """Blocks of ``kernel``'s (the BRGEMM's or the direct conv's, in any
+    tile) block_m x block_n tile in the copy form ``vec`` that one SM of
+    the current card holds at once, from the CUDA runtime's occupancy of
+    that instantiation (the C entry ``<symbol>_resident``)."""
     fn = getattr(load(kernel.source), kernel.symbol + "_resident")
     fn.argtypes, fn.restype = [_I] * 3, _I
     n = fn(block_m, block_n, int(vec))
@@ -192,68 +297,126 @@ def brgemm_reference(a, b, scale=None, shift=None, act=None, stats=False):
     return y, acc.sum(dim=0), (acc * acc).sum(dim=0)
 
 
-def _launch(a, b, g, m, k, n, rows, scale, shift, act, stats):
+def _launch(a, b, g, m, k, n, rows, scale, shift, act, stats, shape):
     """One kernel call; ``rows`` = (img_h, img_w, out_h, out_w, sh, sw) is
-    the row map of A (see ``csrc/brgemm.cu``)."""
-    form = check_operands("brgemm", [a, b],
-                          [] if scale is None else [scale, shift])
-    enforce(min(g, m, k, n) > 0, "the brgemm kernel takes non-empty "
-            "operands, got G=%d M=%d K=%d N=%d", g, m, k, n)
-    p = plan(m, n, g * k, k, (a.data_ptr(), b.data_ptr()),
-             sm_count(a.device), form)
-    return launch_gemm(KERNEL_BF16 if form is BF16 else KERNEL, a.device,
-                       m, n, p, stats, scale, shift, act, a.data_ptr(),
-                       b.data_ptr(), g, m, k, n, *rows, dtype=a.dtype)
+    the row map of A (see ``csrc/brgemm.cu``), ``shape`` y's shape (M x N
+    elements)."""
+    form = check_operands("brgemm", a, b, scale, shift)
+    if min(g, m, k, n) <= 0:
+        raise EnforceError(f"the brgemm kernel takes non-empty operands, "
+                           f"got G={g} M={m} K={k} N={n}")
+    pa, pb, dev = a.data_ptr(), b.data_ptr(), a.device
+    p = plan(m, n, g * k, k, (pa, pb), sm_count(dev), form)
+    return launch_gemm(BRGEMM, dev, a.dtype, shape, p, stats, scale, shift,
+                       act, pa, pb, (g, m, k, n, *rows))
 
 
-def check_operands(name, operands, epilogue=()) -> Form:
-    """The kernels take contiguous operands on one CUDA device, all f32
-    (the f32 form) or all bf16 (the bf16 form), and f32 epilogue vectors;
-    returns the form."""
-    tensors = [*operands, *epilogue]
-    dev = tensors[0].device
-    enforce(dev.type == "cuda", "no kernel for device %s", dev)
-    dtype = operands[0].dtype
-    enforce(dtype in FORMS and all(t.dtype == dtype for t in operands),
-            f"the {name} kernel takes float32 or bfloat16 operands of one "
-            f"dtype, got {[t.dtype for t in operands]}")
-    enforce(all(t.dtype == torch.float32 for t in epilogue),
-            f"the {name} kernel's epilogue takes float32 scale and shift")
-    enforce(all(t.is_contiguous() for t in tensors),
-            f"the {name} kernel needs contiguous operands")
-    enforce(all(t.device == dev for t in tensors),
-            "operands on several devices: %s", [t.device for t in tensors])
+def check_operands(name, a, b, scale=None, shift=None) -> Form:
+    """The kernels take contiguous operands on one CUDA device, both f32
+    (the f32 form) or both bf16 (the bf16 forms), and f32 epilogue
+    vectors; returns the dtype's form.  A message is built only when a
+    check fails."""
+    if not a.is_cuda:
+        raise EnforceError(f"no kernel for device {a.device}")
+    dtype = a.dtype
+    if b.dtype != dtype or dtype not in FORMS:
+        raise EnforceError(f"the {name} kernel takes float32 or bfloat16 "
+                           f"operands of one dtype, got {[a.dtype, b.dtype]}")
+    tensors = (a, b)
+    if scale is not None:
+        if scale.dtype != torch.float32 or shift.dtype != torch.float32:
+            raise EnforceError(f"the {name} kernel's epilogue takes float32 "
+                               f"scale and shift")
+        tensors = (a, b, scale, shift)
+    index = a.get_device()
+    for t in tensors:
+        if not t.is_contiguous():
+            raise EnforceError(f"the {name} kernel needs contiguous "
+                               f"operands")
+        if t.get_device() != index:
+            raise EnforceError(f"operands on several devices: "
+                               f"{[u.device for u in tensors]}")
     return FORMS[dtype]
 
 
-def launch_gemm(kernel, device, m, n, p, stats, scale, shift, act, *args,
-                dtype=torch.float32):
-    """Allocate y [M, N] in ``dtype`` (and the split's f32 scratch, the
-    stats partials and outputs), launch ``kernel(*args, y, ..., the plan
-    p, epilogue pointers, stream)`` and return y or (y, sum, sumsq).  The
-    C entry points of ``brgemm.cu`` and ``conv2d_direct.cu``, both forms,
-    share this tail of arguments."""
-    y = torch.empty((m, n), dtype=dtype, device=device)
-    ws = s = ss = partial = None
-    if p.splits > 1:
-        ws = torch.empty((p.splits, m, n), dtype=torch.float32,
-                         device=device)
-    if stats:   # one allocation: partials [2, tiles, N], then sum, sumsq
-        tiles = p.row_tiles(m)
-        buf = torch.empty(2 * (tiles + 1) * n, dtype=torch.float32,
-                          device=device)
-        partial, s, ss = buf.split([2 * tiles * n, n, n])
+class Prepared:
+    """One shape, dtype, plan and epilogue of a source's entries: the C
+    entry, the parameter block with every scalar set (only the pointers
+    are rewritten a call) and the layout of the call's one f32 scratch
+    buffer: the split's partial sums [splits, M, N], then the stats
+    partials [2, row tiles, N], sum [N] and sumsq [N].  A call rewrites
+    the block it owns, so one thread launches through it at a time (the
+    port's steps issue from one thread)."""
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    __slots__ = ("kernel", "params", "addr", "shape", "n", "dtype",
+                 "device", "index", "operands", "scratch", "ws", "partial",
+                 "stats")
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        kernel.launch(args[0], args[1], y.data_ptr(), *args[2:], p.block_m,
-                      p.block_n, int(p.vec), p.splits, ptr(ws), ptr(scale),
-                      ptr(shift), int(act == "relu"), ptr(partial), ptr(s),
-                      ptr(ss), stream)
-    return (y, s, ss) if stats else y
+    def __init__(self, entries, device, dtype, shape, p, stats, relu, dims):
+        self.kernel = entries.kernel(p, dtype)
+        self.shape, self.dtype, self.device = shape, dtype, device
+        n = self.n = shape[-1]
+        m = math.prod(shape) // n
+        self.index = device.index
+        fields = [f for f, _ in entries.params._fields_]
+        self.operands = fields[:2]
+        ints = fields[9:]
+        self.params = entries.params(**dict(zip(ints, (
+            *dims, p.block_m, p.block_n, int(p.vec), p.splits, int(relu)))))
+        self.addr = ctypes.addressof(self.params)
+        self.ws = p.splits * m * n if p.splits > 1 else 0
+        tiles = p.row_tiles(m) if stats else 0
+        self.stats = stats
+        self.partial = 2 * tiles * n
+        self.scratch = self.ws + (self.partial + 2 * n if stats else 0)
+
+    def __call__(self, a_ptr, b_ptr, scale, shift):
+        n = self.n
+        y = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        prm = self.params
+        setattr(prm, self.operands[0], a_ptr)
+        setattr(prm, self.operands[1], b_ptr)
+        prm.y = y.data_ptr()
+        if scale is not None:
+            prm.scale, prm.shift = scale.data_ptr(), shift.data_ptr()
+        s = ss = None
+        if self.scratch:
+            buf = torch.empty(self.scratch, dtype=torch.float32,
+                              device=self.device)
+            base = buf.data_ptr()
+            if self.ws:
+                prm.ws = base
+            if self.stats:
+                at = self.ws + self.partial
+                prm.partial = base + 4 * self.ws
+                prm.sum, prm.sumsq = base + 4 * at, base + 4 * (at + n)
+                s, ss = buf[at:at + n], buf[at + n:]
+        stream = torch._C._cuda_getCurrentRawStream(self.index)
+        if torch._C._cuda_getDevice() == self.index:
+            self.kernel.launch(self.addr, stream)
+        else:
+            with torch.cuda.device(self.device):
+                self.kernel.launch(self.addr, stream)
+        return (y, s, ss) if self.stats else y
+
+
+_PREPARED: dict = {}
+
+
+def launch_gemm(entries, device, dtype, shape, p, stats, scale, shift, act,
+                a_ptr, b_ptr, dims):
+    """Launch ``entries``' C entry for plan ``p`` on operands at
+    ``a_ptr``, ``b_ptr`` with the shape ``dims`` (the parameter block's
+    integer fields before the plan's), y of ``shape`` (M x N elements, N
+    last) in ``dtype`` and the epilogue: returns y or (y, sum, sumsq).
+    The parameter block is prepared once per (entries, device, dtype,
+    shape, plan, epilogue)."""
+    key = (entries, device, dtype, dims, p, stats, scale is not None, act)
+    prep = _PREPARED.get(key)
+    if prep is None:
+        prep = _PREPARED[key] = Prepared(entries, device, dtype, shape, p,
+                                         stats, act == "relu", dims)
+    return prep(a_ptr, b_ptr, scale, shift)
 
 
 def brgemm(a, b, scale=None, shift=None, act=None, stats=False):
@@ -271,8 +434,9 @@ def brgemm(a, b, scale=None, shift=None, act=None, stats=False):
     if a.device.type == "cpu":
         return brgemm_reference(a, b, scale, shift, act, stats)
     g, m, k = a.shape
-    return _launch(a, b, g, m, k, b.shape[2], (1, m, 1, m, 1, 1),
-                   scale, shift, act, stats)
+    n = b.shape[2]
+    return _launch(a, b, g, m, k, n, (1, m, 1, m, 1, 1), scale, shift, act,
+                   stats, (m, n))
 
 
 def conv1x1(x, w, stride=(1, 1), scale=None, shift=None, act=None,
@@ -288,14 +452,13 @@ def conv1x1(x, w, stride=(1, 1), scale=None, shift=None, act=None,
     cout = w.shape[3]
     sh, sw = stride
     oh, ow = (h - 1) // sh + 1, (wd - 1) // sw + 1
-    if x.device.type == "cpu":
-        xs = x[:, ::sh, ::sw] if (sh, sw) != (1, 1) else x
-        out = brgemm_reference(xs.reshape(1, n * oh * ow, cin),
-                               w.reshape(1, cin, cout), scale, shift, act,
-                               stats)
-    else:
-        out = _launch(x, w, 1, n * oh * ow, cin, cout, (h, wd, oh, ow, sh, sw),
-                      scale, shift, act, stats)
+    if x.device.type != "cpu":
+        return _launch(x, w, 1, n * oh * ow, cin, cout,
+                       (h, wd, oh, ow, sh, sw), scale, shift, act, stats,
+                       (n, oh, ow, cout))
+    xs = x[:, ::sh, ::sw] if (sh, sw) != (1, 1) else x
+    out = brgemm_reference(xs.reshape(1, n * oh * ow, cin),
+                           w.reshape(1, cin, cout), scale, shift, act, stats)
     if stats:
         return out[0].reshape(n, oh, ow, cout), out[1], out[2]
     return out.reshape(n, oh, ow, cout)

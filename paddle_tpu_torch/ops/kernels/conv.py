@@ -10,10 +10,13 @@ per-channel sum/sum-of-squares of the raw conv output (training-mode BN
 statistics from the same pass), or affine + ReLU (inference-mode BN folded
 into the store).  CPU tensors take the plain twins (:func:`fwd_raw_reference`,
 ``brgemm.brgemm_reference``); CUDA tensors launch the kernels or raise: the
-f32 forms on f32 operands, the bf16 forms (``KERNEL_BF16``,
-``brgemm.KERNEL_BF16``: f32 accumulators, stats and epilogue, y in bf16)
-on bf16 ones.  Mixed operands resolve by ``core/dtype.cast_for_matmul``
-and y takes x's dtype, as in the JAX package.
+f32 forms on f32 operands, the bf16 forms (f32 accumulators, stats and
+epilogue, y in bf16) on bf16 ones: the Hopper tile (``KERNEL_WGMMA``,
+``brgemm.KERNEL_WGMMA``) where Cin and Cout are multiples of 8 and the
+operands aligned, the mma.sync tile (``KERNEL_BF16``,
+``brgemm.KERNEL_BF16``) otherwise.  Mixed operands resolve by
+``core/dtype.cast_for_matmul`` and y takes x's dtype, as in the JAX
+package.
 
 Backward never re-derives conv math in a kernel: ``torch.autograd.Function``
 wrappers take the exact adjoints of the reference composition, as the
@@ -45,9 +48,24 @@ from paddle_tpu_torch.ops.kernels._build import Kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P] + [_I] * 17 + [_P] * 3 + [_I] + [_P] * 4
-KERNEL = Kernel("conv2d_direct", "conv2d_direct_f32", _ARGS)
-KERNEL_BF16 = Kernel("conv2d_direct", "conv2d_direct_bf16", _ARGS)
+
+
+class ConvParams(ctypes.Structure):
+    """The launch's parameter block: ``struct ConvParams`` of
+    ``csrc/conv2d_direct.cu``, field for field."""
+    _fields_ = ([(f, _P) for f in ("x", "wt", "y", "ws", "scale", "shift",
+                                   "partial", "sum", "sumsq")]
+                + [(f, _I) for f in ("n", "h", "w", "cin", "kh", "kw",
+                                     "cout", "oh", "ow", "sh", "sw", "ph",
+                                     "pw", "block_m", "block_n", "vec",
+                                     "splits", "relu")])
+
+
+KERNEL = Kernel("conv2d_direct", "conv2d_direct_f32", kbr.ENTRY_ARGS)
+KERNEL_BF16 = Kernel("conv2d_direct", "conv2d_direct_bf16", kbr.ENTRY_ARGS)
+KERNEL_WGMMA = Kernel("conv2d_direct", "conv2d_direct_wgmma",
+                      kbr.ENTRY_ARGS)
+CONV = kbr.Entries(KERNEL, KERNEL_BF16, KERNEL_WGMMA, ConvParams)
 
 
 # -- forward: one launch with a fused epilogue ---------------------------------
@@ -78,23 +96,19 @@ def direct_plan(x, w, m, sms):
 
 
 def _direct_kernel(x, w, strides, pads, scale, shift, act, stats):
-    form = kbr.check_operands("direct conv", [x, w],
-                              [] if scale is None else [scale, shift])
+    kbr.check_operands("direct conv", x, w, scale, shift)
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     (sh, sw), (ph, pw) = strides, pads
     oh, ow = nn_ops.conv_out(h, kh, sh, ph), nn_ops.conv_out(wd, kw, sw, pw)
     enforce(min(n, oh, ow, cin, cout) > 0, "the direct conv kernel takes "
             "non-empty shapes, got x %s w %s", tuple(x.shape), tuple(w.shape))
-    p = direct_plan(x, w, n * oh * ow, kbr.sm_count(x.device))
-    out = kbr.launch_gemm(KERNEL_BF16 if form is kbr.BF16 else KERNEL,
-                          x.device, n * oh * ow, cout, p, stats, scale,
-                          shift, act, x.data_ptr(), w.data_ptr(), n, h, wd,
-                          cin, kh, kw, cout, oh, ow, sh, sw, ph, pw,
-                          dtype=x.dtype)
-    if stats:
-        return out[0].reshape(n, oh, ow, cout), out[1], out[2]
-    return out.reshape(n, oh, ow, cout)
+    dev = x.device
+    p = direct_plan(x, w, n * oh * ow, kbr.sm_count(dev))
+    return kbr.launch_gemm(CONV, dev, x.dtype, (n, oh, ow, cout), p, stats,
+                           scale, shift, act, x.data_ptr(), w.data_ptr(),
+                           (n, h, wd, cin, kh, kw, cout, oh, ow, sh, sw, ph,
+                            pw))
 
 
 def fwd_raw(x, w, strides, pads, scale=None, shift=None, act=None,
@@ -118,9 +132,10 @@ def fwd_raw(x, w, strides, pads, scale=None, shift=None, act=None,
     else:
         out = _direct_kernel(x.contiguous(), w.contiguous(), strides, pads,
                              scale, shift, act, stats)
-    if stats:
-        return (out[0].to(out_dtype), *out[1:])
-    return out.to(out_dtype)
+    y = out[0] if stats else out
+    if y.dtype != out_dtype:    # a no-op .to still costs a dispatch a call
+        y = y.to(out_dtype)
+    return (y, *out[1:]) if stats else y
 
 
 # -- backward helpers ------------------------------------------------------------

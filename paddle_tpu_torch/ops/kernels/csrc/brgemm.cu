@@ -26,13 +26,50 @@
 // stores y as float4 rows: a short reduction leaves little time to hide
 // the copies behind, so they are few and wide.
 //
-// brgemm_bf16 is the bf16 form (the TPU kernel's bf16 operands with an
-// f32 accumulator, written in bf16) on the tensor-core tile of
-// gemm_bf16.cuh, with the same row map and epilogues.  The bound at bf16
-// is bytes: res2 branch2c moves 129 MB at 3.35 TB/s (0.038 ms) and its
-// 6.6 GFLOP take 0.0067 ms at 989 TFLOP/s.
+// The bf16 forms (the TPU kernel's bf16 operands with an f32
+// accumulator, written in bf16) have the same row map and epilogues:
+// brgemm_wgmma on the Hopper tile of gemm_wgmma.cuh (wgmma, TMA, a
+// warp-specialised mbarrier ring, persistent) where the copies can be
+// 16 bytes wide (K and N multiples of 8, aligned operands), brgemm_bf16
+// on the mma.sync tile of gemm_bf16.cuh otherwise.  The bound at bf16 is
+// bytes: res2 branch2c moves 129 MB at 3.35 TB/s (0.038 ms) and its 6.6
+// GFLOP take 0.0067 ms at 989 TFLOP/s.
+//
+// Every entry takes one parameter block (BrgemmParams) and the stream,
+// so the host converts two arguments a call, not 25.
 
 #include "gemm_bf16.cuh"
+#include "gemm_wgmma.cuh"
+
+// The launch's parameter block, one field a line in this order
+// (ops/kernels/brgemm.py's BrgemmParams mirrors it): a, b and y in the
+// entry's dtype, ws, scale, shift and the stats f32.
+struct BrgemmParams {
+  const void* a;
+  const void* b;
+  void* y;
+  float* ws;
+  const float* scale;
+  const float* shift;
+  float* partial;
+  float* sum;
+  float* sumsq;
+  int G;
+  int M;
+  int K;
+  int N;
+  int img_h;
+  int img_w;
+  int out_h;
+  int out_w;
+  int sh;
+  int sw;
+  int block_m;
+  int block_n;
+  int vec;
+  int splits;
+  int relu;
+};
 
 namespace {
 
@@ -79,11 +116,32 @@ struct BrgemmA {
   }
 };
 
-// the arguments both forms check
-bool bad_args(int G, int M, int K, int N, int img_h, int out_h, int out_w) {
-  return G <= 0 || M <= 0 || K <= 0 || N <= 0 || out_h <= 0 || out_w <= 0 ||
-         M % (out_h * out_w) != 0 || (G > 1 && (img_h != 1 || out_h != 1)) ||
-         (long long)G * K > 0x7fffffff;
+// the arguments every form checks; vec_elems: the elements of a 16-byte
+// copy (4 f32, 8 bf16), whose multiple K must be in the 16-byte form
+bool bad_args(const BrgemmParams& p, int vec_elems) {
+  return p.G <= 0 || p.M <= 0 || p.K <= 0 || p.N <= 0 || p.out_h <= 0 ||
+         p.out_w <= 0 || p.M % (p.out_h * p.out_w) != 0 ||
+         (p.G > 1 && (p.img_h != 1 || p.out_h != 1)) ||
+         (long long)p.G * p.K > 0x7fffffff ||
+         (p.vec && (p.K % vec_elems != 0 || !gemm::aligned16(p.a)));
+}
+
+template <class T>
+BrgemmA<T> loader(const BrgemmParams& p) {
+  return BrgemmA<T>{static_cast<const T*>(p.a), (long long)p.M * p.K, p.M,
+                    p.K, p.G * p.K, p.img_h, p.img_w, p.out_h, p.out_w,
+                    p.sh, p.sw};
+}
+
+template <class Form>
+int run(const BrgemmParams& p, void* stream) {
+  using T = typename Form::Elem;
+  if (bad_args(p, Form::kVecElems)) return (int)cudaErrorInvalidValue;
+  return gemm::launch<Form>(loader<T>(p), static_cast<const T*>(p.b), p.M,
+                            p.N, p.G * p.K, static_cast<T*>(p.y), p.block_m,
+                            p.block_n, p.vec, p.splits, p.ws, p.scale,
+                            p.shift, p.relu, p.partial, p.sum, p.sumsq,
+                            (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -96,22 +154,8 @@ bool bad_args(int G, int M, int K, int N, int img_h, int out_h, int out_w) {
 // ops/kernels/brgemm.py's plan picks them.  scale/shift [N] or null;
 // partial [2, ceil(M / block_m), N] scratch and sum/sumsq [N] outputs, or
 // all three null.
-extern "C" int brgemm_f32(const float* a, const float* b, float* y, int G,
-                          int M, int K, int N, int img_h, int img_w,
-                          int out_h, int out_w, int sh, int sw, int block_m,
-                          int block_n, int vec, int splits, float* ws,
-                          const float* scale,
-                          const float* shift, int relu, float* partial,
-                          float* sum, float* sumsq, void* stream) {
-  if (bad_args(G, M, K, N, img_h, out_h, out_w) ||
-      (vec && (K % 4 != 0 || !gemm::aligned16(a))))
-    return (int)cudaErrorInvalidValue;
-  const BrgemmA<float> A{a, (long long)M * K, M, K, G * K,
-                         img_h, img_w, out_h, out_w, sh, sw};
-  return gemm::launch<gemm::F32Form>(A, b, M, N, G * K, y, block_m, block_n,
-                                     vec, splits, ws, scale, shift, relu,
-                                     partial, sum, sumsq,
-                                     (cudaStream_t)stream);
+extern "C" int brgemm_f32(const BrgemmParams* p, void* stream) {
+  return run<gemm::F32Form>(*p, stream);
 }
 
 // Blocks of brgemm_f32's block_m x block_n tile in the copy form vec that
@@ -122,30 +166,35 @@ extern "C" int brgemm_f32_resident(int block_m, int block_n, int vec) {
                                                        vec);
 }
 
-// brgemm_f32's contract with bf16 a, b and y (scale, shift, ws and the
-// stats f32); the 16-byte form needs K % 8 == 0, N % 8 == 0 and a, b, y
-// 16-byte aligned.
-extern "C" int brgemm_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                           __nv_bfloat16* y, int G, int M, int K, int N,
-                           int img_h, int img_w, int out_h, int out_w,
-                           int sh, int sw, int block_m, int block_n, int vec,
-                           int splits, float* ws, const float* scale,
-                           const float* shift, int relu, float* partial,
-                           float* sum, float* sumsq, void* stream) {
-  if (bad_args(G, M, K, N, img_h, out_h, out_w) ||
-      (vec && (K % 8 != 0 || !gemm::aligned16(a))))
-    return (int)cudaErrorInvalidValue;
-  const BrgemmA<__nv_bfloat16> A{a, (long long)M * K, M, K, G * K,
-                                 img_h, img_w, out_h, out_w, sh, sw};
-  return gemm::launch<gemm::mma::Form>(A, b, M, N, G * K, y, block_m,
-                                       block_n, vec, splits, ws, scale,
-                                       shift, relu, partial, sum, sumsq,
-                                       (cudaStream_t)stream);
+// brgemm_f32's contract with bf16 a, b and y on the mma.sync tile of
+// gemm_bf16.cuh (scale, shift, ws and the stats f32), its register-staged
+// form only (vec 0).
+extern "C" int brgemm_bf16(const BrgemmParams* p, void* stream) {
+  return run<gemm::mma::Form>(*p, stream);
 }
 
 extern "C" int brgemm_bf16_resident(int block_m, int block_n, int vec) {
   return gemm::resident<gemm::mma::Form, BrgemmA<__nv_bfloat16>>(
       block_m, block_n, vec);
+}
+
+// brgemm_bf16's contract on the wgmma tile of gemm_wgmma.cuh: block_m
+// 128, the 16-byte form only (K % 8 == 0, N % 8 == 0, a, b, y 16-byte
+// aligned); B's tensor map is encoded here.
+extern "C" int brgemm_wgmma(const BrgemmParams* p, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (bad_args(*p, 8) || !p->vec || p->block_m != gemm::wgmma::kBM)
+    return (int)cudaErrorInvalidValue;
+  return gemm::wgmma::launch(loader<bf16>(*p), static_cast<const bf16*>(p->b),
+                             p->M, p->N, p->G * p->K, static_cast<bf16*>(p->y),
+                             p->block_n, p->splits, p->ws, p->scale,
+                             p->shift, p->relu, p->partial, p->sum,
+                             p->sumsq, (cudaStream_t)stream);
+}
+
+extern "C" int brgemm_wgmma_resident(int block_m, int block_n, int vec) {
+  if (block_m != gemm::wgmma::kBM || !vec) return -(int)cudaErrorInvalidValue;
+  return gemm::wgmma::resident<BrgemmA<__nv_bfloat16>>(block_n);
 }
 
 extern "C" const char* kernel_error_string(int code) {

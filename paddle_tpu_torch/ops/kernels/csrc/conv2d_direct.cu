@@ -30,13 +30,51 @@
 // happen once, when a block starts.  Padding taps and rows past M are
 // zero-filled by the copies.
 //
-// conv2d_direct_bf16 is the bf16 form (bf16 x and w, f32 accumulation,
-// y in bf16) on the tensor-core tile of gemm_bf16.cuh; Cin % 8 == 0 takes
-// its 16-byte copies, the stem's Cin 3 its register-staged form.  At bf16
-// the 3x3s sit near the card's balance of ~295 flop a byte (res2: 14.8
-// GFLOP, 52 MB: 0.015 ms of tensor-core time, 0.015 of bytes).
+// The bf16 forms (bf16 x and w, f32 accumulation, y in bf16):
+// conv2d_direct_wgmma on the Hopper tile of gemm_wgmma.cuh where Cin and
+// Cout are multiples of 8 and the operands 16-byte aligned (every
+// ResNet-50 conv but the stem), conv2d_direct_bf16 on the mma.sync tile
+// of gemm_bf16.cuh otherwise (its register-staged form: the stem's Cin
+// 3).  At bf16 the 3x3s sit near the card's balance of ~295 flop a byte
+// (res2: 14.8 GFLOP, 52 MB: 0.015 ms of tensor-core time, 0.015 of
+// bytes).  Every entry takes one parameter block (ConvParams) and the
+// stream.
 
 #include "gemm_bf16.cuh"
+#include "gemm_wgmma.cuh"
+
+// The launch's parameter block, one field a line in this order
+// (ops/kernels/conv.py's ConvParams mirrors it): x, wt and y in the
+// entry's dtype, ws, scale, shift and the stats f32.
+struct ConvParams {
+  const void* x;
+  const void* wt;
+  void* y;
+  float* ws;
+  const float* scale;
+  const float* shift;
+  float* partial;
+  float* sum;
+  float* sumsq;
+  int n;
+  int h;
+  int w;
+  int cin;
+  int kh;
+  int kw;
+  int cout;
+  int oh;
+  int ow;
+  int sh;
+  int sw;
+  int ph;
+  int pw;
+  int block_m;
+  int block_n;
+  int vec;
+  int splits;
+  int relu;
+};
 
 namespace {
 
@@ -83,15 +121,36 @@ struct ConvA {
   }
 };
 
-// the arguments both forms check
-bool bad_args(int n, int h, int w, int cin, int kh, int kw, int cout, int oh,
-              int ow, int sh, int sw, int ph, int pw) {
-  const long long m = (long long)n * oh * ow;
-  return n <= 0 || h <= 0 || w <= 0 || cin <= 0 || kh <= 0 || kw <= 0 ||
-         cout <= 0 || oh <= 0 || ow <= 0 || sh <= 0 || sw <= 0 || ph < 0 ||
-         pw < 0 || m > 0x7fffffff || (long long)kh * kw * cin > 0x7fffffff ||
-         (long long)n * h * w > 0x7fffffff ||
-         (oh - 1) * sh + kh > h + 2 * ph || (ow - 1) * sw + kw > w + 2 * pw;
+// the arguments every form checks; vec_elems: the elements of a 16-byte
+// copy (4 f32, 8 bf16), whose multiple Cin must be in the 16-byte form
+bool bad_args(const ConvParams& p, int vec_elems) {
+  const long long m = (long long)p.n * p.oh * p.ow;
+  return p.n <= 0 || p.h <= 0 || p.w <= 0 || p.cin <= 0 || p.kh <= 0 ||
+         p.kw <= 0 || p.cout <= 0 || p.oh <= 0 || p.ow <= 0 || p.sh <= 0 ||
+         p.sw <= 0 || p.ph < 0 || p.pw < 0 || m > 0x7fffffff ||
+         (long long)p.kh * p.kw * p.cin > 0x7fffffff ||
+         (long long)p.n * p.h * p.w > 0x7fffffff ||
+         (p.oh - 1) * p.sh + p.kh > p.h + 2 * p.ph ||
+         (p.ow - 1) * p.sw + p.kw > p.w + 2 * p.pw ||
+         (p.vec && (p.cin % vec_elems != 0 || !gemm::aligned16(p.x)));
+}
+
+template <class T>
+ConvA<T> loader(const ConvParams& p) {
+  return ConvA<T>{static_cast<const T*>(p.x), p.n * p.oh * p.ow, p.h, p.w,
+                  p.cin, p.oh, p.ow, p.kw, p.sh, p.sw, p.ph, p.pw,
+                  p.kh * p.kw * p.cin};
+}
+
+template <class Form>
+int run(const ConvParams& p, void* stream) {
+  using T = typename Form::Elem;
+  if (bad_args(p, Form::kVecElems)) return (int)cudaErrorInvalidValue;
+  return gemm::launch<Form>(loader<T>(p), static_cast<const T*>(p.wt),
+                            p.n * p.oh * p.ow, p.cout, p.kh * p.kw * p.cin,
+                            static_cast<T*>(p.y), p.block_m, p.block_n,
+                            p.vec, p.splits, p.ws, p.scale, p.shift, p.relu,
+                            p.partial, p.sum, p.sumsq, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -101,65 +160,50 @@ bool bad_args(int n, int h, int w, int cin, int kh, int kw, int cout, int oh,
 // (16-byte copies: cin % 4 == 0, cout % 4 == 0 and x, wt, y 16-byte
 // aligned) and splits the split of the reduction (ws [splits, n*oh*ow,
 // cout] scratch when > 1), as ops/kernels/brgemm.py's plan picks them.
-// scale/shift
-// [cout] or null; partial [2, ceil(n*oh*ow / block_m), cout] scratch and
-// sum/sumsq [cout] outputs, or all three null.
-extern "C" int conv2d_direct_f32(const float* x, const float* wt, float* y,
-                                 int n, int h, int w, int cin, int kh, int kw,
-                                 int cout, int oh, int ow, int sh, int sw,
-                                 int ph, int pw, int block_m, int block_n,
-                                 int vec, int splits, float* ws,
-                                 const float* scale,
-                                 const float* shift, int relu, float* partial,
-                                 float* sum, float* sumsq, void* stream) {
-  const long long m = (long long)n * oh * ow;
-  if (bad_args(n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, ph, pw) ||
-      (vec && (cin % 4 != 0 || !gemm::aligned16(x))))
-    return (int)cudaErrorInvalidValue;
-  const ConvA<float> A{x, (int)m, h, w, cin, oh, ow, kw, sh, sw, ph, pw,
-                       kh * kw * cin};
-  return gemm::launch<gemm::F32Form>(A, wt, (int)m, cout, kh * kw * cin, y,
-                                     block_m, block_n, vec, splits, ws,
-                                     scale, shift, relu, partial, sum, sumsq,
-                                     (cudaStream_t)stream);
+// scale/shift [cout] or null; partial [2, ceil(n*oh*ow / block_m), cout]
+// scratch and sum/sumsq [cout] outputs, or all three null.
+extern "C" int conv2d_direct_f32(const ConvParams* p, void* stream) {
+  return run<gemm::F32Form>(*p, stream);
 }
 
-// Blocks of conv2d_direct_f32's block_m x block_n tile in the copy form vec that
-// one SM holds at once, or -(CUDA error): ops/kernels/brgemm.py's
+// Blocks of conv2d_direct_f32's block_m x block_n tile in the copy form
+// vec that one SM holds at once, or -(CUDA error): ops/kernels/brgemm.py's
 // F32.resident, which the tile plan reads, is checked against it.
 extern "C" int conv2d_direct_f32_resident(int block_m, int block_n, int vec) {
   return gemm::resident<gemm::F32Form, ConvA<float>>(block_m, block_n, vec);
 }
 
-// conv2d_direct_f32's contract with bf16 x, wt and y (scale, shift, ws
-// and the stats f32); the 16-byte form needs cin % 8 == 0, cout % 8 == 0
-// and x, wt, y 16-byte aligned.
-extern "C" int conv2d_direct_bf16(const __nv_bfloat16* x,
-                                  const __nv_bfloat16* wt, __nv_bfloat16* y,
-                                  int n, int h, int w, int cin, int kh,
-                                  int kw, int cout, int oh, int ow, int sh,
-                                  int sw, int ph, int pw, int block_m,
-                                  int block_n, int vec, int splits,
-                                  float* ws, const float* scale,
-                                  const float* shift, int relu,
-                                  float* partial, float* sum, float* sumsq,
-                                  void* stream) {
-  const long long m = (long long)n * oh * ow;
-  if (bad_args(n, h, w, cin, kh, kw, cout, oh, ow, sh, sw, ph, pw) ||
-      (vec && (cin % 8 != 0 || !gemm::aligned16(x))))
-    return (int)cudaErrorInvalidValue;
-  const ConvA<__nv_bfloat16> A{x, (int)m, h, w, cin, oh, ow, kw, sh, sw,
-                               ph, pw, kh * kw * cin};
-  return gemm::launch<gemm::mma::Form>(A, wt, (int)m, cout, kh * kw * cin,
-                                       y, block_m, block_n, vec, splits, ws,
-                                       scale, shift, relu, partial, sum,
-                                       sumsq, (cudaStream_t)stream);
+// conv2d_direct_f32's contract with bf16 x, wt and y on the mma.sync tile
+// of gemm_bf16.cuh (scale, shift, ws and the stats f32), its
+// register-staged form only (vec 0).
+extern "C" int conv2d_direct_bf16(const ConvParams* p, void* stream) {
+  return run<gemm::mma::Form>(*p, stream);
 }
 
 extern "C" int conv2d_direct_bf16_resident(int block_m, int block_n,
                                            int vec) {
   return gemm::resident<gemm::mma::Form, ConvA<__nv_bfloat16>>(
       block_m, block_n, vec);
+}
+
+// conv2d_direct_bf16's contract on the wgmma tile of gemm_wgmma.cuh:
+// block_m 128, the 16-byte form only (cin % 8 == 0, cout % 8 == 0, x, wt,
+// y 16-byte aligned); the weight's tensor map is encoded here.
+extern "C" int conv2d_direct_wgmma(const ConvParams* p, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (bad_args(*p, 8) || !p->vec || p->block_m != gemm::wgmma::kBM)
+    return (int)cudaErrorInvalidValue;
+  return gemm::wgmma::launch(
+      loader<bf16>(*p), static_cast<const bf16*>(p->wt), p->n * p->oh * p->ow,
+      p->cout, p->kh * p->kw * p->cin, static_cast<bf16*>(p->y), p->block_n,
+      p->splits, p->ws, p->scale, p->shift, p->relu, p->partial, p->sum,
+      p->sumsq, (cudaStream_t)stream);
+}
+
+extern "C" int conv2d_direct_wgmma_resident(int block_m, int block_n,
+                                            int vec) {
+  if (block_m != gemm::wgmma::kBM || !vec) return -(int)cudaErrorInvalidValue;
+  return gemm::wgmma::resident<ConvA<__nv_bfloat16>>(block_n);
 }
 
 extern "C" const char* kernel_error_string(int code) {

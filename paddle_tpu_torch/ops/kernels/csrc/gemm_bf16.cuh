@@ -1,4 +1,4 @@
-// Shared bf16 GEMM tile for the port's convolution kernels (brgemm.cu,
+// The mma.sync bf16 GEMM tile of the port's convolution kernels (brgemm.cu,
 // conv2d_direct.cu): C[M, N] = A[M, Kred] . B[Kred, N] from bf16 operands
 // on the tensor cores, with f32 accumulators in registers and the fused
 // epilogue of gemm_f32.cuh before one rounding to bf16 and one store.
@@ -28,16 +28,14 @@
 //   ldmatrix.x4.trans, two n8 fragments a load.  Shared rows are padded
 //   by 8 elements (16 bytes), so the 8 rows an ldmatrix phase reads fall
 //   in 8 distinct groups of 4 banks.
-// - The ring: kStages slices of kBK = 32 reduction steps.  The 16-byte
-//   form copies 8 bf16 a cp.async (the reduction's contiguous run, a
-//   conv's Cin or the BRGEMM's K, and N multiples of 8; 16-byte aligned
-//   operands); cp.async has no 2-byte form, so every other shape (the
-//   stem's Cin 3, small_vgg's first conv) takes the register-staged
-//   form: the slice s + kStages - 1 is read from global memory into
-//   registers before slice s is computed and stored to shared memory
-//   after it.  Masked elements (padding taps, rows past M, the
-//   reduction's tail up to the mma's k = 16 and the slice's 32) are zero
-//   in both forms.
+// - The ring: kStages slices of kBK = 32 reduction steps, staged through
+//   registers (cp.async has no 2-byte form, and the shapes this tile
+//   takes are the ones 16-byte copies cannot read: the stem's Cin 3,
+//   small_vgg's first conv, unaligned views): the slice s + kStages - 1
+//   is read from global memory into registers before slice s is
+//   computed and stored to shared memory after it.  Masked elements
+//   (padding taps, rows past M, the reduction's tail up to the mma's
+//   k = 16 and the slice's 32) are zero.
 // - Epilogue, on the f32 accumulators: the stats (per-column sum and sum
 //   of squares, butterfly shuffles over a warp's rows, then the two warps
 //   of a column in order, one partial a row tile; gemm::stats_reduce
@@ -46,7 +44,9 @@
 //   A split of the reduction stores raw f32 sums and gemm::split_reduce
 //   finishes; no atomics anywhere, so a rerun gives the same bits.
 //
-// wgmma, TMA and a persistent schedule are later work.
+// Every bf16 shape whose copies can be 16 bytes wide takes the Hopper
+// tile (gemm_wgmma.cuh: wgmma, TMA, a warp-specialised mbarrier ring,
+// persistent) instead.
 
 #pragma once
 
@@ -88,7 +88,6 @@ struct Tile {
   static_assert(kSmemBytes <= 48 * 1024, "the ring fits without opt-in");
 };
 
-using bf16_tc::cp_async16;
 using bf16_tc::ldmatrix_x4;
 using bf16_tc::ldmatrix_x4_trans;
 using bf16_tc::mma_bf16;
@@ -107,7 +106,7 @@ __device__ __forceinline__ uint4 pack(const uint32_t (&v)[8]) {
 // [split * split_slices, + split_slices).  Without a split (ws null) the
 // block applies the epilogue and stores y in bf16; with one it stores its
 // raw f32 sum to ws[split] and split_reduce finishes.
-template <int BM, int BN, bool kVec, class Loader>
+template <int BM, int BN, class Loader>
 __global__ void __launch_bounds__(kThreads)
 mma_kernel(Loader A, const bf16* __restrict__ b, int M, int N, int Kred,
            int n_tiles, int m_tiles, int split_slices,
@@ -142,24 +141,7 @@ mma_kernel(Loader A, const bf16* __restrict__ b, int M, int N, int Kred,
   };
   auto b_row = [&](int s, int i) { return k0 + s * kBK + b_k + T::kBRows * i; };
 
-  // the 16-byte form: slice s by cp.async into its ring slot
-  auto copy_slice = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < T::kAPasses; ++i) {
-      bool ok;
-      const bf16* p = A.src(rows[i], cur, ok);
-      cp_async16(a_dst(s, i), p, ok);
-    }
-    A.advance(cur, kBK);
-#pragma unroll
-    for (int i = 0; i < T::kBPasses; ++i) {
-      const int k = b_row(s, i);
-      const bool ok = k < Kred && n0 + b_n < N;  // N % 8 == 0: all or none
-      cp_async16(b_dst(s, i), ok ? b + (long long)k * N + n0 + b_n : b, ok);
-    }
-  };
-
-  // the register-staged form: slice s into registers, element by element
+  // slice s into registers, element by element
   uint4 stage_a[T::kAPasses], stage_b[T::kBPasses];
   auto fetch_slice = [&](int s) {
     Cursor u[8];
@@ -237,33 +219,20 @@ mma_kernel(Loader A, const bf16* __restrict__ b, int M, int N, int Kred,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < steps) {
-      if constexpr (kVec) {
-        copy_slice(s);
-      } else {
-        fetch_slice(s);
-        store_slice(s);
-      }
+      fetch_slice(s);
+      store_slice(s);
     }
-    cp_async_commit();  // an empty group keeps the count uniform
   }
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStages - 2>();  // slice s has landed (this thread's)
-    // ... and everyone's; every thread is past slice s - 1, whose slot
-    // the next copies overwrite
+    // slice s is everyone's; every thread is past slice s - 1, whose slot
+    // the next stores overwrite
     __syncthreads();
     const int next = s + kStages - 1;
-    if constexpr (kVec) {
-      if (next < steps) copy_slice(next);
-      cp_async_commit();
-      compute(s);
-    } else {
-      if (next < steps) fetch_slice(next);  // in flight while s computes
-      compute(s);
-      if (next < steps) store_slice(next);
-    }
+    if (next < steps) fetch_slice(next);  // in flight while s computes
+    compute(s);
+    if (next < steps) store_slice(next);
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is drained: its memory is free
+  __syncthreads();  // the ring is done: its memory is free
 
   // the thread's fragment element c of (i, j) is row
   // wm * kWM + 16 i + g + 8 (c / 2), column wn * kWN + 8 j + 2 t + c % 2
@@ -331,37 +300,30 @@ mma_kernel(Loader A, const bf16* __restrict__ b, int M, int N, int Kred,
           if (ep.relu) v[e] = fmaxf(v[e], 0.f);
         }
         const long long o = (long long)m * N + n;
-        if (wsp != nullptr) {
-          if constexpr (kVec) {
-            if (n < N) *reinterpret_cast<float2*>(wsp + o) = make_float2(v[0], v[1]);
-          } else {
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              if (n + e < N) wsp[o + e] = v[e];
-          }
-        } else if constexpr (kVec) {
-          if (n < N)
-            *reinterpret_cast<__nv_bfloat162*>(y + o) =
-                __floats2bfloat162_rn(v[0], v[1]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (n + e < N) y[o + e] = __float2bfloat16_rn(v[e]);
+        for (int e = 0; e < 2; ++e) {
+          if (n + e >= N) continue;
+          if (wsp != nullptr)
+            wsp[o + e] = v[e];
+          else
+            y[o + e] = __float2bfloat16_rn(v[e]);
         }
       }
     }
 }
 
 // The bf16 tensor-core tile as gemm::launch and gemm::resident (in
-// gemm_f32.cuh) take it: bf16 b and y, 32-deep slices, 8 elements a
-// 16-byte copy.
+// gemm_f32.cuh) take it: bf16 b and y, 32-deep slices, the
+// register-staged copy form only (gemm::launch refuses vec, so the
+// kVec the dispatch names never selects a kernel).
 struct Form {
   using Elem = bf16;
   static constexpr int kBK = mma::kBK, kVecElems = 8;
+  static constexpr bool kVec16 = false;
   template <int BM, int BN>
   using Tile = mma::Tile<BM, BN>;
   template <int BM, int BN, bool kVec, class Loader>
-  static auto kernel() { return &mma_kernel<BM, BN, kVec, Loader>; }
+  static auto kernel() { return &mma_kernel<BM, BN, Loader>; }
 };
 
 }  // namespace mma

@@ -416,12 +416,14 @@ cudaError_t dispatch(int block_m, int block_n, int vec, F&& f) {
 
 // A form of the shared tile, as launch and resident take it: the element
 // type of b and y, the depth of a ring slice, the elements of one 16-byte
-// copy, the tile's geometry (Tile<BM, BN>::kThreads, ::kSmemBytes) and
-// its kernel.  This is the f32 SIMT tile; gemm_bf16.cuh's mma::Form the
-// bf16 tensor-core one.
+// copy and whether it has the 16-byte copy form, the tile's geometry
+// (Tile<BM, BN>::kThreads, ::kSmemBytes) and its kernel.  This is the
+// f32 SIMT tile; gemm_bf16.cuh's mma::Form the bf16 mma.sync one
+// (gemm_wgmma.cuh's Hopper tile has a launch of its own).
 struct F32Form {
   using Elem = float;
   static constexpr int kBK = gemm::kBK, kVecElems = 4;
+  static constexpr bool kVec16 = true;  // both copy forms
   template <int BM, int BN>
   using Tile = gemm::Tile<BM, BN>;
   template <int BM, int BN, bool kVec, class Loader>
@@ -433,6 +435,7 @@ struct F32Form {
 // threads allow), as the CUDA runtime computes it; or -(CUDA error).
 template <class Form, class Loader>
 int resident(int block_m, int block_n, int vec) {
+  if (vec && !Form::kVec16) return -(int)cudaErrorInvalidValue;
   int n = 0;
   const cudaError_t err =
       dispatch(block_m, block_n, vec, [&](auto bm, auto bn, auto v) {
@@ -463,7 +466,8 @@ int launch(const Loader& A, const typename Form::Elem* b, int M, int N,
   const int slices = (Kred + Form::kBK - 1) / Form::kBK;
   if (splits < 1 || splits > slices ||
       (splits > 1 && (ws == nullptr || !aligned16(ws))) ||
-      (vec && (N % Form::kVecElems != 0 || !aligned16(b) || !aligned16(y))))
+      (vec && (!Form::kVec16 || N % Form::kVecElems != 0 || !aligned16(b) ||
+               !aligned16(y))))
     return (int)cudaErrorInvalidValue;
   const int split_slices = (slices + splits - 1) / splits;
   cudaError_t err =

@@ -209,3 +209,190 @@ def test_direct_plan_reads_cin_and_the_operands_alignment():
     res5 = CV.direct_plan(torch.zeros(2, 7, 7, 512),
                           torch.zeros(3, 3, 512, 512), 64 * 7 * 7, H100_SMS)
     assert res5 == BR.Plan(64, 64, True, 2)     # Kred 4608 reaches the plan
+
+
+# -- the Hopper bf16 tile (csrc/gemm_wgmma.cuh) and the host path ------------
+
+
+@pytest.mark.parametrize("run,n,ptrs,wgmma", [
+    (64, 256, (0, 256), True),      # ResNet's 1x1 and 3x3 convs
+    (96, 256, (16, 4096), True),    # AlexNet conv2: Cin 96
+    (8, 16, (0, 0), True),          # Cin 8
+    (3, 64, (0, 0), False),         # the stem, AlexNet conv1: Cin 3
+    (1, 16, (0, 0), False),         # the CRNN's first conv: Cin 1
+    (12, 16, (0, 0), False),        # Cin 12: 4 mod 8
+    (64, 12, (0, 0), False),        # N 12
+    (64, 64, (2, 0), False),        # A at a storage offset of one bf16
+    (64, 64, (0, 8), False),        # B 8 bytes past a 16-byte boundary
+])
+def test_plan_takes_the_hopper_tile_exactly_where_copies_are_16_bytes(
+        run, n, ptrs, wgmma):
+    """bf16 shapes whose run and N are multiples of 8 on 16-byte aligned
+    operands take the wgmma tile (block_m 128, the 16-byte form); every
+    other bf16 shape the mma.sync tile's register-staged form; f32 never
+    the Hopper tile."""
+    p = BR.plan(4096, n, 9 * run, run, ptrs, H100_SMS, BR.BF16)
+    assert p.wgmma is wgmma and p.vec is wgmma
+    if wgmma:
+        assert (p.block_m, p.block_n) in BR.WGMMA.tiles
+    else:
+        assert (p.block_m, p.block_n) in BR.BF16.tiles
+    assert not BR.plan(4096, n, 9 * run, run, ptrs, H100_SMS).wgmma
+
+
+#: the Hopper tile's plan at every bf16 shape chip_smoke.py times
+#: (RESNET_1X1, DIRECT_SHAPES but the Cin-3 convs): (block_n, splits)
+WGMMA_PLANS = {
+    "res2_1_branch2a": (64, 1), "res2_2a": (64, 1), "res2_2c": (256, 1),
+    "res3_1_branch2a_s2": (128, 1), "res3_1_branch1_s2": (256, 1),
+    "res3_2a": (128, 1), "res3_2c": (256, 1),
+    "res4_1_branch2a_s2": (256, 1), "res4_1_branch1_s2": (256, 1),
+    "res4_2a": (256, 1), "res4_2c": (256, 1),
+    "res5_1_branch2a_s2": (128, 1), "res5_1_branch1_s2": (256, 1),
+    "res5_2a": (128, 1), "res5_2c": (256, 1),
+    "res2_3x3": (64, 1), "res3_3x3": (128, 1), "res4_3x3": (256, 1),
+    "res5_3x3": (128, 1), "alexnet_conv2": (256, 1),
+    "small_vgg_widest": (64, 1), "small_vgg_narrowest": (64, 1),
+}
+
+
+def _smoke_shapes():
+    import chip_smoke as S
+
+    for label, (n, h, w, cin), cout, s in S.RESNET_1X1:
+        oh = (h - 1) // s + 1
+        yield label, n * oh * ((w - 1) // s + 1), cout, cin, cin
+    for label, (n, h, w, cin), (k, cout, s, p), _ in S.DIRECT_SHAPES:
+        if cin % 8 == 0:
+            oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+            yield label, n * oh * ow, cout, k * k * cin, cin
+
+
+@pytest.mark.parametrize("label", sorted(WGMMA_PLANS))
+def test_hopper_tile_width_and_split_follow_n_and_the_persistent_grid(
+        label):
+    """BN follows N (Cout 64 on the 64-wide tile, so it wastes no
+    columns); a split only where the widest tiles leave most of the
+    persistent grid (132 blocks, one an SM) idle, each split at least
+    MIN_SPLIT_SLICES stages; the table is the plan's at every smoke
+    shape."""
+    m, n, kred, run = next((m, n, kred, run) for lab, m, n, kred, run
+                           in _smoke_shapes() if lab == label)
+    p = BR.plan(m, n, kred, run, (0, 0), H100_SMS, BR.BF16)
+    assert p.wgmma and p.block_m == 128
+    assert (p.block_n, p.splits) == WGMMA_PLANS[label]
+    assert p.block_n <= max(64, n)      # no tile wider than N needs
+    tiles = -(-m // 128) * -(-n // p.block_n)
+    grid = H100_SMS * BR.WGMMA.resident[(128, p.block_n, True)]
+    if p.splits > 1:
+        assert tiles < grid
+        assert -(-kred // 64) // p.splits >= BR.MIN_SPLIT_SLICES
+
+
+def test_hopper_tile_cost_model_prefers_fewer_rounds_and_wider_tiles():
+    """The model's pieces: at one round a wider tile wins; a split pays
+    only when it cuts the rounds' stages by more than its second pass
+    costs."""
+    # 98 row tiles x 1 of 256: one round of 98 blocks
+    assert BR._wgmma_tile(98 * 128, 256, 2304, H100_SMS) == (256, 1)
+    # 16 row tiles x 8 of 64: one round of 128 narrow blocks beats 32
+    # wide ones split 4 ways (their second pass)
+    assert BR._wgmma_tile(16 * 128, 512, 4608, H100_SMS) == (64, 1)
+    # res5's 3x3 at batch 2: 8 blocks of 72 stages; 4 splits of 18
+    assert BR._wgmma_tile(98, 512, 4608, H100_SMS) == (64, 4)
+    # a short reduction is never split
+    assert BR._wgmma_tile(128, 64, 576, H100_SMS) == (64, 1)
+
+
+def test_wgmma_tiles_are_the_ones_the_header_instantiates():
+    """``WGMMA.tiles`` names the block_n of ``wgmma::dispatch`` in
+    ``csrc/gemm_wgmma.cuh`` (widest first) at block_m ``kBM``, and its
+    ``resident`` table covers each in the 16-byte form only."""
+    import re
+    from pathlib import Path
+
+    src = (Path(BR.__file__).parent / "csrc" / "gemm_wgmma.cuh").read_text()
+    body = src[src.index("cudaError_t dispatch("):]
+    body = body[:body.index("return cudaErrorInvalidValue")]
+    widths = tuple(int(b) for b in re.findall(r"block_n == (\d+)", body))
+    bm = int(re.search(r"constexpr int kBM = (\d+);", src).group(1))
+    assert tuple((bm, b) for b in widths) == BR.WGMMA.tiles
+    assert set(BR.WGMMA.resident) == {t + (True,) for t in BR.WGMMA.tiles}
+    assert BR.WGMMA.block_k == int(
+        re.search(r"constexpr int kBK = (\d+);", src).group(1))
+
+
+def _c_struct(source: str, name: str) -> list:
+    import re
+    from pathlib import Path
+
+    src = (Path(BR.__file__).parent / "csrc" / source).read_text()
+    body = src[src.index(f"struct {name} {{"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    return [re.fullmatch(r"\s*(.+?)\s*(\w+);", line).groups()
+            for line in body.strip().splitlines()]
+
+
+@pytest.mark.parametrize("source,name,cls", [
+    ("brgemm.cu", "BrgemmParams", "BR.BrgemmParams"),
+    ("conv2d_direct.cu", "ConvParams", "CV.ConvParams"),
+])
+def test_parameter_blocks_match_the_c_structs(source, name, cls):
+    """Each ctypes parameter block has the C struct's fields in order,
+    by name and type: a pointer as ``c_void_p``, an int as ``c_int``."""
+    import ctypes
+
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    struct = eval(cls, {"BR": BR, "CV": CV})
+    fields = _c_struct(source, name)
+    assert [n for _, n in fields] == [n for n, _ in struct._fields_]
+    for (ctype, n), (_, pytype) in zip(fields, struct._fields_):
+        assert pytype is (ctypes.c_void_p if ctype.endswith("*")
+                          else ctypes.c_int), (n, ctype)
+        assert ctype.endswith("*") or ctype == "int", (n, ctype)
+
+
+def test_every_entry_takes_the_parameter_block_and_the_stream():
+    """Each C entry of the shared tiles takes (const <Params>*, void*):
+    what ``ENTRY_ARGS`` passes."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    csrc = Path(BR.__file__).parent / "csrc"
+    assert BR.ENTRY_ARGS == [ctypes.c_void_p, ctypes.c_void_p]
+    for source, params, kernels in (
+            ("brgemm.cu", "BrgemmParams", (BR.KERNEL, BR.KERNEL_BF16,
+                                           BR.KERNEL_WGMMA)),
+            ("conv2d_direct.cu", "ConvParams", (CV.KERNEL, CV.KERNEL_BF16,
+                                                CV.KERNEL_WGMMA))):
+        src = (csrc / source).read_text()
+        for k in kernels:
+            assert k.argtypes == BR.ENTRY_ARGS
+            assert re.search(rf'extern "C" int {k.symbol}\(const {params}\* '
+                             rf'p, void\* stream\)', src), k.symbol
+
+
+def test_cpu_tensors_take_the_twins_and_launch_nothing():
+    """On the CPU every entry takes its plain twin: no kernel counter
+    moves, and bf16 conv and 1x1 outputs equal the twins' bits."""
+    from paddle_tpu_torch.ops.kernels import conv as CV
+
+    kernels = [BR.KERNEL, BR.KERNEL_BF16, BR.KERNEL_WGMMA, CV.KERNEL,
+               CV.KERNEL_BF16, CV.KERNEL_WGMMA]
+    before = [k.launches for k in kernels]
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(rng.normal(size=(2, 9, 9, 16)).astype(
+        np.float32)).to(torch.bfloat16)
+    w3 = torch.from_numpy(rng.normal(size=(3, 3, 16, 24)).astype(
+        np.float32)).to(torch.bfloat16)
+    w1 = w3[:1, :1].contiguous()
+    for w, pads in ((w3, (1, 1)), (w1, (0, 0))):
+        got = CV.fwd_raw(x, w, (1, 1), pads, stats=True)
+        want = CV.fwd_raw_reference(x, w, (1, 1), pads, stats=True)
+        assert all(torch.equal(a, b.reshape(a.shape))
+                   for a, b in zip(got, want))
+    assert [k.launches for k in kernels] == before

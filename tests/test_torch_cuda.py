@@ -474,21 +474,33 @@ def test_gemm_tile_refuses_a_form_the_operands_do_not_allow(cuda):
     x = torch.zeros(1, 8, 8, 3, device=cuda)
     w = torch.zeros(3, 3, 3, 8, device=cuda)
     p = BR.Plan(128, 64, True)
+    conv = (1, 8, 8, 3, 3, 3, 8, 8, 8, 1, 1, 1, 1)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        BR.launch_gemm(CV.KERNEL, cuda, 64, 8, p, False, None, None, None,
-                       x.data_ptr(), w.data_ptr(), 1, 8, 8, 3, 3, 3, 8, 8,
-                       8, 1, 1, 1, 1)
+        BR.launch_gemm(CV.CONV, cuda, torch.float32, (64, 8), p, False, None,
+                       None, None, x.data_ptr(), w.data_ptr(), conv)
     # more splits than the reduction (27) has slices (2)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        BR.launch_gemm(CV.KERNEL, cuda, 64, 8, BR.Plan(64, 64, False, 3),
-                       False, None, None, None, x.data_ptr(), w.data_ptr(),
-                       1, 8, 8, 3, 3, 3, 8, 8, 8, 1, 1, 1, 1)
+        BR.launch_gemm(CV.CONV, cuda, torch.float32, (64, 8),
+                       BR.Plan(64, 64, False, 3), False, None, None, None,
+                       x.data_ptr(), w.data_ptr(), conv)
     a = torch.zeros(65, device=cuda)[1:].view(1, 8, 8)
     b = torch.zeros(1, 8, 8, device=cuda)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        BR.launch_gemm(BR.KERNEL, cuda, 8, 8, p, False, None, None, None,
-                       a.data_ptr(), b.data_ptr(), 1, 8, 8, 8, 1, 8, 1, 8,
-                       1, 1)
+        BR.launch_gemm(BR.BRGEMM, cuda, torch.float32, (8, 8), p, False, None,
+                       None, None, a.data_ptr(), b.data_ptr(),
+                       (1, 8, 8, 8, 1, 8, 1, 8, 1, 1))
+    # the Hopper tile: bf16 only in its 16-byte form, block_m 128; the
+    # mma.sync tile: the register-staged form only
+    xb = torch.zeros(1, 8, 8, 16, dtype=torch.bfloat16, device=cuda)
+    wb = torch.zeros(3, 3, 16, 8, dtype=torch.bfloat16, device=cuda)
+    convb = (1, 8, 8, 16, 3, 3, 8, 8, 8, 1, 1, 1, 1)
+    for bad in (BR.Plan(128, 64, False, 1, True), BR.Plan(64, 64, True, 1,
+                                                           True),
+                BR.Plan(128, 96, True, 1, True), BR.Plan(128, 64, True)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            BR.launch_gemm(CV.CONV, cuda, torch.bfloat16, (64, 8), bad, False,
+                           None, None, None, xb.data_ptr(), wb.data_ptr(),
+                           convb)
 
 
 # -- the bf16 forms (csrc/gemm_bf16.cuh, channel_stats_bf16) ----------------------
@@ -538,7 +550,7 @@ def _bf16(rng, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("shape,k,cout,s,p,vec", [
-    ((2, 9, 11, 8), 3, 16, 1, 1, True),     # Cin 8: slices straddle taps
+    ((2, 9, 11, 8), 3, 16, 1, 1, True),     # Cin 8: Kred 72, past a stage
     ((2, 9, 11, 16), 3, 136, 2, 1, True),   # N past 128, % 8 == 0
     ((2, 6, 7, 24), 1, 24, 1, 1, True),     # Kred 24: below one slice
     ((3, 17, 19, 3), 7, 64, 2, 3, False),   # the stem's Cin 3, Kred 147
@@ -547,10 +559,15 @@ def _bf16(rng, *shape, scale=1.0):
     ((2, 13, 14, 12), 3, 16, 1, 1, False),  # Cin 12: register-staged
     ((64, 7, 7, 512), 3, 512, 1, 1, True),  # res5 3x3 at batch 64
     ((128, 4, 4, 512), 3, 512, 1, 1, True),  # small_vgg's last group
+    ((16, 56, 56, 64), 3, 64, 1, 1, True),  # 392 tiles: past the grid
+    ((3, 10, 10, 32), 3, 200, 1, 1, True),  # M 300, N 200: ragged tiles
 ])
 @pytest.mark.parametrize("stats", [False, True])
 def test_bf16_direct_conv_forms_and_tails(cuda, shape, k, cout, s, p, vec,
                                           stats):
+    """The bf16 direct conv (and a 1x1 through the BRGEMM): the Hopper
+    tile exactly where the copies can be 16 bytes wide, the mma.sync
+    tile elsewhere, each against the f64 twin rounded once."""
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
 
@@ -560,8 +577,10 @@ def test_bf16_direct_conv_forms_and_tails(cuda, shape, k, cout, s, p, vec,
               scale=(2.0 / (k * k * shape[-1])) ** 0.5).to(cuda)
     m = shape[0] * ((shape[1] + 2 * p - k) // s + 1) * (
         (shape[2] + 2 * p - k) // s + 1)
-    assert CV.direct_plan(x, w, m, BR.sm_count(x.device)).vec is vec
-    kern = BR.KERNEL_BF16 if (k, p) == (1, 0) else CV.KERNEL_BF16
+    plan = CV.direct_plan(x, w, m, BR.sm_count(x.device))
+    assert plan.vec is vec and plan.wgmma is vec
+    mod = BR if (k, p) == (1, 0) else CV
+    kern = mod.KERNEL_WGMMA if vec else mod.KERNEL_BF16
     _bf16_case(cuda, CV.fwd_raw, kern, (x, w, (s, s), (p, p)),
                CV.fwd_raw_reference, stats,
                _conv_mag(x, w, (s, s), (p, p)), k * k * shape[-1])
@@ -574,6 +593,8 @@ def test_bf16_direct_conv_forms_and_tails(cuda, shape, k, cout, s, p, vec,
     (5, 33, 16, 44, False),      # N % 8 != 0: register-staged
     (1, 129, 8, 8, True),        # Kred below one slice
     (2, 40, 512, 64, True),      # a long reduction across g
+    (1, 128, 64, 64, True),      # one tile, one stage
+    (3, 1000, 72, 264, True),    # K % 64 != 0 across g; N % 64 != 0
 ])
 @pytest.mark.parametrize("mode", ["none", "stats", "affine_relu"])
 def test_bf16_brgemm_stacks_forms_and_epilogues(cuda, g, m, k, n, vec,
@@ -582,8 +603,9 @@ def test_bf16_brgemm_stacks_forms_and_epilogues(cuda, g, m, k, n, vec,
 
     rng = np.random.default_rng(g * 1000 + m + k + n)
     a, b = _bf16(rng, g, m, k).to(cuda), _bf16(rng, g, k, n).to(cuda)
-    assert BR.plan(m, n, g * k, k, (a.data_ptr(), b.data_ptr()),
-                   BR.sm_count(a.device), BR.BF16).vec is vec
+    plan = BR.plan(m, n, g * k, k, (a.data_ptr(), b.data_ptr()),
+                   BR.sm_count(a.device), BR.BF16)
+    assert plan.vec is vec and plan.wgmma is vec
     kw = {}
     if mode == "affine_relu":
         kw = dict(scale=_rand(rng, n).to(cuda), shift=_rand(rng, n).to(cuda),
@@ -598,41 +620,58 @@ def test_bf16_brgemm_stacks_forms_and_epilogues(cuda, g, m, k, n, vec,
     mag = BR.brgemm_reference(a.double().abs(), b.double().abs())
     if mode == "affine_relu":
         mag = mag * kw["scale"].double().abs()
-    _bf16_case(cuda, fn, BR.KERNEL_BF16, (a, b), twin, mode == "stats",
-               mag, g * k)
+    _bf16_case(cuda, fn, BR.KERNEL_WGMMA if vec else BR.KERNEL_BF16, (a, b),
+               twin, mode == "stats", mag, g * k)
 
 
-@pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
-@pytest.mark.parametrize("vec", [True, False])
+#: every bf16 instantiation: (tile, copy form, the Hopper tile); the
+#: mma.sync tile has the register-staged form only
+BF16_TILES = [((128, 64), False, False), ((64, 64), False, False),
+              ((128, 256), True, True), ((128, 128), True, True),
+              ((128, 64), True, True)]
+
+
+@pytest.mark.parametrize("tile,vec,wgmma", BF16_TILES)
 @pytest.mark.parametrize("splits", [1, 3])
-def test_bf16_tile_every_instantiation(cuda, monkeypatch, tile, vec, splits):
-    """Each bf16 tile in each copy form, whole and split in 3, forced
-    through the plan, on a conv and a strided 1x1 conv with ragged M and
-    N past one column tile."""
+def test_bf16_tile_every_instantiation(cuda, monkeypatch, tile, vec, wgmma,
+                                       splits):
+    """Each bf16 tile in each copy form, the mma.sync tile's and the
+    Hopper tile's, whole and split in 3, forced through the plan, on a
+    conv and a strided 1x1 conv with ragged M and N past one column
+    tile.  The Hopper tile's 1x1 reads Cin 192 (3 of its 64-deep
+    stages), the mma.sync tile's 96 (3 of its 32-deep slices)."""
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
 
-    monkeypatch.setattr(BR, "plan", lambda *a: BR.Plan(*tile, vec, splits))
+    monkeypatch.setattr(BR, "plan",
+                        lambda *a: BR.Plan(*tile, vec, splits, wgmma))
     rng = np.random.default_rng(tile[0] + tile[1] + vec)
-    x = _bf16(rng, 3, 15, 13, 96).to(cuda)     # the 1x1's K: 3 slices
-    w3 = _bf16(rng, 3, 3, 96, 136, scale=0.1).to(cuda)
-    w1 = _bf16(rng, 1, 1, 96, 136, scale=0.2).to(cuda)
-    _bf16_case(cuda, CV.fwd_raw, CV.KERNEL_BF16, (x, w3, (1, 1), (1, 1)),
+    cin = 192 if wgmma else 96
+    x = _bf16(rng, 3, 15, 13, cin).to(cuda)
+    w3 = _bf16(rng, 3, 3, cin, 136, scale=0.1).to(cuda)
+    w1 = _bf16(rng, 1, 1, cin, 136, scale=0.2).to(cuda)
+    kern = "KERNEL_WGMMA" if wgmma else "KERNEL_BF16"
+    _bf16_case(cuda, CV.fwd_raw, getattr(CV, kern),
+               (x, w3, (1, 1), (1, 1)), CV.fwd_raw_reference, True,
+               _conv_mag(x, w3, (1, 1), (1, 1)), 9 * cin)
+    _bf16_case(cuda, CV.fwd_raw, getattr(BR, kern), (x, w1, (2, 2), (0, 0)),
                CV.fwd_raw_reference, True,
-               _conv_mag(x, w3, (1, 1), (1, 1)), 9 * 96)
-    _bf16_case(cuda, CV.fwd_raw, BR.KERNEL_BF16, (x, w1, (2, 2), (0, 0)),
-               CV.fwd_raw_reference, True,
-               _conv_mag(x, w1, (2, 2), (0, 0)), 96)
+               _conv_mag(x, w1, (2, 2), (0, 0)), cin)
 
 
-@pytest.mark.parametrize("tile", [(128, 64), (64, 64)])
-@pytest.mark.parametrize("vec", [True, False])
-def test_bf16_tile_resident_blocks_match_the_plan(cuda, tile, vec):
+@pytest.mark.parametrize("tile,vec,wgmma", BF16_TILES)
+def test_bf16_tile_resident_blocks_match_the_plan(cuda, tile, vec, wgmma):
+    """The plan's tables (``BF16.resident``, ``WGMMA.resident``) are the
+    CUDA runtime's occupancy of every bf16 instantiation, in both
+    kernels (the Hopper tile's after its shared-memory opt-in)."""
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
 
-    for kernel in (BR.KERNEL_BF16, CV.KERNEL_BF16):
-        assert BR.resident(kernel, *tile, vec) == BR.BF16.resident[
+    form = BR.WGMMA if wgmma else BR.BF16
+    kern = "KERNEL_WGMMA" if wgmma else "KERNEL_BF16"
+    assert tile in form.tiles
+    for mod in (BR, CV):
+        assert BR.resident(getattr(mod, kern), *tile, vec) == form.resident[
             tile + (vec,)]
 
 
@@ -651,6 +690,21 @@ def test_bf16_tile_planted_fault_fails_the_criterion(cuda):
     assert not bf16_agrees(slice_rounded_product(a[0], b[0]), want, mag, 256)
 
 
+def test_wgmma_tile_planted_faults_fail_the_criterion(cuda):
+    """The Hopper tile's planted faults (``chip_smoke.WGMMA_FAULTS``: A's
+    shared-memory writes one chunk off the swizzle; a stage's empty
+    barrier released before its wgmma group retired), each built into
+    both sources and run in place of the real entry at res4's shapes,
+    fail ``bf16_agrees`` (``chip_smoke.wgmma_faults`` raises if one
+    passes)."""
+    import chip_smoke as S
+
+    libs = S.built(S.wgmma_fault_builds())
+    out = S.wgmma_faults(cuda, libs)
+    assert len(out) == 2 * len(S.WGMMA_FAULTS)
+    assert all(a["share_off"] > 0.01 for a in out.values())
+
+
 def test_bf16_forms_refuse_mixed_operands_and_f32_epilogues(cuda):
     from paddle_tpu_torch.core.enforce import EnforceError
     from paddle_tpu_torch.ops.kernels import brgemm as BR
@@ -658,7 +712,7 @@ def test_bf16_forms_refuse_mixed_operands_and_f32_epilogues(cuda):
     a = torch.zeros(1, 4, 8, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(EnforceError, match="one dtype"):
         BR._launch(a, torch.zeros(1, 8, 8, device=cuda), 1, 4, 8, 8,
-                   (1, 4, 1, 4, 1, 1), None, None, None, False)
+                   (1, 4, 1, 4, 1, 1), None, None, None, False, (4, 8))
     half = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(EnforceError, match="float32 scale"):
         BR.brgemm(a, torch.zeros(1, 8, 8, dtype=torch.bfloat16, device=cuda),
@@ -717,12 +771,12 @@ def test_bf16_conv_bn_act_grads_on_card_match_the_cpu(cuda):
     outs = []
     for dev in (cuda, torch.device("cpu")):
         leaves = [t.to(dev).requires_grad_() for t in args]
-        before = CV.KERNEL_BF16.launches
+        before = CV.KERNEL_WGMMA.launches
         y, nm, nv = CV.conv2d_bn_act(*leaves, rm.to(dev), rv.to(dev), True,
                                      stride=2, padding=1)
         grads = torch.autograd.grad((y.float() * r.to(dev).float()).sum(),
                                     leaves)
-        assert CV.KERNEL_BF16.launches == before + (dev.type == "cuda")
+        assert CV.KERNEL_WGMMA.launches == before + (dev.type == "cuda")
         assert y.dtype == torch.bfloat16 and nm.dtype == torch.float32
         assert [g.dtype for g in grads] == [torch.bfloat16] * 4
         outs.append([t.float().cpu() for t in (y, nm, nv, *grads)])
