@@ -10,16 +10,19 @@ that tree's kernels, in the order given.  Host-bound phases vary up to
 2x between machines, so two versions are compared only within one run
 of this script, in turns:
 
-    python3 chip_ab.py [--out DIR] build/parent . . build/parent
+    python3 chip_ab.py [--out DIR] [--calls] build/parent . . build/parent
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, the ms and host ms of a call of the conv
-wrappers (rows 14 and 15, f32 and bf16), the update and the scatter-add
-at ``chip_smoke``'s shapes, img/s, step p50, the device ms a step by
-kernel class from the phases' 3-step profiles, for the f32 phase and
-the bf16 phase's bf16 and f32 blocks, the image nets' ms a batch)
+wrappers (rows 14 and 15, f32 and bf16), the update and the scatter-add,
+and with the device time alone the OCR CRNN's f32 BiLSTM forward (row 7)
+and greedy decode (row 12), at ``chip_smoke``'s shapes, img/s, step
+p50, the device ms a step by kernel class from the phases' 3-step
+profiles, for the f32 phase and the bf16 phase's bf16 and f32 blocks,
+the image nets' ms a batch)
 and writes each run's whole output to ``DIR/ab_<i>.json`` (default
-``build/ab``).
+``build/ab``).  ``--calls`` times the wrapper calls alone, without the
+training phases.
 
     python3 chip_ab.py --sweep
 
@@ -33,7 +36,16 @@ plan on copies of ``csrc/gemm_wgmma.cuh`` with other ring depths
 (``STAGES``) and the other ``VARIANTS``, each checked by ``bf16_agrees``
 first and timed alone (the device time of its kernels in a trace, no
 flush): {"wgmma_sweep_ms": {shape: {"128x<block_n>/<splits>": ms,
-"<variant>": ms}}}."""
+"<variant>": ms}}}.
+
+    python3 chip_ab.py --bilstm-plans
+
+times every plan ``lstm.bi_plan`` weighs at the OCR CRNN's f32 BiLSTM
+shape (cluster size, row tile, W_x resident or through L2), forced in
+turn and checked against the twin first, beside the plan it picks; then
+the planned plan alone on the ``BILSTM_VARIANTS`` copies of the source,
+and the cycles a step of each part of the planned kernel's first CTAs
+(``BILSTM_CLOCK``)."""
 
 from __future__ import annotations
 
@@ -57,6 +69,9 @@ from paddle_tpu_torch.ops.kernels import _build
 dev = resolve_device(None)
 _build.build()
 calls = CALLS(dev, C)
+if sys.argv[2] == "calls":
+    print(json.dumps({"calls": calls}))
+    sys.exit(0)
 torch.cuda.empty_cache()
 train = C.train_end_to_end(dev)[0]
 torch.cuda.empty_cache()
@@ -68,10 +83,11 @@ print(json.dumps({"calls": calls, "train": train, "train_bf16": bf16,
                   "bench_nets": nets}))
 """
 
-#: the calls of the conv (rows 14 and 15, f32 and bf16), update and
-#: scatter-add wrappers at chip_smoke's shapes, timed the same way in
-#: either tree (each tree's own wrappers): the CUDA-event ms with the L2
-#: flushed and the host's median ms a call without a sync
+#: the calls of the BiLSTM (row 7 f32), decode (row 12), conv (rows 14 and
+#: 15, f32 and bf16), update and scatter-add wrappers at chip_smoke's
+#: shapes, timed the same way in either tree (each tree's own wrappers):
+#: the CUDA-event ms with the L2 flushed and the host's median ms a call
+#: without a sync; rows 7 and 12 also the device ms of their kernel alone
 CALLS = r"""
 def CALLS(dev, C):
     import paddle_tpu_torch as paddle
@@ -94,10 +110,33 @@ def CALLS(dev, C):
         torch.cuda.synchronize()
         return float(np.median(times)) * 1e3
 
-    def both(fn):
-        return {"ms": timer(fn), "host_ms": host(fn)}
+    def both(fn, key=None):
+        got = {"ms": timer(fn), "host_ms": host(fn)}
+        if key:
+            got["alone_ms"] = C.device_ms([fn], key)
+        return got
 
     out = {}
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    # the OCR CRNN's f32 BiLSTM forward (x [64, 24, 256], D 64) and greedy
+    # decode (log-probs [64, 24, 27], int64 lengths), as check_crnn_kernels
+    b, t, e, d, v = 64, 24, 256, 64, 27
+    rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)
+    x, mask = rnd(b, t, e), torch.ones(b, t, device=dev)
+    zeros = torch.zeros(b, d, device=dev)
+    fw, bw = ((rnd(e, 4 * d, k=e ** -0.5), rnd(4 * d, k=0.1),
+               rnd(d, 4 * d, k=d ** -0.5), rnd(3, d, k=0.3), zeros, zeros)
+              for _ in range(2))
+    out["bilstm_f32"] = both(lambda: LK._bi_fwd_kernel(x, mask, fw, bw),
+                             "bilstm_")
+    lp = torch.log_softmax(rnd(b, t, v, k=2.0), -1)
+    ilen = torch.full((b,), t, dtype=torch.int64, device=dev)
+    out["ctc_decode"] = both(
+        lambda: KC.ctc_greedy_decode_fused(lp, ilen, v - 1),
+        "ctc_decode_kernel")
+    del x, mask, zeros, fw, bw, lp, ilen
     from paddle_tpu_torch.ops.kernels import brgemm as BR
     from paddle_tpu_torch.ops.kernels import conv as CV
 
@@ -139,6 +178,8 @@ def CALLS(dev, C):
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
+    if "train" not in out:
+        return {"tree": tree, "seconds": seconds, "calls": out["calls"]}
     train, bf16, nets = out["train"], out["train_bf16"], out["bench_nets"]
     prof = train.get("profile", {})
     prof16 = bf16.get("profile", {})
@@ -317,12 +358,155 @@ def sweep_wgmma(dev) -> dict:
     return out
 
 
-def main(trees: list[str], out_dir: str) -> int:
+#: copies of csrc/bilstm_seq.cu that each change one part of the f32
+#: kernel, {variant: [(line, what it becomes)]}, timed alone at the
+#: planned plan: "no ..." drops a part of the step, to show what it costs
+#: (their results are wrong and not checked); the others are designs
+#: weighed against the source's
+BILSTM_VARIANTS = {
+    "512 threads": [("constexpr int kClThreads = 256;",
+                     "constexpr int kClThreads = 512;")],
+    "copies after the arrive": [
+        ("    if (s + 1 < T) stage(s + 1);     // x_s is read; the copies "
+         "overlap the cell\n", ""),
+        ("    if (s + 1 < T) cluster_arrive();   // this CTA's h_t slice is "
+         "out", "    if (s + 1 < T) cluster_arrive();\n    if (s + 1 < T) "
+         "stage(s + 1);")],
+    "fast exp": [(
+        "float sigm(float x) { return 1.f / (1.f + expf(-x)); }",
+        "float sigm(float x) { return 1.f / (1.f + __expf(-x)); }")],
+    "no x product": [(
+        "    partial_sums<kRows, kResident>(red_x, x_s, wx_s, E, U, KS, xt, "
+        "p.wx, D,\n                                   col0);\n", "")],
+    "no h product": [(
+        "    partial_sums<kRows, true>(red_h, h_cur, wh_s, D, U, KS, nullptr,"
+        "\n                              nullptr, D, col0);\n", "")],
+    "no cluster barrier": [   # but the last, so no CTA exits early
+        ("    if (s > 0) cluster_wait();",
+         "    if (s == T - 1) cluster_wait();"),
+        ("    if (s + 1 < T) cluster_arrive();",
+         "    if (s + 2 == T) cluster_arrive();")],
+    "no peer stores": [(
+        "          cluster.map_shared_rank(h_nxt, q)[unit * kRows + r] = hn;",
+        "          ;")]}
+
+
+#: a copy of csrc/bilstm_seq.cu whose thread 0 of each CTA sums clock64()
+#: over six parts of every step and writes the sums (cycles) over its
+#: h_T entries: the top barrier and copies' wait, x_t W_x, the cluster
+#: barrier's wait, h W_h with its barrier, the cell with the peer stores
+#: and the arrive, the stores of the step's outputs
+BILSTM_CLOCK = [
+    ("constexpr int kMaxCluster = 8;",
+     "constexpr int kMaxCluster = 8;\n#define TICK(k) { const long long "
+     "n_ = clock64(); ph[k] += n_ - t_0; t_0 = n_; }"),
+    ("  for (int s = 0; s < T; ++s) {\n    const int t = reverse ? T - 1 - s "
+     ": s;\n    if (s > 0) {",
+     "  long long ph[6] = {0, 0, 0, 0, 0, 0}, t_0 = clock64();\n  for (int s "
+     "= 0; s < T; ++s) {\n    const int t = reverse ? T - 1 - s : s;\n    "
+     "if (s > 0) {"),
+    ("    const float* xt[kRows];",
+     "    TICK(0);\n    const float* xt[kRows];"),
+    ("    if (s > 0) cluster_wait();",
+     "    TICK(1);\n    if (s > 0) cluster_wait();\n    TICK(2);"),
+    ("    if (s + 1 < T) stage(s + 1);", "    TICK(3);\n    if (s + 1 < T) "
+     "stage(s + 1);"),
+    ("    if (s + 1 < T) cluster_arrive();   // this CTA's h_t slice is out",
+     "    if (s + 1 < T) cluster_arrive();\n    TICK(4);"),
+    ("        p.cT[(size_t)b * D + unit] = cn;\n      }\n    }\n  }\n}\n",
+     "        p.cT[(size_t)b * D + unit] = cn;\n      }\n    }\n    TICK(5);"
+     "\n  }\n  __syncthreads();\n  if (threadIdx.x == 0)\n    for (int k = "
+     "0; k < 6; ++k) p.hT[(size_t)b0 * D + col0 + k] = (float)ph[k];\n}\n")]
+#: the parts BILSTM_CLOCK times, in its order
+CLOCK_PARTS = ("top barrier and copies", "x product", "cluster wait",
+               "h product", "cell, peer stores, arrive", "outputs")
+
+
+def bilstm_plans() -> int:
+    """Every plan ``lstm.bi_plan`` weighs at the OCR CRNN's BiLSTM shape
+    (B 64, T 24, E 256, D 64; x and weights as ``check_crnn_kernels``),
+    in this tree: each forced in turn, checked against the twin, then
+    timed alone (the kernel's device ms in a trace, no flush) and by
+    CUDA events (L2 flushed), beside how many of its clusters the card
+    holds at once: one JSON line, {"<cluster>x<rows> <resident|l2>":
+    {"ctas", "clusters_held", "alone_ms", "ms"}, "planned": ...}."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    dev = resolve_device(None)
+    builds = C.source_fault_builds("bilstm_seq", {
+        "phase_clock": BILSTM_CLOCK, **{
+            name.replace(" ", "_"): edits
+            for name, edits in BILSTM_VARIANTS.items()}})
+    _build.build(["bilstm_seq"])
+    timer = C.Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, t, e, d = 64, 24, 256, 64
+    rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)
+    x, mask = rnd(b, t, e), torch.ones(b, t, device=dev)
+    zeros = torch.zeros(b, d, device=dev)
+    fw, bw = ((rnd(e, 4 * d, k=e ** -0.5), rnd(4 * d, k=0.1),
+               rnd(d, 4 * d, k=d ** -0.5), rnd(3, d, k=0.3), zeros, zeros)
+              for _ in range(2))
+    fn = lambda: LK._bi_fwd_kernel(x, mask, fw, bw)
+    want = LK._bi_fwd_plain(x, mask, fw, bw)
+    key = lambda p: (f"{p.cluster}x{p.rows} "
+                     f"{'resident' if p.resident else 'l2'}")
+    sms, optin = LK._card(dev)
+    held = LK._max_clusters(dev, e, d)
+    out = {"planned": key(LK._bi_launch(dev, b, t, e, d)[0])}
+    real = LK._bi_launch
+    for p in LK._bi_candidates(b, e, d, optin):
+        LK._bi_launch = lambda *a, p=p: (p, (b, t, e, d, p.cluster, p.rows,
+                                             int(p.resident)))
+        try:
+            for g_dir, w_dir in zip(fn(), want):
+                for g, w in zip(g_dir, w_dir):
+                    err = (g - w).abs().max().item()
+                    if not err <= C.TOL * max(1.0, w.abs().max().item()):
+                        raise AssertionError(f"plan {p}: err {err}")
+            out[key(p)] = {"ctas": p.ctas, "clusters_held": held(
+                p.cluster, p.rows, p.resident), "alone_ms": C.device_ms(
+                [fn], "bilstm_cluster_kernel"), "ms": timer(fn)}
+        finally:
+            LK._bi_launch = real
+    kernel = LK.KERNEL_BI
+    whole = kernel._fn or kernel._resolve()
+    variants = {}
+    for name in BILSTM_VARIANTS:
+        kernel._fn = C.planted(*builds[name.replace(" ", "_")], kernel)
+        try:
+            variants[name] = C.device_ms([fn], "bilstm_cluster_kernel")
+        finally:
+            kernel._fn = whole
+    # the planned plan's first CTA of each direction, cycles a step by part
+    kernel._fn = C.planted(*builds["phase_clock"], kernel)
+    try:
+        fn()
+        outs = fn()
+        torch.cuda.synchronize()
+    finally:
+        kernel._fn = whole
+    clock = {direction: dict(zip(CLOCK_PARTS, (outs[i][2][0, :6] / t)
+                                 .tolist()))
+             for i, direction in enumerate(("forward", "reverse"))}
+    print(C.nvidia_smi())
+    print(json.dumps({"bilstm_plans": out, "variants_alone_ms": variants,
+                      "cycles_a_step": clock}), flush=True)
+    return 0
+
+
+def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
     for i, tree in enumerate(trees):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", CALLS + RUN, tree],
+        proc = subprocess.run([sys.executable, "-c", CALLS + RUN, tree,
+                               "calls" if calls_only else "all"],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"ab_{i}.json"), "w") as f:
@@ -341,9 +525,13 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     if args == ["--sweep"]:
         sys.exit(sweep())
+    if args == ["--bilstm-plans"]:
+        sys.exit(bilstm_plans())
     out = "build/ab"
     if args[:1] == ["--out"] and len(args) > 1:
         out, args = args[1], args[2:]
+    calls_only = args[:1] == ["--calls"]
+    args = args[calls_only:]
     if not args:
         sys.exit(__doc__)
-    sys.exit(main(args, out))
+    sys.exit(main(args, out, calls_only))

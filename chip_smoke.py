@@ -138,13 +138,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 16->32 each with a 2x2 pool, ``layer.bilstm`` of 64, a 27-way
    softmax fc, ``ctc_layer``; f32, Adam at lr 1e-3 with bf16 moments).
    Its kernels against their plain twins at the path's shapes: the
-   BiLSTM forward (x [64, 24, 256], D 64, both directions), the LSTM
+   BiLSTM forward (x [64, 24, 256], D 64, both directions; its cluster
+   plan, its time alone and the host's ms a call; a planted fault that
+   reads the peers' h from the other parity must fail), the LSTM
    backward kernel in its remat form at the BiLSTM's shapes (xw
    [64, 24, 256], D 64) in both directions, the CTC
    forward-backward on log-probs [64, 24, 27] with labels of 5 in a
    16-slot (S = 33), in both ``normalize`` forms, the greedy decode of the
-   same slab (bit-equal), the direct conv with its BN statistics epilogue
-   at the two 3x3 shapes (Cin = 1 and 16); max abs error <= 1e-4 x
+   same slab and of [8, 300, 100] with ragged lengths, ids and lengths in
+   one launch (bit-equal to the twin and the compaction; alone and host
+   ms; the eager ``ops/ctc`` chain beside it; a planted fault that drops
+   the scan's carry across chunks must fail at T 300), the direct conv
+   with its BN statistics epilogue at the two 3x3 shapes (Cin = 1 and 16); max abs error <= 1e-4 x
    max(1, |ref|), reruns equal in bits; each timed beside its twin, its
    bound and a library call the port never makes (cuDNN's bidirectional
    ``nn.LSTM``, input projection included and no peepholes, and the
@@ -1514,6 +1519,8 @@ def serve_end_to_end(dev) -> tuple[dict, int, int]:
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its (mangled) name."""
     low = name.lower()
+    if "bilstm_cluster_kernel" in low:    # csrc/bilstm_seq.cu's f32 form
+        return "bilstm_fwd (ours)"
     for mine in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16",
                  "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_bf16",
                  "paged",
@@ -2558,6 +2565,36 @@ def crnn_feed_batches(rng, k, bs, classes):
              for _ in range(bs)] for _ in range(k)]
 
 
+#: planted faults of the CRNN's two redesigned kernels, {source: {fault:
+#: (line, planted line)}}: the f32 BiLSTM reads its peers' h from the
+#: other parity (h_{t-2}, and the buffer the step writes); the decode drops
+#: the kept count carried across its 256-frame chunks
+CRNN_FAULTS = {
+    "bilstm_seq": {"h_other_parity": (
+        "    const float* h_cur = h_s + (s & 1) * D * kRows;",
+        "    const float* h_cur = h_s + ((s + 1) & 1) * D * kRows;  "
+        "// planted")},
+    "ctc": {"scan_carry_dropped": (
+        "    int base = kept;   // this warp's first slot in the row",
+        "    int base = 0;   // planted: the carry across chunks dropped")}}
+
+
+def fault_caught(kernel, build, run) -> bool:
+    """Whether ``run()`` raises an AssertionError (its check fails) with a
+    planted fault's library (``build``: the process and the path of
+    :func:`source_fault_builds`) in place of ``kernel``'s C entry."""
+    real = kernel._fn or kernel._resolve()
+    kernel._fn = planted(*build, kernel)
+    try:
+        run()
+        torch.cuda.synchronize()
+    except AssertionError:
+        return True
+    finally:
+        kernel._fn = real
+    return False
+
+
 def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
                        label_len=5) -> tuple:
     """The OCR CRNN's kernels at its shapes, each against its plain twin
@@ -2574,7 +2611,10 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
     projection included, no peepholes) and the backward of its
     one-direction form, ``F.ctc_loss`` forward and
     backward by the log-probs, and ``torch.argmax`` over the slab (the
-    decode's read floor; no single call decodes)."""
+    decode's read floor; no single call decodes) and, for the decode,
+    the eager ``ops/ctc.ctc_greedy_decode``.  The BiLSTM and the decode
+    also report their device time alone (a trace), the host's ms a call
+    and the planted faults of ``CRNN_FAULTS``, which must fail."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import ctc as ctc_ops
@@ -2582,6 +2622,8 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
     from paddle_tpu_torch.ops.kernels import ctc as KC
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
+    builds = {src: source_fault_builds(src, faults)
+              for src, faults in CRNN_FAULTS.items()}
     gen = torch.Generator(device=dev).manual_seed(8)
     rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
 
@@ -2610,7 +2652,12 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
     if not all(torch.equal(p, q) for g, a in zip(got, again)
                for p, q in zip(g, a)):
         raise AssertionError("bilstm kernel: a rerun differs in bits")
-    bi_err = max(worst(g, w, "bilstm") for g, w in zip(got, bi_plain()))
+    want_bi = bi_plain()
+    bi_err = max(worst(g, w, "bilstm") for g, w in zip(got, want_bi))
+    faults = {"bilstm_h_other_parity": fault_caught(
+        LK.KERNEL_BI, builds["bilstm_seq"]["h_other_parity"],
+        lambda: [worst(g, w, "bilstm") for g, w in zip(bi(), want_bi)])}
+    del want_bi
     cudnn = torch.nn.LSTM(e, d, batch_first=True, bidirectional=True).to(dev)
 
     def lib_lstm():
@@ -2653,7 +2700,10 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
         "source": "paddle_tpu_torch/ops/kernels/csrc/bilstm_seq.cu",
         "replaces": "paddle_tpu/ops/pallas/lstm.py:934",
         "shape": [b, t, e, d], "max_abs_err": bi_err,
+        "plan": LK._bi_launch(x.device, b, t, e, d)[0]._asdict(),
         "ms": timer(bi), "plain_ms": timer(bi_plain),
+        "alone_ms": device_ms([bi], "bilstm_cluster_kernel"),
+        "host_ms": host_ms(bi),
         # x, mask, both directions' W_x, b, W_h, peep, h0, c0 in; hs, cs,
         # h_T, c_T of both out.  The products over the valid row-steps of
         # both directions, and the cell
@@ -2708,11 +2758,35 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
                           reduction="sum")
         return torch.autograd.grad(loss, (lp_lib,))
 
-    best, keep = KC._decode_kernel(lp, ilen, v - 1)
-    want = KC._decode_plain(lp, ilen, v - 1)
-    torch.cuda.synchronize()
-    if not (torch.equal(best, want[0]) and torch.equal(keep, want[1])):
-        raise AssertionError("ctc decode kernel differs from its twin")
+    # the decode: the CRNN's slab, then T past the kernel's 256-frame
+    # chunk, V past one 32-lane run, ragged int64 lengths with a zero,
+    # small-integer scores (ties and repeats)
+    def decode_twin(slab, lens):
+        best, keep = KC._decode_plain(slab, lens, slab.shape[2] - 1)
+        return ctc_ops.compact_decoded(best, keep.bool())
+
+    def decode_check(slab, lens):
+        n = KC.KERNEL_DECODE.launches
+        got = KC.ctc_greedy_decode_fused(slab, lens, slab.shape[2] - 1)
+        want = decode_twin(slab, lens)
+        torch.cuda.synchronize()
+        if KC.KERNEL_DECODE.launches != n + 1:
+            raise AssertionError("the fused decode is not one launch")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("ctc decode kernel differs from its twin")
+
+    long_slab = torch.randint(0, 3, (8, 300, 100), generator=gen,
+                              device=dev).float()
+    long_lens = torch.randint(0, 301, (8,), generator=gen, device=dev)
+    long_lens[0], long_lens[1] = 300, 0
+    for slab, lens in ((lp, ilen), (long_slab, long_lens)):
+        decode_check(slab, lens)
+    faults["ctc_decode_scan_carry_dropped"] = fault_caught(
+        KC.KERNEL_DECODE, builds["ctc"]["scan_carry_dropped"],
+        lambda: decode_check(long_slab, long_lens))
+    if not all(faults.values()):
+        raise AssertionError(f"a planted fault passed its check: {faults}")
+    decode = lambda: KC.ctc_greedy_decode_fused(lp, ilen, v - 1)  # noqa: E731
     s = ext.shape[1]
     rows += [{
         "name": "ctc_loss_fused", "route": "cuda",
@@ -2730,10 +2804,14 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
         "source": "paddle_tpu_torch/ops/kernels/csrc/ctc.cu",
         "replaces": "paddle_tpu/ops/pallas/ctc.py:310",
         "shape": [b, t, v], "max_abs_err": 0.0,
-        "ms": timer(lambda: KC._decode_kernel(lp, ilen, v - 1)),
-        "plain_ms": timer(lambda: KC._decode_plain(lp, ilen, v - 1)),
-        # the slab and the lengths in, the ids and the keep mask out
-        "bytes_flops": (f32 * (b * t * v + b + 2 * b * t), float(b * t * v)),
+        "ms": timer(decode), "plain_ms": timer(lambda: decode_twin(lp, ilen)),
+        "alone_ms": device_ms([decode], "ctc_decode_kernel"),
+        "host_ms": host_ms(decode),
+        "eager_ms": timer(lambda: ctc_ops.ctc_greedy_decode(lp, ilen,
+                                                            v - 1)),
+        # the slab and the int64 lengths in, the ids and lengths out
+        "bytes_flops": (f32 * (b * t * v + b * t + b) + 8.0 * b,
+                        float(b * t * v)),
         "library_ms": timer(lambda: torch.argmax(lp, dim=2))}]
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
@@ -2756,6 +2834,8 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
     summary = {"phase": "crnn_kernels", "tol": TOL,
                "reruns_bit_identical": True,
                "decode_bit_identical_to_twin": True,
+               "decode_shapes": [[b, t, v], list(long_slab.shape)],
+               "planted_faults_caught": faults,
                "ctc_normalize_forms": [False, True],
                "conv2d_direct_crnn_shapes_max_abs_err": conv_err}
     torch.cuda.synchronize()
@@ -9405,7 +9485,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi, flush=True)
-    extra = ("shape", "dtype", "alone_ms", "host_ms", "launches_on")
+    extra = ("shape", "dtype", "alone_ms", "host_ms", "eager_ms", "plan",
+             "launches_on")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,9 +73,9 @@ def crnn_ctc_cost(image_height: int = 32, image_width: int = 96,
 
 def ctc_decode(log_probs, lengths, blank: int):
     """Serving/eval greedy decode for the CRNN head: the fused decode
-    kernel (argmax and the blank/repeat collapse) on the card, its twin on
-    the CPU, then the kept frames front-compacted.  Returns (ids [B, W']
-    padded with -1, lengths)."""
+    kernel (argmax, the blank/repeat collapse and the front-compaction of
+    the kept frames, one launch) on the card, its twin on the CPU.
+    Returns (ids [B, W'] padded with -1, lengths)."""
     from paddle_tpu_torch.ops.kernels.ctc import ctc_greedy_decode_fused
 
     return ctc_greedy_decode_fused(log_probs, lengths, blank=blank)

@@ -106,8 +106,8 @@ def ctc_loss_from_probs(probs, input_lengths, labels, label_lengths,
 def compact_decoded(best: torch.Tensor, keep: torch.Tensor):
     """Front-compact the kept frames of each row: (best [B, T], keep
     [B, T] bool) -> (ids [B, T] int32 padded with -1, lengths [B] int32).
-    Shared by the decode below and the fused decode kernel, which writes
-    exactly this (argmax, keep) pair."""
+    Shared by the decode below and the fused decode's CPU twin (the card's
+    kernel compacts as it decodes, to the same result)."""
     b, t_max = best.shape
     idx = torch.cumsum(keep.long(), dim=1) - 1
     tgt = torch.where(keep, idx, torch.full_like(idx, t_max))

@@ -15,27 +15,48 @@
 // Gate order [i, f, g, o]; the cell is _cell_step of lstm.py and
 // lstm_seq.cu's, with pre = (x W_x + b) + h W_h.
 //
-// Design.  Batch rows are independent, so a block owns one direction and
-// a tile of kRows batch rows and walks every step of that direction with
-// no grid barrier (blockIdx.y is the direction; the reverse one visits
-// T-1..0).  W_h [D, 4D] stays in shared memory for the whole sequence
-// (64 KB f32 at D 64).  W_x [E, 4D] (256 KB at E 256, D 64) does not fit
-// beside it; it is read through L2 every step, where both directions'
-// copies stay (512 KB of 50 MB).  Each step: the x_t rows of the tile are
-// staged in shared memory, thread j owns gate column j for every row of
-// the tile (acc = sum_e x[r][e] W_x[e][j] with W_x loads coalesced along
-// j, + b[j], + sum_k h[r][k] W_h[k][j] from shared memory, one fmaf per
-// term in ascending order), the pre-activations go to shared memory, and
-// then thread (r, u) runs the cell of unit u and writes h and c.
+// Design (the f32 form).  Batch rows are independent, so a thread-block
+// cluster of C CTAs owns one direction and a tile of kRows batch rows and
+// walks every step of that direction with no grid barrier (blockIdx.y is
+// the direction; the reverse one visits T-1..0).  CTA k of the cluster
+// owns the units [k U, (k+1) U), U = D/C, and all four gate columns of
+// each, so its cell needs nothing from its peers.  Its slices of W_h
+// [D, 4U] and, where they fit (kResident), of W_x [E, 4U] stay in shared
+// memory for the whole sequence, unit-major (column 4u + g is gate g of
+// unit u): W_x is read once a CTA a launch, not once a step.  The whole h
+// of the tile's rows is kept by every CTA, [D][kRows], double-buffered by
+// step parity; x_t's rows are staged as [E][kRows], so one 16-byte load
+// holds a k of four rows; the bias and peephole slices sit in shared
+// memory too.  A step:
+//   1. x_t W_x: thread i takes unit u = i % U (its four gate columns, one
+//      16-byte load of the slice a k) and the (i / U)-th of KS shares of
+//      the E reduction (KS = min(16, 256 / U): every thread works), 16
+//      FMAs a k; its partial sums to shared memory.  It needs no h, so it
+//      runs before the cluster barrier's wait and hides the peers' latency;
+//   2. wait on the cluster barrier (acquire): every peer's h_{t-1} slice
+//      has landed in this CTA's h buffer;
+//   3. h_{t-1} W_h the same way;
+//   4. x_{t+1}'s rows and mask copied in by cp.async, which overlaps 5;
+//   5. thread (r, u) adds its unit's partial sums in share order as
+//      (x W_x + b) + h W_h, runs the cell, stores h_t into every CTA's
+//      other-parity h buffer over distributed shared memory, and arrives
+//      on the cluster barrier (release); only then are hs, cs (and h_T,
+//      c_T) written to device memory, so the release waits on no store
+//      to device memory.
+// A CTA reads the parity its peers wrote a step before and writes the
+// other; a peer can write a buffer only after every CTA's arrive that
+// follows its last read of it, so two buffers suffice.  Without the
+// resident slice (a shape whose W_x slice does not fit) W_x and x are read
+// through L2 at each step, as the single-block kernel before it did.
 //
-// What bounds it on an H100: the step-to-step chain, then W_x's L2 reads.
-// At B 64, T 24, E 256, D 64 the work is ~503 MFLOP (7.5 us of f32 FMA at
-// 67 TFLOP/s), but each of the 24 steps of a direction waits on the one
-// before, and each block pulls W_x (256 KB) through L2 every step.  Thread
-// block clusters sharing W_x over distributed shared memory, or a time
-// chunk's projection as one staged product, would cut that; a later PR's
-// work.
+// What bounds it on an H100: the step-to-step chain.  At B 64, T 24, E
+// 256, D 64 the work is ~503 MFLOP (7.5 us of f32 FMA at 67 TFLOP/s); each
+// of the 24 steps of a direction waits on the one before, so the latency
+// of a step's products, its barriers and the cell's transcendentals set
+// its time.  One CTA writes each output and the sums run in a fixed
+// order: a rerun gives the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -43,9 +64,11 @@
 
 namespace {
 
-constexpr int kRows = 4;          // batch rows a block owns (one float4)
-constexpr int kMaxThreads = 256;
-static_assert(kRows == 4, "the product loops read a row tile as one float4");
+namespace cg = cooperative_groups;
+
+constexpr int kClThreads = 256;
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kMaxSplits = 16;    // shares of a product's reduction
 
 struct Dir {
   const float* wx;    // [E, 4D]
@@ -62,115 +85,328 @@ struct Dir {
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
-// floats of shared memory a block takes, the same formula on both sides
-__host__ __device__ inline size_t smem_floats(int E, int D) {
-  return (size_t)D * 4 * D + (size_t)kRows * (E + 2 * D + 4 * D);
+// the shares of a product's reduction: 256 threads over U units
+__host__ __device__ inline int splits_of(int U) {
+  const int ks = U >= kClThreads ? 1 : kClThreads / U;
+  return ks < kMaxSplits ? ks : kMaxSplits;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-bilstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                  Dir fw, Dir bw, int B, int T, int E, int D) {
+// floats of shared memory a CTA takes (lstm.py's bi_smem_floats): the W_h
+// slice [D][4U], the resident W_x slice [E][4U] and x_t rows [E][rows],
+// the h buffers [2][D][rows], the c carry [rows][U], the partial sums
+// [2][splits][rows][4U], the bias slice [4U], the peepholes [3][U] and the
+// mask of two steps [2][rows]
+__host__ __device__ inline size_t cl_smem_floats(int E, int D, int C,
+                                                 int rows, bool resident) {
+  const int U = D / C, cols = 4 * U;
+  const size_t lx = resident ? (size_t)E : 0;
+  return (lx + D) * cols + rows * lx + 2 * (size_t)rows * D +
+         (size_t)rows * U + 2 * (size_t)splits_of(U) * rows * cols + cols +
+         3 * U + 2 * rows;
+}
+
+// a 4-byte asynchronous copy to shared memory, zero-filled when !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
+  acc.x = fmaf(a, w.x, acc.x);
+  acc.y = fmaf(a, w.y, acc.y);
+  acc.z = fmaf(a, w.z, acc.z);
+  acc.w = fmaf(a, w.w, acc.w);
+}
+
+// The partial sums of one product over K: thread i takes unit u = i % U
+// and share ks = i / U of the reduction, and writes out[ks][r][4u..4u+3]
+// = sum over its k of a[k][r] w[k][4u..4u+3].  kShared: a [K][kRows] and
+// w [K][4U] in shared memory; else x_t's rows (xt) and W_x's columns of
+// unit col0 + u (gate g at column g D) in device memory.
+template <int kRows, bool kShared>
+__device__ __forceinline__ void partial_sums(
+    float4* out, const float* a, const float* w, int K, int U, int KS,
+    const float* const* xt, const float* wg, int D, int col0) {
+  const int G = 4 * D, share = (K + KS - 1) / KS;
+  for (int i = threadIdx.x; i < U * KS; i += kClThreads) {
+    const int u = i % U, ks = i / U;
+    const int lo = ks * share, hi = min(K, lo + share);
+    float4 acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (kShared) {
+      const float4* wk = reinterpret_cast<const float4*>(w) + lo * U + u;
+      const float4* ak = reinterpret_cast<const float4*>(a) + lo * (kRows / 4);
+#pragma unroll 4
+      for (int k = lo; k < hi; ++k, wk += U, ak += kRows / 4) {
+        const float4 wv = *wk;
+#pragma unroll
+        for (int q = 0; q < kRows / 4; ++q) {
+          const float4 av = ak[q];
+          fma4(acc[4 * q], av.x, wv);
+          fma4(acc[4 * q + 1], av.y, wv);
+          fma4(acc[4 * q + 2], av.z, wv);
+          fma4(acc[4 * q + 3], av.w, wv);
+        }
+      }
+    } else {
+      const float* wc = wg + col0 + u;
+      for (int k = lo; k < hi; ++k) {
+        const float* wr = wc + (size_t)k * G;
+        const float4 wv = make_float4(__ldg(wr), __ldg(wr + D),
+                                      __ldg(wr + 2 * D), __ldg(wr + 3 * D));
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) fma4(acc[r], __ldg(xt[r] + k), wv);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) out[(ks * kRows + r) * U + u] = acc[r];
+  }
+}
+
+template <int kRows, bool kResident>
+__global__ void __launch_bounds__(kClThreads, 1)
+bilstm_cluster_kernel(const float* __restrict__ x,
+                      const float* __restrict__ mask, Dir fw, Dir bw, int B,
+                      int T, int E, int D) {
+  static_assert(kRows % 4 == 0, "a 16-byte load holds a k of four rows");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const bool reverse = blockIdx.y == 1;
   const Dir p = reverse ? bw : fw;
-  const int G = 4 * D;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int b0 = blockIdx.x * kRows;
+  const int G = 4 * D, U = D / C, cols = 4 * U, col0 = rank * U;
+  const int KS = splits_of(U);
+  const int tid = threadIdx.x;
+  const int b0 = (blockIdx.x / C) * kRows;
   const int rows = min(kRows, B - b0);
-  // the tile's rows side by side ([.][kRows]), so one float4 holds them
-  float* wh_s = smem;                        // [D][4D]
-  float* x_s = wh_s + (size_t)D * G;         // [E][kRows]
-  float* h_s = x_s + kRows * E;              // [D][kRows]
-  float* c_s = h_s + kRows * D;              // [D][kRows]
-  float* pre_s = c_s + kRows * D;            // [kRows][4D]
+  float* wh_s = smem;                                          // [D][4U]
+  float* wx_s = wh_s + (size_t)D * cols;                       // [E][4U]
+  float* x_s = wx_s + (kResident ? (size_t)E * cols : 0);      // [E][kRows]
+  float* h_s = x_s + (kResident ? (size_t)E * kRows : 0);      // [2][D][kRows]
+  float* c_s = h_s + 2 * D * kRows;                            // [kRows][U]
+  float4* red_x = reinterpret_cast<float4*>(c_s + kRows * U);  // [KS][kRows][U]
+  float4* red_h = red_x + KS * kRows * U;                      // [KS][kRows][U]
+  float* bias_s = reinterpret_cast<float*>(red_h + KS * kRows * U);  // [4U]
+  float* peep_s = bias_s + cols;                               // [3][U]
+  float* mask_s = peep_s + 3 * U;                              // [2][kRows]
 
-  for (int i = tid; i < D * G; i += nt) wh_s[i] = p.wh[i];
-  for (int i = tid; i < kRows * D; i += nt) {
-    const int r = i / D, u = i % D;
-    const size_t o = (size_t)(b0 + r) * D + u;
-    h_s[u * kRows + r] = r < rows ? p.h0[o] : 0.f;
-    c_s[u * kRows + r] = r < rows ? p.c0[o] : 0.f;
+  // the slices: column 4u + g is gate g of unit col0 + u
+  for (int i = tid; i < D * cols; i += kClThreads) {
+    const int k = i / cols, j = i % cols;
+    wh_s[i] = p.wh[(size_t)k * G + (j % 4) * D + col0 + j / 4];
   }
+  if constexpr (kResident) {
+    for (int i = tid; i < E * cols; i += kClThreads) {
+      const int k = i / cols, j = i % cols;
+      wx_s[i] = p.wx[(size_t)k * G + (j % 4) * D + col0 + j / 4];
+    }
+  }
+  for (int i = tid; i < 2 * D * kRows; i += kClThreads) {
+    const int r = i % kRows, k = (i / kRows) % D;
+    h_s[i] = i < D * kRows && r < rows ? p.h0[(size_t)(b0 + r) * D + k] : 0.f;
+  }
+  for (int i = tid; i < kRows * U; i += kClThreads) {
+    const int r = i / U;
+    c_s[i] = r < rows ? p.c0[(size_t)(b0 + r) * D + col0 + i % U] : 0.f;
+  }
+  for (int j = tid; j < cols; j += kClThreads)
+    bias_s[j] = p.b[(j % 4) * D + col0 + j / 4];
+  for (int i = tid; i < 3 * U; i += kClThreads)
+    peep_s[i] = p.peep[(i / U) * D + col0 + i % U];
+  // rows past B read the tile's last row (their results are dropped)
+  const float* xrow[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    xrow[r] = x + (size_t)(b0 + min(r, rows - 1)) * T * E;
+  // step s's x_t rows (resident) and mask, by asynchronous copies
+  auto stage = [&](int s) {
+    const int t = reverse ? T - 1 - s : s;
+    if constexpr (kResident) {
+      for (int i = tid; i < kRows * E; i += kClThreads) {
+        const int r = i / E, e = i % E;
+        cp_async4(x_s + e * kRows + r,
+                  x + ((size_t)(b0 + min(r, rows - 1)) * T + t) * E + e, true);
+      }
+    }
+    if (tid < kRows)
+      cp_async4(mask_s + (s & 1) * kRows + tid,
+                mask + (size_t)(b0 + min(tid, rows - 1)) * T + t, true);
+  };
+  stage(0);
+  cp_async_commit_wait();
+  // every CTA of the cluster runs (its shared memory exists) before any
+  // store to a peer's; this also makes the prologue's writes visible
+  cluster.sync();
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    for (int i = tid; i < kRows * E; i += nt) {
-      const int r = i / E, e = i % E;
-      x_s[e * kRows + r] =
-          r < rows ? x[((size_t)(b0 + r) * T + t) * E + e] : 0.f;
+    if (s > 0) {
+      cp_async_commit_wait();        // this thread's copies of step s
+      __syncthreads();               // everyone's; the cells read red_*
     }
+    const float* xt[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) xt[r] = xrow[r] + (size_t)t * E;
+    partial_sums<kRows, kResident>(red_x, x_s, wx_s, E, U, KS, xt, p.wx, D,
+                                   col0);
+    if (s > 0) cluster_wait();       // every peer's h_{t-1} has landed
+    const float* h_cur = h_s + (s & 1) * D * kRows;
+    float* h_nxt = h_s + ((s + 1) & 1) * D * kRows;
+    partial_sums<kRows, true>(red_h, h_cur, wh_s, D, U, KS, nullptr,
+                              nullptr, D, col0);
     __syncthreads();
-    // pre[r][j] = (x_t[r] . W_x[:, j] + b[j]) + h[r] . W_h[:, j]
-    for (int j = tid; j < G; j += nt) {
-      float ax[kRows], ah[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) ax[r] = ah[r] = 0.f;
-#pragma unroll 8
-      for (int e = 0; e < E; ++e) {
-        const float w = __ldg(p.wx + (size_t)e * G + j);
-        const float4 xv = *reinterpret_cast<const float4*>(x_s + e * kRows);
-        ax[0] = fmaf(xv.x, w, ax[0]);
-        ax[1] = fmaf(xv.y, w, ax[1]);
-        ax[2] = fmaf(xv.z, w, ax[2]);
-        ax[3] = fmaf(xv.w, w, ax[3]);
+    if (s + 1 < T) stage(s + 1);     // x_s is read; the copies overlap the cell
+    for (int i = tid; i < kRows * U; i += kClThreads) {
+      const int r = i / U, u = i % U, unit = col0 + u;
+      if (r >= rows) continue;
+      float4 sx = make_float4(0.f, 0.f, 0.f, 0.f), sh = sx;
+#pragma unroll 4
+      for (int ks = 0; ks < KS; ++ks) {
+        const float4 vx = red_x[(ks * kRows + r) * U + u];
+        const float4 vh = red_h[(ks * kRows + r) * U + u];
+        sx.x += vx.x, sx.y += vx.y, sx.z += vx.z, sx.w += vx.w;
+        sh.x += vh.x, sh.y += vh.y, sh.z += vh.z, sh.w += vh.w;
       }
-#pragma unroll 8
-      for (int k = 0; k < D; ++k) {
-        const float w = wh_s[(size_t)k * G + j];
-        const float4 hv = *reinterpret_cast<const float4*>(h_s + k * kRows);
-        ah[0] = fmaf(hv.x, w, ah[0]);
-        ah[1] = fmaf(hv.y, w, ah[1]);
-        ah[2] = fmaf(hv.z, w, ah[2]);
-        ah[3] = fmaf(hv.w, w, ah[3]);
+      const float4 bv = reinterpret_cast<const float4*>(bias_s)[u];
+      const float cp = c_s[i], hp = h_cur[unit * kRows + r];
+      const float gi = sigm(((sx.x + bv.x) + sh.x) + peep_s[u] * cp);
+      const float gf = sigm(((sx.y + bv.y) + sh.y) + peep_s[U + u] * cp);
+      const float gg = tanhf((sx.z + bv.z) + sh.z);
+      const float c = gf * cp + gi * gg;
+      const float go = sigm(((sx.w + bv.w) + sh.w) + peep_s[2 * U + u] * c);
+      const float h = go * tanhf(c);
+      const float m = mask_s[(s & 1) * kRows + r];
+      const float hn = m * h + (1.f - m) * hp;
+      c_s[i] = m * c + (1.f - m) * cp;
+      if (s + 1 < T) {
+        for (int q = 0; q < C; ++q)
+          cluster.map_shared_rank(h_nxt, q)[unit * kRows + r] = hn;
+      } else {
+        h_nxt[unit * kRows + r] = hn;
       }
-      const float bj = __ldg(p.b + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) pre_s[r * G + j] = (ax[r] + bj) + ah[r];
     }
-    __syncthreads();
-    // the cell of (row r, unit u), the row frozen past its length
-    for (int i = tid; i < kRows * D; i += nt) {
-      const int r = i / D, u = i % D;
+    if (s + 1 < T) cluster_arrive();   // this CTA's h_t slice is out
+    // the outputs of step s, read back from this CTA's own h and c (no
+    // other thread writes them before its next arrive)
+    for (int i = tid; i < kRows * U; i += kClThreads) {
+      const int r = i / U, unit = col0 + i % U;
       if (r >= rows) continue;
       const int b = b0 + r;
-      const float* pr = pre_s + r * G;
-      const float cp = c_s[u * kRows + r], hp = h_s[u * kRows + r];
-      const float gi = sigm(pr[u] + __ldg(p.peep + u) * cp);
-      const float gf = sigm(pr[D + u] + __ldg(p.peep + D + u) * cp);
-      const float gg = tanhf(pr[2 * D + u]);
-      const float c = gf * cp + gi * gg;
-      const float go = sigm(pr[3 * D + u] + __ldg(p.peep + 2 * D + u) * c);
-      const float h = go * tanhf(c);
-      const float m = mask[(size_t)b * T + t];
-      const float hn = m * h + (1.f - m) * hp;
-      const float cn = m * c + (1.f - m) * cp;
-      h_s[u * kRows + r] = hn;
-      c_s[u * kRows + r] = cn;
-      const size_t o = ((size_t)b * T + t) * D + u;
+      const float hn = h_nxt[unit * kRows + r], cn = c_s[i];
+      const size_t o = ((size_t)b * T + t) * D + unit;
       p.hs[o] = hn;
       p.cs[o] = cn;
+      if (s == T - 1) {
+        p.hT[(size_t)b * D + unit] = hn;
+        p.cT[(size_t)b * D + unit] = cn;
+      }
     }
-    __syncthreads();
-  }
-  for (int i = tid; i < rows * D; i += nt) {
-    const int r = i / D, u = i % D;
-    const size_t o = (size_t)(b0 + r) * D + u;
-    p.hT[o] = h_s[u * kRows + r];
-    p.cT[o] = c_s[u * kRows + r];
   }
 }
 
-int threads_for(int D) {
-  const int g = 4 * D;
-  return g >= kMaxThreads ? kMaxThreads : ((g + 31) / 32) * 32;
+template <int kRows, bool kResident>
+cudaError_t launch_cluster(const float* x, const float* mask, const Dir& fw,
+                           const Dir& bw, int B, int T, int E, int D, int C,
+                           cudaStream_t stream) {
+  auto kernel = bilstm_cluster_kernel<kRows, kResident>;
+  const size_t smem = sizeof(float) * cl_smem_floats(E, D, C, kRows,
+                                                     kResident);
+  // the opt-in, once a device and a size (a larger one raises it; it is
+  // never lowered, max_clusters included)
+  static size_t opted[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 16 || smem > opted[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 16) opted[dev] = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((B + kRows - 1) / kRows), 2, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, x, mask, fw, bw, B, T, E, D);
+}
+
+template <int kRows, bool kResident>
+cudaError_t max_clusters(int E, int D, int C, int* out) {
+  auto kernel = bilstm_cluster_kernel<kRows, kResident>;
+  const size_t smem = sizeof(float) * cl_smem_floats(E, D, C, kRows,
+                                                     kResident);
+  // the opt-in is only raised, never lowered: launch_cluster counts on it
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  if ((int)smem > fa.maxDynamicSharedSizeBytes) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, (const void*)kernel, &cfg);
 }
 
 }  // namespace
 
-// The grid: (ceil(B / kRows), 2) blocks; the forward direction's operands
-// first, then the reverse one's.  Returns cudaErrorInvalidValue for a
-// shape whose shared-memory plan exceeds the card's opt-in limit.
+// How many clusters of the f32 form's plan (C, rows, resident) at E, D
+// the current card holds at once (cudaOccupancyMaxActiveClusters): the
+// card's own count, which its GPCs' sizes bound below SMs / C.
+extern "C" int bilstm_f32_max_clusters(int E, int D, int C, int rows,
+                                       int resident, int* out) {
+  if (E <= 0 || D <= 0 || C <= 0 || C > kMaxCluster || D % C ||
+      (rows != 4 && rows != 8))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (rows == 4)
+    err = resident ? max_clusters<4, true>(E, D, C, out)
+                   : max_clusters<4, false>(E, D, C, out);
+  else
+    err = resident ? max_clusters<8, true>(E, D, C, out)
+                   : max_clusters<8, false>(E, D, C, out);
+  return (int)err;
+}
+
+// The f32 form, in the plan of lstm.py's bi_plan: clusters of C CTAs (C
+// divides D, C <= 8), row tiles of `rows` (4 or 8), W_x's slice resident
+// in shared memory or not; the grid (C ceil(B / rows), 2), the forward
+// direction's operands first, then the reverse one's.  Returns
+// cudaErrorInvalidValue for a plan outside these.
 extern "C" int bilstm_fwd_f32(
     const float* x, const float* mask,
     const float* wx_f, const float* b_f, const float* wh_f,
@@ -179,22 +415,24 @@ extern "C" int bilstm_fwd_f32(
     const float* wx_b, const float* b_b, const float* wh_b,
     const float* peep_b, const float* h0_b, const float* c0_b, float* hs_b,
     float* cs_b, float* hT_b, float* cT_b,
-    int B, int T, int E, int D, void* stream) {
-  if (B <= 0 || T <= 0 || E <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t smem = sizeof(float) * smem_floats(E, D);
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bilstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+    int B, int T, int E, int D, int C, int rows, int resident,
+    void* stream) {
+  if (B <= 0 || T <= 0 || E <= 0 || D <= 0 || C <= 0 || C > kMaxCluster ||
+      D % C || (rows != 4 && rows != 8))
+    return (int)cudaErrorInvalidValue;
   const Dir fw{wx_f, b_f, wh_f, peep_f, h0_f, c0_f, hs_f, cs_f, hT_f, cT_f};
   const Dir bw{wx_b, b_b, wh_b, peep_b, h0_b, c0_b, hs_b, cs_b, hT_b, cT_b};
-  const dim3 grid((B + kRows - 1) / kRows, 2);
-  bilstm_fwd_kernel<<<grid, threads_for(D), smem, (cudaStream_t)stream>>>(
-      x, mask, fw, bw, B, T, E, D);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (rows == 4)
+    err = resident
+              ? launch_cluster<4, true>(x, mask, fw, bw, B, T, E, D, C, st)
+              : launch_cluster<4, false>(x, mask, fw, bw, B, T, E, D, C, st);
+  else
+    err = resident
+              ? launch_cluster<8, true>(x, mask, fw, bw, B, T, E, D, C, st)
+              : launch_cluster<8, false>(x, mask, fw, bw, B, T, E, D, C, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

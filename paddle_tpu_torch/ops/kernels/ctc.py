@@ -13,13 +13,15 @@ package's ``custom_vjp`` does.  Infeasible rows pin at the sentinel loss
 ``-NEG_INF`` with an exactly-zero gradient; frames past a row's input
 length get zero.
 
-:func:`ctc_greedy_decode_fused` launches the decode kernel (the argmax
-per frame, first index on ties, and the blank/repeat keep mask) and
-front-compacts the kept frames with torch ops (``ops/ctc.compact_decoded``).
+:func:`ctc_greedy_decode_fused` is one launch of the decode kernel on the
+card: the argmax per frame (first index on ties), the blank/repeat keep
+mask and the front-compaction of the kept frames, written as the
+(ids, lengths) pair the JAX entry returns.
 
-CPU tensors take the plain twins (:func:`_fwd_bwd_plain`,
-:func:`_decode_plain`), which run the same recursions and the same hand
-gradient in the input's dtype; CUDA tensors launch the kernels or raise.
+CPU tensors take the plain twins (:func:`_fwd_bwd_plain`, and
+:func:`_decode_plain` then ``ops/ctc.compact_decoded``), which run the same
+recursions and the same hand gradient in the input's dtype; CUDA tensors
+launch the kernels or raise.
 The references are the ``ops/ctc.py`` loop (autograd gives its gradient)
 and decode."""
 
@@ -37,7 +39,10 @@ from paddle_tpu_torch.ops.kernels._build import Kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_LOSS = Kernel("ctc", "ctc_fwd_bwd_f32", [_P] * 9 + [_I] * 5 + [_P])
-KERNEL_DECODE = Kernel("ctc", "ctc_decode_f32", [_P] * 4 + [_I] * 4 + [_P])
+KERNEL_DECODE = Kernel("ctc", "ctc_decode_f32",
+                       [_P, _P, _I, _P, _P] + [_I] * 4 + [_P])
+#: the dtypes of the decode kernel's lengths, as its ``len64`` flag
+_LEN64 = {torch.int32: 0, torch.int64: 1}
 
 #: a row's alpha and emission slabs stay in shared memory up to this size;
 #: past it the wrapper hands the kernel a scratch buffer in device memory.
@@ -168,16 +173,31 @@ def _fwd_bwd_kernel(logp, ext, can_skip, ext_valid, ilen, llen, normalize):
 
 
 def _decode_kernel(logp, ilen, blank):
-    """The decode kernel (the contract of :func:`_decode_plain`)."""
-    ilen = ilen.to(torch.int32).contiguous()
-    _check_kernel_args(logp, ilen)
+    """The decode kernel, one launch: the contract of
+    ``compact_decoded(*_decode_plain(logp, ilen, blank))``, (ids [B, T]
+    int32 padded with -1, lengths [B] int32), both views of one
+    allocation.  The lengths are read as int32 or int64, as they come."""
     b, t, v = logp.shape
-    best = torch.empty(b, t, dtype=torch.int32, device=logp.device)
-    keep = torch.empty_like(best)
-    KERNEL_DECODE.launch(logp.data_ptr(), ilen.data_ptr(), best.data_ptr(),
-                         keep.data_ptr(), b, t, v, int(blank),
-                         torch.cuda.current_stream().cuda_stream)
-    return best, keep
+    len64 = _LEN64.get(ilen.dtype)
+    if len64 is None:
+        ilen, len64 = ilen.to(torch.int32), 0
+    logp = logp if logp.is_contiguous() else logp.contiguous()
+    ilen = ilen if ilen.is_contiguous() else ilen.contiguous()
+    enforce(logp.dtype == torch.float32,
+            "the ctc decode kernel takes float32 log-probs, got %s",
+            logp.dtype)
+    if not (ilen.shape == (b,) and ilen.device == logp.device):
+        enforce(False, "the ctc decode kernel needs lengths [B] on the "
+                "log-probs' device, got %s on %s for %s on %s",
+                tuple(ilen.shape), ilen.device, tuple(logp.shape),
+                logp.device)
+    out = torch.empty(b * t + b, dtype=torch.int32, device=logp.device)
+    base = out.data_ptr()
+    KERNEL_DECODE.launch(logp.data_ptr(), ilen.data_ptr(), len64, base,
+                         base + 4 * b * t, b, t, v, int(blank),
+                         torch._C._cuda_getCurrentRawStream(logp.device.index))
+    ids, lens = out.split([b * t, b])
+    return ids.view(b, t), lens
 
 
 class _CtcFused(torch.autograd.Function):
@@ -230,18 +250,19 @@ def ctc_loss_fused_reference(log_probs, input_lengths, labels, label_lengths,
 
 
 def ctc_greedy_decode_fused(log_probs, input_lengths, blank: int = 0):
-    """Fused best-path decode: the kernel reads the [B, T, V] slab once and
-    writes the [B, T] (argmax, keep) pair; the kept frames are then
-    front-compacted.  Returns (ids [B, T] int32 padded with -1, lengths
-    [B] int32), as ``ops/ctc.ctc_greedy_decode``."""
+    """Fused best-path decode: on the card one kernel reads the [B, T, V]
+    slab once and writes the front-compacted ids and the lengths.
+    Returns (ids [B, T] int32 padded with -1, lengths [B] int32), as
+    ``ops/ctc.ctc_greedy_decode``."""
     enforce(log_probs.dim() == 3,
             f"ctc_greedy_decode_fused: log_probs [B, T, V], got "
             f"{tuple(log_probs.shape)}")
-    ilen = input_lengths.to(log_probs.device)
-    if log_probs.device.type == "cpu":
-        best, keep = _decode_plain(log_probs, ilen, blank)
-    else:
-        best, keep = _decode_kernel(log_probs.contiguous(), ilen, blank)
+    dev = log_probs.device
+    ilen = (input_lengths if input_lengths.device == dev
+            else input_lengths.to(dev))
+    if dev.type != "cpu":
+        return _decode_kernel(log_probs, ilen, blank)
+    best, keep = _decode_plain(log_probs, ilen, blank)
     return ctc_ops.compact_decoded(best, keep.bool())
 
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +60,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_FWD = Kernel("lstm_seq", "lstm_fwd_f32", [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD = Kernel("lstm_seq", "lstm_bwd_f32", [_P] * 17 + [_I] * 6 + [_P])
-KERNEL_BI = Kernel("bilstm_seq", "bilstm_fwd_f32", [_P] * 22 + [_I] * 4 + [_P])
+KERNEL_BI = Kernel("bilstm_seq", "bilstm_fwd_f32", [_P] * 22 + [_I] * 7 + [_P])
 KERNEL_FI = Kernel("lstm_seq", "lstm_fi_fwd_f32", [_P] * 13 + [_I] * 6 + [_P])
 KERNEL_FWD_BF16 = Kernel("lstm_seq", "lstm_fwd_bf16",
                          [_P] * 11 + [_I] * 5 + [_P])
@@ -72,8 +73,11 @@ KERNEL_FI_BF16 = Kernel("lstm_seq", "lstm_fi_fwd_bf16",
 
 #: the kernels' tiling: a block owns U <= 16 hidden units with 32U threads
 _MAX_UNITS = 16
-#: the bilstm kernel's tiling: a block owns one direction and 4 batch rows
-_BI_ROWS = 4
+#: the f32 bilstm kernel's plan (``bi_plan``): 256 threads a CTA, clusters
+#: of at most 8 (the portable size), row tiles of 4 or 8, a product's
+#: reduction in at most 16 shares
+_BI_THREADS, _BI_MAX_CLUSTER, _BI_ROW_TILES = 256, 8, (4, 8)
+_BI_MAX_SPLITS = 16
 #: csrc/lstm_seq.cu's staging: 64-row chunks of 32-deep stages (rows
 #: padded to 36 floats), 16 row groups a half-block
 _ROWS, _RG, _STAGE = 64, 16, 64 * 36
@@ -390,6 +394,10 @@ def fi_bf16_refusal(e: int, d: int, sms: int, optin: int) -> str | None:
 
 
 def _check_kernel_args(*tensors):
+    dev = tensors[0].device
+    if all(x.dtype == torch.float32 and x.is_contiguous() and x.device == dev
+           for x in tensors):
+        return      # the common case in one pass; else say what is wrong
     enforce(all(x.dtype == torch.float32 for x in tensors),
             "the lstm kernels take float32 operands")
     enforce(all(x.is_contiguous() for x in tensors),
@@ -706,32 +714,135 @@ def _bi_fwd_plain(x, mask, fw, bw):
     return tuple(outs)
 
 
+class BiPlan(NamedTuple):
+    """The f32 bilstm kernel's launch: clusters of ``cluster`` CTAs, each a
+    row tile of ``rows`` and D / cluster units; W_x's slice in shared
+    memory when ``resident``; ``ctas`` in the grid, ``smem_bytes`` each."""
+    cluster: int
+    rows: int
+    resident: bool
+    ctas: int
+    smem_bytes: int
+
+
+def bi_smem_floats(e: int, d: int, cluster: int, rows: int,
+                   resident: bool) -> int:
+    """Shared memory of a CTA of the f32 bilstm kernel in floats,
+    ``cl_smem_floats`` of csrc/bilstm_seq.cu: the W_h slice [D][4U], the
+    resident W_x slice [E][4U] and x_t's rows, the two h buffers of the
+    tile, the c carry of the CTA's U = D / cluster units, the partial sums
+    [2][splits][rows][4U], the bias slice, the peepholes and two steps'
+    mask."""
+    u = d // cluster
+    splits = min(_BI_MAX_SPLITS, max(1, _BI_THREADS // u))
+    lx = e if resident else 0
+    return ((lx + d) * 4 * u + rows * lx + 2 * rows * d + rows * u
+            + 2 * splits * rows * 4 * u + 4 * u + 3 * u + 2 * rows)
+
+
+def _bi_candidates(b: int, e: int, d: int, optin: int):
+    for resident in (True, False):
+        for rows in _BI_ROW_TILES:
+            for cluster in (8, 4, 2, 1):
+                if d % cluster:
+                    continue
+                need = 4 * bi_smem_floats(e, d, cluster, rows, resident)
+                if need <= optin:
+                    yield BiPlan(cluster, rows, resident,
+                                 2 * cluster * -(-b // rows), need)
+
+
+def bi_plan(b: int, e: int, d: int, sms: int, optin: int,
+            clusters=None) -> BiPlan:
+    """The f32 bilstm kernel's plan for batch B, input width E and hidden
+    width D on a card of ``sms`` SMs and ``optin`` bytes of shared memory
+    a CTA, or raise why it cannot take them.  ``clusters(cluster, rows,
+    resident)``: how many clusters of a plan the card holds at once (its
+    GPCs bound that below SMs / cluster; default: SMs / cluster).  W_x's
+    slice resident first; then one wave of at most one CTA an SM where
+    any plan has one (else the fewest waves), the most CTAs, the smaller
+    row tile and the smaller cluster.  The BiLSTM's backward
+    (``lstm_seq``'s kernel) takes D too: a multiple of 4, ceil(D / SMs) <=
+    16 units a block."""
+    enforce(d % 4 == 0 and e > 0 and b > 0,
+            "bilstm kernel: D=%s must be a multiple of 4 (the backward's "
+            "16-byte copies)", d)
+    u = -(-d // sms)
+    enforce(u <= _MAX_UNITS, "bilstm kernel: D=%s needs %s units a block of "
+            "the backward on %s SMs, more than the %s its tiling covers",
+            d, u, sms, _MAX_UNITS)
+    plans = list(_bi_candidates(b, e, d, optin))
+    if not plans:
+        least = min(4 * bi_smem_floats(e, d, c, _BI_ROW_TILES[0], False)
+                    for c in (8, 4, 2, 1) if d % c == 0)
+        widest = next((w for w in range(d - 4, 0, -4)
+                       if any(_bi_candidates(b, e, w, optin))), 0)
+        enforce(False, "bilstm kernel: E=%s, D=%s needs at least %s bytes "
+                "of shared memory a CTA (W_h's slice, in clusters of at "
+                "most %s), more than the %s the card allows; at E=%s the "
+                "widest D it takes is %s", e, d, least, _BI_MAX_CLUSTER,
+                optin, e, widest)
+    resident = any(p.resident for p in plans)
+    held = clusters or (lambda c, rows, res: sms // c)
+
+    def waves(p):
+        at_once = max(1, min(held(p.cluster, p.rows, p.resident),
+                             sms // p.cluster))
+        return -(-(p.ctas // p.cluster) // at_once)
+
+    return min((p for p in plans if p.resident == resident),
+               key=lambda p: (waves(p), -p.ctas, p.rows, p.cluster))
+
+
+def _max_clusters(device: torch.device, e: int, d: int):
+    """``clusters`` of :func:`bi_plan` from the card ``device`` itself
+    (``bilstm_f32_max_clusters`` in csrc/bilstm_seq.cu)."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    fn = _build.load("bilstm_seq").bilstm_f32_max_clusters
+    fn.argtypes, fn.restype = [_I] * 5 + [_P], _I
+
+    def held(cluster: int, rows: int, resident: bool) -> int:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            code = fn(e, d, cluster, rows, int(resident), ctypes.byref(n))
+        enforce(code == 0, "bilstm_f32_max_clusters: CUDA error %s", code)
+        return n.value
+
+    return held
+
+
+@functools.lru_cache(maxsize=None)
+def _bi_launch(device: torch.device, b: int, t: int, e: int, d: int):
+    """The plan and the trailing arguments of a launch, once a (device, B,
+    T, E, D): no device query a call."""
+    p = bi_plan(b, e, d, *_card(device), _max_clusters(device, e, d))
+    return p, (b, t, e, d, p.cluster, p.rows, int(p.resident))
+
+
 def _bi_fwd_kernel(x, mask, fw, bw):
     """The bilstm kernel of W_h's dtype (the contract of
-    :func:`_bi_fwd_plain`)."""
+    :func:`_bi_fwd_plain`).  The f32 form's eight outputs are views of one
+    allocation."""
     if fw[2].dtype == torch.bfloat16:
         return _bi_fwd_kernel_bf16(x, mask, fw, bw)
     _check_kernel_args(x, mask, *fw, *bw)
     b, t, e = x.shape
     d = fw[2].shape[0]
-    smem = 4 * (4 * d * d + _BI_ROWS * (e + 6 * d))
-    limit = getattr(torch.cuda.get_device_properties(x.device),
-                    "shared_memory_per_block_optin", 232448)
-    enforce(smem <= limit, f"bilstm kernel: D={d}, E={e} needs {smem} bytes "
-            f"of shared memory a block (W_h and a 4-row tile), more than the "
-            f"{limit} the card allows")
-    _units(x.device, d)     # the backward kernel's tiling takes this D too
-    outs, args = [], [x.data_ptr(), mask.data_ptr()]
-    for weights in (fw, bw):
-        hs = torch.empty(b, t, d, device=x.device)
-        out = (hs, torch.empty_like(hs), torch.empty(b, d, device=x.device),
-               torch.empty(b, d, device=x.device))
-        outs.append(out)
-        args += [w.data_ptr() for w in weights]
-        args += [o.data_ptr() for o in out]
-    KERNEL_BI.launch(*args, b, t, e, d,
-                     torch.cuda.current_stream().cuda_stream)
-    return tuple(outs)
+    _, ints = _bi_launch(x.device, b, t, e, d)
+    n, m = b * t * d, b * d
+    out = torch.empty(4 * (n + m), device=x.device)
+    seqs, last = out.split([4 * n, 4 * m])
+    hsf, csf, hsb, csb = seqs.view(4, b, t, d).unbind(0)
+    htf, ctf, htb, ctb = last.view(4, b, d).unbind(0)
+    base = out.data_ptr()
+    seq = [base + 4 * n * k for k in range(4)]
+    fin = [base + 16 * n + 4 * m * k for k in range(4)]
+    KERNEL_BI.launch(x.data_ptr(), mask.data_ptr(),
+                     *(w.data_ptr() for w in fw), *seq[:2], *fin[:2],
+                     *(w.data_ptr() for w in bw), *seq[2:], *fin[2:],
+                     *ints, torch._C._cuda_getCurrentRawStream(x.device.index))
+    return (hsf, csf, htf, ctf), (hsb, csb, htb, ctb)
 
 
 def _bi_ld(k: int) -> int:

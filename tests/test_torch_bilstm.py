@@ -17,6 +17,7 @@ per-direction ``lstm_seq`` composition equal bit for bit; the float64
 ``gradcheck`` at its defaults."""
 
 import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -213,3 +214,98 @@ def test_bilstm_layer_params_and_values_match_jax(_fresh_names):
     for n, g in zip(params, tg):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg[n]), atol=TOL,
                                    rtol=0, err_msg=n)
+
+
+# -- the f32 kernel's cluster plan (csrc/bilstm_seq.cu), decided on the CPU --
+
+H100 = (132, 232448)      # SMs, shared-memory bytes a CTA may opt in to
+
+
+def _single_block_took(e, d, sms, optin):
+    """Whether the single-block f32 kernel this plan replaced took E, D:
+    W_h and a 4-row tile in one block's shared memory, and the backward's
+    tiling (D a multiple of 4, ceil(D / SMs) <= 16 units a block)."""
+    smem = 4 * (4 * d * d + 4 * (e + 6 * d))
+    return d % 4 == 0 and smem <= optin and -(-d // sms) <= 16
+
+
+def test_bi_plan_at_the_crnn_shapes():
+    """The OCR CRNN (B 64, E 256, D 64): clusters of 4, 4-row tiles, W_x's
+    slice resident, 128 CTAs on 132 SMs; its batch-2 witness step and the
+    convergence recipe's D 32 keep W_x resident too."""
+    p = LK.bi_plan(64, 256, 64, *H100)
+    assert (p.cluster, p.rows, p.resident, p.ctas) == (4, 4, True, 128)
+    # [W_h + W_x slices 64 + 16 KB] + x rows, h buffers, c, the partial
+    # sums of 16 shares, the bias and peephole slices, two steps' mask
+    assert p.smem_bytes == 4 * ((256 + 64) * 64 + 4 * 256 + 2 * 4 * 64
+                                + 4 * 16 + 2 * 16 * 4 * 64 + 64 + 3 * 16
+                                + 2 * 4)
+    assert LK.bi_plan(2, 256, 64, *H100)[:3] == (8, 4, True)
+    assert LK.bi_plan(32, 256, 32, *H100)[:4] == (8, 4, True, 128)
+
+
+def test_bi_plan_keeps_to_the_clusters_the_card_holds():
+    """With the clusters an H100 holds at once at the CRNN's shapes
+    (``cudaOccupancyMaxActiveClusters`` through ``_max_clusters``, read on
+    an H100 80GB HBM3): 30 clusters of 4, not 33, so the CRNN's 32
+    clusters of 4 rows and 4 CTAs would run in two waves; the plan takes
+    the one-wave 16 clusters of 8 CTAs and 8 rows.  A card whose GPCs
+    held only 15 clusters of 8 would get 2-CTA clusters instead."""
+    held = {(8, 4): 30, (4, 4): 30, (2, 4): 66, (1, 4): 132, (8, 8): 30,
+            (4, 8): 30, (2, 8): 66, (1, 8): 132}
+    p = LK.bi_plan(64, 256, 64, *H100, lambda c, r, res: held[c, r])
+    assert (p.cluster, p.rows, p.resident, p.ctas) == (8, 8, True, 128)
+    fewer = {**held, (8, 8): 15}
+    p = LK.bi_plan(64, 256, 64, *H100, lambda c, r, res: fewer[c, r])
+    assert (p.cluster, p.rows, p.resident, p.ctas) == (2, 4, True, 64)
+
+
+@pytest.mark.parametrize("card", [H100, (132, 101376), (16, 49152)])
+def test_bi_plan_takes_all_the_single_block_kernel_took(card):
+    """At every (B, E, D) of a grid over the single-block kernel's edges
+    (E to its shared-memory limit at D 4, D to 120): whatever it took, the
+    plan takes; each plan's cluster divides D into whole units, is at most
+    8, and its CTA fits the opt-in; the grid is the row tiles times both
+    directions times the cluster."""
+    sms, optin = card
+    taken = 0
+    for e in (1, 3, 16, 18, 64, 256, 1024, 4096, 8192, 14000, 14488, 14500):
+        for d in range(4, 124, 4):
+            if not _single_block_took(e, d, sms, optin):
+                continue
+            for b in (1, 2, 5, 64, 1000):
+                p = LK.bi_plan(b, e, d, sms, optin)
+                taken += 1
+                assert d % p.cluster == 0 and p.cluster <= 8
+                assert p.rows in (4, 8)
+                assert p.smem_bytes == 4 * LK.bi_smem_floats(
+                    e, d, p.cluster, p.rows, p.resident) <= optin
+                assert p.ctas == 2 * p.cluster * -(-b // p.rows)
+    assert taken > 100
+
+
+def test_bi_plan_admits_wider_d_and_names_its_limit():
+    """D 128 at E 256 (past the single-block kernel's 116) runs with W_x
+    resident; past the plan's limit the refusal says how much shared
+    memory it needed, against what, and the widest D it takes at that E."""
+    assert not _single_block_took(256, 128, *H100)
+    assert LK.bi_plan(64, 256, 128, *H100)[:3] == (8, 8, True)
+    widest = LK.bi_plan(64, 256, 304, *H100)
+    assert widest.cluster == 8 and not widest.resident
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    with pytest.raises(EnforceError, match=r"E=256, D=312 needs at least "
+                       r"236372 bytes of shared memory .* more than the "
+                       r"232448 the card allows; at E=256 the widest D it "
+                       r"takes is 304"):
+        LK.bi_plan(64, 256, 312, *H100)
+    with pytest.raises(EnforceError, match="multiple of 4"):
+        LK.bi_plan(64, 256, 66, *H100)
+
+
+def test_bi_plan_mirrors_the_kernel_constants():
+    """The plan's thread count, cluster cap and shares are the kernel's."""
+    src = (Path(LK.__file__).parent / "csrc" / "bilstm_seq.cu").read_text()
+    assert f"constexpr int kClThreads = {LK._BI_THREADS};" in src
+    assert f"constexpr int kMaxCluster = {LK._BI_MAX_CLUSTER};" in src
+    assert f"constexpr int kMaxSplits = {LK._BI_MAX_SPLITS};" in src

@@ -162,6 +162,49 @@ def test_greedy_decode_equals_jax_bit_for_bit(blank):
             assert np.array_equal(g.numpy(), np.asarray(r))
 
 
+def decode_case(case, blank_at, seed=21):
+    """Scores [B, T, V] of small integers (many ties and repeats), ragged
+    int32 lengths with a zero-length and a full row, and the blank index
+    (``blank_at``: "first" or "last"); ``all_blank``: rows 1 and 2 have
+    the blank win every frame."""
+    b, t, v = {"v37": (5, 40, 37), "v100_t300": (3, 300, 100),
+               "all_blank": (4, 33, 37), "t1": (3, 1, 5)}[case]
+    rng = np.random.default_rng(seed + b + t + v)
+    x = rng.integers(0, 3, size=(b, t, v)).astype(np.float32)
+    ilen = rng.integers(0, t + 1, size=b).astype(np.int32)
+    ilen[0], ilen[-1] = t, 0
+    blank = 0 if blank_at == "first" else v - 1
+    if case == "all_blank":
+        x[1:3, :, blank] = 3.0
+    return x, ilen, blank
+
+
+@pytest.mark.parametrize("case", ["v37", "v100_t300", "all_blank", "t1"])
+@pytest.mark.parametrize("blank_at", ["first", "last"])
+def test_greedy_decode_cases_equal_jax_bit_for_bit(case, blank_at):
+    """The fused decode's CPU twin (``_decode_plain`` then
+    ``compact_decoded``, the contract the card's one-launch kernel is held
+    to) against JAX's fused decode (interpret) and reference, bit for bit:
+    V wider than one 32-lane run (37, 100), T 300 (past the kernel's
+    256-frame chunk), zero-length and all-blank rows, blank first and
+    last, ties and repeats throughout."""
+    x, ilen, blank = decode_case(case, blank_at)
+    want = JK.ctc_greedy_decode_fused(jnp.asarray(x), jnp.asarray(ilen),
+                                      blank=blank, impl="kernel",
+                                      interpret=True)
+    want_ref = jctc.ctc_greedy_decode(jnp.asarray(x), jnp.asarray(ilen),
+                                      blank)
+    got = KC.ctc_greedy_decode_fused(torch.tensor(x), torch.tensor(ilen),
+                                     blank)
+    for g, w, r in zip(got, want, want_ref):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), np.asarray(w))
+        assert np.array_equal(g.numpy(), np.asarray(r))
+    if case == "all_blank":
+        assert got[1][1:3].tolist() == [0, 0]
+        assert (got[0][1:3] == -1).all()
+
+
 @pytest.mark.parametrize("normalize", [False, True])
 def test_float64_gradcheck(normalize):
     logits, labels, ilen, llen = inputs(3, t=8, v=5, l=3)

@@ -1259,17 +1259,39 @@ def _close_each(got, want, rtol=1e-5, atol=1e-12):
     return bool(((got - want).abs() <= lim).all())
 
 
-@pytest.mark.parametrize("b,t,e,d", [
-    (64, 24, 256, 64),  # the OCR CRNN at bench width
-    (64, 24, 256, 32),  # rnn_size 32 (the convergence recipe)
-    (3, 7, 16, 8),      # the CPU tests' shapes: B not a multiple of 4
-    (5, 9, 16, 32),
+@pytest.mark.parametrize("b,t,e,d,plan", [
+    (64, 24, 256, 64, None),            # the OCR CRNN at bench width
+    (64, 24, 256, 64, (4, 4, True)),    # ... and forced: every cluster
+    (64, 24, 256, 64, (8, 8, True)),    # size, both row tiles, W_x
+    (64, 24, 256, 64, (2, 4, True)),    # through L2
+    (64, 24, 256, 64, (4, 4, False)),
+    (256, 6, 32, 16, (1, 4, True)),
+    (64, 24, 256, 32, None),            # rnn_size 32 (the convergence recipe)
+    (3, 7, 16, 8, None),                # the CPU tests' shapes: B not a
+    (5, 9, 16, 32, None),               # multiple of 4
+    (2, 24, 256, 64, None),             # the CRNN's batch-2 witness step
+    (3, 5, 16, 4, None),                # one unit a CTA
+    (64, 24, 256, 128, None),           # wider than the single-block
+    (64, 6, 256, 200, None),            # kernel took (D <= 116 at E 256)
+    (4, 5, 4096, 64, None),             # W_x's slice too large: via L2
+    (3, 4, 18, 8, None),                # E not a multiple of 4
 ])
-def test_bilstm_kernel_matches_plain(cuda, b, t, e, d):
+def test_bilstm_kernel_matches_plain(cuda, monkeypatch, b, t, e, d, plan):
     """The bilstm forward kernel against its plain twin on the same CUDA
-    tensors, ragged lengths; a rerun repeats the bits."""
+    tensors, ragged lengths, in the plan the card picks or in a forced
+    one (every cluster size 1, 2, 4, 8, both row tiles, W_x's slice
+    resident and not); a rerun repeats the bits."""
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
+    candidates = list(LK._bi_candidates(b, e, d, LK._card(cuda)[1]))
+    if plan is None:
+        got_plan = LK._bi_launch(torch.device(cuda), b, t, e, d)[0]
+        assert got_plan in candidates
+        assert got_plan.resident == (e < 4096)
+    else:
+        got_plan = next(p for p in candidates if p[:3] == plan)
+        monkeypatch.setattr(LK, "_bi_launch", lambda *a: (got_plan, (
+            b, t, e, d, plan[0], plan[1], int(plan[2]))))
     rng = np.random.default_rng(b + t + e + d)
     x, mask, *w = _bilstm_inputs(rng, b, t, e, d, cuda)
     fw, bw = w[0:4] + w[8:10], w[4:8] + w[10:12]
@@ -1286,7 +1308,9 @@ def test_bilstm_kernel_matches_plain(cuda, b, t, e, d):
 
 
 @pytest.mark.parametrize("b,t,e,d", [(64, 24, 256, 64), (64, 24, 256, 32),
-                                     (5, 9, 16, 8), (3, 7, 16, 32)])
+                                     (5, 9, 16, 8), (3, 7, 16, 32),
+                                     (128, 8, 64, 64), (256, 6, 32, 16),
+                                     (64, 12, 256, 128)])
 def test_bilstm_function_on_card_matches_the_cpu(cuda, b, t, e, d):
     """``bilstm_seq`` (the forward kernel, then two LSTM backward launches)
     against the CPU's plain twins: every output and input gradient; the
@@ -1393,28 +1417,38 @@ def test_ctc_function_on_card_matches_the_cpu(cuda):
     assert _close(outs[1][1].cpu(), outs[0][1])
 
 
-@pytest.mark.parametrize("b,t,v", [(64, 24, 27), (3, 300, 7), (5, 9, 2)])
+@pytest.mark.parametrize("b,t,v", [(64, 24, 27), (3, 300, 7), (5, 9, 2),
+                                   (8, 300, 100), (4, 50, 37)])
 @pytest.mark.parametrize("blank", ["first", "last"])
-def test_ctc_decode_kernel_matches_plain(cuda, b, t, v, blank):
-    """The decode kernel's (argmax, keep) pair and the compacted ids equal
-    the plain twin's in bits, with ties (first index wins), repeats and
-    ragged lengths; T = 300 crosses the kernel's 128-frame chunks."""
+@pytest.mark.parametrize("len_dtype", [torch.int32, torch.int64])
+def test_ctc_decode_kernel_matches_plain(cuda, b, t, v, blank, len_dtype):
+    """The decode kernel's (ids, lengths) equal the twin's
+    ``compact_decoded(*_decode_plain(...))`` in bits, in one launch a
+    call, with ties (first index wins), repeats, ragged and zero lengths
+    read as int32 or int64; T = 300 crosses the kernel's 256-frame
+    chunks, V 37 and 100 its 32-lane runs."""
+    from paddle_tpu_torch.ops import ctc as ctc_ops
     from paddle_tpu_torch.ops.kernels import ctc as KC
 
     rng = np.random.default_rng(b + t + v)
     x = torch.from_numpy(rng.integers(0, 3, size=(b, t, v)).astype(
         np.float32)).to(cuda)    # small integers: many ties and repeats
-    ilen = torch.from_numpy(rng.integers(0, t + 1, size=b)).to(cuda)
+    lens = rng.integers(0, t + 1, size=b)
+    lens[0] = 0
+    ilen = torch.from_numpy(lens).to(cuda, len_dtype)
     blank = 0 if blank == "first" else v - 1
     n = KC.KERNEL_DECODE.launches
-    best, keep = KC._decode_kernel(x, ilen, blank)
-    ids, lens = KC.ctc_greedy_decode_fused(x, ilen, blank)
+    ids, out_len = KC._decode_kernel(x, ilen, blank)
+    fused = KC.ctc_greedy_decode_fused(x, ilen, blank)
     torch.cuda.synchronize()
     assert KC.KERNEL_DECODE.launches == n + 2
-    want_best, want_keep = KC._decode_plain(x, ilen, blank)
-    assert torch.equal(best, want_best) and torch.equal(keep, want_keep)
-    want = KC.ctc_greedy_decode_fused_reference(x, ilen, blank)
-    assert torch.equal(ids, want[0]) and torch.equal(lens, want[1])
+    best, keep = KC._decode_plain(x, ilen, blank)
+    want = ctc_ops.compact_decoded(best, keep.bool())
+    for got in ((ids, out_len), fused):
+        assert got[0].dtype == got[1].dtype == torch.int32
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ref = KC.ctc_greedy_decode_fused_reference(x, ilen, blank)
+    assert torch.equal(ids, ref[0]) and torch.equal(out_len, ref[1])
 
 
 @pytest.mark.parametrize("shape,cout", [((64, 32, 96, 1), 16),
@@ -1447,7 +1481,7 @@ def test_crnn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from paddle_tpu_torch.ops.kernels import ctc as KC
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
-    x = _bilstm_inputs(np.random.default_rng(0), 2, 3, 16, 256, cuda)
+    x = _bilstm_inputs(np.random.default_rng(0), 2, 3, 16, 512, cuda)
     with pytest.raises(EnforceError, match="shared memory"):
         LK.bilstm_seq(*x)
     with pytest.raises(EnforceError, match="float32"):
