@@ -16,10 +16,13 @@ of this script, in turns:
 one JSON line a run (the tree, the ms and host ms of a call of the conv
 wrappers (rows 14 and 15, f32 and bf16), the update and the scatter-add,
 and with the device time alone the OCR CRNN's f32 BiLSTM forward (row 7)
-and greedy decode (row 12), at ``chip_smoke``'s shapes, img/s, step
-p50, the device ms a step by kernel class from the phases' 3-step
-profiles, for the f32 phase and the bf16 phase's bf16 and f32 blocks,
-the image nets' ms a batch)
+and greedy decode (row 12) and the batch-norm moments (row 13, f32 and
+bf16, ``torch.var_mean`` beside) at small_vgg's five views, at
+``chip_smoke``'s shapes, img/s, step p50, the device ms a step by kernel
+class from the phases' 3-step profiles, for the f32 phase and the bf16
+phase's bf16 and f32 blocks, the image nets' ms a batch, and small_vgg's
+own f32 phase (img/s, step p50, idle; the witness step left out) and its
+bf16 phase's bf16 and f32 blocks)
 and writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).  ``--calls`` times the wrapper calls alone, without the
 training phases.
@@ -45,7 +48,14 @@ shape (cluster size, row tile, W_x resident or through L2), forced in
 turn and checked against the twin first, beside the plan it picks; then
 the planned plan alone on the ``BILSTM_VARIANTS`` copies of the source,
 and the cycles a step of each part of the planned kernel's first CTAs
-(``BILSTM_CLOCK``)."""
+(``BILSTM_CLOCK``).
+
+    python3 chip_ab.py --stats-plans
+
+times ``channel_stats`` (row 13, f32 and bf16) at small_vgg's five views
+under each of ``STATS_PLANS`` (the 16-byte forms' lanes and the least
+blocks a call takes) and on the ``STATS_VARIANTS`` builds of its source,
+each checked against the twin first, alone."""
 
 from __future__ import annotations
 
@@ -79,15 +89,23 @@ C.bf16_witness = C.bf16_layer_witness = lambda *a, **k: {}
 bf16 = C.train_resnet_bf16(dev)[0]
 torch.cuda.empty_cache()
 nets = C.bench_nets(dev)
+torch.cuda.empty_cache()
+C.vgg_witness = lambda *a, **k: {}
+vgg = C.train_vgg(dev)[0]
+torch.cuda.empty_cache()
+vgg_bf16 = C.train_vgg_bf16(dev)[0]
 print(json.dumps({"calls": calls, "train": train, "train_bf16": bf16,
-                  "bench_nets": nets}))
+                  "bench_nets": nets, "train_vgg": vgg,
+                  "train_vgg_bf16": vgg_bf16}))
 """
 
-#: the calls of the BiLSTM (row 7 f32), decode (row 12), conv (rows 14 and
-#: 15, f32 and bf16), update and scatter-add wrappers at chip_smoke's
-#: shapes, timed the same way in either tree (each tree's own wrappers):
+#: the calls of the BiLSTM (row 7 f32), decode (row 12), batch-norm
+#: moments (row 13, f32 and bf16), conv (rows 14 and 15, f32 and bf16),
+#: update and scatter-add wrappers at chip_smoke's shapes, timed the same
+#: way in either tree (each tree's own wrappers):
 #: the CUDA-event ms with the L2 flushed and the host's median ms a call
-#: without a sync; rows 7 and 12 also the device ms of their kernel alone
+#: without a sync; rows 7, 12 and 13 (and ``torch.var_mean`` beside row 13)
+#: also the device ms of their kernels alone
 CALLS = r"""
 def CALLS(dev, C):
     import paddle_tpu_torch as paddle
@@ -116,7 +134,39 @@ def CALLS(dev, C):
             got["alone_ms"] = C.device_ms([fn], key)
         return got
 
+    # the device ms of one call: each kernel's mean time a launch in a
+    # trace of `rounds` calls, summed over the kernels (either tree's
+    # channel_stats, whatever its kernels' names, and torch.var_mean's)
+    def alone_all(fn, rounds=20):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total / e.count / 1e3
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count)
+
     out = {}
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    # the batch-norm moments (row 13, f32 and bf16) at small_vgg's five
+    # views, torch.var_mean beside each
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for r, c in C.VGG_STATS_SHAPES:
+            x = (torch.randn(r, c, generator=gen, device=dev) * 2
+                 + 0.5).to(dtype)
+            for name, fn in (
+                    ("channel_stats", lambda: CS.channel_stats(x)),
+                    ("var_mean", lambda: torch.var_mean(x, dim=0,
+                                                        correction=0))):
+                out[f"{name}_{tag}_{r}x{c}"] = {**both(fn),
+                                                "alone_ms": alone_all(fn)}
+            del x
     from paddle_tpu_torch.ops.kernels import ctc as KC
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
@@ -181,6 +231,7 @@ def summary(tree: str, out: dict, seconds: float) -> dict:
     if "train" not in out:
         return {"tree": tree, "seconds": seconds, "calls": out["calls"]}
     train, bf16, nets = out["train"], out["train_bf16"], out["bench_nets"]
+    vgg, vgg16 = out["train_vgg"], out["train_vgg_bf16"]
     prof = train.get("profile", {})
     prof16 = bf16.get("profile", {})
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
@@ -203,7 +254,18 @@ def summary(tree: str, out: dict, seconds: float) -> dict:
                 if isinstance(v, dict)},
             "bench_nets_bf16_ms_per_batch_p50": {
                 k: v["bf16"]["ms_per_batch_p50"] for k, v in nets.items()
-                if isinstance(v, dict) and "bf16" in v}}
+                if isinstance(v, dict) and "bf16" in v},
+            "small_vgg": {
+                "img_per_s": vgg["images_per_s"],
+                "step_ms_p50": vgg["step_ms_p50"],
+                "idle_share_vs_step_p50": vgg["profile"].get(
+                    "idle_share_vs_step_p50"),
+                "by_class_ms_per_step": vgg["profile"].get(
+                    "by_class_ms_per_step")},
+            "small_vgg_bf16_phase": {
+                d: {"img_per_s": vgg16[d]["images_per_s"],
+                    "step_ms_p50": vgg16[d]["step_ms_p50"]}
+                for d in ("bf16", "f32")}}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -500,6 +562,98 @@ def bilstm_plans() -> int:
     return 0
 
 
+#: the plan constants ``--stats-plans`` times at small_vgg's views:
+#: (VEC_LANES, TARGET_BLOCKS); a target of 1 gives one row block
+STATS_PLANS = tuple(itertools.product((1, 2, 4, 8, 16, 32), (1, 64, 128,
+                                                              256)))
+#: other builds of csrc/channel_stats.cu ``--stats-plans`` times at the
+#: planned plans: {variant: [(its line, what it becomes)]}; "fenced
+#: ticket": a relaxed atomicAdd between two __threadfence()s after every
+#: writer's own fence, in place of the acquire-release atomic
+STATS_VARIANTS = {"fenced ticket": [
+    ("    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) ==",
+     "    __threadfence();\n    last = atomicAdd(tickets + blockIdx.x, 1u) "
+     "=="),
+    ("           (unsigned)(P - 1);", "           (unsigned)(P - 1);\n"
+     "    __threadfence();\n    (void)ticket;"),
+    ("  // after it).\n  __syncthreads();",
+     "  // after it).\n  __threadfence();\n  __syncthreads();")]}
+
+
+def stats_plans() -> int:
+    """``channel_stats`` at small_vgg's five views in f32 and bf16 under
+    each of ``STATS_PLANS`` in this tree (``channel_stats.VEC_LANES``
+    and ``TARGET_BLOCKS`` set, the prepared calls dropped), then at the
+    planned plan on each ``STATS_VARIANTS`` build: each checked against
+    the twin, then timed alone (the kernel's device ms in a trace, no
+    flush): one JSON line, {"<dtype> <R>x<C>": {"<lanes>/<target>":
+    [ms, blocks], "<variant>": ms}, "planned": ...}."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    dev = resolve_device(None)
+    builds = C.source_fault_builds("channel_stats", {
+        name.replace(" ", "_").replace("'", ""): edits
+        for name, edits in STATS_VARIANTS.items()})
+    _build.build(["channel_stats"])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    real = CS.VEC_LANES, CS.TARGET_BLOCKS
+    out = {"planned": f"{real[0]}/{real[1]}"}
+    views = []
+
+    def checked(x, want, what):
+        for a, b in zip(CS.channel_stats(x), want):
+            err = (a.double() - b).abs().max().item()
+            if not err <= C.TOL * max(1.0, b.abs().max().item()):
+                raise AssertionError(f"{what}: err {err}")
+        return C.device_ms([lambda: CS.channel_stats(x)],
+                           C.STATS_KERNEL[x.dtype])
+
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for r, c in C.VGG_STATS_SHAPES:
+                x = (torch.randn(r, c, generator=gen, device=dev) * 2
+                     + 0.5).to(dtype)
+                want = CS.channel_stats_reference(x.double())
+                label = f"{str(dtype)[6:]} {r}x{c}"
+                row = out[label] = {}
+                views.append((label, x, want))
+                for lanes, target in STATS_PLANS:
+                    CS.VEC_LANES, CS.TARGET_BLOCKS = lanes, target
+                    CS._PREPARED.clear()
+                    row[f"{lanes}/{target}"] = [
+                        checked(x, want, f"{label} {lanes}/{target}"),
+                        CS.plan(r, c, CS.VEC[dtype]).blocks]
+    finally:
+        CS.VEC_LANES, CS.TARGET_BLOCKS = real
+        CS._PREPARED.clear()
+    for name in STATS_VARIANTS:
+        proc, lib = builds[name.replace(" ", "_").replace("'", "")]
+        C.planted(proc, lib, CS.KERNEL)     # waits for the build
+        for dtype, kernel in CS.KERNELS.items():
+            whole = kernel._fn or kernel._resolve()
+            kernel._fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
+            kernel._fn.argtypes = kernel.argtypes
+            kernel._fn.restype = ctypes.c_int
+            try:
+                for label, x, want in views:
+                    if x.dtype == dtype:
+                        out[label][name] = checked(x, want,
+                                                   f"{label} {name}")
+            finally:
+                kernel._fn = whole
+                CS.forget_kept()
+    print(C.nvidia_smi())
+    print(json.dumps({"stats_plans_alone_ms": out}), flush=True)
+    return 0
+
+
 def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
@@ -527,6 +681,8 @@ if __name__ == "__main__":
         sys.exit(sweep())
     if args == ["--bilstm-plans"]:
         sys.exit(bilstm_plans())
+    if args == ["--stats-plans"]:
+        sys.exit(stats_plans())
     out = "build/ab"
     if args[:1] == ["--out"] and len(args) > 1:
         out, args = args[1], args[2:]

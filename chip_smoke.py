@@ -205,9 +205,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    Momentum 0.9 at lr 0.1 / 128 with L2 0.0002 x 128; f32).
    ``channel_stats`` against its twin at small_vgg's five [R, C] views
    ([131072, 64] to [128, 512]; max abs error <= 1e-4 x max(1, |ref|), a
-   rerun in the same bits), each timed beside its twin, its bound and
-   ``torch.var_mean``, and its two passes' own device time from a trace.
-   Then a
+   rerun in the same bits with a call of another shape between, one
+   kernel a call by the counter and in a trace), each timed beside its
+   twin, its bound and ``torch.var_mean``, with its device time alone (a
+   trace) and the host's ms a call; its planted faults
+   (``STATS_FAULTS``: the finish drops a partial, a ticket left drawn),
+   built from copies of the source, must fail.  Then a
    batch-4 train-mode step with dropout on, on the card and on the CPU,
    each against the float64 run on the same device (the same masks):
    cost within 1e-5 relative, every gradient leaf within 10x the float64
@@ -1552,9 +1555,9 @@ def kernel_class(name: str) -> str:
         return "brgemm (ours)"
     if "conva" in low:
         return "conv2d_direct (ours)"
-    if "partial_kernel<__nv_bfloat16" in low:   # csrc/channel_stats.cu
+    if "channel_stats_kernel<__nv_bfloat16" in low:  # csrc/channel_stats.cu
         return "channel_stats bf16 (ours)"
-    if "partial_kernel<float" in low or "::finish_kernel(" in low:
+    if "channel_stats_kernel<float" in low:
         return "channel_stats (ours)"
     if "fused_update_kernel" in low:
         return "fused_update (ours)"      # csrc/update.cu
@@ -3695,48 +3698,160 @@ VGG_STATS_SHAPES = ((131072, 64), (32768, 128), (8192, 256), (2048, 512),
                     (128, 512))
 
 
+#: planted faults of the batch-norm moments kernel (csrc/channel_stats.cu):
+#: the finish adds P - 1 row blocks' partials; the last block leaves its
+#: ticket drawn, so the next call on its column chunk finishes early or
+#: never
+STATS_FAULTS = {
+    "finish_drops_a_partial": (
+        "  const int parts = P;   // every row block's partials",
+        "  const int parts = P - 1;   // planted: the last partial dropped"),
+    "ticket_not_reset": (
+        "  if (t == 0) tickets[blockIdx.x] = 0;   // ready for the next "
+        "launch",
+        "  // planted: the ticket is left drawn")}
+#: the trace name of the moments kernel by form (csrc/channel_stats.cu)
+STATS_KERNEL = {torch.float32: "channel_stats_kernel<float, 4>",
+                torch.bfloat16: "channel_stats_kernel<__nv_bfloat16, 8>"}
+_stats_faults: dict = {}
+
+
+def start_stats_faults() -> None:
+    """Start the builds of ``STATS_FAULTS`` (once per process, under
+    ``build/faults/``)."""
+    if not _stats_faults:
+        _stats_faults.update(source_fault_builds("channel_stats",
+                                                 STATS_FAULTS))
+
+
+def stats_fault_entries(kernel) -> dict:
+    """{fault: the C entry of ``kernel``'s symbol in that fault's build},
+    waiting for the builds the first time."""
+    import ctypes
+
+    start_stats_faults()
+    out = {}
+    for name, build in _stats_faults.items():
+        if isinstance(build, tuple):
+            proc, lib = build
+            log_, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"nvcc of a planted fault failed:\n"
+                                     f"{log_}")
+            build = _stats_faults[name] = lib
+        fn = getattr(ctypes.CDLL(str(build)), kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        out[name] = fn
+    return out
+
+
+def trace_kernel_counts(fn, rounds: int = 40) -> dict:
+    """{kernel name: records} of the CUDA kernels a ``torch.profiler``
+    trace of ``rounds`` calls of ``fn`` holds (the H100 host's traces drop
+    some of their first records: 7 to 9 of 40 seen)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES,
                       dtype=torch.float32):
     """``channel_stats`` in ``dtype`` against its twin at small_vgg's five
     [R, C] views (max abs error <= 1e-4 x max(1, |ref|) for both sums; in
-    bf16 against the sums of the same bf16 values in float64; a rerun in
-    the same bits), each timed beside its twin, ``torch.var_mean`` and
-    its bound.  Returns (the kernel row at the largest view, the phase's
-    summary)."""
+    bf16 against the sums of the same bf16 values in float64), a rerun in
+    the same bits with a call of another shape between (the tickets), one
+    launch a call by the counter and in a trace, each timed beside its
+    twin, ``torch.var_mean`` and its bound, with its device time alone (a
+    trace, no flush) and the host's ms a call.  Then the planted faults
+    of ``STATS_FAULTS``, which must fail.  Returns (the kernel row at the
+    largest view, the phase's summary)."""
     from paddle_tpu_torch.ops.kernels import channel_stats as CS
 
     bf16 = dtype == torch.bfloat16
+    kernel = CS.KERNELS[dtype]
+    start_stats_faults()
     size = torch.empty((), dtype=dtype).element_size()
-    pass1 = "partial_kernel<" + ("__nv_bfloat16" if bf16 else "float")
     gen = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda r, c: (torch.randn(r, c, generator=gen, device=dev)  # noqa: E731
+                        * 2 + 0.5).to(dtype)
+
+    def checked(x, other):
+        """x, ``other``, x again: each against the twin, x's two calls
+        in the same bits; returns x's error."""
+        got, between, again = (CS.channel_stats(v) for v in (x, other, x))
+        err = 0.0
+        for v, outs in ((x, got), (other, between), (x, again)):
+            want = CS.channel_stats_reference(v.double() if bf16 else v)
+            for a, b in zip(outs, want):
+                rel = ((a - b).abs().max().item()
+                       / max(1.0, b.abs().max().item()))
+                if not rel <= TOL:
+                    raise AssertionError(
+                        f"channel_stats {list(v.shape)}: kernel vs plain "
+                        f"err {rel} x max(1, |ref|)")
+                err = max(err, rel) if v is x else err
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"channel_stats {list(x.shape)} is not "
+                                 "bit-identical on a rerun")
+        return err
+
+    other = rnd(4096, 64)
     per_shape = []
     for r, c in shapes:
-        x = (torch.randn(r, c, generator=gen, device=dev) * 2 + 0.5).to(dtype)
-        got, again = CS.channel_stats(x), CS.channel_stats(x)
-        want = CS.channel_stats_reference(x.double() if bf16 else x)
-        err = 0.0
-        for a, b, a2 in zip(got, want, again):
-            rel = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
-            err = max(err, rel)
-            if not torch.equal(a, a2):
-                raise AssertionError(f"channel_stats [{r}, {c}] is not "
-                                     "bit-identical on a rerun")
-        if not err <= TOL:
-            raise AssertionError(f"channel_stats [{r}, {c}]: kernel vs plain "
-                                 f"err {err} x max(1, |ref|)")
+        x = rnd(r, c)
+        before = kernel.launches
+        err = checked(x, other)
+        call = lambda: CS.channel_stats(x)  # noqa: E731
+        traced = trace_kernel_counts(call)
+        launches = kernel.launches - before
+        if (launches != 3 + 41 or any(STATS_KERNEL[dtype] not in k
+                                      for k in traced)
+                or not 20 <= sum(traced.values()) <= 40):
+            raise AssertionError(f"channel_stats [{r}, {c}]: not one "
+                                 f"kernel a call ({launches} launches for "
+                                 f"44 calls; trace of 40: {traced})")
         bound_ms, by = bound(size * r * c + 4.0 * 2 * c, 3.0 * r * c)
-        launch = [lambda: CS.channel_stats(x)]
         per_shape.append({
             "shape": [r, c], "max_abs_err": err,
-            "ms": timer(lambda: CS.channel_stats(x)),
-            # the two passes' own device time from a trace (no L2 flush)
-            "kernel_only_ms": (device_ms(launch, pass1)
-                               + device_ms(launch, "::finish_kernel(")),
+            "plan": list(CS.plan(r, c, CS.VEC[dtype])),
+            "ms": timer(call),
+            "alone_ms": device_ms([call], STATS_KERNEL[dtype]),
+            "host_ms": host_ms(call),
             "plain_ms": timer(lambda: CS.channel_stats_reference(x)),
             "bound_ms": bound_ms, "bound_by": by,
             "library_ms": timer(lambda: torch.var_mean(x, dim=0,
                                                        correction=0))})
         del x
+    # each planted fault on inputs no earlier call saw, so that no stale
+    # output can hold their sums
+    caught = {}
+    fault_shapes = (8192, 256), (2048, 256)
+    if any(CS.plan(*v, CS.VEC[dtype]).row_blocks < 2 for v in fault_shapes):
+        raise AssertionError("the planted faults need row blocks to finish")
+    for name, entry in stats_fault_entries(kernel).items():
+        real = kernel._fn or kernel._resolve()
+        kernel._fn = entry
+        try:
+            checked(*(rnd(*v) for v in fault_shapes))
+            torch.cuda.synchronize()
+            caught[name] = False
+        except AssertionError:
+            caught[name] = True
+        finally:
+            kernel._fn = real
+            torch.cuda.synchronize()
+            CS.forget_kept()    # a fault may leave its tickets drawn
+    if not all(caught.values()):
+        raise AssertionError(f"a planted channel_stats fault passed: "
+                             f"{caught}")
     big = per_shape[0]
     name = "channel_stats_bf16" if bf16 else "channel_stats"
     row = {"name": name, "route": "cuda",
@@ -3744,11 +3859,12 @@ def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES,
            "replaces": "paddle_tpu/ops/pallas/tpp/conv.py:87",
            "shape": big["shape"],
            "max_abs_err": max(s["max_abs_err"] for s in per_shape),
-           **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}}
+           **{k: big[k] for k in ("ms", "alone_ms", "host_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}
     torch.cuda.synchronize()
     return row, {"phase": "vgg_kernels", "dtype": str(dtype), name: per_shape,
-                 f"{name}_rerun_bit_identical": True}
+                 f"{name}_rerun_bit_identical": True,
+                 "planted_faults_caught": caught}
 
 
 def vgg_cost(paddle):

@@ -101,15 +101,111 @@ def test_channel_stats_twin_and_grad_match_jax(shape):
             close(a, b, 2e-5)
 
 
+#: the plan's forms: (channels a thread reads, bytes an element): f32 and
+#: bf16 in 16 bytes, and the scalar form (f32 bytes)
+STATS_FORMS = {"f32": (4, 4), "bf16": (8, 2), "scalar": (1, 4)}
+
+
 @pytest.mark.parametrize("rows", [1, 7, 255, 256, 257, 4096, 131072, 131073,
                                   10 ** 7])
 def test_channel_stats_plan_covers_the_rows_exactly(rows):
-    """P row blocks of rows_per_block rows cover R exactly, at most
-    MAX_BLOCKS of them; the plan is a function of R alone."""
-    p, per = CS.plan(rows)
-    assert 1 <= p <= CS.MAX_BLOCKS
-    assert (p - 1) * per < rows <= p * per
-    assert CS.plan(rows) == (p, per)
+    """In every form and at narrow, odd and wide C: the row blocks cover R
+    exactly, the column chunks C; lanes a power of 2 up to a warp, the
+    grid within its limits; the plan is a function of (R, C, form)
+    alone."""
+    for vec, _ in STATS_FORMS.values():
+        for cols in (1, 3, 8, 64, 72, 512, 4100):
+            p = CS.plan(rows, cols, vec)
+            assert (p.row_blocks - 1) * p.rows_per_block < rows
+            assert rows <= p.row_blocks * p.rows_per_block
+            reads = -(-cols // vec)
+            assert (p.col_chunks - 1) * p.lanes < reads <= (p.col_chunks
+                                                            * p.lanes)
+            assert p.lanes & (p.lanes - 1) == 0 and 1 <= p.lanes <= 32
+            assert 1 <= p.row_blocks <= 65535 and p.col_chunks < 2 ** 31
+            assert CS.plan(rows, cols, vec) == p
+
+
+#: small_vgg's five [R, C] views at batch 128 of 32x32 images
+VGG_VIEWS = [(131072, 64), (32768, 128), (8192, 256), (2048, 512), (128, 512)]
+
+
+@pytest.mark.parametrize("form", list(STATS_FORMS))
+@pytest.mark.parametrize("rows,cols", VGG_VIEWS)
+def test_channel_stats_plan_fills_the_card_at_small_vgg_views(rows, cols,
+                                                              form):
+    """At least 256 blocks wherever the view has a 16-byte read for each
+    thread of 256 blocks (R C bytes / (16 x 256)), else as many as it has
+    (the parent gave the bf16 form 16 blocks at [2048, 512]); where its
+    reads allow 256 blocks, the bf16 form has no fewer than the f32
+    form."""
+    vec, size = STATS_FORMS[form]
+    blocks = CS.plan(rows, cols, vec).blocks
+    assert blocks >= min(256, rows * cols * size // (16 * 256))
+    assert blocks <= 65535
+    if form == "bf16" and rows * cols * size >= 16 * 256 * 256:
+        assert blocks >= CS.plan(rows, cols, 4).blocks
+
+
+def test_channel_stats_params_match_the_c_struct_and_entries():
+    """``StatsParams`` has ``struct StatsParams``' fields in order, by
+    name and type; both C entries take (const StatsParams*, void*); the
+    block size is the source's."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    src = (Path(CS.__file__).parent / "csrc" / "channel_stats.cu").read_text()
+    body = src[src.index("struct StatsParams {"):]
+    body = body[body.index("{") + 1:body.index("};")]
+    fields = [re.fullmatch(r"\s*(.+?)\s*(\w+);", line).groups()
+              for line in body.strip().splitlines()]
+    ctypes_of = {"long long": ctypes.c_longlong, "int": ctypes.c_int}
+    assert [n for _, n in fields] == [n for n, _ in CS.StatsParams._fields_]
+    for (ctype, n), (_, pytype) in zip(fields, CS.StatsParams._fields_):
+        want = ctypes.c_void_p if ctype.endswith("*") else ctypes_of[ctype]
+        assert pytype is want, (n, ctype)
+    for k in (CS.KERNEL, CS.KERNEL_BF16):
+        assert k.argtypes == [ctypes.c_void_p, ctypes.c_void_p]
+        assert re.search(rf'extern "C" int {k.symbol}\(const StatsParams\* '
+                         rf'p, void\* stream\)', src), k.symbol
+    assert f"constexpr int kThreads = {CS.THREADS};" in src
+
+
+def parent_grad(x, g_s, g_ss):
+    """The gradient as the parent commit wrote it: zeros, + g_s, + 2 x
+    g_ss, in x's dtype."""
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    dx = torch.zeros_like(xf)
+    if g_s is not None:
+        dx = dx + g_s.to(xf.dtype)
+    if g_ss is not None:
+        dx = dx + 2.0 * xf * g_ss.to(xf.dtype)
+    return dx.to(x.dtype)
+
+
+@pytest.mark.parametrize("given", ["both", "g_s", "g_ss"])
+def test_channel_stats_grad_is_the_parents_formula_bit_for_bit(given):
+    """``channel_stats_grad`` from one temporary equals the zeros-then-add
+    formula in bits (either cotangent None), and JAX's vjp (None as
+    zeros) within 2e-5."""
+    rng = np.random.default_rng(20)
+    x = rng.normal(size=(3, 19, 11, 8)).astype(np.float32) * 2 + 0.5
+    gs, gss = (rng.normal(size=8).astype(np.float32) for _ in range(2))
+    if given == "g_s":
+        gss = None
+    if given == "g_ss":
+        gs = None
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = CS.channel_stats_grad(torch.from_numpy(x), t(gs), t(gss))
+    assert torch.equal(got, parent_grad(torch.from_numpy(x), t(gs), t(gss)))
+    assert got.shape == x.shape and got.is_contiguous()
+    _, vjp = jax.vjp(lambda v: tpp.channel_stats(v, impl="reference"),
+                     jnp.asarray(x))
+    zeros = np.zeros(8, np.float32)
+    (want,) = vjp((jnp.asarray(zeros if gs is None else gs),
+                   jnp.asarray(zeros if gss is None else gss)))
+    close(got, want, 2e-5)
 
 
 # -- layer.batch_norm ------------------------------------------------------------

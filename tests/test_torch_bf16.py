@@ -225,6 +225,32 @@ def test_channel_stats_bf16_twin_and_grad_match_jax(shape):
     bf16_equal(dx, jdx)
 
 
+@pytest.mark.parametrize("given", ["both", "g_s", "g_ss"])
+def test_channel_stats_bf16_grad_is_the_parents_formula_bit_for_bit(given):
+    """The bf16 gradient from one f32 temporary equals the parent's
+    zeros-then-add formula in bits (either cotangent None), and JAX's
+    vjp of the bf16 input (None as zeros) in bits."""
+    rng = np.random.default_rng(21)
+    jx, tx = bf16_pair(rng, 37, 24)
+    gs, gss = (rng.normal(size=24).astype(np.float32) for _ in range(2))
+    gs, gss = {"both": (gs, gss), "g_s": (gs, None),
+               "g_ss": (None, gss)}[given]
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    got = CS.channel_stats_grad(tx, t(gs), t(gss))
+    xf = tx.float()
+    want = torch.zeros_like(xf)
+    if gs is not None:
+        want = want + t(gs)
+    if gss is not None:
+        want = want + 2.0 * xf * t(gss)
+    assert torch.equal(got, want.to(BF16))
+    _, vjp = jax.vjp(lambda x: tpp.channel_stats(x, impl="reference"), jx)
+    zeros = np.zeros(24, np.float32)
+    (jdx,) = vjp((jnp.asarray(zeros if gs is None else gs),
+                  jnp.asarray(zeros if gss is None else gss)))
+    bf16_equal(got, jdx)
+
+
 @pytest.mark.parametrize("k", [147, 576, 4608])
 def test_bf16_criterion_takes_f32_sums_and_refuses_planted_faults(k):
     """``chip_smoke.bf16_agrees``, the criterion of the card's bf16 forms,

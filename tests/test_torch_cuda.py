@@ -720,7 +720,7 @@ def test_bf16_forms_refuse_mixed_operands_and_f32_epilogues(cuda):
 
 
 @pytest.mark.parametrize("r,c", [(131072, 64), (1000, 128), (77, 512),
-                                 (300, 3), (5, 24)])
+                                 (300, 3), (5, 24), (1, 40), (64, 4104)])
 def test_channel_stats_bf16_matches_the_f64_twin(cuda, r, c):
     """The bf16 form (16-byte reads where C % 8 == 0) against the sums of
     the same bf16 values in float64: within 1e-4 x max(1, |ref|) as the
@@ -1694,9 +1694,12 @@ def test_bigru_function_on_card_matches_the_cpu(cuda, b, t, e, d):
 # -- channel_stats (the batch-norm moments of the small_vgg path) ------------------
 
 # small_vgg's five [R, C] views at batch 128 of 32x32, a ragged R, a C that
-# is not a multiple of 32 and a single row
-STATS_SHAPES = [(131072, 64), (32768, 128), (8192, 256), (2048, 512),
-                (128, 512), (1000003 // 7, 48), (777, 45), (1, 96)]
+# is not a multiple of 4 (the scalar form), a single row, C = 3 and a C
+# wider than a block's column chunk
+VGG_STATS_VIEWS = [(131072, 64), (32768, 128), (8192, 256), (2048, 512),
+                   (128, 512)]
+STATS_SHAPES = VGG_STATS_VIEWS + [(1000003 // 7, 48), (777, 45), (1, 96),
+                                  (1000, 3), (64, 4100)]
 
 
 @pytest.mark.parametrize("r,c", STATS_SHAPES)
@@ -1717,6 +1720,118 @@ def test_channel_stats_kernel_matches_plain(cuda, r, c):
         assert a.shape == (c,)
         assert (a - b).abs().max().item() <= TOL * max(1.0, b.abs().max().item())
         assert torch.equal(a, c_)
+
+
+def _stats_inputs(rng, r, c, dtype):
+    return (_rand(rng, r, c) * 2 + 0.5).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channel_stats_is_one_kernel_a_call_in_a_trace(cuda, dtype):
+    """A ``torch.profiler`` trace of 40 calls at small_vgg's widest view
+    holds only ``channel_stats_kernel`` records, at most one a call (the
+    H100 host's traces drop some of their first records: 7 to 9 of 40
+    seen), and the counter counts 40."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    x = _stats_inputs(np.random.default_rng(1), 131072, 64, dtype).to(cuda)
+    kernel = CS.KERNELS[dtype]
+    CS.channel_stats(x)
+    torch.cuda.synchronize()
+    before = kernel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(40):
+            CS.channel_stats(x)
+        torch.cuda.synchronize()
+    assert kernel.launches == before + 40
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    form = "__nv_bfloat16, 8>" if dtype == torch.bfloat16 else "float, 4>"
+    assert names and all("channel_stats_kernel<" + form in k for k in names)
+    assert 20 <= sum(names.values()) <= 40, names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", VGG_STATS_VIEWS)
+def test_channel_stats_reruns_bit_identical_with_another_shape_between(
+        cuda, r, c, dtype):
+    """x, then another shape (which draws the same tickets), then x
+    again: the same bits, within 1e-4 x max(1, |ref|) of the twin (bf16:
+    of the float64 sums of the same values), and every ticket back at 0
+    (a ticket left behind would finish the next call early)."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(r * c)
+    x = _stats_inputs(rng, r, c, dtype).to(cuda)
+    other = _stats_inputs(rng, 4096, 64, dtype).to(cuda)
+    got = CS.channel_stats(x)
+    between = CS.channel_stats(other)
+    again = CS.channel_stats(x)
+    torch.cuda.synchronize()
+    for xs, outs in ((x, got), (x, again), (other, between)):
+        want = CS.channel_stats_reference(xs.double())
+        for a, b in zip(outs, want):
+            assert a.dtype == torch.float32 and a.shape == (xs.shape[1],)
+            assert (a.double() - b).abs().max().item() <= TOL * max(
+                1.0, b.abs().max().item())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    tickets = CS._KEPT[(cuda.index, stream)]._tensors[1]
+    assert not tickets.any()
+
+
+def test_channel_stats_on_two_streams_is_right_on_both(cuda):
+    """Two calls queued together on two streams, each with scratch and
+    tickets of its own: both right and equal to the same call on the
+    default stream."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(2)
+    xs = [_stats_inputs(rng, r, c, torch.float32).to(cuda)
+          for r, c in ((131072, 64), (32768, 128))]
+    want = [CS.channel_stats(x) for x in xs]
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(5):
+        for x, st in zip(xs, streams):
+            with torch.cuda.stream(st):
+                got.append((CS.channel_stats(x), st))
+    torch.cuda.synchronize()
+    for i, (outs, st) in enumerate(got):
+        assert all(torch.equal(a, b) for a, b in zip(outs, want[i % 2]))
+        kept = CS._KEPT[(cuda.index, st.cuda_stream)]
+        assert not kept._tensors[1].any()
+    keys = {(cuda.index, st.cuda_stream) for st in streams}
+    assert keys <= set(CS._KEPT)
+    assert len({CS._KEPT[k].tickets_ptr for k in keys}) == 2
+
+
+def test_channel_stats_f32_takes_the_scalar_form_where_16_bytes_do_not_fit(
+        cuda):
+    """f32 at C % 4 != 0 and at a view 4 bytes past a 16-byte boundary
+    takes the one-channel form: within 1e-4 of the twin, a rerun in the
+    same bits."""
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+
+    rng = np.random.default_rng(6)
+    odd = _stats_inputs(rng, 5000, 45, torch.float32).to(cuda)
+    x = _stats_inputs(rng, 5000, 64, torch.float32).to(cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 == 4
+    for v in (odd, shifted):
+        got, again = CS.channel_stats(v), CS.channel_stats(v)
+        assert (cuda.index, v.shape[0], v.shape[1], torch.float32,
+                CS.SCALAR) in CS._PREPARED
+        for a, b, a2 in zip(got, CS.channel_stats_reference(v), again):
+            assert (a - b).abs().max().item() <= TOL * max(
+                1.0, b.abs().max().item())
+            assert torch.equal(a, a2)
 
 
 def test_channel_stats_function_on_card_matches_the_cpu(cuda):
