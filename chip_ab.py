@@ -2,30 +2,26 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B runs each tree's own ``chip_smoke.train_end_to_end`` (ResNet-50
-through ``trainer.SGD`` at batch 64), ``train_resnet_bf16`` (its bf16 and
-f32 steps in blocks, the witness steps left out) and ``bench_nets`` (the
-image nets' ms a batch), each tree in a process of its own that builds
-that tree's kernels, in the order given.  Host-bound phases vary up to
-2x between machines, so two versions are compared only within one run
-of this script, in turns:
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (the
+gather and the lookup forward in f32 and bf16, the bf16 flash forward's
+kernel and its whole call at serving's prefill and LM training shapes,
+``F.embedding`` and bf16 SDPA beside), then runs its own
+``chip_smoke.train_text_bf16``, ``train_nmt_bf16`` and ``train_lm_bf16``
+(bf16 and f32 steps in blocks; the LM's witness step left out) and two
+bf16 serving blocks of phase 17's requests (``SERVE_PREFILL``: prefill
+ms p50, decode step ms p50, tokens/s), each tree in a process of its own
+that builds that tree's kernels, in the order given.  Host-bound phases
+vary up to 2x between machines, so two versions are compared only within
+one run of this script, in turns:
 
     python3 chip_ab.py [--out DIR] [--calls] build/parent . . build/parent
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
-one JSON line a run (the tree, the ms and host ms of a call of the conv
-wrappers (rows 14 and 15, f32 and bf16), the update and the scatter-add,
-and with the device time alone the OCR CRNN's f32 BiLSTM forward (row 7)
-and greedy decode (row 12) and the batch-norm moments (row 13, f32 and
-bf16, ``torch.var_mean`` beside) at small_vgg's five views, at
-``chip_smoke``'s shapes, img/s, step p50, the device ms a step by kernel
-class from the phases' 3-step profiles, for the f32 phase and the bf16
-phase's bf16 and f32 blocks, the image nets' ms a batch, and small_vgg's
-own f32 phase (img/s, step p50, idle; the witness step left out) and its
-bf16 phase's bf16 and f32 blocks)
-and writes each run's whole output to ``DIR/ab_<i>.json`` (default
-``build/ab``).  ``--calls`` times the wrapper calls alone, without the
-training phases.
+one JSON line a run (the tree, each call's event ms with the L2 flushed,
+host ms and device ms alone with its kernels' names, and the steps'
+rates, step p50 and the bf16 block's idle share) and writes each run's
+whole output to ``DIR/ab_<i>.json`` (default ``build/ab``).  ``--calls``
+times the wrapper calls alone, without the training and serving phases.
 
     python3 chip_ab.py --sweep
 
@@ -49,6 +45,11 @@ turn and checked against the twin first, beside the plan it picks; then
 the planned plan alone on the ``BILSTM_VARIANTS`` copies of the source,
 and the cycles a step of each part of the planned kernel's first CTAs
 (``BILSTM_CLOCK``).
+
+    python3 chip_ab.py --flash-order
+
+times the Hopper flash forward with its blocks numbered heaviest q tile
+first over all heads (the source) and by head (a copy), in turns.
 
     python3 chip_ab.py --stats-plans
 
@@ -83,36 +84,37 @@ if sys.argv[2] == "calls":
     print(json.dumps({"calls": calls}))
     sys.exit(0)
 torch.cuda.empty_cache()
-train = C.train_end_to_end(dev)[0]
+text_bf16 = C.train_text_bf16(dev)[0]
 torch.cuda.empty_cache()
-C.bf16_witness = C.bf16_layer_witness = lambda *a, **k: {}
-bf16 = C.train_resnet_bf16(dev)[0]
+nmt_bf16 = C.train_nmt_bf16(dev)[0]
 torch.cuda.empty_cache()
-nets = C.bench_nets(dev)
+C.lm_bf16_witness = lambda *a, **k: {}
+lm_bf16 = C.train_lm_bf16(dev)[0]
 torch.cuda.empty_cache()
-C.vgg_witness = lambda *a, **k: {}
-vgg = C.train_vgg(dev)[0]
-torch.cuda.empty_cache()
-vgg_bf16 = C.train_vgg_bf16(dev)[0]
-print(json.dumps({"calls": calls, "train": train, "train_bf16": bf16,
-                  "bench_nets": nets, "train_vgg": vgg,
-                  "train_vgg_bf16": vgg_bf16}))
+prefill = SERVE_PREFILL(dev, C)
+print(json.dumps({"calls": calls, "train_text_bf16": text_bf16,
+                  "train_nmt_bf16": nmt_bf16, "train_lm_bf16": lm_bf16,
+                  "serve_bf16_prefill": prefill}))
 """
 
-#: the calls of the BiLSTM (row 7 f32), decode (row 12), batch-norm
-#: moments (row 13, f32 and bf16), conv (rows 14 and 15, f32 and bf16),
-#: update and scatter-add wrappers at chip_smoke's shapes, timed the same
-#: way in either tree (each tree's own wrappers):
-#: the CUDA-event ms with the L2 flushed and the host's median ms a call
-#: without a sync; rows 7, 12 and 13 (and ``torch.var_mean`` beside row 13)
-#: also the device ms of their kernels alone
+#: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
+#: way in either tree (each tree's own wrappers): the CUDA-event ms with the
+#: L2 flushed, the host's median ms a call without a sync, and the device
+#: ms of the call's kernels alone (a trace, summed over its kernels): the
+#: gather (row 17, f32 and bf16) of the text batch's 8,192 ids from [30000,
+#: 128]; the lookup forward on those ids as [64, 128] (a leaf that wants its
+#: gradient); ``F.embedding`` beside; the bf16 flash forward's kernel alone
+#: (the change's Hopper form on q, k, v as they lie, the parent's mma.sync
+#: form on the padded problem) and the whole bf16 ``flash_attention`` call
+#: without grad, with the model's reshape to [B, T, H D], at the serving
+#: prefill [8, 512, 12, 64] and LM training [16, 1024, 12, 64] causal
+#: shapes; bf16 SDPA (flash backend) beside
 CALLS = r"""
 def CALLS(dev, C):
-    import paddle_tpu_torch as paddle
-    from paddle_tpu_torch.config.topology import Topology
-    from paddle_tpu_torch.layers.base import reset_name_counters
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from paddle_tpu_torch.ops.kernels import embedding as EK
-    from paddle_tpu_torch.ops.kernels import update as UP
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
     timer = C.Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -128,15 +130,9 @@ def CALLS(dev, C):
         torch.cuda.synchronize()
         return float(np.median(times)) * 1e3
 
-    def both(fn, key=None):
-        got = {"ms": timer(fn), "host_ms": host(fn)}
-        if key:
-            got["alone_ms"] = C.device_ms([fn], key)
-        return got
-
     # the device ms of one call: each kernel's mean time a launch in a
-    # trace of `rounds` calls, summed over the kernels (either tree's
-    # channel_stats, whatever its kernels' names, and torch.var_mean's)
+    # trace of `rounds` calls, summed over the kernels (whatever either
+    # tree's kernels are named), and their names
     def alone_all(fn, rounds=20):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -147,125 +143,91 @@ def CALLS(dev, C):
             for _ in range(rounds):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total / e.count / 1e3
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.count)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+        return (sum(e.self_device_time_total / e.count / 1e3 for e in evs),
+                sorted({e.key[:60] for e in evs}))
+
+    def all3(fn):
+        ms, names = alone_all(fn)
+        return {"ms": timer(fn), "host_ms": host(fn), "alone_ms": ms,
+                "kernels": names}
 
     out = {}
-    from paddle_tpu_torch.ops.kernels import channel_stats as CS
-
-    # the batch-norm moments (row 13, f32 and bf16) at small_vgg's five
-    # views, torch.var_mean beside each
+    v, e, n = 30000, 128, 8192
+    ids = torch.randint(0, v, (n,), generator=gen, device=dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for r, c in C.VGG_STATS_SHAPES:
-            x = (torch.randn(r, c, generator=gen, device=dev) * 2
-                 + 0.5).to(dtype)
-            for name, fn in (
-                    ("channel_stats", lambda: CS.channel_stats(x)),
-                    ("var_mean", lambda: torch.var_mean(x, dim=0,
-                                                        correction=0))):
-                out[f"{name}_{tag}_{r}x{c}"] = {**both(fn),
-                                                "alone_ms": alone_all(fn)}
-            del x
-    from paddle_tpu_torch.ops.kernels import ctc as KC
-    from paddle_tpu_torch.ops.kernels import lstm as LK
+        table = torch.randn(v, e, generator=gen, device=dev).to(dtype)
+        leaf = table.clone().requires_grad_()
+        grid = ids.view(64, 128)
+        out[f"gather_{tag}"] = all3(lambda: EK.embedding_gather(table, ids))
+        out[f"lookup_forward_{tag}"] = all3(
+            lambda: EK.fused_embedding_lookup(leaf, grid))
+        out[f"F_embedding_{tag}"] = all3(lambda: F.embedding(ids, table))
+        del table, leaf
+    hopper = getattr(FA, "_fwd_wgmma", None)
+    for b, t in ((8, 512), (16, 1024)):
+        h, d = 12, 64
+        q, k, v_ = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(3))
+        qp, kp, vp = FA._prep(q, k, v_)
+        if hopper is not None:
+            kern = lambda: hopper(q, k, v_, True, d ** -0.5)
+        else:
+            kern = lambda: FA._fwd_kernel(qp, kp, vp, t, True, d ** -0.5)
 
-    # the OCR CRNN's f32 BiLSTM forward (x [64, 24, 256], D 64) and greedy
-    # decode (log-probs [64, 24, 27], int64 lengths), as check_crnn_kernels
-    b, t, e, d, v = 64, 24, 256, 64, 27
-    rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)
-    x, mask = rnd(b, t, e), torch.ones(b, t, device=dev)
-    zeros = torch.zeros(b, d, device=dev)
-    fw, bw = ((rnd(e, 4 * d, k=e ** -0.5), rnd(4 * d, k=0.1),
-               rnd(d, 4 * d, k=d ** -0.5), rnd(3, d, k=0.3), zeros, zeros)
-              for _ in range(2))
-    out["bilstm_f32"] = both(lambda: LK._bi_fwd_kernel(x, mask, fw, bw),
-                             "bilstm_")
-    lp = torch.log_softmax(rnd(b, t, v, k=2.0), -1)
-    ilen = torch.full((b,), t, dtype=torch.int64, device=dev)
-    out["ctc_decode"] = both(
-        lambda: KC.ctc_greedy_decode_fused(lp, ilen, v - 1),
-        "ctc_decode_kernel")
-    del x, mask, zeros, fw, bw, lp, ilen
-    from paddle_tpu_torch.ops.kernels import brgemm as BR
-    from paddle_tpu_torch.ops.kernels import conv as CV
+        def call():
+            with torch.no_grad():
+                return FA.flash_attention(q, k, v_, causal=True).reshape(
+                    b, t, h * d)
 
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        x3 = torch.randn(64, 28, 28, 128, generator=gen, device=dev).to(dtype)
-        w3 = (torch.randn(3, 3, 128, 128, generator=gen, device=dev)
-              * 0.04).to(dtype)
-        out[f"conv_res3_3x3_stats_{tag}"] = both(
-            lambda: CV.fwd_raw(x3, w3, (1, 1), (1, 1), stats=True))
-        x1 = torch.randn(64, 56, 56, 64, generator=gen, device=dev).to(dtype)
-        w1 = (torch.randn(1, 1, 64, 256, generator=gen, device=dev)
-              * 0.18).to(dtype)
-        out[f"conv1x1_res2_2c_stats_{tag}"] = both(
-            lambda: BR.conv1x1(x1, w1, (1, 1), stats=True))
-        del x3, w3, x1, w1
-    reset_name_counters()
-    shapes = [s.shape for s in Topology(paddle.models.image.resnet_cost(
-        depth=50, class_num=1000, height=224, width=224)[0]).param_specs()]
-    ups = [UP.TensorUpdate(*(torch.randn(s, generator=gen, device=dev)
-                             * k for k in (1.0, 1e-2, 1e-2)), 0.1 / 64, 0.9)
-           for s in shapes]
-    out["fused_update_resnet50"] = both(lambda: UP.fused_update(ups))
-    del ups
-    v, e, n = C.SCATTER_BF16_SHAPE[1], C.SCATTER_BF16_SHAPE[2], 8192
-    ids = torch.randint(0, v, (64, 128), generator=gen, device=dev)
-    ids[:, 100:] = 0
-    ids = ids.reshape(-1)
-    rows = torch.randn(n, e, generator=gen, device=dev)
-    table = torch.randn(v, e, generator=gen, device=dev).to(torch.bfloat16)
-    out["table_grad_f32_text"] = both(lambda: EK.table_grad(ids, rows, v))
-    out["scatter_add_bf16_f32_rows"] = both(
-        lambda: EK.embedding_scatter_add(table, ids, rows))
-    rows16 = rows.to(torch.bfloat16)
-    out["scatter_add_bf16_bf16_rows"] = both(
-        lambda: EK.embedding_scatter_add(table, ids, rows16))
-    out["index_add_bf16"] = both(lambda: table.index_add(0, ids, rows16))
+        out[f"flash_fwd_kernel_{b}x{t}"] = all3(kern)
+        out[f"flash_attention_call_{b}x{t}"] = all3(call)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v_))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out[f"sdpa_{b}x{t}"] = all3(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))
+        del q, k, v_, qp, kp, vp, qh, kh, vh
     return out
+
+
+def SERVE_PREFILL(dev, C):
+    import dataclasses
+    from paddle_tpu_torch.core.dtype import cast_floats
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.float32, remat=False,
+                              attn_impl="flash")
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params = cast_floats(T.init_params(cfg, torch.Generator().manual_seed(0),
+                                       dev), torch.bfloat16)
+    scfg, prompts, temps = C.serve_workload(cfg)
+    counters = {"flash_hopper": getattr(FA, "KERNEL_WGMMA", FA.KERNEL_BF16),
+                "flash_mma_sync": FA.KERNEL_BF16, "paged": PA.KERNEL_BF16}
+    runs = [C.serve_block(cfg, params, scfg, prompts, temps, dev,
+                          counters)["run"] for _ in range(2)]
+    return [{k: r[k] for k in ("prefill_ms_p50", "prefill_passes",
+                               "decode_step_ms_p50", "tokens_per_s",
+                               "ttft_ms_p50", "launches")} for r in runs]
 """
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
-    if "train" not in out:
+    if "train_text_bf16" not in out:
         return {"tree": tree, "seconds": seconds, "calls": out["calls"]}
-    train, bf16, nets = out["train"], out["train_bf16"], out["bench_nets"]
-    vgg, vgg16 = out["train_vgg"], out["train_vgg_bf16"]
-    prof = train.get("profile", {})
-    prof16 = bf16.get("profile", {})
+    steps = {}
+    for key in ("train_text_bf16", "train_nmt_bf16", "train_lm_bf16"):
+        run = out[key]
+        steps[key] = {d: {k: run[d][k] for k in run[d]
+                          if k.endswith("_per_s") or k == "step_ms_p50"}
+                      for d in ("bf16", "f32") if d in run}
+        prof = run.get("profile", {})
+        steps[key]["bf16_idle_share_vs_step_p50"] = prof.get(
+            "idle_share_vs_step_p50")
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
-            "img_per_s": train["img_per_s"],
-            "step_ms_p50": train["step_ms_p50"],
-            "device_busy_ms_per_step": prof.get("device_busy_ms_per_step"),
-            "idle_share_vs_step_p50": prof.get("idle_share_vs_step_p50"),
-            "by_class_ms_per_step": prof.get("by_class_ms_per_step"),
-            "resnet50_bf16_phase": {
-                d: {"img_per_s": bf16[d]["images_per_s"],
-                    "step_ms_p50": bf16[d]["step_ms_p50"]}
-                for d in ("bf16", "f32")},
-            "bf16_device_busy_ms_per_step":
-                prof16.get("device_busy_ms_per_step"),
-            "bf16_idle_share_vs_step_p50":
-                prof16.get("idle_share_vs_step_p50"),
-            "bf16_by_class_ms_per_step": prof16.get("by_class_ms_per_step"),
-            "bench_nets_ms_per_batch_p50": {
-                k: v["ms_per_batch_p50"] for k, v in nets.items()
-                if isinstance(v, dict)},
-            "bench_nets_bf16_ms_per_batch_p50": {
-                k: v["bf16"]["ms_per_batch_p50"] for k, v in nets.items()
-                if isinstance(v, dict) and "bf16" in v},
-            "small_vgg": {
-                "img_per_s": vgg["images_per_s"],
-                "step_ms_p50": vgg["step_ms_p50"],
-                "idle_share_vs_step_p50": vgg["profile"].get(
-                    "idle_share_vs_step_p50"),
-                "by_class_ms_per_step": vgg["profile"].get(
-                    "by_class_ms_per_step")},
-            "small_vgg_bf16_phase": {
-                d: {"img_per_s": vgg16[d]["images_per_s"],
-                    "step_ms_p50": vgg16[d]["step_ms_p50"]}
-                for d in ("bf16", "f32")}}
+            "steps": steps, "serve_bf16_prefill": out["serve_bf16_prefill"]}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -654,6 +616,59 @@ def stats_plans() -> int:
     return 0
 
 
+#: the Hopper flash forward's block numbering: the source's (every head's
+#: heaviest q tile first) and, in a copy of the source, by head (a head's
+#: q tiles together, so they share its K and V in L2)
+ORDER_LINES = (
+    "  const int bh = blockIdx.x, b = bh / H, h = bh % H;\n"
+    "  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  "
+    "// heaviest first",
+    "  const int lin = blockIdx.x + blockIdx.y * gridDim.x;\n"
+    "  const int bh = lin / gridDim.y, b = bh / H, h = bh % H;\n"
+    "  const int q0 = (gridDim.y - 1 - lin % gridDim.y) * kRows;")
+
+
+def flash_order() -> int:
+    """The Hopper flash forward alone (a trace, no flush) with its blocks
+    numbered as the source numbers them and by head (a copy of the
+    source), in turns (source, copy, copy, source), at serving's prefill
+    [8, 512, 12, 64] and LM training [16, 1024, 12, 64] causal shapes,
+    each output checked against the twin first: one JSON line."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    dev = resolve_device(None)
+    builds = C.source_fault_builds("flash_attention",
+                                   {"by_head": [ORDER_LINES]})
+    _build.build(["flash_attention"])
+    kern = FA.KERNEL_WGMMA
+    real = kern._fn or kern._resolve()
+    by_head = C.planted(*builds["by_head"], kern)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for b, t in ((8, 512), (16, 1024)):
+        q, k, v = (torch.randn(b, t, 12, 64, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        call = lambda: FA._fwd_wgmma(q, k, v, True, 0.125)  # noqa: E731
+        for turn, (name, fn) in enumerate((
+                ("heaviest_first", real), ("by_head", by_head),
+                ("by_head", by_head), ("heaviest_first", real))):
+            kern._fn = fn
+            o, lse = call()
+            a = C.flash_forward_agreement(q, k, v, o, lse, True, 0.125)
+            if not a["agrees"]:
+                raise AssertionError(f"{name} at [{b}, {t}]: {a}")
+            out[f"{b}x{t} turn {turn} {name}"] = C.device_ms(
+                [call], "flash_fwd_wgmma_kernel")
+        kern._fn = real
+    print(json.dumps({"flash_order_alone_ms": out}), flush=True)
+    return 0
+
+
 def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
@@ -683,6 +698,8 @@ if __name__ == "__main__":
         sys.exit(bilstm_plans())
     if args == ["--stats-plans"]:
         sys.exit(stats_plans())
+    if args == ["--flash-order"]:
+        sys.exit(flash_order())
     out = "build/ab"
     if args[:1] == ["--out"] and len(args) > 1:
         out, args = args[1], args[2:]

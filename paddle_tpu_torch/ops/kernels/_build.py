@@ -26,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 from paddle_tpu_torch.core.dtype import ensure_policy
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -155,6 +157,19 @@ class Kernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {code} "
                                f"({self._err(code).decode()})")
         self.launches += 1
+
+    def launch_on(self, index: int, *args) -> None:
+        """Launch on card ``index``, the card the tensors lie on: that
+        card's current stream is passed as the last argument, and the
+        launch runs with that card current (a device guard only where
+        another card is current, so one card pays nothing).  Every
+        wrapper under ``ops/kernels/`` launches through here."""
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if torch._C._cuda_getDevice() == index:
+            self.launch(*args, stream)
+        else:
+            with torch.cuda.device(index):
+                self.launch(*args, stream)
 
 
 if __name__ == "__main__":

@@ -391,12 +391,7 @@ class Prepared:
                 prm.partial = base + 4 * self.ws
                 prm.sum, prm.sumsq = base + 4 * at, base + 4 * (at + n)
                 s, ss = buf[at:at + n], buf[at + n:]
-        stream = torch._C._cuda_getCurrentRawStream(self.index)
-        if torch._C._cuda_getDevice() == self.index:
-            self.kernel.launch(self.addr, stream)
-        else:
-            with torch.cuda.device(self.device):
-                self.kernel.launch(self.addr, stream)
+        self.kernel.launch_on(self.index, self.addr)
         return (y, s, ss) if self.stats else y
 
 

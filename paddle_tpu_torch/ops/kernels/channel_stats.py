@@ -170,11 +170,7 @@ class Prepared:
         prm = self.params
         prm.x, prm.out = ptr, out.data_ptr()
         prm.part, prm.tickets = kept.part_ptr, kept.tickets_ptr
-        if torch._C._cuda_getDevice() == index:
-            self.kernel.launch(self.addr, stream)
-        else:
-            with torch.cuda.device(index):
-                self.kernel.launch(self.addr, stream)
+        self.kernel.launch_on(index, self.addr)
         return out[0], out[1]
 
 

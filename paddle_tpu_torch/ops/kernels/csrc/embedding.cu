@@ -10,13 +10,22 @@
 // reads the table and N rows and writes a fresh table (JAX's
 // embedding_scatter_add returns one: tpp/embedding.py:217 has no alias).
 //
-// Gather: out[i] = table[clamp(ids[i], 0, V - 1)] for a flat int64 id list,
-// one warp a row, consecutive lanes on consecutive elements.  Two forms:
-// f32 (a float a lane) and bf16 (embedding_gather_bf16: rows copied in the
-// table's dtype, as the JAX kernel does, 16 bytes = 8 bf16 a lane; D % 8
-// == 0 and 16-byte aligned rows).  At the text classifier's 8,192 ids of
-// [30000, 128] bf16 a row is 256 bytes, 16 lanes of one 16-byte copy each.
-//
+// Gather: out[i] = table[clamp(ids[i], 0, V - 1)] for a flat int64 id
+// list, and zeros where ids[i] == padding_idx when one is given (the fused
+// lookup's forward in one launch: JAX's fused_embedding_lookup zeroes
+// those rows after its gather).  Two forms, one template on the copy
+// unit: f32 (embedding_gather_f32) and bf16 (embedding_gather_bf16), the
+// rows copied in the table's dtype, as the JAX kernel does.  Bytes bound
+// it: at the text classifier's 8,192 ids of [30000, 128] the rows are
+// 4 MB (f32) or 2 MB (bf16), a microsecond at 3.35 TB/s, so the design
+// is about latency and lanes: the N x D output is one run of 16-byte
+// units (float4, or 8 bf16) where D and the table allow it (4- and
+// 2-byte units otherwise), unit u of row u / W at column u % W, so a
+// warp copies 512 contiguous bytes of output whatever D is: several
+// rows a warp where a row is shorter (bf16 at D 128: 256 bytes, two
+// rows).  Each thread has its units' ids and rows in flight before it
+// stores any (kGatherUnroll), and the grid is sized to the card's SMs
+// (8 blocks of 256 an SM at most), striding over the rest.
 // Scatter-add: out[v] = table[v] + the sum of rows[j] over every j with
 // ids[j] == v, ids outside [0, V) contributing nothing, each output row
 // written once.  The sum must not depend on the order in which blocks run
@@ -62,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -78,36 +89,88 @@ __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+constexpr int kGatherUnroll = 2;  // units a thread holds before storing
+constexpr int kGatherChunk = kThreads * kGatherUnroll;
+
+// out[u] for the units u of the chunks blockIdx.x, + gridDim.x, ...: row
+// u / W, column u % W of it; a row whose raw id is the padding id (when
+// has_pad) is written as zeros and not read.
+template <class Unit>
 __global__ void __launch_bounds__(kThreads)
-gather_kernel(const float* __restrict__ table,
-              const long long* __restrict__ ids, float* __restrict__ out,
-              int N, int V, int D) {
-  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (i >= N) return;
-  long long id = ids[i];
-  id = id < 0 ? 0 : (id >= V ? V - 1 : id);
-  const float* src = table + id * D;
-  float* dst = out + (size_t)i * D;
-  for (int d = lane; d < D; d += 32) dst[d] = src[d];
+gather_kernel(const Unit* __restrict__ table,
+              const long long* __restrict__ ids, Unit* __restrict__ out,
+              int units, int W, int V, int has_pad, long long pad) {
+  for (int base = blockIdx.x * kGatherChunk; base < units;
+       base += gridDim.x * kGatherChunk) {
+    Unit v[kGatherUnroll];
+#pragma unroll
+    for (int j = 0; j < kGatherUnroll; ++j) {
+      const int u = base + j * kThreads + threadIdx.x;
+      if (u < units) {
+        const int row = u / W;
+        long long id = __ldg(ids + row);
+        if (has_pad && id == pad) {
+          v[j] = Unit{};
+        } else {
+          id = id < 0 ? 0 : (id >= V ? V - 1 : id);
+          v[j] = __ldg(table + id * W + (u - row * W));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGatherUnroll; ++j) {
+      const int u = base + j * kThreads + threadIdx.x;
+      if (u < units) out[u] = v[j];
+    }
+  }
 }
 
-// the bf16 rows as 16-byte groups of 8 elements (D8 = D / 8 a row)
-__global__ void __launch_bounds__(kThreads)
-gather_bf16_kernel(const uint4* __restrict__ table,
-                   const long long* __restrict__ ids, uint4* __restrict__ out,
-                   int N, int V, int D8) {
-  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (i >= N) return;
-  long long id = ids[i];
-  id = id < 0 ? 0 : (id >= V ? V - 1 : id);
-  const uint4* src = table + id * D8;
-  uint4* dst = out + (size_t)i * D8;
-  for (int d = lane; d < D8; d += 32) dst[d] = src[d];
+// the card's SMs, asked once a device
+int sm_count() {
+  static int sms_of[64] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= 64) return 132;
+  if (sms_of[device] == 0 &&
+      cudaDeviceGetAttribute(&sms_of[device], cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess)
+    return 132;
+  return sms_of[device];
 }
 
-int blocks_for(int n) { return (n + kWarps - 1) / kWarps; }
+template <class Unit>
+int gather_units(const void* table, const long long* ids, void* out, int N,
+                 int V, int W, int has_pad, long long pad,
+                 cudaStream_t stream) {
+  if ((long long)N * W > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int units = N * W;
+  const int blocks = (int)std::min<long long>(
+      (units + kGatherChunk - 1) / kGatherChunk, 8LL * sm_count());
+  gather_kernel<Unit><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const Unit*>(table), ids, static_cast<Unit*>(out), units,
+      W, V, has_pad, pad);
+  return (int)cudaGetLastError();
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The gather of rows of D elements of `elem` bytes: 16-byte units where
+// a row is whole 16-byte units and both tables lie on 16 bytes, else the
+// element itself (float, or bf16's 2 bytes).
+template <class Elem>
+int gather(const void* table, const long long* ids, void* out, int N, int V,
+           int D, int has_pad, long long pad, void* stream) {
+  if (N <= 0 || V <= 0 || D <= 0 || table == nullptr || ids == nullptr ||
+      out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  constexpr int kPer16 = 16 / sizeof(Elem);
+  if (D % kPer16 == 0 && aligned(table, 16) && aligned(out, 16))
+    return gather_units<uint4>(table, ids, out, N, V, D / kPer16, has_pad,
+                               pad, st);
+  return gather_units<Elem>(table, ids, out, N, V, D, has_pad, pad, st);
+}
 
 // -- grouping ------------------------------------------------------------------
 
@@ -143,17 +206,6 @@ struct Layout {
 
 __device__ __forceinline__ unsigned key_id(unsigned long long k) {
   return (unsigned)(k >> 32);
-}
-
-// The first of the n sorted keys that is >= k.
-__device__ int lower_bound(const unsigned long long* keys, int n,
-                           unsigned long long k) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (keys[mid] < k) lo = mid + 1; else hi = mid;
-  }
-  return lo;
 }
 
 __global__ void __launch_bounds__(kChunk)
@@ -623,24 +675,21 @@ int scatter_add(O* out, const O* table, const long long* ids, const R* rows,
 
 }  // namespace
 
-extern "C" int embedding_gather_f32(const float* table, const long long* ids,
-                                    float* out, int N, int V, int D,
+// table [V, D] and out [N, D] of the form's dtype, contiguous; has_pad 1
+// zeroes the rows whose id is pad
+extern "C" int embedding_gather_f32(const void* table, const long long* ids,
+                                    void* out, int N, int V, int D,
+                                    int has_pad, long long pad,
                                     void* stream) {
-  if (N <= 0 || V <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  gather_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-      table, ids, out, N, V, D);
-  return (int)cudaGetLastError();
+  return gather<float>(table, ids, out, N, V, D, has_pad, pad, stream);
 }
 
-// table and out bf16 [V, D] and [N, D], D % 8 == 0, 16-byte aligned
 extern "C" int embedding_gather_bf16(const void* table, const long long* ids,
                                      void* out, int N, int V, int D,
+                                     int has_pad, long long pad,
                                      void* stream) {
-  if (N <= 0 || V <= 0 || D <= 0 || D % 8) return (int)cudaErrorInvalidValue;
-  gather_bf16_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint4*>(table), ids, static_cast<uint4*>(out), N, V,
-      D / 8);
-  return (int)cudaGetLastError();
+  return gather<unsigned short>(table, ids, out, N, V, D, has_pad, pad,
+                                stream);
 }
 
 // The grouping alone, into the scratch block (D = 0 in its layout):

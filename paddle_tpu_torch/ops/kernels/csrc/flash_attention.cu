@@ -24,11 +24,14 @@
 // (the wrapper transposes and zero-pads); lse [BH, Tqp].  Keys at or past
 // t_k are masked with the finite -1e30, as the TPU kernel does.
 //
-// Two forms, one entry point each: flash_attention_fwd_f32 (this design)
-// and flash_attention_fwd_bf16 (the tensor-core form, below).
+// Three forms, one entry point each: flash_attention_fwd_f32 (this
+// design), flash_attention_fwd_bf16 (the mma.sync tensor-core form, for the
+// head dims the Hopper form does not take) and flash_attention_fwd_wgmma
+// (the Hopper form of the bf16 forward at head_dim 64 and 128, below).
 
 #include <cuda_runtime.h>
 
+#include "gemm_wgmma.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -163,13 +166,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The kernel's opt-in to `bytes` of dynamic shared memory, set once a
+// card (`set_on`: the caller's own flags, one set a kernel).
+template <class Kern>
+cudaError_t opt_in(Kern* fn, int bytes, bool (&set_on)[64]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (!set_on[device]) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    set_on[device] = true;
+  }
+  return cudaSuccess;
+}
+
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int bh, int tqp, int tkp, int t_k, int causal,
            float scale, cudaStream_t stream) {
   const int smem = (int)(smem_floats<D>() * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool opted[64] = {};
+  const cudaError_t err = opt_in(flash_fwd_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, tqp / kBQ);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
@@ -369,15 +389,456 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                 float* lse, int bh, int tqp, int tkp, int t_k, int causal,
                 float scale, cudaStream_t stream) {
   const int smem = (int)fwd_bf16_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static bool opted[64] = {};
+  const cudaError_t err = opt_in(flash_fwd_bf16_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, tqp / 64);
   flash_fwd_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
       q, k, v, o, lse, tqp, tkp, t_k, causal, scale);
   return (int)cudaGetLastError();
 }
+
+
+// ---------------------------------------------------------------------------
+// The Hopper form of the bf16 forward (flash_attention_fwd_wgmma), for
+// head_dim 64 and 128; the mma.sync form above keeps 16 and 32.  The same
+// function and rounding points as the mma.sync form (the twin is
+// flash_attention.py's _fwd_plain_tiled over 64-key tiles): S = Q K^T in
+// f32, the online softmax in f32 registers, P = exp(S - m_running)
+// rounded to bf16 before P.V, o rounded once, lse f32.  Only wgmma reaches
+// the card's full bf16 rate, and at the LM and prefill shapes the products
+// (4 T^2 D / 2 flops a head, causal) outweigh the bytes, so the design is
+// Hopper's:
+// - A block is a 128-query tile of one (b, h): two consumer warpgroups of
+//   64 rows each and one producer warp (288 threads).  Blocks are numbered
+//   heaviest causal tile first over all heads (numbering the q tiles of
+//   a head together, for K and V's reuse in L2, ran 8-16% slower).
+// - Operands by TMA, where they lie: q, k and v stay [B, T, H, D] (any
+//   strides that are multiples of 16 bytes) and are read through 4-d
+//   tensor maps as boxes of [64 rows][64 d] in the 128-byte swizzle (a
+//   D-64 bf16 row is 128 bytes; D 128 is two such panels); rows past T
+//   read as zeros and are masked as in the mma.sync form.  o is written
+//   [B, T, H, D] and lse [B*H, Tqp] (Tqp = T rounded up to 64, the
+//   backward's rows).
+// - The ring: the producer loads Q once (one barrier), then K and V tile
+//   after tile into kStages stages, each with a full barrier (TMA's byte
+//   count) and an empty one (one arrival a consumer warpgroup).  Causal
+//   tiles past the block's last row are never loaded.  A warpgroup
+//   releases a stage only after the wgmma groups that read it have
+//   retired (wgmma.wait_group 0); a tile wholly after its own last row it
+//   releases unread.
+// - The softmax runs in base 2 on the special-function unit (ex2.approx:
+//   one instruction an element where expf takes about ten), the mask
+//   only on tiles that cross the diagonal or t_k: the tile loop is bound
+//   by this work, not by the tensor cores, at head_dim 64.
+// - The products: S = Q K^T on wgmma m64n64k16 from shared memory, both
+//   operands K-major (K lies [key][d], B's K-major layout); P is packed
+//   from S's accumulators straight into wgmma's register A operand (the
+//   accumulator's m16n8 layout is the A fragment's), and O += P V on
+//   wgmma m64nDk16 with V [key][d] as the MN-major B (the transposed-B
+//   flag), the RS form.
+// - The epilogue: o = acc / l rounded once into the warpgroup's own Q
+//   panels (read by now), then stored 16 bytes a lane as whole rows.
+// D 64 holds two blocks an SM (83 KB of shared memory each, registers
+// capped at 112 a thread), D 128 one.
+namespace hop {
+
+namespace wg = gemm::wgmma;
+
+constexpr int kRows = 128;             // query rows a block
+constexpr int kKeys = 64;              // keys a tile (the twin's tile)
+constexpr int kThreads = 288;          // warpgroups 0, 1 consume; warp 8
+constexpr int kPanelBytes = 64 * 128;  // [64 rows][64 bf16], swizzled
+
+template <int D>
+struct Layout {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStageBytes = 2 * kTileBytes;        // K, V
+  static constexpr int kQBytes = 2 * kTileBytes;            // 128 rows
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // + 1024: the dynamic window's start is rounded up to the swizzle atom
+  static constexpr int kBytes = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
+  static_assert(D == 64 || D == 128, "the Hopper form's head dims");
+  static_assert(kMinBlocks * kBytes <= 227 * 1024, "shared memory");
+};
+
+// one [64 rows][64 d] box of a [B, T, H, D] tensor map at (d0, h, t, b)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int d0,
+                                            int h, int t, int b,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h),
+         "r"(t), "r"(b), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void fence_operand(uint32_t& v) {
+  asm volatile("" : "+r"(v) :: "memory");
+}
+
+// 2^x by the special-function unit: one instruction where expf takes
+// about ten (the softmax, not the tensor cores, bounds the tile loop)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+struct Qk;
+template <int N>
+struct Pv;
+
+template <>
+struct Qk<64> {
+  // d (+)= a . b^T: m64n64k16, A and B K-major in shared memory
+  __device__ static void run(float (&d)[32], uint64_t da, uint64_t db,
+                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Pv<64> {
+  // d += a . b: m64n64k16, A from registers (4 x 2 bf16, the m16n8k16
+  // layout a warp), B MN-major in shared memory (the transposed-B flag)
+  __device__ static void run(float (&d)[32], const uint32_t (&a)[4],
+                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Pv<128> {
+  // d += a . b: m64n128k16, A from registers (4 x 2 bf16, the m16n8k16
+  // layout a warp), B MN-major in shared memory (the transposed-B flag)
+  __device__ static void run(float (&d)[64], const uint32_t (&a)[4],
+                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Layout<D>::kMinBlocks)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       bf16* __restrict__ o, float* __restrict__ lse, int H,
+                       int t_q, int t_k, int tqp, int causal, float scale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the atoms' alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kBarOffset;
+  const uint32_t full = q_full + 8, empty = full + 8 * L::kStages;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  int n_tiles = (t_k + kKeys - 1) / kKeys;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kKeys + 1);
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      wg::mbar_init(full + 8 * s, 1);   // the producer's, with TMA's bytes
+      wg::mbar_init(empty + 8 * s, 2);  // one a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 8) {
+    // -- the producer: Q once, then K and V tile after tile ----------------
+    if (lane == 0) {
+      wg::mbar_expect_tx(q_full, L::kQBytes);
+      for (int r = 0; r < 2; ++r)
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_4d(base + (r * L::kPanels + p) * kPanelBytes, &q_map,
+                      64 * p, h, q0 + 64 * r, b, q_full);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const uint32_t st = base + L::kQBytes + stage * L::kStageBytes;
+        const uint32_t fb = full + 8 * stage;
+        wg::mbar_wait(empty + 8 * stage, phase ^ 1);
+        wg::mbar_expect_tx(fb, L::kStageBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_4d(st + p * kPanelBytes, &k_map, 64 * p, h, j * kKeys, b,
+                      fb);
+          tma_load_4d(st + L::kTileBytes + p * kPanelBytes, &v_map, 64 * p,
+                      h, j * kKeys, b, fb);
+        }
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // -- the consumers: 64 query rows a warpgroup, every tile ----------------
+  const int wgi = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int row_wg = q0 + 64 * wgi;                // the warpgroup's rows
+  const int row0 = row_wg + 16 * (warp & 3) + g;   // rows row0, row0 + 8
+  const bool leader = (threadIdx.x & 127) == 0;
+  const uint32_t qs = base + wgi * L::kTileBytes;
+  // acc[4 n + 2 hh + e]: row row0 + 8 hh, column 8 n + 2 t4 + e
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // the softmax in base 2: S scale log2(e), so P = 2^(S' - m) is exp(S
+  // scale - m ln 2), the same function at one more rounding of S
+  const float scale2 = scale * 1.4426950408889634f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  wg::mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    wg::mbar_wait(full + 8 * stage, phase);
+    const uint32_t ks = base + L::kQBytes + stage * L::kStageBytes;
+    const uint32_t vs = ks + L::kTileBytes;
+    // a causal tile wholly after the warpgroup's last row adds nothing
+    if (!causal || j * kKeys <= row_wg + 63) {
+      // S = Q K^T: 16-deep slices of d, a panel's 128 bytes 32 at a time
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelBytes + 32 * (kk & 3);
+        Qk<64>::run(s, wg::desc(qs + off, 16, 1024),
+                    wg::desc(ks + off, 16, 1024), kk);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) wg::fence_operand(s[i]);
+
+      // scale; the mask only on a tile that crosses the diagonal or t_k
+      // (uniform across the warpgroup); the row max over the quad
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale2;
+      if ((causal && j * kKeys + kKeys - 1 > row_wg) ||
+          j * kKeys + kKeys > t_k) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qpos = row0 + 8 * ((i >> 1) & 1);
+          const int kpos = j * kKeys + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (kpos >= t_k || (causal && qpos < kpos))
+            s[i] = __int_as_float(0xff800000);  // -inf
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        corr[hh] = ex2(m[hh] - m_new);
+        m[hh] = m_new;
+      }
+      // P = 2^(S' - m) in f32 (its row sum is l's), rounded to bf16 in the
+      // A operand of P V: keys 16 kk.. are S's n8 tiles 2 kk and 2 kk + 1
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = tc::pack_bf16x2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+        rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+        l[hh] = l[hh] * corr[hh] + rs[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // O += P V: V [key][d] is the MN-major B, 16 keys (2 KB) a slice
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) wg::fence_operand(acc[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fence_operand(pa[kk][e]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Pv<D>::run(acc, pa[kk], wg::desc(vs + 2048 * kk, kPanelBytes, 1024));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) wg::fence_operand(acc[i]);
+    }
+    // this warpgroup's products that read the stage have retired
+    if (leader) wg::mbar_arrive(empty + 8 * stage);
+    if (++stage == L::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // o = acc / l rounded once into the warpgroup's own Q panels (16-byte
+  // chunk c of row r at c ^ (r % 8)), then whole rows 16 bytes a lane
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wgi) : "memory");
+  unsigned char* stg = smem + wgi * L::kTileBytes;
+  float safe_l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    safe_l[hh] = fmaxf(l[hh], 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (t4 == 0 && row < tqp)   // back from base 2
+      lse[(size_t)bh * tqp + row] =
+          (m[hh] + log2f(safe_l[hh])) * 0.6931471805599453f;
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + 8 * hh - row_wg, c = n & 7;
+      *reinterpret_cast<__nv_bfloat162*>(
+          stg + (n >> 3) * kPanelBytes + r * 128 + ((c ^ (r & 7)) << 4) +
+          4 * t4) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * hh] / safe_l[hh],
+                                acc[4 * n + 2 * hh + 1] / safe_l[hh]);
+    }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wgi) : "memory");
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x & 127; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks, cc = i % kChunks, c = cc & 7;
+    const int row = row_wg + r;
+    if (row < t_q)
+      *reinterpret_cast<uint4*>(o + (((size_t)b * t_q + row) * H + h) * D +
+                                8 * cc) =
+          *reinterpret_cast<const uint4*>(stg + (cc >> 3) * kPanelBytes +
+                                          r * 128 + ((c ^ (r & 7)) << 4));
+  }
+}
+
+// A [B, T, H, D] bf16 operand (element strides sb, st, sh; d contiguous)
+// as a 4-d tensor map of [64 rows][64 d] boxes in the 128-byte swizzle;
+// rows past T read as zeros.  TMA takes strides that are multiples of 16
+// bytes and a 16-byte aligned base: anything else is refused.
+cudaError_t encode_bthd(CUtensorMap* map, const void* x, int B, int T,
+                        int H, int D, long long sb, long long st,
+                        long long sh) {
+  const PFN_cuTensorMapEncodeTiled encode = wg::encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kKeys, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v,
+           const long long (&strides)[9], void* o, float* lse, int B, int H,
+           int t_q, int t_k, int tqp, int causal, float scale,
+           cudaStream_t stream) {
+  using L = Layout<D>;
+  static bool opted[64] = {};
+  cudaError_t err = opt_in(flash_fwd_wgmma_kernel<D>, L::kBytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[3];
+  const void* xs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    err = encode_bthd(&maps[i], xs[i], B, i ? t_k : t_q, H, D,
+                      strides[3 * i], strides[3 * i + 1],
+                      strides[3 * i + 2]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(B * H, (t_q + kRows - 1) / kRows);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, H, t_q, t_k,
+      tqp, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hop
 
 }  // namespace
 
@@ -418,6 +879,31 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
     case 32: return launch_bf16<32>(qb, kb, vb, ob, lse, bh, tqp, tkp, t_k, causal, scale, s);
     case 64: return launch_bf16<64>(qb, kb, vb, ob, lse, bh, tqp, tkp, t_k, causal, scale, s);
     case 128: return launch_bf16<128>(qb, kb, vb, ob, lse, bh, tqp, tkp, t_k, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q, k, v: bf16 [B, T, H, D] with d contiguous, (b, t, h) element strides
+// in `*_s*` (multiples of 8, 16-byte aligned bases); o bf16 [B, t_q, H, D]
+// contiguous, lse f32 [B*H, tqp] with tqp = t_q rounded up to 64; d 64 or
+// 128
+extern "C" int flash_attention_fwd_wgmma(
+    const void* q, const void* k, const void* v, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st,
+    long long k_sh, long long v_sb, long long v_st, long long v_sh, void* o,
+    float* lse, int B, int H, int t_q, int t_k, int tqp, int d, int causal,
+    float scale, void* stream) {
+  if (B <= 0 || H <= 0 || t_q <= 0 || t_k <= 0 ||
+      tqp != (t_q + 63) / 64 * 64 || (long long)B * H > INT_MAX ||
+      (t_q + hop::kRows - 1) / hop::kRows > 65535 ||
+      !gemm::aligned16(o) || !gemm::aligned16(lse))
+    return (int)cudaErrorInvalidValue;
+  const long long strides[9] = {q_sb, q_st, q_sh, k_sb, k_st,
+                                k_sh, v_sb, v_st, v_sh};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 64: return hop::launch<64>(q, k, v, strides, o, lse, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 128: return hop::launch<128>(q, k, v, strides, o, lse, B, H, t_q, t_k, tqp, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -164,11 +164,11 @@ def _fwd_bwd_kernel(logp, ext, can_skip, ext_valid, ilen, llen, normalize):
     per_row = 2 * t * s + t + 3 * s
     scratch = (None if 4 * per_row <= _SMEM_BUDGET
                else torch.empty(b * per_row, device=logp.device))
-    KERNEL_LOSS.launch(logp.data_ptr(), *(x.data_ptr() for x in tables),
-                       loss.data_ptr(), grad.data_ptr(),
-                       0 if scratch is None else scratch.data_ptr(), b, t, v,
-                       s, int(normalize),
-                       torch.cuda.current_stream().cuda_stream)
+    KERNEL_LOSS.launch_on(
+        logp.device.index, logp.data_ptr(), *(x.data_ptr() for x in tables),
+        loss.data_ptr(), grad.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), b, t, v, s,
+        int(normalize))
     return loss, grad
 
 
@@ -193,9 +193,9 @@ def _decode_kernel(logp, ilen, blank):
                 logp.device)
     out = torch.empty(b * t + b, dtype=torch.int32, device=logp.device)
     base = out.data_ptr()
-    KERNEL_DECODE.launch(logp.data_ptr(), ilen.data_ptr(), len64, base,
-                         base + 4 * b * t, b, t, v, int(blank),
-                         torch._C._cuda_getCurrentRawStream(logp.device.index))
+    KERNEL_DECODE.launch_on(
+        logp.device.index, logp.data_ptr(), ilen.data_ptr(), len64, base,
+        base + 4 * b * t, b, t, v, int(blank))
     ids, lens = out.split([b * t, b])
     return ids.view(b, t), lens
 

@@ -4,9 +4,11 @@
 ``fused_embedding_lookup``).
 
 - :func:`dedup_ids` — sorted unique ids with the inverse map
-  (``torch.unique``; a sort, as the JAX package's is jnp on both sides);
+  (``torch.unique``; a sort, as the JAX package's is jnp on both sides;
+  the lookup no longer calls it);
 - :func:`embedding_gather` — ``csrc/embedding.cu``: ``table[clamp(ids)]``
-  in the table's dtype (an f32 and a bf16 form, counted apart);
+  in the table's dtype, rows of ``padding_idx`` zero when one is given
+  (an f32 and a bf16 form, counted apart);
 - :func:`embedding_scatter_add` — ``csrc/embedding.cu``: a fresh table,
   ``table`` plus the rows scattered to their ids, duplicates summed in a
   fixed order, ids outside ``[0, V)`` dropped; the sum in f32 from the
@@ -17,7 +19,10 @@
   each output row written once, an untouched one copied, a touched one
   its table row plus its run's rows summed in position order;
 - :func:`fused_embedding_lookup` — the autograd composition: the forward
-  dedups, gathers each unique row once and re-expands; the backward
+  is one gather by the flat ids with the padding rows zeroed in the same
+  launch (no dedup: on the card a repeated row comes from L2, and the
+  sort would stop the host mid-forward; the result is the same copy as
+  JAX's dedup, gather and re-expand); the backward
   scatter-adds the cotangents, upcast to f32, into a zero f32 table (the
   JAX package's ``segment_sum`` + ``embedding_scatter_add`` in one
   launch) and casts it to the table's dtype once;
@@ -44,14 +49,15 @@ from paddle_tpu_torch.ops.kernels.update import (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-KERNEL_GATHER = Kernel("embedding", "embedding_gather_f32",
-                       [_P, _P, _P, _I, _I, _I, _P])
+_L = ctypes.c_longlong
+# table, ids, out | N, V, D, has_pad, pad, stream
+_GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _I, _L, _P]
+KERNEL_GATHER = Kernel("embedding", "embedding_gather_f32", _GATHER_ARGS)
 KERNEL_GATHER_BF16 = Kernel("embedding", "embedding_gather_bf16",
-                            [_P, _P, _P, _I, _I, _I, _P])
+                            _GATHER_ARGS)
 #: {table dtype: the gather kernel's form}
 GATHER_FORMS = {torch.float32: KERNEL_GATHER,
                 torch.bfloat16: KERNEL_GATHER_BF16}
-_L = ctypes.c_longlong
 KERNEL_SCATTER = Kernel("embedding", "embedding_scatter_add_f32",
                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P])
 KERNEL_SCATTER_BF16 = Kernel("embedding", "embedding_scatter_add_bf16",
@@ -74,14 +80,12 @@ def _refuse(msg: str) -> None:
     enforce(False, msg)
 
 
-def _check(table, ids, rows=None, num_rows=None):
-    """What the kernels take: a [V, D] table and flat int64 ids; the
-    gather (no ``rows``) an f32 or a bf16 table (bf16: D % 8 == 0 and
-    16-byte aligned, for its 16-byte copies); the scatter-add an f32
-    table with f32 rows, or a bf16 table with f32 or bf16 rows.
-    ``table`` None is a table gradient of ``num_rows`` rows in the rows'
-    dtype.  Messages are formatted only on a refusal: the checks run on
-    every call."""
+def _check(table, ids, rows, num_rows=None):
+    """What the scatter-add kernels take: a [V, D] table, flat int64 ids
+    and [N, D] rows; an f32 table with f32 rows, or a bf16 table with f32
+    or bf16 rows.  ``table`` None is a table gradient of ``num_rows`` rows
+    in the rows' dtype.  Messages are formatted only on a refusal: the
+    checks run on every call."""
     if table is None:
         shape, dtype, device = ((num_rows, rows.shape[1]), rows.dtype,
                                 rows.device)
@@ -91,24 +95,19 @@ def _check(table, ids, rows=None, num_rows=None):
         _refuse(f"table must be [V, D], got {shape}")
     if ids.dim() != 1:
         _refuse(f"ids must be flat [N], got {tuple(ids.shape)}")
-    if rows is not None and tuple(rows.shape) != (ids.shape[0], shape[1]):
+    if tuple(rows.shape) != (ids.shape[0], shape[1]):
         _refuse(f"rows must be [N, D] = [{ids.shape[0]}, {shape[1]}], got "
                 f"{tuple(rows.shape)}")
     if device.type == "cpu":
         return
     tensors = [t for t in (table, rows) if t is not None]
-    if rows is None and dtype == torch.bfloat16:
-        if shape[1] % 8 or table.data_ptr() % 16:
-            _refuse("the bf16 gather copies 16 bytes at a time: D must be a "
-                    "multiple of 8 and the table 16-byte aligned")
-    elif rows is not None and dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         if rows.dtype not in (torch.float32, torch.bfloat16):
             _refuse(f"the bf16 scatter-add takes float32 or bfloat16 rows, "
                     f"got {rows.dtype}")
     elif any(t.dtype != torch.float32 for t in tensors):
-        _refuse("the embedding kernels take float32 tables and rows (the "
-                "gather a bfloat16 table too, the scatter-add a bfloat16 "
-                "table with float32 or bfloat16 rows)")
+        _refuse("the scatter-add kernels take float32 tables and rows, or "
+                "a bfloat16 table with float32 or bfloat16 rows")
     if ids.dtype != torch.int64:
         _refuse("the embedding kernels take int64 ids")
     if not all(t.is_contiguous() for t in tensors + [ids]):
@@ -120,24 +119,58 @@ def _check(table, ids, rows=None, num_rows=None):
 # -- gather -------------------------------------------------------------------
 
 
-def embedding_gather_reference(table, ids):
-    """Plain twin: ``table[clamp(ids, 0, V - 1)]`` for a flat id list."""
-    return table[ids.long().clamp(0, table.shape[0] - 1)]
+def embedding_gather_reference(table, ids, padding_idx=None):
+    """Plain twin: ``table[clamp(ids, 0, V - 1)]`` for a flat id list,
+    rows whose id is ``padding_idx`` zero."""
+    ids = ids.long()
+    out = table[ids.clamp(0, table.shape[0] - 1)]
+    if padding_idx is not None:
+        out[ids == padding_idx] = 0
+    return out
 
 
-def embedding_gather(table, ids):
+def _gather_refusal(table, ids) -> str | None:
+    """Why the gather kernels cannot take ``table`` and ``ids``, or None:
+    they take a contiguous f32 or bf16 [V, D] table and contiguous flat
+    int64 ids on its card."""
+    if table.dim() != 2 or ids.dim() != 1:
+        return (f"gather: table must be [V, D] and ids flat [N], got "
+                f"{tuple(table.shape)} and {tuple(ids.shape)}")
+    if table.dtype not in GATHER_FORMS or ids.dtype != torch.int64:
+        return (f"gather: the kernels take a float32 or bfloat16 table and "
+                f"int64 ids, got {table.dtype} and {ids.dtype}")
+    if ids.device != table.device:
+        return f"gather: ids on {ids.device}, table on {table.device}"
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        return "gather: the kernels need a contiguous table and ids"
+    if ids.shape[0] * table.shape[1] >= 2 ** 31:
+        return "gather: N x D must stay below 2^31 elements"
+    return None
+
+
+def embedding_gather(table, ids, padding_idx=None):
     """``out[i] = table[clamp(ids[i], 0, V - 1)]`` for a flat id list
-    [N] -> [N, D] in the table's dtype; one launch of the gather kernel of
+    [N] -> [N, D] in the table's dtype, and zeros where ``ids[i] ==
+    padding_idx`` when it is given; one launch of the gather kernel of
     that dtype (f32 or bf16) on the card."""
-    _check(table, ids)
     if table.device.type == "cpu":
-        return embedding_gather_reference(table, ids)
+        if table.dim() != 2 or ids.dim() != 1:
+            _refuse(_gather_refusal(table, ids))
+        return embedding_gather_reference(table, ids, padding_idx)
+    # the checks in one test on the common case, formatted only on refusal
+    if not (ids.dtype == torch.int64 and table.dtype in GATHER_FORMS
+            and table.dim() == 2 and ids.dim() == 1
+            and ids.device == table.device and table.is_contiguous()
+            and ids.is_contiguous()
+            and ids.shape[0] * table.shape[1] < 2 ** 31):
+        _refuse(_gather_refusal(table, ids))
     n, (v, d) = ids.shape[0], table.shape
     out = torch.empty(n, d, dtype=table.dtype, device=table.device)
     if n:
-        GATHER_FORMS[table.dtype].launch(
-            table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, v, d,
-            torch.cuda.current_stream().cuda_stream)
+        GATHER_FORMS[table.dtype].launch_on(
+            table.device.index, table.data_ptr(), ids.data_ptr(),
+            out.data_ptr(), n, v, d, int(padding_idx is not None),
+            0 if padding_idx is None else int(padding_idx))
     return out
 
 
@@ -234,8 +267,9 @@ def group_ids(ids, num_rows: int):
     n, v = ids.shape[0], num_rows
     lay = scratch_layout(n, v, 0)
     scratch = torch.empty(lay["total"], dtype=torch.uint8, device=ids.device)
-    KERNEL_GROUP.launch(ids.data_ptr(), scratch.data_ptr(), lay["total"], n,
-                        v, torch.cuda.current_stream().cuda_stream)
+    KERNEL_GROUP.launch_on(
+        ids.device.index, ids.data_ptr(), scratch.data_ptr(), lay["total"], n,
+        v)
 
     def section(name, count):
         off = lay[name][0]
@@ -255,18 +289,17 @@ def _scatter_add(table, ids, rows, num_rows: int):
     out = torch.empty(v, d, dtype=dtype, device=rows.device)
     lay = scratch_layout(n, v, d)
     scratch = torch.empty(lay["total"], dtype=torch.uint8, device=rows.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    index = rows.device.index
     tab = 0 if table is None else table.data_ptr()
     if dtype == torch.bfloat16:
-        KERNEL_SCATTER_BF16.launch(out.data_ptr(), tab, ids.data_ptr(),
-                                   rows.data_ptr(),
-                                   int(rows.dtype == torch.bfloat16),
-                                   scratch.data_ptr(), lay["total"], n, v, d,
-                                   stream)
+        KERNEL_SCATTER_BF16.launch_on(
+            index, out.data_ptr(), tab, ids.data_ptr(), rows.data_ptr(),
+            int(rows.dtype == torch.bfloat16), scratch.data_ptr(),
+            lay["total"], n, v, d)
     else:
-        KERNEL_SCATTER.launch(out.data_ptr(), tab, ids.data_ptr(),
-                              rows.data_ptr(), scratch.data_ptr(),
-                              lay["total"], n, v, d, stream)
+        KERNEL_SCATTER.launch_on(
+            index, out.data_ptr(), tab, ids.data_ptr(), rows.data_ptr(),
+            scratch.data_ptr(), lay["total"], n, v, d)
     # every scatter-add call runs the grouping passes once
     KERNEL_GROUP.launches += 1
     return out
@@ -308,13 +341,12 @@ class _FusedLookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, ids, padding_idx):
+        # one gather by the flat ids, the padding rows zeroed in it: the
+        # same copy as JAX's dedup, gather and re-expand (its dedup pays on
+        # a TPU, where each unique row read once from HBM saves; here a
+        # repeated row comes from L2, and torch.unique would stop the host)
         flat = ids.reshape(-1).long()
-        uids, inv = dedup_ids(flat)
-        out = embedding_gather(table, uids)[inv]
-        if padding_idx is not None:
-            out = torch.where((flat == padding_idx)[:, None],
-                              torch.zeros((), dtype=out.dtype,
-                                          device=out.device), out)
+        out = embedding_gather(table, flat, padding_idx)
         ctx.save_for_backward(flat)
         ctx.cfg = (table.shape[0], table.dtype, padding_idx)
         return out.reshape(*ids.shape, table.shape[1])
@@ -335,10 +367,10 @@ class _FusedLookup(torch.autograd.Function):
 
 
 def fused_embedding_lookup(table, ids, padding_idx=None):
-    """Dedup-once embedding lookup: ``table[clamp(ids)]`` [..., D] with
-    ``padding_idx`` rows zero; the forward gathers each unique row once,
-    the backward scatter-adds each table row once (rows of ids outside
-    ``[0, V)`` and of ``padding_idx`` get no gradient)."""
+    """Embedding lookup: ``table[clamp(ids)]`` [..., D] with
+    ``padding_idx`` rows zero; the forward is one gather launch on the
+    card, the backward scatter-adds each table row once (rows of ids
+    outside ``[0, V)`` and of ``padding_idx`` get no gradient)."""
     return _FusedLookup.apply(table, ids, padding_idx)
 
 

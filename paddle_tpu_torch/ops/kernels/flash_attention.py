@@ -10,10 +10,16 @@ them: CPU tensors run the same padded problem through the plain versions
 (the dQ and the dK/dV kernels).  Padded keys are masked inside all of
 them; padded query rows are sliced off.
 
-Two dtypes, each with its own kernel form and launch count: float32
+Two dtypes, each with its own kernel forms and launch counts: float32
 (``KERNEL``, ``KERNEL_BWD_DQ``, ``KERNEL_BWD_DKV``; full-precision FMA)
 and bfloat16 (``KERNEL_BF16``, ``KERNEL_BWD_DQ_BF16``,
 ``KERNEL_BWD_DKV_BF16``; tensor-core products with f32 sums).  The bf16
+forward at head_dim 64 and 128 (``WGMMA_HEAD_DIMS``) takes the Hopper
+form, ``KERNEL_WGMMA`` (``wgmma`` fed by TMA), which reads q, k and v
+where they lie in [B, T, H, D] and writes o there: no padded copy in the
+forward.  Under autograd its backward builds the padded [B*H, Tp, D]
+inputs the backward kernels take from what the forward saved.  Other
+head dims keep ``KERNEL_BF16`` (``mma.sync``) on the padded problem.  The bf16
 forms round where the JAX kernels round with bf16 operands: P before
 P.V and P^T dO, dS before dS K and dS^T Q, the outputs once; lse and
 delta stay f32.  Their plain twins round at the same points
@@ -49,6 +55,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # q, k, v, o, lse | bh, tqp, tkp, t_k, d, causal, scale, stream
 _FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _P]
+# q, k, v | their (b, t, h) element strides | o, lse | b, h, t_q, t_k,
+# tqp, d, causal | scale, stream
+_WGMMA_ARGS = ([_P] * 3 + [ctypes.c_longlong] * 9 + [_P] * 2 + [_I] * 7
+               + [_F, _P])
 # q, k, v, do, lse, delta, dq | the same scalars
 _DQ_ARGS = [_P] * 7 + [_I] * 6 + [_F, _P]
 # q, k, v, do, lse, delta, dk, dv | the same scalars
@@ -64,23 +74,29 @@ KERNEL_BWD_DQ_BF16 = Kernel("flash_attention_bwd",
                             "flash_attention_bwd_dq_bf16", _DQ_ARGS)
 KERNEL_BWD_DKV_BF16 = Kernel("flash_attention_bwd",
                              "flash_attention_bwd_dkv_bf16", _DKV_ARGS)
+#: the Hopper form of the bf16 forward, and the head dims it takes (the
+#: others keep ``KERNEL_BF16``)
+KERNEL_WGMMA = Kernel("flash_attention", "flash_attention_fwd_wgmma",
+                      _WGMMA_ARGS)
+WGMMA_HEAD_DIMS = (64, 128)
 #: {dtype: (forward, dQ, dK/dV)} kernel forms
 FORMS = {torch.float32: (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV),
          torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_DQ_BF16,
                           KERNEL_BWD_DKV_BF16)}
 
 
-def _prep(q, k, v):
+def _to_bh(x):
     """[B, T, H, D] -> contiguous, T-padded [B*H, Tp, D]."""
-    b, _, h, d = q.shape
+    b, t, h, d = x.shape
+    x = x.permute(0, 2, 1, 3).reshape(b * h, t, d)
+    return torch.nn.functional.pad(
+        x, (0, 0, 0, round_up(t, BLOCK) - t)).contiguous()
 
-    def to_bh(x):
-        t = x.shape[1]
-        x = x.permute(0, 2, 1, 3).reshape(b * h, t, d)
-        return torch.nn.functional.pad(
-            x, (0, 0, 0, round_up(t, BLOCK) - t)).contiguous()
 
-    return to_bh(q), to_bh(k), to_bh(v)
+def _prep(q, k, v):
+    """[B, T, H, D] -> contiguous, T-padded [B*H, Tp, D], each of the
+    three."""
+    return _to_bh(q), _to_bh(k), _to_bh(v)
 
 
 def _from_bh(x, b, h, t, d):
@@ -203,15 +219,20 @@ def _bwd_plain(qp, kp, vp, o, lse, do, t_k, causal, scale):
 
 
 def _check(q, k, v):
-    enforce(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
-            f"q/k/v must be [B, T, H, D] with k.shape == v.shape, got "
-            f"{tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}")
-    enforce(q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:],
-            f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in B, H or D")
-    enforce(q.dtype == k.dtype == v.dtype,
-            f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
-    enforce(q.device == k.device == v.device,
-            f"q/k/v on several devices: {q.device} {k.device} {v.device}")
+    """The public entries' checks; the messages are formatted only on a
+    refusal (the checks run on every call)."""
+    if not (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape):
+        enforce(False, f"q/k/v must be [B, T, H, D] with k.shape == v.shape,"
+                f" got {tuple(q.shape)} / {tuple(k.shape)} / "
+                f"{tuple(v.shape)}")
+    if not (q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]):
+        enforce(False, f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                f"in B, H or D")
+    if not q.dtype == k.dtype == v.dtype:
+        enforce(False, f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+    if not q.device == k.device == v.device:
+        enforce(False, f"q/k/v on several devices: {q.device} {k.device} "
+                f"{v.device}")
 
 
 def _check_kernel_args(*xs):
@@ -233,10 +254,6 @@ def _check_kernel_args(*xs):
     return FORMS[dt]
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
     """The CUDA forward kernel of the inputs' dtype on the padded
     [BH, Tp, D] problem (the same contract as :func:`_fwd_plain`)."""
@@ -245,11 +262,58 @@ def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
     o = torch.empty_like(qp)
     lse = torch.empty((bh, tqp, 1), dtype=torch.float32, device=qp.device)
     if bh:
-        with torch.cuda.device(qp.device):
-            kernel.launch(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                          o.data_ptr(), lse.data_ptr(), bh, tqp, kp.shape[1],
-                          t_k, d, int(bool(causal)), float(scale),
-                          _stream(qp))
+        kernel.launch_on(qp.device.index, qp.data_ptr(), kp.data_ptr(),
+                         vp.data_ptr(), o.data_ptr(), lse.data_ptr(), bh,
+                         tqp, kp.shape[1], t_k, d, int(bool(causal)),
+                         float(scale))
+    return o, lse
+
+
+def _takes_wgmma(q) -> bool:
+    """The rule between the two bf16 forward forms: a bf16 CUDA q whose
+    head_dim the Hopper form takes (``WGMMA_HEAD_DIMS``)."""
+    return (q.dtype == torch.bfloat16 and q.device.type == "cuda"
+            and q.shape[-1] in WGMMA_HEAD_DIMS)
+
+
+def _tma_strides(x, name: str) -> tuple:
+    """(b, t, h) element strides of a [B, T, H, D] bf16 operand as TMA
+    takes them: d contiguous, every stride a multiple of 8 elements (16
+    bytes) and the base 16-byte aligned, or a refusal (no copy is made).
+    A dimension of size 1 is never stepped, so any stride stands for it."""
+    st = x.stride()
+    if st[3] != 1 or x.data_ptr() % 16:
+        enforce(False, f"the Hopper flash forward reads {name} by TMA: d "
+                f"must be contiguous and the base 16-byte aligned, got "
+                f"strides {st} at {x.data_ptr() % 16} bytes past 16")
+    out = tuple(s if n > 1 else 8 for s, n in zip(st[:3], x.shape[:3]))
+    if any(s % 8 for s in out):
+        enforce(False, f"the Hopper flash forward reads {name} by TMA: its "
+                f"(b, t, h) strides must be multiples of 16 bytes, got "
+                f"{st}")
+    return out
+
+
+def _fwd_wgmma(q, k, v, causal, scale):
+    """The Hopper form of the bf16 forward on [B, T, H, D] views as they
+    lie: (o [B, Tq, H, D] contiguous, lse [B*H, Tqp, 1] f32 with Tqp = Tq
+    rounded up to 64, the padded rows' lse as the padded problem's)."""
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in WGMMA_HEAD_DIMS):
+        enforce(False, f"the Hopper flash forward takes bf16 q, k, v with "
+                f"head_dim in {WGMMA_HEAD_DIMS}, got {q.dtype} {k.dtype} "
+                f"{v.dtype}, head_dim {q.shape[-1]}")
+    strides = (*_tma_strides(q, "q"), *_tma_strides(k, "k"),
+               *_tma_strides(v, "v"))
+    b, t_q, h, d = q.shape
+    tqp = round_up(t_q, BLOCK)
+    o = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, tqp, 1), dtype=torch.float32, device=q.device)
+    if b * h and t_q and k.shape[1]:
+        KERNEL_WGMMA.launch_on(
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *strides, o.data_ptr(), lse.data_ptr(), b, h, t_q, k.shape[1],
+            tqp, d, int(bool(causal)), float(scale))
     return o, lse
 
 
@@ -263,11 +327,11 @@ def _bwd_launch(which, qp, kp, vp, lse, do, delta, outs, t_k, causal,
             "the flash backward takes the forward's f32 lse and an f32 delta")
     bh, tqp, d = qp.shape
     if bh:
-        with torch.cuda.device(qp.device):
-            kernel.launch(*(x.data_ptr() for x in (qp, kp, vp, do, lse,
-                                                   delta, *outs)),
-                          bh, tqp, kp.shape[1], t_k, d, int(bool(causal)),
-                          float(scale), _stream(qp))
+        kernel.launch_on(qp.device.index,
+                         *(x.data_ptr() for x in (qp, kp, vp, do, lse,
+                                                  delta, *outs)),
+                         bh, tqp, kp.shape[1], t_k, d, int(bool(causal)),
+                         float(scale))
     return outs
 
 
@@ -299,24 +363,35 @@ def _bwd_kernel(qp, kp, vp, o, lse, do, t_k, causal, scale):
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward (JAX: ``flash_attention``'s
     ``custom_vjp``).  Saves the residuals ``_flash_fwd`` keeps: the padded
-    q, k, v, the padded o and lse.  CPU tensors take the plain versions,
-    CUDA tensors the kernels (or raise)."""
+    q, k, v, the padded o and lse; after the Hopper form, q, k, v and o as
+    they lie, padded in the backward (the forward made no copy, so a step
+    moves no more bytes).  CPU tensors take the plain versions, CUDA
+    tensors the kernels (or raise)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         b, t_q, h, d = q.shape
-        qp, kp, vp = _prep(q, k, v)
-        fwd = _fwd_plain if q.device.type == "cpu" else _fwd_kernel
-        o, lse = fwd(qp, kp, vp, k.shape[1], causal, scale)
-        ctx.save_for_backward(qp, kp, vp, o, lse)
         ctx.meta = (b, t_q, k.shape[1], h, d, causal, scale)
+        ctx.padded = not _takes_wgmma(q)
+        if ctx.padded:
+            qp, kp, vp = _prep(q, k, v)
+            fwd = _fwd_plain if q.device.type == "cpu" else _fwd_kernel
+            o, lse = fwd(qp, kp, vp, k.shape[1], causal, scale)
+            ctx.save_for_backward(qp, kp, vp, o, lse)
+            out = _from_bh(o, b, h, t_q, d)
+        else:
+            out, lse = _fwd_wgmma(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
         lse_out = lse[:, :t_q]
         ctx.mark_non_differentiable(lse_out)
-        return _from_bh(o, b, h, t_q, d), lse_out
+        return out, lse_out
 
     @staticmethod
     def backward(ctx, g, _g_lse):
         qp, kp, vp, o, lse = ctx.saved_tensors
+        if not ctx.padded:
+            qp, kp, vp = _prep(qp, kp, vp)
+            o = _to_bh(o)
         b, t_q, t_k, h, d, causal, scale = ctx.meta
         do = g.permute(0, 2, 1, 3).reshape(b * h, t_q, d)
         do = torch.nn.functional.pad(
@@ -336,6 +411,12 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     raise."""
     _check(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _takes_wgmma(q) and not (torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        # no gradient wanted (serving's prefill): the Hopper form alone,
+        # without the autograd Function's host time
+        o, lse = _fwd_wgmma(q, k, v, causal, scale)
+        return o, lse[:, :q.shape[1]]
     return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
 
 

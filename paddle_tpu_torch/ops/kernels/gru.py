@@ -425,10 +425,6 @@ def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _fwd_kernel(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
     """The forward kernel of W_h's dtype (the contract of
     :func:`_fwd_plain`)."""
@@ -446,11 +442,11 @@ def _fwd_kernel(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
     # the packs stay referenced until the launch is queued: a freed
     # temporary's memory would be handed to the next allocation
     packs = (_pack_columns(w_h, d, u, 2), _pack_columns(w_hc, d, u, 1))
-    KERNEL_FWD.launch(xw.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
-                      packs[1].data_ptr(), h0.data_ptr(),
-                      hs.data_ptr(), _ptr(urc), h_t.data_ptr(),
-                      scratch[0].data_ptr(), scratch[1].data_ptr(), b, t, d,
-                      u, int(reverse), _stream())
+    KERNEL_FWD.launch_on(
+        xw.device.index, xw.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+        packs[1].data_ptr(), h0.data_ptr(), hs.data_ptr(), _ptr(urc),
+        h_t.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), b, t, d,
+        u, int(reverse))
     return hs, urc, h_t
 
 
@@ -473,11 +469,10 @@ def _fwd_kernel_bf16(xw, mask, w_h, w_hc, h0, reverse, emit_gates):
     rh = torch.empty(b, d, dtype=bf, device=dev)       # r * h_{t-1}
     ug = torch.empty(b, d, dtype=f32, device=dev)      # u, from (A) to (B)
     packs = (_pack_bf16(w_h, d, u, 2), _pack_bf16(w_hc, d, u, 1))
-    KERNEL_FWD_BF16.launch(xw.data_ptr(), mask.data_ptr(),
-                           packs[0].data_ptr(), packs[1].data_ptr(),
-                           h0.data_ptr(), hs.data_ptr(), _ptr(urc),
-                           h_t.data_ptr(), rh.data_ptr(), ug.data_ptr(), b,
-                           t, d, u, int(reverse), _stream())
+    KERNEL_FWD_BF16.launch_on(
+        xw.device.index, xw.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+        packs[1].data_ptr(), h0.data_ptr(), hs.data_ptr(), _ptr(urc),
+        h_t.data_ptr(), rh.data_ptr(), ug.data_ptr(), b, t, d, u, int(reverse))
     return hs, urc, h_t
 
 
@@ -500,11 +495,11 @@ def _fi_fwd_kernel(x, mask, w_x, b, w_h, w_hc, h0, reverse, emit_gates):
     scratch = torch.empty(3, bsz, d, device=x.device)   # r*h, u, xw_c
     packs = (_pack_columns(w_x, d, u, 3), _pack_columns(w_h, d, u, 2),
              _pack_columns(w_hc, d, u, 1))     # referenced until queued
-    KERNEL_FI.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
-                     b.data_ptr(), packs[1].data_ptr(), packs[2].data_ptr(),
-                     h0.data_ptr(), hs.data_ptr(), _ptr(urc),
-                     h_t.data_ptr(), scratch.data_ptr(), bsz, t, e, d, u,
-                     int(reverse), _stream())
+    KERNEL_FI.launch_on(
+        x.device.index, x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+        b.data_ptr(), packs[1].data_ptr(), packs[2].data_ptr(), h0.data_ptr(),
+        hs.data_ptr(), _ptr(urc), h_t.data_ptr(), scratch.data_ptr(), bsz, t,
+        e, d, u, int(reverse))
     return hs, urc, h_t
 
 
@@ -537,12 +532,12 @@ def _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, w_hc, h0, reverse,
     packs = (_pack_bf16(w_x[:, :2 * d], d, u, 2),
              _pack_bf16(w_x[:, 2 * d:], d, u, 1), _pack_bf16(w_h, d, u, 2),
              _pack_bf16(w_hc, d, u, 1))
-    KERNEL_FI_BF16.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
-                          packs[1].data_ptr(), b.data_ptr(),
-                          packs[2].data_ptr(), packs[3].data_ptr(),
-                          h0.data_ptr(), hs.data_ptr(), _ptr(urc),
-                          h_t.data_ptr(), rh.data_ptr(), ug.data_ptr(), bsz,
-                          t, e, d, u, int(reverse), _stream())
+    KERNEL_FI_BF16.launch_on(
+        x.device.index, x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+        packs[1].data_ptr(), b.data_ptr(), packs[2].data_ptr(),
+        packs[3].data_ptr(), h0.data_ptr(), hs.data_ptr(), _ptr(urc),
+        h_t.data_ptr(), rh.data_ptr(), ug.data_ptr(), bsz, t, e, d, u,
+        int(reverse))
     return hs, urc, h_t
 
 
@@ -571,15 +566,13 @@ def _bwd_kernel(xw, urc, mask, w_h, w_hc, h0, hs, dhs, dhT, reverse, remat):
     # referenced until the launch is queued
     packs = (_pack_columns(w_h, d, u, 2), _pack_columns(w_hc, d, u, 1),
              _pack_columns(w_h.t(), d, u, 1), _pack_columns(w_hc.t(), d, u, 1))
-    (KERNEL_BWD if remat else KERNEL_BWD_STORED).launch(
-                      _ptr(xw if remat else None),
-                      _ptr(None if remat else urc), mask.data_ptr(),
-                      *(p.data_ptr() for p in packs), h0.data_ptr(),
-                      hs.data_ptr(), dhs.data_ptr(), dhT.data_ptr(),
-                      dxw.data_ptr(), dh.data_ptr(),
-                      rh.data_ptr(), _ptr(gates), dpc.data_ptr(),
-                      dur.data_ptr(), drh.data_ptr(), b, t, d, u,
-                      int(reverse), int(remat), _stream())
+    (KERNEL_BWD if remat else KERNEL_BWD_STORED).launch_on(
+        mask.device.index, _ptr(xw if remat else None),
+        _ptr(None if remat else urc), mask.data_ptr(),
+        *(p.data_ptr() for p in packs), h0.data_ptr(), hs.data_ptr(),
+        dhs.data_ptr(), dhT.data_ptr(), dxw.data_ptr(), dh.data_ptr(),
+        rh.data_ptr(), _ptr(gates), dpc.data_ptr(), dur.data_ptr(),
+        drh.data_ptr(), b, t, d, u, int(reverse), int(remat))
     return dxw, dh, rh
 
 
@@ -615,13 +608,14 @@ def _bwd_kernel_bf16(xw, urc, mask, w_h, w_hc, h0, hs, dhs, dhT, reverse,
     cols = ((_pack_bf16(w_h, d, u, 2), _pack_bf16(w_hc, d, u, 1)) if remat
             else (None, None))
     rows = (_pack_bf16(w_h.t(), d, u, 1), _pack_bf16(w_hc.t(), d, u, 1))
-    (KERNEL_BWD_BF16 if remat else KERNEL_BWD_STORED_BF16).launch(
-        _ptr(xw if remat else None), _ptr(None if remat else urc),
-        mask.data_ptr(), *(_ptr(p) for p in cols + rows), h0.data_ptr(),
-        hs.data_ptr(), dhs.data_ptr(), dhT.data_ptr(), dxw.data_ptr(),
-        dh.data_ptr(), rh.data_ptr(), _ptr(gates), _ptr(rh_f),
-        dpc.data_ptr(), dur.data_ptr(), drh.data_ptr(), b, t, d, u,
-        int(reverse), int(remat), int(remat and xw.dtype == f32), _stream())
+    (KERNEL_BWD_BF16 if remat else KERNEL_BWD_STORED_BF16).launch_on(
+        mask.device.index, _ptr(xw if remat else None),
+        _ptr(None if remat else urc), mask.data_ptr(),
+        *(_ptr(p) for p in cols + rows), h0.data_ptr(), hs.data_ptr(),
+        dhs.data_ptr(), dhT.data_ptr(), dxw.data_ptr(), dh.data_ptr(),
+        rh.data_ptr(), _ptr(gates), _ptr(rh_f), dpc.data_ptr(), dur.data_ptr(),
+        drh.data_ptr(), b, t, d, u, int(reverse), int(remat),
+        int(remat and xw.dtype == f32))
     return dxw, dh, rh
 
 
@@ -740,7 +734,8 @@ def _bi_fwd_kernel(x, mask, fw, bw):
                  packs[-1].data_ptr(), h0.data_ptr(), hs.data_ptr(),
                  outs[-1][1].data_ptr()]
     scratch = torch.empty(2, 3, b, d, device=x.device)   # r*h, u, xw_c
-    KERNEL_BI.launch(*args, scratch.data_ptr(), b, t, e, d, u, _stream())
+    KERNEL_BI.launch_on(
+        scratch.device.index, *args, scratch.data_ptr(), b, t, e, d, u)
     return tuple(outs)
 
 
@@ -772,8 +767,8 @@ def _bi_fwd_kernel_bf16(x, mask, fw, bw):
         args += [p.data_ptr() for p in packed] + [o.data_ptr() for o in out]
     rh = torch.empty(2, b, d, dtype=bf, device=x.device)   # r * h_{t-1}
     ug = torch.empty(2, b, d, dtype=f32, device=x.device)  # u, (A) to (B)
-    KERNEL_BI_BF16.launch(*args, rh.data_ptr(), ug.data_ptr(), b, t, e, d, u,
-                          _stream())
+    KERNEL_BI_BF16.launch_on(
+        rh.device.index, *args, rh.data_ptr(), ug.data_ptr(), b, t, e, d, u)
     return tuple(outs)
 
 

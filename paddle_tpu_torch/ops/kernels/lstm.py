@@ -448,11 +448,11 @@ def _fwd_kernel(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
     cs = torch.empty_like(hs)
     gates = torch.empty_like(xw) if emit_gates else None
     h_t, c_t = torch.empty_like(h0), torch.empty_like(c0)
-    KERNEL_FWD.launch(xw.data_ptr(), mask.data_ptr(), wpack.data_ptr(),
-                      peep.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-                      hs.data_ptr(), cs.data_ptr(), _ptr(gates),
-                      h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
-                      int(reverse), torch.cuda.current_stream().cuda_stream)
+    KERNEL_FWD.launch_on(
+        xw.device.index, xw.data_ptr(), mask.data_ptr(), wpack.data_ptr(),
+        peep.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), _ptr(gates), h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
+        int(reverse))
     return hs, cs, gates, h_t, c_t
 
 
@@ -472,12 +472,11 @@ def _fwd_kernel_bf16(xw, mask, w_h, peep, h0, c0, reverse, emit_gates):
     gates = torch.empty_like(xw) if emit_gates else None
     h_t = torch.empty(b, d, dtype=f32, device=xw.device)
     c_t = torch.empty_like(h_t)
-    KERNEL_FWD_BF16.launch(xw.data_ptr(), mask.data_ptr(), wpack.data_ptr(),
-                           peep.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-                           hs.data_ptr(), cs.data_ptr(), _ptr(gates),
-                           h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
-                           int(reverse),
-                           torch.cuda.current_stream().cuda_stream)
+    KERNEL_FWD_BF16.launch_on(
+        xw.device.index, xw.data_ptr(), mask.data_ptr(), wpack.data_ptr(),
+        peep.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), _ptr(gates), h_t.data_ptr(), c_t.data_ptr(), b, t, d, u,
+        int(reverse))
     return hs, cs, gates, h_t, c_t
 
 
@@ -500,12 +499,11 @@ def _fi_fwd_kernel(x, mask, w_x, b, w_h, peep, h0, c0, reverse, emit_gates):
     gates = (torch.empty(bsz, t, 4 * d, device=x.device) if emit_gates
              else None)
     h_t, c_t = torch.empty_like(h0), torch.empty_like(c0)
-    KERNEL_FI.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
-                     b.data_ptr(), packs[1].data_ptr(), peep.data_ptr(),
-                     h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-                     cs.data_ptr(), _ptr(gates), h_t.data_ptr(),
-                     c_t.data_ptr(), bsz, t, e, d, u, int(reverse),
-                     torch.cuda.current_stream().cuda_stream)
+    KERNEL_FI.launch_on(
+        x.device.index, x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+        b.data_ptr(), packs[1].data_ptr(), peep.data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), _ptr(gates),
+        h_t.data_ptr(), c_t.data_ptr(), bsz, t, e, d, u, int(reverse))
     return hs, cs, gates, h_t, c_t
 
 
@@ -538,12 +536,11 @@ def _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, peep, h0, c0, reverse,
              else None)
     h_t = torch.empty(bsz, d, dtype=f32, device=dev)
     c_t = torch.empty_like(h_t)
-    KERNEL_FI_BF16.launch(x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
-                          b.data_ptr(), packs[1].data_ptr(), peep.data_ptr(),
-                          h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-                          cs.data_ptr(), _ptr(gates), h_t.data_ptr(),
-                          c_t.data_ptr(), bsz, t, e, d, u, int(reverse),
-                          torch.cuda.current_stream().cuda_stream)
+    KERNEL_FI_BF16.launch_on(
+        x.device.index, x.data_ptr(), mask.data_ptr(), packs[0].data_ptr(),
+        b.data_ptr(), packs[1].data_ptr(), peep.data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), _ptr(gates),
+        h_t.data_ptr(), c_t.data_ptr(), bsz, t, e, d, u, int(reverse))
     return hs, cs, gates, h_t, c_t
 
 
@@ -565,15 +562,13 @@ def _bwd_kernel(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
     dpeep = torch.empty_like(peep)
     # each block's share of dh_{t-1}, two buffers by step parity
     part = torch.empty(2 * wpack.shape[0] * d * b, device=hs.device)
-    KERNEL_BWD.launch(_ptr(xw if remat else None),
-                      _ptr(None if remat else gates), mask.data_ptr(),
-                      wpack.data_ptr(), peep.data_ptr(), h0.data_ptr(),
-                      c0.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                      dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-                      dgates.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-                      dpeep.data_ptr(), part.data_ptr(), b, t, d, u,
-                      int(reverse), int(remat),
-                      torch.cuda.current_stream().cuda_stream)
+    KERNEL_BWD.launch_on(
+        mask.device.index, _ptr(xw if remat else None),
+        _ptr(None if remat else gates), mask.data_ptr(), wpack.data_ptr(),
+        peep.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+        dgates.data_ptr(), dh.data_ptr(), dc.data_ptr(), dpeep.data_ptr(),
+        part.data_ptr(), b, t, d, u, int(reverse), int(remat))
     return dgates, dh, dc, dpeep
 
 
@@ -602,14 +597,14 @@ def _bwd_kernel_bf16(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT,
     # each block's f32 share of dh_{t-1}, two buffers by step parity
     part = torch.empty(2 * wpack.shape[0] * d * b, dtype=f32,
                        device=hs.device)
-    KERNEL_BWD_BF16.launch(
-        _ptr(xw if remat else None), _ptr(None if remat else gates),
-        mask.data_ptr(), wpack.data_ptr(), peep.data_ptr(), h0.data_ptr(),
-        c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-        dhT.data_ptr(), dcT.data_ptr(), dgates.data_ptr(), dh.data_ptr(),
-        dc.data_ptr(), dpeep.data_ptr(), part.data_ptr(), b, t, d, u,
-        int(reverse), int(remat), int(remat and xw.dtype == f32),
-        torch.cuda.current_stream().cuda_stream)
+    KERNEL_BWD_BF16.launch_on(
+        mask.device.index, _ptr(xw if remat else None),
+        _ptr(None if remat else gates), mask.data_ptr(), wpack.data_ptr(),
+        peep.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        cs.data_ptr(), dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+        dgates.data_ptr(), dh.data_ptr(), dc.data_ptr(), dpeep.data_ptr(),
+        part.data_ptr(), b, t, d, u, int(reverse), int(remat),
+        int(remat and xw.dtype == f32))
     return dgates, dh, dc, dpeep
 
 
@@ -838,10 +833,10 @@ def _bi_fwd_kernel(x, mask, fw, bw):
     base = out.data_ptr()
     seq = [base + 4 * n * k for k in range(4)]
     fin = [base + 16 * n + 4 * m * k for k in range(4)]
-    KERNEL_BI.launch(x.data_ptr(), mask.data_ptr(),
-                     *(w.data_ptr() for w in fw), *seq[:2], *fin[:2],
-                     *(w.data_ptr() for w in bw), *seq[2:], *fin[2:],
-                     *ints, torch._C._cuda_getCurrentRawStream(x.device.index))
+    KERNEL_BI.launch_on(
+        x.device.index, x.data_ptr(), mask.data_ptr(),
+        *(w.data_ptr() for w in fw), *seq[:2], *fin[:2],
+        *(w.data_ptr() for w in bw), *seq[2:], *fin[2:], *ints)
     return (hsf, csf, htf, ctf), (hsb, csb, htb, ctb)
 
 
@@ -906,8 +901,8 @@ def _bi_fwd_kernel_bf16(x, mask, fw, bw):
                torch.empty(b, d, dtype=f32, device=x.device))
         outs.append(out)
         args += [w.data_ptr() for w in packed] + [o.data_ptr() for o in out]
-    KERNEL_BI_BF16.launch(*args, b, t, e, d,
-                          torch.cuda.current_stream().cuda_stream)
+    KERNEL_BI_BF16.launch_on(
+        x.device.index, *args, b, t, e, d)
     return tuple(outs)
 
 

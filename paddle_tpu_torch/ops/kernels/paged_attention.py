@@ -211,10 +211,8 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        kernel.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      page_table.data_ptr(), seq_lens.data_ptr(),
-                      out.data_ptr(), b, h, p, ps, d, page_table.shape[1],
-                      float(scale), stream)
+    kernel.launch_on(q.device.index, q.data_ptr(), k_pages.data_ptr(),
+                     v_pages.data_ptr(), page_table.data_ptr(),
+                     seq_lens.data_ptr(), out.data_ptr(), b, h, p, ps, d,
+                     page_table.shape[1], float(scale))
     return out

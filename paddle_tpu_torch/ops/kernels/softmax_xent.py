@@ -87,10 +87,6 @@ def _check_kernel_args(logits, targets):
             f"logits on {logits.device}, targets on {targets.device}")
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _fwd_kernel(logits, targets):
     """The forward kernel of the logits' dtype (the contract of
     :func:`_fwd_plain`): lse and the NLL f32 for f32 and bf16 logits."""
@@ -98,9 +94,9 @@ def _fwd_kernel(logits, targets):
     n, v = logits.shape
     lse = torch.empty(n, device=logits.device)
     nll = torch.empty(n, device=logits.device)
-    FORMS[logits.dtype][0].launch(logits.data_ptr(), targets.data_ptr(),
-                                  lse.data_ptr(), nll.data_ptr(), n, v,
-                                  _stream())
+    FORMS[logits.dtype][0].launch_on(
+        logits.device.index, logits.data_ptr(), targets.data_ptr(),
+        lse.data_ptr(), nll.data_ptr(), n, v)
     return nll, lse
 
 
@@ -111,9 +107,9 @@ def _bwd_kernel(logits, targets, lse, g):
     n, v = logits.shape
     g = g.to(torch.float32).contiguous()
     dlogits = torch.empty_like(logits)
-    FORMS[logits.dtype][1].launch(logits.data_ptr(), targets.data_ptr(),
-                                  lse.data_ptr(), g.data_ptr(),
-                                  dlogits.data_ptr(), n, v, _stream())
+    FORMS[logits.dtype][1].launch_on(
+        logits.device.index, logits.data_ptr(), targets.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dlogits.data_ptr(), n, v)
     return dlogits
 
 

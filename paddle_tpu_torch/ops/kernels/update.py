@@ -263,10 +263,6 @@ def _to_card(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def run_table(kernel: TableKernel, rows: bool, ps, gs, vs, scalars) -> None:
     """One launch of ``kernel`` over the tensors (float32 on one card),
     in place: the kept table when its key holds, else a new one built,
@@ -286,9 +282,9 @@ def run_table(kernel: TableKernel, rows: bool, ps, gs, vs, scalars) -> None:
     if len(table.index) != len(gs):
         gs = [gs[i] for i in table.index]
     grads = np.fromiter(map(_ptr, gs), np.uint64, table.count)
-    kernel.launch(table.on_card.data_ptr(), table.count,
-                  table.first.ctypes.data, grads.ctypes.data,
-                  _stream(table.device))
+    kernel.launch_on(
+        table.device.index, table.on_card.data_ptr(), table.count,
+        table.first.ctypes.data, grads.ctypes.data)
     # autograd's version counter of each tensor the kernel wrote
     torch.autograd.graph.increment_version(
         ps + [v for v in vs if v is not None])

@@ -982,8 +982,8 @@ def test_flash_bf16_forms_match_their_twins(cuda, b, t_q, t_k, h, d,
     case = S.flash_bf16_case(qp, kp, vp, dop, t_q, t_k, causal, d ** -0.5)
     torch.cuda.synchronize()
     assert {n: c.launches - before[n] for n, c in counts.items()} == {
-        "fwd": 0, "dq": 0, "dkv": 0, "fwd_bf16": 2, "dq_bf16": 2,
-        "dkv_bf16": 2}                  # the run and its rerun
+        "fwd": 0, "dq": 0, "dkv": 0, "fwd_bf16": 2, "fwd_wgmma": 0,
+        "dq_bf16": 2, "dkv_bf16": 2}    # the run and its rerun
     assert case["rerun_bit_identical"]
     assert case["lse_err"] <= TOL
     for n, got in case["got"].items():
@@ -1054,7 +1054,8 @@ def test_flash_bf16_refuses_mixed_and_unaligned_inputs(cuda):
 def test_lm_bf16_step_on_card_matches_the_cpu(cuda):
     """One bf16 ``loss_and_grads`` of a small flash LM (2 layers of 2 heads
     of 64) on the card and on the CPU from the same f32 weights: exactly
-    one launch of each bf16 flash form a layer and no f32 one; f32
+    one launch of the Hopper forward and of each bf16 backward form a
+    layer, and no f32 or mma.sync forward; f32
     gradients; each leaf's distance to the float64 gradient within 2x the
     CPU's plus 2^-8; a rerun bit-identical."""
     from chip_smoke import named_leaves, rel_norm
@@ -1073,11 +1074,12 @@ def test_lm_bf16_step_on_card_matches_the_cpu(cuda):
     _, g_cpu = T.loss_and_grads(cfg, params, ids, bf)
     on_card = tree.unflatten(params, [p.to(cuda) for p in tree.leaves(params)])
     forms = [k for form in FA.FORMS.values() for k in form]
+    forms.append(FA.KERNEL_WGMMA)
     before = [k.launches for k in forms]
     loss, g_card = T.loss_and_grads(cfg, on_card, ids.to(cuda), bf)
     torch.cuda.synchronize()
     assert [k.launches - n for k, n in zip(forms, before)] == [0, 0, 0,
-                                                                 2, 2, 2]
+                                                                 0, 2, 2, 2]
     assert all(g.dtype == torch.float32 for g in tree.leaves(g_card))
     g64, g_cpu, g_card = map(named_leaves, (g64, g_cpu, g_card))
     for n in g64:
@@ -3178,3 +3180,228 @@ def test_scatter_add_bf16_matches_its_twin(cuda, n, v, d, rows_dtype):
 
     with pytest.raises(EnforceError, match="float32 or bfloat16 rows"):
         EK.embedding_scatter_add(table, ids, rows.half())
+
+
+
+# -- the Hopper bf16 flash forward (row 2 bf16 at head_dim 64 and 128) ---------
+#
+# The bf16 Function's forward reads q, k, v where they lie: head_dim 64
+# and 128 launch ``KERNEL_WGMMA`` (wgmma fed by TMA), 16 and 32 the
+# mma.sync form on the padded problem.  o against the twin by
+# ``bf16_agrees`` with ``FLASH_BF16_FLIP`` (as the forms above), lse within
+# TOL on every padded row, a rerun in the same bits.
+
+WGMMA_SHAPES = [
+    (16, 1024, 1024, 12, 64, True),   # LM training
+    (8, 512, 512, 12, 64, True),      # serving prefill
+    (2, 100, 100, 3, 64, True),
+    (1, 333, 333, 2, 64, False),
+    (2, 130, 130, 2, 128, True),
+    (1, 129, 129, 2, 128, False),
+    (2, 64, 64, 2, 16, True),         # mma.sync: head_dim 16
+    (1, 70, 70, 2, 32, False),        # mma.sync: head_dim 32
+    (1, 40, 90, 2, 64, True),         # t_q < t_k: absolute-position mask
+    (1, 90, 40, 2, 128, True),        # t_q > t_k
+]
+
+
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal", WGMMA_SHAPES)
+def test_flash_bf16_forward_takes_its_form_by_head_dim(cuda, b, t_q, t_k, h,
+                                                       d, causal):
+    import chip_smoke as S
+
+    rng = np.random.default_rng(t_q * 7 + t_k + d)
+    q, k, v = (_bf16(rng, b, t, h, d).to(cuda) for t in (t_q, t_k, t_k))
+    hopper = d in FA.WGMMA_HEAD_DIMS
+    before = FA.KERNEL_WGMMA.launches, FA.KERNEL_BF16.launches
+    with torch.no_grad():
+        o, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+        again = FA.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (FA.KERNEL_WGMMA.launches - before[0],
+            FA.KERNEL_BF16.launches - before[1]) == ((2, 0) if hopper
+                                                      else (0, 2))
+    assert o.shape == (b, t_q, h, d) and o.is_contiguous() == hopper
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    if hopper:
+        lse = FA._fwd_wgmma(q, k, v, causal, d ** -0.5)[1]
+    else:
+        qp, kp, vp = FA._prep(q, k, v)
+        lse = FA._fwd_kernel(qp, kp, vp, t_k, causal, d ** -0.5)[1]
+    a = S.flash_forward_agreement(q, k, v, o, lse, causal, d ** -0.5)
+    assert a["agrees"], a
+
+
+def test_flash_wgmma_reads_strided_views_as_they_lie(cuda):
+    """q, k, v sliced from one [B, T, 3, H, D] projection (strides 3HD,
+    D) give the bits their contiguous copies give, with no copy; a view
+    TMA cannot read (a t stride off 16 bytes, a base off 16 bytes)
+    raises."""
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    rng = np.random.default_rng(5)
+    b, t, h, d = 2, 300, 4, 64
+    qkv = _bf16(rng, b, t, 3, h, d).to(cuda)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    before = FA.KERNEL_WGMMA.launches
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v, causal=True)
+        want = FA.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert FA.KERNEL_WGMMA.launches - before == 2
+    assert torch.equal(o, want)
+    wide = _bf16(rng, b, t, h, d + 4).to(cuda)[..., :d]   # t stride 4(D+4)
+    with pytest.raises(EnforceError, match="multiples of 16 bytes"):
+        FA.flash_attention(wide, wide, wide, causal=True)
+    flat = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(b, t, h, d)
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        FA.flash_attention(odd, odd, odd, causal=True)
+
+
+def test_flash_wgmma_backward_matches_the_padded_route(cuda):
+    """Under autograd the Hopper forward's backward pads what the forward
+    saved and runs the unchanged dQ and dK/dV kernels: the gradients are
+    those of the same kernels on the padded route fed the same o and
+    lse, bit for bit."""
+    rng = np.random.default_rng(9)
+    b, t, h, d = 2, 200, 3, 64
+    q, k, v, g = (_bf16(rng, b, t, h, d).to(cuda) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = FA.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(o, leaves, g)
+    o2, lse = FA._fwd_wgmma(q, k, v, True, d ** -0.5)
+    assert torch.equal(o.detach(), o2)
+    qp, kp, vp = FA._prep(q, k, v)
+    dop = FA._prep(g, g, g)[0]
+    dq, dk, dv = FA._bwd_kernel(qp, kp, vp, FA._to_bh(o2), lse, dop, t,
+                                True, d ** -0.5)
+    for x, w, tw in zip(got, (dq, dk, dv), (t, t, t)):
+        assert torch.equal(x, FA._from_bh(w, b, h, tw, d))
+
+
+# -- the gather (row 17) and the lookup forward in one launch -----------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v,d,offset", [
+    (8192, 30000, 128, 0),   # 16-byte units: f32 a row a warp, bf16 two
+    (37, 50, 8, 0),          # short rows: four (f32) or eight a warp
+    (300, 97, 33, 0),        # D not whole 16-byte units: the element path
+    (300, 97, 64, 1),        # a table off 16 bytes: the element path
+])
+@pytest.mark.parametrize("padding_idx", [None, 5])
+def test_gather_forms_copy_the_twin_bit_for_bit(cuda, dtype, n, v, d,
+                                                 offset, padding_idx):
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    rng = np.random.default_rng(n + d + offset)
+    flat = _rand(rng, v * d + offset).to(cuda).to(dtype)
+    table = flat[offset:].view(v, d)
+    ids = _ids(rng, n, v)
+    ids[20:23] = 5
+    ids = ids.to(cuda)
+    forms = (EK.KERNEL_GATHER, EK.KERNEL_GATHER_BF16)
+    before = [k.launches for k in forms]
+    got = EK.embedding_gather(table, ids, padding_idx)
+    torch.cuda.synchronize()
+    moved = [k.launches - b for k, b in zip(forms, before)]
+    assert moved == ([1, 0] if dtype == torch.float32 else [0, 1])
+    want = EK.embedding_gather_reference(table, ids, padding_idx)
+    assert got.dtype == dtype and torch.equal(got, want)
+    if padding_idx is not None:
+        assert not got[ids == padding_idx].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_lookup_forward_is_one_gather_launch(cuda, dtype, monkeypatch):
+    """The lookup forward on the card: one gather launch of the table's
+    dtype, nothing else launched, no ``dedup_ids`` and no host sync; the
+    output the CPU Function's bit for bit (padding rows zero); the table
+    gradient one scatter-add, equal to ``table_grad`` of the masked
+    cotangent bit for bit."""
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+
+    def no_dedup(*a, **k):
+        raise AssertionError("the lookup forward called dedup_ids")
+
+    monkeypatch.setattr(EK, "dedup_ids", no_dedup)
+    rng = np.random.default_rng(21)
+    v, d = 30000, 128
+    table = _rand(rng, v, d).to(dtype)
+    ids = torch.from_numpy(rng.integers(0, v, size=(64, 128)))
+    ids[:, 100:] = 0                      # the text batch's padding id
+    ct = _rand(rng, 64, 128, d).to(dtype)
+    kernels = (EK.KERNEL_GATHER, EK.KERNEL_GATHER_BF16, EK.KERNEL_SCATTER,
+               EK.KERNEL_SCATTER_BF16, EK.KERNEL_GROUP)
+    leaf = table.to(cuda).requires_grad_()
+    on_card = ids.to(cuda)
+    before = [k.launches for k in kernels]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = EK.fused_embedding_lookup(leaf, on_card, padding_idx=0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    assert moved == ([1, 0, 0, 0, 0] if dtype == torch.float32
+                     else [0, 1, 0, 0, 0])
+    cpu = EK.fused_embedding_lookup(table, ids, padding_idx=0)
+    assert torch.equal(out.cpu(), cpu)
+    assert not out[:, 100:].any()
+    (g,) = torch.autograd.grad(out, leaf, ct.to(cuda))
+    flat = ids.reshape(-1).to(cuda)
+    ctf = ct.to(cuda).float().reshape(-1, d).clone()
+    ctf[flat == 0] = 0
+    assert torch.equal(g, EK.table_grad(flat, ctf, v).to(dtype))
+
+
+# -- C8: every launch on the card its tensors lie on ---------------------------
+
+
+def test_wrappers_launch_on_the_tensors_card_not_the_current_one(cuda):
+    """With card 0 current, each entry given tensors on card 1 runs there
+    and gives the bits it gives with card 1 current (the parent launched
+    some of them on the current card's stream and device).  Skips on one
+    card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import ctc as KC
+    from paddle_tpu_torch.ops.kernels import embedding as EK
+    from paddle_tpu_torch.ops.kernels import softmax_xent as SX
+
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(8)
+    table, ids = _rand(rng, 500, 64), _ids(rng, 300, 500)
+    rows = _rand(rng, 300, 64)
+    q = _bf16(rng, 2, 130, 2, 64)
+    logits, targets = _rand(rng, 37, 1003), torch.from_numpy(
+        rng.integers(0, 1003, size=37))
+    lp = torch.log_softmax(_rand(rng, 4, 24, 27), -1)
+    ilen = torch.full((4,), 24, dtype=torch.int64)
+    x = _rand(rng, 2048, 512)
+    calls = {
+        "gather": lambda t: EK.embedding_gather(t[0], t[1], 5),
+        "table_grad": lambda t: EK.table_grad(t[1], t[2], 500),
+        "flash_wgmma": lambda t: FA.flash_attention_fwd(t[3], t[3], t[3],
+                                                       causal=True)[0],
+        "flash_f32": lambda t: FA.flash_attention_fwd(
+            t[3].float(), t[3].float(), t[3].float(), causal=True)[0],
+        "xent": lambda t: SX.softmax_xent(t[4], t[5]),
+        "ctc_decode": lambda t: KC.ctc_greedy_decode_fused(t[6], t[7], 26),
+        "channel_stats": lambda t: torch.stack(CS.channel_stats(t[8])),
+    }
+    args = [table, ids, rows, q, logits, targets, lp, ilen, x]
+    on_other = [a.to(other) for a in args]
+    for name, call in calls.items():
+        with torch.cuda.device(other):
+            want = call(on_other)
+        torch.cuda.synchronize(other)
+        with torch.cuda.device(0):
+            got = call(on_other)
+        torch.cuda.synchronize(other)
+        for a, w in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (got, want))):
+            assert a.device == other and torch.equal(a, w), name

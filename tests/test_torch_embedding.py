@@ -207,3 +207,81 @@ def test_scatter_by_groups_matches_the_twin_and_jax(n, v, d):
         impl="kernel", interpret=True), table)
     grad = EK.scatter_add_by_groups(None, i, r, num_rows=v)
     near(grad.numpy(), EK.table_grad(i, r, v).numpy(), np.zeros_like(table))
+
+
+# -- the lookup forward as one gather (no dedup) ------------------------------
+
+
+def _jax_bf16(x):
+    """A numpy f32 array as JAX bf16 and as the same bits in torch."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("padding_idx", [None, 5])
+def test_lookup_forward_is_jaxs_copy_bit_for_bit(dtype, padding_idx):
+    """The forward gathers by the flat ids with the padding rows zeroed in
+    the same gather, where JAX dedups, gathers each unique row once and
+    re-expands: the same copy, bit for bit, in f32 and bf16, with
+    duplicate ids and the padding id repeated (ids in range: past V JAX's
+    CPU ``jnp.take`` gives NaN rows)."""
+    rng = np.random.default_rng(11)
+    v, d = 40, 24
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    ids = rng.integers(0, v, size=(6, 9))
+    ids[0, :4] = 5
+    ids[1] = ids[2]                       # whole rows of duplicates
+    if dtype == "bfloat16":
+        jt, tt = _jax_bf16(table)
+    else:
+        jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    for impl in ("kernel", "reference"):
+        want = JE.fused_embedding_lookup(jt, jnp.asarray(ids), padding_idx,
+                                         impl)
+        got = EK.fused_embedding_lookup(tt, torch.from_numpy(ids),
+                                        padding_idx)
+        assert got.dtype == tt.dtype
+        assert np.array_equal(got.float().numpy(),
+                              np.asarray(want.astype(jnp.float32))), impl
+    if padding_idx is not None:
+        assert not got[torch.from_numpy(ids) == padding_idx].any()
+
+
+def test_lookup_forward_calls_no_dedup(monkeypatch):
+    """The forward is one gather: ``dedup_ids`` (a sort whose size
+    depends on the data, a host sync on the card) is never called; the
+    gradient is built from the flat ids as before."""
+    def no_dedup(*a, **k):
+        raise AssertionError("the lookup forward called dedup_ids")
+
+    monkeypatch.setattr(EK, "dedup_ids", no_dedup)
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.normal(size=(30, 8)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 30, size=(4, 5)))
+    leaf = table.clone().requires_grad_()
+    out = EK.fused_embedding_lookup(leaf, ids, padding_idx=3)
+    ct = torch.from_numpy(rng.normal(size=(4, 5, 8)).astype(np.float32))
+    (g,) = torch.autograd.grad(out, leaf, ct)
+    flat = ids.reshape(-1)
+    want = EK.embedding_gather_reference(table, flat, 3).reshape(4, 5, 8)
+    assert torch.equal(out.detach(), want)
+    ctf = ct.reshape(-1, 8).clone()
+    ctf[flat == 3] = 0
+    assert torch.equal(g, EK.table_grad(flat, ctf, 30))
+
+
+@pytest.mark.parametrize("padding_idx", [None, 0, 7, -1])
+def test_gather_twin_zeroes_the_padding_rows(padding_idx):
+    """``embedding_gather_reference(..., padding_idx)``: the clamped copy,
+    with the rows whose raw id is the padding id zero (a -1 padding id
+    matches the raw -1, not the row it clamps to)."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.normal(size=(10, 4)).astype(np.float32))
+    ids = torch.tensor([0, 7, -1, 12, 7, 3, 0])
+    got = EK.embedding_gather(table, ids, padding_idx)
+    want = table[ids.clamp(0, 9)].clone()
+    if padding_idx is not None:
+        want[ids == padding_idx] = 0
+    assert torch.equal(got, want)

@@ -262,6 +262,29 @@ def test_bf16_matches_jax_kernels_at_64_blocks(b, t_q, t_k, h, d, causal,
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :t_q], **TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,t_q,t_k,h,d", BF16_SHAPES)
+def test_bf16_forward_twin_matches_jax_at_the_hopper_tiles(b, t_q, t_k, h,
+                                                          d, causal, rng_np):
+    """The Hopper form's tiles (``csrc/flash_attention.cu``, ``hop``): 128
+    query rows a block, 64 keys a tile.  JAX's tiled forward at
+    ``block_q=128, block_k=64`` (interpret mode) rounds P against the
+    running max of the same 64-key tiles, so the twin's o agrees with it by
+    ``bf16_agrees`` [as at 64 x 64: equal but for f32 order] and its lse
+    within 2e-5."""
+    import chip_smoke as S
+
+    js, ts = _bf16_inputs(rng_np, b, t_q, t_k, h, d)
+    jo, jlse, _ = JFA._fwd_impl(*js[:3], causal, None, 128, 64, True)
+    want = _torch_bf16(JFA._from_bh(jo, b, h, t_q, d))
+    o, lse = FA.flash_attention_fwd(*ts[:3], causal=causal)
+    mag = _bf16_mags(*ts, causal)[0]
+    assert o.dtype == torch.bfloat16 and o.shape == want.shape
+    assert S.bf16_agrees(o, want, mag, coef=S.FLASH_BF16_FLIP), \
+        S.bf16_agreement(o, want, mag, coef=S.FLASH_BF16_FLIP)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :t_q], **TOL)
+
+
 def _share_of_flip_bound(got, want, mag) -> float:
     """The largest |got - want| / (one bf16 ulp at the larger magnitude +
     2^-7 mag), element by element (``want`` in any float dtype)."""

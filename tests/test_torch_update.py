@@ -482,14 +482,18 @@ class _Card:
         from paddle_tpu_torch.ops import nn as nn_ops
 
         self.tensors = {}
-        monkeypatch.setattr(U, "_stream", lambda device: 0)
         monkeypatch.setattr(nn_ops, "_takes_kernel",
                             lambda x: x.dtype != torch.float64)
         for kernel, rows in ((U.KERNEL, False), (EK.KERNEL_ROWS, True)):
             monkeypatch.setattr(kernel, "tables", [])
             monkeypatch.setattr(kernel, "table_builds", 0)
-            monkeypatch.setattr(kernel, "launch",
-                                functools.partial(self.launch, kernel, rows))
+            monkeypatch.setattr(kernel, "launch_on",
+                                functools.partial(self.launch_on, kernel,
+                                                  rows))
+
+    def launch_on(self, kernel, rows, index, *args):
+        """``Kernel.launch_on``: the card's stream appended (0 here)."""
+        self.launch(kernel, rows, *args, 0)
 
     def know(self, *trees):
         for t in trees:
