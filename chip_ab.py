@@ -2,26 +2,25 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B times, in each tree, the wrapper calls ``CALLS`` names (the
-gather and the lookup forward in f32 and bf16, the bf16 flash forward's
-kernel and its whole call at serving's prefill and LM training shapes,
-``F.embedding`` and bf16 SDPA beside), then runs its own
-``chip_smoke.train_text_bf16``, ``train_nmt_bf16`` and ``train_lm_bf16``
-(bf16 and f32 steps in blocks; the LM's witness step left out) and two
-bf16 serving blocks of phase 17's requests (``SERVE_PREFILL``: prefill
-ms p50, decode step ms p50, tokens/s), each tree in a process of its own
-that builds that tree's kernels, in the order given.  Host-bound phases
-vary up to 2x between machines, so two versions are compared only within
-one run of this script, in turns:
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (the flash
+backward as autograd runs it at the LM training shape, bf16 and f32, with
+SDPA's backward beside), then runs its own ``chip_smoke.train_lm_bf16``
+(the LM's bf16 and f32 steps in blocks of 5: bf16, f32, f32, bf16; the
+witness step left out; device ms by kernel class over 3 bf16 steps),
+each tree in a process of its own that builds that tree's kernels, in
+the order given.  Host-bound phases vary up to 2x between machines, so
+two versions are compared only within one run of this script, in
+turns:
 
     python3 chip_ab.py [--out DIR] [--calls] build/parent . . build/parent
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, each call's event ms with the L2 flushed,
 host ms and device ms alone with its kernels' names, and the steps'
-rates, step p50 and the bf16 block's idle share) and writes each run's
-whole output to ``DIR/ab_<i>.json`` (default ``build/ab``).  ``--calls``
-times the wrapper calls alone, without the training and serving phases.
+rates, step p50, the bf16 steps' idle share and device ms by class) and
+writes each run's whole output to ``DIR/ab_<i>.json`` (default
+``build/ab``).  ``--calls`` times the wrapper calls alone, without the
+training steps.
 
     python3 chip_ab.py --sweep
 
@@ -50,6 +49,22 @@ and the cycles a step of each part of the planned kernel's first CTAs
 
 times the Hopper flash forward with its blocks numbered heaviest q tile
 first over all heads (the source) and by head (a copy), in turns.
+
+    python3 chip_ab.py --tf32-variants
+
+times the f32 flash backward's dQ and dK/dV kernels (3xTF32) at the LM
+training shape [16, 1024, 12, 64] causal as the source builds them and
+as each of ``TF32_VARIANTS`` (copies of the source with a line changed:
+the TF32 rounding by ``cvt.rna.tf32.f32``, S and dP summed apart at head
+dim 64, the long sums chained) in turns, each checked against the twin
+first, alone, with its distance from the float64 twin.
+
+    python3 chip_ab.py --wgmma-bwd-variants
+
+times the bf16 Hopper backward's dQ and dK/dV kernels at the same shape
+as the source builds them and as each of ``WGMMA_BWD_VARIANTS`` (the dQ
+kernel at two blocks an SM, a 2-stage ring), in turns, each checked
+against the twins first, alone.
 
     python3 chip_ab.py --stats-plans
 
@@ -84,36 +99,23 @@ if sys.argv[2] == "calls":
     print(json.dumps({"calls": calls}))
     sys.exit(0)
 torch.cuda.empty_cache()
-text_bf16 = C.train_text_bf16(dev)[0]
-torch.cuda.empty_cache()
-nmt_bf16 = C.train_nmt_bf16(dev)[0]
-torch.cuda.empty_cache()
 C.lm_bf16_witness = lambda *a, **k: {}
 lm_bf16 = C.train_lm_bf16(dev)[0]
-torch.cuda.empty_cache()
-prefill = SERVE_PREFILL(dev, C)
-print(json.dumps({"calls": calls, "train_text_bf16": text_bf16,
-                  "train_nmt_bf16": nmt_bf16, "train_lm_bf16": lm_bf16,
-                  "serve_bf16_prefill": prefill}))
+print(json.dumps({"calls": calls, "train_lm_bf16": lm_bf16}))
 """
 
 #: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
 #: way in either tree (each tree's own wrappers): the CUDA-event ms with the
 #: L2 flushed, the host's median ms a call without a sync, and the device
 #: ms of the call's kernels alone (a trace, summed over its kernels): the
-#: gather (row 17, f32 and bf16) of the text batch's 8,192 ids from [30000,
-#: 128]; the lookup forward on those ids as [64, 128] (a leaf that wants its
-#: gradient); ``F.embedding`` beside; the bf16 flash forward's kernel alone
-#: (the change's Hopper form on q, k, v as they lie, the parent's mma.sync
-#: form on the padded problem) and the whole bf16 ``flash_attention`` call
-#: without grad, with the model's reshape to [B, T, H D], at the serving
-#: prefill [8, 512, 12, 64] and LM training [16, 1024, 12, 64] causal
-#: shapes; bf16 SDPA (flash backend) beside
+#: flash backward as autograd runs it (``torch.autograd.grad`` of the
+#: Function's output, the forward run once before) at the LM training
+#: shape [16, 1024, 12, 64] causal in bf16 and in f32, with SDPA's
+#: backward beside (bf16: the flash backend; f32: the efficient one)
 CALLS = r"""
 def CALLS(dev, C):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    from paddle_tpu_torch.ops.kernels import embedding as EK
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
     timer = C.Timer(dev)
@@ -154,80 +156,41 @@ def CALLS(dev, C):
                 "kernels": names}
 
     out = {}
-    v, e, n = 30000, 128, 8192
-    ids = torch.randint(0, v, (n,), generator=gen, device=dev)
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        table = torch.randn(v, e, generator=gen, device=dev).to(dtype)
-        leaf = table.clone().requires_grad_()
-        grid = ids.view(64, 128)
-        out[f"gather_{tag}"] = all3(lambda: EK.embedding_gather(table, ids))
-        out[f"lookup_forward_{tag}"] = all3(
-            lambda: EK.fused_embedding_lookup(leaf, grid))
-        out[f"F_embedding_{tag}"] = all3(lambda: F.embedding(ids, table))
-        del table, leaf
-    hopper = getattr(FA, "_fwd_wgmma", None)
-    for b, t in ((8, 512), (16, 1024)):
-        h, d = 12, 64
-        q, k, v_ = (torch.randn(b, t, h, d, generator=gen, device=dev)
-                    .to(torch.bfloat16) for _ in range(3))
-        qp, kp, vp = FA._prep(q, k, v_)
-        if hopper is not None:
-            kern = lambda: hopper(q, k, v_, True, d ** -0.5)
-        else:
-            kern = lambda: FA._fwd_kernel(qp, kp, vp, t, True, d ** -0.5)
-
-        def call():
-            with torch.no_grad():
-                return FA.flash_attention(q, k, v_, causal=True).reshape(
-                    b, t, h * d)
-
-        out[f"flash_fwd_kernel_{b}x{t}"] = all3(kern)
-        out[f"flash_attention_call_{b}x{t}"] = all3(call)
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v_))
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            out[f"sdpa_{b}x{t}"] = all3(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True))
-        del q, k, v_, qp, kp, vp, qh, kh, vh
+    b, t, h, d = 16, 1024, 12, 64
+    for dtype, tag, backend in (
+            (torch.bfloat16, "bf16", SDPBackend.FLASH_ATTENTION),
+            (torch.float32, "f32", SDPBackend.EFFICIENT_ATTENTION)):
+        q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        o = FA.flash_attention(*leaves, causal=True)
+        out[f"flash_backward_{tag}"] = all3(lambda: torch.autograd.grad(
+            o, leaves, g, retain_graph=True))
+        qh, kh, vh = (x.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for x in (q, k, v))
+        gh = g.transpose(1, 2).contiguous()
+        with sdpa_kernel(backend):
+            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        out[f"sdpa_backward_{tag}"] = all3(lambda: torch.autograd.grad(
+            oh, (qh, kh, vh), gh, retain_graph=True))
+        del q, k, v, g, leaves, o, qh, kh, vh, gh, oh
     return out
-
-
-def SERVE_PREFILL(dev, C):
-    import dataclasses
-    from paddle_tpu_torch.core.dtype import cast_floats
-    from paddle_tpu_torch.models import transformer as T
-    from paddle_tpu_torch.ops.kernels import flash_attention as FA
-    from paddle_tpu_torch.ops.kernels import paged_attention as PA
-
-    cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.float32, remat=False,
-                              attn_impl="flash")
-    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    params = cast_floats(T.init_params(cfg, torch.Generator().manual_seed(0),
-                                       dev), torch.bfloat16)
-    scfg, prompts, temps = C.serve_workload(cfg)
-    counters = {"flash_hopper": getattr(FA, "KERNEL_WGMMA", FA.KERNEL_BF16),
-                "flash_mma_sync": FA.KERNEL_BF16, "paged": PA.KERNEL_BF16}
-    runs = [C.serve_block(cfg, params, scfg, prompts, temps, dev,
-                          counters)["run"] for _ in range(2)]
-    return [{k: r[k] for k in ("prefill_ms_p50", "prefill_passes",
-                               "decode_step_ms_p50", "tokens_per_s",
-                               "ttft_ms_p50", "launches")} for r in runs]
 """
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
-    if "train_text_bf16" not in out:
+    if "train_lm_bf16" not in out:
         return {"tree": tree, "seconds": seconds, "calls": out["calls"]}
-    steps = {}
-    for key in ("train_text_bf16", "train_nmt_bf16", "train_lm_bf16"):
-        run = out[key]
-        steps[key] = {d: {k: run[d][k] for k in run[d]
-                          if k.endswith("_per_s") or k == "step_ms_p50"}
-                      for d in ("bf16", "f32") if d in run}
-        prof = run.get("profile", {})
-        steps[key]["bf16_idle_share_vs_step_p50"] = prof.get(
-            "idle_share_vs_step_p50")
+    run = out["train_lm_bf16"]
+    steps = {d: {k: run[d][k] for k in run[d]
+                 if k.endswith("_per_s") or k == "step_ms_p50"}
+             for d in ("bf16", "f32") if d in run}
+    prof = run.get("profile", {})
+    steps["bf16_idle_share_vs_step_p50"] = prof.get("idle_share_vs_step_p50")
+    steps["bf16_device_ms_per_step_by_class"] = prof.get(
+        "by_class_ms_per_step")
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
-            "steps": steps, "serve_bf16_prefill": out["serve_bf16_prefill"]}
+            "train_lm_bf16": steps}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -669,6 +632,152 @@ def flash_order() -> int:
     return 0
 
 
+#: source variants of the f32 backward (csrc/flash_attention_bwd.cu) that
+#: ``--tf32-variants`` times beside the source: {variant: [(its line, what
+#: it becomes)]}.  "cvt_rna": the TF32 rounding by the conversion
+#: instruction; "s_apart": S and dP's slices summed apart at every head
+#: dim (the source: at 128 only); "long_chained": dV, dK and dQ's slices
+#: chained into their accumulators
+TF32_VARIANTS = {
+    "cvt_rna": [("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+                 "  uint32_t r;\n"
+                 "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : "
+                 "\"f\"(x));\n"
+                 "  return r;")],
+    "s_apart": [("constexpr bool kSliceApart = D > 64;",
+                 "constexpr bool kSliceApart = true;")],
+    "long_chained": [
+        (f"        mma3_add({x}, {a}, {m}[b], {m}[b + LD]);",
+         f"        mma3({x}, {a}, {m}[b], {m}[b + LD]);")
+        for x, a, m in (("acc_v[dn]", "pa", "sdo"), ("acc_k[dn]", "da", "sq"),
+                        ("acc[dn]", "sa", "sk"))],
+}
+
+
+def tf32_variants() -> int:
+    """The f32 backward kernels (3xTF32) at the LM training shape [16,
+    1024, 12, 64] causal, the source and each of TF32_VARIANTS in turns
+    (source, variants, variants reversed, source): each checked against
+    the twin (1e-4 x max(1, |ref|)) first, then timed alone (a trace, no
+    flush), with dq, dk, dv's relative norm against the float64 twin on
+    the same inputs: one JSON line."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    dev = resolve_device(None)
+    builds = C.source_fault_builds("flash_attention_bwd", TF32_VARIANTS)
+    _build.build(["flash_attention_bwd"])
+    kerns = (FA.KERNEL_BWD_DQ, FA.KERNEL_BWD_DKV)
+    fns = {"source": [k._fn or k._resolve() for k in kerns]}
+    for name, (proc, lib) in builds.items():
+        fns[name] = C.planted_all(proc, lib, kerns)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, t, h, d = 16, 1024, 12, 64
+    scale = d ** -0.5
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                  for _ in range(4))
+    qp, kp, vp = FA._prep(q, k, v)
+    dop = FA._to_bh(g)
+    o, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
+    args = (qp, kp, vp, lse, dop, FA._delta(dop, o).contiguous(), t, True,
+            scale)
+    want = (FA._bwd_dq_plain(*args), *FA._bwd_dkv_plain(*args))
+    wide = [x.double() for x in (qp, kp, vp, dop)]
+    o64, lse64 = FA._fwd_plain(*wide[:3], t, True, scale)
+    args64 = (*wide[:3], lse64, wide[3], FA._delta(wide[3], o64), t, True,
+              scale)
+    want64 = (FA._bwd_dq_plain(*args64), *FA._bwd_dkv_plain(*args64))
+    del wide, o64, args64
+    names = [n for n in fns if n != "source"]
+    out = {}
+    for turn, name in enumerate(["source", *names, *names[::-1], "source"]):
+        for kern, fn in zip(kerns, fns[name]):
+            kern._fn = fn
+        got = (FA._bwd_dq_kernel(*args), *FA._bwd_dkv_kernel(*args))
+        for x, y in zip(got, want):
+            e = (x - y).abs().max().item()
+            if not e <= C.TOL * max(1.0, y.abs().max().item()):
+                raise AssertionError(f"{name}: kernel vs plain {e}")
+        out[f"turn {turn} {name}"] = {
+            "dq": C.device_ms([lambda: FA._bwd_dq_kernel(*args)],
+                              "flash_bwd_dq_tf32x3"),
+            "dkv": C.device_ms([lambda: FA._bwd_dkv_kernel(*args)],
+                               "flash_bwd_dkv_tf32x3"),
+            "vs_f64": [C.rel_norm(x, y) for x, y in zip(got, want64)]}
+    for kern, fn in zip(kerns, fns["source"]):
+        kern._fn = fn
+    print(json.dumps({"tf32_variants_alone_ms": out}), flush=True)
+    return 0
+
+
+#: source variants of the bf16 Hopper backward (csrc/flash_attention_bwd.cu)
+#: that ``--wgmma-bwd-variants`` times beside the source: "dq_two_blocks":
+#: the dQ kernel held to two blocks an SM (112 registers a thread);
+#: "two_stages": a 2-stage ring at head_dim 64 (the source: 4)
+WGMMA_BWD_VARIANTS = {
+    "dq_two_blocks": [("__global__ void __launch_bounds__(kThreads, 1)\n"
+                       "flash_bwd_dq_wgmma_kernel(",
+                       "__global__ void __launch_bounds__(kThreads, 2)\n"
+                       "flash_bwd_dq_wgmma_kernel(")],
+    "two_stages": [("  static constexpr int kStages = D == 64 ? 4 : 3;",
+                    "  static constexpr int kStages = D == 64 ? 2 : 3;")],
+}
+
+
+def wgmma_bwd_variants() -> int:
+    """The bf16 Hopper backward's dQ and dK/dV kernels at the LM training
+    shape [16, 1024, 12, 64] causal, the source and each of
+    WGMMA_BWD_VARIANTS in turns (source, variants, variants reversed,
+    source): dq, dk, dv checked against the twins by ``bf16_agrees``
+    first, then each kernel timed alone (a trace, no flush): one JSON
+    line."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    dev = resolve_device(None)
+    builds = C.source_fault_builds("flash_attention_bwd", WGMMA_BWD_VARIANTS)
+    _build.build(["flash_attention", "flash_attention_bwd"])
+    kerns = (FA.KERNEL_BWD_DQ_WGMMA, FA.KERNEL_BWD_DKV_WGMMA)
+    fns = {"source": [k._fn or k._resolve() for k in kerns]}
+    for name, (proc, lib) in builds.items():
+        fns[name] = C.planted_all(proc, lib, kerns)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, t, h, d = 16, 1024, 12, 64
+    scale = d ** -0.5
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    o, lse = FA._fwd_wgmma(q, k, v, True, scale)
+    want, mags = C.flash_wgmma_bwd_want(q, k, v, o, lse, g, True, scale)
+    args = (lse, g, FA._delta_bthd(g, o, lse.shape[1]), True, scale)
+    names = [n for n in fns if n != "source"]
+    out = {}
+    for turn, name in enumerate(["source", *names, *names[::-1], "source"]):
+        for kern, fn in zip(kerns, fns[name]):
+            kern._fn = fn
+        got = FA._bwd_wgmma(q, k, v, o, lse, g, True, scale)
+        for n, x in zip(("dq", "dk", "dv"), got):
+            if not C.bf16_agrees(x, want[n], mags[n],
+                                 coef=C.FLASH_BF16_FLIP):
+                raise AssertionError(f"{name}: {n} against the twin")
+        out[f"turn {turn} {name}"] = {
+            "dq": C.device_ms([lambda: FA._bwd_dq_wgmma(q, k, v, *args)],
+                              "flash_bwd_dq_wgmma"),
+            "dkv": C.device_ms([lambda: FA._bwd_dkv_wgmma(q, k, v, *args)],
+                               "flash_bwd_dkv_wgmma")}
+    for kern, fn in zip(kerns, fns["source"]):
+        kern._fn = fn
+    print(json.dumps({"wgmma_bwd_variants_alone_ms": out}), flush=True)
+    return 0
+
+
 def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
@@ -700,6 +809,10 @@ if __name__ == "__main__":
         sys.exit(stats_plans())
     if args == ["--flash-order"]:
         sys.exit(flash_order())
+    if args == ["--tf32-variants"]:
+        sys.exit(tf32_variants())
+    if args == ["--wgmma-bwd-variants"]:
+        sys.exit(wgmma_bwd_variants())
     out = "build/ab"
     if args[:1] == ["--out"] and len(args) > 1:
         out, args = args[1], args[2:]

@@ -504,6 +504,11 @@ STEP_LEAF_LIMIT = 0.1    # per leaf ||x32 - x64|| / ||x64 - x0|| (below)
 STEP_FLOOR = 1e-2        # of the leaf's share of the whole f64 update
 CONV_BWD_RTOL = 5e-5     # cuDNN conv backward at the f32 policy vs f64
 FLASH_BWD_F64_LIMIT = 1e-5  # flash backward kernels vs f64 exact attention
+#: the f32 flash backward's distance from float64 before its 3xTF32 form
+#: (the FMA kernels, PERF.md row 3): the tensor-core form stays within
+#: FLASH_BWD_F64_SLACK times it
+FLASH_BWD_F64_FMA = 7.92e-7
+FLASH_BWD_F64_SLACK = 2.0
 LM_LOSS_RTOL = 1e-5      # f32 LM step on the card vs the f64 witness: loss,
 LM_GRAD_LIMIT = 1e-4     # per leaf ||g32 - g64|| / ||g64||
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -511,6 +516,7 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 XENT_GRAD_RTOL = 1e-5     # softmax_xent's gradient, entry by entry: rtol of
 XENT_GRAD_ATOL = 1e-12    # the entry, plus atol x the largest entry
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 on the tensor cores
 BF16_ULP_SHARE = 0.01     # a bf16 form vs one rounding of its f64-summed
                           # twin: unequal on at most 1% of the elements
 #: the LM at GPT-2-small's width (``bench.py:900-907``): phases 3, 5, 14
@@ -558,6 +564,14 @@ def bound(nbytes: float, flops: float,
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_3xtf32(nbytes: float, flops: float) -> tuple[float, str]:
+    """The bound of an f32 function the card may compute on the tensor
+    cores as 3xTF32 (three TF32 products for each f32 one): the lesser of
+    the f32 FMA bound and the 3xTF32 one."""
+    return min(bound(nbytes, flops), bound(nbytes, 3.0 * flops,
+                                           TF32_FLOPS_PER_S))
 
 
 def bf16_ulps(a, b):
@@ -669,35 +683,55 @@ def rel_norm(got, want) -> float:
                  / torch.linalg.norm(want))
 
 
+#: the f32 backward's planted fault (csrc/flash_attention_bwd.cu): its
+#: products in one TF32 pass (hi.hi) where the form takes three; the whole
+#: backward against float64 must then exceed FLASH_BWD_F64_LIMIT
+FLASH_TF32_FAULTS = {"one_pass_tf32": [(
+    "  mma(d, a.lo, bh0, bh1);\n  mma(d, a.hi, bl0, bl1);\n", "")]}
+
+
 def check_flash_backward(dev, timer) -> tuple[list, dict]:
     """The flash kernels at the LM training shape [16, 1024, 12, 64] causal
-    and at an odd T=333.  The forward, and the dQ and dK/dV kernels, each
-    against its plain twin on the same inputs (max abs error <= TOL,
-    relative to the largest entry where that is above 1), and the whole
-    backward through the autograd Function against float64 autograd of
-    exact attention on the card (relative norm <= FLASH_BWD_F64_LIMIT),
-    with a backward that drops delta as the planted fault that must exceed
-    it.  Times at the training shape: the forward, each backward kernel,
-    the whole backward (delta + both kernels), the plain twins and
+    and at an odd T=333.  The forward, and the dQ and dK/dV kernels (3xTF32
+    on the tensor cores), each against its plain twin on the same inputs
+    (max abs error <= TOL, relative to the largest entry where that is
+    above 1), and the whole backward through the autograd Function against
+    float64 autograd of exact attention on the card (relative norm <=
+    FLASH_BWD_F64_LIMIT and within FLASH_BWD_F64_SLACK x
+    FLASH_BWD_F64_FMA), with a backward that drops delta and one whose
+    products take a single TF32 pass (FLASH_TF32_FAULTS, built from a copy
+    of the source) as the planted faults that must exceed the limit.
+    Times at the training shape: the forward, each backward kernel (with
+    the L2 flushed, alone from a trace, and the host's ms a call), the
+    whole backward (delta + both kernels), the plain twins and
     ``scaled_dot_product_attention`` forward and backward (a yardstick
     only; the kernels it ran are named, and its math backend, plain f32
-    products with TF32 off, is timed beside it)."""
+    products with TF32 off, is timed beside it).  The backward kernels'
+    bound is the lesser of f32 FMA and 3xTF32 (:func:`bound_3xtf32`)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
+    tf32_builds = source_fault_builds("flash_attention_bwd",
+                                      FLASH_TF32_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(6)
     h, d = 12, 64
     scale = d ** -0.5
     summary = {"phase": "flash_backward", "tol": TOL,
-               "f64_limit": FLASH_BWD_F64_LIMIT}
+               "f64_limit": FLASH_BWD_F64_LIMIT,
+               "f64_vs_fma_form_limit": FLASH_BWD_F64_SLACK
+               * FLASH_BWD_F64_FMA}
     # name, kernel, plain twin, products of the function it computes (dQ:
-    # S, dP, dQ; dK/dV: S, dP, dV, dK), outputs of [B, T, H, D]
+    # S, dP, dQ; dK/dV: S, dP, dV, dK), outputs of [B, T, H, D], the
+    # kernel's name in a trace
     kernels = (("flash_attention_bwd_dq", FA._bwd_dq_kernel,
-                FA._bwd_dq_plain, 3, 1),
+                FA._bwd_dq_plain, 3, 1, "flash_bwd_dq_tf32x3"),
                ("flash_attention_bwd_dkv", FA._bwd_dkv_kernel,
-                FA._bwd_dkv_plain, 4, 2))
+                FA._bwd_dkv_plain, 4, 2, "flash_bwd_dkv_tf32x3"))
+    forms = (FA.KERNEL_BWD_DQ, FA.KERNEL_BWD_DKV)
+    real = [k._fn or k._resolve() for k in forms]
+    one_pass = planted_all(*tf32_builds["one_pass_tf32"], forms)
     err = {name: 0.0 for name, *_ in kernels}
     fwd_err = 0.0
     rows = []
@@ -714,7 +748,7 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
         del o_ref, lse_ref
         delta = FA._delta(dop, o).contiguous()
         args = (qp, kp, vp, lse, dop, delta, t, True, scale)
-        for name, kern, plain, _, _ in kernels:
+        for name, kern, plain, *_ in kernels:
             got, want = kern(*args), plain(*args)
             for x, y in zip(*((r,) if torch.is_tensor(r) else r
                               for r in (got, want))):
@@ -729,18 +763,28 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
         o64 = FA.flash_attention_reference(*wide, causal=True)
         want = torch.autograd.grad(o64, wide, g.double())
         readings = {}
-        for label in ("f32", "delta_dropped_control"):
+        for label in ("f32", "delta_dropped_control",
+                      "one_pass_tf32_control"):
             if label == "delta_dropped_control":
                 FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+            elif label == "one_pass_tf32_control":
+                for kern, fn in zip(forms, one_pass):
+                    kern._fn = fn
             try:
                 got = torch.autograd.grad(FA.flash_attention(
                     *leaves, causal=True), leaves, g)
             finally:
                 FA._delta = plain_delta
+                for kern, fn in zip(forms, real):
+                    kern._fn = fn
             readings[label] = max(rel_norm(x, y) for x, y in zip(got, want))
         summary[f"vs_f64_T{t}"] = readings
-        if not (readings["f32"] <= FLASH_BWD_F64_LIMIT
-                < readings["delta_dropped_control"]):
+        if not (readings["f32"] <= min(FLASH_BWD_F64_LIMIT,
+                                       FLASH_BWD_F64_SLACK
+                                       * FLASH_BWD_F64_FMA)
+                and FLASH_BWD_F64_LIMIT < min(
+                    readings["delta_dropped_control"],
+                    readings["one_pass_tf32_control"])):
             raise AssertionError(f"flash backward vs f64: {summary}")
         # the yardsticks against the same float64 run: SDPA's f32
         # memory-efficient backend, forward and backward, beside rows 2
@@ -783,24 +827,28 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
             "bound_ms": bound_ms, "bound_by": by,
             "library_ms": timer(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True))})
-        for name, kern, plain, products, outs in kernels:
+        for name, kern, plain, products, outs, key in kernels:
             # reads q, k, v, dO, lse, delta; writes the outputs
-            bound_ms, by = bound(act * (4 + outs) + 2 * rowvec,
-                                 2.0 * products * pairs_n * d)
+            nbytes = act * (4 + outs) + 2 * rowvec
+            flops = 2.0 * products * pairs_n * d
+            bound_ms, by = bound_3xtf32(nbytes, flops)
+            call = lambda kern=kern: kern(*args)          # noqa: E731
             rows.append({
                 "name": name, "route": "cuda",
                 "source": "paddle_tpu_torch/ops/kernels/csrc/"
                           "flash_attention_bwd.cu",
                 "replaces": "paddle_tpu/ops/pallas/flash_attention.py:331",
                 "shape": [b, t, h, d],
-                "ms": timer(lambda: kern(*args)),
+                "ms": timer(call), "alone_ms": device_ms([call], key),
+                "host_ms": host_ms(call),
                 "plain_ms": timer(lambda: plain(*args)),
                 "bound_ms": bound_ms, "bound_by": by,
+                "fma_bound_ms": bound(nbytes, flops)[0],
                 # no PyTorch call computes dQ (or dK, dV) alone
                 "library_ms": None, "max_abs_err": err[name]})
         # the whole function: five products over the causal pairs against
         # q, k, v, o, dO in and dq, dk, dv out
-        bound_ms, by = bound(8 * act + rowvec, 10.0 * pairs_n * d)
+        bound_ms, by = bound_3xtf32(8 * act + rowvec, 10.0 * pairs_n * d)
         out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
         gh = g.transpose(1, 2).contiguous()
         with sdpa_kernel(SDPBackend.MATH):
@@ -816,11 +864,15 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
         summary["library_kernels"] = [
             k["name"] for k in profile_window(library_step, 1).get(
                 "top_kernels", [])]
+        whole = lambda: FA._bwd_kernel(qp, kp, vp, o, lse, dop, t,  # noqa
+                                       True, scale)
         summary["whole_backward"] = {
             "shape": [b, t, h, d], "gflop": 10.0 * pairs_n * d / 1e9,
             "gbytes": (8 * act + rowvec) / 1e9,
-            "ms": timer(lambda: FA._bwd_kernel(qp, kp, vp, o, lse, dop, t,
-                                               True, scale)),
+            "ms": timer(whole),
+            "kernels_alone_ms": device_passes_ms(
+                [whole], [key for *_, key in kernels])["total"],
+            "host_ms": host_ms(whole),
             "plain_ms": timer(lambda: FA._bwd_plain(qp, kp, vp, o, lse, dop,
                                                     t, True, scale)),
             "library_ms": timer(lambda: torch.autograd.grad(
@@ -1562,7 +1614,9 @@ def kernel_class(name: str) -> str:
     if "bilstm_cluster_kernel" in low:    # csrc/bilstm_seq.cu's f32 form
         return "bilstm_fwd (ours)"
     for mine in ("flash_fwd_wgmma", "flash_fwd_bf16", "flash_bwd_dq_bf16",
-                 "flash_bwd_dkv_bf16",
+                 "flash_bwd_dkv_bf16", "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv_wgmma", "flash_bwd_dq_tf32x3",
+                 "flash_bwd_dkv_tf32x3",
                  "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_bf16",
                  "paged",
                  "bilstm_fwd_bf16", "lstm_fwd_bf16", "lstm_bwd_bf16",
@@ -6173,12 +6227,17 @@ def xent_path(dev, steps=10, dtype=torch.float32) -> tuple[dict, tuple]:
 FLASH_BF16_FLIP = 2.0 ** -7
 #: (B, T) of the bf16 flash checks at the LM's 12 heads of 64, causal
 FLASH_BF16_SHAPES = ((16, 1024), (16, 333))
-FLASH_BF16_NAMES = ("flash_attention_fwd_wgmma", "flash_attention_bwd_dq_bf16",
-                    "flash_attention_bwd_dkv_bf16")
+#: the bf16 forms of rows 2 and 3 on the LM's path (head_dim 64): the
+#: Hopper forward and backward
+FLASH_BF16_NAMES = ("flash_attention_fwd_wgmma",
+                    "flash_attention_bwd_dq_wgmma",
+                    "flash_attention_bwd_dkv_wgmma")
 #: each planted fault of the bf16 forms and the outputs it must move
 FLASH_BF16_FAULTS = {"bf16_accumulator": ("o", "dq", "dk", "dv"),
                      "delta_dropped": ("dq", "dk"),
-                     "diagonal_mask_off": ("o", "dq", "dk", "dv")}
+                     "diagonal_mask_off": ("o", "dq", "dk", "dv"),
+                     "p_unrounded": ("dv",),
+                     "ds_unrounded": ("dq", "dk")}
 
 #: the LM's bf16 witness step: GPT-2-small's vocabulary and heads of 64 at
 #: 2 layers of 4 heads (256 wide), batch 2 x 128, weights from
@@ -6244,7 +6303,8 @@ def flash_bf16_faults(qp, kp, vp, lse, dop, delta, t_k, causal, scale):
     16-deep slice ("bf16_accumulator"; o from P against the row's final
     max); dS = P dP scale ("delta_dropped", the backward's); keys after
     the query counted inside the diagonal tile ("diagonal_mask_off", for
-    a causal problem)."""
+    a causal problem); P fed to P^T dO in f32 ("p_unrounded"), dS to dS K
+    and dS^T Q in f32 ("ds_unrounded")."""
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
     bf = torch.bfloat16
@@ -6252,13 +6312,16 @@ def flash_bf16_faults(qp, kp, vp, lse, dop, delta, t_k, causal, scale):
     q, k, v, do = (x.float() for x in (qp, kp, vp, dop))
     p, ds = FA._ds(q, k, v, lse, do, delta, t_k, causal, scale)
     pb, dsb = p.to(bf), ds.to(bf)
-    del p, ds
     out = {"bf16_accumulator": {
         "o": slice_rounded_product(pb, vp),
         "dq": slice_rounded_product(dsb, kp),
         "dk": slice_rounded_product(dsb.transpose(1, 2), qp),
         "dv": slice_rounded_product(pb.transpose(1, 2), dop)}}
     del pb, dsb
+    out["p_unrounded"] = {"dv": torch.einsum("bqk,bqd->bkd", p, do).to(bf)}
+    out["ds_unrounded"] = {"dq": torch.einsum("bqk,bkd->bqd", ds, k).to(bf),
+                           "dk": torch.einsum("bqk,bqd->bkd", ds, q).to(bf)}
+    del p, ds
     no_delta = torch.zeros_like(delta)
     out["delta_dropped"] = {
         "dq": FA._bwd_dq_plain(qp, kp, vp, lse, dop, no_delta, *args[3:]),
@@ -6317,24 +6380,68 @@ def flash_bf16_case(qp, kp, vp, dop, t_q, t_k, causal, scale) -> dict:
             "args": args}
 
 
+def flash_wgmma_bwd_case(q, k, v, g, causal, scale) -> dict:
+    """The Hopper backward (``_bwd_wgmma``, after the Hopper forward) on
+    [B, T, H, D] q, k, v and dO as they lie, against the twins on the
+    padded problem from the same o and lse: {"got", "want", "mags"} keyed
+    dq, dk, dv in [B, T, H, D], "rerun_bit_identical", and "args" (o,
+    lse) for the timings."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    o, lse = FA._fwd_wgmma(q, k, v, causal, scale)
+    got = FA._bwd_wgmma(q, k, v, o, lse, g, causal, scale)
+    again = FA._bwd_wgmma(q, k, v, o, lse, g, causal, scale)
+    rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    want, mags = flash_wgmma_bwd_want(q, k, v, o, lse, g, causal, scale)
+    return {"got": dict(zip(("dq", "dk", "dv"), got)), "want": want,
+            "mags": mags, "rerun_bit_identical": rerun, "args": (o, lse)}
+
+
+def flash_wgmma_bwd_want(q, k, v, o, lse, g, causal, scale):
+    """The twins' dq, dk, dv of the Hopper backward and their
+    ``flash_bf16_mags``, each cut to the valid rows in [B, T, H, D]."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    qp, kp, vp = FA._prep(q, k, v)
+    dop, op = FA._to_bh(g), FA._to_bh(o)
+    dq, dk, dv = FA._bwd_plain(qp, kp, vp, op, lse, dop, t_k, causal, scale)
+    mags = flash_bf16_mags(qp, kp, vp, op, lse, dop, t_k, causal, scale)[1:]
+    lens = (t_q, t_k, t_k)
+    return ({n: FA._from_bh(x, b, h, t, d)
+             for n, x, t in zip(("dq", "dk", "dv"), (dq, dk, dv), lens)},
+            {n: FA._from_bh(x, b, h, t, d)
+             for n, x, t in zip(("dq", "dk", "dv"), mags, lens)})
+
+
 def check_flash_bf16(dev, timer) -> tuple[list, dict]:
     """The bf16 forms of rows 2 and 3 at the LM training shape [16, 1024,
     12, 64] causal and at T = 333: each output (o, dq, dk, dv) against its
     twin on the same inputs by ``bf16_agrees`` with FLASH_BF16_FLIP (equal
     on all but 1% of the elements, each within one ulp at the larger
     magnitude plus 2^-7 of its ``flash_bf16_mags``), lse within 1e-4 x
-    max(1, |lse|), a rerun in the same bits; each planted fault of
-    FLASH_BF16_FAULTS must fail it on every output it moves.  Times at
-    T = 1024 (bf16, 2 B an element, 989 TFLOP/s): each kernel with the
-    L2 flushed, alone (a trace), its twin, its bound; the forward and the
-    whole backward beside bf16 ``scaled_dot_product_attention`` with the
-    flash backend (a yardstick only)."""
+    max(1, |lse|), a rerun in the same bits: the mma.sync forms on the
+    padded problem, and the Hopper forward and backward (the LM's path at
+    head_dim 64) on q, k, v, dO as they lie.  Each planted fault of
+    FLASH_BF16_FAULTS must fail it on every output it moves, and each of
+    the Hopper forms' source faults (FLASH_WGMMA_FAULTS,
+    FLASH_WGMMA_BWD_FAULTS) on one output at least.  Times at T = 1024
+    (bf16, 2 B an element, 989 TFLOP/s): each Hopper kernel with the L2
+    flushed, alone (a trace), the host's ms a call, its twin, its bound;
+    the forward and the whole backward (delta and both kernels, as the
+    autograd backward runs it) beside bf16 ``scaled_dot_product_attention``
+    with the flash backend (a yardstick only); the mma.sync forms' kernels
+    beside."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
     wgmma_builds = source_fault_builds("flash_attention", FLASH_WGMMA_FAULTS)
+    bwd_builds = source_fault_builds("flash_attention_bwd",
+                                     FLASH_WGMMA_BWD_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(8)
     h, d = 12, 64
     scale = d ** -0.5
@@ -6373,12 +6480,27 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
                 ok = ok and not bf16_agrees(bad, case["want"][n],
                                             case["mags"][n],
                                             coef=FLASH_BF16_FLIP)
+        args = case.pop("args")
+        del case
+        # the Hopper backward (the path's) on q, k, v, dO as they lie
+        hcase = flash_wgmma_bwd_case(q, k, v, g, True, scale)
+        per["wgmma_backward_rerun_bit_identical"] = hcase[
+            "rerun_bit_identical"]
+        ok = ok and hcase["rerun_bit_identical"]
+        for n, got in hcase["got"].items():
+            a = bf16_agreement(got, hcase["want"][n], hcase["mags"][n],
+                               coef=FLASH_BF16_FLIP)
+            per[f"{n}_wgmma"] = a
+            worst[f"{n}_wgmma"] = max(worst.get(f"{n}_wgmma", 0.0),
+                                      a["max_abs_err"])
+            ok = ok and bf16_agrees(got, hcase["want"][n], hcase["mags"][n],
+                                    coef=FLASH_BF16_FLIP)
+        o_h, lse_h = hcase.pop("args")
+        del hcase
         summary[f"T{t}"] = per
         if not ok:
             raise AssertionError(f"bf16 flash forms at [{b}, {t}, {h}, {d}]:"
                                  f" {per}")
-        args = case.pop("args")
-        del case
         if t != 1024:
             continue
         o, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
@@ -6398,21 +6520,32 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
             out, (qh, kh, vh), gh, retain_graph=True))
         fwd = lambda: FA._fwd_wgmma(q, k, v, True, scale)  # noqa: E731
         mma = lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale)  # noqa: E731
-        summary["mma_sync_forward"] = {
-            "shape": [b, t, h, d], "ms": timer(mma),
-            "alone_ms": device_ms([mma], "flash_fwd_bf16_kernel")}
-        dq = lambda: FA._bwd_dq_kernel(*args)                     # noqa: E731
-        dkv = lambda: FA._bwd_dkv_kernel(*args)                   # noqa: E731
+        dq_mma = lambda: FA._bwd_dq_kernel(*args)                 # noqa: E731
+        dkv_mma = lambda: FA._bwd_dkv_kernel(*args)               # noqa: E731
+        summary["mma_sync_forms"] = {
+            "shape": [b, t, h, d],
+            "forward": {"ms": timer(mma),
+                        "alone_ms": device_ms([mma], "flash_fwd_bf16_kernel")},
+            "dq": {"ms": timer(dq_mma),
+                   "alone_ms": device_ms([dq_mma], "flash_bwd_dq_bf16")},
+            "dkv": {"ms": timer(dkv_mma),
+                    "alone_ms": device_ms([dkv_mma], "flash_bwd_dkv_bf16")},
+            "whole_backward_padded_ms": timer(lambda: FA._bwd_kernel(
+                qp, kp, vp, o, lse, dop, t, True, scale))}
+        delta_h = FA._delta_bthd(g, o_h, lse_h.shape[1])
+        bwd_args = (lse_h, g, delta_h, True, scale)
+        dq = lambda: FA._bwd_dq_wgmma(q, k, v, *bwd_args)         # noqa: E731
+        dkv = lambda: FA._bwd_dkv_wgmma(q, k, v, *bwd_args)       # noqa: E731
         # name, call, kernel name in a trace, plain twin, bytes, flops,
         # library call
         forms = (
             (FLASH_BF16_NAMES[0], fwd, "flash_fwd_wgmma_kernel",
              lambda: FA._fwd_plain(qp, kp, vp, t, True, scale),
              4 * act + rowvec, 4.0 * pairs_n * d, library_fwd, ":277"),
-            (FLASH_BF16_NAMES[1], dq, "flash_bwd_dq_bf16_kernel",
+            (FLASH_BF16_NAMES[1], dq, "flash_bwd_dq_wgmma_kernel",
              lambda: FA._bwd_dq_plain(*args), 5 * act + 2 * rowvec,
              6.0 * pairs_n * d, None, ":378"),
-            (FLASH_BF16_NAMES[2], dkv, "flash_bwd_dkv_bf16_kernel",
+            (FLASH_BF16_NAMES[2], dkv, "flash_bwd_dkv_wgmma_kernel",
              lambda: FA._bwd_dkv_plain(*args), 6 * act + 2 * rowvec,
              8.0 * pairs_n * d, None, ":401"))
         for name, fn, key, plain, nbytes, flops, library, line in forms:
@@ -6430,21 +6563,31 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
                 "bound_by": by, "library_ms": library})
         bound_ms, by = bound(8 * act + rowvec, 10.0 * pairs_n * d,
                              BF16_FLOPS_PER_S)
+        whole = lambda: FA._bwd_wgmma(q, k, v, o_h, lse_h, g, True,  # noqa
+                                      scale)
         summary["whole_backward"] = {
             "shape": [b, t, h, d], "gflop": 10.0 * pairs_n * d / 1e9,
             "gbytes": (8 * act + rowvec) / 1e9,
-            "ms": timer(lambda: FA._bwd_kernel(qp, kp, vp, o, lse, dop, t,
-                                               True, scale)),
+            "route": "Hopper: delta from [B, T, H, D], then the two wgmma "
+                     "kernels",
+            "ms": timer(whole),
+            "kernels_alone_ms": device_passes_ms(
+                [whole], ("flash_bwd_dq_wgmma_kernel",
+                          "flash_bwd_dkv_wgmma_kernel"))["total"],
+            "host_ms": host_ms(whole),
             "plain_ms": timer(lambda: FA._bwd_plain(qp, kp, vp, o, lse, dop,
                                                     t, True, scale)),
             "library_ms": library_bwd, "library": "SDPA flash backend",
             "bound_ms": bound_ms, "bound_by": by}
         del qh, kh, vh, out, args
     for row in rows:
-        outs = {"fwd": ("o_wgmma",), "dq": ("dq",), "dkv": ("dk", "dv")}[
-            row["name"].split("_")[-2]]
+        outs = {"fwd": ("o_wgmma",), "dq": ("dq_wgmma",),
+                "dkv": ("dk_wgmma", "dv_wgmma")}[row["name"].split("_")[-2]]
         row["max_abs_err"] = max(worst[n] for n in outs)
+    summary["max_abs_err"] = worst
     summary["wgmma_planted_faults"] = flash_wgmma_faults(dev, wgmma_builds)
+    summary["wgmma_backward_planted_faults"] = flash_wgmma_bwd_faults(
+        dev, bwd_builds)
     torch.cuda.synchronize()
     return rows, summary
 
@@ -6546,6 +6689,123 @@ def flash_wgmma_faults(dev, builds, shapes=((8, 512), (16, 1024))) -> dict:
     return out
 
 
+#: the Hopper backward's planted faults: {fault: [(a line of
+#: csrc/flash_attention_bwd.cu, what it becomes)]}, built by
+#: :func:`source_fault_builds`; each must fail ``bf16_agrees`` against the
+#: twins on one of dq, dk, dv at least (:func:`flash_wgmma_bwd_faults`)
+FLASH_WGMMA_BWD_FAULTS = {
+    # P fed to dV += P^T dO unrounded: its bf16 residual added by a second
+    # product
+    "p_unrounded": [(
+        "        Pv<D>::run(acc_v, pa[kk], wg::desc(dos + 2048 * kk, "
+        "kPanelBytes, 1024));",
+        "      {\n"
+        "        const uint64_t od = wg::desc(dos + 2048 * kk, kPanelBytes, "
+        "1024);\n"
+        "        Pv<D>::run(acc_v, pa[kk], od);\n"
+        "        uint32_t lo[4];\n"
+        "        for (int e = 0; e < 4; ++e)\n"
+        "          lo[e] = bf16_tc::pack_bf16x2(\n"
+        "              s[8 * kk + 2 * e] - __uint_as_float(pa[kk][e] << 16),\n"
+        "              s[8 * kk + 2 * e + 1] -\n"
+        "                  __uint_as_float(pa[kk][e] & 0xffff0000u));\n"
+        "        Pv<D>::run(acc_v, lo, od);\n"
+        "      }")],
+    # dS fed to dK += dS^T Q and dQ += dS K unrounded, the same way
+    "ds_unrounded": [(
+        "        Pv<D>::run(acc_k, dsa[kk], wg::desc(qs + 2048 * kk, "
+        "kPanelBytes, 1024));",
+        "      {\n"
+        "        const uint64_t qd = wg::desc(qs + 2048 * kk, kPanelBytes, "
+        "1024);\n"
+        "        Pv<D>::run(acc_k, dsa[kk], qd);\n"
+        "        uint32_t lo[4];\n"
+        "        for (int e = 0; e < 4; ++e)\n"
+        "          lo[e] = bf16_tc::pack_bf16x2(\n"
+        "              dp[8 * kk + 2 * e] - __uint_as_float(dsa[kk][e] << 16),"
+        "\n"
+        "              dp[8 * kk + 2 * e + 1] -\n"
+        "                  __uint_as_float(dsa[kk][e] & 0xffff0000u));\n"
+        "        Pv<D>::run(acc_k, lo, qd);\n"
+        "      }"), (
+        "        Pv<D>::run(acc, dsa[kk], wg::desc(ks + 2048 * kk, "
+        "kPanelBytes, 1024));",
+        "      {\n"
+        "        const uint64_t kd = wg::desc(ks + 2048 * kk, kPanelBytes, "
+        "1024);\n"
+        "        Pv<D>::run(acc, dsa[kk], kd);\n"
+        "        uint32_t lo[4];\n"
+        "        for (int e = 0; e < 4; ++e)\n"
+        "          lo[e] = bf16_tc::pack_bf16x2(\n"
+        "              s[8 * kk + 2 * e] - __uint_as_float(dsa[kk][e] << 16),\n"
+        "              s[8 * kk + 2 * e + 1] -\n"
+        "                  __uint_as_float(dsa[kk][e] & 0xffff0000u));\n"
+        "        Pv<D>::run(acc, lo, kd);\n"
+        "      }")],
+    # dS = P dP scale in both kernels
+    "delta_dropped": [
+        ("          dp[e] = p * (dp[e] - dl) * scale;",
+         "          dp[e] = p * dp[e] * scale;"),
+        ("        s[e] = p * (dp[e] - dlt[hh]) * scale;",
+         "        s[e] = p * dp[e] * scale;")],
+    # a ring stage released as soon as it is full, before the products
+    # that read it are issued, in both kernels (one arrival a use still,
+    # so nothing hangs)
+    "stage_released_early": [
+        ("    wg::mbar_wait(qfull + 8 * stage, phase);",
+         "    wg::mbar_wait(qfull + 8 * stage, phase);\n"
+         "    if (leader) wg::mbar_arrive(qempty + 8 * stage);"),
+        ("    if (leader) wg::mbar_arrive(qempty + 8 * stage);\n"
+         "    if (++stage == L::kStages) {",
+         "    if (++stage == L::kStages) {"),
+        ("    wg::mbar_wait(kfull + 8 * stage, phase);",
+         "    wg::mbar_wait(kfull + 8 * stage, phase);\n"
+         "    if (leader) wg::mbar_arrive(kempty + 8 * stage);"),
+        ("    if (leader) wg::mbar_arrive(kempty + 8 * stage);\n"
+         "    if (++stage == L::kStages) {",
+         "    if (++stage == L::kStages) {")],
+}
+
+
+def flash_wgmma_bwd_faults(dev, builds, shape=(16, 1024)) -> dict:
+    """Each planted fault of FLASH_WGMMA_BWD_FAULTS (``builds``: from
+    :func:`source_fault_builds`) in place of the Hopper backward's two
+    entries at the LM's shape ([B, T, 12, 64] causal): each must fail
+    ``bf16_agrees`` against the twins on one of dq, dk, dv at least, where
+    the real entries pass (:func:`check_flash_bf16`)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b, t = shape
+    q, k, v, g = (torch.randn(b, t, 12, 64, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    o, lse = FA._fwd_wgmma(q, k, v, True, 0.125)
+    want, mags = flash_wgmma_bwd_want(q, k, v, o, lse, g, True, 0.125)
+    kernels = (FA.KERNEL_BWD_DQ_WGMMA, FA.KERNEL_BWD_DKV_WGMMA)
+    real = [k_._fn or k_._resolve() for k_ in kernels]
+    out = {}
+    for name, (proc, lib) in builds.items():
+        for kernel, fn in zip(kernels, planted_all(proc, lib, kernels)):
+            kernel._fn = fn
+        try:
+            got = FA._bwd_wgmma(q, k, v, o, lse, g, True, 0.125)
+            torch.cuda.synchronize()
+            per = {}
+            for n, x in zip(("dq", "dk", "dv"), got):
+                per[n] = {"share_off": bf16_agreement(
+                    x, want[n], mags[n], coef=FLASH_BF16_FLIP)["share_off"],
+                    "agrees": bf16_agrees(x, want[n], mags[n],
+                                          coef=FLASH_BF16_FLIP)}
+        finally:
+            for kernel, fn in zip(kernels, real):
+                kernel._fn = fn
+        out[name] = per
+        if all(c["agrees"] for c in per.values()):
+            raise AssertionError(f"planted fault {name} of the Hopper flash "
+                                 f"backward passed: {per}")
+    return out
+
+
 def flash_counters() -> dict:
     """{name: Kernel} of the flash forms, f32 and bf16."""
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
@@ -6553,7 +6813,9 @@ def flash_counters() -> dict:
     return {"fwd": FA.KERNEL, "dq": FA.KERNEL_BWD_DQ,
             "dkv": FA.KERNEL_BWD_DKV, "fwd_bf16": FA.KERNEL_BF16,
             "fwd_wgmma": FA.KERNEL_WGMMA, "dq_bf16": FA.KERNEL_BWD_DQ_BF16,
-            "dkv_bf16": FA.KERNEL_BWD_DKV_BF16}
+            "dkv_bf16": FA.KERNEL_BWD_DKV_BF16,
+            "dq_wgmma": FA.KERNEL_BWD_DQ_WGMMA,
+            "dkv_wgmma": FA.KERNEL_BWD_DKV_WGMMA}
 
 
 def lm_bf16_setup():
@@ -6602,17 +6864,19 @@ def lm_bf16_witness(dev) -> dict:
     launches = {n: c.launches for n, c in counters.items()}
     rerun = T.loss_and_grads(cfg, on_card, ids.to(dev), bf)
     sides["cpu"] = T.loss_and_grads(cfg, params, ids, bf)
-    plain_delta = FA._delta
-    FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+    # delta dropped on the Hopper route (head_dim 64) and the padded one
+    plain = FA._delta, FA._delta_bthd
+    FA._delta = lambda do, o: torch.zeros_like(plain[0](do, o))
+    FA._delta_bthd = lambda do, o, tqp: torch.zeros_like(plain[1](do, o, tqp))
     try:
         sides["card_delta_dropped_control"] = T.loss_and_grads(
             cfg, on_card, ids.to(dev), bf)
     finally:
-        FA._delta = plain_delta
+        FA._delta, FA._delta_bthd = plain
     layers = cfg.num_layers
     if launches != {"fwd": 0, "dq": 0, "dkv": 0, "fwd_bf16": 0,
-                    "fwd_wgmma": layers, "dq_bf16": layers,
-                    "dkv_bf16": layers}:
+                    "fwd_wgmma": layers, "dq_bf16": 0, "dkv_bf16": 0,
+                    "dq_wgmma": layers, "dkv_wgmma": layers}:
         raise AssertionError(f"the bf16 witness step's flash launches "
                              f"{launches}")
     if not (torch.equal(rerun[0], sides["card"][0]) and all(
@@ -6653,8 +6917,9 @@ def train_lm_bf16(dev, bs=16, seqlen=1024, steps=10,
     then 2 warm-up steps each and ``steps`` timed steps each in blocks of
     ``steps // 2`` (bf16, f32, f32, bf16) on one fixed batch of 16 x 1024,
     the launch counts zeroed just before each block and read just after:
-    exactly 12 of each bf16 form a bf16 step and no f32 flash launch (and
-    the reverse in f32); tokens/s, step ms p50, peak memory, the bf16 MFU
+    exactly 12 of each Hopper form (the forward, dQ and dK/dV) a bf16 step
+    and no mma.sync or f32 flash launch (and 12 of each f32 form, the
+    3xTF32 backward's among them, an f32 step and no bf16 launch); tokens/s, step ms p50, peak memory, the bf16 MFU
     against 989 TFLOP/s by ``bench.py:928-929``'s FLOP count, bf16 losses
     finite and falling; 3 bf16 steps under ``torch.profiler``.  Returns
     (the phase's result, the bf16 forms' launches over the timed run)."""
@@ -6692,8 +6957,8 @@ def train_lm_bf16(dev, bs=16, seqlen=1024, steps=10,
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     layers, per_block = cfg.num_layers, steps // 2
-    want = {"bf16": {"fwd_wgmma": layers, "dq_bf16": layers,
-                     "dkv_bf16": layers},
+    want = {"bf16": {"fwd_wgmma": layers, "dq_wgmma": layers,
+                     "dkv_wgmma": layers},
             "f32": {"fwd": layers, "dq": layers, "dkv": layers}}
     counters = flash_counters()
     launched = {n: 0 for n in counters}
@@ -6758,7 +7023,7 @@ def train_lm_bf16(dev, bs=16, seqlen=1024, steps=10,
     out["train_launches"] = launched
     del runs, bf16
     return out, {n: launched[k] for n, k in zip(
-        FLASH_BF16_NAMES, ("fwd_wgmma", "dq_bf16", "dkv_bf16"))}
+        FLASH_BF16_NAMES, ("fwd_wgmma", "dq_wgmma", "dkv_wgmma"))}
 
 
 # -- phase 15: the LSTM text classifier and the OCR CRNN in bf16 -------------
@@ -8627,6 +8892,20 @@ def planted(proc, lib, kernel):
     fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
     fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
     return fn
+
+
+def planted_all(proc, lib, kernels) -> list:
+    """The C entries of a planted build's library for each ``Kernel`` of
+    ``kernels`` (entries of the one source it was built from), in order;
+    waits for the build."""
+    import ctypes
+
+    out = [planted(proc, lib, kernels[0])]
+    for kernel in kernels[1:]:
+        fn = getattr(ctypes.CDLL(str(lib)), kernel.symbol)
+        fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+        out.append(fn)
+    return out
 
 
 def decode_profile(cfg, params, scfg, prompts, dev) -> dict:

@@ -31,6 +31,7 @@
 
 #include <cuda_runtime.h>
 
+#include "flash_hopper.cuh"
 #include "gemm_wgmma.cuh"
 #include "mma_bf16.cuh"
 
@@ -166,22 +167,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The kernel's opt-in to `bytes` of dynamic shared memory, set once a
-// card (`set_on`: the caller's own flags, one set a kernel).
-template <class Kern>
-cudaError_t opt_in(Kern* fn, int bytes, bool (&set_on)[64]) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= 64) return cudaErrorInvalidDevice;
-  if (!set_on[device]) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    set_on[device] = true;
-  }
-  return cudaSuccess;
-}
+using flash_hop::opt_in;
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
@@ -443,12 +429,11 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // capped at 112 a thread), D 128 one.
 namespace hop {
 
-namespace wg = gemm::wgmma;
+using namespace flash_hop;  // wg, kPanelBytes, the TMA loads, ex2, Qk, Pv
 
 constexpr int kRows = 128;             // query rows a block
-constexpr int kKeys = 64;              // keys a tile (the twin's tile)
+constexpr int kKeys = kBoxRows;        // keys a tile (the twin's tile)
 constexpr int kThreads = 288;          // warpgroups 0, 1 consume; warp 8
-constexpr int kPanelBytes = 64 * 128;  // [64 rows][64 bf16], swizzled
 
 template <int D>
 struct Layout {
@@ -463,122 +448,6 @@ struct Layout {
   static constexpr int kMinBlocks = D == 64 ? 2 : 1;
   static_assert(D == 64 || D == 128, "the Hopper form's head dims");
   static_assert(kMinBlocks * kBytes <= 227 * 1024, "shared memory");
-};
-
-// one [64 rows][64 d] box of a [B, T, H, D] tensor map at (d0, h, t, b)
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int d0,
-                                            int h, int t, int b,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h),
-         "r"(t), "r"(b), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void fence_operand(uint32_t& v) {
-  asm volatile("" : "+r"(v) :: "memory");
-}
-
-// 2^x by the special-function unit: one instruction where expf takes
-// about ten (the softmax, not the tensor cores, bounds the tile loop)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int N>
-struct Qk;
-template <int N>
-struct Pv;
-
-template <>
-struct Qk<64> {
-  // d (+)= a . b^T: m64n64k16, A and B K-major in shared memory
-  __device__ static void run(float (&d)[32], uint64_t da, uint64_t db,
-                             int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct Pv<64> {
-  // d += a . b: m64n64k16, A from registers (4 x 2 bf16, the m16n8k16
-  // layout a warp), B MN-major in shared memory (the transposed-B flag)
-  __device__ static void run(float (&d)[32], const uint32_t (&a)[4],
-                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Pv<128> {
-  // d += a . b: m64n128k16, A from registers (4 x 2 bf16, the m16n8k16
-  // layout a warp), B MN-major in shared memory (the transposed-B flag)
-  __device__ static void run(float (&d)[64], const uint32_t (&a)[4],
-                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
 };
 
 template <int D>
@@ -789,29 +658,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           *reinterpret_cast<const uint4*>(stg + (cc >> 3) * kPanelBytes +
                                           r * 128 + ((c ^ (r & 7)) << 4));
   }
-}
-
-// A [B, T, H, D] bf16 operand (element strides sb, st, sh; d contiguous)
-// as a 4-d tensor map of [64 rows][64 d] boxes in the 128-byte swizzle;
-// rows past T read as zeros.  TMA takes strides that are multiples of 16
-// bytes and a 16-byte aligned base: anything else is refused.
-cudaError_t encode_bthd(CUtensorMap* map, const void* x, int B, int T,
-                        int H, int D, long long sb, long long st,
-                        long long sh) {
-  const PFN_cuTensorMapEncodeTiled encode = wg::encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kKeys, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>

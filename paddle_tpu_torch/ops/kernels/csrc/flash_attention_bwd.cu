@@ -9,291 +9,456 @@
 // _dkv_kernel (grid (B*H, k tiles, q tiles), q axis in order).  On the card
 // the function is two kernels, each writing its outputs from one block with
 // no atomics, so a rerun is bit for bit the same:
-//   dK/dV: one block per (bh, 64-key tile); K and V stay in shared memory,
-//          dK and dV accumulate in registers, the block walks the 64-query
-//          tiles from the diagonal down (causal) and for each recomputes
-//          S = Q K^T * scale, P = exp(S - lse), dV += P^T dO, dP = dO V^T,
-//          dS = P * (dP - delta) * scale, dK += dS^T Q.
-//   dQ:    one block per (bh, 64-query tile); Q and dO stay in shared memory,
+//   dK/dV: one block per (bh, key tile); K and V stay in shared memory, dK
+//          and dV accumulate in registers, the block walks the query tiles
+//          from the diagonal down (causal) and for each recomputes
+//          S^T = K Q^T, P^T = exp(S^T * scale - lse), dV += P^T dO,
+//          dP^T = V dO^T, dS^T = P^T * (dP^T - delta) * scale, dK += dS^T Q.
+//   dQ:    one block per (bh, query tile); Q and dO stay in shared memory,
 //          the block walks the key tiles up to the diagonal and accumulates
 //          dQ += dS K in registers.
+// The two kernels recompute S and dP each (7 products where the function
+// needs 5), the price of writing every output from one block.  Keys at or
+// past t_k, and keys after the query (causal, by absolute position), get
+// P = 0, as the TPU kernels' -1e30 mask gives; padded query rows have
+// dO = 0 and delta = 0, so they add nothing.
 //
-// What bounds it on an H100: operations.  At the LM training shape
-// (B=16, T=1024, H=12, D=64, causal) the function's five products (S, dP,
-// dV, dQ, dK) over the causal pairs are 64.5 GFLOP against ~0.40 GB of
-// q/k/v/o/dO/dq/dk/dv, ~160 flop per byte, far above the ~20 flop/byte f32
-// balance point.  f32 at full precision rules out the tensor cores (they
-// would take TF32), so the ceiling is f32 FMA on the CUDA cores; the two
-// kernels recompute S and dP each (7 products in all where the function
-// needs 5), the price of writing every output from one block.  As in the
-// forward, every operand of the inner products is in shared memory or
-// registers: each thread owns a 4x4 block of S/dP and a 4 x D/16 block of
-// each accumulator, causal tiles above the diagonal are never loaded, and
-// shared rows are padded by one float so the threads of a warp read distinct
-// banks.  The dK/dV kernel holds K, V, a Q and a dO tile and P and dS
-// (~100 KB at D=64), over the 48 KB default, so it opts in to more dynamic
-// shared memory.
-//
-// Layout: q/o/dO/dq [BH, Tqp, D], k/v/dk/dv [BH, Tkp, D] with Tqp, Tkp
-// multiples of 64 (the wrapper transposes and zero-pads); lse, delta
-// [BH, Tqp].  Keys at or past t_k, and keys after the query (causal, by
-// absolute position), get P = 0, as the TPU kernels' -1e30 mask gives.
-// Padded query rows have dO = 0 and delta = 0, so they add nothing.
-//
-// Two forms, one pair of entry points each: flash_attention_bwd_{dq,dkv}_f32
-// (this design) and flash_attention_bwd_{dq,dkv}_bf16 (the tensor-core
-// form, below).
+// Three forms, one pair of entry points each:
+//   flash_attention_bwd_{dq,dkv}_tf32x3 f32, the products on the tensor
+//                                       cores as 3xTF32 (below);
+//   flash_attention_bwd_{dq,dkv}_bf16   bf16 on mma.sync, on the padded
+//                                       problem (head_dim 16 and 32 on the
+//                                       main path);
+//   flash_attention_bwd_{dq,dkv}_wgmma  bf16 on wgmma fed by TMA from
+//                                       [B, T, H, D] (head_dim 64 and 128).
+// The f32 and mma.sync forms take q/o/dO/dq [BH, Tqp, D], k/v/dk/dv
+// [BH, Tkp, D] with Tqp, Tkp multiples of 64 (the wrapper transposes and
+// zero-pads) and lse, delta [BH, Tqp].
 
+#include <climits>
 #include <cuda_runtime.h>
 
+#include "flash_hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kB = 64;        // rows of a query tile and of a key tile
-constexpr int kThreads = 256; // 16 x 16: thread (ty, tx) owns rows ty*4+r
-constexpr int kPS = kB + 1;   // padded row of a P / dS tile
+constexpr int kB = 64;  // rows of a query tile and of a key tile
 
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int d, int tid) {
-  for (int i = tid; i < kB * d; i += kThreads) dst[(i / d) * (d + 1) + i % d] = src[i];
-}
+// ---------------------------------------------------------------------------
+// The f32 form: every product on the tensor cores as 3xTF32.
+//
+// What bounds it on an H100: operations.  At the LM training shape
+// (B=16, T=1024, H=12, D=64, causal) the function's five products over the
+// causal pairs are 64.5 GFLOP against ~0.40 GB of q/k/v/o/dO/dq/dk/dv,
+// ~160 flop per byte.  On the CUDA cores (67 TFLOP/s of f32 FMA) that is
+// 0.96 ms at best; the first design (PR 3: 4x4 register tiles of FMAs,
+// scalar copies) took 3.7 ms, held by shared-memory reads (two FMAs a
+// 4-byte read).  The tensor cores take TF32 (10 mantissa bits), not f32,
+// so each f32 operand a is split into a TF32 high part hi = tf32(a) and a
+// TF32 low part lo = tf32(a - hi), each rounded to nearest, and a product
+// is hi.hi + hi.lo + lo.hi in f32 accumulators, the lo.lo term (2^-22 of
+// it) dropped: the counterpart of the reference's Precision.HIGHEST (a
+// multi-pass product on the TPU's matrix unit).  Three passes at 495
+// TFLOP/s put the floor at 0.39 ms.  The design is the bf16 mma.sync
+// form's: 4 warps a block, each 16 rows of the block's 64, the block's own
+// two operands resident, the walked tiles through a 2-stage ring by
+// 16-byte cp.async, causal tiles above the diagonal never loaded,
+// mma.sync.m16n8k8 (tf32) for every product, and for dK/dV the transposed
+// tiles S^T and dP^T, so P^T and dS^T come out of the accumulators as the
+// rows of the A operand of dV += P^T dO and dK += dS^T Q.
+// - The A fragment: the m16n8 accumulator holds columns 2t and 2t + 1 of a
+//   thread's rows where the m16n8k8 A fragment wants columns t and t + 4,
+//   so the reduction over a slice's 8 columns runs in the order (0, 2, 4,
+//   6, 1, 3, 5, 7) instead (the B fragment reads its rows in the same
+//   order): the accumulator is the A fragment as it lies, with no shuffle
+//   and no pass through shared memory.
+// - The rounding: tf32's round to nearest (ties away, the bits cvt.rna
+//   gives) by two integer operations; the conversion instruction issues
+//   at a quarter of the ALU rate and held the first version of this form
+//   (chip_ab.py --tf32-variants times both).
+// - The sums: the tensor cores truncate the sums they round, so a chain
+//   of T / 8 slices into one accumulator drifts toward zero (1.1e-5 of the
+//   gradients against float64 at T 1024, 14x the FMA form's).  The long
+//   sums (dV, dK, dQ) take each slice's three passes summed apart from
+//   zero and added to the accumulator to nearest (mma3_add).  S and dP,
+//   D / 8 slices deep, chain at head_dim <= 64 and are summed apart at 128
+//   (twice as deep); chip_ab.py --tf32-variants weighs summing them apart
+//   at 64 too (nearer float64, slower).
+// - Shared rows are D + 4 floats apart, so both fragment patterns (rows g,
+//   columns t; rows 2t, columns g) fall on 32 distinct banks.
+// - Each warp splits the walked tiles' B values itself (4x what the block
+//   needs).  Versions that split them once a block into (hi, lo) pairs in
+//   shared memory ran slower (8 warps a block and 64-row tiles, one block
+//   an SM; 4 warps and 32-row tiles, two): reading both parts as 8-byte
+//   loads doubles the shared-memory traffic of the products.
+// - The softmax on ex2.approx (exp(x) = 2^(x log2 e), x = S scale - lse in
+//   one fma).
+
+namespace tf32 {
+
+constexpr int kThreads = 128;  // 4 warps; warp w owns rows 16w..16w+15
 
 template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * kPS + 2 * kB;
-}
+__host__ __device__ constexpr int ld() { return D + 4; }
 
 template <int D>
-constexpr size_t dq_smem_floats() {
-  return 4 * (size_t)kB * (D + 1) + (size_t)kB * kPS;
+__host__ __device__ constexpr int tile_floats() { return kB * ld<D>(); }
+
+// the block's 2 tiles + 2 stages x 2 walked tiles + 2 stages x (lse,
+// delta) rows
+template <int D>
+constexpr size_t smem_bytes() {
+  return (6 * (size_t)tile_floats<D>() + 4 * kB) * sizeof(float);
 }
 
-// One block per (bh, key tile j).  Thread (ty, tx) owns key rows
-// kr = ty*4 + r and, of each query tile, the columns qc = tx + 16c.
+// a 64-row x D f32 tile (rows D apart in global memory) into shared rows
+// D + 4 apart, 16 bytes a copy, every thread of the block taking part
+template <int D>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          int tid) {
+  constexpr int kPerRow = D / 4;
+  static_assert(kB * kPerRow % kThreads == 0, "whole passes");
+#pragma unroll
+  for (int i = 0; i < kB * kPerRow / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / kPerRow, e = 4 * (c % kPerRow);
+    bf16_tc::cp_async16(dst + r * ld<D>() + e, src + (size_t)r * D + e,
+                        true);
+  }
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the same bits for every finite x), by two integer operations:
+// half of the 13 dropped bits' unit added to the magnitude, then the
+// dropped bits cleared.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (what TF32 drops of lo), hi and lo each rounded to nearest
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a . b: one m16n8k8 product, tf32 operands, f32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+// An A fragment of f32 values split into its TF32 parts
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+
+// d += a . b in three passes, the small terms first: lo.hi, hi.lo, hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const SplitA& a,
+                                     float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, a.lo, bh0, bh1);
+  mma(d, a.hi, bl0, bl1);
+  mma(d, a.hi, bh0, bh1);
+}
+
+// d += a . b with the slice's three passes summed apart from zero and
+// added to d to nearest (the tensor cores truncate the sums they round)
+__device__ __forceinline__ void mma3_add(float (&d)[4], const SplitA& a,
+                                         float b0, float b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// whether S and dP (D / 8 slices deep) sum each slice apart too
+template <int D>
+constexpr bool kSliceApart = D > 64;
+
+// One block per (bh, key tile j): dk = dS^T Q and dv = P^T dO over the
+// query tiles i >= j (causal) or all of them.  Warp w owns keys
+// key0 = 64 j + 16 w + g and key0 + 8; S^T and dP^T are [16 keys][64
+// queries] a warp, in 8 n8 tiles.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int tqp, int tkp, int t_k,
-                     int causal, float scale) {
-  constexpr int S = D + 1;
-  constexpr int DC = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sk = smem;             // [kB][S]
-  float* sv = sk + kB * S;      // [kB][S]
-  float* sq = sv + kB * S;      // [kB][S]
-  float* sdo = sq + kB * S;     // [kB][S]
-  float* sp = sdo + kB * S;     // [kB keys][kPS]: P^T of the tile
-  float* sds = sp + kB * kPS;   // [kB keys][kPS]: dS^T of the tile
-  float* slse = sds + kB * kPS; // [kB]
-  float* sdl = slse + kB;       // [kB]
+flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int tqp, int tkp, int t_k, int causal,
+                            float scale) {
+  constexpr int LD = ld<D>(), TILE = tile_floats<D>(), kNT = D / 8;
+  extern __shared__ __align__(16) float smem_f[];
+  float* sk = smem_f;
+  float* sv = sk + TILE;
+  float* ring = sv + TILE;             // [2 stages][Q, dO]
+  float* srow = ring + 4 * TILE;       // [2 stages][lse, delta][64]
 
   const int bh = blockIdx.x, j = blockIdx.y;  // j = 0 (most work) first
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t kbase = ((size_t)bh * tkp + (size_t)j * kB) * D;
-  load_tile(sk, k + kbase, D, tid);
-  load_tile(sv, v + kbase, D, tid);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = j * kB + 16 * warp + g;
 
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
-  const int nq = tqp / kB;
-  for (int i = causal ? j : 0; i < nq; ++i) {
-    __syncthreads();  // the previous tile's sq/sdo/sp/sds are no longer read
-    const size_t qbase = ((size_t)bh * tqp + (size_t)i * kB) * D;
-    load_tile(sq, q + qbase, D, tid);
-    load_tile(sdo, dout + qbase, D, tid);
+  const int i0 = causal ? j : 0, nq = tqp / kB;
+  const float* qg = q + (size_t)bh * tqp * D;
+  const float* dog = dout + (size_t)bh * tqp * D;
+  auto stage_q = [&](int s) { return ring + (s & 1) * 2 * TILE; };
+  auto stage_do = [&](int s) { return ring + (s & 1) * 2 * TILE + TILE; };
+  // query tile i into stage s: Q and dO by cp.async, lse and delta by
+  // plain loads (visible after the barrier that precedes their use)
+  auto fetch = [&](int i, int s) {
+    copy_tile<D>(stage_q(s), qg + (size_t)i * kB * D, tid);
+    copy_tile<D>(stage_do(s), dog + (size_t)i * kB * D, tid);
     if (tid < kB) {
-      slse[tid] = lse[(size_t)bh * tqp + (size_t)i * kB + tid];
-      sdl[tid] = delta[(size_t)bh * tqp + (size_t)i * kB + tid];
+      srow[(s & 1) * 128 + tid] = lse[(size_t)bh * tqp + i * kB + tid];
+      srow[(s & 1) * 128 + 64 + tid] = delta[(size_t)bh * tqp + i * kB + tid];
     }
-    __syncthreads();
+  };
 
-    // S^T (keys x queries) and dP^T in one pass over d
-    float s[4][4], dp[4][4];
+  const size_t kbase = ((size_t)bh * tkp + (size_t)j * kB) * D;
+  copy_tile<D>(sk, k + kbase, tid);
+  copy_tile<D>(sv, v + kbase, tid);
+  if (i0 < nq) fetch(i0, 0);
+  bf16_tc::cp_async_commit();
+
+  float acc_k[kNT][4], acc_v[kNT][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int n = 0; n < kNT; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], dov[4];
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const float* ka = sk + (16 * warp + g) * LD + t;  // A rows g, g + 8
+  const float* va = sv + (16 * warp + g) * LD + t;
+
+  for (int i = i0; i < nq; ++i) {
+    const int s_cur = i - i0;
+    __syncthreads();  // every warp is past the tile whose slot i + 1 takes
+    if (i + 1 < nq) fetch(i + 1, s_cur + 1);
+    bf16_tc::cp_async_commit();
+    bf16_tc::cp_async_wait<1>();
+    __syncthreads();
+    const float* sq = stage_q(s_cur);
+    const float* sdo = stage_do(s_cur);
+    const float* slse = srow + (s_cur & 1) * 128;
+    const float* sdl = slse + 64;
+
+    // S^T = K Q^T and dP^T = V dO^T: Q and dO [query][d] are B's [n][k]
+    float s[8][4], dp[8][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        kv[r] = sk[(ty * 4 + r) * S + d];
-        vv[r] = sv[(ty * 4 + r) * S + d];
-      }
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        qv[c] = sq[(tx + 16 * c) * S + d];
-        dov[c] = sdo[(tx + 16 * c) * S + d];
-      }
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int kc = 0; kc < D / 8; ++kc) {
+      SplitA ak, av;
+      ak.set(ka[8 * kc], ka[8 * LD + 8 * kc], ka[8 * kc + 4],
+             ka[8 * LD + 8 * kc + 4]);
+      av.set(va[8 * kc], va[8 * LD + 8 * kc], va[8 * kc + 4],
+             va[8 * LD + 8 * kc + 4]);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[r][c] = fmaf(kv[r], qv[c], s[r][c]);
-          dp[r][c] = fmaf(vv[r], dov[c], dp[r][c]);
+      for (int n = 0; n < 8; ++n) {
+        const int b = (8 * n + g) * LD + 8 * kc + t;
+        if constexpr (kSliceApart<D>) {
+          mma3_add(s[n], ak, sq[b], sq[b + 4]);
+          mma3_add(dp[n], av, sdo[b], sdo[b + 4]);
+        } else {
+          mma3(s[n], ak, sq[b], sq[b + 4]);
+          mma3(dp[n], av, sdo[b], sdo[b + 4]);
         }
+      }
     }
+
+    // P^T and dS^T, element (key, query column)
+    const float kLog2e = 1.4426950408889634f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int kpos = j * kB + ty * 4 + r;
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qc = tx + 16 * c, qpos = i * kB + qc;
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * n + 2 * t + (e & 1);
+        const int qpos = i * kB + qc, kpos = key0 + 8 * (e >> 1);
         const bool valid = kpos < t_k && (!causal || qpos >= kpos);
-        const float p = valid ? expf(s[r][c] * scale - slse[qc]) : 0.f;
-        sp[(ty * 4 + r) * kPS + qc] = p;
-        sds[(ty * 4 + r) * kPS + qc] = p * (dp[r][c] - sdl[qc]) * scale;
+        const float p = valid ? flash_hop::ex2(
+            fmaf(s[n][e], scale, -slse[qc]) * kLog2e) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - sdl[qc]) * scale;
       }
-    }
-    __syncthreads();
 
-    // dV += P^T dO, dK += dS^T Q over the tile's 64 queries
-#pragma unroll 4
-    for (int qq = 0; qq < kB; ++qq) {
-      float pv[4], dsv[4], dov[DC], qv[DC];
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, 8 at a
+    // time in the order (0, 2, 4, 6, 1, 3, 5, 7): the accumulator tile n
+    // is then the A fragment as it lies (c0, c2, c1, c3), and B's rows
+    // are the queries 2t and 2t + 1
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pv[r] = sp[(ty * 4 + r) * kPS + qq];
-        dsv[r] = sds[(ty * 4 + r) * kPS + qq];
+    for (int kk = 0; kk < 8; ++kk) {
+      SplitA pa, da;
+      pa.set(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      da.set(dp[kk][0], dp[kk][2], dp[kk][1], dp[kk][3]);
+#pragma unroll
+      for (int dn = 0; dn < kNT; ++dn) {
+        const int b = (8 * kk + 2 * t) * LD + 8 * dn + g;
+        mma3_add(acc_v[dn], pa, sdo[b], sdo[b + LD]);
+        mma3_add(acc_k[dn], da, sq[b], sq[b + LD]);
       }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        dov[c] = sdo[qq * S + tx + 16 * c];
-        qv[c] = sq[qq * S + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[r][c] = fmaf(pv[r], dov[c], acc_v[r][c]);
-          acc_k[r][c] = fmaf(dsv[r], qv[c], acc_k[r][c]);
-        }
     }
   }
+  bf16_tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const size_t row = kbase + (size_t)(ty * 4 + r) * D;
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = (size_t)bh * tkp + key0 + 8 * h;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[row + tx + 16 * c] = acc_k[r][c];
-      dv[row + tx + 16 * c] = acc_v[r][c];
+    for (int n = 0; n < kNT; ++n) {
+      const size_t o = row * D + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dk + o) =
+          make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + o) =
+          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
   }
 }
 
-// One block per (bh, query tile i).  Thread (ty, tx) owns query rows
-// qr = ty*4 + r and, of each key tile, the columns kc = tx + 16c.
+// One block per (bh, query tile i): dq = dS K over the key tiles j <= i
+// (causal) or all of them.  Warp w owns rows row0 = 64 i + 16 w + g and
+// row0 + 8.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int tqp, int tkp, int t_k, int causal, float scale) {
-  constexpr int S = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* sq = smem;            // [kB][S]
-  float* sdo = sq + kB * S;    // [kB][S]
-  float* sk = sdo + kB * S;    // [kB][S]
-  float* sv = sk + kB * S;     // [kB][S]
-  float* sds = sv + kB * S;    // [kB queries][kPS]
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int tqp, int tkp, int t_k,
+                           int causal, float scale) {
+  constexpr int LD = ld<D>(), TILE = tile_floats<D>(), kNT = D / 8;
+  extern __shared__ __align__(16) float smem_f[];
+  float* sq = smem_f;
+  float* sdo = sq + TILE;
+  float* ring = sdo + TILE;  // [2 stages][K, V]
 
   const int bh = blockIdx.x;
   const int i = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t qbase = ((size_t)bh * tqp + (size_t)i * kB) * D;
-  load_tile(sq, q + qbase, D, tid);
-  load_tile(sdo, dout + qbase, D, tid);
-  float row_lse[4], row_dl[4], acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const size_t row = (size_t)bh * tqp + (size_t)i * kB + ty * 4 + r;
-    row_lse[r] = lse[row];
-    row_dl[r] = delta[row];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = i * kB + 16 * warp + g;   // rows row0 and row0 + 8
 
   int n_tiles = tkp / kB;
   if (causal) n_tiles = min(n_tiles, i + 1);
+  const float* kg = k + (size_t)bh * tkp * D;
+  const float* vg = v + (size_t)bh * tkp * D;
+  auto stage_k = [&](int j) { return ring + (j & 1) * 2 * TILE; };
+  auto stage_v = [&](int j) { return ring + (j & 1) * 2 * TILE + TILE; };
+
+  const size_t qbase = ((size_t)bh * tqp + (size_t)i * kB) * D;
+  copy_tile<D>(sq, q + qbase, tid);
+  copy_tile<D>(sdo, dout + qbase, tid);
+  copy_tile<D>(stage_k(0), kg, tid);
+  copy_tile<D>(stage_v(0), vg, tid);
+  bf16_tc::cp_async_commit();
+
+  float row_lse[2], row_dl[2], acc[kNT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row_lse[h] = lse[(size_t)bh * tqp + row0 + 8 * h];
+    row_dl[h] = delta[(size_t)bh * tqp + row0 + 8 * h];
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float* qa = sq + (16 * warp + g) * LD + t;  // A rows g, g + 8
+  const float* da = sdo + (16 * warp + g) * LD + t;
+
   for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // the previous tile's sk/sv/sds are no longer read
-    const size_t kbase = ((size_t)bh * tkp + (size_t)j * kB) * D;
-    load_tile(sk, k + kbase, D, tid);
-    load_tile(sv, v + kbase, D, tid);
+    __syncthreads();  // every warp is past tile j - 1, whose slot j + 1 takes
+    if (j + 1 < n_tiles) {
+      copy_tile<D>(stage_k(j + 1), kg + (size_t)(j + 1) * kB * D, tid);
+      copy_tile<D>(stage_v(j + 1), vg + (size_t)(j + 1) * kB * D, tid);
+    }
+    bf16_tc::cp_async_commit();
+    bf16_tc::cp_async_wait<1>();
     __syncthreads();
+    const float* sk = stage_k(j);
+    const float* sv = stage_v(j);
 
-    float s[4][4], dp[4][4];
+    // S = Q K^T and dP = dO V^T: K and V [key][d] are B's [n][k]
+    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], dov[4], kv[4], vv[4];
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        qv[r] = sq[(ty * 4 + r) * S + d];
-        dov[r] = sdo[(ty * 4 + r) * S + d];
-      }
+    for (int kc = 0; kc < D / 8; ++kc) {
+      SplitA aq, ad;
+      aq.set(qa[8 * kc], qa[8 * LD + 8 * kc], qa[8 * kc + 4],
+             qa[8 * LD + 8 * kc + 4]);
+      ad.set(da[8 * kc], da[8 * LD + 8 * kc], da[8 * kc + 4],
+             da[8 * LD + 8 * kc + 4]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        kv[c] = sk[(tx + 16 * c) * S + d];
-        vv[c] = sv[(tx + 16 * c) * S + d];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-          dp[r][c] = fmaf(dov[r], vv[c], dp[r][c]);
+      for (int n = 0; n < 8; ++n) {
+        const int b = (8 * n + g) * LD + 8 * kc + t;
+        if constexpr (kSliceApart<D>) {
+          mma3_add(s[n], aq, sk[b], sk[b + 4]);
+          mma3_add(dp[n], ad, sv[b], sv[b + 4]);
+        } else {
+          mma3(s[n], aq, sk[b], sk[b + 4]);
+          mma3(dp[n], ad, sv[b], sv[b + 4]);
         }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = i * kB + ty * 4 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = j * kB + tx + 16 * c;
-        const bool valid = kpos < t_k && (!causal || qpos >= kpos);
-        const float p = valid ? expf(s[r][c] * scale - row_lse[r]) : 0.f;
-        sds[(ty * 4 + r) * kPS + tx + 16 * c] =
-            p * (dp[r][c] - row_dl[r]) * scale;
       }
     }
-    __syncthreads();
 
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll 4
-    for (int kk = 0; kk < kB; ++kk) {
-      float dsv[4], kv[DC];
+    // dS = P * (dP - delta) * scale, element (row, key column)
+    const float kLog2e = 1.4426950408889634f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) dsv[r] = sds[(ty * 4 + r) * kPS + kk];
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = sk[kk * S + tx + 16 * c];
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = row0 + 8 * (e >> 1);
+        const int kpos = j * kB + 8 * n + 2 * t + (e & 1);
+        const bool valid = kpos < t_k && (!causal || qpos >= kpos);
+        const float p = valid ? flash_hop::ex2(
+            fmaf(s[n][e], scale, -row_lse[e >> 1]) * kLog2e) : 0.f;
+        s[n][e] = p * (dp[n][e] - row_dl[e >> 1]) * scale;
+      }
+
+    // dQ += dS K over the tile's 64 keys in the order of the dK/dV
+    // kernel's products: K [key][d] is B's [k][n], rows 2t and 2t + 1
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+    for (int kk = 0; kk < 8; ++kk) {
+      SplitA sa;
+      sa.set(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(dsv[r], kv[c], acc[r][c]);
+      for (int dn = 0; dn < kNT; ++dn) {
+        const int b = (8 * kk + 2 * t) * LD + 8 * dn + g;
+        mma3_add(acc[dn], sa, sk[b], sk[b + LD]);
+      }
     }
   }
+  bf16_tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const size_t row = qbase + (size_t)(ty * 4 + r) * D;
+  for (int h = 0; h < 2; ++h) {
+    const size_t row = (size_t)bh * tqp + row0 + 8 * h;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dq[row + tx + 16 * c] = acc[r][c];
+    for (int n = 0; n < kNT; ++n)
+      *reinterpret_cast<float2*>(dq + row * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
 
@@ -301,12 +466,13 @@ template <int D>
 int launch_dq(const float* q, const float* k, const float* v, const float* dout,
               const float* lse, const float* delta, float* dq, int bh, int tqp,
               int tkp, int t_k, int causal, float scale, cudaStream_t stream) {
-  const int smem = (int)(dq_smem_floats<D>() * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool opted[64] = {};
+  const int smem = (int)smem_bytes<D>();
+  const cudaError_t err =
+      flash_hop::opt_in(flash_bwd_dq_tf32x3_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, tqp / kB);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, tqp, tkp, t_k, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -316,19 +482,23 @@ int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* delta,
                float* dk, float* dv, int bh, int tqp, int tkp, int t_k,
                int causal, float scale, cudaStream_t stream) {
-  const int smem = (int)(dkv_smem_floats<D>() * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static bool opted[64] = {};
+  const int smem = (int)smem_bytes<D>();
+  const cudaError_t err =
+      flash_hop::opt_in(flash_bwd_dkv_tf32x3_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bh, tkp / kB);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, tqp, tkp, t_k, causal, scale);
   return (int)cudaGetLastError();
 }
 
+}  // namespace tf32
+
 // ---------------------------------------------------------------------------
-// The bf16 form: bf16 q, k, v, dO on the tensor cores; lse and delta f32;
+// The mma.sync form of the bf16 backward, on the padded problem: the main
+// path's at head_dim 16 and 32 (the Hopper form below takes 64 and 128).
+// bf16 q, k, v, dO on the tensor cores; lse and delta f32;
 // S, P, dP and dS in f32 registers; P rounded to bf16 before P^T dO and
 // dS before dS K and dS^T Q; dq, dk, dv written in bf16 from f32
 // accumulators, as the TPU kernels do with bf16 operands
@@ -701,39 +871,611 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper form of the bf16 backward (flash_attention_bwd_{dq,dkv}_wgmma),
+// for head_dim 64 and 128; the mma.sync form above keeps 16 and 32.  The
+// same function and rounding points as the mma.sync form (the twins are
+// flash_attention.py's _bwd_dq_plain and _bwd_dkv_plain): S and dP in f32,
+// P = exp(S scale - lse) in f32, P rounded to bf16 before P^T dO, dS before
+// dS K and dS^T Q, dq, dk and dv rounded once; lse and delta f32.
+//
+// What bounds it on an H100: operations.  At the LM training shape the
+// five products over the causal pairs are 64.5 GFLOP, 65 us at 989
+// TFLOP/s, against ~0.2 GB (60 us at 3.35 TB/s); the two kernels do 7
+// products (90 GFLOP).  Only wgmma reaches the tensor cores' full bf16
+// rate, so the design is Hopper's, after the forward's (hop):
+// - Operands by TMA, where they lie: q, k, v and dO stay [B, T, H, D] (any
+//   strides that are multiples of 16 bytes), read through 4-d tensor maps
+//   as [64 rows][64 d] boxes in the 128-byte swizzle (D 128: two panels);
+//   rows past T read as zeros.  lse and delta come [B*H, Tqp] f32 by 1-d
+//   bulk copies of 64 rows; dq, dk and dv are written [B, T, H, D], staged
+//   through the block's own operand tiles and stored as whole rows.
+// - dK/dV: a block is a tile of 128 keys of one (b, h): two consumer
+//   warpgroups of 64 keys and one producer warp.  K and V stay resident;
+//   the producer streams 64-query tiles of Q and dO with their lse and
+//   delta rows through a kStages-deep mbarrier ring from the diagonal
+//   down (tiles wholly above it are never loaded; a warpgroup releases a
+//   tile wholly above its own keys unread).  Each warpgroup computes
+//   S^T = K Q^T and dP^T = V dO^T on wgmma m64n64k16 from shared memory
+//   (K and Q both K-major), then P^T = 2^(S^T scale log2e - lse log2e) on
+//   ex2.approx, the mask only on tiles that cross the diagonal, t_k or
+//   t_q; P^T rounded to bf16 is packed from the accumulators into wgmma's
+//   register A (the accumulator's m16n8 layout is the A fragment's) for
+//   dV += P^T dO with dO the MN-major B; dS^T = P^T (dP^T - delta) scale
+//   rounded to bf16 feeds dK += dS^T Q the same way.
+// - dQ: a block is a tile of 128 queries: Q, dO and their lse and delta
+//   rows stay resident, K and V stream up to the diagonal; S = Q K^T and
+//   dP = dO V^T on wgmma from shared memory, dS rounded to bf16 into
+//   register A, dQ += dS K with K the MN-major B.
+// - A warpgroup releases a stage only after the wgmma groups that read it
+//   have retired (wgmma.wait_group 0).  No atomics: every output element
+//   is written by one block, so a rerun gives the same bits.
+// A warpgroup runs a tile's S and dP products, its ex2 and dS work and
+// its dV and dK (or dQ) products in turn, one block of 9 warps an SM:
+// the kernels stay at 27-29% of the bound at the LM shape (PERF.md row
+// 3 bf16); the ring's depth does not bound them.
+namespace hop_bwd {
+
+using namespace flash_hop;  // wg, kPanelBytes, the TMA loads, ex2, Qk, Pv
+
+constexpr int kThreads = 288;   // warpgroups 0, 1 consume; warp 8 loads
+constexpr int kRows = 128;      // keys (dK/dV) or queries (dQ) a block
+constexpr int kRowBytes = 256;  // a tile's 64 lse or delta values
+
+template <int D>
+struct Layout {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  // the two resident operands, 128 rows each: K, V (dK/dV); Q, dO (dQ)
+  static constexpr int kFixedBytes = 4 * kTileBytes;
+  // dK/dV: a stage is Q, dO and the tile's lse and delta rows (padded to
+  // the swizzle's 1024-byte atom); dQ: the resident rows, then stages of
+  // K and V
+  static constexpr int kDkvStageBytes = 2 * kTileBytes + 1024;
+  static constexpr int kDkvBarOffset = kFixedBytes + kStages * kDkvStageBytes;
+  static constexpr int kDqStageBytes = 2 * kTileBytes;
+  static constexpr int kDqRowsOffset = kFixedBytes;
+  static constexpr int kDqBarOffset = kFixedBytes + 1024 + kStages * kDqStageBytes;
+  // + 1024: the dynamic window's start is rounded up to the swizzle atom
+  static constexpr int kDkvBytes = 1024 + kDkvBarOffset + (1 + 2 * kStages) * 8;
+  static constexpr int kDqBytes = 1024 + kDqBarOffset + (1 + 2 * kStages) * 8;
+  static_assert(D == 64 || D == 128, "the Hopper form's head dims");
+  static_assert(kDkvBytes <= 227 * 1024 && kDqBytes <= 227 * 1024,
+                "shared memory");
+};
+
+// The output tile of a warpgroup, acc[4 n + 2 hh + e] (row r0 + 8 hh of
+// its 64, column 8 n + 2 t4 + e), rounded once into the warpgroup's own
+// operand tile `stg` (16-byte chunk c of row r at c ^ (r % 8)), then
+// stored as whole rows, 16 bytes a lane, into [B, T, H, D] rows row_wg..
+// below t
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           unsigned char* stg, int r0,
+                                           int t4, bf16_tc::bf16* out,
+                                           int b, int h, int H, int t,
+                                           int row_wg, int wgi) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wgi) : "memory");
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh, c = n & 7;
+      *reinterpret_cast<__nv_bfloat162*>(
+          stg + (n >> 3) * kPanelBytes + r * 128 + ((c ^ (r & 7)) << 4) +
+          4 * t4) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * hh], acc[4 * n + 2 * hh + 1]);
+    }
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wgi) : "memory");
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x & 127; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks, cc = i % kChunks, c = cc & 7;
+    const int row = row_wg + r;
+    if (row < t)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * t + row) * H + h) * D +
+                                8 * cc) =
+          *reinterpret_cast<const uint4*>(stg + (cc >> 3) * kPanelBytes +
+                                          r * 128 + ((c ^ (r & 7)) << 4));
+  }
+}
+
+// One block per (bh, 128-key tile): dk = dS^T Q, dv = P^T dO over the
+// query tiles from the diagonal down (causal) or all of them.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16_tc::bf16* __restrict__ dk,
+                           bf16_tc::bf16* __restrict__ dv, int H, int t_q,
+                           int t_k, int tqp, int causal, float scale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the atoms' alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t kv_full = base + L::kDkvBarOffset;
+  const uint32_t qfull = kv_full + 8, qempty = qfull + 8 * L::kStages;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kRows;  // the most work first
+  const int nq = tqp / 64;
+  const int i0 = causal ? k0 / 64 : 0;  // the first tile that meets a key
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(kv_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      wg::mbar_init(qfull + 8 * s, 1);   // the producer's, with TMA's bytes
+      wg::mbar_init(qempty + 8 * s, 2);  // one a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 8) {
+    // -- the producer: K and V once, then Q, dO, lse, delta tile by tile --
+    if (lane == 0) {
+      wg::mbar_expect_tx(kv_full, L::kFixedBytes);
+      for (int r = 0; r < 2; ++r)
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_4d(base + (r * L::kPanels + p) * kPanelBytes, &k_map,
+                      64 * p, h, k0 + 64 * r, b, kv_full);
+          tma_load_4d(base + 2 * L::kTileBytes +
+                          (r * L::kPanels + p) * kPanelBytes,
+                      &v_map, 64 * p, h, k0 + 64 * r, b, kv_full);
+        }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = i0; i < nq; ++i) {
+        const uint32_t st = base + L::kFixedBytes + stage * L::kDkvStageBytes;
+        const uint32_t fb = qfull + 8 * stage;
+        wg::mbar_wait(qempty + 8 * stage, phase ^ 1);
+        wg::mbar_expect_tx(fb, 2 * L::kTileBytes + 2 * kRowBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_4d(st + p * kPanelBytes, &q_map, 64 * p, h, 64 * i, b, fb);
+          tma_load_4d(st + L::kTileBytes + p * kPanelBytes, &do_map, 64 * p,
+                      h, 64 * i, b, fb);
+        }
+        const size_t row = (size_t)bh * tqp + 64 * i;
+        bulk_load(st + 2 * L::kTileBytes, lse + row, kRowBytes, fb);
+        bulk_load(st + 2 * L::kTileBytes + kRowBytes, delta + row, kRowBytes,
+                  fb);
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // -- the consumers: 64 keys a warpgroup, every query tile ---------------
+  const int wgi = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int key_wg = k0 + 64 * wgi;              // the warpgroup's keys
+  const int r0 = 16 * (warp & 3) + g;            // its rows r0, r0 + 8
+  const bool leader = (threadIdx.x & 127) == 0;
+  const uint32_t ks = base + wgi * L::kTileBytes;
+  const uint32_t vs = base + (2 + wgi) * L::kTileBytes;
+  // acc[4 n + 2 hh + e]: key key_wg + r0 + 8 hh, column 8 n + 2 t4 + e
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const float kLog2e = 1.4426950408889634f;
+  const float scale2 = scale * kLog2e;  // S in base 2: exp(x) = 2^(x log2 e)
+  wg::mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = i0; i < nq; ++i) {
+    wg::mbar_wait(qfull + 8 * stage, phase);
+    const uint32_t qs = base + L::kFixedBytes + stage * L::kDkvStageBytes;
+    const uint32_t dos = qs + L::kTileBytes;
+    const float* rows = reinterpret_cast<const float*>(
+        smem + L::kFixedBytes + stage * L::kDkvStageBytes + 2 * L::kTileBytes);
+    // a causal tile wholly above the warpgroup's first key adds nothing
+    if ((!causal || 64 * i + 63 >= key_wg) && key_wg < t_k) {
+      // S^T = K Q^T and dP^T = V dO^T: 16-deep slices of d
+      float s[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelBytes + 32 * (kk & 3);
+        Qk<64>::run(s, wg::desc(ks + off, 16, 1024),
+                    wg::desc(qs + off, 16, 1024), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelBytes + 32 * (kk & 3);
+        Qk<64>::run(dp, wg::desc(vs + off, 16, 1024),
+                    wg::desc(dos + off, 16, 1024), kk);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        wg::fence_operand(s[e]);
+        wg::fence_operand(dp[e]);
+      }
+
+      // P^T = 2^(S^T scale2 - lse log2e) and dS^T, element (key, query
+      // column 8 n + 2 t4 + e); the mask only on a tile that crosses the
+      // diagonal, t_k or t_q (uniform across the warpgroup)
+      const bool edge = (causal && 64 * i < key_wg + 63) ||
+                        key_wg + 64 > t_k || 64 * i + 64 > t_q;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int qc = 8 * n + 2 * t4;
+        const float2 lse2 = *reinterpret_cast<const float2*>(rows + qc);
+        const float2 dlt2 = *reinterpret_cast<const float2*>(rows + 64 + qc);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int e = 4 * n + x;
+          const float l = (x & 1) ? lse2.y : lse2.x;
+          const float dl = (x & 1) ? dlt2.y : dlt2.x;
+          float p = ex2(fmaf(s[e], scale2, -l * kLog2e));
+          if (edge) {
+            const int qpos = 64 * i + qc + (x & 1);
+            const int kpos = key_wg + r0 + 8 * (x >> 1);
+            if (kpos >= t_k || qpos >= t_q || (causal && qpos < kpos))
+              p = 0.f;
+          }
+          s[e] = p;
+          dp[e] = p * (dp[e] - dl) * scale;
+        }
+      }
+      // P^T and dS^T rounded to bf16 in the A operands: keys are rows,
+      // queries 16 kk.. are the accumulator's n8 tiles 2 kk and 2 kk + 1
+      uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kk][e] = bf16_tc::pack_bf16x2(s[8 * kk + 2 * e],
+                                           s[8 * kk + 2 * e + 1]);
+          dsa[kk][e] = bf16_tc::pack_bf16x2(dp[8 * kk + 2 * e],
+                                            dp[8 * kk + 2 * e + 1]);
+        }
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q [query][d] are the
+      // MN-major B, 16 queries (2 KB) a slice
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) {
+        wg::fence_operand(acc_k[e]);
+        wg::fence_operand(acc_v[e]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          fence_operand(pa[kk][e]);
+          fence_operand(dsa[kk][e]);
+        }
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Pv<D>::run(acc_v, pa[kk], wg::desc(dos + 2048 * kk, kPanelBytes, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Pv<D>::run(acc_k, dsa[kk], wg::desc(qs + 2048 * kk, kPanelBytes, 1024));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) {
+        wg::fence_operand(acc_k[e]);
+        wg::fence_operand(acc_v[e]);
+      }
+    }
+    // this warpgroup's products that read the stage have retired
+    if (leader) wg::mbar_arrive(qempty + 8 * stage);
+    if (++stage == L::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // dk into the warpgroup's own K tile, dv into its own V tile (neither
+  // read any more), each stored as whole rows below t_k
+  store_rows<D>(acc_k, smem + wgi * L::kTileBytes, r0, t4, dk, b, h, H, t_k,
+                key_wg, wgi);
+  store_rows<D>(acc_v, smem + (2 + wgi) * L::kTileBytes, r0, t4, dv, b, h, H,
+                t_k, key_wg, wgi);
+}
+
+// One block per (bh, 128-query tile): dq = dS K over the key tiles up to
+// the diagonal (causal) or all of them; heaviest tiles first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16_tc::bf16* __restrict__ dq, int H, int t_q,
+                          int t_k, int tqp, int causal, float scale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the atoms' alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kDqBarOffset;
+  const uint32_t kfull = q_full + 8, kempty = kfull + 8 * L::kStages;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+  int n_tiles = (t_k + 63) / 64;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / 64 + 1);
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      wg::mbar_init(kfull + 8 * s, 1);   // the producer's, with TMA's bytes
+      wg::mbar_init(kempty + 8 * s, 2);  // one a consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 8) {
+    // -- the producer: Q, dO and their rows once, then K and V tiles ------
+    if (lane == 0) {
+      const int n_rows = min(2, (tqp - q0) / 64);  // tiles below tqp
+      wg::mbar_expect_tx(q_full, L::kFixedBytes + 2 * kRowBytes * n_rows);
+      for (int r = 0; r < 2; ++r) {
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_4d(base + (r * L::kPanels + p) * kPanelBytes, &q_map,
+                      64 * p, h, q0 + 64 * r, b, q_full);
+          tma_load_4d(base + 2 * L::kTileBytes +
+                          (r * L::kPanels + p) * kPanelBytes,
+                      &do_map, 64 * p, h, q0 + 64 * r, b, q_full);
+        }
+        if (r < n_rows) {
+          const size_t row = (size_t)bh * tqp + q0 + 64 * r;
+          const uint32_t dst = base + L::kDqRowsOffset + r * kRowBytes;
+          bulk_load(dst, lse + row, kRowBytes, q_full);
+          bulk_load(dst + 2 * kRowBytes, delta + row, kRowBytes, q_full);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const uint32_t st = base + L::kFixedBytes + 1024 +
+                            stage * L::kDqStageBytes;
+        const uint32_t fb = kfull + 8 * stage;
+        wg::mbar_wait(kempty + 8 * stage, phase ^ 1);
+        wg::mbar_expect_tx(fb, L::kDqStageBytes);
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load_4d(st + p * kPanelBytes, &k_map, 64 * p, h, 64 * j, b, fb);
+          tma_load_4d(st + L::kTileBytes + p * kPanelBytes, &v_map, 64 * p,
+                      h, 64 * j, b, fb);
+        }
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // -- the consumers: 64 query rows a warpgroup, every key tile -----------
+  const int wgi = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int row_wg = q0 + 64 * wgi;              // the warpgroup's rows
+  const int r0 = 16 * (warp & 3) + g;            // its rows r0, r0 + 8
+  const bool leader = (threadIdx.x & 127) == 0;
+  const bool live = row_wg < t_q;
+  const uint32_t qs = base + wgi * L::kTileBytes;
+  const uint32_t dos = base + (2 + wgi) * L::kTileBytes;
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  const float kLog2e = 1.4426950408889634f;
+  const float scale2 = scale * kLog2e;  // S in base 2: exp(x) = 2^(x log2 e)
+  wg::mbar_wait(q_full, 0);
+  float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+  if (live) {
+    const float* rows = reinterpret_cast<const float*>(smem + L::kDqRowsOffset);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 64 * wgi + r0 + 8 * hh;
+      lse2[hh] = rows[r] * kLog2e;
+      dlt[hh] = rows[2 * 64 + r];
+    }
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    wg::mbar_wait(kfull + 8 * stage, phase);
+    const uint32_t ks = base + L::kFixedBytes + 1024 + stage * L::kDqStageBytes;
+    const uint32_t vs = ks + L::kTileBytes;
+    // a causal tile wholly after the warpgroup's last row adds nothing
+    if (live && (!causal || 64 * j <= row_wg + 63)) {
+      // S = Q K^T and dP = dO V^T: 16-deep slices of d
+      float s[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelBytes + 32 * (kk & 3);
+        Qk<64>::run(s, wg::desc(qs + off, 16, 1024),
+                    wg::desc(ks + off, 16, 1024), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelBytes + 32 * (kk & 3);
+        Qk<64>::run(dp, wg::desc(dos + off, 16, 1024),
+                    wg::desc(vs + off, 16, 1024), kk);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        wg::fence_operand(s[e]);
+        wg::fence_operand(dp[e]);
+      }
+
+      // dS = P (dP - delta) scale, element (row r0 + 8 hh, key column
+      // 8 n + 2 t4 + e); the mask only on a tile that crosses the diagonal
+      // or t_k
+      const bool edge = (causal && 64 * j + 63 > row_wg) || 64 * j + 64 > t_k;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int hh = (e >> 1) & 1;
+        float p = ex2(fmaf(s[e], scale2, -lse2[hh]));
+        if (edge) {
+          const int qpos = row_wg + r0 + 8 * hh;
+          const int kpos = 64 * j + 8 * (e >> 2) + 2 * t4 + (e & 1);
+          if (kpos >= t_k || (causal && qpos < kpos)) p = 0.f;
+        }
+        s[e] = p * (dp[e] - dlt[hh]) * scale;
+      }
+      // dS rounded to bf16 in the A operand: keys 16 kk.. are the
+      // accumulator's n8 tiles 2 kk and 2 kk + 1
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dsa[kk][e] = bf16_tc::pack_bf16x2(s[8 * kk + 2 * e],
+                                            s[8 * kk + 2 * e + 1]);
+
+      // dQ += dS K: K [key][d] is the MN-major B, 16 keys (2 KB) a slice
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) wg::fence_operand(acc[e]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fence_operand(dsa[kk][e]);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Pv<D>::run(acc, dsa[kk], wg::desc(ks + 2048 * kk, kPanelBytes, 1024));
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) wg::fence_operand(acc[e]);
+    }
+    // this warpgroup's products that read the stage have retired
+    if (leader) wg::mbar_arrive(kempty + 8 * stage);
+    if (++stage == L::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // dq into the warpgroup's own Q tile (read by now), stored below t_q
+  store_rows<D>(acc, smem + wgi * L::kTileBytes, r0, t4, dq, b, h, H, t_q,
+                row_wg, wgi);
+}
+
+// q, k, v, dO as 4-d tensor maps (strides[3 i..3 i + 2] the (b, t, h)
+// element strides of operand i), or a CUDA error
+inline cudaError_t encode_four(CUtensorMap (&maps)[4], const void* const (&xs)[4],
+                               const long long (&strides)[12], int B, int H,
+                               int t_q, int t_k, int D) {
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = encode_bthd(
+        &maps[i], xs[i], B, (i == 1 || i == 2) ? t_k : t_q, H, D,
+        strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+int launch_dkv(const void* const (&xs)[4], const long long (&strides)[12],
+               const float* lse, const float* delta, void* dk, void* dv,
+               int B, int H, int t_q, int t_k, int tqp, int causal,
+               float scale, cudaStream_t stream) {
+  using L = Layout<D>;
+  static bool opted[64] = {};
+  cudaError_t err = opt_in(flash_bwd_dkv_wgmma_kernel<D>, L::kDkvBytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[4];
+  err = encode_four(maps, xs, strides, B, H, t_q, t_k, D);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (t_k + kRows - 1) / kRows);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreads, L::kDkvBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta,
+      static_cast<bf16_tc::bf16*>(dk), static_cast<bf16_tc::bf16*>(dv), H,
+      t_q, t_k, tqp, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const void* const (&xs)[4], const long long (&strides)[12],
+              const float* lse, const float* delta, void* dq, int B, int H,
+              int t_q, int t_k, int tqp, int causal, float scale,
+              cudaStream_t stream) {
+  using L = Layout<D>;
+  static bool opted[64] = {};
+  cudaError_t err = opt_in(flash_bwd_dq_wgmma_kernel<D>, L::kDqBytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[4];
+  err = encode_four(maps, xs, strides, B, H, t_q, t_k, D);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (t_q + kRows - 1) / kRows);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreads, L::kDqBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta,
+      static_cast<bf16_tc::bf16*>(dq), H, t_q, t_k, tqp, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hop_bwd
+
 bool bad_shape(int bh, int tqp, int tkp) {
   return bh <= 0 || tqp <= 0 || tkp <= 0 || tqp % kB || tkp % kB ||
          tqp / kB > 65535 || tkp / kB > 65535;
 }
 
+// the Hopper entries' shared checks: sizes, tqp = t_q rounded up to 64,
+// 16-byte aligned rows and outputs
+bool bad_bthd(int B, int H, int t_q, int t_k, int tqp, const void* lse,
+              const void* delta, const void* out0, const void* out1) {
+  return B <= 0 || H <= 0 || t_q <= 0 || t_k <= 0 ||
+         tqp != (t_q + 63) / 64 * 64 || (long long)B * H > INT_MAX ||
+         (t_q + hop_bwd::kRows - 1) / hop_bwd::kRows > 65535 ||
+         (t_k + hop_bwd::kRows - 1) / hop_bwd::kRows > 65535 ||
+         !gemm::aligned16(lse) || !gemm::aligned16(delta) ||
+         !gemm::aligned16(out0) || !gemm::aligned16(out1);
+}
+
 }  // namespace
 
-extern "C" int flash_attention_bwd_dq_f32(
+extern "C" int flash_attention_bwd_dq_tf32x3(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, float* dq, int bh, int tqp, int tkp,
     int t_k, int d, int causal, float scale, void* stream) {
   if (bad_shape(bh, tqp, tkp)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
-    case 16: return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
+    case 16: return tf32::launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
+    case 32: return tf32::launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
+    case 64: return tf32::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
+    case 128: return tf32::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int flash_attention_bwd_dkv_f32(
+extern "C" int flash_attention_bwd_dkv_tf32x3(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, float* dk, float* dv, int bh,
     int tqp, int tkp, int t_k, int d, int causal, float scale, void* stream) {
   if (bad_shape(bh, tqp, tkp)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
+    case 16: return tf32::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
+    case 32: return tf32::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
+    case 64: return tf32::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
+    case 128: return tf32::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -775,6 +1517,51 @@ extern "C" int flash_attention_bwd_dkv_bf16(
     case 32: return launch_dkv_bf16<32>(qb, kb, vb, db, lse, delta, ok, ov, bh, tqp, tkp, t_k, causal, scale, s);
     case 64: return launch_dkv_bf16<64>(qb, kb, vb, db, lse, delta, ok, ov, bh, tqp, tkp, t_k, causal, scale, s);
     case 128: return launch_dkv_bf16<128>(qb, kb, vb, db, lse, delta, ok, ov, bh, tqp, tkp, t_k, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q, k, v, dout: bf16 [B, T, H, D] with d contiguous, (b, t, h) element
+// strides in `*_s*` (multiples of 8, 16-byte aligned bases); lse, delta
+// f32 [B*H, tqp] with tqp = t_q rounded up to 64; dq bf16 [B, t_q, H, D]
+// contiguous; d 64 or 128
+extern "C" int flash_attention_bwd_dq_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long do_sb, long long do_st, long long do_sh,
+    const float* lse, const float* delta, void* dq, int B, int H, int t_q,
+    int t_k, int tqp, int d, int causal, float scale, void* stream) {
+  if (bad_bthd(B, H, t_q, t_k, tqp, lse, delta, dq, dq))
+    return (int)cudaErrorInvalidValue;
+  const void* const xs[4] = {q, k, v, dout};
+  const long long strides[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                                 v_sb, v_st, v_sh, do_sb, do_st, do_sh};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 64: return hop_bwd::launch_dq<64>(xs, strides, lse, delta, dq, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 128: return hop_bwd::launch_dq<128>(xs, strides, lse, delta, dq, B, H, t_q, t_k, tqp, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the same operands; dk, dv bf16 [B, t_k, H, D] contiguous
+extern "C" int flash_attention_bwd_dkv_wgmma(
+    const void* q, const void* k, const void* v, const void* dout,
+    long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long do_sb, long long do_st, long long do_sh,
+    const float* lse, const float* delta, void* dk, void* dv, int B, int H,
+    int t_q, int t_k, int tqp, int d, int causal, float scale, void* stream) {
+  if (bad_bthd(B, H, t_q, t_k, tqp, lse, delta, dk, dv))
+    return (int)cudaErrorInvalidValue;
+  const void* const xs[4] = {q, k, v, dout};
+  const long long strides[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                                 v_sb, v_st, v_sh, do_sb, do_st, do_sh};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 64: return hop_bwd::launch_dkv<64>(xs, strides, lse, delta, dk, dv, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 128: return hop_bwd::launch_dkv<128>(xs, strides, lse, delta, dk, dv, B, H, t_q, t_k, tqp, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

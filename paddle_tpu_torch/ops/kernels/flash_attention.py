@@ -1,7 +1,7 @@
 """Flash attention, forward and backward (the port of
 ``paddle_tpu/ops/pallas/flash_attention.py``).
 
-Public layout [B, T, H, D], as in the JAX package; the kernels run on
+Public layout [B, T, H, D], as in the JAX package.  Most kernels run on
 [B*H, T, D] with T zero-padded to the kernels' 64-row tiles.  The padding
 and the transposes are done here, in Python, so the CPU tests reach
 them: CPU tensors run the same padded problem through the plain versions
@@ -11,18 +11,19 @@ them: CPU tensors run the same padded problem through the plain versions
 them; padded query rows are sliced off.
 
 Two dtypes, each with its own kernel forms and launch counts: float32
-(``KERNEL``, ``KERNEL_BWD_DQ``, ``KERNEL_BWD_DKV``; full-precision FMA)
-and bfloat16 (``KERNEL_BF16``, ``KERNEL_BWD_DQ_BF16``,
-``KERNEL_BWD_DKV_BF16``; tensor-core products with f32 sums).  The bf16
-forward at head_dim 64 and 128 (``WGMMA_HEAD_DIMS``) takes the Hopper
-form, ``KERNEL_WGMMA`` (``wgmma`` fed by TMA), which reads q, k and v
-where they lie in [B, T, H, D] and writes o there: no padded copy in the
-forward.  Under autograd its backward builds the padded [B*H, Tp, D]
-inputs the backward kernels take from what the forward saved.  Other
-head dims keep ``KERNEL_BF16`` (``mma.sync``) on the padded problem.  The bf16
-forms round where the JAX kernels round with bf16 operands: P before
-P.V and P^T dO, dS before dS K and dS^T Q, the outputs once; lse and
-delta stay f32.  Their plain twins round at the same points
+(``KERNEL``, full-precision FMA; ``KERNEL_BWD_DQ``, ``KERNEL_BWD_DKV``,
+the products on the tensor cores as 3xTF32: each operand split into two
+TF32 parts, hi.hi + hi.lo + lo.hi) and bfloat16 (``KERNEL_BF16``,
+``KERNEL_BWD_DQ_BF16``, ``KERNEL_BWD_DKV_BF16``; tensor-core products
+with f32 sums).  At head_dim 64 and 128 (``WGMMA_HEAD_DIMS``) the bf16
+forward and backward take the Hopper forms, ``KERNEL_WGMMA``,
+``KERNEL_BWD_DQ_WGMMA`` and ``KERNEL_BWD_DKV_WGMMA`` (``wgmma`` fed by
+TMA), which read q, k, v and dO where they lie in [B, T, H, D] and write
+o, dq, dk and dv there: no padded copy and no transpose on either pass.
+Other head dims keep the ``mma.sync`` forms on the padded problem.  The
+bf16 forms round where the JAX kernels round with bf16 operands: P
+before P.V and P^T dO, dS before dS K and dS^T Q, the outputs once; lse
+and delta stay f32.  Their plain twins round at the same points
 (:func:`_fwd_plain_tiled` runs the kernel's online softmax over 64-key
 tiles, so P is rounded against the running max, as JAX's tiled
 ``_fwd_kernel`` does).  A bf16 CUDA tensor launches the bf16 kernels or
@@ -31,10 +32,10 @@ raises; nothing casts it to f32.
 The forward writes ``o`` and ``lse`` (log-sum-exp per query row).  The
 backward recomputes the probabilities from ``lse``, as the JAX
 package's ``_flash_bwd`` does, with ``delta = rowsum(dO * O)`` computed
-outside the kernels (:func:`_delta`).  :class:`_FlashAttention` is the
-``torch.autograd.Function`` that ties the two (the JAX
-``custom_vjp``); :func:`flash_attention` and :func:`flash_attention_fwd`
-go through it on both devices."""
+outside the kernels (:func:`_delta`; :func:`_delta_bthd` on the Hopper
+route).  :class:`_FlashAttention` is the ``torch.autograd.Function``
+that ties the two (the JAX ``custom_vjp``); :func:`flash_attention` and
+:func:`flash_attention_fwd` go through it on both devices."""
 
 from __future__ import annotations
 
@@ -63,11 +64,15 @@ _WGMMA_ARGS = ([_P] * 3 + [ctypes.c_longlong] * 9 + [_P] * 2 + [_I] * 7
 _DQ_ARGS = [_P] * 7 + [_I] * 6 + [_F, _P]
 # q, k, v, do, lse, delta, dk, dv | the same scalars
 _DKV_ARGS = [_P] * 8 + [_I] * 6 + [_F, _P]
+# q, k, v, do | their (b, t, h) element strides | lse, delta, dq (dk, dv)
+# | b, h, t_q, t_k, tqp, d, causal | scale, stream
+_BWD_WGMMA_ARGS = [_P] * 4 + [ctypes.c_longlong] * 12 + [_P] * 3
+_BWD_WGMMA_TAIL = [_I] * 7 + [_F, _P]
 KERNEL = Kernel("flash_attention", "flash_attention_fwd_f32", _FWD_ARGS)
-KERNEL_BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_f32",
+KERNEL_BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_tf32x3",
                        _DQ_ARGS)
-KERNEL_BWD_DKV = Kernel("flash_attention_bwd", "flash_attention_bwd_dkv_f32",
-                        _DKV_ARGS)
+KERNEL_BWD_DKV = Kernel("flash_attention_bwd",
+                        "flash_attention_bwd_dkv_tf32x3", _DKV_ARGS)
 KERNEL_BF16 = Kernel("flash_attention", "flash_attention_fwd_bf16",
                      _FWD_ARGS)
 KERNEL_BWD_DQ_BF16 = Kernel("flash_attention_bwd",
@@ -78,6 +83,13 @@ KERNEL_BWD_DKV_BF16 = Kernel("flash_attention_bwd",
 #: others keep ``KERNEL_BF16``)
 KERNEL_WGMMA = Kernel("flash_attention", "flash_attention_fwd_wgmma",
                       _WGMMA_ARGS)
+#: the Hopper forms of the bf16 backward (the head dims of KERNEL_WGMMA)
+KERNEL_BWD_DQ_WGMMA = Kernel("flash_attention_bwd",
+                             "flash_attention_bwd_dq_wgmma",
+                             _BWD_WGMMA_ARGS + _BWD_WGMMA_TAIL)
+KERNEL_BWD_DKV_WGMMA = Kernel("flash_attention_bwd",
+                              "flash_attention_bwd_dkv_wgmma",
+                              _BWD_WGMMA_ARGS + [_P] + _BWD_WGMMA_TAIL)
 WGMMA_HEAD_DIMS = (64, 128)
 #: {dtype: (forward, dQ, dK/dV)} kernel forms
 FORMS = {torch.float32: (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV),
@@ -164,8 +176,9 @@ def _fwd_plain_tiled(qp, kp, vp, t_k, causal, scale):
 
 def _delta(do, o):
     """delta_i = sum_d dO_i * O_i, [BH, Tqp, 1] (padded rows have dO = 0,
-    so delta = 0 there)."""
-    return (at_least_f32(do) * at_least_f32(o)).sum(dim=-1, keepdim=True)
+    so delta = 0 there); the products in f32 or the wider dtype (a bf16 o
+    is widened inside the product, not copied)."""
+    return (at_least_f32(do) * o).sum(dim=-1, keepdim=True)
 
 
 def _probs(qp, kp, lse, t_k, causal, scale):
@@ -237,9 +250,9 @@ def _check(q, k, v):
 
 def _check_kernel_args(*xs):
     """What the CUDA kernels take: float32 or bfloat16, all of one dtype,
-    head_dim in HEAD_DIMS, contiguous [BH, Tp, D] with Tp a multiple of 64
-    (bf16: 16-byte aligned, for the 16-byte copies).  Returns the kernel
-    forms of that dtype (``FORMS``)."""
+    head_dim in HEAD_DIMS, contiguous [BH, Tp, D] with Tp a multiple of 64,
+    16-byte aligned (the backward's 16-byte copies; the f32 forward reads
+    floats).  Returns the kernel forms of that dtype (``FORMS``)."""
     enforce(xs[0].device.type == "cuda", f"no kernel for device {xs[0].device}")
     dt = xs[0].dtype
     enforce(dt in FORMS and all(x.dtype == dt for x in xs),
@@ -249,8 +262,8 @@ def _check_kernel_args(*xs):
     enforce(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     enforce(all(x.is_contiguous() and x.shape[1] % BLOCK == 0 for x in xs),
             "the flash kernels need contiguous, 64-row padded inputs")
-    enforce(dt == torch.float32 or all(x.data_ptr() % 16 == 0 for x in xs),
-            "the bf16 flash kernels need 16-byte aligned inputs")
+    enforce(all(x.data_ptr() % 16 == 0 for x in xs),
+            "the flash kernels need 16-byte aligned inputs")
     return FORMS[dt]
 
 
@@ -276,22 +289,27 @@ def _takes_wgmma(q) -> bool:
             and q.shape[-1] in WGMMA_HEAD_DIMS)
 
 
+def _tma_ok(x) -> bool:
+    """Whether TMA reads the [B, T, H, D] bf16 ``x`` as it lies: d
+    contiguous, every stepped (b, t, h) stride a multiple of 8 elements
+    (16 bytes), the base 16-byte aligned."""
+    st = x.stride()
+    return (st[3] == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s, n in zip(st[:3], x.shape[:3])
+                    if n > 1))
+
+
 def _tma_strides(x, name: str) -> tuple:
     """(b, t, h) element strides of a [B, T, H, D] bf16 operand as TMA
-    takes them: d contiguous, every stride a multiple of 8 elements (16
-    bytes) and the base 16-byte aligned, or a refusal (no copy is made).
-    A dimension of size 1 is never stepped, so any stride stands for it."""
-    st = x.stride()
-    if st[3] != 1 or x.data_ptr() % 16:
-        enforce(False, f"the Hopper flash forward reads {name} by TMA: d "
-                f"must be contiguous and the base 16-byte aligned, got "
-                f"strides {st} at {x.data_ptr() % 16} bytes past 16")
-    out = tuple(s if n > 1 else 8 for s, n in zip(st[:3], x.shape[:3]))
-    if any(s % 8 for s in out):
-        enforce(False, f"the Hopper flash forward reads {name} by TMA: its "
-                f"(b, t, h) strides must be multiples of 16 bytes, got "
-                f"{st}")
-    return out
+    takes them (:func:`_tma_ok`), or a refusal (no copy is made).  A
+    dimension of size 1 is never stepped, so any stride stands for it."""
+    if not _tma_ok(x):
+        enforce(False, f"the Hopper flash kernels read {name} by TMA: d must "
+                f"be contiguous, the base 16-byte aligned and the (b, t, h) "
+                f"strides multiples of 16 bytes, got strides {x.stride()} "
+                f"at {x.data_ptr() % 16} bytes past 16")
+    return tuple(s if n > 1 else 8 for s, n in zip(x.stride()[:3],
+                                                   x.shape[:3]))
 
 
 def _fwd_wgmma(q, k, v, causal, scale):
@@ -360,12 +378,113 @@ def _bwd_kernel(qp, kp, vp, o, lse, do, t_k, causal, scale):
             *_bwd_dkv_kernel(qp, kp, vp, *args))
 
 
+def _delta_bthd(do, o, tqp):
+    """delta_i = sum_d dO_i * O_i from [B, T, H, D] dO and o, as the
+    contiguous [B*H, Tqp] f32 rows the Hopper backward reads: the values
+    :func:`_delta` gives on the padded problem (the same products and sum
+    over d), the padded rows 0."""
+    b, t, h, _ = do.shape
+    out = torch.zeros((b, h, tqp), dtype=torch.float32, device=do.device)
+    out[:, :, :t] = (at_least_f32(do) * o).sum(dim=-1).transpose(1, 2)
+    return out.view(b * h, tqp)
+
+
+def _wgmma_bwd_args(q, k, v, lse, do, delta):
+    """The Hopper backward's checks: bf16 q, k, v, dO of one head_dim in
+    WGMMA_HEAD_DIMS, [B, T, H, D] with k.shape == v.shape and
+    do.shape == q.shape, each readable by TMA as it lies; lse and delta the
+    contiguous f32 [B*H, Tqp] (or [B*H, Tqp, 1]) rows, Tqp = Tq rounded up
+    to 64.  Returns (the pointers and strides of q, k, v, dO; Tqp)."""
+    b, t_q, h, d = q.shape
+    if not (all(x.dtype == torch.bfloat16 for x in (q, k, v, do))
+            and d in WGMMA_HEAD_DIMS and k.shape == v.shape
+            and do.shape == q.shape and k.shape[0] == b
+            and k.shape[2:] == q.shape[2:]):
+        enforce(False, f"the Hopper flash backward takes bf16 [B, T, H, D] "
+                f"q, k, v, dO with head_dim in {WGMMA_HEAD_DIMS}, got "
+                f"{[(tuple(x.shape), str(x.dtype)) for x in (q, k, v, do)]}")
+    tqp = round_up(t_q, BLOCK)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if not (x.dtype == torch.float32 and x.is_contiguous()
+                and x.numel() == b * h * tqp and x.shape[0] == b * h
+                and x.data_ptr() % 16 == 0):
+            enforce(False, f"the Hopper flash backward takes {name} as "
+                    f"contiguous f32 [{b * h}, {tqp}] rows, got "
+                    f"{tuple(x.shape)} {x.dtype}")
+    strides = [s for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "dO"))
+               for s in _tma_strides(x, name)]
+    return [x.data_ptr() for x in (q, k, v, do)] + strides, tqp
+
+
+def _bwd_dq_wgmma(q, k, v, lse, do, delta, causal, scale):
+    """The Hopper dQ kernel on [B, T, H, D] q, k, v, dO as they lie, with
+    the forward's lse and :func:`_delta_bthd`'s rows: dq [B, Tq, H, D]
+    contiguous (the contract of :func:`_bwd_dq_plain` on the padded
+    problem).  CPU tensors take that twin."""
+    b, t_q, h, d = q.shape
+    if q.device.type == "cpu":
+        qp, kp, vp = _prep(q, k, v)
+        dq = _bwd_dq_plain(qp, kp, vp, lse.reshape(b * h, -1, 1), _to_bh(do),
+                           delta.reshape(b * h, -1, 1), k.shape[1], causal,
+                           scale)
+        return _from_bh(dq, b, h, t_q, d).contiguous()
+    ptrs, tqp = _wgmma_bwd_args(q, k, v, lse, do, delta)
+    dq = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    if b * h and t_q and k.shape[1]:
+        KERNEL_BWD_DQ_WGMMA.launch_on(
+            q.device.index, *ptrs, lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, h, t_q, k.shape[1], tqp, d, int(bool(causal)),
+            float(scale))
+    return dq
+
+
+def _bwd_dkv_wgmma(q, k, v, lse, do, delta, causal, scale):
+    """The Hopper dK/dV kernel on the same operands: (dk, dv), each
+    [B, Tk, H, D] contiguous (the contract of :func:`_bwd_dkv_plain` on
+    the padded problem).  CPU tensors take that twin."""
+    b, t_k, h, d = k.shape
+    if q.device.type == "cpu":
+        qp, kp, vp = _prep(q, k, v)
+        dk, dv = _bwd_dkv_plain(qp, kp, vp, lse.reshape(b * h, -1, 1),
+                                _to_bh(do), delta.reshape(b * h, -1, 1), t_k,
+                                causal, scale)
+        return (_from_bh(dk, b, h, t_k, d).contiguous(),
+                _from_bh(dv, b, h, t_k, d).contiguous())
+    ptrs, tqp = _wgmma_bwd_args(q, k, v, lse, do, delta)
+    dk, dv = (torch.empty((b, t_k, h, d), dtype=k.dtype, device=k.device)
+              for _ in range(2))
+    if b * h and q.shape[1] and t_k:
+        KERNEL_BWD_DKV_WGMMA.launch_on(
+            q.device.index, *ptrs, lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, q.shape[1], t_k, tqp, d,
+            int(bool(causal)), float(scale))
+    return dk, dv
+
+
+def _bwd_wgmma(q, k, v, o, lse, g, causal, scale):
+    """The backward after the Hopper forward: (dq, dk, dv) [B, T, H, D]
+    contiguous from q, k, v, o as they lie, the forward's lse [B*H, Tqp,
+    1] and the upstream gradient ``g``: delta from dO and o in [B, T, H, D]
+    (:func:`_delta_bthd`), then the two Hopper kernels.  Nothing is padded
+    or transposed.  ``g`` is read as it lies where TMA takes its strides;
+    one that TMA cannot read (d not contiguous, a stride that is not a
+    multiple of 16 bytes, as an expanded gradient's 0, or a base off 16
+    bytes), or one of another dtype, is copied once into a contiguous bf16
+    [B, T, H, D] tensor.  No other kernel is taken."""
+    do = g.to(q.dtype)
+    if not _tma_ok(do):
+        do = do.contiguous()
+    delta = _delta_bthd(do, o, lse.shape[1])
+    args = (lse, do, delta, causal, scale)
+    return (_bwd_dq_wgmma(q, k, v, *args), *_bwd_dkv_wgmma(q, k, v, *args))
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward (JAX: ``flash_attention``'s
     ``custom_vjp``).  Saves the residuals ``_flash_fwd`` keeps: the padded
-    q, k, v, the padded o and lse; after the Hopper form, q, k, v and o as
-    they lie, padded in the backward (the forward made no copy, so a step
-    moves no more bytes).  CPU tensors take the plain versions, CUDA
+    q, k, v, the padded o and lse; after the Hopper forward, q, k, v and o
+    as they lie and lse, which the Hopper backward (:func:`_bwd_wgmma`)
+    reads without a copy.  CPU tensors take the plain versions, CUDA
     tensors the kernels (or raise)."""
 
     @staticmethod
@@ -389,10 +508,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_lse):
         qp, kp, vp, o, lse = ctx.saved_tensors
-        if not ctx.padded:
-            qp, kp, vp = _prep(qp, kp, vp)
-            o = _to_bh(o)
         b, t_q, t_k, h, d, causal, scale = ctx.meta
+        if not ctx.padded:
+            return (*_bwd_wgmma(qp, kp, vp, o, lse, g, causal, scale), None,
+                    None)
         do = g.permute(0, 2, 1, 3).reshape(b * h, t_q, d)
         do = torch.nn.functional.pad(
             do, (0, 0, 0, qp.shape[1] - t_q)).to(qp.dtype).contiguous()

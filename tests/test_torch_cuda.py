@@ -969,7 +969,9 @@ def test_flash_bf16_forms_match_their_twins(cuda, b, t_q, t_k, h, d,
                                             causal):
     """The bf16 forward, dQ and dK/dV kernels against their twins, each
     launched exactly once a run and no f32 form; a rerun bit-identical;
-    every planted fault past the criterion."""
+    every planted fault past the criterion.  At head_dim 64 and 128 the
+    Hopper backward on q, k, v, dO as they lie (after the Hopper forward)
+    against the same twins, its rerun in the same bits."""
     import chip_smoke as S
 
     rng = np.random.default_rng(t_q * 3 + t_k + d)
@@ -983,7 +985,8 @@ def test_flash_bf16_forms_match_their_twins(cuda, b, t_q, t_k, h, d,
     torch.cuda.synchronize()
     assert {n: c.launches - before[n] for n, c in counts.items()} == {
         "fwd": 0, "dq": 0, "dkv": 0, "fwd_bf16": 2, "fwd_wgmma": 0,
-        "dq_bf16": 2, "dkv_bf16": 2}    # the run and its rerun
+        "dq_bf16": 2, "dkv_bf16": 2, "dq_wgmma": 0,
+        "dkv_wgmma": 0}    # the run and its rerun
     assert case["rerun_bit_identical"]
     assert case["lse_err"] <= TOL
     for n, got in case["got"].items():
@@ -999,6 +1002,23 @@ def test_flash_bf16_forms_match_their_twins(cuda, b, t_q, t_k, h, d,
         for n, bad in outs.items():
             assert not S.bf16_agrees(bad, case["want"][n], case["mags"][n],
                                      coef=S.FLASH_BF16_FLIP), (fault, n)
+    if d not in FA.WGMMA_HEAD_DIMS:
+        return
+    del case
+    before = {n: c.launches for n, c in counts.items()}
+    hop = S.flash_wgmma_bwd_case(q, k, v, g, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert {n: c.launches - before[n] for n, c in counts.items()
+            if c.launches != before[n]} == {
+        "fwd_wgmma": 1, "dq_wgmma": 2, "dkv_wgmma": 2}
+    assert hop["rerun_bit_identical"]
+    for n, got in hop["got"].items():
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert torch.isfinite(got).all()
+        assert S.bf16_agrees(got, hop["want"][n], hop["mags"][n],
+                             coef=S.FLASH_BF16_FLIP), (n, S.bf16_agreement(
+                                 got, hop["want"][n], hop["mags"][n],
+                                 coef=S.FLASH_BF16_FLIP))
 
 
 def test_flash_bf16_function_on_card_matches_the_cpu(cuda):
@@ -1074,12 +1094,12 @@ def test_lm_bf16_step_on_card_matches_the_cpu(cuda):
     _, g_cpu = T.loss_and_grads(cfg, params, ids, bf)
     on_card = tree.unflatten(params, [p.to(cuda) for p in tree.leaves(params)])
     forms = [k for form in FA.FORMS.values() for k in form]
-    forms.append(FA.KERNEL_WGMMA)
+    forms += [FA.KERNEL_WGMMA, FA.KERNEL_BWD_DQ_WGMMA, FA.KERNEL_BWD_DKV_WGMMA]
     before = [k.launches for k in forms]
     loss, g_card = T.loss_and_grads(cfg, on_card, ids.to(cuda), bf)
     torch.cuda.synchronize()
-    assert [k.launches - n for k, n in zip(forms, before)] == [0, 0, 0,
-                                                                 0, 2, 2, 2]
+    assert [k.launches - n for k, n in zip(forms, before)] == [
+        0, 0, 0, 0, 0, 0, 2, 2, 2]
     assert all(g.dtype == torch.float32 for g in tree.leaves(g_card))
     g64, g_cpu, g_card = map(named_leaves, (g64, g_cpu, g_card))
     for n in g64:
@@ -3261,25 +3281,131 @@ def test_flash_wgmma_reads_strided_views_as_they_lie(cuda):
         FA.flash_attention(odd, odd, odd, causal=True)
 
 
-def test_flash_wgmma_backward_matches_the_padded_route(cuda):
-    """Under autograd the Hopper forward's backward pads what the forward
-    saved and runs the unchanged dQ and dK/dV kernels: the gradients are
-    those of the same kernels on the padded route fed the same o and
-    lse, bit for bit."""
-    rng = np.random.default_rng(9)
-    b, t, h, d = 2, 200, 3, 64
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_wgmma_backward_matches_the_padded_route(cuda, d):
+    """Under autograd the bf16 backward takes its forward's route.  At
+    head_dim 64 and 128 the Hopper backward reads what the Hopper forward
+    saved as it lies: the gradients are ``_bwd_wgmma``'s on the same o and
+    lse bit for bit, agree with the twins on the padded problem by
+    ``bf16_agrees``, and launch each Hopper backward form once and no
+    mma.sync backward.  At 16 and 32 the padded route serves: the
+    gradients are the mma.sync kernels' on the padded problem fed the
+    same o and lse, bit for bit."""
+    import chip_smoke as S
+
+    rng = np.random.default_rng(9 + d)
+    b, t, h = 2, 200, 3
     q, k, v, g = (_bf16(rng, b, t, h, d).to(cuda) for _ in range(4))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = S.flash_counters()
+    before = {n: c.launches for n, c in counts.items()}
     o = FA.flash_attention(*leaves, causal=True)
     got = torch.autograd.grad(o, leaves, g)
-    o2, lse = FA._fwd_wgmma(q, k, v, True, d ** -0.5)
-    assert torch.equal(o.detach(), o2)
+    torch.cuda.synchronize()
+    launched = {n: c.launches - before[n] for n, c in counts.items()
+                if c.launches != before[n]}
+    scale = d ** -0.5
     qp, kp, vp = FA._prep(q, k, v)
     dop = FA._prep(g, g, g)[0]
-    dq, dk, dv = FA._bwd_kernel(qp, kp, vp, FA._to_bh(o2), lse, dop, t,
-                                True, d ** -0.5)
-    for x, w, tw in zip(got, (dq, dk, dv), (t, t, t)):
-        assert torch.equal(x, FA._from_bh(w, b, h, tw, d))
+    if d in FA.WGMMA_HEAD_DIMS:
+        assert launched == {"fwd_wgmma": 1, "dq_wgmma": 1, "dkv_wgmma": 1}
+        o2, lse = FA._fwd_wgmma(q, k, v, True, scale)
+        assert torch.equal(o.detach(), o2)
+        want = FA._bwd_wgmma(q, k, v, o2, lse, g, True, scale)
+        for x, w in zip(got, want):
+            assert torch.equal(x, w)
+        twins, mags = S.flash_wgmma_bwd_want(q, k, v, o2, lse, g, True,
+                                             scale)
+        for x, n in zip(got, ("dq", "dk", "dv")):
+            assert S.bf16_agrees(x, twins[n], mags[n],
+                                 coef=S.FLASH_BF16_FLIP), n
+        return
+    assert launched == {"fwd_bf16": 1, "dq_bf16": 1, "dkv_bf16": 1}
+    o2, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
+    assert torch.equal(o.detach(), FA._from_bh(o2, b, h, t, d))
+    dq, dk, dv = FA._bwd_kernel(qp, kp, vp, o2, lse, dop, t, True, scale)
+    for x, w in zip(got, (dq, dk, dv)):
+        assert torch.equal(x, FA._from_bh(w, b, h, t, d))
+
+
+def test_flash_wgmma_backward_reads_views_as_they_lie(cuda):
+    """q, k, v sliced from one [B, T, 3, H, D] projection and dO sliced
+    from a wider tensor (strides TMA takes) give the gradients their
+    contiguous copies give, bit for bit; an expanded upstream gradient
+    (strides 0, which TMA cannot read) is copied once and gives what its
+    contiguous copy gives."""
+    rng = np.random.default_rng(6)
+    b, t, h, d = 2, 300, 4, 64
+    qkv = _bf16(rng, b, t, 3, h, d).to(cuda)
+    g_wide = _bf16(rng, b, t, h, d + 8).to(cuda)
+    g = g_wide[..., :d]
+    assert FA._tma_ok(g) and not g.is_contiguous()
+
+    def grads(q, k, v, g):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(FA.flash_attention(*leaves, causal=True),
+                                   leaves, g)
+
+    q, k, v = qkv.unbind(2)
+    got = grads(q, k, v, g)
+    want = grads(q.contiguous(), k.contiguous(), v.contiguous(),
+                 g.contiguous())
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    ones = torch.ones((), dtype=torch.bfloat16, device=cuda).expand(b, t, h, d)
+    assert not FA._tma_ok(ones)
+    got = grads(q, k, v, ones)
+    want = grads(q, k, v, ones.contiguous())
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_flash_wgmma_backward_refuses_what_it_does_not_take(cuda):
+    """The Hopper backward's wrappers refuse f32 operands, a head_dim
+    outside WGMMA_HEAD_DIMS, lse or delta rows of another shape or dtype,
+    and an operand whose strides TMA cannot read; nothing is launched."""
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    b, t, h, d = 1, 100, 2, 64
+    x = torch.zeros(b, t, h, d, dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(b * h, 128, device=cuda)
+    n = FA.KERNEL_BWD_DQ_WGMMA.launches, FA.KERNEL_BWD_DKV_WGMMA.launches
+    with pytest.raises(EnforceError, match="bf16"):
+        FA._bwd_dq_wgmma(x.float(), x, x, rows, x, rows, True, 0.125)
+    y = torch.zeros(b, t, h, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(EnforceError, match="head_dim"):
+        FA._bwd_dkv_wgmma(y, y, y, rows, y, rows, True, 0.125)
+    with pytest.raises(EnforceError, match="lse"):
+        FA._bwd_dq_wgmma(x, x, x, rows[:, :64], x, rows, True, 0.125)
+    with pytest.raises(EnforceError, match="delta"):
+        FA._bwd_dkv_wgmma(x, x, x, rows, x, rows.double(), True, 0.125)
+    wide = torch.zeros(b, t, h, d + 4, dtype=torch.bfloat16,
+                       device=cuda)[..., :d]
+    with pytest.raises(EnforceError, match="multiples of 16 bytes"):
+        FA._bwd_dq_wgmma(x, wide, x, rows, x, rows, True, 0.125)
+    assert (FA.KERNEL_BWD_DQ_WGMMA.launches,
+            FA.KERNEL_BWD_DKV_WGMMA.launches) == n
+
+
+def test_flash_f32_backward_stays_near_float64(cuda):
+    """The f32 backward (3xTF32 on the tensor cores) through the Function
+    against float64 autograd of exact attention: relative norm within
+    ``chip_smoke.FLASH_BWD_F64_LIMIT`` and within 2x the FMA form's
+    distance (``FLASH_BWD_F64_FMA``), at a ragged T and head_dim 128."""
+    import chip_smoke as S
+
+    rng = np.random.default_rng(31)
+    for b, t, h, d in ((2, 333, 3, 64), (1, 256, 2, 128)):
+        q, k, v, g = (_rand(rng, b, t, h, d).to(cuda) for _ in range(4))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(FA.flash_attention(*leaves, causal=True),
+                                  leaves, g)
+        wide = [x.double().requires_grad_() for x in (q, k, v)]
+        want = torch.autograd.grad(
+            FA.flash_attention_reference(*wide, causal=True), wide,
+            g.double())
+        worst = max(S.rel_norm(x, y) for x, y in zip(got, want))
+        assert worst <= min(S.FLASH_BWD_F64_LIMIT,
+                            S.FLASH_BWD_F64_SLACK * S.FLASH_BWD_F64_FMA), (
+            b, t, h, d, worst)
 
 
 # -- the gather (row 17) and the lookup forward in one launch -----------------
