@@ -2,13 +2,16 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B times, in each tree, the wrapper calls ``CALLS`` names (the flash
-backward as autograd runs it at the LM training shape, bf16 and f32, with
-SDPA's backward beside), then runs its own ``chip_smoke.train_lm_bf16``
-(the LM's bf16 and f32 steps in blocks of 5: bf16, f32, f32, bf16; the
-witness step left out; device ms by kernel class over 3 bf16 steps),
-each tree in a process of its own that builds that tree's kernels, in
-the order given.  Host-bound phases vary up to 2x between machines, so
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (the f32
+flash forward as serving's prefill calls it and under autograd, the f32
+flash backward, at the LM training shape, with SDPA's memory-efficient
+calls beside; the f32 paged decode at serving's shape), then runs its
+own ``chip_smoke.train_lm_bf16`` (the LM's bf16 and f32 steps in blocks
+of 5: bf16, f32, f32, bf16; the witness step left out; device ms by
+kernel class over 3 bf16 steps) and the f32 serving decode step
+(``SERVE_DECODE``: 32 live slots of phase 3's requests, 20 steps after 3
+of warm-up), each tree in a process of its own that builds that tree's
+kernels, in the order given.  Host-bound phases vary up to 2x between machines, so
 two versions are compared only within one run of this script, in
 turns:
 
@@ -17,7 +20,8 @@ turns:
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, each call's event ms with the L2 flushed,
 host ms and device ms alone with its kernels' names, and the steps'
-rates, step p50, the bf16 steps' idle share and device ms by class) and
+rates, step p50, the bf16 steps' idle share and device ms by class, the
+f32 decode step's ms) and
 writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).  ``--calls`` times the wrapper calls alone, without the
 training steps.
@@ -56,8 +60,35 @@ times the f32 flash backward's dQ and dK/dV kernels (3xTF32) at the LM
 training shape [16, 1024, 12, 64] causal as the source builds them and
 as each of ``TF32_VARIANTS`` (copies of the source with a line changed:
 the TF32 rounding by ``cvt.rna.tf32.f32``, S and dP summed apart at head
-dim 64, the long sums chained) in turns, each checked against the twin
-first, alone, with its distance from the float64 twin.
+dim 64, the long sums chained, the dK/dV blocks numbered by head) in
+turns, each checked against the twin first, alone on [B, T, H, D] as it
+lies and on the padded problem's views, with its distance from the
+float64 twin.
+
+    python3 chip_ab.py --tf32-fwd-variants [PARENT]
+
+times the f32 flash forward (3xTF32, in place) at the LM training shape
+[16, 1024, 12, 64] and serving's prefill shape [8, 512, 12, 64] causal
+as the source builds it and as each of ``TF32_FWD_VARIANTS`` (S summed
+apart at head_dim 64, a 3-stage ring, Q's fragments from shared memory),
+and, where PARENT (a ``git
+archive`` of an earlier tree) is given, its ``flash_attention_fwd_f32``
+entry (the FMA form, on the padded problem), in turns, each checked
+against the twin first, alone and with the L2 flushed, with o's distance
+from float64.
+
+    python3 chip_ab.py --paged-chunks
+
+times the f32 paged decode at serving's shape with each of
+``PAGED_CHUNK_TOKENS`` as ``paged_attention.CHUNK_TOKENS`` (pages a
+chunk 1, 2, 4, 8, 16 at page 16), in turns, each checked against the
+twin first, alone and with the L2 flushed.
+
+    python3 chip_ab.py --sass [TREE ...]
+
+prints the opcode counts of the f32 flash kernels at head_dim 64 (total,
+HMMA, NOP, local loads and stores; ``cuobjdump -sass``) as each tree's
+sources build them (default: this one).
 
     python3 chip_ab.py --wgmma-bwd-variants
 
@@ -101,17 +132,53 @@ if sys.argv[2] == "calls":
 torch.cuda.empty_cache()
 C.lm_bf16_witness = lambda *a, **k: {}
 lm_bf16 = C.train_lm_bf16(dev)[0]
-print(json.dumps({"calls": calls, "train_lm_bf16": lm_bf16}))
+torch.cuda.empty_cache()
+print(json.dumps({"calls": calls, "train_lm_bf16": lm_bf16,
+                  "serve_decode_f32": SERVE_DECODE(dev, C)}))
+"""
+
+#: the f32 serving decode step, timed the same way in either tree: phase
+#: 3's engine (LM_FULL in f32, 32 slots, page 16) with 32 requests
+#: admitted and prefilled, 3 steps of warm-up, then 20 ``step()`` calls
+#: (each ends on the host with its tokens), each on the host's clock
+SERVE_DECODE = r"""
+def SERVE_DECODE(dev, C):
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.telemetry import MetricsRegistry
+
+    cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.float32, remat=False,
+                              attn_impl="flash")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    scfg, prompts, _ = C.serve_workload(cfg)
+    eng = ServingEngine(cfg, params, scfg, registry=MetricsRegistry("ab"),
+                        device=dev)
+    for p in prompts[:scfg.max_slots]:
+        eng.submit(p)
+    eng.step()
+    while eng.scheduler.queue:
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms_p50": float(np.median(ms)),
+            "step_ms_mean": float(np.mean(ms))}
 """
 
 #: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
 #: way in either tree (each tree's own wrappers): the CUDA-event ms with the
 #: L2 flushed, the host's median ms a call without a sync, and the device
-#: ms of the call's kernels alone (a trace, summed over its kernels): the
-#: flash backward as autograd runs it (``torch.autograd.grad`` of the
-#: Function's output, the forward run once before) at the LM training
-#: shape [16, 1024, 12, 64] causal in bf16 and in f32, with SDPA's
-#: backward beside (bf16: the flash backend; f32: the efficient one)
+#: ms of the call's kernels alone (a trace, summed over its kernels): at the
+#: LM training shape [16, 1024, 12, 64] causal in f32, the flash forward
+#: without a gradient (serving's prefill route) and under autograd, and the
+#: backward as autograd runs it (``torch.autograd.grad`` of the Function's
+#: output, the forward run once before), with SDPA's memory-efficient
+#: forward and backward beside; the f32 paged decode at serving's shape
 CALLS = r"""
 def CALLS(dev, C):
     import torch.nn.functional as F
@@ -132,9 +199,9 @@ def CALLS(dev, C):
         torch.cuda.synchronize()
         return float(np.median(times)) * 1e3
 
-    # the device ms of one call: each kernel's mean time a launch in a
-    # trace of `rounds` calls, summed over the kernels (whatever either
-    # tree's kernels are named), and their names
+    # the device ms of one call: the kernels' time in a trace of `rounds`
+    # calls over `rounds`, summed (whatever either tree's kernels are
+    # named), and each kernel's share by name
     def alone_all(fn, rounds=20):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -147,8 +214,9 @@ def CALLS(dev, C):
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.count]
-        return (sum(e.self_device_time_total / e.count / 1e3 for e in evs),
-                sorted({e.key[:60] for e in evs}))
+        each = {e.key[:60]: e.self_device_time_total / 1e3 / rounds
+                for e in evs}
+        return sum(each.values()), each
 
     def all3(fn):
         ms, names = alone_all(fn)
@@ -157,23 +225,31 @@ def CALLS(dev, C):
 
     out = {}
     b, t, h, d = 16, 1024, 12, 64
-    for dtype, tag, backend in (
-            (torch.bfloat16, "bf16", SDPBackend.FLASH_ATTENTION),
-            (torch.float32, "f32", SDPBackend.EFFICIENT_ATTENTION)):
-        q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
-                      .to(dtype) for _ in range(4))
-        leaves = [x.requires_grad_() for x in (q, k, v)]
-        o = FA.flash_attention(*leaves, causal=True)
-        out[f"flash_backward_{tag}"] = all3(lambda: torch.autograd.grad(
-            o, leaves, g, retain_graph=True))
-        qh, kh, vh = (x.detach().transpose(1, 2).contiguous()
-                      .requires_grad_() for x in (q, k, v))
-        gh = g.transpose(1, 2).contiguous()
-        with sdpa_kernel(backend):
-            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-        out[f"sdpa_backward_{tag}"] = all3(lambda: torch.autograd.grad(
-            oh, (qh, kh, vh), gh, retain_graph=True))
-        del q, k, v, g, leaves, o, qh, kh, vh, gh, oh
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                  for _ in range(4))
+    with torch.no_grad():
+        out["flash_forward_f32_no_grad"] = all3(
+            lambda: FA.flash_attention_fwd(q, k, v, causal=True))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out["flash_forward_f32_autograd"] = all3(
+        lambda: FA.flash_attention(*leaves, causal=True))
+    o = FA.flash_attention(*leaves, causal=True)
+    out["flash_backward_f32"] = all3(lambda: torch.autograd.grad(
+        o, leaves, g, retain_graph=True))
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gh = g.transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out["sdpa_forward_f32"] = all3(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    out["sdpa_backward_f32"] = all3(lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), gh, retain_graph=True))
+    del q, k, v, g, leaves, o, qh, kh, vh, gh, oh
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    qd, kp, vp, pt, sl, _ = C.paged_inputs(dev)
+    out["paged_f32"] = all3(lambda: PA.ragged_paged_attention(qd, kp, vp, pt,
+                                                              sl))
     return out
 """
 
@@ -190,7 +266,8 @@ def summary(tree: str, out: dict, seconds: float) -> dict:
     steps["bf16_device_ms_per_step_by_class"] = prof.get(
         "by_class_ms_per_step")
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
-            "train_lm_bf16": steps}
+            "train_lm_bf16": steps,
+            "serve_decode_f32": out.get("serve_decode_f32")}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -521,6 +598,7 @@ def stats_plans() -> int:
     from paddle_tpu_torch.core.place import resolve_device
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import _kept
 
     dev = resolve_device(None)
     builds = C.source_fault_builds("channel_stats", {
@@ -573,7 +651,7 @@ def stats_plans() -> int:
                                                    f"{label} {name}")
             finally:
                 kernel._fn = whole
-                CS.forget_kept()
+                _kept.forget()
     print(C.nvidia_smi())
     print(json.dumps({"stats_plans_alone_ms": out}), flush=True)
     return 0
@@ -616,7 +694,7 @@ def flash_order() -> int:
     for b, t in ((8, 512), (16, 1024)):
         q, k, v = (torch.randn(b, t, 12, 64, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
-        call = lambda: FA._fwd_wgmma(q, k, v, True, 0.125)  # noqa: E731
+        call = lambda: FA._fwd_bthd(q, k, v, True, 0.125)  # noqa: E731
         for turn, (name, fn) in enumerate((
                 ("heaviest_first", real), ("by_head", by_head),
                 ("by_head", by_head), ("heaviest_first", real))):
@@ -637,7 +715,14 @@ def flash_order() -> int:
 #: it becomes)]}.  "cvt_rna": the TF32 rounding by the conversion
 #: instruction; "s_apart": S and dP's slices summed apart at every head
 #: dim (the source: at 128 only); "long_chained": dV, dK and dQ's slices
-#: chained into their accumulators
+#: chained into their accumulators; "dkv_by_head": the dK/dV blocks numbered
+#: by head (a head's key tiles together, for its Q and dO tiles' reuse in
+#: L2) where the source numbers them key tile by key tile over all heads;
+#: "free_registers": both kernels' registers left to ptxas (the source asks
+#: for two blocks an SM);
+#: "copy_per_row": each 16-byte copy's row and address computed apart
+#: (tf32x3.cuh); "dkv_rows_in_fetch": Q's and dO's row bases computed at
+#: each fetch instead of held through the loop
 TF32_VARIANTS = {
     "cvt_rna": [("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
                  "  uint32_t r;\n"
@@ -647,10 +732,50 @@ TF32_VARIANTS = {
     "s_apart": [("constexpr bool kSliceApart = D > 64;",
                  "constexpr bool kSliceApart = true;")],
     "long_chained": [
-        (f"        mma3_add({x}, {a}, {m}[b], {m}[b + LD]);",
-         f"        mma3({x}, {a}, {m}[b], {m}[b + LD]);")
+        (f"        mma3_add({x}, {a}, {m}[bi], {m}[bi + LD]);",
+         f"        mma3({x}, {a}, {m}[bi], {m}[bi + LD]);")
         for x, a, m in (("acc_v[dn]", "pa", "sdo"), ("acc_k[dn]", "da", "sq"),
                         ("acc[dn]", "sa", "sk"))],
+    "dkv_by_head": [
+        ("  const int j = blockIdx.y, bh = blockIdx.x;  // j = 0 (most work) "
+         "first",
+         "  const int j = blockIdx.x, bh = blockIdx.y;"),
+        ("  const dim3 grid(B * H, (t_k + kB - 1) / kB);",
+         "  const dim3 grid((t_k + kB - 1) / kB, B * H);")],
+    "free_registers": [
+        ("__global__ void __launch_bounds__(kThreads, 2)\n"
+         f"flash_bwd_{k}_tf32x3_kernel(",
+         "__global__ void __launch_bounds__(kThreads)\n"
+         f"flash_bwd_{k}_tf32x3_kernel(") for k in ("dkv", "dq")],
+    "copy_per_row": [(
+        "  const int r0 = tid / kPerRow, e = 4 * (tid % kPerRow);\n"
+        "  const float* p = src.base + (row0 + r0) * src.stride + e;\n"
+        "  const long long jump = kStep * src.stride;\n"
+        "  float* d = dst + r0 * ld<D>() + e;\n"
+        "#pragma unroll\n"
+        "  for (int i = 0; i < kB / kStep; ++i) {\n"
+        "    const bool ok = row0 + r0 + i * kStep < rows;\n"
+        "    bf16_tc::cp_async16(d + i * kStep * ld<D>(), ok ? p + i * jump\n"
+        "                                                     : src.base, ok);\n"
+        "  }\n",
+        "#pragma unroll\n"
+        "  for (int i = 0; i < kB * kPerRow / kThreads; ++i) {\n"
+        "    const int c = tid + i * kThreads;\n"
+        "    const int r = c / kPerRow, e = 4 * (c % kPerRow);\n"
+        "    const bool ok = row0 + r < rows;\n"
+        "    bf16_tc::cp_async16(dst + r * ld<D>() + e,\n"
+        "                        ok ? src.base + (row0 + r) * src.stride + e\n"
+        "                           : src.base, ok);\n"
+        "  }\n")],
+    "dkv_rows_in_fetch": [
+        ("  const Rows qr = ops.rows(0, b, h), dor = ops.rows(3, b, h);\n",
+         ""),
+        ("    copy_rows<D, kThreads>(stage_q(s), qr, i * kB, t_q, tid);\n"
+         "    copy_rows<D, kThreads>(stage_do(s), dor, i * kB, t_q, tid);\n",
+         "    copy_rows<D, kThreads>(stage_q(s), ops.rows(0, b, h), i * kB, "
+         "t_q, tid);\n"
+         "    copy_rows<D, kThreads>(stage_do(s), ops.rows(3, b, h), i * kB, "
+         "t_q, tid);\n")],
 }
 
 
@@ -658,8 +783,11 @@ def tf32_variants() -> int:
     """The f32 backward kernels (3xTF32) at the LM training shape [16,
     1024, 12, 64] causal, the source and each of TF32_VARIANTS in turns
     (source, variants, variants reversed, source): each checked against
-    the twin (1e-4 x max(1, |ref|)) first, then timed alone (a trace, no
-    flush), with dq, dk, dv's relative norm against the float64 twin on
+    the twin (1e-4 x max(1, |ref|)) first on the in-place route, then
+    timed alone (a trace, no flush) on the in-place route (q, k, v, dO
+    [B, T, H, D] as they lie: each 256-byte row 3 KB from the next) and
+    on the padded problem's [BH, Tp, 1, D] views (a tile 16 KB in one
+    piece), with dq, dk, dv's relative norm against the float64 twin on
     the same inputs: one JSON line."""
     import torch
 
@@ -670,7 +798,7 @@ def tf32_variants() -> int:
 
     dev = resolve_device(None)
     builds = C.source_fault_builds("flash_attention_bwd", TF32_VARIANTS)
-    _build.build(["flash_attention_bwd"])
+    _build.build(["flash_attention", "flash_attention_bwd"])
     kerns = (FA.KERNEL_BWD_DQ, FA.KERNEL_BWD_DKV)
     fns = {"source": [k._fn or k._resolve() for k in kerns]}
     for name, (proc, lib) in builds.items():
@@ -680,37 +808,256 @@ def tf32_variants() -> int:
     scale = d ** -0.5
     q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
                   for _ in range(4))
+    o, lse = FA._fwd_bthd(q, k, v, True, scale)
+    delta = FA._delta_bthd(g, o, lse.shape[1])
+    bthd = (q, k, v, lse, g, delta, True, scale)
     qp, kp, vp = FA._prep(q, k, v)
     dop = FA._to_bh(g)
-    o, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
-    args = (qp, kp, vp, lse, dop, FA._delta(dop, o).contiguous(), t, True,
-            scale)
-    want = (FA._bwd_dq_plain(*args), *FA._bwd_dkv_plain(*args))
+    padded = (qp, kp, vp, lse, dop, delta.view(b * h, -1, 1), t, True,
+              scale)
+    # the same problem as [BH, T, 1, D] views of the padded copies (T is
+    # a multiple of 64 here): each head's rows one piece
+    views = (qp[:, :, None], kp[:, :, None], vp[:, :, None], lse,
+             dop[:, :, None], delta, True, scale)
+    want = [FA._from_bh(x, b, h, t, d) for x in (
+        FA._bwd_dq_plain(*padded), *FA._bwd_dkv_plain(*padded))]
     wide = [x.double() for x in (qp, kp, vp, dop)]
     o64, lse64 = FA._fwd_plain(*wide[:3], t, True, scale)
     args64 = (*wide[:3], lse64, wide[3], FA._delta(wide[3], o64), t, True,
               scale)
-    want64 = (FA._bwd_dq_plain(*args64), *FA._bwd_dkv_plain(*args64))
+    want64 = [FA._from_bh(x, b, h, t, d) for x in (
+        FA._bwd_dq_plain(*args64), *FA._bwd_dkv_plain(*args64))]
     del wide, o64, args64
     names = [n for n in fns if n != "source"]
     out = {}
     for turn, name in enumerate(["source", *names, *names[::-1], "source"]):
         for kern, fn in zip(kerns, fns[name]):
             kern._fn = fn
-        got = (FA._bwd_dq_kernel(*args), *FA._bwd_dkv_kernel(*args))
+        got = (FA._bwd_dq_bthd(*bthd), *FA._bwd_dkv_bthd(*bthd))
         for x, y in zip(got, want):
             e = (x - y).abs().max().item()
             if not e <= C.TOL * max(1.0, y.abs().max().item()):
                 raise AssertionError(f"{name}: kernel vs plain {e}")
         out[f"turn {turn} {name}"] = {
-            "dq": C.device_ms([lambda: FA._bwd_dq_kernel(*args)],
+            "dq": C.device_ms([lambda: FA._bwd_dq_bthd(*bthd)],
                               "flash_bwd_dq_tf32x3"),
-            "dkv": C.device_ms([lambda: FA._bwd_dkv_kernel(*args)],
+            "dkv": C.device_ms([lambda: FA._bwd_dkv_bthd(*bthd)],
                                "flash_bwd_dkv_tf32x3"),
+            "dq_padded_views": C.device_ms(
+                [lambda: FA._bwd_dq_bthd(*views)], "flash_bwd_dq_tf32x3"),
+            "dkv_padded_views": C.device_ms(
+                [lambda: FA._bwd_dkv_bthd(*views)], "flash_bwd_dkv_tf32x3"),
             "vs_f64": [C.rel_norm(x, y) for x, y in zip(got, want64)]}
     for kern, fn in zip(kerns, fns["source"]):
         kern._fn = fn
     print(json.dumps({"tf32_variants_alone_ms": out}), flush=True)
+    return 0
+
+
+def sass_counts(trees: list[str]) -> int:
+    """The opcode counts of the f32 flash kernels at head_dim 64 (the
+    forward, dQ, dK/dV), as ``cuobjdump -sass`` lists their instructions,
+    in ``flash_attention.cu`` and ``flash_attention_bwd.cu`` of each tree
+    (built into ``build/faults/``): the total, the HMMAs, the NOPs a
+    register-starved schedule puts between dependent HMMAs, and the local
+    memory's loads and stores: one JSON line."""
+    import collections
+    import re
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = {}
+    for tree in trees:
+        csrc = os.path.join(os.path.abspath(tree), "paddle_tpu_torch", "ops",
+                            "kernels", "csrc")
+        for source in ("flash_attention", "flash_attention_bwd"):
+            lib = _build.BUILD_DIR.parent / "faults" / f"sass_{source}.so"
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                            csrc, "-o", str(lib),
+                            os.path.join(csrc, f"{source}.cu")], check=True)
+            sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                                  capture_output=True, text=True).stdout
+            for part in re.split(r"\n\s+Function : ", sass)[1:]:
+                name = part.split("\n", 1)[0]
+                kind = re.search(
+                    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_tf32x3_kernel)ILi64E", name)
+                if not kind:
+                    continue
+                ops = collections.Counter(m.group(1).split(".")[0] for m in
+                                          re.finditer(
+                    r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
+                    part))
+                out[f"{tree} {kind.group(1)}"] = {
+                    "total": sum(ops.values()), "HMMA": ops["HMMA"],
+                    "NOP": ops["NOP"], "LDL": ops["LDL"], "STL": ops["STL"]}
+    print(json.dumps({"sass_counts": out}), flush=True)
+    return 0
+
+
+#: source variants of the f32 forward (csrc/flash_attention.cu and
+#: tf32x3.cuh) that ``--tf32-fwd-variants`` times beside the source:
+#: "s_apart": S's slices summed apart at head_dim 64 (the source: chained
+#: at <= 64); "three_stages": a 3-deep ring of K/V tiles (the source: 2);
+#: "q_from_smem": Q's fragments split from shared memory every tile at
+#: head_dim 64 too (the source keeps them in registers at <= 64);
+#: "lo_unrounded": the low parts passed unrounded (the tensor cores drop
+#: their low bits), two ALU operations a split fewer: what the split costs;
+#: "two_blocks": registers for two blocks an SM (the source asks ptxas for
+#: three at head_dim <= 64)
+TF32_FWD_VARIANTS = {
+    "q_from_smem": [("constexpr bool kQInRegisters = D <= 64;",
+                     "constexpr bool kQInRegisters = false;")],
+    "lo_unrounded": [("  lo = to_tf32(x - __uint_as_float(hi));",
+                      "  lo = __float_as_uint(x - __uint_as_float(hi));")],
+    "two_blocks": [("constexpr int kMinBlocks = D <= 64 ? 3 : 1;",
+                    "constexpr int kMinBlocks = D <= 64 ? 2 : 1;")],
+    "s_apart": [("constexpr bool kSliceApart = D > 64;",
+                 "constexpr bool kSliceApart = true;")],
+    "three_stages": [("constexpr int kStages = 2;     // K/V tiles of the "
+                      "ring",
+                      "constexpr int kStages = 3;     // K/V tiles of the "
+                      "ring")],
+}
+
+
+def fma_forward(parent: str):
+    """The FMA form of the f32 forward from an earlier tree's
+    ``flash_attention.cu`` (its entry ``flash_attention_fwd_f32`` on the
+    padded [BH, Tp, D] problem), built into ``build/faults/``: a function
+    of (qp, kp, vp, t_k, causal, scale) -> (o, lse) like ``_fwd_kernel``."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    csrc = os.path.join(os.path.abspath(parent), "paddle_tpu_torch", "ops",
+                        "kernels", "csrc")
+    lib = _build.BUILD_DIR.parent / "faults" / "flash_attention_fma.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc, "-o",
+                    str(lib), os.path.join(csrc, "flash_attention.cu")],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib)).flash_attention_fwd_f32
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 5 + [I] * 6 + [ctypes.c_float, P]
+    fn.restype = I
+
+    def run(qp, kp, vp, t_k, causal, scale):
+        bh, tqp, d = qp.shape
+        o = torch.empty_like(qp)
+        lse = torch.empty((bh, tqp, 1), device=qp.device)
+        code = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), bh, tqp, kp.shape[1], t_k, d, int(causal),
+                  scale, torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"flash_attention_fwd_f32: CUDA error {code}")
+        return o, lse
+    return run
+
+
+def tf32_fwd_variants(parent: str | None) -> int:
+    """The f32 forward at the LM training shape [16, 1024, 12, 64] and at
+    serving's prefill shape [8, 512, 12, 64] causal: the source, each of
+    TF32_FWD_VARIANTS and (with ``parent``) the parent's FMA form, in
+    turns (source, variants, variants reversed, source): o and lse checked
+    against the twin (TOL) first, then timed alone (a trace, no flush) and
+    with the L2 flushed, with o's relative norm against float64 exact
+    attention: one JSON line."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    dev = resolve_device(None)
+    builds = C.source_fault_builds("flash_attention", TF32_FWD_VARIANTS)
+    _build.build(["flash_attention"])
+    real = FA.KERNEL._fn or FA.KERNEL._resolve()
+    fns = {"source": real}
+    for name, (proc, lib) in builds.items():
+        fns[name] = C.planted(proc, lib, FA.KERNEL)
+    fma = fma_forward(parent) if parent else None
+    timer = C.Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for b, t in ((16, 1024), (8, 512)):
+        h, d = 12, 64
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                   for _ in range(3))
+        qp, kp, vp = FA._prep(q, k, v)
+        o_ref, lse_ref = FA._fwd_plain(qp, kp, vp, t, True, scale)
+        o64 = FA.flash_attention_reference(q.double(), k.double(),
+                                           v.double(), causal=True)
+        names = [n for n in fns if n != "source"] + (["fma"] if fma else [])
+        shape = {}
+        for turn, name in enumerate(["source", *names, *names[::-1],
+                                     "source"]):
+            if name == "fma":
+                call = lambda: fma(qp, kp, vp, t, True, scale)  # noqa: E731
+                key = "flash_fwd_kernel"
+                o, lse = call()
+                o = FA._from_bh(o, b, h, t, d)
+            else:
+                FA.KERNEL._fn = fns[name]
+                call = lambda: FA._fwd_bthd(q, k, v, True,  # noqa: E731
+                                            scale)
+                key = "flash_fwd_tf32x3_kernel"
+                o, lse = call()
+            e = max((o - FA._from_bh(o_ref, b, h, t, d)).abs().max().item(),
+                    (lse - lse_ref).abs().max().item())
+            if not e <= C.TOL:
+                raise AssertionError(f"{name} [{b}, {t}]: vs plain {e}")
+            shape[f"turn {turn} {name}"] = {
+                "alone_ms": C.device_ms([call], key), "ms": timer(call),
+                "vs_f64": C.rel_norm(o, o64)}
+        FA.KERNEL._fn = real
+        out[f"[{b}, {t}, {h}, {d}]"] = shape
+        del q, k, v, qp, kp, vp, o_ref, lse_ref, o64
+    print(json.dumps({"tf32_fwd_variants": out}), flush=True)
+    return 0
+
+
+#: tokens a chunk ``--paged-chunks`` times the f32 paged decode with (pages
+#: a chunk 1, 2, 4, 8, 16 at serving's page of 16)
+PAGED_CHUNK_TOKENS = (16, 32, 64, 128, 256)
+
+
+def paged_chunks() -> int:
+    """The f32 paged decode at serving's shape (``chip_smoke.paged_inputs``)
+    with each of PAGED_CHUNK_TOKENS as ``CHUNK_TOKENS`` in turns (the list,
+    then reversed): checked against the twin (TOL) first, then timed alone
+    (a trace, no flush) and with the L2 flushed: one JSON line."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    dev = resolve_device(None)
+    _build.build(["paged_attention"])
+    q, kp, vp, pt, sl, _ = C.paged_inputs(dev)
+    ref = PA.ragged_paged_attention_reference(q, kp, vp, pt, sl)
+    timer = C.Timer(dev)
+    call = lambda: PA.ragged_paged_attention(q, kp, vp, pt, sl)  # noqa: E731
+    kept, out = PA.CHUNK_TOKENS, {}
+    order = [*PAGED_CHUNK_TOKENS, *PAGED_CHUNK_TOKENS[::-1]]
+    for turn, tokens in enumerate(order):
+        PA.CHUNK_TOKENS = tokens
+        e = (call() - ref).abs().max().item()
+        if not e <= C.TOL:
+            raise AssertionError(f"{tokens} tokens a chunk: vs plain {e}")
+        out[f"turn {turn} pages_a_chunk "
+            f"{PA.pages_per_chunk(kp.shape[2])}"] = {
+            "alone_ms": C.device_ms([call], "paged_split_kernel"),
+            "ms": timer(call)}
+    PA.CHUNK_TOKENS = kept
+    print(json.dumps({"paged_chunks": out}), flush=True)
     return 0
 
 
@@ -754,7 +1101,7 @@ def wgmma_bwd_variants() -> int:
     scale = d ** -0.5
     q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = FA._fwd_wgmma(q, k, v, True, scale)
+    o, lse = FA._fwd_bthd(q, k, v, True, scale)
     want, mags = C.flash_wgmma_bwd_want(q, k, v, o, lse, g, True, scale)
     args = (lse, g, FA._delta_bthd(g, o, lse.shape[1]), True, scale)
     names = [n for n in fns if n != "source"]
@@ -762,15 +1109,15 @@ def wgmma_bwd_variants() -> int:
     for turn, name in enumerate(["source", *names, *names[::-1], "source"]):
         for kern, fn in zip(kerns, fns[name]):
             kern._fn = fn
-        got = FA._bwd_wgmma(q, k, v, o, lse, g, True, scale)
+        got = FA._bwd_bthd(q, k, v, o, lse, g, True, scale)
         for n, x in zip(("dq", "dk", "dv"), got):
             if not C.bf16_agrees(x, want[n], mags[n],
                                  coef=C.FLASH_BF16_FLIP):
                 raise AssertionError(f"{name}: {n} against the twin")
         out[f"turn {turn} {name}"] = {
-            "dq": C.device_ms([lambda: FA._bwd_dq_wgmma(q, k, v, *args)],
+            "dq": C.device_ms([lambda: FA._bwd_dq_bthd(q, k, v, *args)],
                               "flash_bwd_dq_wgmma"),
-            "dkv": C.device_ms([lambda: FA._bwd_dkv_wgmma(q, k, v, *args)],
+            "dkv": C.device_ms([lambda: FA._bwd_dkv_bthd(q, k, v, *args)],
                                "flash_bwd_dkv_wgmma")}
     for kern, fn in zip(kerns, fns["source"]):
         kern._fn = fn
@@ -783,7 +1130,8 @@ def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     rc = 0
     for i, tree in enumerate(trees):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", CALLS + RUN, tree,
+        proc = subprocess.run([sys.executable, "-c",
+                               CALLS + SERVE_DECODE + RUN, tree,
                                "calls" if calls_only else "all"],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -813,6 +1161,12 @@ if __name__ == "__main__":
         sys.exit(tf32_variants())
     if args == ["--wgmma-bwd-variants"]:
         sys.exit(wgmma_bwd_variants())
+    if args[:1] == ["--tf32-fwd-variants"] and len(args) <= 2:
+        sys.exit(tf32_fwd_variants(args[1] if len(args) > 1 else None))
+    if args == ["--paged-chunks"]:
+        sys.exit(paged_chunks())
+    if args[:1] == ["--sass"]:
+        sys.exit(sass_counts(args[1:] or ["."]))
     out = "build/ab"
     if args[:1] == ["--out"] and len(args) > 1:
         out, args = args[1], args[2:]

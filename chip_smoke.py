@@ -17,9 +17,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    device count).  Every kernel is built from ``paddle_tpu_torch/ops/
    kernels/csrc`` (one ``nvcc`` per source, all at once; timed).
 2. Each kernel against its plain PyTorch twin on the card, at the shapes
-   its path gives it: flash prefill [8, 512, 12, 64] causal (and an odd
-   T=333), paged decode B=32, H=12, D=64, page_size=16, 36 pages per row,
-   ragged lengths including 0, 1, 16, 17 and 576; the shared f32 GEMM
+   its path gives it: the f32 flash forward (3xTF32, reading q, k, v
+   where they lie) at the prefill shape [8, 512, 12, 64] causal (and an
+   odd T=333), the whole lse too; the f32 paged decode (split over the
+   sequence, one launch) at B=32, H=12, D=64, page_size=16, 36 pages per
+   row, ragged lengths including 0, 1, 16, 17 and 576, on two launches
+   (the tickets reset), a rerun in the same bits, with its planted faults
+   (``PAGED_F32_FAULTS``: a chunk's correction dropped, a ticket not
+   reset) that must fail; the shared f32 GEMM
    tile (``csrc/gemm_f32.cuh``) as the BRGEMM kernel at every distinct
    1x1 conv of ResNet-50 at batch 64 (``RESNET_1X1``: each stage's
    branch2a and branch2c, the stride-2 branch2a and branch1 projections
@@ -42,7 +47,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    training shape [16, 1024, 12, 64] causal (and T=333; the forward gets
    a row of its own at this shape), each against its plain twin
    (max abs error <= 1e-4, relative to the largest entry where that is
-   above 1), and the whole backward through the autograd Function against
+   above 1), the forward's o against float64 exact attention (relative
+   norm <= 2 x 3.25e-7, its planted one-pass and chained-O builds above
+   it), and the whole backward through the autograd Function against
    float64 autograd of exact attention on the card (relative norm <=
    1e-5), with a backward that drops delta = rowsum(dO * O) as a planted
    fault that must exceed it.
@@ -634,7 +641,15 @@ def slice_rounded_product(a2, b2, k: int = 16):
 
 
 def check_flash(dev, timer) -> dict:
+    """Row 2 f32 at serving's prefill shape [8, 512, 12, 64] causal and at
+    T 333: the in-place 3xTF32 forward (``_fwd_bthd``, what the prefill
+    calls) against its twin on the padded problem, o and the whole lse
+    (the padded rows' too); at 512 its times (L2 flushed, alone from a
+    trace, the host's ms a call), its twin's and SDPA's memory-efficient
+    f32 forward's, and the bound as the lesser of f32 FMA and 3xTF32
+    (:func:`bound_3xtf32`)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
@@ -645,31 +660,40 @@ def check_flash(dev, timer) -> dict:
     for t in (512, 333):
         q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev)
                    for _ in range(3))
-        o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+        fwd = lambda: FA._fwd_bthd(q, k, v, True, scale)  # noqa: E731
+        o, lse = fwd()
         qp, kp, vp = FA._prep(q, k, v)
         o_ref, lse_ref = FA._fwd_plain(qp, kp, vp, t, True, scale)
         torch.cuda.synchronize()
+        if not torch.isfinite(lse).all():
+            raise AssertionError(f"flash forward T {t}: lse not finite")
         err = max(err,
                   (o - FA._from_bh(o_ref, b, h, t, d)).abs().max().item(),
-                  (lse - lse_ref[:, :t]).abs().max().item())
+                  (lse - lse_ref).abs().max().item())
         if t != 512:
             continue
-        ms = timer(lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale))
-        plain_ms = timer(lambda: FA._fwd_plain(qp, kp, vp, t, True, scale))
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library_ms = timer(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, is_causal=True)
+            library_ms, library_alone_ms = timer(sdpa), call_alone_ms(sdpa)
         pairs = b * h * t * (t + 1) // 2       # causal (query, key) pairs
         flops = 4.0 * pairs * d                # q.k and p.v, 2 flops/FMA
         nbytes = 4.0 * (4 * b * t * h * d + b * h * t)  # q, k, v, o, lse
-        bound_ms, by = bound(nbytes, flops)
-        row = {"name": "flash_attention_fwd", "route": "cuda",
+        bound_ms, by = bound_3xtf32(nbytes, flops)
+        row = {"name": "flash_attention_fwd_tf32x3", "route": "cuda",
                "source": "paddle_tpu_torch/ops/kernels/csrc/"
                          "flash_attention.cu",
-               "replaces": "paddle_tpu/ops/pallas/flash_attention.py:307",
-               "shape": [b, t, h, d], "ms": ms, "plain_ms": plain_ms,
+               "replaces": "paddle_tpu/ops/pallas/flash_attention.py:277",
+               "shape": [b, t, h, d], "ms": timer(fwd),
+               "alone_ms": device_ms([fwd], "flash_fwd_tf32x3_kernel"),
+               "host_ms": host_ms(fwd),
+               "plain_ms": timer(lambda: FA._fwd_plain(qp, kp, vp, t, True,
+                                                       scale)),
                "bound_ms": bound_ms, "bound_by": by,
-               "library_ms": library_ms}
+               "fma_bound_ms": bound(nbytes, flops)[0],
+               "library_ms": library_ms,
+               "library_alone_ms": library_alone_ms}
     row["max_abs_err"] = err
     if not err <= TOL:
         raise AssertionError(f"flash kernel vs plain: max abs err {err}")
@@ -683,90 +707,151 @@ def rel_norm(got, want) -> float:
                  / torch.linalg.norm(want))
 
 
-#: the f32 backward's planted fault (csrc/flash_attention_bwd.cu): its
-#: products in one TF32 pass (hi.hi) where the form takes three; the whole
-#: backward against float64 must then exceed FLASH_BWD_F64_LIMIT
+#: the f32 backward's planted fault (csrc/tf32x3.cuh, built with
+#: flash_attention_bwd.cu): its products in one TF32 pass (hi.hi) where the
+#: form takes three; the whole backward against float64 must then exceed
+#: FLASH_BWD_F64_LIMIT
 FLASH_TF32_FAULTS = {"one_pass_tf32": [(
     "  mma(d, a.lo, bh0, bh1);\n  mma(d, a.hi, bl0, bl1);\n", "")]}
+#: the f32 forward's distance from float64 in its FMA form (PERF.md row 2,
+#: "Yardsticks against float64"): the 3xTF32 form stays within
+#: FLASH_FWD_F64_SLACK times it
+FLASH_FWD_F64_FMA = 3.25e-7
+FLASH_FWD_F64_SLACK = 2.0
+#: the f32 forward's planted faults (built with flash_attention.cu): one
+#: TF32 pass (FLASH_TF32_FAULTS' line in tf32x3.cuh), which must land above
+#: FLASH_FWD_ONE_PASS_FLOOR, and O's slices chained into one accumulator;
+#: each must exceed the forward's float64 limit
+FLASH_TF32_FWD_FAULTS = {
+    "one_pass_tf32": FLASH_TF32_FAULTS["one_pass_tf32"],
+    "o_chained": [(
+        "        mma3_add(acc[dn], pa, sv[bi], sv[bi + LD]);  // O's slice "
+        "apart\n",
+        "        mma3(acc[dn], pa, sv[bi], sv[bi + LD]);  // planted\n")]}
+FLASH_FWD_ONE_PASS_FLOOR = 1e-4
 
 
-def check_flash_backward(dev, timer) -> tuple[list, dict]:
-    """The flash kernels at the LM training shape [16, 1024, 12, 64] causal
-    and at an odd T=333.  The forward, and the dQ and dK/dV kernels (3xTF32
-    on the tensor cores), each against its plain twin on the same inputs
-    (max abs error <= TOL, relative to the largest entry where that is
-    above 1), and the whole backward through the autograd Function against
-    float64 autograd of exact attention on the card (relative norm <=
-    FLASH_BWD_F64_LIMIT and within FLASH_BWD_F64_SLACK x
-    FLASH_BWD_F64_FMA), with a backward that drops delta and one whose
-    products take a single TF32 pass (FLASH_TF32_FAULTS, built from a copy
-    of the source) as the planted faults that must exceed the limit.
+def flash_f32_fault_builds() -> dict:
+    """Start the builds of the f32 flash kernels' planted faults:
+    {"bwd": FLASH_TF32_FAULTS', "fwd": FLASH_TF32_FWD_FAULTS'}, each
+    {fault: (the process, the library's path)}."""
+    return {"bwd": source_fault_builds("flash_attention_bwd",
+                                       FLASH_TF32_FAULTS),
+            "fwd": source_fault_builds("flash_attention",
+                                       FLASH_TF32_FWD_FAULTS)}
+
+
+def check_flash_backward(dev, timer, builds=None) -> tuple[list, dict]:
+    """The f32 flash kernels at the LM training shape [16, 1024, 12, 64]
+    causal and at an odd T=333, on the in-place route (q, k, v, dO read
+    where they lie in [B, T, H, D]).  The forward, and the dQ and dK/dV
+    kernels (3xTF32 on the tensor cores), each against its plain twin on
+    the padded problem fed the same lse and delta (max abs error <= TOL,
+    relative to the largest entry where that is above 1).  Against
+    float64 exact attention on the card: the forward's o (relative norm
+    <= FLASH_FWD_F64_SLACK x FLASH_FWD_F64_FMA, with its planted faults
+    FLASH_TF32_FWD_FAULTS above that limit and the one-pass one above
+    FLASH_FWD_ONE_PASS_FLOOR), and the whole backward through the autograd
+    Function (<= FLASH_BWD_F64_LIMIT and FLASH_BWD_F64_SLACK x
+    FLASH_BWD_F64_FMA), with a backward that drops delta (on both delta
+    routes) and one whose products take a single TF32 pass
+    (FLASH_TF32_FAULTS) as the planted faults that must exceed the limit
+    (``builds``: :func:`flash_f32_fault_builds`, started by :func:`main`
+    beside the kernels' build).
     Times at the training shape: the forward, each backward kernel (with
     the L2 flushed, alone from a trace, and the host's ms a call), the
     whole backward (delta + both kernels), the plain twins and
-    ``scaled_dot_product_attention`` forward and backward (a yardstick
-    only; the kernels it ran are named, and its math backend, plain f32
-    products with TF32 off, is timed beside it).  The backward kernels'
-    bound is the lesser of f32 FMA and 3xTF32 (:func:`bound_3xtf32`)."""
+    ``scaled_dot_product_attention`` forward (memory-efficient) and
+    backward (a yardstick only; the kernels it ran are named, and its math
+    backend, plain f32 products with TF32 off, is timed beside it).  The
+    bounds are the lesser of f32 FMA and 3xTF32 (:func:`bound_3xtf32`)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
-    tf32_builds = source_fault_builds("flash_attention_bwd",
-                                      FLASH_TF32_FAULTS)
+    builds = builds or flash_f32_fault_builds()
+    tf32_builds, fwd_builds = builds["bwd"], builds["fwd"]
     gen = torch.Generator(device=dev).manual_seed(6)
     h, d = 12, 64
     scale = d ** -0.5
+    fwd_limit = FLASH_FWD_F64_SLACK * FLASH_FWD_F64_FMA
     summary = {"phase": "flash_backward", "tol": TOL,
                "f64_limit": FLASH_BWD_F64_LIMIT,
                "f64_vs_fma_form_limit": FLASH_BWD_F64_SLACK
-               * FLASH_BWD_F64_FMA}
-    # name, kernel, plain twin, products of the function it computes (dQ:
-    # S, dP, dQ; dK/dV: S, dP, dV, dK), outputs of [B, T, H, D], the
-    # kernel's name in a trace
-    kernels = (("flash_attention_bwd_dq", FA._bwd_dq_kernel,
+               * FLASH_BWD_F64_FMA, "forward_f64_limit": fwd_limit}
+    # name, in-place call on (q, k, v, lse, dO, delta), plain twin on the
+    # padded problem, products of the function it computes (dQ: S, dP,
+    # dQ; dK/dV: S, dP, dV, dK), outputs of [B, T, H, D], the kernel's
+    # name in a trace
+    kernels = (("flash_attention_bwd_dq", FA._bwd_dq_bthd,
                 FA._bwd_dq_plain, 3, 1, "flash_bwd_dq_tf32x3"),
-               ("flash_attention_bwd_dkv", FA._bwd_dkv_kernel,
+               ("flash_attention_bwd_dkv", FA._bwd_dkv_bthd,
                 FA._bwd_dkv_plain, 4, 2, "flash_bwd_dkv_tf32x3"))
     forms = (FA.KERNEL_BWD_DQ, FA.KERNEL_BWD_DKV)
     real = [k._fn or k._resolve() for k in forms]
     one_pass = planted_all(*tf32_builds["one_pass_tf32"], forms)
+    fwd_real = FA.KERNEL._fn or FA.KERNEL._resolve()
+    fwd_faults = {name: planted(proc, lib, FA.KERNEL)
+                  for name, (proc, lib) in fwd_builds.items()}
     err = {name: 0.0 for name, *_ in kernels}
     fwd_err = 0.0
     rows = []
-    plain_delta = FA._delta
+    plain_delta = FA._delta, FA._delta_bthd
     for b, t in ((16, 1024), (16, 333)):
         q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
                       for _ in range(4))
+        fwd = lambda: FA._fwd_bthd(q, k, v, True, scale)  # noqa: E731
+        o, lse = fwd()
         qp, kp, vp = FA._prep(q, k, v)
-        dop = FA._prep(g, g, g)[0]
-        o, lse = FA._fwd_kernel(qp, kp, vp, t, True, scale)
+        dop = FA._to_bh(g)
         o_ref, lse_ref = FA._fwd_plain(qp, kp, vp, t, True, scale)
-        fwd_err = max(fwd_err, (o - o_ref)[:, :t].abs().max().item(),
-                      (lse - lse_ref)[:, :t].abs().max().item())
+        fwd_err = max(fwd_err,
+                      (o - FA._from_bh(o_ref, b, h, t, d)).abs().max().item(),
+                      (lse - lse_ref).abs().max().item())
         del o_ref, lse_ref
-        delta = FA._delta(dop, o).contiguous()
-        args = (qp, kp, vp, lse, dop, delta, t, True, scale)
+        delta = FA._delta_bthd(g, o, lse.shape[1])
+        args = (q, k, v, lse, g, delta, True, scale)
+        plain_args = (qp, kp, vp, lse, dop, delta.view(b * h, -1, 1), t,
+                      True, scale)
         for name, kern, plain, *_ in kernels:
-            got, want = kern(*args), plain(*args)
+            got, want = kern(*args), plain(*plain_args)
             for x, y in zip(*((r,) if torch.is_tensor(r) else r
                               for r in (got, want))):
+                y = FA._from_bh(y, b, h, t, d)
                 e = (x - y).abs().max().item()
                 err[name] = max(err[name], e)
                 if not e <= TOL * max(1.0, y.abs().max().item()):
                     raise AssertionError(f"flash bwd {name} [{b},{t},{h},"
                                          f"{d}]: kernel vs plain {e}")
-        # the whole backward, as training reaches it, against float64
+        # the forward and the whole backward, as training reaches them,
+        # against float64
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         wide = [x.double().requires_grad_() for x in (q, k, v)]
         o64 = FA.flash_attention_reference(*wide, causal=True)
         want = torch.autograd.grad(o64, wide, g.double())
+        forward = {"f32": rel_norm(o, o64)}
+        for name, fn in fwd_faults.items():
+            FA.KERNEL._fn = fn
+            try:
+                forward[f"{name}_control"] = rel_norm(fwd()[0], o64)
+            finally:
+                FA.KERNEL._fn = fwd_real
+        summary[f"forward_vs_f64_T{t}"] = forward
+        if not (forward["f32"] <= fwd_limit
+                and all(forward[f"{n}_control"] > fwd_limit
+                        for n in fwd_faults)
+                and forward["one_pass_tf32_control"]
+                > FLASH_FWD_ONE_PASS_FLOOR):
+            raise AssertionError(f"flash forward vs f64: {forward}")
         readings = {}
         for label in ("f32", "delta_dropped_control",
                       "one_pass_tf32_control"):
             if label == "delta_dropped_control":
-                FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+                FA._delta = lambda do, o: torch.zeros_like(
+                    plain_delta[0](do, o))
+                FA._delta_bthd = lambda do, o, tqp: torch.zeros_like(
+                    plain_delta[1](do, o, tqp))
             elif label == "one_pass_tf32_control":
                 for kern, fn in zip(forms, one_pass):
                     kern._fn = fn
@@ -774,7 +859,7 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
                 got = torch.autograd.grad(FA.flash_attention(
                     *leaves, causal=True), leaves, g)
             finally:
-                FA._delta = plain_delta
+                FA._delta, FA._delta_bthd = plain_delta
                 for kern, fn in zip(forms, real):
                     kern._fn = fn
             readings[label] = max(rel_norm(x, y) for x, y in zip(got, want))
@@ -795,17 +880,15 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
             oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
         sdpa_g = torch.autograd.grad(oh, (qh, kh, vh),
                                      g.transpose(1, 2).contiguous())
-        with torch.no_grad():
-            port_o = FA.flash_attention(q, k, v, causal=True)
         summary[f"yardsticks_vs_f64_T{t}"] = {
-            "rows_2_3_f32": {"forward": rel_norm(port_o, o64.detach()),
+            "rows_2_3_f32": {"forward": forward["f32"],
                              "backward": readings["f32"]},
             "sdpa_efficient_f32": {
                 "forward": rel_norm(oh.detach().transpose(1, 2),
                                     o64.detach()),
                 "backward": max(rel_norm(x.transpose(1, 2), y)
                                 for x, y in zip(sdpa_g, want))}}
-        del wide, want, leaves, o64, qh, kh, vh, oh, sdpa_g, port_o
+        del wide, want, leaves, o64, qh, kh, vh, oh, sdpa_g
         if t != 1024:
             continue
         pairs_n = b * h * t * (t + 1) // 2     # causal (query, key) pairs
@@ -815,18 +898,25 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
                       for x in (q, k, v))
         # the forward as training runs it: q.k and p.v over the causal
         # pairs against q, k, v in and o, lse out
-        bound_ms, by = bound(4 * act + rowvec, 4.0 * pairs_n * d)
+        nbytes, flops = 4 * act + rowvec, 4.0 * pairs_n * d
+        bound_ms, by = bound_3xtf32(nbytes, flops)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, is_causal=True)
+            library_fwd, library_fwd_alone = timer(sdpa), call_alone_ms(sdpa)
         rows.append({
-            "name": "flash_attention_fwd_lm_train", "route": "cuda",
+            "name": "flash_attention_fwd_tf32x3_lm_train", "route": "cuda",
             "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:307",
-            "shape": [b, t, h, d],
-            "ms": timer(lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale)),
+            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:277",
+            "shape": [b, t, h, d], "ms": timer(fwd),
+            "alone_ms": device_ms([fwd], "flash_fwd_tf32x3_kernel"),
+            "host_ms": host_ms(fwd),
             "plain_ms": timer(lambda: FA._fwd_plain(qp, kp, vp, t, True,
                                                     scale)),
             "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True))})
+            "fma_bound_ms": bound(nbytes, flops)[0],
+            "library_ms": library_fwd,
+            "library_alone_ms": library_fwd_alone})
         for name, kern, plain, products, outs, key in kernels:
             # reads q, k, v, dO, lse, delta; writes the outputs
             nbytes = act * (4 + outs) + 2 * rowvec
@@ -841,7 +931,7 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
                 "shape": [b, t, h, d],
                 "ms": timer(call), "alone_ms": device_ms([call], key),
                 "host_ms": host_ms(call),
-                "plain_ms": timer(lambda: plain(*args)),
+                "plain_ms": timer(lambda plain=plain: plain(*plain_args)),
                 "bound_ms": bound_ms, "bound_by": by,
                 "fma_bound_ms": bound(nbytes, flops)[0],
                 # no PyTorch call computes dQ (or dK, dV) alone
@@ -860,12 +950,13 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
             torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True)
 
         # which backend SDPA picks for f32 (its kernels decide whether it
-        # uses the tensor cores, as the flash kernels do not)
+        # uses the tensor cores, as the flash kernels do)
         summary["library_kernels"] = [
             k["name"] for k in profile_window(library_step, 1).get(
                 "top_kernels", [])]
-        whole = lambda: FA._bwd_kernel(qp, kp, vp, o, lse, dop, t,  # noqa
-                                       True, scale)
+        op = FA._to_bh(o)
+        whole = lambda: FA._bwd_bthd(q, k, v, o, lse, g, True,  # noqa: E731
+                                     scale)
         summary["whole_backward"] = {
             "shape": [b, t, h, d], "gflop": 10.0 * pairs_n * d / 1e9,
             "gbytes": (8 * act + rowvec) / 1e9,
@@ -873,18 +964,18 @@ def check_flash_backward(dev, timer) -> tuple[list, dict]:
             "kernels_alone_ms": device_passes_ms(
                 [whole], [key for *_, key in kernels])["total"],
             "host_ms": host_ms(whole),
-            "plain_ms": timer(lambda: FA._bwd_plain(qp, kp, vp, o, lse, dop,
+            "plain_ms": timer(lambda: FA._bwd_plain(qp, kp, vp, op, lse, dop,
                                                     t, True, scale)),
             "library_ms": timer(lambda: torch.autograd.grad(
                 out, (qh, kh, vh), gh, retain_graph=True)),
             "library_math_ms": timer(lambda: torch.autograd.grad(
                 out_math, (qh, kh, vh), gh, retain_graph=True)),
             "bound_ms": bound_ms, "bound_by": by}
-        del qh, kh, vh, out, out_math
+        del qh, kh, vh, out, out_math, op
     if not fwd_err <= TOL:
         raise AssertionError(f"flash forward at the training shapes: kernel "
                              f"vs plain max abs err {fwd_err}")
-    err["flash_attention_fwd_lm_train"] = fwd_err
+    err["flash_attention_fwd_tf32x3_lm_train"] = fwd_err
     for row in rows:       # the worst over both shapes
         row["max_abs_err"] = err[row["name"]]
     summary["max_abs_err"] = err
@@ -916,27 +1007,82 @@ def paged_inputs(dev, b=32, h=12, d=64, ps=16, maxp=36):
             torch.from_numpy(lens.astype(np.int32)).to(dev), lens)
 
 
-def check_paged(dev, timer) -> dict:
+#: the f32 paged kernel's planted faults (csrc/paged_attention.cu): the
+#: combine drops chunk 1's correction exp(m_c - m), and the ticket is left
+#: where the last chunk drew it (caught on the second launch)
+PAGED_F32_FAULTS = {
+    "correction_dropped": [(
+        "    const float w = expf(__ldcg(pc) - mx);  // chunk cc's correction",
+        "    const float w = cc == 1 ? 1.f : expf(__ldcg(pc) - mx);")],
+    "ticket_kept": [(
+        "  if (tid == 0) tickets[bh] = 0;  // ready for the next launch",
+        "  // planted: the ticket is not reset")]}
+
+
+def check_paged(dev, timer, builds=None) -> dict:
+    """Row 1 f32 at serving's shape: the split kernel against its twin
+    (max abs error <= TOL) on two launches with other queries (the second
+    finds the tickets the first reset), idle rows exact zeros, a rerun the
+    same bits; the planted faults (``PAGED_F32_FAULTS``, each built from a
+    copy of the source; ``builds``, where :func:`main` started them
+    beside the kernels' build) on those two launches: a dropped
+    correction must exceed TOL on the first, a kept ticket pass the
+    first and exceed TOL on the second.  Its times (:func:`paged_times`)
+    and the host's ms a call."""
+    from paddle_tpu_torch.ops.kernels import _kept
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
+    builds = builds or source_fault_builds("paged_attention",
+                                           PAGED_F32_FAULTS)
     q, kp, vp, pt, sl, lens = paged_inputs(dev)
     b, h, d = q.shape
     ps, maxp = kp.shape[2], pt.shape[1]
-    out = PA.ragged_paged_attention(q, kp, vp, pt, sl)
-    ref = PA.ragged_paged_attention_reference(q, kp, vp, pt, sl)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
+    queries = (q, torch.flip(q, dims=(2,)))
+    refs = [PA.ragged_paged_attention_reference(x, kp, vp, pt, sl)
+            for x in queries]
+
+    def errors():
+        """(the two launches' outputs, each one's max abs error)"""
+        outs = [PA.ragged_paged_attention(x, kp, vp, pt, sl) for x in queries]
+        torch.cuda.synchronize()
+        return outs, [(o - r).abs().max().item() for o, r in zip(outs, refs)]
+
+    outs, errs = errors()
+    err = max(errs)
     if not err <= TOL:
-        raise AssertionError(f"paged kernel vs plain: max abs err {err}")
+        raise AssertionError(f"paged kernel vs plain: max abs err {errs}")
     idle = sl == 0
-    if not torch.equal(out[idle], torch.zeros_like(out[idle])):
+    if not torch.equal(outs[0][idle], torch.zeros_like(outs[0][idle])):
         raise AssertionError("paged kernel: idle rows are not exactly 0")
-    return {"name": "ragged_paged_attention", "route": "cuda",
+    again, _ = errors()
+    if not all(torch.equal(x, y) for x, y in zip(outs, again)):
+        raise AssertionError("paged kernel: a rerun is not bit-identical")
+    real = PA.KERNEL._fn or PA.KERNEL._resolve()
+    faults = {}
+    for name, (proc, lib) in builds.items():
+        PA.KERNEL._fn = planted(proc, lib, PA.KERNEL)
+        _kept.forget()
+        try:
+            faults[name] = errors()[1]
+        finally:
+            PA.KERNEL._fn = real
+            _kept.forget()
+    # a dropped correction shows on the first launch; a kept ticket only
+    # on the second, which finds the first's tickets
+    if not (faults["correction_dropped"][0] > TOL
+            and faults["ticket_kept"][0] <= TOL < faults["ticket_kept"][1]):
+        raise AssertionError(f"paged planted faults (each launch's error): "
+                             f"{faults}")
+    fn = lambda: PA.ragged_paged_attention(q, kp, vp, pt, sl)  # noqa: E731
+    return {"name": "ragged_paged_attention_split", "route": "cuda",
             "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:274",
             "shape": [b, h, d, ps, maxp], "max_abs_err": err,
+            "rerun_bit_identical": True, "planted_faults": faults,
+            "pages_a_chunk": PA.pages_per_chunk(ps),
+            "splits": PA.splits(maxp, ps), "host_ms": host_ms(fn),
             **paged_times(q, kp, vp, pt, sl, lens, timer,
-                          "paged_decode_kernel")}
+                          "paged_split_kernel")}
 
 
 def paged_times(q, kp, vp, pt, sl, lens, timer, alone_key=None) -> dict:
@@ -971,6 +1117,9 @@ def paged_times(q, kp, vp, pt, sl, lens, timer, alone_key=None) -> dict:
                q[:, :, None, :], kd, vd, attn_mask=mask))}
     if alone_key:
         out["alone_ms"] = device_ms([fn], alone_key)
+        out["library_alone_ms"] = call_alone_ms(
+            lambda: F.scaled_dot_product_attention(q[:, :, None, :], kd, vd,
+                                                   attn_mask=mask))
     return out
 
 
@@ -1736,6 +1885,28 @@ def device_ms(fns, key: str, rounds: int = 20, tries: int = 5) -> float:
     return device_passes_ms(fns, (key,), rounds, tries)[key]
 
 
+def call_alone_ms(fn, rounds: int = 20) -> float:
+    """The device time of one call of ``fn``, whatever its kernels are
+    named: the sum of every CUDA kernel's (and memset's or copy's) time in
+    a ``torch.profiler`` trace of ``rounds`` calls, over ``rounds`` (a
+    library call's own time, no flush).  Raises when the trace holds no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if not total:
+        raise AssertionError("a trace of the call holds no device time")
+    return total / 1e3 / rounds
+
+
 def device_passes_ms(fns, keys, rounds: int = 20, tries: int = 5) -> dict:
     """{key: device ms of one launch} of each kernel (or memset) whose
     name holds a key of ``keys``, from one ``torch.profiler`` trace of
@@ -2128,11 +2299,16 @@ def train_lm(dev) -> tuple[dict, tuple]:
         sides["card_tf32_control"] = card_step()
     finally:
         set_policy()
+    # the f32 route takes delta from [B, T, H, D] (_delta_bthd): both
+    # delta routes drop it
+    plain_bthd = FA._delta_bthd
     FA._delta = lambda do, o: torch.zeros_like(plain_delta(do, o))
+    FA._delta_bthd = lambda do, o, tqp: torch.zeros_like(
+        plain_bthd(do, o, tqp))
     try:
         sides["card_delta_dropped_control"] = card_step()
     finally:
-        FA._delta = plain_delta
+        FA._delta, FA._delta_bthd = plain_delta, plain_bthd
     if not (torch.equal(rerun[0], sides["card"][0]) and all(
             torch.equal(a, b) for a, b in zip(tree.leaves(rerun[1]),
                                               tree.leaves(sides["card"][1])))):
@@ -3965,6 +4141,7 @@ def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES,
     of ``STATS_FAULTS``, which must fail.  Returns (the kernel row at the
     largest view, the phase's summary)."""
     from paddle_tpu_torch.ops.kernels import channel_stats as CS
+    from paddle_tpu_torch.ops.kernels import _kept
 
     bf16 = dtype == torch.bfloat16
     kernel = CS.KERNELS[dtype]
@@ -4039,7 +4216,7 @@ def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES,
         finally:
             kernel._fn = real
             torch.cuda.synchronize()
-            CS.forget_kept()    # a fault may leave its tickets drawn
+            _kept.forget()    # a fault may leave its tickets drawn
     if not all(caught.values()):
         raise AssertionError(f"a planted channel_stats fault passed: "
                              f"{caught}")
@@ -6381,16 +6558,16 @@ def flash_bf16_case(qp, kp, vp, dop, t_q, t_k, causal, scale) -> dict:
 
 
 def flash_wgmma_bwd_case(q, k, v, g, causal, scale) -> dict:
-    """The Hopper backward (``_bwd_wgmma``, after the Hopper forward) on
+    """The Hopper backward (``_bwd_bthd``, after the Hopper forward) on
     [B, T, H, D] q, k, v and dO as they lie, against the twins on the
     padded problem from the same o and lse: {"got", "want", "mags"} keyed
     dq, dk, dv in [B, T, H, D], "rerun_bit_identical", and "args" (o,
     lse) for the timings."""
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
 
-    o, lse = FA._fwd_wgmma(q, k, v, causal, scale)
-    got = FA._bwd_wgmma(q, k, v, o, lse, g, causal, scale)
-    again = FA._bwd_wgmma(q, k, v, o, lse, g, causal, scale)
+    o, lse = FA._fwd_bthd(q, k, v, causal, scale)
+    got = FA._bwd_bthd(q, k, v, o, lse, g, causal, scale)
+    again = FA._bwd_bthd(q, k, v, o, lse, g, causal, scale)
     rerun = all(torch.equal(x, y) for x, y in zip(got, again))
     del again
     want, mags = flash_wgmma_bwd_want(q, k, v, o, lse, g, causal, scale)
@@ -6465,7 +6642,7 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
             ok = ok and bf16_agrees(got, case["want"][n], case["mags"][n],
                                     coef=FLASH_BF16_FLIP)
         # the Hopper forward (the path's) on q, k, v as they lie
-        hop = flash_forward_agreement(q, k, v, *FA._fwd_wgmma(
+        hop = flash_forward_agreement(q, k, v, *FA._fwd_bthd(
             q, k, v, True, scale), True, scale)
         per["o_wgmma"] = hop
         worst["o_wgmma"] = hop["max_abs_err"]
@@ -6518,7 +6695,7 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
             out = sdpa()
         library_bwd = timer(lambda: torch.autograd.grad(
             out, (qh, kh, vh), gh, retain_graph=True))
-        fwd = lambda: FA._fwd_wgmma(q, k, v, True, scale)  # noqa: E731
+        fwd = lambda: FA._fwd_bthd(q, k, v, True, scale)  # noqa: E731
         mma = lambda: FA._fwd_kernel(qp, kp, vp, t, True, scale)  # noqa: E731
         dq_mma = lambda: FA._bwd_dq_kernel(*args)                 # noqa: E731
         dkv_mma = lambda: FA._bwd_dkv_kernel(*args)               # noqa: E731
@@ -6534,8 +6711,8 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
                 qp, kp, vp, o, lse, dop, t, True, scale))}
         delta_h = FA._delta_bthd(g, o_h, lse_h.shape[1])
         bwd_args = (lse_h, g, delta_h, True, scale)
-        dq = lambda: FA._bwd_dq_wgmma(q, k, v, *bwd_args)         # noqa: E731
-        dkv = lambda: FA._bwd_dkv_wgmma(q, k, v, *bwd_args)       # noqa: E731
+        dq = lambda: FA._bwd_dq_bthd(q, k, v, *bwd_args)         # noqa: E731
+        dkv = lambda: FA._bwd_dkv_bthd(q, k, v, *bwd_args)       # noqa: E731
         # name, call, kernel name in a trace, plain twin, bytes, flops,
         # library call
         forms = (
@@ -6563,7 +6740,7 @@ def check_flash_bf16(dev, timer) -> tuple[list, dict]:
                 "bound_by": by, "library_ms": library})
         bound_ms, by = bound(8 * act + rowvec, 10.0 * pairs_n * d,
                              BF16_FLOPS_PER_S)
-        whole = lambda: FA._bwd_wgmma(q, k, v, o_h, lse_h, g, True,  # noqa
+        whole = lambda: FA._bwd_bthd(q, k, v, o_h, lse_h, g, True,  # noqa
                                       scale)
         summary["whole_backward"] = {
             "shape": [b, t, h, d], "gflop": 10.0 * pairs_n * d / 1e9,
@@ -6675,7 +6852,7 @@ def flash_wgmma_faults(dev, builds, shapes=((8, 512), (16, 1024))) -> dict:
         try:
             per = {}
             for q, k, v in cases:
-                o, lse = FA._fwd_wgmma(q, k, v, True, 0.125)
+                o, lse = FA._fwd_bthd(q, k, v, True, 0.125)
                 torch.cuda.synchronize()
                 a = flash_forward_agreement(q, k, v, o, lse, True, 0.125)
                 per[f"T{q.shape[1]}"] = {"share_off": a["share_off"],
@@ -6779,7 +6956,7 @@ def flash_wgmma_bwd_faults(dev, builds, shape=(16, 1024)) -> dict:
     b, t = shape
     q, k, v, g = (torch.randn(b, t, 12, 64, generator=gen, device=dev)
                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = FA._fwd_wgmma(q, k, v, True, 0.125)
+    o, lse = FA._fwd_bthd(q, k, v, True, 0.125)
     want, mags = flash_wgmma_bwd_want(q, k, v, o, lse, g, True, 0.125)
     kernels = (FA.KERNEL_BWD_DQ_WGMMA, FA.KERNEL_BWD_DKV_WGMMA)
     real = [k_._fn or k_._resolve() for k_ in kernels]
@@ -6788,7 +6965,7 @@ def flash_wgmma_bwd_faults(dev, builds, shape=(16, 1024)) -> dict:
         for kernel, fn in zip(kernels, planted_all(proc, lib, kernels)):
             kernel._fn = fn
         try:
-            got = FA._bwd_wgmma(q, k, v, o, lse, g, True, 0.125)
+            got = FA._bwd_bthd(q, k, v, o, lse, g, True, 0.125)
             torch.cuda.synchronize()
             per = {}
             for n, x in zip(("dq", "dk", "dv"), got):
@@ -8747,7 +8924,7 @@ def check_paged_bf16(dev, timer) -> dict:
     b, h, d = q.shape
     return {"name": "ragged_paged_attention_bf16", "route": "cuda",
             "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:261",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:274",
             "shape": [b, h, d, kp.shape[2], pt.shape[1]], "dtype": "bfloat16",
             "agreement": a, "max_abs_err": a["max_abs_err"],
             **paged_times(q, kp, vp, pt, sl, lens, timer, "paged_bf16_kernel")}
@@ -8770,7 +8947,7 @@ def check_flash_bf16_prefill(dev, timer) -> dict:
     gen = torch.Generator(device=dev).manual_seed(9)
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
-    fwd = lambda: FA._fwd_wgmma(q, k, v, True, scale)  # noqa: E731
+    fwd = lambda: FA._fwd_bthd(q, k, v, True, scale)  # noqa: E731
     o, lse = fwd()
     a = flash_forward_agreement(q, k, v, o, lse, True, scale)
     if not a["agrees"]:
@@ -9888,9 +10065,11 @@ def main() -> int:
     print(f"card: {smi} | torch: {kind} x{count} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    # the Hopper tile's planted faults (phase 13) build beside the kernels
-    # and are done before anything is timed
+    # the Hopper tile's planted faults (phase 13) and the f32 flash and
+    # paged kernels' (phase 2) build beside the kernels
     faults = wgmma_fault_builds()
+    flash_faults = flash_f32_fault_builds()
+    paged_faults = source_fault_builds("paged_attention", PAGED_F32_FAULTS)
     sources = _build.build()
     wgmma_libs = built(faults)
     print(json.dumps({"phase": "build", "sources": sorted(sources),
@@ -9898,8 +10077,8 @@ def main() -> int:
                       "seconds": time.perf_counter() - t0}), flush=True)
 
     timer = Timer(dev)
-    rows = [check_flash(dev, timer), check_paged(dev, timer)]
-    bwd_rows, bwd_summary = check_flash_backward(dev, timer)
+    rows = [check_flash(dev, timer), check_paged(dev, timer, paged_faults)]
+    bwd_rows, bwd_summary = check_flash_backward(dev, timer, flash_faults)
     resident = check_resident()
     conv_rows = check_brgemm(dev, timer)
     cv_rows, cudnn = check_conv(dev, timer)
@@ -10140,7 +10319,7 @@ def main() -> int:
             "library_ms")
     print(smi, flush=True)
     extra = ("shape", "dtype", "alone_ms", "host_ms", "eager_ms", "plan",
-             "launches_on")
+             "launches_on", "library_alone_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                   for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

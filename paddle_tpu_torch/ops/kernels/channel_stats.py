@@ -16,8 +16,8 @@ Pallas.
 
 The host path of a call: the plan and the parameter block are prepared
 once per (R, C, dtype, form); the partials' scratch and the finish's
-tickets are kept per (device, stream) and grown when a larger call
-comes; one ``torch.empty`` a call, the [2, C] output whose rows are
+tickets are kept per (device, stream) (``_kept``) and grown when a larger
+call comes; one ``torch.empty`` a call, the [2, C] output whose rows are
 returned."""
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import EnforceError, enforce
 from paddle_tpu_torch.ops.kernels._build import Kernel
+from paddle_tpu_torch.ops.kernels._kept import keep
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -162,9 +163,7 @@ class Prepared:
     def __call__(self, ptr):
         index = self.index
         stream = torch._C._cuda_getCurrentRawStream(index)
-        kept = _KEPT.get((index, stream))
-        if kept is None or kept.part < self.part or kept.tickets < self.chunks:
-            kept = _keep(self.device, stream, self.part, self.chunks)
+        kept = keep(self.device, stream, self.part, self.chunks)
         out = torch.empty((2, self.c), dtype=torch.float32,
                           device=self.device)
         prm = self.params
@@ -174,41 +173,7 @@ class Prepared:
         return out[0], out[1]
 
 
-class Kept:
-    """The partials' scratch (f32) and the finish's tickets (zeroed when
-    allocated; each launch leaves the ones it drew at 0) of one device
-    and stream: two streams never share them."""
-
-    __slots__ = ("part", "tickets", "part_ptr", "tickets_ptr", "_tensors")
-
-    def __init__(self, device, part, tickets):
-        buf = torch.empty(part, dtype=torch.float32, device=device)
-        tick = torch.zeros(tickets, dtype=torch.int32, device=device)
-        self.part, self.tickets = part, tickets
-        self.part_ptr, self.tickets_ptr = buf.data_ptr(), tick.data_ptr()
-        self._tensors = (buf, tick)
-
-
 _PREPARED: dict = {}
-_KEPT: dict = {}
-
-
-def _keep(device, stream, part, tickets) -> Kept:
-    """Kept scratch and tickets for (device, stream) of at least these
-    sizes, allocated on that stream (the current one): the old ones go
-    back to the allocator behind the launches queued on it."""
-    old = _KEPT.get((device.index, stream))
-    if old is not None:
-        part, tickets = max(part, old.part), max(tickets, old.tickets)
-    kept = _KEPT[(device.index, stream)] = Kept(device, part, tickets)
-    return kept
-
-
-def forget_kept() -> None:
-    """Drop every kept scratch and ticket set: the next call on each
-    stream allocates them anew, the tickets zeroed (after a launch that
-    did not leave its tickets at 0, or to give the memory back)."""
-    _KEPT.clear()
 
 
 def _refuse(x):

@@ -8,180 +8,272 @@
 // online-softmax state carried in VMEM scratch).  Here the k-tile axis is a
 // loop inside the block; blocks run in parallel in no order.
 //
-// What bounds it on an H100: operations.  At the serving prefill shape
-// (B=8, T=512, H=12, D=64, causal) the products are ~3.2 GFLOP against
-// ~50 MB of q/k/v/o, ~64 flop per byte, above the ~20 flop/byte f32 balance
-// point.  f32 at full precision rules out the tensor cores (they would take
-// TF32), so the ceiling is f32 FMA on the CUDA cores.  The design keeps
-// every operand of the inner products in shared memory or registers: a
-// 64-row q tile stays resident, 64-row K/V tiles stream through shared
-// memory, each thread computes a 4x4 block of scores and a 4 x D/16 block
-// of the output with FMAs, and causal tiles above the diagonal are never
-// loaded.  Rows of shared tiles are padded by one float so the threads of
-// a warp read distinct banks.
+// Keys at or past t_k are masked with the finite -1e30 (or given P = 0),
+// as the TPU kernel does; causal masks by absolute position.
 //
-// Layout: q/o [BH, Tqp, D], k/v [BH, Tkp, D] with Tqp, Tkp multiples of 64
-// (the wrapper transposes and zero-pads); lse [BH, Tqp].  Keys at or past
-// t_k are masked with the finite -1e30, as the TPU kernel does.
-//
-// Three forms, one entry point each: flash_attention_fwd_f32 (this
-// design), flash_attention_fwd_bf16 (the mma.sync tensor-core form, for the
-// head dims the Hopper form does not take) and flash_attention_fwd_wgmma
-// (the Hopper form of the bf16 forward at head_dim 64 and 128, below).
+// Three forms, one entry point each:
+//   flash_attention_fwd_tf32x3  f32, 3xTF32 on the tensor cores, q, k, v
+//                               read where they lie in [B, T, H, D] (below);
+//   flash_attention_fwd_bf16    bf16 on mma.sync, on the padded [BH, Tp, D]
+//                               problem (head_dim 16 and 32 on the main
+//                               path);
+//   flash_attention_fwd_wgmma   bf16 on wgmma fed by TMA from [B, T, H, D]
+//                               (head_dim 64 and 128).
 
 #include <cuda_runtime.h>
 
 #include "flash_hopper.cuh"
 #include "gemm_wgmma.cuh"
 #include "mma_bf16.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // key rows per tile
-constexpr int kThreads = 256; // 16 x 16: thread (ty, tx) owns rows ty*4+r
 constexpr float kNegInf = -1e30f;
-
-template <int D>
-constexpr size_t smem_floats() {
-  return (size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-         (size_t)kBQ * (kBK + 1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int tqp, int tkp, int t_k,
-                 int causal, float scale) {
-  constexpr int QS = D + 1, KS = D + 1, PS = kBK + 1;
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sq = smem;            // [kBQ][QS]
-  float* sk = sq + kBQ * QS;   // [kBK][KS]
-  float* sv = sk + kBK * KS;   // [kBK][D]
-  float* sp = sv + kBK * D;    // [kBQ][PS]
-
-  const int bh = blockIdx.x;
-  // heaviest causal tiles (the last rows) are scheduled first
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  const float* qg = q + ((size_t)bh * tqp + (size_t)qt * kBQ) * D;
-  for (int i = tid; i < kBQ * D; i += kThreads) sq[(i / D) * QS + i % D] = qg[i];
-
-  float acc[4][DC], m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
-
-  int n_tiles = tkp / kBK;
-  if (causal) n_tiles = min(n_tiles, (qt * kBQ + kBQ - 1) / kBK + 1);
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // the previous tile's sk/sv/sp are no longer read
-    const float* kg = k + ((size_t)bh * tkp + (size_t)j * kBK) * D;
-    const float* vg = v + ((size_t)bh * tkp + (size_t)j * kBK) * D;
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      sk[(i / D) * KS + i % D] = kg[i];
-      sv[i] = vg[i];
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = sq[(ty * 4 + r) * QS + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = sk[(tx + 16 * c) * KS + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qpos = qt * kBQ + ty * 4 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = j * kBK + tx + 16 * c;
-        const bool valid = kpos < t_k && (!causal || qpos >= kpos);
-        s[r][c] = valid ? s[r][c] * scale : kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      // the 16 threads of a row group are one half-warp: xor offsets < 16
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float corr = expf(m[r] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        rs += p;
-        sp[(ty * 4 + r) * PS + tx + 16 * c] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[r] = l[r] * corr + rs;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pv[r] = sp[(ty * 4 + r) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = sv[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const size_t row = (size_t)bh * tqp + (size_t)qt * kBQ + ty * 4 + r;
-    const float safe_l = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) o[row * D + tx + 16 * c] = acc[r][c] / safe_l;
-    if (tx == 0) lse[row] = m[r] + logf(safe_l);
-  }
-}
 
 using flash_hop::opt_in;
 
+// ---------------------------------------------------------------------------
+// The f32 form (flash_attention_fwd_tf32x3): every product on the tensor
+// cores as 3xTF32 (tf32x3.cuh, the pieces the f32 backward shares), the
+// softmax state and the sums in f32.
+//
+// What bounds it on an H100: operations.  At the LM training shape
+// (B=16, T=1024, H=12, D=64, causal) the products are 25.8 GFLOP over the
+// causal pairs against ~0.20 GB of q, k, v, o and lse: 0.385 ms of f32
+// FMA on the CUDA cores at best (the first design, 4x4 register tiles of
+// FMAs, took 1.05 ms, held by shared-memory reads), 0.156 ms of three
+// TF32 passes at 495 TFLOP/s.  The design is the f32 backward's:
+// - One block of 4 warps per 64-query tile of one (b, h), each warp 16
+//   rows; blocks numbered heaviest causal tile first.  K and V tiles of 64
+//   keys stream through a kStages-deep ring by 16-byte cp.async (tile
+//   j + kStages - 1's copies in flight while tile j is computed); causal
+//   tiles above the diagonal are never loaded.
+// - Operands where they lie: q, k and v are read from [B, T, H, D] with
+//   their own (b, t, h) strides (multiples of 4 floats, 16-byte aligned
+//   bases), rows at or past T zero-filled by the copy, so a padded query
+//   row is q = 0 and its lse is the padded problem's; o is written into a
+//   contiguous [B, t_q, H, D], lse into the [B*H, Tqp] rows the backward
+//   reads (Tqp = t_q rounded up to 64).
+// - S = Q K^T by mma.sync.m16n8k8 as hi.hi + hi.lo + lo.hi, K [key][d]
+//   as B's [n][k]; D / 8 slices deep, chained at head_dim <= 64 and
+//   summed apart at 128 (kSliceApart).  At head_dim <= 64 each warp splits
+//   its Q fragments once into registers (64 a thread at 64), Q landing in
+//   the ring's last slot before that slot's first tile, so a block takes
+//   70 KB and three fit an SM; at 128 the fragments would take 128
+//   registers, so Q keeps a tile of its own and is split each tile.
+// - Scale, the mask (keys at or past t_k; causal by absolute position)
+//   only on the tiles that cross the diagonal or t_k, and the online
+//   softmax in base 2 on ex2.approx: m is the running max of S scale
+//   log2(e), and P = 2^x with x = S scale log2(e) - m in one fma.
+// - P is the A operand of P V as S's accumulators lie (tf32x3.cuh's
+//   fragment order), V [key][d] as B's [k][n].  O += P V is a long sum
+//   (T / 8 slices): each slice's three passes are summed apart and added
+//   to O to nearest (mma3_add).
+// - The epilogue: o = O / max(l, 1e-30) as float2 stores of whole rows
+//   below t_q, lse = (m + log2 l) ln 2.
+namespace tf32f {
+
+using namespace tf32x3;
+
+constexpr int kThreads = 128;  // 4 warps; warp w owns rows 16w..16w+15
+constexpr int kStages = 2;     // K/V tiles of the ring
+
 template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int bh, int tqp, int tkp, int t_k, int causal,
-           float scale, cudaStream_t stream) {
-  const int smem = (int)(smem_floats<D>() * sizeof(float));
+constexpr bool kQInRegisters = D <= 64;
+// where Q's fragments live in registers, Q lands in the ring's last slot
+// (read before that slot's first tile is fetched) and takes no tile of
+// its own: 70 KB a block at head_dim 64, three blocks an SM
+template <int D>
+constexpr int kQTiles = kQInRegisters<D> ? 0 : 1;
+template <int D>
+constexpr int kMinBlocks = D <= 64 ? 3 : 1;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return (kQTiles<D> + 2 * (size_t)kStages) * tile_floats<D>() *
+         sizeof(float);
+}
+
+// ops: q, k, v
+template <int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<D>)
+flash_fwd_tf32x3_kernel(const Operands ops, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int t_q, int t_k,
+                        int tqp, int causal, float scale) {
+  constexpr int LD = ld<D>(), TILE = tile_floats<D>(), kNT = D / 8;
+  constexpr int kKC = D / 8;  // 8-deep slices of d
+  extern __shared__ __align__(16) float smem_f[];
+  float* ring = smem_f + kQTiles<D> * TILE;  // [kStages][K, V]
+  float* sq = kQTiles<D> ? smem_f : ring + (kStages - 1) * 2 * TILE;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qt * kB + 16 * warp + g;   // rows row0 and row0 + 8
+
+  int n_tiles = (t_k + kB - 1) / kB;
+  if (causal) n_tiles = min(n_tiles, qt + 1);
+  const Rows kr = ops.rows(1, b, h), vr = ops.rows(2, b, h);
+  auto stage = [&](int j) { return ring + (j % kStages) * 2 * TILE; };
+  auto fetch = [&](int j) {
+    copy_rows<D, kThreads>(stage(j), kr, j * kB, t_k, tid);
+    copy_rows<D, kThreads>(stage(j) + TILE, vr, j * kB, t_k, tid);
+  };
+
+  // one copy group for Q, then one a tile for the ring's first tiles
+  // (slots 0 .. kStages - 2; the last holds Q where it has no tile)
+  copy_rows<D, kThreads>(sq, ops.rows(0, b, h), qt * kB, t_q, tid);
+  bf16_tc::cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) fetch(j);
+    bf16_tc::cp_async_commit();
+  }
+  bf16_tc::cp_async_wait<kStages - 1>();  // Q has landed: this thread's
+  __syncthreads();                         // ... and everyone's
+
+  const float* qa = sq + (16 * warp + g) * LD + t;  // A rows g, g + 8
+  auto q_frag = [&](SplitA& a, int kc) {
+    a.set(qa[8 * kc], qa[8 * LD + 8 * kc], qa[8 * kc + 4],
+          qa[8 * LD + 8 * kc + 4]);
+  };
+  SplitA qf[kQInRegisters<D> ? kKC : 1];
+  if constexpr (kQInRegisters<D>) {
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) q_frag(qf[kc], kc);
+  }
+
+  float acc[kNT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float scale2 = scale * 1.4426950408889634f;  // scale log2(e)
+
+  for (int j = 0; j < n_tiles; ++j) {
+    bf16_tc::cp_async_wait<kStages - 2>();  // tile j has landed: this
+    __syncthreads();  // thread's and everyone's; every warp is past j - 1
+    if (j + kStages - 1 < n_tiles) fetch(j + kStages - 1);  // j - 1's slot
+    bf16_tc::cp_async_commit();  // an empty group keeps the count uniform
+    const float* sk = stage(j);
+    const float* sv = sk + TILE;
+
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 n8 tiles
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      SplitA a;
+      if constexpr (kQInRegisters<D>) {
+        a = qf[kc];
+      } else {
+        q_frag(a, kc);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int bi = (8 * n + g) * LD + 8 * kc + t;
+        if constexpr (kSliceApart<D>) {
+          mma3_add(s[n], a, sk[bi], sk[bi + 4]);
+        } else {
+          mma3(s[n], a, sk[bi], sk[bi + 4]);
+        }
+      }
+    }
+
+    // the mask only on a tile that crosses the diagonal or t_k (uniform
+    // across the block); the row max of S scale log2(e) over the quad
+    const bool edge = (causal && j == qt) || (j + 1) * kB > t_k;
+    auto valid = [&](int n, int e) {
+      const int qpos = row0 + 8 * (e >> 1);
+      const int kpos = j * kB + 8 * n + 2 * t + (e & 1);
+      return !edge || (kpos < t_k && (!causal || qpos >= kpos));
+    };
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (valid(n, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e] * scale2);
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      corr[hh] = flash_hop::ex2(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+    // P = 2^(S scale log2(e) - m), its row sum l's
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = valid(n, e) ? flash_hop::ex2(fmaf(s[n][e], scale2,
+                                                    -m[e >> 1]))
+                              : 0.f;
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+      l[hh] = l[hh] * corr[hh] + rs[hh];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+    // O += P V over the tile's 64 keys in the fragment order (0, 2, 4, 6,
+    // 1, 3, 5, 7): B's rows are the keys 2t and 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      SplitA pa;
+      pa.set(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+#pragma unroll
+      for (int dn = 0; dn < kNT; ++dn) {
+        const int bi = (8 * kk + 2 * t) * LD + 8 * dn + g;
+        mma3_add(acc[dn], pa, sv[bi], sv[bi + LD]);  // O's slice apart
+      }
+    }
+  }
+  bf16_tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const float safe_l = fmaxf(l[hh], 1e-30f);
+    if (t == 0)  // back from base 2
+      lse[(size_t)bh * tqp + row] =
+          (m[hh] + log2f(safe_l)) * 0.6931471805599453f;
+    if (row >= t_q) continue;
+    float* out = o + (((size_t)b * t_q + row) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * hh] / safe_l, acc[n][2 * hh + 1] / safe_l);
+  }
+}
+
+template <int D>
+int launch(const Operands& ops, float* o, float* lse, int B, int H, int t_q,
+           int t_k, int tqp, int causal, float scale, cudaStream_t stream) {
   static bool opted[64] = {};
-  const cudaError_t err = opt_in(flash_fwd_kernel<D>, smem, opted);
+  const int smem = (int)smem_bytes<D>();
+  const cudaError_t err = opt_in(flash_fwd_tf32x3_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, tqp / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, tqp, tkp, t_k, causal, scale);
+  const dim3 grid(B * H, tqp / kB);
+  flash_fwd_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(
+      ops, o, lse, H, t_q, t_k, tqp, causal, scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tf32f
 
 // ---------------------------------------------------------------------------
 // The bf16 form: bf16 q, k, v on the tensor cores, f32 scores, softmax
@@ -688,20 +780,31 @@ int launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
-                                       const float* v, float* o, float* lse,
-                                       int bh, int tqp, int tkp, int t_k,
-                                       int d, int causal, float scale,
-                                       void* stream) {
-  if (bh <= 0 || tqp <= 0 || tkp <= 0 || tqp % kBQ || tkp % kBK ||
-      tqp / kBQ > 65535)
+// q, k, v: f32 [B, T, H, D] with d contiguous, (b, t, h) element strides
+// in `*_s*` (multiples of 4, 16-byte aligned bases); o f32 [B, t_q, H, D]
+// contiguous, lse f32 [B*H, tqp] with tqp = t_q rounded up to 64; d 16,
+// 32, 64 or 128
+extern "C" int flash_attention_fwd_tf32x3(
+    const float* q, const float* k, const float* v, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st,
+    long long k_sh, long long v_sb, long long v_st, long long v_sh, float* o,
+    float* lse, int B, int H, int t_q, int t_k, int tqp, int d, int causal,
+    float scale, void* stream) {
+  const tf32x3::Operands ops = {{q, k, v, nullptr},
+                                {q_sb, k_sb, v_sb, 0},
+                                {q_st, k_st, v_st, 0},
+                                {q_sh, k_sh, v_sh, 0}};
+  if (B <= 0 || H <= 0 || t_q <= 0 || t_k <= 0 ||
+      tqp != (t_q + 63) / 64 * 64 || (long long)B * H > INT_MAX ||
+      tf32x3::bad_operands(ops, 3, tqp, t_k) || !gemm::aligned16(o) ||
+      !gemm::aligned16(lse))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, lse, bh, tqp, tkp, t_k, causal, scale, s);
-    case 32: return launch<32>(q, k, v, o, lse, bh, tqp, tkp, t_k, causal, scale, s);
-    case 64: return launch<64>(q, k, v, o, lse, bh, tqp, tkp, t_k, causal, scale, s);
-    case 128: return launch<128>(q, k, v, o, lse, bh, tqp, tkp, t_k, causal, scale, s);
+    case 16: return tf32f::launch<16>(ops, o, lse, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 32: return tf32f::launch<32>(ops, o, lse, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 64: return tf32f::launch<64>(ops, o, lse, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 128: return tf32f::launch<128>(ops, o, lse, B, H, t_q, t_k, tqp, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,13 +40,15 @@
 
 #include "flash_hopper.cuh"
 #include "mma_bf16.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kB = 64;  // rows of a query tile and of a key tile
 
 // ---------------------------------------------------------------------------
-// The f32 form: every product on the tensor cores as 3xTF32.
+// The f32 form: every product on the tensor cores as 3xTF32 (the pieces
+// are tf32x3.cuh's, shared with the f32 forward).
 //
 // What bounds it on an H100: operations.  At the LM training shape
 // (B=16, T=1024, H=12, D=64, causal) the function's five products over the
@@ -54,39 +56,23 @@ constexpr int kB = 64;  // rows of a query tile and of a key tile
 // ~160 flop per byte.  On the CUDA cores (67 TFLOP/s of f32 FMA) that is
 // 0.96 ms at best; the first design (PR 3: 4x4 register tiles of FMAs,
 // scalar copies) took 3.7 ms, held by shared-memory reads (two FMAs a
-// 4-byte read).  The tensor cores take TF32 (10 mantissa bits), not f32,
-// so each f32 operand a is split into a TF32 high part hi = tf32(a) and a
-// TF32 low part lo = tf32(a - hi), each rounded to nearest, and a product
-// is hi.hi + hi.lo + lo.hi in f32 accumulators, the lo.lo term (2^-22 of
-// it) dropped: the counterpart of the reference's Precision.HIGHEST (a
-// multi-pass product on the TPU's matrix unit).  Three passes at 495
-// TFLOP/s put the floor at 0.39 ms.  The design is the bf16 mma.sync
-// form's: 4 warps a block, each 16 rows of the block's 64, the block's own
-// two operands resident, the walked tiles through a 2-stage ring by
-// 16-byte cp.async, causal tiles above the diagonal never loaded,
-// mma.sync.m16n8k8 (tf32) for every product, and for dK/dV the transposed
-// tiles S^T and dP^T, so P^T and dS^T come out of the accumulators as the
-// rows of the A operand of dV += P^T dO and dK += dS^T Q.
-// - The A fragment: the m16n8 accumulator holds columns 2t and 2t + 1 of a
-//   thread's rows where the m16n8k8 A fragment wants columns t and t + 4,
-//   so the reduction over a slice's 8 columns runs in the order (0, 2, 4,
-//   6, 1, 3, 5, 7) instead (the B fragment reads its rows in the same
-//   order): the accumulator is the A fragment as it lies, with no shuffle
-//   and no pass through shared memory.
-// - The rounding: tf32's round to nearest (ties away, the bits cvt.rna
-//   gives) by two integer operations; the conversion instruction issues
-//   at a quarter of the ALU rate and held the first version of this form
-//   (chip_ab.py --tf32-variants times both).
-// - The sums: the tensor cores truncate the sums they round, so a chain
-//   of T / 8 slices into one accumulator drifts toward zero (1.1e-5 of the
-//   gradients against float64 at T 1024, 14x the FMA form's).  The long
-//   sums (dV, dK, dQ) take each slice's three passes summed apart from
-//   zero and added to the accumulator to nearest (mma3_add).  S and dP,
-//   D / 8 slices deep, chain at head_dim <= 64 and are summed apart at 128
-//   (twice as deep); chip_ab.py --tf32-variants weighs summing them apart
-//   at 64 too (nearer float64, slower).
-// - Shared rows are D + 4 floats apart, so both fragment patterns (rows g,
-//   columns t; rows 2t, columns g) fall on 32 distinct banks.
+// 4-byte read).  Three TF32 passes at 495 TFLOP/s put the floor at
+// 0.39 ms.  The design is the bf16 mma.sync form's: 4 warps a block, each
+// 16 rows of the block's 64, the block's own two operands resident, the
+// walked tiles through a 2-stage ring by 16-byte cp.async, causal tiles
+// above the diagonal never loaded, mma.sync.m16n8k8 (tf32) for every
+// product, and for dK/dV the transposed tiles S^T and dP^T, so P^T and
+// dS^T come out of the accumulators as the rows of the A operand of
+// dV += P^T dO and dK += dS^T Q (tf32x3.cuh's fragment order).
+// - Operands where they lie: q, k, v and dO are read from [B, T, H, D] by
+//   16-byte cp.async with their own (b, t, h) strides (multiples of 4
+//   floats, 16-byte aligned bases); rows at or past T are zero-filled by
+//   the copy, so padded query rows carry dO = 0 and add nothing.  dq, dk
+//   and dv are written into contiguous [B, T, H, D]; lse and delta are
+//   the [B*H, Tqp] rows (Tqp = t_q rounded up to 64).
+// - The long sums (dV, dK, dQ) take mma3_add; S and dP chain at head_dim
+//   <= 64 (kSliceApart); chip_ab.py --tf32-variants weighs summing them
+//   apart at 64 too (nearer float64, slower).
 // - Each warp splits the walked tiles' B values itself (4x what the block
 //   needs).  Versions that split them once a block into (hi, lo) pairs in
 //   shared memory ran slower (8 warps a block and 64-row tiles, one block
@@ -97,13 +83,9 @@ constexpr int kB = 64;  // rows of a query tile and of a key tile
 
 namespace tf32 {
 
+using namespace tf32x3;
+
 constexpr int kThreads = 128;  // 4 warps; warp w owns rows 16w..16w+15
-
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 4; }
-
-template <int D>
-__host__ __device__ constexpr int tile_floats() { return kB * ld<D>(); }
 
 // the block's 2 tiles + 2 stages x 2 walked tiles + 2 stages x (lse,
 // delta) rows
@@ -112,98 +94,20 @@ constexpr size_t smem_bytes() {
   return (6 * (size_t)tile_floats<D>() + 4 * kB) * sizeof(float);
 }
 
-// a 64-row x D f32 tile (rows D apart in global memory) into shared rows
-// D + 4 apart, 16 bytes a copy, every thread of the block taking part
-template <int D>
-__device__ __forceinline__ void copy_tile(float* dst, const float* src,
-                                          int tid) {
-  constexpr int kPerRow = D / 4;
-  static_assert(kB * kPerRow % kThreads == 0, "whole passes");
-#pragma unroll
-  for (int i = 0; i < kB * kPerRow / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c / kPerRow, e = 4 * (c % kPerRow);
-    bf16_tc::cp_async16(dst + r * ld<D>() + e, src + (size_t)r * D + e,
-                        true);
-  }
-}
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero; the same bits for every finite x), by two integer operations:
-// half of the 13 dropped bits' unit added to the magnitude, then the
-// dropped bits cleared.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + (what TF32 drops of lo), hi and lo each rounded to nearest
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d += a . b: one m16n8k8 product, tf32 operands, f32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-               "{%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                 "r"(b1));
-}
-
-// An A fragment of f32 values split into its TF32 parts
-struct SplitA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2,
-                                      float a3) {
-    split(a0, hi[0], lo[0]);
-    split(a1, hi[1], lo[1]);
-    split(a2, hi[2], lo[2]);
-    split(a3, hi[3], lo[3]);
-  }
-};
-
-// d += a . b in three passes, the small terms first: lo.hi, hi.lo, hi.hi
-__device__ __forceinline__ void mma3(float (&d)[4], const SplitA& a,
-                                     float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma(d, a.lo, bh0, bh1);
-  mma(d, a.hi, bl0, bl1);
-  mma(d, a.hi, bh0, bh1);
-}
-
-// d += a . b with the slice's three passes summed apart from zero and
-// added to d to nearest (the tensor cores truncate the sums they round)
-__device__ __forceinline__ void mma3_add(float (&d)[4], const SplitA& a,
-                                         float b0, float b1) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3(t, a, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
-}
-
-// whether S and dP (D / 8 slices deep) sum each slice apart too
-template <int D>
-constexpr bool kSliceApart = D > 64;
-
 // One block per (bh, key tile j): dk = dS^T Q and dv = P^T dO over the
 // query tiles i >= j (causal) or all of them.  Warp w owns keys
 // key0 = 64 j + 16 w + g and key0 + 8; S^T and dP^T are [16 keys][64
-// queries] a warp, in 8 n8 tiles.
+// queries] a warp, in 8 n8 tiles.  ops: q, k, v, dO.  Its registers are
+// asked for two blocks an SM: left to itself ptxas took 189 and serialised
+// the HMMAs of a product with NOPs (1.50 ms alone at the LM shape against
+// 1.22; chip_ab.py --tf32-variants).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_tf32x3_kernel(const Operands ops,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv,
-                            int tqp, int tkp, int t_k, int causal,
+                            int H, int t_q, int t_k, int tqp, int causal,
                             float scale) {
   constexpr int LD = ld<D>(), TILE = tile_floats<D>(), kNT = D / 8;
   extern __shared__ __align__(16) float smem_f[];
@@ -212,30 +116,29 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
   float* ring = sv + TILE;             // [2 stages][Q, dO]
   float* srow = ring + 4 * TILE;       // [2 stages][lse, delta][64]
 
-  const int bh = blockIdx.x, j = blockIdx.y;  // j = 0 (most work) first
+  const int j = blockIdx.y, bh = blockIdx.x;  // j = 0 (most work) first
+  const int b = bh / H, h = bh % H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int key0 = j * kB + 16 * warp + g;
 
   const int i0 = causal ? j : 0, nq = tqp / kB;
-  const float* qg = q + (size_t)bh * tqp * D;
-  const float* dog = dout + (size_t)bh * tqp * D;
+  const Rows qr = ops.rows(0, b, h), dor = ops.rows(3, b, h);
   auto stage_q = [&](int s) { return ring + (s & 1) * 2 * TILE; };
   auto stage_do = [&](int s) { return ring + (s & 1) * 2 * TILE + TILE; };
   // query tile i into stage s: Q and dO by cp.async, lse and delta by
   // plain loads (visible after the barrier that precedes their use)
   auto fetch = [&](int i, int s) {
-    copy_tile<D>(stage_q(s), qg + (size_t)i * kB * D, tid);
-    copy_tile<D>(stage_do(s), dog + (size_t)i * kB * D, tid);
+    copy_rows<D, kThreads>(stage_q(s), qr, i * kB, t_q, tid);
+    copy_rows<D, kThreads>(stage_do(s), dor, i * kB, t_q, tid);
     if (tid < kB) {
       srow[(s & 1) * 128 + tid] = lse[(size_t)bh * tqp + i * kB + tid];
       srow[(s & 1) * 128 + 64 + tid] = delta[(size_t)bh * tqp + i * kB + tid];
     }
   };
 
-  const size_t kbase = ((size_t)bh * tkp + (size_t)j * kB) * D;
-  copy_tile<D>(sk, k + kbase, tid);
-  copy_tile<D>(sv, v + kbase, tid);
+  copy_rows<D, kThreads>(sk, ops.rows(1, b, h), j * kB, t_k, tid);
+  copy_rows<D, kThreads>(sv, ops.rows(2, b, h), j * kB, t_k, tid);
   if (i0 < nq) fetch(i0, 0);
   bf16_tc::cp_async_commit();
 
@@ -274,13 +177,13 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
              va[8 * LD + 8 * kc + 4]);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int b = (8 * n + g) * LD + 8 * kc + t;
+        const int bi = (8 * n + g) * LD + 8 * kc + t;
         if constexpr (kSliceApart<D>) {
-          mma3_add(s[n], ak, sq[b], sq[b + 4]);
-          mma3_add(dp[n], av, sdo[b], sdo[b + 4]);
+          mma3_add(s[n], ak, sq[bi], sq[bi + 4]);
+          mma3_add(dp[n], av, sdo[bi], sdo[bi + 4]);
         } else {
-          mma3(s[n], ak, sq[b], sq[b + 4]);
-          mma3(dp[n], av, sdo[b], sdo[b + 4]);
+          mma3(s[n], ak, sq[bi], sq[bi + 4]);
+          mma3(dp[n], av, sdo[bi], sdo[bi + 4]);
         }
       }
     }
@@ -300,10 +203,9 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
         dp[n][e] = p * (dp[n][e] - sdl[qc]) * scale;
       }
 
-    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, 8 at a
-    // time in the order (0, 2, 4, 6, 1, 3, 5, 7): the accumulator tile n
-    // is then the A fragment as it lies (c0, c2, c1, c3), and B's rows
-    // are the queries 2t and 2t + 1
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 queries in the
+    // fragment order (0, 2, 4, 6, 1, 3, 5, 7): B's rows are the queries
+    // 2t and 2t + 1
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       SplitA pa, da;
@@ -311,72 +213,69 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
       da.set(dp[kk][0], dp[kk][2], dp[kk][1], dp[kk][3]);
 #pragma unroll
       for (int dn = 0; dn < kNT; ++dn) {
-        const int b = (8 * kk + 2 * t) * LD + 8 * dn + g;
-        mma3_add(acc_v[dn], pa, sdo[b], sdo[b + LD]);
-        mma3_add(acc_k[dn], da, sq[b], sq[b + LD]);
+        const int bi = (8 * kk + 2 * t) * LD + 8 * dn + g;
+        mma3_add(acc_v[dn], pa, sdo[bi], sdo[bi + LD]);
+        mma3_add(acc_k[dn], da, sq[bi], sq[bi + LD]);
       }
     }
   }
   bf16_tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row = (size_t)bh * tkp + key0 + 8 * h;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = key0 + 8 * hh;
+    if (row >= t_k) continue;
+    const size_t at = (((size_t)b * t_k + row) * H + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
-      const size_t o = row * D + 8 * n + 2 * t;
-      *reinterpret_cast<float2*>(dk + o) =
-          make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv + o) =
-          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dk + at + 8 * n) =
+          make_float2(acc_k[n][2 * hh], acc_k[n][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(acc_v[n][2 * hh], acc_v[n][2 * hh + 1]);
     }
   }
 }
 
 // One block per (bh, query tile i): dq = dS K over the key tiles j <= i
 // (causal) or all of them.  Warp w owns rows row0 = 64 i + 16 w + g and
-// row0 + 8.
+// row0 + 8.  ops: q, k, v, dO.  Its registers are asked for two blocks an
+// SM, as the dK/dV kernel's (0.85 -> 0.80 ms alone at the LM shape).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           const float* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_tf32x3_kernel(const Operands ops,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           float* __restrict__ dq, int tqp, int tkp, int t_k,
-                           int causal, float scale) {
+                           float* __restrict__ dq, int H, int t_q, int t_k,
+                           int tqp, int causal, float scale) {
   constexpr int LD = ld<D>(), TILE = tile_floats<D>(), kNT = D / 8;
   extern __shared__ __align__(16) float smem_f[];
   float* sq = smem_f;
   float* sdo = sq + TILE;
   float* ring = sdo + TILE;  // [2 stages][K, V]
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int i = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = i * kB + 16 * warp + g;   // rows row0 and row0 + 8
 
-  int n_tiles = tkp / kB;
+  int n_tiles = (t_k + kB - 1) / kB;
   if (causal) n_tiles = min(n_tiles, i + 1);
-  const float* kg = k + (size_t)bh * tkp * D;
-  const float* vg = v + (size_t)bh * tkp * D;
+  const Rows kr = ops.rows(1, b, h), vr = ops.rows(2, b, h);
   auto stage_k = [&](int j) { return ring + (j & 1) * 2 * TILE; };
   auto stage_v = [&](int j) { return ring + (j & 1) * 2 * TILE + TILE; };
 
-  const size_t qbase = ((size_t)bh * tqp + (size_t)i * kB) * D;
-  copy_tile<D>(sq, q + qbase, tid);
-  copy_tile<D>(sdo, dout + qbase, tid);
-  copy_tile<D>(stage_k(0), kg, tid);
-  copy_tile<D>(stage_v(0), vg, tid);
+  copy_rows<D, kThreads>(sq, ops.rows(0, b, h), i * kB, t_q, tid);
+  copy_rows<D, kThreads>(sdo, ops.rows(3, b, h), i * kB, t_q, tid);
+  copy_rows<D, kThreads>(stage_k(0), kr, 0, t_k, tid);
+  copy_rows<D, kThreads>(stage_v(0), vr, 0, t_k, tid);
   bf16_tc::cp_async_commit();
 
   float row_lse[2], row_dl[2], acc[kNT][4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row_lse[h] = lse[(size_t)bh * tqp + row0 + 8 * h];
-    row_dl[h] = delta[(size_t)bh * tqp + row0 + 8 * h];
+  for (int hh = 0; hh < 2; ++hh) {
+    row_lse[hh] = lse[(size_t)bh * tqp + row0 + 8 * hh];
+    row_dl[hh] = delta[(size_t)bh * tqp + row0 + 8 * hh];
   }
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
@@ -388,8 +287,8 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     __syncthreads();  // every warp is past tile j - 1, whose slot j + 1 takes
     if (j + 1 < n_tiles) {
-      copy_tile<D>(stage_k(j + 1), kg + (size_t)(j + 1) * kB * D, tid);
-      copy_tile<D>(stage_v(j + 1), vg + (size_t)(j + 1) * kB * D, tid);
+      copy_rows<D, kThreads>(stage_k(j + 1), kr, (j + 1) * kB, t_k, tid);
+      copy_rows<D, kThreads>(stage_v(j + 1), vr, (j + 1) * kB, t_k, tid);
     }
     bf16_tc::cp_async_commit();
     bf16_tc::cp_async_wait<1>();
@@ -412,13 +311,13 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
              da[8 * LD + 8 * kc + 4]);
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int b = (8 * n + g) * LD + 8 * kc + t;
+        const int bi = (8 * n + g) * LD + 8 * kc + t;
         if constexpr (kSliceApart<D>) {
-          mma3_add(s[n], aq, sk[b], sk[b + 4]);
-          mma3_add(dp[n], ad, sv[b], sv[b + 4]);
+          mma3_add(s[n], aq, sk[bi], sk[bi + 4]);
+          mma3_add(dp[n], ad, sv[bi], sv[bi + 4]);
         } else {
-          mma3(s[n], aq, sk[b], sk[b + 4]);
-          mma3(dp[n], ad, sv[b], sv[b + 4]);
+          mma3(s[n], aq, sk[bi], sk[bi + 4]);
+          mma3(dp[n], ad, sv[bi], sv[bi + 4]);
         }
       }
     }
@@ -445,51 +344,52 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
       sa.set(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
 #pragma unroll
       for (int dn = 0; dn < kNT; ++dn) {
-        const int b = (8 * kk + 2 * t) * LD + 8 * dn + g;
-        mma3_add(acc[dn], sa, sk[b], sk[b + LD]);
+        const int bi = (8 * kk + 2 * t) * LD + 8 * dn + g;
+        mma3_add(acc[dn], sa, sk[bi], sk[bi + LD]);
       }
     }
   }
   bf16_tc::cp_async_wait<0>();
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row = (size_t)bh * tqp + row0 + 8 * h;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= t_q) continue;
+    float* out = dq + (((size_t)b * t_q + row) * H + h) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
-      *reinterpret_cast<float2*>(dq + row * D + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
   }
 }
 
 template <int D>
-int launch_dq(const float* q, const float* k, const float* v, const float* dout,
-              const float* lse, const float* delta, float* dq, int bh, int tqp,
-              int tkp, int t_k, int causal, float scale, cudaStream_t stream) {
+int launch_dq(const Operands& ops, const float* lse, const float* delta,
+              float* dq, int B, int H, int t_q, int t_k, int tqp, int causal,
+              float scale, cudaStream_t stream) {
   static bool opted[64] = {};
   const int smem = (int)smem_bytes<D>();
   const cudaError_t err =
       flash_hop::opt_in(flash_bwd_dq_tf32x3_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, tqp / kB);
+  const dim3 grid(B * H, tqp / kB);
   flash_bwd_dq_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, tqp, tkp, t_k, causal, scale);
+      ops, lse, delta, dq, H, t_q, t_k, tqp, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               float* dk, float* dv, int bh, int tqp, int tkp, int t_k,
+int launch_dkv(const Operands& ops, const float* lse, const float* delta,
+               float* dk, float* dv, int B, int H, int t_q, int t_k, int tqp,
                int causal, float scale, cudaStream_t stream) {
   static bool opted[64] = {};
   const int smem = (int)smem_bytes<D>();
   const cudaError_t err =
       flash_hop::opt_in(flash_bwd_dkv_tf32x3_kernel<D>, smem, opted);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(bh, tkp / kB);
+  const dim3 grid(B * H, (t_k + kB - 1) / kB);
   flash_bwd_dkv_tf32x3_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, tqp, tkp, t_k, causal, scale);
+      ops, lse, delta, dk, dv, H, t_q, t_k, tqp, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1450,32 +1350,55 @@ bool bad_bthd(int B, int H, int t_q, int t_k, int tqp, const void* lse,
 
 }  // namespace
 
+// q, k, v, dout: f32 [B, T, H, D] with d contiguous, (b, t, h) element
+// strides in `*_s*` (multiples of 4, 16-byte aligned bases); lse, delta
+// f32 [B*H, tqp] with tqp = t_q rounded up to 64; dq f32 [B, t_q, H, D]
+// contiguous; d 16, 32, 64 or 128
 extern "C" int flash_attention_bwd_dq_tf32x3(
     const float* q, const float* k, const float* v, const float* dout,
-    const float* lse, const float* delta, float* dq, int bh, int tqp, int tkp,
-    int t_k, int d, int causal, float scale, void* stream) {
-  if (bad_shape(bh, tqp, tkp)) return (int)cudaErrorInvalidValue;
+    long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long do_sb, long long do_st, long long do_sh,
+    const float* lse, const float* delta, float* dq, int B, int H,
+    int t_q, int t_k, int tqp, int d, int causal, float scale, void* stream) {
+  const tf32x3::Operands ops = {{q, k, v, dout},
+                                {q_sb, k_sb, v_sb, do_sb},
+                                {q_st, k_st, v_st, do_st},
+                                {q_sh, k_sh, v_sh, do_sh}};
+  if (bad_bthd(B, H, t_q, t_k, tqp, lse, delta, dq, dq) ||
+      tf32x3::bad_operands(ops, 4, tqp, t_k))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
-    case 16: return tf32::launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
-    case 32: return tf32::launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
-    case 64: return tf32::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
-    case 128: return tf32::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tqp, tkp, t_k, causal, scale, s);
+    case 16: return tf32::launch_dq<16>(ops, lse, delta, dq, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 32: return tf32::launch_dq<32>(ops, lse, delta, dq, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 64: return tf32::launch_dq<64>(ops, lse, delta, dq, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 128: return tf32::launch_dq<128>(ops, lse, delta, dq, B, H, t_q, t_k, tqp, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// the same operands; dk, dv f32 [B, t_k, H, D] contiguous
 extern "C" int flash_attention_bwd_dkv_tf32x3(
     const float* q, const float* k, const float* v, const float* dout,
-    const float* lse, const float* delta, float* dk, float* dv, int bh,
-    int tqp, int tkp, int t_k, int d, int causal, float scale, void* stream) {
-  if (bad_shape(bh, tqp, tkp)) return (int)cudaErrorInvalidValue;
+    long long q_sb, long long q_st, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long do_sb, long long do_st, long long do_sh,
+    const float* lse, const float* delta, float* dk, float* dv, int B, int H,
+    int t_q, int t_k, int tqp, int d, int causal, float scale, void* stream) {
+  const tf32x3::Operands ops = {{q, k, v, dout},
+                                {q_sb, k_sb, v_sb, do_sb},
+                                {q_st, k_st, v_st, do_st},
+                                {q_sh, k_sh, v_sh, do_sh}};
+  if (bad_bthd(B, H, t_q, t_k, tqp, lse, delta, dk, dv) ||
+      tf32x3::bad_operands(ops, 4, tqp, t_k))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
-    case 16: return tf32::launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
-    case 32: return tf32::launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
-    case 64: return tf32::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
-    case 128: return tf32::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, tqp, tkp, t_k, causal, scale, s);
+    case 16: return tf32::launch_dkv<16>(ops, lse, delta, dk, dv, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 32: return tf32::launch_dkv<32>(ops, lse, delta, dk, dv, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 64: return tf32::launch_dkv<64>(ops, lse, delta, dk, dv, B, H, t_q, t_k, tqp, causal, scale, s);
+    case 128: return tf32::launch_dkv<128>(ops, lse, delta, dk, dv, B, H, t_q, t_k, tqp, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

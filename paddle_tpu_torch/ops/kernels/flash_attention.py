@@ -1,27 +1,33 @@
 """Flash attention, forward and backward (the port of
 ``paddle_tpu/ops/pallas/flash_attention.py``).
 
-Public layout [B, T, H, D], as in the JAX package.  Most kernels run on
-[B*H, T, D] with T zero-padded to the kernels' 64-row tiles.  The padding
-and the transposes are done here, in Python, so the CPU tests reach
-them: CPU tensors run the same padded problem through the plain versions
-(:func:`_fwd_plain`, :func:`_bwd_plain`), CUDA tensors launch
+Public layout [B, T, H, D], as in the JAX package.  CUDA tensors launch
 ``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(the dQ and the dK/dV kernels).  Padded keys are masked inside all of
-them; padded query rows are sliced off.
+(the dQ and the dK/dV kernels).  Two routes:
 
-Two dtypes, each with its own kernel forms and launch counts: float32
-(``KERNEL``, full-precision FMA; ``KERNEL_BWD_DQ``, ``KERNEL_BWD_DKV``,
-the products on the tensor cores as 3xTF32: each operand split into two
-TF32 parts, hi.hi + hi.lo + lo.hi) and bfloat16 (``KERNEL_BF16``,
-``KERNEL_BWD_DQ_BF16``, ``KERNEL_BWD_DKV_BF16``; tensor-core products
-with f32 sums).  At head_dim 64 and 128 (``WGMMA_HEAD_DIMS``) the bf16
-forward and backward take the Hopper forms, ``KERNEL_WGMMA``,
-``KERNEL_BWD_DQ_WGMMA`` and ``KERNEL_BWD_DKV_WGMMA`` (``wgmma`` fed by
-TMA), which read q, k, v and dO where they lie in [B, T, H, D] and write
-o, dq, dk and dv there: no padded copy and no transpose on either pass.
-Other head dims keep the ``mma.sync`` forms on the padded problem.  The
-bf16 forms round where the JAX kernels round with bf16 operands: P
+- In place (:func:`_takes_bthd`: float32 at every head dim of
+  ``HEAD_DIMS``, bfloat16 at ``WGMMA_HEAD_DIMS``): the kernels read q, k,
+  v and dO where they lie in [B, T, H, D] (16-byte copies, so the rule of
+  :func:`_bthd_ok`) and write o, dq, dk and dv there: no padded copy and
+  no transpose on either pass (:func:`_fwd_bthd`, :func:`_bwd_bthd`).
+  The float32 forms, ``KERNEL``, ``KERNEL_BWD_DQ`` and
+  ``KERNEL_BWD_DKV``, take every product on the tensor cores as 3xTF32
+  (each operand split into two TF32 parts, hi.hi + hi.lo + lo.hi); the
+  bfloat16 forms, ``KERNEL_WGMMA``, ``KERNEL_BWD_DQ_WGMMA`` and
+  ``KERNEL_BWD_DKV_WGMMA``, are ``wgmma`` fed by TMA.  CPU float32
+  tensors take the same host functions, which run the plain twins on the
+  padded problem there.
+- Padded (bfloat16 at head_dim 16 and 32 on the card, and the CPU's
+  other dtypes): [B*H, T, D] with T zero-padded to the kernels' 64-row
+  tiles, the padding and the transposes done here; CPU tensors run the
+  plain versions (:func:`_fwd_plain`, :func:`_bwd_plain`), CUDA tensors
+  the ``mma.sync`` forms ``KERNEL_BF16``, ``KERNEL_BWD_DQ_BF16`` and
+  ``KERNEL_BWD_DKV_BF16``.
+
+Padded keys are masked inside every kernel; padded query rows are sliced
+off.  Each form has its own launch count.  The bf16 forms have
+tensor-core products with f32 sums and round where the JAX kernels round
+with bf16 operands: P
 before P.V and P^T dO, dS before dS K and dS^T Q, the outputs once; lse
 and delta stay f32.  Their plain twins round at the same points
 (:func:`_fwd_plain_tiled` runs the kernel's online softmax over 64-key
@@ -32,10 +38,12 @@ raises; nothing casts it to f32.
 The forward writes ``o`` and ``lse`` (log-sum-exp per query row).  The
 backward recomputes the probabilities from ``lse``, as the JAX
 package's ``_flash_bwd`` does, with ``delta = rowsum(dO * O)`` computed
-outside the kernels (:func:`_delta`; :func:`_delta_bthd` on the Hopper
+outside the kernels (:func:`_delta`; :func:`_delta_bthd` on the in-place
 route).  :class:`_FlashAttention` is the ``torch.autograd.Function``
 that ties the two (the JAX ``custom_vjp``); :func:`flash_attention` and
-:func:`flash_attention_fwd` go through it on both devices."""
+:func:`flash_attention_fwd` go through it on both devices (a call that
+wants no gradient on the in-place route takes :func:`_fwd_bthd`
+directly)."""
 
 from __future__ import annotations
 
@@ -58,21 +66,23 @@ _F = ctypes.c_float
 _FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _P]
 # q, k, v | their (b, t, h) element strides | o, lse | b, h, t_q, t_k,
 # tqp, d, causal | scale, stream
-_WGMMA_ARGS = ([_P] * 3 + [ctypes.c_longlong] * 9 + [_P] * 2 + [_I] * 7
-               + [_F, _P])
+_BTHD_ARGS = ([_P] * 3 + [ctypes.c_longlong] * 9 + [_P] * 2 + [_I] * 7
+              + [_F, _P])
 # q, k, v, do, lse, delta, dq | the same scalars
 _DQ_ARGS = [_P] * 7 + [_I] * 6 + [_F, _P]
 # q, k, v, do, lse, delta, dk, dv | the same scalars
 _DKV_ARGS = [_P] * 8 + [_I] * 6 + [_F, _P]
 # q, k, v, do | their (b, t, h) element strides | lse, delta, dq (dk, dv)
 # | b, h, t_q, t_k, tqp, d, causal | scale, stream
-_BWD_WGMMA_ARGS = [_P] * 4 + [ctypes.c_longlong] * 12 + [_P] * 3
-_BWD_WGMMA_TAIL = [_I] * 7 + [_F, _P]
-KERNEL = Kernel("flash_attention", "flash_attention_fwd_f32", _FWD_ARGS)
+_BWD_BTHD_ARGS = [_P] * 4 + [ctypes.c_longlong] * 12 + [_P] * 3
+_BWD_BTHD_TAIL = [_I] * 7 + [_F, _P]
+#: the f32 forms: 3xTF32 on the tensor cores, in place on [B, T, H, D]
+KERNEL = Kernel("flash_attention", "flash_attention_fwd_tf32x3", _BTHD_ARGS)
 KERNEL_BWD_DQ = Kernel("flash_attention_bwd", "flash_attention_bwd_dq_tf32x3",
-                       _DQ_ARGS)
+                       _BWD_BTHD_ARGS + _BWD_BTHD_TAIL)
 KERNEL_BWD_DKV = Kernel("flash_attention_bwd",
-                        "flash_attention_bwd_dkv_tf32x3", _DKV_ARGS)
+                        "flash_attention_bwd_dkv_tf32x3",
+                        _BWD_BTHD_ARGS + [_P] + _BWD_BTHD_TAIL)
 KERNEL_BF16 = Kernel("flash_attention", "flash_attention_fwd_bf16",
                      _FWD_ARGS)
 KERNEL_BWD_DQ_BF16 = Kernel("flash_attention_bwd",
@@ -82,19 +92,25 @@ KERNEL_BWD_DKV_BF16 = Kernel("flash_attention_bwd",
 #: the Hopper form of the bf16 forward, and the head dims it takes (the
 #: others keep ``KERNEL_BF16``)
 KERNEL_WGMMA = Kernel("flash_attention", "flash_attention_fwd_wgmma",
-                      _WGMMA_ARGS)
+                      _BTHD_ARGS)
 #: the Hopper forms of the bf16 backward (the head dims of KERNEL_WGMMA)
 KERNEL_BWD_DQ_WGMMA = Kernel("flash_attention_bwd",
                              "flash_attention_bwd_dq_wgmma",
-                             _BWD_WGMMA_ARGS + _BWD_WGMMA_TAIL)
+                             _BWD_BTHD_ARGS + _BWD_BTHD_TAIL)
 KERNEL_BWD_DKV_WGMMA = Kernel("flash_attention_bwd",
                               "flash_attention_bwd_dkv_wgmma",
-                              _BWD_WGMMA_ARGS + [_P] + _BWD_WGMMA_TAIL)
+                              _BWD_BTHD_ARGS + [_P] + _BWD_BTHD_TAIL)
 WGMMA_HEAD_DIMS = (64, 128)
-#: {dtype: (forward, dQ, dK/dV)} kernel forms
+#: {dtype: (forward, dQ, dK/dV)} kernel forms: f32's in place at every
+#: head dim of HEAD_DIMS; bf16's the mma.sync forms on the padded problem
+#: (its Hopper forms, at WGMMA_HEAD_DIMS, are BTHD_FORMS')
 FORMS = {torch.float32: (KERNEL, KERNEL_BWD_DQ, KERNEL_BWD_DKV),
          torch.bfloat16: (KERNEL_BF16, KERNEL_BWD_DQ_BF16,
                           KERNEL_BWD_DKV_BF16)}
+#: {dtype: ((forward, dQ, dK/dV), head dims)}: the in-place forms
+BTHD_FORMS = {torch.float32: (FORMS[torch.float32], HEAD_DIMS),
+              torch.bfloat16: ((KERNEL_WGMMA, KERNEL_BWD_DQ_WGMMA,
+                                KERNEL_BWD_DKV_WGMMA), WGMMA_HEAD_DIMS)}
 
 
 def _to_bh(x):
@@ -249,27 +265,28 @@ def _check(q, k, v):
 
 
 def _check_kernel_args(*xs):
-    """What the CUDA kernels take: float32 or bfloat16, all of one dtype,
-    head_dim in HEAD_DIMS, contiguous [BH, Tp, D] with Tp a multiple of 64,
-    16-byte aligned (the backward's 16-byte copies; the f32 forward reads
-    floats).  Returns the kernel forms of that dtype (``FORMS``)."""
+    """What the CUDA kernels take on the padded problem: bfloat16 (float32
+    takes its in-place forms, :func:`_fwd_bthd`), all of one dtype,
+    head_dim in HEAD_DIMS, contiguous [BH, Tp, D] with Tp a multiple of
+    64, 16-byte aligned (16-byte copies).  Returns the bf16 forms
+    (``FORMS``)."""
     enforce(xs[0].device.type == "cuda", f"no kernel for device {xs[0].device}")
-    dt = xs[0].dtype
-    enforce(dt in FORMS and all(x.dtype == dt for x in xs),
-            f"the flash kernels take float32 or bfloat16 (one dtype), got "
-            f"{[str(x.dtype) for x in xs]}")
+    if not all(x.dtype == torch.bfloat16 for x in xs):
+        enforce(False, f"the padded flash kernels take bfloat16 (float32 "
+                f"reads [B, T, H, D] in place), one dtype, got "
+                f"{[str(x.dtype) for x in xs]}")
     d = xs[0].shape[-1]
     enforce(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     enforce(all(x.is_contiguous() and x.shape[1] % BLOCK == 0 for x in xs),
             "the flash kernels need contiguous, 64-row padded inputs")
     enforce(all(x.data_ptr() % 16 == 0 for x in xs),
             "the flash kernels need 16-byte aligned inputs")
-    return FORMS[dt]
+    return FORMS[torch.bfloat16]
 
 
 def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
-    """The CUDA forward kernel of the inputs' dtype on the padded
-    [BH, Tp, D] problem (the same contract as :func:`_fwd_plain`)."""
+    """The bf16 CUDA forward kernel on the padded [BH, Tp, D] problem (the
+    same contract as :func:`_fwd_plain`)."""
     kernel = _check_kernel_args(qp, kp, vp)[0]
     bh, tqp, d = qp.shape
     o = torch.empty_like(qp)
@@ -282,67 +299,93 @@ def _fwd_kernel(qp, kp, vp, t_k, causal, scale):
     return o, lse
 
 
-def _takes_wgmma(q) -> bool:
-    """The rule between the two bf16 forward forms: a bf16 CUDA q whose
-    head_dim the Hopper form takes (``WGMMA_HEAD_DIMS``)."""
-    return (q.dtype == torch.bfloat16 and q.device.type == "cuda"
-            and q.shape[-1] in WGMMA_HEAD_DIMS)
+def _takes_bthd(q) -> bool:
+    """The rule between the routes: the in-place one for a float32 q (on
+    the card every head dim of ``HEAD_DIMS``; on the CPU its host code
+    with the twins) and a bf16 CUDA q whose head_dim the Hopper form
+    takes (``WGMMA_HEAD_DIMS``); the padded one for the rest."""
+    return q.dtype == torch.float32 or (
+        q.dtype == torch.bfloat16 and q.device.type == "cuda"
+        and q.shape[-1] in WGMMA_HEAD_DIMS)
 
 
-def _tma_ok(x) -> bool:
-    """Whether TMA reads the [B, T, H, D] bf16 ``x`` as it lies: d
-    contiguous, every stepped (b, t, h) stride a multiple of 8 elements
-    (16 bytes), the base 16-byte aligned."""
-    st = x.stride()
+def _bthd_ok(x) -> bool:
+    """Whether the in-place kernels read the [B, T, H, D] ``x`` as it lies
+    (bf16 by TMA, f32 by 16-byte cp.async): d contiguous, every stepped
+    (b, t, h) stride a multiple of 16 bytes (8 bf16, 4 floats), the base
+    16-byte aligned."""
+    st, unit = x.stride(), 16 // x.element_size()
     return (st[3] == 1 and x.data_ptr() % 16 == 0
-            and all(s % 8 == 0 for s, n in zip(st[:3], x.shape[:3])
+            and all(s % unit == 0 for s, n in zip(st[:3], x.shape[:3])
                     if n > 1))
 
 
-def _tma_strides(x, name: str) -> tuple:
-    """(b, t, h) element strides of a [B, T, H, D] bf16 operand as TMA
-    takes them (:func:`_tma_ok`), or a refusal (no copy is made).  A
+def _bthd_strides(x, name: str) -> tuple:
+    """(b, t, h) element strides of a [B, T, H, D] operand as the in-place
+    kernels take them (:func:`_bthd_ok`), or a refusal: q, k and v are
+    never copied (a caller holding another layout makes its own copy).  A
     dimension of size 1 is never stepped, so any stride stands for it."""
-    if not _tma_ok(x):
-        enforce(False, f"the Hopper flash kernels read {name} by TMA: d must "
-                f"be contiguous, the base 16-byte aligned and the (b, t, h) "
-                f"strides multiples of 16 bytes, got strides {x.stride()} "
-                f"at {x.data_ptr() % 16} bytes past 16")
-    return tuple(s if n > 1 else 8 for s, n in zip(x.stride()[:3],
-                                                   x.shape[:3]))
+    if not _bthd_ok(x):
+        enforce(False, f"the in-place flash kernels read {name} as it lies: "
+                f"d must be contiguous, the base 16-byte aligned and the "
+                f"(b, t, h) strides multiples of 16 bytes, got strides "
+                f"{x.stride()} at {x.data_ptr() % 16} bytes past 16")
+    unit = 16 // x.element_size()
+    return tuple(s if n > 1 else unit for s, n in zip(x.stride()[:3],
+                                                      x.shape[:3]))
 
 
-def _fwd_wgmma(q, k, v, causal, scale):
-    """The Hopper form of the bf16 forward on [B, T, H, D] views as they
-    lie: (o [B, Tq, H, D] contiguous, lse [B*H, Tqp, 1] f32 with Tqp = Tq
-    rounded up to 64, the padded rows' lse as the padded problem's)."""
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and q.shape[-1] in WGMMA_HEAD_DIMS):
-        enforce(False, f"the Hopper flash forward takes bf16 q, k, v with "
-                f"head_dim in {WGMMA_HEAD_DIMS}, got {q.dtype} {k.dtype} "
-                f"{v.dtype}, head_dim {q.shape[-1]}")
-    strides = (*_tma_strides(q, "q"), *_tma_strides(k, "k"),
-               *_tma_strides(v, "v"))
+def _bthd_kernels(xs, d: int) -> tuple:
+    """The in-place forms (forward, dQ, dK/dV) of the operands' dtype
+    (``BTHD_FORMS``): all of one dtype, float32 with head_dim in
+    ``HEAD_DIMS`` or bfloat16 with head_dim in ``WGMMA_HEAD_DIMS``; or a
+    refusal."""
+    dt = xs[0].dtype
+    form = BTHD_FORMS.get(dt)
+    if form is None or d not in form[1] or any(x.dtype != dt for x in xs):
+        enforce(False, f"the in-place flash kernels take float32 with "
+                f"head_dim in {HEAD_DIMS} or bfloat16 with head_dim in "
+                f"{WGMMA_HEAD_DIMS}, one dtype; got "
+                f"{[str(x.dtype) for x in xs]}, head_dim {d}")
+    return form[0]
+
+
+def _fwd_bthd(q, k, v, causal, scale):
+    """The forward on [B, T, H, D] views as they lie: (o [B, Tq, H, D]
+    contiguous, lse [B*H, Tqp, 1] f32 with Tqp = Tq rounded up to 64, the
+    padded rows' lse as the padded problem's).  CUDA tensors launch the
+    in-place form of their dtype (``KERNEL``: f32, 3xTF32; ``KERNEL_WGMMA``:
+    bf16), which reads q, k and v where they lie or refuses
+    (:func:`_bthd_strides`); CPU tensors take :func:`_fwd_plain` on the
+    padded problem."""
     b, t_q, h, d = q.shape
+    if q.device.type == "cpu":
+        qp, kp, vp = _prep(q, k, v)
+        o, lse = _fwd_plain(qp, kp, vp, k.shape[1], causal, scale)
+        return _from_bh(o, b, h, t_q, d).contiguous(), lse
+    kernel = _bthd_kernels((q, k, v), d)[0]
+    strides = (*_bthd_strides(q, "q"), *_bthd_strides(k, "k"),
+               *_bthd_strides(v, "v"))
     tqp = round_up(t_q, BLOCK)
     o = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tqp, 1), dtype=torch.float32, device=q.device)
     if b * h and t_q and k.shape[1]:
-        KERNEL_WGMMA.launch_on(
+        kernel.launch_on(
             q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *strides, o.data_ptr(), lse.data_ptr(), b, h, t_q, k.shape[1],
             tqp, d, int(bool(causal)), float(scale))
     return o, lse
 
 
-def _bwd_launch(which, qp, kp, vp, lse, do, delta, outs, t_k, causal,
-                scale):
-    """Launch the backward kernel ``which`` (1: dQ, 2: dK/dV) of the
-    operands' dtype."""
-    kernel = _check_kernel_args(qp, kp, vp, do, *outs)[which]
+def _bwd_launch(which, qp, kp, vp, lse, do, delta, t_k, causal, scale):
+    """Launch the bf16 backward kernel ``which`` (1: dQ, 2: dK/dV) on the
+    padded problem."""
+    kernel = _check_kernel_args(qp, kp, vp, do)[which]
     enforce(all(x.dtype == torch.float32 and x.is_contiguous()
                 for x in (lse, delta)),
             "the flash backward takes the forward's f32 lse and an f32 delta")
+    outs = ((torch.empty_like(qp),) if which == 1 else
+            (torch.empty_like(kp), torch.empty_like(vp)))
     bh, tqp, d = qp.shape
     if bh:
         kernel.launch_on(qp.device.index,
@@ -356,16 +399,13 @@ def _bwd_launch(which, qp, kp, vp, lse, do, delta, outs, t_k, causal,
 def _bwd_dq_kernel(qp, kp, vp, lse, do, delta, t_k, causal, scale):
     """The dQ kernel (the contract of :func:`_bwd_dq_plain`): one block per
     64-query tile walks the key tiles up to the diagonal."""
-    return _bwd_launch(1, qp, kp, vp, lse, do, delta,
-                       (torch.empty_like(qp),), t_k, causal, scale)[0]
+    return _bwd_launch(1, qp, kp, vp, lse, do, delta, t_k, causal, scale)[0]
 
 
 def _bwd_dkv_kernel(qp, kp, vp, lse, do, delta, t_k, causal, scale):
     """The dK/dV kernel (the contract of :func:`_bwd_dkv_plain`): one block
     per 64-key tile walks the query tiles from the diagonal down."""
-    return _bwd_launch(2, qp, kp, vp, lse, do, delta,
-                       (torch.empty_like(kp), torch.empty_like(vp)), t_k,
-                       causal, scale)
+    return _bwd_launch(2, qp, kp, vp, lse, do, delta, t_k, causal, scale)
 
 
 def _bwd_kernel(qp, kp, vp, o, lse, do, t_k, causal, scale):
@@ -389,36 +429,36 @@ def _delta_bthd(do, o, tqp):
     return out.view(b * h, tqp)
 
 
-def _wgmma_bwd_args(q, k, v, lse, do, delta):
-    """The Hopper backward's checks: bf16 q, k, v, dO of one head_dim in
-    WGMMA_HEAD_DIMS, [B, T, H, D] with k.shape == v.shape and
-    do.shape == q.shape, each readable by TMA as it lies; lse and delta the
-    contiguous f32 [B*H, Tqp] (or [B*H, Tqp, 1]) rows, Tqp = Tq rounded up
-    to 64.  Returns (the pointers and strides of q, k, v, dO; Tqp)."""
+def _bthd_bwd_args(q, k, v, lse, do, delta):
+    """The in-place backward's checks: q, k, v, dO of one dtype and a
+    head_dim that its form takes (:func:`_bthd_kernels`), [B, T, H, D]
+    with k.shape == v.shape and do.shape == q.shape, each readable as it
+    lies (:func:`_bthd_strides`); lse and delta the contiguous f32
+    [B*H, Tqp] (or [B*H, Tqp, 1]) rows, Tqp = Tq rounded up to 64.
+    Returns (the forms, the pointers and strides of q, k, v, dO, Tqp)."""
     b, t_q, h, d = q.shape
-    if not (all(x.dtype == torch.bfloat16 for x in (q, k, v, do))
-            and d in WGMMA_HEAD_DIMS and k.shape == v.shape
-            and do.shape == q.shape and k.shape[0] == b
-            and k.shape[2:] == q.shape[2:]):
-        enforce(False, f"the Hopper flash backward takes bf16 [B, T, H, D] "
-                f"q, k, v, dO with head_dim in {WGMMA_HEAD_DIMS}, got "
-                f"{[(tuple(x.shape), str(x.dtype)) for x in (q, k, v, do)]}")
+    if not (k.shape == v.shape and do.shape == q.shape
+            and k.shape[0] == b and k.shape[2:] == q.shape[2:]):
+        enforce(False, f"the in-place flash backward takes [B, T, H, D] q, "
+                f"k, v, dO with k.shape == v.shape and do.shape == q.shape,"
+                f" got {[tuple(x.shape) for x in (q, k, v, do)]}")
+    kernels = _bthd_kernels((q, k, v, do), d)
     tqp = round_up(t_q, BLOCK)
     for name, x in (("lse", lse), ("delta", delta)):
         if not (x.dtype == torch.float32 and x.is_contiguous()
                 and x.numel() == b * h * tqp and x.shape[0] == b * h
                 and x.data_ptr() % 16 == 0):
-            enforce(False, f"the Hopper flash backward takes {name} as "
+            enforce(False, f"the in-place flash backward takes {name} as "
                     f"contiguous f32 [{b * h}, {tqp}] rows, got "
                     f"{tuple(x.shape)} {x.dtype}")
     strides = [s for x, name in ((q, "q"), (k, "k"), (v, "v"), (do, "dO"))
-               for s in _tma_strides(x, name)]
-    return [x.data_ptr() for x in (q, k, v, do)] + strides, tqp
+               for s in _bthd_strides(x, name)]
+    return kernels, [x.data_ptr() for x in (q, k, v, do)] + strides, tqp
 
 
-def _bwd_dq_wgmma(q, k, v, lse, do, delta, causal, scale):
-    """The Hopper dQ kernel on [B, T, H, D] q, k, v, dO as they lie, with
-    the forward's lse and :func:`_delta_bthd`'s rows: dq [B, Tq, H, D]
+def _bwd_dq_bthd(q, k, v, lse, do, delta, causal, scale):
+    """The dQ kernel on [B, T, H, D] q, k, v, dO as they lie, with the
+    forward's lse and :func:`_delta_bthd`'s rows: dq [B, Tq, H, D]
     contiguous (the contract of :func:`_bwd_dq_plain` on the padded
     problem).  CPU tensors take that twin."""
     b, t_q, h, d = q.shape
@@ -428,18 +468,18 @@ def _bwd_dq_wgmma(q, k, v, lse, do, delta, causal, scale):
                            delta.reshape(b * h, -1, 1), k.shape[1], causal,
                            scale)
         return _from_bh(dq, b, h, t_q, d).contiguous()
-    ptrs, tqp = _wgmma_bwd_args(q, k, v, lse, do, delta)
+    kernels, ptrs, tqp = _bthd_bwd_args(q, k, v, lse, do, delta)
     dq = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     if b * h and t_q and k.shape[1]:
-        KERNEL_BWD_DQ_WGMMA.launch_on(
+        kernels[1].launch_on(
             q.device.index, *ptrs, lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, t_q, k.shape[1], tqp, d, int(bool(causal)),
             float(scale))
     return dq
 
 
-def _bwd_dkv_wgmma(q, k, v, lse, do, delta, causal, scale):
-    """The Hopper dK/dV kernel on the same operands: (dk, dv), each
+def _bwd_dkv_bthd(q, k, v, lse, do, delta, causal, scale):
+    """The dK/dV kernel on the same operands: (dk, dv), each
     [B, Tk, H, D] contiguous (the contract of :func:`_bwd_dkv_plain` on
     the padded problem).  CPU tensors take that twin."""
     b, t_k, h, d = k.shape
@@ -450,48 +490,49 @@ def _bwd_dkv_wgmma(q, k, v, lse, do, delta, causal, scale):
                                 causal, scale)
         return (_from_bh(dk, b, h, t_k, d).contiguous(),
                 _from_bh(dv, b, h, t_k, d).contiguous())
-    ptrs, tqp = _wgmma_bwd_args(q, k, v, lse, do, delta)
+    kernels, ptrs, tqp = _bthd_bwd_args(q, k, v, lse, do, delta)
     dk, dv = (torch.empty((b, t_k, h, d), dtype=k.dtype, device=k.device)
               for _ in range(2))
     if b * h and q.shape[1] and t_k:
-        KERNEL_BWD_DKV_WGMMA.launch_on(
+        kernels[2].launch_on(
             q.device.index, *ptrs, lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, q.shape[1], t_k, tqp, d,
             int(bool(causal)), float(scale))
     return dk, dv
 
 
-def _bwd_wgmma(q, k, v, o, lse, g, causal, scale):
-    """The backward after the Hopper forward: (dq, dk, dv) [B, T, H, D]
+def _bwd_bthd(q, k, v, o, lse, g, causal, scale):
+    """The backward after the in-place forward: (dq, dk, dv) [B, T, H, D]
     contiguous from q, k, v, o as they lie, the forward's lse [B*H, Tqp,
     1] and the upstream gradient ``g``: delta from dO and o in [B, T, H, D]
-    (:func:`_delta_bthd`), then the two Hopper kernels.  Nothing is padded
-    or transposed.  ``g`` is read as it lies where TMA takes its strides;
-    one that TMA cannot read (d not contiguous, a stride that is not a
-    multiple of 16 bytes, as an expanded gradient's 0, or a base off 16
-    bytes), or one of another dtype, is copied once into a contiguous bf16
-    [B, T, H, D] tensor.  No other kernel is taken."""
+    (:func:`_delta_bthd`), then the two kernels of q's dtype.  Nothing is
+    padded or transposed.  ``g`` is read as it lies where
+    :func:`_bthd_ok` takes it; one that the kernels cannot read (d not
+    contiguous, a stride that is not a multiple of 16 bytes, as an
+    expanded gradient's 0, or a base off 16 bytes), or one of another
+    dtype, is copied once into a contiguous [B, T, H, D] tensor of q's
+    dtype.  No other kernel is taken."""
     do = g.to(q.dtype)
-    if not _tma_ok(do):
+    if not _bthd_ok(do):
         do = do.contiguous()
     delta = _delta_bthd(do, o, lse.shape[1])
     args = (lse, do, delta, causal, scale)
-    return (_bwd_dq_wgmma(q, k, v, *args), *_bwd_dkv_wgmma(q, k, v, *args))
+    return (_bwd_dq_bthd(q, k, v, *args), *_bwd_dkv_bthd(q, k, v, *args))
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward (JAX: ``flash_attention``'s
-    ``custom_vjp``).  Saves the residuals ``_flash_fwd`` keeps: the padded
-    q, k, v, the padded o and lse; after the Hopper forward, q, k, v and o
-    as they lie and lse, which the Hopper backward (:func:`_bwd_wgmma`)
-    reads without a copy.  CPU tensors take the plain versions, CUDA
+    ``custom_vjp``).  Saves the residuals ``_flash_fwd`` keeps: on the
+    in-place route q, k, v and o as they lie and lse, which the backward
+    (:func:`_bwd_bthd`) reads without a copy; on the padded route the
+    padded q, k, v, o and lse.  CPU tensors take the plain versions, CUDA
     tensors the kernels (or raise)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         b, t_q, h, d = q.shape
         ctx.meta = (b, t_q, k.shape[1], h, d, causal, scale)
-        ctx.padded = not _takes_wgmma(q)
+        ctx.padded = not _takes_bthd(q)
         if ctx.padded:
             qp, kp, vp = _prep(q, k, v)
             fwd = _fwd_plain if q.device.type == "cpu" else _fwd_kernel
@@ -499,7 +540,7 @@ class _FlashAttention(torch.autograd.Function):
             ctx.save_for_backward(qp, kp, vp, o, lse)
             out = _from_bh(o, b, h, t_q, d)
         else:
-            out, lse = _fwd_wgmma(q, k, v, causal, scale)
+            out, lse = _fwd_bthd(q, k, v, causal, scale)
             ctx.save_for_backward(q, k, v, out, lse)
         lse_out = lse[:, :t_q]
         ctx.mark_non_differentiable(lse_out)
@@ -510,7 +551,7 @@ class _FlashAttention(torch.autograd.Function):
         qp, kp, vp, o, lse = ctx.saved_tensors
         b, t_q, t_k, h, d, causal, scale = ctx.meta
         if not ctx.padded:
-            return (*_bwd_wgmma(qp, kp, vp, o, lse, g, causal, scale), None,
+            return (*_bwd_bthd(qp, kp, vp, o, lse, g, causal, scale), None,
                     None)
         do = g.permute(0, 2, 1, 3).reshape(b * h, t_q, d)
         do = torch.nn.functional.pad(
@@ -527,14 +568,16 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     of their dtype (float32 or bfloat16, head_dim in ``HEAD_DIMS``) or
-    raise."""
+    raise.  On the in-place route (:func:`_takes_bthd`) q, k and v are read
+    as they lie: d contiguous, the base 16-byte aligned and the (b, t, h)
+    strides multiples of 16 bytes (:func:`_bthd_ok`), else a refusal."""
     _check(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if _takes_wgmma(q) and not (torch.is_grad_enabled() and (
+    if _takes_bthd(q) and not (torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)):
-        # no gradient wanted (serving's prefill): the Hopper form alone,
-        # without the autograd Function's host time
-        o, lse = _fwd_wgmma(q, k, v, causal, scale)
+        # no gradient wanted (serving's prefill): the in-place forward
+        # alone, without the autograd Function's host time
+        o, lse = _fwd_bthd(q, k, v, causal, scale)
         return o, lse[:, :q.shape[1]]
     return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
 

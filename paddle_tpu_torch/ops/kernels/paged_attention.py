@@ -24,7 +24,15 @@ scores and sums, p rounded to bf16 before p.V, a bf16 output).  A bf16
 CUDA tensor launches the bf16 kernel or raises; nothing casts it to f32.
 The twin runs the Pallas kernel's page loop (an online softmax page by
 page, p rounded to the pools' dtype against the running max), so the
-card and the twin round at the same points."""
+card and the twin round at the same points.
+
+The f32 kernel splits each (b, h) over chunks of whole pages, one block a
+chunk, and combines them in the same launch (``csrc/paged_attention.cu``,
+``split``).  Its plan is host code (:func:`pages_per_chunk`,
+:func:`splits`, :func:`workspace_floats`, :func:`live_chunks`): the grid
+follows the table's width, never the lengths, so a call makes no host
+sync.  The chunks' partials and the combine's tickets are kept per
+(device, stream) (``_kept``) and grown when a larger call comes."""
 
 from __future__ import annotations
 
@@ -36,18 +44,28 @@ from paddle_tpu_torch.core.dtype import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.ops.kernels import NEG_INF
 from paddle_tpu_torch.ops.kernels._build import Kernel
+from paddle_tpu_torch.ops.kernels._kept import keep
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # q, k_pages, v_pages, page_table, seq_lens, out | B, H, P, page_size, D,
 # max_pages, scale, stream
 _ARGS = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
-KERNEL = Kernel("paged_attention", "paged_attention_f32", _ARGS)
+# the same, with the workspace and the tickets after out and the pages a
+# chunk after max_pages
+_SPLIT_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]
+KERNEL = Kernel("paged_attention", "paged_attention_f32", _SPLIT_ARGS)
 KERNEL_BF16 = Kernel("paged_attention", "paged_attention_bf16", _ARGS)
 #: {dtype: kernel form}
 FORMS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 #: the bf16 kernel keeps a page's scores and probabilities in shared memory
 MAX_PAGE_SIZE_BF16 = 4096
+#: the f32 kernel's chunk: the whole pages this many tokens hold (at
+#: serving's page of 16, 8 pages: 5 chunks over its 36-page rows, 1,920
+#: blocks of which ~940 live, ~7 a streaming multiprocessor of the H100's
+#: 132, each with 4 row loads a thread in flight; 4 pages ran 6% slower
+#: alone, 2 pages 25%, 16 pages 34%: ``chip_ab.py --paged-chunks``)
+CHUNK_TOKENS = 128
 
 
 # -- cache layout helpers ------------------------------------------------------
@@ -94,6 +112,37 @@ def write_prefill_kv(k_pages, v_pages, ks, vs, page_table, seq_lens):
     k_pages[:, :, pages, offs] = ks.permute(0, 3, 1, 2, 4)
     v_pages[:, :, pages, offs] = vs.permute(0, 3, 1, 2, 4)
     return k_pages, v_pages
+
+
+# -- the f32 kernel's plan ------------------------------------------------------
+
+
+def pages_per_chunk(page_size: int) -> int:
+    """Pages a block of the f32 kernel takes: the most whole pages that
+    :data:`CHUNK_TOKENS` tokens hold, one where a page holds more."""
+    return max(1, CHUNK_TOKENS // page_size)
+
+
+def splits(max_pages: int, page_size: int) -> int:
+    """Chunks a (b, h) row is split into: the grid's second dimension,
+    from the table's width alone (at least 1)."""
+    return max(1, -(-max_pages // pages_per_chunk(page_size)))
+
+
+def workspace_floats(b: int, h: int, max_pages: int, page_size: int,
+                     d: int) -> int:
+    """Floats of the chunks' partials: (m, l, acc[D]) for every chunk of
+    every (b, h)."""
+    return b * h * splits(max_pages, page_size) * (d + 2)
+
+
+def live_chunks(seq_len: int, max_pages: int, page_size: int) -> int:
+    """Chunks of a row of this length that read tokens (the others exit at
+    once), the length clamped to the table's row as the kernel does; a
+    row with one writes its output itself, a row with none writes
+    zeros."""
+    n = min(max(seq_len, 0), max_pages * page_size)
+    return -(-n // (pages_per_chunk(page_size) * page_size))
 
 
 # -- the plain version ---------------------------------------------------------
@@ -207,12 +256,21 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
     enforce(q.device.type == "cuda", f"no kernel for device {q.device}")
     kernel = _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens)
     b, h, _ = q.shape
-    hp, p, ps, _ = k_pages.shape
+    _, p, ps, _ = k_pages.shape
+    maxp = page_table.shape[1]
     out = torch.empty_like(q)
     if b == 0:
         return out
-    kernel.launch_on(q.device.index, q.data_ptr(), k_pages.data_ptr(),
-                     v_pages.data_ptr(), page_table.data_ptr(),
-                     seq_lens.data_ptr(), out.data_ptr(), b, h, p, ps, d,
-                     page_table.shape[1], float(scale))
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr())
+    if kernel is KERNEL:
+        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+        kept = keep(q.device, stream, workspace_floats(b, h, maxp, ps, d),
+                    b * h)
+        kernel.launch_on(q.device.index, *ptrs, kept.part_ptr,
+                         kept.tickets_ptr, b, h, p, ps, d, maxp,
+                         pages_per_chunk(ps), float(scale))
+    else:
+        kernel.launch_on(q.device.index, *ptrs, b, h, p, ps, d, maxp,
+                         float(scale))
     return out

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.core.dtype import set_policy
+from paddle_tpu_torch.ops.kernels import _kept
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
@@ -936,7 +937,11 @@ def test_flash_backward_refuses_what_the_kernels_do_not_take(cuda):
         x = torch.zeros(2, 64, 64, dtype=dtype, device=cuda)
         with pytest.raises(EnforceError, match="float32"):
             FA._bwd_kernel(x, x, x, x, lse, x, 64, True, 0.125)
-    x = torch.zeros(2, 60, 64, device=cuda)
+    # the padded kernels are bf16's (f32 reads [B, T, H, D] in place)
+    with pytest.raises(EnforceError, match="bfloat16"):
+        FA._bwd_kernel(*(torch.zeros(2, 64, 64, device=cuda),) * 4, lse,
+                       lse, 64, True, 0.125)
+    x = torch.zeros(2, 60, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(EnforceError, match="64-row"):
         FA._bwd_kernel(x, x, x, x, lse, x, 60, True, 0.125)
 
@@ -1801,7 +1806,7 @@ def test_channel_stats_reruns_bit_identical_with_another_shape_between(
                 1.0, b.abs().max().item())
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    tickets = CS._KEPT[(cuda.index, stream)]._tensors[1]
+    tickets = _kept.KEPT[(cuda.index, stream)]._tensors[1]
     assert not tickets.any()
 
 
@@ -1825,11 +1830,11 @@ def test_channel_stats_on_two_streams_is_right_on_both(cuda):
     torch.cuda.synchronize()
     for i, (outs, st) in enumerate(got):
         assert all(torch.equal(a, b) for a, b in zip(outs, want[i % 2]))
-        kept = CS._KEPT[(cuda.index, st.cuda_stream)]
+        kept = _kept.KEPT[(cuda.index, st.cuda_stream)]
         assert not kept._tensors[1].any()
     keys = {(cuda.index, st.cuda_stream) for st in streams}
-    assert keys <= set(CS._KEPT)
-    assert len({CS._KEPT[k].tickets_ptr for k in keys}) == 2
+    assert keys <= set(_kept.KEPT)
+    assert len({_kept.KEPT[k].tickets_ptr for k in keys}) == 2
 
 
 def test_channel_stats_f32_takes_the_scalar_form_where_16_bytes_do_not_fit(
@@ -3244,7 +3249,7 @@ def test_flash_bf16_forward_takes_its_form_by_head_dim(cuda, b, t_q, t_k, h,
     assert o.shape == (b, t_q, h, d) and o.is_contiguous() == hopper
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
     if hopper:
-        lse = FA._fwd_wgmma(q, k, v, causal, d ** -0.5)[1]
+        lse = FA._fwd_bthd(q, k, v, causal, d ** -0.5)[1]
     else:
         qp, kp, vp = FA._prep(q, k, v)
         lse = FA._fwd_kernel(qp, kp, vp, t_k, causal, d ** -0.5)[1]
@@ -3285,7 +3290,7 @@ def test_flash_wgmma_reads_strided_views_as_they_lie(cuda):
 def test_flash_wgmma_backward_matches_the_padded_route(cuda, d):
     """Under autograd the bf16 backward takes its forward's route.  At
     head_dim 64 and 128 the Hopper backward reads what the Hopper forward
-    saved as it lies: the gradients are ``_bwd_wgmma``'s on the same o and
+    saved as it lies: the gradients are ``_bwd_bthd``'s on the same o and
     lse bit for bit, agree with the twins on the padded problem by
     ``bf16_agrees``, and launch each Hopper backward form once and no
     mma.sync backward.  At 16 and 32 the padded route serves: the
@@ -3309,9 +3314,9 @@ def test_flash_wgmma_backward_matches_the_padded_route(cuda, d):
     dop = FA._prep(g, g, g)[0]
     if d in FA.WGMMA_HEAD_DIMS:
         assert launched == {"fwd_wgmma": 1, "dq_wgmma": 1, "dkv_wgmma": 1}
-        o2, lse = FA._fwd_wgmma(q, k, v, True, scale)
+        o2, lse = FA._fwd_bthd(q, k, v, True, scale)
         assert torch.equal(o.detach(), o2)
-        want = FA._bwd_wgmma(q, k, v, o2, lse, g, True, scale)
+        want = FA._bwd_bthd(q, k, v, o2, lse, g, True, scale)
         for x, w in zip(got, want):
             assert torch.equal(x, w)
         twins, mags = S.flash_wgmma_bwd_want(q, k, v, o2, lse, g, True,
@@ -3339,7 +3344,7 @@ def test_flash_wgmma_backward_reads_views_as_they_lie(cuda):
     qkv = _bf16(rng, b, t, 3, h, d).to(cuda)
     g_wide = _bf16(rng, b, t, h, d + 8).to(cuda)
     g = g_wide[..., :d]
-    assert FA._tma_ok(g) and not g.is_contiguous()
+    assert FA._bthd_ok(g) and not g.is_contiguous()
 
     def grads(q, k, v, g):
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -3352,35 +3357,37 @@ def test_flash_wgmma_backward_reads_views_as_they_lie(cuda):
                  g.contiguous())
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     ones = torch.ones((), dtype=torch.bfloat16, device=cuda).expand(b, t, h, d)
-    assert not FA._tma_ok(ones)
+    assert not FA._bthd_ok(ones)
     got = grads(q, k, v, ones)
     want = grads(q, k, v, ones.contiguous())
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_flash_wgmma_backward_refuses_what_it_does_not_take(cuda):
-    """The Hopper backward's wrappers refuse f32 operands, a head_dim
-    outside WGMMA_HEAD_DIMS, lse or delta rows of another shape or dtype,
-    and an operand whose strides TMA cannot read; nothing is launched."""
+    """The Hopper backward's wrappers refuse an f32 operand among bf16
+    ones (f32 operands all of one dtype take the f32 in-place form), a
+    head_dim outside WGMMA_HEAD_DIMS, lse or delta rows of another shape
+    or dtype, and an operand whose strides TMA cannot read; nothing is
+    launched."""
     from paddle_tpu_torch.core.enforce import EnforceError
 
     b, t, h, d = 1, 100, 2, 64
     x = torch.zeros(b, t, h, d, dtype=torch.bfloat16, device=cuda)
     rows = torch.zeros(b * h, 128, device=cuda)
     n = FA.KERNEL_BWD_DQ_WGMMA.launches, FA.KERNEL_BWD_DKV_WGMMA.launches
-    with pytest.raises(EnforceError, match="bf16"):
-        FA._bwd_dq_wgmma(x.float(), x, x, rows, x, rows, True, 0.125)
+    with pytest.raises(EnforceError, match="one dtype"):
+        FA._bwd_dq_bthd(x.float(), x, x, rows, x, rows, True, 0.125)
     y = torch.zeros(b, t, h, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(EnforceError, match="head_dim"):
-        FA._bwd_dkv_wgmma(y, y, y, rows, y, rows, True, 0.125)
+        FA._bwd_dkv_bthd(y, y, y, rows, y, rows, True, 0.125)
     with pytest.raises(EnforceError, match="lse"):
-        FA._bwd_dq_wgmma(x, x, x, rows[:, :64], x, rows, True, 0.125)
+        FA._bwd_dq_bthd(x, x, x, rows[:, :64], x, rows, True, 0.125)
     with pytest.raises(EnforceError, match="delta"):
-        FA._bwd_dkv_wgmma(x, x, x, rows, x, rows.double(), True, 0.125)
+        FA._bwd_dkv_bthd(x, x, x, rows, x, rows.double(), True, 0.125)
     wide = torch.zeros(b, t, h, d + 4, dtype=torch.bfloat16,
                        device=cuda)[..., :d]
     with pytest.raises(EnforceError, match="multiples of 16 bytes"):
-        FA._bwd_dq_wgmma(x, wide, x, rows, x, rows, True, 0.125)
+        FA._bwd_dq_bthd(x, wide, x, rows, x, rows, True, 0.125)
     assert (FA.KERNEL_BWD_DQ_WGMMA.launches,
             FA.KERNEL_BWD_DKV_WGMMA.launches) == n
 
@@ -3531,3 +3538,164 @@ def test_wrappers_launch_on_the_tensors_card_not_the_current_one(cuda):
         for a, w in zip(*(x if isinstance(x, tuple) else (x,)
                           for x in (got, want))):
             assert a.device == other and torch.equal(a, w), name
+
+
+# -- row 2 f32 in place (3xTF32) and row 1 f32 split over the sequence ---------
+
+
+F32_BTHD_SHAPES = [
+    # b, t_q, t_k, h, d, causal
+    (2, 64, 64, 2, 16, True),
+    (1, 130, 90, 2, 32, True),     # t_q > t_k, ragged
+    (2, 40, 200, 3, 64, True),     # t_q < t_k
+    (1, 333, 333, 2, 64, False),
+    (1, 129, 129, 2, 128, True),
+    (1, 100, 150, 2, 128, False),
+]
+
+
+@pytest.mark.parametrize("b,t_q,t_k,h,d,causal", F32_BTHD_SHAPES)
+def test_flash_f32_in_place_forward_matches_the_twin(cuda, b, t_q, t_k, h,
+                                                     d, causal):
+    """The 3xTF32 forward on [B, T, H, D] as it lies, at every head dim of
+    HEAD_DIMS: o and the whole lse (the padded rows' too, finite) within
+    TOL of the twin on the padded problem; one launch of ``KERNEL``; a
+    rerun in the same bits."""
+    rng = np.random.default_rng(t_q * 3 + t_k + d)
+    q, k, v = (_rand(rng, b, t, h, d).to(cuda) for t in (t_q, t_k, t_k))
+    scale = d ** -0.5
+    before = FA.KERNEL.launches
+    o, lse = FA._fwd_bthd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert FA.KERNEL.launches == before + 1
+    assert o.shape == (b, t_q, h, d) and o.is_contiguous()
+    qp, kp, vp = FA._prep(q, k, v)
+    o_ref, lse_ref = FA._fwd_plain(qp, kp, vp, t_k, causal, scale)
+    assert torch.isfinite(lse).all()
+    assert (o - FA._from_bh(o_ref, b, h, t_q, d)).abs().max().item() <= TOL
+    assert (lse - lse_ref).abs().max().item() <= TOL
+    again = FA._fwd_bthd(q, k, v, causal, scale)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_f32_reads_views_and_refuses_what_it_cannot(cuda):
+    """q, k, v sliced from one [B, T, 3, H, D] projection give the bits
+    their contiguous copies give, with no copy; a view off the 16-byte
+    rule (a t stride off 16 bytes, a base off 16 bytes) raises."""
+    from paddle_tpu_torch.core.enforce import EnforceError
+
+    rng = np.random.default_rng(15)
+    b, t, h, d = 2, 300, 4, 64
+    qkv = _rand(rng, b, t, 3, h, d).to(cuda)
+    q, k, v = qkv.unbind(2)
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v, causal=True)
+        want = FA.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
+    assert torch.equal(o, want)
+    wide = _rand(rng, b, t, h, d + 2).to(cuda)[..., :d]   # h stride D + 2
+    with pytest.raises(EnforceError, match="multiples of 16 bytes"):
+        FA.flash_attention(wide, wide, wide, causal=True)
+    flat = torch.zeros(b * t * h * d + 1, device=cuda)
+    odd = flat[1:].view(b, t, h, d)
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        FA.flash_attention(odd, odd, odd, causal=True)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_f32_route_makes_no_padded_copy(cuda, d, monkeypatch):
+    """The f32 autograd route, forward and backward, calls neither
+    ``_prep`` nor ``_to_bh`` (patched to raise): nothing is padded or
+    transposed; dq, dk, dv come back contiguous [B, T, H, D], within TOL
+    of the twins (scaled by their largest entry where above 1), with one
+    launch of each f32 form."""
+    rng = np.random.default_rng(40 + d)
+    b, t_q, t_k, h = 2, 150, 200, 3
+    q, k, v = (_rand(rng, b, t, h, d).to(cuda) for t in (t_q, t_k, t_k))
+    g = _rand(rng, b, t_q, h, d).to(cuda)
+    scale = d ** -0.5
+    qp, kp, vp = FA._prep(q, k, v)
+    op, lse_p = FA._fwd_plain(qp, kp, vp, t_k, True, scale)
+    want = FA._bwd_plain(qp, kp, vp, op, lse_p, FA._to_bh(g), t_k, True,
+                         scale)
+
+    def refuse(*a, **k):
+        raise AssertionError("the f32 route padded or transposed")
+
+    monkeypatch.setattr(FA, "_prep", refuse)
+    monkeypatch.setattr(FA, "_to_bh", refuse)
+    counts = [x.launches for x in FA.FORMS[torch.float32]]
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(FA.flash_attention(*leaves, causal=True),
+                              leaves, g)
+    torch.cuda.synchronize()
+    assert [x.launches - n for x, n in zip(FA.FORMS[torch.float32],
+                                           counts)] == [1, 1, 1]
+    for x, w, t in zip(got, want, (t_q, t_k, t_k)):
+        w = FA._from_bh(w, b, h, t, d)
+        assert x.shape == (b, t, h, d) and x.is_contiguous()
+        assert ((x - w).abs().max().item()
+                <= TOL * max(1.0, w.abs().max().item()))
+
+
+PAGED_F32_CASES = [(d, ps) for d in (16, 60, 64, 128) for ps in (4, 16, 64)]
+
+
+@pytest.mark.parametrize("d,ps", PAGED_F32_CASES)
+def test_paged_f32_split_kernel_matches_its_twin(cuda, d, ps):
+    """The split paged kernel at page sizes 4/16/64 and head_dim 16/60/64/
+    128 (60: the 4-byte units), lengths 0, 1, 16, 17 and full, one row's
+    table entries past the pool (read as page 0): within TOL of the twin
+    (the twin fed the same ids mapped to 0), idle rows exact zeros, one
+    launch a call, a rerun in the same bits."""
+    rng = np.random.default_rng(d * 7 + ps)
+    maxp = -(-300 // ps)
+    lens = [0, 1, 16, 17, maxp * ps, 0, 100, maxp * ps]
+    q, kp, vp, table, seq = _paged(rng, lens, 3, d, ps, maxp, cuda)
+    table[6, -1] = kp.shape[1] + 5       # out of range, past seq_len 100
+    table[7, 2] = kp.shape[1] + 7        # out of range, read: page 0
+    before = PA.KERNEL.launches
+    out = PA.ragged_paged_attention(q, kp, vp, table, seq)
+    again = PA.ragged_paged_attention(q, kp, vp, table, seq)
+    torch.cuda.synchronize()
+    assert PA.KERNEL.launches == before + 2
+    mapped = torch.where(table < kp.shape[1], table, 0)
+    ref = PA.ragged_paged_attention_reference(q, kp, vp, mapped, seq)
+    assert (out - ref).abs().max().item() <= TOL
+    idle = seq == 0
+    assert torch.equal(out[idle], torch.zeros_like(out[idle]))
+    assert torch.equal(out, again)
+
+
+def test_paged_f32_on_two_streams_back_to_back(cuda):
+    """Two launches on two streams, back to back, each with its own kept
+    partials and tickets: each output equals the one call on the default
+    stream gives."""
+    rng = np.random.default_rng(21)
+    ins = [_paged(rng, [0, 300, 77, 576], 4, 64, 16, 36, cuda)
+           for _ in range(2)]
+    want = [PA.ragged_paged_attention(*x) for x in ins]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for s, x in zip(streams, ins):
+        with torch.cuda.stream(s):
+            got.append(PA.ragged_paged_attention(*x))
+    torch.cuda.synchronize()
+    for x, w in zip(got, want):
+        assert torch.equal(x, w)
+
+
+def test_paged_f32_makes_no_host_sync(cuda):
+    """The wrapper keeps the lengths on the card: a call (after the kept
+    partials exist) runs under ``set_sync_debug_mode("error")``."""
+    rng = np.random.default_rng(22)
+    x = _paged(rng, [5, 300, 0, 576], 4, 64, 16, 36, cuda)
+    want = PA.ragged_paged_attention(*x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = PA.ragged_paged_attention(*x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)

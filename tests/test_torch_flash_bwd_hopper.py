@@ -1,5 +1,5 @@
 """The host side of the flash backward's redesigned forms (PERF.md row 3),
-on the CPU: the Hopper bf16 route (``flash_attention._bwd_wgmma``: delta
+on the CPU: the Hopper bf16 route (``flash_attention._bwd_bthd``: delta
 from dO and o as they lie in [B, T, H, D], the forward's lse rows read
 in place, dq, dk, dv written [B, T, H, D]) against the padded route's
 twin bit for bit, and a numpy model of the f32 form's 3xTF32 products
@@ -67,7 +67,7 @@ def test_bthd_route_equals_the_padded_twin(b, t_q, t_k, h, d, causal,
     qp, kp, vp = FA._prep(q, k, v)
     op, lse = FA._fwd_plain(qp, kp, vp, t_k, causal, scale)
     o = FA._from_bh(op, b, h, t_q, d)
-    got = FA._bwd_wgmma(q, k, v, o, lse, g, causal, scale)
+    got = FA._bwd_bthd(q, k, v, o, lse, g, causal, scale)
     want = FA._bwd_plain(qp, kp, vp, op, lse, FA._to_bh(g), t_k, causal,
                          scale)
     for x, w, t in zip(got, want, (t_q, t_k, t_k)):
@@ -84,15 +84,15 @@ def test_bthd_route_reads_views_and_copies_an_untakeable_gradient(rng_np):
     b, t, h, d = 1, 70, 2, 64
     qkv = _bf16(rng_np, b, t, 3, h, d)
     q, k, v = qkv.unbind(2)
-    assert not q.is_contiguous() and FA._tma_ok(q)
+    assert not q.is_contiguous() and FA._bthd_ok(q)
     g = torch.ones((), dtype=torch.bfloat16).expand(b, t, h, d)
-    assert not FA._tma_ok(g)
+    assert not FA._bthd_ok(g)
     scale = d ** -0.5
     qp, kp, vp = FA._prep(q, k, v)
     op, lse = FA._fwd_plain(qp, kp, vp, t, True, scale)
     o = FA._from_bh(op, b, h, t, d)
-    got = FA._bwd_wgmma(q, k, v, o, lse, g, True, scale)
-    want = FA._bwd_wgmma(*(x.contiguous() for x in (q, k, v, o)), lse,
+    got = FA._bwd_bthd(q, k, v, o, lse, g, True, scale)
+    want = FA._bwd_bthd(*(x.contiguous() for x in (q, k, v, o)), lse,
                          g.contiguous(), True, scale)
     for x, w in zip(got, want):
         assert torch.equal(x, w)
@@ -103,15 +103,15 @@ def test_tma_ok_names_what_tma_reads():
     (b, t, h) strides multiples of 8 elements (16 bytes); a dimension of
     size 1 is never stepped."""
     x = torch.zeros(2, 9, 3, 64, dtype=torch.bfloat16)
-    assert FA._tma_ok(x)
-    assert FA._tma_ok(x[:, :, :1])                       # h of size 1
-    assert not FA._tma_ok(x.permute(0, 1, 3, 2).contiguous()
+    assert FA._bthd_ok(x)
+    assert FA._bthd_ok(x[:, :, :1])                       # h of size 1
+    assert not FA._bthd_ok(x.permute(0, 1, 3, 2).contiguous()
                           .permute(0, 1, 3, 2))           # d strided
-    assert not FA._tma_ok(torch.zeros(2, 9, 3, 68, dtype=torch.bfloat16)
+    assert not FA._bthd_ok(torch.zeros(2, 9, 3, 68, dtype=torch.bfloat16)
                           [..., 2:66])                    # base off 16
     wide = torch.zeros(2, 9, 3, 68, dtype=torch.bfloat16)[..., :64]
-    assert not FA._tma_ok(wide)                           # h stride 68
-    assert FA._tma_ok(torch.zeros(2, 9, 3, 72, dtype=torch.bfloat16)
+    assert not FA._bthd_ok(wide)                           # h stride 68
+    assert FA._bthd_ok(torch.zeros(2, 9, 3, 72, dtype=torch.bfloat16)
                       [..., :64])                         # h stride 72
 
 
@@ -129,7 +129,7 @@ def test_bthd_route_matches_the_jax_backward(rng_np):
     want = JFA._flash_bwd(True, scale, 64, 64, True, res, jg)
     qp, kp, vp = FA._prep(q, k, v)
     op, lse = FA._fwd_plain(qp, kp, vp, t, True, scale)
-    got = FA._bwd_wgmma(q, k, v, FA._from_bh(op, b, h, t, d), lse, g, True,
+    got = FA._bwd_bthd(q, k, v, FA._from_bh(op, b, h, t, d), lse, g, True,
                         scale)
     for x, w in zip(got, want):
         w = torch.from_numpy(np.array(w.astype(jnp.float32)))
@@ -214,6 +214,38 @@ def _truncated(x):
                     np.nextafter(f, np.float32(0)), f)
 
 
+def _causal_softmax(rng, t):
+    """A causal softmax row set over t keys, scores ~ N(0, 1): [t, t]."""
+    s = rng.normal(size=(t, t))
+    s = np.where(np.tri(t, dtype=bool), s, -np.inf)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    return p / p.sum(axis=1, keepdims=True)
+
+
+def _slice_sums(a, b, passes):
+    """a @ b over 8-deep slices as the tensor cores sum it, each sum they
+    round truncated: (every slice's passes chained into one accumulator,
+    each slice's passes summed apart from zero and added to the
+    accumulator to nearest as the kernels' ``mma3_add`` does)."""
+    shape = (a.shape[0], b.shape[1])
+    chained = np.zeros(shape, np.float32)
+    apart = np.zeros(shape, np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        part = np.zeros(shape, np.float32)
+        for pa, pb in passes:
+            x = pa[:, k0:k0 + 8].astype(np.float64) @ \
+                pb[k0:k0 + 8].astype(np.float64)
+            chained = _truncated(chained.astype(np.float64) + x)
+            part = _truncated(part.astype(np.float64) + x)
+        apart = (apart.astype(np.float64) + part).astype(np.float32)
+    return chained, apart
+
+
+def _three_passes(a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    return [(_tf32(a - ah), bh), (ah, _tf32(b - bh)), (ah, bh)]
+
+
 def test_3xtf32_long_sums_need_each_slice_summed_apart(rng_np):
     """The tensor cores truncate each sum they round.  dV = P^T dO over
     1024 queries as 128 slices of three passes chained into one
@@ -222,37 +254,44 @@ def test_3xtf32_long_sums_need_each_slice_summed_apart(rng_np):
     slice's passes summed apart from zero and added to the accumulator
     to nearest (the kernels' ``mma3_add``) stay within 2x of it."""
     t = 1024
-    s = rng_np.normal(size=(t, t))
-    s = np.where(np.tri(t, dtype=bool), s, -np.inf)
-    p = np.exp(s - s.max(axis=1, keepdims=True))
-    p /= p.sum(axis=1, keepdims=True)
-    a = p[:, :64].T.astype(np.float32)
+    a = _causal_softmax(rng_np, t)[:, :64].T.astype(np.float32)
     b = rng_np.normal(size=(t, 64)).astype(np.float32)
     want = a.astype(np.float64) @ b.astype(np.float64)
-    ah, bh = _tf32(a), _tf32(b)
-    passes = [(_tf32(a - ah), bh), (ah, _tf32(b - bh)), (ah, bh)]
-    chained = np.zeros(want.shape, np.float32)
-    apart = np.zeros(want.shape, np.float32)
-    for k0 in range(0, t, 8):
-        part = np.zeros(want.shape, np.float32)
-        for pa, pb in passes:
-            x = pa[:, k0:k0 + 8].astype(np.float64) @ \
-                pb[k0:k0 + 8].astype(np.float64)
-            chained = _truncated(chained.astype(np.float64) + x)
-            part = _truncated(part.astype(np.float64) + x)
-        apart = (apart.astype(np.float64) + part).astype(np.float32)
+    chained, apart = _slice_sums(a, b, _three_passes(a, b))
     f32 = _rel(_fma_chain(a, b), want)
     assert _rel(chained, want) >= 5 * f32
     assert _rel(apart, want) <= 2 * f32
+
+
+def test_3xtf32_forward_o_needs_each_slice_summed_apart(rng_np):
+    """The f32 forward's O = P V over T 1024 keys (P the last 64 query
+    rows of a causal softmax row set, which see every key; V ~ N(0, 1)):
+    each slice's three passes summed apart and added to O to nearest (the
+    forward's ``mma3_add``) stay within 2x of f32 FMAs' error against
+    float64; chained into O they drift >= 5x above it (the planted
+    ``o_chained`` fault), and one TF32 pass (hi.hi, ``one_pass_tf32``)
+    lies >= 100x above it."""
+    t = 1024
+    a = _causal_softmax(rng_np, t)[-64:].astype(np.float32)   # P [64, T]
+    b = rng_np.normal(size=(t, 64)).astype(np.float32)          # V [T, 64]
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    chained, apart = _slice_sums(a, b, _three_passes(a, b))
+    one_pass = _slice_sums(a, b, [(_tf32(a), _tf32(b))])[1]
+    f32 = _rel(_fma_chain(a, b), want)
+    assert _rel(apart, want) <= 2 * f32
+    assert _rel(chained, want) >= 5 * f32
+    assert _rel(one_pass, want) >= 100 * f32
 
 
 @pytest.mark.parametrize("source,name", [
     ("flash_attention", "FLASH_WGMMA_FAULTS"),
     ("flash_attention_bwd", "FLASH_WGMMA_BWD_FAULTS"),
     ("flash_attention_bwd", "FLASH_TF32_FAULTS"),
+    ("flash_attention", "FLASH_TF32_FWD_FAULTS"),
+    ("paged_attention", "PAGED_F32_FAULTS"),
 ])
 def test_planted_fault_lines_are_once_in_the_sources(source, name):
-    """Every line a planted fault of the flash sources changes
+    """Every line a planted fault of the flash and paged sources changes
     (``chip_smoke.source_fault_builds`` builds them on the card) stands
     exactly once in the source or in one shared header, so each fault
     changes what it names and nothing else."""

@@ -81,12 +81,17 @@ def test_remat_recomputes_the_same_gradients(rng_np):
 
 def test_flash_gradient_goes_through_the_function(rng_np, monkeypatch):
     """The LM's attention gradient is the Function's backward: with the
-    backward's delta dropped, the gradients move (a wrong backward shows)."""
+    backward's delta dropped (on both delta routes: the f32 route takes
+    it from [B, T, H, D], ``_delta_bthd``), the gradients move (a wrong
+    backward shows)."""
     _, _, cfg_t, pt = pair("flash", False)
     ids = torch.from_numpy(rng_np.integers(0, 64, size=(2, 17)))
     loss, good = T.loss_and_grads(cfg_t, pt, ids)
     monkeypatch.setattr(FA, "_delta", lambda do, o: torch.zeros_like(
         do[..., :1]))
+    plain_bthd = FA._delta_bthd
+    monkeypatch.setattr(FA, "_delta_bthd", lambda do, o, tqp: torch.zeros_like(
+        plain_bthd(do, o, tqp)))
     loss_bad, bad = T.loss_and_grads(cfg_t, pt, ids)
     assert torch.equal(loss, loss_bad)      # the forward is untouched
     assert not torch.allclose(good["blocks"]["wq"], bad["blocks"]["wq"],
