@@ -2,14 +2,12 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B times, in each tree, the wrapper calls ``CALLS`` names (the f32
-flash forward as serving's prefill calls it and under autograd, the f32
-flash backward, at the LM training shape, with SDPA's memory-efficient
-calls beside; the f32 paged decode at serving's shape), then runs its
-own ``chip_smoke.train_lm_bf16`` (the LM's bf16 and f32 steps in blocks
-of 5: bf16, f32, f32, bf16; the witness step left out; device ms by
-kernel class over 3 bf16 steps) and the f32 serving decode step
-(``SERVE_DECODE``: 32 live slots of phase 3's requests, 20 steps after 3
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (the bf16
+paged decode at serving's shape; the f32 LSTM backward with remat at the
+text shape), then runs its own ``chip_smoke.train_text`` (the f32 text
+classifier: its witness step, 10 timed steps at batch 64, a 3-step
+profile) and the bf16 serving decode step (``SERVE_DECODE``: 32 live
+slots of phase 3's requests on phase 17's bf16 engine, 20 steps after 3
 of warm-up), each tree in a process of its own that builds that tree's
 kernels, in the order given.  Host-bound phases vary up to 2x between machines, so
 two versions are compared only within one run of this script, in
@@ -20,8 +18,8 @@ turns:
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, each call's event ms with the L2 flushed,
 host ms and device ms alone with its kernels' names, and the steps'
-rates, step p50, the bf16 steps' idle share and device ms by class, the
-f32 decode step's ms) and
+text step's rate, step p50, idle share and device ms by class, the bf16
+decode step's ms) and
 writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).  ``--calls`` times the wrapper calls alone, without the
 training steps.
@@ -82,7 +80,47 @@ from float64.
 times the f32 paged decode at serving's shape with each of
 ``PAGED_CHUNK_TOKENS`` as ``paged_attention.CHUNK_TOKENS`` (pages a
 chunk 1, 2, 4, 8, 16 at page 16), in turns, each checked against the
-twin first, alone and with the L2 flushed.
+twin first, alone and with the L2 flushed; then the bf16 form with each
+of ``PAGED_CHUNK_TOKENS_BF16`` as ``CHUNK_TOKENS_BF16`` (pages a chunk 4,
+8, 16, 32), each checked by ``paged_bf16_agreement`` first.
+
+    python3 chip_ab.py --lstm-bwd-split [TREE]
+
+times the f32 LSTM backward (remat) built from TREE's source (a checkout
+whose C entry takes this tree's arguments: default this one), through
+this tree's wrapper, at the text shape as that source is and as each of
+``LSTM_BWD_SPLIT`` whose lines it has (copies without a part of the
+step: the partial writes of dh_{t-1}'s shares, the sum over them, the
+remat product, the dh product, the grid barrier), in turns, alone and
+with the L2 flushed: each part's share of the step.
+
+    python3 chip_ab.py --paged-bf16-variants
+
+times the bf16 paged decode at serving's shape as the source builds it
+and as each of ``PAGED_BF16_VARIANTS`` (the row loads a thread issues
+before reducing), in turns, each checked by ``paged_bf16_agreement``
+first, alone and with the L2 flushed.
+
+    python3 chip_ab.py --lstm-bwd-variants
+
+times this tree's f32 LSTM backward (remat) at the text shape as the
+source builds it and as each of ``LSTM_BWD_VARIANTS`` (the dh product's
+k tiles a warp takes at once, the sum over the blocks in one range), in
+turns, each checked against the twin first, alone and with the L2
+flushed.
+
+    python3 chip_ab.py --cluster-probe
+
+builds ``CLUSTER_PROBE`` and launches it cooperative and in clusters of 1,
+2, 4 and 8 at the f32 LSTM backward's text-shape grid: each launch's
+error, the clusters the card holds at once, and a DSMEM read checked.
+
+    python3 chip_ab.py --flash-bf16-processes [N]
+
+runs ``test_flash_bf16_function_on_card_matches_the_cpu`` in N fresh
+processes (default 20), keeping each one's card and CPU outputs' digests
+(and the tensors of any process whose differ from the first's under
+``build/flash_bf16``).
 
     python3 chip_ab.py --sass [TREE ...]
 
@@ -130,27 +168,31 @@ if sys.argv[2] == "calls":
     print(json.dumps({"calls": calls}))
     sys.exit(0)
 torch.cuda.empty_cache()
-C.lm_bf16_witness = lambda *a, **k: {}
-lm_bf16 = C.train_lm_bf16(dev)[0]
+text = C.train_text(dev)[0]
 torch.cuda.empty_cache()
-print(json.dumps({"calls": calls, "train_lm_bf16": lm_bf16,
-                  "serve_decode_f32": SERVE_DECODE(dev, C)}))
+print(json.dumps({"calls": calls, "train_text": text,
+                  "serve_decode_bf16": SERVE_DECODE(dev, C)}))
 """
 
-#: the f32 serving decode step, timed the same way in either tree: phase
-#: 3's engine (LM_FULL in f32, 32 slots, page 16) with 32 requests
-#: admitted and prefilled, 3 steps of warm-up, then 20 ``step()`` calls
-#: (each ends on the host with its tokens), each on the host's clock
+#: the bf16 serving decode step, timed the same way in either tree: phase
+#: 17's bf16 engine (LM_FULL, the f32 weights rounded once, 32 slots, page
+#: 16) with 32 requests admitted and prefilled, 3 steps of warm-up, then
+#: 20 ``step()`` calls (each ends on the host with its tokens), each on the
+#: host's clock
 SERVE_DECODE = r"""
 def SERVE_DECODE(dev, C):
+    from paddle_tpu_torch.core.dtype import cast_floats
     from paddle_tpu_torch.models import transformer as T
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.telemetry import MetricsRegistry
 
     cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.float32, remat=False,
                               attn_impl="flash")
-    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    params = cast_floats(T.init_params(cfg, torch.Generator().manual_seed(0),
+                                       dev), torch.bfloat16)
     scfg, prompts, _ = C.serve_workload(cfg)
+    cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.bfloat16,
+                              remat=False, attn_impl="flash")
     eng = ServingEngine(cfg, params, scfg, registry=MetricsRegistry("ab"),
                         device=dev)
     for p in prompts[:scfg.max_slots]:
@@ -173,20 +215,16 @@ def SERVE_DECODE(dev, C):
 #: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
 #: way in either tree (each tree's own wrappers): the CUDA-event ms with the
 #: L2 flushed, the host's median ms a call without a sync, and the device
-#: ms of the call's kernels alone (a trace, summed over its kernels): at the
-#: LM training shape [16, 1024, 12, 64] causal in f32, the flash forward
-#: without a gradient (serving's prefill route) and under autograd, and the
-#: backward as autograd runs it (``torch.autograd.grad`` of the Function's
-#: output, the forward run once before), with SDPA's memory-efficient
-#: forward and backward beside; the f32 paged decode at serving's shape
+#: ms of the call's kernels alone (a trace, summed over its kernels): the
+#: bf16 paged decode at serving's shape (``paged_inputs`` in bf16), and
+#: the f32 LSTM backward with remat at the text shape (B 64, T 128, D 1280,
+#: lengths 100; ``check_text_kernels``' inputs, the forward's hs and cs)
 CALLS = r"""
 def CALLS(dev, C):
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
     timer = C.Timer(dev)
-    gen = torch.Generator(device=dev).manual_seed(16)
 
     def host(fn, iters=50):
         fn()
@@ -218,56 +256,46 @@ def CALLS(dev, C):
                 for e in evs}
         return sum(each.values()), each
 
-    def all3(fn):
+    def all3(fn, iters=50):
         ms, names = alone_all(fn)
-        return {"ms": timer(fn), "host_ms": host(fn), "alone_ms": ms,
-                "kernels": names}
+        return {"ms": timer(fn), "host_ms": host(fn, iters),
+                "alone_ms": ms, "kernels": names}
 
     out = {}
-    b, t, h, d = 16, 1024, 12, 64
-    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=dev)
-                  for _ in range(4))
-    with torch.no_grad():
-        out["flash_forward_f32_no_grad"] = all3(
-            lambda: FA.flash_attention_fwd(q, k, v, causal=True))
-    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    out["flash_forward_f32_autograd"] = all3(
-        lambda: FA.flash_attention(*leaves, causal=True))
-    o = FA.flash_attention(*leaves, causal=True)
-    out["flash_backward_f32"] = all3(lambda: torch.autograd.grad(
-        o, leaves, g, retain_graph=True))
-    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    gh = g.transpose(1, 2).contiguous()
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        out["sdpa_forward_f32"] = all3(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True))
-        oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    out["sdpa_backward_f32"] = all3(lambda: torch.autograd.grad(
-        oh, (qh, kh, vh), gh, retain_graph=True))
-    del q, k, v, g, leaves, o, qh, kh, vh, gh, oh
-    from paddle_tpu_torch.ops.kernels import paged_attention as PA
     qd, kp, vp, pt, sl, _ = C.paged_inputs(dev)
-    out["paged_f32"] = all3(lambda: PA.ragged_paged_attention(qd, kp, vp, pt,
-                                                              sl))
+    qd, kp, vp = (x.to(torch.bfloat16) for x in (qd, kp, vp))
+    out["paged_bf16"] = all3(lambda: PA.ragged_paged_attention(qd, kp, vp,
+                                                               pt, sl))
+    del qd, kp, vp
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d = 64, 128, 1280
+    mask = (torch.arange(t, device=dev)[None, :] < 100).float().expand(
+        b, t).contiguous()
+    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
+    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
+    h0 = c0 = dh_t = dc_t = torch.zeros(b, d, device=dev)
+    dhs = torch.randn(b, t, d, generator=gen, device=dev)
+    hs, cs = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, False)[:2]
+    out["lstm_bwd_f32"] = all3(lambda: LK._bwd_kernel(
+        xw, None, mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, False,
+        True), iters=5)
     return out
 """
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
-    if "train_lm_bf16" not in out:
+    if "train_text" not in out:
         return {"tree": tree, "seconds": seconds, "calls": out["calls"]}
-    run = out["train_lm_bf16"]
-    steps = {d: {k: run[d][k] for k in run[d]
-                 if k.endswith("_per_s") or k == "step_ms_p50"}
-             for d in ("bf16", "f32") if d in run}
+    run = out["train_text"]
     prof = run.get("profile", {})
-    steps["bf16_idle_share_vs_step_p50"] = prof.get("idle_share_vs_step_p50")
-    steps["bf16_device_ms_per_step_by_class"] = prof.get(
-        "by_class_ms_per_step")
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
-            "train_lm_bf16": steps,
-            "serve_decode_f32": out.get("serve_decode_f32")}
+            "train_text": {k: run.get(k) for k in (
+                "sequences_per_s", "step_ms_p50", "step_ms")},
+            "text_idle_share_vs_step_p50": prof.get("idle_share_vs_step_p50"),
+            "text_device_ms_per_step_by_class": prof.get(
+                "by_class_ms_per_step"),
+            "serve_decode_bf16": out.get("serve_decode_bf16")}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -1023,15 +1051,20 @@ def tf32_fwd_variants(parent: str | None) -> int:
 
 
 #: tokens a chunk ``--paged-chunks`` times the f32 paged decode with (pages
-#: a chunk 1, 2, 4, 8, 16 at serving's page of 16)
+#: a chunk 1, 2, 4, 8, 16 at serving's page of 16), and the bf16 form
+#: (pages a chunk 4, 8, 16, 32)
 PAGED_CHUNK_TOKENS = (16, 32, 64, 128, 256)
+PAGED_CHUNK_TOKENS_BF16 = (64, 128, 256, 512)
 
 
 def paged_chunks() -> int:
     """The f32 paged decode at serving's shape (``chip_smoke.paged_inputs``)
     with each of PAGED_CHUNK_TOKENS as ``CHUNK_TOKENS`` in turns (the list,
     then reversed): checked against the twin (TOL) first, then timed alone
-    (a trace, no flush) and with the L2 flushed: one JSON line."""
+    (a trace, no flush) and with the L2 flushed; then the bf16 form in bf16
+    with each of PAGED_CHUNK_TOKENS_BF16 as ``CHUNK_TOKENS_BF16``, checked
+    by ``paged_bf16_agreement``, alone (both kernels) and flushed: one JSON
+    line."""
     import torch
 
     import chip_smoke as C
@@ -1057,7 +1090,22 @@ def paged_chunks() -> int:
             "alone_ms": C.device_ms([call], "paged_split_kernel"),
             "ms": timer(call)}
     PA.CHUNK_TOKENS = kept
-    print(json.dumps({"paged_chunks": out}), flush=True)
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    kept, bf16 = PA.CHUNK_TOKENS_BF16, {}
+    order = [*PAGED_CHUNK_TOKENS_BF16, *PAGED_CHUNK_TOKENS_BF16[::-1]]
+    for turn, tokens in enumerate(order):
+        PA.CHUNK_TOKENS_BF16 = tokens
+        a = C.paged_bf16_agreement(q, kp, vp, pt, sl)
+        if not a["agrees"]:
+            raise AssertionError(f"bf16, {tokens} tokens a chunk: {a}")
+        bf16[f"turn {turn} pages_a_chunk "
+             f"{PA.pages_per_chunk(kp.shape[2], torch.bfloat16)}"] = {
+            "alone_ms": C.device_passes_ms(
+                [call], C.PAGED_BF16_KERNELS)["total"],
+            "ms": timer(call)}
+    PA.CHUNK_TOKENS_BF16 = kept
+    print(json.dumps({"paged_chunks": out, "paged_chunks_bf16": bf16}),
+          flush=True)
     return 0
 
 
@@ -1125,6 +1173,406 @@ def wgmma_bwd_variants() -> int:
     return 0
 
 
+def time_turns(fns: dict, run) -> dict:
+    """``run(name, fn)`` for the source and each variant of ``fns``
+    ({name: C entry}, "source" among them) in turns: source, variants,
+    variants reversed, source; each turn's row printed as it comes;
+    returns {"turn i name": row}."""
+    names = [n for n in fns if n != "source"]
+    out = {}
+    for turn, name in enumerate(["source", *names, *names[::-1], "source"]):
+        key = f"turn {turn} {name}"
+        out[key] = run(name, fns[name])
+        print(json.dumps({key: out[key]}), flush=True)
+    return out
+
+
+def variant_fns(kern, source: str, edits: dict, tree: str = ".") -> dict:
+    """{"source": ``kern``'s C entry built from ``tree``'s
+    ``csrc/<source>.cu`` as it is, name: built with that variant's edits}
+    for each of ``edits`` whose lines that source (or a header beside it)
+    has; the builds start together."""
+    import chip_smoke as C
+
+    csrc = os.path.join(tree, "paddle_tpu_torch", "ops", "kernels", "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read()
+                   for f in sorted(os.listdir(csrc))
+                   if f == f"{source}.cu" or f.endswith(".cuh"))
+    edits = {"source": [], **{n: e for n, e in edits.items()
+                              if all(line in text for line, _ in e)}}
+    builds = C.source_fault_builds(source, edits, csrc=csrc,
+                                   prefix=f"variant_{abs(hash(tree))}_")
+    return {name: C.planted(*build, kern) for name, build in builds.items()}
+
+
+#: builds of a tree's ``csrc/lstm_seq.cu`` that ``--lstm-bwd-split`` times
+#: beside that tree's source, each dropping one part of the f32 backward's
+#: step, to give each part its share (their results are wrong and not
+#: checked): the partial writes of dh_{t-1}'s shares (the product kept by a
+#: test no value passes), the (B) sum over the blocks' partials, the remat
+#: product, the dh product with its writes, the grid barrier.  A tree takes
+#: the variants whose lines its source has: the FMA form's (the tree before
+#: the dh product moved to the tensor cores, ``git show 914dacf``) or the
+#: 3xTF32 form's
+LSTM_BWD_SPLIT = {
+    "no_partial_writes": [(
+        "            if (r < rows) Pb[(size_t)k * B + r] = pacc[i][n];",
+        "            if (r < rows && pacc[i][n] == -1.2345e-38f)\n"
+        "              Pb[(size_t)k * B + r] = pacc[i][n];")],
+    "no_sum": [(
+        "    const int n_out = B * nu;\n"
+        "    for (int e0 = threadIdx.x; e0 < n_out; e0 += 4 * blockDim.x) {",
+        "    const int n_out = B * nu;\n"
+        "    for (int e0 = threadIdx.x; e0 < 0 * n_out; e0 += 4 * blockDim.x)"
+        " {")],
+    "no_remat_product": [(
+        "        gemm_gates<S>(a, first ? D : TD, rows, D, w_s, U, uu, rg, "
+        "half, a_s,\n                      fin);",
+        "        for (int i = 0; i < 2; ++i)\n"
+        "          for (int g = 0; g < 4; ++g) fin[i][g] = 0.f * a[0];")],
+    "no_dh_product": [(
+        "      for (int j0 = 0; uu + U * j0 < D; j0 += 4) {",
+        "      for (int j0 = 0; uu + U * j0 < 0; j0 += 4) {")],
+    "no_grid_barrier": [(
+        "    grid.sync();\n    // (B) dh_{t-1} of the own units: the partials "
+        "summed in block order,\n    // four outputs a thread interleaved "
+        "(32",
+        "    // (B) dh_{t-1} of the own units: the partials summed in block "
+        "order,\n    // four outputs a thread interleaved (32")],
+    "no_dh_share": [("      dh_share(dg_s, ldg, w_s, U, D, B4, rows,\n"
+                     "               P + (size_t)blockIdx.x * D * B4 + b0);",
+                     "")],
+    "no_range_sum": [("      if (grp < groups && q < nq) {",
+                      "      if (false) {"),
+                     ("      if (grp == 0 && q < nq) {", "      if (false) {")],
+    "no_grid_barrier_tf32": [(
+        "    grid.sync();\n    // (B) dh_{t-1} of the own units: the blocks' "
+        "partials summed, four\n", "    // (B) dh_{t-1} of the own units: "
+        "the blocks' partials summed, four\n")]}
+
+#: builds of ``csrc/lstm_seq.cu`` that ``--lstm-bwd-variants`` times beside
+#: the source's f32 backward: the dh product's k tiles a warp takes at once
+#: (the source: 8), the (B) sum in one range of blocks (the source: two at
+#: the text shape), and twice the partials' loads a thread issues before
+#: it adds them (the source: 8)
+LSTM_BWD_VARIANTS = {
+    **{f"k_tiles_{n}": [("constexpr int kTilesK = 8;",
+                         f"constexpr int kTilesK = {n};")] for n in (2, 4)},
+    "one_range": [("    const int groups = 2 * nq <= (int)blockDim.x\n",
+                   "    const int groups = false\n")],
+    "unroll_16": [(
+        "#pragma unroll 8\n        for (int k = grp * span; k < k1; ++k) {",
+        "#pragma unroll 16\n        for (int k = grp * span; k < k1; ++k) {"
+    )]}
+
+
+def lstm_bwd_times(edits: dict, tree: str = ".",
+                   check_all: bool = True) -> dict:
+    """The f32 LSTM backward (remat) through its wrapper at the text shape
+    (B 64, T 128, D 1280, lengths 100; ``check_text_kernels``' sizes),
+    its C entry built from ``tree``'s source as it is and with each of
+    ``edits`` (:func:`variant_fns`), in turns (:func:`time_turns`): the
+    source, and every variant where ``check_all``, checked against the
+    twin (TOL x max(1, |ref|)) first, each timed alone (a trace, no
+    flush) and with the L2 flushed."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    dev = resolve_device(None)
+    kern = LK.KERNEL_BWD
+    fns = variant_fns(kern, "lstm_seq", edits, tree)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d = 64, 128, 1280
+    mask = (torch.arange(t, device=dev)[None, :] < 100).float().expand(
+        b, t).contiguous()
+    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
+    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
+    h0 = c0 = dh_t = dc_t = torch.zeros(b, d, device=dev)
+    dhs = torch.randn(b, t, d, generator=gen, device=dev)
+    hs, cs = LK._fwd_plain(xw, mask, w_h, peep, h0, c0, False, False)[:2]
+    args = (xw, None, mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t,
+            False, True)
+    call = lambda: LK._bwd_kernel(*args)  # noqa: E731
+    want = LK._bwd_plain(*args)
+    timer = C.Timer(dev)
+
+    def run(name, fn):
+        kern._fn = fn
+        got = call()
+        for x, ref in zip(got, want):
+            err = (x - ref).abs().max().item()
+            if (check_all or name == "source") and not (
+                    err <= C.TOL * max(1.0, ref.abs().max().item())):
+                raise AssertionError(f"{tree} {name}: vs plain {err}")
+        return {"alone_ms": C.device_ms([call], "lstm_bwd_kernel"),
+                "ms": timer(call)}
+
+    print(C.nvidia_smi(), flush=True)
+    saved = kern._fn
+    try:
+        return time_turns(fns, run)
+    finally:
+        kern._fn = saved
+
+
+def lstm_bwd_split(tree: str) -> int:
+    """:func:`lstm_bwd_times` of ``tree``'s source and LSTM_BWD_SPLIT (the
+    variants unchecked); one JSON line with each part's share (the
+    source's mean time less the variant's)."""
+    import numpy as np
+
+    out = lstm_bwd_times(LSTM_BWD_SPLIT, tree, check_all=False)
+    by = {}
+    for key, row in out.items():
+        by.setdefault(key.split(" ", 2)[2], []).append(row)
+    mean = {n: {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+            for n, rows in by.items()}
+    shares = {n: {k: mean["source"][k] - mean[n][k] for k in mean[n]}
+              for n in mean if n != "source"}
+    print(json.dumps({"lstm_bwd_split": out, "mean": mean,
+                      "shares_ms": shares, "steps": 128}), flush=True)
+    return 0
+
+
+def lstm_bwd_variants() -> int:
+    """:func:`lstm_bwd_times` of this tree's source and LSTM_BWD_VARIANTS,
+    each checked; one JSON line."""
+    print(json.dumps({"lstm_bwd_variants": lstm_bwd_times(
+        LSTM_BWD_VARIANTS)}), flush=True)
+    return 0
+
+
+#: builds of ``csrc/paged_attention.cu`` that ``--paged-bf16-variants``
+#: times beside the source's bf16 form: the row loads a thread issues
+#: before it reduces any (the source: 8), 4 and 16
+PAGED_BF16_VARIANTS = {
+    f"in_flight_{n}": [(
+        "constexpr int kInFlight = 8;   // 16-byte row loads a thread issues "
+        "first", f"constexpr int kInFlight = {n};")] for n in (4, 16)}
+
+
+def paged_bf16_variants() -> int:
+    """The bf16 paged decode at serving's shape (``paged_inputs`` in bf16)
+    as the source builds it and as each of PAGED_BF16_VARIANTS
+    (:func:`variant_fns`), in turns (:func:`time_turns`): each checked by
+    ``paged_bf16_agreement`` first, then timed alone (its two kernels in a
+    trace, no flush) and with the L2 flushed; one JSON line."""
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    dev = resolve_device(None)
+    kern = PA.KERNEL_BF16
+    fns = variant_fns(kern, "paged_attention", PAGED_BF16_VARIANTS)
+    q, kp, vp, pt, sl, _ = C.paged_inputs(dev)
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    call = lambda: PA.ragged_paged_attention(q, kp, vp, pt, sl)  # noqa: E731
+    timer = C.Timer(dev)
+
+    def run(name, fn):
+        kern._fn = fn
+        a = C.paged_bf16_agreement(q, kp, vp, pt, sl)
+        if not a["agrees"]:
+            raise AssertionError(f"{name}: {a}")
+        return {"alone_ms": C.device_passes_ms(
+            [call], C.PAGED_BF16_KERNELS)["total"], "ms": timer(call)}
+
+    saved = kern._fn
+    try:
+        out = time_turns(fns, run)
+    finally:
+        kern._fn = saved
+    print(json.dumps({"paged_bf16_variants": out}), flush=True)
+    return 0
+
+
+#: one fresh process of ``--flash-bf16-processes``: the card test
+#: ``test_flash_bf16_function_on_card_matches_the_cpu`` as the first work
+#: of the process, its card and CPU outputs (o, dq, dk, dv) kept as they
+#: come out of ``torch.autograd.grad``; prints their digests, whether the
+#: test passed, and saves the tensors to argv[1]
+FLASH_BF16_PROCESS = r"""
+import hashlib, json, os, sys
+sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "tests")]
+import torch
+from paddle_tpu_torch.core.dtype import set_policy
+import test_torch_cuda as TC
+
+set_policy()
+seen, real_grad = [], torch.autograd.grad
+
+
+def grad(o, leaves, g, **kw):
+    out = real_grad(o, leaves, g, **kw)
+    seen.append([o.detach().cpu(), *(x.cpu() for x in out)])
+    return out
+
+
+torch.autograd.grad = grad
+passed, why = True, ""
+try:
+    TC.test_flash_bf16_function_on_card_matches_the_cpu(
+        torch.device("cuda", 0))
+except AssertionError as e:
+    passed, why = False, repr(e)[:400]
+torch.autograd.grad = real_grad
+names = ("o", "dq", "dk", "dv")
+digest = lambda x: hashlib.sha256(
+    x.contiguous().view(torch.int16).numpy().tobytes()).hexdigest()[:16]
+card, cpu = seen[0], seen[1]
+torch.save({"card": dict(zip(names, card)), "cpu": dict(zip(names, cpu))},
+           sys.argv[1])
+print(json.dumps({"passed": passed, "why": why,
+                  "card": {n: digest(x) for n, x in zip(names, card)},
+                  "cpu": {n: digest(x) for n, x in zip(names, cpu)},
+                  "unequal_card_cpu": {
+                      n: float((x != y).float().mean())
+                      for n, x, y in zip(names, card, cpu)}}))
+"""
+
+
+def flash_bf16_processes(n: int, out_dir: str = "build/flash_bf16") -> int:
+    """``test_flash_bf16_function_on_card_matches_the_cpu`` alone in ``n``
+    fresh processes in turn (FLASH_BF16_PROCESS; the kernels built once
+    before): each one's pass or failure, the digests of the card's and
+    the CPU's o, dq, dk, dv, and how many distinct digests each output
+    took over the processes; the tensors of every process whose digests
+    differ from the first one's are kept under ``out_dir``."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.build(["flash_attention", "flash_attention_bwd"])
+    os.makedirs(out_dir, exist_ok=True)
+    runs = []
+    for i in range(n):
+        path = os.path.join(out_dir, f"process_{i}.pt")
+        proc = subprocess.run([sys.executable, "-c", FLASH_BF16_PROCESS,
+                               path], capture_output=True, text=True)
+        if proc.returncode != 0:
+            runs.append({"rc": proc.returncode,
+                         "stderr": proc.stderr[-1500:]})
+            continue
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        if runs and all(run[s] == runs[0].get(s) for s in ("card", "cpu")):
+            os.remove(path)
+        runs.append(run)
+        print(json.dumps({"process": i, **run}), flush=True)
+    done = [r for r in runs if "card" in r]
+    distinct = {side: {k: len({r[side][k] for r in done})
+                       for k in ("o", "dq", "dk", "dv")}
+                for side in ("card", "cpu")}
+    print(json.dumps({"flash_bf16_processes": n,
+                      "passed": sum(r.get("passed", False) for r in runs),
+                      "failed_processes": [i for i, r in enumerate(runs)
+                                           if not r.get("passed")],
+                      "distinct_digests": distinct}), flush=True)
+    return 0
+
+
+#: a probe of the launch the cluster exchange needs: a kernel that syncs
+#: its cluster, reads a peer's shared memory (DSMEM), syncs the grid and
+#: the cluster again, launched by ``cudaLaunchKernelEx`` with the
+#: cooperative attribute and a cluster dimension, at the f32 LSTM
+#: backward's text-shape grid (128 CTAs of 320 threads, 227 KB of shared
+#: memory each: one an SM)
+CLUSTER_PROBE = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
+
+__global__ void probe_kernel(int* out) {
+  extern __shared__ int s[];
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cl = cg::this_cluster();
+  if (threadIdx.x == 0) s[0] = blockIdx.x;
+  cl.sync();
+  const int peer = (cl.block_rank() + 1) % cl.num_blocks();
+  const int v = *cl.map_shared_rank(s, peer);
+  grid.sync();
+  cl.sync();
+  if (threadIdx.x == 0) out[blockIdx.x] = v;
+}
+
+extern "C" int probe_launch(int grid, int threads, int smem, int cluster,
+                            int* out, int* max_clusters) {
+  cudaError_t e = cudaFuncSetAttribute(
+      probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(max_clusters, (const void*)probe_kernel,
+                                     &cfg);
+  if (e != cudaSuccess) return (int)e;
+  cfg.numAttrs = 2;
+  e = cudaLaunchKernelEx(&cfg, probe_kernel, out);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceSynchronize();
+}
+
+extern "C" const char* probe_error(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+"""
+
+
+def cluster_probe() -> int:
+    """CLUSTER_PROBE built and launched with clusters of 1, 2, 4 and 8:
+    for each, the launch's CUDA error (0: accepted), how many clusters
+    the card holds at once (``cudaOccupancyMaxActiveClusters``), and
+    whether every CTA read its peer's block index over DSMEM; one JSON
+    line."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    work = os.path.join("build", "probe")
+    os.makedirs(work, exist_ok=True)
+    src, lib = (os.path.join(work, f) for f in ("probe.cu", "probe.so"))
+    with open(src, "w") as f:
+        f.write(CLUSTER_PROBE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                   check=True)
+    so = ctypes.CDLL(os.path.abspath(lib))
+    so.probe_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    so.probe_error.argtypes, so.probe_error.restype = [ctypes.c_int], \
+        ctypes.c_char_p
+    torch.cuda.init()
+    grid, threads = 128, 320
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    out = {"grid": grid, "threads": threads, "smem": smem}
+    for cluster in (1, 2, 4, 8):
+        got = torch.full((grid,), -1, dtype=torch.int32, device="cuda")
+        held = ctypes.c_int(-1)
+        code = so.probe_launch(grid, threads, smem, cluster, got.data_ptr(),
+                               ctypes.byref(held))
+        want = [(i // cluster) * cluster + (i % cluster + 1) % cluster
+                for i in range(grid)]
+        out[f"cluster {cluster}"] = {
+            "error": code, "error_name": so.probe_error(code).decode(),
+            "max_active_clusters": held.value,
+            "dsmem_read_right": code == 0 and got.tolist() == want}
+    print(json.dumps({"cluster_probe": out}), flush=True)
+    return 0
+
+
 def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
@@ -1165,6 +1613,17 @@ if __name__ == "__main__":
         sys.exit(tf32_fwd_variants(args[1] if len(args) > 1 else None))
     if args == ["--paged-chunks"]:
         sys.exit(paged_chunks())
+    if args[:1] == ["--lstm-bwd-split"] and len(args) <= 2:
+        sys.exit(lstm_bwd_split(args[1] if len(args) > 1 else "."))
+    if args[:1] == ["--flash-bf16-processes"] and len(args) <= 2:
+        sys.exit(flash_bf16_processes(int(args[1]) if len(args) > 1
+                                      else 20))
+    if args == ["--cluster-probe"]:
+        sys.exit(cluster_probe())
+    if args == ["--lstm-bwd-variants"]:
+        sys.exit(lstm_bwd_variants())
+    if args == ["--paged-bf16-variants"]:
+        sys.exit(paged_bf16_variants())
     if args[:1] == ["--sass"]:
         sys.exit(sass_counts(args[1:] or ["."]))
     out = "build/ab"

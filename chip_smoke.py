@@ -123,7 +123,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    shapes (LSTM forward and backward at B 64, T 128, D 1280, lengths 100;
    the gather and the table gradient of 8,192 ids into [30000, 128]; max
    abs error <= 1e-4 x max(1, |ref|)), the backward's remat and
-   stored-gates forms and a rerun equal in bits, each timed beside its
+   stored-gates forms and a rerun equal in bits, the backward's planted
+   faults (its dh product on the tensor cores in one TF32 pass, a range
+   of the blocks' partials left out of the sum: ``LSTM_BWD_FAULTS``) each
+   over that limit, each timed (alone too) beside its
    twin, its bound and a library call (cuDNN's ``nn.LSTM`` forward and
    backward, which has no peepholes and includes the input projection:
    the fc plus the forward kernel is timed beside it; ``F.embedding`` and
@@ -428,15 +431,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    (f32) scatter-adds a bf16 step and no other form's; sequences/s, step
    ms, peak memory, a 3-step profile.
 17. Serving in bf16 (row 1's bf16 form: ``csrc/paged_attention.cu``'s
-   ``paged_bf16_kernel``, the Pallas kernel's page loop with p rounded to
-   bf16 against the running max of whole pages; and row 2's bf16 forward
-   at serving's prefill shape, the Hopper form).  The bf16 kernel at phase 2's paged
-   problem in bf16 (B 32, H 12, D 64, page 16, 36 pages, the same ragged
-   lengths) against its twin (``bf16_agrees`` with FLASH_BF16_FLIP:
-   unequal on at most 1% of the elements, each within one bf16 ulp plus
-   2^-7 of sum_j p_j |v_j| / l), a rerun in the same bits, idle rows
-   exactly 0; the Hopper flash forward at [8, 512, 12, 64] causal on q,
-   k, v as they lie (``flash_forward_agreement``); each timed with the L2
+   ``split16``, split over the sequence in two launches a call, the
+   scores and page maxes, then p.V and the combine, p rounded to bf16
+   against the running max of whole pages as the Pallas kernel's page
+   loop rounds it; and row 2's bf16 forward at serving's prefill shape,
+   the Hopper form).  The bf16 kernel at phase 2's paged problem in bf16
+   (B 32, H 12, D 64, page 16, 36 pages, the same ragged lengths) against
+   its twin (``bf16_agrees`` with FLASH_BF16_FLIP: unequal on at most 1%
+   of the elements, each within one bf16 ulp plus 2^-7 of sum_j p_j
+   |v_j| / l), also with the queries reversed, a rerun in the same bits,
+   idle rows exactly 0, a trace of its calls holding its two kernels and
+   no other (``PAGED_BF16_KERNELS``: the device launches a call); the
+   Hopper flash forward at [8, 512, 12, 64] causal on q, k, v as they
+   lie (``flash_forward_agreement``); each timed with the L2
    flushed and alone (a trace) beside its twin, its bound (2 B an
    element) and bf16 SDPA, the flash forward also in host ms and the
    mma.sync form's times beside.  Then phase 3's
@@ -455,10 +462,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    the prompt positions, the served token is the float64 argmax;
    elsewhere its float64 logit lies within that 2x of the max.  The
    share of bf16 greedy tokens equal to f32's is reported, not gated.
-   Two planted faults, copies of the source under ``build/faults/``
-   built beside it: the scores left unscaled and the rescale skipped
-   (``PAGED_BF16_FAULTS``) must each fail the kernel check, and the
-   first, served again, the margin check.
+   Four planted faults, copies of the source under ``build/faults/``
+   built beside it (``PAGED_BF16_FAULTS``): the scores left unscaled, the
+   pages' weights dropped, p rounded against each chunk's own max, the
+   ticket left set (the second launch wrong); each must fail the kernel
+   check, and the first, served again, the margin check.
 18. The last bf16 forms (rows 4, 6, 9 and 18: ``csrc/lstm_seq.cu``'s
    ``lstm_fi_fwd_bf16``, ``csrc/gru_seq.cu``'s ``gru_fi_fwd_bf16``,
    ``csrc/softmax_xent.cu``'s ``softmax_xent_fwd_bf16`` /
@@ -501,6 +509,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1087,7 +1096,8 @@ def check_paged(dev, timer, builds=None) -> dict:
 
 def paged_times(q, kp, vp, pt, sl, lens, timer, alone_key=None) -> dict:
     """The paged wrapper's times on these inputs: with the L2 flushed,
-    alone (a trace; where ``alone_key`` names the kernel), its twin's,
+    alone (a trace; where ``alone_key`` names the kernel, or a tuple of
+    kernels, summed), its twin's,
     ``scaled_dot_product_attention`` over the gathered dense K/V in the
     same dtype (the library yardstick), and the bound: each resident K/V
     element, q, out, the table and the lengths moved once at the dtype's
@@ -1116,11 +1126,16 @@ def paged_times(q, kp, vp, pt, sl, lens, timer, alone_key=None) -> dict:
            "library_ms": timer(lambda: F.scaled_dot_product_attention(
                q[:, :, None, :], kd, vd, attn_mask=mask))}
     if alone_key:
-        out["alone_ms"] = device_ms([fn], alone_key)
+        keys = (alone_key,) if isinstance(alone_key, str) else alone_key
+        passes = device_passes_ms([fn], keys)
+        out["alone_ms"] = passes["total"]
+        if len(keys) > 1:
+            out["alone_passes_ms"] = passes
         out["library_alone_ms"] = call_alone_ms(
             lambda: F.scaled_dot_product_attention(q[:, :, None, :], kd, vd,
                                                    attn_mask=mask))
     return out
+
 
 
 #: (source, the TPU kernel it replaces, the name of the tile's kernel in a
@@ -2505,13 +2520,28 @@ def gather_checks(table, ids, fault) -> dict:
             "lookup_fn": lookup}
 
 
+#: the f32 LSTM backward's planted faults (csrc/lstm_seq.cu): the dh
+#: product's low passes dropped (one TF32 pass, hi.hi: another function),
+#: and the (B) sum's second range of blocks left out
+LSTM_BWD_FAULTS = {
+    "tf32_one_pass": [
+        ("tf32x3::mma(part[j], a.lo, bh[j][0], bh[j][1]);   // lo.hi",
+         ";"),
+        ("tf32x3::mma(part[j], a.hi, bl[j][0], bl[j][1]);   // hi.lo",
+         ";")],
+    "range_left_out": ("        for (int r = 1; r < groups; ++r) {",
+                       "        for (int r = 2; r < groups; ++r) {")}
+
+
 def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
                        n_ids=8192, vocab=30000, embed=128) -> tuple:
     """The text path's kernels at its shapes, each against its plain twin
     (max abs error <= TOL * max(1, |ref|)): the LSTM forward (no gates
     slab, as the card's remat path runs it) and backward (remat, and the
     stored-gates form, which must give the same bits) at B 64, T 128,
-    D 1280 with lengths 100; the gather of 8,192 ids from [30000, 128]
+    D 1280 with lengths 100, the backward's planted faults
+    (``LSTM_BWD_FAULTS``: each over TOL); the gather of 8,192 ids from
+    [30000, 128]
     and the table gradient (zeros plus the scatter-add of 8,192 rows), a
     rerun bit-identical, and its grouping passes alone, equal to their
     twin in integers (a planted grouping that reverses each run must
@@ -2525,6 +2555,7 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
 
     fault_builds = source_fault_builds("embedding",
                                        {**GROUP_FAULTS, **GATHER_FAULTS})
+    lstm_faults = source_fault_builds("lstm_seq", LSTM_BWD_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(7)
     lens = torch.full((b,), length, device=dev)
     mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
@@ -2563,8 +2594,28 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         raise AssertionError("lstm backward: remat, stored gates and a rerun "
                              "differ in bits on the card")
     bwd_plain = lambda: LK._bwd_plain(xw, None, *args, True)
-    bwd_err = worst(remat, bwd_plain())
-    del gates, stored, again
+    want_bwd = bwd_plain()
+    bwd_err = worst(remat, want_bwd)
+    real = LK.KERNEL_BWD._fn or LK.KERNEL_BWD._resolve()
+    bwd_faults = {}
+    for name, build in lstm_faults.items():
+        LK.KERNEL_BWD._fn = planted(*build, LK.KERNEL_BWD)
+        try:
+            bad = bwd()
+            torch.cuda.synchronize()
+        finally:
+            LK.KERNEL_BWD._fn = real
+        bwd_faults[name] = max(
+            (x - y).abs().max().item() / max(1.0, y.abs().max().item())
+            for x, y in zip(bad, want_bwd))
+        del bad
+    if not all(e > TOL for e in bwd_faults.values()):
+        raise AssertionError(f"lstm backward planted faults (each one's "
+                             f"error over max(1, |ref|)): {bwd_faults}")
+    stored_alone = device_ms([lambda: LK._bwd_kernel(None, gates, *args,
+                                                     False)],
+                             "lstm_bwd_kernel")
+    del gates, stored, again, want_bwd
 
     # yardsticks: cuDNN's LSTM over the 128-wide embeddings, and the
     # port's fc (x @ W_x + b) plus the forward kernel over the same input
@@ -2596,18 +2647,24 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         "bytes_flops": (f32 * (b * t * 4 * d + d * 4 * d + 3 * d + 4 * b * d
                                + b * t + 2 * b * t * d),
                         2.0 * steps * d * 4 * d + cell),
+        "alone_ms": device_ms([fwd], "lstm_fwd_kernel"),
         "library_ms": timer(lib_fwd),
         "fc_plus_kernel_ms": timer(fc_fwd)}, {
         "name": "lstm_seq_bwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
         "replaces": "paddle_tpu/ops/pallas/lstm.py:426",
         "shape": [b, t, d], "max_abs_err": bwd_err,
-        "ms": timer(bwd), "plain_ms": timer(bwd_plain),
+        "planted_faults": bwd_faults,
+        "ms": timer(bwd), "alone_ms": device_ms([bwd], "lstm_bwd_kernel"),
+        "stored_gates_alone_ms": stored_alone,
+        "plain_ms": timer(bwd_plain),
         # xw, mask, W_h, peep, h0, c0, hs, cs, dhs, dh_T, dc_T in; dgates,
-        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T
+        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T (the
+        # latter on the tensor cores as 3xTF32: the lesser bound)
         "bytes_flops": (f32 * (2 * b * t * 4 * d + d * 4 * d + 6 * d
                                + 6 * b * d + b * t + 3 * b * t * d),
                         4.0 * steps * d * 4 * d + 2 * cell),
+        "bound_rule": bound_3xtf32,
         "library_ms": timer(lambda: torch.autograd.grad(
             out_lib, lib_params, g_lib, retain_graph=True))}]
     del xw, dhs, hs, cs, remat, out_lib, g_lib, lib_params, x_lib, cudnn
@@ -2692,7 +2749,8 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         "library_ms": timer(lambda: torch.sort(ids, stable=True)),
         "library_note": "torch.sort(ids, stable=True): the order alone"}]
     for row in rows:
-        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
+        row["bound_ms"], row["bound_by"] = row.pop("bound_rule", bound)(
+            *row.pop("bytes_flops"))
     summary = {"phase": "text_kernels", "tol": TOL,
                "lstm_bwd_remat_stored_rerun_bit_identical": True,
                "table_grad_rerun_bit_identical": True,
@@ -3093,10 +3151,12 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
         "ms_by_direction": {"forward": bwd_ms[False],
                             "reverse": bwd_ms[True]},
         # xw, mask, W_h, peep, h0, c0, hs, cs, dhs, dh_T, dc_T in; dgates,
-        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T
+        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T (the
+        # latter as 3xTF32)
         "bytes_flops": (f32 * (2 * b * t * 4 * d + d * 4 * d + 6 * d
                                + 6 * b * d + b * t + 3 * b * t * d),
                         4.0 * steps * d * 4 * d + 2 * cell),
+        "bound_rule": bound_3xtf32,
         # cuDNN's one-direction LSTM backward (input and weight gradients)
         "library_ms": timer(lambda: torch.autograd.grad(
             out_lib, lib_params, g_lib, retain_graph=True))}]
@@ -3184,7 +3244,8 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
                         float(b * t * v)),
         "library_ms": timer(lambda: torch.argmax(lp, dim=2))}]
     for row in rows:
-        row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
+        row["bound_ms"], row["bound_by"] = row.pop("bound_rule", bound)(
+            *row.pop("bytes_flops"))
 
     # the direct conv at the CRNN's two 3x3 s1 p1 shapes, BN stats epilogue
     conv_err = 0.0
@@ -8875,15 +8936,30 @@ def train_nmt_bf16(dev, vocab=30000, width=512, bs=64,
 
 #: the greedy requests of the bf16 serving run held to the float64 witness
 SERVE_BF16_WITNESS = 4
-#: planted faults of the bf16 paged kernel, each a copy of its source under
-#: build/faults/ with one line changed: the scores left unscaled, and the
-#: online softmax without the accumulator's rescale.  Both must fail the
+#: planted faults of the bf16 paged kernel (``split16``), each a copy of
+#: its source under build/faults/ with lines changed: the scores left
+#: unscaled; each page's weight exp(m_i - m_c) dropped (the rescale); p
+#: rounded against its chunk's own max (the f32 form's split, another
+#: function: every page's running max and the chunk's m_c the max of the
+#: chunk's pages alone); the row's ticket left where the last chunk drew
+#: it (the first launch right, the second wrong).  Each must fail the
 #: kernel check; the served tokens' margin check must catch "no_scale".
 #: At random weights attention is a near-uniform average of random V rows,
-#: so a fault that keeps it an average ("no_rescale") hardly moves the
-#: served tokens: the margin check is run on it and reported only.
-PAGED_BF16_FAULTS = {"no_scale": ("? dot * scale :", "? dot :"),
-                     "no_rescale": ("acc[e] *= corr;", "acc[e] *= 1.f;")}
+#: so a fault that keeps it an average hardly moves the served tokens: the
+#: margin check is run on the others and reported only.
+PAGED_BF16_FAULTS = {
+    "no_scale": ("s_sm[r] = scale * dot;  // the scaled score",
+                 "s_sm[r] = dot;  // the scaled score"),
+    "no_rescale": ("w_pg[j] = expf(m_pg[j] - m_last);",
+                   "w_pg[j] = 1.f;"),
+    "chunk_max": [
+        ("    float carry = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], "
+         "red[3]));", "    float carry = kNegInf;"),
+        ("    const float mi = m_pg[j];   // the page's running max",
+         "    const float mi = m_c;   // planted: the chunk's own max"),
+        ("w_pg[j] = expf(m_pg[j] - m_last);", "w_pg[j] = 1.f;")],
+    "ticket_kept": ("  if (tid == 0) tickets[bh] = 0u;  // the row's ticket, "
+                    "ready again", "  // planted: the ticket is not reset")}
 
 
 def paged_bf16_agreement(q, kp, vp, pt, sl) -> dict:
@@ -8911,23 +8987,49 @@ def paged_bf16_agreement(q, kp, vp, pt, sl) -> dict:
     return a
 
 
+#: the bf16 paged form's two kernels (``split16``): the scores and page
+#: maxes, then p.V and the combine
+PAGED_BF16_KERNELS = ("paged_bf16_scores_kernel", "paged_bf16_pv_kernel")
+
+
 def check_paged_bf16(dev, timer) -> dict:
     """Row 1's bf16 form at ``check_paged``'s problem in bf16 (B 32, H 12,
     D 64, page 16, 36 pages, the same ragged lengths): against its twin
-    (``paged_bf16_agreement``), then timed as ``paged_times`` (2 B an
-    element, bf16 SDPA as the yardstick)."""
+    (``paged_bf16_agreement``), also with the queries reversed (the
+    second launch finds the tickets the first reset); a trace of its
+    calls holds its two kernels (``PAGED_BF16_KERNELS``: the device
+    launches a call) and no other; then timed as ``paged_times`` (2 B an
+    element, bf16 SDPA as the yardstick), alone as the sum of its two
+    kernels' device times, and the host's ms a call."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
     q, kp, vp, pt, sl, lens = paged_inputs(dev)
     q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
     a = paged_bf16_agreement(q, kp, vp, pt, sl)
-    if not a["agrees"]:
-        raise AssertionError(f"bf16 paged kernel vs its twin: {a}")
+    flipped = paged_bf16_agreement(torch.flip(q, dims=(2,)), kp, vp, pt, sl)
+    if not (a["agrees"] and flipped["agrees"]):
+        raise AssertionError(f"bf16 paged kernel vs its twin: {a}, the "
+                             f"queries reversed {flipped}")
+    fn = lambda: PA.ragged_paged_attention(q, kp, vp, pt, sl)  # noqa: E731
+    traced = trace_kernel_counts(fn)
+    names = sorted({k for k in traced
+                    for want in PAGED_BF16_KERNELS if want in k})
+    if len(names) != 2 or len(traced) != 2:
+        raise AssertionError(f"bf16 paged call: kernels traced {traced}")
     b, h, d = q.shape
+    ps, maxp = kp.shape[2], pt.shape[1]
     return {"name": "ragged_paged_attention_bf16", "route": "cuda",
             "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:274",
-            "shape": [b, h, d, kp.shape[2], pt.shape[1]], "dtype": "bfloat16",
-            "agreement": a, "max_abs_err": a["max_abs_err"],
-            **paged_times(q, kp, vp, pt, sl, lens, timer, "paged_bf16_kernel")}
+            "shape": [b, h, d, ps, maxp], "dtype": "bfloat16",
+            "agreement": a, "agreement_queries_reversed": flipped,
+            "max_abs_err": max(a["max_abs_err"], flipped["max_abs_err"]),
+            "device_launches_a_call": len(names),
+            "pages_a_chunk": PA.pages_per_chunk(ps, torch.bfloat16),
+            "splits": PA.splits(maxp, ps, torch.bfloat16),
+            "host_ms": host_ms(fn),
+            **paged_times(q, kp, vp, pt, sl, lens, timer,
+                          PAGED_BF16_KERNELS)}
 
 
 def check_flash_bf16_prefill(dev, timer) -> dict:
@@ -9021,7 +9123,8 @@ def served_margin_check(cfg, params, results) -> dict:
     return out
 
 
-def source_fault_builds(source: str, faults: dict) -> dict:
+def source_fault_builds(source: str, faults: dict, csrc=None,
+                        prefix: str = "") -> dict:
     """Start one ``nvcc`` per planted fault of ``faults`` ({fault: (line,
     planted line)}, or a list of such pairs), each on a copy of
     ``csrc/<source>.cu`` in a directory of its own under
@@ -9029,10 +9132,13 @@ def source_fault_builds(source: str, faults: dict) -> dict:
     a shared header (``csrc/*.cuh``), in a copy of that header beside the
     copy of the source (which its quoted include finds first; the other
     headers from ``csrc/``); returns {fault: (the process, the library's
-    path)}."""
+    path)}.  ``csrc``: another tree's ``csrc`` directory to copy from
+    (default this one's), its builds named with ``prefix``; an empty
+    list of edits builds the source as it is."""
     from paddle_tpu_torch.ops.kernels import _build
 
-    paths = [_build.CSRC / f"{source}.cu", *sorted(_build.CSRC.glob("*.cuh"))]
+    csrc = Path(csrc) if csrc is not None else _build.CSRC
+    paths = [csrc / f"{source}.cu", *sorted(csrc.glob("*.cuh"))]
     files = {p.name: p.read_text() for p in paths}
     out = _build.BUILD_DIR.parent / "faults"
     builds = {}
@@ -9046,13 +9152,13 @@ def source_fault_builds(source: str, faults: dict) -> dict:
                                      f"headers")
             text = changed.get(where[0], files[where[0]])
             changed[where[0]] = text.replace(line, planted)
-        d = out / f"{source}_{name}"
+        d = out / f"{prefix}{source}_{name}"
         d.mkdir(parents=True, exist_ok=True)
         for f, text in changed.items():
             (d / f).write_text(text)
-        lib = out / f"{source}_{name}.so"
+        lib = out / f"{prefix}{source}_{name}.so"
         builds[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc),
              "-o", str(lib), str(d / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     return builds
@@ -9224,13 +9330,16 @@ def serve_bf16(dev) -> tuple[list, dict, dict]:
 
     from paddle_tpu_torch.core.dtype import cast_floats
     from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops.kernels import _kept
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.telemetry import MetricsRegistry
 
-    fault_builds = source_fault_builds("paged_attention",
-                                       PAGED_BF16_FAULTS)
+    # named apart from PAGED_F32_FAULTS' builds (a library of the same
+    # path is the one the process loaded first)
+    fault_builds = source_fault_builds("paged_attention", PAGED_BF16_FAULTS,
+                                       prefix="bf16_")
     timer = Timer(dev)
     rows = [check_paged_bf16(dev, timer), check_flash_bf16_prefill(dev, timer)]
     del timer
@@ -9289,14 +9398,23 @@ def serve_bf16(dev) -> tuple[list, dict, dict]:
     kernel_fn = PA.KERNEL_BF16._fn or PA.KERNEL_BF16._resolve()
     for name, build in fault_builds.items():
         PA.KERNEL_BF16._fn = planted(*build, PA.KERNEL_BF16)
+        _kept.forget()    # fresh tickets: a kept ticket shows on a rerun
         try:
+            # two calls of other queries after the first: a kept ticket
+            # leaves a row's output unwritten, which a freed buffer of the
+            # same call could hold right; of the first queries it cannot
             kernel = paged_bf16_agreement(*problem)
+            flipped = paged_bf16_agreement(torch.flip(problem[0], dims=(2,)),
+                                           *problem[1:])
+            kernel["queries_reversed"] = flipped
+            kernel["agrees"] = kernel["agrees"] and flipped["agrees"]
             served = ServingEngine(
                 cfgs["bf16"], params["bf16"], scfg,
                 registry=MetricsRegistry("fault"), device=dev).generate(
                     witness_prompts)
         finally:
             PA.KERNEL_BF16._fn = kernel_fn
+            _kept.forget()
         faults[name] = {"kernel_check": kernel, "margin_check":
                         served_margin_check(cfgs["bf16"], params["bf16"],
                                             served)}

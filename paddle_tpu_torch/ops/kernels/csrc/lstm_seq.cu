@@ -59,12 +59,26 @@
 // carry, written to dgates [B, T, 4D]; the peephole sums; the dc carry;
 // and this block's share of dh_{t-1}: P[block][k][b] = sum over its own 4U
 // columns c of dgates[b, c] * W_h[k, c], for every k, from the same W
-// slice, written to a scratch buffer (two, by step parity, so no block
-// overwrites one another block is still reading).  Grid barrier.  (B) for
-// its own units: dh_{t-1} = sum of the partials over blocks, in block
-// order.  No atomics anywhere, so reruns are bit-identical; dpeep of a
-// unit is summed in a fixed order over batch and time.  dW_h is one large
-// product outside, as in the JAX package.
+// slice, on the tensor cores as 3xTF32 (dh_share): written to a scratch
+// buffer (two, by step parity, so no block overwrites one another block is
+// still reading).  Grid barrier.  (B) for its own units: dh_{t-1} = sum of
+// the partials over blocks, 16 bytes (four rows, part's rows padded to a
+// multiple of 4) a load, in block order within each of a few ranges of
+// blocks and the ranges in order.  No atomics anywhere, so reruns are
+// bit-identical; dpeep of a unit is summed in a fixed order over batch and
+// time.  dW_h is one large product outside, as in the JAX package.
+//
+// Where the backward's time goes (the parent's FMA form at B 64, T 128,
+// D 1280, remat; chip_ab.py --lstm-bwd-split): the remat product and the
+// dh product about a third each, the (B) sum a fifth, the partials' writes
+// and the grid barrier little (the writes leave the SM at once).  Summing
+// the shares inside thread-block clusters over DSMEM before they reach
+// device memory was built and ran slower: the card holds the 128 one-SM
+// CTAs whole only in clusters of 2 (of 4 and 8: 120), which halves the sum
+// but costs 65 cluster barrier phases a step.  So the dh product moved to
+// the tensor cores and the sum to wider loads with more of them in flight.
+// ptxas (sm_90a): the backward's four instances 127-128 registers, no
+// spills.
 //
 // Every value written during the launch by another block is read through
 // L2 (__ldcg, cp.async.cg), never from a stale L1 line.
@@ -74,6 +88,7 @@
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
+#include "tf32x3.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -245,6 +260,84 @@ __device__ __forceinline__ void load_slice(float* w_s, const float* wpack,
   for (int e = threadIdx.x; e < D * U; e += blockDim.x) dst[e] = src[e];
 }
 
+constexpr int kTilesK = 8;   // k tiles of 8 a warp takes at once
+
+// The block's share of dh_{t-1} for one chunk of kRows rows, on the tensor
+// cores as 3xTF32 (csrc/tf32x3.cuh): out[k][b] = sum over the block's 4U
+// columns c of dg[b][c] * W[k][c], for every k < D and row b < rows, out's
+// rows ldo apart.  A =
+// the dgates tile dg_s [kRows][ldg], B = the W slice w_s [D][4U]; m16n8k8
+// tiles of 16 rows by 8 k, warp w taking the (row tile, group of kTilesK k
+// tiles) pairs w, w + warps, ...; each 8-deep slice of the 4U columns
+// (zero past 4U) splits its A fragment once for the group, and each
+// tile's three passes of a slice are summed apart from zero and added to
+// nearest (as mma3_add, the passes issued across the group's tiles so
+// that no product waits on the one before it), the slices in order: the
+// bits depend on the values only.  Every thread of the block calls it.
+__device__ __forceinline__ void dh_share(const float* dg_s, int ldg,
+                                         const float* w_s, int U, int D,
+                                         int ldo, int rows, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5, g = lane >> 2, t = lane & 3;
+  const int cols = 4 * U, slices = (cols + 7) / 8;
+  const int groups = (D + 8 * kTilesK - 1) / (8 * kTilesK);
+  const int mtiles = (rows + 15) / 16;
+  for (int i = warp; i < mtiles * groups; i += warps) {
+    const int mt = i / groups, k0 = (i % groups) * 8 * kTilesK;
+    const float* r0 = dg_s + (mt * 16 + g) * ldg;
+    const float* r1 = r0 + 8 * ldg;
+    const float* wr[kTilesK];
+#pragma unroll
+    for (int j = 0; j < kTilesK; ++j)
+      wr[j] = w_s + (size_t)min(k0 + 8 * j + g, D - 1) * cols;
+    float acc[kTilesK][4];
+#pragma unroll
+    for (int j = 0; j < kTilesK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int sl = 0; sl < slices; ++sl) {
+      const int c0 = sl * 8 + t, c1 = c0 + 4;
+      const bool in1 = c1 < cols;
+      tf32x3::SplitA a;   // rows g, g + 8; columns t, t + 4 of the slice
+      a.set(r0[c0], r1[c0], in1 ? r0[c1] : 0.f, in1 ? r1[c1] : 0.f);
+      uint32_t bh[kTilesK][2], bl[kTilesK][2];
+      float part[kTilesK][4];
+#pragma unroll
+      for (int j = 0; j < kTilesK; ++j) {
+        tf32x3::split(wr[j][c0], bh[j][0], bl[j][0]);
+        tf32x3::split(in1 ? wr[j][c1] : 0.f, bh[j][1], bl[j][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+      }
+      // the three passes of tf32x3::mma3 (lo.hi, hi.lo, hi.hi) tile by
+      // tile, each pass over the kTilesK tiles in turn: the products that
+      // issue back to back are independent
+#pragma unroll
+      for (int j = 0; j < kTilesK; ++j)
+        tf32x3::mma(part[j], a.lo, bh[j][0], bh[j][1]);   // lo.hi
+#pragma unroll
+      for (int j = 0; j < kTilesK; ++j)
+        tf32x3::mma(part[j], a.hi, bl[j][0], bl[j][1]);   // hi.lo
+#pragma unroll
+      for (int j = 0; j < kTilesK; ++j)
+        tf32x3::mma(part[j], a.hi, bh[j][0], bh[j][1]);   // hi.hi
+#pragma unroll
+      for (int j = 0; j < kTilesK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    }
+    // acc[j]: rows g (0, 1) and g + 8 (2, 3), k 2t and 2t + 1 of tile j
+    const int r = mt * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kTilesK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + 8 * j + 2 * t + (e & 1), rr = r + 8 * (e >> 1);
+        if (k < D && rr < rows) out[(size_t)k * ldo + rr] = acc[j][e];
+      }
+  }
+}
+
 // kFi: `in` is raw x [B, T, E] and the block keeps the [E][U][4] slice
 // of W_x (wxpack) before its W_h slice; otherwise `in` is xw [B, T, 4D]
 // (E, wxpack and bias unused).
@@ -378,6 +471,7 @@ lstm_bwd_kernel(const float* __restrict__ xw,
   const int nu = min(U, D - u0);
   const bool live = uu < nu;
   const int nblk = gridDim.x;
+  const int B4 = (B + 3) & ~3;               // part's row stride
   load_slice(w_s, wpack, D, U);
   for (int e = threadIdx.x; e < B * nu; e += blockDim.x) {
     const size_t o = (size_t)(e / nu) * D + u0 + e % nu;
@@ -398,7 +492,7 @@ lstm_bwd_kernel(const float* __restrict__ xw,
     const int t = reverse ? s : T - 1 - s;   // computation order reversed
     const int tp = reverse ? t + 1 : t - 1;
     const bool first = reverse ? t == T - 1 : t == 0;
-    float* P = part + (size_t)(s & 1) * nblk * D * B;   // [nblk][D][B]
+    float* P = part + (size_t)(s & 1) * nblk * D * B4;   // [nblk][D][B4]
     float dp_step = 0.f;
     __syncthreads();
     for (int b0 = 0; b0 < B; b0 += kRows) {
@@ -481,76 +575,62 @@ lstm_bwd_kernel(const float* __restrict__ xw,
           sum += contrib[(k * 2 * kRG + g) * U + q];
         dp_step += sum;
       }
-      // this block's share of dh_{t-1}: thread (half, rg, uu) takes rows
-      // rg + 16 (2 half + i) and k = uu + U j, four k at a time
-      float* Pb = P + (size_t)blockIdx.x * D * B + b0;
-      for (int j0 = 0; uu + U * j0 < D; j0 += 4) {
-        int ks[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) ks[n] = min(uu + U * (j0 + n), D - 1);
-        float pacc[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) pacc[i][n] = 0.f;
-        for (int cu = 0; cu < U; ++cu) {
-          float4 dv[2], wv[4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            dv[i] = *reinterpret_cast<const float4*>(
-                dg_s + (rg + kRG * (2 * half + i)) * ldg + cu * 4);
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            wv[n] = *reinterpret_cast<const float4*>(
-                w_s + ((size_t)ks[n] * U + cu) * 4);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-              pacc[i][n] = fmaf(dv[i].x, wv[n].x, pacc[i][n]);
-              pacc[i][n] = fmaf(dv[i].y, wv[n].y, pacc[i][n]);
-              pacc[i][n] = fmaf(dv[i].z, wv[n].z, pacc[i][n]);
-              pacc[i][n] = fmaf(dv[i].w, wv[n].w, pacc[i][n]);
-            }
-        }
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int k = uu + U * (j0 + n);
-          if (k >= D) continue;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = rg + kRG * (2 * half + i);
-            if (r < rows) Pb[(size_t)k * B + r] = pacc[i][n];
-          }
-        }
-      }
+      // this block's share of dh_{t-1} (the product beside the threads
+      // above reading contrib: it reads only dg_s and w_s)
+      dh_share(dg_s, ldg, w_s, U, D, B4, rows,
+               P + (size_t)blockIdx.x * D * B4 + b0);
       __syncthreads();   // dg_s and contrib are free for the next chunk
     }
     dp_acc += dp_step;
     grid.sync();
-    // (B) dh_{t-1} of the own units: the partials summed in block order,
-    // four outputs a thread interleaved (32 loads in flight)
-    const int n_out = B * nu;
-    for (int e0 = threadIdx.x; e0 < n_out; e0 += 4 * blockDim.x) {
-      const float* src[4];
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int e = min(e0 + v * (int)blockDim.x, n_out - 1);
-        src[v] = P + (size_t)(u0 + e / B) * B + e % B;
-      }
+    // (B) dh_{t-1} of the own units: the blocks' partials summed, four
+    // rows a 16-byte load (part's rows padded to B4).  Where the threads
+    // outnumber the quads twice or more, the partials split into `groups`
+    // ranges (at most 4), each summed in block order, then the ranges in
+    // order; a round takes `per` quads.
+    const int bq = B4 / 4, nq = nu * bq;
+    const int groups = 2 * nq <= (int)blockDim.x
+                           ? min(4, (int)blockDim.x / nq) : 1;
+    const int span = (nblk + groups - 1) / groups;
+    const int per = blockDim.x / groups;
+    const int qi = threadIdx.x % per, grp = threadIdx.x / per;
+    float4* gsum = reinterpret_cast<float4*>(a_s);   // [groups][per]
+    for (int q0 = 0; q0 < nq; q0 += per) {
+      const int q = q0 + qi;
+      if (grp < groups && q < nq) {
+        const float4* src = reinterpret_cast<const float4*>(
+            P + (size_t)(u0 + q / bq) * B4 + 4 * (q % bq));
+        const int k1 = min(nblk, (grp + 1) * span);
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
-      for (int k = 0; k < nblk; ++k)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          sum[v] += __ldcg(src[v] + (size_t)k * D * B);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int e = e0 + v * (int)blockDim.x;
-        if (e >= n_out) continue;
-        const size_t bu = (size_t)(e % B) * D + u0 + e / B;
-        dh[bu] = sum[v] + dh[bu];
+        for (int k = grp * span; k < k1; ++k) {
+          const float4 v = __ldcg(src + (size_t)k * (D * B4 / 4));
+          sum.x += v.x;
+          sum.y += v.y;
+          sum.z += v.z;
+          sum.w += v.w;
+        }
+        gsum[grp * per + qi] = sum;
       }
+      __syncthreads();
+      if (grp == 0 && q < nq) {
+        float4 sum = gsum[qi];
+        for (int r = 1; r < groups; ++r) {
+          const float4 v = gsum[r * per + qi];
+          sum.x += v.x;
+          sum.y += v.y;
+          sum.z += v.z;
+          sum.w += v.w;
+        }
+        const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+        const int b = 4 * (q % bq);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const size_t bu = (size_t)(b + v) * D + u0 + q / bq;
+          if (b + v < B) dh[bu] = s4[v] + dh[bu];
+        }
+      }
+      __syncthreads();   // gsum is free for the next round
     }
   }
   if (threadIdx.x < 3 * U) {
@@ -649,7 +729,8 @@ extern "C" int lstm_fi_fwd_f32(const float* x, const float* mask,
 
 // remat != 0: gates recomputed from xw and the shifted h/c stacks
 // (gates_in unused); remat == 0: gates_in is the forward's slab (xw
-// unused).  part is scratch of 2 * blocks * D * B floats.
+// unused).  part is scratch of 2 * blocks * D * B4 floats, B4 = B rounded
+// up to a multiple of 4.
 extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
                             const float* mask, const float* wpack,
                             const float* peep, const float* h0,

@@ -25,17 +25,11 @@
 //
 // The bf16 form (paged_attention_bf16; q, the pools and out bf16) rounds
 // where the Pallas kernel rounds with bf16 operands: q.k in f32, p rounded
-// to bf16 before p.V against the running max of WHOLE pages, l summed from
-// the unrounded p, out rounded once.  So it walks the pages in order with
-// the online softmax updated once a page, as the Pallas grid does; the f32
-// form's split of the tokens over chunks would round p against a
-// chunk's max.  Bytes bound it twice as hard as f32 (2 B an element):
-// each thread loads 8 bf16 (16 bytes) of a token row at a time, G lanes
-// (G = D / 8 rounded up to a power of two) cover a row, and 128 / G rows
-// of a page are read at once.  A page's scores are reduced over the G
-// lanes by shuffles and meet in shared memory for the page max; each
-// thread keeps an f32 accumulator of its 8 dims over its rows, and the
-// row groups' accumulators are summed at the end.
+// to bf16 before p.V against the running max of WHOLE pages 0..i, l summed
+// from the unrounded p, out rounded once.  It splits each (b, h) over the
+// same kind of chunks in two launches (the split16 namespace below): the
+// scores and page maxes first, so that each chunk can form the running
+// max of every one of its pages.
 
 #include <climits>
 #include <cstdint>
@@ -46,118 +40,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-constexpr int kBf16Threads = 128;
-
-__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h2[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// Dynamic shared memory: s[page_size], p[page_size], then the row groups'
-// accumulators [128 / G][D] for the final sum.
-__global__ void __launch_bounds__(kBf16Threads)
-paged_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k_pages,
-                         const __nv_bfloat16* __restrict__ v_pages,
-                         const int* __restrict__ page_table,
-                         const int* __restrict__ seq_lens,
-                         __nv_bfloat16* __restrict__ out,
-                         int H, int P, int page_size, int D, int max_pages,
-                         int group, float scale) {
-  extern __shared__ float smem[];
-  float* s_sm = smem;
-  float* p_sm = smem + page_size;
-  float* part_sm = smem + 2 * page_size;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const int rows = kBf16Threads / group;  // token rows read at once
-  const int r0 = tid / group;             // this thread's row of a pass
-  const int c = tid % group;              // its 8-wide chunk of the row
-  const bool has_chunk = c * 8 < D;
-  __nv_bfloat16* o = out + ((size_t)b * H + h) * D;
-  // a length past the table row would read past it: clamp to the row
-  const int seq_len = min(seq_lens[b], max_pages * page_size);
-  if (seq_len <= 0) {
-    for (int d = tid; d < D; d += kBf16Threads) o[d] = __float2bfloat16(0.f);
-    return;
-  }
-
-  float qf[8], acc[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) qf[e] = acc[e] = 0.f;
-  if (has_chunk)
-    unpack8(*reinterpret_cast<const uint4*>(q + ((size_t)b * H + h) * D +
-                                            c * 8), qf);
-
-  float m = kNegInf, l = 0.f;
-  const int* pt = page_table + (size_t)b * max_pages;
-  const size_t head_off = (size_t)h * P * page_size * D;
-  const int npages = (seq_len + page_size - 1) / page_size;
-  for (int i = 0; i < npages; ++i) {
-    int page = pt[i];
-    if ((unsigned)page >= (unsigned)P) page = 0;  // never read out of bounds
-    const size_t base = head_off + (size_t)page * page_size * D + c * 8;
-    // the page's scores; every lane runs every pass (the shuffles)
-    for (int rb = 0; rb < page_size; rb += rows) {
-      const int r = rb + r0;
-      float dot = 0.f;
-      if (has_chunk && r < page_size) {
-        float kf[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(
-                    k_pages + base + (size_t)r * D)), kf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dot = fmaf(qf[e], kf[e], dot);
-      }
-      for (int off = group >> 1; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (c == 0 && r < page_size)
-        s_sm[r] = i * page_size + r < seq_len ? dot * scale : kNegInf;
-    }
-    __syncthreads();
-    float mx = kNegInf;
-    for (int r = 0; r < page_size; ++r) mx = fmaxf(mx, s_sm[r]);
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] *= corr;
-    for (int r = r0; r < page_size; r += rows) {
-      const float p = expf(s_sm[r] - m_new);
-      if (c == 0) p_sm[r] = p;
-      if (has_chunk) {
-        const float pb = __bfloat162float(__float2bfloat16(p));
-        float vf[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(
-                    v_pages + base + (size_t)r * D)), vf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(pb, vf[e], acc[e]);
-      }
-    }
-    __syncthreads();
-    float sum = 0.f;
-    for (int r = 0; r < page_size; ++r) sum += p_sm[r];
-    l = l * corr + sum;
-    m = m_new;
-  }
-
-  if (has_chunk) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) part_sm[r0 * D + c * 8 + e] = acc[e];
-  }
-  __syncthreads();
-  const float safe_l = fmaxf(l, 1e-30f);
-  for (int d = tid; d < D; d += kBf16Threads) {
-    float a = 0.f;
-    for (int rr = 0; rr < rows; ++rr) a += part_sm[rr * D + d];
-    o[d] = __float2bfloat16(a / safe_l);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The f32 form (paged_attention_f32): split over the sequence, one launch.
@@ -394,28 +276,359 @@ paged_split_kernel(const float* __restrict__ q,
 
 }  // namespace split
 
+// ---------------------------------------------------------------------------
+// The bf16 form (paged_attention_bf16): split over the sequence, in two
+// launches.
+//
+// Bytes bound it twice as hard as f32 (2 B an element: the bound at
+// serving's shape is ~7.3 us).  The Pallas kernel rounds p = exp(s - m_i)
+// to bf16 before p.V, where m_i is the running max over pages 0..i of the
+// row; a chunk that starts at page j > 0 cannot know that max from its
+// own tokens, and rounding against a chunk's own max is another function.
+// So the row's page maxes are published first:
+// - Work split (both launches): block (bh, c) takes chunk c of whole
+//   pages of one (b, h), chunk_pages pages (paged_attention.py
+//   pages_per_chunk at CHUNK_TOKENS_BF16); the grid is (B*H, ceil(
+//   max_pages / chunk_pages)), fixed by the table's width, so the lengths
+//   stay on the card; a block whose chunk starts at or past its row's
+//   seq_len (clamped to the table's row) exits at once.
+// - Pass 1, scores (paged_bf16_scores_kernel): each live chunk reads its
+//   K rows once, 16 bytes (8 bf16) a lane, G = D / 8 lanes a row (rounded
+//   up to a power of two), 128 / G rows a pass and kInFlight row loads a
+//   thread issued before any is reduced; q.k in f32, reduced over the G
+//   lanes by shuffles, scaled; past seq_len nothing is read.  It writes
+//   its tokens' scores and each of its pages' max (over the tokens below
+//   seq_len) to the workspace.
+// - Pass 2, p.V and the combine (paged_bf16_pv_kernel): each live chunk
+//   reads the page maxes of pages 0..its last, takes the max of those
+//   before it (a block reduction) and each of its pages' running max m_i
+//   by a max scan (warp 0), exactly the m the Pallas grid carries into
+//   page i.  A token's p = exp(s - m_i) is rounded to bf16 for p.V and
+//   taken unrounded for l; both are carried to the chunk's last running
+//   max m_c by the page's weight exp(m_i - m_c) (the twin's page-by-page
+//   rescale acc = acc exp(m - m') + ..., in closed form).  V rows are read
+//   as pass 1 reads K, each thread's f32 accumulator of its 8 dims over
+//   its rows, the row groups' accumulators summed in order at the end.
+// - The combine (the f32 form's): a row with one live chunk writes out =
+//   acc / max(l, 1e-30) rounded to bf16 once.  Otherwise each live chunk
+//   writes (m_c, l, acc[D]) to the workspace and draws its row's ticket
+//   (an acquire-release atomic at device scope); the last combines the
+//   live chunks in chunk order (a rerun gives the same bits), rounds out
+//   to bf16 once and resets the ticket to 0.  Rows with seq_len == 0
+//   write exact zeros.  Out-of-range page ids read page 0.
+// The two launches run in stream order inside one C call: no spin, no
+// host sync.  The scores add 4 B a token and head to the 2 D B of K and V
+// (+1.6% at D 64).  ptxas (sm_90a): 64 registers each, 4 B (scores) and 8
+// B (p.V) spilled, p.V 4,128 B of static shared memory.  At serving's
+// shape 8 pages a chunk and 8 row loads in flight ran fastest (chip_ab.py
+// --paged-chunks, --paged-bf16-variants).
+namespace split16 {
+
+constexpr int kThreads = 128;
+constexpr int kInFlight = 8;   // 16-byte row loads a thread issues first
+// pass 2's static shared memory (the row groups' accumulators, the
+// warps' sums, the ticket's flag) beside the dynamic p and page arrays
+constexpr int kStaticBytes = kThreads * 8 * 4 + 64;
+
+__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h2[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// Row `tok` of one head's pool, at the 8 dims of lane c
+__device__ __forceinline__ const uint4* row8(const __nv_bfloat16* pool,
+                                             const int* pt, size_t head,
+                                             int P, int page_size, int D,
+                                             int tok, int c) {
+  int page = pt[tok / page_size];
+  if ((unsigned)page >= (unsigned)P) page = 0;  // never read out of bounds
+  return reinterpret_cast<const uint4*>(
+      pool + ((head + page) * page_size + tok % page_size) * D + c * 8);
+}
+
+// Dynamic shared memory: the chunk's scores [chunk_pages * page_size]
+__global__ void __launch_bounds__(kThreads)
+paged_bf16_scores_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k_pages,
+                         const int* __restrict__ page_table,
+                         const int* __restrict__ seq_lens,
+                         float* __restrict__ scores,
+                         float* __restrict__ page_max, int H, int P,
+                         int page_size, int D, int max_pages,
+                         int chunk_pages, int G, float scale) {
+  extern __shared__ float s_sm[];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, chunk = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = kThreads / G, r0 = tid / G, c = tid % G;
+  const bool has = c * 8 < D;
+  const int row_tokens = max_pages * page_size;
+  // a length past the table row would read past it: clamp to the row
+  const int seq_len = min(seq_lens[b], row_tokens);
+  const int chunk_tokens = chunk_pages * page_size;
+  const int t0 = chunk * chunk_tokens;
+  if (t0 >= seq_len) return;   // past the row (or an idle row)
+  const int n = min(seq_len - t0, chunk_tokens);
+  const int* pt = page_table + (size_t)b * max_pages;
+  const size_t head = (size_t)h * P;
+
+  float qf[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) qf[e] = 0.f;
+  if (has)
+    unpack8(*reinterpret_cast<const uint4*>(q + (size_t)bh * D + c * 8), qf);
+  // the chunk's scores: kInFlight row loads a thread, then the dots, each
+  // reduced over its row's G lanes (every lane runs every pass)
+  for (int rb = 0; rb < n; rb += R * kInFlight) {
+    uint4 x[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int r = rb + r0 + R * u;
+      x[u] = has && r < n
+                 ? __ldg(row8(k_pages, pt, head, P, page_size, D, t0 + r, c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      float kf[8];
+      unpack8(x[u], kf);
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot = fmaf(qf[e], kf[e], dot);
+      for (int off = G >> 1; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      const int r = rb + r0 + R * u;
+      if (c == 0 && r < n) s_sm[r] = scale * dot;  // the scaled score
+    }
+  }
+  __syncthreads();
+  float* sc = scores + (size_t)bh * row_tokens + t0;
+  for (int i = tid; i < n; i += kThreads) sc[i] = s_sm[i];
+  // each page's max over its tokens below seq_len, a warp a page
+  const int p0 = t0 / page_size, npg = (n + page_size - 1) / page_size;
+  for (int j = warp; j < npg; j += kThreads / 32) {
+    const int end = min(n, (j + 1) * page_size);
+    float mx = kNegInf;
+    for (int i = j * page_size + lane; i < end; i += 32)
+      mx = fmaxf(mx, s_sm[i]);
+    mx = split::warp_max(mx);
+    if (lane == 0) page_max[(size_t)bh * max_pages + p0 + j] = mx;
+  }
+}
+
+// Dynamic shared memory: each token's weight of its V row [chunk_pages *
+// page_size], then each page's running max and weight [chunk_pages] each
+__global__ void __launch_bounds__(kThreads)
+paged_bf16_pv_kernel(const __nv_bfloat16* __restrict__ v_pages,
+                     const int* __restrict__ page_table,
+                     const int* __restrict__ seq_lens,
+                     const float* __restrict__ scores,
+                     const float* __restrict__ page_max,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ part,
+                     unsigned int* __restrict__ tickets, int H, int P,
+                     int page_size, int D, int max_pages, int chunk_pages,
+                     int G) {
+  extern __shared__ float dyn[];
+  __shared__ float acc_sm[kThreads * 8];  // [row group][lane][8]
+  __shared__ float red[kThreads / 32];
+  __shared__ bool last;
+  const int chunk_tokens = chunk_pages * page_size;
+  float* p_sm = dyn;
+  float* m_pg = dyn + chunk_tokens;
+  float* w_pg = m_pg + chunk_pages;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, chunk = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = kThreads / G, r0 = tid / G, c = tid % G;
+  const bool has = c * 8 < D;
+  __nv_bfloat16* o = out + (size_t)bh * D;
+  const int row_tokens = max_pages * page_size;
+  const int seq_len = min(seq_lens[b], row_tokens);
+  if (seq_len <= 0) {
+    if (chunk == 0)
+      for (int d = tid; d < D; d += kThreads) o[d] = __float2bfloat16(0.f);
+    return;
+  }
+  const int n_live = (seq_len + chunk_tokens - 1) / chunk_tokens;
+  if (chunk >= n_live) return;
+  const int t0 = chunk * chunk_tokens;
+  const int n = min(seq_len - t0, chunk_tokens);
+  const int p0 = t0 / page_size, npg = (n + page_size - 1) / page_size;
+  const float* pm = page_max + (size_t)bh * max_pages;
+
+  // the running max the Pallas grid carries into the chunk: the max of
+  // pages 0 .. p0 - 1, a block reduction
+  float mx = kNegInf;
+  for (int j = tid; j < p0; j += kThreads) mx = fmaxf(mx, pm[j]);
+  mx = split::warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    // each page's running max m_i = max(m_{i-1}, the page's max): an
+    // inclusive max scan from the chunk's carry in
+    float carry = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+    for (int j0 = 0; j0 < npg; j0 += 32) {
+      const int j = j0 + lane;
+      float m = j < npg ? pm[p0 + j] : kNegInf;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, m, off);
+        if (lane >= off) m = fmaxf(m, y);
+      }
+      m = fmaxf(m, carry);
+      if (j < npg) m_pg[j] = m;
+      carry = __shfl_sync(0xffffffffu, m, 31);
+    }
+    __syncwarp();
+    // each page's weight: its running max carried to the chunk's last
+    const float m_last = m_pg[npg - 1];
+    for (int j = lane; j < npg; j += 32) w_pg[j] = expf(m_pg[j] - m_last);
+  }
+  __syncthreads();
+  const float m_c = m_pg[npg - 1];
+  // p against its page's running max: unrounded into l, rounded to bf16
+  // for p.V, both carried to m_c by the page's weight
+  const float* sc = scores + (size_t)bh * row_tokens + t0;
+  float ls = 0.f;
+  for (int i = tid; i < n; i += kThreads) {
+    const int j = i / page_size;
+    const float mi = m_pg[j];   // the page's running max
+    const float p = expf(__ldg(sc + i) - mi);
+    p_sm[i] = __bfloat162float(__float2bfloat16(p)) * w_pg[j];
+    ls = fmaf(p, w_pg[j], ls);
+  }
+  ls = split::warp_sum(ls);
+  __syncthreads();   // every warp has read red; p_sm is whole
+  if (lane == 0) red[warp] = ls;
+  __syncthreads();
+  const float l = ((red[0] + red[1]) + red[2]) + red[3];
+
+  // acc += p v over the thread's rows: kInFlight V row loads, then the
+  // products
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+  const int* pt = page_table + (size_t)b * max_pages;
+  const size_t head = (size_t)h * P;
+  for (int rb = 0; rb < n; rb += R * kInFlight) {
+    uint4 x[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int r = rb + r0 + R * u;
+      x[u] = has && r < n
+                 ? __ldg(row8(v_pages, pt, head, P, page_size, D, t0 + r, c))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int r = rb + r0 + R * u;
+      if (r < n) {
+        const float w = p_sm[r];
+        float vf[8];
+        unpack8(x[u], vf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = fmaf(w, vf[e], acc[e]);
+      }
+    }
+  }
+  // the row groups' accumulators, summed in order of the group
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc_sm[tid * 8 + e] = acc[e];
+  __syncthreads();
+  float a = 0.f;
+  if (tid < D)
+    for (int r = 0; r < R; ++r) a += acc_sm[(r * G + tid / 8) * 8 + tid % 8];
+  if (n_live == 1) {  // the row's only chunk: no partials, no ticket
+    if (tid < D) o[tid] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+    return;
+  }
+  const int splits = gridDim.y, stride = D + 2;
+  float* base = part + (size_t)bh * splits * stride;
+  if (tid < D) base[chunk * stride + 2 + tid] = a;
+  if (tid == 0) {
+    base[chunk * stride] = m_c;
+    base[chunk * stride + 1] = l;
+  }
+  // the ticket: releases this chunk's partial, acquires the others' in
+  // the last (the barriers order every writer before, every reader after)
+  __syncthreads();
+  if (tid == 0) {
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(
+        tickets[bh]);
+    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) ==
+           (unsigned)(n_live - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  // the combine: the live chunks in chunk order, out rounded once
+  float top = kNegInf;
+  for (int cc = 0; cc < n_live; ++cc)
+    top = fmaxf(top, __ldcg(base + cc * stride));
+  float lsum = 0.f, asum = 0.f;
+  for (int cc = 0; cc < n_live; ++cc) {
+    const float* pc = base + cc * stride;
+    const float w = expf(__ldcg(pc) - top);   // the chunk's correction
+    lsum += __ldcg(pc + 1) * w;
+    if (tid < D) asum += __ldcg(pc + 2 + tid) * w;
+  }
+  if (tid < D) o[tid] = __float2bfloat16(asum / fmaxf(lsum, 1e-30f));
+  if (tid == 0) tickets[bh] = 0u;  // the row's ticket, ready again
+}
+
+}  // namespace split16
+
 }  // namespace
 
+// q [B, H, D], pools [H, P, page_size, D], out [B, H, D] bf16 (D % 8 ==
+// 0, q and the pools 16-byte aligned); the table and lengths int32; ws at
+// least B*H*(max_pages*page_size + max_pages + ceil(max_pages /
+// chunk_pages) * (D + 2)) floats (the scores, the page maxes, the
+// partials); tickets B*H counters, all 0 (and 0 again after the call).
+// Two launches in stream order: the scores, then p.V and the combine.
 extern "C" int paged_attention_bf16(const void* q, const void* k_pages,
                                     const void* v_pages,
                                     const int* page_table, const int* seq_lens,
-                                    void* out, int B, int H, int P,
-                                    int page_size, int D, int max_pages,
+                                    void* out, float* ws,
+                                    unsigned int* tickets, int B, int H,
+                                    int P, int page_size, int D,
+                                    int max_pages, int chunk_pages,
                                     float scale, void* stream) {
-  if (B <= 0 || H <= 0 || D <= 0 || D > 128 || D % 8 || page_size <= 0)
+  if (B <= 0 || H <= 0 || D <= 0 || D > 128 || D % 8 || page_size <= 0 ||
+      max_pages < 0 || chunk_pages <= 0 || (long long)B * H > INT_MAX ||
+      (long long)max_pages * page_size > INT_MAX ||
+      (long long)chunk_pages * page_size > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  int group = 1;
-  while (group * 8 < D) group <<= 1;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)page_size + (kBf16Threads / group) * D);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  paged_bf16_kernel<<<B * H, kBf16Threads, smem,
-                             (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages), page_table, seq_lens,
-      static_cast<__nv_bfloat16*>(out), H, P, page_size, D, max_pages, group,
-      scale);
+  using namespace split16;
+  const size_t chunk_tokens = (size_t)chunk_pages * page_size;
+  const size_t smem1 = sizeof(float) * chunk_tokens;
+  const size_t smem2 = sizeof(float) * (chunk_tokens + 2 * (size_t)chunk_pages);
+  if (smem2 + kStaticBytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  int G = 1;
+  while (8 * G < D) G <<= 1;  // lanes a row: 8 bf16 a lane
+  const int splits =
+      max_pages > 0 ? (max_pages + chunk_pages - 1) / chunk_pages : 1;
+  const dim3 grid(B * H, splits);
+  const size_t bh = (size_t)B * H;
+  float* scores = ws;
+  float* page_max = scores + bh * max_pages * page_size;
+  float* part = page_max + bh * max_pages;
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k_pages);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v_pages);
+  cudaStream_t s = (cudaStream_t)stream;
+  paged_bf16_scores_kernel<<<grid, kThreads, smem1, s>>>(
+      qb, kb, page_table, seq_lens, scores, page_max, H, P, page_size, D,
+      max_pages, chunk_pages, G, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_bf16_pv_kernel<<<grid, kThreads, smem2, s>>>(
+      vb, page_table, seq_lens, scores, page_max,
+      static_cast<__nv_bfloat16*>(out), part, tickets, H, P, page_size, D,
+      max_pages, chunk_pages, G);
   return (int)cudaGetLastError();
 }
 

@@ -544,6 +544,13 @@ def _fi_fwd_kernel_bf16(x, mask, w_x, b, w_h, peep, h0, c0, reverse,
     return hs, cs, gates, h_t, c_t
 
 
+def _part_floats(blocks, d, b):
+    """The f32 backward's scratch: each block's share of dh_{t-1}, two
+    buffers by step parity, the rows padded to a multiple of 4 for the
+    sum's 16-byte loads."""
+    return 2 * blocks * d * (-(-b // 4) * 4)
+
+
 def _bwd_kernel(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
                 reverse, remat):
     """The backward kernel of W_h's dtype (the contract of
@@ -560,8 +567,7 @@ def _bwd_kernel(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
     dgates = torch.empty(b, t, 4 * d, device=hs.device)
     dh, dc = torch.empty_like(dhT), torch.empty_like(dcT)
     dpeep = torch.empty_like(peep)
-    # each block's share of dh_{t-1}, two buffers by step parity
-    part = torch.empty(2 * wpack.shape[0] * d * b, device=hs.device)
+    part = torch.empty(_part_floats(wpack.shape[0], d, b), device=hs.device)
     KERNEL_BWD.launch_on(
         mask.device.index, _ptr(xw if remat else None),
         _ptr(None if remat else gates), mask.data_ptr(), wpack.data_ptr(),

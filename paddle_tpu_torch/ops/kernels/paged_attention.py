@@ -26,13 +26,18 @@ The twin runs the Pallas kernel's page loop (an online softmax page by
 page, p rounded to the pools' dtype against the running max), so the
 card and the twin round at the same points.
 
-The f32 kernel splits each (b, h) over chunks of whole pages, one block a
-chunk, and combines them in the same launch (``csrc/paged_attention.cu``,
-``split``).  Its plan is host code (:func:`pages_per_chunk`,
-:func:`splits`, :func:`workspace_floats`, :func:`live_chunks`): the grid
-follows the table's width, never the lengths, so a call makes no host
-sync.  The chunks' partials and the combine's tickets are kept per
-(device, stream) (``_kept``) and grown when a larger call comes."""
+Both kernels split each (b, h) over chunks of whole pages, one block a
+chunk.  The f32 kernel combines them in the same launch
+(``csrc/paged_attention.cu``, ``split``); the bf16 kernel takes two
+launches in one C call (``split16``): the scores and each page's max
+first, so that a chunk rounds p against the running max of each of its
+pages as the Pallas grid does, then p.V and the same combine.  Their plan
+is host code (:func:`pages_per_chunk`, :func:`splits`,
+:func:`workspace_floats`, :func:`live_chunks`, each by the dtype's chunk,
+:func:`chunk_tokens`): the grid follows the table's width, never the
+lengths, so a call makes no host sync.  The workspace (the bf16 scores
+and page maxes, the chunks' partials) and the combine's tickets are kept
+per (device, stream) (``_kept``) and grown when a larger call comes."""
 
 from __future__ import annotations
 
@@ -48,24 +53,29 @@ from paddle_tpu_torch.ops.kernels._kept import keep
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# q, k_pages, v_pages, page_table, seq_lens, out | B, H, P, page_size, D,
-# max_pages, scale, stream
-_ARGS = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _P]
-# the same, with the workspace and the tickets after out and the pages a
-# chunk after max_pages
+# q, k_pages, v_pages, page_table, seq_lens, out, workspace, tickets | B,
+# H, P, page_size, D, max_pages, pages a chunk, scale, stream
 _SPLIT_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]
 KERNEL = Kernel("paged_attention", "paged_attention_f32", _SPLIT_ARGS)
-KERNEL_BF16 = Kernel("paged_attention", "paged_attention_bf16", _ARGS)
+#: one call, two launches (the scores, then p.V and the combine)
+KERNEL_BF16 = Kernel("paged_attention", "paged_attention_bf16", _SPLIT_ARGS)
 #: {dtype: kernel form}
 FORMS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
-#: the bf16 kernel keeps a page's scores and probabilities in shared memory
-MAX_PAGE_SIZE_BF16 = 4096
+#: the largest page the bf16 kernel takes: the largest power of two for
+#: which the second launch's shared memory (a chunk's p and its pages'
+#: running max and weight, beside ``split16``'s ``kStaticBytes``) fits the
+#: 48 KB a launch takes without opting in; the C entry checks the same sum
+MAX_PAGE_SIZE_BF16 = 8192
 #: the f32 kernel's chunk: the whole pages this many tokens hold (at
 #: serving's page of 16, 8 pages: 5 chunks over its 36-page rows, 1,920
 #: blocks of which ~940 live, ~7 a streaming multiprocessor of the H100's
 #: 132, each with 4 row loads a thread in flight; 4 pages ran 6% slower
 #: alone, 2 pages 25%, 16 pages 34%: ``chip_ab.py --paged-chunks``)
 CHUNK_TOKENS = 128
+#: the bf16 kernel's chunk: 8 pages of 16 too (5 chunks a 36-page row);
+#: 16 pages (the f32 chunk's bytes) ran 7% slower alone, 4 pages 32%, 32
+#: pages 40% (``chip_ab.py --paged-chunks``)
+CHUNK_TOKENS_BF16 = 128
 
 
 # -- cache layout helpers ------------------------------------------------------
@@ -114,35 +124,48 @@ def write_prefill_kv(k_pages, v_pages, ks, vs, page_table, seq_lens):
     return k_pages, v_pages
 
 
-# -- the f32 kernel's plan ------------------------------------------------------
+# -- the kernels' plan -----------------------------------------------------------
 
 
-def pages_per_chunk(page_size: int) -> int:
-    """Pages a block of the f32 kernel takes: the most whole pages that
-    :data:`CHUNK_TOKENS` tokens hold, one where a page holds more."""
-    return max(1, CHUNK_TOKENS // page_size)
+def chunk_tokens(dtype=torch.float32) -> int:
+    """The tokens a chunk of the kernel of ``dtype`` holds at most:
+    :data:`CHUNK_TOKENS` (f32) or :data:`CHUNK_TOKENS_BF16`."""
+    return CHUNK_TOKENS_BF16 if dtype == torch.bfloat16 else CHUNK_TOKENS
 
 
-def splits(max_pages: int, page_size: int) -> int:
+def pages_per_chunk(page_size: int, dtype=torch.float32) -> int:
+    """Pages a block of the kernel of ``dtype`` takes: the most whole
+    pages that :func:`chunk_tokens` tokens hold, one where a page holds
+    more."""
+    return max(1, chunk_tokens(dtype) // page_size)
+
+
+def splits(max_pages: int, page_size: int, dtype=torch.float32) -> int:
     """Chunks a (b, h) row is split into: the grid's second dimension,
     from the table's width alone (at least 1)."""
-    return max(1, -(-max_pages // pages_per_chunk(page_size)))
+    return max(1, -(-max_pages // pages_per_chunk(page_size, dtype)))
 
 
 def workspace_floats(b: int, h: int, max_pages: int, page_size: int,
-                     d: int) -> int:
-    """Floats of the chunks' partials: (m, l, acc[D]) for every chunk of
-    every (b, h)."""
-    return b * h * splits(max_pages, page_size) * (d + 2)
+                     d: int, dtype=torch.float32) -> int:
+    """Floats of the workspace: the chunks' partials, (m, l, acc[D]) for
+    every chunk of every (b, h); the bf16 kernel's also every (b, h)'s
+    scores (a token of the table's row each) and page maxes before
+    them."""
+    n = b * h * splits(max_pages, page_size, dtype) * (d + 2)
+    if dtype == torch.bfloat16:
+        n += b * h * max_pages * (page_size + 1)
+    return n
 
 
-def live_chunks(seq_len: int, max_pages: int, page_size: int) -> int:
+def live_chunks(seq_len: int, max_pages: int, page_size: int,
+                dtype=torch.float32) -> int:
     """Chunks of a row of this length that read tokens (the others exit at
     once), the length clamped to the table's row as the kernel does; a
     row with one writes its output itself, a row with none writes
     zeros."""
     n = min(max(seq_len, 0), max_pages * page_size)
-    return -(-n // (pages_per_chunk(page_size) * page_size))
+    return -(-n // (pages_per_chunk(page_size, dtype) * page_size))
 
 
 # -- the plain version ---------------------------------------------------------
@@ -261,16 +284,13 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr())
-    if kernel is KERNEL:
-        stream = torch._C._cuda_getCurrentRawStream(q.device.index)
-        kept = keep(q.device, stream, workspace_floats(b, h, maxp, ps, d),
-                    b * h)
-        kernel.launch_on(q.device.index, *ptrs, kept.part_ptr,
-                         kept.tickets_ptr, b, h, p, ps, d, maxp,
-                         pages_per_chunk(ps), float(scale))
-    else:
-        kernel.launch_on(q.device.index, *ptrs, b, h, p, ps, d, maxp,
-                         float(scale))
+    dt = q.dtype
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    kept = keep(q.device, stream, workspace_floats(b, h, maxp, ps, d, dt),
+                b * h)
+    kernel.launch_on(q.device.index, q.data_ptr(), k_pages.data_ptr(),
+                     v_pages.data_ptr(), page_table.data_ptr(),
+                     seq_lens.data_ptr(), out.data_ptr(), kept.part_ptr,
+                     kept.tickets_ptr, b, h, p, ps, d, maxp,
+                     pages_per_chunk(ps, dt), float(scale))
     return out

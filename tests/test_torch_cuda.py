@@ -3667,6 +3667,87 @@ def test_paged_f32_split_kernel_matches_its_twin(cuda, d, ps):
     assert torch.equal(out, again)
 
 
+PAGED_BF16_CASES = [(d, ps) for d in (16, 32, 64, 128) for ps in (4, 16, 64)]
+
+
+@pytest.mark.parametrize("d,ps", PAGED_BF16_CASES)
+def test_paged_bf16_split_kernel_matches_its_twin(cuda, d, ps):
+    """The bf16 form split over chunks (two launches a call) at page sizes
+    4/16/64 and head_dim 16/32/64/128, lengths 0, 1, 16, 17, 100 and rows
+    over two and three chunks (the table's width), the last row's first
+    token the largest score of its row (every later page rounds p against
+    it), one row's table entries past the pool (read as page 0):
+    ``paged_bf16_agreement`` against the twin fed the same ids mapped to
+    0 (a rerun in the same bits, idle rows exact zeros), one count a call
+    on the bf16 form and none on the f32 one."""
+    import chip_smoke as S
+
+    rng = np.random.default_rng(d * 11 + ps)
+    maxp = -(-600 // ps)
+    lens = [0, 1, 16, 17, maxp * ps, 0, 100, 300, maxp * ps]
+    q, kp, vp, table, seq = _paged(rng, lens, 3, d, ps, maxp, cuda)
+    row = len(lens) - 1
+    for hh in range(3):
+        qv = q[row, hh]
+        kp[hh, table[row, 0], 0] = qv * (6.0 / (d ** -0.5 * qv @ qv))
+    q, kp, vp = (x.to(torch.bfloat16) for x in (q, kp, vp))
+    table[6, -1] = kp.shape[1] + 5       # out of range, past seq_len 100
+    table[7, 2] = kp.shape[1] + 7        # out of range, read: page 0
+    mapped = torch.where(table < kp.shape[1], table, 0)
+    before = PA.KERNEL.launches, PA.KERNEL_BF16.launches
+    a = S.paged_bf16_agreement(q, kp, vp, mapped, seq)
+    assert (PA.KERNEL.launches, PA.KERNEL_BF16.launches) == (
+        before[0], before[1] + 2)
+    assert a["agrees"], a
+    out = PA.ragged_paged_attention(q, kp, vp, table, seq)
+    want = PA.ragged_paged_attention_reference(q, kp, vp, mapped, seq)
+    mag = PA.ragged_paged_attention_reference(
+        q.float(), kp.float(), vp.float().abs(), mapped, seq)
+    assert S.bf16_agrees(out, want, mag, coef=S.FLASH_BF16_FLIP), \
+        S.bf16_agreement(out, want, mag, coef=S.FLASH_BF16_FLIP)
+
+
+def test_paged_bf16_on_two_streams_back_to_back(cuda):
+    """The bf16 form on two streams, back to back, each with its own kept
+    workspace and tickets: each output equals the call on the default
+    stream in bits."""
+    rng = np.random.default_rng(23)
+    ins = []
+    for _ in range(2):
+        q, kp, vp, table, seq = _paged(rng, [0, 300, 77, 576], 4, 64, 16,
+                                       36, cuda)
+        ins.append((*(x.to(torch.bfloat16) for x in (q, kp, vp)), table,
+                    seq))
+    want = [PA.ragged_paged_attention(*x) for x in ins]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for s, x in zip(streams, ins):
+        with torch.cuda.stream(s):
+            got.append(PA.ragged_paged_attention(*x))
+    torch.cuda.synchronize()
+    for x, w in zip(got, want):
+        assert torch.equal(x.view(torch.int16), w.view(torch.int16))
+
+
+def test_paged_bf16_makes_no_host_sync(cuda):
+    """The bf16 wrapper keeps the lengths on the card too: a call (after
+    the kept workspace exists) runs under ``set_sync_debug_mode("error")``
+    and repeats the first call's bits."""
+    rng = np.random.default_rng(24)
+    q, kp, vp, table, seq = _paged(rng, [5, 300, 0, 576], 4, 64, 16, 36,
+                                   cuda)
+    x = (*(t.to(torch.bfloat16) for t in (q, kp, vp)), table, seq)
+    want = PA.ragged_paged_attention(*x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = PA.ragged_paged_attention(*x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 def test_paged_f32_on_two_streams_back_to_back(cuda):
     """Two launches on two streams, back to back, each with its own kept
     partials and tickets: each output equals the one call on the default
