@@ -2,24 +2,24 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B times, in each tree, the wrapper calls ``CALLS`` names (the bf16
-paged decode at serving's shape; the f32 LSTM backward with remat at the
-text shape), then runs its own ``chip_smoke.train_text`` (the f32 text
-classifier: its witness step, 10 timed steps at batch 64, a 3-step
-profile) and the bf16 serving decode step (``SERVE_DECODE``: 32 live
-slots of phase 3's requests on phase 17's bf16 engine, 20 steps after 3
-of warm-up), each tree in a process of its own that builds that tree's
-kernels, in the order given.  Host-bound phases vary up to 2x between machines, so
-two versions are compared only within one run of this script, in
-turns:
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (the f32
+LSTM forward and backward with remat at the text shape; row 6's
+fused-input forward and the unfused route at ``RAW_RNN``'s LSTM shape),
+then runs its own ``chip_smoke.train_text`` (the f32 text classifier: its
+witness step, 10 timed steps at batch 64, a 3-step profile) and phase
+12's f32 ``ops.rnn.lstm`` step fused and unfused (``RAW_LSTM_STEP``:
+blocks of 10 steps, fused, unfused, unfused, fused), each tree in a
+process of its own that builds that tree's kernels, in the order given.
+Host-bound phases vary up to 2x between machines, so two versions are
+compared only within one run of this script, in turns:
 
     python3 chip_ab.py [--out DIR] [--calls] build/parent . . build/parent
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, each call's event ms with the L2 flushed,
-host ms and device ms alone with its kernels' names, and the steps'
-text step's rate, step p50, idle share and device ms by class, the bf16
-decode step's ms) and
+host ms and device ms alone with its kernels' names, the text step's
+rate, step p50, idle share and device ms by class, the ``ops.rnn.lstm``
+step's p50 by route) and
 writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).  ``--calls`` times the wrapper calls alone, without the
 training steps.
@@ -83,6 +83,16 @@ chunk 1, 2, 4, 8, 16 at page 16), in turns, each checked against the
 twin first, alone and with the L2 flushed; then the bf16 form with each
 of ``PAGED_CHUNK_TOKENS_BF16`` as ``CHUNK_TOKENS_BF16`` (pages a chunk 4,
 8, 16, 32), each checked by ``paged_bf16_agreement`` first.
+
+    python3 chip_ab.py --lstm-fwd-split [TREE]
+
+times the f32 LSTM forward built from TREE's source (default this one),
+through this tree's wrappers, at the text shape over xw and at row 6's in
+its fused-input form, as that source is and as each of
+``LSTM_FWD_SPLIT`` whose lines it has (copies without a part of the
+step: the h W_h product, the x_t W_x product, the grid barrier, the cell
+with its stores), in turns, alone and with the L2 flushed: each part's
+share of the step.
 
     python3 chip_ab.py --lstm-bwd-split [TREE]
 
@@ -171,58 +181,57 @@ torch.cuda.empty_cache()
 text = C.train_text(dev)[0]
 torch.cuda.empty_cache()
 print(json.dumps({"calls": calls, "train_text": text,
-                  "serve_decode_bf16": SERVE_DECODE(dev, C)}))
+                  "raw_lstm_step": RAW_LSTM_STEP(dev, C)}))
 """
 
-#: the bf16 serving decode step, timed the same way in either tree: phase
-#: 17's bf16 engine (LM_FULL, the f32 weights rounded once, 32 slots, page
-#: 16) with 32 requests admitted and prefilled, 3 steps of warm-up, then
-#: 20 ``step()`` calls (each ends on the host with its tokens), each on the
-#: host's clock
-SERVE_DECODE = r"""
-def SERVE_DECODE(dev, C):
-    from paddle_tpu_torch.core.dtype import cast_floats
-    from paddle_tpu_torch.models import transformer as T
-    from paddle_tpu_torch.serving import ServingEngine
-    from paddle_tpu_torch.telemetry import MetricsRegistry
+#: phase 12's f32 ``ops.rnn.lstm`` step (``RAW_RNN``'s LSTM: B 64, T 100, E
+#: 128, D 512, the forward direction), timed the same way in either tree:
+#: the forward and backward against a fixed cotangent
+#: (``raw_rnn_grads``), each step on the host's clock ending in a sync, 3
+#: of warm-up, then blocks of 10 by route (fused, unfused, unfused, fused;
+#: unfused: ``fused_input_on`` off, the projection product and row 5's
+#: forward)
+RAW_LSTM_STEP = r"""
+def RAW_LSTM_STEP(dev, C, steps=10):
+    from paddle_tpu_torch.ops import rnn as R
 
-    cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.float32, remat=False,
-                              attn_impl="flash")
-    params = cast_floats(T.init_params(cfg, torch.Generator().manual_seed(0),
-                                       dev), torch.bfloat16)
-    scfg, prompts, _ = C.serve_workload(cfg)
-    cfg = T.TransformerConfig(**C.LM_FULL, dtype=torch.bfloat16,
-                              remat=False, attn_impl="flash")
-    eng = ServingEngine(cfg, params, scfg, registry=MetricsRegistry("ab"),
-                        device=dev)
-    for p in prompts[:scfg.max_slots]:
-        eng.submit(p)
-    eng.step()
-    while eng.scheduler.queue:
-        eng.step()
-    for _ in range(3):
-        eng.step()
-    torch.cuda.synchronize()
-    ms = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        eng.step()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return {"step_ms_p50": float(np.median(ms)),
-            "step_ms_mean": float(np.mean(ms))}
+    _, b, t, e, d = C.RAW_RNN[0]
+    x, lens, w, init, cts = C.raw_rnn_inputs(dev, "lstm", b, t, e, d)
+
+    def block(n):
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            C.raw_rnn_grads(C.raw_rnn_call, "lstm", x, lens, w, init, cts,
+                            False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    block(3)
+    on = R.fused_input_on
+    ms = {"fused": [], "unfused": []}
+    for route in ("fused", "unfused", "unfused", "fused"):
+        R.fused_input_on = on if route == "fused" else (lambda device: False)
+        try:
+            ms[route] += block(steps)
+        finally:
+            R.fused_input_on = on
+    return {f"{k}_step_ms_p50": float(np.median(v)) for k, v in ms.items()}
 """
 
 #: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
 #: way in either tree (each tree's own wrappers): the CUDA-event ms with the
 #: L2 flushed, the host's median ms a call without a sync, and the device
 #: ms of the call's kernels alone (a trace, summed over its kernels): the
-#: bf16 paged decode at serving's shape (``paged_inputs`` in bf16), and
-#: the f32 LSTM backward with remat at the text shape (B 64, T 128, D 1280,
-#: lengths 100; ``check_text_kernels``' inputs, the forward's hs and cs)
+#: f32 LSTM forward and backward (remat) at the text shape (B 64, T 128, D
+#: 1280, lengths 100; ``check_text_kernels``' inputs, the forward's hs and
+#: cs), and row 6's fused-input forward and the unfused route (the
+#: projection product and row 5's forward) at ``RAW_RNN``'s LSTM shape,
+#: the forward direction
 CALLS = r"""
 def CALLS(dev, C):
     from paddle_tpu_torch.ops.kernels import lstm as LK
-    from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
     timer = C.Timer(dev)
 
@@ -262,11 +271,6 @@ def CALLS(dev, C):
                 "alone_ms": ms, "kernels": names}
 
     out = {}
-    qd, kp, vp, pt, sl, _ = C.paged_inputs(dev)
-    qd, kp, vp = (x.to(torch.bfloat16) for x in (qd, kp, vp))
-    out["paged_bf16"] = all3(lambda: PA.ragged_paged_attention(qd, kp, vp,
-                                                               pt, sl))
-    del qd, kp, vp
     gen = torch.Generator(device=dev).manual_seed(7)
     b, t, d = 64, 128, 1280
     mask = (torch.arange(t, device=dev)[None, :] < 100).float().expand(
@@ -276,10 +280,22 @@ def CALLS(dev, C):
     peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
     h0 = c0 = dh_t = dc_t = torch.zeros(b, d, device=dev)
     dhs = torch.randn(b, t, d, generator=gen, device=dev)
+    out["lstm_fwd_f32"] = all3(lambda: LK._fwd_kernel(
+        xw, mask, w_h, peep, h0, c0, False, False), iters=5)
     hs, cs = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, False)[:2]
     out["lstm_bwd_f32"] = all3(lambda: LK._bwd_kernel(
         xw, None, mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, False,
         True), iters=5)
+    del xw, w_h, dhs, hs, cs
+    _, b, t, e, d = C.RAW_RNN[0]
+    x, lens, w, init, _ = C.raw_rnn_inputs(dev, "lstm", b, t, e, d)
+    m6 = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    rec = (w["w_h"], torch.zeros(3, d, device=dev))
+    out["lstm_fi_fwd_f32"] = all3(lambda: LK._fi_fwd_kernel(
+        x, m6, w["w_x"], w["b"], *rec, *init, False, False), iters=10)
+    out["lstm_fi_unfused_f32"] = all3(lambda: LK._fwd_kernel(
+        LK._project_xw(x, w["w_x"], w["b"]), m6, *rec, *init, False,
+        False), iters=10)
     return out
 """
 
@@ -295,7 +311,7 @@ def summary(tree: str, out: dict, seconds: float) -> dict:
             "text_idle_share_vs_step_p50": prof.get("idle_share_vs_step_p50"),
             "text_device_ms_per_step_by_class": prof.get(
                 "by_class_ms_per_step"),
-            "serve_decode_bf16": out.get("serve_decode_bf16")}
+            "raw_lstm_step": out.get("raw_lstm_step")}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -1250,16 +1266,190 @@ LSTM_BWD_SPLIT = {
         "partials summed, four\n", "    // (B) dh_{t-1} of the own units: "
         "the blocks' partials summed, four\n")]}
 
+#: builds of a tree's ``csrc/lstm_seq.cu`` that ``--lstm-fwd-split`` times
+#: beside that tree's source, each dropping one part of the f32 forward's
+#: step, to give each part its share (their results are wrong and not
+#: checked): the h_{t-1} W_h product, the fused-input form's x_t W_x
+#: product, the grid barrier, the cell with its stores (the product kept
+#: by a test no value passes).  A tree takes the variants whose lines its
+#: source has: the products' calls of the FMA form (the tree before the
+#: product moved to the tensor cores, ``git show 8ba8484``) or of the
+#: 3xTF32 form (``_tf32``, ``_3xtf32``); the cell is the same in both
+LSTM_FWD_SPLIT = {
+    "no_h_product": [(
+        "      gemm_gates<S>(a, s == 0 ? D : TD, rows, D, w_s, U, uu, rg, "
+        "half, a_s,\n                    fin);",
+        "      for (int i = 0; i < 2; ++i)\n"
+        "        for (int g = 0; g < 4; ++g) fin[i][g] = 0.f * a[0];")],
+    "no_x_product": [(
+        "        gemm_gates<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, "
+        "U,\n                      uu, rg, half, a_s, px);",
+        "        for (int i = 0; i < 2; ++i)\n"
+        "          for (int g = 0; g < 4; ++g) px[i][g] = 0.f * in[0];")],
+    "no_h_product_tf32": [(
+        "      gemm_gates<S, true>(a, s == 0 ? D : TD, rows, D, w_s, U, uu, rg, "
+        "half,\n                          a_s, fin);",
+        "      for (int i = 0; i < 2; ++i)\n"
+        "        for (int g = 0; g < 4; ++g) fin[i][g] = 0.f * a[0];")],
+    "no_x_product_tf32": [(
+        "        gemm_gates<S, true>(in + b0 * TE + (size_t)t * E, TE, rows, E, "
+        "wx_s,\n                            U, uu, rg, half, a_s, px);",
+        "        for (int i = 0; i < 2; ++i)\n"
+        "          for (int g = 0; g < 4; ++g) px[i][g] = 0.f * in[0];")],
+    "no_grid_barrier": [(
+        "    grid.sync();\n  }\n}\n\ntemplate <bool kRemat, int S>",
+        "  }\n}\n\ntemplate <bool kRemat, int S>")],
+    "no_grid_barrier_3xtf32": [(
+        "    grid.sync();\n  }\n}\n\n// kThreads: the block's bound",
+        "  }\n}\n\n// kThreads: the block's bound")],
+    "no_cell": [(
+        "        if (!live || r >= rows) continue;\n        const int b = b0 + r;"
+        "\n        const Gates q = cell(x[i][0], x[i][1], x[i][2], x[i][3], "
+        "fin[i][0],",
+        "        if (!live || r >= rows || fin[i][0] != -1.2345e-38f) continue;"
+        "\n        const int b = b0 + r;\n        const Gates q = cell(x[i][0], "
+        "x[i][1], x[i][2], x[i][3], fin[i][0],")]}
+
+
+#: the product's ring step (the GRU's header has its first lines too)
+_RING = ("    cp_async_wait<S - 2>();\n    __syncthreads();\n"
+         "    const int cn = c + S - 1;\n")
+_RING_TAIL = ("    if (cn < nc) load_chunk(a_s + (cn % S) * kStage, a, lda, rows, "
+              "K, cn);\n    cp_async_commit();\n    stage(c, a_s + (c % S) * "
+              "kStage);")
+
+#: builds of ``csrc/lstm_seq.cu`` that ``--lstm-fwd-variants`` times beside
+#: the source's f32 forward (timing probes, results unchecked): the column
+#: walk at every U (the source: from U 7), the ring's wait made
+#: one chunk short (compute on the stage as it is), the wait and the chunk
+#: barrier both dropped, two stages in place of three
+LSTM_FWD_VARIANTS = {
+    "columns_from_1": [("constexpr int kColumnsFrom = 7;",
+                        "constexpr int kColumnsFrom = 1;")],
+    "no_load_wait": [(_RING + _RING_TAIL, _RING.replace(
+        "<S - 2>", "<S - 1>") + _RING_TAIL)],
+    "no_wait_no_sync": [(_RING + _RING_TAIL,
+                         _RING.split("\n", 2)[2] + _RING_TAIL)],
+    "two_stages": [("  for (int s = 3; s >= 2; --s)\n    if (sizeof(float) * "
+                    "(size_t)Plan(K, U, s)", "  for (int s = 2; s >= 2; --s)\n"
+                    "    if (sizeof(float) * (size_t)Plan(K, U, s)")]}
+
+
+def lstm_fwd_times(edits: dict, tree: str = ".") -> dict:
+    """The f32 LSTM forward built from ``tree``'s source (a checkout whose
+    C entries take this tree's arguments: default this one), through this
+    tree's wrappers, as that source is and as each of ``edits`` whose
+    lines it has, in turns (:func:`time_turns`), each timed alone (a
+    trace, no flush) and with the L2 flushed: over xw at the text shape
+    (B 64, T 128, D 1280, lengths 100; ``check_text_kernels``' inputs;
+    a variant named ``no_x_product...`` has no part there) and in its
+    fused-input form at row 6's (``RAW_RNN``'s LSTM: B 64, T 100, E 128,
+    D 512, the forward direction).  The source is checked against the
+    twin (TOL x max(1, |ref|)) first.  Returns {shape: {"turns": the
+    rows, "mean": each build's mean, "shares_ms": the source's mean less
+    each variant's}}."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    dev = resolve_device(None)
+    csrc = os.path.join(tree, "paddle_tpu_torch", "ops", "kernels", "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read()
+                   for f in sorted(os.listdir(csrc))
+                   if f == "lstm_seq.cu" or f.endswith(".cuh"))
+    edits = {"source": [], **{n: e for n, e in edits.items()
+                              if all(line in text for line, _ in e)}}
+    builds = C.source_fault_builds("lstm_seq", edits, csrc=csrc,
+                                   prefix=f"fwd_{abs(hash(tree))}_")
+    entries = {n: C.planted_all(*b, [LK.KERNEL_FWD, LK.KERNEL_FI])
+               for n, b in builds.items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d = 64, 128, 1280
+    mask = (torch.arange(t, device=dev)[None, :] < 100).float().expand(
+        b, t).contiguous()
+    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
+    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
+    h0 = c0 = torch.zeros(b, d, device=dev)
+    text_args = (xw, mask, w_h, peep, h0, c0, False, False)
+    _, rb, rt, re, rd = C.RAW_RNN[0]
+    x, lens, w, init, _ = C.raw_rnn_inputs(dev, "lstm", rb, rt, re, rd)
+    fi_mask = (torch.arange(rt, device=dev)[None, :]
+               < lens[:, None]).float()
+    fi_args = (x, fi_mask, w["w_x"], w["b"], w["w_h"],
+               torch.zeros(3, rd, device=dev), *init, False, False)
+    timer = C.Timer(dev)
+    shapes = {"text": (LK.KERNEL_FWD, 0, lambda: LK._fwd_kernel(*text_args),
+                       LK._fwd_plain(*text_args), "lstm_fwd_kernel<false"),
+              "row6": (LK.KERNEL_FI, 1, lambda: LK._fi_fwd_kernel(*fi_args),
+                       LK._fi_fwd_plain(*fi_args), "lstm_fwd_kernel<true")}
+    print(C.nvidia_smi(), flush=True)
+    out = {}
+    for shape, (kern, which, call, want, key) in shapes.items():
+        def run(name, fn, kern=kern, call=call, want=want, key=key):
+            kern._fn = fn
+            got = call()
+            if name == "source":
+                for g, ref in zip(got, want):
+                    if g is None:
+                        continue
+                    err = (g - ref).abs().max().item()
+                    if not err <= C.TOL * max(1.0, ref.abs().max().item()):
+                        raise AssertionError(f"{tree} {shape}: vs plain "
+                                             f"{err}")
+            return {"alone_ms": C.device_ms([call], key), "ms": timer(call)}
+
+        fns = {n: e[which] for n, e in entries.items()
+               if not (shape == "text" and n.startswith("no_x_product"))}
+        saved = kern._fn
+        try:
+            turns = time_turns(fns, run)
+        finally:
+            kern._fn = saved
+        by = {}
+        for k, row in turns.items():
+            by.setdefault(k.split(" ", 2)[2], []).append(row)
+        mean = {n: {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+                for n, rows in by.items()}
+        out[shape] = {"turns": turns, "mean": mean, "shares_ms": {
+            n: {k: mean["source"][k] - mean[n][k] for k in mean[n]}
+            for n in mean if n != "source"}}
+    return out
+
+
+def lstm_fwd_split(tree: str) -> int:
+    """:func:`lstm_fwd_times` of ``tree``'s source and LSTM_FWD_SPLIT (the
+    variants unchecked); one JSON line with each part's share."""
+    print(json.dumps({"lstm_fwd_split": lstm_fwd_times(LSTM_FWD_SPLIT, tree),
+                      "steps": {"text": 128, "row6": 100}}),
+          flush=True)
+    return 0
+
+
+def lstm_fwd_variants() -> int:
+    """:func:`lstm_fwd_times` of this tree's source and LSTM_FWD_VARIANTS
+    (timing probes, unchecked); one JSON line."""
+    print(json.dumps({"lstm_fwd_variants": lstm_fwd_times(
+        LSTM_FWD_VARIANTS)}), flush=True)
+    return 0
+
+
 #: builds of ``csrc/lstm_seq.cu`` that ``--lstm-bwd-variants`` times beside
 #: the source's f32 backward: the dh product's k tiles a warp takes at once
 #: (the source: 8), the (B) sum in one range of blocks (the source: two at
-#: the text shape), and twice the partials' loads a thread issues before
-#: it adds them (the source: 8)
+#: the text shape), twice the partials' loads a thread issues before it
+#: adds them (the source: 8), and the remat form at 128 registers a
+#: thread (the source: 204 where U <= 10)
 LSTM_BWD_VARIANTS = {
     **{f"k_tiles_{n}": [("constexpr int kTilesK = 8;",
                          f"constexpr int kTilesK = {n};")] for n in (2, 4)},
     "one_range": [("    const int groups = 2 * nq <= (int)blockDim.x\n",
                    "    const int groups = false\n")],
+    "remat_512_bound": [("  if (remat && n <= kNarrow)",
+                         "  if (remat && n <= 0)")],
     "unroll_16": [(
         "#pragma unroll 8\n        for (int k = grp * span; k < k1; ++k) {",
         "#pragma unroll 16\n        for (int k = grp * span; k < k1; ++k) {"
@@ -1579,7 +1769,7 @@ def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     for i, tree in enumerate(trees):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c",
-                               CALLS + SERVE_DECODE + RUN, tree,
+                               CALLS + RAW_LSTM_STEP + RUN, tree,
                                "calls" if calls_only else "all"],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -1613,6 +1803,8 @@ if __name__ == "__main__":
         sys.exit(tf32_fwd_variants(args[1] if len(args) > 1 else None))
     if args == ["--paged-chunks"]:
         sys.exit(paged_chunks())
+    if args[:1] == ["--lstm-fwd-split"] and len(args) <= 2:
+        sys.exit(lstm_fwd_split(args[1] if len(args) > 1 else "."))
     if args[:1] == ["--lstm-bwd-split"] and len(args) <= 2:
         sys.exit(lstm_bwd_split(args[1] if len(args) > 1 else "."))
     if args[:1] == ["--flash-bf16-processes"] and len(args) <= 2:
@@ -1620,6 +1812,8 @@ if __name__ == "__main__":
                                       else 20))
     if args == ["--cluster-probe"]:
         sys.exit(cluster_probe())
+    if args == ["--lstm-fwd-variants"]:
+        sys.exit(lstm_fwd_variants())
     if args == ["--lstm-bwd-variants"]:
         sys.exit(lstm_bwd_variants())
     if args == ["--paged-bf16-variants"]:

@@ -126,7 +126,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    stored-gates forms and a rerun equal in bits, the backward's planted
    faults (its dh product on the tensor cores in one TF32 pass, a range
    of the blocks' partials left out of the sum: ``LSTM_BWD_FAULTS``) each
-   over that limit, each timed (alone too) beside its
+   over that limit, the forward product's (one TF32 pass, over the limit;
+   the remat product through another routine, which must break remat ==
+   stored: ``LSTM_FWD_FAULTS``, also at phase 7's D 64 and phase 12's D
+   512), each timed (alone too) beside its
    twin, its bound and a library call (cuDNN's ``nn.LSTM`` forward and
    backward, which has no peepholes and includes the input projection:
    the fc plus the forward kernel is timed beside it; ``F.embedding`` and
@@ -2533,14 +2536,120 @@ LSTM_BWD_FAULTS = {
                        "        for (int r = 2; r < groups; ++r) {")}
 
 
+#: the f32 LSTM forward product's planted faults (csrc/lstm_seq.cu): one
+#: TF32 pass (hi.hi: another function) in ``passes``, the product's step
+#: the forward, its fused-input form and the remat backward share; and the
+#: remat backward's product taken through another routine (an fmaf chain
+#: over k: the same function in other bits than the forward's)
+LSTM_FWD_FAULTS = {
+    "fwd_tf32_one_pass": [
+        ("        mma_zero(pt[q][m][j], as[q][m].lo, bh[q][j][0], bh[q][j][1]);",
+         "        mma_zero(pt[q][m][j], as[q][m].hi, bh[q][j][0], bh[q][j][1]);"),
+        ("        tf32x3::mma(pt[q][m][j], as[q][m].hi, bl[q][j][0], "
+         "bl[q][j][1]);", "        ;"),
+        ("        tf32x3::mma(pt[q][m][j], as[q][m].hi, bh[q][j][0], "
+         "bh[q][j][1]);", "        ;")],
+    "remat_other_routine": [(
+        "        gemm_gates<S>(a, first ? D : TD, rows, D, w_s, U, uu, rg, half, "
+        "a_s,\n                      fin);",
+        "        for (int i = 0; i < 2; ++i) {   // planted: an fmaf chain\n"
+        "          const int r = rg + kRG * (2 * half + i);\n"
+        "          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);\n"
+        "          for (int k = 0; r < rows && k < D; ++k) {\n"
+        "            const float h = __ldg(a + (size_t)r * (first ? D : TD) + "
+        "k);\n"
+        "            const float4 w = *reinterpret_cast<const float4*>(\n"
+        "                w_s + ((size_t)k * U + uu) * 4);\n"
+        "            v.x = fmaf(h, w.x, v.x);\n"
+        "            v.y = fmaf(h, w.y, v.y);\n"
+        "            v.z = fmaf(h, w.z, v.z);\n"
+        "            v.w = fmaf(h, w.w, v.w);\n"
+        "          }\n"
+        "          fin[i][0] = v.x;\n"
+        "          fin[i][1] = v.y;\n"
+        "          fin[i][2] = v.z;\n"
+        "          fin[i][3] = v.w;\n"
+        "        }")]}
+
+_lstm_fwd_entries: dict = {}
+
+
+def lstm_fwd_fault_entries(builds) -> dict:
+    """{fault: [lstm_fwd_f32, lstm_fi_fwd_f32, lstm_bwd_f32]} of
+    LSTM_FWD_FAULTS' libraries (``builds``: :func:`source_fault_builds`),
+    each build waited for and loaded once a process."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    for name, build in builds.items():
+        if name not in _lstm_fwd_entries:
+            _lstm_fwd_entries[name] = planted_all(
+                *build, [LK.KERNEL_FWD, LK.KERNEL_FI, LK.KERNEL_BWD])
+    return _lstm_fwd_entries
+
+
+def lstm_fwd_faults_caught(builds, fwd, want, remat_vs_stored) -> dict:
+    """LSTM_FWD_FAULTS at one shape, each library in place of the f32
+    forward, fused-input forward and backward entries: with one TF32 pass,
+    ``fwd()`` (the shape's forward kernel) must lie over TOL x max(1,
+    |ref|) from ``want`` (its twin's outputs) on some output; with the
+    remat product through another routine, ``remat_vs_stored()`` (whether
+    the backward over the forward's hs, cs gives the same bits with remat
+    and with the stored slab) must say no.  Returns each fault's
+    measure."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    entries = lstm_fwd_fault_entries(builds)
+    kernels = (LK.KERNEL_FWD, LK.KERNEL_FI, LK.KERNEL_BWD)
+    real = [k._fn or k._resolve() for k in kernels]
+
+    def swap(fns):
+        for k, fn in zip(kernels, fns):
+            k._fn = fn
+
+    try:
+        swap(entries["fwd_tf32_one_pass"])
+        one = max((g - w).abs().max().item()
+                  / max(1.0, w.abs().max().item())
+                  for g, w in zip(fwd(), want) if g is not None)
+        swap(entries["remat_other_routine"])
+        same = remat_vs_stored()
+        torch.cuda.synchronize()
+    finally:
+        swap(real)
+    out = {"fwd_tf32_one_pass_err": one,
+           "remat_other_routine_same_bits": same}
+    if not one > TOL or same:
+        raise AssertionError(f"lstm forward planted faults passed: {out}")
+    return out
+
+
+def lstm_remat_vs_stored(xw, mask, w_h, peep, h0, c0, hs, cs, gates, dhs,
+                         reverse=False) -> bool:
+    """Whether the f32 backward over the forward's hs, cs gives the same
+    bits with remat (the product recomputed in a block of 32U threads)
+    and with the forward's gates slab (from its block of at least 8
+    warps)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    zeros = torch.zeros_like(h0)
+    args = (mask, w_h, peep, h0, c0, hs, cs, dhs, zeros, zeros, reverse)
+    remat = LK._bwd_kernel(xw, None, *args, True)
+    stored = LK._bwd_kernel(None, gates, *args, False)
+    return all(torch.equal(x, y) for x, y in zip(remat, stored))
+
+
 def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
-                       n_ids=8192, vocab=30000, embed=128) -> tuple:
+                       n_ids=8192, vocab=30000, embed=128,
+                       fwd_faults=None) -> tuple:
     """The text path's kernels at its shapes, each against its plain twin
     (max abs error <= TOL * max(1, |ref|)): the LSTM forward (no gates
     slab, as the card's remat path runs it) and backward (remat, and the
     stored-gates form, which must give the same bits) at B 64, T 128,
     D 1280 with lengths 100, the backward's planted faults
-    (``LSTM_BWD_FAULTS``: each over TOL); the gather of 8,192 ids from
+    (``LSTM_BWD_FAULTS``: each over TOL) and the forward product's
+    (``LSTM_FWD_FAULTS``, ``fwd_faults`` their builds: one TF32 pass over
+    TOL, the remat product through another routine breaking remat ==
+    stored); the gather of 8,192 ids from
     [30000, 128]
     and the table gradient (zeros plus the scatter-add of 8,192 rows), a
     rerun bit-identical, and its grouping passes alone, equal to their
@@ -2556,6 +2665,8 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
     fault_builds = source_fault_builds("embedding",
                                        {**GROUP_FAULTS, **GATHER_FAULTS})
     lstm_faults = source_fault_builds("lstm_seq", LSTM_BWD_FAULTS)
+    fwd_faults = fwd_faults or source_fault_builds("lstm_seq",
+                                                   LSTM_FWD_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(7)
     lens = torch.full((b,), length, device=dev)
     mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
@@ -2612,6 +2723,12 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
     if not all(e > TOL for e in bwd_faults.values()):
         raise AssertionError(f"lstm backward planted faults (each one's "
                              f"error over max(1, |ref|)): {bwd_faults}")
+    fwd_fault_measures = lstm_fwd_faults_caught(
+        fwd_faults, lambda: LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False,
+                                           True),
+        LK._fwd_plain(xw, mask, w_h, peep, h0, c0, False, True),
+        lambda: lstm_remat_vs_stored(xw, mask, w_h, peep, h0, c0, hs, cs,
+                                     gates, dhs))
     stored_alone = device_ms([lambda: LK._bwd_kernel(None, gates, *args,
                                                      False)],
                              "lstm_bwd_kernel")
@@ -2642,11 +2759,14 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
         "replaces": "paddle_tpu/ops/pallas/lstm.py:489",
         "shape": [b, t, d], "max_abs_err": fwd_err,
+        "planted_faults": fwd_fault_measures,
         "ms": timer(fwd), "plain_ms": timer(fwd_plain),
-        # xw, W_h, peep, h0, c0, mask in; hs, cs, h_T, c_T out
+        # xw, W_h, peep, h0, c0, mask in; hs, cs, h_T, c_T out; the
+        # product on the tensor cores as 3xTF32 (the lesser bound)
         "bytes_flops": (f32 * (b * t * 4 * d + d * 4 * d + 3 * d + 4 * b * d
                                + b * t + 2 * b * t * d),
                         2.0 * steps * d * 4 * d + cell),
+        "bound_rule": bound_3xtf32,
         "alone_ms": device_ms([fwd], "lstm_fwd_kernel"),
         "library_ms": timer(lib_fwd),
         "fc_plus_kernel_ms": timer(fc_fwd)}, {
@@ -2753,6 +2873,7 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
             *row.pop("bytes_flops"))
     summary = {"phase": "text_kernels", "tol": TOL,
                "lstm_bwd_remat_stored_rerun_bit_identical": True,
+               "lstm_fwd_planted_faults": fwd_fault_measures,
                "table_grad_rerun_bit_identical": True,
                "gather_bit_identical_to_twin": True,
                "gather": gathered["summary"],
@@ -3024,7 +3145,7 @@ def fault_caught(kernel, build, run) -> bool:
 
 
 def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
-                       label_len=5) -> tuple:
+                       label_len=5, fwd_faults=None) -> tuple:
     """The OCR CRNN's kernels at its shapes, each against its plain twin
     (max abs error <= TOL * max(1, |ref|); the decode bit for bit), a rerun
     bit-identical: the BiLSTM forward (x [64, 24, 256], D 64, both
@@ -3042,7 +3163,12 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
     decode's read floor; no single call decodes) and, for the decode,
     the eager ``ops/ctc.ctc_greedy_decode``.  The BiLSTM and the decode
     also report their device time alone (a trace), the host's ms a call
-    and the planted faults of ``CRNN_FAULTS``, which must fail."""
+    and the planted faults of ``CRNN_FAULTS``, which must fail.  At D 64
+    (U 1: the backward's block is one warp) row 5's forward over the
+    forward direction's projection against its twin, its backward with
+    remat and over its gates slab in the same bits, and the forward
+    product's planted faults (``LSTM_FWD_FAULTS``, ``fwd_faults`` their
+    builds)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import ctc as ctc_ops
@@ -3052,6 +3178,8 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
 
     builds = {src: source_fault_builds(src, faults)
               for src, faults in CRNN_FAULTS.items()}
+    fwd_faults = fwd_faults or source_fault_builds("lstm_seq",
+                                                   LSTM_FWD_FAULTS)
     gen = torch.Generator(device=dev).manual_seed(8)
     rnd = lambda *s, k=1.0: k * torch.randn(*s, generator=gen, device=dev)  # noqa: E731
 
@@ -3112,6 +3240,21 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
         bwd_err = max(bwd_err, worst(first, bwd_calls[reverse][1](),
                                      "lstm backward (crnn)"))
     del first, rerun
+    # row 5's forward at U 1 over the forward direction's projection: the
+    # product in a block of 8 warps, recomputed by the backward's one warp
+    xw = LK._project_xw(x, fw[0], fw[1])
+    lstm_args = (xw, mask, *fw[2:], False, True)
+    fwd_out = LK._fwd_kernel(*lstm_args)
+    fwd_want = LK._fwd_plain(*lstm_args)
+    worst(fwd_out, fwd_want, "lstm forward (crnn)")
+    dhs = rnd(b, t, d)
+    if not lstm_remat_vs_stored(xw, mask, *fw[2:], *fwd_out[:3], dhs):
+        raise AssertionError("lstm backward at D 64: remat and the stored "
+                             "slab differ in bits")
+    lstm_fwd = lstm_fwd_faults_caught(
+        fwd_faults, lambda: LK._fwd_kernel(*lstm_args), fwd_want,
+        lambda: lstm_remat_vs_stored(xw, mask, *fw[2:], *fwd_out[:3], dhs))
+    del xw, fwd_out, fwd_want
     cudnn1 = torch.nn.LSTM(e, d, batch_first=True).to(dev)
     x_lib = x.clone().requires_grad_()
     out_lib, _ = cudnn1(x_lib)
@@ -3147,6 +3290,8 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
         "shape": [b, t, d], "max_abs_err": bwd_err,
         # one launch: the mean of the two directions' times
         "ms": (bwd_ms[False] + bwd_ms[True]) / 2,
+        "alone_ms": device_ms([c[0] for c in bwd_calls.values()],
+                              "lstm_bwd_kernel"),
         "plain_ms": (bwd_plain_ms[False] + bwd_plain_ms[True]) / 2,
         "ms_by_direction": {"forward": bwd_ms[False],
                             "reverse": bwd_ms[True]},
@@ -3267,6 +3412,8 @@ def check_crnn_kernels(dev, timer, b=64, t=24, e=256, d=64, v=27, l=16,
                "decode_bit_identical_to_twin": True,
                "decode_shapes": [[b, t, v], list(long_slab.shape)],
                "planted_faults_caught": faults,
+               "lstm_fwd_d64_remat_stored_bit_identical": True,
+               "lstm_fwd_planted_faults": lstm_fwd,
                "ctc_normalize_forms": [False, True],
                "conv2d_direct_crnn_shapes_max_abs_err": conv_err}
     torch.cuda.synchronize()
@@ -6046,7 +6193,7 @@ def leaf_errors(got: dict, want: dict) -> dict:
             for k in want}
 
 
-def check_raw_rnn_kernels(dev, timer) -> tuple[list, dict]:
+def check_raw_rnn_kernels(dev, timer, fwd_faults=None) -> tuple[list, dict]:
     """Rows 6 and 9 at the path's shapes (``RAW_RNN``; both directions),
     each fused-input forward kernel against its twin (max abs error <= TOL
     x max(1, |ref|)), with and without its gate slab, a rerun in the same
@@ -6056,10 +6203,17 @@ def check_raw_rnn_kernels(dev, timer) -> tuple[list, dict]:
     projection + the row 5 / row 8 forward kernel, the A/B of the fusion)
     and cuDNN's ``nn.LSTM`` / ``nn.GRU`` forward with the input projection,
     which is not the same cell (no peepholes; the GRU's reset gate after
-    the product), a yardstick of scale only."""
+    the product), a yardstick of scale only.  The LSTM's also: row 5's
+    forward over the projection at D 512 (U 4: the forward's 8 warps, the
+    backward's 4) with its backward in the same bits by remat and over the
+    slab, and the forward product's planted faults (``LSTM_FWD_FAULTS``,
+    ``fwd_faults`` their builds) on the fused-input forward; its bound is
+    3xTF32's (:func:`bound_3xtf32`)."""
     from paddle_tpu_torch.ops.kernels import gru as GK
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
+    fwd_faults = fwd_faults or source_fault_builds("lstm_seq",
+                                                   LSTM_FWD_FAULTS)
     t0 = time.perf_counter()
     rows, summary = [], {"phase": "raw_rnn_kernels", "tol": TOL}
     f32 = 4.0
@@ -6099,6 +6253,22 @@ def check_raw_rnn_kernels(dev, timer) -> tuple[list, dict]:
                 lambda r=reverse: mod._fwd_kernel(
                     LK._project_xw(x, w["w_x"], w["b"]), mask, *rec, *init,
                     r, False))
+        if kind == "lstm":
+            xw = LK._project_xw(x, w["w_x"], w["b"])
+            hs, cs, gates = LK._fwd_kernel(xw, mask, *rec, *init, False,
+                                           True)[:3]
+            dhs = torch.randn(b, t, d, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(12))
+            if not lstm_remat_vs_stored(xw, mask, *rec, *init, hs, cs, gates,
+                                        dhs):
+                raise AssertionError("lstm backward at D 512: remat and the "
+                                     "stored slab differ in bits")
+            summary["lstm_fwd_planted_faults"] = lstm_fwd_faults_caught(
+                fwd_faults, lambda: mod._fi_fwd_kernel(*args, False, True),
+                mod._fi_fwd_plain(*args, False, True),
+                lambda: lstm_remat_vs_stored(xw, mask, *rec, *init, hs, cs,
+                                             gates, dhs))
+            del xw, hs, cs, gates, dhs
         ms = {r: timer(c[0]) for r, c in calls.items()}
         unfused = {r: timer(c[2]) for r, c in calls.items()}
         plain = [timer(c[1], iters=3) for c in calls.values()]
@@ -6121,7 +6291,9 @@ def check_raw_rnn_kernels(dev, timer) -> tuple[list, dict]:
         nbytes = f32 * (b * t * e + b * t + e * n * d + n * d
                         + sum(v.numel() for v in rec) + len(init) * b * d
                         + len(init) * (b * t * d + b * d))
-        bound_ms, bound_by = bound(nbytes, flops)
+        # the LSTM's products on the tensor cores as 3xTF32: the lesser
+        bound_ms, bound_by = (bound_3xtf32 if kind == "lstm" else bound)(
+            nbytes, flops)
         rows.append({
             "name": f"{kind}_seq_fi_fwd", "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{kind}_seq.cu",
@@ -6141,6 +6313,8 @@ def check_raw_rnn_kernels(dev, timer) -> tuple[list, dict]:
         summary[kind] = {"reruns_bit_identical": True,
                          "gate_slab_leaves_outputs_bits": True,
                          "valid_row_steps": steps}
+        if kind == "lstm":
+            summary[kind]["row5_d512_remat_stored_bit_identical"] = True
         del cudnn, calls
         torch.cuda.synchronize()
     summary["seconds"] = time.perf_counter() - t0
@@ -10183,11 +10357,13 @@ def main() -> int:
     print(f"card: {smi} | torch: {kind} x{count} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    # the Hopper tile's planted faults (phase 13) and the f32 flash and
-    # paged kernels' (phase 2) build beside the kernels
+    # the Hopper tile's planted faults (phase 13), the f32 flash and paged
+    # kernels' (phase 2) and the f32 LSTM forward product's (phases 6, 7,
+    # 12) build beside the kernels
     faults = wgmma_fault_builds()
     flash_faults = flash_f32_fault_builds()
     paged_faults = source_fault_builds("paged_attention", PAGED_F32_FAULTS)
+    lstm_faults = source_fault_builds("lstm_seq", LSTM_FWD_FAULTS)
     sources = _build.build()
     wgmma_libs = built(faults)
     print(json.dumps({"phase": "build", "sources": sorted(sources),
@@ -10222,14 +10398,16 @@ def main() -> int:
     lm, (fwd_n, dq_n, dkv_n) = train_lm(dev)
     print(json.dumps(lm), flush=True)
     torch.cuda.empty_cache()
-    text_rows, text_summary = check_text_kernels(dev, Timer(dev))
+    text_rows, text_summary = check_text_kernels(dev, Timer(dev),
+                                                 fwd_faults=lstm_faults)
     for row in text_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
     print(json.dumps(text_summary), flush=True)
     text, text_n = train_text(dev)
     print(json.dumps(text), flush=True)
     torch.cuda.empty_cache()
-    crnn_rows, crnn_summary = check_crnn_kernels(dev, Timer(dev))
+    crnn_rows, crnn_summary = check_crnn_kernels(dev, Timer(dev),
+                                                 fwd_faults=lstm_faults)
     for row in crnn_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
     print(json.dumps(crnn_summary), flush=True)
@@ -10262,7 +10440,8 @@ def main() -> int:
     xent, xent_n = xent_path(dev)
     print(json.dumps(xent), flush=True)
     torch.cuda.empty_cache()
-    raw_rows, raw_summary = check_raw_rnn_kernels(dev, Timer(dev))
+    raw_rows, raw_summary = check_raw_rnn_kernels(dev, Timer(dev),
+                                                  fwd_faults=lstm_faults)
     for row in raw_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
     print(json.dumps(raw_summary), flush=True)

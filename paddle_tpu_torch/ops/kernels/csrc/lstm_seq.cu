@@ -30,27 +30,36 @@
 // cannot be co-resident is refused by cudaLaunchCooperativeKernel and the
 // error is returned, never spun on.
 //
-// The product routine (gemm_gates): a block has 32U threads in two
-// halves; thread (half, rg, uu) accumulates batch rows rg + 16 i (i < 4)
-// x the 4 gates of unit uu over its half of each 32-deep chunk of k, the
-// halves' sums are added in a fixed order through shared memory, and the
-// thread finishes rows rg + 16 (2 half + i) (i < 2), so the cell update
-// runs from registers.  h_{t-1} streams through shared memory, three
-// stages of cp.async in flight; the inner loop reads float4s of h rows and
-// of W, 64 FMAs per 8 shared loads.  The two halves give the SM 10 warps
-// at D 1280 (5 left the barriers and the load waits exposed).
+// The product routine (gemm_gates): on the tensor cores as 3xTF32
+// (mma.sync.m16n8k8 from csrc/tf32x3.cuh: hi = tf32(a), lo = tf32(a -
+// hi), each rounded to nearest by two integer operations; hi.hi + hi.lo +
+// lo.hi, each 8-deep slice's three passes summed apart from zero and
+// added to nearest, because the tensor cores truncate the sums they
+// round).  Each m16 x n8 tile of a 64-row chunk sums its K half (every
+// other 8-deep slice) in order, and the halves' sums go through shared
+// memory and are added in a fixed order, half 0 + half 1, into the thread
+// (half, rg, uu) that runs the cell of rows rg + 16 (2 half + i) (i < 2)
+// of unit uu.  Two walks share out the tiles: by rows (a warp a row tile
+// and K half, every n8 tile: the forward below U 7) and by columns (a
+// warp an n8 tile and K half, all four row tiles: the forward from U 7
+// and the remat backward, whose block is 32U threads).  A tile's sum takes
+// the same operations in every walk, so the forward and the remat
+// backward give the same gates.  h_{t-1} streams through shared memory,
+// three stages of cp.async in flight; the W slice stays [K][U][4] (at D
+// 1280, U 10, 204,800 of the 232,448 bytes a block may opt in to: no room
+// for a split copy), so each B fragment is split as it is read.
 //
 // The fused-input forward (lstm_fi_fwd_f32) takes raw x [B, T, E], W_x
 // [E, 4D] and b [4D]: each block keeps the [E][U][4] column slice of W_x
 // of its units beside its W_h slice ((E + D) 4U floats: 40 KB at E 128,
 // D 512, U 4), and each step computes b + x_t W_x for its columns with
-// gemm_gates over x rows read through L2, then adds h_{t-1} W_h as the
-// forward over xw does.  At B 64, E 128, D 512 a step is 168 MFLOP, a
-// quarter of it the projection; the [B, T, 4D] xw slab (at T 100, 52 MB)
-// is neither written nor read.  The outputs and the gates slab (remat
-// off) are the forward's, in the layout the backward reads.  csrc/
-// bilstm_seq.cu is no start for it: a block there holds all of W_h,
-// which caps D near 116.
+// gemm_gates over the x_t rows, then adds h_{t-1} W_h as the forward over
+// xw does: two sums, (b + x_t W_x) + h W_h, in the JAX kernel's order.  At
+// B 64, E 128, D 512 a step is 168 MFLOP, a quarter of it the projection;
+// the [B, T, 4D] xw slab (at T 100, 52 MB) is neither written nor read.
+// The outputs and the gates slab (remat off) are the forward's, in the
+// layout the backward reads.  csrc/bilstm_seq.cu is no start for it: a
+// block there holds all of W_h, which caps D near 116.
 //
 // Backward, reverse time.  (A) per own unit: the gates (recomputed from xw
 // and the shifted h/c stacks with gemm_gates and the forward's cell code
@@ -76,9 +85,8 @@
 // device memory was built and ran slower: the card holds the 128 one-SM
 // CTAs whole only in clusters of 2 (of 4 and 8: 120), which halves the sum
 // but costs 65 cluster barrier phases a step.  So the dh product moved to
-// the tensor cores and the sum to wider loads with more of them in flight.
-// ptxas (sm_90a): the backward's four instances 127-128 registers, no
-// spills.
+// the tensor cores and the sum to wider loads with more of them in flight;
+// then the remat product, with the forward's (gemm_gates).
 //
 // Every value written during the launch by another block is read through
 // L2 (__ldcg, cp.async.cg), never from a stale L1 line.
@@ -96,7 +104,6 @@ namespace {
 
 constexpr int kRows = 64;             // batch rows per chunk
 constexpr int kRG = 16;               // row groups: thread rows rg + 16 i
-constexpr int kRB = kRows / kRG;      // 4 rows a thread
 constexpr int kK = 32;                // depth of one staged chunk of A
 constexpr int kLda = kK + 4;          // its padded row stride (floats)
 constexpr int kStage = kRows * kLda;  // floats a stage
@@ -175,22 +182,62 @@ __device__ __forceinline__ void load_chunk(float* buf, const float* a,
   }
 }
 
-// fin[i][g] = sum_k A[r_i][k] * W[k][uu][g] for the thread's rows r_i =
-// rg + 16 (2 half + i), i < 2: k ascending within each half of each
-// chunk, one fmaf per term, the half-0 sum plus the half-1 sum; the bits
-// depend on the values only.  A is global (rows [0, rows) at a + r * lda),
-// staged through a_s in S stages; w_s is the block's [K][U][4] slice.
-// Every thread of the block must call it.
-template <int S>
-__device__ __forceinline__ void gemm_gates(const float* a, size_t lda,
-                                           int rows, int K, const float* w_s,
-                                           int U, int uu, int rg, int half,
-                                           float* a_s, float fin[2][4]) {
-  float acc[kRB][4];
+constexpr int kRowJobs = 8;         // the row walk: 4 row tiles x 2 K halves
+constexpr int kColumnsFrom = 7;     // the forward walks by n8 tiles from U 7
+constexpr int kNarrow = 320;        // a block bound that leaves 204 registers
+
+// d = a . b from zero (tf32x3::mma with no accumulator to clear first):
+// the first pass of a slice
+__device__ __forceinline__ void mma_zero(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%10, %10, %10, %10};\n"
+               : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1), "f"(0.f));
+}
+
+// Q slices' three passes over M row tiles and T n8 tiles, each summed
+// apart from zero in mma3's order (lo.hi, hi.lo, hi.hi), every pass over
+// all Q x M x T products before the next, so that the products issued in
+// turn are independent: pt[q][m][j] = a[q][m] . b[q][j]
+template <int Q, int M, int T>
+__device__ __forceinline__ void passes(float (&pt)[Q][M][T][4],
+                                       const tf32x3::SplitA (&as)[Q][M],
+                                       const uint32_t (&bh)[Q][T][2],
+                                       const uint32_t (&bl)[Q][T][2]) {
 #pragma unroll
-  for (int i = 0; i < kRB; ++i)
+  for (int q = 0; q < Q; ++q)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc[i][g] = 0.f;
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < T; ++j)
+        mma_zero(pt[q][m][j], as[q][m].lo, bh[q][j][0], bh[q][j][1]);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < T; ++j)
+        tf32x3::mma(pt[q][m][j], as[q][m].hi, bl[q][j][0], bl[q][j][1]);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < T; ++j)
+        tf32x3::mma(pt[q][m][j], as[q][m].hi, bh[q][j][0], bh[q][j][1]);
+}
+
+// The two walks of the product below share the staging ring: h's rows
+// [0, rows) of `a` (lda apart) in 32-deep chunks through a_s, S stages;
+// stage(c, buf) runs once a chunk with its stage in shared memory, every
+// thread of the block taking part.
+template <int S, typename Stage>
+__device__ __forceinline__ void ring(const float* a, size_t lda, int rows,
+                                     int K, float* a_s, Stage stage) {
   const int nc = (K + kK - 1) / kK;
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
@@ -203,47 +250,197 @@ __device__ __forceinline__ void gemm_gates(const float* a, size_t lda,
     const int cn = c + S - 1;
     if (cn < nc) load_chunk(a_s + (cn % S) * kStage, a, lda, rows, K, cn);
     cp_async_commit();
-    const float* buf = a_s + (c % S) * kStage;
-    const int n4 = min(kK, K - c * kK) / 4, mid = (n4 + 1) / 2;
-    for (int q = half ? mid : 0; q < (half ? n4 : mid); ++q) {
-      const int k4 = 4 * q;
-      float4 av[kRB], wv[4];
-#pragma unroll
-      for (int i = 0; i < kRB; ++i)
-        av[i] = *reinterpret_cast<const float4*>(
-            buf + (rg + kRG * i) * kLda + k4);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wv[kk] = *reinterpret_cast<const float4*>(
-            w_s + ((size_t)(c * kK + k4 + kk) * U + uu) * 4);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < kRB; ++i) {
-          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y
-                        : kk == 2 ? av[i].z : av[i].w;
-          acc[i][0] = fmaf(x, wv[kk].x, acc[i][0]);
-          acc[i][1] = fmaf(x, wv[kk].y, acc[i][1]);
-          acc[i][2] = fmaf(x, wv[kk].z, acc[i][2]);
-          acc[i][3] = fmaf(x, wv[kk].w, acc[i][3]);
-        }
-    }
+    stage(c, a_s + (c % S) * kStage);
   }
   __syncthreads();       // every chunk read: the staging area is free
-  const int ld = row_stride(U);
-  float* sums = a_s;     // [2][kRows][ld]
+}
+
+// A lane's B fragment, column n (an n8 tile's column g) of slice rows k0
+// and k0 + 4 of the [K][U][4] slice w_s (cols = 4U a row), split as it
+// is read; zero past 4U, past K (in1: row k0 + 4 exists) or where !live
+__device__ __forceinline__ void split_b(const float* w_s, int k0, int cols,
+                                        int n, bool live, bool in1,
+                                        uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  const float* w = w_s + (size_t)k0 * cols + n;
+  live = live && n < cols;
+  tf32x3::split(live ? w[0] : 0.f, bh[0], bl[0]);
+  tf32x3::split(live && in1 ? w[4 * cols] : 0.f, bh[1], bl[1]);
+}
+
+// The product on the tensor cores as 3xTF32 (csrc/tf32x3.cuh), in two
+// walks that give the same bits.  Both take a 64-row chunk's m16 row
+// tiles, the 8-deep slices of one parity (the K half) and n8 tiles of the
+// block's 4U columns (zero past 4U: an odd U's last tile is half live); a
+// job's two slices of a 32-deep chunk go together, each splitting its A
+// fragments once for the job's tiles and each B fragment (rows k, k + 4
+// of the [K][U][4] slice) as it is read; a slice's passes are summed
+// apart from zero (passes()) and added to the tile's sum of its K half to
+// nearest, the slices in order.  So a tile's sum takes the same
+// operations whichever walk, job and warp run it, and its bits depend on
+// the values only.  Each K half's sums land in sums[kh][row][col] (rows
+// below `rows`, columns below 4U).
+//
+// The row walk (the forward below U 7): job j < 8 (warp j) takes row tile
+// j % 4 and K half j / 4, every n8 tile (nt = ceil(U / 2) <= 3), two at a
+// time.
+template <int S>
+__device__ __forceinline__ void gates_rows(const float* a, size_t lda,
+                                           int rows, int K, const float* w_s,
+                                           int U, float* a_s) {
+  constexpr int TPJ = 4, G = 2;            // tiles a job holds, at a time
+  const int lane = threadIdx.x & 31, job = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int cols = 4 * U, nt = (U + 1) / 2, kh = job / 4;
+  float acc[TPJ][4] = {};
+  ring<S>(a, lda, rows, K, a_s, [&](int c, const float* buf) {
+    const int ns = (min(kK, K - c * kK) + 7) / 8;   // K % 4 == 0
+    if (job >= kRowJobs || kh >= ns) return;
+    const bool two = kh + 2 < ns;                   // its second slice
+    const int k0 = c * kK + 8 * kh + tq;            // row k0 (+ 16 q)
+    const bool in1[2] = {k0 + 4 < K, two && k0 + 20 < K};
+    const float* r0 = buf + (16 * (job & 3) + gq) * kLda + 8 * kh + tq;
+    tf32x3::SplitA as[2][1];   // [slice]: rows g, g + 8; columns t, t + 4
 #pragma unroll
-  for (int i = 0; i < kRB; ++i)
-    *reinterpret_cast<float4*>(sums + (half * kRows + rg + kRG * i) * ld
-                               + uu * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int q = 0; q < 2; ++q)
+      as[q][0].set(r0[16 * q], r0[16 * q + 8 * kLda], r0[16 * q + 4],
+                   r0[16 * q + 8 * kLda + 4]);
+#pragma unroll
+    for (int j0 = 0; j0 < TPJ; j0 += G) {
+      if (j0 >= nt) break;
+      uint32_t bh[2][G][2], bl[2][G][2];
+      float pt[2][1][G][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+          split_b(w_s, k0 + 16 * q, cols, 8 * (j0 + jj) + gq,
+                  j0 + jj < nt && (q == 0 || two), in1[q], bh[q][jj],
+                  bl[q][jj]);
+      passes(pt, as, bh, bl);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (q == 0 || two) acc[j0 + jj][e] += pt[q][0][jj][e];
+    }
+  });
+  if (job >= kRowJobs) return;
+  // acc[j]: rows g (0, 1) and g + 8 (2, 3), columns 2t, 2t + 1 of tile j
+  const int ld = row_stride(U), r = 16 * (job & 3) + gq;
+  float* out = a_s + (size_t)kh * kRows * ld + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < TPJ; ++j) {
+    if (j >= nt || 8 * j + 2 * tq >= cols) continue;
+    if (r < rows)
+      *reinterpret_cast<float2*>(out + r * ld + 8 * j) =
+          make_float2(acc[j][0], acc[j][1]);
+    if (r + 8 < rows)
+      *reinterpret_cast<float2*>(out + (r + 8) * ld + 8 * j) =
+          make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// The column walk (the forward from U 7, at 32 max(U, 2 nt) threads, and
+// the remat backward, at 32U): job j takes n8 tile j / 2 and K half j % 2
+// for all four row tiles, two at a time, so that 2 nt jobs keep the warps
+// busy (job j on warp j % warps, J = ceil(2 nt / warps) <= 2 a warp) and
+// each B fragment is split once a block.
+template <int S, int J>
+__device__ __forceinline__ void gates_cols(const float* a, size_t lda,
+                                           int rows, int K, const float* w_s,
+                                           int U, float* a_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5, gq = lane >> 2, tq = lane & 3;
+  const int cols = 4 * U, jobs = 2 * ((U + 1) / 2);
+  float acc[J][4][4] = {};
+  ring<S>(a, lda, rows, K, a_s, [&](int c, const float* buf) {
+    const int ns = (min(kK, K - c * kK) + 7) / 8;   // K % 4 == 0
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int job = warp + warps * i, kh = job % 2;
+      if (job >= jobs || kh >= ns) continue;
+      const bool two = kh + 2 < ns;                 // its second slice
+      const int k0 = c * kK + 8 * kh + tq, n = 8 * (job / 2) + gq;
+      const bool in1[2] = {k0 + 4 < K, two && k0 + 20 < K};
+      uint32_t bh[2][1][2], bl[2][1][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        split_b(w_s, k0 + 16 * q, cols, n, q == 0 || two, in1[q], bh[q][0],
+                bl[q][0]);
+#pragma unroll
+      for (int m0 = 0; m0 < 4; m0 += 2) {
+        tf32x3::SplitA as[2][2];   // [slice][row tile]
+        float pt[2][2][1][4];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const float* r0 = buf + (16 * (m0 + m) + gq) * kLda + 8 * kh +
+                              16 * q + tq;
+            as[q][m].set(r0[0], r0[8 * kLda], r0[4], r0[8 * kLda + 4]);
+          }
+        passes(pt, as, bh, bl);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (q == 0 || two) acc[i][m0 + m][e] += pt[q][m][0][e];
+      }
+    }
+  });
+  const int ld = row_stride(U);
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    const int job = warp + warps * i, col = 8 * (job / 2) + 2 * tq;
+    if (job >= jobs || col >= cols) continue;
+    float* out = a_s + (size_t)(job % 2) * kRows * ld + col;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = 16 * m + gq;
+      if (r < rows)
+        *reinterpret_cast<float2*>(out + r * ld) =
+            make_float2(acc[i][m][0], acc[i][m][1]);
+      if (r + 8 < rows)
+        *reinterpret_cast<float2*>(out + (r + 8) * ld) =
+            make_float2(acc[i][m][2], acc[i][m][3]);
+    }
+  }
+}
+
+// fin[i][g] = sum_k A[r_i][k] * W[k][uu][g] for the thread's rows r_i =
+// rg + 16 (2 half + i), i < 2 (none at or past `rows`): the K halves'
+// sums of the product, the half-0 sum plus the half-1 sum.  The forward
+// (kFwd) walks by rows below U 7 and by columns from U 7, the remat
+// backward by columns.  The bits depend on the values only, so both give
+// the same gates.  A is global (rows [0, rows) at a + r * lda), staged
+// through a_s in S stages; w_s is the block's [K][U][4] slice.  Every
+// thread of the block must call it.
+template <int S, bool kFwd = false>
+__device__ __forceinline__ void gemm_gates(const float* a, size_t lda,
+                                           int rows, int K, const float* w_s,
+                                           int U, int uu, int rg, int half,
+                                           float* a_s, float fin[2][4]) {
+  if (kFwd && U < kColumnsFrom)
+    gates_rows<S>(a, lda, rows, K, w_s, U, a_s);
+  else if (2 * ((U + 1) / 2) <= (int)(blockDim.x >> 5))
+    gates_cols<S, 1>(a, lda, rows, K, w_s, U, a_s);
+  else
+    gates_cols<S, 2>(a, lda, rows, K, w_s, U, a_s);
   __syncthreads();
+  const int ld = row_stride(U);
+  const float* sums = a_s;   // [2][kRows][ld]
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = rg + kRG * (2 * half + i);
-    const float4 p = *reinterpret_cast<const float4*>(sums + r * ld + uu * 4);
-    const float4 q = *reinterpret_cast<const float4*>(
-        sums + (kRows + r) * ld + uu * 4);
+    float4 p = make_float4(0.f, 0.f, 0.f, 0.f), q = p;
+    if (r < rows) {
+      p = *reinterpret_cast<const float4*>(sums + r * ld + uu * 4);
+      q = *reinterpret_cast<const float4*>(sums + (kRows + r) * ld + uu * 4);
+    }
     fin[i][0] = p.x + q.x;
     fin[i][1] = p.y + q.y;
     fin[i][2] = p.z + q.z;
@@ -341,8 +538,9 @@ __device__ __forceinline__ void dh_share(const float* dg_s, int ldg,
 // kFi: `in` is raw x [B, T, E] and the block keeps the [E][U][4] slice
 // of W_x (wxpack) before its W_h slice; otherwise `in` is xw [B, T, 4D]
 // (E, wxpack and bias unused).
-template <bool kFi, int S>
-__global__ void __launch_bounds__(2 * kRG * kMaxUnits, 1)
+// kThreads: the block's bound, as the backward's below
+template <bool kFi, int S, int kThreads = 2 * kRG * kMaxUnits>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
                 const float* __restrict__ wxpack,
                 const float* __restrict__ bias,
@@ -403,8 +601,8 @@ lstm_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
       if (kFi) {
         // b + x_t W_x for the own columns, as the twin's xw entries
         float px[2][4];
-        gemm_gates<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, U,
-                      uu, rg, half, a_s, px);
+        gemm_gates<S, true>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s,
+                            U, uu, rg, half, a_s, px);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -413,8 +611,8 @@ lstm_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
       const float* a = s == 0 ? h0 + (size_t)b0 * D
                               : hs + b0 * TD + (size_t)tp * D;
       float fin[2][4];
-      gemm_gates<S>(a, s == 0 ? D : TD, rows, D, w_s, U, uu, rg, half, a_s,
-                    fin);
+      gemm_gates<S, true>(a, s == 0 ? D : TD, rows, D, w_s, U, uu, rg, half,
+                          a_s, fin);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = rg + kRG * (2 * half + i);
@@ -444,8 +642,11 @@ lstm_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
   }
 }
 
-template <bool kRemat, int S>
-__global__ void __launch_bounds__(2 * kRG * kMaxUnits, 1)
+// kThreads: the block's bound (ptxas gives a thread 65536 / kThreads
+// registers: 128 at 512, 204 at 320, where the remat product's
+// accumulators fit beside the step's other state)
+template <bool kRemat, int S, int kThreads = 2 * kRG * kMaxUnits>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ xw,
                 const float* __restrict__ gates_in,
                 const float* __restrict__ mask,
@@ -690,7 +891,15 @@ int launch_fwd(const float* in, const float* mask, const float* wxpack,
   void* args[] = {&in, &mask, &wxpack, &bias, &wpack, &peep, &h0, &c0, &hs,
                   &cs, &gates, &hT, &cT, &B, &T, &E, &D, &U, &reverse};
   cudaStream_t st = (cudaStream_t)stream;
-  const int n = 2 * kRG * U;
+  // 32U threads run the cells; the product wants 8 warps (the row walk)
+  // or 2 ceil(U / 2) (the column walk)
+  const int n = 32 * max(U, U < kColumnsFrom ? kRowJobs : 2 * ((U + 1) / 2));
+  if (n <= kNarrow)
+    return stages == 3
+        ? cooperative(lstm_fwd_kernel<kFi, 3, kNarrow>, grid, n, smem, args,
+                      st)
+        : cooperative(lstm_fwd_kernel<kFi, 2, kNarrow>, grid, n, smem, args,
+                      st);
   return stages == 3
       ? cooperative(lstm_fwd_kernel<kFi, 3>, grid, n, smem, args, st)
       : cooperative(lstm_fwd_kernel<kFi, 2>, grid, n, smem, args, st);
@@ -750,6 +959,12 @@ extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
                   &B, &T, &D, &U, &reverse};
   cudaStream_t st = (cudaStream_t)stream;
   const int n = 2 * kRG * U;
+  if (remat && n <= kNarrow)
+    return stages == 3
+        ? cooperative(lstm_bwd_kernel<true, 3, kNarrow>, grid, n, smem, args,
+                      st)
+        : cooperative(lstm_bwd_kernel<true, 2, kNarrow>, grid, n, smem, args,
+                      st);
   if (remat)
     return stages == 3
         ? cooperative(lstm_bwd_kernel<true, 3>, grid, n, smem, args, st)

@@ -9,9 +9,12 @@ every time step, and its backward one launch of the backward kernel
 (remat on: the gates are recomputed from xw and the shifted h/c stacks;
 off: read from the slab the forward stored; the two give the same bits).
 ``dW_h`` is one large ``torch.matmul`` over the [B*T] rows outside the
-kernel, as the JAX package leaves it to XLA.  CPU tensors take the plain
+kernel, as the JAX package leaves it to XLA.  In f32 the forward's
+recurrent product and the remat backward's (one routine, so both give the
+same gates) run on the tensor cores as 3xTF32.  CPU tensors take the plain
 twins (:func:`_fwd_plain`, :func:`_bwd_plain`), which compute each step as
-the kernels do, so the two backward forms give the same bits there too.
+the kernels do (in f32 FMAs), so the two backward forms give the same
+bits there too.
 
 :func:`lstm_seq_fi` is a ``torch.autograd.Function`` over raw inputs.  On
 the card its forward is one launch of the forward kernel in its
@@ -72,6 +75,7 @@ KERNEL_FI_BF16 = Kernel("lstm_seq", "lstm_fi_fwd_bf16",
                         [_P] * 13 + [_I] * 6 + [_P])
 
 #: the kernels' tiling: a block owns U <= 16 hidden units with 32U threads
+#: (the f32 forward more where its product's walk wants them)
 _MAX_UNITS = 16
 #: the f32 bilstm kernel's plan (``bi_plan``): 256 threads a CTA, clusters
 #: of at most 8 (the portable size), row tiles of 4 or 8, a product's

@@ -1171,6 +1171,60 @@ def test_lstm_kernels_match_plain(cuda, b, t, d, reverse):
                 <= TOL * max(1.0, y.abs().max().item()))
 
 
+def _lstm_forward_and_remat(cuda, xw, mask, w_h, peep, h0, c0, rng):
+    """The f32 forward kernel (3xTF32 product) against its twin, a rerun
+    and the gates slab in the same bits; then the backward over its hs, cs
+    with remat (the forward's product in a block of 32U threads) and over
+    the stored slab: the same bits."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    got = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, True)
+    bare = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, False)
+    again = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.equal(x, y) for i, (x, y) in enumerate(zip(got, bare))
+               if i != 2)
+    for x, y in zip(got, LK._fwd_plain(xw, mask, w_h, peep, h0, c0, False,
+                                       True)):
+        assert _close(x, y)
+    hs, cs, gates = got[:3]
+    b, t, d = hs.shape
+    dhs, dh_t, dc_t = (_rand(rng, *s).to(cuda) for s in
+                       ((b, t, d), (b, d), (b, d)))
+    args = (mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, False)
+    remat = LK._bwd_kernel(xw, None, *args, True)
+    stored = LK._bwd_kernel(None, gates, *args, False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(remat, stored))
+
+
+@pytest.mark.parametrize("b,t,d", [
+    (64, 16, 1280),     # the text width: U 10
+    (64, 24, 64),       # the OCR CRNN's D 64: U 1, half an n8 tile
+    (37, 9, 396),       # U 3 on 132 SMs: odd, the last n8 tile half zero
+    (5, 7, 924),        # U 7: the backward's 7 warps take 2 jobs each
+])
+def test_lstm_f32_forward_on_tensor_cores_matches_plain(cuda, b, t, d):
+    rng = np.random.default_rng(b + t + d)
+    _lstm_forward_and_remat(cuda, *_lstm_inputs(rng, b, t, d, cuda), rng)
+
+
+def test_lstm_f32_forward_on_tensor_cores_at_row6(cuda):
+    """Row 6's ragged shape (B 64, T 100, E 128, D 512: U 4, the forward's
+    8 warps against the backward's 4): the fused-input forward against its
+    twin, in the same bits on a rerun and with its slab; then row 5's
+    forward over its projection and the backward in both forms."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    _fi_kernel_vs_plain(cuda, "lstm", 64, 100, 128, 512, False)
+    rng = np.random.default_rng(6)
+    x, mask, (w_x, b, w_h, peep, h0, c0) = _fi_inputs("lstm", rng, 64, 100,
+                                                      128, 512, cuda)
+    xw = LK._project_xw(x, w_x, b)
+    _lstm_forward_and_remat(cuda, xw, mask, w_h, peep, h0, c0, rng)
+
+
 def test_lstm_function_on_card_matches_the_cpu(cuda):
     """The autograd Function (kernels) against the CPU's plain twins:
     hs, h_T, c_T and every input gradient."""
