@@ -2,14 +2,13 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B times, in each tree, the wrapper calls ``CALLS`` names (the f32
-LSTM forward and backward with remat at the text shape; row 6's
-fused-input forward and the unfused route at ``RAW_RNN``'s LSTM shape),
-then runs its own ``chip_smoke.train_text`` (the f32 text classifier: its
-witness step, 10 timed steps at batch 64, a 3-step profile) and phase
-12's f32 ``ops.rnn.lstm`` step fused and unfused (``RAW_LSTM_STEP``:
-blocks of 10 steps, fused, unfused, unfused, fused), each tree in a
-process of its own that builds that tree's kernels, in the order given.
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (the bf16
+LSTM forward and backward, remat and stored, with bf16 cuDNN beside them,
+at the text shape; the CRNN's bf16 backward; row 6's bf16 fused-input
+forward), then runs its own ``chip_smoke.train_text_bf16`` (the text
+classifier in bf16 beside f32: 10 timed steps each at batch 64, a 3-step
+bf16 profile), each tree in a process of its own that builds that tree's
+kernels, in the order given.
 Host-bound phases vary up to 2x between machines, so two versions are
 compared only within one run of this script, in turns:
 
@@ -17,9 +16,9 @@ compared only within one run of this script, in turns:
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, each call's event ms with the L2 flushed,
-host ms and device ms alone with its kernels' names, the text step's
-rate, step p50, idle share and device ms by class, the ``ops.rnn.lstm``
-step's p50 by route) and
+host ms and device ms alone with its kernels' names, the bf16 text
+step's rate and p50, the f32 step's p50, the bf16 idle share, the LSTM
+kernels' and each class's device ms a step) and
 writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).  ``--calls`` times the wrapper calls alone, without the
 training steps.
@@ -104,6 +103,25 @@ step: the partial writes of dh_{t-1}'s shares, the sum over them, the
 remat product, the dh product, the grid barrier), in turns, alone and
 with the L2 flushed: each part's share of the step.
 
+    python3 chip_ab.py --lstm-bwd-split [TREE] --bf16 [D ...] [--probes]
+    python3 chip_ab.py --lstm-fwd-split [TREE] --bf16 [D ...] [--probes]
+
+the same for the bf16 forms (``LSTM_BF16_BWD_SPLIT``,
+``LSTM_BF16_FWD_SPLIT``: the parent's parts and the redesign's) at B 64,
+T 128, lengths 100 and each hidden width D (default ``bench_lstm``'s
+1280, 512 and 256), the backward remat and stored, the forward over xw
+and, at 1280, row 6's fused-input form; ``--probes`` adds the products'
+timing probes (``LSTM_BF16_PROBES``, ``LSTM_BF16_DH_PROBES``).
+
+    python3 chip_ab.py --lstm-bf16-variants
+    python3 chip_ab.py --lstm-bf16-bounds
+
+times this tree's bf16 forward and backward as the source builds them and
+as each of ``LSTM_BF16_VARIANTS`` (the ring's depth and stages, the
+backward's part of W_h through L2, fragments ahead by U), each held to
+the source's bits; ``--lstm-bf16-bounds`` prints the text forms' bounds
+at those widths (arithmetic, no card).
+
     python3 chip_ab.py --paged-bf16-variants
 
 times the bf16 paged decode at serving's shape as the source builds it
@@ -178,57 +196,20 @@ if sys.argv[2] == "calls":
     print(json.dumps({"calls": calls}))
     sys.exit(0)
 torch.cuda.empty_cache()
-text = C.train_text(dev)[0]
-torch.cuda.empty_cache()
-print(json.dumps({"calls": calls, "train_text": text,
-                  "raw_lstm_step": RAW_LSTM_STEP(dev, C)}))
-"""
-
-#: phase 12's f32 ``ops.rnn.lstm`` step (``RAW_RNN``'s LSTM: B 64, T 100, E
-#: 128, D 512, the forward direction), timed the same way in either tree:
-#: the forward and backward against a fixed cotangent
-#: (``raw_rnn_grads``), each step on the host's clock ending in a sync, 3
-#: of warm-up, then blocks of 10 by route (fused, unfused, unfused, fused;
-#: unfused: ``fused_input_on`` off, the projection product and row 5's
-#: forward)
-RAW_LSTM_STEP = r"""
-def RAW_LSTM_STEP(dev, C, steps=10):
-    from paddle_tpu_torch.ops import rnn as R
-
-    _, b, t, e, d = C.RAW_RNN[0]
-    x, lens, w, init, cts = C.raw_rnn_inputs(dev, "lstm", b, t, e, d)
-
-    def block(n):
-        ms = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            C.raw_rnn_grads(C.raw_rnn_call, "lstm", x, lens, w, init, cts,
-                            False)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return ms
-
-    block(3)
-    on = R.fused_input_on
-    ms = {"fused": [], "unfused": []}
-    for route in ("fused", "unfused", "unfused", "fused"):
-        R.fused_input_on = on if route == "fused" else (lambda device: False)
-        try:
-            ms[route] += block(steps)
-        finally:
-            R.fused_input_on = on
-    return {f"{k}_step_ms_p50": float(np.median(v)) for k, v in ms.items()}
+text = C.train_text_bf16(dev)[0]
+print(json.dumps({"calls": calls, "train_text_bf16": text}))
 """
 
 #: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
 #: way in either tree (each tree's own wrappers): the CUDA-event ms with the
 #: L2 flushed, the host's median ms a call without a sync, and the device
 #: ms of the call's kernels alone (a trace, summed over its kernels): the
-#: f32 LSTM forward and backward (remat) at the text shape (B 64, T 128, D
-#: 1280, lengths 100; ``check_text_kernels``' inputs, the forward's hs and
-#: cs), and row 6's fused-input forward and the unfused route (the
-#: projection product and row 5's forward) at ``RAW_RNN``'s LSTM shape,
-#: the forward direction
+#: bf16 LSTM forward and backward (remat and over the stored gates) at the
+#: text shape (B 64, T 128, D 1280, lengths 100; ``check_rnn_bf16_kernels``'
+#: inputs), bf16 cuDNN ``nn.LSTM`` there (input 128 wide, no peepholes:
+#: another cell, the yardstick of scale), the CRNN's backward (xw f32 [64,
+#: 24, 256], D 64, remat) and row 6's bf16 fused-input forward at
+#: ``RAW_RNN``'s LSTM shape, the forward direction
 CALLS = r"""
 def CALLS(dev, C):
     from paddle_tpu_torch.ops.kernels import lstm as LK
@@ -271,47 +252,75 @@ def CALLS(dev, C):
                 "alone_ms": ms, "kernels": names}
 
     out = {}
+    bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(7)
     b, t, d = 64, 128, 1280
-    mask = (torch.arange(t, device=dev)[None, :] < 100).float().expand(
-        b, t).contiguous()
-    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
-    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
-    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
-    h0 = c0 = dh_t = dc_t = torch.zeros(b, d, device=dev)
-    dhs = torch.randn(b, t, d, generator=gen, device=dev)
-    out["lstm_fwd_f32"] = all3(lambda: LK._fwd_kernel(
-        xw, mask, w_h, peep, h0, c0, False, False), iters=5)
-    hs, cs = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, False)[:2]
-    out["lstm_bwd_f32"] = all3(lambda: LK._bwd_kernel(
-        xw, None, mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, False,
-        True), iters=5)
-    del xw, w_h, dhs, hs, cs
-    _, b, t, e, d = C.RAW_RNN[0]
-    x, lens, w, init, _ = C.raw_rnn_inputs(dev, "lstm", b, t, e, d)
-    m6 = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
-    rec = (w["w_h"], torch.zeros(3, d, device=dev))
-    out["lstm_fi_fwd_f32"] = all3(lambda: LK._fi_fwd_kernel(
-        x, m6, w["w_x"], w["b"], *rec, *init, False, False), iters=10)
-    out["lstm_fi_unfused_f32"] = all3(lambda: LK._fwd_kernel(
-        LK._project_xw(x, w["w_x"], w["b"]), m6, *rec, *init, False,
-        False), iters=10)
+    x = C.bf16_lstm_inputs(dev, gen, b, t, d, torch.full((b,), 100))
+    h0, c0 = torch.zeros_like(x["h0"]), torch.zeros_like(x["c0"])
+    fa = (x["xw"], x["mask"], x["w_h"], x["peep"], h0, c0, False)
+    out["lstm_fwd_bf16"] = all3(lambda: LK._fwd_kernel(*fa, False), iters=5)
+    hs, cs, gates = LK._fwd_kernel(*fa, True)[:3]
+    tail = (x["mask"], x["w_h"], x["peep"], h0, c0, hs, cs, x["dhs"],
+            x["dhT"], x["dcT"], False)
+    out["lstm_bwd_bf16"] = all3(lambda: LK._bwd_kernel(
+        x["xw"], None, *tail, True), iters=5)
+    out["lstm_bwd_bf16_stored"] = all3(lambda: LK._bwd_kernel(
+        None, gates, *tail, False), iters=5)
+    del x, fa, hs, cs, gates, tail
+    lib = torch.nn.LSTM(128, d, batch_first=True).to(dev, bf)
+    lib.flatten_parameters()
+    x_lib = torch.randn(b, t, 128, generator=gen, device=dev).to(bf)
+    x_lib.requires_grad_()
+    y_lib, _ = lib(x_lib)
+    g_lib = torch.randn_like(y_lib)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return lib(x_lib)
+
+    out["cudnn_lstm_bf16_fwd"] = all3(lib_fwd, iters=5)
+    out["cudnn_lstm_bf16_bwd"] = all3(lambda: torch.autograd.grad(
+        y_lib, (x_lib, *lib.parameters()), g_lib, retain_graph=True),
+        iters=5)
+    del lib, x_lib, y_lib, g_lib
+    cb, ct, cd = 64, 24, 64
+    cx = C.bf16_lstm_inputs(dev, gen, cb, ct, cd, torch.full((cb,), ct))
+    xwc = cx["xw"].float()
+    ch0, cc0 = torch.zeros_like(cx["h0"]), torch.zeros_like(cx["c0"])
+    chs, ccs = LK._fwd_plain(cx["xw"], cx["mask"], cx["w_h"], cx["peep"],
+                             ch0, cc0, False, False)[:2]
+    ctail = (cx["mask"], cx["w_h"], cx["peep"], ch0, cc0, chs, ccs,
+             cx["dhs"], torch.zeros_like(cx["dhT"]),
+             torch.zeros_like(cx["dcT"]), False)
+    out["lstm_bwd_bf16_crnn"] = all3(lambda: LK._bwd_kernel(
+        xwc, None, *ctail, True), iters=20)
+    _, rb, rt, re, rd = C.RAW_RNN[0]
+    xr, lens, w, init, _ = C.raw_rnn_inputs(dev, "lstm", rb, rt, re, rd)
+    m6 = (torch.arange(rt, device=dev)[None, :] < lens[:, None]).float()
+    fi = (xr.to(bf), m6, w["w_x"].to(bf), w["b"], w["w_h"].to(bf),
+          torch.zeros(3, rd, device=dev, dtype=bf), init[0].to(bf), init[1],
+          False, False)
+    out["lstm_fi_fwd_bf16"] = all3(lambda: LK._fi_fwd_kernel(*fi), iters=10)
     return out
 """
 
 
 def summary(tree: str, out: dict, seconds: float) -> dict:
-    if "train_text" not in out:
+    if "train_text_bf16" not in out:
         return {"tree": tree, "seconds": seconds, "calls": out["calls"]}
-    run = out["train_text"]
-    prof = run.get("profile", {})
+    run = out["train_text_bf16"]
+    prof = run.get("profile_bf16", {})
+    lstm = {k["name"][:60]: k["ms_per_step"] for k in prof.get(
+        "top_kernels", []) if "lstm" in k["name"]}
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
-            "train_text": {k: run.get(k) for k in (
+            "train_text_bf16": {k: run["bf16"].get(k) for k in (
                 "sequences_per_s", "step_ms_p50", "step_ms")},
-            "text_idle_share_vs_step_p50": prof.get("idle_share_vs_step_p50"),
-            "text_device_ms_per_step_by_class": prof.get(
-                "by_class_ms_per_step"),
-            "raw_lstm_step": out.get("raw_lstm_step")}
+            "train_text_f32_step_ms_p50": run["f32"].get("step_ms_p50"),
+            "text_bf16_idle_share_vs_step_p50": prof.get(
+                "idle_share_vs_step_p50"),
+            "text_bf16_lstm_device_ms_per_step": lstm,
+            "text_bf16_device_ms_per_step_by_class": prof.get(
+                "by_class_ms_per_step")}
 
 
 #: the shapes :func:`sweep` times every tile at
@@ -1536,6 +1545,297 @@ def lstm_bwd_variants() -> int:
     return 0
 
 
+#: builds of a tree's ``csrc/lstm_seq.cu`` that ``--lstm-bwd-split --bf16``
+#: times beside that tree's source, each dropping one part of the bf16
+#: backward's step (their results are wrong and not checked).  The tree
+#: before the redesign (``git show 9093cce``): the partial writes of
+#: dh_{t-1}'s f32 shares (the product kept by a test no value passes), the
+#: (B) sum over them, the remat product, ``partial_product`` with its
+#: writes, the grid barrier.  The redesign: the rounded dgates' writes to
+#: the exchange X, the dh product's first pass (``dh_part``) and second
+#: (``dh_sum``), the remat product, the two grid barriers around the first
+#: pass
+LSTM_BF16_BWD_SPLIT = {
+    "no_partial_writes": [
+        ("      if (r < rows) {\n        Pb[(size_t)k * B + r] = acc[0];",
+         "      if (r < rows && acc[0] == -1.2345e-38f) {\n"
+         "        Pb[(size_t)k * B + r] = acc[0];"),
+        ("      if (r + 8 < rows) {\n        Pb[(size_t)k * B + r + 8] = acc[2];",
+         "      if (r + 8 < rows && acc[2] == -1.2345e-38f) {\n"
+         "        Pb[(size_t)k * B + r + 8] = acc[2];")],
+    "no_sum": [(
+        "    for (int e0 = threadIdx.x; e0 < n_out; e0 += 4 * kThreadsB) {",
+        "    for (int e0 = threadIdx.x; e0 < 0 * n_out; e0 += 4 * kThreadsB) {"
+    )],
+    "no_remat_product": [(
+        "        product_bf16<S>(a, first ? D : TD, rows, D, w_s, LDK, NT, a_s, "
+        "pre);",
+        "        for (int j = 0; j < kMaxNT; ++j)\n"
+        "          for (int e = 0; e < 4; ++e) pre[j][e] = 0.f * b2f(a[0]);")],
+    "no_partial_product": [(
+        "      partial_product(dg_s, LDG, KP / 16, w_s, LDK, D,\n"
+        "                      P + (size_t)blockIdx.x * D * B + b0, B, rows);",
+        "")],
+    "no_grid_barrier": [(
+        "    grid.sync();\n    // (B) dh_{t-1} of the own units: the partials "
+        "summed in block order,\n",
+        "    // (B) dh_{t-1} of the own units: the partials summed in block "
+        "order,\n")],
+    "no_remat_product_kc": [(
+        "        product_bf16<S, kKCB, false>(a, first ? D : TD, rows, D, w_s, "
+        "LDK,\n                                     NT, a_s, pre);",
+        "        for (int j = 0; j < kMaxNT; ++j)\n"
+        "          for (int e = 0; e < 4; ++e) pre[j][e] = 0.f * b2f(a[0]);")],
+    "no_dgates_writes": [(
+        "            *reinterpret_cast<uint2*>(X + (size_t)b * 4 * D + 4 * u) =",
+        "            if (d_i == -1.2345e-38f)\n"
+        "            *reinterpret_cast<uint2*>(X + (size_t)b * 4 * D + 4 * u) =")],
+    "no_dh_part": [(
+        "      dh_part(X, wp, sp, D, B, BP, b0, nmu, ppb);", "      ;")],
+    "no_dh_sum": [("    dh_sum(part, sp, D, B, BP, U, nu, u0, dh);", "")],
+    "no_grid_barriers_dh": [(
+        "    grid.sync();\n    for (int b0 = 0; b0 < B; b0 += kRows)\n"
+        "      dh_part(", "    for (int b0 = 0; b0 < B; b0 += kRows)\n"
+        "      dh_part("), (
+        "    grid.sync();\n    dh_sum(", "    dh_sum(")]}
+
+#: timing probes of the bf16 product (``product_bf16``, the forward's and
+#: the remat backward's) and of the backward's dh product's first pass
+#: (``dh_part``), results unchecked: the ring's copies dropped (the MMAs
+#: read what the slots hold), the MMAs and their B fragments dropped (the
+#: A fragments kept live; the schedule without fragments ahead), the
+#: barrier of each slice dropped; the first pass's loads of X, its loads
+#: of W_h's part
+LSTM_BF16_PROBES = {
+    "no_ring_loads": [
+        ("    if (c < nc) load_slice_a<KC>(a_s + c * kStage, a, lda, rows, K, c);",
+         "    if (c < 0) load_slice_a<KC>(a_s + c * kStage, a, lda, rows, K, c);"),
+        ("    if (cn < nc) load_slice_a<KC>(a_s + (cn % S) * kStage, a, lda, "
+         "rows, K, cn);", "    if (cn < 0) load_slice_a<KC>(a_s + (cn % S) * "
+         "kStage, a, lda, rows, K, cn);")],
+    "no_mma": [("        const int k0 = c * KC + 16 * ks;",
+                "        const int k0 = c * KC + 16 * ks;\n"
+                "        if (k0 >= 0) {\n"
+                "          acc[0][0] += __uint_as_float(af[0] & 1u);\n"
+                "          continue;\n        }")],
+    "no_slice_sync": [(
+        "    __syncthreads();   // slice c landed; slice c - 1 read by every "
+        "warp", "")]}
+LSTM_BF16_DH_PROBES = {
+    "dh_no_x_loads": [("      x[i] = c + i < c1 && b < B",
+                       "      x[i] = c + i < c1 && b < 0")],
+    "dh_no_w_loads": [
+        ("        const uint4 w0 = m < nmu ? ld16(",
+         "        const uint4 w0 = m < 0 ? ld16("),
+        ("        const uint4 w1 = m + 8 < nmu ? ld16(",
+         "        const uint4 w1 = m + 8 < 0 ? ld16(")]}
+
+#: builds of a tree's ``csrc/lstm_seq.cu`` that ``--lstm-fwd-split --bf16``
+#: times beside that tree's source, each dropping one part of the bf16
+#: forward's step (results unchecked): the h_{t-1} W_h product, the
+#: fused-input form's x_t W_x product, the grid barrier, the cell with its
+#: stores (the product kept by a test no value passes)
+LSTM_BF16_FWD_SPLIT = {
+    "no_h_product": [(
+        "      product_bf16<S>(a, s == 0 ? D : TD, rows, D, w_s, LDK, NT, a_s, "
+        "pre);",
+        "      for (int j = 0; j < kMaxNT; ++j)\n"
+        "        for (int e = 0; e < 4; ++e) pre[j][e] = 0.f * b2f(a[0]);")],
+    "no_x_product": [(
+        "        product_bf16<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, "
+        "LDE,\n                        NT, a_s, x);",
+        "        for (int j = 0; j < kMaxNT; ++j)\n"
+        "          for (int e = 0; e < 4; ++e) x[j][e] = 0.f * b2f(in[0]);")],
+    "no_h_product_kc": [(
+        "      product_bf16<S, kKCF, kAhead>(a, s == 0 ? D : TD, rows, D, w_s, "
+        "LDK,\n                                    NT, a_s, pre);",
+        "      for (int j = 0; j < kMaxNT; ++j)\n"
+        "        for (int e = 0; e < 4; ++e) pre[j][e] = 0.f * b2f(a[0]);")],
+    "no_x_product_kc": [(
+        "        product_bf16<S, kKCF, false>(in + b0 * TE + (size_t)t * E, TE, "
+        "rows,\n                                     E, wx_s, LDE, NT, a_s, x);",
+        "        for (int j = 0; j < kMaxNT; ++j)\n"
+        "          for (int e = 0; e < 4; ++e) x[j][e] = 0.f * b2f(in[0]);")],
+    "no_grid_barrier": [(
+        "      __syncthreads();   // the sums and the ring are free for the next "
+        "chunk\n    }\n    grid.sync();\n",
+        "      __syncthreads();   // the sums and the ring are free for the next "
+        "chunk\n    }\n")],
+    "no_cell": [(
+        "          if (!rok || j >= NT || u >= D) continue;\n"
+        "          const Gates q = cell(",
+        "          if (!rok || j >= NT || u >= D || pre[j][0] != -1.2345e-38f)\n"
+        "            continue;\n          const Gates q = cell(")]}
+
+#: builds of ``csrc/lstm_seq.cu`` that ``--lstm-bf16-variants`` times
+#: beside the source's bf16 forward and backward, each held to the
+#: source's bits (no sum changes its order): the forward's ring 64 deep
+#: (the source: 128) and at most 2 stages (the source: 3); the backward's
+#: part of W_h read through L2 where it fits in shared memory; the
+#: forward's fragments loaded ahead from U 2, or never (the source: from
+#: U 8)
+LSTM_BF16_VARIANTS = {
+    "kc_64": [("constexpr int kKCF = 128;", "constexpr int kKCF = 64;")],
+    "fwd_stages_2": [("  for (int s = 3; s >= 2; --s)\n    if (PlanFwdBf16(",
+                      "  for (int s = 2; s >= 2; --s)\n    if (PlanFwdBf16(")],
+    "bwd_part_in_l2": [("  for (int p = 1; p >= 0; --p)\n    for (int s = remat",
+                        "  for (int p = 0; p >= 0; --p)\n    for (int s = remat")],
+    **{f"fwd_ahead_from_u{n}": [("constexpr int kAheadFromU = 8;",
+                                  f"constexpr int kAheadFromU = {n};")]
+       for n in (2, 99)}}
+
+#: the bf16 shapes the splits run: the text classifier's (B 64, T 128,
+#: lengths 100; ``check_rnn_bf16_kernels``) at each hidden width
+#: ``bench_lstm`` trains (``bench.py:209``), the backward in both forms
+LSTM_BF16_WIDTHS = (1280, 512, 256)
+
+
+def lstm_bf16_times(kind: str, edits: dict, tree: str = ".",
+                    widths=LSTM_BF16_WIDTHS, exact: bool = False) -> dict:
+    """The bf16 LSTM ``kind`` ("fwd" or "bwd") through this tree's
+    wrappers, its C entries built from ``tree``'s source as it is and with
+    each of ``edits`` whose lines it has (:func:`variant_fns`), in turns
+    (:func:`time_turns`), each timed alone (a trace, no flush) and with
+    the L2 flushed, at B 64, T 128, lengths 100 and each of ``widths``:
+    the forward over xw, and at D 1280 also row 6's fused-input form
+    (``RAW_RNN``'s LSTM in bf16: B 64, T 100, E 128, D 512); the backward
+    with remat and over the stored gates.  The source's outputs are held
+    to the bf16 twin's within 1e-2 relative norm first; the variants are
+    unchecked, or with ``exact`` held to the source's bits.  Returns {shape: {"turns", "mean" (each build's), and
+    "shares_ms" (the source's mean less each variant's)}}."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    dev = resolve_device(None)
+    bf = torch.bfloat16
+    kerns = ([LK.KERNEL_FWD_BF16, LK.KERNEL_FI_BF16] if kind == "fwd"
+             else [LK.KERNEL_BWD_BF16])
+    csrc = os.path.join(tree, "paddle_tpu_torch", "ops", "kernels", "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read()
+                   for f in sorted(os.listdir(csrc))
+                   if f == "lstm_seq.cu" or f.endswith(".cuh"))
+    edits = {"source": [], **{n: e for n, e in edits.items()
+                              if all(line in text for line, _ in e)}}
+    builds = C.source_fault_builds("lstm_seq", edits, csrc=csrc,
+                                   prefix=f"bf16_{kind}_{abs(hash(tree))}_")
+    entries = {n: C.planted_all(*b, kerns) for n, b in builds.items()}
+    timer = C.Timer(dev)
+    shapes = {}
+    for d in widths:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        x = C.bf16_lstm_inputs(dev, gen, 64, 128, d, torch.full((64,), 100))
+        h0 = torch.zeros_like(x["h0"])
+        c0 = torch.zeros_like(x["c0"])
+        fa = (x["xw"], x["mask"], x["w_h"], x["peep"], h0, c0, False)
+        if kind == "fwd":
+            shapes[f"text_d{d}"] = (0, lambda fa=fa: LK._fwd_kernel(
+                *fa, False), LK._fwd_plain(*fa, False), "lstm_fwd_bf16_kernel"
+                "<false")
+            continue
+        hs, cs, gates = LK._fwd_plain(*fa, True)[:3]
+        tail = (x["mask"], x["w_h"], x["peep"], h0, c0, hs, cs, x["dhs"],
+                x["dhT"], x["dcT"], False)
+        for form, args in (("remat", (x["xw"], None, *tail, True)),
+                           ("stored", (None, gates, *tail, False))):
+            shapes[f"{form}_d{d}"] = (
+                0, lambda args=args: LK._bwd_kernel(*args),
+                LK._bwd_plain(*args), "lstm_bwd_bf16_kernel")
+    if kind == "fwd" and 1280 in widths:
+        _, rb, rt, re, rd = C.RAW_RNN[0]
+        xr, lens, w, init, _ = C.raw_rnn_inputs(dev, "lstm", rb, rt, re, rd)
+        fi = (xr.to(bf), (torch.arange(rt, device=dev)[None, :]
+                          < lens[:, None]).float(), w["w_x"].to(bf), w["b"],
+              w["w_h"].to(bf), torch.zeros(3, rd, device=dev, dtype=bf),
+              init[0].to(bf), init[1], False, False)
+        shapes["row6"] = (1, lambda: LK._fi_fwd_kernel(*fi),
+                          LK._fi_fwd_plain(*fi), "lstm_fwd_bf16_kernel<true")
+    print(C.nvidia_smi(), flush=True)
+    out = {}
+    for shape, (which, call, want, key) in shapes.items():
+        kern = kerns[which]
+        first = []
+
+        def run(name, fn, kern=kern, call=call, want=want, key=key,
+                first=first):
+            kern._fn = fn
+            got = [g for g in call() if g is not None]
+            if name == "source":
+                for g, ref in zip(got, [w for w in want if w is not None]):
+                    if not C.rel_norm(g, ref) <= 1e-2:
+                        raise AssertionError(f"{tree} {shape}: vs the twin "
+                                             f"{C.rel_norm(g, ref)}")
+                first[:] = first or got
+            elif exact and not all(torch.equal(g, f)
+                                   for g, f in zip(got, first)):
+                raise AssertionError(f"{tree} {shape} {name}: not the "
+                                     "source's bits")
+            return {"alone_ms": C.device_ms([call], key), "ms": timer(call)}
+
+        fns = {n: e[which] for n, e in entries.items()
+               if not (n.startswith("no_x_product") and shape != "row6")
+               and not (n.startswith("no_remat_product")
+                        and "stored" in shape)}
+        saved = kern._fn
+        try:
+            turns = time_turns(fns, run)
+        finally:
+            kern._fn = saved
+        by = {}
+        for k, row in turns.items():
+            by.setdefault(k.split(" ", 2)[2], []).append(row)
+        mean = {n: {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+                for n, rows in by.items()}
+        out[shape] = {"turns": turns, "mean": mean, "shares_ms": {
+            n: {k: mean["source"][k] - mean[n][k] for k in mean[n]}
+            for n in mean if n != "source"}}
+        print(json.dumps({shape: {"mean": mean,
+                                  "shares_ms": out[shape]["shares_ms"]}}),
+              flush=True)
+    return out
+
+
+def lstm_bf16_bounds() -> int:
+    """The bf16 text forms' bounds (``chip_smoke.lstm_bf16_bytes_flops``,
+    2 B an element, 989 TFLOP/s, 3.35 TB/s) at B 64, T 128, lengths 100
+    and each of LSTM_BF16_WIDTHS; one JSON line (arithmetic, no card)."""
+    import chip_smoke as C
+
+    print(json.dumps({f"{kind}_d{d}": C.bound(
+        *C.lstm_bf16_bytes_flops(kind, 64, 128, d, 64 * 100),
+        C.BF16_FLOPS_PER_S) for d in LSTM_BF16_WIDTHS
+        for kind in ("fwd", "bwd")}), flush=True)
+    return 0
+
+
+def lstm_bf16_variants() -> int:
+    """:func:`lstm_bf16_times` of this tree's source and LSTM_BF16_VARIANTS,
+    the forward and the backward, each variant held to the source's bits;
+    one JSON line."""
+    print(json.dumps({f"lstm_{k}_bf16_variants": lstm_bf16_times(
+        k, LSTM_BF16_VARIANTS, exact=True) for k in ("fwd", "bwd")}),
+        flush=True)
+    return 0
+
+
+def lstm_bf16_split(kind: str, tree: str, widths=LSTM_BF16_WIDTHS,
+                    probes: bool = False) -> int:
+    """:func:`lstm_bf16_times` of ``tree``'s source and the bf16 split of
+    ``kind`` (with ``probes``, the probes of its products too) at
+    ``widths``; one JSON line with each part's share."""
+    edits = LSTM_BF16_FWD_SPLIT if kind == "fwd" else LSTM_BF16_BWD_SPLIT
+    if probes:
+        edits = {**edits, **LSTM_BF16_PROBES,
+                 **(LSTM_BF16_DH_PROBES if kind == "bwd" else {})}
+    print(json.dumps({f"lstm_{kind}_split_bf16": lstm_bf16_times(
+        kind, edits, tree, widths), "steps": {"text": 128, "row6": 100}}),
+        flush=True)
+    return 0
+
+
 #: builds of ``csrc/paged_attention.cu`` that ``--paged-bf16-variants``
 #: times beside the source's bf16 form: the row loads a thread issues
 #: before it reduces any (the source: 8), 4 and 16
@@ -1768,8 +2068,7 @@ def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     rc = 0
     for i, tree in enumerate(trees):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c",
-                               CALLS + RAW_LSTM_STEP + RUN, tree,
+        proc = subprocess.run([sys.executable, "-c", CALLS + RUN, tree,
                                "calls" if calls_only else "all"],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -1803,6 +2102,14 @@ if __name__ == "__main__":
         sys.exit(tf32_fwd_variants(args[1] if len(args) > 1 else None))
     if args == ["--paged-chunks"]:
         sys.exit(paged_chunks())
+    if args[:1] in (["--lstm-fwd-split"], ["--lstm-bwd-split"]) \
+            and "--bf16" in args:
+        i = args.index("--bf16")
+        probes = "--probes" in args
+        widths = [int(a) for a in args[i + 1:] if a != "--probes"]
+        sys.exit(lstm_bf16_split(args[0][7:10],
+                                 args[1] if i == 2 else ".",
+                                 widths or LSTM_BF16_WIDTHS, probes))
     if args[:1] == ["--lstm-fwd-split"] and len(args) <= 2:
         sys.exit(lstm_fwd_split(args[1] if len(args) > 1 else "."))
     if args[:1] == ["--lstm-bwd-split"] and len(args) <= 2:
@@ -1814,6 +2121,10 @@ if __name__ == "__main__":
         sys.exit(cluster_probe())
     if args == ["--lstm-fwd-variants"]:
         sys.exit(lstm_fwd_variants())
+    if args == ["--lstm-bf16-bounds"]:
+        sys.exit(lstm_bf16_bounds())
+    if args == ["--lstm-bf16-variants"]:
+        sys.exit(lstm_bf16_variants())
     if args == ["--lstm-bwd-variants"]:
         sys.exit(lstm_bwd_variants())
     if args == ["--paged-bf16-variants"]:

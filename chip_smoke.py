@@ -388,10 +388,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    phase 6's ``gather_checks``, in bf16: padding, its fault, the lookup
    forward one launch without a host sync), and
    planted faults that must fail (the gate halves swapped, dgates
-   unrounded in dh_{t-1}, the BiLSTM's projection rounded); each timed
-   with the L2 flushed and alone (a trace) beside its twin, its bound (2
-   B an element, 989 TFLOP/s) and bf16 cuDNN ``nn.LSTM`` or
-   ``F.embedding``.  The bf16 witness steps of the two nets at a cut
+   unrounded in dh_{t-1}, the BiLSTM's projection rounded, and in a
+   build of the source the dh product's second pass leaving a part out:
+   ``LSTM_BF16_FAULTS``); each timed with the L2 flushed and alone (a
+   trace) beside its twin, its bound (2 B an element, 989 TFLOP/s) and
+   bf16 cuDNN ``nn.LSTM`` or ``F.embedding``, the text backward's
+   stored-gates form timed beside its remat form on one line.  The bf16 witness steps of the two nets at a cut
    width (``rnn_bf16_witness``: every gradient leaf and the loss on the
    card and the CPU within 2x the JAX package's own bf16 error plus 2^-8;
    dW_h over unshifted stacks must exceed it; a rerun in the same bits).
@@ -7613,6 +7615,14 @@ def lstm_bf16_bwd_agreement(got, forced, mask, reverse) -> dict:
     return a
 
 
+#: the bf16 LSTM backward's planted kernel fault (csrc/lstm_seq.cu): the
+#: dh product's second pass leaves the part of each group's second block
+#: out of the sum, so dh_{t-1} misses an eighth of the rounded dgates' k
+LSTM_BF16_FAULTS = {"part_left_out": [(
+    "    for (int j = 1; j < sp.P; ++j) {",
+    "    for (int j = 2; j < sp.P; ++j) {")]}
+
+
 def halves_swapped(run):
     """``run()`` with the twin's cell taking the (g, o) pre-activations
     for (i, f) and the reverse: the planted fault of the bf16 forms'
@@ -7766,6 +7776,24 @@ def lstm_bf16_case(x, reverse, xw=None) -> dict:
     return out
 
 
+def bf16_kernel_fault(case_args, fn) -> dict:
+    """The bf16 remat backward on ``lstm_bf16_case``'s arguments with the
+    planted library entry ``fn`` in place of the kernel's, against the
+    forced float64 steps of its own dgates (the fault must fail them)."""
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    xw, gates, *args = case_args
+    kern = LK.KERNEL_BWD_BF16
+    saved, kern._fn = kern._fn, fn
+    try:
+        bad = LK._bwd_kernel(xw, None, *args, True)
+    finally:
+        kern._fn = saved
+    return lstm_bf16_bwd_agreement(
+        bad, lstm_bf16_forced_bwd(gates, *args[:-1], args[-1], bad[0]),
+        args[0], args[-1])
+
+
 def lstm_bf16_e2e(x, reverse, hs, dgates) -> dict:
     """End to end: the form's hs and dgates, and the bf16 twin's, each
     against the float64 run of the same inputs (relative norm); the
@@ -7850,6 +7878,26 @@ def bilstm_bf16_case(xs, mask, fw, bw, gen) -> dict:
     return out
 
 
+def lstm_bf16_bytes_flops(kind: str, b: int, t: int, d: int,
+                          steps: float) -> tuple[float, float]:
+    """(bytes, operations) of the bf16 LSTM text form ``kind`` at [B, T,
+    D] with ``steps`` valid (row, step) pairs: the forward reads xw, W_h,
+    peep, h0 in bf16 and c0, mask in f32 and writes hs in bf16, cs, h_T,
+    c_T in f32; the backward reads xw, W_h, peep, h0, hs, dhs in bf16 and
+    mask, c0, cs, dh_T, dc_T in f32 and writes dgates, dh0, dc0, dpeep in
+    f32, the remat product and dgates W_h^T beside the cells."""
+    cell = 25.0 * steps * d
+    if kind == "fwd":
+        return (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d)
+                + 4 * (b * d + b * t) + 2 * b * t * d
+                + 4 * (b * t * d + 2 * b * d),
+                2.0 * steps * d * 4 * d + cell)
+    return (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d + 2 * b * t * d)
+            + 4 * (b * t + b * t * d + 3 * b * d)
+            + 4 * (b * t * 4 * d + 2 * b * d + 3 * d),
+            4.0 * steps * d * 4 * d + 2 * cell)
+
+
 def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
                            crnn=(64, 24, 256, 64),
                            ids=(8192, 30000)) -> tuple[list, dict]:
@@ -7885,11 +7933,16 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
             raise AssertionError(f"bf16 rnn forms, {what}: {detail}")
 
     # (a) the text path: lstmemory at B 64, T 128, lengths 100, D 1280
+    bwd_fault = source_fault_builds("lstm_seq", LSTM_BF16_FAULTS,
+                                    prefix="bf16_")
     b, t, d, length, embed = text
     x = bf16_lstm_inputs(dev, gen, b, t, d, torch.full((b,), length))
     x["h0"] = torch.zeros_like(x["h0"])
     x["c0"] = torch.zeros_like(x["c0"])
     case = lstm_bf16_case(x, False)
+    case["faults"]["part_left_out"] = bf16_kernel_fault(
+        case["args"], planted(*bwd_fault["part_left_out"],
+                              LK.KERNEL_BWD_BF16))
     must(all(case["bits"].values()), "text bits", case["bits"])
     must(case["fwd"]["ok"] and case["bwd"]["ok"], "text vs forced steps",
          {k: case[k] for k in ("fwd", "bwd")})
@@ -7900,7 +7953,7 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
     summary["text"] = {k: case[k] for k in ("fwd", "bwd", "faults", "bits")}
     summary["text"]["end_to_end"] = e2e
     xw, gates, *args = case["args"]
-    del case, gates
+    del case
     m, w, p, h0, c0, hs, cs = args[:7]
     fwd_args = (xw, m, w, p, h0, c0, False, False)
     fwd = lambda: LK._fwd_kernel(*fwd_args)                  # noqa: E731
@@ -7920,7 +7973,6 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
             return cudnn(x_emb)
 
     steps = float(m.sum().item())
-    cell = 25.0 * steps * d
     rows += [{
         "name": "lstm_seq_fwd_bf16", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
@@ -7931,10 +7983,7 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
         "plain_ms": timer(fwd_plain),
         # xw, W_h, peep, h0 bf16 and c0, mask f32 in; hs bf16, cs, h_T,
         # c_T f32 out
-        "bytes_flops": (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d)
-                        + 4 * (b * d + b * t) + 2 * b * t * d
-                        + 4 * (b * t * d + 2 * b * d),
-                        2.0 * steps * d * 4 * d + cell),
+        "bytes_flops": lstm_bf16_bytes_flops("fwd", b, t, d, steps),
         "library_ms": timer(lib_fwd)}, {
         "name": "lstm_seq_bwd_bf16", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
@@ -7943,18 +7992,21 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
         "max_abs_err": summary["text"]["bwd"]["max_abs_err"],
         "ms": timer(bwd), "alone_ms": device_ms([bwd], "lstm_bwd_bf16"),
         "plain_ms": timer(bwd_plain),
-        # xw, W_h, peep, h0, hs, dhs bf16 and mask, c0, cs, dh_T, dc_T f32
-        # in; dgates, dh0, dc0, dpeep f32 out; the remat product and
-        # dgates W_h^T
-        "bytes_flops": (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d
-                             + 2 * b * t * d)
-                        + 4 * (b * t + b * t * d + 3 * b * d)
-                        + 4 * (b * t * 4 * d + 2 * b * d + 3 * d),
-                        4.0 * steps * d * 4 * d + 2 * cell),
+        "bytes_flops": lstm_bf16_bytes_flops("bwd", b, t, d, steps),
         "library_ms": timer(lambda: torch.autograd.grad(
             out_lib, lib_params, g_lib, retain_graph=True))}]
-    del x, xw, args, fwd_args, hs, cs, out_lib, g_lib, lib_params, x_lib
-    del cudnn, x_emb, m, w, p, h0, c0
+    # the stored-gates form beside the remat one (the same bits, checked
+    # in the case above): what routing the backward by its slab needs
+    stored = lambda: LK._bwd_kernel(None, gates, *args, False)  # noqa: E731
+    rows[-1]["stored_ms"] = timer(stored)
+    rows[-1]["stored_alone_ms"] = device_ms([stored], "lstm_bwd_bf16")
+    summary["text_bwd_forms_ms"] = {
+        k: rows[-1][k] for k in ("ms", "alone_ms", "stored_ms",
+                                 "stored_alone_ms")}
+    print(json.dumps({"lstm_bwd_bf16_text_remat_vs_stored":
+                      summary["text_bwd_forms_ms"]}), flush=True)
+    del x, xw, gates, args, fwd_args, hs, cs, out_lib, g_lib, lib_params
+    del x_lib, cudnn, x_emb, m, w, p, h0, c0
 
     # (b) the CRNN: the BiLSTM forward at x [64, 24, 256], D 64, and the
     # LSTM backward over its f32 projection, both directions

@@ -988,21 +988,23 @@ extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
 // remat gates rounded through bf16, dh_{t-1} from dgates rounded to bf16,
 // dgates, dpeep, dh0 and dc0 out in f32.
 //
-// Plan (PlanBf16; ops/kernels/lstm.py's _bf16_smem_bytes mirrors it).  A
-// block owns an even number U of units (ceil(D / SMs) rounded up: D 1280
-// on 132 SMs gives U 10, 128 blocks; D 64 gives U 2, 32 blocks), so its 4U
-// gate columns, packed [U][4] (a unit's four gates side by side), are
-// U / 2 whole n8 tiles of two units each.  It keeps W_h's slice
-// transposed, [KP][LDK] bf16: row 4 uu + g, the reduction (D) contiguous;
-// rows past 4U are zero up to KP = 16 ceil(4U / 16) (the depth of the
-// backward's product: 40 columns pad to 48), columns past D zero up to a
-// multiple of 16 plus 8 (an odd count of 16-byte groups: the 8 rows an
-// ldmatrix phase reads fall in distinct banks).  At D 1280, U 10: 123,648
-// bytes, against 102,400 unpadded.  The h rows stream through a ring of
-// 64 x 64 slices (cp.async.cg, L2).  Eight warps: warp w takes row tile
-// w % 4 (16 of a 64-row chunk) and every other 16-deep step of the
-// reduction (w / 4); the second half's sums go through shared memory and
-// the first half adds them, in that order, so a rerun gives the same bits.
+// Plan (PlanFwdBf16, PlanBwdBf16, SplitBf16; ops/kernels/lstm.py's
+// _bf16_fwd_bytes, _bf16_bwd_bytes and _bf16_split mirror them).  A block
+// owns an even number U of units (ceil(D / SMs) rounded up: D 1280 on 132
+// SMs gives U 10, 128 blocks; D 64 gives U 2, 32 blocks), so its 4U gate
+// columns, packed [U][4] (a unit's four gates side by side), are U / 2
+// whole n8 tiles of two units each.  It keeps W_h's slice transposed,
+// [4U][LDK] bf16: row 4 uu + g, the reduction (D) contiguous, columns
+// past D zero up to a multiple of 16 plus 8 (an odd count of 16-byte
+// groups: the 8 rows an ldmatrix phase reads fall in distinct banks).  At
+// D 1280, U 10: 103,040 bytes.  The h rows stream through a ring of
+// slices (cp.async.cg, L2): 64 x 128 in the forward, as many stages as fit
+// up to 3; 64 x 64 in the remat backward, whose block also holds its part
+// of W_h for the dh product.  Eight warps: warp w takes row tile w % 4 (16
+// of a 64-row chunk) and every other 16-deep step of the reduction (w /
+// 4); the second half's sums go through shared memory and the first half
+// adds them, in that order, so a rerun gives the same bits (and the
+// ring's depth does not move them).
 //
 // The cell from the accumulators.  In an m16n8 accumulator the lane with
 // lane % 4 = q holds columns 2q, 2q + 1 of rows g and g + 8 (g = lane / 4):
@@ -1015,23 +1017,30 @@ extern "C" int lstm_bwd_f32(const float* xw, const float* gates_in,
 // Backward, reverse time, per step: (A) the gates (recomputed by the
 // forward's product and cell, rounded through bf16, or read from the
 // slab), the cotangents in f32 from dh = carry + dhs[t] and the dc carry,
-// dgates written in f32 and, rounded to bf16, into a [64][KP + 8] tile
-// (dead cells and the pad columns zero); this block's share of dh_{t-1},
-// P[block][k][b] = sum over its 4U columns c of dgates[b, c] W_h[k, c], is
-// one product of that tile (K = KP, zero-padded) by the W slice read
-// transposed (ldmatrix.trans), written in f32 for every k.  Grid barrier.
-// (B) dh_{t-1} of the own units: the f32 partials summed in block order.
-// No atomics, so reruns are bit-identical.
+// dgates written in f32 and, rounded to bf16, to an exchange X [B][4D]
+// (column 4 u + g).  Grid barrier.  (B) dh_{t-1} = X W_h^T, the JAX
+// kernel's single dot over the rounded dgates (lstm.py:196-197,
+// :410-411), in two passes with f32 sums: (B1) the blocks in groups of up
+// to 8, each block of a group taking an eighth of X's columns for every
+// unit of the group against its part of W_h (kept in shared memory where
+// it fits: 107,520 bytes at D 1280), its partial sums to scratch; grid
+// barrier; (B2) each block adds the group's partials of its own units in
+// block order.  At B 64, D 1280 a block reads 82 KB of X and writes and
+// reads 20 KB of partials a step, against the 42 MB of f32 shares of
+// dh_{t-1} a step all blocks exchanged before (on an H100 80GB HBM3 at
+// 700 W that design's product and sum took 7.3 of its 9.4 ms), or 655 KB
+// of X a block with W_h's rows through L2 for one pass (3.2 ms of 6.6 on
+// the same card).  No atomics, so reruns are
+// bit-identical, and both forms run the same passes on the same bits.
 //
 // What bounds them on an H100: the step-to-step chain.  At B 64, D 1280 a
 // step's product is 0.84 GFLOP (0.85 us at 989 TFLOP/s) but every block
 // reads all of h_{t-1} (160 KB) through L2 each step, and the backward
-// writes and reads its f32 partials (42 MB a step at 128 blocks) before
-// the next step can start.
+// adds two grid barriers a step around the dh product's passes.
 //
 // The fused-input form, lstm_fi_fwd_bf16 (lstm.py::lstm_seq_fi's
 // _fwd_fi_kernel with bf16 operands): the forward above, one template
-// flag, with the block's slice of W_x packed as W_h's ([KP][LDK(E)], at
+// flag, with the block's slice of W_x packed as W_h's ([4U][LDK(E)], at
 // E 128, U 4: 4,352 bytes) in shared memory before W_h's.  Each step first
 // stages the x_t rows of the chunk through the same ring and takes x_t W_x
 // with the same product and gate gather, adds the f32 bias and keeps the
@@ -1050,29 +1059,78 @@ namespace tc = bf16_tc;
 
 constexpr int kWarpsB = 8;                // 4 row tiles x 2 halves of K
 constexpr int kThreadsB = 32 * kWarpsB;
-constexpr int kKC = 64;                   // depth of a staged slice of h
-constexpr int kALd = kKC + 8;             // its padded row (bf16)
-constexpr int kStageB = kRows * kALd;     // bf16 elements a stage
+constexpr int kKCF = 128;                 // the forward's slices of h: k
+constexpr int kKCB = 64;                  // the remat backward's
 constexpr int kMaxNT = kMaxUnits / 2;     // n8 tiles of a block's columns
+constexpr int kChunkK = 32;               // k of a dh product's chunk
+constexpr int kGroupK = 8;                // blocks that split X's k, at most
+constexpr int kAheadFromU = 8;            // the forward loads fragments ahead
+constexpr int kMaxMT = kGroupK * kMaxUnits / 16;  // m16 tiles of a group
 
+// bf16 elements of a staged slice of kRows rows, KC deep (rows padded by
+// 8: an odd count of 16-byte groups, conflict-free ldmatrix)
+__host__ __device__ constexpr int stage_elems(int KC) {
+  return kRows * (KC + 8);
+}
 __host__ __device__ inline int ld_k(int D) { return 16 * ((D + 15) / 16) + 8; }
-__host__ __device__ inline int rows_kp(int U) {
-  return 16 * ((4 * U + 15) / 16);
+__host__ __device__ inline size_t max_sz(size_t a, size_t b) {
+  return a > b ? a : b;
 }
 
-// bytes: the W slice (the fused-input forward: W_x's [KP][LDK(E)], then
-// W_h's); the ring of A slices or the halves' f32 sums; the backward's
-// rounded dgates tile [kRows][KP + 8] and dpeep terms [3][kRows][U]
-struct PlanBf16 {
-  size_t wx, w, region, total;
-  __host__ __device__ PlanBf16(int D, int U, int stages, int E = 0) {
-    wx = E > 0 ? (size_t)rows_kp(U) * ld_k(E) * 2 : 0;
-    w = wx + (size_t)rows_kp(U) * ld_k(D) * 2;
-    const size_t ring = (size_t)stages * kStageB * 2;
-    const size_t sums = (size_t)kRows * 4 * U * 4;
-    region = ring > sums ? ring : sums;
-    total = w + region + (size_t)kRows * (rows_kp(U) + 8) * 2 +
-            (size_t)3 * kRows * U * 4;
+// The backward's dh product in two passes: the grid's blocks in groups of
+// P (the largest divisor of the grid up to kGroupK), block kk of a group
+// taking X's chunks [kk nch / P, (kk + 1) nch / P) of nch = 4D / kChunkK
+// for the group's MP = P U units.  Its part of W_h is [MP][LDP] bf16: row
+// m, column k - its first chunk's k = W_h[group's first unit + m][...] in
+// X's column order, zero past D and past its chunks; LDP = KR rounded up
+// to 64, + 32 (rows 64 bytes apart mod 128: the 16-byte loads of two rows
+// fall in distinct banks).
+struct SplitBf16 {
+  int P, MP, KR, LDP;
+  __host__ __device__ SplitBf16(int D, int U, int grid) {
+    P = 1;
+    for (int p = kGroupK; p > 1; --p)
+      if (grid % p == 0) {
+        P = p;
+        break;
+      }
+    MP = P * U;
+    const int nch = 4 * D / kChunkK;
+    KR = kChunkK * ((nch + P - 1) / P);
+    LDP = 64 * ((KR + 63) / 64) + 32;
+  }
+  __host__ __device__ size_t part_bytes() const {
+    return (size_t)MP * LDP * 2;
+  }
+};
+
+// bytes of a forward block: W_x's slice [4U][LDK(E)] (the fused-input
+// form), W_h's [4U][LDK(D)], then the ring of `stages` slices
+// [kRows][kKCF + 8] or the halves' f32 sums [kRows][4U]
+struct PlanFwdBf16 {
+  size_t wx, w, total;
+  __host__ __device__ PlanFwdBf16(int D, int U, int stages, int E) {
+    wx = E > 0 ? (size_t)4 * U * ld_k(E) * 2 : 0;
+    w = wx + (size_t)4 * U * ld_k(D) * 2;
+    total = w + max_sz((size_t)stages * stage_elems(kKCF) * 2,
+                       (size_t)kRows * 4 * U * 4);
+  }
+};
+
+// bytes of a backward block: W_h's column slice [4U][LDK(D)] (remat), the
+// region (the remat ring of `stages` slices [kRows][kKCB + 8], or the
+// halves' f32 sums [kRows][4U] and the dpeep terms [3][kRows][U] after
+// them), then the block's part of W_h where `part` (else read where it
+// lies)
+struct PlanBwdBf16 {
+  size_t region, wp, total;
+  __host__ __device__ PlanBwdBf16(int D, int U, int stages, bool remat,
+                                  bool part, int grid) {
+    region = remat ? (size_t)4 * U * ld_k(D) * 2 : 0;
+    wp = region + max_sz(remat ? (size_t)stages * stage_elems(kKCB) * 2 : 0,
+                         (size_t)kRows * 4 * U * 4 +
+                             (size_t)3 * kRows * U * 4);
+    total = wp + (part ? SplitBf16(D, U, grid).part_bytes() : 0);
   }
 };
 
@@ -1096,23 +1154,31 @@ __device__ __forceinline__ void load_slice_bf16(bf16* w_s, const bf16* wpack,
   for (size_t e = threadIdx.x; e < elems / 8; e += blockDim.x) dst[e] = src[e];
 }
 
-// Stage slice c of A (rows [0, rows) at a + r * lda, columns c kKC ..
-// c kKC + kKC - 1, zero past rows and K) into buf [kRows][kALd].
+// Stage slice c of A (rows [0, rows) at a + r * lda, columns c KC ..
+// c KC + KC - 1, zero past rows and K) into buf [kRows][KC + 8].
+template <int KC>
 __device__ __forceinline__ void load_slice_a(bf16* buf, const bf16* a,
                                              size_t lda, int rows, int K,
                                              int c) {
-  for (int p = threadIdx.x; p < kRows * (kKC / 8); p += kThreadsB) {
-    const int r = p / (kKC / 8), q = p % (kKC / 8);
-    const int k = c * kKC + 8 * q;
+  for (int p = threadIdx.x; p < kRows * (KC / 8); p += kThreadsB) {
+    const int r = p / (KC / 8), q = p % (KC / 8);
+    const int k = c * KC + 8 * q;
     const bool ok = r < rows && k < K;
-    tc::cp_async16(buf + r * kALd + 8 * q, ok ? a + r * lda + k : a, ok);
+    tc::cp_async16(buf + r * (KC + 8) + 8 * q, ok ? a + r * lda + k : a, ok);
   }
 }
 
 // acc[j] = the m16n8 tile (row tile warp % 4, columns 8j..8j+7 of the
 // block's 4U) of A [rows x K] . W, over this warp's half of the 16-deep
-// steps (warp / 4: every other step).  Every thread of the block calls it.
-template <int S>
+// steps (warp / 4: every other step), A staged through a ring of S slices
+// KC deep.  The half takes the same steps in the same order whatever KC
+// (every other one of all K / 16), so KC and S do not move the sums.
+// kAhead: each step's fragments are all loaded before its MMAs and the
+// next step's while they run (the ldmatrix and mma asm keep their order,
+// so the order in the source is the schedule); it costs 40 registers, so
+// only the forward over xw takes it, from U 8.  Either schedule runs the
+// same MMAs in the same order.  Every thread of the block calls it.
+template <int S, int KC, bool kAhead>
 __device__ __forceinline__ void product_bf16(const bf16* a, size_t lda,
                                              int rows, int K, const bf16* w_s,
                                              int LDK, int NT, bf16* a_s,
@@ -1123,33 +1189,63 @@ __device__ __forceinline__ void product_bf16(const bf16* a, size_t lda,
   for (int j = 0; j < kMaxNT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const int nc = (K + kKC - 1) / kKC;
+  constexpr int kStage = stage_elems(KC);
+  const int nc = (K + KC - 1) / KC;
 #pragma unroll
   for (int c = 0; c < S - 1; ++c) {
-    if (c < nc) load_slice_a(a_s + c * kStageB, a, lda, rows, K, c);
+    if (c < nc) load_slice_a<KC>(a_s + c * kStage, a, lda, rows, K, c);
     tc::cp_async_commit();
   }
   for (int c = 0; c < nc; ++c) {
     tc::cp_async_wait<S - 2>();
-    __syncthreads();
+    __syncthreads();   // slice c landed; slice c - 1 read by every warp
     const int cn = c + S - 1;
-    if (cn < nc) load_slice_a(a_s + (cn % S) * kStageB, a, lda, rows, K, cn);
+    if (cn < nc) load_slice_a<KC>(a_s + (cn % S) * kStage, a, lda, rows, K, cn);
     tc::cp_async_commit();
-    const bf16* buf = a_s + (c % S) * kStageB;
-    const int nks = (min(kKC, K - c * kKC) + 15) / 16;
-    for (int ks = kh; ks < nks; ks += 2) {
-      uint32_t af[4];
-      tc::ldmatrix_x4(af, buf + (16 * mi + (lane & 15)) * kALd + 16 * ks +
-                              8 * (lane >> 4));
-      const int k0 = c * kKC + 16 * ks;
+    const bf16* buf = a_s + (c % S) * kStage;
+    const int nks = (min(KC, K - c * KC) + 15) / 16;
+    if (!kAhead) {
+      for (int ks = kh; ks < nks; ks += 2) {
+        uint32_t af[4];
+        tc::ldmatrix_x4(af, buf + (16 * mi + (lane & 15)) * (KC + 8) +
+                                16 * ks + 8 * (lane >> 4));
+        const int k0 = c * KC + 16 * ks;
 #pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) {
-        if (j >= NT) break;
-        uint32_t b[2];
-        tc::ldmatrix_x2(b, w_s + (size_t)(8 * j + (lane & 7)) * LDK + k0 +
-                               8 * ((lane >> 3) & 1));
-        tc::mma_bf16(acc[j], af, b[0], b[1]);
+        for (int j = 0; j < kMaxNT; ++j) {
+          if (j >= NT) break;
+          uint32_t b[2];
+          tc::ldmatrix_x2(b, w_s + (size_t)(8 * j + (lane & 7)) * LDK + k0 +
+                                 8 * ((lane >> 3) & 1));
+          tc::mma_bf16(acc[j], af, b[0], b[1]);
+        }
       }
+      continue;
+    }
+    // a step's fragments: A the row tile's 16 x 16, B every n8 tile's
+    auto frags = [&](int ks, uint32_t (&af)[4], uint32_t (&bf)[kMaxNT][2]) {
+      tc::ldmatrix_x4(af, buf + (16 * mi + (lane & 15)) * (KC + 8) +
+                              16 * ks + 8 * (lane >> 4));
+      const bf16* wk = w_s + (size_t)(lane & 7) * LDK + c * KC + 16 * ks +
+                       8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j)
+        if (j < NT) tc::ldmatrix_x2(bf[j], wk + (size_t)8 * j * LDK);
+    };
+    auto mmas = [&](const uint32_t (&af)[4],
+                    const uint32_t (&bf)[kMaxNT][2]) {
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j)
+        if (j < NT) tc::mma_bf16(acc[j], af, bf[j][0], bf[j][1]);
+    };
+    uint32_t a0[4], b0[kMaxNT][2], a1[4], b1[kMaxNT][2];
+    int ks = kh;
+    if (ks < nks) frags(ks, a0, b0);
+    for (; ks < nks; ks += 4) {
+      if (ks + 2 < nks) frags(ks + 2, a1, b1);
+      mmas(a0, b0);
+      if (ks + 2 >= nks) break;
+      if (ks + 4 < nks) frags(ks + 4, a0, b0);
+      mmas(a1, b1);
     }
   }
   __syncthreads();       // every slice read: the ring is free
@@ -1194,12 +1290,12 @@ __device__ __forceinline__ void gather_gates(float* sums, int NT,
 }
 
 // kFi: `in` is raw x [B, T, E] bf16 and the block keeps W_x's slice
-// (wxpack, [KP][LDK(E)], packed as W_h's) before W_h's; each step's gate
+// (wxpack, [4U][LDK(E)], packed as W_h's) before W_h's; each step's gate
 // input is x_t W_x with f32 sums plus the f32 bias, kept in f32 and never
 // rounded (lstm.py:633-635), and then h_{t-1} W_h is added as the forward
 // over xw adds it.  Otherwise `in` is xw [B, T, 4D] bf16 (E, wxpack and
 // bias unused).
-template <bool kFi, int S>
+template <bool kFi, int S, bool kAhead>
 __global__ void __launch_bounds__(kThreadsB, 1)
 lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
                      const float* __restrict__ mask,
@@ -1211,7 +1307,7 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
                      float* hT, float* cT, int B, int T, int E, int D, int U,
                      int reverse) {
   extern __shared__ float4 smem4[];
-  const PlanBf16 plan(D, U, S, kFi ? E : 0);
+  const PlanFwdBf16 plan(D, U, S, kFi ? E : 0);
   char* base = reinterpret_cast<char*>(smem4);
   bf16* wx_s = reinterpret_cast<bf16*>(base);             // kFi
   bf16* w_s = reinterpret_cast<bf16*>(base + plan.wx);
@@ -1222,8 +1318,8 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
   const bool first_half = (threadIdx.x >> 5) < 4;
   const int rl = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (lane & 1);
   const int u0 = blockIdx.x * U + ((lane >> 1) & 1);  // + 2j in tile j
-  if (kFi) load_slice_bf16(wx_s, wxpack, (size_t)rows_kp(U) * LDE);
-  load_slice_bf16(w_s, wpack, (size_t)rows_kp(U) * LDK);
+  if (kFi) load_slice_bf16(wx_s, wxpack, (size_t)4 * U * LDE);
+  load_slice_bf16(w_s, wpack, (size_t)4 * U * LDK);
   float pp[kMaxNT][3];
 #pragma unroll
   for (int j = 0; j < kMaxNT; ++j) {
@@ -1247,8 +1343,8 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
       const float m = rok ? mask[(size_t)b * T + t] : 0.f;
       if (kFi) {
         // x_t W_x over the own columns, then + b: the f32 gate input
-        product_bf16<S>(in + b0 * TE + (size_t)t * E, TE, rows, E, wx_s, LDE,
-                        NT, a_s, x);
+        product_bf16<S, kKCF, false>(in + b0 * TE + (size_t)t * E, TE, rows,
+                                     E, wx_s, LDE, NT, a_s, x);
         gather_gates(sums, NT, x);
         __syncthreads();   // the sums are read: the ring may be refilled
       }
@@ -1273,7 +1369,8 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
       float pre[kMaxNT][4];
       const bf16* a = s == 0 ? h0 + (size_t)b0 * D
                              : hs + b0 * TD + (size_t)tp * D;
-      product_bf16<S>(a, s == 0 ? D : TD, rows, D, w_s, LDK, NT, a_s, pre);
+      product_bf16<S, kKCF, kAhead>(a, s == 0 ? D : TD, rows, D, w_s, LDK,
+                                    NT, a_s, pre);
       gather_gates(sums, NT, pre);
       if (first_half) {
 #pragma unroll
@@ -1307,48 +1404,116 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
   }
 }
 
-// Pb[k][r] (rows r < rows; Pb is this block's [D][B] share at column b0)
-// = sum over the tile's KP columns c of dg_s[r][c] W_h[k][c] for every k
-// < D: the rounded dgates tile as A, the W slice [c][k] as B through
-// ldmatrix.trans; warp w takes the n8 tiles of k w, w + 8, ...
-__device__ __forceinline__ void partial_product(const bf16* dg_s, int LDG,
-                                                int KS, const bf16* w_s,
-                                                int LDK, int D, float* Pb,
-                                                int B, int rows) {
+// (B1) of the backward, the first pass of dh_{t-1}: this block's part of
+// the product over its chunks of X for every unit of its group, the rows
+// [b0, b0 + kRows), as m16n8k16 tiles D^T[m][b] = sum over its k of
+// wp[m][k] X[b][k]: A the block's part of W_h (wp, in shared memory or
+// where it lies), B the step's dgates rounded to bf16 (X[b][4 u + g],
+// written by every block before the grid barrier, read through L2).  A
+// lane's 16-byte load of a row covers 8 of a chunk's 32 k (kChunkK): its
+// registers .x .y feed one MMA and .z .w the next, the same for A and B,
+// so each MMA sums 16 of the chunk's k (permuted, none skipped).  Warp w
+// takes the n8 tile of rows b0 + 8w .. + 7 and every m16 tile of the
+// group's units, its chunks in order, four chunks' loads of X in flight
+// while the four before are multiplied.  Writes pp [MP][BP] f32 (rows of
+// the group's units past `nmu` not written).
+__device__ __forceinline__ uint4 ld16(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void dh_part(const bf16* X, const bf16* wp,
+                                        const SplitBf16& sp, int D, int B,
+                                        int BP, int b0, int nmu, float* pp) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
-  uint32_t af[4][4][4];   // [row tile][16-deep step][register]
+  const int K4 = 4 * D, nch = K4 / kChunkK, kk = blockIdx.x % sp.P;
+  const int c0 = kk * nch / sp.P, c1 = (kk + 1) * nch / sp.P;
+  const int b = b0 + 8 * warp + g;          // this lane's row of X
+  const int MT = (nmu + 15) / 16;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  float acc[kMaxMT][4];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < kMaxMT; ++mt)
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      if (ks < KS)
-        tc::ldmatrix_x4(af[mt][ks], dg_s + (16 * mt + (lane & 15)) * LDG +
-                                        16 * ks + 8 * (lane >> 4));
-  for (int nt = warp; nt < D / 8; nt += kWarpsB) {
-    uint32_t bfr[4][2];
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  const bf16* xr = X + (size_t)b * K4 + 8 * q;
+  auto load = [&](uint4 (&x)[4], int c) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      if (ks < KS)
-        tc::ldmatrix_x2_trans(bfr[ks], w_s + (size_t)(16 * ks + (lane & 15)) *
-                                                 LDK + 8 * nt);
-    const int k = 8 * nt + 2 * q;
+    for (int i = 0; i < 4; ++i)
+      x[i] = c + i < c1 && b < B
+                 ? __ldcg(reinterpret_cast<const uint4*>(
+                       xr + (size_t)(c + i) * kChunkK))
+                 : z;
+  };
+  auto multiply = [&](const uint4 (&x)[4], int c) {
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      if (16 * mt >= rows) break;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < 4; ++i) {
+      if (c + i >= c1) break;
+      const bf16* wk = wp + (c + i - c0) * kChunkK + 8 * q;
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        if (ks < KS) tc::mma_bf16(acc, af[mt][ks], bfr[ks][0], bfr[ks][1]);
-      const int r = 16 * mt + g;
-      if (r < rows) {
-        Pb[(size_t)k * B + r] = acc[0];
-        Pb[(size_t)(k + 1) * B + r] = acc[1];
+      for (int mt = 0; mt < kMaxMT; ++mt) {
+        if (mt >= MT) break;
+        const int m = 16 * mt + g;
+        const uint4 w0 = m < nmu ? ld16(wk + (size_t)m * sp.LDP) : z;
+        const uint4 w1 = m + 8 < nmu ? ld16(wk + (size_t)(m + 8) * sp.LDP) : z;
+        const uint32_t a0[4] = {w0.x, w1.x, w0.y, w1.y};
+        const uint32_t a1[4] = {w0.z, w1.z, w0.w, w1.w};
+        tc::mma_bf16(acc[mt], a0, x[i].x, x[i].y);
+        tc::mma_bf16(acc[mt], a1, x[i].z, x[i].w);
       }
-      if (r + 8 < rows) {
-        Pb[(size_t)k * B + r + 8] = acc[2];
-        Pb[(size_t)(k + 1) * B + r + 8] = acc[3];
-      }
+    }
+  };
+  uint4 xa[4], xb[4];
+  load(xa, c0);
+  for (int c = c0; c < c1; c += 8) {
+    load(xb, c + 4);
+    multiply(xa, c);
+    if (c + 4 >= c1) break;
+    load(xa, c + 8);
+    multiply(xb, c + 4);
+  }
+  const int r = b0 + 8 * warp + 2 * q;
+#pragma unroll
+  for (int mt = 0; mt < kMaxMT; ++mt) {
+    if (mt >= MT) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * mt + g + 8 * h;
+      if (m < nmu)
+        *reinterpret_cast<float2*>(pp + (size_t)m * BP + r) =
+            make_float2(acc[mt][2 * h], acc[mt][2 * h + 1]);
+    }
+  }
+}
+
+// (B2), the second pass: dh_{t-1} of the own units (the group's rows kk U
+// + m, m < nu) summed over the P parts of the group in block order, four
+// rows a 16-byte load, then added to the carry's (1 - m) dh term.  No
+// atomics: a rerun gives the same bits, and the remat and stored forms
+// run the same passes on the same rounded dgates.
+__device__ __forceinline__ void dh_sum(const float* pp, const SplitBf16& sp,
+                                       int D, int B, int BP, int U, int nu,
+                                       int u0, float* dh) {
+  const int kk = blockIdx.x % sp.P, g0 = blockIdx.x - kk;
+  const int nq = (B + 3) / 4;
+  for (int e = threadIdx.x; e < nu * nq; e += kThreadsB) {
+    const int m = e / nq, b = 4 * (e % nq);
+    const float4* src = reinterpret_cast<const float4*>(
+        pp + ((size_t)g0 * sp.MP + kk * U + m) * BP + b);
+    float4 sum = __ldcg(src);
+    for (int j = 1; j < sp.P; ++j) {
+      const float4 v = __ldcg(src + (size_t)j * sp.MP * BP / 4);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (b + v >= B) break;
+      const size_t bu = (size_t)(b + v) * D + u0 + m;
+      dh[bu] = s4[v] + dh[bu];
     }
   }
 }
@@ -1359,33 +1524,55 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
                      const bf16* __restrict__ gates_in,
                      const float* __restrict__ mask,
                      const bf16* __restrict__ wpack,
+                     const bf16* __restrict__ w_h, bf16* wparts,
                      const bf16* __restrict__ peep, const bf16* h0,
                      const float* c0, const bf16* hs, const float* cs,
                      const bf16* __restrict__ dhs, const float* dhT,
                      const float* dcT, float* dgates, float* dh, float* dc,
-                     float* dpeep, float* part, int B, int T, int D, int U,
-                     int reverse) {
+                     float* dpeep, bf16* X, float* part, int B, int T,
+                     int D, int U, int reverse, int part_smem) {
   extern __shared__ float4 smem4[];
-  const PlanBf16 plan(D, U, S);
-  const int LDK = ld_k(D), KP = rows_kp(U), LDG = KP + 8, NT = U / 2;
+  const PlanBwdBf16 plan(D, U, S, kRemat, part_smem, gridDim.x);
+  const SplitBf16 sp(D, U, gridDim.x);
+  const int LDK = ld_k(D), NT = U / 2;
   char* base = reinterpret_cast<char*>(smem4);
   bf16* w_s = reinterpret_cast<bf16*>(base);
-  bf16* a_s = reinterpret_cast<bf16*>(base + plan.w);
-  float* sums = reinterpret_cast<float*>(base + plan.w);
-  bf16* dg_s = reinterpret_cast<bf16*>(base + plan.w + plan.region);
-  float* contrib = reinterpret_cast<float*>(dg_s + kRows * LDG);  // [3][kRows][U]
+  bf16* a_s = reinterpret_cast<bf16*>(base + plan.region);
+  float* sums = reinterpret_cast<float*>(base + plan.region);
+  float* contrib = sums + kRows * 4 * U;                  // [3][kRows][U]
+  const bf16* wp = part_smem ? reinterpret_cast<const bf16*>(base + plan.wp)
+                             : wparts + (size_t)blockIdx.x * sp.MP * sp.LDP;
   const int lane = threadIdx.x & 31;
   const bool first_half = (threadIdx.x >> 5) < 4;
   const int rl = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2) + 8 * (lane & 1);
   const int uin = (lane >> 1) & 1;             // unit 2j + uin of tile j
   const int u0 = blockIdx.x * U;
   const int nu = min(U, D - u0);
-  const int nblk = gridDim.x;
-  load_slice_bf16(w_s, wpack, (size_t)KP * LDK);
-  // the tile's columns past 4U stay zero: the product's depth is KP
-  for (int e = threadIdx.x; e < kRows * (LDG - 4 * U); e += kThreadsB)
-    dg_s[(e / (LDG - 4 * U)) * LDG + 4 * U + e % (LDG - 4 * U)] =
-        __float2bfloat16_rn(0.f);
+  // the group's units below D, and pp's row stride
+  const int nmu = min(sp.MP, D - (int)(blockIdx.x - blockIdx.x % sp.P) * U);
+  const int BP = kRows * ((B + kRows - 1) / kRows);
+  float* ppb = part + (size_t)blockIdx.x * sp.MP * BP;
+  if (kRemat) load_slice_bf16(w_s, wpack, (size_t)4 * U * LDK);
+  {
+    // this block's part of W_h for the dh product, built from W_h [D][4D]
+    // (w_h) where it will be read: row m, column 4 ul + g = W_h[g0 U +
+    // m][g D + u of X's chunks from c0]; past its chunks and past D zero
+    const int kk = blockIdx.x % sp.P, g0 = blockIdx.x - kk;
+    const int nch = 4 * D / kChunkK;
+    const int c0 = kk * nch / sp.P, c1 = (kk + 1) * nch / sp.P;
+    const int uw = sp.KR / 4, ul1 = (c1 - c0) * kChunkK / 4;
+    bf16* dst = const_cast<bf16*>(wp);
+    for (int e = threadIdx.x; e < sp.MP * sp.KR; e += kThreadsB) {
+      const int ul = e % uw, g = (e / uw) % 4, m = e / sp.KR;
+      const int row = g0 * U + m;
+      dst[(size_t)m * sp.LDP + 4 * ul + g] =
+          ul < ul1 && row < D
+              ? w_h[(size_t)row * 4 * D + (size_t)g * D + c0 * kChunkK / 4 +
+                    ul]
+              : __float2bfloat16_rn(0.f);
+    }
+    __syncthreads();
+  }
   for (int e = threadIdx.x; e < B * nu; e += kThreadsB) {
     const size_t o = (size_t)(e / nu) * D + u0 + e % nu;
     dh[o] = dhT[o];
@@ -1407,7 +1594,6 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
     const int t = reverse ? s : T - 1 - s;   // computation order reversed
     const int tp = reverse ? t + 1 : t - 1;
     const bool first = reverse ? t == T - 1 : t == 0;
-    float* P = part + (size_t)(s & 1) * nblk * D * B;   // [nblk][D][B]
     float dp_step = 0.f;
     __syncthreads();
     for (int b0 = 0; b0 < B; b0 += kRows) {
@@ -1439,7 +1625,8 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
       if (kRemat) {
         const bf16* a = first ? h0 + (size_t)b0 * D
                               : hs + b0 * TD + (size_t)tp * D;
-        product_bf16<S>(a, first ? D : TD, rows, D, w_s, LDK, NT, a_s, pre);
+        product_bf16<S, kKCB, false>(a, first ? D : TD, rows, D, w_s, LDK,
+                                     NT, a_s, pre);
         gather_gates(sums, NT, pre);
       }
       if (first_half) {
@@ -1477,14 +1664,14 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
             t1 = d_f * cp[j];
             t2 = d_o * c[j];
             const size_t bu = (size_t)b * D + u;
-            dh[bu] = (1.f - m) * dhv[j];  // (B) adds the partials' sum
+            dh[bu] = (1.f - m) * dhv[j];  // (B) adds the product
             dc[bu] = dct * gf + d_i * pp[j][0] + d_f * pp[j][1] +
                      (1.f - m) * dcv[j];
+            // the cell's dgates rounded to bf16 for every block's (B)
+            *reinterpret_cast<uint2*>(X + (size_t)b * 4 * D + 4 * u) =
+                make_uint2(tc::pack_bf16x2(d_i, d_f),
+                           tc::pack_bf16x2(d_g, d_o));
           }
-          // the rounded dgates of the cell (zero where it is dead)
-          const uint2 pk = make_uint2(tc::pack_bf16x2(d_i, d_f),
-                                      tc::pack_bf16x2(d_g, d_o));
-          *reinterpret_cast<uint2*>(dg_s + rl * LDG + 4 * uu) = pk;
           contrib[(0 * kRows + rl) * U + uu] = t0;
           contrib[(1 * kRows + rl) * U + uu] = t1;
           contrib[(2 * kRows + rl) * U + uu] = t2;
@@ -1497,36 +1684,18 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
         for (int r = 0; r < kRows; ++r) sum += contrib[(k * kRows + r) * U + q];
         dp_step += sum;
       }
-      partial_product(dg_s, LDG, KP / 16, w_s, LDK, D,
-                      P + (size_t)blockIdx.x * D * B + b0, B, rows);
-      __syncthreads();   // the tile, the terms and the sums are free
+      __syncthreads();   // the terms and the sums are free
     }
     dp_acc += dp_step;
+    // (B) dh_{t-1} of the own units from every block's rounded dgates, in
+    // two passes.  One buffer of X and of pp serves every step: a block
+    // writes X again only past the barrier every block reaches after its
+    // (B1), and pp only past the one every block reaches after its (B2).
     grid.sync();
-    // (B) dh_{t-1} of the own units: the partials summed in block order,
-    // four outputs a thread interleaved
-    const int n_out = B * nu;
-    for (int e0 = threadIdx.x; e0 < n_out; e0 += 4 * kThreadsB) {
-      const float* src[4];
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int e = min(e0 + v * kThreadsB, n_out - 1);
-        src[v] = P + (size_t)(u0 + e / B) * B + e % B;
-      }
-#pragma unroll 8
-      for (int k = 0; k < nblk; ++k)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          sum[v] += __ldcg(src[v] + (size_t)k * D * B);
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int e = e0 + v * kThreadsB;
-        if (e >= n_out) continue;
-        const size_t bu = (size_t)(e % B) * D + u0 + e / B;
-        dh[bu] = sum[v] + dh[bu];
-      }
-    }
+    for (int b0 = 0; b0 < B; b0 += kRows)
+      dh_part(X, wp, sp, D, B, BP, b0, nmu, ppb);
+    grid.sync();
+    dh_sum(part, sp, D, B, BP, U, nu, u0, dh);
   }
   if (threadIdx.x < 3 * U) {
     const int k = threadIdx.x / U, q = threadIdx.x % U;
@@ -1534,14 +1703,38 @@ lstm_bwd_bf16_kernel(const XT* __restrict__ xw,
   }
 }
 
-int stages_bf16(int D, int U, int E = 0) {
+int optin_bytes() {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
+  return optin;
+}
+
+// The forward's ring: the most stages up to 3 that fit (a fourth ran no
+// faster at the text shape and takes L1's room), 0 when 2 do not.
+int stages_fwd_bf16(int D, int U, int E) {
+  const int optin = optin_bytes();
   for (int s = 3; s >= 2; --s)
-    if (PlanBf16(D, U, s, E).total <= (size_t)optin) return s;
+    if (PlanFwdBf16(D, U, s, E).total <= (size_t)optin) return s;
   return 0;
+}
+
+// The backward's plan: its part of W_h in shared memory with the most ring
+// stages up to 3 that fit beside it, else the part read where it lies with
+// the most that fit (stages 0: none do).  The stored form has no ring.
+void plan_bwd_bf16(int D, int U, bool remat, int grid, int* stages,
+                   int* part) {
+  const int optin = optin_bytes();
+  for (int p = 1; p >= 0; --p)
+    for (int s = remat ? 3 : 2; s >= 2; --s)
+      if (PlanBwdBf16(D, U, s, remat, p, grid).total <= (size_t)optin) {
+        *stages = s;
+        *part = p;
+        return;
+      }
+  *stages = 0;
+  *part = 0;
 }
 
 template <bool kFi>
@@ -1550,10 +1743,10 @@ int launch_fwd_bf16(const void* in, const float* mask, const void* wxpack,
                     const void* h0, const float* c0, void* hs, float* cs,
                     void* gates, float* hT, float* cT, int B, int T, int E,
                     int D, int U, int reverse, void* stream) {
-  const int stages = stages_bf16(D, U, kFi ? E : 0);
+  const int stages = stages_fwd_bf16(D, U, kFi ? E : 0);
   if (stages == 0) return (int)cudaErrorInvalidValue;
   const int grid = (D + U - 1) / U;
-  const size_t smem = PlanBf16(D, U, stages, kFi ? E : 0).total;
+  const size_t smem = PlanFwdBf16(D, U, stages, kFi ? E : 0).total;
   const bf16* x = static_cast<const bf16*>(in);
   const bf16* wx = static_cast<const bf16*>(wxpack);
   const bf16* w = static_cast<const bf16*>(wpack);
@@ -1564,11 +1757,20 @@ int launch_fwd_bf16(const void* in, const float* mask, const void* wxpack,
   void* args[] = {&x, &mask, &wx, &bias, &w, &p, &h, &c0, &o, &cs, &g, &hT,
                   &cT, &B, &T, &E, &D, &U, &reverse};
   cudaStream_t st = (cudaStream_t)stream;
+  // fragments ahead where the block's columns fill 4 n8 tiles or more (on
+  // an H100 80GB HBM3 at 700 W: 0.21 ms faster at D 1280, U 10; 0.08 ms
+  // slower at U 4 and 2)
+  if (!kFi && U >= kAheadFromU)
+    return stages == 3
+        ? cooperative(lstm_fwd_bf16_kernel<false, 3, true>, grid, kThreadsB,
+                      smem, args, st)
+        : cooperative(lstm_fwd_bf16_kernel<false, 2, true>, grid, kThreadsB,
+                      smem, args, st);
   return stages == 3
-      ? cooperative(lstm_fwd_bf16_kernel<kFi, 3>, grid, kThreadsB, smem, args,
-                    st)
-      : cooperative(lstm_fwd_bf16_kernel<kFi, 2>, grid, kThreadsB, smem, args,
-                    st);
+      ? cooperative(lstm_fwd_bf16_kernel<kFi, 3, false>, grid, kThreadsB,
+                    smem, args, st)
+      : cooperative(lstm_fwd_bf16_kernel<kFi, 2, false>, grid, kThreadsB,
+                    smem, args, st);
 }
 
 bool valid_bf16(int B, int T, int D, int U) {
@@ -1588,7 +1790,7 @@ int launch_bwd_bf16(int stages, int grid, size_t smem, void** args,
 
 }  // namespace
 
-// The bf16 forward: xw [B, T, 4D], W_h's pack [blocks][KP][LDK], the
+// The bf16 forward: xw [B, T, 4D], W_h's pack [blocks][4U][LDK], the
 // peepholes [3, D] and h0 [B, D] in bf16; mask [B, T] and c0 in f32; hs and
 // the gates slab (nullptr: none) bf16, cs, hT, cT f32.  D % 8 == 0; U even.
 extern "C" int lstm_fwd_bf16(const void* xw, const float* mask,
@@ -1604,7 +1806,7 @@ extern "C" int lstm_fwd_bf16(const void* xw, const float* mask,
 }
 
 // The bf16 fused-input forward: x [B, T, E] bf16 (E % 8 == 0, 16-byte
-// aligned), wxpack [blocks][KP][LDK(E)] W_x's slices packed as W_h's,
+// aligned), wxpack [blocks][4U][LDK(E)] W_x's slices packed as W_h's,
 // bias [4D] f32; the rest as lstm_fwd_bf16.
 extern "C" int lstm_fi_fwd_bf16(const void* x, const float* mask,
                                 const void* wxpack, const float* bias,
@@ -1622,43 +1824,55 @@ extern "C" int lstm_fi_fwd_bf16(const void* x, const float* mask,
 
 // The bf16 backward: remat != 0 recomputes the gates from xw (bf16, or
 // f32 when xw_f32 != 0) and the shifted h/c stacks, remat == 0 reads the
-// forward's bf16 slab gates_in; hs, dhs, the pack, peep and h0 bf16; mask,
-// c0, cs, dhT, dcT f32; dgates, dh, dc, dpeep f32.  part is f32 scratch of
-// 2 * blocks * D * B.
+// forward's bf16 slab gates_in; hs, dhs, the packs, peep and h0 bf16; mask,
+// c0, cs, dhT, dcT f32; dgates, dh, dc, dpeep f32.  wpack is W_h's column
+// slices as the forward's (read by the remat form only); w_h is W_h [D, 4D]
+// itself, from which each block builds its part for the dh product
+// (SplitBf16) in shared memory where it fits, else in wparts, bf16 scratch
+// of blocks * MP * LDP; xg bf16 scratch of B * 4D (the rounded dgates) and
+// pp f32 scratch of blocks * MP * BP (BP = B rounded up to 64), all
+// 16-byte aligned.
 extern "C" int lstm_bwd_bf16(const void* xw, const void* gates_in,
                              const float* mask, const void* wpack,
-                             const void* peep, const void* h0,
-                             const float* c0, const void* hs, const float* cs,
-                             const void* dhs, const float* dhT,
-                             const float* dcT, float* dgates, float* dh,
-                             float* dc, float* dpeep, float* part, int B,
-                             int T, int D, int U, int reverse, int remat,
+                             const void* w_h, void* wparts, const void* peep,
+                             const void* h0, const float* c0, const void* hs,
+                             const float* cs, const void* dhs,
+                             const float* dhT, const float* dcT,
+                             float* dgates, float* dh, float* dc,
+                             float* dpeep, void* xg, float* pp, int B, int T,
+                             int D, int U, int reverse, int remat,
                              int xw_f32, void* stream) {
   if (!valid_bf16(B, T, D, U)) return (int)cudaErrorInvalidValue;
-  const int stages = stages_bf16(D, U);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
   const int grid = (D + U - 1) / U;
-  const size_t smem = PlanBf16(D, U, stages).total;
+  int stages = 0, part = 0;
+  plan_bwd_bf16(D, U, remat != 0, grid, &stages, &part);
+  if (stages == 0 || (!part && wparts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = PlanBwdBf16(D, U, stages, remat != 0, part, grid).total;
   const bf16* g = static_cast<const bf16*>(gates_in);
   const bf16* w = static_cast<const bf16*>(wpack);
+  const bf16* wh = static_cast<const bf16*>(w_h);
+  bf16* wp = static_cast<bf16*>(wparts);
   const bf16* p = static_cast<const bf16*>(peep);
   const bf16* h = static_cast<const bf16*>(h0);
   const bf16* y = static_cast<const bf16*>(hs);
   const bf16* dy = static_cast<const bf16*>(dhs);
+  bf16* xs = static_cast<bf16*>(xg);
   cudaStream_t st = (cudaStream_t)stream;
   if (remat && xw_f32) {
     const float* x = static_cast<const float*>(xw);
-    void* args[] = {&x, &g, &mask, &w, &p, &h, &c0, &y, &cs, &dy, &dhT,
-                    &dcT, &dgates, &dh, &dc, &dpeep, &part, &B, &T, &D, &U,
-                    &reverse};
+    void* args[] = {&x, &g, &mask, &w, &wh, &wp, &p, &h, &c0, &y, &cs, &dy,
+                    &dhT, &dcT, &dgates, &dh, &dc, &dpeep, &xs, &pp, &B, &T,
+                    &D, &U, &reverse, &part};
     return launch_bwd_bf16<true, float>(stages, grid, smem, args, st);
   }
   const bf16* x = static_cast<const bf16*>(xw);
-  void* args[] = {&x, &g, &mask, &w, &p, &h, &c0, &y, &cs, &dy, &dhT, &dcT,
-                  &dgates, &dh, &dc, &dpeep, &part, &B, &T, &D, &U,
-                  &reverse};
+  void* args[] = {&x, &g, &mask, &w, &wh, &wp, &p, &h, &c0, &y, &cs, &dy,
+                  &dhT, &dcT, &dgates, &dh, &dc, &dpeep, &xs, &pp, &B, &T, &D,
+                  &U, &reverse, &part};
   return remat ? launch_bwd_bf16<true, bf16>(stages, grid, smem, args, st)
-               : launch_bwd_bf16<false, bf16>(stages, grid, smem, args, st);
+               : cooperative(lstm_bwd_bf16_kernel<false, bf16, 2>, grid,
+                             kThreadsB, smem, args, st);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -68,7 +68,7 @@ KERNEL_FI = Kernel("lstm_seq", "lstm_fi_fwd_f32", [_P] * 13 + [_I] * 6 + [_P])
 KERNEL_FWD_BF16 = Kernel("lstm_seq", "lstm_fwd_bf16",
                          [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD_BF16 = Kernel("lstm_seq", "lstm_bwd_bf16",
-                         [_P] * 17 + [_I] * 7 + [_P])
+                         [_P] * 20 + [_I] * 7 + [_P])
 KERNEL_BI_BF16 = Kernel("bilstm_seq", "bilstm_fwd_bf16",
                         [_P] * 22 + [_I] * 4 + [_P])
 KERNEL_FI_BF16 = Kernel("lstm_seq", "lstm_fi_fwd_bf16",
@@ -85,11 +85,15 @@ _BI_MAX_SPLITS = 16
 #: csrc/lstm_seq.cu's staging: 64-row chunks of 32-deep stages (rows
 #: padded to 36 floats), 16 row groups a half-block
 _ROWS, _RG, _STAGE = 64, 16, 64 * 36
-#: the bf16 forms' tiling (``PlanBf16`` of csrc/lstm_seq.cu): 64-row
-#: chunks of h staged 64 deep (rows padded to 72 bf16), at least two
-#: stages; bilstm_seq.cu's bf16 form: a block owns one direction and 16
-#: batch rows, 8 warps of at most 4 n8 tiles (D <= 64)
-_BF_STAGE_BYTES = 64 * 72 * 2
+#: the bf16 forms' tiling (``PlanFwdBf16``, ``PlanBwdBf16`` and
+#: ``SplitBf16`` of csrc/lstm_seq.cu): 64-row chunks of h staged 128 deep in
+#: the forward, 64 in the remat backward (rows padded by 8 bf16), at least
+#: two stages; the backward's dh product over chunks of 32 k of the rounded
+#: dgates, split among groups of at most 8 blocks; bilstm_seq.cu's bf16
+#: form: a block owns one direction and 16 batch rows, 8 warps of at most
+#: 4 n8 tiles (D <= 64)
+_BF_KC_FWD, _BF_KC_BWD = 128, 64
+_BF_CHUNK_K, _BF_GROUP_K = 32, 8
 _BI_BF_ROWS, _BI_BF_MAX_D = 16, 64
 
 
@@ -308,13 +312,14 @@ def _pack_columns(w, u: int):
     return w.reshape(k, 4, nb, u).permute(2, 0, 3, 1).contiguous()
 
 
-# The bf16 forms' plan (``PlanBf16`` of csrc/lstm_seq.cu): a block owns an
-# even number U of units, so its 4U gate columns are whole n8 tiles of
-# the tensor-core product (2 units a tile), and keeps W_h's slice as
-# [KP][LDK] bf16: row 4 uu + g (gate g of unit uu; rows past 4U zero up to
-# KP, a multiple of 16, the depth of the backward's product), D columns
-# (zero past D up to a multiple of 16, then 8 more: an odd count of 16-byte
-# groups, so the 8 rows an ldmatrix phase reads fall in distinct banks).
+# The bf16 forms' plan (``PlanFwdBf16`` / ``PlanBwdBf16`` of
+# csrc/lstm_seq.cu): a block owns an even number U of units, so its 4U gate
+# columns are whole n8 tiles of the tensor-core product (2 units a tile),
+# and keeps W_h's slice as [4U][LDK] bf16: row 4 uu + g (gate g of unit
+# uu), D columns (zero past D up to a multiple of 16, then 8 more: an odd
+# count of 16-byte groups, so the 8 rows an ldmatrix phase reads fall in
+# distinct banks).  The backward's blocks also build a part of W_h each for
+# the dh product (``_bf16_split``), in shared memory where it fits.
 
 
 def _bf16_units(d: int, sms: int) -> int:
@@ -327,18 +332,46 @@ def _bf16_ldk(d: int) -> int:
     return 16 * -(-d // 16) + 8
 
 
-def _bf16_kp(u: int) -> int:
-    return 16 * -(-4 * u // 16)
+def _bf16_stage_bytes(kc: int) -> int:
+    return _ROWS * (kc + 8) * 2
+
+
+def _bf16_split(d: int, u: int, blocks: int) -> tuple[int, int, int, int]:
+    """``SplitBf16``: (P, MP, KR, LDP): the blocks in groups of P (the
+    largest divisor of the grid up to 8), block kk of a group taking the
+    rounded dgates' chunks [kk nch / P, (kk + 1) nch / P) of nch = 4D / 32
+    for the group's MP = P U units; its part of W_h [MP][LDP] bf16, KR its
+    most k, LDP = KR rounded up to 64, + 32."""
+    p = next((q for q in range(_BF_GROUP_K, 1, -1) if blocks % q == 0), 1)
+    kr = _BF_CHUNK_K * -(-(4 * d // _BF_CHUNK_K) // p)
+    return p, p * u, kr, 64 * -(-kr // 64) + 32
+
+
+def _bf16_fwd_bytes(d: int, u: int, stages: int, e: int = 0) -> int:
+    """``PlanFwdBf16``: W_x's slice [4U][LDK(E)] (the fused-input form) and
+    W_h's [4U][LDK(D)], then the ring of h slices or the halves' f32 sums."""
+    return (4 * u * (_bf16_ldk(e) if e else 0) * 2 + 4 * u * _bf16_ldk(d) * 2
+            + max(stages * _bf16_stage_bytes(_BF_KC_FWD), _ROWS * 4 * u * 4))
+
+
+def _bf16_bwd_bytes(d: int, u: int, stages: int, remat: bool,
+                    part: bool) -> int:
+    """``PlanBwdBf16``: W_h's column slice (remat), the region (the remat
+    ring, or the halves' f32 sums and the dpeep terms), then the block's
+    part of W_h for the dh product where ``part``."""
+    _, mp, _, ldp = _bf16_split(d, u, -(-d // u))
+    return ((4 * u * _bf16_ldk(d) * 2 if remat else 0)
+            + max(stages * _bf16_stage_bytes(_BF_KC_BWD) if remat else 0,
+                  _ROWS * 4 * u * 4 + 3 * _ROWS * u * 4)
+            + (mp * ldp * 2 if part else 0))
 
 
 def _bf16_smem_bytes(d: int, u: int, stages: int) -> int:
-    """Bytes of shared memory a block of the bf16 forms takes: the W_h
-    slice, then the ring of h slices or the halves' f32 sums, then the
-    backward's rounded dgates tile [64][KP + 8] and dpeep terms [3][64][U]."""
-    kp = _bf16_kp(u)
-    return (kp * _bf16_ldk(d) * 2
-            + max(stages * _BF_STAGE_BYTES, _ROWS * 4 * u * 4)
-            + _ROWS * (kp + 8) * 2 + 3 * _ROWS * u * 4)
+    """The least shared memory a block of the bf16 forward or of the remat
+    backward takes at ``stages`` (the backward's part of W_h read where it
+    lies)."""
+    return max(_bf16_fwd_bytes(d, u, stages),
+               _bf16_bwd_bytes(d, u, stages, True, False))
 
 
 def bf16_refusal(d: int, sms: int, optin: int) -> str | None:
@@ -360,22 +393,20 @@ def bf16_refusal(d: int, sms: int, optin: int) -> str | None:
 
 
 def _pack_rows_bf16(w, u: int):
-    """W [K, 4D] (W_h: K = D; W_x: K = E) -> [blocks, KP, LDK(K)]: block
-    j's row 4 uu + g holds w[:, g*D + j*U + uu] (zero past D, past 4U and
-    past K's columns)."""
+    """W [K, 4D] (W_h: K = D; W_x: K = E) -> [blocks, 4U, LDK(K)]: block
+    j's row 4 uu + g holds w[:, g*D + j*U + uu] (zero past D and past K's
+    columns)."""
     k, d = w.shape[0], w.shape[1] // 4
     nb = -(-d // u)
     w = F.pad(w.reshape(k, 4, d), (0, nb * u - d))
     w = w.reshape(k, 4, nb, u).permute(2, 3, 1, 0).reshape(nb, 4 * u, k)
-    return F.pad(w, (0, _bf16_ldk(k) - k, 0, _bf16_kp(u) - 4 * u)
-                 ).contiguous()
+    return F.pad(w, (0, _bf16_ldk(k) - k)).contiguous()
 
 
 def fi_bf16_smem_bytes(e: int, d: int, u: int) -> int:
-    """Shared memory of a block of ``lstm_fi_fwd_bf16`` (``PlanBf16`` with
-    E): W_x's slice [KP][LDK(E)] before W_h's, then the bf16 forms' plan
-    at two stages."""
-    return _bf16_kp(u) * _bf16_ldk(e) * 2 + _bf16_smem_bytes(d, u, 2)
+    """Shared memory of a block of ``lstm_fi_fwd_bf16`` (``PlanFwdBf16``
+    with E) at two stages."""
+    return _bf16_fwd_bytes(d, u, 2, e)
 
 
 def fi_bf16_refusal(e: int, d: int, sms: int, optin: int) -> str | None:
@@ -600,21 +631,27 @@ def _bwd_kernel_bf16(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT,
     b, t, _ = hs.shape
     d = w_h.shape[0]
     u = _bf16_plan(hs.device, d)
-    wpack = _pack_rows_bf16(w_h, u)
-    dgates = torch.empty(b, t, 4 * d, dtype=f32, device=hs.device)
+    wpack = _pack_rows_bf16(w_h, u) if remat else None   # the remat product
+    dev, blocks = hs.device, -(-d // u)
+    _, mp, _, ldp = _bf16_split(d, u, blocks)
+    # the blocks' parts of W_h for the dh product, built by the kernel in
+    # shared memory where they fit beside the rest (``plan_bwd_bf16``), else
+    # here
+    parts = torch.empty(blocks * mp * ldp, dtype=bf, device=dev)
+    dgates = torch.empty(b, t, 4 * d, dtype=f32, device=dev)
     dh, dc = torch.empty_like(dhT), torch.empty_like(dcT)
-    dpeep = torch.empty(3, d, dtype=f32, device=hs.device)
-    # each block's f32 share of dh_{t-1}, two buffers by step parity
-    part = torch.empty(2 * wpack.shape[0] * d * b, dtype=f32,
-                       device=hs.device)
+    dpeep = torch.empty(3, d, dtype=f32, device=dev)
+    # the step's dgates rounded to bf16, and the dh product's first pass
+    xg = torch.empty(b, 4 * d, dtype=bf, device=dev)
+    pp = torch.empty(blocks * mp * 64 * -(-b // 64), dtype=f32, device=dev)
     KERNEL_BWD_BF16.launch_on(
         mask.device.index, _ptr(xw if remat else None),
-        _ptr(None if remat else gates), mask.data_ptr(), wpack.data_ptr(),
-        peep.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-        cs.data_ptr(), dhs.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
-        dgates.data_ptr(), dh.data_ptr(), dc.data_ptr(), dpeep.data_ptr(),
-        part.data_ptr(), b, t, d, u, int(reverse), int(remat),
-        int(remat and xw.dtype == f32))
+        _ptr(None if remat else gates), mask.data_ptr(), _ptr(wpack),
+        w_h.data_ptr(), parts.data_ptr(), peep.data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+        dhT.data_ptr(), dcT.data_ptr(), dgates.data_ptr(), dh.data_ptr(),
+        dc.data_ptr(), dpeep.data_ptr(), xg.data_ptr(), pp.data_ptr(), b, t,
+        d, u, int(reverse), int(remat), int(remat and xw.dtype == f32))
     return dgates, dh, dc, dpeep
 
 

@@ -339,7 +339,7 @@ def test_bf16_fi_refusal_names_the_reason(mod, e, d, why):
 def test_bf16_fi_smem_plan():
     """The bf16 fused-input blocks' shared memory at the path's widths
     mirrors the kernels' plans: the LSTM's W_x slice [16][136] bf16 beside
-    ``PlanBf16`` at U 4, the GRU's four slices at E = D = 512 and the
+    ``PlanFwdBf16`` at U 4, the GRU's four slices at E = D = 512 and the
     staging region; both far inside the opt-in."""
     u = LK._bf16_units(512, 132)
     assert u == 4

@@ -237,18 +237,22 @@ def test_bf16_plan_of_the_card_forms():
     element, and the refusals past the tiling."""
     sms, optin = 132, 232448
     assert LK._bf16_units(1280, sms) == 10 and LK._bf16_units(64, sms) == 2
-    assert LK._bf16_kp(10) == 48 and LK._bf16_ldk(1280) == 1288
+    assert LK._bf16_ldk(1280) == 1288
     assert LK.bf16_refusal(1280, sms, optin) is None
     assert LK.bf16_refusal(64, sms, optin) is None
     assert "multiple of 8" in LK.bf16_refusal(1284, sms, optin)
     assert "units" in LK.bf16_refusal(2120, sms, optin)
     assert "shared memory" in LK.bf16_refusal(2112, sms, optin)
+    # the shared-memory boundary: D 1744 taken, 1752 refused (W_h's slice
+    # holds 4U rows since the backward's dh product left the slice)
+    assert LK.bf16_refusal(1744, sms, optin) is None
+    assert "shared memory" in LK.bf16_refusal(1752, sms, optin)
     assert LK.bi_bf16_refusal(256, 64, sms, optin) is None
     assert "D at most" in LK.bi_bf16_refusal(256, 72, sms, optin)
     assert "shared memory" in LK.bi_bf16_refusal(4096, 64, sms, optin)
     w = torch.randn(64, 256).to(torch.bfloat16)
     pack = LK._pack_rows_bf16(w, 2)
-    assert tuple(pack.shape) == (32, 16, 72)
+    assert tuple(pack.shape) == (32, 8, 72)
     # block 3, unit 1, gate 2 = column 2 * 64 + 3 * 2 + 1; pads zero
     assert torch.equal(pack[3, 4 * 1 + 2, :64], w[:, 2 * 64 + 7])
-    assert not pack[:, 8:].any() and not pack[:, :, 64:].any()
+    assert not pack[:, :, 64:].any()
