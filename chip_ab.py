@@ -2,13 +2,15 @@
 """A/B of two checkouts of the PyTorch/CUDA port on one card, and a sweep
 of the shared GEMM tile's plan.
 
-The A/B times, in each tree, the wrapper calls ``CALLS`` names (the bf16
-LSTM forward and backward, remat and stored, with bf16 cuDNN beside them,
-at the text shape; the CRNN's bf16 backward; row 6's bf16 fused-input
-forward), then runs its own ``chip_smoke.train_text_bf16`` (the text
-classifier in bf16 beside f32: 10 timed steps each at batch 64, a 3-step
-bf16 profile), each tree in a process of its own that builds that tree's
-kernels, in the order given.
+The A/B times, in each tree, the wrapper calls ``CALLS`` names (rows 5
+and 8, the forward without and with its gates slab, the remat and the
+stored-gates backward: the LSTM at the text shape in f32 and in bf16 at
+D 1280, 512 and 256, the GRU at the NMT's [64, 32, 512] in f32 and
+bf16), then runs its own ``chip_smoke.train_text_bf16`` (the text
+classifier in bf16 beside f32: 20 timed steps each at batch 64 with
+their peak memory and launches by form, a 3-step bf16 profile), each
+tree in a process of its own that builds that tree's kernels, in the
+order given.
 Host-bound phases vary up to 2x between machines, so two versions are
 compared only within one run of this script, in turns:
 
@@ -16,9 +18,9 @@ compared only within one run of this script, in turns:
 
 (``build/parent`` holding ``git archive`` of the parent commit).  Prints
 one JSON line a run (the tree, each call's event ms with the L2 flushed,
-host ms and device ms alone with its kernels' names, the bf16 text
-step's rate and p50, the f32 step's p50, the bf16 idle share, the LSTM
-kernels' and each class's device ms a step) and
+host ms and device ms alone with its kernels' names, the bf16 and f32
+text steps' rate, p50, peak memory and launches, the bf16 idle share, the
+LSTM kernels' and each class's device ms a step) and
 writes each run's whole output to ``DIR/ab_<i>.json`` (default
 ``build/ab``).  ``--calls`` times the wrapper calls alone, without the
 training steps.
@@ -196,22 +198,25 @@ if sys.argv[2] == "calls":
     print(json.dumps({"calls": calls}))
     sys.exit(0)
 torch.cuda.empty_cache()
-text = C.train_text_bf16(dev)[0]
+text = C.train_text_bf16(dev, steps=20)[0]
 print(json.dumps({"calls": calls, "train_text_bf16": text}))
 """
 
-#: the wrapper calls this PR changed, at chip_smoke's shapes, timed the same
-#: way in either tree (each tree's own wrappers): the CUDA-event ms with the
-#: L2 flushed, the host's median ms a call without a sync, and the device
-#: ms of the call's kernels alone (a trace, summed over its kernels): the
-#: bf16 LSTM forward and backward (remat and over the stored gates) at the
-#: text shape (B 64, T 128, D 1280, lengths 100; ``check_rnn_bf16_kernels``'
-#: inputs), bf16 cuDNN ``nn.LSTM`` there (input 128 wide, no peepholes:
-#: another cell, the yardstick of scale), the CRNN's backward (xw f32 [64,
-#: 24, 256], D 64, remat) and row 6's bf16 fused-input forward at
-#: ``RAW_RNN``'s LSTM shape, the forward direction
+#: the wrapper calls whose form the route rule picks, at chip_smoke's
+#: shapes, timed the same way in either tree (each tree's own wrappers):
+#: the CUDA-event ms with the L2 flushed, the host's median ms a call
+#: without a sync, and the device ms of the call's kernels alone (a trace,
+#: summed over its kernels).  The LSTM (row 5) at the text shape (B 64,
+#: T 128, lengths 100) in f32 at D 1280 (``check_text_kernels``' inputs)
+#: and in bf16 at D 1280, 512 and 256 (``bench_lstm``'s widths;
+#: ``bf16_lstm_inputs``): the forward without and with its gates slab, the
+#: remat backward over xw and the stored-gates backward over the slab.
+#: The GRU (row 8) at [64, 32, 512] (``check_nmt_kernels``' shape, half
+#: the rows ragged) in f32 and bf16 (xw in the io dtype, as ``grumemory``
+#: hands it over): the same four calls.
 CALLS = r"""
 def CALLS(dev, C):
+    from paddle_tpu_torch.ops.kernels import gru as GK
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
     timer = C.Timer(dev)
@@ -246,61 +251,65 @@ def CALLS(dev, C):
                 for e in evs}
         return sum(each.values()), each
 
-    def all3(fn, iters=50):
+    def all3(fn, iters=5):
         ms, names = alone_all(fn)
         return {"ms": timer(fn), "host_ms": host(fn, iters),
                 "alone_ms": ms, "kernels": names}
 
+    def four(mod, xw, gates, fa, tail):
+        # fa: the forward's arguments but its last (emit the slab); tail:
+        # the backward's after (xw, gates) but its last (remat)
+        return {"fwd": all3(lambda: mod._fwd_kernel(*fa, False)),
+                "fwd_slab": all3(lambda: mod._fwd_kernel(*fa, True)),
+                "bwd_remat": all3(lambda: mod._bwd_kernel(xw, None, *tail,
+                                                          True)),
+                "bwd_stored": all3(lambda: mod._bwd_kernel(None, gates, *tail,
+                                                           False))}
+
     out = {}
-    bf = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(7)
     b, t, d = 64, 128, 1280
-    x = C.bf16_lstm_inputs(dev, gen, b, t, d, torch.full((b,), 100))
-    h0, c0 = torch.zeros_like(x["h0"]), torch.zeros_like(x["c0"])
-    fa = (x["xw"], x["mask"], x["w_h"], x["peep"], h0, c0, False)
-    out["lstm_fwd_bf16"] = all3(lambda: LK._fwd_kernel(*fa, False), iters=5)
+    mask = (torch.arange(t, device=dev)[None, :] < 100).float().expand(
+        b, t).contiguous()
+    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
+    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
+    h0 = c0 = zeros = torch.zeros(b, d, device=dev)
+    dhs = torch.randn(b, t, d, generator=gen, device=dev)
+    fa = (xw, mask, w_h, peep, h0, c0, False)
     hs, cs, gates = LK._fwd_kernel(*fa, True)[:3]
-    tail = (x["mask"], x["w_h"], x["peep"], h0, c0, hs, cs, x["dhs"],
-            x["dhT"], x["dcT"], False)
-    out["lstm_bwd_bf16"] = all3(lambda: LK._bwd_kernel(
-        x["xw"], None, *tail, True), iters=5)
-    out["lstm_bwd_bf16_stored"] = all3(lambda: LK._bwd_kernel(
-        None, gates, *tail, False), iters=5)
-    del x, fa, hs, cs, gates, tail
-    lib = torch.nn.LSTM(128, d, batch_first=True).to(dev, bf)
-    lib.flatten_parameters()
-    x_lib = torch.randn(b, t, 128, generator=gen, device=dev).to(bf)
-    x_lib.requires_grad_()
-    y_lib, _ = lib(x_lib)
-    g_lib = torch.randn_like(y_lib)
-
-    def lib_fwd():
-        with torch.no_grad():
-            return lib(x_lib)
-
-    out["cudnn_lstm_bf16_fwd"] = all3(lib_fwd, iters=5)
-    out["cudnn_lstm_bf16_bwd"] = all3(lambda: torch.autograd.grad(
-        y_lib, (x_lib, *lib.parameters()), g_lib, retain_graph=True),
-        iters=5)
-    del lib, x_lib, y_lib, g_lib
-    cb, ct, cd = 64, 24, 64
-    cx = C.bf16_lstm_inputs(dev, gen, cb, ct, cd, torch.full((cb,), ct))
-    xwc = cx["xw"].float()
-    ch0, cc0 = torch.zeros_like(cx["h0"]), torch.zeros_like(cx["c0"])
-    chs, ccs = LK._fwd_plain(cx["xw"], cx["mask"], cx["w_h"], cx["peep"],
-                             ch0, cc0, False, False)[:2]
-    ctail = (cx["mask"], cx["w_h"], cx["peep"], ch0, cc0, chs, ccs,
-             cx["dhs"], torch.zeros_like(cx["dhT"]),
-             torch.zeros_like(cx["dcT"]), False)
-    out["lstm_bwd_bf16_crnn"] = all3(lambda: LK._bwd_kernel(
-        xwc, None, *ctail, True), iters=20)
-    _, rb, rt, re, rd = C.RAW_RNN[0]
-    xr, lens, w, init, _ = C.raw_rnn_inputs(dev, "lstm", rb, rt, re, rd)
-    m6 = (torch.arange(rt, device=dev)[None, :] < lens[:, None]).float()
-    fi = (xr.to(bf), m6, w["w_x"].to(bf), w["b"], w["w_h"].to(bf),
-          torch.zeros(3, rd, device=dev, dtype=bf), init[0].to(bf), init[1],
-          False, False)
-    out["lstm_fi_fwd_bf16"] = all3(lambda: LK._fi_fwd_kernel(*fi), iters=10)
+    out["lstm_f32_d1280"] = four(LK, xw, gates, fa, (
+        mask, w_h, peep, h0, c0, hs, cs, dhs, zeros, zeros, False))
+    del xw, w_h, peep, dhs, fa, hs, cs, gates
+    for d in (1280, 512, 256):
+        x = C.bf16_lstm_inputs(dev, gen, b, t, d, torch.full((b,), 100))
+        h0, c0 = torch.zeros_like(x["h0"]), torch.zeros_like(x["c0"])
+        fa = (x["xw"], x["mask"], x["w_h"], x["peep"], h0, c0, False)
+        hs, cs, gates = LK._fwd_kernel(*fa, True)[:3]
+        out[f"lstm_bf16_d{d}"] = four(LK, x["xw"], gates, fa, (
+            x["mask"], x["w_h"], x["peep"], h0, c0, hs, cs, x["dhs"],
+            x["dhT"], x["dcT"], False))
+        del x, fa, hs, cs, gates
+    b, t, d = 64, 32, 512
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lens[: b // 2] = t
+    lens[-1] = 1
+    gmask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    for dtype in (torch.float32, torch.bfloat16):
+        gxw = torch.randn(b, t, 3 * d, generator=gen, device=dev).to(dtype)
+        gw_h = (torch.randn(d, 2 * d, generator=gen, device=dev)
+                / d ** 0.5).to(dtype)
+        gw_hc = (torch.randn(d, d, generator=gen, device=dev)
+                 / d ** 0.5).to(dtype)
+        gh0 = torch.zeros(b, d, device=dev, dtype=dtype)
+        fa = (gxw, gmask, gw_h, gw_hc, gh0, False)
+        ghs, urc, _ = GK._fwd_kernel(*fa, True)
+        gdhs = torch.randn(b, t, d, generator=gen, device=dev).to(dtype)
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[f"gru_{name}_d512"] = four(GK, gxw, urc, fa, (
+            gmask, gw_h, gw_hc, gh0, ghs, gdhs,
+            torch.zeros(b, d, device=dev), False))
+        del gxw, gw_h, gw_hc, gh0, fa, ghs, urc, gdhs
     return out
 """
 
@@ -312,10 +321,11 @@ def summary(tree: str, out: dict, seconds: float) -> dict:
     prof = run.get("profile_bf16", {})
     lstm = {k["name"][:60]: k["ms_per_step"] for k in prof.get(
         "top_kernels", []) if "lstm" in k["name"]}
+    steps = ("sequences_per_s", "step_ms_p50", "step_ms",
+             "max_memory_allocated_bytes", "launches_per_block")
     return {"tree": tree, "seconds": seconds, "calls": out["calls"],
-            "train_text_bf16": {k: run["bf16"].get(k) for k in (
-                "sequences_per_s", "step_ms_p50", "step_ms")},
-            "train_text_f32_step_ms_p50": run["f32"].get("step_ms_p50"),
+            "train_text_bf16": {k: run["bf16"].get(k) for k in steps},
+            "train_text_f32": {k: run["f32"].get(k) for k in steps},
             "text_bf16_idle_share_vs_step_p50": prof.get(
                 "idle_share_vs_step_p50"),
             "text_bf16_lstm_device_ms_per_step": lstm,
@@ -1713,7 +1723,7 @@ def lstm_bf16_times(kind: str, edits: dict, tree: str = ".",
     dev = resolve_device(None)
     bf = torch.bfloat16
     kerns = ([LK.KERNEL_FWD_BF16, LK.KERNEL_FI_BF16] if kind == "fwd"
-             else [LK.KERNEL_BWD_BF16])
+             else [LK.KERNEL_BWD_BF16, LK.KERNEL_BWD_STORED_BF16])
     csrc = os.path.join(tree, "paddle_tpu_torch", "ops", "kernels", "csrc")
     text = "".join(open(os.path.join(csrc, f)).read()
                    for f in sorted(os.listdir(csrc))
@@ -1739,10 +1749,11 @@ def lstm_bf16_times(kind: str, edits: dict, tree: str = ".",
         hs, cs, gates = LK._fwd_plain(*fa, True)[:3]
         tail = (x["mask"], x["w_h"], x["peep"], h0, c0, hs, cs, x["dhs"],
                 x["dhT"], x["dcT"], False)
-        for form, args in (("remat", (x["xw"], None, *tail, True)),
-                           ("stored", (None, gates, *tail, False))):
+        for which, form, args in (
+                (0, "remat", (x["xw"], None, *tail, True)),
+                (1, "stored", (None, gates, *tail, False))):
             shapes[f"{form}_d{d}"] = (
-                0, lambda args=args: LK._bwd_kernel(*args),
+                which, lambda args=args: LK._bwd_kernel(*args),
                 LK._bwd_plain(*args), "lstm_bwd_bf16_kernel")
     if kind == "fwd" and 1280 in widths:
         _, rb, rt, re, rd = C.RAW_RNN[0]
@@ -1799,7 +1810,9 @@ def lstm_bf16_times(kind: str, edits: dict, tree: str = ".",
 
 
 def lstm_bf16_bounds() -> int:
-    """The bf16 text forms' bounds (``chip_smoke.lstm_bf16_bytes_flops``,
+    """The bf16 text forms' bounds (``chip_smoke.lstm_bf16_bytes_flops``:
+    the forward without and with its gates slab, the remat and the
+    stored-gates backward;
     2 B an element, 989 TFLOP/s, 3.35 TB/s) at B 64, T 128, lengths 100
     and each of LSTM_BF16_WIDTHS; one JSON line (arithmetic, no card)."""
     import chip_smoke as C
@@ -1807,7 +1820,7 @@ def lstm_bf16_bounds() -> int:
     print(json.dumps({f"{kind}_d{d}": C.bound(
         *C.lstm_bf16_bytes_flops(kind, 64, 128, d, 64 * 100),
         C.BF16_FLOPS_PER_S) for d in LSTM_BF16_WIDTHS
-        for kind in ("fwd", "bwd")}), flush=True)
+        for kind in ("fwd", "fwd_slab", "bwd", "stored")}), flush=True)
     return 0
 
 
@@ -2063,6 +2076,61 @@ def cluster_probe() -> int:
     return 0
 
 
+def slab_cost(turns: int = 2) -> int:
+    """What writing the gates slab costs the text forward, in the smoke's
+    own measures: this tree's f32 and bf16 LSTM forward at B 64, T 128,
+    D 1280, lengths 100 (``check_text_kernels``' and
+    ``bf16_lstm_inputs``' inputs) without and with its slab, in turns
+    (without, with, with, without) ``turns`` times, each timed alone
+    (``device_ms``: the kernel's own time, no flush) and with the L2
+    flushed; then the same turns each right after the plain twin, as
+    ``check_text_kernels`` times the forward.  One JSON line."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as C
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    dev = resolve_device(None)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d = 64, 128, 1280
+    mask = (torch.arange(t, device=dev)[None, :] < 100).float()
+    xw = 0.5 * torch.randn(b, t, 4 * d, generator=gen, device=dev)
+    w_h = torch.randn(d, 4 * d, generator=gen, device=dev) / d ** 0.5
+    peep = 0.1 * torch.randn(3, d, generator=gen, device=dev)
+    h0 = c0 = torch.zeros(b, d, device=dev)
+    x = C.bf16_lstm_inputs(dev, gen, b, t, d, torch.full((b,), 100))
+    forms = {"f32": ((xw, mask, w_h, peep, h0, c0, False), "lstm_fwd_kernel"),
+             "bf16": ((x["xw"], x["mask"], x["w_h"], x["peep"],
+                       torch.zeros_like(x["h0"]), torch.zeros_like(x["c0"]),
+                       False), "lstm_fwd_bf16")}
+    timer = C.Timer(dev)
+    print(C.nvidia_smi(), flush=True)
+    out = {}
+    for name, (fa, key) in forms.items():
+        plain = lambda fa=fa: LK._fwd_plain(*fa, True)     # noqa: E731
+        for after_plain in (False, True):
+            rows = {False: [], True: []}
+            for slab in [False, True, True, False] * turns:
+                call = (lambda fa=fa, slab=slab:        # noqa: E731
+                        LK._fwd_kernel(*fa, slab))
+                if after_plain:
+                    plain()
+                rows[slab].append({"alone_ms": C.device_ms([call], key),
+                                   "ms": timer(call)})
+            mean = {s: {k: float(np.mean([r[k] for r in rows[s]]))
+                        for k in ("alone_ms", "ms")} for s in rows}
+            label = name + ("_after_plain" if after_plain else "")
+            out[label] = {"without": rows[False], "with": rows[True],
+                          "slab_cost_ms": {k: mean[True][k] - mean[False][k]
+                                           for k in ("alone_ms", "ms")}}
+            print(json.dumps({label: out[label]["slab_cost_ms"]}),
+                  flush=True)
+    print(json.dumps({"slab_cost": out}), flush=True)
+    return 0
+
+
 def main(trees: list[str], out_dir: str, calls_only: bool = False) -> int:
     os.makedirs(out_dir, exist_ok=True)
     rc = 0
@@ -2121,6 +2189,8 @@ if __name__ == "__main__":
         sys.exit(cluster_probe())
     if args == ["--lstm-fwd-variants"]:
         sys.exit(lstm_fwd_variants())
+    if args == ["--slab-cost"]:
+        sys.exit(slab_cost())
     if args == ["--lstm-bf16-bounds"]:
         sys.exit(lstm_bf16_bounds())
     if args == ["--lstm-bf16-variants"]:

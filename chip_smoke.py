@@ -122,8 +122,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    bf16 moments).  Its kernels against their plain twins at the path's
    shapes (LSTM forward and backward at B 64, T 128, D 1280, lengths 100;
    the gather and the table gradient of 8,192 ids into [30000, 128]; max
-   abs error <= 1e-4 x max(1, |ref|)), the backward's remat and
-   stored-gates forms and a rerun equal in bits, the backward's planted
+   abs error <= 1e-4 x max(1, |ref|)), the forward with its gates slab
+   (the path's form; without it timed beside) and the backward's
+   stored-gates form (the path's) and remat form and a rerun equal in
+   bits, the backward's planted
    faults (its dh product on the tensor cores in one TF32 pass, a range
    of the blocks' partials left out of the sum: ``LSTM_BWD_FAULTS``) each
    over that limit, the forward product's (one TF32 pass, over the limit;
@@ -148,8 +150,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    at batch 64 of 100-token sequences (T = 128 after the feeder's
    bucketing; sequences/s, step ms, peak memory, finite losses, the
    classification error from the events) with exactly one launch each of
-   the LSTM forward, the LSTM backward, the gather and the scatter-add
-   per step; 3 steps under ``torch.profiler``, whose trace must hold no
+   the LSTM forward, the LSTM backward in its stored-gates form (the slab
+   fits the card: ``ops.rnn.stored_slab_fits``; no remat launch), the
+   gather and the scatter-add per step; 3 steps under
+   ``torch.profiler``, whose trace must hold no
    library sort (the lookup forward no longer dedups); ``test`` on 2
    batches (one forward and one gather per batch).
 7. The OCR CRNN (``models/ocr_crnn.crnn_ctc_cost`` at ``bench_crnn``'s
@@ -194,8 +198,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    32-token sequences, batch 64; 53,458,224 parameters; f32, Adam at lr
    5e-4 with bf16 moments).  Its kernels against their plain twins at the
    path's shapes (B 64, T 32, E = D = 512, half the rows ragged): the
-   BiGRU forward (both directions), the GRU forward, the GRU backward in
-   its remat form and its stored-gates form (the same bits), the GRU
+   BiGRU forward (both directions), the GRU forward (with its slab timed
+   beside), the GRU backward in its remat form and its stored-gates form
+   (the same bits), the GRU
    kernels in both directions; max abs error
    <= 1e-4 x max(1, |ref|), reruns equal in bits; each timed beside its
    twin, its bound and cuDNN's ``nn.GRU`` (another cell: the reset gate
@@ -214,10 +219,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    scatter-adds per step; 3 steps under ``torch.profiler``; ``test`` on
    2 batches (1 BiGRU forward and 2 gathers each); and ``layer.bigru``
    against the composed ``simple_gru2`` pair on the card (forward and
-   every gradient within 1e-4 x max(1, |ref|)), then each ``grumemory``
-   of the pair as ``gru_seq`` on the pair's own inputs with the remat and
-   the stored-gates backward (equal in bits), whose launches count the
-   GRU forward and stored-gates rows.
+   every gradient within 1e-4 x max(1, |ref|); the pair's ``grumemory``
+   runs the stored-gates backward, the BiGRU the remat one), then each
+   ``grumemory`` of the pair as ``gru_seq`` on the pair's own inputs with
+   the remat and the stored-gates backward (equal in bits), whose
+   launches count the GRU forward and stored-gates rows.
 9. The CIFAR-10 VGG with batch norm and dropout (``layers/networks.
    small_vgg``, the book's ``vgg_bn_drop``: 46 tensors, 7,909,450
    parameters, 11 batch norms; batch 128 of the port's seeded CIFAR-10;
@@ -295,12 +301,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward and backward 10 times against a fixed cotangent with the
    launch counts zeroed just before and read just after: exactly 10
    fused-input forward and 10 remat backward launches and no sequence
-   forward; outputs and every input gradient (x, W_x, b, W_h, [W_hc], h0,
-   [c0]) against a float64 witness of the plain composition on the card,
-   per leaf within 1e-4 x max(1, max |ref|), with TF32 in cuBLAS and the
-   ragged mask ignored as planted faults that must exceed it; a rerun in
-   the same bits; step ms of the fused route against the unfused one in
-   blocks of 10 (fused, unfused, unfused, fused).
+   forward (the unfused route: 10 sequence forward and 10 stored-gates
+   backward launches); outputs and every input gradient (x, W_x, b,
+   W_h, [W_hc], h0, [c0]) against a float64 witness of the plain
+   composition on the card, per leaf within 1e-4 x max(1, max |ref|),
+   with TF32 in cuBLAS and the ragged mask ignored as planted faults that
+   must exceed it; a rerun in the same bits; step ms of the fused route
+   against the unfused one in blocks of 10 (fused, unfused, unfused,
+   fused).
 13. bf16 ``compute_dtype`` (rows 13–15's bf16 forms: ``csrc/
    gemm_wgmma.cuh``'s Hopper tile where the copies can be 16 bytes wide,
    ``csrc/gemm_bf16.cuh``'s mma.sync tile elsewhere (the stem, AlexNet's
@@ -392,19 +400,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    build of the source the dh product's second pass leaving a part out:
    ``LSTM_BF16_FAULTS``); each timed with the L2 flushed and alone (a
    trace) beside its twin, its bound (2 B an element, 989 TFLOP/s) and
-   bf16 cuDNN ``nn.LSTM`` or ``F.embedding``, the text backward's
-   stored-gates form timed beside its remat form on one line.  The bf16 witness steps of the two nets at a cut
-   width (``rnn_bf16_witness``: every gradient leaf and the loss on the
-   card and the CPU within 2x the JAX package's own bf16 error plus 2^-8;
-   dW_h over unshifted stacks must exceed it; a rerun in the same bits).
+   bf16 cuDNN ``nn.LSTM`` or ``F.embedding``; at the text shape the
+   forward with its gates slab and the stored-gates backward (the path's
+   forms), each timed beside the other form on one line.  The bf16
+   witness steps of the two nets at a cut width (``rnn_bf16_witness``:
+   every gradient leaf and the loss on the card and the CPU within 2x the
+   JAX package's own bf16 error plus 2^-8; dW_h over unshifted stacks
+   must exceed it; a rerun in the same bits).
    Then each at its bench configuration through ``trainer.SGD(...,
    compute_dtype=torch.bfloat16)`` (Adam with bf16 moments) beside f32,
    2 warm-up and 10 timed steps each in blocks (bf16, f32, f32, bf16):
-   exactly 1 ``lstm_fwd_bf16``, 1 ``lstm_bwd_bf16``, 1 bf16 gather and 1
-   (f32) scatter-add a text step, 1 ``bilstm_fwd_bf16``, 2
-   ``lstm_bwd_bf16``, 2 bf16 direct convs and 1 CTC a CRNN step, and no
-   other form's; sequences/s and samples/s, step ms, peak memory, a
-   3-step profile.
+   exactly 1 ``lstm_fwd_bf16``, 1 ``lstm_bwd_bf16`` in its stored-gates
+   form, 1 bf16 gather and 1 (f32) scatter-add a text step, 1
+   ``bilstm_fwd_bf16``, 2 ``lstm_bwd_bf16`` in its remat form, 2 bf16
+   direct convs and 1 CTC a CRNN step, and no other form's; sequences/s
+   and samples/s, step ms, peak memory, a 3-step profile.
 16. The attention NMT in bf16 (rows 8 and 10's bf16 forms:
    ``csrc/gru_seq.cu``'s ``gru_fwd_bf16`` and ``gru_bwd_bf16``,
    ``csrc/bigru_seq.cu``'s ``bigru_fwd_bf16``).  Each form at the NMT's
@@ -428,7 +438,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    stacks must exceed it; a rerun in the same bits).  The composed BiGRU
    check in bf16 (``layer.bigru`` against the ``simple_gru2`` pair, each
    against float64; the pair's ``grumemory`` through ``gru_fwd_bf16`` and
-   both backward forms, remat and stored in the same bits).  Then
+   the stored-gates backward, then both backward forms, remat and stored
+   in the same bits).  Then
    ``bench_nmt``'s configuration through ``trainer.SGD(...,
    compute_dtype=torch.bfloat16)`` (Adam 5e-4, bf16 moments) beside f32,
    2 warm-up and 10 timed steps each in blocks (bf16, f32, f32, bf16):
@@ -493,7 +504,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    zeroed just before and read just after: ``ops.rnn.lstm`` (both
    directions) and ``gru`` on bf16 operands, forward and backward 10
    times (exactly 10 bf16 fused-input forwards and 10 bf16 remat
-   backwards, no f32 fused-input or sequence forward), every leaf within
+   backwards, no f32 fused-input or sequence forward; the unfused route's
+   backward stored-gates), every leaf within
    2x the bf16 twins' distance from a float64 witness plus 2^-8 (the
    ragged mask ignored must fail), fused against the unfused bf16 route
    in blocks (fused, unfused, unfused, fused); ``softmax_xent``'s mean
@@ -511,6 +523,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 from __future__ import annotations
 
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -1406,20 +1420,12 @@ def in_range_taps(size: int, k: int, s: int, p: int) -> int:
 def library_kernels(fn, rounds: int = 20) -> list:
     """The device kernels one call of ``fn`` launches, by name, with each
     one's device time a call, from a ``torch.profiler`` trace of
-    ``rounds`` calls (the first few records of a trace may be lost)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            fn()
-        torch.cuda.synchronize()
+    ``rounds`` calls (the first few records of a trace may be lost; an
+    empty trace is taken again, ``cuda_records``)."""
     return sorted(({"name": e.key[:160], "launches": e.count,
                     "ms_per_call": e.self_device_time_total / 1e3 / rounds}
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total),
+                   for e in cuda_records(fn, rounds)
+                   if e.self_device_time_total),
                   key=lambda r: -r["ms_per_call"])
 
 
@@ -1887,6 +1893,7 @@ def profile_window(fn, steps: int, split: str | None = None) -> dict:
 #: the GRU kernels' names in a trace, by the launch ``device_ms`` reads
 GRU_KERNEL_NAMES = {"bi": "bigru_fwd_kernel",
                     "fwd": "::gru_fwd_kernel<false",
+                    "fwd_slab": "::gru_fwd_kernel<false",
                     "remat": "gru_bwd_kernel<true",
                     "stored": "gru_bwd_kernel<false"}
 
@@ -1905,23 +1912,37 @@ def device_ms(fns, key: str, rounds: int = 20, tries: int = 5) -> float:
     return device_passes_ms(fns, (key,), rounds, tries)[key]
 
 
+def cuda_records(fn, rounds: int, tries: int = 3) -> list:
+    """The CUDA records (``key_averages``) of a ``torch.profiler`` trace of
+    ``rounds`` calls of ``fn``.  On the H100 host a trace of 40 calls has
+    come back holding no device time at all, so such a trace is taken
+    again, up to ``tries`` traces; an empty list means all were empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if any(e.self_device_time_total for e in events):
+            return events
+        log(f"chip_smoke: a trace of {rounds} calls held no device time; "
+            f"taken again")
+    return []
+
+
 def call_alone_ms(fn, rounds: int = 20) -> float:
     """The device time of one call of ``fn``, whatever its kernels are
     named: the sum of every CUDA kernel's (and memset's or copy's) time in
     a ``torch.profiler`` trace of ``rounds`` calls, over ``rounds`` (a
-    library call's own time, no flush).  Raises when the trace holds no
-    device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    library call's own time, no flush).  Raises when every trace
+    (``cuda_records``) holds no device time."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
+    total = sum(e.self_device_time_total for e in cuda_records(fn, rounds))
     if not total:
         raise AssertionError("a trace of the call holds no device time")
     return total / 1e3 / rounds
@@ -2644,10 +2665,11 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
                        n_ids=8192, vocab=30000, embed=128,
                        fwd_faults=None) -> tuple:
     """The text path's kernels at its shapes, each against its plain twin
-    (max abs error <= TOL * max(1, |ref|)): the LSTM forward (no gates
-    slab, as the card's remat path runs it) and backward (remat, and the
-    stored-gates form, which must give the same bits) at B 64, T 128,
-    D 1280 with lengths 100, the backward's planted faults
+    (max abs error <= TOL * max(1, |ref|)): the LSTM forward (writing its
+    gates slab, as the card's stored-gates path runs it; timed without the
+    slab beside) and backward (the stored-gates form the path runs, and
+    the remat form, which must give the same bits, timed beside) at B 64,
+    T 128, D 1280 with lengths 100, the backward's planted faults
     (``LSTM_BWD_FAULTS``: each over TOL) and the forward product's
     (``LSTM_FWD_FAULTS``, ``fwd_faults`` their builds: one TF32 pass over
     TOL, the remat product through another routine breaking remat ==
@@ -2689,17 +2711,22 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
             e = max(e, err)
         return e
 
-    fwd = lambda: LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, False)
+    fwd = lambda: LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, True)
+    no_slab = lambda: LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False,
+                                     False)
     fwd_plain = lambda: LK._fwd_plain(xw, mask, w_h, peep, h0, c0, False,
-                                      False)
-    hs, cs, _, _, _ = got = fwd()
-    fwd_err = worst([g for g in got if g is not None],
-                    [w for w in fwd_plain() if w is not None])
-    gates = LK._fwd_kernel(xw, mask, w_h, peep, h0, c0, False, True)[2]
+                                      True)
+    hs, cs, gates, _, _ = got = fwd()
+    fwd_err = worst(got, fwd_plain())
+    if not all(g is None or torch.equal(g, s)
+               for g, s in zip(no_slab(), got)):
+        raise AssertionError("lstm forward: writing the gates slab changes "
+                             "the outputs' bits")
     args = (mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, False)
     bwd = lambda: LK._bwd_kernel(xw, None, *args, True)
+    stored_bwd = lambda: LK._bwd_kernel(None, gates, *args, False)
     remat = bwd()
-    stored = LK._bwd_kernel(None, gates, *args, False)
+    stored = stored_bwd()
     again = bwd()
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) and torch.equal(x, z)
@@ -2707,8 +2734,10 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         raise AssertionError("lstm backward: remat, stored gates and a rerun "
                              "differ in bits on the card")
     bwd_plain = lambda: LK._bwd_plain(xw, None, *args, True)
+    stored_plain = lambda: LK._bwd_plain(None, gates, *args, False)
     want_bwd = bwd_plain()
-    bwd_err = worst(remat, want_bwd)
+    bwd_err = worst(stored, stored_plain())
+    worst(remat, want_bwd)
     real = LK.KERNEL_BWD._fn or LK.KERNEL_BWD._resolve()
     bwd_faults = {}
     for name, build in lstm_faults.items():
@@ -2731,10 +2760,7 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         LK._fwd_plain(xw, mask, w_h, peep, h0, c0, False, True),
         lambda: lstm_remat_vs_stored(xw, mask, w_h, peep, h0, c0, hs, cs,
                                      gates, dhs))
-    stored_alone = device_ms([lambda: LK._bwd_kernel(None, gates, *args,
-                                                     False)],
-                             "lstm_bwd_kernel")
-    del gates, stored, again, want_bwd
+    del stored, again, want_bwd
 
     # yardsticks: cuDNN's LSTM over the 128-wide embeddings, and the
     # port's fc (x @ W_x + b) plus the forward kernel over the same input
@@ -2763,33 +2789,45 @@ def check_text_kernels(dev, timer, b=64, t=128, d=1280, length=100,
         "shape": [b, t, d], "max_abs_err": fwd_err,
         "planted_faults": fwd_fault_measures,
         "ms": timer(fwd), "plain_ms": timer(fwd_plain),
-        # xw, W_h, peep, h0, c0, mask in; hs, cs, h_T, c_T out; the
-        # product on the tensor cores as 3xTF32 (the lesser bound)
-        "bytes_flops": (f32 * (b * t * 4 * d + d * 4 * d + 3 * d + 4 * b * d
-                               + b * t + 2 * b * t * d),
+        # xw, W_h, peep, h0, c0, mask in; hs, cs, the gates slab, h_T,
+        # c_T out; the product on the tensor cores as 3xTF32 (the lesser
+        # bound)
+        "bytes_flops": (f32 * (2 * b * t * 4 * d + d * 4 * d + 3 * d
+                               + 4 * b * d + b * t + 2 * b * t * d),
                         2.0 * steps * d * 4 * d + cell),
         "bound_rule": bound_3xtf32,
         "alone_ms": device_ms([fwd], "lstm_fwd_kernel"),
+        "no_slab_ms": timer(no_slab),
+        "no_slab_alone_ms": device_ms([no_slab], "lstm_fwd_kernel"),
         "library_ms": timer(lib_fwd),
         "fc_plus_kernel_ms": timer(fc_fwd)}, {
-        "name": "lstm_seq_bwd", "route": "cuda",
+        "name": "lstm_seq_bwd_stored", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
-        "replaces": "paddle_tpu/ops/pallas/lstm.py:426",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:310",
         "shape": [b, t, d], "max_abs_err": bwd_err,
         "planted_faults": bwd_faults,
-        "ms": timer(bwd), "alone_ms": device_ms([bwd], "lstm_bwd_kernel"),
-        "stored_gates_alone_ms": stored_alone,
-        "plain_ms": timer(bwd_plain),
-        # xw, mask, W_h, peep, h0, c0, hs, cs, dhs, dh_T, dc_T in; dgates,
-        # dh0, dc0, dpeep out; the remat product and dgates @ W_h^T (the
-        # latter on the tensor cores as 3xTF32: the lesser bound)
+        "ms": timer(stored_bwd),
+        "alone_ms": device_ms([stored_bwd], "lstm_bwd_kernel"),
+        "plain_ms": timer(stored_plain),
+        # the gates slab, mask, W_h, peep, h0, c0, hs, cs, dhs, dh_T,
+        # dc_T in; dgates, dh0, dc0, dpeep out; dgates @ W_h^T on the
+        # tensor cores as 3xTF32 (the lesser bound); no remat product
         "bytes_flops": (f32 * (2 * b * t * 4 * d + d * 4 * d + 6 * d
                                + 6 * b * d + b * t + 3 * b * t * d),
-                        4.0 * steps * d * 4 * d + 2 * cell),
+                        2.0 * steps * d * 4 * d + cell),
         "bound_rule": bound_3xtf32,
+        # the remat form over xw (the same bits), off the text path since
+        # the stored slab fits: its times and bound (the remat product
+        # besides)
+        "remat_ms": timer(bwd),
+        "remat_alone_ms": device_ms([bwd], "lstm_bwd_kernel"),
+        "remat_bound_ms": bound_3xtf32(
+            f32 * (2 * b * t * 4 * d + d * 4 * d + 6 * d + 6 * b * d + b * t
+                   + 3 * b * t * d), 4.0 * steps * d * 4 * d + 2 * cell)[0],
         "library_ms": timer(lambda: torch.autograd.grad(
             out_lib, lib_params, g_lib, retain_graph=True))}]
-    del xw, dhs, hs, cs, remat, out_lib, g_lib, lib_params, x_lib, cudnn
+    del xw, dhs, hs, cs, gates, remat, out_lib, g_lib, lib_params, x_lib
+    del cudnn
 
     ids = torch.randint(0, vocab, (n_ids,), generator=gen, device=dev)
     table = torch.randn(vocab, embed, generator=gen, device=dev)
@@ -3040,8 +3078,12 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
                           paddle.event.EndIteration)):
             marks.setdefault(e.batch_id, []).append(time.perf_counter())
 
-    kernels = (LK.KERNEL_FWD, LK.KERNEL_BWD, EK.KERNEL_GATHER,
-               EK.KERNEL_SCATTER, EK.KERNEL_GROUP)
+    # the backward's two forms counted apart: the stored-gates form where
+    # the slab fits (``ops.rnn.stored_slab_fits``), none of the remat form
+    names = ("lstm_fwd", "lstm_bwd_stored", "lstm_bwd_remat", "gather",
+             "scatter_add", "group_ids")
+    kernels = (LK.KERNEL_FWD, LK.KERNEL_BWD_STORED, LK.KERNEL_BWD,
+               EK.KERNEL_GATHER, EK.KERNEL_SCATTER, EK.KERNEL_GROUP)
     for k in kernels:
         k.launches = 0
     t1 = time.perf_counter()
@@ -3050,10 +3092,10 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
     wall = time.perf_counter() - t1
     launches = tuple(k.launches for k in kernels)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches != (steps,) * 5:
-        raise AssertionError(f"text train launches (lstm fwd, bwd, gather, "
-                             f"scatter-add, its grouping) {launches} != "
-                             f"{steps} each")
+    if launches != (steps, steps, 0, steps, steps, steps):
+        raise AssertionError(f"text train launches "
+                             f"{dict(zip(names, launches))} != {steps} each "
+                             f"and no remat backward")
     losses = [c for c, _ in events]
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"text train losses {losses}")
@@ -3072,9 +3114,9 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
         raise AssertionError(f"the text forward's trace holds a library "
                              f"sort: {fwd_prof['library_sort_kernels']}")
     test_n = tuple(k.launches for k in kernels)
-    if test_n != (2, 0, 2, 0, 0) or not np.isfinite(result.cost):
-        raise AssertionError(f"text test launches {test_n} != (2, 0, 2, 0, "
-                             f"0) or cost {result.cost}")
+    if test_n != (2, 0, 0, 2, 0, 0) or not np.isfinite(result.cost):
+        raise AssertionError(f"text test launches {test_n} != (2, 0, 0, 2, "
+                             f"0, 0) or cost {result.cost}")
     p50 = float(np.percentile(step_ms, 50))
     if "device_busy_ms_per_step" in prof:
         prof["idle_share_vs_step_p50"] = (
@@ -3091,17 +3133,20 @@ def train_text(dev, hidden=1280, vocab=30000, embed=128, bs=64, seqlen=100,
            "step_ms": step_ms, "losses": losses,
            "classification_error": [m for _, m in events],
            "max_memory_allocated_bytes": peak,
-           "train_launches": dict(zip(("lstm_fwd", "lstm_bwd", "gather",
-                                       "scatter_add", "group_ids"),
-                                      launches)),
-           "test_launches": dict(zip(("lstm_fwd", "lstm_bwd", "gather",
-                                      "scatter_add", "group_ids"), test_n)),
+           "train_launches": dict(zip(names, launches)),
+           "test_launches": dict(zip(names, test_n)),
            "test_batches": 2, "test_cost": result.cost,
            "test_forward_library_sort_kernels":
                fwd_prof.get("library_sort_kernels"),
            "test_metrics": result.metrics, "setup_s": setup_s,
            "profile": prof}
-    return out, launches
+    print(json.dumps({"train_text_step_ms_p50": p50,
+                      "max_memory_allocated_bytes": peak,
+                      "lstm_bwd_stored": launches[1],
+                      "lstm_bwd_remat": launches[2]}), flush=True)
+    # the rows' launches: the forward, the stored-gates backward the path
+    # runs, the gather, the scatter-add and its grouping
+    return out, launches[:2] + launches[3:]
 
 
 CRNN_COST_RTOL = 1e-5    # f32 CRNN step vs the f64 witness: cost, and per
@@ -3565,6 +3610,7 @@ def train_crnn(dev, bs=64, steps=10) -> tuple[dict, tuple]:
 
     kernels = {"conv2d_direct": CV.KERNEL, "bilstm_fwd": LK.KERNEL_BI,
                "lstm_fwd": LK.KERNEL_FWD, "lstm_bwd": LK.KERNEL_BWD,
+               "lstm_bwd_stored": LK.KERNEL_BWD_STORED,
                "ctc_fwd_bwd": KC.KERNEL_LOSS, "ctc_decode": KC.KERNEL_DECODE,
                "brgemm": BR.KERNEL}
 
@@ -3582,8 +3628,11 @@ def train_crnn(dev, bs=64, steps=10) -> tuple[dict, tuple]:
     wall = time.perf_counter() - t1
     train_n = counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    # the BiLSTM's backward stays remat (``bilstm_fused``): 2 a step, no
+    # stored-gates launch
     want = {"conv2d_direct": 2, "bilstm_fwd": 1, "lstm_fwd": 0,
-            "lstm_bwd": 2, "ctc_fwd_bwd": 1, "ctc_decode": 0, "brgemm": 0}
+            "lstm_bwd": 2, "lstm_bwd_stored": 0, "ctc_fwd_bwd": 1,
+            "ctc_decode": 0, "brgemm": 0}
     if train_n != {n: c * steps for n, c in want.items()}:
         raise AssertionError(f"CRNN train launches {train_n} != {want} "
                              f"x {steps}")
@@ -3703,11 +3752,13 @@ def check_nmt_kernels(dev, timer, b=64, t=32, e=512, d=512) -> tuple:
     rows full and half ragged), each against its plain twin (max abs error
     <= TOL * max(1, |ref|)) with a rerun bit-identical: the BiGRU forward
     (both directions, x @ W_x + b inside); the GRU forward (no gate slab,
-    as the card runs it), the GRU backward in its remat form (the BiGRU's
+    as the remat route runs it; timed with the slab beside, as the stored
+    route runs it), the GRU backward in its remat form (the BiGRU's
     backward launches it once per direction) and in its stored-gates form
-    (which must give the remat form's bits), each over both directions'
-    inputs (reverse off and on) and timed per launch, with its own device
-    time from a trace beside the wrapper's.  Library yardstick: cuDNN's
+    (which must give the remat form's bits; ``grumemory``'s form where the
+    slab fits), each over both directions' inputs (reverse off and on)
+    and timed per launch, with its own device time from a trace beside
+    the wrapper's.  Library yardstick: cuDNN's
     ``nn.GRU``, which is NOT the same cell (its reset gate acts after the
     candidate product, r * (h W_hn + b_hn); the gate order is [r, z, n])
     and includes the input projection: bidirectional for the BiGRU row,
@@ -3764,6 +3815,8 @@ def check_nmt_kernels(dev, timer, b=64, t=32, e=512, d=512) -> tuple:
         calls[reverse] = {
             "fwd": (lambda fa=fa: GK._fwd_kernel(*fa, False),
                     lambda fa=fa: GK._fwd_plain(*fa, False)),
+            "fwd_slab": (lambda fa=fa: GK._fwd_kernel(*fa, True),
+                         lambda fa=fa: GK._fwd_plain(*fa, True)),
             "remat": (
                 lambda xw=xw, a=args: GK._bwd_kernel(xw, None, *a, True),
                 lambda xw=xw, a=args: GK._bwd_plain(xw, None, *a, True)),
@@ -3858,6 +3911,10 @@ def check_nmt_kernels(dev, timer, b=64, t=32, e=512, d=512) -> tuple:
             "ms": ms, "ms_by_direction": by_dir, "plain_ms": plain_ms,
             "kernel_only_ms": own, "bytes_flops": bytes_flops,
             "library_ms": timer(lib), "library_note": lib_note})
+    # the forward writing its u/r/c slab, as the stored route runs it
+    ms, by_dir, _, own = per_launch("fwd_slab")
+    rows[1].update(with_slab_ms=ms, with_slab_ms_by_direction=by_dir,
+                   with_slab_kernel_only_ms=own)
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound(*row.pop("bytes_flops"))
     summary = {"phase": "nmt_kernels", "tol": TOL,
@@ -3896,11 +3953,12 @@ def composed_bigru_check(dev, b=64, t=32, e=512, d=512,
     inside the graph, as the v2 step casts them) each, per tensor, within
     2x the pair's relative distance from the float64 run of ``layer.bigru``
     on the CPU plus 2^-8 (the pair rounds its projection to bf16, the
-    BiGRU keeps it f32).  Then each ``grumemory`` of the pair again as its
-    layer calls ``gru_seq``, on the pair's own gate inputs and weights,
-    once with the remat backward the card runs and once with the
-    stored-gates one: the same bits, and the pair's output.  Returns
-    (summary, launches by kernel, the bf16 forms' for bf16)."""
+    BiGRU keeps it f32).  The pair's ``grumemory`` runs the stored-gates
+    backward (its slab fits), the BiGRU the remat one.  Then each
+    ``grumemory`` of the pair again as its layer calls ``gru_seq``, on the
+    pair's own gate inputs and weights, once with the remat backward and
+    once with the stored-gates one: the same bits, and the pair's output.
+    Returns (summary, launches by kernel, the bf16 forms' for bf16)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.config.topology import Topology
     from paddle_tpu_torch.core.dtype import cast_floats
@@ -3982,8 +4040,8 @@ def composed_bigru_check(dev, b=64, t=32, e=512, d=512,
     launches = {n: counters[c].launches for n, c in names.items()}
     others = {n: k.launches for n, k in counters.items()
               if k.launches and n not in names.values()}
-    if launches != {"bigru_fwd": 1, "gru_fwd": 6, "gru_bwd_remat": 6,
-                    "gru_bwd_stored": 2} or others:
+    if launches != {"bigru_fwd": 1, "gru_fwd": 6, "gru_bwd_remat": 4,
+                    "gru_bwd_stored": 4} or others:
         raise AssertionError(f"composed check launches {launches}, "
                              f"{others}")
     if not all(torch.equal(p, q) for p, q in zip(remat, stored)):
@@ -4325,18 +4383,10 @@ def stats_fault_entries(kernel) -> dict:
 def trace_kernel_counts(fn, rounds: int = 40) -> dict:
     """{kernel name: records} of the CUDA kernels a ``torch.profiler``
     trace of ``rounds`` calls of ``fn`` holds (the H100 host's traces drop
-    some of their first records: 7 to 9 of 40 seen)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    some of their first records: 7 to 9 of 40 seen; an empty trace is
+    taken again, ``cuda_records``)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    return {e.key: e.count for e in cuda_records(fn, rounds)}
 
 
 def check_vgg_kernels(dev, timer, shapes=VGG_STATS_SHAPES,
@@ -6329,14 +6379,16 @@ def raw_rnn_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
     ``RAW_RNN``'s widths: a forward and backward against a fixed
     cotangent ``steps`` times with the launch counts zeroed just before
     and read just after (exactly ``steps`` fused-input forward and
-    ``steps`` remat backward launches, no launch of the sequence forward);
+    ``steps`` remat backward launches, no launch of the sequence forward
+    or of the stored-gates backward);
     the outputs and every input gradient against a float64 witness of the
     plain composition on the card (per leaf max |x32 - x64| <= TOL x
     max(1, max |x64|)), with TF32 allowed in cuBLAS and the ragged mask
     ignored as planted faults that must exceed it; the step ms of the
     fused route against the unfused one (the projection product and the
-    sequence kernel), in blocks of ``steps``: fused, unfused, unfused,
-    fused.  Returns (the phase's result, {kind: fused-input launches})."""
+    sequence kernels, the backward in its stored-gates form), in blocks of
+    ``steps``: fused, unfused, unfused, fused.  Returns (the phase's
+    result, {kind: fused-input launches})."""
     from paddle_tpu_torch.ops import rnn as R
     from paddle_tpu_torch.ops.kernels import gru as GK
     from paddle_tpu_torch.ops.kernels import lstm as LK
@@ -6359,7 +6411,8 @@ def raw_rnn_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
                 {k: v.double() for k, v in w.items()},
                 [v.double() for v in init], [c.double() for c in cts],
                 reverse)
-            kernels = (mod.KERNEL_FI, mod.KERNEL_BWD, mod.KERNEL_FWD)
+            kernels = (mod.KERNEL_FI, mod.KERNEL_BWD, mod.KERNEL_BWD_STORED,
+                       mod.KERNEL_FWD)
 
             def run(n, kernels=kernels, kind=kind, x=x, lens=lens, w=w,
                     init=init, cts=cts, reverse=reverse):
@@ -6375,10 +6428,11 @@ def raw_rnn_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
                 return got, ms, tuple(k.launches for k in kernels)
 
             got, fused_ms, n_fused = run(steps)
-            if n_fused != (steps, steps, 0):
+            if n_fused != (steps, steps, 0, 0):
                 raise AssertionError(f"{label}: launches (fused-input, "
-                                     f"remat backward, sequence forward) = "
-                                     f"{n_fused}, want ({steps}, {steps}, 0)")
+                                     f"remat backward, stored backward, "
+                                     f"sequence forward) = {n_fused}, want "
+                                     f"({steps}, {steps}, 0, 0)")
             launches[kind] += n_fused[0]
             errs = leaf_errors(got, wide)
             if not max(errs.values()) <= TOL:
@@ -6389,7 +6443,8 @@ def raw_rnn_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
             if not all(torch.equal(got[k], again[k]) for k in got):
                 raise AssertionError(f"{label}: a rerun differs in bits")
             # the unfused route: the projection product and the sequence
-            # kernels (the JAX package's route with its fused flag off)
+            # kernels (the JAX package's route with its fused flag off),
+            # the backward in its stored-gates form (the slab fits)
             on = R.fused_input_on
             R.fused_input_on = lambda device: False
             try:
@@ -6397,7 +6452,7 @@ def raw_rnn_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
                 unfused_ms += run(steps)[1]
             finally:
                 R.fused_input_on = on
-            if n_unfused != (0, steps, steps):
+            if n_unfused != (0, 0, steps, steps):
                 raise AssertionError(f"{label}: unfused launches {n_unfused}")
             unfused_err = max(leaf_errors(unfused, wide).values())
             fused_ms += run(steps)[1]
@@ -7681,8 +7736,11 @@ def rnn_bf16_counters() -> dict:
     from paddle_tpu_torch.ops.kernels import lstm as LK
 
     return {"lstm_fwd": LK.KERNEL_FWD, "lstm_bwd": LK.KERNEL_BWD,
+            "lstm_bwd_stored": LK.KERNEL_BWD_STORED,
             "lstm_fwd_bf16": LK.KERNEL_FWD_BF16,
-            "lstm_bwd_bf16": LK.KERNEL_BWD_BF16, "bilstm": LK.KERNEL_BI,
+            "lstm_bwd_bf16": LK.KERNEL_BWD_BF16,
+            "lstm_bwd_stored_bf16": LK.KERNEL_BWD_STORED_BF16,
+            "bilstm": LK.KERNEL_BI,
             "bilstm_bf16": LK.KERNEL_BI_BF16, "gather": EK.KERNEL_GATHER,
             "gather_bf16": EK.KERNEL_GATHER_BF16,
             "scatter_add": EK.KERNEL_SCATTER, "ctc": KC.KERNEL_LOSS,
@@ -7881,21 +7939,26 @@ def bilstm_bf16_case(xs, mask, fw, bw, gen) -> dict:
 def lstm_bf16_bytes_flops(kind: str, b: int, t: int, d: int,
                           steps: float) -> tuple[float, float]:
     """(bytes, operations) of the bf16 LSTM text form ``kind`` at [B, T,
-    D] with ``steps`` valid (row, step) pairs: the forward reads xw, W_h,
-    peep, h0 in bf16 and c0, mask in f32 and writes hs in bf16, cs, h_T,
-    c_T in f32; the backward reads xw, W_h, peep, h0, hs, dhs in bf16 and
+    D] with ``steps`` valid (row, step) pairs: the forward ("fwd") reads
+    xw, W_h, peep, h0 in bf16 and c0, mask in f32 and writes hs in bf16,
+    cs, h_T, c_T in f32 ("fwd_slab": and the gates slab in bf16); the
+    backward ("bwd", remat) reads xw, W_h, peep, h0, hs, dhs in bf16 and
     mask, c0, cs, dh_T, dc_T in f32 and writes dgates, dh0, dc0, dpeep in
-    f32, the remat product and dgates W_h^T beside the cells."""
+    f32, the remat product and dgates W_h^T beside the cells; the
+    stored-gates backward ("stored") reads the bf16 slab for xw and does
+    dgates W_h^T and the cell's backward alone."""
     cell = 25.0 * steps * d
-    if kind == "fwd":
+    if kind in ("fwd", "fwd_slab"):
         return (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d)
                 + 4 * (b * d + b * t) + 2 * b * t * d
-                + 4 * (b * t * d + 2 * b * d),
+                + 4 * (b * t * d + 2 * b * d)
+                + (2 * b * t * 4 * d if kind == "fwd_slab" else 0),
                 2.0 * steps * d * 4 * d + cell)
     return (2 * (b * t * 4 * d + d * 4 * d + 3 * d + b * d + 2 * b * t * d)
             + 4 * (b * t + b * t * d + 3 * b * d)
             + 4 * (b * t * 4 * d + 2 * b * d + 3 * d),
-            4.0 * steps * d * 4 * d + 2 * cell)
+            (4.0 * steps * d * 4 * d + 2 * cell if kind == "bwd"
+             else 2.0 * steps * d * 4 * d + cell))
 
 
 def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
@@ -7955,11 +8018,16 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
     xw, gates, *args = case["args"]
     del case
     m, w, p, h0, c0, hs, cs = args[:7]
-    fwd_args = (xw, m, w, p, h0, c0, False, False)
+    # the path's forms: the forward writing its gates slab and the
+    # stored-gates backward over it (the slab fits); the forward without
+    # the slab and the remat backward timed beside
+    fwd_args = (xw, m, w, p, h0, c0, False, True)
     fwd = lambda: LK._fwd_kernel(*fwd_args)                  # noqa: E731
-    bwd = lambda: LK._bwd_kernel(xw, None, *args, True)      # noqa: E731
+    no_slab = lambda: LK._fwd_kernel(*fwd_args[:-1], False)  # noqa: E731
+    bwd = lambda: LK._bwd_kernel(None, gates, *args, False)  # noqa: E731
+    remat = lambda: LK._bwd_kernel(xw, None, *args, True)    # noqa: E731
     fwd_plain = lambda: LK._fwd_plain(*fwd_args)             # noqa: E731
-    bwd_plain = lambda: LK._bwd_plain(xw, None, *args, True)  # noqa: E731
+    bwd_plain = lambda: LK._bwd_plain(None, gates, *args, False)  # noqa: E731
     x_emb = torch.randn(b, t, embed, generator=gen, device=dev).to(bf)
     cudnn = torch.nn.LSTM(embed, d, batch_first=True).to(dev, bf)
     cudnn.flatten_parameters()    # one weight buffer, as cuDNN wants it
@@ -7980,31 +8048,36 @@ def check_rnn_bf16_kernels(dev, timer, text=(64, 128, 1280, 100, 128),
         "shape": [b, t, d], "dtype": "bfloat16",
         "max_abs_err": summary["text"]["fwd"]["max_abs_err"],
         "ms": timer(fwd), "alone_ms": device_ms([fwd], "lstm_fwd_bf16"),
+        "no_slab_ms": timer(no_slab),
+        "no_slab_alone_ms": device_ms([no_slab], "lstm_fwd_bf16"),
         "plain_ms": timer(fwd_plain),
-        # xw, W_h, peep, h0 bf16 and c0, mask f32 in; hs bf16, cs, h_T,
-        # c_T f32 out
-        "bytes_flops": lstm_bf16_bytes_flops("fwd", b, t, d, steps),
+        # xw, W_h, peep, h0 bf16 and c0, mask f32 in; hs, the gates slab
+        # bf16, cs, h_T, c_T f32 out
+        "bytes_flops": lstm_bf16_bytes_flops("fwd_slab", b, t, d, steps),
         "library_ms": timer(lib_fwd)}, {
-        "name": "lstm_seq_bwd_bf16", "route": "cuda",
+        "name": "lstm_seq_bwd_stored_bf16", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/lstm_seq.cu",
-        "replaces": "paddle_tpu/ops/pallas/lstm.py:445",
+        "replaces": "paddle_tpu/ops/pallas/lstm.py:310",
         "shape": [b, t, d], "dtype": "bfloat16",
         "max_abs_err": summary["text"]["bwd"]["max_abs_err"],
         "ms": timer(bwd), "alone_ms": device_ms([bwd], "lstm_bwd_bf16"),
         "plain_ms": timer(bwd_plain),
-        "bytes_flops": lstm_bf16_bytes_flops("bwd", b, t, d, steps),
+        "bytes_flops": lstm_bf16_bytes_flops("stored", b, t, d, steps),
+        # the remat form over xw (the same bits, checked in the case
+        # above), off the text path since the slab fits
+        "remat_ms": timer(remat),
+        "remat_alone_ms": device_ms([remat], "lstm_bwd_bf16"),
+        "remat_bound_ms": bound(*lstm_bf16_bytes_flops(
+            "bwd", b, t, d, steps), BF16_FLOPS_PER_S)[0],
         "library_ms": timer(lambda: torch.autograd.grad(
             out_lib, lib_params, g_lib, retain_graph=True))}]
-    # the stored-gates form beside the remat one (the same bits, checked
-    # in the case above): what routing the backward by its slab needs
-    stored = lambda: LK._bwd_kernel(None, gates, *args, False)  # noqa: E731
-    rows[-1]["stored_ms"] = timer(stored)
-    rows[-1]["stored_alone_ms"] = device_ms([stored], "lstm_bwd_bf16")
-    summary["text_bwd_forms_ms"] = {
-        k: rows[-1][k] for k in ("ms", "alone_ms", "stored_ms",
-                                 "stored_alone_ms")}
-    print(json.dumps({"lstm_bwd_bf16_text_remat_vs_stored":
-                      summary["text_bwd_forms_ms"]}), flush=True)
+    summary["text_forms_ms"] = {
+        "fwd": {k: rows[0][k] for k in ("ms", "alone_ms", "no_slab_ms",
+                                        "no_slab_alone_ms")},
+        "bwd_stored": {k: rows[1][k] for k in ("ms", "alone_ms", "remat_ms",
+                                               "remat_alone_ms")}}
+    print(json.dumps({"lstm_bf16_text_forms": summary["text_forms_ms"]}),
+          flush=True)
     del x, xw, gates, args, fwd_args, hs, cs, out_lib, g_lib, lib_params
     del x_lib, cudnn, x_emb, m, w, p, h0, c0
 
@@ -8291,9 +8364,10 @@ def train_text_bf16(dev, hidden=1280, vocab=30000, embed=128, bs=64,
     ``trainer.SGD(compute_dtype=torch.bfloat16)`` (Adam 2e-3, bf16
     moments) beside f32 from the same parameters: 2 warm-up steps each,
     ``steps`` timed steps each in blocks of ``steps // 2`` (bf16, f32, f32,
-    bf16) with exactly one ``lstm_fwd_bf16``, ``lstm_bwd_bf16``,
-    ``embedding_gather_bf16`` and (the lookup's backward in f32)
-    ``embedding_scatter_add`` launch a bf16 step and no other form's;
+    bf16) with exactly one ``lstm_fwd_bf16``, ``lstm_bwd_bf16`` in its
+    stored-gates form, ``embedding_gather_bf16`` and (the lookup's backward
+    in f32) ``embedding_scatter_add`` launch a bf16 step and no other
+    form's (no remat backward);
     sequences/s, step ms, peak memory, the bf16 costs finite, the masters
     f32; a 3-step bf16 profile.  Returns (the phase's result, the bf16
     forms' launches over the timed bf16 steps)."""
@@ -8326,9 +8400,10 @@ def train_text_bf16(dev, hidden=1280, vocab=30000, embed=128, bs=64,
     for tr in trainers.values():
         tr.train(reader=lambda: iter(warm), num_passes=1,
                  event_handler=lambda e: None)
-    want = {"bf16": {"lstm_fwd_bf16": 1, "lstm_bwd_bf16": 1,
+    # the backward in its stored-gates form (the slab fits), no remat
+    want = {"bf16": {"lstm_fwd_bf16": 1, "lstm_bwd_stored_bf16": 1,
                      "gather_bf16": 1, "scatter_add": 1},
-            "f32": {"lstm_fwd": 1, "lstm_bwd": 1, "gather": 1,
+            "f32": {"lstm_fwd": 1, "lstm_bwd_stored": 1, "gather": 1,
                     "scatter_add": 1}}
     blocks = dtype_blocks(trainers, batches(steps // 2), want,
                           stamp_factory, rnn_bf16_counters())
@@ -8910,6 +8985,7 @@ def check_gru_bf16_kernels(dev, timer, b=64, t=32, e=512,
     m, w_h, w_hc, h0 = args[:4]
     fwd_args = (xw, m, w_h, w_hc, h0, False, False)
     fwd = lambda: GK._fwd_kernel(*fwd_args)                       # noqa: E731
+    fwd_slab = lambda: GK._fwd_kernel(*fwd_args[:-1], True)       # noqa: E731
     stored = lambda: GK._bwd_kernel(None, urc, *args, False)      # noqa: E731
 
     # (b) the BiGRU forward and the backward over its f32 projection
@@ -8978,6 +9054,9 @@ def check_gru_bf16_kernels(dev, timer, b=64, t=32, e=512,
         "shape": [b, t, d], "dtype": "bfloat16",
         "max_abs_err": gru["fwd"]["max_abs_err"],
         "ms": timer(fwd), "alone_ms": device_ms([fwd], "gru_fwd_bf16_kernel"),
+        # writing the u/r/c slab, as the stored route runs it
+        "with_slab_ms": timer(fwd_slab),
+        "with_slab_alone_ms": device_ms([fwd_slab], "gru_fwd_bf16_kernel"),
         "plain_ms": timer(lambda: GK._fwd_plain(*fwd_args)),
         # xw bf16 in, hs bf16 and h_T f32 out
         "bytes_flops": (2 * b * t * 3 * d + io + 2 * b * t * d + 4 * b * d,
@@ -9383,11 +9462,31 @@ def source_fault_builds(source: str, faults: dict, csrc=None,
         for f, text in changed.items():
             (d / f).write_text(text)
         lib = out / f"{prefix}{source}_{name}.so"
-        builds[name] = (subprocess.Popen(
+        proc = subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc),
              "-o", str(lib), str(d / f"{source}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        _fault_procs.append(proc)
+        builds[name] = (proc, lib)
     return builds
+
+
+#: every planted-fault build this process started (``source_fault_builds``)
+_fault_procs: list = []
+
+
+def stop_fault_builds() -> None:
+    """End the planted-fault builds still running, each ``nvcc`` with the
+    compilers it started (its own process group): a phase that raises
+    leaves the builds that later phases would have read."""
+    for proc in _fault_procs:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        proc.wait()
 
 
 def planted(proc, lib, kernel):
@@ -10168,13 +10267,15 @@ def raw_rnn_bf16_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
     backward against a fixed bf16 cotangent ``steps`` times with the
     launch counts zeroed just before and read just after (exactly
     ``steps`` bf16 fused-input forwards and ``steps`` bf16 remat backwards,
-    no f32 fused-input, no sequence-forward launch); every output and
+    no f32 fused-input, no sequence-forward, no stored-gates backward
+    launch); every output and
     gradient leaf against a float64 witness of the plain composition on
     the card: its relative distance at most 2x the bf16 twins' (the same
     entries with the twins on the card) plus 2^-8, with the ragged mask
     ignored as a planted fault that must exceed it; the fused route
     against the unfused bf16 one (the bf16 projection and the sequence
-    forms) in blocks of ``steps``: fused, unfused, unfused, fused.
+    forms, the backward stored-gates) in blocks of ``steps``: fused,
+    unfused, unfused, fused.
     Returns (the phase's result, {kind: bf16 fused-input launches})."""
     from paddle_tpu_torch.ops import rnn as R
     from paddle_tpu_torch.ops.kernels import gru as GK
@@ -10206,7 +10307,8 @@ def raw_rnn_bf16_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
             with twins_on_card(mod):
                 twin = raw_rnn_grads(raw_rnn_call, kind, x, lens, w, init,
                                      cts, reverse)
-            kernels = (mod.KERNEL_FI_BF16, mod.KERNEL_BWD_BF16, mod.KERNEL_FI,
+            kernels = (mod.KERNEL_FI_BF16, mod.KERNEL_BWD_BF16,
+                       mod.KERNEL_BWD_STORED_BF16, mod.KERNEL_FI,
                        mod.KERNEL_FWD_BF16, mod.KERNEL_FWD)
 
             def run(n, kernels=kernels, kind=kind, x=x, lens=lens, w=w,
@@ -10232,11 +10334,12 @@ def raw_rnn_bf16_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
                            for v in errs.values())
 
             got, fused_ms, n_fused = run(steps)
-            if n_fused != (steps, steps, 0, 0, 0):
+            if n_fused != (steps, steps, 0, 0, 0, 0):
                 raise AssertionError(
-                    f"{label} bf16: launches (bf16 fused-input, bf16 "
-                    f"backward, f32 fused-input, bf16 and f32 sequence "
-                    f"forward) = {n_fused}, want ({steps}, {steps}, 0, 0, 0)")
+                    f"{label} bf16: launches (bf16 fused-input, bf16 remat "
+                    f"and stored backward, f32 fused-input, bf16 and f32 "
+                    f"sequence forward) = {n_fused}, want ({steps}, "
+                    f"{steps}, 0, 0, 0, 0)")
             launches[kind] += n_fused[0]
             errs = errors(got)
             if not holds(errs):
@@ -10253,7 +10356,8 @@ def raw_rnn_bf16_path(dev, steps=RAW_RNN_STEPS) -> tuple[dict, dict]:
                 unfused_ms += run(steps)[1]
             finally:
                 R.fused_input_on = on
-            if n_unfused != (0, steps, 0, steps, 0):
+            # the unfused route's backward in its stored-gates form
+            if n_unfused != (0, 0, steps, 0, steps, 0):
                 raise AssertionError(f"{label} bf16: unfused launches "
                                      f"{n_unfused}")
             unfused_errs = errors(unfused)
@@ -10630,7 +10734,8 @@ def main() -> int:
     # rows 5, 7 and 17 in bf16: the bf16 text and CRNN training runs'
     # launches (the CRNN's backward row counts both directions)
     on_path = {"lstm_seq_fwd_bf16": (text_bf16_n["lstm_fwd_bf16"], "text"),
-               "lstm_seq_bwd_bf16": (text_bf16_n["lstm_bwd_bf16"], "text"),
+               "lstm_seq_bwd_stored_bf16": (
+                   text_bf16_n["lstm_bwd_stored_bf16"], "text"),
                "lstm_seq_bwd_bf16_crnn": (crnn_bf16_n["lstm_bwd_bf16"],
                                           "OCR CRNN"),
                "bilstm_seq_fwd_bf16": (crnn_bf16_n["bilstm_bf16"],
@@ -10677,4 +10782,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_fault_builds()
+    sys.exit(code)

@@ -61,6 +61,13 @@
 // layout the backward reads.  csrc/bilstm_seq.cu is no start for it: a
 // block there holds all of W_h, which caps D near 116.
 //
+// The gates slab (remat off): a row's gates lie in four runs of D units,
+// of which a block owns U, while a warp's cell covers 16 rows of 2 units
+// each, so a store from the cell touches 16 rows' sectors a few bytes
+// each.  Every forward form instead puts its chunk's gates in the staging
+// area ([rows][4][U], free once the product is summed) and the block
+// stores them a run of U units at a time (store_gates).
+//
 // Backward, reverse time.  (A) per own unit: the gates (recomputed from xw
 // and the shifted h/c stacks with gemm_gates and the forward's cell code
 // when remat is on, so both forms give the same bits; read from the slab
@@ -535,6 +542,35 @@ __device__ __forceinline__ void dh_share(const float* dg_s, int ldg,
   }
 }
 
+// The chunk's gates from the tile [rows][4U + V] (element g U + uu of a
+// row; V elements a store, Vec) to the slab at step t: thread i takes the
+// store column i % (4U / V) of the rows i / (4U / V) + k (threads / (4U /
+// V)), so consecutive threads store consecutive units of a run.  A Vec
+// never straddles two gates (V divides U).  Every thread of the block
+// must call it; it ends with the staging area free.
+template <class Elem, class Vec>
+__device__ __forceinline__ void store_gates(const Elem* tile, Elem* gates,
+                                            int b0, int rows, int t, int T,
+                                            int D, int U) {
+  constexpr int V = sizeof(Vec) / sizeof(Elem);
+  __syncthreads();       // the tile is written
+  const int n = 4 * U / V, per = blockDim.x / n, r0 = threadIdx.x / n;
+  const int c = V * (threadIdx.x - r0 * n), g = c / U;
+  const int u = blockIdx.x * U + c - g * U;
+  if (r0 < per && u < D) {
+    const size_t T4D = (size_t)T * 4 * D;
+    const Elem* src = tile + r0 * (4 * U + V) + c;
+    Elem* dst = gates + (b0 + r0) * T4D + (size_t)t * 4 * D +
+                (size_t)g * D + u;
+    for (int r = r0; r < rows; r += per) {
+      *reinterpret_cast<Vec*>(dst) = *reinterpret_cast<const Vec*>(src);
+      src += per * (4 * U + V);
+      dst += per * T4D;
+    }
+  }
+  __syncthreads();       // the tile is read: the staging area is free
+}
+
 // kFi: `in` is raw x [B, T, E] and the block keeps the [E][U][4] slice
 // of W_x (wxpack) before its W_h slice; otherwise `in` is xw [B, T, 4D]
 // (E, wxpack and bias unused).
@@ -626,17 +662,19 @@ lstm_fwd_kernel(const float* __restrict__ in, const float* __restrict__ mask,
         hs[b * TD + (size_t)t * D + u] = hn;
         cs[b * TD + (size_t)t * D + u] = cn;
         if (gates != nullptr) {
-          float* g = gates + b * T4D + (size_t)t * 4 * D;
-          g[u] = q.i;
-          g[D + u] = q.f;
-          g[2 * D + u] = q.g;
-          g[3 * D + u] = q.o;
+          float* g = a_s + r * (4 * U + 1) + uu;
+          g[0] = q.i;
+          g[U] = q.f;
+          g[2 * U] = q.g;
+          g[3 * U] = q.o;
         }
         if (s == T - 1) {
           hT[(size_t)b * D + u] = hn;
           cT[(size_t)b * D + u] = cn;
         }
       }
+      if (gates != nullptr)
+        store_gates<float, float>(a_s, gates, b0, rows, t, T, D, U);
     }
     grid.sync();
   }
@@ -1313,6 +1351,9 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
   bf16* w_s = reinterpret_cast<bf16*>(base + plan.wx);
   bf16* a_s = reinterpret_cast<bf16*>(base + plan.w);
   float* sums = reinterpret_cast<float*>(base + plan.w);
+  // the gates tile [kRows][4U + 2] (remat off) after the sums, in the ring
+  // (at least two stages: room for both)
+  bf16* tile = reinterpret_cast<bf16*>(sums + kRows * 4 * U);
   const int LDK = ld_k(D), LDE = kFi ? ld_k(E) : 0, NT = U / 2;
   const int lane = threadIdx.x & 31;
   const bool first_half = (threadIdx.x >> 5) < 4;
@@ -1386,11 +1427,11 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
           hs[o] = __float2bfloat16_rn(hn);
           cs[o] = cn;
           if (gates != nullptr) {
-            bf16* gr = gates + b * T4D + (size_t)t * 4 * D;
-            gr[u] = __float2bfloat16_rn(q.i);
-            gr[D + u] = __float2bfloat16_rn(q.f);
-            gr[2 * D + u] = __float2bfloat16_rn(q.g);
-            gr[3 * D + u] = __float2bfloat16_rn(q.o);
+            bf16* g = tile + rl * (4 * U + 2) + u - blockIdx.x * U;
+            g[0] = __float2bfloat16_rn(q.i);
+            g[U] = __float2bfloat16_rn(q.f);
+            g[2 * U] = __float2bfloat16_rn(q.g);
+            g[3 * U] = __float2bfloat16_rn(q.o);
           }
           if (s == T - 1) {
             hT[(size_t)b * D + u] = hn;
@@ -1398,6 +1439,8 @@ lstm_fwd_bf16_kernel(const bf16* __restrict__ in,
           }
         }
       }
+      if (gates != nullptr)
+        store_gates<bf16, __nv_bfloat162>(tile, gates, b0, rows, t, T, D, U);
       __syncthreads();   // the sums and the ring are free for the next chunk
     }
     grid.sync();

@@ -7,7 +7,10 @@ and ``bilstm_seq``: both directions of a fused-input BiLSTM in one forward).
 is one cooperative launch of ``csrc/lstm_seq.cu``'s forward kernel over
 every time step, and its backward one launch of the backward kernel
 (remat on: the gates are recomputed from xw and the shifted h/c stacks;
-off: read from the slab the forward stored; the two give the same bits).
+off: read from the slab the forward stored; the two give the same bits,
+and each form has its own launch count: ``KERNEL_BWD`` and
+``KERNEL_BWD_STORED``, in bf16 ``KERNEL_BWD_BF16`` and
+``KERNEL_BWD_STORED_BF16``).
 ``dW_h`` is one large ``torch.matmul`` over the [B*T] rows outside the
 kernel, as the JAX package leaves it to XLA.  In f32 the forward's
 recurrent product and the remat backward's (one routine, so both give the
@@ -63,12 +66,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_FWD = Kernel("lstm_seq", "lstm_fwd_f32", [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD = Kernel("lstm_seq", "lstm_bwd_f32", [_P] * 17 + [_I] * 6 + [_P])
+#: the same entry point in its stored-gates form, counted apart
+KERNEL_BWD_STORED = Kernel("lstm_seq", "lstm_bwd_f32",
+                           [_P] * 17 + [_I] * 6 + [_P])
 KERNEL_BI = Kernel("bilstm_seq", "bilstm_fwd_f32", [_P] * 22 + [_I] * 7 + [_P])
 KERNEL_FI = Kernel("lstm_seq", "lstm_fi_fwd_f32", [_P] * 13 + [_I] * 6 + [_P])
 KERNEL_FWD_BF16 = Kernel("lstm_seq", "lstm_fwd_bf16",
                          [_P] * 11 + [_I] * 5 + [_P])
 KERNEL_BWD_BF16 = Kernel("lstm_seq", "lstm_bwd_bf16",
                          [_P] * 20 + [_I] * 7 + [_P])
+#: the bf16 entry point in its stored-gates form, counted apart
+KERNEL_BWD_STORED_BF16 = Kernel("lstm_seq", "lstm_bwd_bf16",
+                                [_P] * 20 + [_I] * 7 + [_P])
 KERNEL_BI_BF16 = Kernel("bilstm_seq", "bilstm_fwd_bf16",
                         [_P] * 22 + [_I] * 4 + [_P])
 KERNEL_FI_BF16 = Kernel("lstm_seq", "lstm_fi_fwd_bf16",
@@ -603,7 +612,7 @@ def _bwd_kernel(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT, dcT,
     dh, dc = torch.empty_like(dhT), torch.empty_like(dcT)
     dpeep = torch.empty_like(peep)
     part = torch.empty(_part_floats(wpack.shape[0], d, b), device=hs.device)
-    KERNEL_BWD.launch_on(
+    (KERNEL_BWD if remat else KERNEL_BWD_STORED).launch_on(
         mask.device.index, _ptr(xw if remat else None),
         _ptr(None if remat else gates), mask.data_ptr(), wpack.data_ptr(),
         peep.data_ptr(), h0.data_ptr(), c0.data_ptr(), hs.data_ptr(),
@@ -644,7 +653,7 @@ def _bwd_kernel_bf16(xw, gates, mask, w_h, peep, h0, c0, hs, cs, dhs, dhT,
     # the step's dgates rounded to bf16, and the dh product's first pass
     xg = torch.empty(b, 4 * d, dtype=bf, device=dev)
     pp = torch.empty(blocks * mp * 64 * -(-b // 64), dtype=f32, device=dev)
-    KERNEL_BWD_BF16.launch_on(
+    (KERNEL_BWD_BF16 if remat else KERNEL_BWD_STORED_BF16).launch_on(
         mask.device.index, _ptr(xw if remat else None),
         _ptr(None if remat else gates), mask.data_ptr(), _ptr(wpack),
         w_h.data_ptr(), parts.data_ptr(), peep.data_ptr(), h0.data_ptr(),

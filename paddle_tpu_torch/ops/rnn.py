@@ -9,9 +9,13 @@ route: on the card, with the standard activations and a shape the
 kernels take (:func:`fused_input_fits`), :func:`lstm` and :func:`gru` run
 the projection inside the recurrence kernel (:func:`lstm_fi`,
 :func:`gru_fi`), as the JAX package does on the TPU.  Ragged batches
-freeze each row's state past its length.  LSTM gates are ordered [input,
-forget, cell (candidate), output]; GRU gates [update, reset, candidate],
-with Paddle's reset-before-product cell (:func:`gru_cell`)."""
+freeze each row's state past its length.  The one-direction sequence
+kernels' backward (:func:`lstm_fused`, :func:`gru_fused`) reads the gates
+slab its forward stored where that slab fits the card's memory
+(:func:`stored_slab_fits`), and recomputes the gates (remat) past it.
+LSTM gates are ordered [input, forget, cell (candidate), output]; GRU
+gates [update, reset, candidate], with Paddle's reset-before-product cell
+(:func:`gru_cell`)."""
 
 from __future__ import annotations
 
@@ -173,21 +177,72 @@ def lstm_fi(x: SequenceBatch, w_x, b, w_h, init: LSTMState, peephole=None,
             LSTMState(h=h_t.to(out), c=c_t.to(out)))
 
 
+#: the largest share of the card's memory still open to the process
+#: (:func:`card_memory_open`) that one stored gates slab may take.  A
+#: quarter leaves the backward room for its own f32 dgates (as large as an
+#: f32 slab) and for the layers after this one.
+STORED_SLAB_SHARE = 0.25
+
+
+def gates_slab_bytes(b: int, t: int, gates: int, d: int, dtype) -> int:
+    """Bytes of the [B, T, G·D] gates slab the forward stores for the
+    stored-gates backward, in the kernels' io dtype (G = 4 for the LSTM,
+    3 for the GRU)."""
+    return b * t * gates * d * torch.finfo(dtype).bits // 8
+
+
+def stored_slab_fits(slab_bytes: int, open_bytes: int) -> bool:
+    """The route rule of the one-direction recurrences' backward: the
+    stored-gates form where the slab takes at most STORED_SLAB_SHARE of
+    ``open_bytes`` (the card's memory still open to the process), else
+    remat.  Both forms give the same bits, so the rule moves memory and
+    time, never a number."""
+    return slab_bytes <= STORED_SLAB_SHARE * open_bytes
+
+
+def card_memory_open(device) -> int:
+    """Bytes the process can still allocate on ``device``'s card: the
+    driver's free memory (``torch.cuda.mem_get_info``) plus what the
+    caching allocator holds reserved but unallocated."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def on_card(device) -> bool:
+    """Whether ``device`` is a CUDA card (where ``remat=None`` asks the
+    route rule)."""
+    return torch.device(device).type == "cuda"
+
+
+def backward_remat(data, gates: int) -> bool:
+    """``remat=None``'s form for the kernels' io tensor ``data`` [B, T,
+    G·D] (already in the kernels' dtype): CPU tensors keep the stored form
+    (the JAX package's route off the TPU); on the card,
+    :func:`stored_slab_fits` against :func:`card_memory_open` decides."""
+    if not on_card(data.device):
+        return False
+    b, t, gd = data.shape
+    slab = gates_slab_bytes(b, t, gates, gd // gates, data.dtype)
+    return not stored_slab_fits(slab, card_memory_open(data.device))
+
+
 def lstm_fused(xw: SequenceBatch, w_h, init: LSTMState, peephole=None,
                reverse: bool = False, remat: bool | None = None):
     """Standard-activation LSTM over precomputed gate inputs through the
     sequence kernel (``kernels/lstm.lstm_seq``): xw a SequenceBatch of
     [B, T, 4D], peephole optional [3D] flat.  ``remat`` recomputes the
     gates in the backward instead of keeping the [B, T, 4D] slab; None
-    means on the card only, as the JAX package turns it on on the TPU
-    only.  Returns (SequenceBatch of h, last LSTMState)."""
+    asks :func:`backward_remat` (stored on the CPU; on the card stored
+    where the slab fits, else remat).  Returns (SequenceBatch of h, last
+    LSTMState)."""
     d = w_h.shape[0]
-    if remat is None:
-        remat = xw.data.device.type == "cuda"
     # the product's operands in one dtype by the JAX package's rule
     # (``ops/rnn.py:197``): a bf16 weight or xw makes both bf16; the h
     # carry in that dtype, c0 as given (the kernels keep c in f32)
     data, w_h_c = cast_for_matmul(xw.data, w_h)
+    if remat is None:
+        remat = backward_remat(data, 4)
     peep = (torch.zeros(3, d, dtype=w_h_c.dtype, device=w_h.device)
             if peephole is None else peephole.reshape(3, d).to(w_h_c.dtype))
     hs, (h_t, c_t) = lstm_kernels.lstm_seq(
@@ -240,15 +295,15 @@ def gru_fused(xw: SequenceBatch, w_h, w_hc, init, reverse: bool = False,
     sequence kernel (``kernels/gru.gru_seq``): xw a SequenceBatch of
     [B, T, 3D], w_h [D, 2D], w_hc [D, D], init [B, D].  ``remat``
     recomputes the gates in the backward instead of keeping the
-    [B, T, 3D] slab; None means on the card only, as the JAX package
-    turns it on on the TPU only.  The operands cast as JAX's ``gru_fused``
-    casts them (``ops/rnn.py:309-338``): xw and both weights to one dtype,
-    the carry to W_h's; hs and the last h come back in xw's dtype.  A D
-    past the kernel's tiling raises on the card.  Returns (SequenceBatch
-    of h, last h)."""
-    if remat is None:
-        remat = xw.data.device.type == "cuda"
+    [B, T, 3D] slab; None asks :func:`backward_remat` (stored on the CPU;
+    on the card stored where the slab fits, else remat).  The operands
+    cast as JAX's ``gru_fused`` casts them (``ops/rnn.py:309-338``): xw
+    and both weights to one dtype, the carry to W_h's; hs and the last h
+    come back in xw's dtype.  A D past the kernel's tiling raises on the
+    card.  Returns (SequenceBatch of h, last h)."""
     data, w_h_c, w_hc_c = cast_for_matmul(xw.data, w_h, w_hc)
+    if remat is None:
+        remat = backward_remat(data, 3)
     hs, h_t = gru_kernels.gru_seq(data, xw.mask(), w_h_c, w_hc_c,
                                   init.to(w_h_c.dtype), reverse=reverse,
                                   remat=remat)

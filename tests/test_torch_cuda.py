@@ -1157,12 +1157,13 @@ def test_lstm_kernels_match_plain(cuda, b, t, d, reverse):
     dhs, dh_t, dc_t = (_rand(rng, *s).to(cuda) for s in
                        ((b, t, d), (b, d), (b, d)))
     args = (mask, w_h, peep, h0, c0, hs, cs, dhs, dh_t, dc_t, reverse)
-    n_bwd = LK.KERNEL_BWD.launches
+    n_bwd = LK.KERNEL_BWD.launches, LK.KERNEL_BWD_STORED.launches
     stored = LK._bwd_kernel(None, gates, *args, False)
     remat = LK._bwd_kernel(xw, None, *args, True)
     again = LK._bwd_kernel(xw, None, *args, True)
     torch.cuda.synchronize()
-    assert LK.KERNEL_BWD.launches == n_bwd + 3
+    assert (LK.KERNEL_BWD.launches - n_bwd[0],
+            LK.KERNEL_BWD_STORED.launches - n_bwd[1]) == (2, 1)
     assert all(torch.equal(x, y) for x, y in zip(stored, remat))
     assert all(torch.equal(x, y) for x, y in zip(remat, again))
     want = LK._bwd_plain(xw, gates, *args, True)
@@ -1245,6 +1246,85 @@ def test_lstm_function_on_card_matches_the_cpu(cuda):
     for want, got in zip(*outs):
         assert ((got.cpu() - want).abs().max().item()
                 <= TOL * max(1.0, want.abs().max().item()))
+
+
+def _route_counts(mod, dtype):
+    """(remat, stored) backward launches of ``mod`` (kernels/lstm or
+    kernels/gru) in ``dtype``'s form."""
+    if dtype == torch.bfloat16:
+        return (mod.KERNEL_BWD_BF16.launches,
+                mod.KERNEL_BWD_STORED_BF16.launches)
+    return mod.KERNEL_BWD.launches, mod.KERNEL_BWD_STORED.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,b,t,d,length", [
+    ("lstm", 64, 128, 1280, 100),    # the text classifier's lstmemory
+    ("gru", 64, 32, 512, None)])     # the NMT width's grumemory, ragged
+def test_default_route_takes_the_stored_form_where_the_slab_fits(
+        cuda, dtype, kind, b, t, d, length):
+    """``ops.rnn.lstm_fused`` / ``gru_fused`` with ``remat=None`` on the
+    card at the text shape (B 64, T 128, D 1280) and at [64, 32, 512]:
+    the slab fits (``stored_slab_fits``), so the backward launches its
+    stored-gates form once and the remat form not at all; ``remat=True``
+    launches the remat form once; hs, the last state and every input
+    gradient are the same bits either way, and on a rerun."""
+    from paddle_tpu_torch.core.lod import SequenceBatch
+    from paddle_tpu_torch.ops import rnn as R
+    from paddle_tpu_torch.ops.kernels import gru as GK
+    from paddle_tpu_torch.ops.kernels import lstm as LK
+
+    gen = torch.Generator(device=cuda).manual_seed(d + t)
+    g = len(kind)      # 4 gates (LSTM), 3 (GRU)
+    if length is None:
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+        lens[: b // 2], lens[-1] = t, 1
+    else:
+        lens = torch.full((b,), length, device=cuda)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=cuda)
+
+    xw = rnd(b, t, g * d, scale=0.5).to(dtype)
+    w_h = rnd(d, g * d, scale=d ** -0.5).to(dtype)
+    peep, h0 = rnd(3 * d, scale=0.1).to(dtype), rnd(b, d, scale=0.5)
+    cot = rnd(b, t, d).to(dtype)
+    assert R.stored_slab_fits(R.gates_slab_bytes(b, t, g, d, dtype),
+                              R.card_memory_open(cuda))
+    assert not R.backward_remat(xw, g)
+
+    def run(remat):
+        leaves = [v.clone().requires_grad_() for v in (xw, w_h, peep, h0)]
+        seq = SequenceBatch(leaves[0], lens)
+        if kind == "lstm":
+            out, last = R.lstm_fused(
+                seq, leaves[1], R.LSTMState(h=leaves[3].to(dtype),
+                                            c=leaves[3]),
+                peephole=leaves[2], remat=remat)
+            last = list(last)
+        else:
+            out, h_t = R.gru_fused(seq, leaves[1][:, :2 * d],
+                                   leaves[1][:, 2 * d:], leaves[3].to(dtype),
+                                   remat=remat)
+            last, leaves = [h_t], leaves[:2] + leaves[3:]
+        loss = ((out.data * cot).float().sum()
+                + sum(v.float().sum() for v in last))
+        return [out.data, *last, *torch.autograd.grad(loss, leaves)]
+
+    mod = LK if kind == "lstm" else GK
+    n = _route_counts(mod, dtype)
+    stored = run(None)
+    torch.cuda.synchronize()
+    moved = tuple(a - c for a, c in zip(_route_counts(mod, dtype), n))
+    assert moved == (0, 1)
+    n = _route_counts(mod, dtype)
+    remat = run(True)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_route_counts(mod, dtype), n)) == (1, 0)
+    again = run(None)
+    for x, y, z in zip(stored, remat, again):
+        assert torch.isfinite(x).all()
+        assert torch.equal(x, y) and torch.equal(x, z)
 
 
 def test_lstm_wrapper_refuses_what_the_kernels_do_not_take(cuda):
@@ -2554,8 +2634,9 @@ def test_raw_rnn_route_is_the_predicted_one(cuda, kind):
     """``ops/rnn.lstm`` / ``gru`` on the card: where the predicate takes
     the shape, one fused-input forward and one remat backward launch and
     no launch of the sequence forward; one E past the shared-memory edge,
-    the projection and the sequence kernels (forward and remat backward)
-    instead; the two routes agree."""
+    the projection and the sequence kernels (forward and the backward in
+    its stored-gates form: the slab fits) instead; the two routes
+    agree."""
     from paddle_tpu_torch.core.lod import SequenceBatch
     from paddle_tpu_torch.ops import rnn as R
 
@@ -2569,7 +2650,7 @@ def test_raw_rnn_route_is_the_predicted_one(cuda, kind):
         seq = SequenceBatch(x.requires_grad_(),
                             mask.sum(1).long())
         n = (mod.KERNEL_FI.launches, mod.KERNEL_FWD.launches,
-             mod.KERNEL_BWD.launches)
+             mod.KERNEL_BWD.launches, mod.KERNEL_BWD_STORED.launches)
         if kind == "lstm":
             out, _ = R.lstm(seq, w[0], w[2], w[1])
         else:
@@ -2577,8 +2658,9 @@ def test_raw_rnn_route_is_the_predicted_one(cuda, kind):
         (dx,) = torch.autograd.grad(out.data.sum(), x)
         torch.cuda.synchronize()
         got = (mod.KERNEL_FI.launches - n[0], mod.KERNEL_FWD.launches - n[1],
-               mod.KERNEL_BWD.launches - n[2])
-        assert got == ((1, 0, 1) if fused else (0, 1, 1))
+               mod.KERNEL_BWD.launches - n[2],
+               mod.KERNEL_BWD_STORED.launches - n[3])
+        assert got == ((1, 0, 1, 0) if fused else (0, 1, 0, 1))
         assert torch.isfinite(out.data).all() and torch.isfinite(dx).all()
 
 
@@ -2650,7 +2732,9 @@ def _bf16_counts():
 
     return {k: v.launches for k, v in (
         ("fwd", LK.KERNEL_FWD), ("bwd", LK.KERNEL_BWD),
+        ("bwd_stored", LK.KERNEL_BWD_STORED),
         ("fwd_bf16", LK.KERNEL_FWD_BF16), ("bwd_bf16", LK.KERNEL_BWD_BF16),
+        ("bwd_stored_bf16", LK.KERNEL_BWD_STORED_BF16),
         ("bi", LK.KERNEL_BI), ("bi_bf16", LK.KERNEL_BI_BF16))}
 
 
@@ -2682,8 +2766,8 @@ def test_lstm_bf16_forms_against_their_forced_steps(cuda, b, t, d, reverse):
     assert case["bwd"]["ok"], case["bwd"]
     assert not any(f["ok"] for f in case["faults"].values()), case["faults"]
     assert {k: after[k] - before[k] for k in after} == {
-        "fwd": 0, "bwd": 0, "fwd_bf16": 3, "bwd_bf16": 3, "bi": 0,
-        "bi_bf16": 0}
+        "fwd": 0, "bwd": 0, "bwd_stored": 0, "fwd_bf16": 3, "bwd_bf16": 2,
+        "bwd_stored_bf16": 1, "bi": 0, "bi_bf16": 0}
 
 
 @pytest.mark.parametrize("b,t,e,d", [(3, 5, 16, 8), (17, 9, 40, 24),
@@ -2722,8 +2806,8 @@ def test_bilstm_bf16_and_the_backward_over_its_projection(cuda, b, t, e, d):
     assert not any(f["ok"] for f in case["bilstm_faults"].values())
     assert not any(f["ok"] for f in case["bwd_faults"].values())
     assert {k: after[k] - before[k] for k in after} == {
-        "fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 4, "bi": 0,
-        "bi_bf16": 2}
+        "fwd": 0, "bwd": 0, "bwd_stored": 0, "fwd_bf16": 0, "bwd_bf16": 4,
+        "bwd_stored_bf16": 0, "bi": 0, "bi_bf16": 2}
 
 
 def test_lstm_bf16_functions_on_card_match_the_cpu(cuda):
@@ -3055,9 +3139,11 @@ def _last_bf16_counts():
         ("lstm_fi", LK.KERNEL_FI), ("lstm_fi_bf16", LK.KERNEL_FI_BF16),
         ("lstm_fwd_bf16", LK.KERNEL_FWD_BF16),
         ("lstm_bwd_bf16", LK.KERNEL_BWD_BF16),
+        ("lstm_bwd_stored_bf16", LK.KERNEL_BWD_STORED_BF16),
         ("gru_fi", GK.KERNEL_FI), ("gru_fi_bf16", GK.KERNEL_FI_BF16),
         ("gru_fwd_bf16", GK.KERNEL_FWD_BF16),
         ("gru_bwd_bf16", GK.KERNEL_BWD_BF16),
+        ("gru_bwd_stored_bf16", GK.KERNEL_BWD_STORED_BF16),
         ("xent_fwd", SX.KERNEL_FWD), ("xent_bwd", SX.KERNEL_BWD),
         ("xent_fwd_bf16", SX.KERNEL_FWD_BF16),
         ("xent_bwd_bf16", SX.KERNEL_BWD_BF16),
@@ -3147,8 +3233,8 @@ def test_raw_rnn_bf16_entries_take_the_bf16_fi_forms(cuda, kind):
     """``ops.rnn.lstm`` / ``gru`` on bf16 x and weights on the card take the
     bf16 fused-input forward and the bf16 remat backward, once each, and
     no f32 fused-input or sequence forward; with the routing off, the
-    unfused bf16 route (the bf16 sequence forward, then the same
-    backward)."""
+    unfused bf16 route (the bf16 sequence forward, then the backward in
+    its stored-gates form: the slab fits)."""
     import chip_smoke as S
     from paddle_tpu_torch.ops import rnn as R
 
@@ -3168,7 +3254,7 @@ def test_raw_rnn_bf16_entries_take_the_bf16_fi_forms(cuda, kind):
     finally:
         R.fused_input_on = on
     assert _moved(before, _last_bf16_counts()) == {
-        f"{kind}_fwd_bf16": 1, f"{kind}_bwd_bf16": 1}
+        f"{kind}_fwd_bf16": 1, f"{kind}_bwd_stored_bf16": 1}
 
 
 @pytest.mark.parametrize("n,v,offset", [
